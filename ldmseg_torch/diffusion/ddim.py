@@ -1,0 +1,151 @@
+"""The DDIM noise schedule (counterpart of ``ldmseg_tpu/diffusion/ddim.py``).
+
+The tables are built in numpy exactly as the JAX package builds them
+(``alphas_cumprod`` a float64 cumprod cast to float32) and held as fp32
+tensors on the caller's device; per-step scalars stay 0-d fp32 tensors, so
+the step runs the same fp32 arithmetic as the JAX step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+def _betas_for_alpha_bar(num_steps: int, max_beta: float = 0.999
+                         ) -> np.ndarray:
+    """Glide cosine schedule."""
+
+    def alpha_bar(t):
+        return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+
+    return np.array([min(1 - alpha_bar((i + 1) / num_steps)
+                         / alpha_bar(i / num_steps), max_beta)
+                     for i in range(num_steps)], dtype=np.float32)
+
+
+def make_betas(beta_schedule: str, num_train_timesteps: int,
+               beta_start: float, beta_end: float) -> np.ndarray:
+    """Beta table for the four supported schedules."""
+    if beta_schedule == "linear":
+        return np.linspace(beta_start, beta_end, num_train_timesteps,
+                           dtype=np.float32)
+    if beta_schedule == "scaled_linear":
+        return np.linspace(beta_start**0.5, beta_end**0.5,
+                           num_train_timesteps, dtype=np.float32) ** 2
+    if beta_schedule == "squaredcos_cap_v2":
+        return _betas_for_alpha_bar(num_train_timesteps)
+    if beta_schedule == "sigmoid":
+        x = np.linspace(-6, 6, num_train_timesteps, dtype=np.float32)
+        return (1.0 / (1.0 + np.exp(-x))) * (beta_end - beta_start) \
+            + beta_start
+    raise NotImplementedError(f"beta_schedule {beta_schedule!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMSchedule:
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    final_alpha_cumprod: torch.Tensor
+    num_train_timesteps: int
+    prediction_type: str
+    clip_sample: bool
+    clip_sample_range: float
+    init_noise_sigma: float = 1.0
+
+
+def make_ddim_schedule(num_train_timesteps: int = 1000,
+                       beta_start: float = 0.0001, beta_end: float = 0.02,
+                       beta_schedule: str = "linear",
+                       clip_sample: bool = True,
+                       set_alpha_to_one: bool = True,
+                       prediction_type: str = "epsilon",
+                       clip_sample_range: float = 1.0,
+                       device="cuda", **_unused) -> DDIMSchedule:
+    """Build the schedule; the defaults are the reference constructor's, the
+    LDM config passes scaled_linear 8.5e-4 -> 0.012, clip_sample=False and
+    set_alpha_to_one=False. Keys of ``noise_scheduler_kwargs`` that only
+    training reads (loss weights) are ignored."""
+    betas = make_betas(beta_schedule, num_train_timesteps, beta_start,
+                       beta_end)
+    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    final = np.float32(1.0) if set_alpha_to_one else alphas_cumprod[0]
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                               device=device)
+
+    return DDIMSchedule(
+        betas=t(betas), alphas_cumprod=t(alphas_cumprod),
+        final_alpha_cumprod=t(final),
+        num_train_timesteps=num_train_timesteps,
+        prediction_type=prediction_type, clip_sample=clip_sample,
+        clip_sample_range=clip_sample_range)
+
+
+def inference_timesteps(num_train_timesteps: int, num_inference_steps: int
+                        ) -> np.ndarray:
+    """Descending inference timesteps with the fork's offset
+    ``step_ratio - 1``, so that t = T-1 is always sampled (999, 979, ...,
+    19 for 1000/50)."""
+    step_ratio = num_train_timesteps // num_inference_steps
+    ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
+    return ts.astype(np.int64) + step_ratio - 1
+
+
+def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int
+             ) -> torch.Tensor:
+    return table[t].reshape((-1,) + (1,) * (ndim - 1))
+
+
+def add_noise(sched: DDIMSchedule, original_samples: torch.Tensor,
+              noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0)."""
+    ac = _extract(sched.alphas_cumprod.to(original_samples.dtype), timesteps,
+                  original_samples.ndim)
+    return ac**0.5 * original_samples + (1.0 - ac) ** 0.5 * noise
+
+
+def remove_noise(sched: DDIMSchedule, noisy_samples: torch.Tensor,
+                 noise: torch.Tensor, timesteps: torch.Tensor
+                 ) -> torch.Tensor:
+    """Invert :func:`add_noise` given the (predicted) noise."""
+    ac = _extract(sched.alphas_cumprod.to(noisy_samples.dtype), timesteps,
+                  noisy_samples.ndim)
+    return (noisy_samples - (1.0 - ac) ** 0.5 * noise) / ac**0.5
+
+
+def ddim_step(sched: DDIMSchedule, model_output: torch.Tensor,
+              timestep: int, sample: torch.Tensor, num_inference_steps: int):
+    """One deterministic (eta=0) DDIM update at the integer ``timestep``.
+    Returns ``(prev_sample, pred_original_sample)``."""
+    prev_t = timestep - sched.num_train_timesteps // num_inference_steps
+    alpha_prod_t = sched.alphas_cumprod[timestep]
+    alpha_prod_t_prev = (sched.alphas_cumprod[prev_t] if prev_t >= 0
+                         else sched.final_alpha_cumprod)
+    beta_prod_t = 1.0 - alpha_prod_t
+
+    if sched.prediction_type == "epsilon":
+        pred_x0 = (sample - beta_prod_t**0.5 * model_output) \
+            / alpha_prod_t**0.5
+        pred_eps = model_output
+    elif sched.prediction_type == "sample":
+        pred_x0 = model_output
+        pred_eps = (sample - alpha_prod_t**0.5 * pred_x0) / beta_prod_t**0.5
+    elif sched.prediction_type == "v_prediction":
+        pred_x0 = alpha_prod_t**0.5 * sample - beta_prod_t**0.5 * model_output
+        pred_eps = alpha_prod_t**0.5 * model_output \
+            + beta_prod_t**0.5 * sample
+    else:
+        raise NotImplementedError(sched.prediction_type)
+
+    if sched.clip_sample:
+        pred_x0 = pred_x0.clamp(-sched.clip_sample_range,
+                                sched.clip_sample_range)
+
+    direction = (1.0 - alpha_prod_t_prev) ** 0.5 * pred_eps
+    prev_sample = alpha_prod_t_prev**0.5 * pred_x0 + direction
+    return prev_sample, pred_x0

@@ -1,0 +1,173 @@
+"""JAX parameter trees -> the port's ``state_dict``s.
+
+Takes the Flax trees of the JAX package as nested dicts of arrays (numpy, or
+anything ``numpy.asarray`` reads) and returns ``{key: torch.Tensor}`` dicts
+that the port's modules load with ``strict=True``. The keys and leaf
+conventions are those of ``ldmseg_tpu/models/torch_export.py`` (its own
+copy here):
+
+  * conv ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``;
+  * dense ``[in, out]`` -> ``[out, in]``;
+  * conv-transpose ``[kh, kw, in, out]`` -> taps flipped,
+    ``[in, out, kh, kw]``;
+  * norm ``scale``/``bias`` -> ``weight``/``bias``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _conv(sd: StateDict, name: str, leaf) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def _conv_transpose(sd: StateDict, name: str, leaf) -> None:
+    k = np.asarray(leaf["kernel"])[::-1, ::-1]  # undo the correlation flip
+    sd[f"{name}.weight"] = _t(k.transpose(2, 3, 0, 1))
+    sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def _dense(sd: StateDict, name: str, leaf) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["kernel"]).transpose(1, 0))
+    if "bias" in leaf:
+        sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def _norm(sd: StateDict, name: str, leaf) -> None:
+    sd[f"{name}.weight"] = _t(leaf["scale"])
+    sd[f"{name}.bias"] = _t(leaf["bias"])
+
+
+def _resnet(sd: StateDict, pfx: str, node) -> None:
+    _norm(sd, f"{pfx}.norm1", node["norm1"])
+    _conv(sd, f"{pfx}.conv1", node["conv1"])
+    _norm(sd, f"{pfx}.norm2", node["norm2"])
+    _conv(sd, f"{pfx}.conv2", node["conv2"])
+    if "time_emb_proj" in node:
+        _dense(sd, f"{pfx}.time_emb_proj", node["time_emb_proj"])
+    if "conv_shortcut" in node:
+        _conv(sd, f"{pfx}.conv_shortcut", node["conv_shortcut"])
+
+
+def _attention(sd: StateDict, pfx: str, node) -> None:
+    for ours in ("to_q", "to_k", "to_v"):
+        _dense(sd, f"{pfx}.{ours}", node[ours])
+    _dense(sd, f"{pfx}.to_out.0", node["to_out"])
+
+
+def _transformer(sd: StateDict, pfx: str, node) -> None:
+    _norm(sd, f"{pfx}.norm", node["norm"])
+    _conv(sd, f"{pfx}.proj_in", node["proj_in"])
+    _conv(sd, f"{pfx}.proj_out", node["proj_out"])
+    i = 0
+    while f"block{i}" in node:
+        bp, blk = f"{pfx}.transformer_blocks.{i}", node[f"block{i}"]
+        _norm(sd, f"{bp}.norm1", blk["norm1"])
+        _attention(sd, f"{bp}.attn1", blk["attn1"])
+        _norm(sd, f"{bp}.norm3", blk["norm3"])
+        _dense(sd, f"{bp}.ff.net.0.proj", blk["ff"]["proj_in"])
+        _dense(sd, f"{bp}.ff.net.2", blk["ff"]["proj_out"])
+        i += 1
+
+
+def _root(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
+
+
+def unet_state_dict_from_jax(params: Mapping, config) -> StateDict:
+    """JAX ``UNet2DCondition`` tree -> :class:`~.unet.UNet2DCondition` state
+    dict. ``config`` is a ``UNetConfig`` of either package."""
+    p = _root(params)
+    n_blocks = len(config.block_out_channels)
+    lpb = config.layers_per_block
+    sd: StateDict = {}
+    _conv(sd, "conv_in", p["conv_in"])
+    _dense(sd, "time_embedding.linear_1", p["time_embedding"]["linear_1"])
+    _dense(sd, "time_embedding.linear_2", p["time_embedding"]["linear_2"])
+    _norm(sd, "conv_norm_out", p["conv_norm_out"])
+    _conv(sd, "conv_out", p["conv_out"])
+    for i in range(n_blocks):
+        blk = p[f"down_blocks{i}"]
+        for j in range(lpb):
+            _resnet(sd, f"down_blocks.{i}.resnets.{j}", blk[f"resnet{j}"])
+            if config.attn_down[i]:
+                _transformer(sd, f"down_blocks.{i}.attentions.{j}",
+                             blk[f"attn{j}"])
+        if i < n_blocks - 1:
+            _conv(sd, f"down_blocks.{i}.downsamplers.0.conv",
+                  blk["downsample"]["conv"])
+    mid = p["mid_block"]
+    _resnet(sd, "mid_block.resnets.0", mid["resnet0"])
+    _transformer(sd, "mid_block.attentions.0", mid["attn"])
+    _resnet(sd, "mid_block.resnets.1", mid["resnet1"])
+    attn_up = tuple(reversed(config.attn_down))
+    for i in range(n_blocks):
+        blk = p[f"up_blocks{i}"]
+        for j in range(lpb + 1):
+            _resnet(sd, f"up_blocks.{i}.resnets.{j}", blk[f"resnet{j}"])
+            if attn_up[i]:
+                _transformer(sd, f"up_blocks.{i}.attentions.{j}",
+                             blk[f"attn{j}"])
+        if i < n_blocks - 1:
+            _conv(sd, f"up_blocks.{i}.upsamplers.0.conv",
+                  blk["upsample"]["conv"])
+    return sd
+
+
+def image_vae_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``ImageVAE`` encoder tree (as ``ImageVAE.encode`` initialises it)
+    -> :class:`~.image_vae.ImageVAE` state dict."""
+    p = _root(params)
+    enc = p["encoder"]
+    sd: StateDict = {}
+    _conv(sd, "encoder.conv_in", enc["conv_in"])
+    _norm(sd, "encoder.conv_norm_out", enc["norm_out"])
+    _conv(sd, "encoder.conv_out", enc["conv_out"])
+    i = 0
+    while f"down{i}" in enc:
+        blk = enc[f"down{i}"]
+        j = 0
+        while f"resnet{j}" in blk:
+            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}",
+                    blk[f"resnet{j}"])
+            j += 1
+        if "downsample" in blk:
+            _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                  blk["downsample"])
+        i += 1
+    _resnet(sd, "encoder.mid_block.resnets.0", enc["mid_resnet0"])
+    _resnet(sd, "encoder.mid_block.resnets.1", enc["mid_resnet1"])
+    at = enc["mid_attn"]
+    _norm(sd, "encoder.mid_block.attentions.0.group_norm", at["group_norm"])
+    _attention(sd, "encoder.mid_block.attentions.0", at)
+    _conv(sd, "quant_conv", p["quant_conv"])
+    return sd
+
+
+def seg_vae_state_dict_from_jax(params: Mapping, config: Mapping
+                                ) -> StateDict:
+    """JAX ``SegVAE`` tree -> :class:`~.seg_vae.SegVAE` (decoder) state dict
+    with the reference's Sequential indices. ``config`` is the
+    ``vae_model_kwargs`` the model was built from."""
+    dec = _root(params)["decoder"]
+    sd: StateDict = {}
+    _conv(sd, "decoder.0", dec["in_conv"])
+    idx = 2  # conv_in + Identity (no mid blocks)
+    for i in range(config.get("num_upscalers", 1)):
+        _conv_transpose(sd, f"decoder.{idx}", dec[f"up{i}_convt"])
+        _norm(sd, f"decoder.{idx + 1}", dec[f"up{i}_ln"]["ln"])
+        idx += 3  # convT, LayerNorm2d, SiLU
+    _norm(sd, f"decoder.{idx}", dec["norm"])
+    _conv(sd, f"decoder.{idx + 2}", dec["out_conv"])
+    return sd

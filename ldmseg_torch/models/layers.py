@@ -1,0 +1,211 @@
+"""Shared building blocks, NCHW (counterpart of
+``ldmseg_tpu/models/layers.py``).
+
+Norms compute in fp32 and return the input dtype, as Flax's ``GroupNorm`` and
+``LayerNorm`` do for bf16 inputs. Parameter names follow the diffusers /
+reference state-dict keys that ``ldmseg_tpu/models/torch_export.py`` emits.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import fused_self_attention
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm computed in fp32 (Flax ``nn.GroupNorm``; its default eps is
+    1e-6, torch's 1e-5, so eps is always given)."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.normalize(x).to(x.dtype)
+
+
+class GroupNormSiLU(GroupNorm):
+    """GN + SiLU, both in fp32: the fp32 path of the JAX ``GroupNormSiLU``
+    (its ``lowp``, ``quantize`` and ``use_pallas`` variants belong to the
+    int8 slice)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.normalize(x)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, computed in fp32 (Flax ``nn.LayerNorm``,
+    eps 1e-6 by default)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class LayerNorm2d(LayerNorm):
+    """Per-pixel LayerNorm over the channel axis of NCHW (reference
+    vae.py:310-323, detectron2 style)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1,
+            padding: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=padding)
+
+
+class ResnetBlock(nn.Module):
+    """diffusers ResnetBlock2D: GN-SiLU-conv twice plus a skip, with the
+    time-embedding bias between the halves when ``temb_channels`` is set."""
+
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
+                 eps: float = 1e-6, temb_channels: Optional[int] = None):
+        super().__init__()
+        self.norm1 = GroupNormSiLU(groups, in_channels, eps)
+        self.conv1 = conv3x3(in_channels, out_channels)
+        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+                              if temb_channels else None)
+        self.norm2 = GroupNormSiLU(groups, out_channels, eps)
+        self.conv2 = conv3x3(out_channels, out_channels)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x))
+        if temb is not None:
+            t = self.time_emb_proj(F.silu(temb))
+            h = h + t.to(h.dtype)[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class AttentionBlock2D(nn.Module):
+    """Single-head spatial self-attention over HW tokens (the diffusers VAE
+    mid-block attention). ``use_fused`` sends it to K1, which takes head dims
+    up to 160: at the SD width (D=512) a CUDA input then raises."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6,
+                 num_heads: int = 1, use_fused: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.use_fused = use_fused
+        self.group_norm = GroupNorm(groups, channels, eps)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        y = self.group_norm(x).flatten(2).transpose(1, 2)  # [B, HW, C]
+        hd = c // self.num_heads
+        q, k, v = (proj(y).reshape(b, h * w, self.num_heads, hd)
+                   for proj in (self.to_q, self.to_k, self.to_v))
+        if self.use_fused:
+            y = fused_self_attention(q, k, v, 1.0 / math.sqrt(hd))
+        else:
+            attn = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            attn = torch.softmax(attn, dim=-1)
+            y = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        y = self.to_out[0](y.reshape(b, h * w, c))
+        return x + y.transpose(1, 2).reshape(b, c, h, w)
+
+
+class MidBlock2D(nn.Module):
+    """diffusers UNetMidBlock2D without cross-attention: resnet, optional
+    self-attention, resnet."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6,
+                 add_attention: bool = False, use_fused: bool = False):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock(channels, channels, groups, eps) for _ in range(2)])
+        self.attentions = nn.ModuleList(
+            [AttentionBlock2D(channels, groups, eps, use_fused=use_fused)]
+            if add_attention else [])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.resnets[0](x)
+        for attn in self.attentions:
+            x = attn(x)
+        return self.resnets[1](x)
+
+
+class ConvTranspose2x(nn.ConvTranspose2d):
+    """ConvTranspose 2x2, stride 2. The JAX module computes it as one matmul
+    plus a pixel shuffle on its ``[2, 2, Cin, Cout]`` kernel; the weight here
+    is torch's ``[Cin, Cout, 2, 2]`` with the taps flipped
+    (``models/convert.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 2, stride=2)
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal timestep embedding in fp32 with the SD flags (diffusers
+    ``get_timestep_embedding``, flip_sin_to_cos=True, no frequency shift):
+    ``[cos, sin]`` of ``t * 10000^(-i / (dim/2))``."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device) / half
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer MLP over the sinusoidal embedding. It runs in the dtype of
+    its input (fp32 in the UNet) with the weights cast to it, as Flax
+    promotes fp32 inputs against bf16 weights."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        def dense(layer, x):
+            return F.linear(x, layer.weight.to(x.dtype),
+                            layer.bias.to(x.dtype))
+        return dense(self.linear_2, F.silu(dense(self.linear_1, emb)))
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, gen: torch.Generator) -> None:
+    """Seeded random weights: LeCun-normal convs and linears (Flax's
+    default), zero biases, unit norm scales."""
+    for m in module.modules():
+        params = dict(m.named_parameters(recurse=False))
+        if not params:
+            continue
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            w = m.weight
+            fan_in = (w.shape[0] if isinstance(m, nn.ConvTranspose2d)
+                      else w.shape[1]) * w[0, 0].numel()
+            w.normal_(0.0, fan_in ** -0.5, generator=gen)
+        else:
+            params["weight"].fill_(1.0)
+        if params.get("bias") is not None:
+            params["bias"].zero_()

@@ -1,0 +1,123 @@
+"""Where the time of the sampling path goes on the card.
+
+    python -m ldmseg_torch.tools.profile_sampling
+
+Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
+VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
+weights and traces, with ``torch.profiler``, (a) 5 UNet forwards at batch
+2 on a 32x64 latent and (b) one 50-step ``sample_panoptic`` call on 2
+frames of 256x512. For each window it prints one JSON line: wall time,
+device time summed over kernels, the device's busy share (the union of
+kernel intervals over the wall time), device time by kernel family and the
+top kernels. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+
+FAMILIES = (  # first match wins
+    ("K1 attention_fwd", r"attention_fwd_kernel"),
+    ("group/layer norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|"
+                         r"welford|RowwiseMoments|ComputeFused"),
+    ("convolution", r"conv|cudnn|implicit|xmma|fprop|dgrad|nchw|nhwc"),
+    ("matmul", r"gemm|cutlass|nvjet|gemv|sm90_|sm80_"),
+    ("softmax", r"softmax"),
+    ("copy/cat/cast", r"copy|cat|Cat|convert|fill|Memcpy|memcpy"),
+    ("elementwise", r"elementwise|vectorized|unrolled|silu|gelu|add|mul"),
+)
+
+
+def _family(name: str) -> str:
+    for fam, pattern in FAMILIES:
+        if re.search(pattern, name):
+            return fam
+    return "other"
+
+
+def _summary(prof, wall_s: float, per: int, label: str) -> dict:
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"window": label, "wall_ms": wall_s * 1e3 / per,
+                "device_ms": "not measured (no device events in trace)"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    by_name, by_family = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        fam = _family(e.name)
+        by_family[fam] = by_family.get(fam, 0.0) + us
+    device_us = sum(by_family.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "window": label,
+        "per": per,
+        "wall_ms": wall_s * 1e3 / per,
+        "device_ms": device_us / 1e3 / per,
+        "busy_share": busy / (wall_s * 1e6),
+        "kernel_launches": len(kernels) // per,
+        "families_ms": {k: v / 1e3 / per for k, v in
+                        sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": [[n[:90], us / 1e3 / per] for n, us in top],
+    }
+
+
+def _profile(fn, per: int, label: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(per):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _summary(prof, wall, per, label)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_sampling: no CUDA device", file=sys.stderr)
+        return 1
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
+
+    cfg = merge_dicts(DEFAULT_CONFIG, {"train_kwargs": {
+        "self_condition": True, "weight_dtype": "bfloat16"}})
+    trainer = TrainerDiffusion(cfg)
+    trainer.init_params(seed=0)
+    unet = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, unet.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    image = np.random.RandomState(0).randn(2, 256, 512, 3).astype(
+        np.float32)
+    with torch.inference_mode():
+        print(json.dumps(_profile(lambda: unet(x, t), 5,
+                                  "UNet forward, bf16, [2, 12, 32, 64]")),
+              flush=True)
+    print(json.dumps(_profile(
+        lambda: trainer.sample_panoptic({"image": image}), 1,
+        "sample_panoptic, 50 DDIM steps, 2 x 256x512")), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
