@@ -45,11 +45,40 @@ def make_betas(beta_schedule: str, num_train_timesteps: int,
     raise NotImplementedError(f"beta_schedule {beta_schedule!r}")
 
 
+LOSS_WEIGHT_MODES = ("inverse_log_snr", "max_clamp_snr", "linear", "fixed",
+                     "none")
+
+
+def compute_loss_weights(alphas_cumprod: np.ndarray,
+                         mode: str = "max_clamp_snr",
+                         max_snr: float = 5.0) -> np.ndarray:
+    """Per-timestep loss weights from the SNR alpha / (1 - alpha), in numpy
+    float64 and returned as float32, as the JAX package computes them."""
+    if mode not in LOSS_WEIGHT_MODES:
+        raise ValueError(f"loss weight mode {mode!r}: expected one of "
+                         f"{LOSS_WEIGHT_MODES}")
+    snr = alphas_cumprod / (1.0 - alphas_cumprod)
+    if mode == "inverse_log_snr":
+        w = np.clip(np.log(1.0 / snr), 1.0, None)
+        w = w / w[-1]
+    elif mode == "max_clamp_snr":
+        w = np.clip(snr, None, max_snr) / snr
+    elif mode == "fixed":
+        w = snr.copy()
+        w[: len(w) // 4] = 0.1
+    elif mode == "linear":
+        w = np.arange(1, len(snr) + 1, dtype=np.float64) / len(snr)
+    else:
+        w = np.ones_like(snr)
+    return w.astype(np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class DDIMSchedule:
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     final_alpha_cumprod: torch.Tensor
+    weights: torch.Tensor
     num_train_timesteps: int
     prediction_type: str
     clip_sample: bool
@@ -64,15 +93,18 @@ def make_ddim_schedule(num_train_timesteps: int = 1000,
                        set_alpha_to_one: bool = True,
                        prediction_type: str = "epsilon",
                        clip_sample_range: float = 1.0,
+                       weight: str = "none", max_snr: float = 5.0,
                        device="cuda", **_unused) -> DDIMSchedule:
     """Build the schedule; the defaults are the reference constructor's, the
     LDM config passes scaled_linear 8.5e-4 -> 0.012, clip_sample=False and
-    set_alpha_to_one=False. Keys of ``noise_scheduler_kwargs`` that only
-    training reads (loss weights) are ignored."""
+    set_alpha_to_one=False. ``weight`` and ``max_snr`` choose the training
+    loss's per-timestep weights (:func:`compute_loss_weights`)."""
     betas = make_betas(beta_schedule, num_train_timesteps, beta_start,
                        beta_end)
     alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
     final = np.float32(1.0) if set_alpha_to_one else alphas_cumprod[0]
+    weights = compute_loss_weights(alphas_cumprod, mode=weight,
+                                   max_snr=max_snr)
 
     def t(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float32),
@@ -80,7 +112,7 @@ def make_ddim_schedule(num_train_timesteps: int = 1000,
 
     return DDIMSchedule(
         betas=t(betas), alphas_cumprod=t(alphas_cumprod),
-        final_alpha_cumprod=t(final),
+        final_alpha_cumprod=t(final), weights=t(weights),
         num_train_timesteps=num_train_timesteps,
         prediction_type=prediction_type, clip_sample=clip_sample,
         clip_sample_range=clip_sample_range)

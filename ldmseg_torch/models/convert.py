@@ -157,11 +157,26 @@ def image_vae_state_dict_from_jax(params: Mapping) -> StateDict:
 
 def seg_vae_state_dict_from_jax(params: Mapping, config: Mapping
                                 ) -> StateDict:
-    """JAX ``SegVAE`` tree -> :class:`~.seg_vae.SegVAE` (decoder) state dict
-    with the reference's Sequential indices. ``config`` is the
-    ``vae_model_kwargs`` the model was built from."""
-    dec = _root(params)["decoder"]
+    """JAX ``SegVAE`` tree -> :class:`~.seg_vae.SegVAE` state dict with the
+    reference's Sequential indices (the port's copy of
+    ``torch_import.seg_vae_key_map``). ``config`` is the ``vae_model_kwargs``
+    the model was built from."""
+    root = _root(params)
     sd: StateDict = {}
+    enc = root["encoder"]
+    _conv(sd, "encoder.0", enc["in_conv"])
+    idx = 2  # conv_in + SiLU
+    for i in range(len(config.get("block_out_channels",
+                                  (32, 64, 128, 256))) - 1):
+        _conv(sd, f"encoder.{idx}", enc[f"down{i}_conv1"])
+        _conv(sd, f"encoder.{idx + 1}", enc[f"down{i}_conv2"])
+        idx += 3  # conv, stride-2 conv, SiLU
+    _conv(sd, f"encoder.{idx}", enc["out_conv1"])
+    idx += 2  # conv + Identity (no mid blocks)
+    _norm(sd, f"encoder.{idx}", enc["norm"])
+    _conv(sd, f"encoder.{idx + 2}", enc["out_conv2"])
+
+    dec = root["decoder"]
     _conv(sd, "decoder.0", dec["in_conv"])
     idx = 2  # conv_in + Identity (no mid blocks)
     for i in range(config.get("num_upscalers", 1)):

@@ -8,10 +8,10 @@ sinusoidal time embeddings. Self-attention goes to K1
 set, else to the plain einsum path. Parameter names are the diffusers keys
 that ``ldmseg_tpu/models/torch_export.py:unet_sd_from_params`` emits.
 
-This slice holds the sampling path of the trainer's UNet: no
-cross-attention, a plain ``conv_in``, the SD time embedding
-(``flip_sin_to_cos``, no frequency shift). The rest of the reference
-surgery is a later slice.
+The port holds the trainer's default UNet: no cross-attention, a plain
+``conv_in``, the SD time embedding (``flip_sin_to_cos``, no frequency
+shift). K1/K2 make the fused self-attention differentiable. The rest of
+the reference surgery is a later slice.
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
-"""K1: the UNet's multi-head self-attention forward.
+"""K1 and K2: the UNet's multi-head self-attention, forward and backward.
 
 Counterpart of ``ldmseg_tpu/ops/pallas/attention.py``: ``fused_self_attention``
-(:1530), the Pallas kernel ``_attn_kernel``/``_attn_body`` (:28, :35) behind
-``_fused_impl`` (:1269) and its XLA twin ``_xla_reference`` (:1292).
+(:1530), the Pallas forward ``_attn_kernel``/``_attn_body`` (:28, :35) behind
+``_fused_impl`` (:1269), its XLA twin ``_xla_reference`` (:1292), and the
+backward ``_attn_bwd_kernel`` (:1298) behind ``_flash_bwd`` (:1357), which the
+``custom_vjp`` of ``_fused_self_attention_flat`` (:1399-1417) calls.
 
-``fused_self_attention`` takes ``[B, T, H, D]`` tensors. A CUDA tensor goes to
-the hand-written Hopper kernel ``csrc/attention_fwd.cu`` and nowhere else: if
-the kernel cannot take the input, the wrapper raises. A CPU tensor goes to
-:func:`attention_reference`, the same arithmetic in plain PyTorch.
+``fused_self_attention`` takes ``[B, T, H, D]`` tensors and is differentiable.
+A CUDA tensor goes to the hand-written Hopper kernels and nowhere else: the
+forward to ``csrc/attention_fwd.cu`` (K1), the backward to
+``csrc/attention_bwd.cu`` (K2); if a kernel cannot take the input, the
+wrapper raises. A CPU tensor goes to :func:`attention_reference` and
+:func:`attention_backward_reference`, the same arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -23,19 +27,47 @@ MAX_HEAD_DIM = 160
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    # fp32 accumulation, as the kernels; float64 (gradcheck) stays float64
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> torch.Tensor:
     """softmax(Q Kᵀ·scale)·V on ``[B, T, H, D]`` with K1's rounding: scores
     accumulated and soft-maxed in fp32, P rounded to the input dtype, P·V
     accumulated in fp32 and returned in the input dtype."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    acc = _acc_dtype(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(acc), v.to(acc))
     return o.to(q.dtype)
 
 
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, do: torch.Tensor,
+                                 scale: float):
+    """(dQ, dK, dV) of :func:`attention_reference` on ``[B, T, H, D]``, with
+    K2's arithmetic: S and the softmax in fp32 with the row max subtracted;
+    dV = Pᵀ·dO with P rounded to the input dtype; dP = dO·Vᵀ;
+    dS = P∘(dP − rowsum(dP∘P)) in fp32, rounded to the input dtype as a
+    product operand; dQ = dS·K·scale and dK = dSᵀ·Q·scale. Every product
+    accumulates in fp32; the three results return in the input dtype."""
+    acc = _acc_dtype(q)
+    qa, ka, va, doa = (x.to(acc) for x in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qa, ka) * scale
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(acc), doa)
+    dp = torch.einsum("bqhd,bkhd->bhqk", doa, va)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = ds.to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, ka) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qa) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 @functools.cache
-def _kernel():
+def _forward_kernel():
     fn = _build.load("attention_fwd").ldmseg_attention_fwd
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -46,26 +78,40 @@ def _kernel():
     return fn
 
 
-def _check_kernel_inputs(q, k, v):
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+@functools.cache
+def _backward_kernel():
+    fn = _build.load("attention_bwd").ldmseg_attention_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_kernel_inputs(**tensors):
+    names = list(tensors)
+    xs = list(tensors.values())
+    x0 = xs[0]
+    if x0.dim() != 4 or any(x.shape != x0.shape for x in xs):
         raise ValueError(
-            f"attention kernel: q, k, v must share one [B, T, H, D] shape, "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+            f"attention kernel: {', '.join(names)} must share one "
+            f"[B, T, H, D] shape, got {[tuple(x.shape) for x in xs]}")
+    if any(x.dtype != x0.dtype for x in xs) or x0.dtype not in _DTYPE_CODE:
         raise ValueError(
             f"attention kernel: dtype must be float32 or bfloat16 on all "
-            f"three inputs, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("attention kernel: q, k, v on different devices")
-    b, t, h, d = q.shape
+            f"inputs, got {[x.dtype for x in xs]}")
+    if any(x.device != x0.device for x in xs):
+        raise ValueError("attention kernel: inputs on different devices")
+    b, t, h, d = x0.shape
     if d % 8 != 0 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(
             f"attention kernel: head dim {d} not supported (a multiple of 8 "
             f"up to {MAX_HEAD_DIM})")
     if t < 1 or not 1 <= b * h <= 65535:
-        raise ValueError(f"attention kernel: shape {tuple(q.shape)} out of "
+        raise ValueError(f"attention kernel: shape {tuple(x0.shape)} out of "
                          f"range (T >= 1, 1 <= B*H <= 65535)")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in tensors.items():
         if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) \
                 or x.data_ptr() % 16:
             raise ValueError(
@@ -74,32 +120,97 @@ def _check_kernel_inputs(q, k, v):
                 f"strides {x.stride()}")
 
 
-def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float) -> torch.Tensor:
-    """Multi-head self-attention on ``[B, T, H, D]``; returns ``[B, T, H, D]``
-    contiguous, in the input dtype. CUDA tensors run the Hopper kernel (bf16
-    or fp32, D a multiple of 8 up to 160, any T); CPU tensors run
-    :func:`attention_reference`. ``fused_self_attention.launches`` counts the
-    kernel launches."""
+def _strides(*xs):
+    flat = [s for x in xs for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _attention_forward(q, k, v, scale):
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q=q, k=k, v=v)
     b, t, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *out.stride()[:3])
-    kernel = _kernel()
+    kernel = _forward_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kernel(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, t, h, d, strides, float(scale), stream)
+            out.data_ptr(), b, t, h, d, _strides(q, k, v, out), float(scale),
+            stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     fused_self_attention.launches += 1
     return out
+
+
+def fused_self_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, do: torch.Tensor,
+                                  scale: float):
+    """(dQ, dK, dV) of :func:`fused_self_attention`, each ``[B, T, H, D]``
+    contiguous in the input dtype. CUDA tensors run K2 (bf16 or fp32, D a
+    multiple of 8 up to 160, any T); CPU tensors run
+    :func:`attention_backward_reference`.
+    ``fused_self_attention_backward.launches`` counts the kernel launches."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    _check_kernel_inputs(q=q, k=k, v=v, do=do)
+    b, t, h, d = q.shape
+    dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
+                  for _ in range(3))
+    stats = torch.empty(3 * b * h * t, dtype=torch.float32, device=q.device)
+    kernel = _backward_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = kernel(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, t, h, d,
+            _strides(q, k, v, do, dq, dk, dv), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"attention backward kernel launch failed: CUDA error {err}")
+    fused_self_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+fused_self_attention_backward.launches = 0
+
+
+class _FusedSelfAttention(torch.autograd.Function):
+    """K1 forward, K2 backward; saves q, k, v as ``_fwd`` does (:1404)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _attention_forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = fused_self_attention_backward(
+            q, k, v, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Multi-head self-attention on ``[B, T, H, D]``; returns ``[B, T, H, D]``
+    contiguous, in the input dtype. CUDA tensors run K1 (bf16 or fp32, D a
+    multiple of 8 up to 160, any T); CPU tensors run
+    :func:`attention_reference`. Under autograd the backward is K2 (CUDA) or
+    :func:`attention_backward_reference` (CPU); without it (``no_grad``,
+    ``inference_mode`` or no input that requires grad) nothing is saved.
+    ``fused_self_attention.launches`` counts K1's launches."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FusedSelfAttention.apply(q, k, v, scale)
+    return _attention_forward(q, k, v, scale)
 
 
 fused_self_attention.launches = 0

@@ -24,6 +24,8 @@ import torch
 
 FAMILIES = (  # first match wins
     ("K1 attention_fwd", r"attention_fwd_kernel"),
+    ("K2 attention_bwd", r"attention_bwd_"),
+    ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("group/layer norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|"
                          r"welford|RowwiseMoments|ComputeFused"),
     ("convolution", r"conv|cudnn|implicit|xmma|fprop|dgrad|nchw|nhwc"),
@@ -41,9 +43,17 @@ def _family(name: str) -> str:
     return "other"
 
 
+def _kernels(prof) -> list:
+    """The trace's device events without the device-side spans of user
+    annotations, which are not kernels (``Optimizer.step#AdamW.step``
+    covers the optimizer's kernels)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _summary(prof, wall_s: float, per: int, label: str) -> dict:
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _kernels(prof)
     if not kernels:
         return {"window": label, "wall_ms": wall_s * 1e3 / per,
                 "device_ms": "not measured (no device events in trace)"}
@@ -77,7 +87,9 @@ def _summary(prof, wall_s: float, per: int, label: str) -> dict:
     }
 
 
-def _profile(fn, per: int, label: str) -> dict:
+def _profile(fn, per: int, label: str, extra=None) -> dict:
+    """Profile ``per`` calls of ``fn`` after one untraced call; ``extra``,
+    if given, maps ``(prof, per)`` to more keys of the summary."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -88,7 +100,10 @@ def _profile(fn, per: int, label: str) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _summary(prof, wall, per, label)
+    out = _summary(prof, wall, per, label)
+    if extra is not None:
+        out.update(extra(prof, per))
+    return out
 
 
 def main() -> int:

@@ -1,0 +1,169 @@
+"""Optimizers and learning-rate schedules (counterpart of
+``ldmseg_tpu/train/optim.py``, whose optax chain this mirrors):
+
+    clip_by_global_norm -> adam / sgd momentum -> decoupled weight decay
+    (per-parameter values for norm and bias parameters) -> per-parameter lr
+    factor -> the scheduled learning rate.
+
+The schedule is read at the optimizer's step count before the increment, as
+optax's ``scale_by_schedule`` does, so the first update uses ``schedule(0)``.
+Adam and AdamW are ``torch.optim.AdamW`` (``scale_by_adam``'s arithmetic,
+eps 1e-8) with one parameter group per (lr factor, weight decay); SGD is
+``torch.optim.SGD`` with the decay applied beside it, decoupled from the
+momentum as optax adds it after ``trace``. Parameter names are the port's
+``named_parameters`` keys (the diffusers names).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
+
+import torch
+
+NORM_KEYS = ("norm", "group_norm", "layer_norm", "ln", "groupnorm")
+Schedule = Callable[[int], float]
+
+
+def is_norm_param(name: str) -> bool:
+    """A parameter of a norm layer: some module on its path is named
+    *norm* / *ln* (the JAX package's heuristic, on dotted names)."""
+    parts = name.lower().split(".")
+    return any(any(nk == p or p.endswith("_" + nk) or p.startswith(nk)
+                   for nk in NORM_KEYS) for p in parts[:-1])
+
+
+def is_bias_param(name: str) -> bool:
+    return name.lower().endswith("bias")
+
+
+def freeze_filter(layers: Tuple[str, ...] = ("norm", "time_embedding")
+                  ) -> Callable[[str], bool]:
+    """Predicate on parameter names, the port's ``freeze_layers``
+    (``ldmseg_tpu/models/unet.py:freeze_filter``): True where the update
+    must be zero. The trainer gives those parameters lr factor 0. The JAX
+    package's ``conv_in`` and ``down_blocks`` entries select the ``*_img``
+    modules of the UNet surgery, which the port does not have yet."""
+
+    def fn(name: str) -> bool:
+        return any((layer == "norm" and is_norm_param(name))
+                   or (layer == "time_embedding"
+                       and "time_embedding" in name.lower())
+                   for layer in layers)
+
+    return fn
+
+
+def make_lr_schedule(name: Optional[str], base_lr: float, total_steps: int,
+                     warmup_iters: int = 200, final_lr: float = 1e-6,
+                     step_size: Optional[int] = None,
+                     gamma: float = 0.1) -> Schedule:
+    """``step -> lr``: 'warmup' (linear over ``warmup_iters``, then
+    constant), 'cosine' (warmup, then cosine to ``final_lr``), 'step'
+    (warmup, then x ``gamma`` every ``step_size``), 'none' (constant)."""
+
+    def warm(step: int) -> float:
+        return base_lr * min(step + 1, warmup_iters) / warmup_iters
+
+    if name in (None, "none"):
+        return lambda step: base_lr
+    if name == "warmup":
+        return lambda step: warm(step) if step < warmup_iters else base_lr
+    if name == "cosine":
+        def cosine(step: int) -> float:
+            if step < warmup_iters:
+                return warm(step)
+            t = min(max((step - warmup_iters)
+                        / max(total_steps - warmup_iters, 1), 0.0), 1.0)
+            return final_lr + 0.5 * (base_lr - final_lr) * (
+                1.0 + math.cos(math.pi * t))
+        return cosine
+    if name == "step":
+        if step_size is None:
+            raise ValueError("lr schedule 'step' needs step_size")
+        return lambda step: (warm(step) if step < warmup_iters else
+                             base_lr * gamma ** math.floor(step / step_size))
+    raise NotImplementedError(f"lr schedule {name!r}")
+
+
+class Optimizer:
+    """The JAX package's optimizer chain on a list of named parameters.
+    :meth:`step` reads each parameter's ``.grad``."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 name: str = "adamw",
+                 learning_rate: Union[float, Schedule] = 1e-4,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 weight_decay: float = 0.0,
+                 weight_decay_norm: Optional[float] = None,
+                 weight_decay_bias: Optional[float] = None,
+                 clip_grad: float = 0.0,
+                 lr_factor_fn: Optional[Callable[[str], float]] = None,
+                 momentum: float = 0.9):
+        if name == "adafactor":
+            raise NotImplementedError(
+                "optimizer 'adafactor': Adafactor is not ported yet")
+        if name not in ("adamw", "adam", "sgd"):
+            raise NotImplementedError(f"optimizer {name!r}")
+        self.schedule = (learning_rate if callable(learning_rate)
+                         else (lambda step: learning_rate))
+        self.clip_grad = clip_grad
+        self.count = 0
+        # adam takes no weight decay in the JAX chain; sgd only when asked
+        decays = name == "adamw" or (name == "sgd" and weight_decay)
+
+        def decay(n: str) -> float:
+            if not decays:
+                return 0.0
+            if is_norm_param(n) and weight_decay_norm is not None:
+                return weight_decay_norm
+            if is_bias_param(n) and weight_decay_bias is not None:
+                return weight_decay_bias
+            return weight_decay
+
+        groups: Dict[Tuple[float, float], List[torch.nn.Parameter]] = {}
+        self.params: List[torch.nn.Parameter] = []
+        for n, p in named_params:
+            factor = 1.0 if lr_factor_fn is None else float(lr_factor_fn(n))
+            groups.setdefault((factor, decay(n)), []).append(p)
+            self.params.append(p)
+        param_groups = [{"params": ps, "lr_factor": f, "weight_decay": wd}
+                        for (f, wd), ps in groups.items()]
+        self.momentum = momentum
+        if name == "sgd":
+            self._sgd_decay = [(g["params"], g["lr_factor"], g["weight_decay"])
+                               for g in param_groups if g["weight_decay"]]
+            for g in param_groups:
+                g["weight_decay"] = 0.0
+            self.torch_opt = torch.optim.SGD(param_groups, lr=0.0,
+                                             momentum=momentum)
+        else:
+            self._sgd_decay = []
+            self.torch_opt = torch.optim.AdamW(param_groups, lr=0.0,
+                                               betas=tuple(betas), eps=1e-8)
+
+    @torch.no_grad()
+    def clip_(self) -> None:
+        """optax ``clip_by_global_norm``: scale every gradient by
+        ``clip / norm`` when the global norm reaches ``clip``."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        factor = torch.where(norm < self.clip_grad, torch.ones_like(norm),
+                             self.clip_grad / norm)
+        torch._foreach_mul_(grads, factor)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        lr = float(self.schedule(self.count))
+        if self.clip_grad and self.clip_grad > 0:
+            self.clip_()
+        for params, factor, wd in self._sgd_decay:
+            torch._foreach_mul_(params, 1.0 - lr * factor * wd)
+        for g in self.torch_opt.param_groups:
+            g["lr"] = lr * g["lr_factor"]
+        self.torch_opt.step()
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        self.torch_opt.zero_grad(set_to_none=True)

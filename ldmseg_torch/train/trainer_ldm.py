@@ -1,26 +1,37 @@
-"""Stage-2 latent-diffusion sampling (counterpart of
-``ldmseg_tpu/train/trainer_ldm.py:TrainerDiffusion``, its sampling half).
+"""Stage-2 latent-diffusion trainer (counterpart of
+``ldmseg_tpu/train/trainer_ldm.py:TrainerDiffusion``): its training step and
+loop, and its sampling path.
 
-``sample_panoptic`` runs the serving path: RGB frames -> frozen SD image-VAE
-encoder (posterior mode x 0.18215) -> DDIM with self-conditioning over the
-UNet -> seg-VAE decode to per-instance logits. Batches and results are NHWC
-at this boundary, as in the JAX package; the models run NCHW.
+``train_step`` runs one step of training: frozen seg-VAE encoder on the
+analog bits and frozen SD image-VAE encoder on the RGB frame -> noise at a
+random timestep -> optional self-conditioning pass without gradient -> UNet
+on a compute-dtype cast of the fp32 masters -> masked, SNR-weighted loss ->
+backward (K2 on the card) -> the optimizer. ``train_loop`` feeds it from the
+port's loader. ``sample_panoptic`` runs the serving path: RGB frames ->
+image-VAE encoder (posterior mode x 0.18215) -> DDIM with self-conditioning
+-> seg-VAE decode to per-instance logits. Batches and results are NHWC at
+this boundary, as in the JAX package; the models run NCHW.
 
-Training, EMA, classifier-free guidance, text descriptors, clip sampling,
-the DPM-Solver++ sampler and int8 inference are later slices: a config that
-asks for one of them raises ``NotImplementedError`` naming it.
+EMA, checkpoints, video clips and pose consistency, classifier-free
+guidance, text descriptors, clip sampling, the DPM-Solver++ sampler, int8
+inference and the parallel modes are later slices: a config that asks for
+one of them raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Mapping, Optional
+import time
+from typing import Callable, List, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..diffusion.ddim import make_ddim_schedule
+from ..data.loader import Loader
+from ..diffusion.ddim import add_noise, make_ddim_schedule, remove_noise
 from ..diffusion.sampler import ddim_sample
+from ..losses.diffusion_losses import diffusion_loss
 from ..models.convert import (image_vae_state_dict_from_jax,
                               seg_vae_state_dict_from_jax,
                               unet_state_dict_from_jax)
@@ -28,6 +39,8 @@ from ..models.image_vae import ImageVAE
 from ..models.layers import init_random_
 from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig
+from .optim import Optimizer, freeze_filter, make_lr_schedule
+from .state import TrainState
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -53,7 +66,20 @@ def _refuse_later_slices(p: Mapping) -> None:
             "the DPM-Solver++ sampler"),
         "sampling_kwargs.int8_inference": (
             sk.get("int8_inference", False), "int8 inference"),
+        "train_kwargs.video_clips": (
+            tk.get("video_clips") is not None
+            or tk.get("temporal_consistency_weight", 0.0) > 0,
+            "video clips and pose consistency"),
+        "train_kwargs.dropout": (tk.get("dropout", 0.0) > 0, "dropout"),
+        "train_kwargs.gradient_checkpointing": (
+            tk.get("gradient_checkpointing", False),
+            "gradient checkpointing"),
+        "optimizer_name": (p.get("optimizer_name") == "adafactor",
+                           "Adafactor"),
         "ema_on": (p.get("ema_on", False), "EMA weights"),
+        "optimizer_zero_redundancy": (
+            p.get("optimizer_zero_redundancy", False),
+            "ZeRO-1 optimizer-state sharding"),
         "spatial_parallel": (p.get("spatial_parallel", False),
                              "spatial parallelism"),
         "tensor_parallel": (p.get("tensor_parallel", False),
@@ -69,10 +95,11 @@ class TrainerDiffusion:
     """Builds the UNet, the image VAE and the seg VAE from the config as the
     JAX trainer does, on ``device`` (``"cuda"`` unless the caller asks for
     the CPU). Call :meth:`init_params` or :meth:`load_jax_params` before
-    :meth:`sample_panoptic`."""
+    :meth:`train_step`, :meth:`train_loop` or :meth:`sample_panoptic`;
+    ``dataset`` feeds :meth:`train_loop`."""
 
     def __init__(self, p: dict, unet_config: Optional[UNetConfig] = None,
-                 device="cuda"):
+                 device="cuda", dataset=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -119,6 +146,20 @@ class TrainerDiffusion:
 
         self.sched = make_ddim_schedule(**p["noise_scheduler_kwargs"],
                                         device=device)
+        self.p = p
+        self.ds = dataset
+        self.min_noise_level = tk.get("min_noise_level", 0)
+        self.rgb_noise_level = tk.get("rgb_noise_level", 0)
+        self.cond_noise_level = tk.get("cond_noise_level", 0)
+        self.prob_train_on_pred = tk.get("prob_train_on_pred", 0.0)
+        self.prob_inpainting = tk.get("prob_inpainting", 0.0)
+        self.type_mask = tk.get("type_mask", "ignore")
+        self.loss_type = tk.get("loss", "l2")
+        self.ohem_ratio = tk.get("ohem_ratio", 1.0)
+        self.sample_posterior = tk.get("sample_posterior", False)
+        self.batch_size = tk["batch_size"]
+        self.train_num_steps = tk["train_num_steps"]
+        self.state: Optional[TrainState] = None
         self.num_inference_steps = sk.get("num_inference_steps", 50)
         self.seed = sk.get("seed", 0)
         self.mask_th = ek.get("mask_th", 0.5)
@@ -151,22 +192,55 @@ class TrainerDiffusion:
         self._frozen_ready()
 
     def _frozen_ready(self) -> None:
-        # frozen towers run entirely in the compute dtype (cast once); the
-        # UNet keeps fp32 masters and samples on a working copy
-        for model in (self.unet, self.vae_img, self.vae_seg):
+        # the two VAEs are frozen and run entirely in the compute dtype (cast
+        # once); the UNet keeps trainable fp32 masters, each training forward
+        # runs on a differentiable cast (:meth:`_compute_unet`) and
+        # sampling on a working copy refreshed once per call
+        for model in (self.vae_img, self.vae_seg):
             model.eval().requires_grad_(False)
-        self.vae_img.to(self.compute_dtype)
-        self.vae_seg.to(self.compute_dtype)
-        self._unet_infer = (self.unet if self.compute_dtype == torch.float32
-                            else copy.deepcopy(self.unet).to(
-                                self.compute_dtype))
+            model.to(self.compute_dtype)
+        self.unet.eval().requires_grad_(True)
+        if self.compute_dtype == torch.float32:
+            self._unet_infer = self.unet
+        else:
+            self._unet_infer = copy.deepcopy(self.unet).to(
+                self.compute_dtype).requires_grad_(False)
+        self.state = self._make_state()
+
+    def _make_state(self) -> TrainState:
+        """The JAX trainer's optimizer (trainer_ldm.py:219-240): the lr
+        schedule, AdamW with the config's decay values, clipping, and lr
+        factor 0 on ``freeze_layers``."""
+        p, tk = self.p, self.p["train_kwargs"]
+        ok, sk = p["optimizer_kwargs"], p["lr_scheduler_kwargs"]
+        schedule = make_lr_schedule(
+            p.get("lr_scheduler_name", "warmup"), ok["lr"],
+            self.train_num_steps,
+            warmup_iters=sk.get("warmup_iters", 200),
+            final_lr=sk.get("final_lr", 1e-6))
+        frozen = tuple(tk.get("freeze_layers", ()))
+        lr_factor = None
+        if frozen:
+            flt = freeze_filter(frozen)
+            lr_factor = lambda name: 0.0 if flt(name) else 1.0  # noqa: E731
+        optimizer = Optimizer(
+            list(self.unet.named_parameters()),
+            p.get("optimizer_name", "adamw"), learning_rate=schedule,
+            betas=tuple(ok.get("betas", (0.9, 0.999))),
+            weight_decay=ok.get("weight_decay", 0.0),
+            weight_decay_norm=ok.get("weight_decay_norm"),
+            clip_grad=tk.get("clip_grad", 0.0), lr_factor_fn=lr_factor)
+        return TrainState(optimizer, accumulate=tk.get("accumulate", 1))
+
+    def _require_params(self) -> None:
+        if self._unet_infer is None:
+            raise RuntimeError("TrainerDiffusion: call init_params or "
+                               "load_jax_params first")
 
     def inference_unet(self) -> nn.Module:
         """Refresh the compute-dtype working copy from the fp32 masters:
         once per call, outside the step loop."""
-        if self._unet_infer is None:
-            raise RuntimeError("TrainerDiffusion: call init_params or "
-                               "load_jax_params first")
+        self._require_params()
         if self._unet_infer is not self.unet:
             with torch.no_grad():
                 for dst, src in zip(self._unet_infer.parameters(),
@@ -175,7 +249,7 @@ class TrainerDiffusion:
         return self._unet_infer
 
     # ------------------------------------------------------------------
-    # sampling
+    # shared by both paths
     # ------------------------------------------------------------------
     def _encode_rgb(self, image) -> torch.Tensor:
         """ImageNet-normalised NHWC frames -> scaled RGB latents, NCHW
@@ -189,16 +263,236 @@ class TrainerDiffusion:
         lat = self.vae_img.encode(rgb).mode()
         return lat.float() * self.img_scale
 
-    def _unet_apply(self, unet: nn.Module, latents: torch.Tensor,
+    def _unet_apply(self, unet: Callable, latents: torch.Tensor,
                     rgb_latents: torch.Tensor,
-                    condition: Optional[torch.Tensor], t: int
-                    ) -> torch.Tensor:
+                    condition: Optional[torch.Tensor], t) -> torch.Tensor:
+        """``unet(x, t)`` on [latents, rgb(, condition)] in the compute
+        dtype; fp32 out."""
         parts = [latents, rgb_latents]
         if condition is not None:
             parts.append(condition)
         inputs = torch.cat(parts, dim=1).to(self.compute_dtype)
         return unet(inputs, t).float()
 
+    # ------------------------------------------------------------------
+    # training (the JAX trainer's _encode_impl, _train_step_impl and
+    # train_loop)
+    # ------------------------------------------------------------------
+    def _nchw(self, x, dtype=torch.float32) -> torch.Tensor:
+        x = torch.as_tensor(x, device=self.device).to(dtype)
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    def _encode(self, batch: Mapping,
+                generator: Optional[torch.Generator] = None):
+        """Frozen encoders: bits -> seg latents (posterior mode, or a sample
+        under ``sample_posterior``) and their mean, x ``seg_scale`` in fp32;
+        RGB -> scaled RGB latents; the loss mask. All NCHW."""
+        bits = self._nchw(batch["image_semseg"])
+        post = self.vae_seg.encode((2.0 * bits - 1.0).to(self.compute_dtype))
+        latents_mean = (post.mode() * self.seg_scale).float()
+        latents = latents_mean
+        if self.sample_posterior:
+            latents = (post.sample(generator) * self.seg_scale).float()
+        rgb_latents = self._encode_rgb(batch["image"])
+        loss_mask = self._loss_weight_mask(batch, latents.shape[-2:])
+        return latents, latents_mean, rgb_latents, loss_mask
+
+    def _loss_weight_mask(self, batch: Mapping, latent_hw
+                          ) -> Optional[torch.Tensor]:
+        """``type_mask`` 'ignore' / 'counts' / 'padding' / 'none' at the
+        latent size ``[B, h, w]``; the nearest resize keeps half-pixel
+        centres, as ``jax.image.resize`` does."""
+        if self.type_mask == "none":
+            return None
+        key = "mask" if self.type_mask == "padding" else "semseg"
+        src = torch.as_tensor(batch[key], device=self.device).float()
+        t = F.interpolate(src[:, None], size=tuple(latent_hw),
+                          mode="nearest-exact")[:, 0]
+        if self.type_mask == "padding":
+            return t
+        if self.type_mask == "ignore":
+            return (t != self.ignore_label).float()
+        if self.type_mask != "counts":
+            raise ValueError(f"type_mask {self.type_mask!r}")
+        # 1 / pixel count of the pixel's class, 0 at ignore
+        ti = t.long()
+        hist = torch.stack([torch.bincount(x.reshape(-1),
+                                           minlength=self.num_classes)
+                            [:self.num_classes] for x in ti])
+        inv = 1.0 / hist.clamp(min=1).float()
+        m = torch.gather(inv, 1, ti.reshape(ti.shape[0], -1)).reshape(t.shape)
+        return torch.where(ti == self.ignore_label, torch.zeros_like(m), m)
+
+    def _compute_unet(self) -> Callable:
+        """The UNet on the masters cast to the compute dtype, cast once per
+        step. The cast is differentiable, so the gradients of a forward on it
+        land in fp32 on the masters."""
+        params = {n: p.to(self.compute_dtype)
+                  for n, p in self.unet.named_parameters()}
+        return lambda x, t: torch.func.functional_call(self.unet, params,
+                                                       (x, t))
+
+    @torch.no_grad()
+    def _predict_sample(self, unet: Callable, latents: torch.Tensor,
+                        rgb_latents: torch.Tensor,
+                        generator: Optional[torch.Generator], tmax: int
+                        ) -> torch.Tensor:
+        """One denoise at a random t < ``tmax``, clipped to the latents'
+        range (the JAX trainer's ``_predict_sample``)."""
+        noise = torch.randn(latents.shape, generator=generator,
+                            device=self.device)
+        t = torch.randint(0, tmax, (latents.shape[0],), generator=generator,
+                          device=self.device)
+        noisy = add_noise(self.sched, latents, noise, t)
+        cond = torch.zeros_like(noisy) if self.self_condition else None
+        pred = self._unet_apply(unet, noisy, rgb_latents, cond, t)
+        out = remove_noise(self.sched, noisy, pred, t)
+        return out.clamp(latents.min(), latents.max())
+
+    def forward_backward(self, batch: Mapping,
+                         generator: Optional[torch.Generator] = None,
+                         noise=None, timesteps=None):
+        """One training step without the optimizer update: the loss's
+        gradients are added to the masters' ``.grad``. ``noise`` (NHWC,
+        the latents' shape) and ``timesteps`` (``[B]``) replace the draws
+        from ``generator``; the other draws (posterior sample, predicted
+        latents, inpainting, condition and RGB noise) come from it. Returns
+        ``(loss, metrics, pred_x0)``, ``pred_x0`` NHWC."""
+        self._require_params()
+        if getattr(batch["image"], "ndim", 4) == 5:
+            raise NotImplementedError(
+                "video clip batches: video clips and pose consistency are "
+                "not ported yet")
+        dev = self.device
+        with torch.no_grad():
+            latents, latents_mean, rgb_latents, loss_mask = self._encode(
+                batch, generator)
+        b = latents.shape[0]
+        unet = self._compute_unet()
+
+        if self.prob_train_on_pred > 0:
+            pred_latents = self._predict_sample(
+                unet, latents, rgb_latents, generator,
+                tmax=self.sched.num_train_timesteps // 2)
+            take = torch.rand((b, 1, 1, 1), generator=generator,
+                              device=dev) < self.prob_train_on_pred
+            latents = torch.where(take, pred_latents, latents)
+
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=dev)
+        else:
+            noise = self._nchw(noise)
+        if timesteps is None:
+            timesteps = torch.randint(
+                self.min_noise_level, self.sched.num_train_timesteps, (b,),
+                generator=generator, device=dev)
+        else:
+            timesteps = torch.as_tensor(timesteps, device=dev).long()
+        noisy = add_noise(self.sched, latents, noise, timesteps)
+
+        inpaint = None
+        if self.prob_inpainting > 0:
+            m = torch.as_tensor(batch["inpainting_mask"],
+                                device=dev).float()[:, None]
+            m = F.interpolate(m, size=tuple(latents.shape[-2:]),
+                              mode="nearest-exact")
+            on = torch.rand((b, 1, 1, 1), generator=generator,
+                            device=dev) < self.prob_inpainting
+            inpaint = m * on
+
+        condition = None
+        if self.self_condition:
+            # first pass without gradient, on the same compute-dtype weights
+            with torch.no_grad():
+                pred0 = self._unet_apply(
+                    unet, noisy, rgb_latents, torch.zeros_like(noisy),
+                    timesteps)
+                condition = remove_noise(self.sched, noisy, pred0, timesteps)
+                if self.cond_noise_level > 0:
+                    cn = torch.randn(condition.shape, generator=generator,
+                                     device=dev)
+                    tc = torch.randint(0, self.cond_noise_level, (b,),
+                                       generator=generator, device=dev)
+                    condition = add_noise(self.sched, condition, cn, tc)
+
+        rgb_in = rgb_latents
+        if self.rgb_noise_level > 0:
+            rn = torch.randn(rgb_in.shape, generator=generator, device=dev)
+            t_img = torch.randint(0, self.rgb_noise_level, (b,),
+                                  generator=generator, device=dev)
+            rgb_in = add_noise(self.sched, rgb_in, rn, t_img)
+        pred = self._unet_apply(unet, noisy, rgb_in, condition, timesteps)
+        target = (noise if self.sched.prediction_type == "epsilon"
+                  else latents_mean)
+        loss = diffusion_loss(
+            pred, target, timesteps=timesteps,
+            schedule_weights=self.sched.weights, loss_mask=loss_mask,
+            loss_type=self.loss_type, ohem_ratio=self.ohem_ratio)
+        loss.backward()
+
+        with torch.no_grad():
+            pred = pred.detach()
+            if self.sched.prediction_type == "epsilon":
+                pred_x0 = remove_noise(self.sched, noisy, pred, timesteps)
+            else:
+                pred_x0 = pred
+            if inpaint is not None:
+                pred_x0 = torch.where(inpaint > 0, latents_mean, pred_x0)
+        loss = loss.detach()
+        metrics = {"loss": loss,
+                   "timestep_mean": timesteps.float().mean()}
+        return loss, metrics, pred_x0.permute(0, 2, 3, 1).contiguous()
+
+    def train_step(self, batch: Mapping,
+                   generator: Optional[torch.Generator] = None,
+                   noise=None, timesteps=None):
+        """:meth:`forward_backward`, then the optimizer (every
+        ``accumulate`` micro-batches). Returns ``(loss, metrics, pred_x0)``;
+        the loss stays on the device."""
+        out = self.forward_backward(batch, generator, noise, timesteps)
+        self.state.apply_gradients()
+        return out
+
+    def train_loop(self, max_steps: Optional[int] = None,
+                   log_every: int = 20, seed: int = 0) -> List[float]:
+        """Train on ``dataset`` through the port's loader for ``max_steps``
+        calls of :meth:`train_step` (default ``train_num_steps``), with the
+        draws from a generator seeded by ``seed``. Losses are read back from
+        the device only every ``log_every`` steps, when the mean is printed.
+        Returns every step's loss."""
+        if self.ds is None:
+            raise ValueError("TrainerDiffusion.train_loop needs a dataset")
+        self._require_params()
+        loader = Loader(self.ds, self.batch_size, seed=seed)
+        if len(loader) == 0:
+            raise ValueError(f"dataset of {len(self.ds)} samples gives no "
+                             f"batch of {self.batch_size}")
+        max_steps = max_steps or self.train_num_steps
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        losses: List[float] = []
+        pending: List[torch.Tensor] = []
+        step, epoch, t0 = 0, 0, time.perf_counter()
+        while step < max_steps:
+            for batch in loader.epoch(epoch):
+                loss, _, _ = self.train_step(batch, generator=generator)
+                pending.append(loss)
+                step += 1
+                if step % log_every == 0 or step == max_steps:
+                    values = torch.stack(pending).tolist()
+                    pending.clear()
+                    losses += values
+                    print(f"Epoch [{epoch}] step {step}/{max_steps}: loss "
+                          f"{sum(values) / len(values):.4f} "
+                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                if step >= max_steps:
+                    break
+            epoch += 1
+        return losses
+
+    # ------------------------------------------------------------------
+    # sampling
+    # ------------------------------------------------------------------
     def _sample_decode(self, unet: nn.Module, rgb_latents: torch.Tensor,
                        generator: Optional[torch.Generator],
                        init_noise=None, num_inference_steps: int = 50):

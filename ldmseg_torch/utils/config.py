@@ -1,9 +1,9 @@
-"""The configuration keys the sampling path reads.
+"""The configuration keys the sampling and training paths read.
 
 Own copy of the matching keys of ``ldmseg_tpu/utils/config.py:DEFAULT_CONFIG``
 (the reference's ``tools/configs/base/base.yaml``), with the same names and
-defaults, plus :func:`merge_dicts`. Keys that only training, evaluation or
-data loading read are not copied.
+defaults, plus :func:`merge_dicts`. Keys that only evaluation, data loading
+or the later slices read are not copied.
 """
 
 from __future__ import annotations
@@ -60,11 +60,29 @@ DEFAULT_CONFIG: dict = {
         "max_snr": 5.0,
     },
     "train_kwargs": {
+        "dropout": 0.0,
+        "type_mask": "ignore",
         "image_descriptors": "remove",
+        "prob_train_on_pred": 0.0,
+        "prob_inpainting": 0.0,
+        "min_noise_level": 0,
+        "rgb_noise_level": 0,
+        "cond_noise_level": 0,
         "self_condition": False,
+        "sample_posterior": False,
         "sample_posterior_rgb": False,
+        "train_num_steps": 24000,
+        "batch_size": 8,
+        "accumulate": 1,
+        "loss": "l2",
+        "ohem_ratio": 1.0,
         "weight_dtype": "float32",
+        "clip_grad": 3.0,
+        "freeze_layers": ["time_embedding"],
+        "gradient_checkpointing": False,
         "fused_attention": True,
+        "video_clips": None,
+        "temporal_consistency_weight": 0.0,
     },
     "sampling_kwargs": {
         "num_inference_steps": 50,
@@ -78,7 +96,19 @@ DEFAULT_CONFIG: dict = {
         "count_th": 512,
         "overlap_th": 0.5,
     },
+    "optimizer_name": "adamw",
+    "optimizer_kwargs": {
+        "lr": 1.0e-4,
+        "betas": [0.9, 0.999],
+        "weight_decay": 0.0,
+        "weight_decay_norm": 0.0,
+    },
+    "optimizer_zero_redundancy": False,
+    "tensor_parallel": False,
+    "spatial_parallel": False,
     "ema_on": False,
+    "lr_scheduler_name": "warmup",
+    "lr_scheduler_kwargs": {"final_lr": 0.000001, "warmup_iters": 200},
     "ignore_label": 127,
 }
 

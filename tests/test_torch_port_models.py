@@ -170,11 +170,11 @@ def test_image_vae_converter_matches_torch_export(image_vae):
 
 
 def test_seg_vae_converter_matches_torch_export(seg_vae):
-    # the port holds the decoder: its keys are the decoder.* part
+    # encoder and decoder: every key torch_export emits
     _, params, _, kw = seg_vae
     ours = convert.seg_vae_state_dict_from_jax(params, kw)
     theirs = torch_export.seg_vae_sd_from_params(
         params, kw["block_out_channels"], kw["num_upscalers"])
-    _same_state(ours, {k: v for k, v in theirs.items()
-                       if k.startswith("decoder.")})
+    assert any(k.startswith("encoder.") for k in theirs)
+    _same_state(ours, theirs)
     SegVAE(**kw).load_state_dict(ours, strict=True)

@@ -11,7 +11,10 @@ without one.
 """
 
 import ast
+import importlib
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -42,6 +45,35 @@ def test_port_imports_no_jax():
     assert bad == []
 
 
+# the training slice's modules, one case each
+TRAINING_MODULES = [
+    "data", "data.transforms", "data.mask_generator", "data.synthetic",
+    "data.collate", "data.loader", "losses", "losses.diffusion_losses",
+    "train.optim", "train.state", "train.trainer_ldm",
+    "tools.profile_training"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_importing_the_training_slice_loads_no_jax():
+    # a fresh interpreter: other tests of this process may have loaded JAX
+    code = ("import sys; "
+            + "; ".join(f"import ldmseg_torch.{m}" for m in TRAINING_MODULES)
+            + f"; bad = {{m.split('.')[0] for m in sys.modules}}"
+            f" & {set(FORBIDDEN)!r}; print(bad, file=sys.stderr)"
+            "; sys.exit(bool(bad))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_trainer_runs_on_cuda_unless_told_otherwise():
     cfg = merge_dicts(DEFAULT_CONFIG, {"train_kwargs": {
         "self_condition": True}})
@@ -64,6 +96,15 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
     ({"ema_on": True}, "EMA"),
     ({"model_kwargs": {"separate_conv": True}}, "separate"),
     ({"vae_model_kwargs": {"num_mid_blocks": 1}}, "mid blocks"),
+    ({"vae_model_kwargs": {"parametrization": "auto"}}, "bottlenecks"),
+    ({"train_kwargs": {"video_clips": 3}}, "video clips"),
+    ({"train_kwargs": {"temporal_consistency_weight": 0.1}}, "pose"),
+    ({"train_kwargs": {"dropout": 0.1}}, "dropout"),
+    ({"train_kwargs": {"gradient_checkpointing": True}}, "checkpointing"),
+    ({"optimizer_zero_redundancy": True}, "ZeRO"),
+    ({"tensor_parallel": True}, "tensor parallel"),
+    ({"spatial_parallel": True}, "spatial parallel"),
+    ({"optimizer_name": "adafactor"}, "Adafactor"),
 ])
 def test_trainer_names_what_is_not_ported(override, named):
     cfg = merge_dicts(DEFAULT_CONFIG, override)
@@ -122,3 +163,90 @@ def test_k1_wrapper_raises_instead_of_falling_back(cuda, shape, dtype):
     x = torch.randn(shape, device=cuda).to(dtype)
     with pytest.raises(ValueError):
         A.fused_self_attention(x, x, x, 0.1)
+
+
+# K2 against its plain version, relative to each output's own max|ref|: two
+# bf16 ulps (P and dS are rounded to bf16 on both sides, sums run in another
+# order) and 1e-4 in fp32 (TF32 off)
+K2_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,h,d", [(2, 480, 8, 80), (2, 120, 8, 160),
+                                     (2, 30, 8, 160), (1, 100, 3, 40),
+                                     (1, 1, 1, 64), (1, 65, 2, 8)])
+def test_k2_kernel_matches_plain_version(cuda, b, t, h, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    before = A.fused_self_attention_backward.launches
+    grads = A.fused_self_attention_backward(q, k, v, do, d ** -0.5)
+    torch.cuda.synchronize()
+    assert A.fused_self_attention_backward.launches == before + 1
+    refs = A.attention_backward_reference(q, k, v, do, d ** -0.5)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.dtype == dtype and g.shape == q.shape, name
+        bound = K2_TOL[dtype] * r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= bound, f"d{name}: max abs err {err} > {bound}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 64, 1, 512), torch.bfloat16),
+    ((1, 64, 2, 40), torch.float16),
+    ((1, 64, 2, 36), torch.bfloat16),
+])
+def test_k2_wrapper_raises_instead_of_falling_back(cuda, shape, dtype):
+    x = torch.randn(shape, device=cuda).to(dtype)
+    with pytest.raises(ValueError):
+        A.fused_self_attention_backward(x, x, x, x, 0.1)
+
+
+@pytest.mark.gpu
+def test_fused_attention_differentiates_through_k1_and_k2(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn((2, 96, 4, 40), generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd, bwd = (A.fused_self_attention.launches,
+                A.fused_self_attention_backward.launches)
+    out = A.fused_self_attention(*leaves, 0.15)
+    out.backward(do)
+    assert A.fused_self_attention.launches == fwd + 1
+    assert A.fused_self_attention_backward.launches == bwd + 1
+    refs = A.attention_backward_reference(q, k, v, do, 0.15)
+    direct = A.fused_self_attention_backward(q, k, v, do, 0.15)
+    for leaf, ref, same in zip(leaves, refs, direct):
+        assert torch.equal(leaf.grad, same)  # no atomics: deterministic
+        bound = 1.6e-2 * ref.float().abs().max().item()
+        assert (leaf.grad.float() - ref.float()).abs().max().item() <= bound
+    # without autograd nothing is saved and no backward can run
+    with torch.no_grad():
+        plain = A.fused_self_attention(*leaves, 0.15)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+
+
+@pytest.mark.gpu
+def test_unet_self_attention_weights_get_gradients_on_the_card(cuda):
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.models.unet import (CrossAttention, UNet2DCondition,
+                                          UNetConfig)
+    cfg = UNetConfig(in_channels=12, block_out_channels=(32, 64),
+                     attn_down=(True, True), layers_per_block=1,
+                     attention_head_dim=2, norm_num_groups=8,
+                     use_fused_attention=True)
+    unet = UNet2DCondition(cfg).to(cuda)
+    init_random_(unet, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 12, 16, 16), generator=gen, device=cuda)
+    bwd = A.fused_self_attention_backward.launches
+    unet(x, torch.tensor([999, 19], device=cuda)).square().mean().backward()
+    attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    assert len(attn) == 7  # 2 down, 1 mid, 4 up
+    assert A.fused_self_attention_backward.launches == bwd + len(attn)
+    for m in attn:
+        g = m.to_q.weight.grad
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert g.abs().max().item() > 0
