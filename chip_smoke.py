@@ -22,8 +22,19 @@ Phases, one line each:
      2 warm-up steps, 5 timed steps with K1's and K2's launch counts, the
      update checks, and one step's loss and gradients on K1/K2 against the
      same step on the plain attention;
-  7. a JSON line ``{"kernels": [...]}``;
-  8. the last line, ``{"ok": true, "device": {...}}``.
+  7. K3 (the int8 LN + attention block) and K4 (the int8 LN + GEGLU block,
+     dynamic and static interior scale) against their plain PyTorch
+     versions at the int8 sampling path's shapes and a ragged T, with
+     times, the bound and the bf16 block each replaces;
+  8. the full-width int8 UNet forward (the weights of phase 3) against the
+     bf16 one on K1: 16 K3, 16 K4, 0 K1 launches, no fallback, the
+     relative error and correlation, ms per forward and the s8 convs' share;
+  9. ``sample_panoptic`` with ``int8_inference`` as in phase 4: twice with
+     the default scales (dynamic interior), then ``calibrate_int8`` and
+     twice with the calibrated scales (static interior); 800 K3 and 800 K4,
+     0 K1 and no fallback per call;
+  10. a JSON line ``{"kernels": [...]}``;
+  11. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -41,7 +52,7 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call
 # is the larger of its operations over the peak rate of their type and its
 # bytes over the memory rate.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 BF16_ATOL = 1.6e-2  # two bf16 ulps at 1.0: sums run in another order
@@ -57,6 +68,15 @@ K2_SHAPES = [((8, 1920, 8, 40), 5), ((8, 480, 8, 80), 5),
              ((8, 120, 8, 160), 5), ((8, 30, 8, 160), 1)]
 TRAIN_BATCH, TRAIN_HW = 8, (192, 640)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# (B, T, C) of K3's and K4's launches in one int8 UNet forward on a 32x64
+# latent at batch 2 (8 heads; K4's interior is M = 4C), with the number of
+# launches of each
+INT8_SHAPES = [((2, 2048, 320), 5), ((2, 512, 640), 5),
+               ((2, 128, 1280), 5), ((2, 32, 1280), 1)]
+# K3/K4 against their plain versions: two bf16 ulps of max|ref| at most,
+# and 2.5e-3 of mean|ref| on the mean (a rare int8 code that a summation
+# order flips moves a few outputs by a code's worth)
+INT8_MAX_TOL, INT8_MEAN_TOL = 1.6e-2, 2.5e-3
 
 
 class CheckFailed(Exception):
@@ -96,6 +116,34 @@ def attention_bound_ms(shape, dtype_name: str, products: int = 2,
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else
                                  "bytes"), flops, nbytes
+
+
+def ln_attention_bound_ms(b: int, t: int, c: int, heads: int = 8):
+    """K3's bound for one call on bf16 x: int8 operations (three
+    projections, QKᵀ) at the int8 peak plus bf16 operations (PV, to_out) at
+    the bf16 peak, against x in, the weights (int8 q/k/v, bf16 to_out, six
+    float rows) and the bf16 output."""
+    d = c // heads
+    ops8 = 3 * 2.0 * b * t * c * c + 2.0 * b * heads * t * t * d
+    ops16 = 2.0 * b * heads * t * t * d + 2.0 * b * t * c * c
+    nbytes = 2 * b * t * c + 3 * c * c + 2 * c * c + 4 * 6 * c + 2 * b * t * c
+    t_ops = (ops8 / PEAK_FLOPS["int8"] + ops16 / PEAK_FLOPS["bfloat16"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops8, ops16, float(nbytes))
+
+
+def geglu_ln_bound_ms(b: int, t: int, c: int):
+    """K4's bound for one call on bf16 x (M = 4C): 2·T·C·2M + 2·T·M·C int8
+    operations per image at the int8 peak against x in, W1, W2, the float
+    rows and the bf16 output."""
+    m = 4 * c
+    ops = 2.0 * b * t * c * 2 * m + 2.0 * b * t * m * c
+    nbytes = 2 * b * t * c + 3 * m * c + 4 * (4 * m + 5 * c) + 2 * b * t * c
+    t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, float(nbytes))
 
 
 def phase_device():
@@ -259,13 +307,14 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
     check(tuple(keep.shape) == (2, c), f"keep shape {tuple(keep.shape)}")
     check(launches == 16 * steps, f"K1 launches {launches} != 16 x {steps}")
     check(bwd_launches == 0, f"sampling launched K2 {bwd_launches} times")
+    x0_host = x0.float().cpu().numpy()
     print(f"phase 4 sample_panoptic: {steps} DDIM steps, 2 x 256x512 "
           f"frames -> logits {tuple(logits.shape)}: {secs:.3f} s per call "
           f"(post-process included), {2 / secs:.3f} frames/s, peak memory "
           f"{peak / 2**30:.2f} GiB, K1 launches {launches} [{smi_line}]",
           flush=True)
     return launches, {"seconds": secs, "frames_per_s": 2 / secs,
-                      "peak_bytes": peak}
+                      "peak_bytes": peak, "x0": x0_host}
 
 
 def phase_attention_backward():
@@ -466,6 +515,302 @@ def phase_train(smi_line: str, seed: int = 0):
                       "grad_cosine": cos}
 
 
+def _int8_config():
+    cfg = _config()
+    cfg["sampling_kwargs"]["int8_inference"] = True
+    return cfg
+
+
+def _block_modules(c: int, seed: int):
+    """A transformer block's float modules (LayerNorm, CrossAttention on K1,
+    LayerNorm, FeedForward) on the card in fp32 with seeded weights, which
+    the kernels' packs quantize."""
+    import torch
+    from ldmseg_torch.models.layers import LayerNorm, init_random_
+    from ldmseg_torch.models.unet import CrossAttention, FeedForward
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mods = [LayerNorm(c), CrossAttention(c, 8, use_fused=True),
+            LayerNorm(c), FeedForward(c)]
+    for m in mods:
+        m.to("cuda")
+        init_random_(m, gen)
+    return mods
+
+
+def _int8_row(name, shape, per_fwd, out, ref, fn, plain, context, bound):
+    import torch
+    err = (out.float() - ref.float()).abs()
+    emax, emean = err.max().item(), err.mean().item()
+    rmax, rmean = (ref.float().abs().max().item(),
+                   ref.float().abs().mean().item())
+    check(bool(torch.isfinite(out).all()) and emax <= INT8_MAX_TOL * rmax
+          and emean <= INT8_MEAN_TOL * rmean,
+          f"{name} {shape}: max abs err {emax} (max|ref| {rmax}), mean "
+          f"{emean} (mean|ref| {rmean})")
+    ms = time_ms(fn)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
+    context_ms = time_ms(context)
+    bound_ms, by, *work = bound
+    return {"shape_btc": list(shape), "per_unet_forward": per_fwd,
+            "max_abs_err": emax, "max_abs_ref": rmax, "mean_abs_err": emean,
+            "mean_abs_ref": rmean, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bf16_block_ms": context_ms,
+            "bound_ms": bound_ms, "bound_by": by, "work": work}
+
+
+def phase_int8_kernels():
+    """K3 and K4 against their plain versions on the card, at every shape of
+    the int8 UNet forward and a ragged T the shape rule still sends to the
+    kernel; K4 in both interior-scale modes and once more with two
+    512-token blocks. Beside each, the bf16 block the kernel replaces, as
+    context (a different function): norm1 + attn1 on K1 + the residual, or
+    norm3 + ff + the residual."""
+    import torch
+    from ldmseg_torch.ops import attention_s8 as K3
+    from ldmseg_torch.ops import geglu as K4
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k3_rows, k4_rows = [], []
+    ragged = [((1, 120, 320), 0)]
+    for shape, per_fwd in INT8_SHAPES + ragged + [((1, 1024, 320), 0)]:
+        b, t, c = shape
+        norm1, attn, norm3, ff = _block_modules(c, seed=t + c)
+        apack = K3.pack_ln_attention(norm1, attn, 8, 0.1)
+        fpacks = {mode: K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2],
+                                      0.05, gs)
+                  for mode, gs in (("dynamic", None), ("static", 0.02))}
+        n1, at, n3, f = (m.to(torch.bfloat16)
+                         for m in (norm1, attn, norm3, ff))
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        with torch.inference_mode():
+            if (shape, per_fwd) in INT8_SHAPES + ragged:
+                out = K3.ln_attention_s8(x, apack)
+                torch.cuda.synchronize()
+                row = _int8_row(
+                    "K3", shape, per_fwd, out,
+                    K3.ln_attention_s8_reference(x, apack),
+                    lambda: K3.ln_attention_s8(x, apack),
+                    lambda: K3.ln_attention_s8_reference(x, apack),
+                    lambda: x + at(n1(x)), ln_attention_bound_ms(b, t, c))
+                k3_rows.append(row)
+                print(f"phase 7 K3 {shape}: err {row['max_abs_err']:.3e} of "
+                      f"max|ref| {row['max_abs_ref']:.3e}, mean "
+                      f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
+                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}), bf16 block on K1 "
+                      f"{row['bf16_block_ms']:.4f} ms", flush=True)
+            for mode, fpack in fpacks.items():
+                out = K4.geglu_ln_s8(x, fpack)
+                torch.cuda.synchronize()
+                row = _int8_row(
+                    "K4", shape, per_fwd, out,
+                    K4.geglu_ln_s8_reference(x, fpack),
+                    lambda: K4.geglu_ln_s8(x, fpack),
+                    lambda: K4.geglu_ln_s8_reference(x, fpack),
+                    lambda: x + f(n3(x)), geglu_ln_bound_ms(b, t, c))
+                row["interior"] = mode
+                k4_rows.append(row)
+                print(f"phase 7 K4 {shape} {mode}: err "
+                      f"{row['max_abs_err']:.3e} of max|ref| "
+                      f"{row['max_abs_ref']:.3e}, mean "
+                      f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
+                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}), bf16 block "
+                      f"{row['bf16_block_ms']:.4f} ms", flush=True)
+    return k3_rows, k4_rows
+
+
+def _int8_counts():
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as K3
+    from ldmseg_torch.ops import geglu as K4
+    return {"K1": A.fused_self_attention.launches,
+            "K2": A.fused_self_attention_backward.launches,
+            "K3": K3.ln_attention_s8.launches,
+            "K4": K4.geglu_ln_s8.launches,
+            "fallbacks": (K3.ln_attention_s8.fallbacks
+                          + K4.geglu_ln_s8.fallbacks)}
+
+
+def _zero_int8_counts():
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as K3
+    from ldmseg_torch.ops import geglu as K4
+    A.fused_self_attention.launches = 0
+    A.fused_self_attention_backward.launches = 0
+    K3.ln_attention_s8.launches = K3.ln_attention_s8.fallbacks = 0
+    K4.geglu_ln_s8.launches = K4.geglu_ln_s8.fallbacks = 0
+
+
+def phase_int8_unet(trainer, seed: int = 1):
+    """The int8 UNet forward at full width against the bf16 UNet on K1 of
+    the same masters (the input of phase 3); the time of the s8 convs from
+    CUDA events around each ``QuantConv2d``."""
+    import torch
+    from ldmseg_torch.ops.quant import QuantConv2d
+
+    bf16 = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, bf16.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    int8 = trainer.int8_unet()
+    with torch.inference_mode():
+        ref = bf16(x, t).float()
+        _zero_int8_counts()
+        out = int8(x, t).float()
+        torch.cuda.synchronize()
+        counts = _int8_counts()
+        int8_ms = time_ms(lambda: int8(x, t), iters=10)
+        bf16_ms = time_ms(lambda: bf16(x, t), iters=10)
+        events = []
+
+        def pre(_m, _i):
+            events.append([torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)])
+            events[-1][0].record()
+
+        def post(_m, _i, _o):
+            events[-1][1].record()
+        convs = [m for m in int8.modules() if isinstance(m, QuantConv2d)]
+        hooks = [h for m in convs for h in (
+            m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+        int8(x, t)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        conv_ms = sum(a.elapsed_time(b) for a, b in events)
+    check(counts == {"K1": 0, "K2": 0, "K3": 16, "K4": 16, "fallbacks": 0},
+          f"int8 UNet forward launched {counts}, expected 16 K3, 16 K4, "
+          f"0 K1, 0 fallbacks")
+    check(bool(torch.isfinite(out).all()), "int8 UNet output not finite")
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    rel_mean = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[
+        0, 1].item()
+    check(corr >= 0.9, f"int8 UNet vs bf16: correlation {corr} < 0.9")
+    print(f"phase 8 int8 UNet forward, [2, {bf16.config.in_channels}, 32, 64]"
+          f": {int8_ms:.3f} ms (bf16 on K1 {bf16_ms:.3f} ms), s8 convs "
+          f"{conv_ms:.3f} ms in {len(convs)} convs ({conv_ms / int8_ms:.1%} "
+          f"of the forward, with the hooks' events), launches {counts}; vs "
+          f"bf16: max rel err {rel:.3e}, mean rel err {rel_mean:.3e}, "
+          f"correlation {corr:.6f} (>= 0.9)", flush=True)
+    return {"int8_ms": int8_ms, "bf16_ms": bf16_ms, "s8_conv_ms": conv_ms,
+            "s8_convs": len(convs), "max_rel_err": rel,
+            "mean_rel_err": rel_mean, "correlation": corr}
+
+
+def phase_int8_sample(trainer, smi_line: str, bf16_result: dict,
+                      seed: int = 0):
+    """int8 ``sample_panoptic`` as phase 4 (same frames, same init noise):
+    two timed calls with the default scales (dynamic interior), then
+    ``calibrate_int8`` and two with the calibrated scales (static
+    interior); the host's speed moves a single call. Returns each mode's
+    counts (every call checked) and measurements."""
+    import numpy as np
+    import torch
+    from ldmseg_torch.ops.panoptic import panoptic_post_process
+
+    image = np.random.RandomState(seed).randn(2, 256, 512, 3).astype(
+        np.float32)
+    batch = {"image": image}
+    steps = trainer.num_inference_steps
+    trainer.sample_panoptic(batch)  # warm-up
+    results = {}
+    for label in ("dynamic interior", "calibrated"):
+        if label == "calibrated":
+            t0 = time.perf_counter()
+            scales = trainer.calibrate_int8(batch)
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t0
+            check(len(scales) == 2 * 22 + 3 * 16,
+                  f"calibrate_int8 gave {len(scales)} sites")
+        timings = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_int8_counts()
+            t0 = time.perf_counter()
+            logits, x0 = trainer.sample_panoptic(batch)
+            cleaned, keep = panoptic_post_process(
+                logits, mask_th=trainer.mask_th, count_th=trainer.count_th,
+                overlap_th=trainer.overlap_th,
+                ignore_label=trainer.ignore_label)
+            torch.cuda.synchronize()
+            timings.append(time.perf_counter() - t0)
+            counts = _int8_counts()
+            peak = torch.cuda.max_memory_allocated()
+            c = trainer.num_classes
+            check(tuple(logits.shape) == (2, 256, 512, c)
+                  and bool(torch.isfinite(logits).all()),
+                  f"int8 {label}: logits {tuple(logits.shape)} not finite "
+                  f"or of the wrong shape")
+            check(tuple(cleaned.shape) == (2, 256, 512)
+                  and tuple(keep.shape) == (2, c),
+                  f"int8 {label}: post-process")
+            check(counts == {"K1": 0, "K2": 0, "K3": 16 * steps,
+                             "K4": 16 * steps, "fallbacks": 0},
+                  f"int8 sample_panoptic ({label}) launched {counts}, "
+                  f"expected {16 * steps} K3 and K4, 0 K1, 0 fallbacks")
+        secs = min(timings)
+        corr = np.corrcoef(x0.float().cpu().numpy().ravel(),
+                           bf16_result["x0"].ravel())[0, 1]
+        results[label] = {"seconds": secs, "seconds_both_calls": timings,
+                          "frames_per_s": 2 / secs, "peak_bytes": peak,
+                          "counts": counts,
+                          "x0_correlation_with_bf16": float(corr)}
+        if label == "calibrated":
+            results[label]["calibrate_seconds"] = calib_s
+        print(f"phase 9 int8 sample_panoptic ({label}): {steps} DDIM steps, "
+              f"2 x 256x512 -> logits {tuple(logits.shape)}: {secs:.3f} s "
+              f"per call (the faster of {timings[0]:.3f} and "
+              f"{timings[1]:.3f}), {2 / secs:.3f} frames/s, peak memory "
+              f"{peak / 2**30:.2f} GiB, launches {counts}; x0 correlation "
+              f"with the bf16 call {corr:.4f}; bf16 (phase 4): "
+              f"{bf16_result['seconds']:.3f} s, "
+              f"{bf16_result['frames_per_s']:.3f} frames/s, "
+              f"{bf16_result['peak_bytes'] / 2**30:.2f} GiB [{smi_line}]",
+              flush=True)
+    return results
+
+
+def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
+               by_path):
+    """The kernels-line entry for K3 or K4: times summed over the 16
+    launches of one int8 UNet forward (dynamic interior for K4), per-shape
+    rows beside them."""
+    main = [r for r in rows if r["per_unet_forward"]
+            and r.get("interior", "dynamic") == "dynamic"]
+
+    def total(key):
+        return sum(r[key] * r["per_unet_forward"] for r in main)
+    ops_ms = sum(r["work"][0] / PEAK_FLOPS["int8"] * 1e3
+                 * r["per_unet_forward"] for r in main)
+    if kid == "K3":
+        ops_ms += sum(r["work"][1] / PEAK_FLOPS["bfloat16"] * 1e3
+                      * r["per_unet_forward"] for r in main)
+    bytes_ms = sum(r["work"][-1] / PEAK_BYTES * 1e3 * r["per_unet_forward"]
+                   for r in main)
+    return {
+        "name": name, "id": kid, "route": "cuda", "source": source,
+        "replaces": replaces, "tpu_kernel": tpu_kernel,
+        "launches": launches, "launches_by_path": by_path, "checked": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "bf16_block_ms": total("bf16_block_ms"),
+        "unit": "one UNet forward (16 launches, int8, batch 2, 32x64 "
+                "latent)",
+        "shapes": rows,
+    }
+
+
 def _per_unit(rows, per_key):
     main = [r for r in rows if r[per_key]]
 
@@ -557,17 +902,44 @@ def main() -> int:
         torch.cuda.empty_cache()
         bwd_rows = phase_attention_backward()
         train_fwd, train_bwd, train_result = phase_train(smi_line)
+        torch.cuda.empty_cache()
+        k3_rows, k4_rows = phase_int8_kernels()
+        trainer = TrainerDiffusion(_int8_config())
+        trainer.init_params(seed=0)
+        int8_unet_result = phase_int8_unet(trainer)
+        int8_results = phase_int8_sample(trainer, smi_line, sample_result)
+        del trainer
+        sample_result.pop("x0")
         print(json.dumps({"results": {"device": smi_line,
                                       "unet_forward": unet_result,
                                       "sample_panoptic": sample_result,
-                                      "train": train_result}}),
+                                      "train": train_result,
+                                      "int8_unet_forward": int8_unet_result,
+                                      "int8_sample_panoptic": int8_results}}),
               flush=True)
         train_path = f"train_loop, {TIMED_STEPS} steps"
+        dyn, cal = (int8_results[k]["counts"]
+                    for k in ("dynamic interior", "calibrated"))
+        int8_dyn = "sample_panoptic int8, default scales"
+        int8_cal = "sample_panoptic int8, calibrated scales"
+
+        def by_path(bf16, train, key):
+            return {"sample_panoptic": bf16, train_path: train,
+                    int8_dyn: dyn[key], int8_cal: cal[key]}
         print(json.dumps({"kernels": [
-            k1_entry(rows, launches, {"sample_panoptic": launches,
-                                      train_path: train_fwd}),
-            k2_entry(bwd_rows, train_bwd, {"sample_panoptic": 0,
-                                           train_path: train_bwd}),
+            k1_entry(rows, launches, by_path(launches, train_fwd, "K1")),
+            k2_entry(bwd_rows, train_bwd, by_path(0, train_bwd, "K2")),
+            int8_entry("attention_ln_s8", "K3",
+                       "ldmseg_torch/csrc/attention_ln_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:845",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_abs_padded_ln_s8_vt",
+                       k3_rows, dyn["K3"], by_path(0, 0, "K3")),
+            int8_entry("geglu_ln_s8", "K4",
+                       "ldmseg_torch/csrc/geglu_ln_s8.cu",
+                       "ldmseg_tpu/ops/pallas/geglu.py:164",
+                       "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel",
+                       k4_rows, dyn["K4"], by_path(0, 0, "K4")),
         ]}), flush=True)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

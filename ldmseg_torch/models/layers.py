@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_self_attention
+from ..ops.quant import QuantConv2d
 
 
 class GroupNorm(nn.Module):
@@ -38,12 +39,30 @@ class GroupNorm(nn.Module):
 
 
 class GroupNormSiLU(GroupNorm):
-    """GN + SiLU, both in fp32: the fp32 path of the JAX ``GroupNormSiLU``
-    (its ``lowp``, ``quantize`` and ``use_pallas`` variants belong to the
-    int8 slice)."""
+    """GN + SiLU in fp32, the fp32 path of the JAX ``GroupNormSiLU``. With
+    ``lowp`` (the int8 UNet's resnets) a non-fp32 input takes its ``lowp``
+    path (:67-78): fp32 group statistics, then a per-(image, channel)
+    affine ``x·w + b`` and the SiLU in the input dtype. The ``quantize``
+    and ``use_pallas`` variants (K6, K5) are not ported."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float,
+                 lowp: bool = False):
+        super().__init__(num_groups, channels, eps)
+        self.lowp = lowp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.normalize(x)).to(x.dtype)
+        if not (self.lowp and x.dtype != torch.float32):
+            return F.silu(self.normalize(x)).to(x.dtype)
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xr = x.reshape(b, g, -1).float()
+        mean = xr.mean(-1, keepdim=True)                     # [B, G, 1]
+        var = (xr - mean).square().mean(-1, keepdim=True)
+        w = self.weight.float().reshape(g, -1) * torch.rsqrt(var + self.eps)
+        shift = self.bias.float().reshape(g, -1) - mean * w  # [B, G, C/G]
+        y = (x * w.reshape(b, c, 1, 1).to(x.dtype)
+             + shift.reshape(b, c, 1, 1).to(x.dtype))
+        return F.silu(y)
 
 
 class LayerNorm(nn.Module):
@@ -76,17 +95,27 @@ def conv3x3(cin: int, cout: int, stride: int = 1,
 
 class ResnetBlock(nn.Module):
     """diffusers ResnetBlock2D: GN-SiLU-conv twice plus a skip, with the
-    time-embedding bias between the halves when ``temb_channels`` is set."""
+    time-embedding bias between the halves when ``temb_channels`` is set.
+    ``use_int8`` (inference) makes ``conv1``/``conv2`` s8 convs with the
+    static ``int8_act_scale`` (or a calibrated per-site scale) and the norms
+    ``lowp``; ``conv_shortcut`` stays a float conv, as in JAX."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
-                 eps: float = 1e-6, temb_channels: Optional[int] = None):
+                 eps: float = 1e-6, temb_channels: Optional[int] = None,
+                 use_int8: bool = False,
+                 int8_act_scale: Optional[float] = None):
         super().__init__()
-        self.norm1 = GroupNormSiLU(groups, in_channels, eps)
-        self.conv1 = conv3x3(in_channels, out_channels)
+        if use_int8:
+            def conv(cin, cout):
+                return QuantConv2d(cin, cout, act_scale=int8_act_scale)
+        else:
+            conv = conv3x3
+        self.norm1 = GroupNormSiLU(groups, in_channels, eps, lowp=use_int8)
+        self.conv1 = conv(in_channels, out_channels)
         self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
                               if temb_channels else None)
-        self.norm2 = GroupNormSiLU(groups, out_channels, eps)
-        self.conv2 = conv3x3(out_channels, out_channels)
+        self.norm2 = GroupNormSiLU(groups, out_channels, eps, lowp=use_int8)
+        self.conv2 = conv(out_channels, out_channels)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 

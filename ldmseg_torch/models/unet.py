@@ -12,6 +12,13 @@ The port holds the trainer's default UNet: no cross-attention, a plain
 ``conv_in``, the SD time embedding (``flip_sin_to_cos``, no frequency
 shift). K1/K2 make the fused self-attention differentiable. The rest of
 the reference surgery is a later slice.
+
+The int8 UNet of ``sampling_kwargs.int8_inference`` is this class built with
+``use_int8_conv`` (s8 resnet, Downsample and Upsample convs,
+``ops/quant.py:QuantConv2d``) and ``use_fused_norms`` (the fused transformer
+block, ``x = K3(x)`` then ``x = K4(x)``), the configuration the JAX trainer
+sets. Its quantized modules hold no float weights:
+``ops/quant.py:prepare_int8_unet`` fills them from a float UNet.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_self_attention
+from ..ops.attention_s8 import ln_attention_s8, pack_ln_attention
+from ..ops.geglu import geglu_ln_s8, pack_geglu
+from ..ops.quant import QuantConv2d
 from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
                      conv3x3, timestep_embedding)
 
@@ -42,6 +52,14 @@ class UNetConfig:
     norm_eps: float = 1e-5
     attn_down: Tuple[bool, ...] = (True, True, True, False)
     use_fused_attention: bool = False
+    # int8 inference (unet.py:79-94): s8 resnet/Down/Upsample convs; the
+    # fused-norms int8 transformer block on K3 + K4, which is JAX's
+    # use_fused_norms with use_int8_ff, use_fused_ff and
+    # use_padded_attention (its other int8 transformer paths are not ported)
+    use_int8_conv: bool = False
+    use_fused_norms: bool = False
+    int8_act_scale: Optional[float] = None       # None: dynamic amax
+    int8_attn_act_scale: Optional[float] = None  # None: 0.1
 
 
 class CrossAttention(nn.Module):
@@ -114,17 +132,82 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
+class AttentionS8(nn.Module):
+    """``norm1`` + ``attn1`` + residual of an int8 block as K3. Its site
+    ``to_q`` takes the calibrated scale of the LN1 output (``x_scale``);
+    else ``act_scale``."""
+
+    act_scale_sites = {"to_q": "x_scale"}
+
+    def __init__(self, heads: int, act_scale: float):
+        super().__init__()
+        self.heads, self.act_scale = heads, act_scale
+        self.x_scale: Optional[float] = None
+        self.pack = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ln_attention_s8(x, self.pack)
+
+
+class FeedForwardS8(nn.Module):
+    """``norm3`` + ``ff`` + residual of an int8 block as K4. Sites:
+    ``net.0.proj`` (LN3 output, ``x_scale``, else ``act_scale``) and
+    ``net.2`` (the gated interior, ``g_scale``, else dynamic)."""
+
+    act_scale_sites = {"net.0.proj": "x_scale", "net.2": "g_scale"}
+
+    def __init__(self, act_scale: float):
+        super().__init__()
+        self.act_scale = act_scale
+        self.x_scale: Optional[float] = None
+        self.g_scale: Optional[float] = None
+        self.pack = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return geglu_ln_s8(x, self.pack)
+
+
+class FusedTransformerBlockS8(nn.Module):
+    """The int8 UNet's transformer block with fused norms (unet.py:456-503
+    with ``fused_norms``): ``x = K3(x)``, then ``x = K4(x)``, each returning
+    the new residual stream. No float parameters: :meth:`prepare` packs
+    both kernels' operands from a float :class:`BasicTransformerBlock`."""
+
+    def __init__(self, dim: int, heads: int, int8_act_scale: float,
+                 int8_attn_act_scale: float):
+        super().__init__()
+        self.heads = heads
+        self.attn1 = AttentionS8(heads, int8_attn_act_scale)
+        self.ff = FeedForwardS8(int8_act_scale)
+
+    def prepare(self, src: BasicTransformerBlock) -> None:
+        a, f = self.attn1, self.ff
+        xs_a = a.act_scale if a.x_scale is None else a.x_scale
+        xs_f = f.act_scale if f.x_scale is None else f.x_scale
+        a.pack = pack_ln_attention(src.norm1, src.attn1, self.heads, xs_a)
+        f.pack = pack_geglu(src.norm3, src.ff.net[0].proj, src.ff.net[2],
+                            xs_f, f.g_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.attn1.pack is None:
+            raise RuntimeError("int8 transformer block not prepared (run "
+                               "prepare_int8_unet)")
+        return self.ff(self.attn1(x))
+
+
 class Transformer2D(nn.Module):
     """GN -> 1x1 conv in -> one transformer block over HW tokens -> 1x1
-    conv out -> residual."""
+    conv out -> residual. The GN and the 1x1 convs stay float in the int8
+    UNet, as in JAX (:561-569)."""
 
     def __init__(self, channels: int, heads: int, groups: int = 32,
-                 use_fused: bool = False):
+                 use_fused: bool = False, int8: Optional[dict] = None):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, use_fused)])
+        block = (FusedTransformerBlockS8(channels, heads, **int8) if int8
+                 else BasicTransformerBlock(channels, heads, use_fused))
+        self.transformer_blocks = nn.ModuleList([block])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,19 +219,26 @@ class Transformer2D(nn.Module):
         return self.proj_out(y) + x
 
 
+def _sample_conv(channels: int, stride: int, use_int8: bool) -> nn.Module:
+    # int8: the residual stream's dynamic per-tensor amax (unet.py:572-615)
+    if use_int8:
+        return QuantConv2d(channels, channels, stride)
+    return conv3x3(channels, channels, stride=stride)
+
+
 class Downsample(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_int8: bool = False):
         super().__init__()
-        self.conv = conv3x3(channels, channels, stride=2)
+        self.conv = _sample_conv(channels, 2, use_int8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
 
 
 class Upsample(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_int8: bool = False):
         super().__init__()
-        self.conv = conv3x3(channels, channels)
+        self.conv = _sample_conv(channels, 1, use_int8)
 
     def forward(self, x: torch.Tensor,
                 target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -163,20 +253,25 @@ class Upsample(nn.Module):
 
 
 class DownBlock(nn.Module):
+    """``res_kw`` and ``attn_kw`` (from :class:`UNet2DCondition`) go to each
+    ResnetBlock and Transformer2D; ``res_kw["use_int8"]`` also makes the
+    Downsample int8."""
+
     def __init__(self, in_channels: int, out_channels: int, num_layers: int,
                  has_attn: bool, heads: int, groups: int, eps: float,
-                 add_downsample: bool, temb_channels: int,
-                 use_fused: bool = False):
+                 add_downsample: bool, temb_channels: int, res_kw: dict,
+                 attn_kw: dict):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels,
-                        out_channels, groups, eps, temb_channels)
+                        out_channels, groups, eps, temb_channels, **res_kw)
             for i in range(num_layers)])
         self.attentions = nn.ModuleList([
-            Transformer2D(out_channels, heads, groups, use_fused)
+            Transformer2D(out_channels, heads, groups, **attn_kw)
             for _ in range(num_layers)] if has_attn else [])
         self.downsamplers = nn.ModuleList(
-            [Downsample(out_channels)] if add_downsample else [])
+            [Downsample(out_channels, res_kw["use_int8"])]
+            if add_downsample else [])
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor):
         res_outputs = []
@@ -198,19 +293,20 @@ class UpBlock(nn.Module):
     def __init__(self, in_channels: int, skip_channels: Sequence[int],
                  out_channels: int, has_attn: bool, heads: int, groups: int,
                  eps: float, add_upsample: bool, temb_channels: int,
-                 use_fused: bool = False):
+                 res_kw: dict, attn_kw: dict):
         super().__init__()
         resnets = []
         for i, skip in enumerate(skip_channels):
             cin = (in_channels if i == 0 else out_channels) + skip
             resnets.append(ResnetBlock(cin, out_channels, groups, eps,
-                                       temb_channels))
+                                       temb_channels, **res_kw))
         self.resnets = nn.ModuleList(resnets)
         self.attentions = nn.ModuleList([
-            Transformer2D(out_channels, heads, groups, use_fused)
+            Transformer2D(out_channels, heads, groups, **attn_kw)
             for _ in skip_channels] if has_attn else [])
         self.upsamplers = nn.ModuleList(
-            [Upsample(out_channels)] if add_upsample else [])
+            [Upsample(out_channels, res_kw["use_int8"])]
+            if add_upsample else [])
 
     def forward(self, x: torch.Tensor, res_samples: List[torch.Tensor],
                 temb: torch.Tensor,
@@ -227,13 +323,14 @@ class UpBlock(nn.Module):
 
 class MidBlockCrossAttn(nn.Module):
     def __init__(self, channels: int, heads: int, groups: int, eps: float,
-                 temb_channels: int, use_fused: bool = False):
+                 temb_channels: int, res_kw: dict, attn_kw: dict):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock(channels, channels, groups, eps, temb_channels)
+            ResnetBlock(channels, channels, groups, eps, temb_channels,
+                        **res_kw)
             for _ in range(2)])
         self.attentions = nn.ModuleList([
-            Transformer2D(channels, heads, groups, use_fused)])
+            Transformer2D(channels, heads, groups, **attn_kw)])
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         x = self.resnets[0](x, temb)
@@ -251,7 +348,14 @@ class UNet2DCondition(nn.Module):
         chans = cfg.block_out_channels
         heads, groups, eps = (cfg.attention_head_dim, cfg.norm_num_groups,
                               cfg.norm_eps)
-        fused = cfg.use_fused_attention
+        int8 = None
+        if cfg.use_fused_norms:
+            int8 = dict(int8_act_scale=cfg.int8_act_scale or 0.05,
+                        int8_attn_act_scale=cfg.int8_attn_act_scale or 0.1)
+        opts = dict(res_kw=dict(use_int8=cfg.use_int8_conv,
+                                int8_act_scale=cfg.int8_act_scale),
+                    attn_kw=dict(use_fused=cfg.use_fused_attention,
+                                 int8=int8))
         c0 = chans[0]
         temb = c0 * 4
         self.conv_in = conv3x3(cfg.in_channels, c0)
@@ -263,12 +367,12 @@ class UNet2DCondition(nn.Module):
             last = i == len(chans) - 1
             down.append(DownBlock(cin, cout, cfg.layers_per_block,
                                   cfg.attn_down[i], heads, groups, eps,
-                                  not last, temb, fused))
+                                  not last, temb, **opts))
             skips += [cout] * (cfg.layers_per_block + (0 if last else 1))
             cin = cout
         self.down_blocks = nn.ModuleList(down)
         self.mid_block = MidBlockCrossAttn(chans[-1], heads, groups, eps,
-                                           temb, fused)
+                                           temb, **opts)
         up, cin = [], chans[-1]
         rev = list(reversed(chans))
         attn_up = tuple(reversed(cfg.attn_down))
@@ -276,7 +380,7 @@ class UNet2DCondition(nn.Module):
         for i, cout in enumerate(rev):
             taken, skips = skips[-n_res:], skips[:-n_res]
             up.append(UpBlock(cin, taken[::-1], cout, attn_up[i], heads,
-                              groups, eps, i < len(rev) - 1, temb, fused))
+                              groups, eps, i < len(rev) - 1, temb, **opts))
             cin = cout
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(groups, c0, eps)

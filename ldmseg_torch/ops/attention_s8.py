@@ -1,0 +1,233 @@
+"""K3: the int8 UNet's fused self-attention block,
+``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens.
+
+Counterpart of ``ldmseg_tpu/ops/pallas/attention.py``:
+``absorbed_padded_ln_self_attention_s8`` (:1070) with its defaults
+``v_bf16=True, v_transposed=True``, whose kernel is
+``_attn_kernel_abs_padded_ln_s8_vt``/``_abs_padded_ln_s8_vt_body`` (:845,
+:895) on the operands of ``pack_padded_ln_vt_tiles`` (:1032).
+
+:func:`ln_attention_s8` dispatches as the JAX wrapper does (:1105): a shape
+that rule sends away (``T > 2048``, ``T % 8``, ``C % heads`` or ``d % 8``)
+goes to :func:`ln_attention_s8_fallback`, the JAX package's float math,
+counted in ``ln_attention_s8.fallbacks``. Every other shape takes the
+kernel's arithmetic: on a CUDA tensor the hand-written kernel
+``csrc/attention_ln_s8.cu`` (counted in ``ln_attention_s8.launches``; an
+input it cannot take raises), on a CPU tensor its plain PyTorch version
+:func:`ln_attention_s8_reference`.
+
+The operands are packed once per sampling call from the float weights
+(:func:`pack_ln_attention`, the port's ``pack_padded_ln_vt_tiles``). The
+TPU layout tricks (128-lane head padding, the K-major Vᵀ, the ones-rows
+that give the softmax denominator) are not carried over; the values the
+kernel computes with are: the per-column Q/K requant factors
+``w_scale·(xs/as)``, ``as²·d^-0.5``, the per-head V dequant ``w_scale·xs``,
+``to_out`` dequantized to bf16 per head, the LN and bias rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .quant import exact_int8_matmul, quantize_head_weights
+
+ATTN_SCALE = 0.1    # the static q/k/v scale ``as`` (pack_inference_tiles)
+MAX_SEQ = 2048      # the JAX wrapper's max_seq
+MAX_HEAD_DIM = 160  # the largest head dim the kernel takes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass
+class LNAttentionPack:
+    """K3's operands for one transformer block (float32 unless noted)."""
+
+    heads: int
+    eps: float
+    xs: float             # the input's static int8 scale
+    score_scale: float    # as² · d^-0.5
+    ln_w: torch.Tensor    # [C]
+    ln_b: torch.Tensor    # [C]
+    out_b: torch.Tensor   # [C] to_out bias
+    w_qkv: torch.Tensor   # int8 [3C, C]: to_q, to_k, to_v rows (out, in)
+    m_qkv: torch.Tensor   # [3C]: q, k requant and v dequant per column
+    wo: torch.Tensor      # bf16 [C, C] (out, in), dequantized per head
+    wo_q: torch.Tensor    # int8 [C, C] (out, in), for the fallback
+    w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
+
+
+@torch.no_grad()
+def pack_ln_attention(norm, attn, heads: int, xs: float,
+                      attn_scale: float = ATTN_SCALE) -> LNAttentionPack:
+    """Quantize a block's ``norm1`` (LayerNorm) and ``attn1``
+    (CrossAttention) float weights and pack K3's operands, in the JAX
+    package's float32 order (``quantize_head_weights``, ``_abs_padded_prep``
+    :1161, ``pack_padded_ln_vt_tiles``)."""
+    wq, wk, wv = (p.weight for p in (attn.to_q, attn.to_k, attn.to_v))
+    to_out = attn.to_out[0]
+    c = wq.shape[0]
+    d = c // heads
+    q8, k8, v8, o8, scales = quantize_head_weights(wq, wk, wv,
+                                                   to_out.weight, heads)
+    xs32, as32 = np.float32(xs), np.float32(attn_scale)
+    ratio = float(xs32 / as32)
+    per_col = scales.repeat_interleave(d, dim=1)          # [4, C]
+    m_qkv = torch.cat([per_col[0] * ratio, per_col[1] * ratio,
+                       per_col[2] * float(xs32)])
+    wo = (o8.float() * per_col[3][None, :]).to(torch.bfloat16)
+    score = np.float32(as32 * as32) * np.float32(d ** -0.5)
+    return LNAttentionPack(
+        heads=heads, eps=norm.eps, xs=float(xs32), score_scale=float(score),
+        ln_w=norm.weight.detach().float().contiguous(),
+        ln_b=norm.bias.detach().float().contiguous(),
+        out_b=to_out.bias.detach().float().contiguous(),
+        w_qkv=torch.cat([q8, k8, v8]).contiguous(),
+        m_qkv=m_qkv.contiguous(), wo=wo.contiguous(), wo_q=o8.contiguous(),
+        w_scale=scales.contiguous())
+
+
+def _layer_norm(xf, w, b, eps):
+    """LayerNorm in fp32 in the kernels' order: mean, the mean of the
+    centred squares, ``(x - mu) * rsqrt(var + eps) * w + b``."""
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    return xc * torch.rsqrt(var + eps) * w + b
+
+
+def takes_kernel(t: int, c: int, heads: int) -> bool:
+    """The JAX wrapper's shape rule (:1105) without its CPU clause."""
+    d = c // heads
+    return not (t > MAX_SEQ or t % 8 != 0 or c % heads != 0 or d % 8 != 0)
+
+
+def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
+                              static_offset: Optional[float] = None
+                              ) -> torch.Tensor:
+    """K3's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): the LN and
+    quantize, the int8 projections with int32 sums, the per-column requant
+    of q and k and the bf16 v, per head ``p = bf16(exp(s - rowmax))``,
+    ``o = bf16((p·v) / Σp)`` with both sums over the rounded p in fp32, and
+    ``bf16(x + o·Wo + b_out)`` with fp32 sums. ``static_offset`` swaps the
+    row max for the TPU kernel's form, ``exp(min(s - offset, 80))``
+    (:939-941), to compare with it; the kernel has no such option."""
+    b, t, c = x.shape
+    h = p.heads
+    d = c // h
+    xf = x.float()
+    hn = _layer_norm(xf, p.ln_w, p.ln_b, p.eps)
+    x8 = torch.round(hn / p.xs).clamp_(-127, 127).to(torch.int8)
+    y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3C]
+    q8, k8 = (torch.round(y[..., i * c:(i + 1) * c]).clamp_(-127, 127)
+              .to(torch.int8) for i in range(2))
+    v = y[..., 2 * c:].to(torch.bfloat16)
+
+    def heads_of(z):
+        return z.reshape(b, t, h, d).transpose(1, 2)          # [B, H, T, d]
+
+    s = exact_int8_matmul(heads_of(q8), heads_of(k8)).float() * p.score_scale
+    if static_offset is None:
+        s = s - s.amax(-1, keepdim=True)
+    else:
+        s = (s - static_offset).clamp_max(80.0)
+    e = torch.exp(s).to(torch.bfloat16).float()
+    o = (e @ heads_of(v).float()) / e.sum(-1, keepdim=True)
+    o = o.to(torch.bfloat16).transpose(1, 2).reshape(b, t, c)
+    out = xf + o.float() @ p.wo.float().t()
+    return (out + p.out_b).to(torch.bfloat16)
+
+
+def ln_attention_s8_fallback(x: torch.Tensor,
+                             p: LNAttentionPack) -> torch.Tensor:
+    """The JAX wrapper's float branch (:1112-1117 with
+    ``absorbed_padded_self_attention_s8``'s :1247-1258) for the shapes K3
+    does not take: LN in the input dtype, float attention on the
+    dequantized weights (no activation quantize), then the residual and
+    bias in fp32; returns the input dtype."""
+    b, t, c = x.shape
+    h = p.heads
+    d = c // h
+    hs = _layer_norm(x.float(), p.ln_w, p.ln_b, p.eps).to(x.dtype).float()
+    scale = p.w_scale.repeat_interleave(d, dim=1)              # [4, C]
+    wq, wk, wv = (p.w_qkv[i * c:(i + 1) * c].float() * scale[i][:, None]
+                  for i in range(3))
+    wo = p.wo_q.float() * scale[3][None, :]
+
+    def heads_of(z):
+        return z.reshape(b, t, h, d).transpose(1, 2)
+
+    q, k, v = (heads_of(F.linear(hs, w)) for w in (wq, wk, wv))
+    a = torch.softmax((q @ k.transpose(-1, -2)) * d ** -0.5, dim=-1)
+    o = (a @ v).transpose(1, 2).reshape(b, t, c)
+    attn = F.linear(o, wo).to(x.dtype)
+    return (x.float() + attn.float() + p.out_b).to(x.dtype)
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("attention_ln_s8").ldmseg_attention_ln_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+    b, t, c = x.shape
+    h = p.heads
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"K3: x must be float32 or bfloat16, got {x.dtype}")
+    if c // h > MAX_HEAD_DIM:
+        raise ValueError(f"K3: head dim {c // h} > {MAX_HEAD_DIM}")
+    if b * h > 65535:
+        raise ValueError(f"K3: B*heads {b * h} > 65535")
+    x = x.contiguous()
+    ops = (p.ln_w, p.ln_b, p.out_b, p.w_qkv, p.m_qkv, p.wo)
+    if any(o.device != x.device or not o.is_contiguous() for o in ops):
+        raise ValueError("K3: the pack must be contiguous on x's device")
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=x.device)
+    x8, q8, k8 = (torch.empty((b * t, c), dtype=torch.int8, device=x.device)
+                  for _ in range(3))
+    v, o = (torch.empty((b * t, c), dtype=torch.bfloat16, device=x.device)
+            for _ in range(2))
+    kernel = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = kernel(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+            p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.out_b.data_ptr(),
+            p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo.data_ptr(),
+            x8.data_ptr(), q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
+            o.data_ptr(), b, t, c, h, p.xs, p.score_scale, p.eps, stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    ln_attention_s8.launches += 1
+    return out
+
+
+def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+    """``x + to_out(attention(LN(x))) + b_out`` for ``x [B, T, C]``,
+    returned in ``x``'s dtype (the kernel's result is bf16, cast as the JAX
+    wrapper's ``.astype(x.dtype)``)."""
+    b, t, c = x.shape
+    if not takes_kernel(t, c, p.heads):
+        ln_attention_s8.fallbacks += 1
+        return ln_attention_s8_fallback(x, p)
+    if x.device.type == "cpu":
+        return ln_attention_s8_reference(x, p).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K3: unsupported device {x.device}")
+    return _launch(x, p).to(x.dtype)
+
+
+ln_attention_s8.launches = 0
+ln_attention_s8.fallbacks = 0
+

@@ -1,0 +1,201 @@
+"""K4: the int8 UNet's fused feed-forward block,
+``x + W2·q(h ⊙ gelu_tanh(gate))·s2 + b2`` with ``[h, gate] = W1·q(LN(x))``.
+
+Counterpart of ``ldmseg_tpu/ops/pallas/geglu.py``: ``fused_geglu_ln_s8``
+(:327) and its kernel ``_geglu_ln_kernel`` with ``_ff_interior`` (:164, :66,
+``nc=1``) on the operands of ``pack_geglu_ln_tiles`` (:295).
+
+:func:`geglu_ln_s8` dispatches as the JAX wrapper does (:351): ``T % 8`` or
+``T % min(512, T)`` go to :func:`geglu_ln_s8_fallback`, the JAX package's
+``_xla_geglu_ln_s8`` (exact erf gelu, one amax over the whole tensor),
+counted in ``geglu_ln_s8.fallbacks``. Every other shape takes the kernel's
+arithmetic: on a CUDA tensor the hand-written kernel ``csrc/geglu_ln_s8.cu``
+(counted in ``geglu_ln_s8.launches``; an input it cannot take raises), on a
+CPU tensor its plain PyTorch version :func:`geglu_ln_s8_reference`.
+
+The interior scale is static when the site was calibrated (``gs``), else
+dynamic: one amax per (image, block of ``min(512, T)`` tokens), the Pallas
+grid's block, not per tensor as in the fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .attention_s8 import _layer_norm
+from .quant import exact_int8_matmul, f32, quantize_weight
+
+BLOCK_T = 512
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass
+class GegluPack:
+    """K4's operands for one transformer block (float32 unless noted)."""
+
+    eps: float
+    xs: float              # the input's static int8 scale
+    gs: Optional[float]    # the static interior scale, None = dynamic
+    ln_w: torch.Tensor     # [C]
+    ln_b: torch.Tensor     # [C]
+    w1: torch.Tensor       # int8 [2M, C] (out, in): h rows, then gate rows
+    s1: torch.Tensor       # [2M] per-output-channel scales
+    b1: torch.Tensor       # [2M]
+    w2: torch.Tensor       # int8 [C, M] (out, in)
+    s2: torch.Tensor       # [C]
+    b2: torch.Tensor       # [C]
+
+
+@torch.no_grad()
+def pack_geglu(norm, proj_in, proj_out, xs: float,
+               gs: Optional[float] = None) -> GegluPack:
+    """Quantize a block's ``norm3`` (LayerNorm) and feed-forward
+    ``proj_in``/``proj_out`` (Linear) float weights per output channel
+    (``prequantize_conv_tree(quantize_ff=True)``, :223-235) and pack K4's
+    operands (``pack_geglu_ln_tiles``)."""
+    w1, s1 = quantize_weight(proj_in.weight, dims=(1,))
+    w2, s2 = quantize_weight(proj_out.weight, dims=(1,))
+
+    def vec(t):
+        return t.detach().float().contiguous()
+    return GegluPack(
+        eps=norm.eps, xs=f32(xs), gs=None if gs is None else f32(gs),
+        ln_w=vec(norm.weight), ln_b=vec(norm.bias), w1=w1.contiguous(),
+        s1=s1.contiguous(), b1=vec(proj_in.bias), w2=w2.contiguous(),
+        s2=s2.contiguous(), b2=vec(proj_out.bias))
+
+
+def takes_kernel(t: int) -> bool:
+    """The JAX wrapper's shape rule (:351) without its CPU clause."""
+    return not (t % 8 != 0 or t % min(BLOCK_T, t) != 0)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``geglu.py:_gelu_tanh`` in its operation order: ``x / (1 +
+    exp(-2z))``, ``z = 0.7978845608028654·(x + 0.044715·x·x·x)``."""
+    z = 0.7978845608028654 * (x + 0.044715 * x * x * x)
+    return x / (1.0 + torch.exp(-2.0 * z))
+
+
+def _gated_interior(hn, p: GegluPack):
+    x8 = torch.round(hn / p.xs).clamp_(-127, 127).to(torch.int8)
+    m = p.w2.shape[1]
+    u = exact_int8_matmul(x8, p.w1).float() * (p.xs * p.s1) + p.b1
+    return u[..., :m], u[..., m:]
+
+
+def geglu_ln_s8_reference(x: torch.Tensor, p: GegluPack,
+                          block_t: int = BLOCK_T) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): LN and
+    quantize, ``u`` from the int32 product, the tanh-gelu gating, the
+    interior quantized with ``gs`` (clipped) or with one dynamic amax per
+    (image, ``min(block_t, T)``-token block), the int32 product with W2 and
+    ``bf16(x + y·gs·s2 + b2)``. The dynamic codes are clipped too, which
+    changes nothing: ``|g| / gs <= 127`` by construction."""
+    b, t, c = x.shape
+    xf = x.float()
+    uh, ug = _gated_interior(_layer_norm(xf, p.ln_w, p.ln_b, p.eps), p)
+    g = uh * gelu_tanh(ug)                                 # [B, T, M]
+    if p.gs is not None:
+        gs = torch.full((b, t, 1), p.gs, device=x.device)
+    else:
+        bt = min(block_t, t)
+        amax = g.abs().reshape(b, t // bt, -1).amax(-1)    # [B, T / bt]
+        gs = (amax.clamp_min(1e-6) / 127.0).repeat_interleave(bt, dim=1)
+        gs = gs[..., None]
+    g8 = torch.round(g / gs).clamp_(-127, 127).to(torch.int8)
+    y = exact_int8_matmul(g8, p.w2).float() * gs
+    return ((xf + y * p.s2) + p.b2).to(torch.bfloat16)
+
+
+def _gelu_exact(x):
+    return x * 0.5 * (1.0 + torch.erf(x / np.float32(np.sqrt(2.0))))
+
+
+def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """``_xla_geglu_ln_s8`` (:281) with ``_xla_geglu_s8`` (:377) for the
+    shapes K4 does not take: LN in the input dtype, the exact erf gelu, one
+    interior amax over the whole tensor when dynamic, the FF output in the
+    input dtype, then the residual and bias in fp32."""
+    xf = x.float()
+    h = _layer_norm(xf, p.ln_w, p.ln_b, p.eps).to(x.dtype).float()
+    uh, ug = _gated_interior(h, p)
+    g = uh * _gelu_exact(ug)
+    if p.gs is not None:
+        gs = p.gs
+        g8 = torch.round(g / gs).clamp_(-127, 127)
+    else:
+        gs = g.abs().amax().clamp_min(1e-6) / 127.0
+        g8 = torch.round(g / gs)
+    y = exact_int8_matmul(g8.to(torch.int8), p.w2).float() * (gs * p.s2)
+    return (xf + y.to(x.dtype).float() + p.b2).to(x.dtype)
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("geglu_ln_s8").ldmseg_geglu_ln_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    b, t, c = x.shape
+    m = p.w2.shape[1]
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"K4: x must be float32 or bfloat16, got {x.dtype}")
+    if c % 8 or m % 8 or b > 65535:
+        raise ValueError(f"K4: C={c}, M={m} must be multiples of 8, "
+                         f"B={b} <= 65535")
+    bt = min(BLOCK_T, t)
+    x = x.contiguous()
+    ops = (p.ln_w, p.ln_b, p.w1, p.s1, p.b1, p.w2, p.s2, p.b2)
+    if any(o.device != x.device or not o.is_contiguous() for o in ops):
+        raise ValueError("K4: the pack must be contiguous on x's device")
+    dev = x.device
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
+    g = torch.empty((b * t, m), dtype=torch.float32, device=dev)
+    g8 = torch.empty((b * t, m), dtype=torch.int8, device=dev)
+    amax = torch.empty(b * (t // bt), dtype=torch.int32, device=dev)
+    dynamic = p.gs is None
+    kernel = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernel(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+            p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
+            p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
+            p.s2.data_ptr(), p.b2.data_ptr(), x8.data_ptr(), g.data_ptr(),
+            g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt, p.xs,
+            0.0 if dynamic else p.gs, int(dynamic), p.eps, stream)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
+    geglu_ln_s8.launches += 1
+    return out
+
+
+def geglu_ln_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """``x + FF(LN(x))`` for ``x [B, T, C]``, returned in ``x``'s dtype."""
+    if not takes_kernel(x.shape[1]):
+        geglu_ln_s8.fallbacks += 1
+        return geglu_ln_s8_fallback(x, p)
+    if x.device.type == "cpu":
+        return geglu_ln_s8_reference(x, p).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K4: unsupported device {x.device}")
+    return _launch(x, p).to(x.dtype)
+
+
+geglu_ln_s8.launches = 0
+geglu_ln_s8.fallbacks = 0
+

@@ -1,0 +1,270 @@
+"""Int8 inference: weight and activation quantization, the s8 convolution,
+the int8 UNet's weight preparation and its per-site calibration.
+
+Counterpart of ``ldmseg_tpu/ops/quant.py``: ``quantize_weight`` (:98),
+``quantize_activation`` (:106), the s8 convolution ``_s8_conv`` (:36) and
+``QuantConv`` (:448) on prequantized weights, ``prequantize_conv_tree``
+(:132) with ``pack_inference_tiles`` (:243), and
+``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633).
+
+Rounding is half-to-even (``torch.round``), as ``jnp.round``. Scales are
+float32 and computed in the JAX package's order, so the int8 codes and the
+scales equal its trees bit for bit.
+
+The s8 convolution gathers the nine shifted views of the padded int8 input
+into an ``[B*Ho*Wo, 9*Cin]`` matrix and multiplies it with the
+``[Cout, 9*Cin]`` weight codes in ``torch._int_mm``: int8 x int8 with int32
+sums on the CPU and on the card. The JAX package runs this convolution in
+XLA, not in Pallas, so a library product stands in for it. Its channel
+split for ``Cin % 128 == 64`` (:54-57) works around an XLA emitter on the
+TPU and is exact by linearity; the port leaves it out.
+
+The weight preparation reads the fp32 masters, as the JAX trainer
+quantizes its fp32 parameter tree, and writes int8 codes, float32 scales
+and the kernels' operands into the int8 UNet's modules
+(:func:`prepare_int8_unet`). It runs once per sampling call, outside the
+step loop.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float (exact in both types)."""
+    return float(np.float32(x))
+
+
+def quantize_weight(w: torch.Tensor, dims) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Symmetric int8 codes with one scale per index of the dimensions not
+    in ``dims``: ``scale = max(amax, 1e-8) / 127``, ``q = round(w / scale)``
+    in float32 (``quantize_weight`` :98 reduces the HWIO axes 0-2, i.e.
+    per output channel)."""
+    wf = w.detach().float()
+    scale = wf.abs().amax(dim=dims, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.round(wf / scale).to(torch.int8), scale.flatten()
+
+
+def quantize_activation(x: torch.Tensor, act_scale: Optional[float] = None):
+    """Per-tensor symmetric int8 quantize: the static ``act_scale`` (made
+    float32) or, when it is None, ``max(amax, 1e-8) / 127`` of ``x`` (a
+    0-d tensor, no host sync). Returns ``(codes, scale)``."""
+    xf = x.float()
+    if act_scale is None:
+        scale = xf.abs().amax().clamp_min(1e-8) / 127.0
+    else:
+        scale = f32(act_scale)
+    return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
+
+
+def int8_matmul(a: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] int8 @ b_rows[N, K]ᵀ int8 -> [M, N] int32`` with exact
+    int32 sums (``torch._int_mm``). On the card ``_int_mm`` wants M > 16
+    and K, N multiples of 8: zero rows and columns make up the shape
+    (exact)."""
+    m, k = a.shape
+    n = b_rows.shape[0]
+    if a.device.type == "cuda":
+        pad_k, pad_n = -k % 8, -n % 8
+        if pad_k:
+            a, b_rows = F.pad(a, (0, pad_k)), F.pad(b_rows, (0, pad_k))
+        if m <= 16:
+            a = F.pad(a, (0, 0, 0, 17 - m))
+        if pad_n:
+            b_rows = F.pad(b_rows, (0, 0, 0, pad_n))
+        return torch._int_mm(a, b_rows.t())[:m, :n]
+    return torch._int_mm(a.contiguous(), b_rows.t())
+
+
+def exact_int8_matmul(a: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
+    """The same product for the kernels' plain versions, any shape and
+    batch: float64 holds every int32 sum of int8 products exactly."""
+    return torch.matmul(a.double(), b_rows.double().transpose(-1, -2)).to(
+        torch.int32)
+
+
+def s8_conv2d(x_q: torch.Tensor, w_mat: torch.Tensor,
+              stride: int) -> torch.Tensor:
+    """3x3 conv, padding 1, of int8 NCHW ``x_q`` with the ``[Cout, 9*Cin]``
+    codes (taps major, then input channels) -> int32 NHWC ``[B, Ho, Wo,
+    Cout]``."""
+    b, cin, h, w = x_q.shape
+    s = stride
+    xp = F.pad(x_q.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    cols = torch.stack([xp[:, i:i + s * (ho - 1) + 1:s,
+                           j:j + s * (wo - 1) + 1:s]
+                        for i in range(3) for j in range(3)], dim=3)
+    y = int8_matmul(cols.reshape(b * ho * wo, 9 * cin), w_mat)
+    return y.reshape(b, ho, wo, -1)
+
+
+class QuantConv2d(nn.Module):
+    """3x3 conv, padding 1, on prequantized int8 weights (``QuantConv``
+    :448 with a ``{"q", "scale"}`` kernel): int8 codes and float32
+    per-output-channel scales in buffers that :meth:`prepare` fills from a
+    float conv. The input is quantized per tensor with the calibrated
+    ``x_scale`` when set, else the module's ``act_scale``, else its own
+    amax. ``y = float(s8 conv) * (x_scale * w_scale)`` cast to the input
+    dtype, plus the bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 act_scale: Optional[float] = None):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.stride = stride
+        self.act_scale = act_scale
+        self.x_scale: Optional[float] = None
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.register_buffer("w_q", None, persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+
+    def prepare(self, src: nn.Conv2d) -> None:
+        q, s = quantize_weight(src.weight, dims=(1, 2, 3))
+        self.w_q = q.permute(0, 2, 3, 1).reshape(self.out_channels,
+                                                 -1).contiguous()
+        self.w_scale = s
+
+    def weight_codes(self) -> torch.Tensor:
+        """The codes as a conv weight ``[Cout, Cin, 3, 3]``."""
+        return self.w_q.reshape(self.out_channels, 3, 3,
+                                self.in_channels).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w_q is None:
+            raise RuntimeError("QuantConv2d: weights not prepared (run "
+                               "prepare_int8_unet)")
+        site = self.x_scale if self.x_scale is not None else self.act_scale
+        x_q, xs = quantize_activation(x, site)
+        y = s8_conv2d(x_q, self.w_q, self.stride)
+        y = (y.float() * (xs * self.w_scale)).to(x.dtype)
+        y = y + self.bias.to(y.dtype)
+        return y.permute(0, 3, 1, 2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# weight preparation (prequantize_conv_tree + pack_inference_tiles)
+# ---------------------------------------------------------------------------
+def quantize_head_weights(wq, wk, wv, wo, heads: int):
+    """``attention.py:quantize_head_weights`` (:451) on torch ``Linear``
+    weights ``[out, in]``: one scale per head for each of the four
+    projections (rows of head h of ``to_q/k/v``, columns of head h of
+    ``to_out``). Returns the codes in the same layout and ``scales [4, H]``
+    float32."""
+    c = wq.shape[0]
+    d = c // heads
+    codes, scales = [], []
+    for w in (wq, wk, wv):
+        q, s = quantize_weight(w.reshape(heads, d, c), dims=(1, 2))
+        codes.append(q.reshape(c, c))
+        scales.append(s)
+    q, s = quantize_weight(wo.reshape(c, heads, d), dims=(0, 2))
+    codes.append(q.reshape(c, c))
+    scales.append(s)
+    return (*codes, torch.stack(scales))
+
+
+@torch.no_grad()
+def prepare_int8_unet(int8_unet: nn.Module, masters: nn.Module) -> None:
+    """Fill ``int8_unet`` (a UNet built with the int8 flags) from the float
+    UNet ``masters`` of the same shape: the float parameters are copied
+    (cast to the int8 UNet's dtype), the s8 convs and the fused transformer
+    blocks quantize their weights from the masters' float32 values and pack
+    the kernels' operands, baking in the per-site activation scales set by
+    :func:`apply_act_scales`."""
+    src = dict(masters.named_parameters())
+    for name, p in int8_unet.named_parameters():
+        p.copy_(src[name])
+    for name, m in int8_unet.named_modules():
+        if callable(getattr(m, "prepare", None)):
+            m.prepare(masters.get_submodule(name))
+
+
+# ---------------------------------------------------------------------------
+# calibration
+# ---------------------------------------------------------------------------
+def _sites(unet: nn.Module):
+    """(site key, module whose output sets it, percentile allowed) for each
+    int8 activation site of a float UNet: resnet ``norm1``/``norm2`` outputs
+    key ``conv1``/``conv2``; a transformer block's ``norm1`` keys
+    ``attn1.to_q``, its ``norm3`` keys ``ff.net.0.proj``, its gated interior
+    (the GEGLU output) keys ``ff.net.2`` (:599-625)."""
+    from ..models.layers import ResnetBlock
+    from ..models.unet import BasicTransformerBlock
+    for name, m in unet.named_modules():
+        if isinstance(m, ResnetBlock):
+            yield f"{name}.conv1", m.norm1, True
+            yield f"{name}.conv2", m.norm2, True
+        elif isinstance(m, BasicTransformerBlock):
+            yield f"{name}.attn1.to_q", m.norm1, True
+            yield f"{name}.ff.net.0.proj", m.norm3, True
+            yield f"{name}.ff.net.2", m.ff.net[0], False
+
+
+@torch.no_grad()
+def calibrate_act_scale_tree(unet: nn.Module, sample: torch.Tensor,
+                             timesteps, percentile: Optional[float] = None
+                             ) -> Dict[str, float]:
+    """Per-site static activation scales from one forward of the float
+    ``unet``: ``max(amax, 1e-6) / 127`` of each site's input (or its
+    ``percentile`` of |x|, except for the gated interior), keyed by the
+    int8 module that reads it. Forward hooks take the values; the
+    percentile runs on a numpy copy, since ``torch.quantile`` has an input
+    size limit."""
+    scales: Dict[str, float] = {}
+
+    def record(key, use_percentile):
+        def hook(_module, _inputs, out):
+            if percentile is not None and use_percentile:
+                a = np.abs(out.detach().float().cpu().numpy()).ravel()
+                amax = np.percentile(a, percentile)
+            else:
+                amax = np.float32(out.detach().float().abs().amax().item())
+            scales[key] = max(scales.get(key, 0.0),
+                              float(max(amax, 1e-6) / 127.0))
+        return hook
+
+    handles = [m.register_forward_hook(record(key, pct))
+               for key, m, pct in _sites(unet)]
+    try:
+        unet(sample, timesteps)
+    finally:
+        for h in handles:
+            h.remove()
+    if not scales:
+        raise ValueError("no resnet or transformer sites in this UNet")
+    return scales
+
+
+def act_scale_sites(int8_unet: nn.Module) -> Dict[str, Tuple[nn.Module,
+                                                             str]]:
+    """Site key -> (int8 module, attribute) of an int8 UNet."""
+    sites = {}
+    for name, m in int8_unet.named_modules():
+        if isinstance(m, QuantConv2d):
+            sites[name] = (m, "x_scale")
+        for key, attr in getattr(m, "act_scale_sites", {}).items():
+            sites[f"{name}.{key}"] = (m, attr)
+    return sites
+
+
+def apply_act_scales(int8_unet: nn.Module,
+                     scales: Optional[Dict[str, float]]) -> None:
+    """Set every site's calibrated scale from ``scales`` (None clears them
+    all, back to the module defaults). A key that names no site raises.
+    :func:`prepare_int8_unet` bakes them into the packed operands."""
+    sites = act_scale_sites(int8_unet)
+    scales = scales or {}
+    unknown = sorted(set(scales) - set(sites))
+    if unknown:
+        raise KeyError(f"apply_act_scales: no int8 site {unknown[:3]}")
+    for key, (m, attr) in sites.items():
+        value = scales.get(key)
+        setattr(m, attr, None if value is None else f32(value))

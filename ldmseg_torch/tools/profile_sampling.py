@@ -1,15 +1,18 @@
 """Where the time of the sampling path goes on the card.
 
-    python -m ldmseg_torch.tools.profile_sampling
+    python -m ldmseg_torch.tools.profile_sampling [--int8]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
 weights and traces, with ``torch.profiler``, (a) 5 UNet forwards at batch
 2 on a 32x64 latent and (b) one 50-step ``sample_panoptic`` call on 2
-frames of 256x512. For each window it prints one JSON line: wall time,
-device time summed over kernels, the device's busy share (the union of
-kernel intervals over the wall time), device time by kernel family and the
-top kernels. Needs a CUDA device.
+frames of 256x512. ``--int8`` turns on ``sampling_kwargs.int8_inference``:
+(a) then runs the int8 UNet (s8 convs, K3, K4) and (b) samples on it, with
+the default scales and again after ``calibrate_int8`` on the frames. For
+each window it prints one JSON line: wall time, device time summed over
+kernels, the device's busy share (the union of kernel intervals over the
+wall time), device time by kernel family and the top kernels. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ import torch
 FAMILIES = (  # first match wins
     ("K1 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
+    ("K3 attention_ln_s8", r"::(qkv|attn|out)_kernel"),
+    ("K4 geglu_ln_s8", r"::(up|down)_kernel"),
+    ("K3/K4 LN + quantize", r"ln_quant_kernel"),
+    ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("group/layer norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|"
                          r"welford|RowwiseMoments|ComputeFused"),
@@ -113,24 +120,30 @@ def main() -> int:
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
     from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
 
-    cfg = merge_dicts(DEFAULT_CONFIG, {"train_kwargs": {
-        "self_condition": True, "weight_dtype": "bfloat16"}})
+    int8 = "--int8" in sys.argv[1:]
+    cfg = merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True, "weight_dtype": "bfloat16"},
+        "sampling_kwargs": {"int8_inference": int8}})
     trainer = TrainerDiffusion(cfg)
     trainer.init_params(seed=0)
-    unet = trainer.inference_unet()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((2, unet.config.in_channels, 32, 64), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+    x = torch.randn((2, trainer.unet_config.in_channels, 32, 64),
+                    generator=gen, device="cuda").to(torch.bfloat16)
     t = torch.tensor([999, 19], device="cuda")
     image = np.random.RandomState(0).randn(2, 256, 512, 3).astype(
         np.float32)
-    with torch.inference_mode():
-        print(json.dumps(_profile(lambda: unet(x, t), 5,
-                                  "UNet forward, bf16, [2, 12, 32, 64]")),
-              flush=True)
-    print(json.dumps(_profile(
-        lambda: trainer.sample_panoptic({"image": image}), 1,
-        "sample_panoptic, 50 DDIM steps, 2 x 256x512")), flush=True)
+    for kind in (["int8", "int8 calibrated"] if int8 else ["bf16"]):
+        if kind == "int8 calibrated":
+            trainer.calibrate_int8({"image": image})
+        unet = trainer.int8_unet() if int8 else trainer.inference_unet()
+        with torch.inference_mode():
+            print(json.dumps(_profile(
+                lambda: unet(x, t), 5,
+                f"UNet forward, {kind}, [2, 12, 32, 64]")), flush=True)
+        print(json.dumps(_profile(
+            lambda: trainer.sample_panoptic({"image": image}), 1,
+            f"sample_panoptic, {kind}, 50 DDIM steps, 2 x 256x512")),
+            flush=True)
     return 0
 
 

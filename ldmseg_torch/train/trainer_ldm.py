@@ -12,15 +12,24 @@ image-VAE encoder (posterior mode x 0.18215) -> DDIM with self-conditioning
 -> seg-VAE decode to per-instance logits. Batches and results are NHWC at
 this boundary, as in the JAX package; the models run NCHW.
 
+With ``sampling_kwargs.int8_inference`` the 50 steps run on the int8 UNet
+(s8 convs, K3 and K4), quantized from the fp32 masters once per call, with
+per-site activation scales from :meth:`calibrate_int8` (automatic on
+adopted weights). Its other layers run in the compute dtype, as the bf16
+path does; the JAX trainer hands that UNet its fp32 masters, so there they
+promote the activations to fp32.
+
 EMA, checkpoints, video clips and pose consistency, classifier-free
-guidance, text descriptors, clip sampling, the DPM-Solver++ sampler, int8
-inference and the parallel modes are later slices: a config that asks for
-one of them raises ``NotImplementedError`` naming it.
+guidance, text descriptors, clip sampling, the DPM-Solver++ sampler, the
+int8 paths off the fused-norms default (``fused_norms`` or ``fused_ff``
+False) and int8 clip sampling, and the parallel modes are later slices: a
+config that asks for one of them raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from typing import Callable, List, Mapping, Optional
 
@@ -39,6 +48,8 @@ from ..models.image_vae import ImageVAE
 from ..models.layers import init_random_
 from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig
+from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
+                         prepare_int8_unet)
 from .optim import Optimizer, freeze_filter, make_lr_schedule
 from .state import TrainState
 
@@ -64,8 +75,15 @@ def _refuse_later_slices(p: Mapping) -> None:
         "sampling_kwargs.sampler": (
             sk.get("sampler", "ddim") != "ddim",
             "the DPM-Solver++ sampler"),
-        "sampling_kwargs.int8_inference": (
-            sk.get("int8_inference", False), "int8 inference"),
+        "sampling_kwargs.fused_norms": (
+            sk.get("int8_inference", False)
+            and not sk.get("fused_norms", True),
+            "int8 sampling without fused norms (K13, QuantDense)"),
+        "sampling_kwargs.fused_ff": (
+            sk.get("int8_inference", False)
+            and not sk.get("fused_ff", True),
+            "int8 sampling without the fused GEGLU kernel (K12, "
+            "QuantDense)"),
         "train_kwargs.video_clips": (
             tk.get("video_clips") is not None
             or tk.get("temporal_consistency_weight", 0.0) > 0,
@@ -138,11 +156,26 @@ class TrainerDiffusion:
         self.compute_dtype = (torch.bfloat16 if tk.get("weight_dtype") in
                               ("bfloat16", "float16") else torch.float32)
         # built without storage; init_params / load_jax_params fill them
+        # int8 sampling (trainer_ldm.py:157-193): the UNet the JAX trainer
+        # builds with the int8 flags, beside the float one
+        self.int8_inference = bool(sk.get("int8_inference", False))
+        self.int8_auto_calibrate = sk.get("int8_auto_calibrate", True)
         with torch.device("meta"):
             self.unet = UNet2DCondition(unet_config)
             self.vae_img = ImageVAE(**ivk)
             self.vae_seg = SegVAE(**vk)
+            self._unet_int8 = None
+            if self.int8_inference:
+                self._unet_int8 = UNet2DCondition(dataclasses.replace(
+                    unet_config, use_int8_conv=True, use_fused_norms=True,
+                    int8_act_scale=sk.get("int8_act_scale", 0.05),
+                    int8_attn_act_scale=sk.get("int8_attn_act_scale", 0.1),
+                    use_fused_attention=False))
         self._unet_infer: Optional[nn.Module] = None
+        # calibrate_int8 fills the scales; adopted weights must not sample
+        # with the global defaults unnoticed (:meth:`_ensure_int8_ready`)
+        self._int8_act_scales: Optional[dict] = None
+        self._params_pretrained = False
 
         self.sched = make_ddim_schedule(**p["noise_scheduler_kwargs"],
                                         device=device)
@@ -175,6 +208,7 @@ class TrainerDiffusion:
         for model in (self.vae_img, self.vae_seg, self.unet):
             model.to_empty(device=self.device)
             init_random_(model, gen)
+        self._params_pretrained = False
         self._frozen_ready()
 
     def load_jax_params(self, unet: Mapping, vae_img: Mapping,
@@ -189,6 +223,8 @@ class TrainerDiffusion:
         for model, sd in pairs:
             model.to_empty(device=self.device)
             model.load_state_dict(sd, strict=True)
+        # adopted weights count as pretrained for the int8 scale guard
+        self._params_pretrained = True
         self._frozen_ready()
 
     def _frozen_ready(self) -> None:
@@ -205,6 +241,10 @@ class TrainerDiffusion:
         else:
             self._unet_infer = copy.deepcopy(self.unet).to(
                 self.compute_dtype).requires_grad_(False)
+        if self._unet_int8 is not None:
+            self._unet_int8.to_empty(device=self.device)
+            self._unet_int8.to(self.compute_dtype).eval().requires_grad_(
+                False)
         self.state = self._make_state()
 
     def _make_state(self) -> TrainState:
@@ -247,6 +287,68 @@ class TrainerDiffusion:
                                     self.unet.parameters()):
                     dst.copy_(src)
         return self._unet_infer
+
+    def int8_unet(self) -> nn.Module:
+        """Quantize the fp32 masters into the int8 UNet with the current
+        activation scales (``prequantize_conv_tree``, ``apply_act_scales``
+        and ``pack_inference_tiles`` of the JAX trainer's ``_prequant``):
+        once per call, outside the step loop."""
+        self._require_params()
+        if self._unet_int8 is None:
+            raise RuntimeError("int8 inference not enabled "
+                               "(sampling_kwargs.int8_inference)")
+        apply_act_scales(self._unet_int8, self._int8_act_scales)
+        prepare_int8_unet(self._unet_int8, self.unet)
+        return self._unet_int8
+
+    def _ensure_int8_ready(self, batch: Mapping,
+                           generator: Optional[torch.Generator]) -> None:
+        """Adopted weights sample int8 only with calibrated scales
+        (trainer_ldm.py:1090-1114): calibrate once on the first batch
+        unless ``sampling_kwargs.int8_auto_calibrate`` is False, which
+        raises instead. Seeded random weights keep the global defaults."""
+        if self._int8_act_scales is not None or not self._params_pretrained:
+            return
+        if not self.int8_auto_calibrate:
+            raise RuntimeError(
+                "int8_inference=True on pretrained weights without "
+                "calibrated activation scales: call calibrate_int8() or "
+                "leave sampling_kwargs.int8_auto_calibrate enabled")
+        print("int8 inference on pretrained weights: calibrating per-site "
+              "activation scales on this batch", flush=True)
+        self.calibrate_int8(batch, generator=generator)
+
+    @torch.no_grad()
+    def calibrate_int8(self, batch: Mapping, noise=None,
+                       percentile: Optional[float] = None,
+                       generator: Optional[torch.Generator] = None) -> dict:
+        """Per-site static int8 activation scales from one forward of the
+        float UNet on ``batch["image"]`` (trainer_ldm.py:1116-1150): the
+        noisy half of its input is ``noise`` (NHWC ``[B, h, w, 4]``) or a
+        draw from ``generator``, the timestep ``num_train_timesteps // 2``.
+        The forward runs on the fp32 masters, as JAX's on its fp32 tree,
+        with the input rounded to the compute dtype. Later int8 calls use
+        the scales. Returns them, keyed by int8 site."""
+        if not self.int8_inference:
+            raise RuntimeError("calibrate_int8: int8 inference not enabled")
+        self._require_params()
+        rgb = self._encode_rgb(batch["image"])
+        b, _, lh, lw = rgb.shape
+        if noise is None:
+            noisy = torch.randn((b, 4, lh, lw), generator=generator,
+                                device=self.device)
+        else:
+            noisy = self._nchw(noise)
+        parts = [noisy, rgb]
+        extra = self.unet_config.in_channels - 8
+        if extra > 0:  # the self-condition channels, zero
+            parts.append(torch.zeros((b, extra, lh, lw), device=self.device))
+        inp = torch.cat(parts, dim=1).to(self.compute_dtype).float()
+        t = torch.full((b,), self.sched.num_train_timesteps // 2,
+                       device=self.device, dtype=torch.long)
+        self._int8_act_scales = calibrate_act_scale_tree(
+            self.unet, inp, t, percentile=percentile)
+        return self._int8_act_scales
 
     # ------------------------------------------------------------------
     # shared by both paths
@@ -526,11 +628,17 @@ class TrainerDiffusion:
         (logits ``[B, H, W, C]`` fp32, x0 latents ``[B, H/8, W/8, 4]``).
         ``init_noise`` (NHWC) replaces the draw of the initial noise from
         ``generator``; with neither, the generator is seeded from
-        ``sampling_kwargs.seed``."""
-        unet = self.inference_unet()
-        if generator is None and init_noise is None:
+        ``sampling_kwargs.seed``. With ``int8_inference`` the steps run on
+        :meth:`int8_unet`."""
+        self._require_params()
+        if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 self.seed)
+        if self.int8_inference:
+            self._ensure_int8_ready(batch, generator)
+            unet = self.int8_unet()
+        else:
+            unet = self.inference_unet()
         with torch.inference_mode():
             rgb_latents = self._encode_rgb(batch["image"])
             logits, x0 = self._sample_decode(

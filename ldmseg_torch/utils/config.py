@@ -3,7 +3,9 @@
 Own copy of the matching keys of ``ldmseg_tpu/utils/config.py:DEFAULT_CONFIG``
 (the reference's ``tools/configs/base/base.yaml``), with the same names and
 defaults, plus :func:`merge_dicts`. Keys that only evaluation, data loading
-or the later slices read are not copied.
+or the later slices read are not copied. ``sampling_kwargs.
+int8_auto_calibrate`` is not a key there either: both trainers read it with
+the default True.
 """
 
 from __future__ import annotations
@@ -90,6 +92,10 @@ DEFAULT_CONFIG: dict = {
         "guidance_scale": 7.5,
         "seed": 0,
         "int8_inference": False,
+        "int8_act_scale": 0.05,
+        "int8_attn_act_scale": 0.1,
+        "fused_norms": True,
+        "fused_ff": True,
     },
     "eval_kwargs": {
         "mask_th": 0.5,

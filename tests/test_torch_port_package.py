@@ -20,6 +20,8 @@ import pytest
 import torch
 
 from ldmseg_torch.ops import attention as A
+from ldmseg_torch.ops import attention_s8 as K3
+from ldmseg_torch.ops import geglu as K4
 from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
 from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
 
@@ -62,6 +64,23 @@ def test_training_module_imports_no_jax(module):
     importlib.import_module(f"ldmseg_torch.{module}")
 
 
+# the int8 sampling slice's modules, one case each
+INT8_MODULES = ["ops.quant", "ops.attention_s8", "ops.geglu", "models.unet",
+                "models.layers", "tools.profile_sampling"]
+
+
+@pytest.mark.parametrize("module", INT8_MODULES)
+def test_int8_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_int8_sources_are_built_by_the_port():
+    from ldmseg_torch.ops import _build
+    assert {"attention_ln_s8", "geglu_ln_s8"} <= set(_build.sources())
+
+
 def test_importing_the_training_slice_loads_no_jax():
     # a fresh interpreter: other tests of this process may have loaded JAX
     code = ("import sys; "
@@ -91,7 +110,8 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
 
 @pytest.mark.parametrize("override,named", [
     ({"train_kwargs": {"image_descriptors": "clip_text"}}, "descriptors"),
-    ({"sampling_kwargs": {"int8_inference": True}}, "int8"),
+    ({"sampling_kwargs": {"int8_inference": True, "fused_norms": False}},
+     "int8"),
     ({"sampling_kwargs": {"sampler": "dpmpp_2m"}}, "DPM-Solver"),
     ({"ema_on": True}, "EMA"),
     ({"model_kwargs": {"separate_conv": True}}, "separate"),
@@ -105,11 +125,29 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
     ({"tensor_parallel": True}, "tensor parallel"),
     ({"spatial_parallel": True}, "spatial parallel"),
     ({"optimizer_name": "adafactor"}, "Adafactor"),
+    ({"sampling_kwargs": {"int8_inference": True, "fused_norms": False}},
+     "sampling_kwargs.fused_norms"),
+    ({"sampling_kwargs": {"int8_inference": True, "fused_ff": False}},
+     "sampling_kwargs.fused_ff"),
 ])
 def test_trainer_names_what_is_not_ported(override, named):
     cfg = merge_dicts(DEFAULT_CONFIG, override)
     with pytest.raises(NotImplementedError, match=named):
         TrainerDiffusion(cfg, device=torch.device("cpu"))
+
+
+def test_trainer_accepts_int8_inference():
+    cfg = merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True},
+        "sampling_kwargs": {"int8_inference": True}})
+    trainer = TrainerDiffusion(cfg, device=torch.device("cpu"))
+    ucfg = trainer._unet_int8.config
+    assert (ucfg.use_int8_conv and ucfg.use_fused_norms
+            and ucfg.int8_act_scale == 0.05
+            and ucfg.int8_attn_act_scale == 0.1
+            and not ucfg.use_fused_attention)
+    with pytest.raises(RuntimeError, match="init_params"):
+        trainer.sample_panoptic({"image": torch.zeros(1, 32, 32, 3)})
 
 
 # ---------------------------------------------------------------------------
@@ -250,3 +288,77 @@ def test_unet_self_attention_weights_get_gradients_on_the_card(cuda):
         g = m.to_q.weight.grad
         assert g is not None and bool(torch.isfinite(g).all())
         assert g.abs().max().item() > 0
+
+
+# K3 and K4 against their plain versions on the card: max |err| within
+# 1.6e-2 of max|ref| (two bf16 ulps; both round to bf16 and sum in another
+# order) and mean |err| within 2.5e-3 of mean|ref| (a rare int8 code that
+# the LN's summation order flips moves a few outputs by a code's worth)
+def _pack_modules(cuda, c, heads, seed):
+    from ldmseg_torch.models.layers import LayerNorm, init_random_
+    from ldmseg_torch.models.unet import CrossAttention, FeedForward
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mods = [LayerNorm(c), CrossAttention(c, heads), LayerNorm(c),
+            FeedForward(c)]
+    for m in mods:
+        m.to(cuda)
+        init_random_(m, gen)
+        with torch.no_grad():
+            for p in m.parameters():  # not the init's unit norms, zero biases
+                p.add_(0.05 * torch.randn(p.shape, generator=gen,
+                                          device=cuda))
+    return mods
+
+
+def _close_on_card(out, ref):
+    err = (out.float() - ref.float()).abs()
+    assert bool(torch.isfinite(out).all())
+    assert err.max().item() <= 1.6e-2 * ref.float().abs().max().item()
+    assert err.mean().item() <= 2.5e-3 * ref.float().abs().mean().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (1, 120, 320)])
+def test_k3_kernel_matches_plain_version(cuda, b, t, c, dtype):
+    norm1, attn, _, _ = _pack_modules(cuda, c, 8, 0)
+    pack = K3.pack_ln_attention(norm1, attn, 8, 0.1)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(dtype)
+    before = K3.ln_attention_s8.launches
+    out = K3.ln_attention_s8(x, pack)
+    torch.cuda.synchronize()
+    assert K3.ln_attention_s8.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close_on_card(out, K3.ln_attention_s8_reference(x, pack).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (1, 120, 320), (1, 1024, 320)])
+def test_k4_kernel_matches_plain_version(cuda, b, t, c, static):
+    _, _, norm3, ff = _pack_modules(cuda, c, 8, 2)
+    pack = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05,
+                         0.02 if static else None)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(torch.bfloat16)
+    before = K4.geglu_ln_s8.launches
+    out = K4.geglu_ln_s8(x, pack)
+    torch.cuda.synchronize()
+    assert K4.geglu_ln_s8.launches == before + 1
+    _close_on_card(out, K4.geglu_ln_s8_reference(x, pack))
+
+
+@pytest.mark.gpu
+def test_k3_k4_wrappers_raise_instead_of_falling_back(cuda):
+    norm1, attn, norm3, ff = _pack_modules(cuda, 384, 2, 4)
+    x = torch.randn((1, 64, 384), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # d = 192: the rule takes it, K3 not
+        K3.ln_attention_s8(x, K3.pack_ln_attention(norm1, attn, 2, 0.1))
+    pack = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05)
+    with pytest.raises(ValueError):
+        K4.geglu_ln_s8(x.half(), pack)
