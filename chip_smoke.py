@@ -33,8 +33,22 @@ Phases, one line each:
      the default scales (dynamic interior), then ``calibrate_int8`` and
      twice with the calibrated scales (static interior); 800 K3 and 800 K4,
      0 K1 and no fallback per call;
-  10. a JSON line ``{"kernels": [...]}``;
-  11. the last line, ``{"ok": true, "device": {...}}``.
+  10. K13 (the int8 attention without fused norms) and K12 (the int8 GEGLU
+     feed-forward without LN and residual, dynamic and static interior
+     scale) against their plain PyTorch versions at the unfused int8 path's
+     shapes and a ragged T, with times, the bound and the bf16 function
+     each replaces (K1 and SDPA for K13, the bf16 GEGLU FF for K12);
+  11. the full-width int8 UNet without fused norms (``fused_norms: False``,
+     the weights of phase 3) against the bf16 one: 16 K13, 16 K12, 0 K1,
+     K3 and K4 launches, no fallback, correlation, ms per forward;
+  12. ``sample_panoptic`` with ``fused_norms: False``, variant (a) (K13 +
+     K12) and (b) (``fused_ff: False``: K13 + s8 linears), each with the
+     default scales and after ``calibrate_int8``: 800 K13 per call, 800 K12
+     in (a) and 0 in (b), 0 K1/K3/K4, no fallback;
+  13. one call of (c) (``fused_ff: False`` with fused norms: K3 + s8
+     linears): 800 K3, 0 K4, K12 and K13;
+  14. a JSON line ``{"kernels": [...]}``;
+  15. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -75,8 +89,13 @@ INT8_SHAPES = [((2, 2048, 320), 5), ((2, 512, 640), 5),
                ((2, 128, 1280), 5), ((2, 32, 1280), 1)]
 # K3/K4 against their plain versions: two bf16 ulps of max|ref| at most,
 # and 2.5e-3 of mean|ref| on the mean (a rare int8 code that a summation
-# order flips moves a few outputs by a code's worth)
+# order flips moves a few outputs by a code's worth); K12 and K13 the same
 INT8_MAX_TOL, INT8_MEAN_TOL = 1.6e-2, 2.5e-3
+# (B, T, H, D) of K13's launches in one unfused int8 UNet forward on a 32x64
+# latent at batch 2, with the number of launches of each; K12's are the
+# (B, T, C) of INT8_SHAPES
+K13_SHAPES = [((2, 2048, 8, 40), 5), ((2, 512, 8, 80), 5),
+              ((2, 128, 8, 160), 5), ((2, 32, 8, 160), 1)]
 
 
 class CheckFailed(Exception):
@@ -140,6 +159,31 @@ def geglu_ln_bound_ms(b: int, t: int, c: int):
     m = 4 * c
     ops = 2.0 * b * t * c * 2 * m + 2.0 * b * t * m * c
     nbytes = 2 * b * t * c + 3 * m * c + 4 * (4 * m + 5 * c) + 2 * b * t * c
+    t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, float(nbytes))
+
+
+def k13_bound_ms(b: int, t: int, h: int, d: int):
+    """K13's bound for one call: 2·2·BH·T²·D int8 operations (QKᵀ and the
+    e8·V product) at the int8 peak against the int8 q, k, v in and the bf16
+    output (3 + 2 bytes per element of one [BH, T, D] tensor)."""
+    ops = 2.0 * 2 * b * h * t * t * d
+    nbytes = 3.0 * b * h * t * d + 2.0 * b * h * t * d
+    t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, nbytes)
+
+
+def geglu_bound_ms(b: int, t: int, c: int):
+    """K12's bound for one call on bf16 x (M = 4C): K4's int8 operations
+    against x in, W1, W2, their scales and b1 (no LN rows, no b2) and the
+    bf16 output."""
+    m = 4 * c
+    ops = 2.0 * b * t * c * 2 * m + 2.0 * b * t * m * c
+    nbytes = 2 * b * t * c + 3 * m * c + 4 * (4 * m + c) + 2 * b * t * c
     t_ops = ops / PEAK_FLOPS["int8"] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -275,7 +319,6 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
     count over the timed call (the main path)."""
     import numpy as np
     import torch
-    from ldmseg_torch.ops import attention as A
     from ldmseg_torch.ops.panoptic import panoptic_post_process
 
     image = np.random.RandomState(seed).randn(2, 256, 512, 3).astype(
@@ -285,8 +328,7 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
     trainer.sample_panoptic(batch)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.fused_self_attention.launches = 0
-    A.fused_self_attention_backward.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     logits, x0 = trainer.sample_panoptic(batch)
     cleaned, keep = panoptic_post_process(
@@ -294,8 +336,9 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
         overlap_th=trainer.overlap_th, ignore_label=trainer.ignore_label)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = A.fused_self_attention.launches
-    bwd_launches = A.fused_self_attention_backward.launches
+    counts = _counts()
+    launches = counts["K1"]
+    bwd_launches = counts["K2"]
     peak = torch.cuda.max_memory_allocated()
     c = trainer.num_classes
     check(tuple(logits.shape) == (2, 256, 512, c),
@@ -307,14 +350,16 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
     check(tuple(keep.shape) == (2, c), f"keep shape {tuple(keep.shape)}")
     check(launches == 16 * steps, f"K1 launches {launches} != 16 x {steps}")
     check(bwd_launches == 0, f"sampling launched K2 {bwd_launches} times")
+    check(all(counts[k] == 0 for k in counts if k not in ("K1", "K2")),
+          f"bf16 sampling launched an int8 kernel: {counts}")
     x0_host = x0.float().cpu().numpy()
     print(f"phase 4 sample_panoptic: {steps} DDIM steps, 2 x 256x512 "
           f"frames -> logits {tuple(logits.shape)}: {secs:.3f} s per call "
           f"(post-process included), {2 / secs:.3f} frames/s, peak memory "
           f"{peak / 2**30:.2f} GiB, K1 launches {launches} [{smi_line}]",
           flush=True)
-    return launches, {"seconds": secs, "frames_per_s": 2 / secs,
-                      "peak_bytes": peak, "x0": x0_host}
+    return counts, {"seconds": secs, "frames_per_s": 2 / secs,
+                    "peak_bytes": peak, "x0": x0_host}
 
 
 def phase_attention_backward():
@@ -405,7 +450,6 @@ def phase_train(smi_line: str, seed: int = 0):
     from ldmseg_torch.data.loader import Loader
     from ldmseg_torch.data.synthetic import SyntheticDVPS
     from ldmseg_torch.models.unet import CrossAttention
-    from ldmseg_torch.ops import attention as A
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
 
     ds = SyntheticDVPS(length=2 * TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
@@ -417,15 +461,14 @@ def phase_train(smi_line: str, seed: int = 0):
                               seed=seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.fused_self_attention.launches = 0
-    A.fused_self_attention_backward.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     timed = trainer.train_loop(max_steps=TIMED_STEPS, log_every=TIMED_STEPS,
                                seed=seed + 1)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    fwd, bwd = (A.fused_self_attention.launches,
-                A.fused_self_attention_backward.launches)
+    train_counts = _counts()
+    fwd, bwd = train_counts["K1"], train_counts["K2"]
     peak = torch.cuda.max_memory_allocated()
     losses = warm + timed
     check(len(losses) == WARMUP_STEPS + TIMED_STEPS
@@ -434,6 +477,9 @@ def phase_train(smi_line: str, seed: int = 0):
     check(fwd == 32 * TIMED_STEPS and bwd == 16 * TIMED_STEPS,
           f"train steps launched K1 {fwd} and K2 {bwd} times, expected "
           f"{32 * TIMED_STEPS} and {16 * TIMED_STEPS}")
+    check(all(train_counts[k] == 0 for k in train_counts
+              if k not in ("K1", "K2")),
+          f"the train steps launched an int8 kernel: {train_counts}")
     check(trainer.state.step == WARMUP_STEPS + TIMED_STEPS,
           f"optimizer steps {trainer.state.step}")
     frozen, moved = [], []
@@ -506,7 +552,7 @@ def phase_train(smi_line: str, seed: int = 0):
           f"{norm_f:.6f} vs {norm_p:.6f} (rel {norm_rel:.2e}, tol 2e-2), "
           f"cosine {cos:.6f} (>= 0.99); every to_q.weight.grad finite and "
           f"non-zero ({len(attn)} layers)", flush=True)
-    return fwd, bwd, {"seconds_per_step": secs / TIMED_STEPS,
+    return train_counts, {"seconds_per_step": secs / TIMED_STEPS,
                       "samples_per_s": TRAIN_BATCH * TIMED_STEPS / secs,
                       "train_step_seconds_loaded_batch": step_secs,
                       "batch_load_seconds": data_secs,
@@ -515,9 +561,11 @@ def phase_train(smi_line: str, seed: int = 0):
                       "grad_cosine": cos}
 
 
-def _int8_config():
+def _int8_config(**sk):
+    """The default deployment with ``int8_inference`` and the sampling keys
+    ``sk`` (``fused_norms``, ``fused_ff``)."""
     cfg = _config()
-    cfg["sampling_kwargs"]["int8_inference"] = True
+    cfg["sampling_kwargs"].update(int8_inference=True, **sk)
     return cfg
 
 
@@ -623,26 +671,37 @@ def phase_int8_kernels():
     return k3_rows, k4_rows
 
 
-def _int8_counts():
+def _wrappers():
+    """Every kernel's wrapper by id; K3/K4/K12/K13 count fallbacks too."""
     from ldmseg_torch.ops import attention as A
-    from ldmseg_torch.ops import attention_s8 as K3
-    from ldmseg_torch.ops import geglu as K4
-    return {"K1": A.fused_self_attention.launches,
-            "K2": A.fused_self_attention_backward.launches,
-            "K3": K3.ln_attention_s8.launches,
-            "K4": K4.geglu_ln_s8.launches,
-            "fallbacks": (K3.ln_attention_s8.fallbacks
-                          + K4.geglu_ln_s8.fallbacks)}
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as G
+    return {"K1": A.fused_self_attention,
+            "K2": A.fused_self_attention_backward,
+            "K3": S8.ln_attention_s8, "K4": G.geglu_ln_s8,
+            "K12": G.fused_geglu_s8, "K13": S8.fused_self_attention_s8}
 
 
-def _zero_int8_counts():
-    from ldmseg_torch.ops import attention as A
-    from ldmseg_torch.ops import attention_s8 as K3
-    from ldmseg_torch.ops import geglu as K4
-    A.fused_self_attention.launches = 0
-    A.fused_self_attention_backward.launches = 0
-    K3.ln_attention_s8.launches = K3.ln_attention_s8.fallbacks = 0
-    K4.geglu_ln_s8.launches = K4.geglu_ln_s8.fallbacks = 0
+def _counts():
+    w = _wrappers()
+    out = {k: f.launches for k, f in w.items()}
+    out["fallbacks"] = sum(getattr(f, "fallbacks", 0) for f in w.values())
+    return out
+
+
+def _zero_counts():
+    for f in _wrappers().values():
+        f.launches = 0
+        if hasattr(f, "fallbacks"):
+            f.fallbacks = 0
+
+
+def _expect(**launches):
+    """The counts of a run that launched only ``launches``."""
+    out = {k: 0 for k in _wrappers()}
+    out.update(launches)
+    out["fallbacks"] = 0
+    return out
 
 
 def phase_int8_unet(trainer, seed: int = 1):
@@ -660,10 +719,10 @@ def phase_int8_unet(trainer, seed: int = 1):
     int8 = trainer.int8_unet()
     with torch.inference_mode():
         ref = bf16(x, t).float()
-        _zero_int8_counts()
+        _zero_counts()
         out = int8(x, t).float()
         torch.cuda.synchronize()
-        counts = _int8_counts()
+        counts = _counts()
         int8_ms = time_ms(lambda: int8(x, t), iters=10)
         bf16_ms = time_ms(lambda: bf16(x, t), iters=10)
         events = []
@@ -683,7 +742,7 @@ def phase_int8_unet(trainer, seed: int = 1):
         for h in hooks:
             h.remove()
         conv_ms = sum(a.elapsed_time(b) for a, b in events)
-    check(counts == {"K1": 0, "K2": 0, "K3": 16, "K4": 16, "fallbacks": 0},
+    check(counts == _expect(K3=16, K4=16),
           f"int8 UNet forward launched {counts}, expected 16 K3, 16 K4, "
           f"0 K1, 0 fallbacks")
     check(bool(torch.isfinite(out).all()), "int8 UNet output not finite")
@@ -703,13 +762,128 @@ def phase_int8_unet(trainer, seed: int = 1):
             "mean_rel_err": rel_mean, "correlation": corr}
 
 
-def phase_int8_sample(trainer, smi_line: str, bf16_result: dict,
-                      seed: int = 0):
+def phase_unfused_kernels():
+    """K13 and K12 against their plain versions on the card, at every shape
+    of the unfused int8 UNet forward and a ragged T (K12 in both
+    interior-scale modes). K13 runs on bf16 q, k, v with the path's static
+    scale 0.1 (the ragged T with dynamic scales). Beside each, the bf16
+    function the kernel replaces, a different function: K1 and SDPA on the
+    same q, k, v for K13, the bf16 GEGLU FF (``ff``) for K12."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as G
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k13_rows, k12_rows = [], []
+    for shape, per_fwd in K13_SHAPES + [((1, 120, 8, 160), 0)]:
+        b, t, h, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        scale, act = d ** -0.5, (0.1 if per_fwd else None)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with torch.inference_mode():
+            out = S8.fused_self_attention_s8(q, k, v, scale, act)
+            torch.cuda.synchronize()
+            row = _int8_row(
+                "K13", shape, per_fwd, out,
+                S8.fused_self_attention_s8_reference(q, k, v, scale, act),
+                lambda: S8.fused_self_attention_s8(q, k, v, scale, act),
+                lambda: S8.fused_self_attention_s8_reference(q, k, v, scale,
+                                                             act),
+                lambda: A.fused_self_attention(q, k, v, scale),
+                k13_bound_ms(b, t, h, d))
+            row["sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale))
+        row["act_scale"] = act
+        k13_rows.append(row)
+        print(f"phase 10 K13 {shape} {'static 0.1' if act else 'dynamic'}"
+              f": err {row['max_abs_err']:.3e} of max|ref| "
+              f"{row['max_abs_ref']:.3e}, mean {row['mean_abs_err']:.3e} of "
+              f"{row['mean_abs_ref']:.3e}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); bf16 K1 {row['bf16_block_ms']:.4f} ms,"
+              f" sdpa {row['sdpa_ms']:.4f} ms", flush=True)
+        del q, k, v, qt, kt, vt
+    for shape, per_fwd in INT8_SHAPES + [((1, 120, 320), 0)]:
+        b, t, c = shape
+        _, _, norm3, ff = _block_modules(c, seed=t + c + 1)
+        fpacks = {mode: G.pack_geglu(norm3, ff.net[0].proj, ff.net[2],
+                                     0.05, gs)
+                  for mode, gs in (("dynamic", None), ("static", 0.02))}
+        f = ff.to(torch.bfloat16)
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        with torch.inference_mode():
+            for mode, fpack in fpacks.items():
+                out = G.fused_geglu_s8(x, fpack)
+                torch.cuda.synchronize()
+                row = _int8_row(
+                    "K12", shape, per_fwd, out,
+                    G.geglu_s8_reference(x, fpack),
+                    lambda: G.fused_geglu_s8(x, fpack),
+                    lambda: G.geglu_s8_reference(x, fpack),
+                    lambda: f(x), geglu_bound_ms(b, t, c))
+                row["interior"] = mode
+                k12_rows.append(row)
+                print(f"phase 10 K12 {shape} {mode}: err "
+                      f"{row['max_abs_err']:.3e} of max|ref| "
+                      f"{row['max_abs_ref']:.3e}, mean "
+                      f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
+                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}), bf16 FF "
+                      f"{row['bf16_block_ms']:.4f} ms", flush=True)
+    return k13_rows, k12_rows
+
+
+def phase_unfused_unet(trainer, seed: int = 1):
+    """The unfused int8 UNet forward (variant (a): K13 + K12) at full width
+    against the bf16 UNet on K1 of the same masters (the input of
+    phase 3)."""
+    import torch
+    bf16 = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, bf16.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    int8 = trainer.int8_unet()
+    with torch.inference_mode():
+        ref = bf16(x, t).float()
+        _zero_counts()
+        out = int8(x, t).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        int8_ms = time_ms(lambda: int8(x, t), iters=10)
+        bf16_ms = time_ms(lambda: bf16(x, t), iters=10)
+    check(counts == _expect(K12=16, K13=16),
+          f"unfused int8 UNet forward launched {counts}, expected 16 K13, "
+          f"16 K12, 0 K1/K3/K4, 0 fallbacks")
+    check(bool(torch.isfinite(out).all()), "unfused int8 UNet not finite")
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    rel_mean = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[
+        0, 1].item()
+    check(corr >= 0.9, f"unfused int8 UNet vs bf16: correlation {corr}")
+    print(f"phase 11 unfused int8 UNet forward (K13 + K12), "
+          f"[2, {bf16.config.in_channels}, 32, 64]: {int8_ms:.3f} ms (bf16 "
+          f"on K1 {bf16_ms:.3f} ms), launches {counts}; vs bf16: max rel err"
+          f" {rel:.3e}, mean rel err {rel_mean:.3e}, correlation "
+          f"{corr:.6f} (>= 0.9)", flush=True)
+    return {"int8_ms": int8_ms, "bf16_ms": bf16_ms, "max_rel_err": rel,
+            "mean_rel_err": rel_mean, "correlation": corr}
+
+
+def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
+                      bf16_result: dict, calibrate: bool, phase: int,
+                      calls: int = 1, seed: int = 0):
     """int8 ``sample_panoptic`` as phase 4 (same frames, same init noise):
-    two timed calls with the default scales (dynamic interior), then
-    ``calibrate_int8`` and two with the calibrated scales (static
-    interior); the host's speed moves a single call. Returns each mode's
-    counts (every call checked) and measurements."""
+    a warm-up call, ``calls`` timed calls with the default scales and, with
+    ``calibrate``, ``calls`` after ``calibrate_int8`` (the host's speed
+    moves a single call: the fastest is reported); every call's launches
+    checked against ``expect`` (per UNet forward). Returns each mode's
+    counts and measurements."""
     import numpy as np
     import torch
     from ldmseg_torch.ops.panoptic import panoptic_post_process
@@ -718,60 +892,60 @@ def phase_int8_sample(trainer, smi_line: str, bf16_result: dict,
         np.float32)
     batch = {"image": image}
     steps = trainer.num_inference_steps
-    trainer.sample_panoptic(batch)  # warm-up
+    want = _expect(**{k: n * steps for k, n in expect.items()})
     results = {}
-    for label in ("dynamic interior", "calibrated"):
-        if label == "calibrated":
+    modes = (["warm-up"] + ["default scales"] * calls
+             + (["calibrated"] * calls if calibrate else []))
+    timings = {}
+    for i, mode in enumerate(modes):
+        if mode == "calibrated" and modes[i - 1] != mode:
             t0 = time.perf_counter()
             scales = trainer.calibrate_int8(batch)
             torch.cuda.synchronize()
             calib_s = time.perf_counter() - t0
             check(len(scales) == 2 * 22 + 3 * 16,
                   f"calibrate_int8 gave {len(scales)} sites")
-        timings = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _zero_int8_counts()
-            t0 = time.perf_counter()
-            logits, x0 = trainer.sample_panoptic(batch)
-            cleaned, keep = panoptic_post_process(
-                logits, mask_th=trainer.mask_th, count_th=trainer.count_th,
-                overlap_th=trainer.overlap_th,
-                ignore_label=trainer.ignore_label)
-            torch.cuda.synchronize()
-            timings.append(time.perf_counter() - t0)
-            counts = _int8_counts()
-            peak = torch.cuda.max_memory_allocated()
-            c = trainer.num_classes
-            check(tuple(logits.shape) == (2, 256, 512, c)
-                  and bool(torch.isfinite(logits).all()),
-                  f"int8 {label}: logits {tuple(logits.shape)} not finite "
-                  f"or of the wrong shape")
-            check(tuple(cleaned.shape) == (2, 256, 512)
-                  and tuple(keep.shape) == (2, c),
-                  f"int8 {label}: post-process")
-            check(counts == {"K1": 0, "K2": 0, "K3": 16 * steps,
-                             "K4": 16 * steps, "fallbacks": 0},
-                  f"int8 sample_panoptic ({label}) launched {counts}, "
-                  f"expected {16 * steps} K3 and K4, 0 K1, 0 fallbacks")
-        secs = min(timings)
-        corr = np.corrcoef(x0.float().cpu().numpy().ravel(),
-                           bf16_result["x0"].ravel())[0, 1]
-        results[label] = {"seconds": secs, "seconds_both_calls": timings,
-                          "frames_per_s": 2 / secs, "peak_bytes": peak,
-                          "counts": counts,
-                          "x0_correlation_with_bf16": float(corr)}
-        if label == "calibrated":
-            results[label]["calibrate_seconds"] = calib_s
-        print(f"phase 9 int8 sample_panoptic ({label}): {steps} DDIM steps, "
-              f"2 x 256x512 -> logits {tuple(logits.shape)}: {secs:.3f} s "
-              f"per call (the faster of {timings[0]:.3f} and "
-              f"{timings[1]:.3f}), {2 / secs:.3f} frames/s, peak memory "
-              f"{peak / 2**30:.2f} GiB, launches {counts}; x0 correlation "
-              f"with the bf16 call {corr:.4f}; bf16 (phase 4): "
-              f"{bf16_result['seconds']:.3f} s, "
-              f"{bf16_result['frames_per_s']:.3f} frames/s, "
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        logits, x0 = trainer.sample_panoptic(batch)
+        cleaned, keep = panoptic_post_process(
+            logits, mask_th=trainer.mask_th, count_th=trainer.count_th,
+            overlap_th=trainer.overlap_th, ignore_label=trainer.ignore_label)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        c = trainer.num_classes
+        check(tuple(logits.shape) == (2, 256, 512, c)
+              and bool(torch.isfinite(logits).all())
+              and tuple(cleaned.shape) == (2, 256, 512)
+              and tuple(keep.shape) == (2, c),
+              f"{label} {mode}: logits or post-process of the wrong shape "
+              f"or not finite")
+        check(counts == want, f"{label} {mode}: launched {counts}, "
+              f"expected {want}")
+        if mode == "warm-up":
+            continue
+        timings.setdefault(mode, []).append(secs)
+        if len(timings[mode]) < calls:
+            continue
+        secs = min(timings[mode])
+        corr = float(np.corrcoef(x0.float().cpu().numpy().ravel(),
+                                 bf16_result["x0"].ravel())[0, 1])
+        results[mode] = {"seconds": secs, "seconds_each_call": timings[mode],
+                         "frames_per_s": 2 / secs, "peak_bytes": peak,
+                         "counts": counts, "x0_correlation_with_bf16": corr}
+        if mode == "calibrated":
+            results[mode]["calibrate_seconds"] = calib_s
+        each = ", ".join(f"{x:.3f}" for x in timings[mode])
+        print(f"phase {phase} {label} sample_panoptic ({mode}): {steps} DDIM"
+              f" steps, 2 x 256x512 -> logits {tuple(logits.shape)}: "
+              f"{secs:.3f} s per call (the fastest of {each}), "
+              f"{2 / secs:.3f} frames/s, peak memory {peak / 2**30:.2f} GiB,"
+              f" launches {counts}; x0 correlation with the bf16 call "
+              f"{corr:.4f}; bf16 (phase 4): {bf16_result['seconds']:.3f} s, "
               f"{bf16_result['peak_bytes'] / 2**30:.2f} GiB [{smi_line}]",
               flush=True)
     return results
@@ -779,9 +953,10 @@ def phase_int8_sample(trainer, smi_line: str, bf16_result: dict,
 
 def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
                by_path):
-    """The kernels-line entry for K3 or K4: times summed over the 16
-    launches of one int8 UNet forward (dynamic interior for K4), per-shape
-    rows beside them."""
+    """The kernels-line entry for K3, K4, K12 or K13: times summed over the
+    16 launches of one int8 UNet forward (dynamic interior for K4 and K12),
+    per-shape rows beside them. ``bf16_block_ms`` is the bf16 function the
+    kernel replaces (for K13 K1, with SDPA in ``sdpa_ms``)."""
     main = [r for r in rows if r["per_unet_forward"]
             and r.get("interior", "dynamic") == "dynamic"]
 
@@ -805,6 +980,7 @@ def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
         "bf16_block_ms": total("bf16_block_ms"),
+        **({"sdpa_ms": total("sdpa_ms")} if kid == "K13" else {}),
         "unit": "one UNet forward (16 launches, int8, batch 2, 32x64 "
                 "latent)",
         "shapes": rows,
@@ -897,49 +1073,84 @@ def main() -> int:
         trainer = TrainerDiffusion(_config())
         trainer.init_params(seed=0)
         unet_result = phase_unet(trainer)
-        launches, sample_result = phase_sample(trainer, smi_line)
+        bf16_counts, sample_result = phase_sample(trainer, smi_line)
         del trainer
         torch.cuda.empty_cache()
         bwd_rows = phase_attention_backward()
-        train_fwd, train_bwd, train_result = phase_train(smi_line)
+        train_counts, train_result = phase_train(smi_line)
         torch.cuda.empty_cache()
         k3_rows, k4_rows = phase_int8_kernels()
         trainer = TrainerDiffusion(_int8_config())
         trainer.init_params(seed=0)
         int8_unet_result = phase_int8_unet(trainer)
-        int8_results = phase_int8_sample(trainer, smi_line, sample_result)
+        int8_results = phase_int8_sample(
+            trainer, "int8", {"K3": 16, "K4": 16}, smi_line, sample_result,
+            calibrate=True, phase=9, calls=2)
         del trainer
+        torch.cuda.empty_cache()
+        k13_rows, k12_rows = phase_unfused_kernels()
+        variant = {}
+        for key, sk, expect, phase in (
+                ("a", {"fused_norms": False}, {"K13": 16, "K12": 16}, 12),
+                ("b", {"fused_norms": False, "fused_ff": False},
+                 {"K13": 16}, 12),
+                ("c", {"fused_ff": False}, {"K3": 16}, 13)):
+            trainer = TrainerDiffusion(_int8_config(**sk))
+            trainer.init_params(seed=0)
+            if key == "a":
+                unfused_unet_result = phase_unfused_unet(trainer)
+            variant[key] = phase_int8_sample(
+                trainer, f"int8 ({key}) {sk}", expect, smi_line,
+                sample_result, calibrate=key != "c", phase=phase)
+            del trainer
+            torch.cuda.empty_cache()
         sample_result.pop("x0")
-        print(json.dumps({"results": {"device": smi_line,
-                                      "unet_forward": unet_result,
-                                      "sample_panoptic": sample_result,
-                                      "train": train_result,
-                                      "int8_unet_forward": int8_unet_result,
-                                      "int8_sample_panoptic": int8_results}}),
-              flush=True)
-        train_path = f"train_loop, {TIMED_STEPS} steps"
+        print(json.dumps({"results": {
+            "device": smi_line, "unet_forward": unet_result,
+            "sample_panoptic": sample_result, "train": train_result,
+            "int8_unet_forward": int8_unet_result,
+            "int8_sample_panoptic": int8_results,
+            "unfused_int8_unet_forward": unfused_unet_result,
+            "unfused_int8_sample_panoptic": variant}}), flush=True)
         dyn, cal = (int8_results[k]["counts"]
-                    for k in ("dynamic interior", "calibrated"))
-        int8_dyn = "sample_panoptic int8, default scales"
-        int8_cal = "sample_panoptic int8, calibrated scales"
+                    for k in ("default scales", "calibrated"))
+        paths = {"sample_panoptic": bf16_counts,
+                 f"train_loop, {TIMED_STEPS} steps": train_counts,
+                 "sample_panoptic int8, default scales": dyn,
+                 "sample_panoptic int8, calibrated scales": cal}
+        for key, what in (("a", "fused_norms False"),
+                          ("b", "fused_norms and fused_ff False"),
+                          ("c", "fused_ff False")):
+            for mode, res in variant[key].items():
+                paths[f"sample_panoptic int8 {what}, {mode}"] = res["counts"]
 
-        def by_path(bf16, train, key):
-            return {"sample_panoptic": bf16, train_path: train,
-                    int8_dyn: dyn[key], int8_cal: cal[key]}
+        def by_path(kid):
+            return {path: counts[kid] for path, counts in paths.items()}
+        unfused = variant["a"]["default scales"]["counts"]
         print(json.dumps({"kernels": [
-            k1_entry(rows, launches, by_path(launches, train_fwd, "K1")),
-            k2_entry(bwd_rows, train_bwd, by_path(0, train_bwd, "K2")),
+            k1_entry(rows, bf16_counts["K1"], by_path("K1")),
+            k2_entry(bwd_rows, train_counts["K2"], by_path("K2")),
             int8_entry("attention_ln_s8", "K3",
                        "ldmseg_torch/csrc/attention_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:845",
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_abs_padded_ln_s8_vt",
-                       k3_rows, dyn["K3"], by_path(0, 0, "K3")),
+                       k3_rows, dyn["K3"], by_path("K3")),
             int8_entry("geglu_ln_s8", "K4",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:164",
                        "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel",
-                       k4_rows, dyn["K4"], by_path(0, 0, "K4")),
+                       k4_rows, dyn["K4"], by_path("K4")),
+            int8_entry("geglu_s8", "K12",
+                       "ldmseg_torch/csrc/geglu_ln_s8.cu",
+                       "ldmseg_tpu/ops/pallas/geglu.py:123",
+                       "ldmseg_tpu/ops/pallas/geglu.py:_geglu_kernel",
+                       k12_rows, unfused["K12"], by_path("K12")),
+            int8_entry("attention_s8", "K13",
+                       "ldmseg_torch/csrc/attention_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:47",
+                       "ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8",
+                       k13_rows, unfused["K13"], by_path("K13")),
         ]}), flush=True)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -96,26 +96,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// rows [row0, row0+64) of one head's int8 columns [h*d, h*d+d) of a
-// [rows, c] matrix into a k-blocked tile of depth dp, zero past t and d
-__device__ __forceinline__ void load_head_s8(int8_t* dst,
-                                             const int8_t* __restrict__ src,
-                                             int c, int row0, int t, int d,
-                                             int dp) {
-  const int units = dp / 8;
-  for (int i = threadIdx.x; i < kTile * units; i += kThreads) {
-    const int r = i / units;
-    const int u = i - r * units;
-    uint2 val = make_uint2(0u, 0u);
-    if (row0 + r < t && u * 8 < d) {
-      val = *reinterpret_cast<const uint2*>(
-          src + static_cast<long long>(row0 + r) * c + u * 8);
-    }
-    *reinterpret_cast<uint2*>(dst + (u >> 1) * kSlab + r * 16 +
-                              (u & 1) * 8) = val;
-  }
-}
-
 // the same for one head's bf16 columns into a row-major [64][ld] tile
 __device__ __forceinline__ void load_head_bf16(
     __nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ src, int c,
@@ -131,29 +111,6 @@ __device__ __forceinline__ void load_head_bf16(
     }
     *reinterpret_cast<uint4*>(dst + r * ld + u * 8) = val;
   }
-}
-
-// S = Q K^T (int32) for a 64 x 64 tile into rows [16w, 16w+16) of S
-__device__ __forceinline__ void score_tile(const int8_t* Qs, const int8_t* Ks,
-                                           int* S, int dp) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32;
-  AccFrag acc[4];
-  zero_acc(acc);
-  for (int kb = 0; kb < dp / 16; ++kb) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, Qs + kb * kSlab + warp * 16 * 16, 16);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::col_major>
-          bf;
-      wmma::load_matrix_sync(bf, Ks + kb * kSlab + n * 16 * 16, 16);
-      wmma::mma_sync(acc[n], a, bf, acc[n]);
-    }
-  }
-  stage_acc(S, acc);
 }
 
 // ---- c: attention per (image*head, 64-query tile) ------------------------

@@ -1,0 +1,310 @@
+// K13 on Hopper: the int8 UNet's self-attention without fused norms,
+// o = softmax(Q K^T * scale) V with q, k, v quantized to int8, on [B, T, H, D].
+//
+// Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8
+// (pallas_call in _fused_impl_s8, public fused_self_attention_s8), together
+// with the wrapper's quantize of q, k and v. Its rounding points:
+//   1. q8 = clip(rint(float(q) / qs), +-127), k8 and v8 the same with ks and
+//      vs (static scales, or one dynamic amax / 127 per tensor that the
+//      wrapper hands in as device scalars);
+//   2. s = float(int32 q8 k8^T) * sc0 with sc0 = (qs * ks) * scale;
+//   3. e = exp((s - rowmax(s)) + ln 127), so rowmax(e) = 127; denom = sum(e)
+//      over the unrounded e in fp32;
+//   4. e8 = rint(e) (codes 0..127), o32 = int32 e8 V8;
+//   5. o = bf16(float(o32) * ((sc1 * 127) / denom)) with sc1 = vs / 127.
+//
+// What bounds it on an H100: 2*2*BH*T^2*D int8 operations at 1,979 TOPS
+// against the int8 q, k, v in and the bf16 o out (3 + 2 bytes per element of
+// one [BH, T, D] tensor) at 3.35 TB/s. At the first level (BH=16, T=2048,
+// D=40) that is ~10.7 G int8 operations (~5.4 us) against ~6.6 MB (~2 us):
+// operations bound it; at T=128 and T=32 (D=160) bytes and launch latency.
+//
+// Design. Two kernels on the stream:
+//   a. quant_qkv: one thread per 8 elements of q, k and v (read through
+//      their [B, T, H, D] strides, so the caller's head views cost nothing;
+//      32-bit index math: the first design's three 64-bit divisions per
+//      element made this pass 1.2 ms of a UNet forward), int8 codes written
+//      contiguous [B, T, H, D] into scratch;
+//   b. attn_s8: one block of 4 warps per (image*head, 64-query tile); each
+//      warp owns 16 query rows. The rounding of e to codes needs the final
+//      row max, so the kernel takes two passes over 64-key tiles, as K1 and
+//      K3 do: pass 1 the row max of the scaled int32 scores, pass 2 e, its
+//      fp32 sum, the codes e8 in shared memory and the int8 product e8 V8
+//      into int32 accumulators. An online rescale would round e at another
+//      scale. Both products run on int8 wmma m16n16k16; D is zero-padded
+//      in shared memory to a multiple of 16 (40 -> 48; zeros are exact);
+//      keys past T are masked (T = 120 and 24 take the kernel).
+// Shared-memory layouts keep every wmma fragment on a 256-byte boundary:
+// Q and K tiles k-blocked ([D/16][64 rows][16], s8_common.cuh), the e8 tile
+// k-blocked over keys ([4][64 rows][16]), the V tile as 16x16 blocks
+// ([4 key slices][D/16 column tiles][16 keys][16 columns]), the row-major B
+// operand with ld 16. A simple kernel that is right comes first.
+
+#include "s8_common.cuh"
+
+namespace {
+
+using namespace s8;
+
+constexpr int kMaxD = 160;                // largest head dim taken
+constexpr int kMaxDTiles = kMaxD / 16;    // output column tiles per warp
+constexpr float kLn127 = 4.844187086458591f;
+
+struct Strides {
+  long long b, t, h;  // element strides of the B, T and H axes (D is 1)
+};
+
+struct QKV {
+  const void* x[3];   // q, k, v
+  Strides st[3];
+  int8_t* x8[3];      // their codes, contiguous [B, T, H, D]
+};
+
+// ---- a: quantize q, k and v ------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256)
+    quant_qkv_kernel(QKV a, int units, int t, int heads, int d,
+                     const float* __restrict__ scale_dev, float qs, float ks,
+                     float vs) {
+  const int which = blockIdx.y;
+  const int u = blockIdx.x * 256 + threadIdx.x;  // 8 elements of one row
+  if (u >= units) return;
+  const int per_row = d / 8;
+  const int row = u / per_row;          // (b * t + token) * heads + head
+  const int j = (u - row * per_row) * 8;
+  const int bt = row / heads;
+  const int h = row - bt * heads;
+  const int b = bt / t;
+  const int tok = bt - b * t;
+  const Strides s = a.st[which];
+  const T* x = static_cast<const T*>(a.x[which]) + b * s.b + tok * s.t +
+               h * s.h + j;
+  const float sc = scale_dev != nullptr
+                       ? scale_dev[which]
+                       : (which == 0 ? qs : (which == 1 ? ks : vs));
+  int8_t* y = a.x8[which] + static_cast<long long>(u) * 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) y[e] = quant_s8(to_f(x[e]) / sc);
+}
+
+// rows [row0, row0+64) of one head's int8 [t, d] slice (row stride ld) into
+// 16x16 blocks: block (key slice kk, column tile n) at (kk * ntiles + n) *
+// 256, row-major inside; zero past t and d
+__device__ __forceinline__ void load_head_s8_blocks(
+    int8_t* dst, const int8_t* __restrict__ src, int ld, int row0, int t,
+    int d, int dp) {
+  const int units = dp / 8;
+  const int ntiles = dp / 16;
+  for (int i = threadIdx.x; i < kTile * units; i += kThreads) {
+    const int r = i / units;
+    const int u = i - r * units;
+    uint2 val = make_uint2(0u, 0u);
+    if (row0 + r < t && u * 8 < d) {
+      val = *reinterpret_cast<const uint2*>(
+          src + static_cast<long long>(row0 + r) * ld + u * 8);
+    }
+    *reinterpret_cast<uint2*>(dst + ((r >> 4) * ntiles + (u >> 1)) * 256 +
+                              (r & 15) * 16 + (u & 1) * 8) = val;
+  }
+}
+
+// ---- b: attention per (image*head, 64-query tile) ------------------------
+__global__ void __launch_bounds__(kThreads)
+    attn_s8_kernel(const int8_t* __restrict__ q8,
+                   const int8_t* __restrict__ k8,
+                   const int8_t* __restrict__ v8,
+                   __nv_bfloat16* __restrict__ o, int heads, int t, int d,
+                   const float* __restrict__ scale_dev, float qs, float ks,
+                   float vs, float scale) {
+  using namespace nvcuda;
+  extern __shared__ __align__(256) unsigned char smem[];
+  const int dp = (d + 15) & ~15;
+  const int ntiles = dp / 16;
+  int8_t* Qs = reinterpret_cast<int8_t*>(smem);
+  int8_t* Ks = Qs + kTile * dp;
+  int8_t* Vs = Ks + kTile * dp;
+  int8_t* Es = Vs + kTile * dp;
+  int* S = reinterpret_cast<int*>(Es + kTile * kTile);
+
+  if (scale_dev != nullptr) {
+    qs = scale_dev[0];
+    ks = scale_dev[1];
+    vs = scale_dev[2];
+  }
+  const float sc0 = (qs * ks) * scale;
+  const float sc1 = vs / 127.f;
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y - b * heads;
+  const int q0 = blockIdx.x * kTile;
+  const int ld = heads * d;
+  const long long base = (static_cast<long long>(b) * t * heads + h) * d;
+  load_head_s8(Qs, q8 + base, ld, q0, t, d, dp);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
+  const int row = warp * 16 + (lane >> 1);  // this lane pair's query row
+  const int half = lane & 1;                // columns half, half+2, ...
+  float m_run = -INFINITY;
+
+  // pass 1: the row max of the scaled scores
+  for (int k0 = 0; k0 < t; k0 += kTile) {
+    __syncthreads();
+    load_head_s8(Ks, k8 + base, ld, k0, t, d, dp);
+    __syncthreads();
+    score_tile(Qs, Ks, S, dp);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kTile / 2; ++j) {
+      const int cc = half + 2 * j;
+      if (k0 + cc < t) {
+        m_run = fmaxf(m_run,
+                      __fmul_rn(static_cast<float>(S[row * kStageLd + cc]),
+                                sc0));
+      }
+    }
+    __syncwarp();
+  }
+  m_run = fmaxf(m_run, __shfl_xor_sync(0xffffffffu, m_run, 1));
+
+  // pass 2: e = exp((s - max) + ln 127), denom += e, e8 = rint(e),
+  // O += e8 V8 (int32)
+  AccFrag acc_o[kMaxDTiles];
+#pragma unroll
+  for (int n = 0; n < kMaxDTiles; ++n) wmma::fill_fragment(acc_o[n], 0);
+  float l_run = 0.f;
+  for (int k0 = 0; k0 < t; k0 += kTile) {
+    __syncthreads();
+    load_head_s8(Ks, k8 + base, ld, k0, t, d, dp);
+    load_head_s8_blocks(Vs, v8 + base, ld, k0, t, d, dp);
+    __syncthreads();
+    score_tile(Qs, Ks, S, dp);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kTile / 2; ++j) {
+      const int cc = half + 2 * j;
+      int8_t e8 = 0;
+      if (k0 + cc < t) {
+        // __fmul_rn: s rounds before the subtraction, as in the TPU kernel
+        // (no fused multiply-add)
+        const float s =
+            __fmul_rn(static_cast<float>(S[row * kStageLd + cc]), sc0);
+        const float e = expf((s - m_run) + kLn127);
+        l_run += e;
+        e8 = static_cast<int8_t>(rintf(e));
+      }
+      Es[(cc >> 4) * kSlab + row * 16 + (cc & 15)] = e8;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
+          a;
+      wmma::load_matrix_sync(a, Es + kk * kSlab + warp * 16 * 16, 16);
+#pragma unroll
+      for (int n = 0; n < kMaxDTiles; ++n) {
+        if (n < ntiles) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                         wmma::row_major>
+              bv;
+          wmma::load_matrix_sync(bv, Vs + (kk * ntiles + n) * 256, 16);
+          wmma::mma_sync(acc_o[n], a, bv, acc_o[n]);
+        }
+      }
+    }
+  }
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  const float f = (sc1 * 127.f) / l_run;
+
+  // o = bf16(o32 * f) for query rows < t and columns < d, staged per warp
+  // through this warp's rows of S
+  int* stage = S + warp * 16 * kStageLd;
+  __nv_bfloat16* ob = o + base;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < kMaxDTiles; ++n) {
+    if (n < ntiles) {
+      wmma::store_matrix_sync(stage, acc_o[n], kStageLd, wmma::mem_row_major);
+      __syncwarp();
+      const int r = lane >> 1;
+      const int grow = q0 + warp * 16 + r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = n * 16 + (lane & 1) * 8 + j;
+        if (grow < t && cc < d) {
+          ob[static_cast<long long>(grow) * ld + cc] = __float2bfloat16_rn(
+              static_cast<float>(stage[r * kStageLd + (lane & 1) * 8 + j]) *
+              f);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+size_t attn_smem(int d) {
+  const int dp = (d + 15) & ~15;
+  return 3 * kTile * dp + kTile * kTile + kTile * kStageLd * sizeof(int);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const long long* st,
+           int8_t* q8, int8_t* k8, int8_t* v8, __nv_bfloat16* o, int batch,
+           int t, int heads, int d, const float* scale_dev, float qs,
+           float ks, float vs, float scale, cudaStream_t stream) {
+  QKV a;
+  a.x[0] = q;
+  a.x[1] = k;
+  a.x[2] = v;
+  a.x8[0] = q8;
+  a.x8[1] = k8;
+  a.x8[2] = v8;
+  for (int i = 0; i < 3; ++i) a.st[i] = Strides{st[3 * i], st[3 * i + 1],
+                                                st[3 * i + 2]};
+  const int units = batch * t * heads * (d / 8);
+  const dim3 grid_q((units + 255) / 256, 3);
+  quant_qkv_kernel<T><<<grid_q, 256, 0, stream>>>(a, units, t, heads, d,
+                                                  scale_dev, qs, ks, vs);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const size_t smem = attn_smem(d);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      attn_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err != 0) return err;
+  const dim3 grid((t + kTile - 1) / kTile, batch * heads);
+  attn_s8_kernel<<<grid, kThreads, smem, stream>>>(
+      q8, k8, v8, o, heads, t, d, scale_dev, qs, ks, vs, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype of q, k, v: 0 = float32, 1 = bfloat16; each [batch, t, heads, d]
+// with unit stride on d, strides holding their (b, t, h) element strides in
+// that order. q8, k8, v8 (int8) are scratch and o (bf16) the output, each
+// [batch, t, heads, d] contiguous. scale_dev: null for the static scales
+// qs, ks, vs, else a device array of the three. Returns a cudaError_t (0 on
+// success).
+extern "C" int ldmseg_attention_s8(
+    int dtype, const void* q, const void* k, const void* v,
+    const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8, void* o,
+    int batch, int t, int heads, int d, const float* scale_dev, float qs,
+    float ks, float vs, float scale, void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || d < 8 || d % 8 != 0 || d > kMaxD ||
+      batch * heads > 65535 ||
+      static_cast<long long>(batch) * t * heads * d >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  if (dtype == 0) {
+    return launch<float>(q, k, v, strides, q8, k8, v8, ob, batch, t, heads, d,
+                         scale_dev, qs, ks, vs, scale, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(q, k, v, strides, q8, k8, v8, ob, batch, t,
+                                 heads, d, scale_dev, qs, ks, vs, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

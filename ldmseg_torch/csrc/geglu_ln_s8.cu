@@ -1,19 +1,25 @@
-// K4 on Hopper: the int8 UNet's fused feed-forward block,
-// out = x + W2 q(h * gelu_tanh(gate)) s2 + b2 with [h, gate] = W1 q(LN(x)),
+// K4 and K12 on Hopper: the int8 UNet's fused feed-forward,
+// K4:  out = x + W2 q(h * gelu_tanh(gate)) s2 + b2 with [h, gate] = W1 q(LN(x)),
+// K12: out = W2 q(h * gelu_tanh(gate)) s2 with [h, gate] = W1 q(x),
 // on the token layout [B, T, C] with interior width M = 4C.
 //
-// Replaces the TPU kernel ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel
+// K4 replaces the TPU kernel ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel
 // with _ff_interior (nc = 1) (pallas_call in _geglu_ln_impl, public
-// fused_geglu_ln_s8). Its rounding points, per (image, block of
-// block_t = min(512, T) tokens), the Pallas grid:
-//   1. LayerNorm of float(x) in fp32; x8 = clip(rint(h / xs), +-127);
+// fused_geglu_ln_s8); K12 replaces _geglu_kernel (pallas_call in _geglu_impl,
+// public fused_geglu_s8), the same interior without the LayerNorm prologue
+// and the residual + b2 epilogue (the caller adds b2, the block the
+// residual). Their rounding points, per (image, block of block_t =
+// min(512, T) tokens), the Pallas grid:
+//   1. K4: LayerNorm of float(x) in fp32; x8 = clip(rint(h / xs), +-127);
+//      K12: x8 = clip(rint(float(x) / xs), +-127);
 //   2. u = float(x8 W1q) * (xs * s1) + b1 from an int32 product, [rows, 2M];
 //   3. g = u[:, :M] * gelu_tanh(u[:, M:]), gelu_tanh(z) = z / (1 + exp(-2 *
 //      0.7978845608028654 * (z + 0.044715 z^3)));
 //   4. the interior scale: static gs (a calibrated site), g8 =
 //      clip(rint(g / gs), +-127); or dynamic, gs = max(amax |g| over the
 //      whole [block_t, M] block, 1e-6) / 127 and g8 = rint(g / gs);
-//   5. out = bf16(float(x) + float(g8 W2q) * gs * s2 + b2), int32 product.
+//   5. K4: out = bf16(float(x) + float(g8 W2q) * gs * s2 + b2), int32
+//      product; K12: out = bf16(float(g8 W2q) * gs * s2).
 //
 // What bounds it on an H100: 2*T*C*2M + 2*T*M*C int8 operations per image
 // at 1,979 TOPS, against the bytes of x, W1, W2 and the output at 3.35 TB/s.
@@ -24,8 +30,8 @@
 // Design. The dynamic scale is one amax per (image, 512-token block), so a
 // Hopper block of 64 tokens cannot quantize its own interior: the amax
 // comes from blocks that run in no order. Four kernels on the stream:
-//   a. ln_quant (s8_common.cuh): one warp per token row -> x8 [B*T, C]; it
-//      also zeroes the amax slots;
+//   a. ln_quant (s8_common.cuh): one warp per token row -> x8 [B*T, C] (K12
+//      compiles the LayerNorm out); it also zeroes the amax slots;
 //   b. up: one block per (64-token tile of one image, 64 interior
 //      columns); the int8 products of the h and the gate columns (int8
 //      wmma, int32 sums), the dequantize, bias and gating epilogue, g
@@ -36,7 +42,8 @@
 //   c. quant: one pass over g, g8 = rint(g / gs) (clipped) with gs the
 //      static scale or max(slot, 1e-6) / 127, into an int8 [B*T, M];
 //   d. down: one block per (64-token tile, 64 output columns); the int8
-//      product of g8 with W2 and the residual + bias epilogue.
+//      product of g8 with W2 and the residual + bias epilogue (K12 compiles
+//      it out). K4 and K12 are one template, flag kBlock.
 // A 64-token tile never straddles a block: block_t is T when T <= 512,
 // else 512, and the wrapper sends only T % block_t == 0 here. W1 and W2
 // stream through shared memory 64 deep at a time.
@@ -126,8 +133,8 @@ __global__ void __launch_bounds__(256)
   g8[i] = quant_s8(g[i] / gs);
 }
 
-// ---- d: W2, residual and bias --------------------------------------------
-template <typename T>
+// ---- d: W2, residual and bias (kBlock) -----------------------------------
+template <typename T, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
     down_kernel(const T* __restrict__ x, const int8_t* __restrict__ g8,
                 const unsigned* __restrict__ amax,
@@ -168,11 +175,17 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= t || n >= c) continue;
     const long long at = (rbase + row) * c + n;
     const float y = static_cast<float>(S[r * kStageLd + cc]) * gs;
-    out[at] = __float2bfloat16_rn((to_f(x[at]) + y * s2[n]) + b2[n]);
+    if constexpr (kBlock) {
+      out[at] = __float2bfloat16_rn((to_f(x[at]) + y * s2[n]) + b2[n]);
+    } else {
+      out[at] = __float2bfloat16_rn(y * s2[n]);
+    }
   }
 }
 
-template <typename T>
+// kBlock: K4 (LayerNorm, residual and b2); else K12 (ln_w, ln_b, b2 and eps
+// unused)
+template <typename T, bool kBlock>
 int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
            const int8_t* w1, const float* s1, const float* b1,
            const int8_t* w2, const float* s2, const float* b2, int8_t* x8,
@@ -181,7 +194,7 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
            int block_t, float xs, float gs, int dynamic, float eps,
            cudaStream_t stream) {
   const int slots = batch * (t / block_t);
-  int err = launch_ln_quant<T>(x, x8, ln_w, ln_b, batch * t, c, xs, eps,
+  int err = launch_ln_quant<T, kBlock>(x, x8, ln_w, ln_b, batch * t, c, xs, eps,
                                dynamic ? amax : nullptr, slots, stream);
   if (err != 0) return err;
   const dim3 grid_up((t + kTile - 1) / kTile, (m + kTile - 1) / kTile, batch);
@@ -196,7 +209,7 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
   if (err != 0) return err;
   const dim3 grid_down((t + kTile - 1) / kTile, (c + kTile - 1) / kTile,
                        batch);
-  down_kernel<T><<<grid_down, kThreads, 0, stream>>>(
+  down_kernel<T, kBlock><<<grid_down, kThreads, 0, stream>>>(
       static_cast<const T*>(x), g8, amax, w2, s2, b2,
       static_cast<__nv_bfloat16*>(out), t, c, m, block_t, gs, dynamic);
   return static_cast<int>(cudaGetLastError());
@@ -224,14 +237,41 @@ extern "C" int ldmseg_geglu_ln_s8(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(x, out, ln_w, ln_b, w1, s1, b1, w2, s2, b2, x8, g,
-                         g8, amax, batch, t, c, m, block_t, xs, gs, dynamic,
-                         eps, s);
+    return launch<float, true>(x, out, ln_w, ln_b, w1, s1, b1, w2, s2, b2, x8,
+                               g, g8, amax, batch, t, c, m, block_t, xs, gs,
+                               dynamic, eps, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, out, ln_w, ln_b, w1, s1, b1, w2, s2, b2,
-                                 x8, g, g8, amax, batch, t, c, m, block_t, xs,
-                                 gs, dynamic, eps, s);
+    return launch<__nv_bfloat16, true>(x, out, ln_w, ln_b, w1, s1, b1, w2, s2,
+                                       b2, x8, g, g8, amax, batch, t, c, m,
+                                       block_t, xs, gs, dynamic, eps, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K12: the arguments of ldmseg_geglu_ln_s8 without the LayerNorm, b2 and
+// eps; out = bf16(W2 q(h * gelu_tanh(gate)) s2), no residual.
+extern "C" int ldmseg_geglu_s8(
+    int dtype, const void* x, void* out, const int8_t* w1, const float* s1,
+    const float* b1, const int8_t* w2, const float* s2, int8_t* x8, float* g,
+    int8_t* g8, unsigned* amax, int batch, int t, int c, int m, int block_t,
+    float xs, float gs, int dynamic, void* stream) {
+  if (batch < 1 || t < 1 || c % 8 != 0 || m % 8 != 0 || block_t < 1 ||
+      t % block_t != 0 || (t > block_t && block_t % kTile != 0) ||
+      batch > 65535 || (!dynamic && !(gs > 0.f))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch<float, false>(x, out, nullptr, nullptr, w1, s1, b1, w2, s2,
+                                nullptr, x8, g, g8, amax, batch, t, c, m,
+                                block_t, xs, gs, dynamic, 0.f, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, false>(x, out, nullptr, nullptr, w1, s1, b1,
+                                        w2, s2, nullptr, x8, g, g8, amax,
+                                        batch, t, c, m, block_t, xs, gs,
+                                        dynamic, 0.f, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

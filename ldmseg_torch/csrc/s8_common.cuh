@@ -1,7 +1,8 @@
-// Pieces shared by K3 (attention_ln_s8.cu) and K4 (geglu_ln_s8.cu): the
-// LayerNorm + static-scale int8 quantize of token rows, the int8 tile
-// loader and the 64x64 int8 product step on tensor cores (nvcuda::wmma
-// s8 16x16x16 with int32 accumulators).
+// Pieces shared by K3 (attention_ln_s8.cu), K4 and K12 (geglu_ln_s8.cu) and
+// K13 (attention_s8.cu): the (LayerNorm +) static-scale int8 quantize of
+// token rows, the int8 tile loaders, the 64x64 int8 product step and the
+// int8 Q K^T score tile on tensor cores (nvcuda::wmma s8 16x16x16 with
+// int32 accumulators).
 //
 // Layout of an int8 tile in shared memory: "k-blocked", [depth / 16][64
 // rows][16]. Every 16-deep slice of a row then starts on a 16-byte boundary
@@ -53,10 +54,11 @@ __device__ __forceinline__ int8_t quant_s8(float v) {
 }
 
 // One warp per token row: LayerNorm in fp32 (mean, then the mean of the
-// centred squares, eps inside the root), then x8 = clip(rint(hn / xs)).
-// Block 0 also zeroes `zero_words` words of `zero` (K4's amax slots), which
-// the next kernel on the stream accumulates into.
-template <typename T>
+// centred squares, eps inside the root), then x8 = clip(rint(hn / xs));
+// without kLN (K12) x8 = clip(rint(x / xs)). Block 0 also zeroes
+// `zero_words` words of `zero` (K4's and K12's amax slots), which the next
+// kernel on the stream accumulates into.
+template <typename T, bool kLN>
 __global__ void __launch_bounds__(kThreads)
     ln_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ x8,
                     const float* __restrict__ w, const float* __restrict__ b,
@@ -69,6 +71,11 @@ __global__ void __launch_bounds__(kThreads)
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (row >= rows) return;
   const T* xr = x + static_cast<long long>(row) * c;
+  if constexpr (!kLN) {
+    int8_t* out = x8 + static_cast<long long>(row) * c;
+    for (int i = lane; i < c; i += 32) out[i] = quant_s8(to_f(xr[i]) / xs);
+    return;
+  }
   float s = 0.f;
   for (int i = lane; i < c; i += 32) s += to_f(xr[i]);
   const float mu = warp_sum(s) / c;
@@ -86,12 +93,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kLN = true>
 int launch_ln_quant(const void* x, int8_t* x8, const float* w,
                     const float* b, int rows, int c, float xs, float eps,
                     unsigned* zero, int zero_words, cudaStream_t stream) {
   const int blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  ln_quant_kernel<T><<<blocks, kThreads, 0, stream>>>(
+  ln_quant_kernel<T, kLN><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), x8, w, b, rows, c, xs, eps, zero,
       zero_words);
   return static_cast<int>(cudaGetLastError());
@@ -155,6 +162,50 @@ __device__ __forceinline__ void stage_acc(int* S, const AccFrag (&acc)[4]) {
 __device__ __forceinline__ void zero_acc(AccFrag (&acc)[4]) {
 #pragma unroll
   for (int n = 0; n < 4; ++n) nvcuda::wmma::fill_fragment(acc[n], 0);
+}
+
+// rows [row0, row0+64) of one head's int8 columns [0, d) (row stride ld,
+// the head's first column at src) into a k-blocked tile of depth dp, zero
+// past t and d
+__device__ __forceinline__ void load_head_s8(int8_t* dst,
+                                             const int8_t* __restrict__ src,
+                                             int ld, int row0, int t, int d,
+                                             int dp) {
+  const int units = dp / 8;
+  for (int i = threadIdx.x; i < kTile * units; i += kThreads) {
+    const int r = i / units;
+    const int u = i - r * units;
+    uint2 val = make_uint2(0u, 0u);
+    if (row0 + r < t && u * 8 < d) {
+      val = *reinterpret_cast<const uint2*>(
+          src + static_cast<long long>(row0 + r) * ld + u * 8);
+    }
+    *reinterpret_cast<uint2*>(dst + (u >> 1) * kSlab + r * 16 +
+                              (u & 1) * 8) = val;
+  }
+}
+
+// S = Q K^T (int32) for a 64 x 64 tile into rows [16w, 16w+16) of S
+__device__ __forceinline__ void score_tile(const int8_t* Qs, const int8_t* Ks,
+                                           int* S, int dp) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x / 32;
+  AccFrag acc[4];
+  zero_acc(acc);
+  for (int kb = 0; kb < dp / 16; ++kb) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
+        a;
+    wmma::load_matrix_sync(a, Qs + kb * kSlab + warp * 16 * 16, 16);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                     wmma::col_major>
+          bf;
+      wmma::load_matrix_sync(bf, Ks + kb * kSlab + n * 16 * 16, 16);
+      wmma::mma_sync(acc[n], a, bf, acc[n]);
+    }
+  }
+  stage_acc(S, acc);
 }
 
 }  // namespace s8

@@ -15,15 +15,26 @@ the reference surgery is a later slice.
 
 The int8 UNet of ``sampling_kwargs.int8_inference`` is this class built with
 ``use_int8_conv`` (s8 resnet, Downsample and Upsample convs,
-``ops/quant.py:QuantConv2d``) and ``use_fused_norms`` (the fused transformer
-block, ``x = K3(x)`` then ``x = K4(x)``), the configuration the JAX trainer
-sets. Its quantized modules hold no float weights:
+``ops/quant.py:QuantConv2d``) and the transformer flags the JAX trainer
+sets (:163-176), read as JAX's ``BasicTransformerBlock`` reads them
+(:467-502):
+
+- ``use_fused_norms``: the attention block is K3 (``x = K3(x)``); with
+  ``use_int8_ff`` and ``use_fused_ff`` the FF block is K4 (``x = K4(x)``),
+  else ``x + FF(norm3(x))`` with the s8 ``FeedForwardS8`` (QuantLinear);
+- without it: ``x + attn1(norm1(x))`` with float projections and, with
+  ``use_int8_attention`` and ``use_fused_attention``, the attention on K13;
+  ``x + ff(norm3(x))`` with ``use_int8_ff`` a ``FeedForwardS8`` (K12 with
+  ``use_fused_ff``, else two QuantLinears around the exact gelu).
+
+Its quantized modules hold no float weights:
 ``ops/quant.py:prepare_int8_unet`` fills them from a float UNet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -31,9 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_self_attention
-from ..ops.attention_s8 import ln_attention_s8, pack_ln_attention
-from ..ops.geglu import geglu_ln_s8, pack_geglu
-from ..ops.quant import QuantConv2d
+from ..ops.attention_s8 import (fused_self_attention_s8, ln_attention_s8,
+                                pack_ln_attention)
+from ..ops.geglu import fused_geglu_s8, geglu_ln_s8, pack_geglu, pack_geglu_s8
+from ..ops.quant import QuantConv2d, QuantLinear
 from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
                      conv3x3, timestep_embedding)
 
@@ -53,23 +65,37 @@ class UNetConfig:
     attn_down: Tuple[bool, ...] = (True, True, True, False)
     use_fused_attention: bool = False
     # int8 inference (unet.py:79-94): s8 resnet/Down/Upsample convs; the
-    # fused-norms int8 transformer block on K3 + K4, which is JAX's
-    # use_fused_norms with use_int8_ff, use_fused_ff and
-    # use_padded_attention (its other int8 transformer paths are not ported)
+    # transformer flags as in JAX, where use_fused_norms is JAX's
+    # use_fused_norms with use_padded_attention (K3); JAX's packed, absorbed
+    # and fused-projs attention paths are not ported
     use_int8_conv: bool = False
+    use_int8_attention: bool = False  # K13 (with use_fused_attention)
+    use_int8_ff: bool = False         # s8 feed-forward
+    use_fused_ff: bool = False        # K12, or K4 with use_fused_norms
     use_fused_norms: bool = False
     int8_act_scale: Optional[float] = None       # None: dynamic amax
-    int8_attn_act_scale: Optional[float] = None  # None: 0.1
+    # the q/k/v scale: None is 0.1 for K3 and a dynamic amax for K13
+    int8_attn_act_scale: Optional[float] = None
 
 
 class CrossAttention(nn.Module):
     """Multi-head self-attention (diffusers Attention): q/k/v without bias,
-    out projection with bias. ``use_fused`` sends it to K1."""
+    out projection with bias. ``use_fused`` sends it to K1, or with
+    ``int8`` to K13 with the static q/k/v scale ``int8_act_scale`` (None: a
+    dynamic amax each); the projections stay float (unet.py:290-327).
 
-    def __init__(self, query_dim: int, heads: int, use_fused: bool = False):
+    An int8 attention takes the calibration key ``to_q`` and ignores it:
+    JAX records that scale (quant.py:607-613), but with float projections
+    no quantized leaf holds it, so K13 keeps ``int8_act_scale``."""
+
+    def __init__(self, query_dim: int, heads: int, use_fused: bool = False,
+                 int8: bool = False, int8_act_scale: Optional[float] = None):
         super().__init__()
         self.heads = heads
         self.use_fused = use_fused
+        self.int8, self.int8_act_scale = int8, int8_act_scale
+        if int8:
+            self.act_scale_sites = {"to_q": None}
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(query_dim, query_dim, bias=False)
         self.to_v = nn.Linear(query_dim, query_dim, bias=False)
@@ -81,7 +107,10 @@ class CrossAttention(nn.Module):
         q, k, v = (proj(x).reshape(b, t, self.heads, hd)
                    for proj in (self.to_q, self.to_k, self.to_v))
         scale = hd ** -0.5
-        if self.use_fused:
+        if self.use_fused and self.int8:
+            out = fused_self_attention_s8(q, k, v, scale,
+                                          self.int8_act_scale)
+        elif self.use_fused:
             out = fused_self_attention(q, k, v, scale)
         else:
             attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -92,11 +121,11 @@ class CrossAttention(nn.Module):
 
 class GEGLU(nn.Module):
     """``h, gate = split(proj(x))``; ``h * gelu(gate)`` with the exact erf
-    gelu (diffusers GEGLU)."""
+    gelu (diffusers GEGLU). ``linear(in, out)`` builds ``proj``."""
 
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, linear=nn.Linear):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -104,12 +133,13 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU to 4x the width and back (diffusers ``ff.net``)."""
+    """GEGLU to 4x the width and back (diffusers ``ff.net``); ``linear``
+    builds both projections."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, linear=nn.Linear):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(),
-                                  nn.Linear(dim * 4, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4, linear), nn.Identity(),
+                                  linear(dim * 4, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -117,22 +147,63 @@ class FeedForward(nn.Module):
         return x
 
 
-class BasicTransformerBlock(nn.Module):
-    """LN -> self-attention -> residual, LN -> GEGLU FF -> residual."""
+class FeedForwardS8(FeedForward):
+    """The s8 feed-forward of an int8 block without K4 (unet.py:396-437):
+    ``fused``, K12 on the prepared codes of the two ``QuantLinear``s plus
+    b2 in the activation dtype; else the ``QuantLinear``s (``QuantDense``)
+    around the exact erf gelu. Sites (on the ``QuantLinear``s):
+    ``net.0.proj`` (K12's input scale, else ``act_scale`` or 0.05) and
+    ``net.2`` (K12's interior scale, else dynamic; the unfused proj_out
+    quantizes with the static ``act_scale``)."""
 
-    def __init__(self, dim: int, heads: int, use_fused: bool = False):
+    def __init__(self, dim: int, act_scale: Optional[float], fused: bool):
+        super().__init__(dim, functools.partial(QuantLinear,
+                                                act_scale=act_scale))
+        self.act_scale, self.fused = act_scale, fused
+        self.pack = None
+
+    def prepare(self, src: FeedForward) -> None:
+        if not self.fused:
+            return
+        proj_in, proj_out = self.net[0].proj, self.net[2]
+        xs = (proj_in.x_scale if proj_in.x_scale is not None
+              else self.act_scale or 0.05)
+        self.pack = pack_geglu_s8(proj_in, proj_out, src.net[0].proj,
+                                  src.net[2], xs, proj_out.x_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fused:
+            return super().forward(x)
+        y = fused_geglu_s8(x, self.pack)
+        return y + self.net[2].bias.to(y.dtype)
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attention -> residual, LN -> GEGLU FF -> residual. In the
+    int8 UNet without fused norms the attention may be K13
+    (``int8_attention``) and the FF a :class:`FeedForwardS8` (``int8_ff``);
+    the LayerNorms stay float."""
+
+    def __init__(self, dim: int, heads: int, use_fused: bool = False,
+                 int8_attention: bool = False, int8_ff: bool = False,
+                 fused_ff: bool = False,
+                 int8_act_scale: Optional[float] = None,
+                 int8_attn_act_scale: Optional[float] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn1 = CrossAttention(dim, heads, use_fused=use_fused)
+        self.attn1 = CrossAttention(dim, heads, use_fused=use_fused,
+                                    int8=int8_attention,
+                                    int8_act_scale=int8_attn_act_scale)
         self.norm3 = LayerNorm(dim)
-        self.ff = FeedForward(dim)
+        self.ff = (FeedForwardS8(dim, int8_act_scale, fused_ff) if int8_ff
+                   else FeedForward(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
         return x + self.ff(self.norm3(x))
 
 
-class AttentionS8(nn.Module):
+class LNAttentionS8(nn.Module):
     """``norm1`` + ``attn1`` + residual of an int8 block as K3. Its site
     ``to_q`` takes the calibrated scale of the LN1 output (``x_scale``);
     else ``act_scale``."""
@@ -149,7 +220,7 @@ class AttentionS8(nn.Module):
         return ln_attention_s8(x, self.pack)
 
 
-class FeedForwardS8(nn.Module):
+class LNFeedForwardS8(nn.Module):
     """``norm3`` + ``ff`` + residual of an int8 block as K4. Sites:
     ``net.0.proj`` (LN3 output, ``x_scale``, else ``act_scale``) and
     ``net.2`` (the gated interior, ``g_scale``, else dynamic)."""
@@ -169,30 +240,44 @@ class FeedForwardS8(nn.Module):
 
 class FusedTransformerBlockS8(nn.Module):
     """The int8 UNet's transformer block with fused norms (unet.py:456-503
-    with ``fused_norms``): ``x = K3(x)``, then ``x = K4(x)``, each returning
-    the new residual stream. No float parameters: :meth:`prepare` packs
-    both kernels' operands from a float :class:`BasicTransformerBlock`."""
+    with ``fused_norms``): ``x = K3(x)``, each kernel returning the new
+    residual stream, then ``x = K4(x)`` with ``fused_ff`` (and ``int8_ff``),
+    else ``x + ff(norm3(x))`` with a float LayerNorm and the unfused
+    :class:`FeedForwardS8` (or a float FF without ``int8_ff``).
+    :meth:`prepare` packs the kernels' operands from a float
+    :class:`BasicTransformerBlock`."""
 
-    def __init__(self, dim: int, heads: int, int8_act_scale: float,
-                 int8_attn_act_scale: float):
+    def __init__(self, dim: int, heads: int,
+                 int8_act_scale: Optional[float],
+                 int8_attn_act_scale: Optional[float],
+                 int8_ff: bool = True, fused_ff: bool = True,
+                 int8_attention: bool = False):  # K3 takes the attention
         super().__init__()
         self.heads = heads
-        self.attn1 = AttentionS8(heads, int8_attn_act_scale)
-        self.ff = FeedForwardS8(int8_act_scale)
+        self.attn1 = LNAttentionS8(heads, int8_attn_act_scale or 0.1)
+        self.fuse_ff = int8_ff and fused_ff
+        if self.fuse_ff:
+            self.ff = LNFeedForwardS8(int8_act_scale or 0.05)
+        else:
+            self.norm3 = LayerNorm(dim)
+            self.ff = (FeedForwardS8(dim, int8_act_scale, False) if int8_ff
+                       else FeedForward(dim))
 
     def prepare(self, src: BasicTransformerBlock) -> None:
         a, f = self.attn1, self.ff
         xs_a = a.act_scale if a.x_scale is None else a.x_scale
-        xs_f = f.act_scale if f.x_scale is None else f.x_scale
         a.pack = pack_ln_attention(src.norm1, src.attn1, self.heads, xs_a)
-        f.pack = pack_geglu(src.norm3, src.ff.net[0].proj, src.ff.net[2],
-                            xs_f, f.g_scale)
+        if self.fuse_ff:
+            xs_f = f.act_scale if f.x_scale is None else f.x_scale
+            f.pack = pack_geglu(src.norm3, src.ff.net[0].proj, src.ff.net[2],
+                                xs_f, f.g_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.attn1.pack is None:
             raise RuntimeError("int8 transformer block not prepared (run "
                                "prepare_int8_unet)")
-        return self.ff(self.attn1(x))
+        x = self.attn1(x)
+        return self.ff(x) if self.fuse_ff else x + self.ff(self.norm3(x))
 
 
 class Transformer2D(nn.Module):
@@ -201,12 +286,16 @@ class Transformer2D(nn.Module):
     UNet, as in JAX (:561-569)."""
 
     def __init__(self, channels: int, heads: int, groups: int = 32,
-                 use_fused: bool = False, int8: Optional[dict] = None):
+                 use_fused: bool = False, int8: Optional[dict] = None,
+                 fused_norms: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        block = (FusedTransformerBlockS8(channels, heads, **int8) if int8
-                 else BasicTransformerBlock(channels, heads, use_fused))
+        int8 = int8 or {}
+        block = (FusedTransformerBlockS8(channels, heads, **int8)
+                 if fused_norms
+                 else BasicTransformerBlock(channels, heads, use_fused,
+                                            **int8))
         self.transformer_blocks = nn.ModuleList([block])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
@@ -348,14 +437,15 @@ class UNet2DCondition(nn.Module):
         chans = cfg.block_out_channels
         heads, groups, eps = (cfg.attention_head_dim, cfg.norm_num_groups,
                               cfg.norm_eps)
-        int8 = None
-        if cfg.use_fused_norms:
-            int8 = dict(int8_act_scale=cfg.int8_act_scale or 0.05,
-                        int8_attn_act_scale=cfg.int8_attn_act_scale or 0.1)
+        int8 = dict(int8_attention=cfg.use_int8_attention,
+                    int8_ff=cfg.use_int8_ff, fused_ff=cfg.use_fused_ff,
+                    int8_act_scale=cfg.int8_act_scale,
+                    int8_attn_act_scale=cfg.int8_attn_act_scale)
         opts = dict(res_kw=dict(use_int8=cfg.use_int8_conv,
                                 int8_act_scale=cfg.int8_act_scale),
                     attn_kw=dict(use_fused=cfg.use_fused_attention,
-                                 int8=int8))
+                                 int8=int8,
+                                 fused_norms=cfg.use_fused_norms))
         c0 = chans[0]
         temb = c0 * 4
         self.conv_in = conv3x3(cfg.in_channels, c0)

@@ -1,5 +1,10 @@
-"""K3: the int8 UNet's fused self-attention block,
-``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens.
+"""K3 and K13: the int8 UNet's self-attention.
+
+K3 is the fused block of the fused-norms UNet,
+``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens; K13 the
+int8 attention alone of the UNet without fused norms, on the float
+projections' ``[B, T, H, D]`` q, k and v (:func:`fused_self_attention_s8`,
+at the end of this module).
 
 Counterpart of ``ldmseg_tpu/ops/pallas/attention.py``:
 ``absorbed_padded_ln_self_attention_s8`` (:1070) with its defaults
@@ -23,6 +28,17 @@ that give the softmax denominator) are not carried over; the values the
 kernel computes with are: the per-column Q/K requant factors
 ``w_scale·(xs/as)``, ``as²·d^-0.5``, the per-head V dequant ``w_scale·xs``,
 ``to_out`` dequantized to bf16 per head, the LN and bias rows.
+
+K13 is the counterpart of ``fused_self_attention_s8`` (:104) and its kernel
+``_attn_kernel_s8`` (:47). It keeps the wrapper's shape rule (``T > 4096``,
+``T % min(1024, T)`` or ``T % 8`` go to the float ``_xla_bthd``, :1420,
+counted in ``fused_self_attention_s8.fallbacks``): at KITTI's 24x80 latent
+the T = 1920 and T = 30 sites take float attention, unquantized, as in JAX;
+at 32x64 every site takes the kernel. Other shapes quantize q, k and v with
+the static ``act_scale`` or one dynamic amax each, then a CUDA tensor goes
+to ``csrc/attention_s8.cu`` (which quantizes too; counted in
+``fused_self_attention_s8.launches``) and a CPU tensor to
+:func:`attention_s8_reference`.
 """
 
 from __future__ import annotations
@@ -41,6 +57,9 @@ from .quant import exact_int8_matmul, quantize_head_weights
 
 ATTN_SCALE = 0.1    # the static q/k/v scale ``as`` (pack_inference_tiles)
 MAX_SEQ = 2048      # the JAX wrapper's max_seq
+S8_MAX_SEQ = 4096   # fused_self_attention_s8's max_seq
+S8_BLOCK_Q = 1024   # and its block_q
+LN127 = 4.844187086458591  # ln 127: the row max of e is 127
 MAX_HEAD_DIM = 160  # the largest head dim the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -231,3 +250,156 @@ def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
 ln_attention_s8.launches = 0
 ln_attention_s8.fallbacks = 0
 
+
+
+# ---------------------------------------------------------------------------
+# K13
+# ---------------------------------------------------------------------------
+def s8_takes_kernel(t: int) -> bool:
+    """``fused_self_attention_s8``'s shape rule (:120) without its CPU
+    clause."""
+    return not (t > S8_MAX_SEQ or t % min(S8_BLOCK_Q, t) != 0 or t % 8 != 0)
+
+
+def attention_s8_fallback(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """``_xla_bthd`` (:1420): float attention in the input dtype, the
+    softmax in fp32, on ``[B, T, H, D]``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def s8_scales(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              act_scale: Optional[float]):
+    """The q, k, v scales of the JAX wrapper (:123-131): the static
+    ``act_scale`` (made float32) for all three, else ``max(amax, 1e-6) /
+    127`` of each tensor in float32 (0-d tensors, no host sync)."""
+    if act_scale is not None:
+        return (float(np.float32(act_scale)),) * 3
+    return tuple(x.abs().amax().clamp_min(1e-6).float() / 127.0
+                 for x in (q, k, v))
+
+
+def attention_s8_reference(q8: torch.Tensor, k8: torch.Tensor,
+                           v8: torch.Tensor, sc0, sc1) -> torch.Tensor:
+    """K13's arithmetic in plain PyTorch on int8 ``[B, T, H, D]`` codes ->
+    bf16: ``s = float(int32 q8·k8ᵀ)·sc0``, ``e = exp((s - rowmax) + ln 127)``,
+    ``denom = Σe`` over the unrounded e in fp32, ``e8 = round(e)``,
+    ``o = bf16(float(int32 e8·v8)·((sc1·127) / denom))``."""
+    def heads_of(z):
+        return z.transpose(1, 2)                              # [B, H, T, D]
+    s = exact_int8_matmul(heads_of(q8), heads_of(k8)).float() * sc0
+    e = torch.exp((s - s.amax(-1, keepdim=True)) + LN127)
+    denom = e.sum(-1, keepdim=True)
+    e8 = torch.round(e).to(torch.int8)
+    o32 = exact_int8_matmul(e8, heads_of(v8).transpose(-1, -2))
+    # (sc1 * 127) in float32, then a true division (``scalar / tensor``
+    # would multiply by the reciprocal)
+    num = torch.as_tensor(sc1, dtype=torch.float32,
+                          device=q8.device) * np.float32(127.0)
+    o = o32.float() * (num / denom)
+    return o.to(torch.bfloat16).transpose(1, 2)
+
+
+def quantize_s8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(float(x) / scale), -127, 127)`` as int8, ``scale`` a
+    0-d float32 tensor on x's device: a true division, as the kernel's (on
+    the card a Python scalar divisor is applied as its reciprocal, which
+    moves ties of bf16 inputs over static scales such as 3/100)."""
+    return torch.round(x.float() / scale).clamp_(-127, 127).to(torch.int8)
+
+
+def fused_self_attention_s8_reference(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, scale: float,
+                                      act_scale: Optional[float] = None
+                                      ) -> torch.Tensor:
+    """The kernel branch of :func:`fused_self_attention_s8` in plain
+    PyTorch on any device: the scales, the quantize of q, k and v, and
+    :func:`attention_s8_reference` with ``sc0 = (qs·ks)·scale`` and ``sc1 =
+    vs / 127`` in float32 -> bf16 ``[B, T, H, D]``."""
+    scales = s8_scales(q, k, v, act_scale)
+    qs, ks, vs = (torch.as_tensor(x, dtype=torch.float32, device=q.device)
+                  for x in scales)
+    sc0 = (qs * ks) * torch.tensor(scale, dtype=torch.float32,
+                                   device=q.device)
+    q8, k8, v8 = (quantize_s8(x, s_) for x, s_ in zip((q, k, v),
+                                                      (qs, ks, vs)))
+    return attention_s8_reference(
+        q8, k8, v8, sc0, vs / torch.tensor(127.0, device=q.device))
+
+
+@functools.cache
+def _s8_kernel():
+    fn = _build.load("attention_s8").ldmseg_attention_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] + [ctypes.c_float] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _s8_launch(q, k, v, scale, scales) -> torch.Tensor:
+    b, t, h, d = q.shape
+    xs = (q, k, v)
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in xs):
+        raise ValueError(f"K13: q, k, v must share float32 or bfloat16, got "
+                         f"{[x.dtype for x in xs]}")
+    if any(x.shape != q.shape or x.device != q.device for x in xs):
+        raise ValueError("K13: q, k, v must share one shape and device")
+    if (d % 8 or not 8 <= d <= MAX_HEAD_DIM or not 1 <= b * h <= 65535
+            or q.numel() >= 2 ** 31):
+        raise ValueError(f"K13: head dim {d} (a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}), B*heads {b * h} or "
+                         f"{q.numel()} elements not taken")
+    if any(x.stride(3) != 1 for x in xs):
+        raise ValueError("K13: q, k, v need unit stride on D")
+    dev = q.device
+    q8, k8, v8 = (torch.empty((b, t, h, d), dtype=torch.int8, device=dev)
+                  for _ in range(3))
+    out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=dev)
+    strides = [s_ for x in xs for s_ in x.stride()[:3]]
+    if isinstance(scales[0], torch.Tensor):
+        dev_scales = torch.stack(scales).contiguous()
+        ptr, host = dev_scales.data_ptr(), (0.0, 0.0, 0.0)
+    else:
+        ptr, host = None, scales
+    kernel = _s8_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernel(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            (ctypes.c_longlong * 9)(*strides), q8.data_ptr(), k8.data_ptr(),
+            v8.data_ptr(), out.data_ptr(), b, t, h, d, ptr, *host,
+            float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"K13 launch failed: CUDA error {err}")
+    fused_self_attention_s8.launches += 1
+    return out
+
+
+def fused_self_attention_s8(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float,
+                            act_scale: Optional[float] = None
+                            ) -> torch.Tensor:
+    """int8 self-attention on float ``[B, T, H, D]`` q, k, v (no gradient),
+    returned in q's dtype: the kernel's bf16 result cast as the JAX wrapper
+    casts it. ``act_scale`` is the static q/k/v scale, None one dynamic
+    amax per tensor."""
+    t = q.shape[1]
+    if not s8_takes_kernel(t):
+        fused_self_attention_s8.fallbacks += 1
+        return attention_s8_fallback(q, k, v, scale)
+    if q.device.type == "cpu":
+        return fused_self_attention_s8_reference(q, k, v, scale,
+                                                 act_scale).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"K13: unsupported device {q.device}")
+    scales = s8_scales(q, k, v, act_scale)
+    return _s8_launch(q, k, v, scale, scales).to(q.dtype)
+
+
+fused_self_attention_s8.launches = 0
+fused_self_attention_s8.fallbacks = 0

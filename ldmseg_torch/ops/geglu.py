@@ -1,5 +1,10 @@
-"""K4: the int8 UNet's fused feed-forward block,
-``x + W2·q(h ⊙ gelu_tanh(gate))·s2 + b2`` with ``[h, gate] = W1·q(LN(x))``.
+"""K4 and K12: the int8 UNet's fused feed-forward.
+
+K4 is the block of the fused-norms UNet,
+``x + W2·q(h ⊙ gelu_tanh(gate))·s2 + b2`` with ``[h, gate] = W1·q(LN(x))``;
+K12 the feed-forward alone of the UNet without fused norms,
+``W2·q(h ⊙ gelu_tanh(gate))·s2`` with ``[h, gate] = W1·q(x)``, bf16 out,
+no b2 and no residual (:func:`fused_geglu_s8`).
 
 Counterpart of ``ldmseg_tpu/ops/pallas/geglu.py``: ``fused_geglu_ln_s8``
 (:327) and its kernel ``_geglu_ln_kernel`` with ``_ff_interior`` (:164, :66,
@@ -16,6 +21,15 @@ CPU tensor its plain PyTorch version :func:`geglu_ln_s8_reference`.
 The interior scale is static when the site was calibrated (``gs``), else
 dynamic: one amax per (image, block of ``min(512, T)`` tokens), the Pallas
 grid's block, not per tensor as in the fallback.
+
+K12 is the counterpart of ``fused_geglu_s8`` (:400) and its kernel
+``_geglu_kernel`` (:123), with the same rule, fallback
+(:func:`geglu_s8_fallback`, ``_xla_geglu_s8`` :377, counted in
+``fused_geglu_s8.fallbacks``) and interior scales; its kernel is the second
+entry point of ``csrc/geglu_ln_s8.cu`` (counted in
+``fused_geglu_s8.launches``), its plain version :func:`geglu_s8_reference`.
+The caller adds b2 in the activation dtype, the block the residual
+(``unet.py:415``, ``:502``).
 """
 
 from __future__ import annotations
@@ -38,19 +52,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 @dataclasses.dataclass
 class GegluPack:
-    """K4's operands for one transformer block (float32 unless noted)."""
+    """K4's and K12's operands for one transformer block (float32 unless
+    noted); K12's carry no LayerNorm."""
 
-    eps: float
     xs: float              # the input's static int8 scale
     gs: Optional[float]    # the static interior scale, None = dynamic
-    ln_w: torch.Tensor     # [C]
-    ln_b: torch.Tensor     # [C]
     w1: torch.Tensor       # int8 [2M, C] (out, in): h rows, then gate rows
     s1: torch.Tensor       # [2M] per-output-channel scales
     b1: torch.Tensor       # [2M]
     w2: torch.Tensor       # int8 [C, M] (out, in)
     s2: torch.Tensor       # [C]
     b2: torch.Tensor       # [C]
+    eps: Optional[float] = None          # K4's LayerNorm
+    ln_w: Optional[torch.Tensor] = None  # [C]
+    ln_b: Optional[torch.Tensor] = None  # [C]
+
+
+def _vec(t):
+    return t.detach().float().contiguous()
 
 
 @torch.no_grad()
@@ -62,14 +81,22 @@ def pack_geglu(norm, proj_in, proj_out, xs: float,
     operands (``pack_geglu_ln_tiles``)."""
     w1, s1 = quantize_weight(proj_in.weight, dims=(1,))
     w2, s2 = quantize_weight(proj_out.weight, dims=(1,))
-
-    def vec(t):
-        return t.detach().float().contiguous()
     return GegluPack(
         eps=norm.eps, xs=f32(xs), gs=None if gs is None else f32(gs),
-        ln_w=vec(norm.weight), ln_b=vec(norm.bias), w1=w1.contiguous(),
-        s1=s1.contiguous(), b1=vec(proj_in.bias), w2=w2.contiguous(),
-        s2=s2.contiguous(), b2=vec(proj_out.bias))
+        ln_w=_vec(norm.weight), ln_b=_vec(norm.bias), w1=w1.contiguous(),
+        s1=s1.contiguous(), b1=_vec(proj_in.bias), w2=w2.contiguous(),
+        s2=s2.contiguous(), b2=_vec(proj_out.bias))
+
+
+def pack_geglu_s8(proj_in, proj_out, src_proj_in, src_proj_out, xs: float,
+                  gs: Optional[float] = None) -> GegluPack:
+    """K12's operands from the prepared ``QuantLinear`` pair of an int8
+    feed-forward (their codes and scales, shared, not copied) and the float
+    biases of the masters' ``Linear`` pair."""
+    return GegluPack(
+        xs=f32(xs), gs=None if gs is None else f32(gs), w1=proj_in.w_q,
+        s1=proj_in.w_scale, b1=_vec(src_proj_in.bias), w2=proj_out.w_q,
+        s2=proj_out.w_scale, b2=_vec(src_proj_out.bias))
 
 
 def takes_kernel(t: int) -> bool:
@@ -91,6 +118,23 @@ def _gated_interior(hn, p: GegluPack):
     return u[..., :m], u[..., m:]
 
 
+def _kernel_interior(h, p: GegluPack, block_t: int) -> torch.Tensor:
+    """The kernels' interior on the float input ``h`` of W1 (K4: the LN
+    output, K12: x): ``y = float(int32 g8·W2)·gs`` in fp32, ``[B, T, C]``."""
+    b, t, _ = h.shape
+    uh, ug = _gated_interior(h, p)
+    g = uh * gelu_tanh(ug)                                 # [B, T, M]
+    if p.gs is not None:
+        gs = torch.full((b, t, 1), p.gs, device=h.device)
+    else:
+        bt = min(block_t, t)
+        amax = g.abs().reshape(b, t // bt, -1).amax(-1)    # [B, T / bt]
+        gs = (amax.clamp_min(1e-6) / 127.0).repeat_interleave(bt, dim=1)
+        gs = gs[..., None]
+    g8 = torch.round(g / gs).clamp_(-127, 127).to(torch.int8)
+    return exact_int8_matmul(g8, p.w2).float() * gs
+
+
 def geglu_ln_s8_reference(x: torch.Tensor, p: GegluPack,
                           block_t: int = BLOCK_T) -> torch.Tensor:
     """K4's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): LN and
@@ -99,34 +143,28 @@ def geglu_ln_s8_reference(x: torch.Tensor, p: GegluPack,
     (image, ``min(block_t, T)``-token block), the int32 product with W2 and
     ``bf16(x + y·gs·s2 + b2)``. The dynamic codes are clipped too, which
     changes nothing: ``|g| / gs <= 127`` by construction."""
-    b, t, c = x.shape
     xf = x.float()
-    uh, ug = _gated_interior(_layer_norm(xf, p.ln_w, p.ln_b, p.eps), p)
-    g = uh * gelu_tanh(ug)                                 # [B, T, M]
-    if p.gs is not None:
-        gs = torch.full((b, t, 1), p.gs, device=x.device)
-    else:
-        bt = min(block_t, t)
-        amax = g.abs().reshape(b, t // bt, -1).amax(-1)    # [B, T / bt]
-        gs = (amax.clamp_min(1e-6) / 127.0).repeat_interleave(bt, dim=1)
-        gs = gs[..., None]
-    g8 = torch.round(g / gs).clamp_(-127, 127).to(torch.int8)
-    y = exact_int8_matmul(g8, p.w2).float() * gs
+    y = _kernel_interior(_layer_norm(xf, p.ln_w, p.ln_b, p.eps), p, block_t)
     return ((xf + y * p.s2) + p.b2).to(torch.bfloat16)
+
+
+def geglu_s8_reference(x: torch.Tensor, p: GegluPack,
+                       block_t: int = BLOCK_T) -> torch.Tensor:
+    """K12's arithmetic in plain PyTorch: K4's without the LayerNorm, b2
+    and the residual, ``bf16(y·gs·s2)``."""
+    return (_kernel_interior(x.float(), p, block_t) * p.s2).to(
+        torch.bfloat16)
 
 
 def _gelu_exact(x):
     return x * 0.5 * (1.0 + torch.erf(x / np.float32(np.sqrt(2.0))))
 
 
-def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
-    """``_xla_geglu_ln_s8`` (:281) with ``_xla_geglu_s8`` (:377) for the
-    shapes K4 does not take: LN in the input dtype, the exact erf gelu, one
-    interior amax over the whole tensor when dynamic, the FF output in the
-    input dtype, then the residual and bias in fp32."""
-    xf = x.float()
-    h = _layer_norm(xf, p.ln_w, p.ln_b, p.eps).to(x.dtype).float()
-    uh, ug = _gated_interior(h, p)
+def geglu_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """``_xla_geglu_s8`` (:377) for the shapes K12 does not take: the exact
+    erf gelu, one interior amax over the whole tensor when dynamic (its
+    codes unclipped, as there), the result in the input dtype, no b2."""
+    uh, ug = _gated_interior(x.float(), p)
     g = uh * _gelu_exact(ug)
     if p.gs is not None:
         gs = p.gs
@@ -135,32 +173,51 @@ def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
         gs = g.abs().amax().clamp_min(1e-6) / 127.0
         g8 = torch.round(g / gs)
     y = exact_int8_matmul(g8.to(torch.int8), p.w2).float() * (gs * p.s2)
-    return (xf + y.to(x.dtype).float() + p.b2).to(x.dtype)
+    return y.to(x.dtype)
+
+
+def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """``_xla_geglu_ln_s8`` (:281) with ``_xla_geglu_s8`` (:377) for the
+    shapes K4 does not take: LN in the input dtype, then
+    :func:`geglu_s8_fallback`, then the residual and bias in fp32."""
+    xf = x.float()
+    h = _layer_norm(xf, p.ln_w, p.ln_b, p.eps).to(x.dtype)
+    return (xf + geglu_s8_fallback(h, p).float() + p.b2).to(x.dtype)
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("geglu_ln_s8").ldmseg_geglu_ln_s8
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
-                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+def _kernel(entry: str):
+    fn = getattr(_build.load("geglu_ln_s8"), entry)
+    if entry == "ldmseg_geglu_ln_s8":   # K4
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    else:                               # K12
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+def _launch(x: torch.Tensor, p: GegluPack, block: bool) -> torch.Tensor:
+    """K4 (``block``: LN, residual and b2) or K12 on the card."""
+    name = "K4" if block else "K12"
     b, t, c = x.shape
     m = p.w2.shape[1]
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"K4: x must be float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
     if c % 8 or m % 8 or b > 65535:
-        raise ValueError(f"K4: C={c}, M={m} must be multiples of 8, "
+        raise ValueError(f"{name}: C={c}, M={m} must be multiples of 8, "
                          f"B={b} <= 65535")
     bt = min(BLOCK_T, t)
     x = x.contiguous()
-    ops = (p.ln_w, p.ln_b, p.w1, p.s1, p.b1, p.w2, p.s2, p.b2)
+    ops = (p.w1, p.s1, p.b1, p.w2, p.s2, p.b2) + (
+        (p.ln_w, p.ln_b) if block else ())
     if any(o.device != x.device or not o.is_contiguous() for o in ops):
-        raise ValueError("K4: the pack must be contiguous on x's device")
+        raise ValueError(f"{name}: the pack must be contiguous on x's "
+                         f"device")
     dev = x.device
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
     x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
@@ -168,19 +225,26 @@ def _launch(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
     g8 = torch.empty((b * t, m), dtype=torch.int8, device=dev)
     amax = torch.empty(b * (t // bt), dtype=torch.int32, device=dev)
     dynamic = p.gs is None
-    kernel = _kernel()
+    gs = 0.0 if dynamic else p.gs
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = kernel(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
-            p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
-            p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
-            p.s2.data_ptr(), p.b2.data_ptr(), x8.data_ptr(), g.data_ptr(),
-            g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt, p.xs,
-            0.0 if dynamic else p.gs, int(dynamic), p.eps, stream)
+        if block:
+            err = _kernel("ldmseg_geglu_ln_s8")(
+                _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+                p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
+                p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
+                p.s2.data_ptr(), p.b2.data_ptr(), x8.data_ptr(),
+                g.data_ptr(), g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt,
+                p.xs, gs, int(dynamic), p.eps, stream)
+        else:
+            err = _kernel("ldmseg_geglu_s8")(
+                _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+                p.w1.data_ptr(), p.s1.data_ptr(), p.b1.data_ptr(),
+                p.w2.data_ptr(), p.s2.data_ptr(), x8.data_ptr(),
+                g.data_ptr(), g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt,
+                p.xs, gs, int(dynamic), stream)
     if err != 0:
-        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
-    geglu_ln_s8.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
@@ -193,9 +257,30 @@ def geglu_ln_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
         return geglu_ln_s8_reference(x, p).to(x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K4: unsupported device {x.device}")
-    return _launch(x, p).to(x.dtype)
+    out = _launch(x, p, block=True)
+    geglu_ln_s8.launches += 1
+    return out.to(x.dtype)
 
 
 geglu_ln_s8.launches = 0
 geglu_ln_s8.fallbacks = 0
+
+
+def fused_geglu_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """``FF(x)`` without b2 for ``x [B, T, C]``, returned in ``x``'s dtype
+    (the kernel's result is bf16, cast as the JAX wrapper casts it)."""
+    if not takes_kernel(x.shape[1]):
+        fused_geglu_s8.fallbacks += 1
+        return geglu_s8_fallback(x, p)
+    if x.device.type == "cpu":
+        return geglu_s8_reference(x, p).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K12: unsupported device {x.device}")
+    out = _launch(x, p, block=False)
+    fused_geglu_s8.launches += 1
+    return out.to(x.dtype)
+
+
+fused_geglu_s8.launches = 0
+fused_geglu_s8.fallbacks = 0
 

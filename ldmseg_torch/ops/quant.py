@@ -3,9 +3,11 @@ the int8 UNet's weight preparation and its per-site calibration.
 
 Counterpart of ``ldmseg_tpu/ops/quant.py``: ``quantize_weight`` (:98),
 ``quantize_activation`` (:106), the s8 convolution ``_s8_conv`` (:36) and
-``QuantConv`` (:448) on prequantized weights, ``prequantize_conv_tree``
-(:132) with ``pack_inference_tiles`` (:243), and
-``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633).
+``QuantConv`` (:448) on prequantized weights, ``QuantDense`` (:406) on
+prequantized leaves (:class:`QuantLinear`; the in-graph ``int8_dot`` with its
+straight-through backward serves unprepared trees and training, not
+ported), ``prequantize_conv_tree`` (:132) with ``pack_inference_tiles``
+(:243), and ``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633).
 
 Rounding is half-to-even (``torch.round``), as ``jnp.round``. Scales are
 float32 and computed in the JAX package's order, so the int8 codes and the
@@ -149,6 +151,40 @@ class QuantConv2d(nn.Module):
         return y.permute(0, 3, 1, 2).contiguous()
 
 
+class QuantLinear(nn.Module):
+    """``QuantDense`` (:406) on a prequantized ``{"q", "scale"}`` leaf
+    (:422-436): int8 codes ``[out, in]`` and float32 per-output-channel
+    scales in buffers that :meth:`prepare` fills from a float
+    ``nn.Linear``. The input is quantized per tensor with the calibrated
+    ``x_scale`` when set, else ``act_scale``, else its own amax (clipped);
+    ``y = float(int32 x8·W8ᵀ)·(xs·w_scale)`` cast to the input dtype, plus
+    the bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 act_scale: Optional[float] = None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.act_scale = act_scale
+        self.x_scale: Optional[float] = None
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.register_buffer("w_q", None, persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+
+    def prepare(self, src: nn.Linear) -> None:
+        self.w_q, self.w_scale = quantize_weight(src.weight, dims=(1,))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w_q is None:
+            raise RuntimeError("QuantLinear: weights not prepared (run "
+                               "prepare_int8_unet)")
+        site = self.x_scale if self.x_scale is not None else self.act_scale
+        x_q, xs = quantize_activation(x, site)
+        y = int8_matmul(x_q.reshape(-1, self.in_features), self.w_q)
+        y = y.reshape(*x.shape[:-1], self.out_features)
+        y = (y.float() * (xs * self.w_scale)).to(x.dtype)
+        return y + self.bias.to(y.dtype)
+
+
 # ---------------------------------------------------------------------------
 # weight preparation (prequantize_conv_tree + pack_inference_tiles)
 # ---------------------------------------------------------------------------
@@ -175,14 +211,15 @@ def quantize_head_weights(wq, wk, wv, wo, heads: int):
 def prepare_int8_unet(int8_unet: nn.Module, masters: nn.Module) -> None:
     """Fill ``int8_unet`` (a UNet built with the int8 flags) from the float
     UNet ``masters`` of the same shape: the float parameters are copied
-    (cast to the int8 UNet's dtype), the s8 convs and the fused transformer
-    blocks quantize their weights from the masters' float32 values and pack
-    the kernels' operands, baking in the per-site activation scales set by
-    :func:`apply_act_scales`."""
+    (cast to the int8 UNet's dtype), the s8 convs, the s8 linears and the
+    int8 transformer blocks quantize their weights from the masters' float32
+    values and pack the kernels' operands, baking in the per-site activation
+    scales set by :func:`apply_act_scales`. A module prepares after the
+    modules inside it (K12's pack shares its ``QuantLinear`` codes)."""
     src = dict(masters.named_parameters())
     for name, p in int8_unet.named_parameters():
         p.copy_(src[name])
-    for name, m in int8_unet.named_modules():
+    for name, m in reversed(list(int8_unet.named_modules())):
         if callable(getattr(m, "prepare", None)):
             m.prepare(masters.get_submodule(name))
 
@@ -244,11 +281,12 @@ def calibrate_act_scale_tree(unet: nn.Module, sample: torch.Tensor,
 
 
 def act_scale_sites(int8_unet: nn.Module) -> Dict[str, Tuple[nn.Module,
-                                                             str]]:
-    """Site key -> (int8 module, attribute) of an int8 UNet."""
+                                                             Optional[str]]]:
+    """Site key -> (int8 module, attribute) of an int8 UNet. An attribute
+    of None marks a key the module takes and ignores (K13's ``to_q``)."""
     sites = {}
     for name, m in int8_unet.named_modules():
-        if isinstance(m, QuantConv2d):
+        if isinstance(m, (QuantConv2d, QuantLinear)):
             sites[name] = (m, "x_scale")
         for key, attr in getattr(m, "act_scale_sites", {}).items():
             sites[f"{name}.{key}"] = (m, attr)
@@ -258,7 +296,8 @@ def act_scale_sites(int8_unet: nn.Module) -> Dict[str, Tuple[nn.Module,
 def apply_act_scales(int8_unet: nn.Module,
                      scales: Optional[Dict[str, float]]) -> None:
     """Set every site's calibrated scale from ``scales`` (None clears them
-    all, back to the module defaults). A key that names no site raises.
+    all, back to the module defaults). A key that names no site raises; a
+    site whose attribute is None takes its key and ignores it.
     :func:`prepare_int8_unet` bakes them into the packed operands."""
     sites = act_scale_sites(int8_unet)
     scales = scales or {}
@@ -266,5 +305,7 @@ def apply_act_scales(int8_unet: nn.Module,
     if unknown:
         raise KeyError(f"apply_act_scales: no int8 site {unknown[:3]}")
     for key, (m, attr) in sites.items():
+        if attr is None:
+            continue
         value = scales.get(key)
         setattr(m, attr, None if value is None else f32(value))

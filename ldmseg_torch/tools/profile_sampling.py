@@ -1,14 +1,17 @@
 """Where the time of the sampling path goes on the card.
 
-    python -m ldmseg_torch.tools.profile_sampling [--int8]
+    python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
 weights and traces, with ``torch.profiler``, (a) 5 UNet forwards at batch
 2 on a 32x64 latent and (b) one 50-step ``sample_panoptic`` call on 2
 frames of 256x512. ``--int8`` turns on ``sampling_kwargs.int8_inference``:
-(a) then runs the int8 UNet (s8 convs, K3, K4) and (b) samples on it, with
-the default scales and again after ``calibrate_int8`` on the frames. For
+(a) then runs the int8 UNet and (b) samples on it, with the default scales
+and again after ``calibrate_int8`` on the frames. Its variant picks the
+transformer blocks: ``fused`` (the default: K3, K4), ``a`` (``fused_norms``
+False: K13, K12), ``b`` (``fused_norms`` and ``fused_ff`` False: K13, s8
+linears) or ``c`` (``fused_ff`` False: K3, s8 linears). For
 each window it prints one JSON line: wall time, device time summed over
 kernels, the device's busy share (the union of kernel intervals over the
 wall time), device time by kernel family and the top kernels. Needs a CUDA
@@ -17,6 +20,7 @@ device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import sys
@@ -28,9 +32,10 @@ import torch
 FAMILIES = (  # first match wins
     ("K1 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
+    ("K13 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
     ("K3 attention_ln_s8", r"::(qkv|attn|out)_kernel"),
-    ("K4 geglu_ln_s8", r"::(up|down)_kernel"),
-    ("K3/K4 LN + quantize", r"ln_quant_kernel"),
+    ("K4/K12 geglu (up, down)", r"::(up|down)_kernel"),
+    ("K3/K4/K12 (LN +) quantize", r"ln_quant_kernel"),
     ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("group/layer norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|"
@@ -41,6 +46,12 @@ FAMILIES = (  # first match wins
     ("copy/cat/cast", r"copy|cat|Cat|convert|fill|Memcpy|memcpy"),
     ("elementwise", r"elementwise|vectorized|unrolled|silu|gelu|add|mul"),
 )
+
+
+# sampling_kwargs of each int8 variant
+VARIANTS = {"fused": {}, "a": {"fused_norms": False},
+            "b": {"fused_norms": False, "fused_ff": False},
+            "c": {"fused_ff": False}}
 
 
 def _family(name: str) -> str:
@@ -114,16 +125,22 @@ def _profile(fn, per: int, label: str, extra=None) -> dict:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_sampling: no CUDA device", file=sys.stderr)
-        return 1
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
     from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
 
-    int8 = "--int8" in sys.argv[1:]
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--int8", nargs="?", const="fused",
+                        choices=sorted(VARIANTS),
+                        help="int8 sampling, and which transformer blocks")
+    variant = parser.parse_args().int8
+    if not torch.cuda.is_available():
+        print("profile_sampling: no CUDA device", file=sys.stderr)
+        return 1
+    int8 = variant is not None
     cfg = merge_dicts(DEFAULT_CONFIG, {
         "train_kwargs": {"self_condition": True, "weight_dtype": "bfloat16"},
-        "sampling_kwargs": {"int8_inference": int8}})
+        "sampling_kwargs": {"int8_inference": int8,
+                            **VARIANTS.get(variant, {})}})
     trainer = TrainerDiffusion(cfg)
     trainer.init_params(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -132,8 +149,10 @@ def main() -> int:
     t = torch.tensor([999, 19], device="cuda")
     image = np.random.RandomState(0).randn(2, 256, 512, 3).astype(
         np.float32)
-    for kind in (["int8", "int8 calibrated"] if int8 else ["bf16"]):
-        if kind == "int8 calibrated":
+    kinds = ([f"int8 {variant}", f"int8 {variant} calibrated"] if int8
+             else ["bf16"])
+    for kind in kinds:
+        if kind.endswith("calibrated"):
             trainer.calibrate_int8({"image": image})
         unet = trainer.int8_unet() if int8 else trainer.inference_unet()
         with torch.inference_mode():

@@ -13,16 +13,18 @@ image-VAE encoder (posterior mode x 0.18215) -> DDIM with self-conditioning
 this boundary, as in the JAX package; the models run NCHW.
 
 With ``sampling_kwargs.int8_inference`` the 50 steps run on the int8 UNet
-(s8 convs, K3 and K4), quantized from the fp32 masters once per call, with
+(s8 convs; K3 and K4 with ``fused_norms``, the default; K13 and K12, or K13
+and the s8 linears with ``fused_ff`` False, without it; K3 and the s8
+linears with ``fused_norms`` and not ``fused_ff``), quantized from the fp32
+masters once per call, with
 per-site activation scales from :meth:`calibrate_int8` (automatic on
 adopted weights). Its other layers run in the compute dtype, as the bf16
 path does; the JAX trainer hands that UNet its fp32 masters, so there they
 promote the activations to fp32.
 
 EMA, checkpoints, video clips and pose consistency, classifier-free
-guidance, text descriptors, clip sampling, the DPM-Solver++ sampler, the
-int8 paths off the fused-norms default (``fused_norms`` or ``fused_ff``
-False) and int8 clip sampling, and the parallel modes are later slices: a
+guidance, text descriptors, clip sampling, the DPM-Solver++ sampler, int8
+clip sampling, and the parallel modes are later slices: a
 config that asks for one of them raises ``NotImplementedError`` naming it.
 """
 
@@ -75,15 +77,6 @@ def _refuse_later_slices(p: Mapping) -> None:
         "sampling_kwargs.sampler": (
             sk.get("sampler", "ddim") != "ddim",
             "the DPM-Solver++ sampler"),
-        "sampling_kwargs.fused_norms": (
-            sk.get("int8_inference", False)
-            and not sk.get("fused_norms", True),
-            "int8 sampling without fused norms (K13, QuantDense)"),
-        "sampling_kwargs.fused_ff": (
-            sk.get("int8_inference", False)
-            and not sk.get("fused_ff", True),
-            "int8 sampling without the fused GEGLU kernel (K12, "
-            "QuantDense)"),
         "train_kwargs.video_clips": (
             tk.get("video_clips") is not None
             or tk.get("temporal_consistency_weight", 0.0) > 0,
@@ -157,7 +150,7 @@ class TrainerDiffusion:
                               ("bfloat16", "float16") else torch.float32)
         # built without storage; init_params / load_jax_params fill them
         # int8 sampling (trainer_ldm.py:157-193): the UNet the JAX trainer
-        # builds with the int8 flags, beside the float one
+        # builds with the int8 flags (:163-176), beside the float one
         self.int8_inference = bool(sk.get("int8_inference", False))
         self.int8_auto_calibrate = sk.get("int8_auto_calibrate", True)
         with torch.device("meta"):
@@ -166,11 +159,15 @@ class TrainerDiffusion:
             self.vae_seg = SegVAE(**vk)
             self._unet_int8 = None
             if self.int8_inference:
+                fused_norms = bool(sk.get("fused_norms", True))
                 self._unet_int8 = UNet2DCondition(dataclasses.replace(
-                    unet_config, use_int8_conv=True, use_fused_norms=True,
+                    unet_config, use_int8_conv=True,
                     int8_act_scale=sk.get("int8_act_scale", 0.05),
-                    int8_attn_act_scale=sk.get("int8_attn_act_scale", 0.1),
-                    use_fused_attention=False))
+                    use_int8_attention=not fused_norms, use_int8_ff=True,
+                    use_fused_ff=bool(sk.get("fused_ff", True)),
+                    use_fused_attention=not fused_norms,
+                    use_fused_norms=fused_norms,
+                    int8_attn_act_scale=sk.get("int8_attn_act_scale", 0.1)))
         self._unet_infer: Optional[nn.Module] = None
         # calibrate_int8 fills the scales; adopted weights must not sample
         # with the global defaults unnoticed (:meth:`_ensure_int8_ready`)

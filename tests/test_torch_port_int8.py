@@ -258,11 +258,10 @@ TINY_KW = dict(in_channels=12, out_channels=4, block_out_channels=(16, 32),
                attn_down=(True, True), layers_per_block=1,
                attention_head_dim=2, norm_num_groups=4)
 INT8_KW = dict(use_int8_conv=True, int8_act_scale=0.05, use_fused_norms=True,
-               int8_attn_act_scale=0.1)
+               use_int8_ff=True, use_fused_ff=True, int8_attn_act_scale=0.1)
 # the same int8 UNet in the JAX package's flags (the trainer's, :164-176)
-JAX_INT8_KW = dict(INT8_KW, use_int8_ff=True, use_fused_ff=True,
-                   use_padded_attention=True, use_fused_attention=False,
-                   use_int8_attention=False)
+JAX_INT8_KW = dict(INT8_KW, use_padded_attention=True,
+                   use_fused_attention=False, use_int8_attention=False)
 
 
 def jax_path(name: str) -> tuple:

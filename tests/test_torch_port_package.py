@@ -21,7 +21,9 @@ import torch
 
 from ldmseg_torch.ops import attention as A
 from ldmseg_torch.ops import attention_s8 as K3
+from ldmseg_torch.ops import attention_s8 as K13
 from ldmseg_torch.ops import geglu as K4
+from ldmseg_torch.ops import geglu as K12
 from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
 from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
 
@@ -81,6 +83,26 @@ def test_int8_sources_are_built_by_the_port():
     assert {"attention_ln_s8", "geglu_ln_s8"} <= set(_build.sources())
 
 
+# the unfused int8 slice's modules (K13, K12, QuantLinear), one case each
+UNFUSED_INT8_MODULES = ["ops.attention_s8", "ops.geglu", "ops.quant",
+                        "models.unet", "train.trainer_ldm",
+                        "tools.profile_sampling"]
+
+
+@pytest.mark.parametrize("module", UNFUSED_INT8_MODULES)
+def test_unfused_int8_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_unfused_int8_sources_are_built_by_the_port():
+    from ldmseg_torch.ops import _build
+    assert "attention_s8" in _build.sources()
+    k12 = (ROOT / "ldmseg_torch/csrc/geglu_ln_s8.cu").read_text()
+    assert 'extern "C" int ldmseg_geglu_s8(' in k12
+
+
 def test_importing_the_training_slice_loads_no_jax():
     # a fresh interpreter: other tests of this process may have loaded JAX
     code = ("import sys; "
@@ -110,8 +132,6 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
 
 @pytest.mark.parametrize("override,named", [
     ({"train_kwargs": {"image_descriptors": "clip_text"}}, "descriptors"),
-    ({"sampling_kwargs": {"int8_inference": True, "fused_norms": False}},
-     "int8"),
     ({"sampling_kwargs": {"sampler": "dpmpp_2m"}}, "DPM-Solver"),
     ({"ema_on": True}, "EMA"),
     ({"model_kwargs": {"separate_conv": True}}, "separate"),
@@ -125,10 +145,6 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
     ({"tensor_parallel": True}, "tensor parallel"),
     ({"spatial_parallel": True}, "spatial parallel"),
     ({"optimizer_name": "adafactor"}, "Adafactor"),
-    ({"sampling_kwargs": {"int8_inference": True, "fused_norms": False}},
-     "sampling_kwargs.fused_norms"),
-    ({"sampling_kwargs": {"int8_inference": True, "fused_ff": False}},
-     "sampling_kwargs.fused_ff"),
 ])
 def test_trainer_names_what_is_not_ported(override, named):
     cfg = merge_dicts(DEFAULT_CONFIG, override)
@@ -143,9 +159,64 @@ def test_trainer_accepts_int8_inference():
     trainer = TrainerDiffusion(cfg, device=torch.device("cpu"))
     ucfg = trainer._unet_int8.config
     assert (ucfg.use_int8_conv and ucfg.use_fused_norms
+            and ucfg.use_int8_ff and ucfg.use_fused_ff
             and ucfg.int8_act_scale == 0.05
             and ucfg.int8_attn_act_scale == 0.1
-            and not ucfg.use_fused_attention)
+            and not ucfg.use_fused_attention
+            and not ucfg.use_int8_attention)
+    with pytest.raises(RuntimeError, match="init_params"):
+        trainer.sample_panoptic({"image": torch.zeros(1, 32, 32, 3)})
+
+
+def _int8_trainer(**sk):
+    cfg = merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True},
+        "sampling_kwargs": {"int8_inference": True, **sk}})
+    return TrainerDiffusion(cfg, device=torch.device("cpu"))
+
+
+def _blocks(trainer):
+    from ldmseg_torch.models.unet import (BasicTransformerBlock,
+                                          FusedTransformerBlockS8)
+    return [m for m in trainer._unet_int8.modules()
+            if isinstance(m, (BasicTransformerBlock,
+                              FusedTransformerBlockS8))]
+
+
+# the three int8 combinations off the default, (a) and (b) without fused
+# norms, (c) without the fused FF: the JAX trainer's flags
+# (trainer_ldm.py:163-176), each built from the modules that run it
+@pytest.mark.parametrize("variant", ["a", "b", "c"])
+def test_trainer_accepts_int8_without_fused_norms_or_ff(variant):
+    from ldmseg_torch.models.unet import (BasicTransformerBlock,
+                                          CrossAttention, FeedForwardS8,
+                                          FusedTransformerBlockS8)
+    sk = {"a": {"fused_norms": False},
+          "b": {"fused_norms": False, "fused_ff": False},
+          "c": {"fused_ff": False}}[variant]
+    trainer = _int8_trainer(**sk)
+    ucfg = trainer._unet_int8.config
+    fused_norms = variant == "c"
+    assert (ucfg.use_int8_conv and ucfg.use_int8_ff
+            and ucfg.use_fused_norms == fused_norms
+            and ucfg.use_int8_attention == (not fused_norms)
+            and ucfg.use_fused_attention == (not fused_norms)
+            and ucfg.use_fused_ff == (variant == "a")
+            and ucfg.int8_act_scale == 0.05
+            and ucfg.int8_attn_act_scale == 0.1)
+    blocks = _blocks(trainer)
+    assert len(blocks) == 16
+    for blk in blocks:
+        assert isinstance(blk.ff, FeedForwardS8)
+        assert blk.ff.fused == (variant == "a")
+        if fused_norms:
+            assert isinstance(blk, FusedTransformerBlockS8)
+            assert not blk.fuse_ff
+        else:
+            assert isinstance(blk, BasicTransformerBlock)
+            assert isinstance(blk.attn1, CrossAttention)
+            assert blk.attn1.int8 and blk.attn1.use_fused
+            assert blk.attn1.int8_act_scale == 0.1
     with pytest.raises(RuntimeError, match="init_params"):
         trainer.sample_panoptic({"image": torch.zeros(1, 32, 32, 3)})
 
@@ -362,3 +433,71 @@ def test_k3_k4_wrappers_raise_instead_of_falling_back(cuda):
     pack = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05)
     with pytest.raises(ValueError):
         K4.geglu_ln_s8(x.half(), pack)
+
+
+# K13 and K12 against their plain versions on the card, at every shape of
+# the unfused int8 UNet forward (batch 2, 32x64 latent) and a ragged T, with
+# K3's and K4's tolerances: max |err| within 1.6e-2 of max|ref| (two bf16
+# ulps), mean |err| within 2.5e-3 of mean|ref| (a code of e flips by one
+# where exp differs by an ulp; the plain quantize multiplies by the
+# reciprocal of a scale where the kernel divides)
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("b,t,h,d", [(2, 2048, 8, 40), (2, 512, 8, 80),
+                                     (2, 128, 8, 160), (2, 32, 8, 160),
+                                     (1, 120, 8, 160), (1, 24, 2, 8)])
+def test_k13_kernel_matches_plain_version(cuda, b, t, h, d, static):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    act = 0.03 if static else None
+    before = K13.fused_self_attention_s8.launches
+    out = K13.fused_self_attention_s8(q, k, v, d ** -0.5, act)
+    torch.cuda.synchronize()
+    assert K13.fused_self_attention_s8.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _close_on_card(out, K13.fused_self_attention_s8_reference(
+        q, k, v, d ** -0.5, act))
+
+
+@pytest.mark.gpu
+def test_k13_kernel_takes_strided_views(cuda):
+    qkv = torch.randn(2, 64, 3, 4, 40, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out = K13.fused_self_attention_s8(q, k, v, 0.2, 0.03)
+    _close_on_card(out, K13.fused_self_attention_s8_reference(
+        q.contiguous(), k.contiguous(), v.contiguous(), 0.2, 0.03))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (1, 120, 320), (1, 1024, 320)])
+def test_k12_kernel_matches_plain_version(cuda, b, t, c, static):
+    _, _, norm3, ff = _pack_modules(cuda, c, 8, 2)
+    pack = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05,
+                         0.02 if static else None)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(torch.bfloat16)
+    before = K12.fused_geglu_s8.launches
+    out = K12.fused_geglu_s8(x, pack)
+    torch.cuda.synchronize()
+    assert K12.fused_geglu_s8.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    _close_on_card(out, K12.geglu_s8_reference(x, pack))
+
+
+@pytest.mark.gpu
+def test_k13_k12_wrappers_raise_instead_of_falling_back(cuda):
+    for shape, dtype in [((1, 64, 2, 192), torch.bfloat16),
+                         ((1, 64, 2, 36), torch.bfloat16),
+                         ((1, 64, 2, 40), torch.float16)]:
+        x = torch.randn(shape, device=cuda).to(dtype)
+        with pytest.raises(ValueError):
+            K13.fused_self_attention_s8(x, x, x, 0.1, 0.1)
+    _, _, norm3, ff = _pack_modules(cuda, 384, 2, 4)
+    pack = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05)
+    x = torch.randn((1, 64, 384), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        K12.fused_geglu_s8(x.half(), pack)
