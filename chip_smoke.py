@@ -47,8 +47,25 @@ Phases, one line each:
      in (a) and 0 in (b), 0 K1/K3/K4, no fallback;
   13. one call of (c) (``fused_ff: False`` with fused norms: K3 + s8
      linears): 800 K3, 0 K4, K12 and K13;
-  14. a JSON line ``{"kernels": [...]}``;
-  15. the last line, ``{"ok": true, "device": {...}}``.
+  14. the GroupNorm + SiLU family on the UNet built with
+     ``UNetConfig(use_pallas_gn=True, int8_fuse_gn=True)`` (its resnet norm
+     scales and shifts and conv biases drawn too): the input of each of the
+     44 resnet halves of one bf16 forward captured by hooks, and K5 (bf16
+     and fp32; bf16 also at the training shapes), K6 and K7 (with the
+     half's own conv; 43 launches, 1 fallback by the 6 MiB rule) against
+     their plain versions there, with times, the bound and the bf16
+     PyTorch composition each replaces;
+  15. that UNet's forward on K5 against the plain GN: 44 K5 launches;
+  16. ``sample_panoptic`` on it as phase 4: 2,200 K5 and 800 K1 per call;
+  17. ``train_loop`` on it (2 warm-up, 3 timed steps): 88 K5, 32 K1, 16 K2
+     per step; one step's loss and gradients against the plain GN, a
+     gradient on every resnet norm;
+  18. its int8 UNet (``int8_fuse_gn``: K6 feeding the s8 convs) against the
+     bf16 one (44 K6, 16 K3, 16 K4 per forward), and int8
+     ``sample_panoptic`` with default and calibrated scales: 2,200 K6, 800
+     K3, 800 K4, 0 K5, no fallback per call;
+  19. a JSON line ``{"kernels": [...]}`` (K1-K7, K12, K13);
+  20. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -313,10 +330,12 @@ def phase_unet(trainer, seed: int = 1):
     return {"fused_ms": fused_ms, "plain_ms": plain_ms, "max_rel_err": rel}
 
 
-def phase_sample(trainer, smi_line: str, seed: int = 0):
+def phase_sample(trainer, smi_line: str, seed: int = 0, phase: int = 4,
+                 expect=None):
     """``sample_panoptic`` end to end at full width: 50 DDIM steps on 2
-    frames of 256x512, then ``panoptic_post_process``. Returns K1's launch
-    count over the timed call (the main path)."""
+    frames of 256x512, then ``panoptic_post_process``. Returns the launch
+    counts over the timed call (the main path), checked against ``expect``
+    per UNet forward (default: 16 K1, every other kernel 0)."""
     import numpy as np
     import torch
     from ldmseg_torch.ops.panoptic import panoptic_post_process
@@ -338,7 +357,6 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
     secs = time.perf_counter() - t0
     counts = _counts()
     launches = counts["K1"]
-    bwd_launches = counts["K2"]
     peak = torch.cuda.max_memory_allocated()
     c = trainer.num_classes
     check(tuple(logits.shape) == (2, 256, 512, c),
@@ -348,16 +366,16 @@ def phase_sample(trainer, smi_line: str, seed: int = 0):
     check(tuple(cleaned.shape) == (2, 256, 512) and
           cleaned.dtype == torch.int32, "cleaned map shape/dtype")
     check(tuple(keep.shape) == (2, c), f"keep shape {tuple(keep.shape)}")
-    check(launches == 16 * steps, f"K1 launches {launches} != 16 x {steps}")
-    check(bwd_launches == 0, f"sampling launched K2 {bwd_launches} times")
-    check(all(counts[k] == 0 for k in counts if k not in ("K1", "K2")),
-          f"bf16 sampling launched an int8 kernel: {counts}")
+    want = _expect(**{k: n * steps for k, n in
+                      (expect or {"K1": 16}).items()})
+    check(counts == want, f"bf16 sampling launched {counts}, expected "
+          f"{want}")
     x0_host = x0.float().cpu().numpy()
-    print(f"phase 4 sample_panoptic: {steps} DDIM steps, 2 x 256x512 "
+    print(f"phase {phase} sample_panoptic: {steps} DDIM steps, 2 x 256x512 "
           f"frames -> logits {tuple(logits.shape)}: {secs:.3f} s per call "
           f"(post-process included), {2 / secs:.3f} frames/s, peak memory "
-          f"{peak / 2**30:.2f} GiB, K1 launches {launches} [{smi_line}]",
-          flush=True)
+          f"{peak / 2**30:.2f} GiB, K1 launches {launches}, launches "
+          f"{counts} [{smi_line}]", flush=True)
     return counts, {"seconds": secs, "frames_per_s": 2 / secs,
                     "peak_bytes": peak, "x0": x0_host}
 
@@ -672,13 +690,18 @@ def phase_int8_kernels():
 
 
 def _wrappers():
-    """Every kernel's wrapper by id; K3/K4/K12/K13 count fallbacks too."""
+    """Every kernel's wrapper by id; K3-K7, K12 and K13 count fallbacks
+    too."""
     from ldmseg_torch.ops import attention as A
     from ldmseg_torch.ops import attention_s8 as S8
     from ldmseg_torch.ops import geglu as G
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    from ldmseg_torch.ops import groupnorm_silu as GN
     return {"K1": A.fused_self_attention,
             "K2": A.fused_self_attention_backward,
             "K3": S8.ln_attention_s8, "K4": G.geglu_ln_s8,
+            "K5": GN.group_norm_silu, "K6": GN.group_norm_silu_quant,
+            "K7": GC.gn_silu_conv,
             "K12": G.fused_geglu_s8, "K13": S8.fused_self_attention_s8}
 
 
@@ -1046,6 +1069,459 @@ def k1_entry(rows, launches, by_path):
     }
 
 
+# ---------------------------------------------------------------------------
+# the GroupNorm + SiLU family: K5, K6, K7 (phases 14-18)
+# ---------------------------------------------------------------------------
+# fp32 operations per element, for the bound (all far below the bytes): the
+# statistics (add, multiply-add), the normalize and affine (4), the SiLU
+# (exp, add, divide, multiply); K6 adds |y|, the max and the quantize (3)
+GN_OPS, GN_QUANT_OPS = 9, 12
+GN_BF16_TOL, GN_FP32_TOL, GN_CONV_TOL = 1.6e-2, 1e-5, 2e-2
+# K6 codes: +-1 at no more than this share of the elements, where y / s
+# sits on a .5 tie that a summation order moves
+GN_CODE_FLIPS = 1e-3
+
+
+def _gn_trainer(cfg, seed: int = 0, **kw):
+    """A trainer on the GN UNet with seeded weights; the resnet norms' scale
+    and shift and the resnet convs' biases drawn too (the init leaves them
+    1 and 0), so that every kernel's affine and bias are exercised."""
+    import torch
+    from ldmseg_torch.tools.profile_sampling import gn_unet_config
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    trainer = TrainerDiffusion(cfg, unet_config=gn_unet_config(True), **kw)
+    trainer.init_params(seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    with torch.no_grad():
+        for name, p in trainer.unet.named_parameters():
+            if ".resnets." not in name:
+                continue
+            if name.endswith(("norm1.weight", "norm2.weight")):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen,
+                                                device="cuda"))
+            elif name.endswith(("norm1.bias", "norm2.bias", "conv1.bias",
+                                "conv2.bias")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen,
+                                          device="cuda"))
+    return trainer
+
+
+def _resnets(unet):
+    from ldmseg_torch.models.layers import ResnetBlock
+    return [(n, m) for n, m in unet.named_modules()
+            if isinstance(m, ResnetBlock)]
+
+
+def _gn_norms(unet):
+    return [m for _, r in _resnets(unet) for m in (r.norm1, r.norm2)]
+
+
+def _capture_halves(unet, x, t):
+    """One forward of ``unet`` with pre-hooks on every resnet norm: the
+    input of each (norm, the conv after it) half, in the order of the
+    forward."""
+    import torch
+    sites = []
+    handles = []
+    for name, r in _resnets(unet):
+        for norm, conv, label in ((r.norm1, r.conv1, "norm1"),
+                                  (r.norm2, r.conv2, "norm2")):
+            def hook(_m, inputs, norm=norm, conv=conv,
+                     label=f"{name}.{label}"):
+                sites.append((label, inputs[0].detach().clone(), norm, conv))
+            handles.append(norm.register_forward_pre_hook(hook))
+    try:
+        with torch.inference_mode():
+            unet(x, t)
+    finally:
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def _gn_bound(shape, in_bytes: int, out_bytes: float, ops: int):
+    b, c, h, w = shape
+    n = b * c * h * w
+    nbytes = n * (in_bytes + out_bytes) + 2 * 4 * c
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops * n / PEAK_FLOPS["float32"] * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", float(ops * n), float(nbytes))
+
+
+def _conv_bound(shape, cout: int):
+    b, cin, h, w = shape
+    ops = 2.0 * b * h * w * 9 * cin * cout
+    nbytes = (2.0 * b * h * w * (cin + cout) + 2 * 9 * cin * cout
+              + 4 * (2 * cin + cout))
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, nbytes)
+
+
+def _max_err(out, ref):
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, ref.float().abs().max().item()
+
+
+def _gn_row(shape, dtype, err, rmax, fn, plain, composition, bound,
+            **extra):
+    ms = time_ms(fn)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
+    comp_ms = time_ms(composition)
+    bound_ms, by, ops, nbytes = bound
+    return {"shape_bchw": list(shape), "dtype": dtype, "max_abs_err": err,
+            "max_abs_ref": rmax, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bf16_composition_ms": comp_ms,
+            "bound_ms": bound_ms, "bound_by": by, "ops": ops,
+            "bytes": nbytes, **extra}
+
+
+def phase_gn_kernels(trainer, smi_line: str):
+    """K5, K6 and K7 against their plain versions at the 44 resnet halves
+    of one full-width bf16 forward (batch 2, 32x64 latent; inputs captured
+    by hooks, the UNet's own norm and conv weights), K5 also in fp32 there
+    and in bf16 at the training shapes (batch 8, 24x80). Beside each, its
+    bound, the plain version's time and the bf16 composition it replaces:
+    ``F.silu(F.group_norm(x))`` for K5, that and the per-image quantize for
+    K6, ``F.conv2d`` of it for K7 (no single PyTorch call computes any of
+    the three)."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    from ldmseg_torch.ops import groupnorm_silu as GN
+
+    unet = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, unet.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    xt = torch.randn((TRAIN_BATCH, unet.config.in_channels, 24, 80),
+                     generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    tt = torch.full((TRAIN_BATCH,), 500, device="cuda")
+    sites = _capture_halves(unet, x, t)
+    train_sites = _capture_halves(unet, xt, tt)
+    check(len(sites) == 44 and len(train_sites) == 44,
+          f"captured {len(sites)} and {len(train_sites)} resnet halves")
+    k5, k6, k7 = [], [], []
+    flips_total = codes_total = k7_launched = k7_fallbacks = 0
+    with torch.inference_mode():
+        for group, rows_sites in (("sampling", sites),
+                                  ("training", train_sites)):
+            for label, xs, norm, conv in rows_sites:
+                g, eps = norm.num_groups, norm.eps
+                sc, bi = norm.weight, norm.bias
+                shape = tuple(xs.shape)
+                # K5 in bf16 (and fp32 at the sampling shapes)
+                for dtype in ((torch.bfloat16, torch.float32)
+                              if group == "sampling" else (torch.bfloat16,)):
+                    xd = xs.to(dtype)
+                    out = GN.group_norm_silu(xd, sc, bi, g, eps)
+                    torch.cuda.synchronize()
+                    ref = GN.group_norm_silu_reference(xd, sc, bi, g, eps)
+                    err, rmax = _max_err(out, ref)
+                    tol = (GN_BF16_TOL if dtype == torch.bfloat16
+                           else GN_FP32_TOL)
+                    check(out.dtype == dtype and math.isfinite(err)
+                          and err <= tol * rmax,
+                          f"K5 {label} {shape} {dtype}: max abs err {err} > "
+                          f"{tol} x max|ref| {rmax}")
+                    if dtype != torch.bfloat16:
+                        k5[-1]["fp32_max_abs_err"] = err
+                        k5[-1]["fp32_max_abs_ref"] = rmax
+                        continue
+                    bound = _gn_bound(shape, 2, 2, GN_OPS)
+                    row = _gn_row(
+                        shape, "bfloat16", err, rmax,
+                        lambda: GN.group_norm_silu(xd, sc, bi, g, eps),
+                        lambda: GN.group_norm_silu_reference(xd, sc, bi, g,
+                                                             eps),
+                        lambda: F.silu(F.group_norm(xd, g, sc, bi, eps)),
+                        bound, site=label, path=group)
+                    k5.append(row)
+                if group != "sampling":
+                    continue
+                # K6
+                q, s = GN.group_norm_silu_quant(xs, sc, bi, g, eps)
+                torch.cuda.synchronize()
+                rq, rs = GN.group_norm_silu_quant_reference(xs, sc, bi, g,
+                                                           eps)
+                srel = ((s - rs).abs() / rs).max().item()
+                diff = (q.int() - rq.int()).abs()
+                flips = int((diff > 0).sum().item())
+                check(srel <= 1e-5 and int(diff.max().item()) <= 1
+                      and flips <= GN_CODE_FLIPS * q.numel(),
+                      f"K6 {label} {shape}: scale rel err {srel}, codes off "
+                      f"by up to {int(diff.max().item())} at {flips} of "
+                      f"{q.numel()}")
+                flips_total += flips
+                codes_total += q.numel()
+                # the error of the dequantized values q * s
+                err, rmax = _max_err(q.float() * s[:, None, None, None],
+                                     rq.float() * rs[:, None, None, None])
+
+                def k6_composition(xs=xs, sc=sc, bi=bi, g=g, eps=eps):
+                    y = F.silu(F.group_norm(xs, g, sc, bi, eps)).float()
+                    s = y.abs().amax(dim=(1, 2, 3)).clamp_min(1e-6) / 127.0
+                    return torch.round(y / s[:, None, None, None]).to(
+                        torch.int8), s
+                row = _gn_row(
+                    shape, "bfloat16", err, rmax,
+                    lambda: GN.group_norm_silu_quant(xs, sc, bi, g, eps),
+                    lambda: GN.group_norm_silu_quant_reference(xs, sc, bi, g,
+                                                               eps),
+                    k6_composition, _gn_bound(shape, 2, 1, GN_QUANT_OPS),
+                    site=label, path=group, scale_max_rel_err=srel,
+                    code_flips=flips, codes=q.numel())
+                k6.append(row)
+                # K7: this half with its conv
+                w, cb = conv.weight, conv.bias
+                before = (GC.gn_silu_conv.launches,
+                          GC.gn_silu_conv.fallbacks)
+                out = GC.gn_silu_conv(xs, sc, bi, w, cb, g, eps)
+                torch.cuda.synchronize()
+                launched = GC.gn_silu_conv.launches - before[0]
+                fell = GC.gn_silu_conv.fallbacks - before[1]
+                k7_launched += launched
+                k7_fallbacks += fell
+                if fell:
+                    k7.append({"site": label, "shape_bchw": list(shape),
+                               "cout": w.shape[0], "fallback": True})
+                    continue
+                ref = GC.gn_silu_conv_reference(xs, sc, bi, w, cb, g, eps)
+                err, rmax = _max_err(out, ref)
+                check(math.isfinite(err) and err <= GN_CONV_TOL * rmax,
+                      f"K7 {label} {shape} -> {w.shape[0]}: max abs err "
+                      f"{err} > {GN_CONV_TOL} x max|ref| {rmax}")
+                row = _gn_row(
+                    shape, "bfloat16", err, rmax,
+                    lambda: GC.gn_silu_conv(xs, sc, bi, w, cb, g, eps),
+                    lambda: GC.gn_silu_conv_reference(xs, sc, bi, w, cb, g,
+                                                      eps),
+                    lambda: F.conv2d(F.silu(F.group_norm(xs, g, sc, bi, eps)),
+                                     w, cb, padding=1),
+                    _conv_bound(shape, w.shape[0]), site=label, path=group,
+                    cout=w.shape[0], fallback=False)
+                row["tflops"] = row["ops"] / row["ms"] / 1e9
+                k7.append(row)
+    check((k7_launched, k7_fallbacks) == (43, 1),
+          f"K7 over the 44 halves: {k7_launched} launches and "
+          f"{k7_fallbacks} fallbacks, expected 43 and 1")
+    for kid, rows in (("K5", [r for r in k5 if r["path"] == "sampling"]),
+                      ("K5 training shapes",
+                       [r for r in k5 if r["path"] == "training"]),
+                      ("K6", k6), ("K7", [r for r in k7
+                                          if not r["fallback"]])):
+        print(f"phase 14 {kid}: {len(rows)} halves, max err "
+              f"{max(r['max_abs_err'] for r in rows):.3e}; kernel "
+              f"{sum(r['ms'] for r in rows):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in rows):.4f} ms, bf16 composition"
+              f" {sum(r['bf16_composition_ms'] for r in rows):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in rows):.4f} ms per UNet forward "
+              f"[{smi_line}]", flush=True)
+    for kid, rows in (("K5", [r for r in k5 if r["path"] == "sampling"]),
+                      ("K6", k6), ("K7", [r for r in k7
+                                          if not r["fallback"]])):
+        for line in _by_shape_class(rows):
+            print(f"phase 14 {kid} {line}", flush=True)
+    fp32_rel = max(r["fp32_max_abs_err"] / r["fp32_max_abs_ref"]
+                   for r in k5 if "fp32_max_abs_err" in r)
+    print(f"phase 14 K5 fp32: max err {fp32_rel:.3e} of max|ref| (tol "
+          f"{GN_FP32_TOL}); K6 codes off by one at "
+          f"{flips_total} of {codes_total}; K7 {k7_launched} launches, "
+          f"{k7_fallbacks} fallback", flush=True)
+    return k5, k6, k7
+
+
+def _by_shape_class(rows):
+    """One line per (channels, pixels) of the rows: the number of halves
+    and their summed kernel, bound, plain and bf16 composition ms."""
+    classes = {}
+    for r in rows:
+        _, c, h, w = r["shape_bchw"]
+        classes.setdefault((c, h * w), []).append(r)
+    for (c, hw), rs in sorted(classes.items(), key=lambda kv: -kv[0][1]):
+        total = {k: sum(r[k] for r in rs) for k in
+                 ("ms", "bound_ms", "plain_ms", "bf16_composition_ms")}
+        yield (f"C={c} at {hw} px: {len(rs)} halves, kernel "
+               f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, "
+               f"plain {total['plain_ms']:.4f} ms, bf16 composition "
+               f"{total['bf16_composition_ms']:.4f} ms")
+
+
+def phase_gn_unet(trainer):
+    """The full-width bf16 UNet with ``use_pallas_gn`` against the same
+    module on the plain GN (phase 3's input): 44 K5 launches per forward,
+    no fallback."""
+    import torch
+    unet = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, unet.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    norms = _gn_norms(unet)
+    with torch.inference_mode():
+        _zero_counts()
+        fused = unet(x, t).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        fused_ms = time_ms(lambda: unet(x, t), iters=10)
+        for m in norms:
+            m.use_pallas = False
+        try:
+            plain = unet(x, t).float()
+            plain_ms = time_ms(lambda: unet(x, t), iters=10)
+        finally:
+            for m in norms:
+                m.use_pallas = True
+    check(counts == _expect(K1=16, K5=44),
+          f"GN UNet forward launched {counts}, expected 16 K1, 44 K5")
+    check(bool(torch.isfinite(fused).all()), "GN UNet output not finite")
+    rel = ((fused - plain).abs().max() / plain.abs().max()).item()
+    check(rel <= 2e-2, f"UNet on K5 vs plain GN: max rel err {rel}")
+    print(f"phase 15 UNet forward with use_pallas_gn, [2, 12, 32, 64]: K5 "
+          f"path {fused_ms:.3f} ms, plain-GN path {plain_ms:.3f} ms, max rel"
+          f" err {rel:.3e} (tol 2e-2), launches {counts}", flush=True)
+    return {"gn_ms": fused_ms, "plain_gn_ms": plain_ms, "max_rel_err": rel}
+
+
+def phase_gn_train(smi_line: str, seed: int = 0, timed: int = 3):
+    """``train_loop`` with ``use_pallas_gn`` as phase 6 (2 warm-up and
+    ``timed`` steps): 88 K5, 32 K1, 16 K2 per step; then one step's loss
+    and gradients against the same step on the plain GN, and a gradient on
+    every resnet norm weight."""
+    import torch
+    from ldmseg_torch.data.loader import Loader
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+
+    ds = SyntheticDVPS(length=2 * TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
+    trainer = _gn_trainer(_train_config(), seed, dataset=ds)
+    trainer.train_loop(max_steps=WARMUP_STEPS, log_every=WARMUP_STEPS,
+                       seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train_loop(max_steps=timed, log_every=timed,
+                                seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expect(K1=32 * timed, K2=16 * timed, K5=88 * timed)
+    check(counts == want, f"GN train steps launched {counts}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    print(f"phase 17 train_loop with use_pallas_gn: {timed} steps, batch "
+          f"{TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+          f"{secs / timed:.4f} s/step, {TRAIN_BATCH * timed / secs:.3f} "
+          f"samples/s, peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{counts} [{smi_line}]", flush=True)
+
+    batch = next(iter(Loader(ds, TRAIN_BATCH, seed=seed + 2)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    lh, lw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    noise = torch.randn((TRAIN_BATCH, lh, lw, 4), generator=gen,
+                        device="cuda")
+    steps = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                          device="cuda")
+    norms = _gn_norms(trainer.unet)
+    results = {}
+    for fused in (True, False):
+        for m in norms:
+            m.use_pallas = fused
+        trainer.state.zero_grad()
+        loss, _, _ = trainer.forward_backward(batch, noise=noise,
+                                              timesteps=steps)
+        if fused:
+            for m in norms:
+                for p in (m.weight, m.bias):
+                    check(p.grad is not None
+                          and bool(torch.isfinite(p.grad).all())
+                          and p.grad.abs().max().item() > 0,
+                          "a resnet norm gradient is missing, zero or not "
+                          "finite")
+        results[fused] = (loss.item(), _flat_grads(trainer.unet))
+    for m in norms:
+        m.use_pallas = True
+    (loss_f, g_f), (loss_p, g_p) = results[True], results[False]
+    cos = (torch.dot(g_f, g_p) / (g_f.norm() * g_p.norm())).item()
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    del results, g_f, g_p, trainer
+    check(loss_rel <= 1e-2, f"train loss on K5 vs plain GN: rel {loss_rel}")
+    check(cos >= 0.99, f"gradient cosine on K5 vs plain GN: {cos}")
+    print(f"phase 17 one step on K5 vs plain GN: loss {loss_f:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_rel:.2e}, tol 1e-2), gradient cosine "
+          f"{cos:.6f} (>= 0.99); every resnet norm weight and bias has a "
+          f"finite non-zero gradient ({len(norms)} norms)", flush=True)
+    return counts, {"seconds_per_step": secs / timed,
+                    "samples_per_s": TRAIN_BATCH * timed / secs,
+                    "peak_bytes": peak, "losses": losses,
+                    "loss_rel": loss_rel, "grad_cosine": cos}
+
+
+def phase_gn_int8_unet(trainer, seed: int = 1):
+    """The full-width int8 UNet with ``int8_fuse_gn`` (K6 into the s8
+    convs, K3 + K4) against the bf16 UNet with ``use_pallas_gn`` of the
+    same masters: 44 K6, 16 K3, 16 K4 per forward, 0 K5."""
+    import torch
+    bf16 = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, bf16.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    int8 = trainer.int8_unet()
+    with torch.inference_mode():
+        ref = bf16(x, t).float()
+        _zero_counts()
+        out = int8(x, t).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        int8_ms = time_ms(lambda: int8(x, t), iters=10)
+        bf16_ms = time_ms(lambda: bf16(x, t), iters=10)
+    check(counts == _expect(K3=16, K4=16, K6=44),
+          f"int8 GN UNet forward launched {counts}, expected 44 K6, 16 K3, "
+          f"16 K4")
+    check(bool(torch.isfinite(out).all()), "int8 GN UNet not finite")
+    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[
+        0, 1].item()
+    rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    check(corr >= 0.9, f"int8 GN UNet vs bf16: correlation {corr}")
+    print(f"phase 18 int8 UNet forward with int8_fuse_gn: {int8_ms:.3f} ms "
+          f"(bf16 on K1 + K5 {bf16_ms:.3f} ms), launches {counts}; vs bf16:"
+          f" mean rel err {rel:.3e}, correlation {corr:.6f} (>= 0.9)",
+          flush=True)
+    return {"int8_ms": int8_ms, "bf16_ms": bf16_ms, "mean_rel_err": rel,
+            "correlation": corr}
+
+
+def gn_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
+             by_path, unit):
+    """The kernels-line entry for K5, K6 or K7: times summed over the
+    halves of one UNet forward at the sampling shapes, per-site rows
+    beside them."""
+    ops_ms = sum(r["ops"] / PEAK_FLOPS["bfloat16" if kid == "K7"
+                                       else "float32"] * 1e3 for r in rows)
+    bytes_ms = sum(r["bytes"] / PEAK_BYTES * 1e3 for r in rows)
+    return {
+        "name": name, "id": kid, "route": "cuda", "source": source,
+        "replaces": replaces, "tpu_kernel": tpu_kernel,
+        "launches": launches, "launches_by_path": by_path, "checked": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function; "
+                        "bf16_composition_ms times the PyTorch calls it "
+                        "replaces",
+        "bf16_composition_ms": sum(r["bf16_composition_ms"] for r in rows),
+        "unit": unit, "shapes": rows,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1104,14 +1580,36 @@ def main() -> int:
                 sample_result, calibrate=key != "c", phase=phase)
             del trainer
             torch.cuda.empty_cache()
+        # the GroupNorm + SiLU family: K5, K6, K7
+        trainer = _gn_trainer(_config())
+        k5_rows, k6_rows, k7_rows = phase_gn_kernels(trainer, smi_line)
+        gn_unet_result = phase_gn_unet(trainer)
+        gn_counts, gn_sample = phase_sample(
+            trainer, smi_line, phase=16, expect={"K1": 16, "K5": 44})
+        del trainer
+        torch.cuda.empty_cache()
+        gn_train_counts, gn_train_result = phase_gn_train(smi_line)
+        torch.cuda.empty_cache()
+        trainer = _gn_trainer(_int8_config())
+        gn_int8_unet_result = phase_gn_int8_unet(trainer)
+        gn_int8 = phase_int8_sample(
+            trainer, "int8 with int8_fuse_gn", {"K3": 16, "K4": 16, "K6": 44},
+            smi_line, gn_sample, calibrate=True, phase=18)
+        del trainer
+        torch.cuda.empty_cache()
         sample_result.pop("x0")
+        gn_sample.pop("x0")
         print(json.dumps({"results": {
             "device": smi_line, "unet_forward": unet_result,
             "sample_panoptic": sample_result, "train": train_result,
             "int8_unet_forward": int8_unet_result,
             "int8_sample_panoptic": int8_results,
             "unfused_int8_unet_forward": unfused_unet_result,
-            "unfused_int8_sample_panoptic": variant}}), flush=True)
+            "unfused_int8_sample_panoptic": variant,
+            "gn_unet_forward": gn_unet_result,
+            "gn_sample_panoptic": gn_sample, "gn_train": gn_train_result,
+            "gn_int8_unet_forward": gn_int8_unet_result,
+            "gn_int8_sample_panoptic": gn_int8}}), flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
         paths = {"sample_panoptic": bf16_counts,
@@ -1123,6 +1621,11 @@ def main() -> int:
                           ("c", "fused_ff False")):
             for mode, res in variant[key].items():
                 paths[f"sample_panoptic int8 {what}, {mode}"] = res["counts"]
+        paths["sample_panoptic, use_pallas_gn"] = gn_counts
+        paths["train_loop, use_pallas_gn, 3 steps"] = gn_train_counts
+        for mode, res in gn_int8.items():
+            paths[f"sample_panoptic int8, int8_fuse_gn, {mode}"] = res[
+                "counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -1151,6 +1654,37 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:47",
                        "ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8",
                        k13_rows, unfused["K13"], by_path("K13")),
+            gn_entry("group_norm_silu", "K5",
+                     "ldmseg_torch/csrc/groupnorm_silu.cu",
+                     "ldmseg_tpu/ops/pallas/groupnorm_silu.py:52",
+                     "ldmseg_tpu/ops/pallas/groupnorm_silu.py:"
+                     "_gn_silu_kernel",
+                     [r for r in k5_rows if r["path"] == "sampling"],
+                     gn_counts["K5"], by_path("K5"),
+                     "one UNet forward (44 launches, bf16, batch 2, 32x64 "
+                     "latent); the training shapes' rows in training_shapes")
+            | {"training_shapes": [r for r in k5_rows
+                                   if r["path"] == "training"]},
+            gn_entry("group_norm_silu_quant", "K6",
+                     "ldmseg_torch/csrc/groupnorm_silu.cu",
+                     "ldmseg_tpu/ops/pallas/groupnorm_silu.py:151",
+                     "ldmseg_tpu/ops/pallas/groupnorm_silu.py:"
+                     "_gn_silu_quant_kernel", k6_rows,
+                     gn_int8["default scales"]["counts"]["K6"],
+                     by_path("K6"),
+                     "one int8 UNet forward (44 launches, bf16 in, batch 2, "
+                     "32x64 latent)"),
+            gn_entry("gn_silu_conv", "K7",
+                     "ldmseg_torch/csrc/gn_silu_conv.cu",
+                     "ldmseg_tpu/ops/pallas/gn_silu_conv.py:30",
+                     "ldmseg_tpu/ops/pallas/gn_silu_conv.py:_kernel",
+                     [r for r in k7_rows if not r["fallback"]], 0,
+                     by_path("K7"),
+                     "the 43 resnet halves of one UNet forward that it takes"
+                     " (bf16, batch 2, 32x64 latent; one falls back by the "
+                     "6 MiB rule); no module routes to it, so 0 launches on "
+                     "every path and 43 in phase 14")
+            | {"launches_in_its_phase": 43},
         ]}), flush=True)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,0 +1,163 @@
+// Pieces shared by K5, K6 (groupnorm_silu.cu) and K7 (gn_silu_conv.cu): the
+// GroupNorm + SiLU numerics of the TPU kernels' single definition
+// (ldmseg_tpu/ops/pallas/groupnorm_silu.py:gn_silu_rows) on NCHW tensors.
+//
+// In NCHW the elements of one (image, group) are one contiguous span of
+// span = C/G * H * W values; span b * G + g starts at (b * G + g) * span.
+// Its statistics, in fp32:
+//   mean = sum(x) / n,  var = sum(x^2) / n - mean^2,  inv = 1 / sqrt(var +
+//   eps),  n = span;
+// then y = ((x - mean) * inv) * scale[c] + bias[c] and silu(y) = y * (1 /
+// (1 + exp(-y))). Every step is a separately rounded intrinsic (__fmul_rn,
+// __fadd_rn, ...): nvcc may not contract them into an FMA, so two kernels
+// that recompute y from x get the same bits (K6 does, twice), and the plain
+// PyTorch version, one rounding per operation, gets them too up to expf.
+//
+// The statistics are two steps. gn_stats_kernel: block (chunk k, span s) sums
+// kChunk elements of span s and writes its partial (sum x, sum x^2); the
+// chunks of one span are many blocks, since B * G alone (64 at batch 2) is
+// too few for 132 SMs. group_stats: a reader of span s folds its partials in
+// chunk order, so every reader gets the same mean and inv.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+namespace gn {
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 4096;  // elements of one span per block
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// kVec consecutive values, loaded and stored as one 16-byte (or narrower)
+// access when kVec > 1
+template <typename T, int kVec>
+struct alignas(sizeof(T) * kVec) Pack {
+  T v[kVec];
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The sum (kMax false) or max (kMax true) of v over a block of kThreads;
+// every thread gets it. `red` holds kThreads / 32 floats.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  v = kMax ? warp_max(v) : warp_sum(v);
+  __syncthreads();  // red may still be read by an earlier call
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kThreads / 32; ++w) {
+    r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  }
+  return r;
+}
+
+// silu(((x - mean) * inv) * scale + bias), one rounding per operation
+__device__ __forceinline__ float gn_silu(float x, float mean, float inv,
+                                         float scale, float bias) {
+  float y = __fmul_rn(__fsub_rn(x, mean), inv);
+  y = __fadd_rn(__fmul_rn(y, scale), bias);
+  return __fmul_rn(y, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-y))));
+}
+
+// mean and 1 / sqrt(var + eps) of span s from its `chunks` partials
+__device__ __forceinline__ void group_stats(const float2* __restrict__ part,
+                                            int s, int chunks, float n,
+                                            float eps, float& mean,
+                                            float& inv) {
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    const float2 p = part[static_cast<long long>(s) * chunks + k];
+    s1 = __fadd_rn(s1, p.x);
+    s2 = __fadd_rn(s2, p.y);
+  }
+  mean = __fdiv_rn(s1, n);
+  const float var = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
+  inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+}
+
+// grid (chunks, spans): part[s * chunks + k] = (sum x, sum x^2) over chunk k
+// of span s. Block (0, 0) also zeroes `zero_words` words of `zero` (K6's
+// per-image amax), which a later kernel on the stream accumulates into.
+// kVec > 1 needs span % kVec == 0 and a 16-byte aligned x.
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads)
+    gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ part,
+                    int span, int chunks, unsigned* __restrict__ zero,
+                    int zero_words) {
+  __shared__ float red[kThreads / 32];
+  if (zero != nullptr && blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int i = threadIdx.x; i < zero_words; i += kThreads) zero[i] = 0u;
+  }
+  const T* xs = x + static_cast<long long>(blockIdx.y) * span;
+  const int start = blockIdx.x * kChunk;
+  const int end = min(start + kChunk, span);
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = start + threadIdx.x * kVec; i < end; i += kThreads * kVec) {
+    const Pack<T, kVec> p = *reinterpret_cast<const Pack<T, kVec>*>(xs + i);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float v = to_f(p.v[k]);
+      s1 += v;
+      s2 = fmaf(v, v, s2);
+    }
+  }
+  s1 = block_reduce<false>(s1, red);
+  s2 = block_reduce<false>(s2, red);
+  if (threadIdx.x == 0) {
+    part[static_cast<long long>(blockIdx.y) * chunks + blockIdx.x] =
+        make_float2(s1, s2);
+  }
+}
+
+inline int num_chunks(int span) { return (span + kChunk - 1) / kChunk; }
+
+// gn_stats_kernel on the stream; returns a cudaError_t
+template <typename T>
+inline int launch_stats(const T* x, float2* part, int spans, int span,
+                        unsigned* zero, int zero_words, bool vec,
+                        cudaStream_t stream) {
+  const dim3 grid(num_chunks(span), spans);
+  constexpr int kV = 16 / sizeof(T);
+  if (vec) {
+    gn_stats_kernel<T, kV><<<grid, kThreads, 0, stream>>>(
+        x, part, span, grid.x, zero, zero_words);
+  } else {
+    gn_stats_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
+        x, part, span, grid.x, zero, zero_words);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gn

@@ -8,6 +8,7 @@ reference state-dict keys that ``ldmseg_tpu/models/torch_export.py`` emits.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_self_attention
+from ..ops.groupnorm_silu import group_norm_silu, group_norm_silu_quant
 from ..ops.quant import QuantConv2d
 
 
@@ -39,18 +41,31 @@ class GroupNorm(nn.Module):
 
 
 class GroupNormSiLU(GroupNorm):
-    """GN + SiLU in fp32, the fp32 path of the JAX ``GroupNormSiLU``. With
-    ``lowp`` (the int8 UNet's resnets) a non-fp32 input takes its ``lowp``
-    path (:67-78): fp32 group statistics, then a per-(image, channel)
-    affine ``x·w + b`` and the SiLU in the input dtype. The ``quantize``
-    and ``use_pallas`` variants (K6, K5) are not ported."""
+    """GN + SiLU, the JAX ``GroupNormSiLU`` (:58-84) with its precedence:
+    ``quantize`` (K6, ``ops/groupnorm_silu.py:group_norm_silu_quant``;
+    returns ``(q int8, s [B])`` for a ``QuantConv2d``, inference only), then
+    ``use_pallas`` (K5, ``group_norm_silu``), then ``lowp`` for a non-fp32
+    input (the int8 UNet's resnets, :67-78: fp32 group statistics, then a
+    per-(image, channel) affine ``x·w + b`` and the SiLU in the input
+    dtype), else fp32."""
 
     def __init__(self, num_groups: int, channels: int, eps: float,
-                 lowp: bool = False):
+                 lowp: bool = False, use_pallas: bool = False,
+                 quantize: bool = False):
         super().__init__(num_groups, channels, eps)
         self.lowp = lowp
+        self.use_pallas = use_pallas
+        self.quantize = quantize
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        # the kernels take contiguous NCHW; a convolution may hand over
+        # channels-last strides (a copy then, else nothing)
+        if self.quantize:
+            return group_norm_silu_quant(x.contiguous(), self.weight,
+                                         self.bias, self.num_groups, self.eps)
+        if self.use_pallas:
+            return group_norm_silu(x.contiguous(), self.weight, self.bias,
+                                   self.num_groups, self.eps)
         if not (self.lowp and x.dtype != torch.float32):
             return F.silu(self.normalize(x)).to(x.dtype)
         b, c = x.shape[:2]
@@ -98,23 +113,30 @@ class ResnetBlock(nn.Module):
     time-embedding bias between the halves when ``temb_channels`` is set.
     ``use_int8`` (inference) makes ``conv1``/``conv2`` s8 convs with the
     static ``int8_act_scale`` (or a calibrated per-site scale) and the norms
-    ``lowp``; ``conv_shortcut`` stays a float conv, as in JAX."""
+    ``lowp``; ``conv_shortcut`` stays a float conv, as in JAX.
+    ``use_pallas_gn`` puts both norms on K5; ``int8_fuse_gn`` with
+    ``use_int8`` on K6, whose codes and per-image scales feed the s8 convs
+    directly (:101-137)."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  eps: float = 1e-6, temb_channels: Optional[int] = None,
                  use_int8: bool = False,
-                 int8_act_scale: Optional[float] = None):
+                 int8_act_scale: Optional[float] = None,
+                 use_pallas_gn: bool = False, int8_fuse_gn: bool = False):
         super().__init__()
         if use_int8:
             def conv(cin, cout):
                 return QuantConv2d(cin, cout, act_scale=int8_act_scale)
         else:
             conv = conv3x3
-        self.norm1 = GroupNormSiLU(groups, in_channels, eps, lowp=use_int8)
+        norm = functools.partial(GroupNormSiLU, groups, eps=eps,
+                                 lowp=use_int8, use_pallas=use_pallas_gn,
+                                 quantize=use_int8 and int8_fuse_gn)
+        self.norm1 = norm(in_channels)
         self.conv1 = conv(in_channels, out_channels)
         self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
                               if temb_channels else None)
-        self.norm2 = GroupNormSiLU(groups, out_channels, eps, lowp=use_int8)
+        self.norm2 = norm(out_channels)
         self.conv2 = conv(out_channels, out_channels)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)

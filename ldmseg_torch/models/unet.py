@@ -53,7 +53,9 @@ from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """SD-1.4 defaults; the fields of the JAX ``UNetConfig`` that the
-    sampling path without cross-attention reads."""
+    sampling path without cross-attention reads, among them the resnet norm
+    flags ``use_pallas_gn`` (K5) and ``int8_fuse_gn`` (K6, with
+    ``use_int8_conv``), which a caller sets through ``unet_config``."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -76,6 +78,10 @@ class UNetConfig:
     int8_act_scale: Optional[float] = None       # None: dynamic amax
     # the q/k/v scale: None is 0.1 for K3 and a dynamic amax for K13
     int8_attn_act_scale: Optional[float] = None
+    # the resnets' GN + SiLU pairs (unet.py:70, :94): K5, and with
+    # use_int8_conv K6 feeding the s8 convs (inference only)
+    use_pallas_gn: bool = False
+    int8_fuse_gn: bool = False
 
 
 class CrossAttention(nn.Module):
@@ -442,7 +448,9 @@ class UNet2DCondition(nn.Module):
                     int8_act_scale=cfg.int8_act_scale,
                     int8_attn_act_scale=cfg.int8_attn_act_scale)
         opts = dict(res_kw=dict(use_int8=cfg.use_int8_conv,
-                                int8_act_scale=cfg.int8_act_scale),
+                                int8_act_scale=cfg.int8_act_scale,
+                                use_pallas_gn=cfg.use_pallas_gn,
+                                int8_fuse_gn=cfg.int8_fuse_gn),
                     attn_kw=dict(use_fused=cfg.use_fused_attention,
                                  int8=int8,
                                  fused_norms=cfg.use_fused_norms))

@@ -115,7 +115,12 @@ class QuantConv2d(nn.Module):
     float conv. The input is quantized per tensor with the calibrated
     ``x_scale`` when set, else the module's ``act_scale``, else its own
     amax. ``y = float(s8 conv) * (x_scale * w_scale)`` cast to the input
-    dtype, plus the bias."""
+    dtype, plus the bias.
+
+    The input may also be K6's ``(q int8 [B, Cin, H, W], s float32 [B])``
+    (``int8_fuse_gn``, :478-486): the s8 conv runs on those codes and ``y =
+    float(s8 conv) * (s[b] * w_scale)`` is cast to bf16 whatever the compute
+    dtype, plus the bias; ``x_scale`` and ``act_scale`` are not read."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  act_scale: Optional[float] = None):
@@ -143,10 +148,17 @@ class QuantConv2d(nn.Module):
         if self.w_q is None:
             raise RuntimeError("QuantConv2d: weights not prepared (run "
                                "prepare_int8_unet)")
-        site = self.x_scale if self.x_scale is not None else self.act_scale
-        x_q, xs = quantize_activation(x, site)
-        y = s8_conv2d(x_q, self.w_q, self.stride)
-        y = (y.float() * (xs * self.w_scale)).to(x.dtype)
+        if isinstance(x, tuple):
+            x_q, s = x
+            y = s8_conv2d(x_q, self.w_q, self.stride)
+            scale = s[:, None, None, None] * self.w_scale
+            y = (y.float() * scale).to(torch.bfloat16)
+        else:
+            site = (self.x_scale if self.x_scale is not None
+                    else self.act_scale)
+            x_q, xs = quantize_activation(x, site)
+            y = s8_conv2d(x_q, self.w_q, self.stride)
+            y = (y.float() * (xs * self.w_scale)).to(x.dtype)
         y = y + self.bias.to(y.dtype)
         return y.permute(0, 3, 1, 2).contiguous()
 

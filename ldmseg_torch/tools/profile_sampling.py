@@ -1,6 +1,6 @@
 """Where the time of the sampling path goes on the card.
 
-    python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]]
+    python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]] [--gn]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
@@ -11,11 +11,13 @@ frames of 256x512. ``--int8`` turns on ``sampling_kwargs.int8_inference``:
 and again after ``calibrate_int8`` on the frames. Its variant picks the
 transformer blocks: ``fused`` (the default: K3, K4), ``a`` (``fused_norms``
 False: K13, K12), ``b`` (``fused_norms`` and ``fused_ff`` False: K13, s8
-linears) or ``c`` (``fused_ff`` False: K3, s8 linears). For
-each window it prints one JSON line: wall time, device time summed over
-kernels, the device's busy share (the union of kernel intervals over the
-wall time), device time by kernel family and the top kernels. Needs a CUDA
-device.
+linears) or ``c`` (``fused_ff`` False: K3, s8 linears). ``--gn`` builds
+the UNet with ``UNetConfig.use_pallas_gn`` and ``int8_fuse_gn``: the
+resnets' GN + SiLU pairs on K5 (bf16), or on K6 feeding the s8 convs
+(int8). For each window it prints one JSON line: wall time, device time
+summed over kernels, the device's busy share (the union of kernel intervals
+over the wall time), device time by kernel family and the top kernels.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import numpy as np
 import torch
 
 FAMILIES = (  # first match wins
+    ("K5/K6 groupnorm_silu", r"gn_(stats|apply|ymax|quant)_kernel"),
+    ("K7 gn_silu_conv", r"gn_conv_kernel"),
     ("K1 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
     ("K13 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
@@ -52,6 +56,17 @@ FAMILIES = (  # first match wins
 VARIANTS = {"fused": {}, "a": {"fused_norms": False},
             "b": {"fused_norms": False, "fused_ff": False},
             "c": {"fused_ff": False}}
+
+
+def gn_unet_config(gn: bool):
+    """The default deployment's UNet (12 input channels, K1) with the resnet
+    norm flags ``use_pallas_gn`` and ``int8_fuse_gn`` when ``gn``; without,
+    None (the trainer builds its own)."""
+    from ldmseg_torch.models.unet import UNetConfig
+    if not gn:
+        return None
+    return UNetConfig(in_channels=12, use_fused_attention=True,
+                      use_pallas_gn=True, int8_fuse_gn=True)
 
 
 def _family(name: str) -> str:
@@ -132,7 +147,10 @@ def main() -> int:
     parser.add_argument("--int8", nargs="?", const="fused",
                         choices=sorted(VARIANTS),
                         help="int8 sampling, and which transformer blocks")
-    variant = parser.parse_args().int8
+    parser.add_argument("--gn", action="store_true",
+                        help="UNetConfig.use_pallas_gn and int8_fuse_gn")
+    args = parser.parse_args()
+    variant = args.int8
     if not torch.cuda.is_available():
         print("profile_sampling: no CUDA device", file=sys.stderr)
         return 1
@@ -141,7 +159,7 @@ def main() -> int:
         "train_kwargs": {"self_condition": True, "weight_dtype": "bfloat16"},
         "sampling_kwargs": {"int8_inference": int8,
                             **VARIANTS.get(variant, {})}})
-    trainer = TrainerDiffusion(cfg)
+    trainer = TrainerDiffusion(cfg, unet_config=gn_unet_config(args.gn))
     trainer.init_params(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((2, trainer.unet_config.in_channels, 32, 64),
@@ -151,6 +169,8 @@ def main() -> int:
         np.float32)
     kinds = ([f"int8 {variant}", f"int8 {variant} calibrated"] if int8
              else ["bf16"])
+    if args.gn:
+        kinds = [f"{k}, GN on K5/K6" for k in kinds]
     for kind in kinds:
         if kind.endswith("calibrated"):
             trainer.calibrate_int8({"image": image})

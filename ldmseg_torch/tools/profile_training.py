@@ -1,6 +1,6 @@
 """Where the time of the training path goes on the card.
 
-    python -m ldmseg_torch.tools.profile_training
+    python -m ldmseg_torch.tools.profile_training [--gn]
 
 Builds the deployment ``chip_smoke.py`` trains (SD-1.4 UNet with
 self-conditioning, DEFAULT_CONFIG seg VAE, bf16 compute on fp32 masters,
@@ -13,19 +13,22 @@ wall time), device time by kernel family (K1, K2, convolutions, optimizer,
 launched it. Autograd runs the backward on a thread of its own, so that
 split separates the backward (the thread that launches K2) from the rest of
 the step (encode, casts, the self-conditioning pass, the forward, the loss
-and the optimizer, on the caller's thread).
+and the optimizer, on the caller's thread). ``--gn`` builds the UNet with
+``UNetConfig.use_pallas_gn``: the resnets' GN + SiLU pairs on K5 (the
+backward recomputes them in plain PyTorch).
 
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 
 import torch
 
-from .profile_sampling import _family, _kernels, _profile
+from .profile_sampling import _family, _kernels, _profile, gn_unet_config
 
 STEPS = 3
 
@@ -56,6 +59,10 @@ def _by_thread(prof, per: int) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--gn", action="store_true",
+                        help="UNetConfig.use_pallas_gn (K5)")
+    gn = parser.parse_args().gn
     if not torch.cuda.is_available():
         print("profile_training: no CUDA device", file=sys.stderr)
         return 1
@@ -69,14 +76,16 @@ def main() -> int:
                          "batch_size": 8},
         "ignore_label": 0})
     ds = SyntheticDVPS(length=8, size=(192, 640), num_bits=8)
-    trainer = TrainerDiffusion(cfg, dataset=ds)
+    trainer = TrainerDiffusion(cfg, unet_config=gn_unet_config(gn),
+                               dataset=ds)
     trainer.init_params(seed=0)
     batch = next(iter(Loader(ds, 8, seed=0)))
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(json.dumps(_profile(
         lambda: trainer.train_step(batch, generator=gen), STEPS,
         "train_step, bf16 on fp32 masters, batch 8 x 192x640, one loaded "
-        "batch", extra=_by_thread)), flush=True)
+        "batch" + (", GN on K5" if gn else ""), extra=_by_thread)),
+        flush=True)
     return 0
 
 

@@ -501,3 +501,211 @@ def test_k13_k12_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.randn((1, 64, 384), device=cuda).to(torch.bfloat16)
     with pytest.raises(ValueError):
         K12.fused_geglu_s8(x.half(), pack)
+
+
+# the GroupNorm + SiLU slice's modules (K5, K6, K7), one case each
+GN_MODULES = ["ops.groupnorm_silu", "ops.gn_silu_conv", "ops.quant",
+              "models.layers", "models.unet", "tools.profile_sampling",
+              "tools.profile_training"]
+
+
+@pytest.mark.parametrize("module", GN_MODULES)
+def test_gn_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_gn_sources_are_built_by_the_port():
+    from ldmseg_torch.ops import _build
+    assert {"groupnorm_silu", "gn_silu_conv"} <= set(_build.sources())
+    assert (ROOT / "ldmseg_torch/csrc/gn_common.cuh").exists()
+    k56 = (ROOT / "ldmseg_torch/csrc/groupnorm_silu.cu").read_text()
+    assert 'extern "C" int ldmseg_group_norm_silu(' in k56
+    assert 'extern "C" int ldmseg_group_norm_silu_quant(' in k56
+    k7 = (ROOT / "ldmseg_torch/csrc/gn_silu_conv.cu").read_text()
+    # the product is the kernel's own: wmma, no library call
+    assert "wmma::mma_sync" in k7
+    assert not any(lib in k7 for lib in ("cudnn", "cublas", "torch"))
+
+
+def test_trainer_carries_the_gn_flags_into_the_int8_unet():
+    from ldmseg_torch.models.unet import UNetConfig
+    ucfg = UNetConfig(in_channels=12, use_fused_attention=True,
+                      use_pallas_gn=True, int8_fuse_gn=True)
+    cfg = merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True},
+        "sampling_kwargs": {"int8_inference": True}})
+    trainer = TrainerDiffusion(cfg, unet_config=ucfg,
+                               device=torch.device("cpu"))
+    int8_cfg = trainer._unet_int8.config
+    assert int8_cfg.use_pallas_gn and int8_cfg.int8_fuse_gn
+    assert int8_cfg.use_int8_conv and int8_cfg.use_fused_norms
+    norms = [m for r in _resnet_blocks(trainer.unet) for m in (r.norm1,
+                                                                r.norm2)]
+    assert len(norms) == 44
+    assert all(m.use_pallas and not m.quantize for m in norms)
+    norms8 = [m for r in _resnet_blocks(trainer._unet_int8)
+              for m in (r.norm1, r.norm2)]
+    assert len(norms8) == 44 and all(m.quantize for m in norms8)
+    # the parameter tree is the one without the flags
+    plain = TrainerDiffusion(cfg, device=torch.device("cpu"))
+    assert ({k: v.shape for k, v in plain.unet.state_dict().items()}
+            == {k: v.shape for k, v in trainer.unet.state_dict().items()})
+
+
+def _resnet_blocks(unet):
+    from ldmseg_torch.models.layers import ResnetBlock
+    return [m for m in unet.modules() if isinstance(m, ResnetBlock)]
+
+
+# K5, K6 and K7 against their plain versions on the card, at the resnet norm
+# shapes of the UNet (batch 2 on a 32x64 latent, batch 8 on 24x80) and a
+# ragged shape that takes the scalar path. K5: max |err| within 1.6e-2 of
+# max|ref| in bf16 (two bf16 ulps: both round to bf16, the sums run in
+# another order) and 1e-5 in fp32; K6: every scale within rtol 1e-5, codes
+# equal but for +-1 at no more than 1e-3 of the elements (a .5 tie that the
+# summation order moves); K7: 2e-2 of max|ref| (sums over up to 9 x 2560
+# bf16 products)
+GN_SHAPES = [(2, 320, 32, 64), (2, 960, 32, 64), (2, 1920, 16, 32),
+             (2, 2560, 4, 8), (8, 320, 24, 80), (8, 2560, 3, 10),
+             (1, 64, 5, 7)]
+
+
+def _gn_inputs(cuda, shape, dtype, seed, affine=torch.float32):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[1]
+    x = (1.5 * torch.randn(shape, generator=gen, device=cuda) + 0.3).to(
+        dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    return x, scale.to(affine), bias.to(affine)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol,affine", [
+    (torch.bfloat16, 1.6e-2, torch.float32),
+    (torch.bfloat16, 1.6e-2, torch.bfloat16),   # the bf16 UNet's weights
+    (torch.float32, 1e-5, torch.float32)])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_k5_kernel_matches_plain_version(cuda, shape, dtype, tol, affine):
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    x, scale, bias = _gn_inputs(cuda, shape, dtype, 0, affine)
+    before = GN.group_norm_silu.launches
+    out = GN.group_norm_silu(x, scale, bias, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert GN.group_norm_silu.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = GN.group_norm_silu_reference(x, scale, bias, 32, 1e-5)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,affine", [
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_k6_kernel_matches_plain_version(cuda, shape, dtype, affine):
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    x, scale, bias = _gn_inputs(cuda, shape, dtype, 1, affine)
+    before = GN.group_norm_silu_quant.launches
+    q, s = GN.group_norm_silu_quant(x, scale, bias, 32, 1e-6)
+    torch.cuda.synchronize()
+    assert GN.group_norm_silu_quant.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert s.dtype == torch.float32 and s.shape == (shape[0],)
+    rq, rs = GN.group_norm_silu_quant_reference(x, scale, bias, 32, 1e-6)
+    torch.testing.assert_close(s, rs, rtol=1e-5, atol=0)
+    diff = (q.int() - rq.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).sum().item() <= 1e-3 * q.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 320, 32, 64), 320), ((2, 640, 32, 64), 320),
+    ((2, 1920, 16, 32), 640), ((2, 2560, 4, 8), 1280),
+    ((1, 40, 5, 7), 24)])  # Cin % 16: the scalar weight loads
+def test_k7_kernel_matches_plain_version(cuda, shape, cout):
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    x, scale, bias = _gn_inputs(cuda, shape, torch.bfloat16, 2)
+    groups = 8 if shape[1] == 40 else 32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = (torch.randn((cout, shape[1], 3, 3), generator=gen, device=cuda)
+         / (9 * shape[1]) ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(cout, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    before = GC.gn_silu_conv.launches
+    out = GC.gn_silu_conv(x, scale, bias, w, b, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert GC.gn_silu_conv.launches == before + 1
+    assert out.dtype == torch.bfloat16
+    assert out.shape == (shape[0], cout) + shape[2:]
+    ref = GC.gn_silu_conv_reference(x, scale, bias, w, b, groups, 1e-5)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gn_wrappers_raise_instead_of_falling_back(cuda):
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    x, scale, bias = _gn_inputs(cuda, (2, 64, 8, 8), torch.bfloat16, 4)
+    w = torch.zeros((16, 64, 3, 3), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(16, device=cuda)
+    for fn in (GN.group_norm_silu, GN.group_norm_silu_quant):
+        with pytest.raises(ValueError):            # dtype
+            fn(x.half(), scale, bias, 32)
+        with pytest.raises(ValueError):            # C % groups
+            fn(x, scale, bias, 24)
+        with pytest.raises(ValueError):            # not contiguous
+            fn(x.transpose(2, 3), scale, bias, 32)
+    with pytest.raises(ValueError):                # bf16 only
+        GC.gn_silu_conv(x.float(), scale, bias, w, b, 32)
+    with pytest.raises(ValueError):
+        GC.gn_silu_conv(x, scale, bias, w, b, 24)
+    with pytest.raises(ValueError):
+        GC.gn_silu_conv(x.transpose(2, 3), scale, bias, w, b, 32)
+
+
+@pytest.mark.gpu
+def test_gn_counters_count_launches_and_fallbacks(cuda):
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    x, scale, bias = _gn_inputs(cuda, (2, 64, 8, 8), torch.bfloat16, 5)
+    w = torch.randn((32, 64, 3, 3), device=cuda).to(torch.bfloat16) * 0.05
+    b = torch.zeros(32, device=cuda)
+    for fn, args in ((GN.group_norm_silu, ()),
+                     (GN.group_norm_silu_quant, ()),
+                     (GC.gn_silu_conv, (w, b))):
+        before = (fn.launches, fn.fallbacks)
+        fn(x, scale, bias, *args, 32)
+        fn(x, scale, bias, *args, 32, max_tile_bytes=64)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.fallbacks) == (before[0] + 1,
+                                               before[1] + 1), fn.__name__
+
+
+@pytest.mark.gpu
+def test_k5_and_k7_differentiate_on_the_card(cuda):
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    x, scale, bias = _gn_inputs(cuda, (2, 64, 8, 8), torch.float32, 6)
+    w = 0.05 * torch.randn((32, 64, 3, 3), device=cuda)
+    b = 0.1 * torch.randn(32, device=cuda)
+    g = torch.randn((2, 64, 8, 8), device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    before = GN.group_norm_silu.launches
+    GN.group_norm_silu(*leaves, 32).backward(g)
+    assert GN.group_norm_silu.launches == before + 1
+    ref = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    GN.gn_silu_reference(*ref, 32, 1e-5).backward(g)
+    for a, r in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, r.grad, rtol=1e-5, atol=1e-5)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    wb = w.to(torch.bfloat16).requires_grad_()
+    out = GC.gn_silu_conv(xb, scale, bias, wb, b, 32)
+    out.float().sum().backward()
+    assert xb.grad is not None and wb.grad is not None
+    assert bool(torch.isfinite(xb.grad.float()).all())
