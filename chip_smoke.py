@@ -64,8 +64,25 @@ Phases, one line each:
      bf16 one (44 K6, 16 K3, 16 K4 per forward), and int8
      ``sample_panoptic`` with default and calibrated scales: 2,200 K6, 800
      K3, 800 K4, 0 K5, no fallback per call;
-  19. a JSON line ``{"kernels": [...]}`` (K1-K7, K12, K13);
-  20. the last line, ``{"ok": true, "device": {...}}``.
+  19. the padded-attention flags on the int8 trainer built with
+     ``UNetConfig(use_fused_projs=True)`` (the Transformer2D proj biases and
+     the blocks' LayerNorm rows and ``to_out`` biases drawn too): K8 and K9
+     with that int8 UNet's packs and K11 with the packs of the K11 UNet
+     (variant (a)'s flags with ``use_padded_attention``, filled from the
+     same masters) against their plain versions at the four shapes of a
+     forward, with times, the bound and the PyTorch composition each
+     replaces, and a ragged T = 30 that the rule sends to each fallback;
+  20. the int8 UNet with fused projs against the bf16 one: 16 K8, 16 K9,
+     0 K1, K3 and K4, no fallback, correlation, ms per forward beside phase
+     8's int8 UNet;
+  21. ``sample_panoptic`` on it with the default and the calibrated scales:
+     800 K8 and 800 K9 per call, every other kernel 0;
+  22. F1 at full width: the UNet with variant B's flags
+     (``tools/perf/acc_check.py:62-67``) runs 16 K13 and 16 K4, 0 K3;
+  23. the K11 UNet against the bf16 one (16 K11, 16 K12, 0 K3 and K13),
+     and the port's 50-step ``ddim_sample`` on it: 800 K11 and 800 K12;
+  24. a JSON line ``{"kernels": [...]}`` (K1-K9, K11, K12, K13);
+  25. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -690,7 +707,7 @@ def phase_int8_kernels():
 
 
 def _wrappers():
-    """Every kernel's wrapper by id; K3-K7, K12 and K13 count fallbacks
+    """Every kernel's wrapper by id; all but K1 and K2 count fallbacks
     too."""
     from ldmseg_torch.ops import attention as A
     from ldmseg_torch.ops import attention_s8 as S8
@@ -700,6 +717,8 @@ def _wrappers():
     return {"K1": A.fused_self_attention,
             "K2": A.fused_self_attention_backward,
             "K3": S8.ln_attention_s8, "K4": G.geglu_ln_s8,
+            "K8": S8.ln_attention_s8_pin, "K9": G.geglu_ln_s8_pout,
+            "K11": S8.padded_attention_s8,
             "K5": GN.group_norm_silu, "K6": GN.group_norm_silu_quant,
             "K7": GC.gn_silu_conv,
             "K12": G.fused_geglu_s8, "K13": S8.fused_self_attention_s8}
@@ -979,24 +998,27 @@ def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
     """The kernels-line entry for K3, K4, K12 or K13: times summed over the
     16 launches of one int8 UNet forward (dynamic interior for K4 and K12),
     per-shape rows beside them. ``bf16_block_ms`` is the bf16 function the
-    kernel replaces (for K13 K1, with SDPA in ``sdpa_ms``)."""
+    kernel replaces (for K13 K1, with SDPA in ``sdpa_ms``; for K11 bf16
+    projections and SDPA, with float projections and K13 in
+    ``k13_block_ms``)."""
     main = [r for r in rows if r["per_unet_forward"]
             and r.get("interior", "dynamic") == "dynamic"]
+    checked = [r for r in rows if not r.get("fallback")]
 
     def total(key):
         return sum(r[key] * r["per_unet_forward"] for r in main)
     ops_ms = sum(r["work"][0] / PEAK_FLOPS["int8"] * 1e3
                  * r["per_unet_forward"] for r in main)
-    if kid == "K3":
-        ops_ms += sum(r["work"][1] / PEAK_FLOPS["bfloat16"] * 1e3
-                      * r["per_unet_forward"] for r in main)
+    ops_ms += sum(r["work"][1] / PEAK_FLOPS["bfloat16"] * 1e3
+                  * r["per_unet_forward"] for r in main
+                  if len(r["work"]) == 3)
     bytes_ms = sum(r["work"][-1] / PEAK_BYTES * 1e3 * r["per_unet_forward"]
                    for r in main)
     return {
         "name": name, "id": kid, "route": "cuda", "source": source,
         "replaces": replaces, "tpu_kernel": tpu_kernel,
         "launches": launches, "launches_by_path": by_path, "checked": True,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in checked),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1004,6 +1026,8 @@ def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
         "library_note": "no single PyTorch call computes this function",
         "bf16_block_ms": total("bf16_block_ms"),
         **({"sdpa_ms": total("sdpa_ms")} if kid == "K13" else {}),
+        **({"k13_block_ms": total("k13_block_ms")} if kid == "K11"
+           else {}),
         "unit": "one UNet forward (16 launches, int8, batch 2, 32x64 "
                 "latent)",
         "shapes": rows,
@@ -1087,9 +1111,10 @@ def _gn_trainer(cfg, seed: int = 0, **kw):
     and shift and the resnet convs' biases drawn too (the init leaves them
     1 and 0), so that every kernel's affine and bias are exercised."""
     import torch
-    from ldmseg_torch.tools.profile_sampling import gn_unet_config
+    from ldmseg_torch.tools.profile_sampling import unet_config_for
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
-    trainer = TrainerDiffusion(cfg, unet_config=gn_unet_config(True), **kw)
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(gn=True),
+                               **kw)
     trainer.init_params(seed=seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
     with torch.no_grad():
@@ -1522,6 +1547,270 @@ def gn_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
     }
 
 
+# ---------------------------------------------------------------------------
+# the padded-attention flags: K8, K9 (use_fused_projs) and K11
+# (use_padded_attention without fused norms), phases 19-23
+# ---------------------------------------------------------------------------
+# tools/perf/acc_check.py:62-67, variant B: fused norms without padded
+# attention, K13 + K4 (fault F1 built K3 + K4); without the fused projs of
+# the masters' config, which need padded attention
+VARIANT_B_FLAGS = dict(use_fused_attention=True, use_int8_conv=True,
+                       int8_act_scale=0.05, use_int8_ff=True,
+                       use_fused_ff=True, int8_attn_act_scale=0.1,
+                       use_int8_attention=True, use_fused_norms=True,
+                       use_fused_projs=False)
+# the Transformer2D of each INT8_SHAPES entry; the ragged T = 30 (the KITTI
+# mid block) on the first level's weights goes to the fallbacks
+PADDED_SITES = ["down_blocks.0.attentions.0", "down_blocks.1.attentions.0",
+                "down_blocks.2.attentions.0", "mid_block.attentions.0"]
+RAGGED_T = 30
+
+
+def _projs_trainer(seed: int = 0):
+    """An int8 trainer with ``UNetConfig.use_fused_projs`` and seeded
+    weights; the Transformer2D proj biases and the transformer blocks'
+    LayerNorm rows and ``to_out`` biases drawn too (the init leaves them 0
+    or 1, so a dropped bias would not show)."""
+    import torch
+    from ldmseg_torch.tools.profile_sampling import unet_config_for
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    trainer = TrainerDiffusion(_int8_config(),
+                               unet_config=unet_config_for(projs=True))
+    trainer.init_params(seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 200)
+    with torch.no_grad():
+        for name, p in trainer.unet.named_parameters():
+            if ".attentions." not in name:
+                continue
+            if name.endswith(("norm1.weight", "norm3.weight")):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen,
+                                                device="cuda"))
+            elif name.endswith(("proj_in.bias", "proj_out.bias",
+                                "norm1.bias", "norm3.bias", "to_out.0.bias")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen,
+                                          device="cuda"))
+    return trainer
+
+
+def pin_bound_ms(b: int, t: int, c: int):
+    """K8's bound: K3's plus the prologue's 2·T·C² bf16 operations per
+    image and its bf16 weight and fp32 bias; x is read once either way."""
+    _, _, ops8, ops16, nbytes = ln_attention_bound_ms(b, t, c)
+    ops16 += 2.0 * b * t * c * c
+    nbytes += 2 * c * c + 4 * c
+    t_ops = (ops8 / PEAK_FLOPS["int8"] + ops16 / PEAK_FLOPS["bfloat16"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops8, ops16, nbytes)
+
+
+def pout_bound_ms(b: int, t: int, c: int):
+    """K9's bound: K4's plus the epilogue's 2·T·C² bf16 operations per
+    image and its bf16 weight and fp32 bias."""
+    _, _, ops8, nbytes = geglu_ln_bound_ms(b, t, c)
+    ops16 = 2.0 * b * t * c * c
+    nbytes += 2 * c * c + 4 * c
+    t_ops = (ops8 / PEAK_FLOPS["int8"] + ops16 / PEAK_FLOPS["bfloat16"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops8, ops16, nbytes)
+
+
+def padded_bound_ms(b: int, t: int, c: int, heads: int = 8):
+    """K11's bound: four int8 projections (q, k, v, to_out) of 2·T·C² and
+    two int8 products (QKᵀ, e8·V) of 2·H·T²·d per image at the int8 peak,
+    against bf16 x in, the int8 weights, the float rows and bf16 out."""
+    d = c // heads
+    ops8 = 4 * 2.0 * b * t * c * c + 2 * 2.0 * b * heads * t * t * d
+    nbytes = 2 * b * t * c + 4 * c * c + 4 * (3 * c + heads) + 2 * b * t * c
+    t_ops = ops8 / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops8, 0.0, float(nbytes))
+
+
+def _fallback_row(name, shape, fn, wrapper):
+    """A shape the JAX rule sends to the fallback: one call, counted as a
+    fallback and no launch, finite."""
+    import torch
+    launches, fallbacks = wrapper.launches, wrapper.fallbacks
+    out = fn()
+    torch.cuda.synchronize()
+    check(wrapper.fallbacks == fallbacks + 1
+          and wrapper.launches == launches
+          and bool(torch.isfinite(out.float()).all()),
+          f"{name} {shape}: the rule's fallback was not taken or not finite")
+    return {"shape_btc": list(shape), "per_unet_forward": 0,
+            "fallback": True, "ms": time_ms(fn, iters=5, warmup=1)}
+
+
+def phase_padded_kernels(trainer, seed: int = 13):
+    """K8, K9 and K11 against their plain versions on the card with the
+    UNet's own weights (the fused-projs int8 UNet's packs for K8 and K9,
+    for K11 the pack that the K11 UNet's ``prepare`` makes from the same
+    masters) at every shape of a forward, and a ragged T that the rule
+    sends to each fallback. Beside each, the PyTorch composition it
+    replaces: for K8 the bf16 ``proj_in`` conv, the permute and K3; for K9
+    K4, the permute and the ``proj_out`` conv; for K11 bf16 projections,
+    SDPA and ``to_out``, and (``k13_block_ms``) the float projections
+    around K13."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.models.unet import CrossAttention
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as G
+
+    int8 = trainer.int8_unet()
+    bf16 = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {"K8": [], "K9": [], "K11": []}
+    shapes = [(s, n, site) for (s, n), site in zip(INT8_SHAPES,
+                                                   PADDED_SITES)]
+    for shape, per_fwd, site in shapes + [((2, RAGGED_T, 320), 0,
+                                           PADDED_SITES[0])]:
+        b, t, c = shape
+        t2d = int8.get_submodule(site)
+        blk = t2d.transformer_blocks[0]
+        p8, p9 = blk.attn1.pack, blk.ff.pack
+        p11 = S8.pack_padded_attention(
+            trainer.unet.get_submodule(site).transformer_blocks[0].attn1, 8,
+            0.1)
+        attn = bf16.get_submodule(site).transformer_blocks[0].attn1
+        x_nchw = torch.randn((b, c, t, 1), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        xg = x_nchw.reshape(b, c, t).transpose(1, 2)   # the GN's tokens
+        xs = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        with torch.inference_mode():
+            if not per_fwd:
+                rows["K8"].append(_fallback_row(
+                    "K8", shape, lambda: S8.ln_attention_s8_pin(xg, p8),
+                    S8.ln_attention_s8_pin))
+                rows["K9"].append(_fallback_row(
+                    "K9", shape, lambda: G.geglu_ln_s8_pout(xs, p9),
+                    G.geglu_ln_s8_pout))
+                rows["K11"].append(_fallback_row(
+                    "K11", shape, lambda: S8.padded_attention_s8(xs, p11),
+                    S8.padded_attention_s8))
+                continue
+
+            def k8_composition():
+                y = t2d.proj_in(x_nchw).permute(0, 2, 3, 1).reshape(b, t, c)
+                return S8.ln_attention_s8(y, p8)
+
+            def k9_composition():
+                y = G.geglu_ln_s8(xs, p9)
+                return t2d.proj_out(y.reshape(b, t, 1, c).permute(0, 3, 1, 2))
+
+            def sdpa_block():
+                q, k, v = (m(xs).reshape(b, t, 8, -1).transpose(1, 2)
+                           for m in (attn.to_q, attn.to_k, attn.to_v))
+                o = F.scaled_dot_product_attention(q, k, v)
+                return attn.to_out[0](o.transpose(1, 2).reshape(b, t, c))
+
+            k13 = CrossAttention(c, 8, use_fused=True, int8=True,
+                                 int8_act_scale=0.1).to("cuda",
+                                                        torch.bfloat16)
+            k13.load_state_dict(attn.state_dict())
+            for kid, fn, ref, comp, bound, pack in (
+                    ("K8", lambda: S8.ln_attention_s8_pin(xg, p8),
+                     lambda: S8.ln_attention_s8_pin_reference(xg, p8),
+                     k8_composition, pin_bound_ms(b, t, c), p8),
+                    ("K9", lambda: G.geglu_ln_s8_pout(xs, p9),
+                     lambda: G.geglu_ln_s8_pout_reference(xs, p9),
+                     k9_composition, pout_bound_ms(b, t, c), p9),
+                    ("K11", lambda: S8.padded_attention_s8(xs, p11),
+                     lambda: S8.padded_attention_s8_reference(xs, p11),
+                     sdpa_block, padded_bound_ms(b, t, c), p11)):
+                out = fn()
+                torch.cuda.synchronize()
+                row = _int8_row(kid, shape, per_fwd, out, ref(), fn, ref,
+                                comp, bound)
+                if kid == "K11":
+                    row["k13_block_ms"] = time_ms(lambda: k13(xs))
+                rows[kid].append(row)
+                print(f"phase 19 {kid} {shape} ({site}): err "
+                      f"{row['max_abs_err']:.3e} of max|ref| "
+                      f"{row['max_abs_ref']:.3e}, mean "
+                      f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
+                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}), composition "
+                      f"{row['bf16_block_ms']:.4f} ms"
+                      + (f", float projections + K13 "
+                         f"{row['k13_block_ms']:.4f} ms"
+                         if kid == "K11" else ""), flush=True)
+    for kid, rs in rows.items():
+        fb = [r for r in rs if r.get("fallback")]
+        print(f"phase 19 {kid} T={RAGGED_T}: the rule's fallback, "
+              f"{fb[0]['ms']:.4f} ms", flush=True)
+    return rows
+
+
+def _unet_vs_bf16(label, phase, unet, bf16, expect, seed: int = 1,
+                  reference_ms=None):
+    """One forward of ``unet`` at full width against the bf16 UNet on K1 of
+    the same masters (the input of phase 3): the launches of that forward
+    checked against ``expect``, no fallback, correlation >= 0.9, ms per
+    forward."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, bf16.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    with torch.inference_mode():
+        ref = bf16(x, t).float()
+        _zero_counts()
+        out = unet(x, t).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        ms = time_ms(lambda: unet(x, t), iters=10)
+        bf16_ms = time_ms(lambda: bf16(x, t), iters=10)
+    check(counts == _expect(**expect), f"{label} forward launched {counts}, "
+          f"expected {expect} and 0 fallbacks")
+    check(bool(torch.isfinite(out).all()), f"{label} output not finite")
+    rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[
+        0, 1].item()
+    check(corr >= 0.9, f"{label} vs bf16: correlation {corr} < 0.9")
+    extra = ("" if reference_ms is None else
+             f", phase 8's int8 UNet (K3 + K4) {reference_ms:.3f} ms")
+    print(f"phase {phase} {label} forward, [2, 12, 32, 64]: {ms:.3f} ms "
+          f"(bf16 on K1 {bf16_ms:.3f} ms{extra}), launches {counts}; vs "
+          f"bf16: mean rel err {rel:.3e}, correlation {corr:.6f} (>= 0.9)",
+          flush=True)
+    return {"ms": ms, "bf16_ms": bf16_ms, "mean_rel_err": rel,
+            "correlation": corr, "counts": counts}
+
+
+def phase_padded_sample(unet, seed: int = 2, steps: int = 50):
+    """The port's ``ddim_sample`` with self-conditioning on the K11 UNet, 50
+    steps at batch 2 on a 32x64 latent (random RGB latents): 800 K11 and
+    800 K12 launches, 0 of every other kernel, no fallback."""
+    import torch
+    from ldmseg_torch.tools.profile_sampling import padded_sample
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rgb, noise = (torch.randn((2, 4, 32, 64), generator=gen, device="cuda")
+                  for _ in range(2))
+    rgb = rgb.to(torch.bfloat16)
+    padded_sample(unet, rgb, noise, steps=2)   # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    x0 = padded_sample(unet, rgb, noise, steps=steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    want = _expect(K11=16 * steps, K12=16 * steps)
+    check(counts == want, f"K11 ddim_sample launched {counts}, expected "
+          f"{want}")
+    check(tuple(x0.shape) == (2, 4, 32, 64)
+          and bool(torch.isfinite(x0).all()), "K11 ddim_sample x0")
+    print(f"phase 23 K11 UNet ddim_sample: {steps} DDIM steps, [2, 4, 32, "
+          f"64]: {secs:.3f} s, launches {counts}", flush=True)
+    return counts, {"seconds": secs}
+
+
 def main() -> int:
     try:
         import torch
@@ -1597,6 +1886,30 @@ def main() -> int:
             smi_line, gn_sample, calibrate=True, phase=18)
         del trainer
         torch.cuda.empty_cache()
+        # the padded-attention flags: K8, K9, K11 and the F1 repair
+        from ldmseg_torch.tools.profile_sampling import (PADDED_FLAGS,
+                                                         int8_unet_from)
+        trainer = _projs_trainer()
+        padded_rows = phase_padded_kernels(trainer)
+        bf16 = trainer.inference_unet()
+        projs_unet = _unet_vs_bf16(
+            "int8 UNet with fused projs (K8 + K9)", 20, trainer.int8_unet(),
+            bf16, {"K8": 16, "K9": 16},
+            reference_ms=int8_unet_result["int8_ms"])
+        projs = phase_int8_sample(
+            trainer, "int8 with fused projs", {"K8": 16, "K9": 16},
+            smi_line, sample_result, calibrate=True, phase=21)
+        variant_b_unet = _unet_vs_bf16(
+            "variant B UNet (fused norms without padded attention: K13 + "
+            "K4)", 22, int8_unet_from(trainer.unet, VARIANT_B_FLAGS), bf16,
+            {"K13": 16, "K4": 16})
+        k11_unet = int8_unet_from(trainer.unet, PADDED_FLAGS)
+        k11_unet_result = _unet_vs_bf16(
+            "K11 UNet (K11 + K12)", 23, k11_unet, bf16,
+            {"K11": 16, "K12": 16})
+        k11_counts, k11_sample = phase_padded_sample(k11_unet)
+        del trainer, k11_unet, bf16
+        torch.cuda.empty_cache()
         sample_result.pop("x0")
         gn_sample.pop("x0")
         print(json.dumps({"results": {
@@ -1609,7 +1922,12 @@ def main() -> int:
             "gn_unet_forward": gn_unet_result,
             "gn_sample_panoptic": gn_sample, "gn_train": gn_train_result,
             "gn_int8_unet_forward": gn_int8_unet_result,
-            "gn_int8_sample_panoptic": gn_int8}}), flush=True)
+            "gn_int8_sample_panoptic": gn_int8,
+            "projs_int8_unet_forward": projs_unet,
+            "projs_int8_sample_panoptic": projs,
+            "variant_b_unet_forward": variant_b_unet,
+            "k11_unet_forward": k11_unet_result,
+            "k11_ddim_sample": k11_sample}}), flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
         paths = {"sample_panoptic": bf16_counts,
@@ -1626,6 +1944,12 @@ def main() -> int:
         for mode, res in gn_int8.items():
             paths[f"sample_panoptic int8, int8_fuse_gn, {mode}"] = res[
                 "counts"]
+        for mode, res in projs.items():
+            paths[f"sample_panoptic int8, use_fused_projs, {mode}"] = res[
+                "counts"]
+        paths["UNet forward, variant B flags"] = variant_b_unet["counts"]
+        paths["UNet forward, K11 UNet"] = k11_unet_result["counts"]
+        paths["ddim_sample, K11 UNet, 50 steps"] = k11_counts
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -1644,6 +1968,28 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/geglu.py:164",
                        "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel",
                        k4_rows, dyn["K4"], by_path("K4")),
+            int8_entry("attention_ln_s8_pin", "K8",
+                       "ldmseg_torch/csrc/attention_ln_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:875",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_abs_padded_ln_s8_vt_pin",
+                       padded_rows["K8"],
+                       projs["default scales"]["counts"]["K8"],
+                       by_path("K8")),
+            int8_entry("geglu_ln_s8_pout", "K9",
+                       "ldmseg_torch/csrc/geglu_ln_s8.cu",
+                       "ldmseg_tpu/ops/pallas/geglu.py:186",
+                       "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_pout_kernel",
+                       padded_rows["K9"],
+                       projs["default scales"]["counts"]["K9"],
+                       by_path("K9")),
+            int8_entry("attention_padded_s8", "K11",
+                       "ldmseg_torch/csrc/attention_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:646",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_abs_padded_s8",
+                       padded_rows["K11"], k11_counts["K11"],
+                       by_path("K11")),
             int8_entry("geglu_s8", "K12",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:123",

@@ -1,5 +1,9 @@
-// K3 on Hopper: the int8 UNet's fused self-attention block,
-// out = x + to_out(attention(LN(x))) + b_out, on the token layout [B, T, C].
+// K3 and K8 on Hopper: the int8 UNet's fused self-attention block,
+// K3: out = x + to_out(attention(LN(x))) + b_out, on the token layout
+//     [B, T, C];
+// K8: the same block on the residual stream xf = x Wpi + b_pi that a bf16
+//     prologue builds from the GroupNorm output x (Transformer2D's 1x1
+//     proj_in conv, use_fused_projs).
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:
 // _attn_kernel_abs_padded_ln_s8_vt / _abs_padded_ln_s8_vt_body (pallas_call
@@ -32,17 +36,30 @@
 // kernels on the stream, each tiled for shared memory, hand int8 and bf16
 // intermediates through device memory (L2 holds them at these sizes):
 //   a. ln_quant: one warp per token row, LN + quantize -> x8 [B*T, C];
-//   b. qkv: 64x64 output tiles of x8 [Wq; Wk; Wv]^T (int8 wmma, int32), the
-//      epilogue requantizing q8 and k8 per column and dequantizing v to
-//      bf16;
+//   b. qkv (s8_gemm_kernel, s8_common.cuh): 64x64 output tiles of
+//      x8 [Wq; Wk; Wv]^T (int8 wmma, int32), the epilogue requantizing q8
+//      and k8 per column and dequantizing v to bf16;
 //   c. attention: one block per (image*head, 64-query tile); int8 Q K^T
 //      with d zero-padded in shared memory to a multiple of 16 (40 -> 48;
 //      zeros are exact), two passes over 64-key tiles as K1 (row max, then
 //      bf16 P, its fp32 sum and P V on bf16 wmma), o in bf16;
-//   d. out: 64x64 tiles of o Wo^T on bf16 wmma with fp32 sums, the
-//      residual and bias epilogue.
+//   d. out (bf16_gemm_kernel, s8_common.cuh): 64x64 tiles of o Wo^T on
+//      bf16 wmma with fp32 sums, the residual and bias epilogue.
 // Every product of the TPU kernel's body runs in these kernels. A simple
 // kernel that is right comes first; speed is later work.
+//
+// K8 replaces _attn_kernel_abs_padded_ln_s8_vt_pin (pallas_call in
+// _abs_padded_ln_s8_vt_pin_impl, absorbed_padded_ln_self_attention_s8 with
+// proj_in), which runs the same body after the prologue
+//   0. xf = float(x Wpi) + b_pi: bf16 operands, fp32 sums, an fp32 result
+//      that is never rounded to bf16: the LN reads it and so does the
+//      residual of step 6.
+// So K8 is K3's four kernels on an fp32 residual stream (launch<float>)
+// behind a fifth, the prologue: 64x64 tiles of x Wpi^T on bf16 wmma with
+// the bias epilogue, into an fp32 scratch [B*T, C]. It reads x either as
+// tokens [B, T, C] or channel-major [B, C, T], the GroupNorm's NCHW output
+// as it lies, which saves the caller a permute copy. Its 2*T*C^2 bf16
+// operations per image add ~1/3 to K3's bf16 work at every level.
 
 #include "s8_common.cuh"
 
@@ -54,49 +71,8 @@ constexpr int kMaxD = 160;                // largest head dim taken
 constexpr int kMaxDTiles = kMaxD / 16;    // output column tiles per warp
 constexpr int kPld = kTile + 8;           // P row stride (bf16)
 
-// ---- b: the three projections ------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    qkv_kernel(const int8_t* __restrict__ x8, const int8_t* __restrict__ w,
-               const float* __restrict__ m, int8_t* __restrict__ q8,
-               int8_t* __restrict__ k8, __nv_bfloat16* __restrict__ v,
-               int rows, int c) {
-  __shared__ __align__(256) int8_t As[kTile * kDepth];
-  __shared__ __align__(256) int8_t Bs[kTile * kDepth];
-  __shared__ __align__(256) int S[kTile * kStageLd];
-  const int r0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int n_all = 3 * c;
-  AccFrag acc[4];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < c; k0 += kDepth) {
-    __syncthreads();
-    load_s8_tile(As, x8, c, r0, rows, k0, c);
-    load_s8_tile(Bs, w, c, n0, n_all, k0, c);
-    __syncthreads();
-    mma_s8_stage(acc, As, Bs);
-  }
-  stage_acc(S, acc);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int r = i / kTile;
-    const int cc = i - r * kTile;
-    const int row = r0 + r;
-    const int n = n0 + cc;
-    if (row >= rows || n >= n_all) continue;
-    const float f = static_cast<float>(S[r * kStageLd + cc]) * m[n];
-    const int which = n / c;
-    const long long at = static_cast<long long>(row) * c + (n - which * c);
-    if (which == 0) {
-      q8[at] = quant_s8(f);
-    } else if (which == 1) {
-      k8[at] = quant_s8(f);
-    } else {
-      v[at] = __float2bfloat16_rn(f);
-    }
-  }
-}
-
-// the same for one head's bf16 columns into a row-major [64][ld] tile
+// load_head_s8 (s8_common.cuh) for one head's bf16 columns, into a
+// row-major [64][ld] tile
 __device__ __forceinline__ void load_head_bf16(
     __nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ src, int c,
     int row0, int t, int d, int dp) {
@@ -236,78 +212,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- d: to_out, residual and bias ----------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    out_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ o,
-               const __nv_bfloat16* __restrict__ wo,
-               const float* __restrict__ bias,
-               __nv_bfloat16* __restrict__ out, int rows, int c) {
-  using namespace nvcuda;
-  constexpr int kLd = kDepth + 8;
-  __shared__ __align__(256) __nv_bfloat16 As[kTile * kLd];
-  __shared__ __align__(256) __nv_bfloat16 Bs[kTile * kLd];
-  __shared__ __align__(256) float S[kTile * kStageLd];
-  const int r0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-  for (int k0 = 0; k0 < c; k0 += kDepth) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTile * (kDepth / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int k = k0 + (i & 7) * 8;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u);
-      uint4 bw = make_uint4(0u, 0u, 0u, 0u);
-      if (k < c) {
-        if (r0 + r < rows) {
-          a = *reinterpret_cast<const uint4*>(
-              o + static_cast<long long>(r0 + r) * c + k);
-        }
-        if (n0 + r < c) {
-          bw = *reinterpret_cast<const uint4*>(
-              wo + static_cast<long long>(n0 + r) * c + k);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * kLd + (i & 7) * 8) = a;
-      *reinterpret_cast<uint4*>(Bs + r * kLd + (i & 7) * 8) = bw;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a;
-      wmma::load_matrix_sync(a, As + warp * 16 * kLd + kk * 16, kLd);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major>
-            bf;
-        wmma::load_matrix_sync(bf, Bs + n * 16 * kLd + kk * 16, kLd);
-        wmma::mma_sync(acc[n], a, bf, acc[n]);
-      }
-    }
+// the prologue's epilogue: xf = sum + bias[col] in fp32, [rows, n]
+struct BiasF32Epi {
+  static constexpr bool kColMajor = false;
+  const float* bias;
+  float* xf;
+  int n;
+  __device__ void operator()(int row, int col, float sum) const {
+    xf[static_cast<long long>(row) * n + col] = sum + bias[col];
   }
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    wmma::store_matrix_sync(S + warp * 16 * kStageLd + n * 16, acc[n],
-                            kStageLd, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int r = i / kTile;
-    const int cc = i - r * kTile;
-    const int row = r0 + r;
-    const int n = n0 + cc;
-    if (row >= rows || n >= c) continue;
-    const long long at = static_cast<long long>(row) * c + n;
-    out[at] = __float2bfloat16_rn((to_f(x[at]) + S[r * kStageLd + cc]) +
-                                  bias[n]);
-  }
-}
+};
 
 size_t attn_smem(int d) {
   const int dp = (d + 15) & ~15;
@@ -327,10 +241,8 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
   int err = launch_ln_quant<T>(x, x8, ln_w, ln_b, rows, c, xs, eps, nullptr,
                                0, stream);
   if (err != 0) return err;
-  const dim3 grid_qkv((rows + kTile - 1) / kTile, (3 * c + kTile - 1) / kTile);
-  qkv_kernel<<<grid_qkv, kThreads, 0, stream>>>(x8, w_qkv, m_qkv, q8, k8, v,
-                                                 rows, c);
-  err = static_cast<int>(cudaGetLastError());
+  err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
+                       QkvEpi<false>{m_qkv, q8, k8, v, c}, stream);
   if (err != 0) return err;
   const size_t smem = attn_smem(d);
   err = static_cast<int>(cudaFuncSetAttribute(
@@ -342,11 +254,11 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
                                                       c, d, score_scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const dim3 grid_out((rows + kTile - 1) / kTile, (c + kTile - 1) / kTile);
-  out_kernel<T><<<grid_out, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), o, wo, out_b,
-      static_cast<__nv_bfloat16*>(out), rows, c);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bf16_gemm<false>(
+      o, wo, rows, c, c, t,
+      ResidualEpi<T>{static_cast<const T*>(x), out_b,
+                     static_cast<__nv_bfloat16*>(out), c},
+      stream);
 }
 
 }  // namespace
@@ -381,4 +293,37 @@ extern "C" int ldmseg_attention_ln_s8(
                                  score_scale, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K8: x bf16, channel-major [batch, c, t] when channels_major, else
+// [batch*t, c]; wpi bf16 [c, c] (out, in), bpi fp32 [c]; xf fp32 [batch*t,
+// c] is scratch (the residual stream); the other arguments as in
+// ldmseg_attention_ln_s8. Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_ln_s8_pin(
+    int channels_major, const void* x, const void* wpi, const float* bpi,
+    float* xf, void* out, const float* ln_w, const float* ln_b,
+    const float* out_b, const int8_t* w_qkv, const float* m_qkv,
+    const void* wo, int8_t* x8, int8_t* q8, int8_t* k8, void* v, void* o,
+    int batch, int t, int c, int heads, float xs, float score_scale,
+    float eps, void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
+      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+      (channels_major && t % 8 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wpib = static_cast<const __nv_bfloat16*>(wpi);
+  const int rows = batch * t;
+  const BiasF32Epi epi{bpi, xf, c};
+  const int err =
+      channels_major
+          ? launch_bf16_gemm<true>(xb, wpib, rows, c, c, t, epi, s)
+          : launch_bf16_gemm<false>(xb, wpib, rows, c, c, t, epi, s);
+  if (err != 0) return err;
+  return launch<float>(xf, out, ln_w, ln_b, out_b, w_qkv, m_qkv,
+                       static_cast<const __nv_bfloat16*>(wo), x8, q8, k8,
+                       static_cast<__nv_bfloat16*>(v),
+                       static_cast<__nv_bfloat16*>(o), batch, t, c, heads,
+                       xs, score_scale, eps, s);
 }

@@ -1,5 +1,10 @@
-// K13 on Hopper: the int8 UNet's self-attention without fused norms,
-// o = softmax(Q K^T * scale) V with q, k, v quantized to int8, on [B, T, H, D].
+// K13 and K11 on Hopper: the int8 UNet's self-attention without fused
+// norms,
+// K13: o = softmax(Q K^T * scale) V with q, k, v quantized to int8, on
+//      [B, T, H, D];
+// K11: the same attention with the projections around it, x [B, T, C] ->
+//      to_out(attention(x Wq, x Wk, x Wv)) on int8 weights
+//      (use_padded_attention without use_fused_norms).
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8
 // (pallas_call in _fused_impl_s8, public fused_self_attention_s8), together
@@ -39,6 +44,32 @@
 // k-blocked over keys ([4][64 rows][16]), the V tile as 16x16 blocks
 // ([4 key slices][D/16 column tiles][16 keys][16 columns]), the row-major B
 // operand with ld 16. A simple kernel that is right comes first.
+//
+// K11 replaces ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_abs_padded_s8
+// (pallas_call in _abs_padded_s8_impl, public
+// absorbed_padded_self_attention_s8), whose wrapper quantizes x once. Its
+// rounding points, per image, with as = 0.1 and xs the static scale of x:
+//   1. x8 = clip(rint(float(x) / xs), +-127);
+//   2. q8 = clip(rint(float(x8 Wq8) * m[col]), +-127) with m = w_scale[h] *
+//      (xs / as), int32 product; k8 and v8 the same (all three int8);
+//   3. per head: s = float(q8 k8^T) * as^2 * d^-0.5, e = exp((s - rowmax) +
+//      ln 127), denom = sum(e) over the fp32 e, e8 = rint(e);
+//   4. of8 = clip(rint(float(e8 v8) * (r_h / denom)), +-127) with r_h =
+//      wos[h] / max(wos), int32 product;
+//   5. out = bf16(float(of8 Wo8) * (as * max(wos))), int32 product.
+// The TPU kernel's 128-lane head padding and one-hot-free head slices are
+// layout work; their zeros are exact and are not carried over.
+//
+// What bounds it: K3's work without the LN, with P V and to_out on int8:
+// per image 4 * 2*T*C^2 + 2 * 2*H*T^2*d int8 operations at 1,979 TOPS
+// against x in, the int8 weights and the bf16 output.
+//
+// Design. Four kernels on the stream, int8 intermediates through device
+// memory: (a) ln_quant without the LN (s8_common.cuh), x -> x8; (b)
+// s8_gemm_kernel with the three projections requantized in its epilogue
+// (K3's, with v8 int8); (c) attn_s8 above with sc0 = the score scale and
+// the epilogue of step 4 (template flag kS8Out); (d) s8_gemm_kernel of of8
+// with Wo8 and the dequantize of step 5.
 
 #include "s8_common.cuh"
 
@@ -109,13 +140,16 @@ __device__ __forceinline__ void load_head_s8_blocks(
 }
 
 // ---- b: attention per (image*head, 64-query tile) ------------------------
+// kS8Out (K11): of8 = clip(rint(float(o32) * (ratio[h] / denom))) into an
+// int8 o; else (K13) o = bf16(float(o32) * ((sc1 * 127) / denom)).
+template <bool kS8Out>
 __global__ void __launch_bounds__(kThreads)
     attn_s8_kernel(const int8_t* __restrict__ q8,
                    const int8_t* __restrict__ k8,
-                   const int8_t* __restrict__ v8,
-                   __nv_bfloat16* __restrict__ o, int heads, int t, int d,
+                   const int8_t* __restrict__ v8, void* __restrict__ o,
+                   int heads, int t, int d,
                    const float* __restrict__ scale_dev, float qs, float ks,
-                   float vs, float scale) {
+                   float vs, float scale, const float* __restrict__ ratio) {
   using namespace nvcuda;
   extern __shared__ __align__(256) unsigned char smem[];
   const int dp = (d + 15) & ~15;
@@ -214,12 +248,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  const float f = (sc1 * 127.f) / l_run;
+  const float f = kS8Out ? ratio[h] / l_run : (sc1 * 127.f) / l_run;
 
-  // o = bf16(o32 * f) for query rows < t and columns < d, staged per warp
-  // through this warp's rows of S
+  // o = bf16(o32 * f) (or of8) for query rows < t and columns < d, staged
+  // per warp through this warp's rows of S
   int* stage = S + warp * 16 * kStageLd;
-  __nv_bfloat16* ob = o + base;
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < kMaxDTiles; ++n) {
@@ -232,9 +265,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) {
         const int cc = n * 16 + (lane & 1) * 8 + j;
         if (grow < t && cc < d) {
-          ob[static_cast<long long>(grow) * ld + cc] = __float2bfloat16_rn(
+          const long long at = base + static_cast<long long>(grow) * ld + cc;
+          const float y =
               static_cast<float>(stage[r * kStageLd + (lane & 1) * 8 + j]) *
-              f);
+              f;
+          if constexpr (kS8Out) {
+            static_cast<int8_t*>(o)[at] = quant_s8(y);
+          } else {
+            static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(y);
+          }
         }
       }
       __syncwarp();
@@ -269,13 +308,55 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
   if (err != 0) return err;
   const size_t smem = attn_smem(d);
   err = static_cast<int>(cudaFuncSetAttribute(
-      attn_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_s8_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
   if (err != 0) return err;
   const dim3 grid((t + kTile - 1) / kTile, batch * heads);
-  attn_s8_kernel<<<grid, kThreads, smem, stream>>>(
-      q8, k8, v8, o, heads, t, d, scale_dev, qs, ks, vs, scale);
+  attn_s8_kernel<false><<<grid, kThreads, smem, stream>>>(
+      q8, k8, v8, o, heads, t, d, scale_dev, qs, ks, vs, scale, nullptr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K11's to_out: out = bf16(float(sum) * scale), [rows, n]
+struct DequantBf16Epi {
+  static constexpr bool kColMajor = false;
+  float scale;
+  __nv_bfloat16* out;
+  int n;
+  __device__ void operator()(int row, int col, int sum) const {
+    out[static_cast<long long>(row) * n + col] =
+        __float2bfloat16_rn(static_cast<float>(sum) * scale);
+  }
+};
+
+template <typename T>
+int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
+                  const float* m_qkv, const int8_t* wo, const float* ratio,
+                  int8_t* x8, int8_t* q8, int8_t* k8, int8_t* v8,
+                  int8_t* of8, int batch, int t, int c, int heads, float xs,
+                  float score_scale, float out_scale, cudaStream_t stream) {
+  const int rows = batch * t;
+  const int d = c / heads;
+  int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
+                                      0.f, nullptr, 0, stream);
+  if (err != 0) return err;
+  err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
+                       QkvEpi<true>{m_qkv, q8, k8, v8, c}, stream);
+  if (err != 0) return err;
+  const size_t smem = attn_smem(d);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      attn_s8_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err != 0) return err;
+  // sc0 = (1 * 1) * score_scale: the score scale exactly
+  const dim3 grid((t + kTile - 1) / kTile, batch * heads);
+  attn_s8_kernel<true><<<grid, kThreads, smem, stream>>>(
+      q8, k8, v8, of8, heads, t, d, nullptr, 1.f, 1.f, 1.f, score_scale,
+      ratio);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_s8_gemm(of8, wo, rows, c, c,
+                        DequantBf16Epi{out_scale, out, c}, stream);
 }
 
 }  // namespace
@@ -305,6 +386,36 @@ extern "C" int ldmseg_attention_s8(
   if (dtype == 1) {
     return launch<__nv_bfloat16>(q, k, v, strides, q8, k8, v8, ob, batch, t,
                                  heads, d, scale_dev, qs, ks, vs, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K11: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous;
+// out bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns),
+// m_qkv fp32 [3c] (requant factors), wo int8 [c, c] (out, in), ratio fp32
+// [heads] (wos[h] / max(wos)). x8, q8, k8, v8 and of8 (int8, each [batch*t,
+// c]) are scratch. Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_padded_s8(
+    int dtype, const void* x, void* out, const int8_t* w_qkv,
+    const float* m_qkv, const int8_t* wo, const float* ratio, int8_t* x8,
+    int8_t* q8, int8_t* k8, int8_t* v8, int8_t* of8, int batch, int t, int c,
+    int heads, float xs, float score_scale, float out_scale, void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
+      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (dtype == 0) {
+    return launch_padded<float>(x, ob, w_qkv, m_qkv, wo, ratio, x8, q8, k8,
+                                v8, of8, batch, t, c, heads, xs, score_scale,
+                                out_scale, s);
+  }
+  if (dtype == 1) {
+    return launch_padded<__nv_bfloat16>(x, ob, w_qkv, m_qkv, wo, ratio, x8,
+                                        q8, k8, v8, of8, batch, t, c, heads,
+                                        xs, score_scale, out_scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,7 @@
-// K4 and K12 on Hopper: the int8 UNet's fused feed-forward,
+// K4, K9 and K12 on Hopper: the int8 UNet's fused feed-forward,
 // K4:  out = x + W2 q(h * gelu_tanh(gate)) s2 + b2 with [h, gate] = W1 q(LN(x)),
+// K9:  out = bf16(K4(x)) Wpo + b_po, Transformer2D's 1x1 proj_out conv as a
+//      bf16 epilogue (use_fused_projs),
 // K12: out = W2 q(h * gelu_tanh(gate)) s2 with [h, gate] = W1 q(x),
 // on the token layout [B, T, C] with interior width M = 4C.
 //
@@ -47,6 +49,17 @@
 // A 64-token tile never straddles a block: block_t is T when T <= 512,
 // else 512, and the wrapper sends only T % block_t == 0 here. W1 and W2
 // stream through shared memory 64 deep at a time.
+//
+// K9 replaces _geglu_ln_pout_kernel (pallas_call in _geglu_ln_pout_impl,
+// fused_geglu_ln_s8 with proj_out): K4's steps 1-5 with the block's output
+// rounded, r = bf16(float(x) + y * gs * s2 + b2) over the whole row, then
+//   6. out = bf16(float(r Wpo) + b_po): bf16 operands, fp32 sums.
+// r crosses tiles of the product, so K4's four kernels write it to a bf16
+// scratch [B*T, C] and a fifth, bf16_gemm_kernel (s8_common.cuh), runs the
+// product with the bias epilogue, writing out channel-major [B, C, T]: the
+// NCHW layout of Transformer2D's residual add, so the caller adds without a
+// permute. Its 2*T*C^2 bf16 operations per image are ~1/6 of K4's int8
+// operations counted at the bf16 rate.
 
 #include "s8_common.cuh"
 
@@ -215,6 +228,20 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K9's epilogue: out = bf16(sum + bias[col]) channel-major, [rows / t][n][t]
+struct ChannelMajorBiasEpi {
+  static constexpr bool kColMajor = true;
+  const float* bias;
+  __nv_bfloat16* out;
+  int n;
+  int t;
+  __device__ void operator()(int row, int col, float sum) const {
+    const int img = row / t;
+    out[(static_cast<long long>(img) * n + col) * t + (row - img * t)] =
+        __float2bfloat16_rn(sum + bias[col]);
+  }
+};
+
 }  // namespace
 
 // dtype of x: 0 = float32, 1 = bfloat16; out is bf16. x, out [batch*t, c]
@@ -274,4 +301,25 @@ extern "C" int ldmseg_geglu_s8(
                                         dynamic, 0.f, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K9: the arguments of ldmseg_geglu_ln_s8, with out bf16 channel-major
+// [batch, c, t], wpo bf16 [c, c] (out, in), bpo fp32 [c] and r bf16
+// [batch*t, c] scratch (the block's output, the product's A operand).
+extern "C" int ldmseg_geglu_ln_s8_pout(
+    int dtype, const void* x, void* out, const float* ln_w,
+    const float* ln_b, const int8_t* w1, const float* s1, const float* b1,
+    const int8_t* w2, const float* s2, const float* b2, const void* wpo,
+    const float* bpo, void* r, int8_t* x8, float* g, int8_t* g8,
+    unsigned* amax, int batch, int t, int c, int m, int block_t, float xs,
+    float gs, int dynamic, float eps, void* stream) {
+  const int err = ldmseg_geglu_ln_s8(dtype, x, r, ln_w, ln_b, w1, s1, b1, w2,
+                                     s2, b2, x8, g, g8, amax, batch, t, c, m,
+                                     block_t, xs, gs, dynamic, eps, stream);
+  if (err != 0) return err;
+  return launch_bf16_gemm<false>(
+      static_cast<const __nv_bfloat16*>(r),
+      static_cast<const __nv_bfloat16*>(wpo), batch * t, c, c, t,
+      ChannelMajorBiasEpi{bpo, static_cast<__nv_bfloat16*>(out), c, t},
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,12 @@
-// Pieces shared by K3 (attention_ln_s8.cu), K4 and K12 (geglu_ln_s8.cu) and
-// K13 (attention_s8.cu): the (LayerNorm +) static-scale int8 quantize of
-// token rows, the int8 tile loaders, the 64x64 int8 product step and the
-// int8 Q K^T score tile on tensor cores (nvcuda::wmma s8 16x16x16 with
-// int32 accumulators).
+// Pieces shared by K3 and K8 (attention_ln_s8.cu), K4, K9 and K12
+// (geglu_ln_s8.cu) and K13 and K11 (attention_s8.cu): the (LayerNorm +)
+// static-scale int8 quantize of token rows, the int8 tile loaders, the 64x64
+// int8 product step and the int8 Q K^T score tile on tensor cores
+// (nvcuda::wmma s8 16x16x16 with int32 accumulators), and two whole
+// products on 64x64 output tiles with the caller's epilogue: int8 x int8
+// with int32 sums (K3's, K8's and K11's projections, K11's to_out) and
+// bf16 x bf16 with fp32 sums (K3's and K8's to_out, K8's proj_in prologue,
+// K9's proj_out epilogue).
 //
 // Layout of an int8 tile in shared memory: "k-blocked", [depth / 16][64
 // rows][16]. Every 16-deep slice of a row then starts on a 16-byte boundary
@@ -207,5 +211,211 @@ __device__ __forceinline__ void score_tile(const int8_t* Qs, const int8_t* Ks,
   }
   stage_acc(S, acc);
 }
+
+
+// ---- whole products: C = A W^T on 64x64 output tiles ---------------------
+// A [rows, k] and W [n, k] row-major (k a multiple of 8), each element of
+// the product handed to epi(row, col, sum) for row < rows, col < n. The
+// epilogue is the caller's rounding point: a functor with a
+// __device__ operator() and a static constexpr bool kColMajor, which makes
+// the tile's elements go to threads down its columns (consecutive rows to
+// consecutive threads), so that a store to a channel-major [images][n][t]
+// output is coalesced.
+
+// int8 A and W, int32 sums
+template <class Epi>
+__global__ void __launch_bounds__(kThreads)
+    s8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
+                   int rows, int n, int k, Epi epi) {
+  __shared__ __align__(256) int8_t As[kTile * kDepth];
+  __shared__ __align__(256) int8_t Bs[kTile * kDepth];
+  __shared__ __align__(256) int S[kTile * kStageLd];
+  const int r0 = blockIdx.x * kTile;
+  const int n0 = blockIdx.y * kTile;
+  AccFrag acc[4];
+  zero_acc(acc);
+  for (int k0 = 0; k0 < k; k0 += kDepth) {
+    __syncthreads();
+    load_s8_tile(As, a, k, r0, rows, k0, k);
+    load_s8_tile(Bs, w, k, n0, n, k0, k);
+    __syncthreads();
+    mma_s8_stage(acc, As, Bs);
+  }
+  stage_acc(S, acc);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+    const int major = i / kTile;
+    const int minor = i - major * kTile;
+    const int r = Epi::kColMajor ? minor : major;
+    const int cc = Epi::kColMajor ? major : minor;
+    if (r0 + r < rows && n0 + cc < n) {
+      epi(r0 + r, n0 + cc, S[r * kStageLd + cc]);
+    }
+  }
+}
+
+template <class Epi>
+int launch_s8_gemm(const int8_t* a, const int8_t* w, int rows, int n, int k,
+                   Epi epi, cudaStream_t stream) {
+  const dim3 grid((rows + kTile - 1) / kTile, (n + kTile - 1) / kTile);
+  s8_gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(a, w, rows, n, k, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 A and W, fp32 sums. kAColMajor: A is held channel-major,
+// [rows / t][k][t] (a GroupNorm's NCHW output read as tokens; t a multiple
+// of 8, so 8 consecutive rows never straddle two images), staged [depth][64
+// rows] in shared memory and read by col_major fragments.
+template <bool kAColMajor, class Epi>
+__global__ void __launch_bounds__(kThreads)
+    bf16_gemm_kernel(const __nv_bfloat16* __restrict__ a,
+                     const __nv_bfloat16* __restrict__ w, int rows, int n,
+                     int k, int t, Epi epi) {
+  using namespace nvcuda;
+  constexpr int kLd = kDepth + 8;   // [64 rows][depth] tiles
+  constexpr int kLdT = kTile + 8;   // [depth][64 rows] tile of A
+  static_assert(kTile * kLd == kDepth * kLdT, "one buffer, both layouts");
+  __shared__ __align__(256) __nv_bfloat16 As[kTile * kLd];
+  __shared__ __align__(256) __nv_bfloat16 Bs[kTile * kLd];
+  __shared__ __align__(256) float S[kTile * kStageLd];
+  const int r0 = blockIdx.x * kTile;
+  const int n0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x / 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int k0 = 0; k0 < k; k0 += kDepth) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTile * (kDepth / 8); i += kThreads) {
+      const int r = i >> 3;
+      const int u = i & 7;
+      const int kk = k0 + u * 8;
+      uint4 bw = make_uint4(0u, 0u, 0u, 0u);
+      if (kk < k && n0 + r < n) {
+        bw = *reinterpret_cast<const uint4*>(
+            w + static_cast<long long>(n0 + r) * k + kk);
+      }
+      *reinterpret_cast<uint4*>(Bs + r * kLd + u * 8) = bw;
+      uint4 av = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (kAColMajor) {
+        // r runs over the depth here (kDepth == kTile): depth row r of the
+        // tile takes 8 consecutive tokens of input channel kd
+        const int kd = k0 + r;
+        const int row = r0 + u * 8;
+        if (kd < k && row < rows) {
+          const int img = row / t;
+          const long long at =
+              (static_cast<long long>(img) * k + kd) * t + (row - img * t);
+          av = *reinterpret_cast<const uint4*>(a + at);
+        }
+        *reinterpret_cast<uint4*>(As + r * kLdT + u * 8) = av;
+      } else {
+        if (kk < k && r0 + r < rows) {
+          av = *reinterpret_cast<const uint4*>(
+              a + static_cast<long long>(r0 + r) * k + kk);
+        }
+        *reinterpret_cast<uint4*>(As + r * kLd + u * 8) = av;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
+      if constexpr (kAColMajor) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major>
+            af;
+        wmma::load_matrix_sync(af, As + kk * 16 * kLdT + warp * 16, kLdT);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::col_major>
+              bf;
+          wmma::load_matrix_sync(bf, Bs + j * 16 * kLd + kk * 16, kLd);
+          wmma::mma_sync(acc[j], af, bf, acc[j]);
+        }
+      } else {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major>
+            af;
+        wmma::load_matrix_sync(af, As + warp * 16 * kLd + kk * 16, kLd);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::col_major>
+              bf;
+          wmma::load_matrix_sync(bf, Bs + j * 16 * kLd + kk * 16, kLd);
+          wmma::mma_sync(acc[j], af, bf, acc[j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wmma::store_matrix_sync(S + warp * 16 * kStageLd + j * 16, acc[j],
+                            kStageLd, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+    const int major = i / kTile;
+    const int minor = i - major * kTile;
+    const int r = Epi::kColMajor ? minor : major;
+    const int cc = Epi::kColMajor ? major : minor;
+    if (r0 + r < rows && n0 + cc < n) {
+      epi(r0 + r, n0 + cc, S[r * kStageLd + cc]);
+    }
+  }
+}
+
+template <bool kAColMajor, class Epi>
+int launch_bf16_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
+                     int rows, int n, int k, int t, Epi epi,
+                     cudaStream_t stream) {
+  const dim3 grid((rows + kTile - 1) / kTile, (n + kTile - 1) / kTile);
+  bf16_gemm_kernel<kAColMajor, Epi><<<grid, kThreads, 0, stream>>>(
+      a, w, rows, n, k, t, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// epilogue: out = bf16((float(x) + sum) + bias[col]), x the residual stream
+// [rows, n] in its type (K3's and K8's to_out)
+template <typename T>
+struct ResidualEpi {
+  static constexpr bool kColMajor = false;
+  const T* x;
+  const float* bias;
+  __nv_bfloat16* out;
+  int n;
+  __device__ void operator()(int row, int col, float sum) const {
+    const long long at = static_cast<long long>(row) * n + col;
+    out[at] = __float2bfloat16_rn((to_f(x[at]) + sum) + bias[col]);
+  }
+};
+
+// epilogue: q8 and k8 requantized per column, clip(rint(sum * m[col])); v
+// dequantized to bf16 (K3, K8) or requantized to int8 like q and k (kV8,
+// K11); the three are [rows, c] each, the product's columns q | k | v
+template <bool kV8>
+struct QkvEpi {
+  static constexpr bool kColMajor = false;
+  const float* m;
+  int8_t* q8;
+  int8_t* k8;
+  void* v;
+  int c;
+  __device__ void operator()(int row, int col, int sum) const {
+    const float f = static_cast<float>(sum) * m[col];
+    const int which = col / c;
+    const long long at = static_cast<long long>(row) * c + (col - which * c);
+    if (which == 0) {
+      q8[at] = quant_s8(f);
+    } else if (which == 1) {
+      k8[at] = quant_s8(f);
+    } else if constexpr (kV8) {
+      static_cast<int8_t*>(v)[at] = quant_s8(f);
+    } else {
+      static_cast<__nv_bfloat16*>(v)[at] = __float2bfloat16_rn(f);
+    }
+  }
+};
 
 }  // namespace s8

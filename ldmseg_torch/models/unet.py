@@ -16,18 +16,29 @@ the reference surgery is a later slice.
 The int8 UNet of ``sampling_kwargs.int8_inference`` is this class built with
 ``use_int8_conv`` (s8 resnet, Downsample and Upsample convs,
 ``ops/quant.py:QuantConv2d``) and the transformer flags the JAX trainer
-sets (:163-176), read as JAX's ``BasicTransformerBlock`` reads them
-(:467-502):
+sets (:163-176). The transformer block reads them as JAX's
+``BasicTransformerBlock`` does (:456-503), from ``fuse_attn =
+use_fused_norms and use_padded_attention`` and ``fuse_ff = use_fused_norms
+and use_int8_ff and use_fused_ff``:
 
-- ``use_fused_norms``: the attention block is K3 (``x = K3(x)``); with
-  ``use_int8_ff`` and ``use_fused_ff`` the FF block is K4 (``x = K4(x)``),
-  else ``x + FF(norm3(x))`` with the s8 ``FeedForwardS8`` (QuantLinear);
-- without it: ``x + attn1(norm1(x))`` with float projections and, with
-  ``use_int8_attention`` and ``use_fused_attention``, the attention on K13;
-  ``x + ff(norm3(x))`` with ``use_int8_ff`` a ``FeedForwardS8`` (K12 with
-  ``use_fused_ff``, else two QuantLinears around the exact gelu).
+- ``fuse_attn``: the attention block is K3 (``x = K3(x)``); else ``x +
+  attn1(norm1(x))`` with ``attn1`` K11 under ``use_padded_attention``
+  (int8 projections, attention and ``to_out`` in one kernel, on weights
+  quantized per head), K13 under ``use_int8_attention`` and
+  ``use_fused_attention`` (float projections), K1 or the plain path;
+- ``fuse_ff``: the FF block is K4 (``x = K4(x)``); else ``x +
+  ff(norm3(x))`` with ``use_int8_ff`` a ``FeedForwardS8`` (K12 with
+  ``use_fused_ff``, else two QuantLinears around the exact gelu) or the
+  float FF.
 
-Its quantized modules hold no float weights:
+``use_fused_projs`` (taken only with ``use_fused_norms``, :547-560) moves
+Transformer2D's 1x1 ``proj_in``/``proj_out`` into the two kernels: K8 (K3
+with a bf16 ``proj_in`` prologue on the GroupNorm output) and K9 (K4 with a
+bf16 ``proj_out`` epilogue); it needs ``fuse_attn`` and ``fuse_ff``. None of
+the flags changes the parameter keys of a float UNet.
+
+The int8 UNet's quantized modules hold no float weights (K11 keeps its
+attention's: they are its parameter keys):
 ``ops/quant.py:prepare_int8_unet`` fills them from a float UNet.
 """
 
@@ -43,8 +54,11 @@ from torch import nn
 
 from ..ops.attention import fused_self_attention
 from ..ops.attention_s8 import (fused_self_attention_s8, ln_attention_s8,
-                                pack_ln_attention)
-from ..ops.geglu import fused_geglu_s8, geglu_ln_s8, pack_geglu, pack_geglu_s8
+                                ln_attention_s8_pin, pack_ln_attention,
+                                pack_padded_attention, padded_attention_s8,
+                                with_proj_in)
+from ..ops.geglu import (fused_geglu_s8, geglu_ln_s8, geglu_ln_s8_pout,
+                         pack_geglu, pack_geglu_s8, with_proj_out)
 from ..ops.quant import QuantConv2d, QuantLinear
 from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
                      conv3x3, timestep_embedding)
@@ -53,9 +67,11 @@ from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """SD-1.4 defaults; the fields of the JAX ``UNetConfig`` that the
-    sampling path without cross-attention reads, among them the resnet norm
-    flags ``use_pallas_gn`` (K5) and ``int8_fuse_gn`` (K6, with
-    ``use_int8_conv``), which a caller sets through ``unet_config``."""
+    sampling path without cross-attention reads, among them flags that a
+    caller sets only through ``unet_config``: the resnet norms'
+    ``use_pallas_gn`` (K5) and ``int8_fuse_gn`` (K6, with
+    ``use_int8_conv``), ``use_padded_attention`` (K11) and
+    ``use_fused_projs`` (K8, K9)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -66,17 +82,20 @@ class UNetConfig:
     norm_eps: float = 1e-5
     attn_down: Tuple[bool, ...] = (True, True, True, False)
     use_fused_attention: bool = False
-    # int8 inference (unet.py:79-94): s8 resnet/Down/Upsample convs; the
-    # transformer flags as in JAX, where use_fused_norms is JAX's
-    # use_fused_norms with use_padded_attention (K3); JAX's packed, absorbed
-    # and fused-projs attention paths are not ported
+    # K11 (inference only), or K3 with use_fused_norms; JAX's packed and
+    # absorbed attention flags are not ported yet
+    use_padded_attention: bool = False
+    # int8 inference (unet.py:79-94): s8 resnet/Down/Upsample convs and the
+    # transformer flags as in JAX
     use_int8_conv: bool = False
     use_int8_attention: bool = False  # K13 (with use_fused_attention)
     use_int8_ff: bool = False         # s8 feed-forward
     use_fused_ff: bool = False        # K12, or K4 with use_fused_norms
     use_fused_norms: bool = False
+    use_fused_projs: bool = False     # K8 + K9 (with use_fused_norms)
     int8_act_scale: Optional[float] = None       # None: dynamic amax
-    # the q/k/v scale: None is 0.1 for K3 and a dynamic amax for K13
+    # the q/k/v scale: None is 0.1 for K3, K8 and K11 (the input's scale)
+    # and a dynamic amax for K13
     int8_attn_act_scale: Optional[float] = None
     # the resnets' GN + SiLU pairs (unet.py:70, :94): K5, and with
     # use_int8_conv K6 feeding the s8 convs (inference only)
@@ -123,6 +142,46 @@ class CrossAttention(nn.Module):
             attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.to_out[0](out.reshape(b, t, c))
+
+
+class PaddedAttentionS8(CrossAttention):
+    """``attn1`` under ``use_padded_attention`` without fused norms
+    (``CrossAttention._absorbed_padded`` without ``ln``, :218-277): K11 on
+    the int8 codes of the four projections (``to_out`` without its bias,
+    which is added here in the output's dtype). The float projections stay
+    as parameters: the JAX tree keeps them. The int8 UNet packs K11's
+    operands once per call (:meth:`prepare`, from the float masters);
+    otherwise each forward quantizes its own weights, as JAX does in the
+    graph, with the same values. The input's scale is the calibrated
+    ``to_q`` site (``x_scale``), else ``act_scale``. Inference only: JAX
+    has no gradient for K11, so a forward that autograd would record
+    raises."""
+
+    act_scale_sites = {"to_q": "x_scale"}
+
+    def __init__(self, query_dim: int, heads: int, act_scale: float):
+        super().__init__(query_dim, heads)
+        self.act_scale = act_scale
+        self.x_scale: Optional[float] = None
+        self.pack = None
+
+    def _xs(self) -> float:
+        return self.act_scale if self.x_scale is None else self.x_scale
+
+    def prepare(self, src: CrossAttention) -> None:
+        self.pack = pack_padded_attention(src, self.heads, self._xs())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad
+                                       for p in self.parameters())):
+            raise RuntimeError(
+                "use_padded_attention (K11) is inference only: run it under "
+                "torch.no_grad() on weights that require no gradient")
+        pack = (self.pack if self.pack is not None
+                else pack_padded_attention(self, self.heads, self._xs()))
+        out = padded_attention_s8(x, pack)
+        return out + self.to_out[0].bias.to(out.dtype)
 
 
 class GEGLU(nn.Module):
@@ -184,129 +243,152 @@ class FeedForwardS8(FeedForward):
         return y + self.net[2].bias.to(y.dtype)
 
 
-class BasicTransformerBlock(nn.Module):
-    """LN -> self-attention -> residual, LN -> GEGLU FF -> residual. In the
-    int8 UNet without fused norms the attention may be K13
-    (``int8_attention``) and the FF a :class:`FeedForwardS8` (``int8_ff``);
-    the LayerNorms stay float."""
-
-    def __init__(self, dim: int, heads: int, use_fused: bool = False,
-                 int8_attention: bool = False, int8_ff: bool = False,
-                 fused_ff: bool = False,
-                 int8_act_scale: Optional[float] = None,
-                 int8_attn_act_scale: Optional[float] = None):
-        super().__init__()
-        self.norm1 = LayerNorm(dim)
-        self.attn1 = CrossAttention(dim, heads, use_fused=use_fused,
-                                    int8=int8_attention,
-                                    int8_act_scale=int8_attn_act_scale)
-        self.norm3 = LayerNorm(dim)
-        self.ff = (FeedForwardS8(dim, int8_act_scale, fused_ff) if int8_ff
-                   else FeedForward(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
-        return x + self.ff(self.norm3(x))
-
-
 class LNAttentionS8(nn.Module):
-    """``norm1`` + ``attn1`` + residual of an int8 block as K3. Its site
-    ``to_q`` takes the calibrated scale of the LN1 output (``x_scale``);
-    else ``act_scale``."""
+    """``norm1`` + ``attn1`` + residual of an int8 block as K3, or with
+    ``proj_in`` as K8 on the GroupNorm output. Its site ``to_q`` takes the
+    calibrated scale of the LN1 output (``x_scale``); else ``act_scale``."""
 
     act_scale_sites = {"to_q": "x_scale"}
 
-    def __init__(self, heads: int, act_scale: float):
+    def __init__(self, heads: int, act_scale: float, proj_in: bool = False):
         super().__init__()
-        self.heads, self.act_scale = heads, act_scale
+        self.heads, self.act_scale, self.proj_in = heads, act_scale, proj_in
         self.x_scale: Optional[float] = None
         self.pack = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pack is None:
+            raise RuntimeError("int8 transformer block not prepared (run "
+                               "prepare_int8_unet)")
+        if self.proj_in:
+            return ln_attention_s8_pin(x, self.pack)
         return ln_attention_s8(x, self.pack)
 
 
 class LNFeedForwardS8(nn.Module):
-    """``norm3`` + ``ff`` + residual of an int8 block as K4. Sites:
-    ``net.0.proj`` (LN3 output, ``x_scale``, else ``act_scale``) and
-    ``net.2`` (the gated interior, ``g_scale``, else dynamic)."""
+    """``norm3`` + ``ff`` + residual of an int8 block as K4, or with
+    ``proj_out`` as K9, which returns Transformer2D's ``proj_out`` of the
+    block's output. Sites: ``net.0.proj`` (LN3 output, ``x_scale``, else
+    ``act_scale``) and ``net.2`` (the gated interior, ``g_scale``, else
+    dynamic)."""
 
     act_scale_sites = {"net.0.proj": "x_scale", "net.2": "g_scale"}
 
-    def __init__(self, act_scale: float):
+    def __init__(self, act_scale: float, proj_out: bool = False):
         super().__init__()
-        self.act_scale = act_scale
+        self.act_scale, self.proj_out = act_scale, proj_out
         self.x_scale: Optional[float] = None
         self.g_scale: Optional[float] = None
         self.pack = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pack is None:
+            raise RuntimeError("int8 transformer block not prepared (run "
+                               "prepare_int8_unet)")
+        if self.proj_out:
+            return geglu_ln_s8_pout(x, self.pack)
         return geglu_ln_s8(x, self.pack)
 
 
-class FusedTransformerBlockS8(nn.Module):
-    """The int8 UNet's transformer block with fused norms (unet.py:456-503
-    with ``fused_norms``): ``x = K3(x)``, each kernel returning the new
-    residual stream, then ``x = K4(x)`` with ``fused_ff`` (and ``int8_ff``),
-    else ``x + ff(norm3(x))`` with a float LayerNorm and the unfused
-    :class:`FeedForwardS8` (or a float FF without ``int8_ff``).
-    :meth:`prepare` packs the kernels' operands from a float
-    :class:`BasicTransformerBlock`."""
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attention -> residual, LN -> GEGLU FF -> residual, with
+    the flags read as JAX reads them (unet.py:456-503): with ``fuse_attn =
+    fused_norms and padded_attention`` the first three are K3 (an
+    :class:`LNAttentionS8`, ``x = K3(x)``), else ``norm1`` + ``attn1`` with
+    ``attn1`` K11 (``padded_attention``), K13 (``int8_attention`` with
+    ``use_fused``), K1 (``use_fused``) or the plain path; with ``fuse_ff =
+    fused_norms and int8_ff and fused_ff`` the last three are K4 (an
+    :class:`LNFeedForwardS8`), else ``norm3`` + a :class:`FeedForwardS8`
+    (``int8_ff``) or a float FF; the LayerNorms stay float.
+    ``fused_projs`` (from Transformer2D) makes them K8 and K9 and needs both
+    fusions (:469-470). :meth:`prepare` packs K3's and K4's operands from a
+    float block."""
 
-    def __init__(self, dim: int, heads: int,
-                 int8_act_scale: Optional[float],
-                 int8_attn_act_scale: Optional[float],
-                 int8_ff: bool = True, fused_ff: bool = True,
-                 int8_attention: bool = False):  # K3 takes the attention
+    def __init__(self, dim: int, heads: int, use_fused: bool = False,
+                 int8_attention: bool = False, int8_ff: bool = False,
+                 fused_ff: bool = False, fused_norms: bool = False,
+                 padded_attention: bool = False, fused_projs: bool = False,
+                 int8_act_scale: Optional[float] = None,
+                 int8_attn_act_scale: Optional[float] = None):
         super().__init__()
         self.heads = heads
-        self.attn1 = LNAttentionS8(heads, int8_attn_act_scale or 0.1)
-        self.fuse_ff = int8_ff and fused_ff
+        self.fuse_attn = fused_norms and padded_attention
+        self.fuse_ff = fused_norms and int8_ff and fused_ff
+        if fused_projs and not (self.fuse_attn and self.fuse_ff):
+            raise ValueError(
+                "use_fused_projs needs the fused attention and FF blocks: "
+                "use_fused_norms with use_padded_attention, use_int8_ff and "
+                "use_fused_ff (sampling_kwargs.fused_ff)")
+        attn_scale = int8_attn_act_scale or 0.1
+        if self.fuse_attn:
+            self.attn1 = LNAttentionS8(heads, attn_scale, fused_projs)
+        else:
+            self.norm1 = LayerNorm(dim)
+            self.attn1 = (
+                PaddedAttentionS8(dim, heads, attn_scale) if padded_attention
+                else CrossAttention(dim, heads, use_fused=use_fused,
+                                    int8=int8_attention,
+                                    int8_act_scale=int8_attn_act_scale))
         if self.fuse_ff:
-            self.ff = LNFeedForwardS8(int8_act_scale or 0.05)
+            self.ff = LNFeedForwardS8(int8_act_scale or 0.05, fused_projs)
         else:
             self.norm3 = LayerNorm(dim)
-            self.ff = (FeedForwardS8(dim, int8_act_scale, False) if int8_ff
-                       else FeedForward(dim))
+            self.ff = (FeedForwardS8(dim, int8_act_scale, fused_ff)
+                       if int8_ff else FeedForward(dim))
 
-    def prepare(self, src: BasicTransformerBlock) -> None:
+    def prepare(self, src: "BasicTransformerBlock") -> None:
         a, f = self.attn1, self.ff
-        xs_a = a.act_scale if a.x_scale is None else a.x_scale
-        a.pack = pack_ln_attention(src.norm1, src.attn1, self.heads, xs_a)
+        if self.fuse_attn:
+            xs = a.act_scale if a.x_scale is None else a.x_scale
+            a.pack = pack_ln_attention(src.norm1, src.attn1, self.heads, xs)
         if self.fuse_ff:
-            xs_f = f.act_scale if f.x_scale is None else f.x_scale
+            xs = f.act_scale if f.x_scale is None else f.x_scale
             f.pack = pack_geglu(src.norm3, src.ff.net[0].proj, src.ff.net[2],
-                                xs_f, f.g_scale)
+                                xs, f.g_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.attn1.pack is None:
-            raise RuntimeError("int8 transformer block not prepared (run "
-                               "prepare_int8_unet)")
-        x = self.attn1(x)
+        x = self.attn1(x) if self.fuse_attn else x + self.attn1(self.norm1(x))
         return self.ff(x) if self.fuse_ff else x + self.ff(self.norm3(x))
 
 
 class Transformer2D(nn.Module):
     """GN -> 1x1 conv in -> one transformer block over HW tokens -> 1x1
     conv out -> residual. The GN and the 1x1 convs stay float in the int8
-    UNet, as in JAX (:561-569)."""
+    UNet, as in JAX (:561-569), except with ``fused_projs`` and
+    ``fused_norms`` (:547-560): the block runs K8 on the GN output and K9,
+    which returns ``proj_out``'s output; the convs' weights go into their
+    packs (:meth:`prepare`) and the residual is added here."""
 
     def __init__(self, channels: int, heads: int, groups: int = 32,
                  use_fused: bool = False, int8: Optional[dict] = None,
-                 fused_norms: bool = False):
+                 fused_norms: bool = False, padded_attention: bool = False,
+                 fused_projs: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        int8 = int8 or {}
-        block = (FusedTransformerBlockS8(channels, heads, **int8)
-                 if fused_norms
-                 else BasicTransformerBlock(channels, heads, use_fused,
-                                            **int8))
+        # JAX ignores fused_projs without fused_norms
+        self.fused_projs = fused_projs and fused_norms
+        block = BasicTransformerBlock(
+            channels, heads, use_fused, fused_norms=fused_norms,
+            padded_attention=padded_attention,
+            fused_projs=self.fused_projs, **(int8 or {}))
         self.transformer_blocks = nn.ModuleList([block])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
+    def prepare(self, src: "Transformer2D") -> None:
+        # after the block's own prepare: prepare_int8_unet goes inner first
+        if self.fused_projs:
+            blk = self.transformer_blocks[0]
+            blk.attn1.pack = with_proj_in(blk.attn1.pack, src.proj_in)
+            blk.ff.pack = with_proj_out(blk.ff.pack, src.proj_out)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
+        if self.fused_projs:
+            # the GN output's tokens view; K9 returns a channel-major one
+            y = self.norm(x).reshape(b, c, h * w).transpose(1, 2)
+            y = self.transformer_blocks[0](y)
+            return y.transpose(1, 2).reshape(b, c, h, w) + x
         y = self.proj_in(self.norm(x))
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
         y = self.transformer_blocks[0](y)
@@ -453,7 +535,9 @@ class UNet2DCondition(nn.Module):
                                 int8_fuse_gn=cfg.int8_fuse_gn),
                     attn_kw=dict(use_fused=cfg.use_fused_attention,
                                  int8=int8,
-                                 fused_norms=cfg.use_fused_norms))
+                                 fused_norms=cfg.use_fused_norms,
+                                 padded_attention=cfg.use_padded_attention,
+                                 fused_projs=cfg.use_fused_projs))
         c0 = chans[0]
         temb = c0 * 4
         self.conv_in = conv3x3(cfg.in_channels, c0)

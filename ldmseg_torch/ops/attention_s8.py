@@ -1,10 +1,14 @@
-"""K3 and K13: the int8 UNet's self-attention.
+"""K3, K8, K11 and K13: the int8 UNet's self-attention.
 
 K3 is the fused block of the fused-norms UNet,
-``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens; K13 the
-int8 attention alone of the UNet without fused norms, on the float
-projections' ``[B, T, H, D]`` q, k and v (:func:`fused_self_attention_s8`,
-at the end of this module).
+``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens; K8 the
+same block behind Transformer2D's 1x1 ``proj_in`` as a bf16 prologue
+(``use_fused_projs``, :func:`ln_attention_s8_pin`); K13 the int8 attention
+alone of the UNet without fused norms, on the float projections' ``[B, T,
+H, D]`` q, k and v (:func:`fused_self_attention_s8`); K11 the padded
+attention of ``use_padded_attention`` without fused norms, int8
+projections, attention and ``to_out`` on ``[B, T, C]``
+(:func:`padded_attention_s8`).
 
 Counterpart of ``ldmseg_tpu/ops/pallas/attention.py``:
 ``absorbed_padded_ln_self_attention_s8`` (:1070) with its defaults
@@ -39,6 +43,21 @@ the static ``act_scale`` or one dynamic amax each, then a CUDA tensor goes
 to ``csrc/attention_s8.cu`` (which quantizes too; counted in
 ``fused_self_attention_s8.launches``) and a CPU tensor to
 :func:`attention_s8_reference`.
+
+K8 (``absorbed_padded_ln_self_attention_s8(..., proj_in=)``, :1070-1135,
+kernel ``_attn_kernel_abs_padded_ln_s8_vt_pin`` :875) keeps K3's rule; its
+fallback (:func:`ln_attention_s8_pin_fallback`) projects in fp32 on the
+float32 weight, rounds to x's dtype and takes K3's; its pack is K3's with
+the ``proj_in`` weight in bf16 and the bias (:func:`with_proj_in`). K11
+(``absorbed_padded_self_attention_s8`` :1226, kernel
+``_attn_kernel_abs_padded_s8`` :646) keeps the same rule; its fallback
+(:func:`padded_attention_s8_fallback`) is the float attention on the
+dequantized weights; every other shape quantizes x once with the static
+scale, a true division, and a CUDA tensor goes to the second entry point
+of ``csrc/attention_s8.cu`` (counted in ``padded_attention_s8.launches``)
+and a CPU tensor to :func:`padded_attention_s8_reference`. Its operands
+(:func:`pack_padded_attention`) are ``quantize_head_weights``' codes and
+the scales of ``_abs_padded_prep`` (:1161).
 """
 
 from __future__ import annotations
@@ -80,6 +99,10 @@ class LNAttentionPack:
     wo: torch.Tensor      # bf16 [C, C] (out, in), dequantized per head
     wo_q: torch.Tensor    # int8 [C, C] (out, in), for the fallback
     w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
+    # K8's prologue, Transformer2D's 1x1 proj_in (:func:`with_proj_in`)
+    wpi: Optional[torch.Tensor] = None    # bf16 [C, C] (out, in)
+    wpi_f: Optional[torch.Tensor] = None  # fp32, for the fallback
+    bpi: Optional[torch.Tensor] = None    # [C]
 
 
 @torch.no_grad()
@@ -163,6 +186,28 @@ def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
     return (out + p.out_b).to(torch.bfloat16)
 
 
+def _dequantized_attention(hs: torch.Tensor, w_qkv: torch.Tensor,
+                           wo_q: torch.Tensor, w_scale: torch.Tensor,
+                           heads: int) -> torch.Tensor:
+    """``absorbed_padded_self_attention_s8``'s float branch (:1244-1256) on
+    fp32 ``hs [B, T, C]``: float attention on the dequantized weights (no
+    activation quantize), ``to_out`` without its bias, fp32."""
+    b, t, c = hs.shape
+    d = c // heads
+    scale = w_scale.repeat_interleave(d, dim=1)                # [4, C]
+    wq, wk, wv = (w_qkv[i * c:(i + 1) * c].float() * scale[i][:, None]
+                  for i in range(3))
+    wo = wo_q.float() * scale[3][None, :]
+
+    def heads_of(z):
+        return z.reshape(b, t, heads, d).transpose(1, 2)
+
+    q, k, v = (heads_of(F.linear(hs, w)) for w in (wq, wk, wv))
+    a = torch.softmax((q @ k.transpose(-1, -2)) * d ** -0.5, dim=-1)
+    o = (a @ v).transpose(1, 2).reshape(b, t, c)
+    return F.linear(o, wo)
+
+
 def ln_attention_s8_fallback(x: torch.Tensor,
                              p: LNAttentionPack) -> torch.Tensor:
     """The JAX wrapper's float branch (:1112-1117 with
@@ -170,65 +215,73 @@ def ln_attention_s8_fallback(x: torch.Tensor,
     does not take: LN in the input dtype, float attention on the
     dequantized weights (no activation quantize), then the residual and
     bias in fp32; returns the input dtype."""
-    b, t, c = x.shape
-    h = p.heads
-    d = c // h
     hs = _layer_norm(x.float(), p.ln_w, p.ln_b, p.eps).to(x.dtype).float()
-    scale = p.w_scale.repeat_interleave(d, dim=1)              # [4, C]
-    wq, wk, wv = (p.w_qkv[i * c:(i + 1) * c].float() * scale[i][:, None]
-                  for i in range(3))
-    wo = p.wo_q.float() * scale[3][None, :]
-
-    def heads_of(z):
-        return z.reshape(b, t, h, d).transpose(1, 2)
-
-    q, k, v = (heads_of(F.linear(hs, w)) for w in (wq, wk, wv))
-    a = torch.softmax((q @ k.transpose(-1, -2)) * d ** -0.5, dim=-1)
-    o = (a @ v).transpose(1, 2).reshape(b, t, c)
-    attn = F.linear(o, wo).to(x.dtype)
+    attn = _dequantized_attention(hs, p.w_qkv, p.wo_q, p.w_scale,
+                                  p.heads).to(x.dtype)
     return (x.float() + attn.float() + p.out_b).to(x.dtype)
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("attention_ln_s8").ldmseg_attention_ln_s8
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
+def _kernel(entry: str):
+    fn = getattr(_build.load("attention_ln_s8"), entry)
+    # K3: dtype, x; K8: channels_major, x, wpi, bpi, xf
+    head = [ctypes.c_int] + [ctypes.c_void_p] * (
+        1 if entry == "ldmseg_attention_ln_s8" else 4)
+    fn.argtypes = (head + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+def _launch(x: torch.Tensor, p: LNAttentionPack,
+            pin: bool = False) -> torch.Tensor:
+    """K3, or with ``pin`` K8 (x the GroupNorm output, bf16, read
+    channel-major when it is the tokens view of a contiguous ``[B, C,
+    T]``)."""
+    name = "K8" if pin else "K3"
     b, t, c = x.shape
     h = p.heads
+    if pin and x.dtype != torch.bfloat16:
+        raise ValueError(f"K8: x must be bfloat16 (the prologue's bf16 "
+                         f"operand), got {x.dtype}")
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K3: x must be float32 or bfloat16, got {x.dtype}")
     if c // h > MAX_HEAD_DIM:
-        raise ValueError(f"K3: head dim {c // h} > {MAX_HEAD_DIM}")
+        raise ValueError(f"{name}: head dim {c // h} > {MAX_HEAD_DIM}")
     if b * h > 65535:
-        raise ValueError(f"K3: B*heads {b * h} > 65535")
-    x = x.contiguous()
-    ops = (p.ln_w, p.ln_b, p.out_b, p.w_qkv, p.m_qkv, p.wo)
-    if any(o.device != x.device or not o.is_contiguous() for o in ops):
-        raise ValueError("K3: the pack must be contiguous on x's device")
-    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=x.device)
-    x8, q8, k8 = (torch.empty((b * t, c), dtype=torch.int8, device=x.device)
+        raise ValueError(f"{name}: B*heads {b * h} > 65535")
+    channels_major = pin and x.transpose(1, 2).is_contiguous()
+    if not channels_major:
+        x = x.contiguous()
+    ops = (p.ln_w, p.ln_b, p.out_b, p.w_qkv, p.m_qkv, p.wo) + (
+        (p.wpi, p.bpi) if pin else ())
+    if any(o is None or o.device != x.device or not o.is_contiguous()
+           for o in ops):
+        raise ValueError(f"{name}: the pack must be contiguous on x's "
+                         f"device{' and carry proj_in' if pin else ''}")
+    dev = x.device
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    x8, q8, k8 = (torch.empty((b * t, c), dtype=torch.int8, device=dev)
                   for _ in range(3))
-    v, o = (torch.empty((b * t, c), dtype=torch.bfloat16, device=x.device)
+    v, o = (torch.empty((b * t, c), dtype=torch.bfloat16, device=dev)
             for _ in range(2))
-    kernel = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = kernel(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
-            p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.out_b.data_ptr(),
-            p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo.data_ptr(),
-            x8.data_ptr(), q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
-            o.data_ptr(), b, t, c, h, p.xs, p.score_scale, p.eps, stream)
+    block = (out.data_ptr(), p.ln_w.data_ptr(), p.ln_b.data_ptr(),
+             p.out_b.data_ptr(), p.w_qkv.data_ptr(), p.m_qkv.data_ptr(),
+             p.wo.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+             v.data_ptr(), o.data_ptr(), b, t, c, h, p.xs, p.score_scale,
+             p.eps)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if pin:
+            xf = torch.empty((b * t, c), dtype=torch.float32, device=dev)
+            err = _kernel("ldmseg_attention_ln_s8_pin")(
+                int(channels_major), x.data_ptr(), p.wpi.data_ptr(),
+                p.bpi.data_ptr(), xf.data_ptr(), *block, stream)
+        else:
+            err = _kernel("ldmseg_attention_ln_s8")(
+                _DTYPE_CODE[x.dtype], x.data_ptr(), *block, stream)
     if err != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
-    ln_attention_s8.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
@@ -244,7 +297,9 @@ def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
         return ln_attention_s8_reference(x, p).to(x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K3: unsupported device {x.device}")
-    return _launch(x, p).to(x.dtype)
+    out = _launch(x, p)
+    ln_attention_s8.launches += 1
+    return out.to(x.dtype)
 
 
 ln_attention_s8.launches = 0
@@ -403,3 +458,209 @@ def fused_self_attention_s8(q: torch.Tensor, k: torch.Tensor,
 
 fused_self_attention_s8.launches = 0
 fused_self_attention_s8.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def with_proj_in(p: LNAttentionPack, conv) -> LNAttentionPack:
+    """K8's pack: K3's ``p`` with Transformer2D's 1x1 ``proj_in`` conv
+    (``pack_inference_tiles(fuse_projs=True)`` with the wrapper's
+    ``proj_in[0].astype(bf16)``): the float32 weight ``[C_out, C_in]``
+    cast to bf16 for the kernel and kept in float32 for the fallback, the
+    bias in float32 (``g`` row 3)."""
+    w = conv.weight.detach().float().reshape(conv.out_channels, -1)
+    return dataclasses.replace(
+        p, wpi=w.to(torch.bfloat16).contiguous(), wpi_f=w.contiguous(),
+        bpi=conv.bias.detach().float().contiguous())
+
+
+def ln_attention_s8_pin_reference(x: torch.Tensor, p: LNAttentionPack,
+                                  static_offset: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """K8's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): the
+    residual stream ``xf = float(x)·float(Wpi)ᵀ + b_pi`` in fp32, never
+    rounded, then K3's arithmetic on it
+    (:func:`ln_attention_s8_reference`)."""
+    xf = x.float() @ p.wpi.float().t() + p.bpi
+    return ln_attention_s8_reference(xf, p, static_offset)
+
+
+def ln_attention_s8_pin_fallback(x: torch.Tensor,
+                                 p: LNAttentionPack) -> torch.Tensor:
+    """The JAX wrapper's branch with ``proj_in`` for the shapes K8 does
+    not take (:1106-1117): the proj in fp32 on the float32 weight, rounded
+    to x's dtype, then :func:`ln_attention_s8_fallback`."""
+    h = (x.float() @ p.wpi_f.t() + p.bpi).to(x.dtype)
+    return ln_attention_s8_fallback(h, p)
+
+
+def ln_attention_s8_pin(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+    """K8: the block of :func:`ln_attention_s8` on the residual stream ``x
+    Wpiᵀ + b_pi`` that it builds from the GroupNorm output ``x [B, T, C]``;
+    returns the new residual stream in ``x``'s dtype. On the card ``x`` is
+    bf16, as tokens or as the tokens view of an NCHW tensor, which the
+    kernel reads where it lies."""
+    b, t, c = x.shape
+    if not takes_kernel(t, c, p.heads):
+        ln_attention_s8_pin.fallbacks += 1
+        return ln_attention_s8_pin_fallback(x, p)
+    if x.device.type == "cpu":
+        return ln_attention_s8_pin_reference(x, p).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K8: unsupported device {x.device}")
+    out = _launch(x, p, pin=True)
+    ln_attention_s8_pin.launches += 1
+    return out.to(x.dtype)
+
+
+ln_attention_s8_pin.launches = 0
+ln_attention_s8_pin.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K11
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class PaddedAttentionPack:
+    """K11's operands for one self-attention (float32 unless noted)."""
+
+    heads: int
+    xs: float              # the input's static int8 scale
+    score_scale: float     # as² · d^-0.5
+    out_scale: float       # as · max(wos)
+    w_qkv: torch.Tensor    # int8 [3C, C]: to_q, to_k, to_v rows (out, in)
+    m_qkv: torch.Tensor    # [3C]: q, k, v requant w_scale · (xs / as)
+    wo_q: torch.Tensor     # int8 [C, C] (out, in)
+    ratio: torch.Tensor    # [H]: wos[h] / max(wos)
+    w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
+
+
+@torch.no_grad()
+def pack_padded_attention(attn, heads: int, xs: float,
+                          attn_scale: float = ATTN_SCALE
+                          ) -> PaddedAttentionPack:
+    """Quantize an attention's ``to_q/k/v/to_out`` weights per head
+    (``quantize_head_weights``, the storage of
+    ``prequantize_conv_tree(absorbed_attention=True)``) and pack K11's
+    operands in the JAX package's float32 order (``_abs_padded_prep``
+    :1161)."""
+    wq, wk, wv = (m.weight for m in (attn.to_q, attn.to_k, attn.to_v))
+    c = wq.shape[0]
+    d = c // heads
+    q8, k8, v8, o8, scales = quantize_head_weights(
+        wq, wk, wv, attn.to_out[0].weight, heads)
+    xs32, as32 = np.float32(xs), np.float32(attn_scale)
+    ratio = float(xs32 / as32)
+    per_col = scales.repeat_interleave(d, dim=1)          # [4, C]
+    m_qkv = torch.cat([per_col[i] * ratio for i in range(3)])
+    wos = scales[3]
+    wos_max = np.maximum(np.float32(wos.max().item()), np.float32(1e-8))
+    score = np.float32(as32 * as32) * np.float32(d ** -0.5)
+    return PaddedAttentionPack(
+        heads=heads, xs=float(xs32), score_scale=float(score),
+        out_scale=float(as32 * wos_max),
+        w_qkv=torch.cat([q8, k8, v8]).contiguous(),
+        m_qkv=m_qkv.contiguous(), wo_q=o8.contiguous(),
+        ratio=(wos / torch.tensor(wos_max, device=wos.device)).contiguous(),
+        w_scale=scales.contiguous())
+
+
+def padded_attention_s8_reference(x: torch.Tensor,
+                                  p: PaddedAttentionPack) -> torch.Tensor:
+    """K11's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16):
+    ``x8 = clip(rint(float(x) / xs))``, the three int8 projections
+    requantized per column, per head ``e = exp((s - rowmax) + ln 127)``
+    with ``denom = Σe`` over the fp32 e, ``e8 = rint(e)``, ``of8 =
+    clip(rint(float(int32 e8·v8)·(ratio[h] / denom)))``, and
+    ``bf16(float(int32 of8·Wo8)·out_scale)``."""
+    b, t, c = x.shape
+    h = p.heads
+    d = c // h
+    x8 = quantize_s8(x, torch.tensor(p.xs, device=x.device))
+    y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3C]
+    q8, k8, v8 = (torch.round(y[..., i * c:(i + 1) * c]).clamp_(-127, 127)
+                  .to(torch.int8).reshape(b, t, h, d).transpose(1, 2)
+                  for i in range(3))                          # [B, H, T, d]
+    s = exact_int8_matmul(q8, k8).float() * p.score_scale
+    e = torch.exp((s - s.amax(-1, keepdim=True)) + LN127)
+    denom = e.sum(-1, keepdim=True)
+    e8 = torch.round(e).to(torch.int8)
+    o32 = exact_int8_matmul(e8, v8.transpose(-1, -2))
+    of8 = torch.round(o32.float() * (p.ratio[:, None, None] / denom))
+    of8 = of8.clamp_(-127, 127).to(torch.int8).transpose(1, 2)
+    out = exact_int8_matmul(of8.reshape(b, t, c), p.wo_q).float()
+    return (out * p.out_scale).to(torch.bfloat16)
+
+
+def padded_attention_s8_fallback(x: torch.Tensor,
+                                 p: PaddedAttentionPack) -> torch.Tensor:
+    """``absorbed_padded_self_attention_s8``'s float branch (:1244-1256)
+    for the shapes K11 does not take: float attention on the dequantized
+    weights, x unquantized, in x's dtype."""
+    return _dequantized_attention(x.float(), p.w_qkv, p.wo_q, p.w_scale,
+                                  p.heads).to(x.dtype)
+
+
+@functools.cache
+def _padded_kernel():
+    fn = _build.load("attention_s8").ldmseg_attention_padded_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _padded_launch(x: torch.Tensor, p: PaddedAttentionPack) -> torch.Tensor:
+    b, t, c = x.shape
+    h = p.heads
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"K11: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if c // h > MAX_HEAD_DIM or b * h > 65535 or x.numel() >= 2 ** 31:
+        raise ValueError(f"K11: head dim {c // h} (<= {MAX_HEAD_DIM}), "
+                         f"B*heads {b * h} or {x.numel()} elements not "
+                         f"taken")
+    x = x.contiguous()
+    ops = (p.w_qkv, p.m_qkv, p.wo_q, p.ratio)
+    if any(o.device != x.device or not o.is_contiguous() for o in ops):
+        raise ValueError("K11: the pack must be contiguous on x's device")
+    dev = x.device
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    x8, q8, k8, v8, of8 = (torch.empty((b * t, c), dtype=torch.int8,
+                                       device=dev) for _ in range(5))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _padded_kernel()(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+            p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo_q.data_ptr(),
+            p.ratio.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+            v8.data_ptr(), of8.data_ptr(), b, t, c, h, p.xs, p.score_scale,
+            p.out_scale, stream)
+    if err != 0:
+        raise RuntimeError(f"K11 launch failed: CUDA error {err}")
+    return out
+
+
+def padded_attention_s8(x: torch.Tensor,
+                        p: PaddedAttentionPack) -> torch.Tensor:
+    """K11: ``to_out(attention(x))`` without the ``to_out`` bias for ``x
+    [B, T, C]`` (no gradient), returned in x's dtype: the kernel's bf16
+    result cast as the JAX wrapper casts it."""
+    b, t, c = x.shape
+    if not takes_kernel(t, c, p.heads):
+        padded_attention_s8.fallbacks += 1
+        return padded_attention_s8_fallback(x, p)
+    if x.device.type == "cpu":
+        return padded_attention_s8_reference(x, p).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K11: unsupported device {x.device}")
+    out = _padded_launch(x, p)
+    padded_attention_s8.launches += 1
+    return out.to(x.dtype)
+
+
+padded_attention_s8.launches = 0
+padded_attention_s8.fallbacks = 0

@@ -1,4 +1,4 @@
-"""K4 and K12: the int8 UNet's fused feed-forward.
+"""K4, K9 and K12: the int8 UNet's fused feed-forward.
 
 K4 is the block of the fused-norms UNet,
 ``x + W2·q(h ⊙ gelu_tanh(gate))·s2 + b2`` with ``[h, gate] = W1·q(LN(x))``;
@@ -30,6 +30,16 @@ entry point of ``csrc/geglu_ln_s8.cu`` (counted in
 ``fused_geglu_s8.launches``), its plain version :func:`geglu_s8_reference`.
 The caller adds b2 in the activation dtype, the block the residual
 (``unet.py:415``, ``:502``).
+
+K9 is the counterpart of ``fused_geglu_ln_s8(..., proj_out=)`` (:327) and
+its kernel ``_geglu_ln_pout_kernel`` (:186): K4 with Transformer2D's 1x1
+``proj_out`` conv as a bf16 epilogue, ``bf16(bf16(K4(x))·Wpoᵀ + b_po)``
+(:func:`geglu_ln_s8_pout`, third entry point of ``csrc/geglu_ln_s8.cu``,
+counted in ``geglu_ln_s8_pout.launches``; plain version
+:func:`geglu_ln_s8_pout_reference`). K4's rule; its fallback
+(:func:`geglu_ln_s8_pout_fallback`, counted) is K4's, rounded to x's dtype,
+then the proj in fp32 on the float32 weight (:352-361). The result is the
+Transformer2D's output before its outer residual, which the caller adds.
 """
 
 from __future__ import annotations
@@ -66,6 +76,10 @@ class GegluPack:
     eps: Optional[float] = None          # K4's LayerNorm
     ln_w: Optional[torch.Tensor] = None  # [C]
     ln_b: Optional[torch.Tensor] = None  # [C]
+    # K9's epilogue, Transformer2D's 1x1 proj_out (:func:`with_proj_out`)
+    wpo: Optional[torch.Tensor] = None    # bf16 [C, C] (out, in)
+    wpo_f: Optional[torch.Tensor] = None  # fp32, for the fallback
+    bpo: Optional[torch.Tensor] = None    # [C]
 
 
 def _vec(t):
@@ -192,6 +206,10 @@ def _kernel(entry: str):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    elif entry == "ldmseg_geglu_ln_s8_pout":   # K9
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     else:                               # K12
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
@@ -200,9 +218,12 @@ def _kernel(entry: str):
     return fn
 
 
-def _launch(x: torch.Tensor, p: GegluPack, block: bool) -> torch.Tensor:
-    """K4 (``block``: LN, residual and b2) or K12 on the card."""
-    name = "K4" if block else "K12"
+def _launch(x: torch.Tensor, p: GegluPack, block: bool,
+            pout: bool = False) -> torch.Tensor:
+    """K4 (``block``: LN, residual and b2), K9 (``pout`` too: the proj_out
+    epilogue, the result channel-major ``[B, C, T]`` seen as ``[B, T, C]``)
+    or K12 on the card."""
+    name = "K9" if pout else ("K4" if block else "K12")
     b, t, c = x.shape
     m = p.w2.shape[1]
     if x.dtype not in _DTYPE_CODE:
@@ -213,39 +234,48 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool) -> torch.Tensor:
                          f"B={b} <= 65535")
     bt = min(BLOCK_T, t)
     x = x.contiguous()
-    ops = (p.w1, p.s1, p.b1, p.w2, p.s2, p.b2) + (
-        (p.ln_w, p.ln_b) if block else ())
-    if any(o.device != x.device or not o.is_contiguous() for o in ops):
+    ops = ((p.w1, p.s1, p.b1, p.w2, p.s2, p.b2)
+           + ((p.ln_w, p.ln_b) if block else ())
+           + ((p.wpo, p.bpo) if pout else ()))
+    if any(o is None or o.device != x.device or not o.is_contiguous()
+           for o in ops):
         raise ValueError(f"{name}: the pack must be contiguous on x's "
-                         f"device")
+                         f"device{' and carry proj_out' if pout else ''}")
     dev = x.device
-    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, c, t) if pout else (b, t, c),
+                      dtype=torch.bfloat16, device=dev)
     x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
     g = torch.empty((b * t, m), dtype=torch.float32, device=dev)
     g8 = torch.empty((b * t, m), dtype=torch.int8, device=dev)
     amax = torch.empty(b * (t // bt), dtype=torch.int32, device=dev)
     dynamic = p.gs is None
     gs = 0.0 if dynamic else p.gs
+    scratch = (x8.data_ptr(), g.data_ptr(), g8.data_ptr(), amax.data_ptr(),
+               b, t, c, m, bt, p.xs, gs, int(dynamic))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if block:
+        if pout:
+            r = torch.empty((b * t, c), dtype=torch.bfloat16, device=dev)
+            err = _kernel("ldmseg_geglu_ln_s8_pout")(
+                _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+                p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
+                p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
+                p.s2.data_ptr(), p.b2.data_ptr(), p.wpo.data_ptr(),
+                p.bpo.data_ptr(), r.data_ptr(), *scratch, p.eps, stream)
+        elif block:
             err = _kernel("ldmseg_geglu_ln_s8")(
                 _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
                 p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
                 p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
-                p.s2.data_ptr(), p.b2.data_ptr(), x8.data_ptr(),
-                g.data_ptr(), g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt,
-                p.xs, gs, int(dynamic), p.eps, stream)
+                p.s2.data_ptr(), p.b2.data_ptr(), *scratch, p.eps, stream)
         else:
             err = _kernel("ldmseg_geglu_s8")(
                 _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
                 p.w1.data_ptr(), p.s1.data_ptr(), p.b1.data_ptr(),
-                p.w2.data_ptr(), p.s2.data_ptr(), x8.data_ptr(),
-                g.data_ptr(), g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt,
-                p.xs, gs, int(dynamic), stream)
+                p.w2.data_ptr(), p.s2.data_ptr(), *scratch, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return out
+    return out.transpose(1, 2) if pout else out
 
 
 def geglu_ln_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
@@ -284,3 +314,57 @@ def fused_geglu_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
 fused_geglu_s8.launches = 0
 fused_geglu_s8.fallbacks = 0
 
+
+# ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def with_proj_out(p: GegluPack, conv) -> GegluPack:
+    """K9's pack: K4's ``p`` with Transformer2D's 1x1 ``proj_out`` conv
+    (``pack_inference_tiles(fuse_projs=True)`` with the wrapper's
+    ``proj_out[0].astype(bf16)``): the float32 weight ``[C_out, C_in]``
+    cast to bf16 for the kernel and kept in float32 for the fallback, the
+    bias in float32 (``g`` row 3)."""
+    w = conv.weight.detach().float().reshape(conv.out_channels, -1)
+    return dataclasses.replace(
+        p, wpo=w.to(torch.bfloat16).contiguous(), wpo_f=w.contiguous(),
+        bpo=_vec(conv.bias))
+
+
+def geglu_ln_s8_pout_reference(x: torch.Tensor, p: GegluPack,
+                               block_t: int = BLOCK_T) -> torch.Tensor:
+    """K9's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): K4's
+    output rounded to bf16 (:func:`geglu_ln_s8_reference`), then
+    ``bf16(float(r)·float(Wpo)ᵀ + b_po)`` with fp32 sums."""
+    r = geglu_ln_s8_reference(x, p, block_t)
+    return (r.float() @ p.wpo.float().t() + p.bpo).to(torch.bfloat16)
+
+
+def geglu_ln_s8_pout_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """The JAX wrapper's branch with ``proj_out`` for the shapes K9 does
+    not take (:352-361): :func:`geglu_ln_s8_fallback` (in x's dtype), then
+    the proj in fp32 on the float32 weight plus the bias, rounded to x's
+    dtype."""
+    r = geglu_ln_s8_fallback(x, p)
+    return (r.float() @ p.wpo_f.t() + p.bpo).to(x.dtype)
+
+
+def geglu_ln_s8_pout(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """K9: ``proj_out(x + FF(LN(x))) + b_po`` for ``x [B, T, C]`` (the
+    Transformer2D's output before its outer residual), in ``x``'s dtype.
+    On the card the result is the tokens view of a channel-major ``[B, C,
+    T]`` tensor: the NCHW layout of the residual add."""
+    if not takes_kernel(x.shape[1]):
+        geglu_ln_s8_pout.fallbacks += 1
+        return geglu_ln_s8_pout_fallback(x, p)
+    if x.device.type == "cpu":
+        return geglu_ln_s8_pout_reference(x, p).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K9: unsupported device {x.device}")
+    out = _launch(x, p, block=True, pout=True)
+    geglu_ln_s8_pout.launches += 1
+    return out.to(x.dtype)
+
+
+geglu_ln_s8_pout.launches = 0
+geglu_ln_s8_pout.fallbacks = 0

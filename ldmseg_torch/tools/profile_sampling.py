@@ -1,6 +1,7 @@
 """Where the time of the sampling path goes on the card.
 
     python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]] [--gn]
+        [--projs] [--padded]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
@@ -14,7 +15,12 @@ False: K13, K12), ``b`` (``fused_norms`` and ``fused_ff`` False: K13, s8
 linears) or ``c`` (``fused_ff`` False: K3, s8 linears). ``--gn`` builds
 the UNet with ``UNetConfig.use_pallas_gn`` and ``int8_fuse_gn``: the
 resnets' GN + SiLU pairs on K5 (bf16), or on K6 feeding the s8 convs
-(int8). For each window it prints one JSON line: wall time, device time
+(int8). ``--projs`` builds it with ``UNetConfig.use_fused_projs`` and
+samples int8 (fused norms): the transformer blocks on K8 and K9.
+``--padded`` traces the K11 UNet instead (:data:`PADDED_FLAGS`, filled by
+``prepare_int8_unet`` from the trainer's masters: K11 and K12): (a) 5
+forwards and (b) one 50-step ``ddim_sample`` on that latent, the RGB
+latents random. For each window it prints one JSON line: wall time, device time
 summed over kernels, the device's busy share (the union of kernel intervals
 over the wall time), device time by kernel family and the top kernels.
 Needs a CUDA device.
@@ -23,6 +29,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import sys
@@ -36,10 +43,11 @@ FAMILIES = (  # first match wins
     ("K7 gn_silu_conv", r"gn_conv_kernel"),
     ("K1 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
-    ("K13 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
-    ("K3 attention_ln_s8", r"::(qkv|attn|out)_kernel"),
-    ("K4/K12 geglu (up, down)", r"::(up|down)_kernel"),
-    ("K3/K4/K12 (LN +) quantize", r"ln_quant_kernel"),
+    ("K13/K11 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
+    ("K3/K8 attention_ln_s8", r"::attn_kernel"),
+    ("K3/K8/K11 projections, to_out", r"s8_gemm_kernel|bf16_gemm_kernel"),
+    ("K4/K9/K12 geglu (up, down)", r"::(up|down)_kernel"),
+    ("K3/K4/K11/K12 (LN +) quantize", r"ln_quant_kernel"),
     ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("group/layer norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|"
@@ -58,15 +66,57 @@ VARIANTS = {"fused": {}, "a": {"fused_norms": False},
             "c": {"fused_ff": False}}
 
 
-def gn_unet_config(gn: bool):
+# the K11 UNet: variant (a)'s flags with padded attention; no trainer path
+# reaches K11 (the trainer sets use_padded_attention = fused_norms), the
+# UNet's own entry point does
+PADDED_FLAGS = dict(use_int8_conv=True, int8_act_scale=0.05,
+                    use_padded_attention=True, use_int8_ff=True,
+                    use_fused_ff=True, int8_attn_act_scale=0.1)
+
+
+def int8_unet_from(masters, flags: dict, dtype=torch.bfloat16):
+    """A UNet with the int8 ``flags`` on the float UNet ``masters``'
+    config, filled from it by ``prepare_int8_unet``, in ``dtype`` on its
+    device, without gradients (K11 is inference only)."""
+    from ldmseg_torch.models.unet import UNet2DCondition
+    from ldmseg_torch.ops.quant import prepare_int8_unet
+    device = next(masters.parameters()).device
+    with torch.device(device):
+        unet = UNet2DCondition(dataclasses.replace(masters.config, **flags))
+    unet.to(dtype).eval().requires_grad_(False)
+    prepare_int8_unet(unet, masters)
+    return unet
+
+
+def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
+                  steps: int = 50) -> torch.Tensor:
+    """The port's ``ddim_sample`` with self-conditioning on ``unet``, the
+    RGB latents ``rgb`` beside the noisy ones as the trainer feeds them."""
+    from ldmseg_torch.diffusion.ddim import make_ddim_schedule
+    from ldmseg_torch.diffusion.sampler import ddim_sample
+    from ldmseg_torch.utils.config import DEFAULT_CONFIG
+    sched = make_ddim_schedule(**DEFAULT_CONFIG["noise_scheduler_kwargs"],
+                               device=rgb.device)
+
+    def model_fn(z, cond, t):
+        x = torch.cat([z, rgb, cond], dim=1).to(rgb.dtype)
+        return unet(x, torch.full((z.shape[0],), t, device=z.device))
+    with torch.no_grad():
+        return ddim_sample(sched, model_fn, noise, steps,
+                           self_condition=True)
+
+
+def unet_config_for(gn: bool = False, projs: bool = False):
     """The default deployment's UNet (12 input channels, K1) with the resnet
-    norm flags ``use_pallas_gn`` and ``int8_fuse_gn`` when ``gn``; without,
-    None (the trainer builds its own)."""
+    norm flags ``use_pallas_gn`` and ``int8_fuse_gn`` when ``gn`` and
+    ``use_fused_projs`` when ``projs``; without either, None (the trainer
+    builds its own)."""
     from ldmseg_torch.models.unet import UNetConfig
-    if not gn:
+    if not (gn or projs):
         return None
     return UNetConfig(in_channels=12, use_fused_attention=True,
-                      use_pallas_gn=True, int8_fuse_gn=True)
+                      use_pallas_gn=gn, int8_fuse_gn=gn,
+                      use_fused_projs=projs)
 
 
 def _family(name: str) -> str:
@@ -149,8 +199,14 @@ def main() -> int:
                         help="int8 sampling, and which transformer blocks")
     parser.add_argument("--gn", action="store_true",
                         help="UNetConfig.use_pallas_gn and int8_fuse_gn")
+    parser.add_argument("--projs", action="store_true",
+                        help="int8 with UNetConfig.use_fused_projs (K8, K9)")
+    parser.add_argument("--padded", action="store_true",
+                        help="the K11 UNet (PADDED_FLAGS) and ddim_sample")
     args = parser.parse_args()
-    variant = args.int8
+    if args.padded and (args.int8 or args.projs):
+        parser.error("--padded profiles the K11 UNet: no --int8 or --projs")
+    variant = "fused" if args.projs and args.int8 is None else args.int8
     if not torch.cuda.is_available():
         print("profile_sampling: no CUDA device", file=sys.stderr)
         return 1
@@ -159,20 +215,37 @@ def main() -> int:
         "train_kwargs": {"self_condition": True, "weight_dtype": "bfloat16"},
         "sampling_kwargs": {"int8_inference": int8,
                             **VARIANTS.get(variant, {})}})
-    trainer = TrainerDiffusion(cfg, unet_config=gn_unet_config(args.gn))
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(
+        args.gn, args.projs))
     trainer.init_params(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((2, trainer.unet_config.in_channels, 32, 64),
                     generator=gen, device="cuda").to(torch.bfloat16)
     t = torch.tensor([999, 19], device="cuda")
+    if args.padded:
+        unet = int8_unet_from(trainer.unet, PADDED_FLAGS)
+        rgb, noise = (torch.randn((2, 4, 32, 64), generator=gen,
+                                  device="cuda") for _ in range(2))
+        rgb = rgb.to(torch.bfloat16)
+        with torch.inference_mode():
+            print(json.dumps(_profile(
+                lambda: unet(x, t), 5,
+                "UNet forward, K11 UNet, [2, 12, 32, 64]")), flush=True)
+        print(json.dumps(_profile(
+            lambda: padded_sample(unet, rgb, noise), 1,
+            "ddim_sample, K11 UNet, 50 DDIM steps, [2, 4, 32, 64]")),
+            flush=True)
+        return 0
     image = np.random.RandomState(0).randn(2, 256, 512, 3).astype(
         np.float32)
     kinds = ([f"int8 {variant}", f"int8 {variant} calibrated"] if int8
              else ["bf16"])
     if args.gn:
         kinds = [f"{k}, GN on K5/K6" for k in kinds]
+    if args.projs:
+        kinds = [f"{k}, fused projs (K8, K9)" for k in kinds]
     for kind in kinds:
-        if kind.endswith("calibrated"):
+        if "calibrated" in kind:
             trainer.calibrate_int8({"image": image})
         unet = trainer.int8_unet() if int8 else trainer.inference_unet()
         with torch.inference_mode():

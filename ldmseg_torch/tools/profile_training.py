@@ -28,7 +28,7 @@ import sys
 
 import torch
 
-from .profile_sampling import _family, _kernels, _profile, gn_unet_config
+from .profile_sampling import _family, _kernels, _profile, unet_config_for
 
 STEPS = 3
 
@@ -76,7 +76,7 @@ def main() -> int:
                          "batch_size": 8},
         "ignore_label": 0})
     ds = SyntheticDVPS(length=8, size=(192, 640), num_bits=8)
-    trainer = TrainerDiffusion(cfg, unet_config=gn_unet_config(gn),
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(gn=gn),
                                dataset=ds)
     trainer.init_params(seed=0)
     batch = next(iter(Loader(ds, 8, seed=0)))

@@ -15,8 +15,9 @@ this boundary, as in the JAX package; the models run NCHW.
 With ``sampling_kwargs.int8_inference`` the 50 steps run on the int8 UNet
 (s8 convs; K3 and K4 with ``fused_norms``, the default; K13 and K12, or K13
 and the s8 linears with ``fused_ff`` False, without it; K3 and the s8
-linears with ``fused_norms`` and not ``fused_ff``), quantized from the fp32
-masters once per call, with
+linears with ``fused_norms`` and not ``fused_ff``; K8 and K9 in place of K3
+and K4 when ``unet_config`` sets ``use_fused_projs``), quantized from the
+fp32 masters once per call, with
 per-site activation scales from :meth:`calibrate_int8` (automatic on
 adopted weights). Its other layers run in the compute dtype, as the bf16
 path does; the JAX trainer hands that UNet its fp32 masters, so there they
@@ -166,6 +167,7 @@ class TrainerDiffusion:
                     use_int8_attention=not fused_norms, use_int8_ff=True,
                     use_fused_ff=bool(sk.get("fused_ff", True)),
                     use_fused_attention=not fused_norms,
+                    use_padded_attention=fused_norms,
                     use_fused_norms=fused_norms,
                     int8_attn_act_scale=sk.get("int8_attn_act_scale", 0.1)))
         self._unet_infer: Optional[nn.Module] = None

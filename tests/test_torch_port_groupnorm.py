@@ -44,7 +44,7 @@ from ldmseg_torch.train.trainer_ldm import TrainerDiffusion  # noqa: E402
 from ldmseg_torch.utils.config import merge_dicts  # noqa: E402
 
 from test_torch_port_int8 import (  # noqa: E402
-    INT8_KW, JAX_INT8_KW, TINY_KW, _rel, _t)
+    INT8_KW, TINY_KW, _rel, _t)
 from test_torch_port_int8_unfused import _int8_kw  # noqa: E402
 from test_torch_port_sampling import (  # noqa: E402
     CFG, UNET_KW, _jax_unnormalize_to01, _random_params)
@@ -399,7 +399,7 @@ def jax_k6_kernel():
 def _int8_unet_pair(params, variant):
     heads = TINY_KW["attention_head_dim"]
     if variant == "fused":
-        kw, jkw = dict(INT8_KW), dict(JAX_INT8_KW)
+        kw = INT8_KW
         tree = jquant.pack_inference_tiles(
             jquant.prequantize_conv_tree(params, quantize_ff=True,
                                          absorbed_attention=True,
@@ -407,13 +407,13 @@ def _int8_unet_pair(params, variant):
             attention_heads=heads, int8_act_scale=0.05,
             int8_attn_act_scale=0.1)
     else:   # (a): K13 + K12, fused_norms False
-        kw, jkw = _int8_kw("a")
+        kw = _int8_kw("a")
         tree = jquant.prequantize_conv_tree(params, quantize_ff=True,
                                             absorbed_attention=False,
                                             attention_heads=heads)
     # XLA may skip a rounding to bf16 inside a fusion (excess precision);
     # PyTorch rounds where the code says, so JAX is compiled to do so too
-    japply = jax.jit(_jax_tiny(**jkw, **GN_FLAGS).apply,
+    japply = jax.jit(_jax_tiny(**kw, **GN_FLAGS).apply,
                      compiler_options={"xla_allow_excess_precision": False})
     return (UNet2DCondition(UNetConfig(**TINY_KW, **kw, **GN_FLAGS)),
             japply, tree)
@@ -472,7 +472,7 @@ def slice_jax():
                 **GN_FLAGS)
     unet = junet.UNet2DCondition(junet.UNetConfig(**jcfg))
     unet8 = junet.UNet2DCondition(junet.UNetConfig(**dict(jcfg,
-                                                          **JAX_INT8_KW)))
+                                                          **INT8_KW)))
     ivae = JImageVAE(decoder_enabled=False, **CFG["image_vae_kwargs"])
     vk = {k: v for k, v in CFG["vae_model_kwargs"].items()
           if k != "pretrained_path"}

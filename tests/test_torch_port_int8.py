@@ -35,7 +35,7 @@ from ldmseg_tpu.ops.pallas import geglu as jgeglu  # noqa: E402
 from ldmseg_torch.models import convert  # noqa: E402
 from ldmseg_torch.models.layers import LayerNorm, ResnetBlock  # noqa: E402
 from ldmseg_torch.models.unet import (  # noqa: E402
-    CrossAttention, Downsample, FusedTransformerBlockS8, UNet2DCondition,
+    BasicTransformerBlock, CrossAttention, Downsample, UNet2DCondition,
     UNetConfig, Upsample)
 from ldmseg_torch.ops import attention_s8 as K3  # noqa: E402
 from ldmseg_torch.ops import geglu as K4  # noqa: E402
@@ -257,11 +257,11 @@ def test_k4_fallback_matches_jax_wrapper_on_cpu(t, static, via_wrapper):
 TINY_KW = dict(in_channels=12, out_channels=4, block_out_channels=(16, 32),
                attn_down=(True, True), layers_per_block=1,
                attention_head_dim=2, norm_num_groups=4)
+# the int8 UNet's flags in both packages (the JAX trainer's, :164-176)
 INT8_KW = dict(use_int8_conv=True, int8_act_scale=0.05, use_fused_norms=True,
-               use_int8_ff=True, use_fused_ff=True, int8_attn_act_scale=0.1)
-# the same int8 UNet in the JAX package's flags (the trainer's, :164-176)
-JAX_INT8_KW = dict(INT8_KW, use_padded_attention=True,
-                   use_fused_attention=False, use_int8_attention=False)
+               use_padded_attention=True, use_int8_ff=True,
+               use_fused_ff=True, int8_attn_act_scale=0.1,
+               use_fused_attention=False, use_int8_attention=False)
 
 
 def jax_path(name: str) -> tuple:
@@ -347,7 +347,7 @@ def test_weight_preparation_matches_jax_bit_for_bit(tiny, calibrated):
             if m.x_scale is not None:
                 assert np.float32(m.x_scale) == k["x_scale"], name
             n_conv += 1
-        if not isinstance(m, FusedTransformerBlockS8):
+        if not (isinstance(m, BasicTransformerBlock) and m.fuse_attn):
             continue
         n_block += 1
         node = _tree(tree, jax_path(name))
@@ -548,7 +548,7 @@ def test_int8_sample_panoptic_against_jax():
     jcfg = dict(use_cross_attention=False, cond_channels=4, **UNET_KW)
     unet = junet.UNet2DCondition(junet.UNetConfig(**jcfg))
     unet8 = junet.UNet2DCondition(junet.UNetConfig(**dict(jcfg,
-                                                          **JAX_INT8_KW)))
+                                                          **INT8_KW)))
     ivae = JImageVAE(decoder_enabled=False, **CFG["image_vae_kwargs"])
     vk = {k: v for k, v in CFG["vae_model_kwargs"].items()
           if k != "pretrained_path"}

@@ -265,15 +265,15 @@ def test_quant_linear_matches_quant_dense(mode):
 # the tiny UNet without fused norms
 # ---------------------------------------------------------------------------
 def _int8_kw(variant):
-    """The port's and the JAX trainer's flags for variant (a) K13 + K12,
-    (b) K13 + QuantDense, (c) K3 + QuantDense (trainer_ldm.py:163-176)."""
+    """The JAX trainer's flags, which the port reads the same way, for
+    variant (a) K13 + K12, (b) K13 + QuantDense, (c) K3 + QuantDense
+    (trainer_ldm.py:163-176)."""
     fused_norms = variant == "c"
-    kw = dict(use_int8_conv=True, int8_act_scale=0.05,
-              use_int8_attention=not fused_norms,
-              use_fused_attention=not fused_norms, use_int8_ff=True,
-              use_fused_ff=variant == "a", use_fused_norms=fused_norms,
-              int8_attn_act_scale=0.1)
-    return kw, dict(kw, use_padded_attention=fused_norms)
+    return dict(use_int8_conv=True, int8_act_scale=0.05,
+                use_int8_attention=not fused_norms,
+                use_fused_attention=not fused_norms, use_int8_ff=True,
+                use_fused_ff=variant == "a", use_fused_norms=fused_norms,
+                use_padded_attention=fused_norms, int8_attn_act_scale=0.1)
 
 
 @pytest.fixture(scope="module")
@@ -303,7 +303,7 @@ def tiny():
 def test_unfused_weight_preparation_matches_jax_bit_for_bit(tiny,
                                                             calibrated):
     params, float_unet, _, _, scales = tiny
-    kw, _ = _int8_kw("a")
+    kw = _int8_kw("a")
     int8_unet = UNet2DCondition(UNetConfig(**TINY_KW, **kw))
     # the calibration's attn1.to_q keys are taken and ignored
     quant.apply_act_scales(int8_unet, scales if calibrated else None)
@@ -348,7 +348,7 @@ def test_unfused_weight_preparation_matches_jax_bit_for_bit(tiny,
 @pytest.mark.parametrize("variant", ["a", "b", "c"])
 def test_unfused_int8_unet_matches_jax(tiny, variant, calibrated):
     params, float_unet, x, t, scales = tiny
-    kw, jkw = _int8_kw(variant)
+    kw = _int8_kw(variant)
     heads = TINY_KW["attention_head_dim"]
     int8_unet = UNet2DCondition(UNetConfig(**TINY_KW, **kw))
     quant.apply_act_scales(int8_unet, scales if calibrated else None)
@@ -365,7 +365,7 @@ def test_unfused_int8_unet_matches_jax(tiny, variant, calibrated):
                                            int8_act_scale=0.05,
                                            int8_attn_act_scale=0.1)
     junet8 = junet.UNet2DCondition(junet.UNetConfig(
-        use_cross_attention=False, cond_channels=4, **TINY_KW, **jkw))
+        use_cross_attention=False, cond_channels=4, **TINY_KW, **kw))
     ref = np.asarray(jax.jit(junet8.apply)(tree, jnp.asarray(x),
                                            jnp.asarray(t)))
     counts = (K13.fused_self_attention_s8.fallbacks,
@@ -403,9 +403,9 @@ def test_unfused_int8_sample_panoptic_against_jax(variant):
     calib_noise = rng.randn(2, 4, 8, 4).astype(np.float32)
     heads = UNET_KW["attention_head_dim"]
     jcfg = dict(use_cross_attention=False, cond_channels=4, **UNET_KW)
-    _, jkw = _int8_kw(variant)
+    kw = _int8_kw(variant)
     unet = junet.UNet2DCondition(junet.UNetConfig(**jcfg))
-    unet8 = junet.UNet2DCondition(junet.UNetConfig(**dict(jcfg, **jkw)))
+    unet8 = junet.UNet2DCondition(junet.UNetConfig(**dict(jcfg, **kw)))
     ivae = JImageVAE(decoder_enabled=False, **CFG["image_vae_kwargs"])
     vk = {k: v for k, v in CFG["vae_model_kwargs"].items()
           if k != "pretrained_path"}

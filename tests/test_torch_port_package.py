@@ -176,11 +176,9 @@ def _int8_trainer(**sk):
 
 
 def _blocks(trainer):
-    from ldmseg_torch.models.unet import (BasicTransformerBlock,
-                                          FusedTransformerBlockS8)
+    from ldmseg_torch.models.unet import BasicTransformerBlock
     return [m for m in trainer._unet_int8.modules()
-            if isinstance(m, (BasicTransformerBlock,
-                              FusedTransformerBlockS8))]
+            if isinstance(m, BasicTransformerBlock)]
 
 
 # the three int8 combinations off the default, (a) and (b) without fused
@@ -188,9 +186,8 @@ def _blocks(trainer):
 # (trainer_ldm.py:163-176), each built from the modules that run it
 @pytest.mark.parametrize("variant", ["a", "b", "c"])
 def test_trainer_accepts_int8_without_fused_norms_or_ff(variant):
-    from ldmseg_torch.models.unet import (BasicTransformerBlock,
-                                          CrossAttention, FeedForwardS8,
-                                          FusedTransformerBlockS8)
+    from ldmseg_torch.models.unet import (CrossAttention, FeedForwardS8,
+                                          LNAttentionS8)
     sk = {"a": {"fused_norms": False},
           "b": {"fused_norms": False, "fused_ff": False},
           "c": {"fused_ff": False}}[variant]
@@ -210,10 +207,10 @@ def test_trainer_accepts_int8_without_fused_norms_or_ff(variant):
         assert isinstance(blk.ff, FeedForwardS8)
         assert blk.ff.fused == (variant == "a")
         if fused_norms:
-            assert isinstance(blk, FusedTransformerBlockS8)
+            assert blk.fuse_attn and isinstance(blk.attn1, LNAttentionS8)
             assert not blk.fuse_ff
         else:
-            assert isinstance(blk, BasicTransformerBlock)
+            assert not blk.fuse_attn and not blk.fuse_ff
             assert isinstance(blk.attn1, CrossAttention)
             assert blk.attn1.int8 and blk.attn1.use_fused
             assert blk.attn1.int8_act_scale == 0.1
@@ -501,6 +498,102 @@ def test_k13_k12_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.randn((1, 64, 384), device=cuda).to(torch.bfloat16)
     with pytest.raises(ValueError):
         K12.fused_geglu_s8(x.half(), pack)
+
+
+# K8, K9 and K11 against their plain versions on the card, at every shape
+# of the int8 UNet forward (batch 2, 32x64 latent) and a ragged T, with
+# K3's and K4's tolerances (_close_on_card)
+def _proj_conv(cuda, c, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    conv = torch.nn.Conv2d(c, c, 1).to(cuda)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                      device=cuda) * c ** -0.5)
+        conv.bias.copy_(0.05 * torch.randn(c, generator=gen, device=cuda))
+    return conv
+
+
+PADDED_SHAPES = [(2, 2048, 320), (2, 512, 640), (2, 128, 1280),
+                 (2, 32, 1280), (1, 120, 320)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tokens", "channels"])
+@pytest.mark.parametrize("b,t,c", PADDED_SHAPES)
+def test_k8_kernel_matches_plain_version(cuda, b, t, c, layout):
+    norm1, attn, _, _ = _pack_modules(cuda, c, 8, 0)
+    pack = K3.with_proj_in(K3.pack_ln_attention(norm1, attn, 8, 0.1),
+                           _proj_conv(cuda, c, 1))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((b, c, t), generator=gen, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)      # the GroupNorm's NCHW tokens
+    if layout == "tokens":
+        x = x.contiguous()
+    before = K3.ln_attention_s8_pin.launches
+    out = K3.ln_attention_s8_pin(x, pack)
+    torch.cuda.synchronize()
+    assert K3.ln_attention_s8_pin.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, t, c)
+    _close_on_card(out, K3.ln_attention_s8_pin_reference(x, pack))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("b,t,c", PADDED_SHAPES + [(1, 1024, 320)])
+def test_k9_kernel_matches_plain_version(cuda, b, t, c, static):
+    _, _, norm3, ff = _pack_modules(cuda, c, 8, 2)
+    pack = K4.with_proj_out(
+        K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05,
+                      0.02 if static else None), _proj_conv(cuda, c, 3))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(torch.bfloat16)
+    before = K4.geglu_ln_s8_pout.launches
+    out = K4.geglu_ln_s8_pout(x, pack)
+    torch.cuda.synchronize()
+    assert K4.geglu_ln_s8_pout.launches == before + 1
+    # the result is the tokens view of a channel-major [B, C, T] tensor
+    assert out.shape == (b, t, c) and out.transpose(1, 2).is_contiguous()
+    _close_on_card(out, K4.geglu_ln_s8_pout_reference(x, pack))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c", PADDED_SHAPES)
+def test_k11_kernel_matches_plain_version(cuda, b, t, c, dtype):
+    _, attn, _, _ = _pack_modules(cuda, c, 8, 5)
+    pack = K3.pack_padded_attention(attn, 8, 0.1)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(dtype)
+    before = K3.padded_attention_s8.launches
+    out = K3.padded_attention_s8(x, pack)
+    torch.cuda.synchronize()
+    assert K3.padded_attention_s8.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close_on_card(out, K3.padded_attention_s8_reference(x, pack).to(dtype))
+
+
+@pytest.mark.gpu
+def test_k8_k9_k11_wrappers_raise_instead_of_falling_back(cuda):
+    norm1, attn, norm3, ff = _pack_modules(cuda, 384, 2, 4)
+    conv = _proj_conv(cuda, 384, 5)
+    x = torch.randn((1, 64, 384), device=cuda).to(torch.bfloat16)
+    p8 = K3.with_proj_in(K3.pack_ln_attention(norm1, attn, 2, 0.1), conv)
+    with pytest.raises(ValueError):  # d = 192: the rule takes it, K8 not
+        K3.ln_attention_s8_pin(x, p8)
+    norm1, attn, _, _ = _pack_modules(cuda, 384, 8, 4)
+    p8 = K3.with_proj_in(K3.pack_ln_attention(norm1, attn, 8, 0.1), conv)
+    with pytest.raises(ValueError):  # the bf16 prologue takes bf16 x only
+        K3.ln_attention_s8_pin(x.float(), p8)
+    with pytest.raises(ValueError):  # a K3 pack without proj_in
+        K3.ln_attention_s8_pin(x, K3.pack_ln_attention(norm1, attn, 8, 0.1))
+    p9 = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05)
+    with pytest.raises(ValueError):  # a K4 pack without proj_out
+        K4.geglu_ln_s8_pout(x, p9)
+    with pytest.raises(ValueError):
+        K4.geglu_ln_s8_pout(x.half(), K4.with_proj_out(p9, conv))
+    _, attn, _, _ = _pack_modules(cuda, 384, 2, 4)
+    with pytest.raises(ValueError):  # d = 192
+        K3.padded_attention_s8(x, K3.pack_padded_attention(attn, 2, 0.1))
 
 
 # the GroupNorm + SiLU slice's modules (K5, K6, K7), one case each
