@@ -81,8 +81,26 @@ Phases, one line each:
      (``tools/perf/acc_check.py:62-67``) runs 16 K13 and 16 K4, 0 K3;
   23. the K11 UNet against the bf16 one (16 K11, 16 K12, 0 K3 and K13),
      and the port's 50-step ``ddim_sample`` on it: 800 K11 and 800 K12;
-  24. a JSON line ``{"kernels": [...]}`` (K1-K9, K11, K12, K13);
-  25. the last line, ``{"ok": true, "device": {...}}``.
+  24. ``use_packed_attention``'s kernels and K10: K14 (bf16 and fp32) at
+     the four shapes of the sampling forward and the three of the training
+     forward, its backward (K2 on the head views) at the training shapes,
+     K15 at the sampling shapes and K10 in both ``v_bf16`` variants (an op)
+     at the int8 shapes, against their plain versions, with times, the
+     bound and the yardstick (SDPA and SDPA's backward for K14; SDPA and
+     K13 on the head views for K15; K3, or LN + K11 + the residual, for
+     K10), and a ragged T = 30 that each rule sends to its fallback;
+  25. the full-width bf16 UNet built with
+     ``UNetConfig(use_packed_attention=True)`` against the same module on
+     K1: 16 K14, 0 K1, no fallback;
+  26. ``sample_panoptic`` on it as phase 4: 800 K14 per call, 0 K1;
+  27. ``train_loop`` on it (2 warm-up, 3 timed steps): 30 K14, 2 fallbacks
+     (T = 30) and 15 K2 per step, 0 K1; one step's loss and gradients
+     against the plain attention;
+  28. int8 ``sample_panoptic`` with ``fused_norms: False`` on it, default
+     and calibrated scales: 800 K15 and 800 K12 per call, 0 K1/K3/K4/K13,
+     no fallback; its UNet forward (16 K15, 16 K12) against the bf16 one;
+  29. a JSON line ``{"kernels": [...]}`` (K1-K15, K10 in both variants);
+  30. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -708,7 +726,7 @@ def phase_int8_kernels():
 
 def _wrappers():
     """Every kernel's wrapper by id; all but K1 and K2 count fallbacks
-    too."""
+    too (K14's are the float ``_xla_btc``)."""
     from ldmseg_torch.ops import attention as A
     from ldmseg_torch.ops import attention_s8 as S8
     from ldmseg_torch.ops import geglu as G
@@ -721,7 +739,10 @@ def _wrappers():
             "K11": S8.padded_attention_s8,
             "K5": GN.group_norm_silu, "K6": GN.group_norm_silu_quant,
             "K7": GC.gn_silu_conv,
-            "K12": G.fused_geglu_s8, "K13": S8.fused_self_attention_s8}
+            "K12": G.fused_geglu_s8, "K13": S8.fused_self_attention_s8,
+            "K10": S8.ln_attention_s8_rowmajor,
+            "K14": A.fused_self_attention_packed,
+            "K15": S8.fused_self_attention_packed_s8}
 
 
 def _counts():
@@ -995,12 +1016,13 @@ def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
 
 def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
                by_path):
-    """The kernels-line entry for K3, K4, K12 or K13: times summed over the
-    16 launches of one int8 UNet forward (dynamic interior for K4 and K12),
-    per-shape rows beside them. ``bf16_block_ms`` is the bf16 function the
-    kernel replaces (for K13 K1, with SDPA in ``sdpa_ms``; for K11 bf16
-    projections and SDPA, with float projections and K13 in
-    ``k13_block_ms``)."""
+    """The kernels-line entry for K3, K4, K8-K13 or K15: times summed over
+    the 16 launches of one int8 UNet forward (dynamic interior for K4 and
+    K12), per-shape rows beside them. ``bf16_block_ms`` is the bf16 (or
+    other) function the kernel replaces (for K13 K1, with SDPA in
+    ``sdpa_ms``; for K11 bf16 projections and SDPA, with float projections
+    and K13 in ``k13_block_ms``; for K15 SDPA, with K13 on the head views in
+    ``k13_ms``; for K10 K3, or LN + K11 + the residual)."""
     main = [r for r in rows if r["per_unet_forward"]
             and r.get("interior", "dynamic") == "dynamic"]
     checked = [r for r in rows if not r.get("fallback")]
@@ -1025,9 +1047,8 @@ def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
         "bf16_block_ms": total("bf16_block_ms"),
-        **({"sdpa_ms": total("sdpa_ms")} if kid == "K13" else {}),
-        **({"k13_block_ms": total("k13_block_ms")} if kid == "K11"
-           else {}),
+        **{key: total(key) for key in ("sdpa_ms", "k13_block_ms", "k13_ms")
+           if key in main[0]},
         "unit": "one UNet forward (16 launches, int8, batch 2, 32x64 "
                 "latent)",
         "shapes": rows,
@@ -1811,6 +1832,415 @@ def phase_padded_sample(unet, seed: int = 2, steps: int = 50):
     return counts, {"seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# use_packed_attention: K14, K15, and K10 as an op (phases 24-28)
+# ---------------------------------------------------------------------------
+# (B, T, C) of K14's launches in one UNet forward (8 heads) on a 32x64 latent
+# at batch 2, and on a 24x80 latent at batch 8 (the training shapes; the
+# rule sends the mid block's T = 30 to the fallback), with the number of
+# launches of each; K15's are the sampling ones
+K14_SHAPES = [((2, 2048, 320), 5), ((2, 512, 640), 5), ((2, 128, 1280), 5),
+              ((2, 32, 1280), 1)]
+K14_TRAIN_SHAPES = [((8, 1920, 320), 5), ((8, 480, 640), 5),
+                    ((8, 120, 1280), 5)]
+PACKED_TIMED_STEPS = 3
+
+
+def _packed_trainer(cfg, seed: int = 0, **kw):
+    """A trainer with ``UNetConfig.use_packed_attention`` and seeded
+    weights."""
+    from ldmseg_torch.tools.profile_sampling import unet_config_for
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(packed=True),
+                               **kw)
+    trainer.init_params(seed=seed)
+    return trainer
+
+
+def _head_view(x, heads: int = 8):
+    """``[B, T, C]`` -> ``[B, T, H, D]``, a view."""
+    return x.unflatten(-1, (heads, x.shape[-1] // heads))
+
+
+def k15_bound_ms(b: int, t: int, c: int, heads: int = 8):
+    """K15's bound for one call: K13's 2·2·BH·T²·D int8 operations against
+    the bf16 q, k, v it reads (the quantize is its own) and the bf16
+    output."""
+    d = c // heads
+    ops = 2.0 * 2 * b * heads * t * t * d
+    nbytes = 3 * 2.0 * b * t * c + 2.0 * b * t * c
+    t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, nbytes)
+
+
+def ln_padded_bound_ms(b: int, t: int, c: int, heads: int = 8):
+    """K10's bound with ``v_bf16=False``: K11's int8 operations (four
+    projections, QKᵀ and e8·V) against bf16 x in, the int8 weights, the
+    LN, bias and scale rows and the bf16 output."""
+    _, _, ops8, _, nbytes = padded_bound_ms(b, t, c, heads)
+    nbytes += 4 * 3 * c
+    t_ops = ops8 / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops8, 0.0, nbytes)
+
+
+def phase_packed_kernels(seed: int = 17):
+    """K14, K15 and K10 against their plain versions on the card. K14 in
+    bf16 and fp32 at the four shapes of the sampling path's forward and the
+    three of the training path's, beside SDPA on the same q, k, v; its
+    backward, K2 on the head views, at the training shapes beside SDPA's
+    backward; K15 on bf16 q, k, v (its dynamic scales) at the sampling
+    shapes, beside SDPA and K13 on the head views; K10 in both ``v_bf16``
+    variants at the int8 shapes, beside K3 on the same pack (``v_bf16``) or
+    LN + K11 + the residual and bias; and a ragged T = 30 that each rule
+    sends to its fallback."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {"K14": [], "K14 training": [], "K14 backward": [], "K15": [],
+            "K10 v_bf16": [], "K10 s8": []}
+    k10_checked = 0
+
+    def rand(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    with torch.inference_mode():
+        for group, shapes in (("K14", K14_SHAPES),
+                              ("K14 training", K14_TRAIN_SHAPES)):
+            for shape, per in shapes:
+                b, t, c = shape
+                for dtype in (torch.bfloat16, torch.float32):
+                    q, k, v = (rand(shape, dtype) for _ in range(3))
+                    scale = (c // 8) ** -0.5
+                    before = A.fused_self_attention_packed.launches
+                    out = A.fused_self_attention_packed(q, k, v, 8, scale)
+                    torch.cuda.synchronize()
+                    ref = A.packed_attention_reference(q, k, v, 8, scale)
+                    err = (out.float() - ref.float()).abs().max().item()
+                    dname = str(dtype).split(".")[-1]
+                    tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+                    check(A.fused_self_attention_packed.launches
+                          == before + 1 and math.isfinite(err)
+                          and err <= tol,
+                          f"K14 {shape} {dname}: max abs err {err} > {tol}")
+                    del ref
+                    ms = time_ms(lambda: A.fused_self_attention_packed(
+                        q, k, v, 8, scale))
+                    plain_ms = time_ms(lambda: A.packed_attention_reference(
+                        q, k, v, 8, scale), iters=5, warmup=1)
+                    qt, kt, vt = (_head_view(x).transpose(1, 2)
+                                  for x in (q, k, v))
+                    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, scale=scale))
+                    bound, by, flops, nbytes = attention_bound_ms(
+                        (b, t, 8, c // 8), dname)
+                    rows[group].append({
+                        "shape_btc": list(shape), "dtype": dname,
+                        "per_unet_forward": per if dname == "bfloat16"
+                        else 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound, "bound_by": by, "flops": flops,
+                        "bytes": nbytes})
+                    print(f"phase 24 {group} {shape} {dname}: err "
+                          f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain"
+                          f" {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                          f"{bound:.4f} ms ({by})", flush=True)
+                    del q, k, v, qt, kt, vt, out
+        ragged = [rand((8, RAGGED_T, 1280)) for _ in range(3)]
+        rows["K14"].append(_fallback_row(
+            "K14", (8, RAGGED_T, 1280),
+            lambda: A.fused_self_attention_packed(*ragged, 8, 0.08),
+            A.fused_self_attention_packed))
+
+        for shape, per in K14_SHAPES + [((2, RAGGED_T, 1280), 0)]:
+            b, t, c = shape
+            q, k, v = (rand(shape) for _ in range(3))
+            scale = (c // 8) ** -0.5
+            if not per:
+                rows["K15"].append(_fallback_row(
+                    "K15", shape, lambda: S8.fused_self_attention_packed_s8(
+                        q, k, v, 8, scale), S8.fused_self_attention_packed_s8))
+                continue
+            qt, kt, vt = (_head_view(x).transpose(1, 2) for x in (q, k, v))
+            qh, kh, vh = (_head_view(x) for x in (q, k, v))
+            out = S8.fused_self_attention_packed_s8(q, k, v, 8, scale)
+            torch.cuda.synchronize()
+            row = _int8_row(
+                "K15", shape, per, out,
+                S8.fused_self_attention_packed_s8_reference(q, k, v, 8,
+                                                            scale),
+                lambda: S8.fused_self_attention_packed_s8(q, k, v, 8, scale),
+                lambda: S8.fused_self_attention_packed_s8_reference(
+                    q, k, v, 8, scale),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       scale=scale),
+                k15_bound_ms(b, t, c))
+            row["k13_ms"] = time_ms(lambda: S8.fused_self_attention_s8(
+                qh, kh, vh, scale))
+            rows["K15"].append(row)
+            print(f"phase 24 K15 {shape}: err {row['max_abs_err']:.3e} of "
+                  f"max|ref| {row['max_abs_ref']:.3e}, mean "
+                  f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}; "
+                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                  f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                  f"sdpa {row['bf16_block_ms']:.4f} ms, K13 on the head "
+                  f"views {row['k13_ms']:.4f} ms", flush=True)
+
+        for shape, per in INT8_SHAPES + [((2, RAGGED_T, 320), 0)]:
+            b, t, c = shape
+            norm1, attn, _, _ = _block_modules(c, seed=t + c + 2)
+            pack = S8.pack_ln_attention_rowmajor(norm1, attn, 8, 0.1)
+            n1 = norm1.to(torch.bfloat16)
+            out_b = pack.ln.out_b.to(torch.bfloat16)
+            x = rand(shape)
+            for v_bf16, key in ((True, "K10 v_bf16"), (False, "K10 s8")):
+                def fn(v_bf16=v_bf16):
+                    return S8.ln_attention_s8_rowmajor(x, pack, v_bf16)
+                if not per:
+                    rows[key].append(_fallback_row(
+                        f"K10 v_bf16={v_bf16}", shape, fn,
+                        S8.ln_attention_s8_rowmajor))
+                    continue
+                if v_bf16:
+                    def composition():
+                        return S8.ln_attention_s8(x, pack.ln)
+                    bound = ln_attention_bound_ms(b, t, c)
+                else:
+                    def composition():
+                        return x + (S8.padded_attention_s8(n1(x), pack.padded)
+                                    + out_b)
+                    bound = ln_padded_bound_ms(b, t, c)
+                out = fn()
+                torch.cuda.synchronize()
+                k10_checked += 1
+                row = _int8_row(
+                    f"K10 v_bf16={v_bf16}", shape, per, out,
+                    S8.ln_attention_s8_rowmajor_reference(x, pack, v_bf16),
+                    fn, lambda v_bf16=v_bf16:
+                    S8.ln_attention_s8_rowmajor_reference(x, pack, v_bf16),
+                    composition, bound)
+                row["v_bf16"] = v_bf16
+                rows[key].append(row)
+                print(f"phase 24 K10 v_bf16={v_bf16} {shape}: err "
+                      f"{row['max_abs_err']:.3e} of max|ref| "
+                      f"{row['max_abs_ref']:.3e}, mean "
+                      f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
+                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}), "
+                      f"{'K3' if v_bf16 else 'LN + K11 + residual'} "
+                      f"{row['bf16_block_ms']:.4f} ms", flush=True)
+
+    # K14's backward: autograd through the wrapper (K14, then K2 on the
+    # head views) against the plain backward; each gradient within the
+    # tolerance times its own max|ref| (phase 5's rule)
+    for shape, per, dtype in ([(s, n, torch.bfloat16)
+                               for s, n in K14_TRAIN_SHAPES]
+                              + [((8, 480, 640), 0, torch.float32)]):
+        b, t, c = shape
+        q, k, v, do = (rand(shape, dtype) for _ in range(4))
+        scale = (c // 8) ** -0.5
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = (A.fused_self_attention_packed.launches,
+                  A.fused_self_attention_backward.launches)
+        A.fused_self_attention_packed(*leaves, 8, scale).backward(do)
+        torch.cuda.synchronize()
+        check((A.fused_self_attention_packed.launches,
+               A.fused_self_attention_backward.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"K14 backward {shape}: not K14 then K2")
+        views = [_head_view(x) for x in (q, k, v, do)]
+        refs = A.attention_backward_reference(*views, scale)
+        dname = str(dtype).split(".")[-1]
+        rtol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+        err = 0.0
+        for gname, leaf, r in zip(("dQ", "dK", "dV"), leaves, refs):
+            e = (leaf.grad.float() - r.reshape(b, t, c).float()).abs().max(
+            ).item()
+            m = r.float().abs().max().item()
+            check(m > 0 and math.isfinite(e) and e <= rtol * m,
+                  f"K14 backward {shape} {dname} {gname}: max abs err {e} > "
+                  f"{rtol} x max|ref| {m}")
+            err = max(err, e)
+        del refs, leaves
+        ms = time_ms(lambda: A.fused_self_attention_backward(
+            *views, scale), iters=10)
+        plain_ms = time_ms(lambda: A.attention_backward_reference(
+            *views, scale), iters=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in views[:3])
+        o = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        dot = views[3].transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del o
+        bound, by, flops, nbytes = attention_bound_ms((b, t, 8, c // 8),
+                                                      dname, 5, 7)
+        rows["K14 backward"].append({
+            "shape_btc": list(shape), "dtype": dname,
+            "per_unet_backward": per, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by, "flops": flops, "bytes": nbytes})
+        print(f"phase 24 K14 backward (K2 on the head views) {shape} "
+              f"{dname}: max err {err:.3e} (tol {rtol} x max|ref|), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa-bwd {lib_ms:.4f}"
+              f" ms, bound {bound:.4f} ms ({by})", flush=True)
+    for key in ("K14", "K15", "K10 v_bf16", "K10 s8"):
+        fb = [r for r in rows[key] if r.get("fallback")]
+        print(f"phase 24 {key} {tuple(fb[0]['shape_btc'])}: the rule's "
+              f"fallback, {fb[0]['ms']:.4f} ms", flush=True)
+    return rows, k10_checked
+
+
+def phase_packed_unet(trainer, seed: int = 1):
+    """The full-width bf16 UNet with ``use_packed_attention`` against the
+    same module on K1 (``packed`` off; phase 3's input): 16 K14, no K1, no
+    fallback, within phase 3's tolerance."""
+    import torch
+    from ldmseg_torch.models.unet import CrossAttention
+    unet = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, unet.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    with torch.inference_mode():
+        _zero_counts()
+        packed = unet(x, t).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        packed_ms = time_ms(lambda: unet(x, t), iters=10)
+        for m in attn:
+            m.packed = False
+        try:
+            k1 = unet(x, t).float()
+            k1_ms = time_ms(lambda: unet(x, t), iters=10)
+        finally:
+            for m in attn:
+                m.packed = True
+    check(counts == _expect(K14=16), f"packed UNet forward launched "
+          f"{counts}, expected 16 K14 and nothing else")
+    check(bool(torch.isfinite(packed).all()), "packed UNet not finite")
+    rel = ((packed - k1).abs().max() / k1.abs().max()).item()
+    check(rel <= 2e-2, f"UNet on K14 vs K1: max rel err {rel}")
+    print(f"phase 25 UNet forward with use_packed_attention, [2, 12, 32, "
+          f"64]: K14 path {packed_ms:.3f} ms, K1 path {k1_ms:.3f} ms, max "
+          f"rel err {rel:.3e} (tol 2e-2), launches {counts}", flush=True)
+    return {"packed_ms": packed_ms, "k1_ms": k1_ms, "max_rel_err": rel,
+            "counts": counts}
+
+
+def phase_packed_train(smi_line: str, seed: int = 0,
+                       timed: int = PACKED_TIMED_STEPS):
+    """``train_loop`` with ``use_packed_attention`` as phase 6 (2 warm-up and
+    ``timed`` steps): per step 30 K14 and 2 fallbacks (two forwards of 15
+    sites; the rule sends the mid block's T = 30 away), 15 K2, no K1; then
+    one step's loss and gradients against the same step on the plain
+    attention, and a gradient on every ``to_q``."""
+    import torch
+    from ldmseg_torch.data.loader import Loader
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.models.unet import CrossAttention
+
+    ds = SyntheticDVPS(length=2 * TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
+    trainer = _packed_trainer(_train_config(), seed, dataset=ds)
+    trainer.train_loop(max_steps=WARMUP_STEPS, log_every=WARMUP_STEPS,
+                       seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train_loop(max_steps=timed, log_every=timed,
+                                seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expect(K14=30 * timed, K2=15 * timed)
+    want["fallbacks"] = 2 * timed
+    check(counts == want, f"packed train steps launched {counts}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    print(f"phase 27 train_loop with use_packed_attention: {timed} steps, "
+          f"batch {TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+          f"{secs / timed:.4f} s/step, {TRAIN_BATCH * timed / secs:.3f} "
+          f"samples/s, peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{counts} [{smi_line}]", flush=True)
+
+    batch = next(iter(Loader(ds, TRAIN_BATCH, seed=seed + 2)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    lh, lw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    noise = torch.randn((TRAIN_BATCH, lh, lw, 4), generator=gen,
+                        device="cuda")
+    steps = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                          device="cuda")
+    attn = [m for m in trainer.unet.modules()
+            if isinstance(m, CrossAttention)]
+    results = {}
+    for packed in (True, False):
+        for m in attn:
+            m.packed = m.use_fused = packed
+        trainer.state.zero_grad()
+        loss, _, _ = trainer.forward_backward(batch, noise=noise,
+                                              timesteps=steps)
+        if packed:
+            for m in attn:
+                g = m.to_q.weight.grad
+                check(g is not None and bool(torch.isfinite(g).all())
+                      and g.abs().max().item() > 0,
+                      "a to_q.weight.grad is missing, zero or not finite")
+        results[packed] = (loss.item(), _flat_grads(trainer.unet))
+    for m in attn:
+        m.packed = m.use_fused = True
+    (loss_k, g_k), (loss_p, g_p) = results[True], results[False]
+    cos = (torch.dot(g_k, g_p) / (g_k.norm() * g_p.norm())).item()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del results, g_k, g_p, trainer
+    check(loss_rel <= 1e-2, f"train loss on K14/K2 vs plain: rel "
+          f"{loss_rel}")
+    check(cos >= 0.99, f"gradient cosine on K14/K2 vs plain: {cos}")
+    print(f"phase 27 one step on K14/K2 vs plain attention: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, tol 1e-2), "
+          f"gradient cosine {cos:.6f} (>= 0.99); every to_q.weight.grad "
+          f"finite and non-zero ({len(attn)} layers)", flush=True)
+    return counts, {"seconds_per_step": secs / timed,
+                    "samples_per_s": TRAIN_BATCH * timed / secs,
+                    "peak_bytes": peak, "losses": losses,
+                    "loss_rel": loss_rel, "grad_cosine": cos}
+
+
+def k14_entry(rows, launches, by_path):
+    """The kernels-line entry for K14: times summed over the 16 launches of
+    one UNet forward at the sampling shapes (bf16, batch 2), the training
+    forward's rows and the backward (K2 on the head views, per UNet
+    backward at batch 8) beside them."""
+    return {
+        "name": "attention_fwd_packed", "id": "K14", "route": "cuda",
+        "source": "ldmseg_torch/csrc/attention_fwd.cu",
+        "replaces": "ldmseg_tpu/ops/pallas/attention.py:1427",
+        "tpu_kernel": "ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_btc",
+        "launches": launches, "launches_by_path": by_path, "checked": True,
+        **_per_unit(rows["K14"], "per_unet_forward"),
+        "unit": "one UNet forward (16 launches, bf16, batch 2, 32x64 latent)",
+        "shapes": rows["K14"],
+        "training_forward": {**_per_unit(rows["K14 training"],
+                                         "per_unet_forward"),
+                             "unit": "one UNet forward at batch 8, 24x80 "
+                                     "(15 launches; T = 30 falls back)",
+                             "shapes": rows["K14 training"]},
+        "backward": {**_per_unit(rows["K14 backward"], "per_unet_backward"),
+                     "unit": "one UNet backward at batch 8, 24x80 (15 K2 "
+                             "launches on the head views)",
+                     "shapes": rows["K14 backward"]},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1910,8 +2340,30 @@ def main() -> int:
         k11_counts, k11_sample = phase_padded_sample(k11_unet)
         del trainer, k11_unet, bf16
         torch.cuda.empty_cache()
+        # use_packed_attention: K14 (with K2 as its backward), K15; K10
+        packed_rows, k10_checked = phase_packed_kernels()
+        torch.cuda.empty_cache()
+        trainer = _packed_trainer(_config())
+        packed_unet = phase_packed_unet(trainer)
+        packed_counts, packed_sample = phase_sample(
+            trainer, smi_line, phase=26, expect={"K14": 16})
+        del trainer
+        torch.cuda.empty_cache()
+        packed_train_counts, packed_train = phase_packed_train(smi_line)
+        torch.cuda.empty_cache()
+        trainer = _packed_trainer(_int8_config(fused_norms=False))
+        packed_int8_unet = _unet_vs_bf16(
+            "int8 UNet (a) with packed attention (K15 + K12)", 28,
+            trainer.int8_unet(), trainer.inference_unet(),
+            {"K15": 16, "K12": 16})
+        packed_int8 = phase_int8_sample(
+            trainer, "int8 (a) with packed attention", {"K15": 16, "K12": 16},
+            smi_line, packed_sample, calibrate=True, phase=28)
+        del trainer
+        torch.cuda.empty_cache()
         sample_result.pop("x0")
         gn_sample.pop("x0")
+        packed_sample.pop("x0")
         print(json.dumps({"results": {
             "device": smi_line, "unet_forward": unet_result,
             "sample_panoptic": sample_result, "train": train_result,
@@ -1927,7 +2379,12 @@ def main() -> int:
             "projs_int8_sample_panoptic": projs,
             "variant_b_unet_forward": variant_b_unet,
             "k11_unet_forward": k11_unet_result,
-            "k11_ddim_sample": k11_sample}}), flush=True)
+            "k11_ddim_sample": k11_sample,
+            "packed_unet_forward": packed_unet,
+            "packed_sample_panoptic": packed_sample,
+            "packed_train": packed_train,
+            "packed_int8_unet_forward": packed_int8_unet,
+            "packed_int8_sample_panoptic": packed_int8}}), flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
         paths = {"sample_panoptic": bf16_counts,
@@ -1950,6 +2407,15 @@ def main() -> int:
         paths["UNet forward, variant B flags"] = variant_b_unet["counts"]
         paths["UNet forward, K11 UNet"] = k11_unet_result["counts"]
         paths["ddim_sample, K11 UNet, 50 steps"] = k11_counts
+        paths["UNet forward, use_packed_attention"] = packed_unet["counts"]
+        paths["sample_panoptic, use_packed_attention"] = packed_counts
+        paths[f"train_loop, use_packed_attention, {PACKED_TIMED_STEPS} "
+              f"steps"] = packed_train_counts
+        paths["UNet forward, int8 (a) with use_packed_attention"] = (
+            packed_int8_unet["counts"])
+        for mode, res in packed_int8.items():
+            paths[f"sample_panoptic int8 fused_norms False, "
+                  f"use_packed_attention, {mode}"] = res["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -2031,6 +2497,34 @@ def main() -> int:
                      "6 MiB rule); no module routes to it, so 0 launches on "
                      "every path and 43 in phase 14")
             | {"launches_in_its_phase": 43},
+            k14_entry(packed_rows, packed_counts["K14"], by_path("K14")),
+            int8_entry("attention_packed_s8", "K15",
+                       "ldmseg_torch/csrc/attention_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:142",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_btc_s8", packed_rows["K15"],
+                       packed_int8["default scales"]["counts"]["K15"],
+                       by_path("K15")),
+            int8_entry("attention_ln_s8_rowmajor (v_bf16=True)", "K10",
+                       "ldmseg_torch/csrc/attention_ln_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:716",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_abs_padded_ln_s8",
+                       packed_rows["K10 v_bf16"], 0, by_path("K10"))
+            | {"variant": "v_bf16=True",
+               "launches_in_its_phase": k10_checked // 2,
+               "launches_note": "an op: no module routes to it, so 0 "
+                                "launches on every path"},
+            int8_entry("attention_ln_padded_s8 (v_bf16=False)", "K10",
+                       "ldmseg_torch/csrc/attention_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:716",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_abs_padded_ln_s8",
+                       packed_rows["K10 s8"], 0, by_path("K10"))
+            | {"variant": "v_bf16=False",
+               "launches_in_its_phase": k10_checked // 2,
+               "launches_note": "an op: no module routes to it, so 0 "
+                                "launches on every path"},
         ]}), flush=True)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

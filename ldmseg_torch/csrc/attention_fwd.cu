@@ -1,4 +1,5 @@
 // K1 on Hopper: the UNet self-attention forward, O = softmax(Q K^T * scale) V.
+// K14, its packed [B, T, C] entry point, is at the end of this file.
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:_attn_kernel /
 // _attn_body (pallas_call in _fused_impl, public fused_self_attention).
@@ -327,4 +328,35 @@ extern "C" int ldmseg_attention_fwd(int dtype, const void* q, const void* k,
   if (dtype == 0) return launch<float>(q, k, v, o, batch, t, heads, d, strides, scale, s);
   if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, batch, t, heads, d, strides, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K14: the same attention on the packed token layout [batch, t, c] with
+// c = heads * d (UNetConfig.use_packed_attention). Replaces
+// ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_btc (pallas_call in
+// _packed_impl, public fused_self_attention_packed). The TPU kernel picks
+// each head's d columns with one-hot selection matmuls, an exact
+// permutation that works around the TPU's lane tiling; its per-head
+// rounding points are K1's. Here the head h of token i is the d columns
+// starting at i * c + h * d, so K1's kernel runs unchanged on the head view
+// [batch, t, heads, d] with element strides (t * c, c, d): no copy, no
+// selection product. strides holds the (b, t) element strides of q, k, v
+// and o in that order (the head stride is d). Returns a cudaError_t.
+extern "C" int ldmseg_attention_fwd_packed(int dtype, const void* q,
+                                           const void* k, const void* v,
+                                           void* o, int batch, int t, int c,
+                                           int heads,
+                                           const long long* strides,
+                                           float scale, void* stream) {
+  if (heads < 1 || c % heads != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int d = c / heads;
+  long long st[12];
+  for (int i = 0; i < 4; ++i) {
+    st[3 * i] = strides[2 * i];
+    st[3 * i + 1] = strides[2 * i + 1];
+    st[3 * i + 2] = d;
+  }
+  return ldmseg_attention_fwd(dtype, q, k, v, o, batch, t, heads, d, st,
+                              scale, stream);
 }

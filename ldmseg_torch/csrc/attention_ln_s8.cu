@@ -3,7 +3,9 @@
 //     [B, T, C];
 // K8: the same block on the residual stream xf = x Wpi + b_pi that a bf16
 //     prologue builds from the GroupNorm output x (Transformer2D's 1x1
-//     proj_in conv, use_fused_projs).
+//     proj_in conv, use_fused_projs);
+// K10 with v_bf16=True (an op): K3's row-major TPU twin, the last entry
+//     point of this file.
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:
 // _attn_kernel_abs_padded_ln_s8_vt / _abs_padded_ln_s8_vt_body (pallas_call
@@ -326,4 +328,26 @@ extern "C" int ldmseg_attention_ln_s8_pin(
                        static_cast<__nv_bfloat16*>(v),
                        static_cast<__nv_bfloat16*>(o), batch, t, c, heads,
                        xs, score_scale, eps, s);
+}
+
+// K10 with v_bf16=True: replaces ldmseg_tpu/ops/pallas/attention.py:
+// _attn_kernel_abs_padded_ln_s8 (pallas_call in _abs_padded_ln_s8_impl,
+// reached by absorbed_padded_ln_self_attention_s8(..., v_transposed=False)).
+// That kernel is the row-major form of K3's: V, P and to_out in bf16,
+// e = bf16(exp(s - rowmax)) with the row max subtracted (K3's TPU kernel
+// drops it, K10's keeps it; this port's K3 keeps it too), denom the fp32
+// sum of the bf16 e, o = bf16((e V) / denom), out = bf16(x + o Wo + b_out).
+// The TPU's K-major value path of K3 and the row-major one here are two
+// layouts of one function, so K10 runs K3's four kernels on the same
+// operands (pack_ln_attention); its arguments are ldmseg_attention_ln_s8's.
+// Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_ln_s8_rowmajor(
+    int dtype, const void* x, void* out, const float* ln_w,
+    const float* ln_b, const float* out_b, const int8_t* w_qkv,
+    const float* m_qkv, const void* wo, int8_t* x8, int8_t* q8, int8_t* k8,
+    void* v, void* o, int batch, int t, int c, int heads, float xs,
+    float score_scale, float eps, void* stream) {
+  return ldmseg_attention_ln_s8(dtype, x, out, ln_w, ln_b, out_b, w_qkv,
+                                m_qkv, wo, x8, q8, k8, v, o, batch, t, c,
+                                heads, xs, score_scale, eps, stream);
 }

@@ -4,7 +4,11 @@
 //      [B, T, H, D];
 // K11: the same attention with the projections around it, x [B, T, C] ->
 //      to_out(attention(x Wq, x Wk, x Wv)) on int8 weights
-//      (use_padded_attention without use_fused_norms).
+//      (use_padded_attention without use_fused_norms);
+// K15: K13 on the packed token layout [B, T, C] with dynamic scales
+//      (use_packed_attention with use_int8_attention);
+// K10 with v_bf16=False (an op): K11 behind a LayerNorm, with the residual
+//      and the to_out bias in its epilogue.
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8
 // (pallas_call in _fused_impl_s8, public fused_self_attention_s8), together
@@ -60,6 +64,25 @@
 // The TPU kernel's 128-lane head padding and one-hot-free head slices are
 // layout work; their zeros are exact and are not carried over.
 //
+// K15 replaces ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_btc_s8
+// (pallas_call in _packed_s8_impl, public fused_self_attention_packed_s8).
+// Its wrapper always takes dynamic scales, max(amax, 1e-6) / 127 per tensor
+// (it has no static act_scale), and the kernel picks each head with one-hot
+// int8 selection matmuls (exact: a permutation) before K13's rounding
+// points 2-5. Here the head view of [B, T, C] is [B, T, H, D] with strides
+// (T*C, C, D), which quant_qkv reads directly, so K15 is K13's two kernels
+// with the scales in device memory (the last-but-one entry point), behind
+// two small kernels that compute them: the three amaxes (atomicMax per
+// warp) and max(amax, 1e-6) / 127. A wrapper chain of PyTorch reductions
+// cost more host time than the attention itself at the UNet's shapes.
+//
+// K10 with v_bf16=False replaces _attn_kernel_abs_padded_ln_s8 (pallas_call
+// in _abs_padded_ln_s8_impl, absorbed_padded_ln_self_attention_s8(...,
+// v_bf16=False)): K11's rounding points 2-4 on x8 = clip(rint(LN(x) / xs))
+// (K3's step 1-2), then out = bf16((float(x) + float(of8 Wo8) * (as *
+// max(wos))) + b_out). Four kernels: ln_quant with the LN, K11's (b) and
+// (c), and the to_out product with the residual epilogue (ResidualS8Epi).
+//
 // What bounds it: K3's work without the LN, with P V and to_out on int8:
 // per image 4 * 2*T*C^2 + 2 * 2*H*T^2*d int8 operations at 1,979 TOPS
 // against x in, the int8 weights and the bf16 output.
@@ -91,6 +114,23 @@ struct QKV {
   int8_t* x8[3];      // their codes, contiguous [B, T, H, D]
 };
 
+// the 8 elements of q, k or v (which) that thread unit u owns: unit u is
+// row (b * t + token) * heads + head, columns [8 (u % (d / 8)), +8)
+template <typename T>
+__device__ __forceinline__ const T* qkv_unit(const QKV& a, int which, int u,
+                                             int t, int heads, int d) {
+  const int per_row = d / 8;
+  const int row = u / per_row;
+  const int j = (u - row * per_row) * 8;
+  const int bt = row / heads;
+  const int h = row - bt * heads;
+  const int b = bt / t;
+  const int tok = bt - b * t;
+  const Strides s = a.st[which];
+  return static_cast<const T*>(a.x[which]) + b * s.b + tok * s.t + h * s.h +
+         j;
+}
+
 // ---- a: quantize q, k and v ------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -100,22 +140,49 @@ __global__ void __launch_bounds__(256)
   const int which = blockIdx.y;
   const int u = blockIdx.x * 256 + threadIdx.x;  // 8 elements of one row
   if (u >= units) return;
-  const int per_row = d / 8;
-  const int row = u / per_row;          // (b * t + token) * heads + head
-  const int j = (u - row * per_row) * 8;
-  const int bt = row / heads;
-  const int h = row - bt * heads;
-  const int b = bt / t;
-  const int tok = bt - b * t;
-  const Strides s = a.st[which];
-  const T* x = static_cast<const T*>(a.x[which]) + b * s.b + tok * s.t +
-               h * s.h + j;
+  const T* x = qkv_unit<T>(a, which, u, t, heads, d);
   const float sc = scale_dev != nullptr
                        ? scale_dev[which]
                        : (which == 0 ? qs : (which == 1 ? ks : vs));
   int8_t* y = a.x8[which] + static_cast<long long>(u) * 8;
 #pragma unroll
   for (int e = 0; e < 8; ++e) y[e] = quant_s8(to_f(x[e]) / sc);
+}
+
+// ---- K15's dynamic scales: amax of |q|, |k|, |v| ---------------------------
+// Each warp's max by shuffles, then one atomicMax per warp on the float's
+// bits into amax[which] (zeroed before): non-negative floats order as their
+// bit patterns, and a max is exact in any order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    amax_qkv_kernel(QKV a, int units, int t, int heads, int d,
+                    unsigned* __restrict__ amax) {
+  const int which = blockIdx.y;
+  const int u = blockIdx.x * 256 + threadIdx.x;
+  float m = 0.f;
+  if (u < units) {
+    const T* x = qkv_unit<T>(a, which, u, t, heads, d);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(to_f(x[e])));
+  }
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) atomicMax(amax + which, __float_as_uint(m));
+}
+
+// 1e-6 rounded to the input's type, as jnp.maximum(amax, 1e-6) rounds it
+__device__ __forceinline__ float amax_floor(const float*) { return 1e-6f; }
+__device__ __forceinline__ float amax_floor(const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(1e-6f));
+}
+
+// scale = max(amax, 1e-6 in the input's type) / 127 in fp32, as the JAX
+// wrapper computes it (:221-223)
+template <typename T>
+__global__ void amax_scales_kernel(const unsigned* __restrict__ amax,
+                                   float* __restrict__ scales) {
+  const float floor = amax_floor(static_cast<const T*>(nullptr));
+  const int i = threadIdx.x;
+  if (i < 3) scales[i] = fmaxf(__uint_as_float(amax[i]), floor) / 127.f;
 }
 
 // rows [row0, row0+64) of one head's int8 [t, d] slice (row stride ld) into
@@ -317,6 +384,35 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K15: the dynamic scales into scratch (amax bits, then the three
+// scales), then K13's two kernels reading them from device memory
+template <typename T>
+int launch_packed(const void* q, const void* k, const void* v,
+                  const long long* st, int8_t* q8, int8_t* k8, int8_t* v8,
+                  __nv_bfloat16* o, int batch, int t, int heads, int d,
+                  unsigned* scratch, float scale, cudaStream_t stream) {
+  QKV a;
+  a.x[0] = q;
+  a.x[1] = k;
+  a.x[2] = v;
+  for (int i = 0; i < 3; ++i) a.st[i] = Strides{st[3 * i], st[3 * i + 1],
+                                                st[3 * i + 2]};
+  int err = static_cast<int>(
+      cudaMemsetAsync(scratch, 0, 3 * sizeof(unsigned), stream));
+  if (err != 0) return err;
+  const int units = batch * t * heads * (d / 8);
+  amax_qkv_kernel<T><<<dim3((units + 255) / 256, 3), 256, 0, stream>>>(
+      a, units, t, heads, d, scratch);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  float* scales = reinterpret_cast<float*>(scratch + 3);
+  amax_scales_kernel<T><<<1, 32, 0, stream>>>(scratch, scales);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch<T>(q, k, v, st, q8, k8, v8, o, batch, t, heads, d, scales,
+                   0.f, 0.f, 0.f, scale, stream);
+}
+
 // K11's to_out: out = bf16(float(sum) * scale), [rows, n]
 struct DequantBf16Epi {
   static constexpr bool kColMajor = false;
@@ -329,19 +425,17 @@ struct DequantBf16Epi {
   }
 };
 
-template <typename T>
-int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
-                  const float* m_qkv, const int8_t* wo, const float* ratio,
-                  int8_t* x8, int8_t* q8, int8_t* k8, int8_t* v8,
-                  int8_t* of8, int batch, int t, int c, int heads, float xs,
-                  float score_scale, float out_scale, cudaStream_t stream) {
+// (b) and (c) of K11 and K10: the three projections of x8 requantized
+// per column, and the e8 attention with the of8 epilogue
+int launch_qkv_attention(const int8_t* x8, const int8_t* w_qkv,
+                         const float* m_qkv, const float* ratio, int8_t* q8,
+                         int8_t* k8, int8_t* v8, int8_t* of8, int batch,
+                         int t, int c, int heads, float score_scale,
+                         cudaStream_t stream) {
   const int rows = batch * t;
   const int d = c / heads;
-  int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
-                                      0.f, nullptr, 0, stream);
-  if (err != 0) return err;
-  err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
-                       QkvEpi<true>{m_qkv, q8, k8, v8, c}, stream);
+  int err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
+                           QkvEpi<true>{m_qkv, q8, k8, v8, c}, stream);
   if (err != 0) return err;
   const size_t smem = attn_smem(d);
   err = static_cast<int>(cudaFuncSetAttribute(
@@ -353,10 +447,65 @@ int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
   attn_s8_kernel<true><<<grid, kThreads, smem, stream>>>(
       q8, k8, v8, of8, heads, t, d, nullptr, 1.f, 1.f, 1.f, score_scale,
       ratio);
-  err = static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
+                  const float* m_qkv, const int8_t* wo, const float* ratio,
+                  int8_t* x8, int8_t* q8, int8_t* k8, int8_t* v8,
+                  int8_t* of8, int batch, int t, int c, int heads, float xs,
+                  float score_scale, float out_scale, cudaStream_t stream) {
+  const int rows = batch * t;
+  int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
+                                      0.f, nullptr, 0, stream);
+  if (err != 0) return err;
+  err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8, of8, batch,
+                             t, c, heads, score_scale, stream);
   if (err != 0) return err;
   return launch_s8_gemm(of8, wo, rows, c, c,
                         DequantBf16Epi{out_scale, out, c}, stream);
+}
+
+// K10's to_out: out = bf16((float(x) + float(sum) * scale) + bias[col]),
+// x the block's input [rows, n] in its type. __fmul_rn: the product rounds
+// before the residual add, as in the TPU kernel (no fused multiply-add).
+template <typename T>
+struct ResidualS8Epi {
+  static constexpr bool kColMajor = false;
+  const T* x;
+  float scale;
+  const float* bias;
+  __nv_bfloat16* out;
+  int n;
+  __device__ void operator()(int row, int col, int sum) const {
+    const long long at = static_cast<long long>(row) * n + col;
+    out[at] = __float2bfloat16_rn(
+        (to_f(x[at]) + __fmul_rn(static_cast<float>(sum), scale)) +
+        bias[col]);
+  }
+};
+
+template <typename T>
+int launch_ln_padded(const void* x, __nv_bfloat16* out, const float* ln_w,
+                     const float* ln_b, const float* out_b,
+                     const int8_t* w_qkv, const float* m_qkv,
+                     const int8_t* wo, const float* ratio, int8_t* x8,
+                     int8_t* q8, int8_t* k8, int8_t* v8, int8_t* of8,
+                     int batch, int t, int c, int heads, float xs,
+                     float score_scale, float out_scale, float eps,
+                     cudaStream_t stream) {
+  const int rows = batch * t;
+  int err = launch_ln_quant<T>(x, x8, ln_w, ln_b, rows, c, xs, eps, nullptr,
+                               0, stream);
+  if (err != 0) return err;
+  err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8, of8, batch,
+                             t, c, heads, score_scale, stream);
+  if (err != 0) return err;
+  return launch_s8_gemm(
+      of8, wo, rows, c, c,
+      ResidualS8Epi<T>{static_cast<const T*>(x), out_scale, out_b, out, c},
+      stream);
 }
 
 }  // namespace
@@ -416,6 +565,77 @@ extern "C" int ldmseg_attention_padded_s8(
     return launch_padded<__nv_bfloat16>(x, ob, w_qkv, m_qkv, wo, ratio, x8,
                                         q8, k8, v8, of8, batch, t, c, heads,
                                         xs, score_scale, out_scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K15: dtype of q, k, v 0 = float32, 1 = bfloat16, each the packed token
+// layout [batch, t, c] (c = heads * d) with unit stride on c; strides holds
+// the (b, t) element strides of q, k and v in that order. The scales are
+// always dynamic: scratch (24 bytes, 4-byte aligned) receives the three
+// amax bit patterns and then the three scales (qs, ks, vs). q8, k8, v8
+// (int8) are scratch and o (bf16) the output, each [batch, t, c]
+// contiguous. Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_packed_s8(
+    int dtype, const void* q, const void* k, const void* v,
+    const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8, void* o,
+    int batch, int t, int c, int heads, void* scratch, float scale,
+    void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 ||
+      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int d = c / heads;
+  long long st[9];
+  for (int i = 0; i < 3; ++i) {
+    st[3 * i] = strides[2 * i];
+    st[3 * i + 1] = strides[2 * i + 1];
+    st[3 * i + 2] = d;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  auto* sc = static_cast<unsigned*>(scratch);
+  if (dtype == 0) {
+    return launch_packed<float>(q, k, v, st, q8, k8, v8, ob, batch, t, heads,
+                                d, sc, scale, s);
+  }
+  if (dtype == 1) {
+    return launch_packed<__nv_bfloat16>(q, k, v, st, q8, k8, v8, ob, batch,
+                                        t, heads, d, sc, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K10 with v_bf16=False: dtype of x 0 = float32, 1 = bfloat16, x [batch*t,
+// c] contiguous; out bf16 [batch*t, c]; ln_w, ln_b, out_b fp32 [c]; w_qkv,
+// m_qkv, wo and ratio as in ldmseg_attention_padded_s8 (v requantized like
+// q and k); x8, q8, k8, v8 and of8 (int8, each [batch*t, c]) are scratch.
+// Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_ln_padded_s8(
+    int dtype, const void* x, void* out, const float* ln_w,
+    const float* ln_b, const float* out_b, const int8_t* w_qkv,
+    const float* m_qkv, const int8_t* wo, const float* ratio, int8_t* x8,
+    int8_t* q8, int8_t* k8, int8_t* v8, int8_t* of8, int batch, int t, int c,
+    int heads, float xs, float score_scale, float out_scale, float eps,
+    void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
+      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (dtype == 0) {
+    return launch_ln_padded<float>(x, ob, ln_w, ln_b, out_b, w_qkv, m_qkv,
+                                   wo, ratio, x8, q8, k8, v8, of8, batch, t,
+                                   c, heads, xs, score_scale, out_scale, eps,
+                                   s);
+  }
+  if (dtype == 1) {
+    return launch_ln_padded<__nv_bfloat16>(
+        x, ob, ln_w, ln_b, out_b, w_qkv, m_qkv, wo, ratio, x8, q8, k8, v8,
+        of8, batch, t, c, heads, xs, score_scale, out_scale, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,10 +3,12 @@
 
 conv_in -> down blocks (resnets + Transformer2D) -> mid (resnet, attention,
 resnet) -> up blocks with skip concatenation -> GN/SiLU/conv_out, with
-sinusoidal time embeddings. Self-attention goes to K1
-(``ops/attention.py:fused_self_attention``) when ``use_fused_attention`` is
-set, else to the plain einsum path. Parameter names are the diffusers keys
-that ``ldmseg_tpu/models/torch_export.py:unet_sd_from_params`` emits.
+sinusoidal time embeddings. Self-attention goes to K14
+(``ops/attention.py:fused_self_attention_packed``) when
+``use_packed_attention`` is set, else to K1 (``fused_self_attention``) when
+``use_fused_attention`` is, else to the plain einsum path. Parameter names
+are the diffusers keys that
+``ldmseg_tpu/models/torch_export.py:unet_sd_from_params`` emits.
 
 The port holds the trainer's default UNet: no cross-attention, a plain
 ``conv_in``, the SD time embedding (``flip_sin_to_cos``, no frequency
@@ -22,10 +24,13 @@ use_fused_norms and use_padded_attention`` and ``fuse_ff = use_fused_norms
 and use_int8_ff and use_fused_ff``:
 
 - ``fuse_attn``: the attention block is K3 (``x = K3(x)``); else ``x +
-  attn1(norm1(x))`` with ``attn1`` K11 under ``use_padded_attention``
-  (int8 projections, attention and ``to_out`` in one kernel, on weights
-  quantized per head), K13 under ``use_int8_attention`` and
-  ``use_fused_attention`` (float projections), K1 or the plain path;
+  attn1(norm1(x))`` with ``attn1``, the first that applies as in JAX's
+  ``CrossAttention`` (:280-331): K11 under ``use_padded_attention`` (int8
+  projections, attention and ``to_out`` in one kernel, on weights
+  quantized per head); under ``use_packed_attention`` float projections
+  around K14 on the ``[B, T, C]`` layout, or K15 with
+  ``use_int8_attention``; under ``use_fused_attention`` K13 with
+  ``use_int8_attention``, else K1; the plain path;
 - ``fuse_ff``: the FF block is K4 (``x = K4(x)``); else ``x +
   ff(norm3(x))`` with ``use_int8_ff`` a ``FeedForwardS8`` (K12 with
   ``use_fused_ff``, else two QuantLinears around the exact gelu) or the
@@ -36,6 +41,10 @@ Transformer2D's 1x1 ``proj_in``/``proj_out`` into the two kernels: K8 (K3
 with a bf16 ``proj_in`` prologue on the GroupNorm output) and K9 (K4 with a
 bf16 ``proj_out`` epilogue); it needs ``fuse_attn`` and ``fuse_ff``. None of
 the flags changes the parameter keys of a float UNet.
+
+So with fused norms the packed flag does nothing (K3 + K4 run), and
+``use_packed_attention`` wins over ``use_fused_attention``, which the
+trainer sets by default.
 
 The int8 UNet's quantized modules hold no float weights (K11 keeps its
 attention's: they are its parameter keys):
@@ -52,8 +61,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_self_attention
-from ..ops.attention_s8 import (fused_self_attention_s8, ln_attention_s8,
+from ..ops.attention import (fused_self_attention,
+                             fused_self_attention_packed)
+from ..ops.attention_s8 import (fused_self_attention_packed_s8,
+                                fused_self_attention_s8, ln_attention_s8,
                                 ln_attention_s8_pin, pack_ln_attention,
                                 pack_padded_attention, padded_attention_s8,
                                 with_proj_in)
@@ -70,8 +81,8 @@ class UNetConfig:
     sampling path without cross-attention reads, among them flags that a
     caller sets only through ``unet_config``: the resnet norms'
     ``use_pallas_gn`` (K5) and ``int8_fuse_gn`` (K6, with
-    ``use_int8_conv``), ``use_padded_attention`` (K11) and
-    ``use_fused_projs`` (K8, K9)."""
+    ``use_int8_conv``), ``use_packed_attention`` (K14, K15),
+    ``use_padded_attention`` (K11) and ``use_fused_projs`` (K8, K9)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -82,8 +93,11 @@ class UNetConfig:
     norm_eps: float = 1e-5
     attn_down: Tuple[bool, ...] = (True, True, True, False)
     use_fused_attention: bool = False
-    # K11 (inference only), or K3 with use_fused_norms; JAX's packed and
-    # absorbed attention flags are not ported yet
+    # K14 on [B, T, C] (K2 as its backward), K15 with use_int8_attention;
+    # wins over use_fused_attention, loses to use_padded_attention
+    use_packed_attention: bool = False
+    # K11 (inference only), or K3 with use_fused_norms; JAX's absorbed
+    # attention flag is not ported yet
     use_padded_attention: bool = False
     # int8 inference (unet.py:79-94): s8 resnet/Down/Upsample convs and the
     # transformer flags as in JAX
@@ -105,19 +119,23 @@ class UNetConfig:
 
 class CrossAttention(nn.Module):
     """Multi-head self-attention (diffusers Attention): q/k/v without bias,
-    out projection with bias. ``use_fused`` sends it to K1, or with
-    ``int8`` to K13 with the static q/k/v scale ``int8_act_scale`` (None: a
-    dynamic amax each); the projections stay float (unet.py:290-327).
+    out projection with bias; the projections stay float (unet.py:290-327).
+    ``packed`` sends it to K14 on the projections' ``[B, T, C]``, or with
+    ``int8`` to K15 (always dynamic scales); else ``use_fused`` to K1, or
+    with ``int8`` to K13 with the static q/k/v scale ``int8_act_scale``
+    (None: a dynamic amax each).
 
     An int8 attention takes the calibration key ``to_q`` and ignores it:
     JAX records that scale (quant.py:607-613), but with float projections
-    no quantized leaf holds it, so K13 keeps ``int8_act_scale``."""
+    no quantized leaf holds it, so K13 keeps ``int8_act_scale`` and K15
+    its dynamic scales."""
 
     def __init__(self, query_dim: int, heads: int, use_fused: bool = False,
-                 int8: bool = False, int8_act_scale: Optional[float] = None):
+                 int8: bool = False, int8_act_scale: Optional[float] = None,
+                 packed: bool = False):
         super().__init__()
         self.heads = heads
-        self.use_fused = use_fused
+        self.use_fused, self.packed = use_fused, packed
         self.int8, self.int8_act_scale = int8, int8_act_scale
         if int8:
             self.act_scale_sites = {"to_q": None}
@@ -129,9 +147,14 @@ class CrossAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, c = x.shape
         hd = c // self.heads
+        scale = hd ** -0.5
+        if self.packed:
+            q, k, v = (proj(x) for proj in (self.to_q, self.to_k, self.to_v))
+            attend = (fused_self_attention_packed_s8 if self.int8
+                      else fused_self_attention_packed)
+            return self.to_out[0](attend(q, k, v, self.heads, scale))
         q, k, v = (proj(x).reshape(b, t, self.heads, hd)
                    for proj in (self.to_q, self.to_k, self.to_v))
-        scale = hd ** -0.5
         if self.use_fused and self.int8:
             out = fused_self_attention_s8(q, k, v, scale,
                                           self.int8_act_scale)
@@ -295,7 +318,8 @@ class BasicTransformerBlock(nn.Module):
     the flags read as JAX reads them (unet.py:456-503): with ``fuse_attn =
     fused_norms and padded_attention`` the first three are K3 (an
     :class:`LNAttentionS8`, ``x = K3(x)``), else ``norm1`` + ``attn1`` with
-    ``attn1`` K11 (``padded_attention``), K13 (``int8_attention`` with
+    ``attn1`` K11 (``padded_attention``), K15 or K14 (``packed_attention``
+    with or without ``int8_attention``), K13 (``int8_attention`` with
     ``use_fused``), K1 (``use_fused``) or the plain path; with ``fuse_ff =
     fused_norms and int8_ff and fused_ff`` the last three are K4 (an
     :class:`LNFeedForwardS8`), else ``norm3`` + a :class:`FeedForwardS8`
@@ -308,6 +332,7 @@ class BasicTransformerBlock(nn.Module):
                  int8_attention: bool = False, int8_ff: bool = False,
                  fused_ff: bool = False, fused_norms: bool = False,
                  padded_attention: bool = False, fused_projs: bool = False,
+                 packed_attention: bool = False,
                  int8_act_scale: Optional[float] = None,
                  int8_attn_act_scale: Optional[float] = None):
         super().__init__()
@@ -328,7 +353,8 @@ class BasicTransformerBlock(nn.Module):
                 PaddedAttentionS8(dim, heads, attn_scale) if padded_attention
                 else CrossAttention(dim, heads, use_fused=use_fused,
                                     int8=int8_attention,
-                                    int8_act_scale=int8_attn_act_scale))
+                                    int8_act_scale=int8_attn_act_scale,
+                                    packed=packed_attention))
         if self.fuse_ff:
             self.ff = LNFeedForwardS8(int8_act_scale or 0.05, fused_projs)
         else:
@@ -362,7 +388,7 @@ class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, groups: int = 32,
                  use_fused: bool = False, int8: Optional[dict] = None,
                  fused_norms: bool = False, padded_attention: bool = False,
-                 fused_projs: bool = False):
+                 fused_projs: bool = False, packed_attention: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
@@ -371,7 +397,8 @@ class Transformer2D(nn.Module):
         block = BasicTransformerBlock(
             channels, heads, use_fused, fused_norms=fused_norms,
             padded_attention=padded_attention,
-            fused_projs=self.fused_projs, **(int8 or {}))
+            fused_projs=self.fused_projs, packed_attention=packed_attention,
+            **(int8 or {}))
         self.transformer_blocks = nn.ModuleList([block])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
@@ -537,7 +564,8 @@ class UNet2DCondition(nn.Module):
                                  int8=int8,
                                  fused_norms=cfg.use_fused_norms,
                                  padded_attention=cfg.use_padded_attention,
-                                 fused_projs=cfg.use_fused_projs))
+                                 fused_projs=cfg.use_fused_projs,
+                                 packed_attention=cfg.use_packed_attention))
         c0 = chans[0]
         temb = c0 * 4
         self.conv_in = conv3x3(cfg.in_channels, c0)

@@ -1,4 +1,5 @@
-"""K1 and K2: the UNet's multi-head self-attention, forward and backward.
+"""K1, K2 and K14: the UNet's multi-head self-attention, forward and
+backward, on the head layout and on the packed token layout.
 
 Counterpart of ``ldmseg_tpu/ops/pallas/attention.py``: ``fused_self_attention``
 (:1530), the Pallas forward ``_attn_kernel``/``_attn_body`` (:28, :35) behind
@@ -12,6 +13,27 @@ forward to ``csrc/attention_fwd.cu`` (K1), the backward to
 ``csrc/attention_bwd.cu`` (K2); if a kernel cannot take the input, the
 wrapper raises. A CPU tensor goes to :func:`attention_reference` and
 :func:`attention_backward_reference`, the same arithmetic in plain PyTorch.
+
+It runs K1 at every T. JAX's ``fused_self_attention`` (:1545) sends ``T >
+4096``, ``T % min(1024, T)`` and ``T % 8`` (at KITTI's 24x80 latent the
+T = 1920 and T = 30 sites) to ``_xla_bthd``, whose scores are rounded to
+the input dtype before the softmax; K1 keeps the Pallas kernel's fp32
+scores there too, and on the card avoids materialising ``[B·H, T, T]``.
+
+K14 is ``fused_self_attention_packed`` (:1514), ``use_packed_attention``'s
+attention on ``[B, T, C]`` with ``C = heads·d``; its Pallas kernel
+``_attn_kernel_btc`` (:1427) selects each head with one-hot matmuls, an
+exact permutation, and then has K1's rounding points. The port keeps the
+JAX wrapper's own shape rule (``T > 2048``, ``T % 8`` or ``C % heads`` go to
+:func:`packed_attention_fallback`, the float ``_xla_btc`` :1487, counted in
+``fused_self_attention_packed.fallbacks``; under autograd it differentiates
+through plain PyTorch, as JAX through XLA). Every other shape runs K1's
+device code on the head view ``[B, T, H, D]`` of the packed tensors
+(``csrc/attention_fwd.cu:ldmseg_attention_fwd_packed``, counted in
+``fused_self_attention_packed.launches``), or on a CPU tensor
+:func:`packed_attention_reference`. JAX's backward is the XLA VJP of
+``_xla_btc`` (:1495-1511); the port's is K2 on the same views, which keeps
+the training step from materialising the scores.
 """
 
 from __future__ import annotations
@@ -24,6 +46,7 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 160
+PACKED_MAX_SEQ = 2048  # fused_self_attention_packed's max_seq
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -214,3 +237,123 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_self_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K14
+# ---------------------------------------------------------------------------
+def packed_takes_kernel(t: int, c: int, heads: int) -> bool:
+    """``fused_self_attention_packed``'s shape rule (:1524-1526) without its
+    CPU clause; ``fused_self_attention_packed_s8`` (:218-220) shares it."""
+    return not (t > PACKED_MAX_SEQ or t % 8 != 0 or c % heads != 0)
+
+
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The head view ``[B, T, H, D]`` of ``[B, T, C]`` (no copy when C has
+    unit stride)."""
+    return x.unflatten(-1, (heads, x.shape[-1] // heads))
+
+
+def packed_attention_fallback(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, heads: int,
+                              scale: float) -> torch.Tensor:
+    """``_xla_btc`` (:1487) on ``[B, T, C]``: the scores of the input dtype
+    (an einsum in that dtype, then the scale), the softmax in fp32 rounded
+    back, P·V in the input dtype. Differentiable by autograd."""
+    b, t, c = q.shape
+    qh, kh, vh = (_heads(x, heads) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, t, c)
+
+
+def packed_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, heads: int,
+                               scale: float) -> torch.Tensor:
+    """K14's arithmetic in plain PyTorch: :func:`attention_reference` on the
+    head views of ``[B, T, C]``, returned ``[B, T, C]``."""
+    b, t, c = q.shape
+    return attention_reference(_heads(q, heads), _heads(k, heads),
+                               _heads(v, heads), scale).reshape(b, t, c)
+
+
+@functools.cache
+def _packed_kernel():
+    fn = _build.load("attention_fwd").ldmseg_attention_fwd_packed
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _packed_forward(q, k, v, heads, scale):
+    if q.device.type == "cpu":
+        return packed_attention_reference(q, k, v, heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"K14: unsupported device {q.device}")
+    if any(x.dim() != 3 or x.stride(2) != 1 for x in (q, k, v)):
+        raise ValueError("K14: q, k, v must be [B, T, C] with unit stride "
+                         "on C")
+    # the head views, checked as K1 checks its inputs
+    _check_kernel_inputs(**{n: _heads(x, heads) for n, x in
+                            (("q", q), ("k", k), ("v", v))})
+    b, t, c = q.shape
+    out = torch.empty((b, t, c), dtype=q.dtype, device=q.device)
+    st = [s_ for x in (q, k, v, out) for s_ in x.stride()[:2]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _packed_kernel()(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, t, c, heads, (ctypes.c_longlong * 8)(*st),
+            float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"K14 launch failed: CUDA error {err}")
+    fused_self_attention_packed.launches += 1
+    return out
+
+
+class _PackedSelfAttention(torch.autograd.Function):
+    """K14 forward; K2 backward on the head views (JAX: the XLA VJP of
+    ``_xla_btc``, :1504-1509)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.scale = heads, scale
+        return _packed_forward(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        h = ctx.heads
+        grads = fused_self_attention_backward(
+            _heads(q, h), _heads(k, h), _heads(v, h),
+            _heads(do.contiguous(), h), ctx.scale)
+        return (*(g.reshape(q.shape) for g in grads), None, None)
+
+
+def fused_self_attention_packed(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, heads: int,
+                                scale: float) -> torch.Tensor:
+    """Multi-head self-attention on the packed ``[B, T, C]`` layout (``C =
+    heads·d``), returned ``[B, T, C]`` in the input dtype. Shapes the JAX
+    rule sends away take :func:`packed_attention_fallback`; the others K14
+    (CUDA: bf16 or fp32, d a multiple of 8 up to 160) or
+    :func:`packed_attention_reference` (CPU), with K2 (CUDA) or
+    :func:`attention_backward_reference` (CPU) as the backward under
+    autograd."""
+    b, t, c = q.shape
+    if not packed_takes_kernel(t, c, heads):
+        fused_self_attention_packed.fallbacks += 1
+        return packed_attention_fallback(q, k, v, heads, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _PackedSelfAttention.apply(q, k, v, heads, scale)
+    return _packed_forward(q, k, v, heads, scale)
+
+
+fused_self_attention_packed.launches = 0
+fused_self_attention_packed.fallbacks = 0

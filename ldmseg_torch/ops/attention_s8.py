@@ -1,4 +1,4 @@
-"""K3, K8, K11 and K13: the int8 UNet's self-attention.
+"""K3, K8, K10, K11, K13 and K15: the int8 UNet's self-attention.
 
 K3 is the fused block of the fused-norms UNet,
 ``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens; K8 the
@@ -58,6 +58,26 @@ of ``csrc/attention_s8.cu`` (counted in ``padded_attention_s8.launches``)
 and a CPU tensor to :func:`padded_attention_s8_reference`. Its operands
 (:func:`pack_padded_attention`) are ``quantize_head_weights``' codes and
 the scales of ``_abs_padded_prep`` (:1161).
+
+K15 (``fused_self_attention_packed_s8`` :210, kernel ``_attn_kernel_btc_s8``
+:142) is ``use_packed_attention``'s int8 attention on the float
+projections' ``[B, T, C]``: K13's arithmetic on the head view, always with
+one dynamic amax per tensor (the wrapper has no ``act_scale``). It keeps
+its wrapper's rule, K14's (``T > 2048``, ``T % 8`` or ``C % heads`` go to
+the float ``_xla_btc``, unquantized, counted in
+``fused_self_attention_packed_s8.fallbacks``); every other shape goes on a
+CUDA tensor to the third entry point of ``csrc/attention_s8.cu`` (which
+computes the three scales on the card too) and on a CPU tensor to
+:func:`fused_self_attention_s8_reference` on the view.
+
+K10 (``absorbed_padded_ln_self_attention_s8(..., v_transposed=False)`` or
+``v_bf16=False``, :1140-1158; kernel ``_attn_kernel_abs_padded_ln_s8``
+:716) is an op: no module reaches it. :func:`ln_attention_s8_rowmajor`
+keeps K3's rule and fallback; ``v_bf16=True`` is K3's function in the
+row-major layout (``csrc/attention_ln_s8.cu``'s last entry point, K3's
+kernels and pack), ``v_bf16=False`` K11's int8 attention behind the LN with
+the residual and bias epilogue (``csrc/attention_s8.cu``'s last entry
+point); both packs come from :func:`pack_ln_attention_rowmajor`.
 """
 
 from __future__ import annotations
@@ -72,6 +92,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .attention import packed_attention_fallback, packed_takes_kernel
 from .quant import exact_int8_matmul, quantize_head_weights
 
 ATTN_SCALE = 0.1    # the static q/k/v scale ``as`` (pack_inference_tiles)
@@ -224,28 +245,34 @@ def ln_attention_s8_fallback(x: torch.Tensor,
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("attention_ln_s8"), entry)
-    # K3: dtype, x; K8: channels_major, x, wpi, bpi, xf
+    # K3 and K10: dtype, x; K8: channels_major, x, wpi, bpi, xf
     head = [ctypes.c_int] + [ctypes.c_void_p] * (
-        1 if entry == "ldmseg_attention_ln_s8" else 4)
+        4 if entry == "ldmseg_attention_ln_s8_pin" else 1)
     fn.argtypes = (head + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+_LN_ENTRIES = {"K3": "ldmseg_attention_ln_s8",
+               "K8": "ldmseg_attention_ln_s8_pin",
+               "K10": "ldmseg_attention_ln_s8_rowmajor"}
+
+
 def _launch(x: torch.Tensor, p: LNAttentionPack,
-            pin: bool = False) -> torch.Tensor:
-    """K3, or with ``pin`` K8 (x the GroupNorm output, bf16, read
-    channel-major when it is the tokens view of a contiguous ``[B, C,
-    T]``)."""
-    name = "K8" if pin else "K3"
+            name: str = "K3") -> torch.Tensor:
+    """K3, K8 (x the GroupNorm output, bf16, read channel-major when it is
+    the tokens view of a contiguous ``[B, C, T]``) or K10 with ``v_bf16``
+    (K3's kernels behind K10's entry point)."""
+    pin = name == "K8"
     b, t, c = x.shape
     h = p.heads
     if pin and x.dtype != torch.bfloat16:
         raise ValueError(f"K8: x must be bfloat16 (the prologue's bf16 "
                          f"operand), got {x.dtype}")
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"K3: x must be float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
     if c // h > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {c // h} > {MAX_HEAD_DIM}")
     if b * h > 65535:
@@ -270,16 +297,15 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
              p.wo.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
              v.data_ptr(), o.data_ptr(), b, t, c, h, p.xs, p.score_scale,
              p.eps)
+    kernel = _kernel(_LN_ENTRIES[name])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pin:
             xf = torch.empty((b * t, c), dtype=torch.float32, device=dev)
-            err = _kernel("ldmseg_attention_ln_s8_pin")(
-                int(channels_major), x.data_ptr(), p.wpi.data_ptr(),
-                p.bpi.data_ptr(), xf.data_ptr(), *block, stream)
+            err = kernel(int(channels_major), x.data_ptr(), p.wpi.data_ptr(),
+                         p.bpi.data_ptr(), xf.data_ptr(), *block, stream)
         else:
-            err = _kernel("ldmseg_attention_ln_s8")(
-                _DTYPE_CODE[x.dtype], x.data_ptr(), *block, stream)
+            err = kernel(_DTYPE_CODE[x.dtype], x.data_ptr(), *block, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
@@ -510,7 +536,7 @@ def ln_attention_s8_pin(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
         return ln_attention_s8_pin_reference(x, p).to(x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K8: unsupported device {x.device}")
-    out = _launch(x, p, pin=True)
+    out = _launch(x, p, "K8")
     ln_attention_s8_pin.launches += 1
     return out.to(x.dtype)
 
@@ -575,10 +601,17 @@ def padded_attention_s8_reference(x: torch.Tensor,
     with ``denom = Σe`` over the fp32 e, ``e8 = rint(e)``, ``of8 =
     clip(rint(float(int32 e8·v8)·(ratio[h] / denom)))``, and
     ``bf16(float(int32 of8·Wo8)·out_scale)``."""
-    b, t, c = x.shape
+    x8 = quantize_s8(x, torch.tensor(p.xs, device=x.device))
+    out = _padded_core(x8, p).float()
+    return (out * p.out_scale).to(torch.bfloat16)
+
+
+def _padded_core(x8: torch.Tensor, p: "PaddedAttentionPack") -> torch.Tensor:
+    """K11's steps 2-4 and the int32 ``of8·Wo8`` on the codes ``x8 [B, T,
+    C]``."""
+    b, t, c = x8.shape
     h = p.heads
     d = c // h
-    x8 = quantize_s8(x, torch.tensor(p.xs, device=x.device))
     y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3C]
     q8, k8, v8 = (torch.round(y[..., i * c:(i + 1) * c]).clamp_(-127, 127)
                   .to(torch.int8).reshape(b, t, h, d).transpose(1, 2)
@@ -590,8 +623,7 @@ def padded_attention_s8_reference(x: torch.Tensor,
     o32 = exact_int8_matmul(e8, v8.transpose(-1, -2))
     of8 = torch.round(o32.float() * (p.ratio[:, None, None] / denom))
     of8 = of8.clamp_(-127, 127).to(torch.int8).transpose(1, 2)
-    out = exact_int8_matmul(of8.reshape(b, t, c), p.wo_q).float()
-    return (out * p.out_scale).to(torch.bfloat16)
+    return exact_int8_matmul(of8.reshape(b, t, c), p.wo_q)
 
 
 def padded_attention_s8_fallback(x: torch.Tensor,
@@ -664,3 +696,201 @@ def padded_attention_s8(x: torch.Tensor,
 
 padded_attention_s8.launches = 0
 padded_attention_s8.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K15
+# ---------------------------------------------------------------------------
+def fused_self_attention_packed_s8_reference(q: torch.Tensor,
+                                             k: torch.Tensor,
+                                             v: torch.Tensor, heads: int,
+                                             scale: float) -> torch.Tensor:
+    """K15's arithmetic in plain PyTorch on ``[B, T, C]`` -> bf16:
+    :func:`fused_self_attention_s8_reference` on the head views with the
+    dynamic scales (``act_scale=None``)."""
+    b, t, c = q.shape
+    qh, kh, vh = (x.unflatten(-1, (heads, c // heads)) for x in (q, k, v))
+    return fused_self_attention_s8_reference(qh, kh, vh, scale).reshape(
+        b, t, c)
+
+
+@functools.cache
+def _packed_s8_kernel():
+    fn = _build.load("attention_s8").ldmseg_attention_packed_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _packed_s8_launch(q, k, v, heads, scale) -> torch.Tensor:
+    b, t, c = q.shape
+    xs = (q, k, v)
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in xs):
+        raise ValueError(f"K15: q, k, v must share float32 or bfloat16, got "
+                         f"{[x.dtype for x in xs]}")
+    if any(x.shape != q.shape or x.device != q.device for x in xs):
+        raise ValueError("K15: q, k, v must share one shape and device")
+    d = c // heads
+    if (d % 8 or not 8 <= d <= MAX_HEAD_DIM or not 1 <= b * heads <= 65535
+            or q.numel() >= 2 ** 31):
+        raise ValueError(f"K15: head dim {d} (a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}), B*heads {b * heads} or "
+                         f"{q.numel()} elements not taken")
+    if any(x.stride(2) != 1 for x in xs):
+        raise ValueError("K15: q, k, v need unit stride on C")
+    dev = q.device
+    q8, k8, v8 = (torch.empty((b, t, c), dtype=torch.int8, device=dev)
+                  for _ in range(3))
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(6, dtype=torch.int32, device=dev)  # amax, scales
+    strides = [s_ for x in xs for s_ in x.stride()[:2]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _packed_s8_kernel()(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            (ctypes.c_longlong * 6)(*strides), q8.data_ptr(), k8.data_ptr(),
+            v8.data_ptr(), out.data_ptr(), b, t, c, heads,
+            scratch.data_ptr(), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"K15 launch failed: CUDA error {err}")
+    fused_self_attention_packed_s8.launches += 1
+    return out
+
+
+def fused_self_attention_packed_s8(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, heads: int,
+                                   scale: float) -> torch.Tensor:
+    """int8 self-attention on float ``[B, T, C]`` q, k, v (no gradient),
+    returned in q's dtype: the kernel's bf16 result cast as the JAX wrapper
+    casts it. The scales are always dynamic: there is no ``act_scale``."""
+    b, t, c = q.shape
+    if not packed_takes_kernel(t, c, heads):
+        fused_self_attention_packed_s8.fallbacks += 1
+        return packed_attention_fallback(q, k, v, heads, scale)
+    if q.device.type == "cpu":
+        return fused_self_attention_packed_s8_reference(
+            q, k, v, heads, scale).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"K15: unsupported device {q.device}")
+    return _packed_s8_launch(q, k, v, heads, scale).to(q.dtype)
+
+
+fused_self_attention_packed_s8.launches = 0
+fused_self_attention_packed_s8.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K10 (an op)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class LNRowMajorPack:
+    """K10's operands for one block: K3's pack (the LN and bias rows; with
+    ``v_bf16`` every operand) and K11's (the int8 q, k, v, to_out and the
+    scales of ``v_bf16=False``), quantized from the same float weights with
+    the same input scale."""
+
+    ln: LNAttentionPack
+    padded: PaddedAttentionPack
+
+
+@torch.no_grad()
+def pack_ln_attention_rowmajor(norm, attn, heads: int, xs: float,
+                               attn_scale: float = ATTN_SCALE
+                               ) -> LNRowMajorPack:
+    """K10's operands from a block's ``norm1`` and ``attn1``, as
+    ``absorbed_padded_ln_self_attention_s8`` builds them (:1140-1155 on
+    ``_abs_padded_prep`` :1161): with ``v_bf16`` the per-column V dequant
+    (``m`` row 3) and the bf16 ``to_out`` of :func:`pack_ln_attention`,
+    without it the requant rows and int8 ``to_out`` of
+    :func:`pack_padded_attention`."""
+    return LNRowMajorPack(
+        ln=pack_ln_attention(norm, attn, heads, xs, attn_scale),
+        padded=pack_padded_attention(attn, heads, xs, attn_scale))
+
+
+def ln_attention_s8_rowmajor_reference(x: torch.Tensor, p: LNRowMajorPack,
+                                       v_bf16: bool = True) -> torch.Tensor:
+    """K10's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16). With
+    ``v_bf16`` it is K3's (:func:`ln_attention_s8_reference`: the TPU kernel
+    subtracts the row max, :768). Without it: the LN and quantize of K3,
+    K11's int8 projections, e8 attention and ``of8``, and ``bf16((float(x)
+    + float(of8·Wo8)·(as·max(wos))) + b_out)``."""
+    if v_bf16:
+        return ln_attention_s8_reference(x, p.ln)
+    ln = p.ln
+    xf = x.float()
+    hn = _layer_norm(xf, ln.ln_w, ln.ln_b, ln.eps)
+    x8 = quantize_s8(hn, torch.tensor(p.padded.xs, device=x.device))
+    out = _padded_core(x8, p.padded).float() * p.padded.out_scale
+    return ((xf + out) + ln.out_b).to(torch.bfloat16)
+
+
+@functools.cache
+def _ln_padded_kernel():
+    fn = _build.load("attention_s8").ldmseg_attention_ln_padded_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ln_padded_launch(x: torch.Tensor, p: LNRowMajorPack) -> torch.Tensor:
+    """K10 without ``v_bf16``: K3's LN rows, K11's int8 operands."""
+    b, t, c = x.shape
+    ln, pd = p.ln, p.padded
+    h = ln.heads
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"K10: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if c // h > MAX_HEAD_DIM or b * h > 65535 or x.numel() >= 2 ** 31:
+        raise ValueError(f"K10: head dim {c // h} (<= {MAX_HEAD_DIM}), "
+                         f"B*heads {b * h} or {x.numel()} elements not "
+                         f"taken")
+    x = x.contiguous()
+    ops = (ln.ln_w, ln.ln_b, ln.out_b, pd.w_qkv, pd.m_qkv, pd.wo_q, pd.ratio)
+    if any(o.device != x.device or not o.is_contiguous() for o in ops):
+        raise ValueError("K10: the pack must be contiguous on x's device")
+    dev = x.device
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    x8, q8, k8, v8, of8 = (torch.empty((b * t, c), dtype=torch.int8,
+                                       device=dev) for _ in range(5))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _ln_padded_kernel()(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+            ln.ln_w.data_ptr(), ln.ln_b.data_ptr(), ln.out_b.data_ptr(),
+            pd.w_qkv.data_ptr(), pd.m_qkv.data_ptr(), pd.wo_q.data_ptr(),
+            pd.ratio.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+            v8.data_ptr(), of8.data_ptr(), b, t, c, h, pd.xs,
+            pd.score_scale, pd.out_scale, ln.eps, stream)
+    if err != 0:
+        raise RuntimeError(f"K10 launch failed: CUDA error {err}")
+    return out
+
+
+def ln_attention_s8_rowmajor(x: torch.Tensor, p: LNRowMajorPack,
+                             v_bf16: bool = True) -> torch.Tensor:
+    """K10: ``x + to_out(attention(LN(x))) + b_out`` for ``x [B, T, C]`` in
+    the row-major TPU kernel's two variants, returned in x's dtype (the
+    kernel's result is bf16, cast as the JAX wrapper's ``.astype``). Shapes
+    K3's rule sends away take :func:`ln_attention_s8_fallback` (:1107-1117)
+    and count in ``ln_attention_s8_rowmajor.fallbacks``."""
+    b, t, c = x.shape
+    if not takes_kernel(t, c, p.ln.heads):
+        ln_attention_s8_rowmajor.fallbacks += 1
+        return ln_attention_s8_fallback(x, p.ln)
+    if x.device.type == "cpu":
+        return ln_attention_s8_rowmajor_reference(x, p, v_bf16).to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"K10: unsupported device {x.device}")
+    out = _launch(x, p.ln, "K10") if v_bf16 else _ln_padded_launch(x, p)
+    ln_attention_s8_rowmajor.launches += 1
+    return out.to(x.dtype)
+
+
+ln_attention_s8_rowmajor.launches = 0
+ln_attention_s8_rowmajor.fallbacks = 0

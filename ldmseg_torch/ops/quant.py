@@ -295,7 +295,8 @@ def calibrate_act_scale_tree(unet: nn.Module, sample: torch.Tensor,
 def act_scale_sites(int8_unet: nn.Module) -> Dict[str, Tuple[nn.Module,
                                                              Optional[str]]]:
     """Site key -> (int8 module, attribute) of an int8 UNet. An attribute
-    of None marks a key the module takes and ignores (K13's ``to_q``)."""
+    of None marks a key the module takes and ignores (the ``to_q`` of K13
+    and K15, whose projections stay float)."""
     sites = {}
     for name, m in int8_unet.named_modules():
         if isinstance(m, (QuantConv2d, QuantLinear)):

@@ -1,7 +1,7 @@
 """Where the time of the sampling path goes on the card.
 
     python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]] [--gn]
-        [--projs] [--padded]
+        [--projs] [--padded] [--packed]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
@@ -17,6 +17,9 @@ the UNet with ``UNetConfig.use_pallas_gn`` and ``int8_fuse_gn``: the
 resnets' GN + SiLU pairs on K5 (bf16), or on K6 feeding the s8 convs
 (int8). ``--projs`` builds it with ``UNetConfig.use_fused_projs`` and
 samples int8 (fused norms): the transformer blocks on K8 and K9.
+``--packed`` builds it with ``UNetConfig.use_packed_attention``: the
+self-attention on K14 (bf16), or with ``--int8 a`` on K15 (with fused norms
+the flag does nothing, as in JAX).
 ``--padded`` traces the K11 UNet instead (:data:`PADDED_FLAGS`, filled by
 ``prepare_int8_unet`` from the trainer's masters: K11 and K12): (a) 5
 forwards and (b) one 50-step ``ddim_sample`` on that latent, the RGB
@@ -41,9 +44,9 @@ import torch
 FAMILIES = (  # first match wins
     ("K5/K6 groupnorm_silu", r"gn_(stats|apply|ymax|quant)_kernel"),
     ("K7 gn_silu_conv", r"gn_conv_kernel"),
-    ("K1 attention_fwd", r"attention_fwd_kernel"),
+    ("K1/K14 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
-    ("K13/K11 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
+    ("K13/K11/K15 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
     ("K3/K8 attention_ln_s8", r"::attn_kernel"),
     ("K3/K8/K11 projections, to_out", r"s8_gemm_kernel|bf16_gemm_kernel"),
     ("K4/K9/K12 geglu (up, down)", r"::(up|down)_kernel"),
@@ -106,17 +109,18 @@ def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
                            self_condition=True)
 
 
-def unet_config_for(gn: bool = False, projs: bool = False):
+def unet_config_for(gn: bool = False, projs: bool = False,
+                    packed: bool = False):
     """The default deployment's UNet (12 input channels, K1) with the resnet
-    norm flags ``use_pallas_gn`` and ``int8_fuse_gn`` when ``gn`` and
-    ``use_fused_projs`` when ``projs``; without either, None (the trainer
-    builds its own)."""
+    norm flags ``use_pallas_gn`` and ``int8_fuse_gn`` when ``gn``,
+    ``use_fused_projs`` when ``projs`` and ``use_packed_attention`` when
+    ``packed``; without any, None (the trainer builds its own)."""
     from ldmseg_torch.models.unet import UNetConfig
-    if not (gn or projs):
+    if not (gn or projs or packed):
         return None
     return UNetConfig(in_channels=12, use_fused_attention=True,
                       use_pallas_gn=gn, int8_fuse_gn=gn,
-                      use_fused_projs=projs)
+                      use_fused_projs=projs, use_packed_attention=packed)
 
 
 def _family(name: str) -> str:
@@ -203,9 +207,12 @@ def main() -> int:
                         help="int8 with UNetConfig.use_fused_projs (K8, K9)")
     parser.add_argument("--padded", action="store_true",
                         help="the K11 UNet (PADDED_FLAGS) and ddim_sample")
+    parser.add_argument("--packed", action="store_true",
+                        help="UNetConfig.use_packed_attention (K14, K15)")
     args = parser.parse_args()
-    if args.padded and (args.int8 or args.projs):
-        parser.error("--padded profiles the K11 UNet: no --int8 or --projs")
+    if args.padded and (args.int8 or args.projs or args.packed):
+        parser.error("--padded profiles the K11 UNet: no --int8, --projs or "
+                     "--packed")
     variant = "fused" if args.projs and args.int8 is None else args.int8
     if not torch.cuda.is_available():
         print("profile_sampling: no CUDA device", file=sys.stderr)
@@ -216,7 +223,7 @@ def main() -> int:
         "sampling_kwargs": {"int8_inference": int8,
                             **VARIANTS.get(variant, {})}})
     trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(
-        args.gn, args.projs))
+        args.gn, args.projs, args.packed))
     trainer.init_params(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((2, trainer.unet_config.in_channels, 32, 64),
@@ -244,6 +251,8 @@ def main() -> int:
         kinds = [f"{k}, GN on K5/K6" for k in kinds]
     if args.projs:
         kinds = [f"{k}, fused projs (K8, K9)" for k in kinds]
+    if args.packed:
+        kinds = [f"{k}, packed attention" for k in kinds]
     for kind in kinds:
         if "calibrated" in kind:
             trainer.calibrate_int8({"image": image})

@@ -1,6 +1,6 @@
 """Where the time of the training path goes on the card.
 
-    python -m ldmseg_torch.tools.profile_training [--gn]
+    python -m ldmseg_torch.tools.profile_training [--gn] [--packed]
 
 Builds the deployment ``chip_smoke.py`` trains (SD-1.4 UNet with
 self-conditioning, DEFAULT_CONFIG seg VAE, bf16 compute on fp32 masters,
@@ -15,7 +15,9 @@ split separates the backward (the thread that launches K2) from the rest of
 the step (encode, casts, the self-conditioning pass, the forward, the loss
 and the optimizer, on the caller's thread). ``--gn`` builds the UNet with
 ``UNetConfig.use_pallas_gn``: the resnets' GN + SiLU pairs on K5 (the
-backward recomputes them in plain PyTorch).
+backward recomputes them in plain PyTorch). ``--packed`` builds it with
+``UNetConfig.use_packed_attention``: the self-attention on K14 with K2 as
+its backward (the mid block's T = 30 on the float fallback).
 
 Needs a CUDA device.
 """
@@ -62,7 +64,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gn", action="store_true",
                         help="UNetConfig.use_pallas_gn (K5)")
-    gn = parser.parse_args().gn
+    parser.add_argument("--packed", action="store_true",
+                        help="UNetConfig.use_packed_attention (K14)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_training: no CUDA device", file=sys.stderr)
         return 1
@@ -76,15 +80,16 @@ def main() -> int:
                          "batch_size": 8},
         "ignore_label": 0})
     ds = SyntheticDVPS(length=8, size=(192, 640), num_bits=8)
-    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(gn=gn),
-                               dataset=ds)
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(
+        gn=args.gn, packed=args.packed), dataset=ds)
     trainer.init_params(seed=0)
     batch = next(iter(Loader(ds, 8, seed=0)))
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(json.dumps(_profile(
         lambda: trainer.train_step(batch, generator=gen), STEPS,
         "train_step, bf16 on fp32 masters, batch 8 x 192x640, one loaded "
-        "batch" + (", GN on K5" if gn else ""), extra=_by_thread)),
+        "batch" + (", GN on K5" if args.gn else "")
+        + (", packed attention" if args.packed else ""), extra=_by_thread)),
         flush=True)
     return 0
 

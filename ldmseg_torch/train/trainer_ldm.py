@@ -7,17 +7,21 @@ analog bits and frozen SD image-VAE encoder on the RGB frame -> noise at a
 random timestep -> optional self-conditioning pass without gradient -> UNet
 on a compute-dtype cast of the fp32 masters -> masked, SNR-weighted loss ->
 backward (K2 on the card) -> the optimizer. ``train_loop`` feeds it from the
-port's loader. ``sample_panoptic`` runs the serving path: RGB frames ->
-image-VAE encoder (posterior mode x 0.18215) -> DDIM with self-conditioning
--> seg-VAE decode to per-instance logits. Batches and results are NHWC at
-this boundary, as in the JAX package; the models run NCHW.
+port's loader. A ``unet_config`` with ``use_packed_attention`` runs the
+self-attention of both paths on K14 (its backward on K2), as JAX's
+``fused_self_attention_packed``. ``sample_panoptic`` runs the serving path:
+RGB frames -> image-VAE encoder (posterior mode x 0.18215) -> DDIM with
+self-conditioning -> seg-VAE decode to per-instance logits. Batches and
+results are NHWC at this boundary, as in the JAX package; the models run
+NCHW.
 
 With ``sampling_kwargs.int8_inference`` the 50 steps run on the int8 UNet
 (s8 convs; K3 and K4 with ``fused_norms``, the default; K13 and K12, or K13
 and the s8 linears with ``fused_ff`` False, without it; K3 and the s8
 linears with ``fused_norms`` and not ``fused_ff``; K8 and K9 in place of K3
-and K4 when ``unet_config`` sets ``use_fused_projs``), quantized from the
-fp32 masters once per call, with
+and K4 when ``unet_config`` sets ``use_fused_projs``; K15 in place of K13
+when it sets ``use_packed_attention``), quantized from the fp32 masters once
+per call, with
 per-site activation scales from :meth:`calibrate_int8` (automatic on
 adopted weights). Its other layers run in the compute dtype, as the bf16
 path does; the JAX trainer hands that UNet its fp32 masters, so there they

@@ -802,3 +802,203 @@ def test_k5_and_k7_differentiate_on_the_card(cuda):
     out.float().sum().backward()
     assert xb.grad is not None and wb.grad is not None
     assert bool(torch.isfinite(xb.grad.float()).all())
+
+
+# the packed-attention slice's modules (K14, K15, K10), one case each
+PACKED_MODULES = ["ops.attention", "ops.attention_s8", "models.unet",
+                  "ops.quant", "train.trainer_ldm", "tools.profile_sampling",
+                  "tools.profile_training"]
+
+
+@pytest.mark.parametrize("module", PACKED_MODULES)
+def test_packed_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_port_and_chip_smoke_load_no_jax():
+    # a fresh interpreter that imports every module of the port and
+    # chip_smoke.py: neither JAX nor the JAX package may be loaded
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (ROOT / "ldmseg_torch").rglob("*.py"))
+    code = ("import sys, runpy; "
+            + "; ".join(f"import {m}" for m in mods)
+            + "; import chip_smoke"
+            + f"; bad = {{m.split('.')[0] for m in sys.modules}}"
+            f" & {set(FORBIDDEN)!r}; print(bad, file=sys.stderr)"
+            "; sys.exit(bool(bad))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_packed_sources_are_built_by_the_port():
+    fwd = (ROOT / "ldmseg_torch/csrc/attention_fwd.cu").read_text()
+    s8 = (ROOT / "ldmseg_torch/csrc/attention_s8.cu").read_text()
+    ln = (ROOT / "ldmseg_torch/csrc/attention_ln_s8.cu").read_text()
+    assert 'extern "C" int ldmseg_attention_fwd_packed(' in fwd   # K14
+    assert 'extern "C" int ldmseg_attention_packed_s8(' in s8     # K15
+    assert 'extern "C" int ldmseg_attention_ln_padded_s8(' in s8  # K10
+    assert 'extern "C" int ldmseg_attention_ln_s8_rowmajor(' in ln
+
+
+def test_trainer_carries_the_packed_flag_into_both_unets():
+    from ldmseg_torch.models.unet import CrossAttention, UNetConfig
+    cfg = merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True},
+        "sampling_kwargs": {"int8_inference": True, "fused_norms": False}})
+    trainer = TrainerDiffusion(cfg, unet_config=UNetConfig(
+        in_channels=12, use_fused_attention=True, use_packed_attention=True),
+        device=torch.device("cpu"))
+    for unet, int8 in ((trainer.unet, False), (trainer._unet_int8, True)):
+        attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+        assert len(attn) == 16
+        assert all(m.packed and m.int8 == int8 for m in attn)
+
+
+# K14 against its plain version on the card at the serving (batch 2, 32x64)
+# and training (batch 8, 24x80) shapes: K1's tolerances, two bf16 ulps and
+# 1e-4 in fp32
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1.6e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (8, 1920, 320), (8, 480, 640),
+                                   (8, 120, 1280)])
+def test_k14_kernel_matches_plain_version(cuda, b, t, c, dtype, atol):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((b, t, c), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    scale = (c // 8) ** -0.5
+    before = (A.fused_self_attention_packed.launches,
+              A.fused_self_attention.launches)
+    out = A.fused_self_attention_packed(q, k, v, 8, scale)
+    torch.cuda.synchronize()
+    # its own counter: K1's does not move
+    assert (A.fused_self_attention_packed.launches,
+            A.fused_self_attention.launches) == (before[0] + 1, before[1])
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = A.packed_attention_reference(q, k, v, 8, scale)
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c", [(8, 480, 640), (8, 120, 1280),
+                                   (1, 64, 320)])
+def test_k14_differentiates_through_k2_on_the_card(cuda, b, t, c, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn((b, t, c), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    scale = (c // 8) ** -0.5
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd, bwd = (A.fused_self_attention_packed.launches,
+                A.fused_self_attention_backward.launches)
+    A.fused_self_attention_packed(*leaves, 8, scale).backward(do)
+    assert (A.fused_self_attention_packed.launches,
+            A.fused_self_attention_backward.launches) == (fwd + 1, bwd + 1)
+    refs = A.attention_backward_reference(
+        *(x.unflatten(-1, (8, c // 8)) for x in (q, k, v, do)), scale)
+    for leaf, ref in zip(leaves, refs):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == (b, t, c)
+        bound = K2_TOL[dtype] * ref.float().abs().max().item()
+        err = (leaf.grad.float() - ref.reshape(b, t, c).float()).abs()
+        assert err.max().item() <= bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (8, 1920, 320), (1, 24, 64)])
+def test_k15_kernel_matches_plain_version(cuda, b, t, c):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((b, t, c), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    heads = 8
+    scale = (c // heads) ** -0.5
+    before = K13.fused_self_attention_packed_s8.launches
+    out = K13.fused_self_attention_packed_s8(q, k, v, heads, scale)
+    torch.cuda.synchronize()
+    assert K13.fused_self_attention_packed_s8.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _close_on_card(out, K13.fused_self_attention_packed_s8_reference(
+        q, k, v, heads, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_bf16", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (1, 120, 320)])
+def test_k10_kernel_matches_plain_version(cuda, b, t, c, dtype, v_bf16):
+    norm1, attn, _, _ = _pack_modules(cuda, c, 8, 10)
+    pack = K3.pack_ln_attention_rowmajor(norm1, attn, 8, 0.1)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(dtype)
+    before = K3.ln_attention_s8_rowmajor.launches
+    out = K3.ln_attention_s8_rowmajor(x, pack, v_bf16)
+    torch.cuda.synchronize()
+    assert K3.ln_attention_s8_rowmajor.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close_on_card(out, K3.ln_attention_s8_rowmajor_reference(
+        x, pack, v_bf16).to(dtype))
+
+
+@pytest.mark.gpu
+def test_packed_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.randn((1, 64, 384), device=cuda).to(torch.bfloat16)
+    for heads in (2, 96):   # d = 192 and d = 4: the rule takes both
+        with pytest.raises(ValueError):
+            A.fused_self_attention_packed(x, x, x, heads, 0.1)
+        with pytest.raises(ValueError):
+            K13.fused_self_attention_packed_s8(x, x, x, heads, 0.1)
+    with pytest.raises(ValueError):
+        A.fused_self_attention_packed(x.half(), x.half(), x.half(), 8, 0.1)
+    with pytest.raises(ValueError):   # unit stride on C
+        xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+        A.fused_self_attention_packed(xt, xt, xt, 8, 0.1)
+    norm1, attn, _, _ = _pack_modules(cuda, 384, 2, 4)
+    pack = K3.pack_ln_attention_rowmajor(norm1, attn, 2, 0.1)
+    for v_bf16 in (True, False):   # d = 192
+        with pytest.raises(ValueError):
+            K3.ln_attention_s8_rowmajor(x, pack, v_bf16)
+
+
+@pytest.mark.gpu
+def test_packed_unet_launches_k14_k15_and_no_other(cuda):
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.models.unet import UNet2DCondition, UNetConfig
+    from ldmseg_torch.ops import quant
+    kw = dict(in_channels=12, block_out_channels=(64, 128),
+              attn_down=(True, True), layers_per_block=1,
+              attention_head_dim=8, norm_num_groups=8,
+              use_fused_attention=True, use_packed_attention=True)
+    unet = UNet2DCondition(UNetConfig(**kw)).to(cuda)
+    init_random_(unet, torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn((2, 12, 16, 16), device=cuda)
+    t = torch.tensor([999, 19], device=cuda)
+    counters = (A.fused_self_attention, A.fused_self_attention_packed,
+                A.fused_self_attention_backward,
+                K13.fused_self_attention_s8,
+                K13.fused_self_attention_packed_s8)
+    before = [f.launches for f in counters]
+    # T = 256 and 64, 7 blocks: 7 K14 forward, 7 K2 backward, 0 K1
+    unet(x, t).square().mean().backward()
+    assert [f.launches - n for f, n in zip(counters, before)] == [
+        0, 7, 7, 0, 0]
+    int8 = UNet2DCondition(UNetConfig(
+        **kw, use_int8_conv=True, int8_act_scale=0.05,
+        use_int8_attention=True, use_int8_ff=True, use_fused_ff=True,
+        int8_attn_act_scale=0.1)).to(cuda, torch.bfloat16)
+    quant.prepare_int8_unet(int8, unet)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        out = int8(x.to(torch.bfloat16), t)
+    assert bool(torch.isfinite(out).all())
+    assert [f.launches - n for f, n in zip(counters, before)] == [
+        0, 0, 0, 0, 7]
