@@ -99,8 +99,30 @@ Phases, one line each:
   28. int8 ``sample_panoptic`` with ``fused_norms: False`` on it, default
      and calibrated scales: 800 K15 and 800 K12 per call, 0 K1/K3/K4/K13,
      no fallback; its UNet forward (16 K15, 16 K12) against the bf16 one;
-  29. a JSON line ``{"kernels": [...]}`` (K1-K15, K10 in both variants);
-  30. the last line, ``{"ok": true, "device": {...}}``.
+  29. ``use_absorbed_attention``'s kernels and K18: K16 (bf16 and fp32) at
+     the four shapes of the sampling forward and the three of the training
+     forward, its backward (K2 on the head views of the saved q, k, v, the
+     gradient products in ``torch.matmul``) at the training shapes, K17
+     and K18 (an op) at the sampling shapes, against their plain versions,
+     with times, the bound and the yardstick (F.linear x 3 + SDPA +
+     F.linear and its backward for K16; the same in bf16 and float
+     projections + K13 for K17 and K18), and a ragged T = 30 that the rule
+     sends to each fallback;
+  30. the full-width bf16 UNet built with
+     ``UNetConfig(use_absorbed_attention=True)`` against the same module
+     on K1: 16 K16, 0 K1 and K14, no fallback;
+  31. ``sample_panoptic`` on it as phase 4: 800 K16 per call, 0 K1;
+  32. ``train_loop`` on it (2 warm-up, 3 timed steps): 30 K16, 2 fallbacks
+     (T = 30) and 15 K2 per step, 0 K1 and K14, the peak memory; one
+     step's loss and gradients against the plain attention;
+  33. int8 ``sample_panoptic`` with ``fused_norms: False`` on it, default
+     and calibrated scales: 800 K17 and 800 K12 per call, 0 K1/K3/K4/K13/
+     K15, no fallback, K17's input scale 0.1 in both; its UNet forward (16
+     K17, 16 K12) against the bf16 one; the absorbed-storage UNet
+     (``prepare_int8_unet(..., absorbed_attention=True)``) whose K17s read
+     the calibrated ``to_q`` sites, against the bf16 one;
+  34. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants);
+  35. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -742,7 +764,10 @@ def _wrappers():
             "K12": G.fused_geglu_s8, "K13": S8.fused_self_attention_s8,
             "K10": S8.ln_attention_s8_rowmajor,
             "K14": A.fused_self_attention_packed,
-            "K15": S8.fused_self_attention_packed_s8}
+            "K15": S8.fused_self_attention_packed_s8,
+            "K16": A.absorbed_self_attention,
+            "K17": S8.absorbed_self_attention_s8,
+            "K18": S8.absorbed_fullc_self_attention_s8}
 
 
 def _counts():
@@ -2241,6 +2266,495 @@ def k14_entry(rows, launches, by_path):
     }
 
 
+
+# ---------------------------------------------------------------------------
+# use_absorbed_attention: K16, K17, and K18 as an op (phases 29-33)
+# ---------------------------------------------------------------------------
+# K16's launches are K14's shapes (the same sites); K17's and K18's the
+# sampling ones. The weights of phase 29 have the std of a trained
+# projection (0.05) so that the scores stay near 1.
+ABSORBED_TIMED_STEPS = 3
+ABSORBED_W_STD = 0.05
+# variant (a)'s flags with use_absorbed_attention: the UNet of the
+# absorbed-storage switch (prepare_int8_unet(..., absorbed_attention=True))
+ABSORBED_A_FLAGS = dict(use_int8_conv=True, int8_act_scale=0.05,
+                        use_int8_attention=True, use_fused_attention=True,
+                        use_int8_ff=True, use_fused_ff=True,
+                        int8_attn_act_scale=0.1)
+
+
+def _absorbed_trainer(cfg, seed: int = 0, **kw):
+    """A trainer with ``UNetConfig.use_absorbed_attention`` and seeded
+    weights."""
+    from ldmseg_torch.tools.profile_sampling import unet_config_for
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(
+        absorbed=True), **kw)
+    trainer.init_params(seed=seed)
+    return trainer
+
+
+def absorbed_bound_ms(b: int, t: int, c: int, dtype_name: str):
+    """K16's bound for one call: four projections of 2·B·T·C² and the
+    attention's 2·2·B·T²·C operations at the type's peak, against x in, the
+    four [C, C] weights and the output."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    flops = 4 * 2.0 * b * t * c * c + 2 * 2.0 * b * t * t * c
+    nbytes = float(esize) * (2 * b * t * c + 4 * c * c)
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def absorbed_bwd_bound_ms(b: int, t: int, c: int, dtype_name: str):
+    """K16's backward: K2's five T x T products (2·B·T²·C each) and eight
+    [T, C] x [C, C] products (dO_h = g·Wo, dx from dq, dk, dv, and the four
+    weight gradients), against x, the four weights, the saved q, k, v, oh
+    and g in, dx and the four weight gradients out."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    flops = 5 * 2.0 * b * t * t * c + 8 * 2.0 * b * t * c * c
+    nbytes = float(esize) * (7 * b * t * c + 8 * c * c)
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def absorbed_s8_bound_ms(b: int, t: int, c: int, heads: int = 8):
+    """K17's and K18's bound: K16's operations on int8 at the int8 peak
+    (the one-hot head picks of K18's TPU kernel are layout, no work),
+    against bf16 x in, the int8 weights and their scales and bf16 out."""
+    ops8 = 4 * 2.0 * b * t * c * c + 2 * 2.0 * b * t * t * c
+    nbytes = 2 * b * t * c + 4 * c * c + 4 * 4 * heads + 2 * b * t * c
+    t_ops = ops8 / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops8, 0.0, float(nbytes))
+
+
+def _absorbed_weights(gen, c, dtype):
+    import torch
+    return [(ABSORBED_W_STD * torch.randn((c, c), generator=gen,
+                                          device="cuda")).to(dtype)
+            for _ in range(4)]
+
+
+def _absorbed_composition(x, ws, heads: int = 8):
+    """What K16 replaces in PyTorch calls, in x's dtype: F.linear x 3, SDPA
+    on the head views, F.linear."""
+    import torch.nn.functional as F
+    b, t, c = x.shape
+    q, k, v = (F.linear(x, w).unflatten(-1, (heads, c // heads))
+               .transpose(1, 2) for w in ws[:3])
+    o = F.scaled_dot_product_attention(q, k, v, scale=(c // heads) ** -0.5)
+    return F.linear(o.transpose(1, 2).reshape(b, t, c), ws[3])
+
+
+def phase_absorbed_kernels(seed: int = 19):
+    """K16, its backward, K17 and K18 against their plain versions on the
+    card. K16 in bf16 and fp32 at the four shapes of the sampling path's
+    forward and the three of the training path's, beside the bf16
+    composition it replaces (F.linear x 3 + SDPA + F.linear); its backward
+    (K2 on the head views of the saved q, k, v, the weight and input
+    products in torch.matmul) at the training shapes against autograd
+    through the plain version, beside the composition's backward; K17 and
+    K18 on bf16 x at the sampling shapes, beside the same bf16 composition
+    and float projections + K13 + F.linear; and a ragged T = 30 that the
+    rule sends to each fallback."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {"K16": [], "K16 training": [], "K16 backward": [], "K17": [],
+            "K18": []}
+
+    def rand(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    with torch.inference_mode():
+        for group, shapes in (("K16", K14_SHAPES),
+                              ("K16 training", K14_TRAIN_SHAPES)):
+            for shape, per in shapes:
+                b, t, c = shape
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = rand(shape, dtype)
+                    ws = _absorbed_weights(gen, c, dtype)
+                    scale = (c // 8) ** -0.5
+                    before = A.absorbed_self_attention.launches
+                    out = A.absorbed_self_attention(x, *ws, 8, scale)
+                    torch.cuda.synchronize()
+                    ref = A.absorbed_attention_reference(x, *ws, 8, scale)
+                    err = (out.float() - ref.float()).abs().max().item()
+                    rmax = ref.float().abs().max().item()
+                    dname = str(dtype).split(".")[-1]
+                    tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+                    check(A.absorbed_self_attention.launches == before + 1
+                          and math.isfinite(err) and err <= tol * rmax,
+                          f"K16 {shape} {dname}: max abs err {err} > {tol} "
+                          f"x max|ref| {rmax}")
+                    del ref
+                    ms = time_ms(lambda: A.absorbed_self_attention(
+                        x, *ws, 8, scale))
+                    plain_ms = time_ms(lambda: A.absorbed_attention_reference(
+                        x, *ws, 8, scale), iters=5, warmup=1)
+                    comp_ms = time_ms(lambda: _absorbed_composition(x, ws))
+                    bound, by, flops, nbytes = absorbed_bound_ms(b, t, c,
+                                                                 dname)
+                    rows[group].append({
+                        "shape_btc": list(shape), "dtype": dname,
+                        "per_unet_forward": per if dname == "bfloat16"
+                        else 0, "max_abs_err": err, "max_abs_ref": rmax,
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        "composition_ms": comp_ms, "bound_ms": bound,
+                        "bound_by": by, "flops": flops, "bytes": nbytes})
+                    print(f"phase 29 {group} {shape} {dname}: err {err:.3e} "
+                          f"(tol {tol} x max|ref| {rmax:.3e}), kernel "
+                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear x3"
+                          f" + sdpa + F.linear {comp_ms:.4f} ms, bound "
+                          f"{bound:.4f} ms ({by})", flush=True)
+                    del x, ws, out
+        ragged = rand((8, RAGGED_T, 1280))
+        ragged_w = _absorbed_weights(gen, 1280, torch.bfloat16)
+        rows["K16"].append(_fallback_row(
+            "K16", (8, RAGGED_T, 1280),
+            lambda: A.absorbed_self_attention(ragged, *ragged_w, 8, 0.08),
+            A.absorbed_self_attention))
+
+        for shape, per in K14_SHAPES + [((2, RAGGED_T, 1280), 0)]:
+            b, t, c = shape
+            _, attn, _, _ = _block_modules(c, seed=t + c + 3)
+            wf = [m.weight for m in (attn.to_q, attn.to_k, attn.to_v,
+                                     attn.to_out[0])]
+            wb = [w.to(torch.bfloat16) for w in wf]
+            x = rand(shape)
+            scale = (c // 8) ** -0.5
+            for kid, fn, codes in (
+                    ("K17", S8.absorbed_self_attention_s8,
+                     quant.quantize_head_weights(*wf, 8)),
+                    ("K18", S8.absorbed_fullc_self_attention_s8,
+                     quant.quantize_fullc_weights(*wf))):
+                w_qkv = torch.cat(codes[:3]).contiguous()
+                wo8, sc = codes[3], codes[4]
+
+                def call(fn=fn, w_qkv=w_qkv, wo8=wo8, sc=sc):
+                    return fn(x, w_qkv, wo8, sc, 8, scale, 0.1)
+                if not per:
+                    rows[kid].append(_fallback_row(kid, shape, call, fn))
+                    continue
+                out = call()
+                torch.cuda.synchronize()
+
+                def plain(kid=kid, w_qkv=w_qkv, wo8=wo8, sc=sc):
+                    return S8.absorbed_attention_s8_reference(
+                        x, w_qkv, wo8, sc, 8, scale, 0.1,
+                        per_image=kid == "K18")
+                row = _int8_row(kid, shape, per, out, plain(), call, plain,
+                                lambda: _absorbed_composition(x, wb),
+                                absorbed_s8_bound_ms(b, t, c))
+
+                def k13_block():
+                    q, k, v = (F.linear(x, w).unflatten(-1, (8, c // 8))
+                               for w in wb[:3])
+                    o = S8.fused_self_attention_s8(q, k, v, scale)
+                    return F.linear(o.reshape(b, t, c), wb[3])
+                row["k13_block_ms"] = time_ms(k13_block)
+                rows[kid].append(row)
+                print(f"phase 29 {kid} {shape}: err {row['max_abs_err']:.3e}"
+                      f" of max|ref| {row['max_abs_ref']:.3e}, mean "
+                      f"{row['mean_abs_err']:.3e} of "
+                      f"{row['mean_abs_ref']:.3e}; kernel {row['ms']:.4f} ms,"
+                      f" plain {row['plain_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}); bf16 "
+                      f"F.linear x3 + sdpa + F.linear "
+                      f"{row['bf16_block_ms']:.4f} ms, float projections + "
+                      f"K13 {row['k13_block_ms']:.4f} ms", flush=True)
+
+    # K16's backward: autograd through the wrapper (K16, then K2 on the head
+    # views) against autograd through the plain version; each gradient
+    # within twice the forward's tolerance times its own max|ref| (the
+    # bf16 products of x's and the weights' gradients round where the
+    # plain version's fp32 ones do not)
+    for shape, per, dtype in ([(s, n, torch.bfloat16)
+                               for s, n in K14_TRAIN_SHAPES]
+                              + [((8, 480, 640), 0, torch.float32)]):
+        b, t, c = shape
+        x, g = rand(shape, dtype), rand(shape, dtype)
+        ws = _absorbed_weights(gen, c, dtype)
+        scale = (c // 8) ** -0.5
+        leaves = [z.clone().requires_grad_(True) for z in (x, *ws)]
+        before = (A.absorbed_self_attention.launches,
+                  A.fused_self_attention_backward.launches)
+        out = A.absorbed_self_attention(*leaves, 8, scale)
+        grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        check((A.absorbed_self_attention.launches,
+               A.fused_self_attention_backward.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"K16 backward {shape}: not K16 then K2")
+        plain = [z.clone().requires_grad_(True) for z in (x, *ws)]
+        pout = A.absorbed_attention_reference(*plain, 8, scale)
+        refs = torch.autograd.grad(pout, plain, g, retain_graph=True)
+        dname = str(dtype).split(".")[-1]
+        rtol = 2 * (BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL)
+        err = 0.0
+        for gname, gr, r in zip(("dx", "dWq", "dWk", "dWv", "dWo"), grads,
+                                refs):
+            e = (gr.float() - r.float()).abs().max().item()
+            m = r.float().abs().max().item()
+            check(m > 0 and math.isfinite(e) and e <= rtol * m,
+                  f"K16 backward {shape} {dname} {gname}: max abs err {e} > "
+                  f"{rtol} x max|ref| {m}")
+            err = max(err, e / m)
+        del grads, refs
+        ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                 retain_graph=True), iters=10)
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            pout, plain, g, retain_graph=True), iters=5, warmup=1)
+        comp_leaves = [z.clone().requires_grad_(True) for z in (x, *ws)]
+        cout = _absorbed_composition(comp_leaves[0], comp_leaves[1:])
+        comp_ms = time_ms(lambda: torch.autograd.grad(
+            cout, comp_leaves, g, retain_graph=True), iters=10)
+        del out, pout, cout
+        bound, by, flops, nbytes = absorbed_bwd_bound_ms(b, t, c, dname)
+        rows["K16 backward"].append({
+            "shape_btc": list(shape), "dtype": dname,
+            "per_unet_backward": per, "max_abs_err": err,
+            "err_is_relative_to_max_ref": True, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "composition_ms": comp_ms, "bound_ms": bound, "bound_by": by,
+            "flops": flops, "bytes": nbytes})
+        print(f"phase 29 K16 backward (K2 on the head views + torch.matmul) "
+              f"{shape} {dname}: max err {err:.3e} of max|ref| (tol {rtol}),"
+              f" backward {ms:.4f} ms, plain {plain_ms:.4f} ms, the "
+              f"composition's backward {comp_ms:.4f} ms, bound {bound:.4f} "
+              f"ms ({by})", flush=True)
+    for key in ("K16", "K17", "K18"):
+        fb = [r for r in rows[key] if r.get("fallback")]
+        print(f"phase 29 {key} {tuple(fb[0]['shape_btc'])}: the rule's "
+              f"fallback, {fb[0]['ms']:.4f} ms", flush=True)
+    return rows
+
+
+def phase_absorbed_unet(trainer, seed: int = 1):
+    """The full-width bf16 UNet with ``use_absorbed_attention`` against the
+    same module on K1 (``absorbed`` off; phase 3's input): 16 K16, no K1 or
+    K14, no fallback, within phase 3's tolerance."""
+    import torch
+    from ldmseg_torch.models.unet import CrossAttention
+    unet = trainer.inference_unet()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, unet.config.in_channels, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    with torch.inference_mode():
+        _zero_counts()
+        absorbed = unet(x, t).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        absorbed_ms = time_ms(lambda: unet(x, t), iters=10)
+        for m in attn:
+            m.absorbed = False
+        try:
+            _zero_counts()
+            k1 = unet(x, t).float()
+            torch.cuda.synchronize()
+            k1_counts = _counts()
+            k1_ms = time_ms(lambda: unet(x, t), iters=10)
+        finally:
+            for m in attn:
+                m.absorbed = True
+    check(counts == _expect(K16=16), f"absorbed UNet forward launched "
+          f"{counts}, expected 16 K16 and nothing else")
+    check(k1_counts == _expect(K1=16), f"the UNet with absorbed off "
+          f"launched {k1_counts}, expected 16 K1")
+    check(bool(torch.isfinite(absorbed).all()), "absorbed UNet not finite")
+    rel = ((absorbed - k1).abs().max() / k1.abs().max()).item()
+    check(rel <= 2e-2, f"UNet on K16 vs K1: max rel err {rel}")
+    print(f"phase 30 UNet forward with use_absorbed_attention, [2, 12, 32, "
+          f"64]: K16 path {absorbed_ms:.3f} ms, K1 path {k1_ms:.3f} ms, max "
+          f"rel err {rel:.3e} (tol 2e-2), launches {counts}", flush=True)
+    return {"absorbed_ms": absorbed_ms, "k1_ms": k1_ms, "max_rel_err": rel,
+            "counts": counts}
+
+
+def phase_absorbed_train(smi_line: str, seed: int = 0,
+                         timed: int = ABSORBED_TIMED_STEPS):
+    """``train_loop`` with ``use_absorbed_attention`` as phase 6 (2 warm-up
+    and ``timed`` steps): per step 30 K16 and 2 fallbacks (two forwards of
+    15 sites; the rule sends the mid block's T = 30 away), 15 K2, no K1 or
+    K14, and the peak memory; then one step's loss and gradients against
+    the same step on the plain attention, and a gradient on every
+    attention weight."""
+    import torch
+    from ldmseg_torch.data.loader import Loader
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.models.unet import CrossAttention
+
+    ds = SyntheticDVPS(length=2 * TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
+    trainer = _absorbed_trainer(_train_config(), seed, dataset=ds)
+    trainer.train_loop(max_steps=WARMUP_STEPS, log_every=WARMUP_STEPS,
+                       seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train_loop(max_steps=timed, log_every=timed,
+                                seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expect(K16=30 * timed, K2=15 * timed)
+    want["fallbacks"] = 2 * timed
+    check(counts == want, f"absorbed train steps launched {counts}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    print(f"phase 32 train_loop with use_absorbed_attention: {timed} steps, "
+          f"batch {TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+          f"{secs / timed:.4f} s/step, {TRAIN_BATCH * timed / secs:.3f} "
+          f"samples/s, peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{counts} [{smi_line}]", flush=True)
+
+    batch = next(iter(Loader(ds, TRAIN_BATCH, seed=seed + 2)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    lh, lw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    noise = torch.randn((TRAIN_BATCH, lh, lw, 4), generator=gen,
+                        device="cuda")
+    steps = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                          device="cuda")
+    attn = [m for m in trainer.unet.modules()
+            if isinstance(m, CrossAttention)]
+    results = {}
+    for absorbed in (True, False):
+        for m in attn:
+            m.absorbed = m.use_fused = absorbed
+        trainer.state.zero_grad()
+        loss, _, _ = trainer.forward_backward(batch, noise=noise,
+                                              timesteps=steps)
+        if absorbed:
+            for m in attn:
+                for lin in (m.to_q, m.to_k, m.to_v, m.to_out[0]):
+                    g = lin.weight.grad
+                    check(g is not None and bool(torch.isfinite(g).all())
+                          and g.abs().max().item() > 0,
+                          "an attention weight's grad is missing, zero or "
+                          "not finite")
+        results[absorbed] = (loss.item(), _flat_grads(trainer.unet))
+    for m in attn:
+        m.absorbed = m.use_fused = True
+    (loss_k, g_k), (loss_p, g_p) = results[True], results[False]
+    cos = (torch.dot(g_k, g_p) / (g_k.norm() * g_p.norm())).item()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del results, g_k, g_p, trainer
+    check(loss_rel <= 1e-2, f"train loss on K16/K2 vs plain: rel "
+          f"{loss_rel}")
+    check(cos >= 0.99, f"gradient cosine on K16/K2 vs plain: {cos}")
+    print(f"phase 32 one step on K16/K2 vs plain attention: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, tol 1e-2), "
+          f"gradient cosine {cos:.6f} (>= 0.99); every attention weight's "
+          f"grad finite and non-zero ({len(attn)} layers)", flush=True)
+    return counts, {"seconds_per_step": secs / timed,
+                    "samples_per_s": TRAIN_BATCH * timed / secs,
+                    "peak_bytes": peak, "losses": losses,
+                    "loss_rel": loss_rel, "grad_cosine": cos}
+
+
+def _k17_scales(unet):
+    """{input scale K17 packed} over the UNet's int8 absorbed attentions."""
+    from ldmseg_torch.models.unet import AbsorbedAttentionS8
+    mods = [m for m in unet.modules() if isinstance(m, AbsorbedAttentionS8)]
+    check(len(mods) == 16, f"{len(mods)} int8 absorbed attentions, not 16")
+    return mods
+
+
+def phase_absorbed_int8(trainer, smi_line: str, bf16_result: dict):
+    """int8 (a) with absorbed attention (phase 33): its UNet forward
+    against the bf16 one (16 K17, 16 K12); ``sample_panoptic`` with the
+    default and the calibrated scales (800 K17 + 800 K12 per call), K17's
+    input scale 0.1 (``int8_attn_act_scale``) in both, as JAX's in-graph
+    branch; then the absorbed-storage UNet (``prepare_int8_unet(...,
+    absorbed_attention=True)`` on the calibrated scales), whose K17s read
+    the calibrated ``to_q`` sites, against the bf16 UNet."""
+    from ldmseg_torch.ops.quant import f32
+    from ldmseg_torch.tools.profile_sampling import int8_unet_from
+    bf16 = trainer.inference_unet()
+    unet_result = _unet_vs_bf16(
+        "int8 UNet (a) with absorbed attention (K17 + K12)", 33,
+        trainer.int8_unet(), bf16, {"K17": 16, "K12": 16})
+    check({m.pack.xs for m in _k17_scales(trainer._unet_int8)}
+          == {f32(0.1)}, "K17's input scale is not 0.1 (default scales)")
+    sample = phase_int8_sample(
+        trainer, "int8 (a) with absorbed attention", {"K17": 16, "K12": 16},
+        smi_line, bf16_result, calibrate=True, phase=33)
+    mods = _k17_scales(trainer._unet_int8)
+    check(all(m.x_scale is not None for m in mods)
+          and {m.pack.xs for m in mods} == {f32(0.1)},
+          "under the trainer K17 must keep 0.1 after calibrate_int8")
+    print(f"phase 33 K17's input scale under the trainer: 0.1 with the "
+          f"default and the calibrated scales ({len(mods)} sites hold a "
+          f"calibrated to_q scale and ignore it)", flush=True)
+    scales = trainer._int8_act_scales
+    storage = int8_unet_from(trainer.unet, dict(
+        ABSORBED_A_FLAGS, use_absorbed_attention=True), scales=scales,
+        absorbed_attention=True)
+    names = {m: n for n, m in storage.named_modules()}
+    mods = _k17_scales(storage)
+    read = [(m.pack.xs, f32(scales[f"{names[m]}.to_q"])) for m in mods]
+    check(all(a == b for a, b in read) and any(a != f32(0.1)
+                                               for a, _ in read),
+          f"absorbed storage: K17 did not read the calibrated to_q sites "
+          f"{read[:3]}")
+    storage_result = _unet_vs_bf16(
+        "int8 UNet (a), absorbed storage (K17 on calibrated to_q)", 33,
+        storage, bf16, {"K17": 16, "K12": 16})
+    print(f"phase 33 absorbed storage: K17 reads the calibrated to_q sites "
+          f"({min(a for a, _ in read):.4g}-{max(a for a, _ in read):.4g}, "
+          f"not 0.1)", flush=True)
+    del storage
+    return unet_result, sample, storage_result
+
+
+def k16_entry(rows, launches, by_path):
+    """The kernels-line entry for K16: times summed over the 16 launches of
+    one UNet forward at the sampling shapes (bf16, batch 2), the training
+    forward's rows and the backward (K2 on the head views with the gradient
+    products, per UNet backward at batch 8) beside them."""
+    def unit(key, per_key):
+        main = [r for r in rows[key] if r.get(per_key)]
+        out = _per_unit([{**r, "library_ms": 0.0} for r in main], per_key)
+        out["composition_ms"] = sum(r["composition_ms"] * r[per_key]
+                                    for r in main)
+        out["library_ms"] = None
+        return out
+    return {
+        "name": "attention_absorbed", "id": "K16", "route": "cuda",
+        "source": "ldmseg_torch/csrc/attention_fwd.cu",
+        "replaces": "ldmseg_tpu/ops/pallas/attention.py:239",
+        "tpu_kernel": "ldmseg_tpu/ops/pallas/attention.py:"
+                      "_attn_kernel_absorbed",
+        "launches": launches, "launches_by_path": by_path, "checked": True,
+        **unit("K16", "per_unet_forward"),
+        "library_note": "no single PyTorch call computes this function; "
+                        "composition_ms is F.linear x 3 + SDPA + F.linear",
+        "unit": "one UNet forward (16 launches, bf16, batch 2, 32x64 latent)",
+        "shapes": rows["K16"],
+        "training_forward": {**unit("K16 training", "per_unet_forward"),
+                             "unit": "one UNet forward at batch 8, 24x80 "
+                                     "(15 launches; T = 30 falls back)",
+                             "shapes": rows["K16 training"]},
+        "backward": {**unit("K16 backward", "per_unet_backward"),
+                     "unit": "one UNet backward at batch 8, 24x80 (15 K2 "
+                             "launches on the head views and the gradient "
+                             "products); max_abs_err relative to max|ref|",
+                     "shapes": rows["K16 backward"]},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -2361,9 +2875,29 @@ def main() -> int:
             smi_line, packed_sample, calibrate=True, phase=28)
         del trainer
         torch.cuda.empty_cache()
+        # use_absorbed_attention: K16 (with K2 in its backward), K17; K18
+        absorbed_rows = phase_absorbed_kernels()
+        k18_checked = sum(1 for r in absorbed_rows["K18"]
+                          if not r.get("fallback"))
+        torch.cuda.empty_cache()
+        trainer = _absorbed_trainer(_config())
+        absorbed_unet = phase_absorbed_unet(trainer)
+        absorbed_counts, absorbed_sample = phase_sample(
+            trainer, smi_line, phase=31, expect={"K16": 16})
+        del trainer
+        torch.cuda.empty_cache()
+        absorbed_train_counts, absorbed_train = phase_absorbed_train(
+            smi_line)
+        torch.cuda.empty_cache()
+        trainer = _absorbed_trainer(_int8_config(fused_norms=False))
+        absorbed_int8_unet, absorbed_int8, absorbed_storage = (
+            phase_absorbed_int8(trainer, smi_line, absorbed_sample))
+        del trainer
+        torch.cuda.empty_cache()
         sample_result.pop("x0")
         gn_sample.pop("x0")
         packed_sample.pop("x0")
+        absorbed_sample.pop("x0")
         print(json.dumps({"results": {
             "device": smi_line, "unet_forward": unet_result,
             "sample_panoptic": sample_result, "train": train_result,
@@ -2384,7 +2918,14 @@ def main() -> int:
             "packed_sample_panoptic": packed_sample,
             "packed_train": packed_train,
             "packed_int8_unet_forward": packed_int8_unet,
-            "packed_int8_sample_panoptic": packed_int8}}), flush=True)
+            "packed_int8_sample_panoptic": packed_int8,
+            "absorbed_unet_forward": absorbed_unet,
+            "absorbed_sample_panoptic": absorbed_sample,
+            "absorbed_train": absorbed_train,
+            "absorbed_int8_unet_forward": absorbed_int8_unet,
+            "absorbed_int8_sample_panoptic": absorbed_int8,
+            "absorbed_storage_unet_forward": absorbed_storage}}),
+            flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
         paths = {"sample_panoptic": bf16_counts,
@@ -2416,6 +2957,18 @@ def main() -> int:
         for mode, res in packed_int8.items():
             paths[f"sample_panoptic int8 fused_norms False, "
                   f"use_packed_attention, {mode}"] = res["counts"]
+        paths["UNet forward, use_absorbed_attention"] = (
+            absorbed_unet["counts"])
+        paths["sample_panoptic, use_absorbed_attention"] = absorbed_counts
+        paths[f"train_loop, use_absorbed_attention, {ABSORBED_TIMED_STEPS} "
+              f"steps"] = absorbed_train_counts
+        paths["UNet forward, int8 (a) with use_absorbed_attention"] = (
+            absorbed_int8_unet["counts"])
+        for mode, res in absorbed_int8.items():
+            paths[f"sample_panoptic int8 fused_norms False, "
+                  f"use_absorbed_attention, {mode}"] = res["counts"]
+        paths["UNet forward, int8 (a), absorbed storage"] = (
+            absorbed_storage["counts"])
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -2523,6 +3076,23 @@ def main() -> int:
                        packed_rows["K10 s8"], 0, by_path("K10"))
             | {"variant": "v_bf16=False",
                "launches_in_its_phase": k10_checked // 2,
+               "launches_note": "an op: no module routes to it, so 0 "
+                                "launches on every path"},
+            k16_entry(absorbed_rows, absorbed_counts["K16"], by_path("K16")),
+            int8_entry("attention_absorbed_s8", "K17",
+                       "ldmseg_torch/csrc/attention_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:360",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_absorbed_s8", absorbed_rows["K17"],
+                       absorbed_int8["default scales"]["counts"]["K17"],
+                       by_path("K17")),
+            int8_entry("attention_absorbed_fullc_s8", "K18",
+                       "ldmseg_torch/csrc/attention_s8.cu",
+                       "ldmseg_tpu/ops/pallas/attention.py:500",
+                       "ldmseg_tpu/ops/pallas/attention.py:"
+                       "_attn_kernel_absorbed_fullc_s8",
+                       absorbed_rows["K18"], 0, by_path("K18"))
+            | {"launches_in_its_phase": k18_checked,
                "launches_note": "an op: no module routes to it, so 0 "
                                 "launches on every path"},
         ]}), flush=True)

@@ -1,5 +1,6 @@
 // K1 on Hopper: the UNet self-attention forward, O = softmax(Q K^T * scale) V.
-// K14, its packed [B, T, C] entry point, is at the end of this file.
+// K14, its packed [B, T, C] entry point, and K16, the attention with its
+// four projections absorbed, are at the end of this file.
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:_attn_kernel /
 // _attn_body (pallas_call in _fused_impl, public fused_self_attention).
@@ -38,6 +39,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "s8_common.cuh"  // bf16_gemm_kernel (K16's projections)
 
 namespace {
 
@@ -359,4 +362,184 @@ extern "C" int ldmseg_attention_fwd_packed(int dtype, const void* q,
   }
   return ldmseg_attention_fwd(dtype, q, k, v, o, batch, t, heads, d, st,
                               scale, stream);
+}
+
+// K16: self-attention with the projections absorbed (UNetConfig.
+// use_absorbed_attention), out = to_out(attention(x Wq, x Wk, x Wv)) without
+// the to_out bias, on the token layout x [batch, t, c]. Replaces
+// ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_absorbed (pallas_call in
+// _absorbed_impl, public absorbed_self_attention). Its grid is (image, head);
+// per step it computes, for head h:
+//   1. q = T(x Wq[h]), k = T(x Wk[h]), v = T(x Wv[h]), each summed in fp32
+//      and rounded to the input dtype T;
+//   2-5. K1's rounding points on q, k, v (scores and softmax in fp32, P
+//      rounded to T, P V summed in fp32, oh rounded to T);
+//   6. oh Wo[h] summed in fp32 and added across heads, h = 0 first;
+//   7. the fp32 sum rounded to T once.
+// The head slices of the weights and of q, k, v are TPU layout work: on the
+// card the head view [batch, t, heads, d] of a [batch, t, c] tensor is a
+// stride, so the three projections run as whole products x W^T (every
+// column's sum is its head's), K1's kernel reads their head views, and
+// to_out is one product over the whole depth heads * d with fp32 sums,
+// rounded once: K16's per-head accumulation up to the fp32 summation order.
+//
+// What bounds it on an H100: per image 4 * 2 * t * c^2 (the projections)
+// plus 2 * 2 * t^2 * c (the attention) operations at the bf16 peak against
+// x in, the four [c, c] weights and the output: at the serving shapes the
+// tensor cores. The design is five launches on the stream, with q, k, v and
+// oh through device memory: three bf16_gemm_kernel products (s8_common.cuh)
+// with an epilogue that rounds to bf16, K1's kernel on the head views, and
+// one more product for to_out. fp32 takes a plain-FMA product (f32_gemm
+// below) and K1's fp32 variant. q, k, v and oh are the caller's buffers, so
+// a backward can read them (the port runs K2 on their head views).
+
+namespace {
+
+// out = bf16(sum), [rows, n]
+struct StoreBf16Epi {
+  static constexpr bool kColMajor = false;
+  __nv_bfloat16* out;
+  int n;
+  __device__ void operator()(int row, int col, float sum) const {
+    out[static_cast<long long>(row) * n + col] = __float2bfloat16_rn(sum);
+  }
+};
+
+constexpr int kGemmTile = 64;   // rows and columns of an fp32 output tile
+constexpr int kGemmDepth = 16;  // depth of one shared-memory stage
+
+// out = a w^T in fp32 with plain FMA: a [rows, k], w [n, k] row-major, out
+// [rows, n]. 256 threads as 16 x 16, each owning a 4 x 4 block of outputs
+// strided by 16 in both directions.
+__global__ void __launch_bounds__(256)
+    f32_gemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                    float* __restrict__ out, int rows, int n, int k) {
+  __shared__ float As[kGemmDepth][kGemmTile + 4];  // [depth][row]
+  __shared__ float Ws[kGemmDepth][kGemmTile + 4];  // [depth][column]
+  const int r0 = blockIdx.x * kGemmTile;
+  const int n0 = blockIdx.y * kGemmTile;
+  const int tr = threadIdx.x / 16;
+  const int tc = threadIdx.x % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  for (int k0 = 0; k0 < k; k0 += kGemmDepth) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kGemmTile * kGemmDepth; i += 256) {
+      const int r = i / kGemmDepth;
+      const int kk = i - r * kGemmDepth;
+      const bool in_k = k0 + kk < k;
+      As[kk][r] = (in_k && r0 + r < rows)
+                      ? a[static_cast<long long>(r0 + r) * k + k0 + kk]
+                      : 0.f;
+      Ws[kk][r] = (in_k && n0 + r < n)
+                      ? w[static_cast<long long>(n0 + r) * k + k0 + kk]
+                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGemmDepth; ++kk) {
+      float av[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = As[kk][tr + 16 * i];
+        wv[i] = Ws[kk][tc + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = r0 + tr + 16 * i;
+      const int col = n0 + tc + 16 * j;
+      if (row < rows && col < n) {
+        out[static_cast<long long>(row) * n + col] = acc[i][j];
+      }
+    }
+  }
+}
+
+// out = T(a w^T) with fp32 sums, [rows, n]
+template <typename T>
+int gemm(const void* a, const void* w, void* out, int rows, int n, int k,
+         cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid((rows + kGemmTile - 1) / kGemmTile,
+                    (n + kGemmTile - 1) / kGemmTile);
+    f32_gemm_kernel<<<grid, 256, 0, stream>>>(
+        static_cast<const float*>(a), static_cast<const float*>(w),
+        static_cast<float*>(out), rows, n, k);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return s8::launch_bf16_gemm<false>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(w), rows, n, k, 1,
+        StoreBf16Epi{static_cast<__nv_bfloat16*>(out), n}, stream);
+  }
+}
+
+template <typename T>
+int launch_absorbed(const void* x, const void* const* w, void* const* qkvo,
+                    void* out, int batch, int t, int c, int heads,
+                    float scale, cudaStream_t stream) {
+  const int rows = batch * t;
+  const int d = c / heads;
+  for (int i = 0; i < 3; ++i) {
+    const int err = gemm<T>(x, w[i], qkvo[i], rows, c, c, stream);
+    if (err != 0) return err;
+  }
+  // the head views [batch, t, heads, d] of q, k, v and oh
+  long long st[12];
+  for (int i = 0; i < 4; ++i) {
+    st[3 * i] = static_cast<long long>(t) * c;
+    st[3 * i + 1] = c;
+    st[3 * i + 2] = d;
+  }
+  const int err = launch<T>(qkvo[0], qkvo[1], qkvo[2], qkvo[3], batch, t,
+                            heads, d, st, scale, stream);
+  if (err != 0) return err;
+  return gemm<T>(qkvo[3], w[3], out, rows, c, c, stream);
+}
+
+}  // namespace
+
+// K16: dtype 0 = float32, 1 = bfloat16 for every tensor. x [batch * t, c]
+// contiguous; wq, wk, wv, wo [c, c] contiguous in the (out, in) layout of a
+// torch Linear weight. q, k, v and oh ([batch * t, c] each, contiguous) and
+// out ([batch * t, c]) are written: the three projections, the attention
+// output before to_out, and to_out of it without the bias. c = heads * d
+// with d a multiple of 8 up to 160. Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_absorbed(int dtype, const void* x,
+                                         const void* wq, const void* wk,
+                                         const void* wv, const void* wo,
+                                         void* q, void* k, void* v, void* oh,
+                                         void* out, int batch, int t, int c,
+                                         int heads, float scale,
+                                         void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 ||
+      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* w[4] = {wq, wk, wv, wo};
+  void* qkvo[4] = {q, k, v, oh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_absorbed<float>(x, w, qkvo, out, batch, t, c, heads, scale,
+                                  s);
+  }
+  if (dtype == 1) {
+    return launch_absorbed<__nv_bfloat16>(x, w, qkvo, out, batch, t, c, heads,
+                                          scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

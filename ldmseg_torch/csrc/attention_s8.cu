@@ -8,7 +8,13 @@
 // K15: K13 on the packed token layout [B, T, C] with dynamic scales
 //      (use_packed_attention with use_int8_attention);
 // K10 with v_bf16=False (an op): K11 behind a LayerNorm, with the residual
-//      and the to_out bias in its epilogue.
+//      and the to_out bias in its epilogue;
+// K17: the absorbed attention on int8 weights quantized per head
+//      (use_absorbed_attention with use_int8_attention), x [B, T, C] ->
+//      to_out(attention(x Wq, x Wk, x Wv)) with dynamic scales per (image,
+//      head);
+// K18 (an op): K17 with per-tensor weight scales and the projections'
+//      dynamic scales per image.
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8
 // (pallas_call in _fused_impl_s8, public fused_self_attention_s8), together
@@ -91,8 +97,44 @@
 // memory: (a) ln_quant without the LN (s8_common.cuh), x -> x8; (b)
 // s8_gemm_kernel with the three projections requantized in its epilogue
 // (K3's, with v8 int8); (c) attn_s8 above with sc0 = the score scale and
-// the epilogue of step 4 (template flag kS8Out); (d) s8_gemm_kernel of of8
+// the epilogue of step 4 (template value kOutS8); (d) s8_gemm_kernel of of8
 // with Wo8 and the dequantize of step 5.
+//
+// K17 replaces ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_absorbed_s8
+// (pallas_call in _absorbed_s8_impl, public absorbed_self_attention_s8),
+// whose wrapper quantizes x once, x8 = clip(rint(float(x) / xs), +-127).
+// Per (image, head h), in fp32:
+//   1. y = float(int32 x8 W8[h]) * (xs * ws[h]) for q, k and v;
+//   2. ys = max(amax|y| over the [T, D] tile, 1e-6) / 127, y8 = rint(y / ys);
+//   3. s = float(int32 q8 k8^T) * ((qs * ks) * scale);
+//   4-5. e = exp((s - rowmax) + ln 127), denom = sum(e), e8 = rint(e);
+//   6. oh = (float(int32 e8 v8) * vs) / denom;
+//   7. os = max(amax|oh| over [T, D], 1e-6) / 127, oh8 = rint(oh / os);
+//   8. out += float(int32 oh8 Wo8[h]) * (os * wos[h]), h = 0 first;
+//   9. out rounded to bf16.
+// K18 replaces _attn_kernel_absorbed_fullc_s8 (pallas_call in
+// _absorbed_fullc_s8_impl, public absorbed_fullc_self_attention_s8): the
+// same steps with one weight scale per tensor and the amax of step 2 over
+// the image's whole [T, C] projection. Its one-hot int8 head picks and its
+// to_out weight padded to [H, 128, C] are exact TPU layout work: here the
+// heads are column offsets and the pad rows are not stored.
+//
+// What bounds them: per image 4 * 2*T*C^2 + 2 * 2*H*T^2*d int8 operations
+// at 1,979 TOPS against x in, the int8 weights and the bf16 output.
+//
+// Design (K17 and K18 differ only in the width of step 2's groups): eight
+// kernels on the stream, fp32 and int8 intermediates through device memory.
+// (a) ln_quant without the LN: x8; (b) s8_gemm_kernel of x8 with the three
+// [C, C] codes as one [3C, C] product, step 1 in its epilogue into fp32 y
+// (AbsorbedProjEpi; K18's per-tensor scales arrive repeated per head); (c)
+// group_amax_kernel (many blocks per group, an atomicMax each) and
+// group_quant_kernel (elementwise): step 2 needs the whole tile's amax
+// before the first code; (d) attn_s8_kernel above on the head views of
+// y8, reading each block's (image, head) scales from (c), with the fp32
+// epilogue of step 6; (e) the same two kernels per (image, head) of oh:
+// step 7; (f) head_out_kernel: per 64 x 64 output tile, each head's int32
+// product over its d columns (zero-padded to 16 in shared memory), scaled
+// by os * wos[h] and added in fp32 registers, h = 0 first.
 
 #include "s8_common.cuh"
 
@@ -207,16 +249,28 @@ __device__ __forceinline__ void load_head_s8_blocks(
 }
 
 // ---- b: attention per (image*head, 64-query tile) ------------------------
-// kS8Out (K11): of8 = clip(rint(float(o32) * (ratio[h] / denom))) into an
-// int8 o; else (K13) o = bf16(float(o32) * ((sc1 * 127) / denom)).
-template <bool kS8Out>
+// The epilogue on o32 = int32 e8 V8 and denom, into o [B, T, H, D]:
+//   kOutBf16 (K13): o = bf16(float(o32) * ((sc1 * 127) / denom));
+//   kOutS8 (K11): of8 = clip(rint(float(o32) * (ratio[h] / denom)));
+//   kOutF32 (K17, K18): oh = (float(o32) * vs) / denom in fp32.
+// q8, k8 and v8 are read with the token row stride ld (heads * d, or 3c
+// for K17's and K18's q | k | v rows). The scales: group_scales, per
+// (tensor, image, group) as [3][batch][groups] with head h in group h *
+// groups / heads (K17, K18); else scale_dev, three per tensor; else the
+// static qs, ks, vs.
+constexpr int kOutBf16 = 0;
+constexpr int kOutS8 = 1;
+constexpr int kOutF32 = 2;
+
+template <int kOut>
 __global__ void __launch_bounds__(kThreads)
     attn_s8_kernel(const int8_t* __restrict__ q8,
                    const int8_t* __restrict__ k8,
                    const int8_t* __restrict__ v8, void* __restrict__ o,
-                   int heads, int t, int d,
+                   int heads, int t, int d, int ld,
                    const float* __restrict__ scale_dev, float qs, float ks,
-                   float vs, float scale, const float* __restrict__ ratio) {
+                   float vs, float scale, const float* __restrict__ ratio,
+                   const float* __restrict__ group_scales, int groups) {
   using namespace nvcuda;
   extern __shared__ __align__(256) unsigned char smem[];
   const int dp = (d + 15) & ~15;
@@ -227,7 +281,15 @@ __global__ void __launch_bounds__(kThreads)
   int8_t* Es = Vs + kTile * dp;
   int* S = reinterpret_cast<int*>(Es + kTile * kTile);
 
-  if (scale_dev != nullptr) {
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y - b * heads;
+  if (group_scales != nullptr) {
+    const int batch = gridDim.y / heads;
+    const int g = b * groups + h * groups / heads;
+    qs = group_scales[g];
+    ks = group_scales[batch * groups + g];
+    vs = group_scales[2 * batch * groups + g];
+  } else if (scale_dev != nullptr) {
     qs = scale_dev[0];
     ks = scale_dev[1];
     vs = scale_dev[2];
@@ -235,11 +297,10 @@ __global__ void __launch_bounds__(kThreads)
   const float sc0 = (qs * ks) * scale;
   const float sc1 = vs / 127.f;
 
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y - b * heads;
   const int q0 = blockIdx.x * kTile;
-  const int ld = heads * d;
-  const long long base = (static_cast<long long>(b) * t * heads + h) * d;
+  const long long base = static_cast<long long>(b) * t * ld + h * d;
+  const int ldo = heads * d;
+  const long long obase = (static_cast<long long>(b) * t * heads + h) * d;
   load_head_s8(Qs, q8 + base, ld, q0, t, d, dp);
 
   const int lane = threadIdx.x & 31;
@@ -315,7 +376,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  const float f = kS8Out ? ratio[h] / l_run : (sc1 * 127.f) / l_run;
+  const float f = kOut == kOutS8 ? ratio[h] / l_run : (sc1 * 127.f) / l_run;
 
   // o = bf16(o32 * f) (or of8) for query rows < t and columns < d, staged
   // per warp through this warp's rows of S
@@ -332,14 +393,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) {
         const int cc = n * 16 + (lane & 1) * 8 + j;
         if (grow < t && cc < d) {
-          const long long at = base + static_cast<long long>(grow) * ld + cc;
-          const float y =
-              static_cast<float>(stage[r * kStageLd + (lane & 1) * 8 + j]) *
-              f;
-          if constexpr (kS8Out) {
-            static_cast<int8_t*>(o)[at] = quant_s8(y);
+          const long long at = obase + static_cast<long long>(grow) * ldo + cc;
+          const float acc =
+              static_cast<float>(stage[r * kStageLd + (lane & 1) * 8 + j]);
+          if constexpr (kOut == kOutF32) {
+            static_cast<float*>(o)[at] = (acc * vs) / l_run;
+          } else if constexpr (kOut == kOutS8) {
+            static_cast<int8_t*>(o)[at] = quant_s8(acc * f);
           } else {
-            static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(y);
+            static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(acc * f);
           }
         }
       }
@@ -375,12 +437,13 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
   if (err != 0) return err;
   const size_t smem = attn_smem(d);
   err = static_cast<int>(cudaFuncSetAttribute(
-      attn_s8_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_s8_kernel<kOutBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
   if (err != 0) return err;
   const dim3 grid((t + kTile - 1) / kTile, batch * heads);
-  attn_s8_kernel<false><<<grid, kThreads, smem, stream>>>(
-      q8, k8, v8, o, heads, t, d, scale_dev, qs, ks, vs, scale, nullptr);
+  attn_s8_kernel<kOutBf16><<<grid, kThreads, smem, stream>>>(
+      q8, k8, v8, o, heads, t, d, heads * d, scale_dev, qs, ks, vs, scale,
+      nullptr, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,14 +502,14 @@ int launch_qkv_attention(const int8_t* x8, const int8_t* w_qkv,
   if (err != 0) return err;
   const size_t smem = attn_smem(d);
   err = static_cast<int>(cudaFuncSetAttribute(
-      attn_s8_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_s8_kernel<kOutS8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
   if (err != 0) return err;
   // sc0 = (1 * 1) * score_scale: the score scale exactly
   const dim3 grid((t + kTile - 1) / kTile, batch * heads);
-  attn_s8_kernel<true><<<grid, kThreads, smem, stream>>>(
-      q8, k8, v8, of8, heads, t, d, nullptr, 1.f, 1.f, 1.f, score_scale,
-      ratio);
+  attn_s8_kernel<kOutS8><<<grid, kThreads, smem, stream>>>(
+      q8, k8, v8, of8, heads, t, d, c, nullptr, 1.f, 1.f, 1.f, score_scale,
+      ratio, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -506,6 +569,255 @@ int launch_ln_padded(const void* x, __nv_bfloat16* out, const float* ln_w,
       of8, wo, rows, c, c,
       ResidualS8Epi<T>{static_cast<const T*>(x), out_scale, out_b, out, c},
       stream);
+}
+
+// ---- K17 and K18 ------------------------------------------------------------
+// the three projections y = float(int32 x8 W^T) * (xs * ws[which][head]) in
+// fp32 into y [rows, 3c], the product's columns q | k | v; ws [4][heads]
+// holds the weight scales per head (K17) or the per-tensor scale repeated
+// (K18). __fmul_rn: the scales' product rounds first, as in the TPU kernel.
+struct AbsorbedProjEpi {
+  static constexpr bool kColMajor = false;
+  const float* ws;
+  float xs;
+  float* y;
+  int c, d, heads;
+  __device__ void operator()(int row, int col, int sum) const {
+    const int which = col / c;
+    const int h = (col - which * c) / d;
+    y[static_cast<long long>(row) * 3 * c + col] = __fmul_rn(
+        static_cast<float>(sum), __fmul_rn(xs, ws[which * heads + h]));
+  }
+};
+
+// Steps 2 and 7 of K17 and K18: the dynamic scale of each group of y
+// [batch * t, ld] and its codes. The columns [0, parts * part_cols) of y
+// are `parts` parts (q | k | v, or oh alone) of part_cols = groups * gw
+// columns; a group is one image's t rows by gw columns of one part (gw = d:
+// a head; K18's projections gw = c), indexed (p * batch + b) * groups + g.
+// Two kernels, so that every group is read by many blocks at once (the
+// first design gave each group one block: 2.1 ms per K17 forward, latency
+// bound, and K18's projections only 3 * batch blocks):
+// group_amax_kernel: one block per (image, 32-row chunk; group; part): the
+// chunk's max of |y|, then one atomicMax on the float's bits into
+// amax[group] (zeroed before; non-negative floats order as their bits, and
+// a max is exact in any order).
+constexpr int kAmaxRows = 32;
+
+__global__ void __launch_bounds__(256)
+    group_amax_kernel(const float* __restrict__ y, unsigned* __restrict__ amax,
+                      int t, int ld, int part_cols, int gw) {
+  __shared__ float red[8];
+  const int chunks = (t + kAmaxRows - 1) / kAmaxRows;
+  const int b = blockIdx.x / chunks;
+  const int r0 = (blockIdx.x - b * chunks) * kAmaxRows;
+  const int g = blockIdx.y;
+  const int p = blockIdx.z;
+  const int n = min(kAmaxRows, t - r0) * gw;
+  const long long base = (static_cast<long long>(b) * t + r0) * ld +
+                         p * part_cols + g * gw;
+  float m = 0.f;
+  for (int i = threadIdx.x; i < n; i += 256) {
+    const int r = i / gw;
+    m = fmaxf(m, fabsf(y[base + static_cast<long long>(r) * ld +
+                         (i - r * gw)]));
+  }
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = warp_max(threadIdx.x < 8 ? red[threadIdx.x] : 0.f);
+    if (threadIdx.x == 0) {
+      const int batch = gridDim.x / chunks;
+      atomicMax(amax + (p * batch + b) * gridDim.y + g, __float_as_uint(m));
+    }
+  }
+}
+
+// group_quant_kernel: one thread per 8 consecutive elements of a row: s =
+// max(amax, 1e-6) / 127 in fp32 (the group's first thread stores it in
+// scales), then y8 = rint(y / s), a true division (|y / s| <= 127, so the
+// clip of quant_s8 never bites).
+__global__ void __launch_bounds__(256)
+    group_quant_kernel(const float* __restrict__ y, int8_t* __restrict__ y8,
+                       const unsigned* __restrict__ amax,
+                       float* __restrict__ scales, int batch, int t, int ld,
+                       int part_cols, int gw, int units_per_row) {
+  const int u = blockIdx.x * 256 + threadIdx.x;
+  if (u >= batch * t * units_per_row) return;
+  const int row = u / units_per_row;
+  const int j = (u - row * units_per_row) * 8;
+  const int p = j / part_cols;
+  const int g = (j - p * part_cols) / gw;
+  const int b = row / t;
+  const int gi = (p * batch + b) * (part_cols / gw) + g;
+  const float s = fmaxf(__uint_as_float(amax[gi]), 1e-6f) / 127.f;
+  if (row == b * t && j == p * part_cols + g * gw) scales[gi] = s;
+  const long long at = static_cast<long long>(row) * ld + j;
+  const float4 lo = *reinterpret_cast<const float4*>(y + at);
+  const float4 hi = *reinterpret_cast<const float4*>(y + at + 4);
+  const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  char4 c0, c1;
+  c0.x = quant_s8(v[0] / s);
+  c0.y = quant_s8(v[1] / s);
+  c0.z = quant_s8(v[2] / s);
+  c0.w = quant_s8(v[3] / s);
+  c1.x = quant_s8(v[4] / s);
+  c1.y = quant_s8(v[5] / s);
+  c1.z = quant_s8(v[6] / s);
+  c1.w = quant_s8(v[7] / s);
+  *reinterpret_cast<char4*>(y8 + at) = c0;
+  *reinterpret_cast<char4*>(y8 + at + 4) = c1;
+}
+
+// steps 2 or 7 on `parts` parts of y: the amax bits (scratch, zeroed
+// here), then the scales and the codes
+int quant_groups(const float* y, int8_t* y8, float* scales, unsigned* amax,
+                 int batch, int t, int ld, int parts, int part_cols, int gw,
+                 cudaStream_t stream) {
+  const int groups = part_cols / gw;
+  int err = static_cast<int>(cudaMemsetAsync(
+      amax, 0, sizeof(unsigned) * parts * batch * groups, stream));
+  if (err != 0) return err;
+  const int chunks = (t + kAmaxRows - 1) / kAmaxRows;
+  group_amax_kernel<<<dim3(batch * chunks, groups, parts), 256, 0, stream>>>(
+      y, amax, t, ld, part_cols, gw);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int per_row = parts * part_cols / 8;
+  const int units = batch * t * per_row;
+  group_quant_kernel<<<(units + 255) / 256, 256, 0, stream>>>(
+      y, y8, amax, scales, batch, t, ld, part_cols, gw, per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMaxDp = (kMaxD + 15) & ~15;  // a head's depth, padded
+
+// to_out per head: out[row, col] = bf16(sum over h, h = 0 first, of
+// float(int32 oh8[row, head h] . wo8[col, head h]) * (os[b][h] * wos[h]))
+// with b = row / t. Each head's depth d is zero-padded to a multiple of 16
+// in shared memory (zeros are exact); the 64 x 64 output tile's fp32 sums
+// stay in registers across the heads. __fmul_rn/__fadd_rn: no fused
+// multiply-add, so the sum rounds where the TPU kernel's does.
+__global__ void __launch_bounds__(kThreads)
+    head_out_kernel(const int8_t* __restrict__ oh8,
+                    const int8_t* __restrict__ wo8,
+                    const float* __restrict__ os,
+                    const float* __restrict__ wos,
+                    __nv_bfloat16* __restrict__ out, int rows, int t, int c,
+                    int heads) {
+  __shared__ __align__(256) int8_t As[kTile * kMaxDp];
+  __shared__ __align__(256) int8_t Bs[kTile * kMaxDp];
+  __shared__ __align__(256) int S[kTile * kStageLd];
+  constexpr int kPer = kTile * kTile / kThreads;
+  const int d = c / heads;
+  const int dp = (d + 15) & ~15;
+  const int r0 = blockIdx.x * kTile;
+  const int n0 = blockIdx.y * kTile;
+  float acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
+  for (int h = 0; h < heads; ++h) {
+    __syncthreads();
+    load_head_s8(As, oh8 + h * d, c, r0, rows, d, dp);
+    load_head_s8(Bs, wo8 + h * d, c, n0, c, d, dp);
+    __syncthreads();
+    score_tile(As, Bs, S, dp);
+    __syncthreads();
+    const float wsh = wos[h];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kTile;
+      const int cc = i - r * kTile;
+      if (r0 + r < rows && n0 + cc < c) {
+        const float f = __fmul_rn(os[((r0 + r) / t) * heads + h], wsh);
+        acc[j] = __fadd_rn(
+            acc[j], __fmul_rn(static_cast<float>(S[r * kStageLd + cc]), f));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / kTile;
+    const int cc = i - r * kTile;
+    if (r0 + r < rows && n0 + cc < c) {
+      out[static_cast<long long>(r0 + r) * c + n0 + cc] =
+          __float2bfloat16_rn(acc[j]);
+    }
+  }
+}
+
+// K17 (gw = d: the projections' scales per (image, head)) and K18 (gw = c:
+// per image), eight kernels on the stream: the static-scale quantize of x,
+// the three projections, their dynamic quantize (amax, codes), the
+// attention with the fp32 oh epilogue, its quantize per (image, head)
+// (amax, codes), to_out per head.
+template <typename T>
+int launch_absorbed_s8(const void* x, __nv_bfloat16* out,
+                       const int8_t* w_qkv, const int8_t* wo,
+                       const float* ws, int8_t* x8, float* y, int8_t* y8,
+                       float* oh, int8_t* oh8, float* scales, int batch,
+                       int t, int c, int heads, int gw, float xs,
+                       float scale, cudaStream_t stream) {
+  const int rows = batch * t;
+  const int d = c / heads;
+  const int groups = c / gw;
+  const int n_scales = 3 * batch * groups + batch * heads;
+  float* os = scales + 3 * batch * groups;
+  auto* amax = reinterpret_cast<unsigned*>(scales + n_scales);
+  int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
+                                      0.f, nullptr, 0, stream);
+  if (err != 0) return err;
+  err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
+                       AbsorbedProjEpi{ws, xs, y, c, d, heads}, stream);
+  if (err != 0) return err;
+  err = quant_groups(y, y8, scales, amax, batch, t, 3 * c, 3, c, gw, stream);
+  if (err != 0) return err;
+  const size_t smem = attn_smem(d);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      attn_s8_kernel<kOutF32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err != 0) return err;
+  const dim3 grid((t + kTile - 1) / kTile, batch * heads);
+  attn_s8_kernel<kOutF32><<<grid, kThreads, smem, stream>>>(
+      y8, y8 + c, y8 + 2 * c, oh, heads, t, d, 3 * c, nullptr, 0.f, 0.f, 0.f,
+      scale, nullptr, scales, groups);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = quant_groups(oh, oh8, os, amax, batch, t, c, 1, c, d, stream);
+  if (err != 0) return err;
+  head_out_kernel<<<dim3((rows + kTile - 1) / kTile, (c + kTile - 1) / kTile),
+                    kThreads, 0, stream>>>(oh8, wo, os, ws + 3 * heads, out,
+                                           rows, t, c, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int absorbed_s8_entry(int dtype, const void* x, void* out,
+                      const int8_t* w_qkv, const int8_t* wo, const float* ws,
+                      int8_t* x8, float* y, int8_t* y8, float* oh,
+                      int8_t* oh8, float* scales, int batch, int t, int c,
+                      int heads, int gw, float xs, float scale,
+                      void* stream) {
+  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
+      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+      static_cast<long long>(batch) * t * c * 3 >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (dtype == 0) {
+    return launch_absorbed_s8<float>(x, ob, w_qkv, wo, ws, x8, y, y8, oh,
+                                     oh8, scales, batch, t, c, heads, gw, xs,
+                                     scale, s);
+  }
+  if (dtype == 1) {
+    return launch_absorbed_s8<__nv_bfloat16>(x, ob, w_qkv, wo, ws, x8, y, y8,
+                                             oh, oh8, scales, batch, t, c,
+                                             heads, gw, xs, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -638,4 +950,38 @@ extern "C" int ldmseg_attention_ln_padded_s8(
         of8, batch, t, c, heads, xs, score_scale, out_scale, eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K17: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous; out
+// bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns) and
+// wo int8 [c, c] (out, in), quantized per head; ws fp32 [4][heads], the
+// per-head scales of q, k, v and o. x8 and oh8 (int8 [batch*t, c]), y
+// (fp32 [batch*t, 3c]), y8 (int8 [batch*t, 3c]), oh (fp32 [batch*t, c]) and
+// scales (4-byte words [2 * 4 * batch * heads]: the scales, then as many
+// amax words) are scratch. xs: x's static scale.
+// Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_absorbed_s8(
+    int dtype, const void* x, void* out, const int8_t* w_qkv,
+    const int8_t* wo, const float* ws, int8_t* x8, float* y, int8_t* y8,
+    float* oh, int8_t* oh8, float* scales, int batch, int t, int c,
+    int heads, float xs, float scale, void* stream) {
+  if (heads < 1 || c % heads != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return absorbed_s8_entry(dtype, x, out, w_qkv, wo, ws, x8, y, y8, oh, oh8,
+                           scales, batch, t, c, heads, c / heads, xs, scale,
+                           stream);
+}
+
+// K18: K17's arguments with ws holding each tensor's one scale repeated over
+// the heads, the projections' dynamic scales per image over all c columns;
+// scales is [2 * (3 * batch + batch * heads)] 4-byte words. Returns a
+// cudaError_t.
+extern "C" int ldmseg_attention_absorbed_fullc_s8(
+    int dtype, const void* x, void* out, const int8_t* w_qkv,
+    const int8_t* wo, const float* ws, int8_t* x8, float* y, int8_t* y8,
+    float* oh, int8_t* oh8, float* scales, int batch, int t, int c,
+    int heads, float xs, float scale, void* stream) {
+  return absorbed_s8_entry(dtype, x, out, w_qkv, wo, ws, x8, y, y8, oh, oh8,
+                           scales, batch, t, c, heads, c, xs, scale, stream);
 }

@@ -3,11 +3,12 @@
 
 conv_in -> down blocks (resnets + Transformer2D) -> mid (resnet, attention,
 resnet) -> up blocks with skip concatenation -> GN/SiLU/conv_out, with
-sinusoidal time embeddings. Self-attention goes to K14
-(``ops/attention.py:fused_self_attention_packed``) when
-``use_packed_attention`` is set, else to K1 (``fused_self_attention``) when
-``use_fused_attention`` is, else to the plain einsum path. Parameter names
-are the diffusers keys that
+sinusoidal time embeddings. Self-attention goes to K16
+(``ops/attention.py:absorbed_self_attention``, the projections inside) when
+``use_absorbed_attention`` is set, else to K14
+(``fused_self_attention_packed``) when ``use_packed_attention`` is, else to
+K1 (``fused_self_attention``) when ``use_fused_attention`` is, else to the
+plain einsum path. Parameter names are the diffusers keys that
 ``ldmseg_tpu/models/torch_export.py:unet_sd_from_params`` emits.
 
 The port holds the trainer's default UNet: no cross-attention, a plain
@@ -27,10 +28,13 @@ and use_int8_ff and use_fused_ff``:
   attn1(norm1(x))`` with ``attn1``, the first that applies as in JAX's
   ``CrossAttention`` (:280-331): K11 under ``use_padded_attention`` (int8
   projections, attention and ``to_out`` in one kernel, on weights
-  quantized per head); under ``use_packed_attention`` float projections
-  around K14 on the ``[B, T, C]`` layout, or K15 with
-  ``use_int8_attention``; under ``use_fused_attention`` K13 with
-  ``use_int8_attention``, else K1; the plain path;
+  quantized per head); under ``use_absorbed_attention`` K16 (the four
+  projections inside, bf16 or fp32), or K17 with ``use_int8_attention``
+  (int8 weights quantized per head, dynamic scales per image and head);
+  under ``use_packed_attention`` float projections around K14 on the
+  ``[B, T, C]`` layout, or K15 with ``use_int8_attention``; under
+  ``use_fused_attention`` K13 with ``use_int8_attention``, else K1; the
+  plain path;
 - ``fuse_ff``: the FF block is K4 (``x = K4(x)``); else ``x +
   ff(norm3(x))`` with ``use_int8_ff`` a ``FeedForwardS8`` (K12 with
   ``use_fused_ff``, else two QuantLinears around the exact gelu) or the
@@ -42,12 +46,12 @@ with a bf16 ``proj_in`` prologue on the GroupNorm output) and K9 (K4 with a
 bf16 ``proj_out`` epilogue); it needs ``fuse_attn`` and ``fuse_ff``. None of
 the flags changes the parameter keys of a float UNet.
 
-So with fused norms the packed flag does nothing (K3 + K4 run), and
-``use_packed_attention`` wins over ``use_fused_attention``, which the
-trainer sets by default.
+So with fused norms the packed and absorbed flags do nothing (K3 + K4
+run), ``use_absorbed_attention`` wins over ``use_packed_attention`` and
+both over ``use_fused_attention``, which the trainer sets by default.
 
-The int8 UNet's quantized modules hold no float weights (K11 keeps its
-attention's: they are its parameter keys):
+The int8 UNet's quantized modules hold no float weights (K11 and K17 keep
+their attention's: they are its parameter keys):
 ``ops/quant.py:prepare_int8_unet`` fills them from a float UNet.
 """
 
@@ -61,13 +65,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import (fused_self_attention,
+from ..ops.attention import (absorbed_self_attention, fused_self_attention,
                              fused_self_attention_packed)
-from ..ops.attention_s8 import (fused_self_attention_packed_s8,
+from ..ops.attention_s8 import (absorbed_self_attention_s8,
+                                fused_self_attention_packed_s8,
                                 fused_self_attention_s8, ln_attention_s8,
-                                ln_attention_s8_pin, pack_ln_attention,
-                                pack_padded_attention, padded_attention_s8,
-                                with_proj_in)
+                                ln_attention_s8_pin, pack_absorbed_attention,
+                                pack_ln_attention, pack_padded_attention,
+                                padded_attention_s8, with_proj_in)
 from ..ops.geglu import (fused_geglu_s8, geglu_ln_s8, geglu_ln_s8_pout,
                          pack_geglu, pack_geglu_s8, with_proj_out)
 from ..ops.quant import QuantConv2d, QuantLinear
@@ -81,8 +86,9 @@ class UNetConfig:
     sampling path without cross-attention reads, among them flags that a
     caller sets only through ``unet_config``: the resnet norms'
     ``use_pallas_gn`` (K5) and ``int8_fuse_gn`` (K6, with
-    ``use_int8_conv``), ``use_packed_attention`` (K14, K15),
-    ``use_padded_attention`` (K11) and ``use_fused_projs`` (K8, K9)."""
+    ``use_int8_conv``), ``use_absorbed_attention`` (K16, K17),
+    ``use_packed_attention`` (K14, K15), ``use_padded_attention`` (K11) and
+    ``use_fused_projs`` (K8, K9)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -93,11 +99,14 @@ class UNetConfig:
     norm_eps: float = 1e-5
     attn_down: Tuple[bool, ...] = (True, True, True, False)
     use_fused_attention: bool = False
+    # K16, the projections inside (K2 in its backward), K17 with
+    # use_int8_attention; wins over use_packed_attention and
+    # use_fused_attention, loses to use_padded_attention
+    use_absorbed_attention: bool = False
     # K14 on [B, T, C] (K2 as its backward), K15 with use_int8_attention;
-    # wins over use_fused_attention, loses to use_padded_attention
+    # wins over use_fused_attention
     use_packed_attention: bool = False
-    # K11 (inference only), or K3 with use_fused_norms; JAX's absorbed
-    # attention flag is not ported yet
+    # K11 (inference only), or K3 with use_fused_norms
     use_padded_attention: bool = False
     # int8 inference (unet.py:79-94): s8 resnet/Down/Upsample convs and the
     # transformer flags as in JAX
@@ -120,10 +129,12 @@ class UNetConfig:
 class CrossAttention(nn.Module):
     """Multi-head self-attention (diffusers Attention): q/k/v without bias,
     out projection with bias; the projections stay float (unet.py:290-327).
-    ``packed`` sends it to K14 on the projections' ``[B, T, C]``, or with
-    ``int8`` to K15 (always dynamic scales); else ``use_fused`` to K1, or
-    with ``int8`` to K13 with the static q/k/v scale ``int8_act_scale``
-    (None: a dynamic amax each).
+    ``absorbed`` (float only) sends it to K16 with the four weights
+    (``CrossAttention._absorbed``'s float branch, :209-216: the ``to_out``
+    bias added outside, in the output's dtype); else ``packed`` to K14 on
+    the projections' ``[B, T, C]``, or with ``int8`` to K15 (always dynamic
+    scales); else ``use_fused`` to K1, or with ``int8`` to K13 with the
+    static q/k/v scale ``int8_act_scale`` (None: a dynamic amax each).
 
     An int8 attention takes the calibration key ``to_q`` and ignores it:
     JAX records that scale (quant.py:607-613), but with float projections
@@ -132,10 +143,14 @@ class CrossAttention(nn.Module):
 
     def __init__(self, query_dim: int, heads: int, use_fused: bool = False,
                  int8: bool = False, int8_act_scale: Optional[float] = None,
-                 packed: bool = False):
+                 packed: bool = False, absorbed: bool = False):
         super().__init__()
+        if absorbed and int8:
+            raise ValueError("the int8 absorbed attention is "
+                             "AbsorbedAttentionS8 (K17)")
         self.heads = heads
         self.use_fused, self.packed = use_fused, packed
+        self.absorbed = absorbed
         self.int8, self.int8_act_scale = int8, int8_act_scale
         if int8:
             self.act_scale_sites = {"to_q": None}
@@ -148,6 +163,11 @@ class CrossAttention(nn.Module):
         b, t, c = x.shape
         hd = c // self.heads
         scale = hd ** -0.5
+        if self.absorbed:
+            out = absorbed_self_attention(
+                x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                self.to_out[0].weight, self.heads, scale)
+            return out + self.to_out[0].bias.to(out.dtype)
         if self.packed:
             q, k, v = (proj(x) for proj in (self.to_q, self.to_k, self.to_v))
             attend = (fused_self_attention_packed_s8 if self.int8
@@ -204,6 +224,60 @@ class PaddedAttentionS8(CrossAttention):
         pack = (self.pack if self.pack is not None
                 else pack_padded_attention(self, self.heads, self._xs()))
         out = padded_attention_s8(x, pack)
+        return out + self.to_out[0].bias.to(out.dtype)
+
+
+class AbsorbedAttentionS8(CrossAttention):
+    """``attn1`` under ``use_absorbed_attention`` with
+    ``use_int8_attention`` (``CrossAttention._absorbed``'s int8 branches,
+    :187-208): K17 on the int8 codes of the four projections, quantized per
+    head (``to_out`` without its bias, which is added here in the output's
+    dtype). The float projections stay as parameters: the JAX tree keeps
+    them. The int8 UNet packs K17's codes once per call (:meth:`prepare`,
+    from the float masters); otherwise each forward quantizes its own
+    weights, as JAX's in-graph branch does, with the same values.
+
+    The input's scale is ``act_scale`` (``int8_attn_act_scale`` or 0.1),
+    and the calibrated ``to_q`` site (``x_scale``) only with
+    ``absorbed_storage``, which ``prepare_int8_unet(...,
+    absorbed_attention=True)`` sets: JAX reads the site only from the
+    prequantized leaves of ``prequantize_conv_tree(absorbed_attention=
+    True)`` (branch 1), and its in-graph branch on float leaves, which the
+    trainer's unfused int8 UNet takes, ignores it. Inference only: JAX has
+    no gradient for K17, so a forward that autograd would record raises."""
+
+    act_scale_sites = {"to_q": "x_scale"}
+
+    def __init__(self, query_dim: int, heads: int, act_scale: float):
+        super().__init__(query_dim, heads)
+        self.absorbed = True
+        self.act_scale = act_scale
+        self.x_scale: Optional[float] = None
+        self.absorbed_storage = False
+        self.pack = None
+
+    def _xs(self) -> float:
+        if self.absorbed_storage and self.x_scale is not None:
+            return self.x_scale
+        return self.act_scale
+
+    def prepare(self, src: CrossAttention) -> None:
+        self.pack = pack_absorbed_attention(src, self.heads, self._xs())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad
+                                       for p in self.parameters())):
+            raise RuntimeError(
+                "use_absorbed_attention with use_int8_attention (K17) is "
+                "inference only: run it under torch.no_grad() on weights "
+                "that require no gradient")
+        p = (self.pack if self.pack is not None
+             else pack_absorbed_attention(self, self.heads, self._xs()))
+        c = x.shape[-1]
+        out = absorbed_self_attention_s8(x, p.w_qkv, p.wo_q, p.w_scale,
+                                         self.heads, (c // self.heads) ** -0.5,
+                                         p.xs)
         return out + self.to_out[0].bias.to(out.dtype)
 
 
@@ -318,9 +392,10 @@ class BasicTransformerBlock(nn.Module):
     the flags read as JAX reads them (unet.py:456-503): with ``fuse_attn =
     fused_norms and padded_attention`` the first three are K3 (an
     :class:`LNAttentionS8`, ``x = K3(x)``), else ``norm1`` + ``attn1`` with
-    ``attn1`` K11 (``padded_attention``), K15 or K14 (``packed_attention``
-    with or without ``int8_attention``), K13 (``int8_attention`` with
-    ``use_fused``), K1 (``use_fused``) or the plain path; with ``fuse_ff =
+    ``attn1`` K11 (``padded_attention``), K17 or K16
+    (``absorbed_attention`` with or without ``int8_attention``), K15 or K14
+    (``packed_attention``), K13 (``int8_attention`` with ``use_fused``), K1
+    (``use_fused``) or the plain path; with ``fuse_ff =
     fused_norms and int8_ff and fused_ff`` the last three are K4 (an
     :class:`LNFeedForwardS8`), else ``norm3`` + a :class:`FeedForwardS8`
     (``int8_ff``) or a float FF; the LayerNorms stay float.
@@ -333,6 +408,7 @@ class BasicTransformerBlock(nn.Module):
                  fused_ff: bool = False, fused_norms: bool = False,
                  padded_attention: bool = False, fused_projs: bool = False,
                  packed_attention: bool = False,
+                 absorbed_attention: bool = False,
                  int8_act_scale: Optional[float] = None,
                  int8_attn_act_scale: Optional[float] = None):
         super().__init__()
@@ -349,12 +425,15 @@ class BasicTransformerBlock(nn.Module):
             self.attn1 = LNAttentionS8(heads, attn_scale, fused_projs)
         else:
             self.norm1 = LayerNorm(dim)
-            self.attn1 = (
-                PaddedAttentionS8(dim, heads, attn_scale) if padded_attention
-                else CrossAttention(dim, heads, use_fused=use_fused,
-                                    int8=int8_attention,
-                                    int8_act_scale=int8_attn_act_scale,
-                                    packed=packed_attention))
+            if padded_attention:
+                self.attn1 = PaddedAttentionS8(dim, heads, attn_scale)
+            elif absorbed_attention and int8_attention:
+                self.attn1 = AbsorbedAttentionS8(dim, heads, attn_scale)
+            else:
+                self.attn1 = CrossAttention(
+                    dim, heads, use_fused=use_fused, int8=int8_attention,
+                    int8_act_scale=int8_attn_act_scale,
+                    packed=packed_attention, absorbed=absorbed_attention)
         if self.fuse_ff:
             self.ff = LNFeedForwardS8(int8_act_scale or 0.05, fused_projs)
         else:
@@ -388,7 +467,8 @@ class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, groups: int = 32,
                  use_fused: bool = False, int8: Optional[dict] = None,
                  fused_norms: bool = False, padded_attention: bool = False,
-                 fused_projs: bool = False, packed_attention: bool = False):
+                 fused_projs: bool = False, packed_attention: bool = False,
+                 absorbed_attention: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
@@ -398,7 +478,7 @@ class Transformer2D(nn.Module):
             channels, heads, use_fused, fused_norms=fused_norms,
             padded_attention=padded_attention,
             fused_projs=self.fused_projs, packed_attention=packed_attention,
-            **(int8 or {}))
+            absorbed_attention=absorbed_attention, **(int8 or {}))
         self.transformer_blocks = nn.ModuleList([block])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
@@ -565,7 +645,9 @@ class UNet2DCondition(nn.Module):
                                  fused_norms=cfg.use_fused_norms,
                                  padded_attention=cfg.use_padded_attention,
                                  fused_projs=cfg.use_fused_projs,
-                                 packed_attention=cfg.use_packed_attention))
+                                 packed_attention=cfg.use_packed_attention,
+                                 absorbed_attention=(
+                                     cfg.use_absorbed_attention)))
         c0 = chans[0]
         temb = c0 * 4
         self.conv_in = conv3x3(cfg.in_channels, c0)

@@ -1,5 +1,6 @@
-"""K1, K2 and K14: the UNet's multi-head self-attention, forward and
-backward, on the head layout and on the packed token layout.
+"""K1, K2, K14 and K16: the UNet's multi-head self-attention, forward and
+backward, on the head layout, on the packed token layout, and with its
+projections absorbed.
 
 Counterpart of ``ldmseg_tpu/ops/pallas/attention.py``: ``fused_self_attention``
 (:1530), the Pallas forward ``_attn_kernel``/``_attn_body`` (:28, :35) behind
@@ -34,6 +35,24 @@ device code on the head view ``[B, T, H, D]`` of the packed tensors
 :func:`packed_attention_reference`. JAX's backward is the XLA VJP of
 ``_xla_btc`` (:1495-1511); the port's is K2 on the same views, which keeps
 the training step from materialising the scores.
+
+K16 is ``absorbed_self_attention`` (:341), ``use_absorbed_attention``'s
+attention with ``to_q``, ``to_k``, ``to_v`` and ``to_out`` (without its bias)
+inside, on ``x [B, T, C]`` and the four ``[C, C]`` weights in the port's
+``Linear`` layout (out, in); JAX splits them into heads, ``[H, C, D]`` and
+``[H, D, C]``, a reshape. Its Pallas kernel ``_attn_kernel_absorbed`` (:239)
+projects per (image, head), rounds q, k, v to the input dtype, runs K1's
+rounding points and sums ``oh·Wo[h]`` over the heads in fp32. The port keeps
+the JAX wrapper's shape rule (``T > 2048``, ``T % 8``, ``C % heads`` or ``d
+% 8`` go to :func:`absorbed_attention_fallback`, the float ``_xla_absorbed``
+:312, counted in ``absorbed_self_attention.fallbacks``); every other shape
+runs ``csrc/attention_fwd.cu:ldmseg_attention_absorbed`` (three hand-written
+products, K1's device code on the head views, one more product; counted in
+``absorbed_self_attention.launches``) or, on a CPU tensor,
+:func:`absorbed_attention_reference`. JAX's backward is the XLA VJP of
+``_xla_absorbed`` (:321-338); the port's runs K2 on the head views of the q,
+k, v the forward kept, with the products for x and the four weights in
+``torch.matmul``, as XLA computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +61,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -357,3 +377,155 @@ def fused_self_attention_packed(q: torch.Tensor, k: torch.Tensor,
 
 fused_self_attention_packed.launches = 0
 fused_self_attention_packed.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K16
+# ---------------------------------------------------------------------------
+def absorbed_takes_kernel(t: int, c: int, heads: int) -> bool:
+    """``absorbed_self_attention``'s shape rule (:354-355) without its CPU
+    clause; the other absorbed-projection wrappers share it:
+    ``absorbed_self_attention_s8`` (:486-487),
+    ``absorbed_fullc_self_attention_s8`` (:629-630),
+    ``absorbed_padded_self_attention_s8`` and its LN form (:1105, K3, K8,
+    K10, K11)."""
+    return not (t > PACKED_MAX_SEQ or t % 8 != 0 or c % heads != 0
+                or (c // heads) % 8 != 0)
+
+
+def absorbed_attention_fallback(x: torch.Tensor, wq: torch.Tensor,
+                                wk: torch.Tensor, wv: torch.Tensor,
+                                wo: torch.Tensor, heads: int,
+                                scale: float) -> torch.Tensor:
+    """``_xla_absorbed`` (:312-318): the projections in the input dtype,
+    ``_xla_bthd``'s attention (the scores of the input dtype, the softmax in
+    fp32 rounded back) and ``to_out`` in the input dtype. Differentiable by
+    autograd."""
+    q, k, v = (F.linear(x, w) for w in (wq, wk, wv))
+    return F.linear(packed_attention_fallback(q, k, v, heads, scale), wo)
+
+
+def _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale):
+    acc = _acc_dtype(x)
+    q, k, v = (F.linear(x.to(acc), w.to(acc)).to(x.dtype)
+               for w in (wq, wk, wv))
+    oh = packed_attention_reference(q, k, v, heads, scale)
+    out = F.linear(oh.to(acc), wo.to(acc)).to(x.dtype)
+    return out, q, k, v, oh
+
+
+def absorbed_attention_reference(x: torch.Tensor, wq: torch.Tensor,
+                                 wk: torch.Tensor, wv: torch.Tensor,
+                                 wo: torch.Tensor, heads: int,
+                                 scale: float) -> torch.Tensor:
+    """K16's arithmetic in plain PyTorch on ``[B, T, C]``: q, k, v = the
+    projections summed in fp32 and rounded to the input dtype, K1's
+    attention on their head views (:func:`packed_attention_reference`), and
+    ``to_out`` over the whole depth summed in fp32, rounded once (the TPU
+    kernel's per-head fp32 accumulation up to the summation order)."""
+    return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale)[0]
+
+
+@functools.cache
+def _absorbed_kernel():
+    fn = _build.load("attention_fwd").ldmseg_attention_absorbed
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _absorbed_forward(x, wq, wk, wv, wo, heads, scale):
+    """(out, q, k, v, oh), each ``[B, T, C]`` in x's dtype: K16 on a CUDA
+    tensor, its plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"K16: unsupported device {x.device}")
+    b, t, c = x.shape
+    ws = (wq, wk, wv, wo)
+    if x.dtype not in _DTYPE_CODE or any(w.dtype != x.dtype for w in ws):
+        raise ValueError(f"K16: x and the four weights must share float32 "
+                         f"or bfloat16, got {x.dtype} and "
+                         f"{[w.dtype for w in ws]}")
+    if any(w.shape != (c, c) or w.device != x.device for w in ws):
+        raise ValueError(f"K16: the weights must be [{c}, {c}] on x's "
+                         f"device, got {[tuple(w.shape) for w in ws]}")
+    d = c // heads
+    if (c % heads or d % 8 or not 8 <= d <= MAX_HEAD_DIM
+            or not 1 <= b * heads <= 65535 or x.numel() >= 2 ** 31):
+        raise ValueError(f"K16: head dim {d} (a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}), B*heads {b * heads} or "
+                         f"{x.numel()} elements not taken")
+    x = x.contiguous()
+    ws = [w.contiguous() for w in ws]
+    q, k, v, oh, out = (torch.empty_like(x) for _ in range(5))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _absorbed_kernel()(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), *(w.data_ptr() for w in ws),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
+            out.data_ptr(), b, t, c, heads, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"K16 launch failed: CUDA error {err}")
+    absorbed_self_attention.launches += 1
+    return out, q, k, v, oh
+
+
+def _rows(z: torch.Tensor) -> torch.Tensor:
+    return z.reshape(-1, z.shape[-1])
+
+
+class _AbsorbedSelfAttention(torch.autograd.Function):
+    """K16 forward; the backward is K2 on the head views of the saved q, k,
+    v, with the gradient products of x and the four weights in
+    ``torch.matmul`` (JAX: the XLA VJP of ``_xla_absorbed``, :330-338)."""
+
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, wo, heads, scale):
+        out, q, k, v, oh = _absorbed_forward(x, wq, wk, wv, wo, heads, scale)
+        ctx.save_for_backward(x, wq, wk, wv, wo, q, k, v, oh)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq, wk, wv, wo, q, k, v, oh = ctx.saved_tensors
+        h = ctx.heads
+        g = g.contiguous()
+        d_oh = torch.matmul(g, wo).contiguous()
+        grads = fused_self_attention_backward(
+            _heads(q, h), _heads(k, h), _heads(v, h), _heads(d_oh, h),
+            ctx.scale)
+        dq, dk, dv = (z.reshape(x.shape) for z in grads)
+        dx = (torch.matmul(dq, wq) + torch.matmul(dk, wk)
+              + torch.matmul(dv, wv))
+        dws = [torch.matmul(_rows(dz).t(), _rows(src))
+               for dz, src in ((dq, x), (dk, x), (dv, x), (g, oh))]
+        return (dx, *dws, None, None)
+
+
+def absorbed_self_attention(x: torch.Tensor, wq: torch.Tensor,
+                            wk: torch.Tensor, wv: torch.Tensor,
+                            wo: torch.Tensor, heads: int,
+                            scale: float) -> torch.Tensor:
+    """``to_out(attention(x Wqᵀ, x Wkᵀ, x Wvᵀ))`` without the ``to_out``
+    bias, for ``x [B, T, C]`` and ``[C, C]`` weights in the ``Linear``
+    layout (out, in), returned ``[B, T, C]`` in x's dtype. Shapes the JAX
+    rule sends away take :func:`absorbed_attention_fallback`; the others K16
+    (CUDA: bf16 or fp32, d a multiple of 8 up to 160) or
+    :func:`absorbed_attention_reference` (CPU), with K2 (CUDA) or
+    :func:`attention_backward_reference` (CPU) in the backward under
+    autograd. ``absorbed_self_attention.launches`` counts K16's launches."""
+    b, t, c = x.shape
+    if not absorbed_takes_kernel(t, c, heads):
+        absorbed_self_attention.fallbacks += 1
+        return absorbed_attention_fallback(x, wq, wk, wv, wo, heads, scale)
+    if torch.is_grad_enabled() and any(z.requires_grad
+                                       for z in (x, wq, wk, wv, wo)):
+        return _AbsorbedSelfAttention.apply(x, wq, wk, wv, wo, heads, scale)
+    return _absorbed_forward(x, wq, wk, wv, wo, heads, scale)[0]
+
+
+absorbed_self_attention.launches = 0
+absorbed_self_attention.fallbacks = 0

@@ -1,4 +1,4 @@
-"""K3, K8, K10, K11, K13 and K15: the int8 UNet's self-attention.
+"""K3, K8, K10, K11, K13, K15, K17 and K18: the int8 UNet's self-attention.
 
 K3 is the fused block of the fused-norms UNet,
 ``x + to_out(attention(LN(x))) + b_out`` on ``[B, T, C]`` tokens; K8 the
@@ -76,8 +76,25 @@ K10 (``absorbed_padded_ln_self_attention_s8(..., v_transposed=False)`` or
 keeps K3's rule and fallback; ``v_bf16=True`` is K3's function in the
 row-major layout (``csrc/attention_ln_s8.cu``'s last entry point, K3's
 kernels and pack), ``v_bf16=False`` K11's int8 attention behind the LN with
-the residual and bias epilogue (``csrc/attention_s8.cu``'s last entry
+the residual and bias epilogue (``csrc/attention_s8.cu``'s fourth entry
 point); both packs come from :func:`pack_ln_attention_rowmajor`.
+
+K17 (``absorbed_self_attention_s8`` :473, kernel ``_attn_kernel_absorbed_s8``
+:360) is ``use_absorbed_attention``'s int8 attention: x quantized once with a
+static scale, int8 projections with weight scales per head, dynamic scales
+per (image, head) for q, k, v and the attention output, ``to_out`` summed
+per head in fp32. K18 (``absorbed_fullc_self_attention_s8`` :619, kernel
+``_attn_kernel_absorbed_fullc_s8`` :500) is an op: no module reaches it; it
+is K17 with one weight scale per tensor (``quantize_fullc_weights``) and the
+projections' dynamic scales per image. Both keep K16's rule (``T > 2048``,
+``T % 8``, ``C % heads`` or ``d % 8`` go to
+:func:`absorbed_attention_s8_fallback`, float attention on the dequantized
+weights, counted in ``.fallbacks``); every other shape goes on a CUDA tensor
+to ``csrc/attention_s8.cu``'s last two entry points (counted in
+``.launches``) and on a CPU tensor to :func:`absorbed_attention_s8_reference`.
+Their weights are ``[C, C]`` int8 codes in the ``Linear`` layout, the three
+projections stacked ``[3C, C]`` (q, k, v rows), with scales ``[4, H]`` (K17)
+or ``[4]`` (K18).
 """
 
 from __future__ import annotations
@@ -92,11 +109,11 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import packed_attention_fallback, packed_takes_kernel
-from .quant import exact_int8_matmul, quantize_head_weights
+from .attention import (absorbed_takes_kernel, packed_attention_fallback,
+                        packed_takes_kernel)
+from .quant import exact_int8_matmul, f32, quantize_head_weights
 
 ATTN_SCALE = 0.1    # the static q/k/v scale ``as`` (pack_inference_tiles)
-MAX_SEQ = 2048      # the JAX wrapper's max_seq
 S8_MAX_SEQ = 4096   # fused_self_attention_s8's max_seq
 S8_BLOCK_Q = 1024   # and its block_q
 LN127 = 4.844187086458591  # ln 127: the row max of e is 127
@@ -165,12 +182,6 @@ def _layer_norm(xf, w, b, eps):
     return xc * torch.rsqrt(var + eps) * w + b
 
 
-def takes_kernel(t: int, c: int, heads: int) -> bool:
-    """The JAX wrapper's shape rule (:1105) without its CPU clause."""
-    d = c // heads
-    return not (t > MAX_SEQ or t % 8 != 0 or c % heads != 0 or d % 8 != 0)
-
-
 def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
                               static_offset: Optional[float] = None
                               ) -> torch.Tensor:
@@ -209,12 +220,17 @@ def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
 
 def _dequantized_attention(hs: torch.Tensor, w_qkv: torch.Tensor,
                            wo_q: torch.Tensor, w_scale: torch.Tensor,
-                           heads: int) -> torch.Tensor:
+                           heads: int,
+                           softmax_scale: Optional[float] = None
+                           ) -> torch.Tensor:
     """``absorbed_padded_self_attention_s8``'s float branch (:1244-1256) on
     fp32 ``hs [B, T, C]``: float attention on the dequantized weights (no
-    activation quantize), ``to_out`` without its bias, fp32."""
+    activation quantize), ``to_out`` without its bias, fp32.
+    ``softmax_scale`` defaults to d^-0.5."""
     b, t, c = hs.shape
     d = c // heads
+    if softmax_scale is None:
+        softmax_scale = d ** -0.5
     scale = w_scale.repeat_interleave(d, dim=1)                # [4, C]
     wq, wk, wv = (w_qkv[i * c:(i + 1) * c].float() * scale[i][:, None]
                   for i in range(3))
@@ -224,7 +240,7 @@ def _dequantized_attention(hs: torch.Tensor, w_qkv: torch.Tensor,
         return z.reshape(b, t, heads, d).transpose(1, 2)
 
     q, k, v = (heads_of(F.linear(hs, w)) for w in (wq, wk, wv))
-    a = torch.softmax((q @ k.transpose(-1, -2)) * d ** -0.5, dim=-1)
+    a = torch.softmax((q @ k.transpose(-1, -2)) * softmax_scale, dim=-1)
     o = (a @ v).transpose(1, 2).reshape(b, t, c)
     return F.linear(o, wo)
 
@@ -316,7 +332,7 @@ def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
     returned in ``x``'s dtype (the kernel's result is bf16, cast as the JAX
     wrapper's ``.astype(x.dtype)``)."""
     b, t, c = x.shape
-    if not takes_kernel(t, c, p.heads):
+    if not absorbed_takes_kernel(t, c, p.heads):
         ln_attention_s8.fallbacks += 1
         return ln_attention_s8_fallback(x, p)
     if x.device.type == "cpu":
@@ -529,7 +545,7 @@ def ln_attention_s8_pin(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
     bf16, as tokens or as the tokens view of an NCHW tensor, which the
     kernel reads where it lies."""
     b, t, c = x.shape
-    if not takes_kernel(t, c, p.heads):
+    if not absorbed_takes_kernel(t, c, p.heads):
         ln_attention_s8_pin.fallbacks += 1
         return ln_attention_s8_pin_fallback(x, p)
     if x.device.type == "cpu":
@@ -682,7 +698,7 @@ def padded_attention_s8(x: torch.Tensor,
     [B, T, C]`` (no gradient), returned in x's dtype: the kernel's bf16
     result cast as the JAX wrapper casts it."""
     b, t, c = x.shape
-    if not takes_kernel(t, c, p.heads):
+    if not absorbed_takes_kernel(t, c, p.heads):
         padded_attention_s8.fallbacks += 1
         return padded_attention_s8_fallback(x, p)
     if x.device.type == "cpu":
@@ -880,7 +896,7 @@ def ln_attention_s8_rowmajor(x: torch.Tensor, p: LNRowMajorPack,
     K3's rule sends away take :func:`ln_attention_s8_fallback` (:1107-1117)
     and count in ``ln_attention_s8_rowmajor.fallbacks``."""
     b, t, c = x.shape
-    if not takes_kernel(t, c, p.ln.heads):
+    if not absorbed_takes_kernel(t, c, p.ln.heads):
         ln_attention_s8_rowmajor.fallbacks += 1
         return ln_attention_s8_fallback(x, p.ln)
     if x.device.type == "cpu":
@@ -894,3 +910,220 @@ def ln_attention_s8_rowmajor(x: torch.Tensor, p: LNRowMajorPack,
 
 ln_attention_s8_rowmajor.launches = 0
 ln_attention_s8_rowmajor.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K17 and K18
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class AbsorbedAttentionPack:
+    """K17's operands for one self-attention."""
+
+    heads: int
+    xs: float              # the input's static int8 scale
+    w_qkv: torch.Tensor    # int8 [3C, C]: to_q, to_k, to_v rows (out, in)
+    wo_q: torch.Tensor     # int8 [C, C] (out, in)
+    w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
+
+
+@torch.no_grad()
+def pack_absorbed_attention(attn, heads: int,
+                            xs: float) -> AbsorbedAttentionPack:
+    """Quantize an attention's ``to_q/k/v/to_out`` weights per head
+    (``quantize_head_weights``: the in-graph quantize of
+    ``CrossAttention._absorbed``'s int8 branch, :201-208, and the storage of
+    ``prequantize_conv_tree(absorbed_attention=True)``, :192-222)."""
+    q8, k8, v8, o8, scales = quantize_head_weights(
+        attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
+        attn.to_out[0].weight, heads)
+    return AbsorbedAttentionPack(
+        heads=heads, xs=f32(xs), w_qkv=torch.cat([q8, k8, v8]).contiguous(),
+        wo_q=o8.contiguous(), w_scale=scales.contiguous())
+
+
+def _per_head(w_scale: torch.Tensor, heads: int) -> torch.Tensor:
+    """``[4, H]`` scales: K17's as they are, K18's ``[4]`` repeated per head
+    (the same values)."""
+    if w_scale.dim() == 1:
+        return w_scale.float()[:, None].expand(4, heads).contiguous()
+    return w_scale.float().contiguous()
+
+
+def absorbed_attention_s8_reference(x: torch.Tensor, w_qkv: torch.Tensor,
+                                    wo_q: torch.Tensor,
+                                    w_scale: torch.Tensor, heads: int,
+                                    scale: float, act_scale: float,
+                                    per_image: bool = False
+                                    ) -> torch.Tensor:
+    """K17's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16), or K18's
+    with ``per_image`` (and ``[4]`` per-tensor scales), in fp32: ``x8 =
+    clip(rint(x / xs))``; ``y = float(int32 x8·W8ᵀ)·(xs·ws[h])``; ``ys =
+    max(amax|y|, 1e-6) / 127`` per (image, head) over ``[T, d]`` (per image
+    over ``[T, C]``), ``y8 = rint(y / ys)``; per (image, head) ``s =
+    float(q8·k8ᵀ)·((qs·ks)·scale)``, ``e = exp((s - rowmax) + ln 127)``,
+    ``denom = Σe``, ``e8 = rint(e)``, ``oh = (float(e8·v8)·vs) / denom``,
+    ``os = max(amax|oh|, 1e-6) / 127``, ``oh8 = rint(oh / os)``; ``out =
+    Σ_h float(oh8_h·Wo8[:, h]ᵀ)·(os·wos[h])``, h = 0 first, as bf16. Every
+    division is by a tensor on x's device, a true division as the
+    kernel's."""
+    b, t, c = x.shape
+    d = c // heads
+    dev = x.device
+
+    def dev_f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+    ws = _per_head(w_scale, heads)
+    xs = dev_f32(f32(act_scale))
+    x8 = quantize_s8(x, xs)
+    fac = (xs * ws[:3]).repeat_interleave(d, dim=1).reshape(3 * c)
+    y = exact_int8_matmul(x8, w_qkv).float() * fac              # [B, T, 3C]
+    groups = 1 if per_image else heads
+    y = y.reshape(b, t, 3, groups, c // groups)
+    ys = y.abs().amax(dim=(1, 4), keepdim=True).clamp_min(1e-6) / dev_f32(
+        127.0)                                                # [B, 1, 3, G, 1]
+    y8 = torch.round(y / ys).to(torch.int8).reshape(b, t, 3, heads, d)
+    ys = ys.reshape(b, 3, groups).repeat_interleave(heads // groups, dim=2)
+    q8, k8, v8 = (y8[:, :, i].transpose(1, 2) for i in range(3))  # [B,H,T,d]
+    qs, ks, vs = (ys[:, i, :, None, None] for i in range(3))      # [B,H,1,1]
+    s = exact_int8_matmul(q8, k8).float() * ((qs * ks) * dev_f32(scale))
+    e = torch.exp((s - s.amax(-1, keepdim=True)) + LN127)
+    denom = e.sum(-1, keepdim=True)
+    e8 = torch.round(e).to(torch.int8)
+    oh = (exact_int8_matmul(e8, v8.transpose(-1, -2)).float() * vs) / denom
+    os_ = oh.abs().amax(dim=(2, 3), keepdim=True).clamp_min(1e-6) / dev_f32(
+        127.0)                                                # [B, H, 1, 1]
+    oh8 = torch.round(oh / os_).to(torch.int8)
+    out = None
+    for h in range(heads):
+        c32 = exact_int8_matmul(oh8[:, h], wo_q[:, h * d:(h + 1) * d])
+        contrib = c32.float() * (os_[:, h] * ws[3, h])
+        out = contrib if out is None else out + contrib
+    return out.to(torch.bfloat16)
+
+
+def absorbed_attention_s8_fallback(x: torch.Tensor, w_qkv: torch.Tensor,
+                                   wo_q: torch.Tensor, w_scale: torch.Tensor,
+                                   heads: int, scale: float) -> torch.Tensor:
+    """The float branch of ``absorbed_self_attention_s8`` (:488-492) and of
+    ``absorbed_fullc_self_attention_s8`` (:631-638) for the shapes the
+    kernels do not take: float attention on the dequantized weights, x
+    unquantized, in x's dtype."""
+    return _dequantized_attention(x.float(), w_qkv, wo_q,
+                                  _per_head(w_scale, heads), heads,
+                                  scale).to(x.dtype)
+
+
+@functools.cache
+def _absorbed_s8_kernel(entry: str):
+    fn = getattr(_build.load("attention_s8"), entry)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _absorbed_s8_launch(name: str, x: torch.Tensor, w_qkv: torch.Tensor,
+                        wo_q: torch.Tensor, w_scale: torch.Tensor,
+                        heads: int, scale: float,
+                        act_scale: float) -> torch.Tensor:
+    b, t, c = x.shape
+    fullc = name == "K18"
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    d = c // heads
+    if (d > MAX_HEAD_DIM or b * heads > 65535
+            or 3 * x.numel() >= 2 ** 31):
+        raise ValueError(f"{name}: head dim {d} (<= {MAX_HEAD_DIM}), "
+                         f"B*heads {b * heads} or {x.numel()} elements not "
+                         f"taken")
+    if (w_qkv.dtype != torch.int8 or wo_q.dtype != torch.int8
+            or w_qkv.shape != (3 * c, c) or wo_q.shape != (c, c)
+            or w_scale.shape != ((4,) if fullc else (4, heads))):
+        raise ValueError(f"{name}: weights must be int8 [3C, C] and [C, C] "
+                         f"with scales {'[4]' if fullc else '[4, H]'}, got "
+                         f"{tuple(w_qkv.shape)}, {tuple(wo_q.shape)}, "
+                         f"{tuple(w_scale.shape)}")
+    ws = _per_head(w_scale, heads)
+    ops = (w_qkv, wo_q, ws)
+    if any(o.device != x.device or not o.is_contiguous() for o in ops):
+        raise ValueError(f"{name}: the weights must be contiguous on x's "
+                         f"device")
+    x = x.contiguous()
+    dev = x.device
+    rows = b * t
+    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    x8, oh8 = (torch.empty((rows, c), dtype=torch.int8, device=dev)
+               for _ in range(2))
+    y = torch.empty((rows, 3 * c), dtype=torch.float32, device=dev)
+    y8 = torch.empty((rows, 3 * c), dtype=torch.int8, device=dev)
+    oh = torch.empty((rows, c), dtype=torch.float32, device=dev)
+    # the scales, then as many amax words
+    scales = torch.empty(2 * (3 * b * (1 if fullc else heads) + b * heads),
+                         dtype=torch.float32, device=dev)
+    entry = ("ldmseg_attention_absorbed_fullc_s8" if fullc
+             else "ldmseg_attention_absorbed_s8")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _absorbed_s8_kernel(entry)(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
+            w_qkv.data_ptr(), wo_q.data_ptr(), ws.data_ptr(), x8.data_ptr(),
+            y.data_ptr(), y8.data_ptr(), oh.data_ptr(), oh8.data_ptr(),
+            scales.data_ptr(), b, t, c, heads, f32(act_scale), float(scale),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
+
+
+def _absorbed_s8(fn, name, x, w_qkv, wo_q, w_scale, heads, scale,
+                 act_scale):
+    b, t, c = x.shape
+    if not absorbed_takes_kernel(t, c, heads):
+        fn.fallbacks += 1
+        return absorbed_attention_s8_fallback(x, w_qkv, wo_q, w_scale, heads,
+                                              scale)
+    if x.device.type == "cpu":
+        return absorbed_attention_s8_reference(
+            x, w_qkv, wo_q, w_scale, heads, scale, act_scale,
+            per_image=name == "K18").to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    out = _absorbed_s8_launch(name, x, w_qkv, wo_q, w_scale, heads, scale,
+                              act_scale)
+    fn.launches += 1
+    return out.to(x.dtype)
+
+
+def absorbed_self_attention_s8(x: torch.Tensor, w_qkv: torch.Tensor,
+                               wo_q: torch.Tensor, w_scale: torch.Tensor,
+                               heads: int, scale: float,
+                               act_scale: float) -> torch.Tensor:
+    """K17: ``to_out(attention(x))`` without the ``to_out`` bias for ``x
+    [B, T, C]`` (no gradient) on ``quantize_head_weights``' codes (``w_qkv
+    [3C, C]``, ``wo_q [C, C]``, ``w_scale [4, H]``), x quantized with the
+    static ``act_scale``; returned in x's dtype, the kernel's bf16 result
+    cast as the JAX wrapper casts it."""
+    return _absorbed_s8(absorbed_self_attention_s8, "K17", x, w_qkv, wo_q,
+                        w_scale, heads, scale, act_scale)
+
+
+absorbed_self_attention_s8.launches = 0
+absorbed_self_attention_s8.fallbacks = 0
+
+
+def absorbed_fullc_self_attention_s8(x: torch.Tensor, w_qkv: torch.Tensor,
+                                     wo_q: torch.Tensor,
+                                     w_scale: torch.Tensor, heads: int,
+                                     scale: float,
+                                     act_scale: float) -> torch.Tensor:
+    """K18 (an op): K17's function on ``quantize_fullc_weights``' codes and
+    per-tensor scales (``w_scale [4]``), with the projections' dynamic
+    scales per image; returned in x's dtype."""
+    return _absorbed_s8(absorbed_fullc_self_attention_s8, "K18", x, w_qkv,
+                        wo_q, w_scale, heads, scale, act_scale)
+
+
+absorbed_fullc_self_attention_s8.launches = 0
+absorbed_fullc_self_attention_s8.fallbacks = 0

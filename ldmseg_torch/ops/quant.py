@@ -219,15 +219,43 @@ def quantize_head_weights(wq, wk, wv, wo, heads: int):
     return (*codes, torch.stack(scales))
 
 
+def quantize_fullc_weights(wq, wk, wv, wo):
+    """``attention.py:quantize_fullc_weights`` (:594) on torch ``Linear``
+    weights ``[out, in]``: one scale per tensor, ``max(amax, 1e-8) / 127``,
+    for each of the four. Returns the codes in the same layout and ``scales
+    [4]`` float32. The JAX function also pads ``to_out``'s head rows to 128
+    with zeros (``wop [H, 128, C]``), TPU layout that the port does not
+    store."""
+    codes, scales = [], []
+    for w in (wq, wk, wv, wo):
+        q, s = quantize_weight(w, dims=(0, 1))
+        codes.append(q)
+        scales.append(s)
+    return (*codes, torch.cat(scales))
+
+
 @torch.no_grad()
-def prepare_int8_unet(int8_unet: nn.Module, masters: nn.Module) -> None:
+def prepare_int8_unet(int8_unet: nn.Module, masters: nn.Module,
+                      absorbed_attention: bool = False) -> None:
     """Fill ``int8_unet`` (a UNet built with the int8 flags) from the float
     UNet ``masters`` of the same shape: the float parameters are copied
     (cast to the int8 UNet's dtype), the s8 convs, the s8 linears and the
     int8 transformer blocks quantize their weights from the masters' float32
     values and pack the kernels' operands, baking in the per-site activation
     scales set by :func:`apply_act_scales`. A module prepares after the
-    modules inside it (K12's pack shares its ``QuantLinear`` codes)."""
+    modules inside it (K12's pack shares its ``QuantLinear`` codes).
+
+    ``absorbed_attention`` is the counterpart of
+    ``prequantize_conv_tree(absorbed_attention=True)`` (:192-222): the int8
+    absorbed attentions (K17) then read their calibrated ``to_q`` site, as
+    ``CrossAttention._absorbed`` reads ``x_scale`` from prequantized leaves
+    (:187-200). Without it they keep their static scale, as the in-graph
+    branch does (:201-208), whatever the site says; the JAX trainer
+    prequantizes with ``absorbed_attention=fused_norms``, so its unfused
+    int8 UNet never reads the site."""
+    for m in int8_unet.modules():
+        if hasattr(m, "absorbed_storage"):
+            m.absorbed_storage = absorbed_attention
     src = dict(masters.named_parameters())
     for name, p in int8_unet.named_parameters():
         p.copy_(src[name])

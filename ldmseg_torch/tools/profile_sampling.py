@@ -1,7 +1,7 @@
 """Where the time of the sampling path goes on the card.
 
     python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]] [--gn]
-        [--projs] [--padded] [--packed]
+        [--projs] [--padded] [--packed] [--absorbed]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
@@ -19,7 +19,9 @@ resnets' GN + SiLU pairs on K5 (bf16), or on K6 feeding the s8 convs
 samples int8 (fused norms): the transformer blocks on K8 and K9.
 ``--packed`` builds it with ``UNetConfig.use_packed_attention``: the
 self-attention on K14 (bf16), or with ``--int8 a`` on K15 (with fused norms
-the flag does nothing, as in JAX).
+the flag does nothing, as in JAX). ``--absorbed`` builds it with
+``UNetConfig.use_absorbed_attention``: the self-attention with its four
+projections on K16 (bf16), or with ``--int8 a`` on K17.
 ``--padded`` traces the K11 UNet instead (:data:`PADDED_FLAGS`, filled by
 ``prepare_int8_unet`` from the trainer's masters: K11 and K12): (a) 5
 forwards and (b) one 50-step ``ddim_sample`` on that latent, the RGB
@@ -44,13 +46,16 @@ import torch
 FAMILIES = (  # first match wins
     ("K5/K6 groupnorm_silu", r"gn_(stats|apply|ymax|quant)_kernel"),
     ("K7 gn_silu_conv", r"gn_conv_kernel"),
-    ("K1/K14 attention_fwd", r"attention_fwd_kernel"),
+    ("K1/K14/K16 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
-    ("K13/K11/K15 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
+    ("K13/K11/K15/K17 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
+    ("K17/K18 dynamic quantize, to_out per head",
+     r"group_quant_kernel|head_out_kernel"),
     ("K3/K8 attention_ln_s8", r"::attn_kernel"),
-    ("K3/K8/K11 projections, to_out", r"s8_gemm_kernel|bf16_gemm_kernel"),
+    ("K3/K8/K11/K16/K17 projections, to_out",
+     r"s8_gemm_kernel|bf16_gemm_kernel|f32_gemm_kernel"),
     ("K4/K9/K12 geglu (up, down)", r"::(up|down)_kernel"),
-    ("K3/K4/K11/K12 (LN +) quantize", r"ln_quant_kernel"),
+    ("K3/K4/K11/K12/K17 (LN +) quantize", r"ln_quant_kernel"),
     ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("group/layer norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|"
@@ -77,17 +82,21 @@ PADDED_FLAGS = dict(use_int8_conv=True, int8_act_scale=0.05,
                     use_fused_ff=True, int8_attn_act_scale=0.1)
 
 
-def int8_unet_from(masters, flags: dict, dtype=torch.bfloat16):
+def int8_unet_from(masters, flags: dict, dtype=torch.bfloat16,
+                   scales=None, absorbed_attention: bool = False):
     """A UNet with the int8 ``flags`` on the float UNet ``masters``'
-    config, filled from it by ``prepare_int8_unet``, in ``dtype`` on its
-    device, without gradients (K11 is inference only)."""
+    config, filled from it by ``prepare_int8_unet`` (with the activation
+    ``scales`` of ``calibrate_int8`` when given, and its
+    ``absorbed_attention`` switch), in ``dtype`` on its device, without
+    gradients (K11 and K17 are inference only)."""
     from ldmseg_torch.models.unet import UNet2DCondition
-    from ldmseg_torch.ops.quant import prepare_int8_unet
+    from ldmseg_torch.ops.quant import apply_act_scales, prepare_int8_unet
     device = next(masters.parameters()).device
     with torch.device(device):
         unet = UNet2DCondition(dataclasses.replace(masters.config, **flags))
     unet.to(dtype).eval().requires_grad_(False)
-    prepare_int8_unet(unet, masters)
+    apply_act_scales(unet, scales)
+    prepare_int8_unet(unet, masters, absorbed_attention=absorbed_attention)
     return unet
 
 
@@ -110,17 +119,19 @@ def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
 
 
 def unet_config_for(gn: bool = False, projs: bool = False,
-                    packed: bool = False):
+                    packed: bool = False, absorbed: bool = False):
     """The default deployment's UNet (12 input channels, K1) with the resnet
     norm flags ``use_pallas_gn`` and ``int8_fuse_gn`` when ``gn``,
-    ``use_fused_projs`` when ``projs`` and ``use_packed_attention`` when
-    ``packed``; without any, None (the trainer builds its own)."""
+    ``use_fused_projs`` when ``projs``, ``use_packed_attention`` when
+    ``packed`` and ``use_absorbed_attention`` when ``absorbed``; without
+    any, None (the trainer builds its own)."""
     from ldmseg_torch.models.unet import UNetConfig
-    if not (gn or projs or packed):
+    if not (gn or projs or packed or absorbed):
         return None
     return UNetConfig(in_channels=12, use_fused_attention=True,
                       use_pallas_gn=gn, int8_fuse_gn=gn,
-                      use_fused_projs=projs, use_packed_attention=packed)
+                      use_fused_projs=projs, use_packed_attention=packed,
+                      use_absorbed_attention=absorbed)
 
 
 def _family(name: str) -> str:
@@ -209,10 +220,13 @@ def main() -> int:
                         help="the K11 UNet (PADDED_FLAGS) and ddim_sample")
     parser.add_argument("--packed", action="store_true",
                         help="UNetConfig.use_packed_attention (K14, K15)")
+    parser.add_argument("--absorbed", action="store_true",
+                        help="UNetConfig.use_absorbed_attention (K16, K17)")
     args = parser.parse_args()
-    if args.padded and (args.int8 or args.projs or args.packed):
-        parser.error("--padded profiles the K11 UNet: no --int8, --projs or "
-                     "--packed")
+    if args.padded and (args.int8 or args.projs or args.packed
+                        or args.absorbed):
+        parser.error("--padded profiles the K11 UNet: no --int8, --projs, "
+                     "--packed or --absorbed")
     variant = "fused" if args.projs and args.int8 is None else args.int8
     if not torch.cuda.is_available():
         print("profile_sampling: no CUDA device", file=sys.stderr)
@@ -223,7 +237,7 @@ def main() -> int:
         "sampling_kwargs": {"int8_inference": int8,
                             **VARIANTS.get(variant, {})}})
     trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(
-        args.gn, args.projs, args.packed))
+        args.gn, args.projs, args.packed, args.absorbed))
     trainer.init_params(seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((2, trainer.unet_config.in_channels, 32, 64),
@@ -253,6 +267,8 @@ def main() -> int:
         kinds = [f"{k}, fused projs (K8, K9)" for k in kinds]
     if args.packed:
         kinds = [f"{k}, packed attention" for k in kinds]
+    if args.absorbed:
+        kinds = [f"{k}, absorbed attention" for k in kinds]
     for kind in kinds:
         if "calibrated" in kind:
             trainer.calibrate_int8({"image": image})

@@ -1,6 +1,6 @@
 """Where the time of the training path goes on the card.
 
-    python -m ldmseg_torch.tools.profile_training [--gn] [--packed]
+    python -m ldmseg_torch.tools.profile_training [--gn] [--packed] [--absorbed]
 
 Builds the deployment ``chip_smoke.py`` trains (SD-1.4 UNet with
 self-conditioning, DEFAULT_CONFIG seg VAE, bf16 compute on fp32 masters,
@@ -17,7 +17,9 @@ and the optimizer, on the caller's thread). ``--gn`` builds the UNet with
 ``UNetConfig.use_pallas_gn``: the resnets' GN + SiLU pairs on K5 (the
 backward recomputes them in plain PyTorch). ``--packed`` builds it with
 ``UNetConfig.use_packed_attention``: the self-attention on K14 with K2 as
-its backward (the mid block's T = 30 on the float fallback).
+its backward (the mid block's T = 30 on the float fallback). ``--absorbed``
+builds it with ``UNetConfig.use_absorbed_attention``: the self-attention
+with its projections on K16, K2 in its backward (T = 30 on the fallback).
 
 Needs a CUDA device.
 """
@@ -66,6 +68,8 @@ def main() -> int:
                         help="UNetConfig.use_pallas_gn (K5)")
     parser.add_argument("--packed", action="store_true",
                         help="UNetConfig.use_packed_attention (K14)")
+    parser.add_argument("--absorbed", action="store_true",
+                        help="UNetConfig.use_absorbed_attention (K16)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_training: no CUDA device", file=sys.stderr)
@@ -81,7 +85,7 @@ def main() -> int:
         "ignore_label": 0})
     ds = SyntheticDVPS(length=8, size=(192, 640), num_bits=8)
     trainer = TrainerDiffusion(cfg, unet_config=unet_config_for(
-        gn=args.gn, packed=args.packed), dataset=ds)
+        gn=args.gn, packed=args.packed, absorbed=args.absorbed), dataset=ds)
     trainer.init_params(seed=0)
     batch = next(iter(Loader(ds, 8, seed=0)))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -89,7 +93,9 @@ def main() -> int:
         lambda: trainer.train_step(batch, generator=gen), STEPS,
         "train_step, bf16 on fp32 masters, batch 8 x 192x640, one loaded "
         "batch" + (", GN on K5" if args.gn else "")
-        + (", packed attention" if args.packed else ""), extra=_by_thread)),
+        + (", packed attention" if args.packed else "")
+        + (", absorbed attention" if args.absorbed else ""),
+        extra=_by_thread)),
         flush=True)
     return 0
 

@@ -1002,3 +1002,200 @@ def test_packed_unet_launches_k14_k15_and_no_other(cuda):
     assert bool(torch.isfinite(out).all())
     assert [f.launches - n for f, n in zip(counters, before)] == [
         0, 0, 0, 0, 7]
+
+
+# the absorbed-attention slice's modules (K16, K17, K18), one case each
+ABSORBED_MODULES = ["ops.attention", "ops.attention_s8", "ops.quant",
+                    "models.unet", "train.trainer_ldm",
+                    "tools.profile_sampling", "tools.profile_training"]
+
+
+@pytest.mark.parametrize("module", ABSORBED_MODULES)
+def test_absorbed_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_absorbed_sources_are_built_by_the_port():
+    fwd = (ROOT / "ldmseg_torch/csrc/attention_fwd.cu").read_text()
+    s8 = (ROOT / "ldmseg_torch/csrc/attention_s8.cu").read_text()
+    assert 'extern "C" int ldmseg_attention_absorbed(' in fwd      # K16
+    assert 'extern "C" int ldmseg_attention_absorbed_s8(' in s8    # K17
+    assert 'extern "C" int ldmseg_attention_absorbed_fullc_s8(' in s8  # K18
+
+
+def test_trainer_carries_the_absorbed_flag_into_both_unets():
+    from ldmseg_torch.models.unet import (AbsorbedAttentionS8,
+                                          BasicTransformerBlock,
+                                          CrossAttention, UNetConfig)
+    cfg = merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True},
+        "sampling_kwargs": {"int8_inference": True, "fused_norms": False}})
+    trainer = TrainerDiffusion(cfg, unet_config=UNetConfig(
+        in_channels=12, use_fused_attention=True,
+        use_absorbed_attention=True), device=torch.device("cpu"))
+    for unet, kind in ((trainer.unet, CrossAttention),
+                       (trainer._unet_int8, AbsorbedAttentionS8)):
+        attn = [m.attn1 for m in unet.modules()
+                if isinstance(m, BasicTransformerBlock)]
+        assert len(attn) == 16
+        assert all(type(m) is kind and m.absorbed for m in attn)
+
+
+def _absorbed_case(cuda, b, t, c, dtype, seed):
+    """x and four [C, C] weights on the card, the weights at the scale of
+    a trained projection (std 0.05) so that the scores stay near 1."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, t, c), generator=gen, device=cuda).to(dtype)
+    ws = [(0.05 * torch.randn((c, c), generator=gen, device=cuda)).to(dtype)
+          for _ in range(4)]
+    return x, ws
+
+
+ABSORBED_SHAPES = [(2, 2048, 320), (2, 512, 640), (2, 128, 1280),
+                   (2, 32, 1280), (8, 1920, 320), (8, 480, 640),
+                   (8, 120, 1280)]
+
+
+# K16 against its plain version on the card at the serving (batch 2, 32x64)
+# and training (batch 8, 24x80) shapes: two bf16 ulps of max|ref| (q, k, v,
+# P, oh and the output round at the same points; the sums run in another
+# order) and 1e-4 of max|ref| in fp32
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1.6e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,t,c", ABSORBED_SHAPES)
+def test_k16_kernel_matches_plain_version(cuda, b, t, c, dtype, tol):
+    x, ws = _absorbed_case(cuda, b, t, c, dtype, 12)
+    scale = (c // 8) ** -0.5
+    before = (A.absorbed_self_attention.launches,
+              A.fused_self_attention.launches,
+              A.fused_self_attention_packed.launches)
+    out = A.absorbed_self_attention(x, *ws, 8, scale)
+    torch.cuda.synchronize()
+    # its own counter: K1's and K14's do not move
+    assert (A.absorbed_self_attention.launches,
+            A.fused_self_attention.launches,
+            A.fused_self_attention_packed.launches) == (
+                before[0] + 1, before[1], before[2])
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = A.absorbed_attention_reference(x, *ws, 8, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c", [(8, 480, 640), (8, 120, 1280),
+                                   (1, 64, 320)])
+def test_k16_differentiates_through_k2_on_the_card(cuda, b, t, c, dtype):
+    x, ws = _absorbed_case(cuda, b, t, c, dtype, 13)
+    g = torch.randn((b, t, c), generator=torch.Generator(
+        device=cuda).manual_seed(14), device=cuda).to(dtype)
+    scale = (c // 8) ** -0.5
+    leaves = [z.clone().requires_grad_(True) for z in (x, *ws)]
+    fwd, bwd = (A.absorbed_self_attention.launches,
+                A.fused_self_attention_backward.launches)
+    A.absorbed_self_attention(*leaves, 8, scale).backward(g)
+    assert (A.absorbed_self_attention.launches,
+            A.fused_self_attention_backward.launches) == (fwd + 1, bwd + 1)
+    # autograd through the plain version (its softmax's backward in fp32)
+    plain = [z.clone().requires_grad_(True) for z in (x, *ws)]
+    A.absorbed_attention_reference(*plain, 8, scale).backward(g)
+    for leaf, ref in zip(leaves, plain):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == leaf.shape
+        bound = 2 * K2_TOL[dtype] * ref.grad.float().abs().max().item()
+        assert (leaf.grad.float() - ref.grad.float()).abs().max().item() \
+            <= bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fullc", [False, True])
+@pytest.mark.parametrize("b,t,c", [(2, 2048, 320), (2, 512, 640),
+                                   (2, 128, 1280), (2, 32, 1280),
+                                   (1, 24, 64)])
+def test_k17_k18_kernels_match_plain_version(cuda, b, t, c, fullc):
+    from ldmseg_torch.ops import quant
+    x, ws = _absorbed_case(cuda, b, t, c, torch.bfloat16, 15)
+    heads = 8
+    qfn = (quant.quantize_fullc_weights if fullc else
+           lambda *w: quant.quantize_head_weights(*w, heads))
+    q8, k8, v8, o8, sc = qfn(*(w.float() for w in ws))
+    w_qkv = torch.cat([q8, k8, v8]).contiguous()
+    fn = (K13.absorbed_fullc_self_attention_s8 if fullc
+          else K13.absorbed_self_attention_s8)
+    scale = (c // heads) ** -0.5
+    before = fn.launches
+    out = fn(x, w_qkv, o8, sc, heads, scale, 0.1)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    _close_on_card(out, K13.absorbed_attention_s8_reference(
+        x, w_qkv, o8, sc, heads, scale, 0.1, per_image=fullc))
+
+
+@pytest.mark.gpu
+def test_absorbed_wrappers_raise_instead_of_falling_back(cuda):
+    from ldmseg_torch.ops import quant
+    x, ws = _absorbed_case(cuda, 1, 64, 384, torch.bfloat16, 16)
+    with pytest.raises(ValueError):      # d = 192: the rule takes it
+        A.absorbed_self_attention(x, *ws, 2, 0.1)
+    with pytest.raises(ValueError):      # float16
+        A.absorbed_self_attention(x.half(), *(w.half() for w in ws), 8, 0.1)
+    with pytest.raises(ValueError):      # mixed dtypes
+        A.absorbed_self_attention(x, *(w.float() for w in ws), 8, 0.1)
+    q8, k8, v8, o8, sc = quant.quantize_head_weights(
+        *(w.float() for w in ws), 2)
+    w_qkv = torch.cat([q8, k8, v8])
+    with pytest.raises(ValueError):      # d = 192
+        K13.absorbed_self_attention_s8(x, w_qkv, o8, sc, 2, 0.1, 0.1)
+    with pytest.raises(ValueError):      # per-tensor scales for K17
+        K13.absorbed_self_attention_s8(x, w_qkv, o8, sc[:, 0], 2, 0.1, 0.1)
+    with pytest.raises(ValueError):      # per-head scales for K18
+        K13.absorbed_fullc_self_attention_s8(x, w_qkv, o8, sc, 2, 0.1, 0.1)
+
+
+@pytest.mark.gpu
+def test_absorbed_unet_launches_k16_k17_and_no_other(cuda):
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.models.unet import UNet2DCondition, UNetConfig
+    from ldmseg_torch.ops import quant
+    kw = dict(in_channels=12, block_out_channels=(64, 128),
+              attn_down=(True, True), layers_per_block=1,
+              attention_head_dim=8, norm_num_groups=8,
+              use_fused_attention=True, use_absorbed_attention=True,
+              use_packed_attention=True)
+    unet = UNet2DCondition(UNetConfig(**kw)).to(cuda)
+    init_random_(unet, torch.Generator(device=cuda).manual_seed(0))
+    x = torch.randn((2, 12, 16, 16), device=cuda)
+    t = torch.tensor([999, 19], device=cuda)
+    counters = (A.fused_self_attention, A.fused_self_attention_packed,
+                A.absorbed_self_attention, A.fused_self_attention_backward,
+                K13.fused_self_attention_s8,
+                K13.fused_self_attention_packed_s8,
+                K13.absorbed_self_attention_s8)
+    before = [f.launches for f in counters]
+    # T = 256 and 64, 7 blocks: 7 K16 forward, 7 K2 backward, 0 K1 / K14;
+    # every attention weight gets a gradient
+    unet(x, t).square().mean().backward()
+    assert [f.launches - n for f, n in zip(counters, before)] == [
+        0, 0, 7, 7, 0, 0, 0]
+    for name, p in unet.named_parameters():
+        if ".attn1." in name:
+            assert p.grad is not None and p.grad.abs().max().item() > 0, name
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.no_grad():
+            bf = unet.to(dtype)(x.to(dtype), t)
+        assert bool(torch.isfinite(bf).all())
+    int8 = UNet2DCondition(UNetConfig(
+        **kw, use_int8_conv=True, int8_act_scale=0.05,
+        use_int8_attention=True, use_int8_ff=True, use_fused_ff=True,
+        int8_attn_act_scale=0.1)).to(cuda, torch.bfloat16)
+    quant.prepare_int8_unet(int8, unet)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        out = int8(x.to(torch.bfloat16), t)
+    assert bool(torch.isfinite(out).all())
+    assert [f.launches - n for f, n in zip(counters, before)] == [
+        0, 0, 0, 0, 0, 0, 7]
