@@ -8,7 +8,9 @@ Phases, one line each:
   1. build every CUDA kernel under ``ldmseg_torch/csrc/`` (one nvcc each,
      all at once);
   2. K1 (self-attention forward) against its plain PyTorch version at the
-     sampling path's shapes, with times, the bound and the library yardstick;
+     sampling path's shapes, with times (CUDA events, and the kernel's
+     device time per launch from ``torch.profiler``), the bound and the
+     library yardstick (SDPA, event-timed and its device time);
   3. the full-width SD-1.4 UNet forward on K1 against the same module on the
      plain attention;
   4. ``TrainerDiffusion.sample_panoptic`` end to end at full width (50 DDIM
@@ -88,7 +90,8 @@ Phases, one line each:
      at the int8 shapes, against their plain versions, with times, the
      bound and the yardstick (SDPA and SDPA's backward for K14; SDPA and
      K13 on the head views for K15; K3, or LN + K11 + the residual, for
-     K10), and a ragged T = 30 that each rule sends to its fallback;
+     K10), K14's and SDPA's device times from ``torch.profiler``, and a
+     ragged T = 30 that each rule sends to its fallback;
   25. the full-width bf16 UNet built with
      ``UNetConfig(use_packed_attention=True)`` against the same module on
      K1: 16 K14, 0 K1, no fallback;
@@ -106,8 +109,10 @@ Phases, one line each:
      and K18 (an op) at the sampling shapes, against their plain versions,
      with times, the bound and the yardstick (F.linear x 3 + SDPA +
      F.linear and its backward for K16; the same in bf16 and float
-     projections + K13 for K17 and K18), and a ragged T = 30 that the rule
-     sends to each fallback;
+     projections + K13 for K17 and K18), K16's device time (all its
+     launches, and its attention stage alone) and SDPA's from
+     ``torch.profiler``, and a ragged T = 30 that the rule sends to each
+     fallback;
   30. the full-width bf16 UNet built with
      ``UNetConfig(use_absorbed_attention=True)`` against the same module
      on K1: 16 K16, 0 K1 and K14, no fallback;
@@ -194,6 +199,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, pattern: str, per_call: str = None, iters: int = 20,
+              warmup: int = 3):
+    """Device time per call of ``fn`` in the kernels whose name matches the
+    regex ``pattern``, from ``torch.profiler`` over ``iters`` calls: their
+    CUDA time over the number of calls the trace shows, counted as the
+    kernels matching ``per_call`` (one launch per call; default
+    ``pattern``), so that a trace that comes back short still averages
+    right. None when the trace holds no device time for them."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a trace now and then comes back without them
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        us = sum(e.time_range.elapsed_us() for e in kernels
+                 if re.search(pattern, e.name))
+        calls = sum(1 for e in kernels
+                    if re.search(per_call or pattern, e.name))
+        if us > 0 and calls:
+            return us / calls / 1e3
+    return None
+
+
+# kernel names in a trace: K1/K14's bf16 and fp32 forward, SDPA's kernels
+# (flash, memory-efficient or cuDNN), every kernel
+K1_KERNEL = r"attention_fwd_kernel"
+SDPA_KERNELS = r"flash|fmha|attention|cudnn|sdpa"
+ALL_KERNELS = r""
+
+
+def _ms(x):
+    return "n/a" if x is None else f"{x:.4f}"
 
 
 def attention_bound_ms(shape, dtype_name: str, products: int = 2,
@@ -324,18 +372,24 @@ def phase_attention():
         ms = time_ms(lambda: A.fused_self_attention(q, k, v, scale))
         plain_ms = time_ms(lambda: A.attention_reference(q, k, v, scale))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, scale=scale))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, scale=scale)
+        lib_ms = time_ms(sdpa)
+        dev_ms = device_ms(lambda: A.fused_self_attention(q, k, v, scale),
+                           K1_KERNEL)
+        lib_dev_ms = device_ms(sdpa, SDPA_KERNELS)
         bound, by, flops, nbytes = attention_bound_ms(shape, dname)
         rows.append({"shape_btHd": list(shape), "dtype": dname,
                      "per_unet_forward": per_fwd, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "bound_ms": bound, "bound_by": by, "flops": flops,
                      "bytes": nbytes})
         print(f"phase 2 K1 {tuple(shape)} {dname}: err {err:.3e} (tol {tol})"
-              f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f", kernel {ms:.4f} ms (device {_ms(dev_ms)}), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+              f"{_ms(lib_dev_ms)}), bound {bound:.4f} ms ({by}), "
+              f"{flops / (dev_ms or ms) / 1e9:.1f} TFLOP/s", flush=True)
     return rows
 
 
@@ -1088,7 +1142,7 @@ def _per_unit(rows, per_key):
 
     ops = sum(r["flops"] * r[per_key] for r in main)
     nbytes = sum(r["bytes"] * r[per_key] for r in main)
-    return {
+    out = {
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -1097,6 +1151,11 @@ def _per_unit(rows, per_key):
                      >= nbytes / PEAK_BYTES else "bytes"),
         "library_ms": total("library_ms"),
     }
+    # profiler times where every row has one (phases 2, 24 and 29)
+    for key in ("device_ms", "attention_device_ms", "library_device_ms"):
+        if all(r.get(key) is not None for r in main):
+            out[key] = total(key)
+    return out
 
 
 def k2_entry(rows, launches, by_path):
@@ -1961,21 +2020,29 @@ def phase_packed_kernels(seed: int = 17):
                         q, k, v, 8, scale), iters=5, warmup=1)
                     qt, kt, vt = (_head_view(x).transpose(1, 2)
                                   for x in (q, k, v))
-                    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, scale=scale))
+                    sdpa = lambda: F.scaled_dot_product_attention(  # noqa
+                        qt, kt, vt, scale=scale)
+                    lib_ms = time_ms(sdpa)
+                    dev_ms = device_ms(lambda: A.fused_self_attention_packed(
+                        q, k, v, 8, scale), K1_KERNEL)
+                    lib_dev_ms = device_ms(sdpa, SDPA_KERNELS)
                     bound, by, flops, nbytes = attention_bound_ms(
                         (b, t, 8, c // 8), dname)
                     rows[group].append({
                         "shape_btc": list(shape), "dtype": dname,
                         "per_unet_forward": per if dname == "bfloat16"
                         else 0, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms,
+                        "library_device_ms": lib_dev_ms,
                         "bound_ms": bound, "bound_by": by, "flops": flops,
                         "bytes": nbytes})
                     print(f"phase 24 {group} {shape} {dname}: err "
-                          f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms, plain"
-                          f" {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                          f"{bound:.4f} ms ({by})", flush=True)
+                          f"{err:.3e} (tol {tol}), kernel {ms:.4f} ms "
+                          f"(device {_ms(dev_ms)}), plain {plain_ms:.4f} "
+                          f"ms, sdpa {lib_ms:.4f} ms (device "
+                          f"{_ms(lib_dev_ms)}), bound {bound:.4f} ms ({by})",
+                          flush=True)
                     del q, k, v, qt, kt, vt, out
         ragged = [rand((8, RAGGED_T, 1280)) for _ in range(3)]
         rows["K14"].append(_fallback_row(
@@ -2402,20 +2469,35 @@ def phase_absorbed_kernels(seed: int = 19):
                     plain_ms = time_ms(lambda: A.absorbed_attention_reference(
                         x, *ws, 8, scale), iters=5, warmup=1)
                     comp_ms = time_ms(lambda: _absorbed_composition(x, ws))
+                    k16 = lambda: A.absorbed_self_attention(  # noqa: E731
+                        x, *ws, 8, scale)
+                    dev_ms = device_ms(k16, ALL_KERNELS, K1_KERNEL)
+                    attn_dev_ms = device_ms(k16, K1_KERNEL)
+                    qt = (x.unflatten(-1, (8, c // 8)).transpose(1, 2)
+                          .contiguous())
+                    lib_dev_ms = device_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, qt, qt, scale=scale), SDPA_KERNELS)
                     bound, by, flops, nbytes = absorbed_bound_ms(b, t, c,
                                                                  dname)
                     rows[group].append({
                         "shape_btc": list(shape), "dtype": dname,
                         "per_unet_forward": per if dname == "bfloat16"
                         else 0, "max_abs_err": err, "max_abs_ref": rmax,
-                        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        "ms": ms, "device_ms": dev_ms,
+                        "attention_device_ms": attn_dev_ms,
+                        "plain_ms": plain_ms, "library_ms": None,
+                        "library_device_ms": lib_dev_ms,
                         "composition_ms": comp_ms, "bound_ms": bound,
                         "bound_by": by, "flops": flops, "bytes": nbytes})
                     print(f"phase 29 {group} {shape} {dname}: err {err:.3e} "
                           f"(tol {tol} x max|ref| {rmax:.3e}), kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.linear x3"
-                          f" + sdpa + F.linear {comp_ms:.4f} ms, bound "
+                          f"{ms:.4f} ms (device {_ms(dev_ms)}, attention "
+                          f"stage {_ms(attn_dev_ms)}), plain {plain_ms:.4f} "
+                          f"ms, F.linear x3 + sdpa + F.linear {comp_ms:.4f} "
+                          f"ms, sdpa (device) {_ms(lib_dev_ms)}, bound "
                           f"{bound:.4f} ms ({by})", flush=True)
+                    del qt
                     del x, ws, out
         ragged = rand((8, RAGGED_T, 1280))
         ragged_w = _absorbed_weights(gen, 1280, torch.bfloat16)

@@ -10,7 +10,8 @@ backward ``_attn_bwd_kernel`` (:1298) behind ``_flash_bwd`` (:1357), which the
 
 ``fused_self_attention`` takes ``[B, T, H, D]`` tensors and is differentiable.
 A CUDA tensor goes to the hand-written Hopper kernels and nowhere else: the
-forward to ``csrc/attention_fwd.cu`` (K1), the backward to
+forward to ``csrc/attention_fwd.cu`` (K1; in bf16 a TMA + ``wgmma`` kernel
+whose launch plan :func:`sm90_launch_plan` chooses), the backward to
 ``csrc/attention_bwd.cu`` (K2); if a kernel cannot take the input, the
 wrapper raises. A CPU tensor goes to :func:`attention_reference` and
 :func:`attention_backward_reference`, the same arithmetic in plain PyTorch.
@@ -58,6 +59,7 @@ k, v the forward kept, with the products for x and the four weights in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -68,6 +70,78 @@ from . import _build
 MAX_HEAD_DIM = 160
 PACKED_MAX_SEQ = 2048  # fused_self_attention_packed's max_seq
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The bf16 forward kernel on Hopper (csrc/attention_fwd.cu,
+# attention_fwd_kernel_sm90): the card's SMs and the shared memory a block
+# may take, the head-dim classes it is compiled for (the N of its P·V
+# product; V's zero columns past D give zero outputs) and the columns of a
+# TMA box (one 128-byte swizzle row of bf16).
+SM90_SMS = 132
+SM90_SMEM_LIMIT = 232448
+SM90_HEAD_CLASSES = (16, 32, 40, 64, 80, 128, 160)
+SM90_BOX_D = 64
+SM90_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the bf16 kernel covers one ``(B·H, T, D)``: ``block_q`` query
+    rows per block (64 per consumer warpgroup), ``block_k`` keys per tile,
+    a ring of ``stages`` K/V tiles, ``chunks`` TMA boxes of ``box_d``
+    columns across D, ``smem_bytes`` of dynamic shared memory and the
+    ``grid`` (query tiles, B·H)."""
+
+    head_class: int
+    block_q: int
+    block_k: int
+    stages: int
+    box_d: int
+    chunks: int
+    smem_bytes: int
+    grid: tuple
+
+    def as_c(self):
+        """The nine ints the C entry points read (``struct Plan``)."""
+        fields = (self.head_class, self.block_q, self.block_k, self.stages,
+                  self.box_d, self.chunks, self.smem_bytes, *self.grid)
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def sm90_smem_bytes(block_q: int, block_k: int, chunks: int,
+                    stages: int) -> int:
+    """1 KiB to align the swizzled tiles, Q, a K and a V tile per stage,
+    and the mbarriers (one for Q, a full and an empty one per stage)."""
+    row = 2 * SM90_BOX_D  # bytes of a box row
+    return (1024 + block_q * chunks * row + stages * 2 * block_k * chunks * row
+            + 8 * (1 + 2 * stages))
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_launch_plan(bh: int, t: int, d: int) -> LaunchPlan:
+    """The bf16 kernel's launch plan for ``B·H`` heads of ``T`` tokens and
+    head dim ``d``; the C entry points check it. 128-row query tiles (two
+    consumer warpgroups) where they still give every SM a block, else 64
+    (one warpgroup): at T = 512 and B·H = 16, 64 blocks of 128 rows would
+    leave half the card idle. Key tiles of 128, 64 above D = 80 (two
+    score tiles and O in a consumer's 240 registers). The deepest ring of
+    two to four stages that fits, and no deeper than the key tiles of the
+    two passes."""
+    head_class = next(c for c in SM90_HEAD_CLASSES if c >= d)
+    chunks = -(-head_class // SM90_BOX_D)
+    block_k = 128 if head_class <= 80 else 64
+    block_q = 128 if bh * -(-t // 128) >= SM90_SMS else 64
+    deepest = max(2, min(SM90_MAX_STAGES, 2 * -(-t // block_k)))
+    stages = next(s for s in range(deepest, 1, -1)
+                  if sm90_smem_bytes(block_q, block_k, chunks, s)
+                  <= SM90_SMEM_LIMIT)
+    return LaunchPlan(head_class, block_q, block_k, stages, SM90_BOX_D, chunks,
+                      sm90_smem_bytes(block_q, block_k, chunks, stages),
+                      (-(-t // block_q), bh))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_c(bh: int, t: int, d: int):
+    return sm90_launch_plan(bh, t, d).as_c()
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -116,7 +190,7 @@ def _forward_kernel():
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -182,7 +256,7 @@ def _attention_forward(q, k, v, scale):
         err = kernel(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, t, h, d, _strides(q, k, v, out), float(scale),
-            stream)
+            _plan_c(b * h, t, d), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     fused_self_attention.launches += 1
@@ -304,7 +378,7 @@ def _packed_kernel():
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -328,7 +402,7 @@ def _packed_forward(q, k, v, heads, scale):
         err = _packed_kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, t, c, heads, (ctypes.c_longlong * 8)(*st),
-            float(scale), stream)
+            float(scale), _plan_c(b * heads, t, c // heads), stream)
     if err != 0:
         raise RuntimeError(f"K14 launch failed: CUDA error {err}")
     fused_self_attention_packed.launches += 1
@@ -430,7 +504,9 @@ def absorbed_attention_reference(x: torch.Tensor, wq: torch.Tensor,
 def _absorbed_kernel():
     fn = _build.load("attention_fwd").ldmseg_attention_absorbed
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -465,7 +541,8 @@ def _absorbed_forward(x, wq, wk, wv, wo, heads, scale):
         err = _absorbed_kernel()(
             _DTYPE_CODE[x.dtype], x.data_ptr(), *(w.data_ptr() for w in ws),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
-            out.data_ptr(), b, t, c, heads, float(scale), stream)
+            out.data_ptr(), b, t, c, heads, float(scale),
+            _plan_c(b * heads, t, d), stream)
     if err != 0:
         raise RuntimeError(f"K16 launch failed: CUDA error {err}")
     absorbed_self_attention.launches += 1
