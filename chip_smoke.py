@@ -17,8 +17,10 @@ Phases, one line each:
      steps, batch 2 of 256x512 frames) and ``panoptic_post_process``, with
      K1's and K2's launch counts over that run;
   5. K2 (self-attention backward) against its plain PyTorch version at the
-     training path's shapes, with times, the bound and the library
-     yardstick (SDPA's backward);
+     training path's shapes, two calls bit-equal, with times (CUDA events,
+     and the device time of each of its two kernels from
+     ``torch.profiler``), TFLOP/s, the bound and the library yardstick
+     (SDPA's backward, event-timed and its device time);
   6. ``TrainerDiffusion.train_loop`` at full width (bf16 on fp32 masters,
      self-conditioning, AdamW, batch 8 of 192x640 ``SyntheticDVPS`` frames):
      2 warm-up steps, 5 timed steps with K1's and K2's launch counts, the
@@ -90,8 +92,8 @@ Phases, one line each:
      at the int8 shapes, against their plain versions, with times, the
      bound and the yardstick (SDPA and SDPA's backward for K14; SDPA and
      K13 on the head views for K15; K3, or LN + K11 + the residual, for
-     K10), K14's and SDPA's device times from ``torch.profiler``, and a
-     ragged T = 30 that each rule sends to its fallback;
+     K10), K14's, K2's and SDPA's device times from ``torch.profiler``,
+     and a ragged T = 30 that each rule sends to its fallback;
   25. the full-width bf16 UNet built with
      ``UNetConfig(use_packed_attention=True)`` against the same module on
      K1: 16 K14, 0 K1, no fallback;
@@ -110,9 +112,9 @@ Phases, one line each:
      with times, the bound and the yardstick (F.linear x 3 + SDPA +
      F.linear and its backward for K16; the same in bf16 and float
      projections + K13 for K17 and K18), K16's device time (all its
-     launches, and its attention stage alone) and SDPA's from
-     ``torch.profiler``, and a ragged T = 30 that the rule sends to each
-     fallback;
+     launches, and its attention stage alone), K2's in its backward and
+     SDPA's from ``torch.profiler``, and a ragged T = 30 that the rule
+     sends to each fallback;
   30. the full-width bf16 UNet built with
      ``UNetConfig(use_absorbed_attention=True)`` against the same module
      on K1: 16 K16, 0 K1 and K14, no fallback;
@@ -202,13 +204,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, pattern: str, per_call: str = None, iters: int = 20,
-              warmup: int = 3):
+              warmup: int = 3, whole_call: bool = False):
     """Device time per call of ``fn`` in the kernels whose name matches the
     regex ``pattern``, from ``torch.profiler`` over ``iters`` calls: their
     CUDA time over the number of calls the trace shows, counted as the
     kernels matching ``per_call`` (one launch per call; default
     ``pattern``), so that a trace that comes back short still averages
-    right. None when the trace holds no device time for them."""
+    right; with ``whole_call`` (a library call of several kernels) over
+    ``iters``. None when the trace holds no device time for them."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -226,16 +229,20 @@ def device_ms(fn, pattern: str, per_call: str = None, iters: int = 20,
                    and not getattr(e, "is_user_annotation", False)]
         us = sum(e.time_range.elapsed_us() for e in kernels
                  if re.search(pattern, e.name))
-        calls = sum(1 for e in kernels
-                    if re.search(per_call or pattern, e.name))
+        calls = iters if whole_call else sum(
+            1 for e in kernels if re.search(per_call or pattern, e.name))
         if us > 0 and calls:
             return us / calls / 1e3
     return None
 
 
-# kernel names in a trace: K1/K14's bf16 and fp32 forward, SDPA's kernels
-# (flash, memory-efficient or cuDNN), every kernel
+# kernel names in a trace: K1/K14's bf16 and fp32 forward, K2's two kernels
+# (bf16: stats and main; fp32: dq and dkv), SDPA's kernels (flash,
+# memory-efficient or cuDNN), every kernel
 K1_KERNEL = r"attention_fwd_kernel"
+K2_KERNELS = r"attention_bwd_\w*kernel"
+K2_STATS = r"attention_bwd_(stats|dq)_kernel"
+K2_MAIN = r"attention_bwd_(main|dkv)_kernel"
 SDPA_KERNELS = r"flash|fmha|attention|cudnn|sdpa"
 ALL_KERNELS = r""
 
@@ -491,13 +498,37 @@ def phase_sample(trainer, smi_line: str, seed: int = 0, phase: int = 4,
                     "peak_bytes": peak, "x0": x0_host}
 
 
+def k2_device_ms(fn):
+    """K2's device time per call of ``fn`` (one K2 launch per call): all
+    its kernels, the stats kernel (fp32: dq) and the main kernel (fp32:
+    dkv), from ``torch.profiler``."""
+    return {"device_ms": device_ms(fn, K2_KERNELS, per_call=K2_MAIN),
+            "stats_device_ms": device_ms(fn, K2_STATS, per_call=K2_MAIN),
+            "main_device_ms": device_ms(fn, K2_MAIN)}
+
+
+def sdpa_backward(q, k, v, do, scale):
+    """SDPA's backward alone on the [B, H, T, D] transposes (the library
+    yardstick of K2): a call that computes dQ, dK and dV."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
 def phase_attention_backward():
     """K2 against its plain version at the training path's shapes, plus one
     fp32 and two ragged-T cases. Each of dQ, dK and dV is held to the
     tolerance times its own max|ref|: two bf16 ulps at the gradient's
-    largest value, 1e-4 in fp32."""
+    largest value, 1e-4 in fp32; a second call must give the same bits.
+    Times: CUDA events, and the device time of each of K2's two kernels
+    and of SDPA's backward (``torch.profiler``); TFLOP/s on the five
+    products' operations and the device time."""
     import torch
-    import torch.nn.functional as F
     from ldmseg_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -511,7 +542,10 @@ def phase_attention_backward():
                        .to(dtype) for _ in range(4))
         scale = shape[3] ** -0.5
         grads = A.fused_self_attention_backward(q, k, v, do, scale)
+        again = A.fused_self_attention_backward(q, k, v, do, scale)
         torch.cuda.synchronize()
+        same = all(torch.equal(g, h) for g, h in zip(grads, again))
+        check(same, f"K2 {shape}: two calls differ")
         refs = A.attention_backward_reference(q, k, v, do, scale)
         dname = str(dtype).split(".")[-1]
         rtol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
@@ -524,33 +558,37 @@ def phase_attention_backward():
                   f"max|ref| {m}")
             per_grad[gname] = {"max_abs_err": e, "max_abs_ref": m,
                                "tol": rtol * m}
-        del grads, refs
+        del grads, again, refs
         err = max(x["max_abs_err"] for x in per_grad.values())
-        ms = time_ms(lambda: A.fused_self_attention_backward(
-            q, k, v, do, scale), iters=10)
+        k2 = lambda: A.fused_self_attention_backward(  # noqa: E731
+            q, k, v, do, scale)
+        ms = time_ms(k2, iters=10)
+        dev = k2_device_ms(k2)
         plain_ms = time_ms(lambda: A.attention_backward_reference(
             q, k, v, do, scale), iters=5, warmup=1)
-        # the library yardstick: SDPA's backward alone on [B, H, T, D]
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-        dot = do.transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), iters=10)
-        del out
+        lib = sdpa_backward(q, k, v, do, scale)
+        lib_ms = time_ms(lib, iters=10)
+        lib_dev_ms = device_ms(lib, ALL_KERNELS, whole_call=True, iters=10)
+        del lib
         bound, by, flops, nbytes = attention_bound_ms(shape, dname, 5, 7)
+        tflops = flops / (dev["device_ms"] or ms) / 1e9
         rows.append({"shape_btHd": list(shape), "dtype": dname,
                      "per_unet_backward": per_bwd, "max_abs_err": err,
-                     "per_gradient": per_grad, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-                     "flops": flops, "bytes": nbytes})
+                     "per_gradient": per_grad, "deterministic": same,
+                     "ms": ms, **dev, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                     "bound_ms": bound, "bound_by": by, "flops": flops,
+                     "bytes": nbytes, "tflops_device": tflops})
         errs = ", ".join(f"{g} {x['max_abs_err']:.3e} of max|ref| "
                          f"{x['max_abs_ref']:.3e}"
                          for g, x in per_grad.items())
         print(f"phase 5 K2 {tuple(shape)} {dname}: err {errs} (tol {rtol} "
-              f"x max|ref|), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa-bwd {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"x max|ref|), two calls bit-equal, kernel {ms:.4f} ms "
+              f"(device {_ms(dev['device_ms'])}: stats "
+              f"{_ms(dev['stats_device_ms'])} + main "
+              f"{_ms(dev['main_device_ms'])}), plain {plain_ms:.4f} ms, "
+              f"sdpa-bwd {lib_ms:.4f} ms (device {_ms(lib_dev_ms)}), bound "
+              f"{bound:.4f} ms ({by}), {tflops:.1f} TFLOP/s", flush=True)
     return rows
 
 
@@ -1151,8 +1189,9 @@ def _per_unit(rows, per_key):
                      >= nbytes / PEAK_BYTES else "bytes"),
         "library_ms": total("library_ms"),
     }
-    # profiler times where every row has one (phases 2, 24 and 29)
-    for key in ("device_ms", "attention_device_ms", "library_device_ms"):
+    # profiler times where every row has one (phases 2, 5, 24 and 29)
+    for key in ("device_ms", "attention_device_ms", "library_device_ms",
+                "stats_device_ms", "main_device_ms", "k2_device_ms"):
         if all(r.get(key) is not None for r in main):
             out[key] = total(key)
     return out
@@ -1160,7 +1199,12 @@ def _per_unit(rows, per_key):
 
 def k2_entry(rows, launches, by_path):
     """The kernels-line entry for K2: times summed over the 16 launches of
-    one UNet backward (the training path's shapes at batch 8)."""
+    one UNet backward (the training path's shapes at batch 8); beside them
+    the device time of its two kernels, SDPA's backward's, and TFLOP/s on
+    the five products' operations."""
+    unit = _per_unit(rows, "per_unet_backward")
+    main = [r for r in rows if r["per_unet_backward"]]
+    flops = sum(r["flops"] * r["per_unet_backward"] for r in main)
     return {
         "name": "attention_bwd",
         "id": "K2",
@@ -1171,7 +1215,12 @@ def k2_entry(rows, launches, by_path):
         "launches": launches,
         "launches_by_path": by_path,
         "checked": True,
-        **_per_unit(rows, "per_unet_backward"),
+        "deterministic": all(r["deterministic"] for r in rows),
+        "kernels": ["attention_bwd_stats_kernel",
+                    "attention_bwd_main_kernel"],
+        **unit,
+        "tflops_device": (flops / unit["device_ms"] / 1e9
+                          if unit.get("device_ms") else None),
         "unit": "one UNet backward (16 launches, bf16, batch 8, 24x80 "
                 "latent)",
         "shapes": rows,
@@ -2161,28 +2210,31 @@ def phase_packed_kernels(seed: int = 17):
                   f"{rtol} x max|ref| {m}")
             err = max(err, e)
         del refs, leaves
-        ms = time_ms(lambda: A.fused_self_attention_backward(
-            *views, scale), iters=10)
+        k2 = lambda: A.fused_self_attention_backward(  # noqa: E731
+            *views, scale)
+        ms = time_ms(k2, iters=10)
+        dev = k2_device_ms(k2)
         plain_ms = time_ms(lambda: A.attention_backward_reference(
             *views, scale), iters=5, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in views[:3])
-        o = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-        dot = views[3].transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(
-            o, (qt, kt, vt), dot, retain_graph=True), iters=10)
-        del o
+        lib = sdpa_backward(*views, scale)
+        lib_ms = time_ms(lib, iters=10)
+        lib_dev_ms = device_ms(lib, ALL_KERNELS, whole_call=True, iters=10)
+        del lib
         bound, by, flops, nbytes = attention_bound_ms((b, t, 8, c // 8),
                                                       dname, 5, 7)
         rows["K14 backward"].append({
             "shape_btc": list(shape), "dtype": dname,
-            "per_unet_backward": per, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "per_unet_backward": per, "max_abs_err": err, "ms": ms, **dev,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "bound_ms": bound,
             "bound_by": by, "flops": flops, "bytes": nbytes})
         print(f"phase 24 K14 backward (K2 on the head views) {shape} "
               f"{dname}: max err {err:.3e} (tol {rtol} x max|ref|), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa-bwd {lib_ms:.4f}"
-              f" ms, bound {bound:.4f} ms ({by})", flush=True)
+              f"{ms:.4f} ms (device {_ms(dev['device_ms'])}: stats "
+              f"{_ms(dev['stats_device_ms'])} + main "
+              f"{_ms(dev['main_device_ms'])}), plain {plain_ms:.4f} ms, "
+              f"sdpa-bwd {lib_ms:.4f} ms (device {_ms(lib_dev_ms)}), bound "
+              f"{bound:.4f} ms ({by})", flush=True)
     for key in ("K14", "K15", "K10 v_bf16", "K10 s8"):
         fb = [r for r in rows[key] if r.get("fallback")]
         print(f"phase 24 {key} {tuple(fb[0]['shape_btc'])}: the rule's "
@@ -2592,8 +2644,11 @@ def phase_absorbed_kernels(seed: int = 19):
                   f"{rtol} x max|ref| {m}")
             err = max(err, e / m)
         del grads, refs
-        ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                                 retain_graph=True), iters=10)
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, leaves, g, retain_graph=True)
+        ms = time_ms(bwd, iters=10)
+        # K2's share of it, on the head views of the saved q, k, v
+        k2_dev = k2_device_ms(bwd)
         plain_ms = time_ms(lambda: torch.autograd.grad(
             pout, plain, g, retain_graph=True), iters=5, warmup=1)
         comp_leaves = [z.clone().requires_grad_(True) for z in (x, *ws)]
@@ -2606,14 +2661,20 @@ def phase_absorbed_kernels(seed: int = 19):
             "shape_btc": list(shape), "dtype": dname,
             "per_unet_backward": per, "max_abs_err": err,
             "err_is_relative_to_max_ref": True, "ms": ms,
+            "k2_device_ms": k2_dev["device_ms"],
+            "k2_stats_device_ms": k2_dev["stats_device_ms"],
+            "k2_main_device_ms": k2_dev["main_device_ms"],
             "plain_ms": plain_ms, "library_ms": None,
             "composition_ms": comp_ms, "bound_ms": bound, "bound_by": by,
             "flops": flops, "bytes": nbytes})
         print(f"phase 29 K16 backward (K2 on the head views + torch.matmul) "
               f"{shape} {dname}: max err {err:.3e} of max|ref| (tol {rtol}),"
-              f" backward {ms:.4f} ms, plain {plain_ms:.4f} ms, the "
-              f"composition's backward {comp_ms:.4f} ms, bound {bound:.4f} "
-              f"ms ({by})", flush=True)
+              f" backward {ms:.4f} ms (K2's device time "
+              f"{_ms(k2_dev['device_ms'])}: stats "
+              f"{_ms(k2_dev['stats_device_ms'])} + main "
+              f"{_ms(k2_dev['main_device_ms'])}), plain {plain_ms:.4f} ms, "
+              f"the composition's backward {comp_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
     for key in ("K16", "K17", "K18"):
         fb = [r for r in rows[key] if r.get("fallback")]
         print(f"phase 29 {key} {tuple(fb[0]['shape_btc'])}: the rule's "

@@ -663,57 +663,6 @@ __global__ void __launch_bounds__(Cfg<kDN, kWG>::kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a 4-D map over (D, H, T, B) of a bf16 [B, T, H, D] tensor with element
-// strides st = (b, t, h); boxes of 64 columns x `rows` tokens
-int encode_map(CUtensorMap* map, const void* ptr, int batch, int t, int heads,
-               int d, const long long* st, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                 static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int kDN, int kWG>
 int launch_sm90_as(const Plan& p, const CUtensorMap* maps, void* o,
                    const Strides& so, int heads, int t, int d, float c,
@@ -754,11 +703,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (!plan_ok(p, batch * heads, t, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int current = sm90::make_current(q);
+  if (current != 0) return current;
   CUtensorMap maps[3];
   const void* src[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int err = encode_map(&maps[i], src[i], batch, t, heads, d,
-                               st + 3 * i, i == 0 ? 64 : p.block_k);
+    const int err = sm90::encode_map(&maps[i], src[i], batch, t, heads,
+                                     d, st + 3 * i, i == 0 ? 64 : p.block_k);
     if (err != 0) return err;
   }
   const Strides so{st[9], st[10], st[11]};

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads
-// through a tensor map, and warpgroup matrix products (wgmma) on bf16 with
-// fp32 sums. Used by attention_fwd.cu (K1, K14, K16's attention stage).
+// through a tensor map (and the maps' encoding on the host), bulk copies,
+// threads' stores into a swizzled tile, and warpgroup matrix products
+// (wgmma) on bf16 with fp32 sums. Used by attention_fwd.cu (K1, K14, K16's
+// attention stage) and attention_bwd.cu (K2).
 //
 // Shared-memory operands of wgmma are described by a 64-bit descriptor. The
 // tiles here are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: rows
@@ -15,6 +17,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,10 +97,82 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global `src` into shared memory at `dst`, counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` from shared memory at `src` to global `dst` (kAdd: added to the
+// fp32 values there, in L2); both 16-byte aligned, bytes a multiple of 16.
+// Completion is tracked per thread by bulk_commit / bulk_wait.
+template <bool kAdd>
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  if constexpr (kAdd) {
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+        "[%1], %2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+        "r"(src), "r"(bytes)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            reinterpret_cast<uint64_t>(dst)),
+        "r"(src), "r"(bytes)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// every bulk store this thread committed has completed (its writes made)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// --- threads' own stores into a swizzled operand ---------------------------
+// The byte offset of (row, 16-byte unit `unit`) in a tile of 128-byte rows
+// with the 128-byte swizzle (the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B, the tile 1,024-byte aligned): the unit's
+// index is XORed with the row's index within its 8-row atom.
+__device__ __forceinline__ uint32_t sw128(int row, int unit) {
+  return static_cast<uint32_t>(row * 128 + ((unit ^ (row & 7)) << 4));
+}
+
+// a 4-byte value at (row, column `col`) of a 64-column bf16 tile at shared
+// address `tile`, in the 128-byte swizzle; col even
+__device__ __forceinline__ void store_sw128(uint32_t tile, int row, int col,
+                                            uint32_t value) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                   tile + sw128(row, col >> 3) + ((col & 7) << 1)),
+               "r"(value)
+               : "memory");
+}
+
+// make the threads' own shared-memory stores visible to wgmma and TMA (the
+// async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// order this thread's accesses of every state space between the generic
+// and the async proxy (bulk stores to global memory and flags around them)
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
 // --- named barriers (0 is __syncthreads') ---------------------------------
@@ -163,10 +238,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
 //   WgmmaRs<N>::rs: A from registers (a[0..3]: the bf16 pairs of rows lane/4
 //     and lane/4 + 8 at depth 2 (lane % 4) and 8 + 2 (lane % 4), the layout
 //     of d above for a 16-column slice), B MN-major in shared memory.
+//   WgmmaSsT<N>::ss: A and B both MN-major in shared memory (the backward's
+//     dQ = dS K, with dS stored as dS^T by store_sw128 and K as loaded).
 template <int kN>
 struct WgmmaSs;
 template <int kN>
 struct WgmmaRs;
+template <int kN>
+struct WgmmaSsT;
 
 #define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 
@@ -342,6 +421,129 @@ struct WgmmaRs<160> {
   }
 };
 
+template <>
+struct WgmmaSsT<16> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+        : F4(d, 0), F4(d, 4)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaSsT<32> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaSsT<40> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+        : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12), F4(d, 16)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaSsT<64> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12), F4(d, 16), F4(d, 20),
+          F4(d, 24), F4(d, 28)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
 #undef F4
+
+// --- tensor maps (host) ----------------------------------------------------
+// Make the primary context of the device that holds `ptr` current to the
+// calling thread. The driver's tensor-map encoder needs a current context,
+// and a thread that has made no CUDA call yet (autograd's worker thread
+// running a backward, say) has none. Returns a cudaError_t.
+inline int make_current(const void* ptr) {
+  cudaPointerAttributes at;
+  cudaError_t err = cudaPointerGetAttributes(&at, ptr);
+  if (err == cudaSuccess) err = cudaSetDevice(at.device);
+  return static_cast<int>(err);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D map over (D, H, T, B) of a bf16 [B, T, H, D] tensor with element
+// strides st = (b, t, h); boxes of 64 columns x `rows` tokens
+inline int encode_map(CUtensorMap* map, const void* ptr, int batch, int t,
+                      int heads, int d, const long long* st, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace sm90

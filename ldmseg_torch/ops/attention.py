@@ -12,9 +12,11 @@ backward ``_attn_bwd_kernel`` (:1298) behind ``_flash_bwd`` (:1357), which the
 A CUDA tensor goes to the hand-written Hopper kernels and nowhere else: the
 forward to ``csrc/attention_fwd.cu`` (K1; in bf16 a TMA + ``wgmma`` kernel
 whose launch plan :func:`sm90_launch_plan` chooses), the backward to
-``csrc/attention_bwd.cu`` (K2); if a kernel cannot take the input, the
-wrapper raises. A CPU tensor goes to :func:`attention_reference` and
-:func:`attention_backward_reference`, the same arithmetic in plain PyTorch.
+``csrc/attention_bwd.cu`` (K2; in bf16 two TMA + ``wgmma`` kernels whose
+launch plan :func:`sm90_bwd_launch_plan` chooses); if a kernel cannot take
+the input, the wrapper raises. A CPU tensor goes to
+:func:`attention_reference` and :func:`attention_backward_reference`, the
+same arithmetic in plain PyTorch.
 
 It runs K1 at every T. JAX's ``fused_self_attention`` (:1545) sends ``T >
 4096``, ``T % min(1024, T)`` and ``T % 8`` (at KITTI's 24x80 latent the
@@ -144,6 +146,117 @@ def _plan_c(bh: int, t: int, d: int):
     return sm90_launch_plan(bh, t, d).as_c()
 
 
+# K2's bf16 kernels (csrc/attention_bwd.cu): the stats of a 64-query tile
+# (m, 1 / l, delta) and the consumers' register count under setmaxnreg
+SM90_BWD_STATS_FLOATS = 3 * 64
+SM90_CONSUMER_REGS = 232
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdLaunchPlan:
+    """How K2's two bf16 kernels cover one ``(B·H, T, D)``. The stats
+    kernel takes ``stats_block_q`` query rows per block (64 per consumer
+    warpgroup) against ``stats_block_k``-key K/V tiles through a ring of
+    ``stats_stages``; the main kernel ``main_block_k`` keys per block (64
+    per consumer warpgroup) against ``q_tiles`` 64-query tiles through a
+    ring of ``main_stages``. ``*_regs`` is the consumers' register count
+    under ``setmaxnreg`` (0: none, one consumer warpgroup), ``*_smem`` the
+    dynamic shared memory, ``*_grid_x`` the blocks along T; the grids'
+    second axis is ``grid_y`` = B·H."""
+
+    head_class: int
+    chunks: int
+    q_tiles: int
+    stats_block_q: int
+    stats_block_k: int
+    stats_stages: int
+    stats_regs: int
+    stats_smem: int
+    stats_grid_x: int
+    main_block_k: int
+    main_stages: int
+    main_regs: int
+    main_smem: int
+    main_grid_x: int
+    grid_y: int
+
+    def as_c(self):
+        """The 15 ints the C entry point reads (``struct BwdPlan``)."""
+        fields = [getattr(self, f.name) for f in dataclasses.fields(self)]
+        return (ctypes.c_int * len(fields))(*fields)
+
+
+def sm90_bwd_stats_smem(block_q: int, block_k: int, chunks: int,
+                        stages: int) -> int:
+    """1 KiB to align the swizzled tiles, Q and dO (``block_q`` rows each),
+    a K and a V tile per stage, and the mbarriers (one for Q and dO, a full
+    and an empty one per stage)."""
+    row = 2 * SM90_BOX_D
+    return (1024 + 2 * block_q * chunks * row
+            + stages * 2 * block_k * chunks * row + 8 * (1 + 2 * stages))
+
+
+def sm90_bwd_main_smem(block_k: int, head_class: int, chunks: int,
+                       stages: int) -> int:
+    """1 KiB of slack, K and V (``block_k`` rows each), one 64 x 64 bf16
+    dSᵀ tile per consumer warpgroup, per stage a 64-row Q and dO tile and
+    the stats of 64 queries, the dQ tiles (one per dQ reducer: three up to
+    D = 64, two up to 80, else one; each an fp32 64 x ``head_class`` per
+    consumer warpgroup), and the mbarriers."""
+    row = 2 * SM90_BOX_D
+    box = 64 * row
+    wgs = block_k // 64
+    tiles = 3 if head_class <= 64 else 2 if head_class <= 80 else 1
+    return (1024 + 2 * block_k * chunks * row + wgs * box
+            + stages * (2 * chunks * box + 4 * SM90_BWD_STATS_FLOATS)
+            + tiles * wgs * 64 * head_class * 4
+            + 8 * (1 + 2 * stages + 2 * tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_bwd_launch_plan(bh: int, t: int, d: int) -> BwdLaunchPlan:
+    """K2's bf16 launch plan for ``B·H`` heads of ``T`` tokens and head dim
+    ``d``; the C entry point checks it. Both kernels take two consumer
+    warpgroups (and ``setmaxnreg``) where 128-row blocks still give every
+    SM a block, else one; the main kernel only up to D = 80, where dK,
+    dV, Sᵀ and dPᵀ of 64 keys fit a consumer's 232 registers. The stats
+    kernel's key tiles are the forward's (128, 64 above D = 80). Each ring
+    is the deepest of two to four stages that fits, and no deeper than the
+    tiles it streams."""
+    head_class = next(c for c in SM90_HEAD_CLASSES if c >= d)
+    chunks = -(-head_class // SM90_BOX_D)
+    q_tiles = -(-t // 64)
+    wide = bh * -(-t // 128) >= SM90_SMS
+    stats_q = 128 if wide else 64
+    stats_k = 128 if head_class <= 80 else 64
+    deepest = max(2, min(SM90_MAX_STAGES, -(-t // stats_k)))
+    stats_stages = next(
+        s for s in range(deepest, 1, -1)
+        if sm90_bwd_stats_smem(stats_q, stats_k, chunks, s)
+        <= SM90_SMEM_LIMIT)
+    main_k = 128 if wide and head_class <= 80 else 64
+    deepest = max(2, min(SM90_MAX_STAGES, q_tiles))
+    main_stages = next(
+        s for s in range(deepest, 1, -1)
+        if sm90_bwd_main_smem(main_k, head_class, chunks, s)
+        <= SM90_SMEM_LIMIT)
+    return BwdLaunchPlan(
+        head_class, chunks, q_tiles,
+        stats_q, stats_k, stats_stages,
+        SM90_CONSUMER_REGS if stats_q == 128 else 0,
+        sm90_bwd_stats_smem(stats_q, stats_k, chunks, stats_stages),
+        -(-t // stats_q),
+        main_k, main_stages, SM90_CONSUMER_REGS if main_k == 128 else 0,
+        sm90_bwd_main_smem(main_k, head_class, chunks, main_stages),
+        -(-t // main_k),
+        bh)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan_c(bh: int, t: int, d: int):
+    return sm90_bwd_launch_plan(bh, t, d).as_c()
+
+
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     # fp32 accumulation, as the kernels; float64 (gradcheck) stays float64
     return torch.float64 if x.dtype == torch.float64 else torch.float32
@@ -198,10 +311,10 @@ def _forward_kernel():
 @functools.cache
 def _backward_kernel():
     fn = _build.load("attention_bwd").ldmseg_attention_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 4
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -268,7 +381,10 @@ def fused_self_attention_backward(q: torch.Tensor, k: torch.Tensor,
                                   scale: float):
     """(dQ, dK, dV) of :func:`fused_self_attention`, each ``[B, T, H, D]``
     contiguous in the input dtype. CUDA tensors run K2 (bf16 or fp32, D a
-    multiple of 8 up to 160, any T); CPU tensors run
+    multiple of 8 up to 160, any T; in bf16 a stats kernel and a main
+    kernel on TMA + ``wgmma`` whose launch plan
+    :func:`sm90_bwd_launch_plan` chooses, dQ summed over key tiles in a
+    fixed order, so two calls give the same bits); CPU tensors run
     :func:`attention_backward_reference`.
     ``fused_self_attention_backward.launches`` counts the kernel launches."""
     if q.device.type == "cpu":
@@ -279,15 +395,26 @@ def fused_self_attention_backward(q: torch.Tensor, k: torch.Tensor,
     b, t, h, d = q.shape
     dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
                   for _ in range(3))
-    stats = torch.empty(3 * b * h * t, dtype=torch.float32, device=q.device)
+    # the row statistics of every 64-query tile; bf16 also takes the fp32
+    # dQ workspace and a counter per (b*h, 64-query tile) for dQ's ordered
+    # sum over key tiles
+    q_tiles = -(-t // 64)
+    stats = torch.empty(b * h * q_tiles * SM90_BWD_STATS_FLOATS,
+                        dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    ws = torch.empty(b * h * q_tiles * 64 * d if bf16 else 0,
+                     dtype=torch.float32, device=q.device)
+    counters = torch.empty(b * h * q_tiles if bf16 else 0,
+                           dtype=torch.int32, device=q.device)
     kernel = _backward_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kernel(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), b, t, h, d,
-            _strides(q, k, v, do, dq, dk, dv), float(scale), stream)
+            stats.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, t, h, d,
+            _strides(q, k, v, do, dq, dk, dv), float(scale),
+            _bwd_plan_c(b * h, t, d), stream)
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: CUDA error {err}")

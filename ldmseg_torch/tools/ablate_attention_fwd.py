@@ -103,10 +103,10 @@ def variants(src: str) -> dict:
     }
 
 
-def _build_all(sources: dict) -> dict:
+def _build_all(sources: dict, subdir: str = "ablate") -> dict:
     """One ``nvcc`` per variant, all at once, beside copies of the
-    headers; returns the library path of each."""
-    out = _build.BUILD_DIR / "ablate"
+    headers, under ``_build/<subdir>``; returns the library path of each."""
+    out = _build.BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copy(header, out)
