@@ -29,7 +29,13 @@ Phases, one line each:
   7. K3 (the int8 LN + attention block) and K4 (the int8 LN + GEGLU block,
      dynamic and static interior scale) against their plain PyTorch
      versions at the int8 sampling path's shapes and a ragged T, with
-     times, the bound and the bf16 block each replaces;
+     times (CUDA events, and the device time of each stage from
+     ``torch.profiler``), the bound and the bf16 block each replaces; two
+     calls of each bit-equal; their Hopper product (``ops/gemm.py``) at
+     every product shape of K3 and K4, in the form each launches (K4's W1
+     with two operands), against ``torch._int_mm`` on W's transposed view
+     (int32, bit for bit) and ``torch.matmul`` (bf16, within
+     ``BF16_ATOL`` of max|ref|), with both times;
   8. the full-width int8 UNet forward (the weights of phase 3) against the
      bf16 one on K1: 16 K3, 16 K4, 0 K1 launches, no fallback, the
      relative error and correlation, ms per forward and the s8 convs' share;
@@ -245,6 +251,13 @@ K2_STATS = r"attention_bwd_(stats|dq)_kernel"
 K2_MAIN = r"attention_bwd_(main|dkv)_kernel"
 SDPA_KERNELS = r"flash|fmha|attention|cudnn|sdpa"
 ALL_KERNELS = r""
+# K3's and K4's stages by kernel name (tools/profile_int8_blocks.py's
+# short names): the LN + quantize, the Hopper products by their epilogue,
+# K3's attention, K4's interior quantize
+K3_STAGES = {"ln_quant": r"ln_quant_kernel", "qkv": r"QkvPadEpi",
+             "attention": r"attn_s8_kernel_sm90", "to_out": r"ResidualEpi"}
+K4_STAGES = {"ln_quant": r"ln_quant_kernel", "up": r"GateEpi",
+             "quant": r"^quant_kernel", "down": r"DownEpi"}
 
 
 def _ms(x):
@@ -773,19 +786,107 @@ def _int8_row(name, shape, per_fwd, out, ref, fn, plain, context, bound):
             "bound_ms": bound_ms, "bound_by": by, "work": work}
 
 
+def _stage_split(fn, stages: dict):
+    """Device time per call of ``fn`` in total and by stage (``stages``:
+    name -> regex on the kernel's short name), from ``torch.profiler``;
+    fails if a kernel of the call matches no stage (an old kernel back on
+    the path)."""
+    import re
+    from ldmseg_torch.tools.profile_int8_blocks import stages as trace
+    row = trace(fn)
+    by_name = row["stages_device_ms"]
+    if not by_name:
+        return None, {}
+    split = {k: sum(v for n, v in by_name.items() if re.search(p, n))
+             for k, p in stages.items()}
+    unknown = [n for n in by_name
+               if not any(re.search(p, n) for p in stages.values())]
+    check(not unknown, f"kernels outside the stages {sorted(stages)}: "
+                       f"{unknown}")
+    return row["device_ms"], split
+
+
+def _gemm_rows(shape, per_fwd):
+    """The Hopper product (ops/gemm.py) at each product shape of K3 and K4
+    for ``shape``, in the form each block launches (K4's up with two
+    operands, W1's h and gate rows, as K4 runs it): int32 sums bit-equal to
+    ``torch._int_mm`` on the transposed view of W that
+    ``ops/quant.py:int8_matmul`` passes, fp32 sums within BF16_ATOL of
+    max|ref| of ``torch.matmul``; event and device times of both."""
+    import torch
+    from ldmseg_torch.ops import gemm as G
+    b, t, c = shape
+    rows, m = b * t, 4 * c
+    gen = torch.Generator(device="cuda").manual_seed(rows + c)
+    out_rows = []
+    for kid, what, n, k, dtype, operands in (
+            ("K3", "qkv", 3 * c, c, "int8", 1),
+            ("K3", "to_out", c, c, "bfloat16", 1),
+            ("K4", "up", 2 * m, c, "int8", 2),
+            ("K4", "down", c, m, "int8", 1)):
+        if dtype == "int8":
+            a = torch.randint(-127, 128, (rows, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            w = torch.randint(-127, 128, (n, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            ours = lambda: G.gemm_s8(a, w, operands)  # noqa: E731
+            lib = lambda: torch._int_mm(a, w.t())  # noqa: E731
+            out, ref = ours(), lib()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            check(torch.equal(out, ref), f"gemm_s8 [{rows}, {k}] x [{n}, "
+                  f"{k}]^T: int32 sums differ from torch._int_mm by {err}")
+        else:
+            a = torch.randn((rows, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            w = torch.randn((n, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ours = lambda: G.gemm_bf16(a, w)  # noqa: E731
+            lib = lambda: torch.matmul(a, w.t())  # noqa: E731
+            out = ours()
+            ref = a.float() @ w.float().t()
+            err = (out - ref).abs().max().item()
+            tol = BF16_ATOL * ref.abs().max().item()
+            check(err <= tol, f"gemm_bf16 [{rows}, {k}] x [{n}, {k}]^T: "
+                  f"max abs err {err} > {tol}")
+        ops = 2.0 * rows * n * k
+        out_rows.append({
+            "block": kid, "product": what, "rows_n_k": [rows, n, k],
+            "dtype": dtype, "operands": operands, "per_unet_forward": per_fwd,
+            "max_abs_err": err, "ms": time_ms(ours),
+            "device_ms": device_ms(ours, r"gemm_kernel"),
+            "library": "torch._int_mm(a, w.t())" if dtype == "int8" else
+                       "torch.matmul(a, w.t()) (bf16)",
+            "library_ms": time_ms(lib),
+            "library_device_ms": device_ms(lib, ALL_KERNELS,
+                                           whole_call=True),
+            "bound_ms": max(ops / PEAK_FLOPS[dtype],
+                            (rows * k + n * k) * (1 if dtype == "int8"
+                                                  else 2)
+                            / PEAK_BYTES) * 1e3})
+        r = out_rows[-1]
+        print(f"phase 7 product {kid} {what} [{rows}, {k}] x [{n}, {k}]^T "
+              f"{dtype} x{operands}: err {err}, ours {r['ms']:.4f} ms (device "
+              f"{_ms(r['device_ms'])}), {r['library']} {r['library_ms']:.4f}"
+              f" ms (device {_ms(r['library_device_ms'])})", flush=True)
+    return out_rows
+
+
 def phase_int8_kernels():
     """K3 and K4 against their plain versions on the card, at every shape of
     the int8 UNet forward and a ragged T the shape rule still sends to the
     kernel; K4 in both interior-scale modes and once more with two
     512-token blocks. Beside each, the bf16 block the kernel replaces, as
     context (a different function): norm1 + attn1 on K1 + the residual, or
-    norm3 + ff + the residual."""
+    norm3 + ff + the residual; at the forward's shapes the device time of
+    each stage, two calls bit-equal, and the Hopper product against
+    ``torch._int_mm`` / ``torch.matmul`` at each product shape."""
     import torch
     from ldmseg_torch.ops import attention_s8 as K3
     from ldmseg_torch.ops import geglu as K4
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    k3_rows, k4_rows = [], []
+    k3_rows, k4_rows, gemm_rows = [], [], []
     ragged = [((1, 120, 320), 0)]
     for shape, per_fwd in INT8_SHAPES + ragged + [((1, 1024, 320), 0)]:
         b, t, c = shape
@@ -808,11 +909,19 @@ def phase_int8_kernels():
                     lambda: K3.ln_attention_s8(x, apack),
                     lambda: K3.ln_attention_s8_reference(x, apack),
                     lambda: x + at(n1(x)), ln_attention_bound_ms(b, t, c))
+                if per_fwd:
+                    check(torch.equal(out, K3.ln_attention_s8(x, apack)),
+                          f"K3 {shape}: two calls differ")
+                    row["device_ms"], row["stages_device_ms"] = (
+                        _stage_split(lambda: K3.ln_attention_s8(x, apack),
+                                     K3_STAGES))
                 k3_rows.append(row)
                 print(f"phase 7 K3 {shape}: err {row['max_abs_err']:.3e} of "
                       f"max|ref| {row['max_abs_ref']:.3e}, mean "
                       f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
-                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"; kernel {row['ms']:.4f} ms (device "
+                      f"{_ms(row.get('device_ms'))}: "
+                      f"{row.get('stages_device_ms')}), plain "
                       f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                       f" ms ({row['bound_by']}), bf16 block on K1 "
                       f"{row['bf16_block_ms']:.4f} ms", flush=True)
@@ -826,16 +935,26 @@ def phase_int8_kernels():
                     lambda: K4.geglu_ln_s8_reference(x, fpack),
                     lambda: x + f(n3(x)), geglu_ln_bound_ms(b, t, c))
                 row["interior"] = mode
+                if per_fwd:
+                    check(torch.equal(out, K4.geglu_ln_s8(x, fpack)),
+                          f"K4 {shape} {mode}: two calls differ")
+                    row["device_ms"], row["stages_device_ms"] = (
+                        _stage_split(lambda: K4.geglu_ln_s8(x, fpack),
+                                     K4_STAGES))
                 k4_rows.append(row)
                 print(f"phase 7 K4 {shape} {mode}: err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
                       f"{row['max_abs_ref']:.3e}, mean "
                       f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
-                      f"; kernel {row['ms']:.4f} ms, plain "
+                      f"; kernel {row['ms']:.4f} ms (device "
+                      f"{_ms(row.get('device_ms'))}: "
+                      f"{row.get('stages_device_ms')}), plain "
                       f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                       f" ms ({row['bound_by']}), bf16 block "
                       f"{row['bf16_block_ms']:.4f} ms", flush=True)
-    return k3_rows, k4_rows
+        if (shape, per_fwd) in INT8_SHAPES:
+            gemm_rows += _gemm_rows(shape, per_fwd)
+    return k3_rows, k4_rows, gemm_rows
 
 
 def _wrappers():
@@ -1166,10 +1285,33 @@ def int8_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
         "bf16_block_ms": total("bf16_block_ms"),
         **{key: total(key) for key in ("sdpa_ms", "k13_block_ms", "k13_ms")
            if key in main[0]},
+        **({"device_ms": total("device_ms"),
+            "stages_device_ms": {
+                k: sum(r["stages_device_ms"][k] * r["per_unet_forward"]
+                       for r in main) for k in main[0]["stages_device_ms"]}}
+           if all(r.get("device_ms") is not None for r in main) else {}),
         "unit": "one UNet forward (16 launches, int8, batch 2, 32x64 "
                 "latent)",
         "shapes": rows,
     }
+
+
+def products_entry(rows, kid):
+    """K3's or K4's products (phase 7) summed over one UNet forward, beside
+    the library calls that compute the same products (the blocks
+    themselves have none)."""
+    main = [r for r in rows if r["block"] == kid]
+
+    def total(key):
+        if any(r[key] is None for r in main):
+            return None
+        return sum(r[key] * r["per_unet_forward"] for r in main)
+    return {"products": main,
+            "products_library": "torch._int_mm(a, w.t()) (int8), "
+                                "torch.matmul (bf16)",
+            **{f"products_{key}": total(key)
+               for key in ("ms", "device_ms", "library_ms",
+                           "library_device_ms", "bound_ms")}}
 
 
 def _per_unit(rows, per_key):
@@ -2931,7 +3073,7 @@ def main() -> int:
         bwd_rows = phase_attention_backward()
         train_counts, train_result = phase_train(smi_line)
         torch.cuda.empty_cache()
-        k3_rows, k4_rows = phase_int8_kernels()
+        k3_rows, k4_rows, gemm_rows = phase_int8_kernels()
         trainer = TrainerDiffusion(_int8_config())
         trainer.init_params(seed=0)
         int8_unet_result = phase_int8_unet(trainer)
@@ -3124,12 +3266,14 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:845",
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_abs_padded_ln_s8_vt",
-                       k3_rows, dyn["K3"], by_path("K3")),
+                       k3_rows, dyn["K3"], by_path("K3"))
+            | products_entry(gemm_rows, "K3"),
             int8_entry("geglu_ln_s8", "K4",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:164",
                        "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel",
-                       k4_rows, dyn["K4"], by_path("K4")),
+                       k4_rows, dyn["K4"], by_path("K4"))
+            | products_entry(gemm_rows, "K4"),
             int8_entry("attention_ln_s8_pin", "K8",
                        "ldmseg_torch/csrc/attention_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:875",

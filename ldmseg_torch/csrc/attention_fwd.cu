@@ -30,35 +30,16 @@
 // statistics only, and pass 2 recomputes S, forms p = exp(s - m) / l and
 // rounds it there, then accumulates P V. Three products where two are owed.
 //
-// bf16 design (attention_fwd_kernel_sm90):
-//   * one block per (b*h, query tile): 128 query rows as two consumer
-//     warpgroups of 64 rows, plus a producer warpgroup whose one thread
-//     issues the copies (setmaxnreg gives the consumers 240 registers); or,
-//     where ceil(T / 128) * B*H would leave SMs idle, one consumer warpgroup
-//     of 64 rows. The launch plan (tile sizes, ring depth, box widths, shared
-//     memory, grid) is chosen by ops/attention.py:sm90_launch_plan and checked
-//     here.
-//   * copies are TMA tile loads through 4-D tensor maps over (D, H, T, B)
-//     built from the caller's element strides, so K1's [B, T, H, D], K14's
-//     head view of [B, T, C] and K16's q, k, v buffers are read in place.
-//     A box is 64 columns (one 128-byte swizzle row); D is covered by 1-3
-//     boxes and TMA writes zeros past D and past T. Q loads once per block;
-//     K (pass 1), then K and V (pass 2), stream through a ring of 2-4 stages
-//     with full/empty mbarriers.
-//   * S = Q K^T is wgmma m64nNk16 (N = the key tile, 128, or 64 at D > 80)
-//     from shared memory; O += P V is wgmma with P from registers (the fp32
-//     fragment of S converted pairwise to bf16 is the A fragment) and V
-//     MN-major in shared memory, N = D rounded up to a compiled class
-//     (16, 32, 40, 64, 80, 128, 160; V's zero columns give zero outputs).
-//     Each consumer issues its products one step ahead (Consumer below),
-//     so its exponentials overlap the tensor cores' work.
-//   * the scale is folded with log2(e) into c; pass 1 keeps each row's
-//     running max and sum in registers (a row's 4 threads share the max);
-//     pass 2 computes p = 2^(s c - m) * (1 / l), one reciprocal per row.
-//     Exponentials are ex2.approx.ftz.f32: about 2 ulp of fp32 (PTX ISA),
-//     far below the bf16 rounding of p (2^-9). Keys past T are masked in the
-//     last tile of both passes (their zero-filled rows would score 0, not
-//     -inf). O is rounded to bf16 once, rows < T and columns < D stored.
+// bf16 design (attention_fwd_kernel_sm90): the skeleton of
+// attention_sm90.cuh on bf16 Q and K, which K3's int8 attention stage
+// (attention_ln_s8.cu) shares. One block per (b*h, 128 or 64 query rows),
+// a producer warpgroup issuing TMA loads through 4-D tensor maps built from
+// the caller's element strides (so K1's [B, T, H, D], K14's head view of
+// [B, T, C] and K16's q, k, v buffers are read in place; a box is 64
+// columns, one 128-byte swizzle row), wgmma m64nNk16 for S = Q K^T and P V
+// with P from registers; the scale folded with log2(e) into c, pass 1 the
+// running max and sum, pass 2 p = 2^(s c - m) * (1 / l), one reciprocal per
+// row. The launch plan is ops/attention.py:sm90_launch_plan's, checked here.
 //
 // fp32 (on no serving or training path) keeps a plain SIMT kernel
 // (attention_fwd_kernel_f32): 64-row query tiles through shared memory, the
@@ -73,6 +54,7 @@
 
 #include <type_traits>
 
+#include "attention_sm90.cuh"
 #include "s8_common.cuh"  // bf16_gemm_kernel (K16's projections)
 #include "sm90.cuh"
 
@@ -80,9 +62,7 @@ namespace {
 
 constexpr int kMaxD = 160;  // largest head dim taken
 
-struct Strides {
-  long long b, t, h;  // element strides of the B, T and H axes (D is 1)
-};
+using Strides = attn90::Strides;  // element strides of B, T and H
 
 // ---------------------------------------------------------------------------
 // fp32: plain SIMT
@@ -247,12 +227,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int batch,
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
-constexpr int kBox = 64;          // columns of a TMA box: one swizzled row
-constexpr int kRowBytes = 128;    // bytes of a box row
-constexpr int kSmemLimit = 232448;
-constexpr int kConsumerRegs = 240;
-constexpr int kProducerRegs = 24;
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBox = 64;  // bf16 columns of a TMA box: one swizzled row
 
 // The launch plan as ops/attention.py:sm90_launch_plan lays it out
 struct Plan {
@@ -267,433 +242,35 @@ struct Plan {
   int grid_y;      // B * H
 };
 
-constexpr int kClasses[] = {16, 32, 40, 64, 80, 128, 160};
-
-int head_class(int d) {
-  for (int c : kClasses) {
-    if (c >= d) return c;
-  }
-  return 0;
-}
-
-// 1,024 bytes of slack to align the swizzled tiles, Q, the ring, and one
-// q barrier plus a full and an empty barrier per stage
-int plan_smem(int block_q, int block_k, int chunks, int stages) {
-  return 1024 + block_q * chunks * kRowBytes +
-         stages * 2 * block_k * chunks * kRowBytes + 8 * (1 + 2 * stages);
-}
-
 bool plan_ok(const Plan& p, int bh, int t, int d) {
   const int chunks = (p.head_class + kBox - 1) / kBox;
-  return p.head_class == head_class(d) &&
-         (p.block_q == 64 || p.block_q == 128) &&
-         p.block_k == (p.head_class <= 80 ? 128 : 64) && p.box_d == kBox &&
-         p.chunks == chunks && p.stages >= 2 && p.stages <= 8 &&
-         p.smem_bytes == plan_smem(p.block_q, p.block_k, chunks, p.stages) &&
-         p.smem_bytes <= kSmemLimit &&
-         p.grid_x == (t + p.block_q - 1) / p.block_q && p.grid_y == bh &&
-         bh >= 1 && bh <= 65535;
+  return p.head_class == attn90::head_class(d) && p.box_d == kBox &&
+         p.chunks == chunks &&
+         p.smem_bytes == attn90::smem_bytes(p.block_q, p.block_k, chunks,
+                                            chunks, p.stages) &&
+         attn90::tiles_ok(p.head_class, p.block_q, p.block_k, p.stages,
+                          p.smem_bytes, p.grid_x, p.grid_y, bh, t);
 }
 
+// attention_sm90.cuh's skeleton on bf16 Q and K: K1's rounding point
 template <int kDN, int kWG>
-struct Cfg {
-  static constexpr int kChunks = (kDN + kBox - 1) / kBox;
-  static constexpr int kBQ = 64 * kWG;
-  static constexpr int kBK = kDN <= 80 ? 128 : 64;  // registers
-  static constexpr int kSteps = (kDN + 15) / 16;  // k16 steps of Q K^T
-  static constexpr int kThreads = 128 * (kWG + 1);
-  static constexpr int kQSub = 64 * kChunks * kRowBytes;   // a warpgroup's Q
-  static constexpr int kTile = kBK * kChunks * kRowBytes;  // a K or V tile
-};
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// One consumer warpgroup: 64 query rows of a block against every key tile,
-// twice; the ring's tiles come in that order, each waited for and released
-// once. Products are issued one step ahead, and every loop starts and ends
-// in the same state of products in flight, so the compiler can follow which
-// registers each product owns: in pass 1 the tensor cores compute tile
-// kt + 1's scores while this warpgroup reduces tile kt's; in pass 2 they
-// compute tile kt's P V while the exponentials of tile kt + 1 run (its
-// scores issued just before).
-template <class C>
-struct Consumer {
-  static constexpr int kS = C::kBK / 2;  // score registers per thread
-  static constexpr int kWG = C::kBQ / 64;
-  uint32_t q_sub, kv_smem, full_bar, empty_bar;
-  int t, ntiles, stages, lane, wg;
-  float c;  // scale * log2(e)
-  sm90::Slot load, done;  // the next tile to wait for, and to release
-
-  // With two consumer warpgroups their products are issued in turns (named
-  // barriers 1 and 2): one warpgroup's products run on the tensor cores
-  // while the other's exponentials run on the SFU. Each issues the same
-  // number of sections, warpgroup 0 first.
-  __device__ void my_turn() const {
-    if constexpr (kWG == 2) sm90::bar_sync(1 + wg, 256);
-  }
-  __device__ void your_turn() const {
-    if constexpr (kWG == 2) sm90::bar_arrive(2 - wg, 256);
-  }
-
-  __device__ uint32_t k_tile(const sm90::Slot& slot) const {
-    return kv_smem + 2 * slot.stage * C::kTile;
-  }
-
-  // S = Q K^T (unscaled) of the next tile of the ring, issued, not waited
-  // for
-  __device__ void issue_scores(float (&s)[kS]) {
-    sm90::mbar_wait(full_bar + 8 * load.stage, load.phase);
-    const uint32_t k = k_tile(load);
-    load.next(stages);
-    sm90::fence_regs(s);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::kSteps; ++kk) {
-      const uint32_t along = (kk % 4) * 32;  // 16 bf16 along a swizzled row
-      const uint32_t chunk = kk / 4;
-      sm90::WgmmaSs<C::kBK>::ss(
-          s,
-          sm90::desc_sw128(q_sub + chunk * 64 * kRowBytes + along, 16, 1024),
-          sm90::desc_sw128(k + chunk * C::kBK * kRowBytes + along, 16, 1024),
-          kk > 0);
-    }
-    sm90::wgmma_commit();
-  }
-
-  // wait until at most kPending product groups are in flight; s is ready
-  template <int kPending>
-  __device__ void wait(float (&s)[kS]) const {
-    sm90::wgmma_wait<kPending>();
-    sm90::fence_regs(s);
-  }
-
-  // the oldest tile held is read: its stage goes back to the producer
-  __device__ void release() {
-    if (lane == 0) sm90::mbar_arrive(empty_bar + 8 * done.stage);
-    done.next(stages);
-  }
-
-  // keys >= t of key tile kt (zero-filled rows, scored 0) set to `value`;
-  // only the last tile can hold them
-  __device__ void mask(float (&s)[kS], int kt, float value) const {
-    const int key0 = kt * C::kBK + 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < kS / 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (key0 + 8 * j + (e & 1) >= t) s[4 * j + e] = value;
-      }
-    }
-  }
-
-  // pass 1 on key tile kt: update the running max m (log2 units) and this
-  // thread's share of the sum l of 2^(s c - m), for its two rows. With c > 0
-  // the max of s c is c times the max of s, and 2^(s c - m) is one FMA and
-  // one exponential per score; c <= 0 (no caller's) scales first.
-  __device__ void stats(float (&s)[kS], int kt, float (&m)[2],
-                        float (&l)[2]) const {
-    const bool ragged = (kt + 1) * C::kBK > t;
-    const bool positive = c > 0.f;
-    if (!positive) {
-#pragma unroll
-      for (int i = 0; i < kS; ++i) s[i] *= c;
-    }
-    if (ragged) mask(s, kt, -INFINITY);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < kS; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
-    const float cs = positive ? c : 1.f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // every tile holds a key < t, so the new max is finite
-      const float mn = fmaxf(m[r], quad_max(mx[r]) * cs);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kS / 4; ++j) {
-        sum += ex2(fmaf(s[4 * j + 2 * r], cs, -mn)) +
-               ex2(fmaf(s[4 * j + 2 * r + 1], cs, -mn));
-      }
-      l[r] = l[r] * ex2(m[r] - mn) + sum;
-      m[r] = mn;
-    }
-  }
-
-  // pass 2 on key tile kt, in place: p = 2^(s c - m) * (1 / l) in fp32,
-  // keys >= t masked to 0
-  __device__ void probs(float (&s)[kS], int kt, const float (&m)[2],
-                        const float (&r)[2]) const {
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const int row = (i / 2) % 2;
-      s[i] = ex2(fmaf(s[i], c, -m[row])) * r[row];
-    }
-    if ((kt + 1) * C::kBK > t) mask(s, kt, 0.f);
-  }
-
-  // P rounded to bf16 (K1's rounding point). Keys 16kk..16kk+15 are the
-  // score column blocks 2kk and 2kk+1: their bf16 pairs p[4kk..4kk+3] are
-  // the A fragment of that k16 step of P V.
-  __device__ void round(const float (&s)[kS], uint32_t (&p)[kS / 2]) const {
-#pragma unroll
-    for (int j = 0; j < kS / 4; ++j) {
-      p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
-      p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-    }
-  }
-
-  // O += P V of the oldest tile held, issued
-  template <int kDN>
-  __device__ void issue_pv(uint32_t (&p)[kS / 2],
-                           float (&acc)[kDN / 2]) const {
-    const uint32_t v = k_tile(done) + C::kTile;
-    sm90::fence_regs(acc);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C::kBK / 16; ++kk) {
-      sm90::WgmmaRs<kDN>::rs(
-          acc, &p[4 * kk],
-          sm90::desc_sw128(v + kk * 16 * kRowBytes, C::kBK * kRowBytes, 1024),
-          1);
-    }
-    sm90::wgmma_commit();
-  }
-
-  // the oldest tile's P V done: its operands and its stage are free
-  template <int kDN>
-  __device__ void finish_pv(uint32_t (&p)[kS / 2], float (&acc)[kDN / 2]) {
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(acc);
-    sm90::fence_regs(p);
-    release();
-  }
-};
-
-// Shared memory, from a 1,024-byte aligned base: Q (one 64-row sub-tile per
-// consumer warpgroup, each `chunks` boxes of 64 x 64), then per stage a K
-// tile and a V tile (`chunks` boxes of block_k x 64 each), then the
-// barriers: q, full[stages], empty[stages].
-template <int kDN, int kWG>
-__global__ void __launch_bounds__(Cfg<kDN, kWG>::kThreads, 1)
+__global__ void __launch_bounds__(attn90::Cfg<false, kDN, kWG>::kThreads, 1)
     attention_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               __nv_bfloat16* __restrict__ o, Strides so,
                               int heads, int t, int d, int stages, float c) {
-  using C = Cfg<kDN, kWG>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t q_smem = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t kv_smem = q_smem + kWG * C::kQSub;
-  const uint32_t q_bar = kv_smem + 2 * stages * C::kTile;
-  const uint32_t full_bar = q_bar + 8;            // + 8 s
-  const uint32_t empty_bar = full_bar + 8 * stages;  // + 8 s
-
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y - b * heads;
-  const int q0 = blockIdx.x * C::kBQ;
-  const int ntiles = (t + C::kBK - 1) / C::kBK;
-
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(q_bar, 1);
-    for (int s = 0; s < stages; ++s) {
-      sm90::mbar_init(full_bar + 8 * s, 1);
-      sm90::mbar_init(empty_bar + 8 * s, 4 * kWG);  // one arrival per warp
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-
-  // the warpgroup index, broadcast so the compiler sees it is uniform
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  if (wg == kWG) {
-    // producer warpgroup: one thread issues every copy
-    if constexpr (kWG == 2) sm90::regs_dealloc<kProducerRegs>();
-    if (threadIdx.x == 128 * kWG) {
-      sm90::tma_prefetch_map(&tq);
-      sm90::tma_prefetch_map(&tk);
-      sm90::tma_prefetch_map(&tv);
-      sm90::mbar_expect_tx(q_bar, kWG * C::kQSub);
-#pragma unroll
-      for (int w = 0; w < kWG; ++w) {
-#pragma unroll
-        for (int ch = 0; ch < C::kChunks; ++ch) {
-          sm90::tma_load_4d(q_smem + w * C::kQSub + ch * 64 * kRowBytes, &tq,
-                            q_bar, ch * kBox, h, q0 + 64 * w, b);
-        }
-      }
-      sm90::Slot slot;  // the ring across both passes
-      for (int pass = 0; pass < 2; ++pass) {
-        for (int kt = 0; kt < ntiles; ++kt, slot.next(stages)) {
-          const uint32_t s = slot.stage;
-          const uint32_t k_tile = kv_smem + 2 * s * C::kTile;
-          sm90::mbar_wait(empty_bar + 8 * s, slot.phase ^ 1);
-          sm90::mbar_expect_tx(full_bar + 8 * s, (pass + 1) * C::kTile);
-#pragma unroll
-          for (int ch = 0; ch < C::kChunks; ++ch) {
-            sm90::tma_load_4d(k_tile + ch * C::kBK * kRowBytes, &tk,
-                              full_bar + 8 * s, ch * kBox, h, kt * C::kBK, b);
-          }
-          if (pass == 1) {
-#pragma unroll
-            for (int ch = 0; ch < C::kChunks; ++ch) {
-              sm90::tma_load_4d(k_tile + C::kTile + ch * C::kBK * kRowBytes,
-                                &tv, full_bar + 8 * s, ch * kBox, h,
-                                kt * C::kBK, b);
-            }
-          }
-        }
-      }
-    }
-  } else {
-    // consumer warpgroup wg: query rows [q0 + 64 wg, q0 + 64 wg + 64)
-    if constexpr (kWG == 2) sm90::regs_alloc<kConsumerRegs>();
-    const int lane = threadIdx.x % 32;
-    const int row = q0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
-    const int col0 = 2 * (lane % 4);  // this thread's first column of each 8
-    Consumer<C> cons{q_smem + wg * C::kQSub, kv_smem, full_bar, empty_bar,
-                     t, ntiles, stages, lane, wg, c};
-    if (wg == 1) cons.your_turn();  // warpgroup 0 issues first
-    // two score buffers: tile kt's in one while kt + 1's is computed
-    float sa[C::kBK / 2], sb[C::kBK / 2];
-    // rows `row` and `row + 8`: running max (log2 units) and this thread's
-    // share of the sum
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    sm90::mbar_wait(q_bar, 0);
-
-    // pass 1: row max and row sum of 2^(s c - max); tile kt's scores in
-    // sa (kt even) or sb (kt odd)
-    cons.my_turn();
-    cons.issue_scores(sa);
-    cons.your_turn();
-    int kt = 0;
-    for (; kt + 2 < ntiles; kt += 2) {
-      cons.my_turn();
-      cons.issue_scores(sb);
-      cons.your_turn();
-      cons.template wait<1>(sa);
-      cons.release();
-      cons.stats(sa, kt, m, l);
-      cons.my_turn();
-      cons.issue_scores(sa);
-      cons.your_turn();
-      cons.template wait<1>(sb);
-      cons.release();
-      cons.stats(sb, kt + 1, m, l);
-    }
-    if (kt + 1 < ntiles) {
-      cons.my_turn();
-      cons.issue_scores(sb);
-      cons.your_turn();
-      cons.template wait<1>(sa);
-      cons.release();
-      cons.stats(sa, kt, m, l);
-      cons.template wait<0>(sb);
-      cons.release();
-      cons.stats(sb, kt + 1, m, l);
-    } else {
-      cons.template wait<0>(sa);
-      cons.release();
-      cons.stats(sa, kt, m, l);
-    }
-    const float r[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
-
-    // pass 2: P rounded to bf16 after the division, O += P V in fp32; sa
-    // holds tile kt's scores, then its probabilities
-    float acc[kDN / 2];
-#pragma unroll
-    for (int i = 0; i < kDN / 2; ++i) acc[i] = 0.f;
-    uint32_t p[C::kBK / 4];
-    cons.my_turn();
-    cons.issue_scores(sa);
-    cons.your_turn();
-    cons.template wait<0>(sa);
-    cons.probs(sa, 0, m, r);
-    for (kt = 0; kt + 1 < ntiles; ++kt) {
-      cons.round(sa, p);
-      cons.my_turn();
-      cons.issue_scores(sa);
-      cons.template issue_pv<kDN>(p, acc);
-      cons.your_turn();
-      cons.template wait<1>(sa);  // the scores, issued first; P V in flight
-      cons.probs(sa, kt + 1, m, r);
-      cons.template finish_pv<kDN>(p, acc);
-    }
-    cons.round(sa, p);
-    cons.my_turn();
-    cons.template issue_pv<kDN>(p, acc);
-    cons.your_turn();
-    cons.template finish_pv<kDN>(p, acc);
-    if (wg == 0) cons.my_turn();  // takes warpgroup 1's last turn
-
-    // O rounded to bf16 once; rows < t, columns < d
-    __nv_bfloat16* ob = o + b * so.b + h * so.h;
-#pragma unroll
-    for (int j = 0; j < kDN / 8; ++j) {
-      const int col = 8 * j + col0;
-      if (col < d) {
-        if (row < t) {
-          *reinterpret_cast<uint32_t*>(ob + row * so.t + col) =
-              pack_bf16(acc[4 * j], acc[4 * j + 1]);
-        }
-        if (row + 8 < t) {
-          *reinterpret_cast<uint32_t*>(ob + (row + 8) * so.t + col) =
-              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-        }
-      }
-    }
-  }
+  attn90::forward<false, kDN, kWG>(tq, tk, tv, o, so, heads, t, d, stages,
+                                   c);
 }
 
-template <int kDN, int kWG>
-int launch_sm90_as(const Plan& p, const CUtensorMap* maps, void* o,
-                   const Strides& so, int heads, int t, int d, float c,
-                   cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel_sm90<kDN, kWG>;
-  // once per instantiation: any plan's shared memory is within the limit
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<dim3(p.grid_x, p.grid_y), Cfg<kDN, kWG>::kThreads, p.smem_bytes,
-           stream>>>(maps[0], maps[1], maps[2],
-                     static_cast<__nv_bfloat16*>(o), so, heads, t, d,
-                     p.stages, c);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kWG>
-int launch_sm90_wg(const Plan& p, const CUtensorMap* maps, void* o,
-                   const Strides& so, int heads, int t, int d, float c,
-                   cudaStream_t stream) {
-  switch (p.head_class) {
-    case 16: return launch_sm90_as<16, kWG>(p, maps, o, so, heads, t, d, c, stream);
-    case 32: return launch_sm90_as<32, kWG>(p, maps, o, so, heads, t, d, c, stream);
-    case 40: return launch_sm90_as<40, kWG>(p, maps, o, so, heads, t, d, c, stream);
-    case 64: return launch_sm90_as<64, kWG>(p, maps, o, so, heads, t, d, c, stream);
-    case 80: return launch_sm90_as<80, kWG>(p, maps, o, so, heads, t, d, c, stream);
-    case 128: return launch_sm90_as<128, kWG>(p, maps, o, so, heads, t, d, c, stream);
-    case 160: return launch_sm90_as<160, kWG>(p, maps, o, so, heads, t, d, c, stream);
+struct K1Kernel {
+  static constexpr bool kS8 = false;
+  template <int kDN, int kWG>
+  static auto kernel() {
+    return attention_fwd_kernel_sm90<kDN, kWG>;
   }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+};
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int batch, int t, int heads, int d, const long long* st,
@@ -712,11 +289,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                                      d, st + 3 * i, i == 0 ? 64 : p.block_k);
     if (err != 0) return err;
   }
-  const Strides so{st[9], st[10], st[11]};
-  const float c = scale * kLog2e;
-  return p.block_q == 128
-             ? launch_sm90_wg<2>(p, maps, o, so, heads, t, d, c, stream)
-             : launch_sm90_wg<1>(p, maps, o, so, heads, t, d, c, stream);
+  const attn90::Launch a{p.head_class, p.block_q, p.smem_bytes, p.grid_x,
+                         p.grid_y, p.stages, maps,
+                         static_cast<__nv_bfloat16*>(o),
+                         Strides{st[9], st[10], st[11]}, heads, t, d,
+                         scale * attn90::kLog2e};
+  return attn90::launch<K1Kernel>(a, stream);
 }
 
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,

@@ -37,18 +37,34 @@
 // shared memory, so the image is not carried over block by block. Four
 // kernels on the stream, each tiled for shared memory, hand int8 and bf16
 // intermediates through device memory (L2 holds them at these sizes):
-//   a. ln_quant: one warp per token row, LN + quantize -> x8 [B*T, C];
-//   b. qkv (s8_gemm_kernel, s8_common.cuh): 64x64 output tiles of
-//      x8 [Wq; Wk; Wv]^T (int8 wmma, int32), the epilogue requantizing q8
-//      and k8 per column and dequantizing v to bf16;
-//   c. attention: one block per (image*head, 64-query tile); int8 Q K^T
-//      with d zero-padded in shared memory to a multiple of 16 (40 -> 48;
-//      zeros are exact), two passes over 64-key tiles as K1 (row max, then
-//      bf16 P, its fp32 sum and P V on bf16 wmma), o in bf16;
-//   d. out (bf16_gemm_kernel, s8_common.cuh): 64x64 tiles of o Wo^T on
-//      bf16 wmma with fp32 sums, the residual and bias epilogue.
-// Every product of the TPU kernel's body runs in these kernels. A simple
-// kernel that is right comes first; speed is later work.
+//   a. ln_quant (s8_common.cuh): one warp per token row, LN + quantize ->
+//      x8 [B*T, C];
+//   b. qkv: gemm_sm90.cuh's int8 product x8 [Wq; Wk; Wv]^T (TMA ring,
+//      wgmma, int32 sums), QkvPadEpi requantizing q8 and k8 per column from
+//      the registers into a head-padded scratch [B*T, H, dp] (dp = d
+//      rounded up to 32: a tensor map's strides are multiples of 16 bytes,
+//      and a head at h*d bytes of a [B*T, C] row is not; TMA writes zeros
+//      past d whatever the padding holds) and dequantizing v to bf16
+//      [B*T, C];
+//   c. attention (attn_s8_kernel_sm90 below): the Hopper skeleton K1 runs
+//      on (attention_sm90.cuh) with an int8 score product: one block per
+//      (image*head, 64 or 128 queries), a producer warpgroup issuing TMA
+//      loads of Q, then K (pass 1) and K and V (pass 2) through a ring;
+//      S = q8 k8^T on s8 wgmma into int32 registers; pass 1 keeps only the
+//      row max, in int32 (the scale as^2 d^-0.5 is positive, so the max of
+//      float(s) * scale is float(max s) * scale); pass 2 forms p =
+//      bf16(2^(float(s) c - m c)), c = scale * log2(e), adds the *rounded*
+//      p to l, and accumulates P V on bf16 wgmma with P from registers;
+//      o = bf16(acc / l). This is not K1's epilogue: K1 divides p by l
+//      before rounding it (its P is normalised), K3 rounds the unnormalised
+//      p and divides the fp32 sum P V by the sum of the rounded p, as
+//      _abs_padded_ln_s8_vt_body does (step 5). Two passes keep the row max
+//      exact; a one-pass online softmax would round p against a running max;
+//   d. out: gemm_sm90.cuh's bf16 product o Wo^T with fp32 sums and the
+//      residual and bias epilogue.
+// The plans of b., c. and d. (tiles, ring depth, shared memory, grid) come
+// from ops/gemm.py:sm90_gemm_plan and ops/attention_s8.py:
+// sm90_s8_attention_plan, and are checked here.
 //
 // K8 replaces _attn_kernel_abs_padded_ln_s8_vt_pin (pallas_call in
 // _abs_padded_ln_s8_vt_pin_impl, absorbed_padded_ln_self_attention_s8 with
@@ -57,161 +73,146 @@
 //      that is never rounded to bf16: the LN reads it and so does the
 //      residual of step 6.
 // So K8 is K3's four kernels on an fp32 residual stream (launch<float>)
-// behind a fifth, the prologue: 64x64 tiles of x Wpi^T on bf16 wmma with
+// behind a fifth, the prologue (s8_common.cuh's bf16_gemm_kernel, not yet
+// moved to gemm_sm90.cuh): 64x64 tiles of x Wpi^T on bf16 wmma with
 // the bias epilogue, into an fp32 scratch [B*T, C]. It reads x either as
 // tokens [B, T, C] or channel-major [B, C, T], the GroupNorm's NCHW output
 // as it lies, which saves the caller a permute copy. Its 2*T*C^2 bf16
 // operations per image add ~1/3 to K3's bf16 work at every level.
 
+#include "attention_sm90.cuh"
+#include "gemm_sm90.cuh"
 #include "s8_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace s8;
+using namespace s8;  // ln_quant, quant_s8; K8's prologue (bf16_gemm_kernel)
 
-constexpr int kMaxD = 160;                // largest head dim taken
-constexpr int kMaxDTiles = kMaxD / 16;    // output column tiles per warp
-constexpr int kPld = kTile + 8;           // P row stride (bf16)
+constexpr int kMaxD = 160;  // largest head dim taken
 
-// load_head_s8 (s8_common.cuh) for one head's bf16 columns, into a
-// row-major [64][ld] tile
-__device__ __forceinline__ void load_head_bf16(
-    __nv_bfloat16* dst, int ld, const __nv_bfloat16* __restrict__ src, int c,
-    int row0, int t, int d, int dp) {
-  const int units = dp / 8;
-  for (int i = threadIdx.x; i < kTile * units; i += kThreads) {
-    const int r = i / units;
-    const int u = i - r * units;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t && u * 8 < d) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * c + u * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + u * 8) = val;
+// ---- b: the projection's epilogue -----------------------------------------
+// q8 and k8 requantized per column, clip(rint(sum * m[col])), into the
+// head-padded [rows, heads, dp]; v dequantized to bf16 [rows, c]; the
+// product's columns are q | k | v (QkvEpi's arithmetic, s8_common.cuh).
+// Where a column goes is worked out once per column and block (a code in
+// the int per-column vector: its section and its offset in the row), so
+// the pairs' stores take no division. A column pair never straddles a
+// head or a section: c and d are multiples of 8 and a pair starts on an
+// even column.
+struct QkvPadEpi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 1;     // m
+  static constexpr int kIntCols = 1;  // the column's code
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  const float* m;
+  int8_t* q8;
+  int8_t* k8;
+  __nv_bfloat16* v;
+  int c, d, dp, heads;
+  __device__ float col_value(int, int col) const { return __ldg(m + col); }
+  __device__ int col_int(int, int col) const {
+    const int which = col / c;
+    const int cc = col - which * c;
+    const int h = cc / d;
+    return which << 28 | (which == 2 ? cc : h * dp + (cc - h * d));
   }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2* cv,
+                             const int2* ci, const RowPre&, const Pre&,
+                             int s0, int s1) const {
+    const float f0 = static_cast<float>(s0) * cv[0].x;
+    const float f1 = static_cast<float>(s1) * cv[0].y;
+    const int code = ci[0].x;
+    const int which = code >> 28;
+    const int off = code & ((1 << 28) - 1);
+    if (which == 2) {
+      *reinterpret_cast<uint32_t*>(v + static_cast<long long>(row) * c +
+                                   off) = sm90::pack_bf16(f0, f1);
+      return;
+    }
+    *reinterpret_cast<char2*>((which == 0 ? q8 : k8) +
+                              static_cast<long long>(row) * heads * dp +
+                              off) = make_char2(quant_s8(f0), quant_s8(f1));
+  }
+};
+
+// ---- c: attention per (image*head, query tile) -----------------------------
+// The launch plan as ops/attention_s8.py:sm90_s8_attention_plan lays it out
+struct AttnPlan {
+  int head_class;  // N of P V: d rounded up to a compiled class
+  int block_q;     // query rows per block, 64 per consumer warpgroup
+  int block_k;     // keys per tile
+  int stages;      // depth of the K/V ring
+  int qk_chunks;   // 128-column int8 boxes across a head of q8/k8
+  int v_chunks;    // 64-column bf16 boxes across a head of v
+  int dp;          // the head-padded width of q8 and k8
+  int smem_bytes;  // dynamic shared memory of the launch
+  int grid_x;      // query tiles
+  int grid_y;      // B * H
+};
+constexpr int kAttnPlanInts = 10;
+
+bool attn_plan_ok(const AttnPlan& p, int bh, int t, int d) {
+  const int hc = attn90::head_class(d);
+  const int qk_chunks = ((hc + 31) / 32 + 3) / 4;
+  const int v_chunks = (hc + 63) / 64;
+  return p.head_class == hc && p.qk_chunks == qk_chunks &&
+         p.v_chunks == v_chunks && p.dp == (d + 31) / 32 * 32 &&
+         p.smem_bytes == attn90::smem_bytes(p.block_q, p.block_k, qk_chunks,
+                                            v_chunks, p.stages) &&
+         attn90::tiles_ok(hc, p.block_q, p.block_k, p.stages, p.smem_bytes,
+                          p.grid_x, p.grid_y, bh, t);
 }
 
-// ---- c: attention per (image*head, 64-query tile) ------------------------
-__global__ void __launch_bounds__(kThreads)
-    attn_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int heads, int t, int c, int d,
-                float score_scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(256) unsigned char smem[];
-  const int dp = (d + 15) & ~15;
-  const int vld = dp + 8;
-  int8_t* Qs = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ks = Qs + kTile * dp;
-  int* S = reinterpret_cast<int*>(Ks + kTile * dp);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(S + kTile * kStageLd);
-  __nv_bfloat16* Ps = Vs + kTile * vld;
+// attention_sm90.cuh's skeleton on int8 q8 and k8: K3's rounding point
+template <int kDN, int kWG>
+__global__ void __launch_bounds__(attn90::Cfg<true, kDN, kWG>::kThreads, 1)
+    attn_s8_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, attn90::Strides so,
+                        int heads, int t, int d, int stages, float c) {
+  attn90::forward<true, kDN, kWG>(tq, tk, tv, o, so, heads, t, d, stages, c);
+}
 
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y - b * heads;
-  const int q0 = blockIdx.x * kTile;
-  const long long base = static_cast<long long>(b) * t * c + h * d;
-  const int8_t* qb = q8 + base;
-  const int8_t* kb = k8 + base;
-  const __nv_bfloat16* vb = v + base;
-
-  load_head_s8(Qs, qb, c, q0, t, d, dp);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x / 32;
-  const int row = warp * 16 + (lane >> 1);  // this lane pair's query row
-  const int half = lane & 1;                // columns half, half+2, ...
-  float m_run = -INFINITY;
-
-  // pass 1: the row max of the scaled scores
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();
-    load_head_s8(Ks, kb, c, k0, t, d, dp);
-    __syncthreads();
-    score_tile(Qs, Ks, S, dp);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int cc = half + 2 * j;
-      if (k0 + cc < t) {
-        m_run = fmaxf(m_run,
-                      static_cast<float>(S[row * kStageLd + cc]) * score_scale);
-      }
-    }
-    __syncwarp();
+struct K3Kernel {
+  static constexpr bool kS8 = true;
+  template <int kDN, int kWG>
+  static auto kernel() {
+    return attn_s8_kernel_sm90<kDN, kWG>;
   }
-  m_run = fmaxf(m_run, __shfl_xor_sync(0xffffffffu, m_run, 1));
+};
 
-  // pass 2: p = bf16(exp(s - max)), l += p, O += P V (bf16, fp32 sums)
-  const int ntiles = dp / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_o[kMaxDTiles];
-#pragma unroll
-  for (int n = 0; n < kMaxDTiles; ++n) wmma::fill_fragment(acc_o[n], 0.f);
-  float l_run = 0.f;
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();
-    load_head_s8(Ks, kb, c, k0, t, d, dp);
-    load_head_bf16(Vs, vld, vb, c, k0, t, d, dp);
-    __syncthreads();
-    score_tile(Qs, Ks, S, dp);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int cc = half + 2 * j;
-      __nv_bfloat16 p = __float2bfloat16_rn(0.f);
-      if (k0 + cc < t) {
-        const float s =
-            static_cast<float>(S[row * kStageLd + cc]) * score_scale;
-        p = __float2bfloat16_rn(expf(s - m_run));
-      }
-      l_run += __bfloat162float(p);
-      Ps[row * kPld + cc] = p;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a;
-      wmma::load_matrix_sync(a, Ps + warp * 16 * kPld + kk * 16, kPld);
-#pragma unroll
-      for (int n = 0; n < kMaxDTiles; ++n) {
-        if (n < ntiles) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bv;
-          wmma::load_matrix_sync(bv, Vs + kk * 16 * vld + n * 16, vld);
-          wmma::mma_sync(acc_o[n], a, bv, acc_o[n]);
-        }
-      }
-    }
+// q8, k8 int8 [batch*t, heads, dp] (the padding never read), v bf16
+// [batch*t, c], o bf16 [batch*t, c]; score_scale > 0
+int launch_attn(const int* plan, const int8_t* q8, const int8_t* k8,
+                const __nv_bfloat16* v, __nv_bfloat16* o, int batch, int t,
+                int c, int heads, float score_scale, cudaStream_t stream) {
+  const AttnPlan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+                   plan[5], plan[6], plan[7], plan[8], plan[9]};
+  const int d = c / heads;
+  if (!attn_plan_ok(p, batch * heads, t, d) || !(score_scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-
-  // o = bf16(acc / l) for query rows < t and columns < d, staged per warp
-  // through this warp's rows of S
-  float* stage = reinterpret_cast<float*>(S) + warp * 16 * kStageLd;
-  __nv_bfloat16* ob = o + base;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < kMaxDTiles; ++n) {
-    if (n < ntiles) {
-      wmma::store_matrix_sync(stage, acc_o[n], kStageLd, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane >> 1;
-      const int grow = q0 + warp * 16 + r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int cc = n * 16 + (lane & 1) * 8 + j;
-        if (grow < t && cc < d) {
-          ob[static_cast<long long>(grow) * c + cc] =
-              __float2bfloat16_rn(stage[r * kStageLd + (lane & 1) * 8 + j] /
-                                  l_run);
-        }
-      }
-      __syncwarp();
-    }
-  }
+  const int current = sm90::make_current(q8);
+  if (current != 0) return current;
+  CUtensorMap maps[3];
+  int err = sm90::encode_map_s8(&maps[0], q8, batch, t, heads, d, p.dp, 64);
+  if (err != 0) return err;
+  err = sm90::encode_map_s8(&maps[1], k8, batch, t, heads, d, p.dp,
+                            p.block_k);
+  if (err != 0) return err;
+  const long long st[3] = {static_cast<long long>(t) * c, c, d};
+  err = sm90::encode_map(&maps[2], v, batch, t, heads, d, st, p.block_k);
+  if (err != 0) return err;
+  const attn90::Launch a{p.head_class, p.block_q, p.smem_bytes, p.grid_x,
+                         p.grid_y, p.stages, maps, o,
+                         attn90::Strides{st[0], st[1], st[2]}, heads, t, d,
+                         score_scale * attn90::kLog2e};
+  return attn90::launch<K3Kernel>(a, stream);
 }
 
 // the prologue's epilogue: xf = sum + bias[col] in fp32, [rows, n]
@@ -225,41 +226,33 @@ struct BiasF32Epi {
   }
 };
 
-size_t attn_smem(int d) {
-  const int dp = (d + 15) & ~15;
-  return 2 * kTile * dp + kTile * kStageLd * sizeof(int) +
-         (kTile * (dp + 8) + kTile * kPld) * sizeof(__nv_bfloat16);
-}
-
+// plans: ops/gemm.py:sm90_gemm_plan's of the projection ([rows, c] x [3c,
+// c]^T, int8), ops/attention_s8.py:sm90_s8_attention_plan's, and
+// sm90_gemm_plan's of to_out ([rows, c] x [c, c]^T, bf16), in that order
+// (9 + 10 + 9 ints)
 template <typename T>
 int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
            const float* out_b, const int8_t* w_qkv, const float* m_qkv,
            const __nv_bfloat16* wo, int8_t* x8, int8_t* q8, int8_t* k8,
            __nv_bfloat16* v, __nv_bfloat16* o, int batch, int t, int c,
            int heads, float xs, float score_scale, float eps,
-           cudaStream_t stream) {
+           const int* plans, cudaStream_t stream) {
   const int rows = batch * t;
   const int d = c / heads;
   int err = launch_ln_quant<T>(x, x8, ln_w, ln_b, rows, c, xs, eps, nullptr,
                                0, stream);
   if (err != 0) return err;
-  err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
-                       QkvEpi<false>{m_qkv, q8, k8, v, c}, stream);
+  err = gemm90::launch_gemm<true>(
+      plans, x8, w_qkv, rows, 3 * c, c, 0,
+      QkvPadEpi{m_qkv, q8, k8, v, c, d, (d + 31) / 32 * 32, heads}, stream);
   if (err != 0) return err;
-  const size_t smem = attn_smem(d);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
+  err = launch_attn(plans + gemm90::kPlanInts, q8, k8, v, o, batch, t, c,
+                    heads, score_scale, stream);
   if (err != 0) return err;
-  const dim3 grid_attn((t + kTile - 1) / kTile, batch * heads);
-  attn_kernel<<<grid_attn, kThreads, smem, stream>>>(q8, k8, v, o, heads, t,
-                                                      c, d, score_scale);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch_bf16_gemm<false>(
-      o, wo, rows, c, c, t,
-      ResidualEpi<T>{static_cast<const T*>(x), out_b,
-                     static_cast<__nv_bfloat16*>(out), c},
+  return gemm90::launch_gemm<false>(
+      plans + gemm90::kPlanInts + kAttnPlanInts, o, wo, rows, c, c, 0,
+      gemm90::ResidualEpi<T>{static_cast<const T*>(x), out_b,
+                             static_cast<__nv_bfloat16*>(out), c},
       stream);
 }
 
@@ -268,14 +261,16 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
 // dtype of x: 0 = float32, 1 = bfloat16; out is bf16. x, out [batch*t, c]
 // contiguous; w_qkv int8 [3c, c] (rows: q, k, v output columns), m_qkv fp32
 // [3c] (q/k requant factors, v dequant factors), wo bf16 [c, c] (out, in).
-// x8, q8, k8 int8 and v, o bf16, each [batch*t, c], are scratch. Returns a
-// cudaError_t (0 on success).
+// x8 int8 [batch*t, c], q8 and k8 int8 [batch*t, heads, dp] (dp = d rounded
+// up to 32), v and o bf16 [batch*t, c] are scratch. score_scale > 0. plans:
+// the three plans of launch() above. Returns a cudaError_t (0 on
+// success).
 extern "C" int ldmseg_attention_ln_s8(
     int dtype, const void* x, void* out, const float* ln_w,
     const float* ln_b, const float* out_b, const int8_t* w_qkv,
     const float* m_qkv, const void* wo, int8_t* x8, int8_t* q8, int8_t* k8,
     void* v, void* o, int batch, int t, int c, int heads, float xs,
-    float score_scale, float eps, void* stream) {
+    float score_scale, float eps, const int* plans, void* stream) {
   if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
       (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -287,12 +282,12 @@ extern "C" int ldmseg_attention_ln_s8(
   if (dtype == 0) {
     return launch<float>(x, out, ln_w, ln_b, out_b, w_qkv, m_qkv, wob, x8, q8,
                          k8, vb, obf, batch, t, c, heads, xs, score_scale,
-                         eps, s);
+                         eps, plans, s);
   }
   if (dtype == 1) {
     return launch<__nv_bfloat16>(x, out, ln_w, ln_b, out_b, w_qkv, m_qkv, wob,
                                  x8, q8, k8, vb, obf, batch, t, c, heads, xs,
-                                 score_scale, eps, s);
+                                 score_scale, eps, plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -307,7 +302,7 @@ extern "C" int ldmseg_attention_ln_s8_pin(
     const float* out_b, const int8_t* w_qkv, const float* m_qkv,
     const void* wo, int8_t* x8, int8_t* q8, int8_t* k8, void* v, void* o,
     int batch, int t, int c, int heads, float xs, float score_scale,
-    float eps, void* stream) {
+    float eps, const int* plans, void* stream) {
   if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
       (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
       (channels_major && t % 8 != 0)) {
@@ -327,7 +322,7 @@ extern "C" int ldmseg_attention_ln_s8_pin(
                        static_cast<const __nv_bfloat16*>(wo), x8, q8, k8,
                        static_cast<__nv_bfloat16*>(v),
                        static_cast<__nv_bfloat16*>(o), batch, t, c, heads,
-                       xs, score_scale, eps, s);
+                       xs, score_scale, eps, plans, s);
 }
 
 // K10 with v_bf16=True: replaces ldmseg_tpu/ops/pallas/attention.py:
@@ -346,8 +341,8 @@ extern "C" int ldmseg_attention_ln_s8_rowmajor(
     const float* ln_b, const float* out_b, const int8_t* w_qkv,
     const float* m_qkv, const void* wo, int8_t* x8, int8_t* q8, int8_t* k8,
     void* v, void* o, int batch, int t, int c, int heads, float xs,
-    float score_scale, float eps, void* stream) {
+    float score_scale, float eps, const int* plans, void* stream) {
   return ldmseg_attention_ln_s8(dtype, x, out, ln_w, ln_b, out_b, w_qkv,
                                 m_qkv, wo, x8, q8, k8, v, o, batch, t, c,
-                                heads, xs, score_scale, eps, stream);
+                                heads, xs, score_scale, eps, plans, stream);
 }

@@ -498,7 +498,7 @@ int launch_qkv_attention(const int8_t* x8, const int8_t* w_qkv,
   const int rows = batch * t;
   const int d = c / heads;
   int err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
-                           QkvEpi<true>{m_qkv, q8, k8, v8, c}, stream);
+                           QkvEpi{m_qkv, q8, k8, v8, c}, stream);
   if (err != 0) return err;
   const size_t smem = attn_smem(d);
   err = static_cast<int>(cudaFuncSetAttribute(

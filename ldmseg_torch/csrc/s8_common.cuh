@@ -1,12 +1,14 @@
 // Pieces shared by K3 and K8 (attention_ln_s8.cu), K4, K9 and K12
-// (geglu_ln_s8.cu) and K13 and K11 (attention_s8.cu): the (LayerNorm +)
-// static-scale int8 quantize of token rows, the int8 tile loaders, the 64x64
-// int8 product step and the int8 Q K^T score tile on tensor cores
-// (nvcuda::wmma s8 16x16x16 with int32 accumulators), and two whole
-// products on 64x64 output tiles with the caller's epilogue: int8 x int8
-// with int32 sums (K3's, K8's and K11's projections, K11's to_out) and
-// bf16 x bf16 with fp32 sums (K3's and K8's to_out, K8's proj_in prologue,
-// K9's proj_out epilogue).
+// (geglu_ln_s8.cu) and K13, K11, K15, K17 and K18 (attention_s8.cu): the
+// (LayerNorm +) static-scale int8 quantize of token rows (every one of
+// them), and the Ampere-era pieces that the kernels not yet moved to
+// gemm_sm90.cuh use: the int8 tile loaders, the 64x64 int8 product step
+// and the int8 Q K^T score tile on tensor cores (nvcuda::wmma s8 16x16x16
+// with int32 accumulators), and two whole products on 64x64 output tiles
+// with the caller's epilogue: int8 x int8 with int32 sums (K11's and K17's
+// projections, K11's to_out) and bf16 x bf16 with fp32 sums (K8's proj_in
+// prologue, K9's proj_out epilogue, K16's products). K3's, K4's and K12's
+// products run on gemm_sm90.cuh.
 //
 // Layout of an int8 tile in shared memory: "k-blocked", [depth / 16][64
 // rows][16]. Every 16-deep slice of a row then starts on a 16-byte boundary
@@ -376,45 +378,21 @@ int launch_bf16_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// epilogue: out = bf16((float(x) + sum) + bias[col]), x the residual stream
-// [rows, n] in its type (K3's and K8's to_out)
-template <typename T>
-struct ResidualEpi {
-  static constexpr bool kColMajor = false;
-  const T* x;
-  const float* bias;
-  __nv_bfloat16* out;
-  int n;
-  __device__ void operator()(int row, int col, float sum) const {
-    const long long at = static_cast<long long>(row) * n + col;
-    out[at] = __float2bfloat16_rn((to_f(x[at]) + sum) + bias[col]);
-  }
-};
-
-// epilogue: q8 and k8 requantized per column, clip(rint(sum * m[col])); v
-// dequantized to bf16 (K3, K8) or requantized to int8 like q and k (kV8,
-// K11); the three are [rows, c] each, the product's columns q | k | v
-template <bool kV8>
+// epilogue: q8, k8 and v8 requantized per column, clip(rint(sum * m[col]))
+// (K11), each [rows, c], the product's columns q | k | v (K3's head-padded
+// form with a bf16 v is attention_ln_s8.cu's QkvPadEpi)
 struct QkvEpi {
   static constexpr bool kColMajor = false;
   const float* m;
   int8_t* q8;
   int8_t* k8;
-  void* v;
+  int8_t* v8;
   int c;
   __device__ void operator()(int row, int col, int sum) const {
-    const float f = static_cast<float>(sum) * m[col];
     const int which = col / c;
     const long long at = static_cast<long long>(row) * c + (col - which * c);
-    if (which == 0) {
-      q8[at] = quant_s8(f);
-    } else if (which == 1) {
-      k8[at] = quant_s8(f);
-    } else if constexpr (kV8) {
-      static_cast<int8_t*>(v)[at] = quant_s8(f);
-    } else {
-      static_cast<__nv_bfloat16*>(v)[at] = __float2bfloat16_rn(f);
-    }
+    (which == 0 ? q8 : which == 1 ? k8 : v8)[at] =
+        quant_s8(static_cast<float>(sum) * m[col]);
   }
 };
 

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads
 // through a tensor map (and the maps' encoding on the host), bulk copies,
 // threads' stores into a swizzled tile, and warpgroup matrix products
-// (wgmma) on bf16 with fp32 sums. Used by attention_fwd.cu (K1, K14, K16's
-// attention stage) and attention_bwd.cu (K2).
+// (wgmma) on bf16 with fp32 sums and on int8 with int32 sums. Used by
+// attention_sm90.cuh (the forward skeleton of K1, K14, K16's and K3's
+// attention stage), attention_bwd.cu (K2) and gemm_sm90.cuh (the products
+// of K3, K4, K8, K9, K10 and K12).
 //
 // Shared-memory operands of wgmma are described by a 64-bit descriptor. The
 // tiles here are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: rows
@@ -14,17 +16,32 @@
 //   * MN-major (the output column contiguous: V for O = P V, "transposed"):
 //     8-deep groups 1,024 bytes apart (the stride offset), 64-column chunks
 //     `chunk_bytes` apart (the leading offset).
+// An int8 tile has the same byte geometry: a swizzled row holds 128 int8, a
+// k32 step of the int8 product moves 32 bytes along it, as a bf16 k16 step
+// does. The int8 product takes both operands K-major only (the PTX ISA has
+// no transposed 8-bit operand); every int8 operand here is K-major.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
 
+constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block
+constexpr int kRowBytes = 128;      // a swizzle row: a TMA box's row
+constexpr int kProducerRegs = 24;   // a producer warpgroup under setmaxnreg
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two floats rounded to a bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // --- mbarriers -------------------------------------------------------------
@@ -94,6 +111,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the box of the 2-D `map` at (c0, c1), innermost first; as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -229,6 +256,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+template <int kN>
+__device__ __forceinline__ void fence_regs(int (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // m64nNk16, bf16 in, fp32 accumulators d[N / 2] per thread. The warp w of
 // the warpgroup owns rows 16w + lane / 4 and 16w + lane / 4 + 8; d[4j + 0,
@@ -240,8 +272,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
 //     of d above for a 16-column slice), B MN-major in shared memory.
 //   WgmmaSsT<N>::ss: A and B both MN-major in shared memory (the backward's
 //     dQ = dS K, with dS stored as dS^T by store_sw128 and K as loaded).
+//   WgmmaS8<N>::ss: m64nNk32, int8 A (64 x 32) and B (32 x N) both K-major
+//     in shared memory, int32 sums d[N / 2] in the layout of d above.
 template <int kN>
 struct WgmmaSs;
+template <int kN>
+struct WgmmaS8;
 template <int kN>
 struct WgmmaRs;
 template <int kN>
@@ -481,7 +517,69 @@ struct WgmmaSsT<64> {
   }
 };
 
+#define R4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void ss(int* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20),
+          R4(d, 24), R4(d, 28)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20),
+          R4(d, 24), R4(d, 28), R4(d, 32), R4(d, 36), R4(d, 40), R4(d, 44),
+          R4(d, 48), R4(d, 52), R4(d, 56), R4(d, 60)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+#undef R4
 #undef F4
+
+// both operands K-major in shared memory: bf16 m64nNk16 into fp32 (kS8
+// false) or int8 m64nNk32 into int32; either step is 32 bytes deep
+template <bool kS8, int kN>
+struct WgmmaK;
+template <int kN>
+struct WgmmaK<false, kN> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    WgmmaSs<kN>::ss(d, a, b, accumulate);
+  }
+};
+template <int kN>
+struct WgmmaK<true, kN> {
+  static __device__ __forceinline__ void ss(int* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    WgmmaS8<kN>::ss(d, a, b, accumulate);
+  }
+};
 
 // --- tensor maps (host) ----------------------------------------------------
 // Make the primary context of the device that holds `ptr` current to the
@@ -543,6 +641,59 @@ inline int encode_map(CUtensorMap* map, const void* ptr, int batch, int t,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a 4-D map over (D, H, T, B) of an int8 [B, T, H, dp] tensor (K3's
+// head-padded q8 and k8: element strides (T H dp, H dp, dp), bytes here);
+// the map's D is the head dim d <= dp, so TMA writes zeros past d whatever
+// the padding holds; boxes of 128 columns (one swizzle row) x `rows` tokens.
+// CU_TENSOR_MAP_DATA_TYPE_UINT8: there is no signed 8-bit type, and the bits
+// are the same.
+inline int encode_map_s8(CUtensorMap* map, const void* ptr, int batch, int t,
+                         int heads, int d, int dp, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(dp),
+      static_cast<cuuint64_t>(dp) * heads,
+      static_cast<cuuint64_t>(dp) * heads * t};
+  const cuuint32_t box[4] = {128, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a 2-D map over a row-major [rows, cols] matrix of int8 (esize 1) or bf16
+// (esize 2) with rows `ld` elements apart; boxes of one 128-byte swizzle
+// row (128 int8 or 64 bf16) x `box_rows` rows, zeros past the edges
+inline int encode_map_2d(CUtensorMap* map, const void* ptr, int esize,
+                         long long rows, long long cols, long long ld,
+                         int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(
+      map,
+      esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

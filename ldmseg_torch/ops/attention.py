@@ -109,33 +109,47 @@ class LaunchPlan:
         return (ctypes.c_int * len(fields))(*fields)
 
 
-def sm90_smem_bytes(block_q: int, block_k: int, chunks: int,
-                    stages: int) -> int:
-    """1 KiB to align the swizzled tiles, Q, a K and a V tile per stage,
-    and the mbarriers (one for Q, a full and an empty one per stage)."""
+def sm90_smem_bytes(block_q: int, block_k: int, chunks: int, stages: int,
+                    v_chunks: int = 0) -> int:
+    """1 KiB to align the swizzled tiles, Q (``chunks`` 128-byte boxes a
+    row), a K tile (``chunks``) and a V tile (``v_chunks``, default
+    ``chunks``) per stage, and the mbarriers (one for Q, a full and an
+    empty one per stage). ``csrc/attention_sm90.cuh:smem_bytes``."""
     row = 2 * SM90_BOX_D  # bytes of a box row
-    return (1024 + block_q * chunks * row + stages * 2 * block_k * chunks * row
+    v_chunks = v_chunks or chunks
+    return (1024 + block_q * chunks * row
+            + stages * block_k * (chunks + v_chunks) * row
             + 8 * (1 + 2 * stages))
+
+
+def sm90_forward_tiles(bh: int, t: int, head_class: int, chunks: int,
+                       v_chunks: int) -> tuple:
+    """``(block_q, block_k, stages)`` of the forward skeleton that K1 and
+    K3's attention stage share (``csrc/attention_sm90.cuh``): 128-row query
+    tiles (two consumer warpgroups) where they still give every SM a block,
+    else 64 (one warpgroup): at T = 512 and B·H = 16, 64 blocks of 128 rows
+    would leave half the card idle. Key tiles of 128, 64 above class 80
+    (two score tiles and O in a consumer's 240 registers). The deepest ring
+    of two to four stages that fits, and no deeper than the key tiles of
+    the two passes."""
+    block_k = 128 if head_class <= 80 else 64
+    block_q = 128 if bh * -(-t // 128) >= SM90_SMS else 64
+    deepest = max(2, min(SM90_MAX_STAGES, 2 * -(-t // block_k)))
+    stages = next(s for s in range(deepest, 1, -1)
+                  if sm90_smem_bytes(block_q, block_k, chunks, s, v_chunks)
+                  <= SM90_SMEM_LIMIT)
+    return block_q, block_k, stages
 
 
 @functools.lru_cache(maxsize=None)
 def sm90_launch_plan(bh: int, t: int, d: int) -> LaunchPlan:
     """The bf16 kernel's launch plan for ``B·H`` heads of ``T`` tokens and
-    head dim ``d``; the C entry points check it. 128-row query tiles (two
-    consumer warpgroups) where they still give every SM a block, else 64
-    (one warpgroup): at T = 512 and B·H = 16, 64 blocks of 128 rows would
-    leave half the card idle. Key tiles of 128, 64 above D = 80 (two
-    score tiles and O in a consumer's 240 registers). The deepest ring of
-    two to four stages that fits, and no deeper than the key tiles of the
-    two passes."""
+    head dim ``d`` (:func:`sm90_forward_tiles`); the C entry points check
+    it."""
     head_class = next(c for c in SM90_HEAD_CLASSES if c >= d)
     chunks = -(-head_class // SM90_BOX_D)
-    block_k = 128 if head_class <= 80 else 64
-    block_q = 128 if bh * -(-t // 128) >= SM90_SMS else 64
-    deepest = max(2, min(SM90_MAX_STAGES, 2 * -(-t // block_k)))
-    stages = next(s for s in range(deepest, 1, -1)
-                  if sm90_smem_bytes(block_q, block_k, chunks, s)
-                  <= SM90_SMEM_LIMIT)
+    block_q, block_k, stages = sm90_forward_tiles(bh, t, head_class, chunks,
+                                                  chunks)
     return LaunchPlan(head_class, block_q, block_k, stages, SM90_BOX_D, chunks,
                       sm90_smem_bytes(block_q, block_k, chunks, stages),
                       (-(-t // block_q), bh))

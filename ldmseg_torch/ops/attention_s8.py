@@ -109,8 +109,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import (absorbed_takes_kernel, packed_attention_fallback,
-                        packed_takes_kernel)
+from .attention import (SM90_HEAD_CLASSES, absorbed_takes_kernel,
+                        packed_attention_fallback, packed_takes_kernel,
+                        sm90_forward_tiles, sm90_smem_bytes)
+from .gemm import gemm_takes, plans_c, sm90_gemm_plan
 from .quant import exact_int8_matmul, f32, quantize_head_weights
 
 ATTN_SCALE = 0.1    # the static q/k/v scale ``as`` (pack_inference_tiles)
@@ -258,6 +260,82 @@ def ln_attention_s8_fallback(x: torch.Tensor,
     return (x.float() + attn.float() + p.out_b).to(x.dtype)
 
 
+# K3's attention stage on Hopper (csrc/attention_ln_s8.cu,
+# attn_s8_kernel_sm90): the skeleton K1 runs on (csrc/attention_sm90.cuh)
+# with an int8 score product. q8 and k8 are head-padded to dp = d rounded up
+# to 32 (a tensor map's strides are multiples of 16 bytes); a TMA box is one
+# 128-byte swizzle row, 128 int8 of q8/k8 or 64 bf16 of v.
+
+
+def head_padded_width(d: int) -> int:
+    """``dp``: the width of a head of K3's q8/k8 scratch ``[B·T, H, dp]``,
+    d rounded up to a multiple of 32 (one k32 step of the int8 product)."""
+    return -(-d // 32) * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class S8AttentionPlan:
+    """How K3's attention stage covers one ``(B·H, T, d)``: ``head_class``
+    the N of its bf16 P·V (d rounded up to a compiled class), ``block_q``
+    query rows per block (64 per consumer warpgroup), ``block_k`` keys per
+    tile, a ring of ``stages`` K/V tiles, ``qk_chunks`` 128-column int8
+    boxes across a head of q8/k8 and ``v_chunks`` 64-column bf16 boxes
+    across a head of v, ``dp`` the head-padded width, ``smem_bytes`` of
+    dynamic shared memory and the ``grid`` (query tiles, B·H)."""
+
+    head_class: int
+    block_q: int
+    block_k: int
+    stages: int
+    qk_chunks: int
+    v_chunks: int
+    dp: int
+    smem_bytes: int
+    grid: tuple
+
+    def fields(self) -> tuple:
+        """The ten ints the C entry points read (``struct AttnPlan``)."""
+        return (self.head_class, self.block_q, self.block_k, self.stages,
+                self.qk_chunks, self.v_chunks, self.dp, self.smem_bytes,
+                *self.grid)
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_s8_attention_plan(bh: int, t: int, d: int) -> S8AttentionPlan:
+    """K3's attention launch plan: K1's tiles (``attention.py:
+    sm90_forward_tiles``) with q8/k8 boxes of 128 int8 columns and v boxes
+    of 64 bf16 columns."""
+    head_class = next(c for c in SM90_HEAD_CLASSES if c >= d)
+    qk_chunks = -(-(-(-head_class // 32)) // 4)
+    v_chunks = -(-head_class // 64)
+    block_q, block_k, stages = sm90_forward_tiles(bh, t, head_class,
+                                                  qk_chunks, v_chunks)
+    return S8AttentionPlan(
+        head_class, block_q, block_k, stages, qk_chunks, v_chunks,
+        head_padded_width(d),
+        sm90_smem_bytes(block_q, block_k, qk_chunks, stages, v_chunks),
+        (-(-t // block_q), bh))
+
+
+def ln_attention_plans(b: int, t: int, c: int, heads: int) -> tuple:
+    """K3's three launch plans: the int8 Q/K/V projection, the attention
+    stage and the bf16 ``to_out``. Raises ``ValueError`` on a shape the
+    products do not take (C a multiple of 16: a row of x8 is a tensor
+    map's stride)."""
+    rows = b * t
+    if not gemm_takes(c, c, "int8"):
+        raise ValueError(f"C={c} must be a multiple of 16 (the rows of "
+                         f"the int8 projection's operands)")
+    return (sm90_gemm_plan(rows, 3 * c, c, "int8"),
+            sm90_s8_attention_plan(b * heads, t, c // heads),
+            sm90_gemm_plan(rows, c, c, "bfloat16"))
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_plans_c(b: int, t: int, c: int, heads: int):
+    return plans_c(*ln_attention_plans(b, t, c, heads))
+
+
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("attention_ln_s8"), entry)
@@ -265,7 +343,8 @@ def _kernel(entry: str):
     head = [ctypes.c_int] + [ctypes.c_void_p] * (
         4 if entry == "ldmseg_attention_ln_s8_pin" else 1)
     fn.argtypes = (head + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 3
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -293,6 +372,14 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
         raise ValueError(f"{name}: head dim {c // h} > {MAX_HEAD_DIM}")
     if b * h > 65535:
         raise ValueError(f"{name}: B*heads {b * h} > 65535")
+    if not p.score_scale > 0:
+        raise ValueError(f"{name}: score_scale {p.score_scale} must be > 0 "
+                         f"(the kernel takes the row max of the int32 "
+                         f"scores)")
+    try:
+        plans = _ln_plans_c(b, t, c, h)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     channels_major = pin and x.transpose(1, 2).is_contiguous()
     if not channels_major:
         x = x.contiguous()
@@ -304,15 +391,18 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
                          f"device{' and carry proj_in' if pin else ''}")
     dev = x.device
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-    x8, q8, k8 = (torch.empty((b * t, c), dtype=torch.int8, device=dev)
-                  for _ in range(3))
+    x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
+    # head-padded [B·T, H, dp]: the padding is never read (TMA fills zeros
+    # past d)
+    q8, k8 = (torch.empty((b * t, h, head_padded_width(c // h)),
+                          dtype=torch.int8, device=dev) for _ in range(2))
     v, o = (torch.empty((b * t, c), dtype=torch.bfloat16, device=dev)
             for _ in range(2))
     block = (out.data_ptr(), p.ln_w.data_ptr(), p.ln_b.data_ptr(),
              p.out_b.data_ptr(), p.w_qkv.data_ptr(), p.m_qkv.data_ptr(),
              p.wo.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
              v.data_ptr(), o.data_ptr(), b, t, c, h, p.xs, p.score_scale,
-             p.eps)
+             p.eps, plans)
     kernel = _kernel(_LN_ENTRIES[name])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -54,6 +54,7 @@ import torch
 
 from . import _build
 from .attention_s8 import _layer_norm
+from .gemm import gemm_takes, plans_c, sm90_gemm_plan
 from .quant import exact_int8_matmul, f32, quantize_weight
 
 BLOCK_T = 512
@@ -199,21 +200,41 @@ def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
     return (xf + geglu_s8_fallback(h, p).float() + p.b2).to(x.dtype)
 
 
+def geglu_plans(b: int, t: int, c: int, m: int) -> tuple:
+    """The launch plans of K4's and K12's two int8 products on Hopper: up
+    (``[B·T, C]·[M, C]ᵀ`` with two W1 tiles per stage, the h and the gate
+    rows) and down (``[B·T, M]·[C, M]ᵀ``). Raises ``ValueError`` on a shape
+    the products do not take (C and M multiples of 16: a row of x8 and of
+    g8 is a tensor map's stride)."""
+    if not (gemm_takes(m, c, "int8") and gemm_takes(c, m, "int8")):
+        raise ValueError(f"C={c}, M={m} must be multiples of 16 (the rows "
+                         f"of the int8 products' operands)")
+    rows = b * t
+    return (sm90_gemm_plan(rows, m, c, "int8", operands=2),
+            sm90_gemm_plan(rows, c, m, "int8"))
+
+
+@functools.lru_cache(maxsize=None)
+def _plans_c(b: int, t: int, c: int, m: int):
+    return plans_c(*geglu_plans(b, t, c, m))
+
+
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("geglu_ln_s8"), entry)
+    tail = [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]  # plans, stream
     if entry == "ldmseg_geglu_ln_s8":   # K4
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_float] + tail)
     elif entry == "ldmseg_geglu_ln_s8_pout":   # K9
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_float] + tail)
     else:                               # K12
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] + tail)
     fn.restype = ctypes.c_int
     return fn
 
@@ -229,9 +250,10 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    if c % 8 or m % 8 or b > 65535:
-        raise ValueError(f"{name}: C={c}, M={m} must be multiples of 8, "
-                         f"B={b} <= 65535")
+    try:
+        plans = _plans_c(b, t, c, m)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     bt = min(BLOCK_T, t)
     x = x.contiguous()
     ops = ((p.w1, p.s1, p.b1, p.w2, p.s2, p.b2)
@@ -245,10 +267,13 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
     out = torch.empty((b, c, t) if pout else (b, t, c),
                       dtype=torch.bfloat16, device=dev)
     x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
-    g = torch.empty((b * t, m), dtype=torch.float32, device=dev)
+    dynamic = p.gs is None
+    # g (fp32) only with the dynamic scale: the static one quantizes in
+    # the up product's epilogue
+    g = torch.empty((b * t, m) if dynamic else (0,), dtype=torch.float32,
+                    device=dev)
     g8 = torch.empty((b * t, m), dtype=torch.int8, device=dev)
     amax = torch.empty(b * (t // bt), dtype=torch.int32, device=dev)
-    dynamic = p.gs is None
     gs = 0.0 if dynamic else p.gs
     scratch = (x8.data_ptr(), g.data_ptr(), g8.data_ptr(), amax.data_ptr(),
                b, t, c, m, bt, p.xs, gs, int(dynamic))
@@ -261,18 +286,20 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
                 p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
                 p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
                 p.s2.data_ptr(), p.b2.data_ptr(), p.wpo.data_ptr(),
-                p.bpo.data_ptr(), r.data_ptr(), *scratch, p.eps, stream)
+                p.bpo.data_ptr(), r.data_ptr(), *scratch, p.eps, plans,
+                stream)
         elif block:
             err = _kernel("ldmseg_geglu_ln_s8")(
                 _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
                 p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
                 p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
-                p.s2.data_ptr(), p.b2.data_ptr(), *scratch, p.eps, stream)
+                p.s2.data_ptr(), p.b2.data_ptr(), *scratch, p.eps, plans,
+                stream)
         else:
             err = _kernel("ldmseg_geglu_s8")(
                 _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
                 p.w1.data_ptr(), p.s1.data_ptr(), p.b1.data_ptr(),
-                p.w2.data_ptr(), p.s2.data_ptr(), *scratch, stream)
+                p.w2.data_ptr(), p.s2.data_ptr(), *scratch, plans, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out.transpose(1, 2) if pout else out

@@ -102,7 +102,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ablate_attention_bwd: needs a CUDA device")
     libs = _build_all(variants((_build.CSRC / "attention_bwd.cu").read_text()),
-                      "ablate_bwd")
+                      "attention_bwd.cu", "attention_bwd.cu", "ablate_bwd")
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {s: [torch.randn(s, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(4)] for s in SHAPES}

@@ -3,7 +3,8 @@
     python -m ldmseg_torch.tools.ablate_attention_fwd [--iters N]
 
 Builds copies of ``csrc/attention_fwd.cu`` with one part of the bf16 kernel
-(``attention_fwd_kernel_sm90``) removed by a textual edit, loads each with
+(``attention_fwd_kernel_sm90``, the skeleton of ``csrc/attention_sm90.cuh``)
+removed by a textual edit of the header, loads each with
 ``ctypes`` in place of the real library, and prints one JSON line: the
 kernel's device time per launch (``torch.profiler``) for each variant at
 the sampling path's (2, 2048, 8, 40) and the training path's
@@ -45,28 +46,29 @@ _NO_LOADS = [
     ("sm90::tma_load_4d(", "if (pass < 0) sm90::tma_load_4d("),
     ("sm90::mbar_expect_tx(q_bar, kWG * C::kQSub);",
      "int pass = 0; sm90::mbar_arrive(q_bar);"),
-    ("sm90::mbar_expect_tx(full_bar + 8 * s, (pass + 1) * C::kTile);",
+    ("sm90::mbar_expect_tx(full_bar + 8 * s,\n"
+     "                               C::kKTile + (pass == 1 ? C::kVTile : 0));",
      "sm90::mbar_arrive(full_bar + 8 * s);"),
 ]
 _NO_EXP = [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
             "y = x;")]
 _NO_PRODUCTS = [
-    ("      sm90::WgmmaSs<C::kBK>::ss(\n",
-     "      if (kk < 0) sm90::WgmmaSs<C::kBK>::ss(\n"),
+    ("      sm90::WgmmaK<C::kS8, C::kBK>::ss(\n",
+     "      if (kk < 0) sm90::WgmmaK<C::kS8, C::kBK>::ss(\n"),
     ("      sm90::WgmmaRs<kDN>::rs(\n",
      "      if (kk < 0) sm90::WgmmaRs<kDN>::rs(\n"),
 ]
 _NO_SOFTMAX = [
-    ("                        float (&l)[2]) const {\n",
-     "                        float (&l)[2]) const {\n"
+    ("Score (&m)[2],\n                        float (&l)[2]) const {\n",
+     "Score (&m)[2],\n                        float (&l)[2]) const {\n"
      "    if (kt >= 0) { m[0] = m[1] = 0.f; l[0] += s[0]; l[1] += s[1];"
      " return; }\n"),
     ("                        const float (&r)[2]) const {\n",
      "                        const float (&r)[2]) const {\n"
      "    if (kt >= 0) return;\n"),
 ]
-_PASSES = ("    // pass 1: row max and row sum of 2^(s c - max)",
-           "    // O rounded to bf16 once; rows < t, columns < d")
+_PASSES = ("    // pass 1: the row statistics;",
+           "    // O rounded to bf16 once;")
 _LOADS_ONLY_BODY = """    float acc[kDN / 2];
     for (int i = 0; i < kDN / 2; ++i) acc[i] = 0.f;
     for (int n = 0; n < 2 * ntiles; ++n) {
@@ -103,21 +105,24 @@ def variants(src: str) -> dict:
     }
 
 
-def _build_all(sources: dict, subdir: str = "ablate") -> dict:
-    """One ``nvcc`` per variant, all at once, beside copies of the
-    headers, under ``_build/<subdir>``; returns the library path of each."""
-    out = _build.BUILD_DIR / subdir
-    out.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, out)
+def _build_all(sources: dict, edited: str, target: str,
+               subdir: str = "ablate") -> dict:
+    """One ``nvcc`` per variant of ``csrc/<target>``, all at once, each in
+    a directory of its own under ``_build/<subdir>`` with copies of the
+    headers and of ``target``, the variant's text in place of ``edited``
+    (the target or one of its headers); returns the library path of
+    each."""
     nvcc = _build._nvcc()
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
-        cu = out / f"variant{i}.cu"
-        cu.write_text(text)
-        lib = out / f"libvariant{i}.so"
+        out = _build.BUILD_DIR / subdir / f"variant{i}"
+        out.mkdir(parents=True, exist_ok=True)
+        for path in [*_build.CSRC.glob("*.cuh"), _build.CSRC / target]:
+            shutil.copy(path, out)
+        (out / edited).write_text(text)
+        lib = out / "libvariant.so"
         procs[name] = (lib, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(out / target)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -149,7 +154,9 @@ def main() -> int:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_attention_fwd: needs a CUDA device")
-    libs = _build_all(variants((_build.CSRC / "attention_fwd.cu").read_text()))
+    libs = _build_all(
+        variants((_build.CSRC / "attention_sm90.cuh").read_text()),
+        "attention_sm90.cuh", "attention_fwd.cu")
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {s: [torch.randn(s, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(3)] for s in SHAPES}

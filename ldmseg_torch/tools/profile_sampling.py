@@ -48,13 +48,17 @@ FAMILIES = (  # first match wins
     ("K7 gn_silu_conv", r"gn_conv_kernel"),
     ("K1/K14/K16 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
+    ("K3/K8/K10 attention (sm90)", r"attn_s8_kernel_sm90"),
+    ("K3/K8/K10 products: qkv, to_out (sm90)",
+     r"gemm_kernel<.*(QkvPadEpi|ResidualEpi)"),
+    ("K4/K9/K12 products: up, down (sm90)",
+     r"gemm_kernel<.*(GateEpi|DownEpi)"),
+    ("K4/K9/K12 interior quantize", r"::quant_kernel"),
     ("K13/K11/K15/K17 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
     ("K17/K18 dynamic quantize, to_out per head",
      r"group_quant_kernel|head_out_kernel"),
-    ("K3/K8 attention_ln_s8", r"::attn_kernel"),
-    ("K3/K8/K11/K16/K17 projections, to_out",
+    ("K8/K9/K11/K16/K17 products (s8_common)",
      r"s8_gemm_kernel|bf16_gemm_kernel|f32_gemm_kernel"),
-    ("K4/K9/K12 geglu (up, down)", r"::(up|down)_kernel"),
     ("K3/K4/K11/K12/K17 (LN +) quantize", r"ln_quant_kernel"),
     ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),

@@ -37,6 +37,8 @@ from ldmseg_torch.ops import attention as port  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "ldmseg_torch/csrc/attention_fwd.cu"
+SKELETON = ROOT / "ldmseg_torch/csrc/attention_sm90.cuh"
+SM90 = ROOT / "ldmseg_torch/csrc/sm90.cuh"
 
 HEAD_DIMS = list(range(8, 161, 8))
 # the path's T (sampling 2048/512/128/32, training 1920/480/120/30) and the
@@ -87,8 +89,9 @@ def test_launch_plan_takes_128_row_tiles_on_the_long_shapes():
 
 def test_launch_plan_matches_the_kernel_source():
     """The C side reads the plan as ``struct Plan`` and checks it with its
-    own copies of the classes, the limit and the key-tile rule."""
-    src = SOURCE.read_text()
+    own copies of the classes, the limit and the key-tile rule (in the
+    source and the headers that hold the skeleton K1 shares with K3)."""
+    src = SOURCE.read_text() + SKELETON.read_text() + SM90.read_text()
     body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(r"int (\w+);", body)
     plan = port.sm90_launch_plan(16, 2048, 40)
@@ -102,16 +105,17 @@ def test_launch_plan_matches_the_kernel_source():
         port.SM90_HEAD_CLASSES
     assert f"kSmemLimit = {port.SM90_SMEM_LIMIT};" in src
     assert f"kBox = {port.SM90_BOX_D};" in src
-    assert "p.block_k == (p.head_class <= 80 ? 128 : 64)" in src
+    assert "block_k == (cls <= 80 ? 128 : 64)" in src
+    assert "return attn90::launch<K1Kernel>(a, stream);" in src
     for c in port.SM90_HEAD_CLASSES:
-        assert f"case {c}: return launch_sm90_as<{c}, kWG>" in src
+        assert f"case {c}: return launch_as<K, {c}, kWG>(a, stream);" in src
 
 
 def test_ablation_edits_still_match_the_kernel_source():
     """``tools/ablate_attention_fwd.py`` takes parts out of the kernel by
     textual edits; each must still find its text."""
     from ldmseg_torch.tools import ablate_attention_fwd as ablate
-    src = SOURCE.read_text()
+    src = SKELETON.read_text()
     out = ablate.variants(src)
     assert out["kernel"] == src
     assert len({text for text in out.values()}) == len(out)
