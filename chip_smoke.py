@@ -47,7 +47,8 @@ Phases, one line each:
      feed-forward without LN and residual, dynamic and static interior
      scale) against their plain PyTorch versions at the unfused int8 path's
      shapes and a ragged T, with times, the bound and the bf16 function
-     each replaces (K1 and SDPA for K13, the bf16 GEGLU FF for K12);
+     each replaces (K1 and SDPA for K13, the bf16 GEGLU FF for K12), and
+     K13's device time by stage (quantize, attention; ``torch.profiler``);
   11. the full-width int8 UNet without fused norms (``fused_norms: False``,
      the weights of phase 3) against the bf16 one: 16 K13, 16 K12, 0 K1,
      K3 and K4 launches, no fallback, correlation, ms per forward;
@@ -81,7 +82,9 @@ Phases, one line each:
      (variant (a)'s flags with ``use_padded_attention``, filled from the
      same masters) against their plain versions at the four shapes of a
      forward, with times, the bound and the PyTorch composition each
-     replaces, and a ragged T = 30 that the rule sends to each fallback;
+     replaces, K11's device time by stage (quantize, the Q/K and V
+     products, the attention, to_out), and a ragged T = 30 that the rule
+     sends to each fallback;
   20. the int8 UNet with fused projs against the bf16 one: 16 K8, 16 K9,
      0 K1, K3 and K4, no fallback, correlation, ms per forward beside phase
      8's int8 UNet;
@@ -99,7 +102,8 @@ Phases, one line each:
      bound and the yardstick (SDPA and SDPA's backward for K14; SDPA and
      K13 on the head views for K15; K3, or LN + K11 + the residual, for
      K10), K14's, K2's and SDPA's device times from ``torch.profiler``,
-     and a ragged T = 30 that each rule sends to its fallback;
+     K15's and K10's (``v_bf16`` False) device time by stage, and a
+     ragged T = 30 that each rule sends to its fallback;
   25. the full-width bf16 UNet built with
      ``UNetConfig(use_packed_attention=True)`` against the same module on
      K1: 16 K14, 0 K1, no fallback;
@@ -119,8 +123,9 @@ Phases, one line each:
      F.linear and its backward for K16; the same in bf16 and float
      projections + K13 for K17 and K18), K16's device time (all its
      launches, and its attention stage alone), K2's in its backward and
-     SDPA's from ``torch.profiler``, and a ragged T = 30 that the rule
-     sends to each fallback;
+     SDPA's from ``torch.profiler``, K17's and K18's device time by stage
+     (quantize, projection, the code pass, attention, per-head to_out),
+     and a ragged T = 30 that the rule sends to each fallback;
   30. the full-width bf16 UNet built with
      ``UNetConfig(use_absorbed_attention=True)`` against the same module
      on K1: 16 K16, 0 K1 and K14, no fallback;
@@ -251,13 +256,14 @@ K2_STATS = r"attention_bwd_(stats|dq)_kernel"
 K2_MAIN = r"attention_bwd_(main|dkv)_kernel"
 SDPA_KERNELS = r"flash|fmha|attention|cudnn|sdpa"
 ALL_KERNELS = r""
-# K3's and K4's stages by kernel name (tools/profile_int8_blocks.py's
-# short names): the LN + quantize, the Hopper products by their epilogue,
-# K3's attention, K4's interior quantize
-K3_STAGES = {"ln_quant": r"ln_quant_kernel", "qkv": r"QkvPadEpi",
-             "attention": r"attn_s8_kernel_sm90", "to_out": r"ResidualEpi"}
-K4_STAGES = {"ln_quant": r"ln_quant_kernel", "up": r"GateEpi",
-             "quant": r"^quant_kernel", "down": r"DownEpi"}
+
+# K13's, K15's, K11's, K10's (v_bf16 False), K17's and K18's Hopper
+# design, in their kernels-line entries
+S8PV_REDESIGN = {
+    "redesigned": "attention stage attn_s8pv_kernel_sm90 on the Hopper "
+                  "skeleton csrc/attention_sm90.cuh (TMA, s8 wgmma Q K^T, "
+                  "e8 V with the codes from registers); K11's, K10's and "
+                  "K17's products on csrc/gemm_sm90.cuh"}
 
 
 def _ms(x):
@@ -806,6 +812,14 @@ def _stage_split(fn, stages: dict):
     return row["device_ms"], split
 
 
+def _stages(kid: str) -> dict:
+    """A block's stages by kernel name (tools/profile_int8_blocks.py's
+    ``STAGES``: the LN + quantize, the Hopper products by their epilogue,
+    the attention, the quantize passes)."""
+    from ldmseg_torch.tools.profile_int8_blocks import STAGES
+    return STAGES[kid]
+
+
 def _gemm_rows(shape, per_fwd):
     """The Hopper product (ops/gemm.py) at each product shape of K3 and K4
     for ``shape``, in the form each block launches (K4's up with two
@@ -914,7 +928,7 @@ def phase_int8_kernels():
                           f"K3 {shape}: two calls differ")
                     row["device_ms"], row["stages_device_ms"] = (
                         _stage_split(lambda: K3.ln_attention_s8(x, apack),
-                                     K3_STAGES))
+                                     _stages("K3")))
                 k3_rows.append(row)
                 print(f"phase 7 K3 {shape}: err {row['max_abs_err']:.3e} of "
                       f"max|ref| {row['max_abs_ref']:.3e}, mean "
@@ -940,7 +954,7 @@ def phase_int8_kernels():
                           f"K4 {shape} {mode}: two calls differ")
                     row["device_ms"], row["stages_device_ms"] = (
                         _stage_split(lambda: K4.geglu_ln_s8(x, fpack),
-                                     K4_STAGES))
+                                     _stages("K4")))
                 k4_rows.append(row)
                 print(f"phase 7 K4 {shape} {mode}: err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
@@ -1095,15 +1109,20 @@ def phase_unfused_kernels():
                 k13_bound_ms(b, t, h, d))
             row["sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale))
+            if per_fwd:
+                row["device_ms"], row["stages_device_ms"] = _stage_split(
+                    lambda: S8.fused_self_attention_s8(q, k, v, scale, act),
+                    _stages("K13"))
         row["act_scale"] = act
         k13_rows.append(row)
         print(f"phase 10 K13 {shape} {'static 0.1' if act else 'dynamic'}"
               f": err {row['max_abs_err']:.3e} of max|ref| "
               f"{row['max_abs_ref']:.3e}, mean {row['mean_abs_err']:.3e} of "
-              f"{row['mean_abs_ref']:.3e}; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}); bf16 K1 {row['bf16_block_ms']:.4f} ms,"
-              f" sdpa {row['sdpa_ms']:.4f} ms", flush=True)
+              f"{row['mean_abs_ref']:.3e}; kernel {row['ms']:.4f} ms (device "
+              f"{_ms(row.get('device_ms'))}: {row.get('stages_device_ms')}),"
+              f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+              f" ms ({row['bound_by']}); bf16 K1 {row['bf16_block_ms']:.4f} "
+              f"ms, sdpa {row['sdpa_ms']:.4f} ms", flush=True)
         del q, k, v, qt, kt, vt
     for shape, per_fwd in INT8_SHAPES + [((1, 120, 320), 0)]:
         b, t, c = shape
@@ -2024,6 +2043,9 @@ def phase_padded_kernels(trainer, seed: int = 13):
                                 comp, bound)
                 if kid == "K11":
                     row["k13_block_ms"] = time_ms(lambda: k13(xs))
+                    if per_fwd:
+                        row["device_ms"], row["stages_device_ms"] = (
+                            _stage_split(fn, _stages("K11")))
                 rows[kid].append(row)
                 print(f"phase 19 {kid} {shape} ({site}): err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
@@ -2034,7 +2056,9 @@ def phase_padded_kernels(trainer, seed: int = 13):
                       f" ms ({row['bound_by']}), composition "
                       f"{row['bf16_block_ms']:.4f} ms"
                       + (f", float projections + K13 "
-                         f"{row['k13_block_ms']:.4f} ms"
+                         f"{row['k13_block_ms']:.4f} ms; device "
+                         f"{_ms(row.get('device_ms'))}: "
+                         f"{row.get('stages_device_ms')}"
                          if kid == "K11" else ""), flush=True)
     for kid, rs in rows.items():
         fb = [r for r in rs if r.get("fallback")]
@@ -2266,6 +2290,9 @@ def phase_packed_kernels(seed: int = 17):
                 k15_bound_ms(b, t, c))
             row["k13_ms"] = time_ms(lambda: S8.fused_self_attention_s8(
                 qh, kh, vh, scale))
+            row["device_ms"], row["stages_device_ms"] = _stage_split(
+                lambda: S8.fused_self_attention_packed_s8(q, k, v, 8, scale),
+                _stages("K15"))
             rows["K15"].append(row)
             print(f"phase 24 K15 {shape}: err {row['max_abs_err']:.3e} of "
                   f"max|ref| {row['max_abs_ref']:.3e}, mean "
@@ -2273,7 +2300,9 @@ def phase_packed_kernels(seed: int = 17):
                   f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
                   f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
                   f"sdpa {row['bf16_block_ms']:.4f} ms, K13 on the head "
-                  f"views {row['k13_ms']:.4f} ms", flush=True)
+                  f"views {row['k13_ms']:.4f} ms; device "
+                  f"{_ms(row['device_ms'])}: {row['stages_device_ms']}",
+                  flush=True)
 
         for shape, per in INT8_SHAPES + [((2, RAGGED_T, 320), 0)]:
             b, t, c = shape
@@ -2309,6 +2338,9 @@ def phase_packed_kernels(seed: int = 17):
                     S8.ln_attention_s8_rowmajor_reference(x, pack, v_bf16),
                     composition, bound)
                 row["v_bf16"] = v_bf16
+                if not v_bf16:
+                    row["device_ms"], row["stages_device_ms"] = (
+                        _stage_split(fn, _stages("K10")))
                 rows[key].append(row)
                 print(f"phase 24 K10 v_bf16={v_bf16} {shape}: err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
@@ -2318,7 +2350,10 @@ def phase_packed_kernels(seed: int = 17):
                       f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                       f" ms ({row['bound_by']}), "
                       f"{'K3' if v_bf16 else 'LN + K11 + residual'} "
-                      f"{row['bf16_block_ms']:.4f} ms", flush=True)
+                      f"{row['bf16_block_ms']:.4f} ms"
+                      + ("" if v_bf16 else
+                         f"; device {_ms(row['device_ms'])}: "
+                         f"{row['stages_device_ms']}"), flush=True)
 
     # K14's backward: autograd through the wrapper (K14, then K2 on the
     # head views) against the plain backward; each gradient within the
@@ -2715,9 +2750,10 @@ def phase_absorbed_kernels(seed: int = 19):
                      quant.quantize_fullc_weights(*wf))):
                 w_qkv = torch.cat(codes[:3]).contiguous()
                 wo8, sc = codes[3], codes[4]
+                wo_p = S8.head_padded_wo(wo8, 8)  # a pack's, made once
 
-                def call(fn=fn, w_qkv=w_qkv, wo8=wo8, sc=sc):
-                    return fn(x, w_qkv, wo8, sc, 8, scale, 0.1)
+                def call(fn=fn, w_qkv=w_qkv, wo8=wo8, sc=sc, wo_p=wo_p):
+                    return fn(x, w_qkv, wo8, sc, 8, scale, 0.1, wo_p)
                 if not per:
                     rows[kid].append(_fallback_row(kid, shape, call, fn))
                     continue
@@ -2738,6 +2774,8 @@ def phase_absorbed_kernels(seed: int = 19):
                     o = S8.fused_self_attention_s8(q, k, v, scale)
                     return F.linear(o.reshape(b, t, c), wb[3])
                 row["k13_block_ms"] = time_ms(k13_block)
+                row["device_ms"], row["stages_device_ms"] = _stage_split(
+                    call, _stages(kid))
                 rows[kid].append(row)
                 print(f"phase 29 {kid} {shape}: err {row['max_abs_err']:.3e}"
                       f" of max|ref| {row['max_abs_ref']:.3e}, mean "
@@ -2747,7 +2785,9 @@ def phase_absorbed_kernels(seed: int = 19):
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}); bf16 "
                       f"F.linear x3 + sdpa + F.linear "
                       f"{row['bf16_block_ms']:.4f} ms, float projections + "
-                      f"K13 {row['k13_block_ms']:.4f} ms", flush=True)
+                      f"K13 {row['k13_block_ms']:.4f} ms; device "
+                      f"{_ms(row['device_ms'])}: {row['stages_device_ms']}",
+                      flush=True)
 
     # K16's backward: autograd through the wrapper (K16, then K2 on the head
     # views) against autograd through the plain version; each gradient
@@ -3295,7 +3335,8 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_abs_padded_s8",
                        padded_rows["K11"], k11_counts["K11"],
-                       by_path("K11")),
+                       by_path("K11"))
+            | S8PV_REDESIGN,
             int8_entry("geglu_s8", "K12",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:123",
@@ -3305,7 +3346,8 @@ def main() -> int:
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:47",
                        "ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8",
-                       k13_rows, unfused["K13"], by_path("K13")),
+                       k13_rows, unfused["K13"], by_path("K13"))
+            | S8PV_REDESIGN,
             gn_entry("group_norm_silu", "K5",
                      "ldmseg_torch/csrc/groupnorm_silu.cu",
                      "ldmseg_tpu/ops/pallas/groupnorm_silu.py:52",
@@ -3344,7 +3386,8 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_btc_s8", packed_rows["K15"],
                        packed_int8["default scales"]["counts"]["K15"],
-                       by_path("K15")),
+                       by_path("K15"))
+            | S8PV_REDESIGN,
             int8_entry("attention_ln_s8_rowmajor (v_bf16=True)", "K10",
                        "ldmseg_torch/csrc/attention_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:716",
@@ -3361,6 +3404,7 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_abs_padded_ln_s8",
                        packed_rows["K10 s8"], 0, by_path("K10"))
+            | S8PV_REDESIGN
             | {"variant": "v_bf16=False",
                "launches_in_its_phase": k10_checked // 2,
                "launches_note": "an op: no module routes to it, so 0 "
@@ -3372,13 +3416,15 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_absorbed_s8", absorbed_rows["K17"],
                        absorbed_int8["default scales"]["counts"]["K17"],
-                       by_path("K17")),
+                       by_path("K17"))
+            | S8PV_REDESIGN,
             int8_entry("attention_absorbed_fullc_s8", "K18",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:500",
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_absorbed_fullc_s8",
                        absorbed_rows["K18"], 0, by_path("K18"))
+            | S8PV_REDESIGN
             | {"launches_in_its_phase": k18_checked,
                "launches_note": "an op: no module routes to it, so 0 "
                                 "launches on every path"},

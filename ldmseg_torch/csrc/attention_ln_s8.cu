@@ -94,12 +94,12 @@ constexpr int kMaxD = 160;  // largest head dim taken
 // ---- b: the projection's epilogue -----------------------------------------
 // q8 and k8 requantized per column, clip(rint(sum * m[col])), into the
 // head-padded [rows, heads, dp]; v dequantized to bf16 [rows, c]; the
-// product's columns are q | k | v (QkvEpi's arithmetic, s8_common.cuh).
-// Where a column goes is worked out once per column and block (a code in
-// the int per-column vector: its section and its offset in the row), so
-// the pairs' stores take no division. A column pair never straddles a
-// head or a section: c and d are multiples of 8 and a pair starts on an
-// even column.
+// product's columns are q | k | v (attention_s8.cu's QkPadEpi requantizes
+// K11's q8 and k8 the same way). Where a column goes is worked out once per
+// column and block (a code in the int per-column vector: its section and
+// its offset in the row), so the pairs' stores take no division. A column
+// pair never straddles a head or a section: c and d are multiples of 8 and
+// a pair starts on an even column.
 struct QkvPadEpi {
   static constexpr int kOps = 1;
   static constexpr int kCols = 1;     // m

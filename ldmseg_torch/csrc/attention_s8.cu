@@ -35,25 +35,28 @@
 // operations bound it; at T=128 and T=32 (D=160) bytes and launch latency.
 //
 // Design. Two kernels on the stream:
-//   a. quant_qkv: one thread per 8 elements of q, k and v (read through
-//      their [B, T, H, D] strides, so the caller's head views cost nothing;
-//      32-bit index math: the first design's three 64-bit divisions per
-//      element made this pass 1.2 ms of a UNet forward), int8 codes written
-//      contiguous [B, T, H, D] into scratch;
-//   b. attn_s8: one block of 4 warps per (image*head, 64-query tile); each
-//      warp owns 16 query rows. The rounding of e to codes needs the final
-//      row max, so the kernel takes two passes over 64-key tiles, as K1 and
-//      K3 do: pass 1 the row max of the scaled int32 scores, pass 2 e, its
-//      fp32 sum, the codes e8 in shared memory and the int8 product e8 V8
-//      into int32 accumulators. An online rescale would round e at another
-//      scale. Both products run on int8 wmma m16n16k16; D is zero-padded
-//      in shared memory to a multiple of 16 (40 -> 48; zeros are exact);
-//      keys past T are masked (T = 120 and 24 take the kernel).
-// Shared-memory layouts keep every wmma fragment on a 256-byte boundary:
-// Q and K tiles k-blocked ([D/16][64 rows][16], s8_common.cuh), the e8 tile
-// k-blocked over keys ([4][64 rows][16]), the V tile as 16x16 blocks
-// ([4 key slices][D/16 column tiles][16 keys][16 columns]), the row-major B
-// operand with ld 16. A simple kernel that is right comes first.
+//   a. quant_qkv: one block per (64 tokens, image*head, tensor), reading q,
+//      k and v through their [B, T, H, D] strides (the caller's head views
+//      cost nothing); q8 and k8 into a head-padded [B*T, H, dp] scratch (dp
+//      = d rounded up to 32: a tensor map's strides are multiples of 16
+//      bytes), v8 transposed into v8t [B, H, d, tp] (tp = T rounded up to
+//      16) through shared memory, so that both the reads and the stores
+//      stay coalesced, with the keys of every 16 in the order the attention
+//      stage's registers need (attention_sm90.cuh) and zeros past T;
+//   b. attention: attn_s8pv_kernel_sm90 below, the Hopper skeleton K1 and
+//      K3 run on (attention_sm90.cuh) with an int8 score product and an
+//      int8 e8 V product (kPV): one block per (image*head, 64 or 128
+//      queries), a producer warpgroup issuing TMA loads of Q, then K (pass
+//      1) and K and V^T (pass 2) through a ring; pass 1 keeps the int32 row
+//      max, pass 2 forms e and e8 in registers, sums the unrounded e, and
+//      feeds the codes as the register A operand of an s8 wgmma m64nNk32
+//      against V^T. Two passes: e8 needs the row's exact max. The launch
+//      plan is ops/attention_s8.py:sm90_s8pv_attention_plan's, checked here.
+// The epilogue is a template value: kOutBf16 (K13, K15), kOutS8 with
+// ratio[h] (K11, K10), kOutF32 with the (image, head) amax of the result
+// (K17, K18). The scales are read per (image, head) from device memory
+// (K17, K18), per tensor from device memory (K15, K13's dynamic scales),
+// or passed by value (K13's static scale).
 //
 // K11 replaces ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_abs_padded_s8
 // (pallas_call in _abs_padded_s8_impl, public
@@ -77,28 +80,30 @@
 // int8 selection matmuls (exact: a permutation) before K13's rounding
 // points 2-5. Here the head view of [B, T, C] is [B, T, H, D] with strides
 // (T*C, C, D), which quant_qkv reads directly, so K15 is K13's two kernels
-// with the scales in device memory (the last-but-one entry point), behind
-// two small kernels that compute them: the three amaxes (atomicMax per
-// warp) and max(amax, 1e-6) / 127. A wrapper chain of PyTorch reductions
-// cost more host time than the attention itself at the UNet's shapes.
+// with the scales in device memory, behind two small kernels that compute
+// them: the three amaxes (atomicMax per warp) and max(amax, 1e-6) / 127.
 //
 // K10 with v_bf16=False replaces _attn_kernel_abs_padded_ln_s8 (pallas_call
 // in _abs_padded_ln_s8_impl, absorbed_padded_ln_self_attention_s8(...,
 // v_bf16=False)): K11's rounding points 2-4 on x8 = clip(rint(LN(x) / xs))
 // (K3's step 1-2), then out = bf16((float(x) + float(of8 Wo8) * (as *
-// max(wos))) + b_out). Four kernels: ln_quant with the LN, K11's (b) and
-// (c), and the to_out product with the residual epilogue (ResidualS8Epi).
+// max(wos))) + b_out).
 //
-// What bounds it: K3's work without the LN, with P V and to_out on int8:
-// per image 4 * 2*T*C^2 + 2 * 2*H*T^2*d int8 operations at 1,979 TOPS
-// against x in, the int8 weights and the bf16 output.
+// What bounds K11 and K10: K3's work without the LN, with P V and to_out on
+// int8: per image 4 * 2*T*C^2 + 2 * 2*H*T^2*d int8 operations at 1,979
+// TOPS against x in, the int8 weights and the bf16 output.
 //
-// Design. Four kernels on the stream, int8 intermediates through device
-// memory: (a) ln_quant without the LN (s8_common.cuh), x -> x8; (b)
-// s8_gemm_kernel with the three projections requantized in its epilogue
-// (K3's, with v8 int8); (c) attn_s8 above with sc0 = the score scale and
-// the epilogue of step 4 (template value kOutS8); (d) s8_gemm_kernel of of8
-// with Wo8 and the dequantize of step 5.
+// Design of K11 and K10: five kernels on the stream, int8 intermediates
+// through device memory. (a) ln_quant (s8_common.cuh), with or without the
+// LN: x -> x8; (b) gemm_sm90.cuh's int8 product x8 [Wq; Wk]^T with q8 and
+// k8 requantized per column into the head-padded scratch (QkPadEpi); (c)
+// the V projection with its operands swapped, Wv8 x8^T -> [C, B*T]: both
+// operands stay K-major, and the output's columns are tokens, so the
+// epilogue (VtEpi) writes v8t with keys contiguous (a column pair is two
+// adjacent keys, adjacent in the permuted order too); (d) the attention
+// stage with the of8 epilogue (kOutS8); (e) the product of8 Wo8^T with the
+// dequantize of step 5 (DequantEpi) or K10's residual and bias
+// (ResidualS8Epi).
 //
 // K17 replaces ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_absorbed_s8
 // (pallas_call in _absorbed_s8_impl, public absorbed_self_attention_s8),
@@ -117,84 +122,173 @@
 // same steps with one weight scale per tensor and the amax of step 2 over
 // the image's whole [T, C] projection. Its one-hot int8 head picks and its
 // to_out weight padded to [H, 128, C] are exact TPU layout work: here the
-// heads are column offsets and the pad rows are not stored.
+// heads are column offsets and Wo8's head padding is to 32, not 128.
 //
 // What bounds them: per image 4 * 2*T*C^2 + 2 * 2*H*T^2*d int8 operations
 // at 1,979 TOPS against x in, the int8 weights and the bf16 output.
 //
-// Design (K17 and K18 differ only in the width of step 2's groups): eight
+// Design (K17 and K18 differ only in the width of step 2's groups): six
 // kernels on the stream, fp32 and int8 intermediates through device memory.
-// (a) ln_quant without the LN: x8; (b) s8_gemm_kernel of x8 with the three
-// [C, C] codes as one [3C, C] product, step 1 in its epilogue into fp32 y
+// (a) ln_quant without the LN: x8, and the amax words zeroed; (b)
+// gemm_sm90.cuh's int8 product of x8 with the three [C, C] codes as one
+// [3C, C] product, step 1 in its epilogue into fp32 y and step 2's amax
+// folded per 8-row group and column group into each (image, group) slot
 // (AbsorbedProjEpi; K18's per-tensor scales arrive repeated per head); (c)
-// group_amax_kernel (many blocks per group, an atomicMax each) and
-// group_quant_kernel (elementwise): step 2 needs the whole tile's amax
-// before the first code; (d) attn_s8_kernel above on the head views of
-// y8, reading each block's (image, head) scales from (c), with the fp32
-// epilogue of step 6; (e) the same two kernels per (image, head) of oh:
-// step 7; (f) head_out_kernel: per 64 x 64 output tile, each head's int32
-// product over its d columns (zero-padded to 16 in shared memory), scaled
-// by os * wos[h] and added in fp32 registers, h = 0 first.
+// group_quant_kernel: the scales and codes of step 2 (q8 and k8
+// head-padded, v8 transposed as K13's); (d) the attention stage with the
+// fp32 epilogue of step 6, which also folds step 7's amax into the (image,
+// head) slots; (e) group_quant_kernel again for oh8, head-padded; (f)
+// gemm_sm90.cuh's per-head product (gemm_heads_kernel) of oh8 with Wo8
+// repacked [C, H, dp] once by the wrapper's pack: each head's int32 sums
+// promoted into fp32 registers as acc + float(c32) * (os * wos[h]), h = 0
+// first.
 
+#include "attention_sm90.cuh"
+#include "gemm_sm90.cuh"
 #include "s8_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace s8;
+using namespace s8;  // ln_quant, quant_s8, to_f, warp_max
 
-constexpr int kMaxD = 160;                // largest head dim taken
-constexpr int kMaxDTiles = kMaxD / 16;    // output column tiles per warp
-constexpr float kLn127 = 4.844187086458591f;
+constexpr int kMaxD = 160;  // largest head dim taken
+constexpr int kTok = 64;    // tokens of a quantize block
 
 struct Strides {
   long long b, t, h;  // element strides of the B, T and H axes (D is 1)
 };
 
 struct QKV {
-  const void* x[3];   // q, k, v
+  const void* x[3];  // q, k, v
   Strides st[3];
-  int8_t* x8[3];      // their codes, contiguous [B, T, H, D]
 };
 
-// the 8 elements of q, k or v (which) that thread unit u owns: unit u is
-// row (b * t + token) * heads + head, columns [8 (u % (d / 8)), +8)
-template <typename T>
-__device__ __forceinline__ const T* qkv_unit(const QKV& a, int which, int u,
-                                             int t, int heads, int d) {
-  const int per_row = d / 8;
-  const int row = u / per_row;
-  const int j = (u - row * per_row) * 8;
-  const int bt = row / heads;
-  const int h = row - bt * heads;
-  const int b = bt / t;
-  const int tok = bt - b * t;
-  const Strides s = a.st[which];
-  return static_cast<const T*>(a.x[which]) + b * s.b + tok * s.t + h * s.h +
-         j;
+// position q of a 16-key group of v8t holds this key of the group
+// (attention_sm90.cuh: the score registers' order)
+__device__ __forceinline__ int key_of(int q) {
+  return 2 * ((q >> 2) & 3) + (q & 1) + 8 * ((q >> 1) & 1);
+}
+
+// positions [q4, q4 + 4) of the 64-token tile at t0 of one head column
+// whose codes lie in `codes` (by token in the tile): key_of within each
+// 16, zero for keys past t
+__device__ __forceinline__ uint32_t vt_word(const int8_t* codes, int q4,
+                                            int t0, int t) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int q = q4 + e;
+    const int key = (q & ~15) + key_of(q & 15);
+    if (t0 + key < t) {
+      w |= static_cast<uint32_t>(static_cast<uint8_t>(codes[key])) << (8 * e);
+    }
+  }
+  return w;
+}
+
+// eight consecutive elements from p, as fp32: 16-byte loads where p is
+// 16-byte aligned (the caller's strides may leave it less aligned)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = p[e];
+  }
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[8]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[e]));
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(p[e]);
+  }
+}
+
+// eight codes as one 8-byte store, byte e the e-th
+__device__ __forceinline__ uint2 pack_codes(const int8_t (&c8)[8]) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    w[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(c8[e]))
+                << (8 * (e % 4));
+  }
+  return make_uint2(w[0], w[1]);
 }
 
 // ---- a: quantize q, k and v ------------------------------------------------
+// One block per (64 tokens, image * head, tensor): q and k into the
+// head-padded [B*T, H, dp], v through shared memory into v8t [B, H, d, tp].
 template <typename T>
 __global__ void __launch_bounds__(256)
-    quant_qkv_kernel(QKV a, int units, int t, int heads, int d,
-                     const float* __restrict__ scale_dev, float qs, float ks,
-                     float vs) {
-  const int which = blockIdx.y;
-  const int u = blockIdx.x * 256 + threadIdx.x;  // 8 elements of one row
-  if (u >= units) return;
-  const T* x = qkv_unit<T>(a, which, u, t, heads, d);
+    quant_qkv_kernel(QKV a, int8_t* __restrict__ q8, int8_t* __restrict__ k8,
+                     int8_t* __restrict__ v8t, int t, int heads, int d,
+                     int dp, int tp, const float* __restrict__ scale_dev,
+                     float qs, float ks, float vs) {
+  __shared__ int8_t vt[kMaxD][kTok + 4];  // v's codes, [column][token]
+  const int which = blockIdx.z;
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y - b * heads;
+  const int t0 = blockIdx.x * kTok;
   const float sc = scale_dev != nullptr
                        ? scale_dev[which]
                        : (which == 0 ? qs : (which == 1 ? ks : vs));
-  int8_t* y = a.x8[which] + static_cast<long long>(u) * 8;
+  const Strides s = a.st[which];
+  const T* x = static_cast<const T*>(a.x[which]) + b * s.b + h * s.h;
+  const int units = d / 8;
+  for (int i = threadIdx.x; i < kTok * units; i += 256) {
+    const int r = i / units;
+    const int u = i - r * units;
+    const int tok = t0 + r;
+    if (tok >= t) continue;
+    float v[8];
+    load8(x + tok * s.t + 8 * u, v);
+    int8_t c8[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) y[e] = quant_s8(to_f(x[e]) / sc);
+    for (int e = 0; e < 8; ++e) c8[e] = quant_s8(v[e] / sc);
+    if (which < 2) {
+      *reinterpret_cast<uint2*>(
+          (which == 0 ? q8 : k8) +
+          (static_cast<long long>(b * t + tok) * heads + h) * dp + 8 * u) =
+          pack_codes(c8);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[8 * u + e][r] = c8[e];
+    }
+  }
+  if (which < 2) return;
+  __syncthreads();
+  int8_t* dst = v8t + static_cast<long long>(b * heads + h) * d * tp + t0;
+  for (int i = threadIdx.x; i < d * (kTok / 4); i += 256) {
+    const int col = i / (kTok / 4);
+    const int q4 = (i - col * (kTok / 4)) * 4;
+    if (t0 + q4 < tp) {
+      *reinterpret_cast<uint32_t*>(dst + static_cast<long long>(col) * tp +
+                                   q4) = vt_word(vt[col], q4, t0, t);
+    }
+  }
 }
 
 // ---- K15's dynamic scales: amax of |q|, |k|, |v| ---------------------------
-// Each warp's max by shuffles, then one atomicMax per warp on the float's
-// bits into amax[which] (zeroed before): non-negative floats order as their
-// bit patterns, and a max is exact in any order.
+// Each block's max (shuffles, then across its warps), then one atomicMax
+// per block on the float's bits into amax[which] (zeroed before):
+// non-negative floats order as their bit patterns, and a max is exact in
+// any order (one atomic per warp queued 5,120 of them on one word at T =
+// 2048). Thread unit u owns 8 elements of row (b * t + token) * heads +
+// head.
 template <typename T>
 __global__ void __launch_bounds__(256)
     amax_qkv_kernel(QKV a, int units, int t, int heads, int d,
@@ -203,12 +297,29 @@ __global__ void __launch_bounds__(256)
   const int u = blockIdx.x * 256 + threadIdx.x;
   float m = 0.f;
   if (u < units) {
-    const T* x = qkv_unit<T>(a, which, u, t, heads, d);
+    const int per_row = d / 8;
+    const int row = u / per_row;
+    const int j = (u - row * per_row) * 8;
+    const int bt = row / heads;
+    const int h = row - bt * heads;
+    const int b = bt / t;
+    const int tok = bt - b * t;
+    const Strides s = a.st[which];
+    float v[8];
+    load8(static_cast<const T*>(a.x[which]) + b * s.b + tok * s.t +
+              h * s.h + j,
+          v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(to_f(x[e])));
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
   }
+  __shared__ float red[8];
   m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) atomicMax(amax + which, __float_as_uint(m));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = warp_max(threadIdx.x < 8 ? red[threadIdx.x] : 0.f);
+    if (threadIdx.x == 0) atomicMax(amax + which, __float_as_uint(m));
+  }
 }
 
 // 1e-6 rounded to the input's type, as jnp.maximum(amax, 1e-6) rounds it
@@ -227,233 +338,177 @@ __global__ void amax_scales_kernel(const unsigned* __restrict__ amax,
   if (i < 3) scales[i] = fmaxf(__uint_as_float(amax[i]), floor) / 127.f;
 }
 
-// rows [row0, row0+64) of one head's int8 [t, d] slice (row stride ld) into
-// 16x16 blocks: block (key slice kk, column tile n) at (kk * ntiles + n) *
-// 256, row-major inside; zero past t and d
-__device__ __forceinline__ void load_head_s8_blocks(
-    int8_t* dst, const int8_t* __restrict__ src, int ld, int row0, int t,
-    int d, int dp) {
-  const int units = dp / 8;
-  const int ntiles = dp / 16;
-  for (int i = threadIdx.x; i < kTile * units; i += kThreads) {
-    const int r = i / units;
-    const int u = i - r * units;
-    uint2 val = make_uint2(0u, 0u);
-    if (row0 + r < t && u * 8 < d) {
-      val = *reinterpret_cast<const uint2*>(
-          src + static_cast<long long>(row0 + r) * ld + u * 8);
-    }
-    *reinterpret_cast<uint2*>(dst + ((r >> 4) * ntiles + (u >> 1)) * 256 +
-                              (r & 15) * 16 + (u & 1) * 8) = val;
-  }
+// ---- b: attention per (image*head, query tile) ------------------------------
+// The launch plan as ops/attention_s8.py:sm90_s8pv_attention_plan lays it
+// out
+struct AttnPlan {
+  int head_class;  // N of e8 V: d rounded up to an .s8 class
+  int block_q;     // query rows per block, 64 per consumer warpgroup
+  int block_k;     // keys per tile
+  int stages;      // depth of the K/V ring
+  int qk_chunks;   // 128-column int8 boxes across a head of q8/k8
+  int dp;          // the head-padded width of q8 and k8
+  int tp;          // the key stride of v8t: T rounded up to 16
+  int smem_bytes;  // dynamic shared memory of the launch
+  int grid_x;      // query tiles
+  int grid_y;      // B * H
+};
+constexpr int kAttnPlanInts = 10;
+
+bool attn_plan_ok(const AttnPlan& p, int bh, int t, int d) {
+  const int hc = attn90::s8_class(d);
+  const int qk_chunks = ((hc + 31) / 32 + 3) / 4;
+  return p.head_class == hc && p.qk_chunks == qk_chunks &&
+         p.dp == (d + 31) / 32 * 32 && p.tp == (t + 15) / 16 * 16 &&
+         p.smem_bytes == attn90::smem_bytes_s8pv(p.block_q, p.block_k,
+                                                 qk_chunks, hc, p.stages) &&
+         attn90::tiles_ok(hc, p.block_q, p.block_k, p.stages, p.smem_bytes,
+                          p.grid_x, p.grid_y, bh, t);
 }
 
-// ---- b: attention per (image*head, 64-query tile) ------------------------
-// The epilogue on o32 = int32 e8 V8 and denom, into o [B, T, H, D]:
-//   kOutBf16 (K13): o = bf16(float(o32) * ((sc1 * 127) / denom));
-//   kOutS8 (K11): of8 = clip(rint(float(o32) * (ratio[h] / denom)));
-//   kOutF32 (K17, K18): oh = (float(o32) * vs) / denom in fp32.
-// q8, k8 and v8 are read with the token row stride ld (heads * d, or 3c
-// for K17's and K18's q | k | v rows). The scales: group_scales, per
-// (tensor, image, group) as [3][batch][groups] with head h in group h *
-// groups / heads (K17, K18); else scale_dev, three per tensor; else the
-// static qs, ks, vs.
-constexpr int kOutBf16 = 0;
-constexpr int kOutS8 = 1;
-constexpr int kOutF32 = 2;
+// the scales of a launch: group_scales, per (tensor, image, group) as
+// [3][batch][groups] with head h in group h * groups / heads (K17, K18);
+// else scale_dev, three per tensor; else the static qs, ks, vs. ratio
+// [heads] for kOutS8; amax [batch][heads] for kOutF32 (or null)
+struct Scales {
+  const float* group_scales;
+  int groups;
+  const float* scale_dev;
+  float qs, ks, vs, scale;
+  const float* ratio;
+  unsigned* amax;
+};
 
-template <int kOut>
-__global__ void __launch_bounds__(kThreads)
-    attn_s8_kernel(const int8_t* __restrict__ q8,
-                   const int8_t* __restrict__ k8,
-                   const int8_t* __restrict__ v8, void* __restrict__ o,
-                   int heads, int t, int d, int ld,
-                   const float* __restrict__ scale_dev, float qs, float ks,
-                   float vs, float scale, const float* __restrict__ ratio,
-                   const float* __restrict__ group_scales, int groups) {
-  using namespace nvcuda;
-  extern __shared__ __align__(256) unsigned char smem[];
-  const int dp = (d + 15) & ~15;
-  const int ntiles = dp / 16;
-  int8_t* Qs = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ks = Qs + kTile * dp;
-  int8_t* Vs = Ks + kTile * dp;
-  int8_t* Es = Vs + kTile * dp;
-  int* S = reinterpret_cast<int*>(Es + kTile * kTile);
-
+// attention_sm90.cuh's skeleton on int8 q8, k8 and v8t: K13's rounding
+// point, the epilogue kOut
+template <int kDN, int kWG, int kOut>
+__global__ void __launch_bounds__(attn90::Cfg<true, kDN, kWG, kOut>::kThreads,
+                                  1)
+    attn_s8pv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          void* __restrict__ o, attn90::Strides so, int heads,
+                          int t, int d, int stages, Scales sc) {
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y - b * heads;
-  if (group_scales != nullptr) {
+  float qs = sc.qs, ks = sc.ks, vs = sc.vs;
+  if (sc.group_scales != nullptr) {
     const int batch = gridDim.y / heads;
-    const int g = b * groups + h * groups / heads;
-    qs = group_scales[g];
-    ks = group_scales[batch * groups + g];
-    vs = group_scales[2 * batch * groups + g];
-  } else if (scale_dev != nullptr) {
-    qs = scale_dev[0];
-    ks = scale_dev[1];
-    vs = scale_dev[2];
+    const int g = b * sc.groups + h * sc.groups / heads;
+    qs = sc.group_scales[g];
+    ks = sc.group_scales[batch * sc.groups + g];
+    vs = sc.group_scales[2 * batch * sc.groups + g];
+  } else if (sc.scale_dev != nullptr) {
+    qs = sc.scale_dev[0];
+    ks = sc.scale_dev[1];
+    vs = sc.scale_dev[2];
   }
-  const float sc0 = (qs * ks) * scale;
-  const float sc1 = vs / 127.f;
-
-  const int q0 = blockIdx.x * kTile;
-  const long long base = static_cast<long long>(b) * t * ld + h * d;
-  const int ldo = heads * d;
-  const long long obase = (static_cast<long long>(b) * t * heads + h) * d;
-  load_head_s8(Qs, q8 + base, ld, q0, t, d, dp);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x / 32;
-  const int row = warp * 16 + (lane >> 1);  // this lane pair's query row
-  const int half = lane & 1;                // columns half, half+2, ...
-  float m_run = -INFINITY;
-
-  // pass 1: the row max of the scaled scores
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();
-    load_head_s8(Ks, k8 + base, ld, k0, t, d, dp);
-    __syncthreads();
-    score_tile(Qs, Ks, S, dp);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int cc = half + 2 * j;
-      if (k0 + cc < t) {
-        m_run = fmaxf(m_run,
-                      __fmul_rn(static_cast<float>(S[row * kStageLd + cc]),
-                                sc0));
-      }
-    }
-    __syncwarp();
-  }
-  m_run = fmaxf(m_run, __shfl_xor_sync(0xffffffffu, m_run, 1));
-
-  // pass 2: e = exp((s - max) + ln 127), denom += e, e8 = rint(e),
-  // O += e8 V8 (int32)
-  AccFrag acc_o[kMaxDTiles];
-#pragma unroll
-  for (int n = 0; n < kMaxDTiles; ++n) wmma::fill_fragment(acc_o[n], 0);
-  float l_run = 0.f;
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();
-    load_head_s8(Ks, k8 + base, ld, k0, t, d, dp);
-    load_head_s8_blocks(Vs, v8 + base, ld, k0, t, d, dp);
-    __syncthreads();
-    score_tile(Qs, Ks, S, dp);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int cc = half + 2 * j;
-      int8_t e8 = 0;
-      if (k0 + cc < t) {
-        // __fmul_rn: s rounds before the subtraction, as in the TPU kernel
-        // (no fused multiply-add)
-        const float s =
-            __fmul_rn(static_cast<float>(S[row * kStageLd + cc]), sc0);
-        const float e = expf((s - m_run) + kLn127);
-        l_run += e;
-        e8 = static_cast<int8_t>(rintf(e));
-      }
-      Es[(cc >> 4) * kSlab + row * 16 + (cc & 15)] = e8;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-          a;
-      wmma::load_matrix_sync(a, Es + kk * kSlab + warp * 16 * 16, 16);
-#pragma unroll
-      for (int n = 0; n < kMaxDTiles; ++n) {
-        if (n < ntiles) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                         wmma::row_major>
-              bv;
-          wmma::load_matrix_sync(bv, Vs + (kk * ntiles + n) * 256, 16);
-          wmma::mma_sync(acc_o[n], a, bv, acc_o[n]);
-        }
-      }
-    }
-  }
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  const float f = kOut == kOutS8 ? ratio[h] / l_run : (sc1 * 127.f) / l_run;
-
-  // o = bf16(o32 * f) (or of8) for query rows < t and columns < d, staged
-  // per warp through this warp's rows of S
-  int* stage = S + warp * 16 * kStageLd;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < kMaxDTiles; ++n) {
-    if (n < ntiles) {
-      wmma::store_matrix_sync(stage, acc_o[n], kStageLd, wmma::mem_row_major);
-      __syncwarp();
-      const int r = lane >> 1;
-      const int grow = q0 + warp * 16 + r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int cc = n * 16 + (lane & 1) * 8 + j;
-        if (grow < t && cc < d) {
-          const long long at = obase + static_cast<long long>(grow) * ldo + cc;
-          const float acc =
-              static_cast<float>(stage[r * kStageLd + (lane & 1) * 8 + j]);
-          if constexpr (kOut == kOutF32) {
-            static_cast<float*>(o)[at] = (acc * vs) / l_run;
-          } else if constexpr (kOut == kOutS8) {
-            static_cast<int8_t*>(o)[at] = quant_s8(acc * f);
-          } else {
-            static_cast<__nv_bfloat16*>(o)[at] = __float2bfloat16_rn(acc * f);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
+  attn90::PV8 pv;
+  pv.sc0 = (qs * ks) * sc.scale;
+  pv.out = kOut == attn90::kOutS8    ? sc.ratio[h]
+           : kOut == attn90::kOutF32 ? vs
+                                     : (vs / 127.f) * 127.f;
+  pv.amax = sc.amax != nullptr ? sc.amax + blockIdx.y : nullptr;
+  attn90::forward<true, kDN, kWG, kOut>(tq, tk, tv, o, so, heads, t, d,
+                                        stages, 0.f, pv);
 }
 
-size_t attn_smem(int d) {
-  const int dp = (d + 15) & ~15;
-  return 3 * kTile * dp + kTile * kTile + kTile * kStageLd * sizeof(int);
+template <int kDN, int kWG, int kOut>
+int attn_as(const AttnPlan& p, const CUtensorMap* maps, void* o,
+            const attn90::Strides& so, int heads, int t, int d,
+            const Scales& sc, cudaStream_t stream) {
+  auto kernel = attn_s8pv_kernel_sm90<kDN, kWG, kOut>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm90::kSmemLimit);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<dim3(p.grid_x, p.grid_y),
+           attn90::Cfg<true, kDN, kWG, kOut>::kThreads, p.smem_bytes,
+           stream>>>(maps[0], maps[1], maps[2], o, so, heads, t, d, p.stages,
+                     sc);
+  return static_cast<int>(cudaGetLastError());
 }
 
+template <int kWG, int kOut>
+int attn_wg(const AttnPlan& p, const CUtensorMap* maps, void* o,
+            const attn90::Strides& so, int heads, int t, int d,
+            const Scales& sc, cudaStream_t stream) {
+  switch (p.head_class) {
+    case 16: return attn_as<16, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+    case 32: return attn_as<32, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+    case 48: return attn_as<48, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+    case 64: return attn_as<64, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+    case 80: return attn_as<80, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+    case 128: return attn_as<128, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+    case 160: return attn_as<160, kWG, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q8, k8 int8 [batch*t, heads, dp] (the padding never read), v8t int8
+// [batch, heads, d, tp]; o (kOut's type) through the element strides so;
+// scale > 0
+template <int kOut>
+int launch_attn(const int* plan, const int8_t* q8, const int8_t* k8,
+                const int8_t* v8t, void* o, const attn90::Strides& so,
+                int batch, int t, int heads, int d, const Scales& sc,
+                cudaStream_t stream) {
+  const AttnPlan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+                   plan[5], plan[6], plan[7], plan[8], plan[9]};
+  if (!attn_plan_ok(p, batch * heads, t, d) || !(sc.scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int current = sm90::make_current(q8);
+  if (current != 0) return current;
+  CUtensorMap maps[3];
+  int err = sm90::encode_map_s8(&maps[0], q8, batch, t, heads, d, p.dp, 64);
+  if (err != 0) return err;
+  err = sm90::encode_map_s8(&maps[1], k8, batch, t, heads, d, p.dp,
+                            p.block_k);
+  if (err != 0) return err;
+  err = sm90::encode_map_s8t(&maps[2], v8t, batch, p.tp, heads, d,
+                             p.head_class);
+  if (err != 0) return err;
+  return p.block_q == 128
+             ? attn_wg<2, kOut>(p, maps, o, so, heads, t, d, sc, stream)
+             : attn_wg<1, kOut>(p, maps, o, so, heads, t, d, sc, stream);
+}
+
+// K13 and K15's attention: quant_qkv, then the stage into bf16 o [B, T, H,
+// D] contiguous
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const long long* st,
-           int8_t* q8, int8_t* k8, int8_t* v8, __nv_bfloat16* o, int batch,
+           int8_t* q8, int8_t* k8, int8_t* v8t, __nv_bfloat16* o, int batch,
            int t, int heads, int d, const float* scale_dev, float qs,
-           float ks, float vs, float scale, cudaStream_t stream) {
+           float ks, float vs, float scale, const int* plan,
+           cudaStream_t stream) {
   QKV a;
   a.x[0] = q;
   a.x[1] = k;
   a.x[2] = v;
-  a.x8[0] = q8;
-  a.x8[1] = k8;
-  a.x8[2] = v8;
   for (int i = 0; i < 3; ++i) a.st[i] = Strides{st[3 * i], st[3 * i + 1],
                                                 st[3 * i + 2]};
-  const int units = batch * t * heads * (d / 8);
-  const dim3 grid_q((units + 255) / 256, 3);
-  quant_qkv_kernel<T><<<grid_q, 256, 0, stream>>>(a, units, t, heads, d,
-                                                  scale_dev, qs, ks, vs);
-  int err = static_cast<int>(cudaGetLastError());
+  const int dp = plan[5];
+  const int tp = plan[6];
+  quant_qkv_kernel<T><<<dim3((t + kTok - 1) / kTok, batch * heads, 3), 256,
+                        0, stream>>>(a, q8, k8, v8t, t, heads, d, dp, tp,
+                                     scale_dev, qs, ks, vs);
+  const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const size_t smem = attn_smem(d);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      attn_s8_kernel<kOutBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-  if (err != 0) return err;
-  const dim3 grid((t + kTile - 1) / kTile, batch * heads);
-  attn_s8_kernel<kOutBf16><<<grid, kThreads, smem, stream>>>(
-      q8, k8, v8, o, heads, t, d, heads * d, scale_dev, qs, ks, vs, scale,
-      nullptr, nullptr, 0);
-  return static_cast<int>(cudaGetLastError());
+  const Scales sc{nullptr, 0, scale_dev, qs, ks, vs, scale, nullptr, nullptr};
+  const attn90::Strides so{static_cast<long long>(t) * heads * d,
+                           static_cast<long long>(heads) * d, d};
+  return launch_attn<attn90::kOutBf16>(plan, q8, k8, v8t, o, so, batch, t,
+                                       heads, d, sc, stream);
 }
 
 // K15: the dynamic scales into scratch (amax bits, then the three
 // scales), then K13's two kernels reading them from device memory
 template <typename T>
 int launch_packed(const void* q, const void* k, const void* v,
-                  const long long* st, int8_t* q8, int8_t* k8, int8_t* v8,
+                  const long long* st, int8_t* q8, int8_t* k8, int8_t* v8t,
                   __nv_bfloat16* o, int batch, int t, int heads, int d,
-                  unsigned* scratch, float scale, cudaStream_t stream) {
+                  unsigned* scratch, float scale, const int* plan,
+                  cudaStream_t stream) {
   QKV a;
   a.x[0] = q;
   a.x[1] = k;
@@ -472,381 +527,467 @@ int launch_packed(const void* q, const void* k, const void* v,
   amax_scales_kernel<T><<<1, 32, 0, stream>>>(scratch, scales);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch<T>(q, k, v, st, q8, k8, v8, o, batch, t, heads, d, scales,
-                   0.f, 0.f, 0.f, scale, stream);
+  return launch<T>(q, k, v, st, q8, k8, v8t, o, batch, t, heads, d, scales,
+                   0.f, 0.f, 0.f, scale, plan, stream);
 }
 
-// K11's to_out: out = bf16(float(sum) * scale), [rows, n]
-struct DequantBf16Epi {
-  static constexpr bool kColMajor = false;
-  float scale;
-  __nv_bfloat16* out;
-  int n;
-  __device__ void operator()(int row, int col, int sum) const {
-    out[static_cast<long long>(row) * n + col] =
-        __float2bfloat16_rn(static_cast<float>(sum) * scale);
+// ---- K11 and K10's products -------------------------------------------------
+// (b) q8 and k8 requantized per column, clip(rint(sum * m[col])), into the
+// head-padded [rows, heads, dp]; the product's columns are q | k. Where a
+// column goes is worked out once per column and block (its tensor and its
+// offset in the row, in the int per-column vector).
+struct QkPadEpi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 1;     // m
+  static constexpr int kIntCols = 1;  // the column's code
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  const float* m;
+  int8_t* q8;
+  int8_t* k8;
+  int c, d, dp, heads;
+  __device__ float col_value(int, int col) const { return __ldg(m + col); }
+  __device__ int col_int(int, int col) const {
+    const int which = col / c;
+    const int cc = col - which * c;
+    const int h = cc / d;
+    return which << 28 | (h * dp + (cc - h * d));
+  }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int, const float2* cv, const int2* ci,
+                             const RowPre&, const Pre&, int s0,
+                             int s1) const {
+    const int code = ci[0].x;
+    *reinterpret_cast<char2*>((code >> 28 ? k8 : q8) +
+                              static_cast<long long>(row) * heads * dp +
+                              (code & ((1 << 28) - 1))) =
+        make_char2(quant_s8(static_cast<float>(s0) * cv[0].x),
+                   quant_s8(static_cast<float>(s1) * cv[0].y));
   }
 };
 
-// (b) and (c) of K11 and K10: the three projections of x8 requantized
-// per column, and the e8 attention with the of8 epilogue
-int launch_qkv_attention(const int8_t* x8, const int8_t* w_qkv,
-                         const float* m_qkv, const float* ratio, int8_t* q8,
-                         int8_t* k8, int8_t* v8, int8_t* of8, int batch,
-                         int t, int c, int heads, float score_scale,
-                         cudaStream_t stream) {
-  const int rows = batch * t;
-  const int d = c / heads;
-  int err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
-                           QkvEpi{m_qkv, q8, k8, v8, c}, stream);
-  if (err != 0) return err;
-  const size_t smem = attn_smem(d);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      attn_s8_kernel<kOutS8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-  if (err != 0) return err;
-  // sc0 = (1 * 1) * score_scale: the score scale exactly
-  const dim3 grid((t + kTile - 1) / kTile, batch * heads);
-  attn_s8_kernel<kOutS8><<<grid, kThreads, smem, stream>>>(
-      q8, k8, v8, of8, heads, t, d, c, nullptr, 1.f, 1.f, 1.f, score_scale,
-      ratio, nullptr, 0);
-  return static_cast<int>(cudaGetLastError());
-}
+// (c) the swapped V projection Wv8 x8^T: rows are head columns (channel
+// ch = h d + j), columns tokens of the B*T rows of x8. v8 = clip(rint(sum *
+// m[ch])) into v8t [B, C, tp] at the token's permuted position; a column
+// pair is two adjacent keys of one image (T is even), adjacent there too.
+struct VtEpi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 1;  // the column's offset in v8t
+  struct RowPre {
+    float m;
+    long long at;  // the channel's row of v8t, ch * tp
+  };
+  using Pre = gemm90::NoPre;
+  const float* m;
+  int8_t* v8t;
+  int t, c, tp;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ int col_int(int, int col) const {
+    const int b = col / t;
+    const int tok = col - b * t;
+    const int q = tok & 15;
+    // the inverse of key_of: key 2a + 8c + e sits at 4a + 2c + e
+    const int pos = (tok & ~15) + 4 * ((q >> 1) & 3) + 2 * (q >> 3) + (q & 1);
+    return b * c * tp + pos;
+  }
+  __device__ RowPre row_pre(int row) const {
+    return {__ldg(m + row), static_cast<long long>(row) * tp};
+  }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int, int, const float2*, const int2* ci,
+                             const RowPre& rp, const Pre&, int s0,
+                             int s1) const {
+    *reinterpret_cast<char2*>(v8t + rp.at + ci[0].x) =
+        make_char2(quant_s8(static_cast<float>(s0) * rp.m),
+                   quant_s8(static_cast<float>(s1) * rp.m));
+  }
+};
 
-template <typename T>
-int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
-                  const float* m_qkv, const int8_t* wo, const float* ratio,
-                  int8_t* x8, int8_t* q8, int8_t* k8, int8_t* v8,
-                  int8_t* of8, int batch, int t, int c, int heads, float xs,
-                  float score_scale, float out_scale, cudaStream_t stream) {
-  const int rows = batch * t;
-  int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
-                                      0.f, nullptr, 0, stream);
-  if (err != 0) return err;
-  err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8, of8, batch,
-                             t, c, heads, score_scale, stream);
-  if (err != 0) return err;
-  return launch_s8_gemm(of8, wo, rows, c, c,
-                        DequantBf16Epi{out_scale, out, c}, stream);
-}
+// (e) K11's to_out: out = bf16(float(sum) * scale), [rows, n]
+struct DequantEpi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 0;
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  float scale;
+  __nv_bfloat16* out;
+  int n;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*, const int2*,
+                             const RowPre&, const Pre&, int s0,
+                             int s1) const {
+    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * n +
+                                 col) =
+        sm90::pack_bf16(static_cast<float>(s0) * scale,
+                        static_cast<float>(s1) * scale);
+  }
+};
 
-// K10's to_out: out = bf16((float(x) + float(sum) * scale) + bias[col]),
+// (e) K10's to_out: out = bf16((float(x) + float(sum) * scale) + bias[col]),
 // x the block's input [rows, n] in its type. __fmul_rn: the product rounds
 // before the residual add, as in the TPU kernel (no fused multiply-add).
 template <typename T>
 struct ResidualS8Epi {
-  static constexpr bool kColMajor = false;
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 1;  // bias
+  static constexpr int kIntCols = 0;
+  using RowPre = gemm90::NoPre;
+  using Pre = typename gemm90::PairOf<T>::type;  // x
   const T* x;
   float scale;
   const float* bias;
   __nv_bfloat16* out;
   int n;
-  __device__ void operator()(int row, int col, int sum) const {
-    const long long at = static_cast<long long>(row) * n + col;
-    out[at] = __float2bfloat16_rn(
-        (to_f(x[at]) + __fmul_rn(static_cast<float>(sum), scale)) +
-        bias[col]);
+  __device__ float col_value(int, int col) const { return __ldg(bias + col); }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int row, int col) const {
+    return gemm90::ldg_pair(x + static_cast<long long>(row) * n + col);
+  }
+  __device__ void operator()(int row, int col, const float2* cv,
+                             const int2*, const RowPre&, const Pre& xv,
+                             int s0, int s1) const {
+    const float2 xf = gemm90::to_f2(xv);
+    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * n +
+                                 col) =
+        sm90::pack_bf16(
+            (xf.x + __fmul_rn(static_cast<float>(s0), scale)) + cv[0].x,
+            (xf.y + __fmul_rn(static_cast<float>(s1), scale)) + cv[0].y);
   }
 };
+
+// K11's and K10's (b)-(d): the two projections of x8 and the e8 attention
+// with the of8 epilogue. plans: sm90_gemm_plan's of [rows, 2c, c] and [c,
+// rows, c] (int8), sm90_s8pv_attention_plan's, in that order.
+int launch_qkv_attention(const int8_t* x8, const int8_t* w_qkv,
+                         const float* m_qkv, const float* ratio, int8_t* q8,
+                         int8_t* k8, int8_t* v8t, int8_t* of8, int batch,
+                         int t, int c, int heads, float score_scale,
+                         const int* plans, cudaStream_t stream) {
+  const int rows = batch * t;
+  const int d = c / heads;
+  const int* attn_plan = plans + 2 * gemm90::kPlanInts;
+  const int dp = attn_plan[5];
+  const int tp = attn_plan[6];
+  int err = gemm90::launch_gemm<true>(
+      plans, x8, w_qkv, rows, 2 * c, c, 0,
+      QkPadEpi{m_qkv, q8, k8, c, d, dp, heads}, stream);
+  if (err != 0) return err;
+  err = gemm90::launch_gemm<true>(
+      plans + gemm90::kPlanInts, w_qkv + 2ll * c * c, x8, c, rows, c, 0,
+      VtEpi{m_qkv + 2 * c, v8t, t, c, tp}, stream);
+  if (err != 0) return err;
+  // sc0 = (1 * 1) * score_scale: the score scale exactly
+  const Scales sc{nullptr, 0, nullptr, 1.f, 1.f, 1.f, score_scale, ratio,
+                  nullptr};
+  const attn90::Strides so{static_cast<long long>(t) * c, c, d};
+  return launch_attn<attn90::kOutS8>(attn_plan, q8, k8, v8t, of8, so, batch,
+                                     t, heads, d, sc, stream);
+}
+
+// plans: launch_qkv_attention's three, then sm90_gemm_plan's of to_out
+// ([rows, c, c], int8)
+template <typename T>
+int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
+                  const float* m_qkv, const int8_t* wo, const float* ratio,
+                  int8_t* x8, int8_t* q8, int8_t* k8, int8_t* v8t,
+                  int8_t* of8, int batch, int t, int c, int heads, float xs,
+                  float score_scale, float out_scale, const int* plans,
+                  cudaStream_t stream) {
+  const int rows = batch * t;
+  int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
+                                      0.f, nullptr, 0, stream);
+  if (err != 0) return err;
+  err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8t, of8, batch,
+                             t, c, heads, score_scale, plans, stream);
+  if (err != 0) return err;
+  return gemm90::launch_gemm<true>(
+      plans + 2 * gemm90::kPlanInts + kAttnPlanInts, of8, wo, rows, c, c, 0,
+      DequantEpi{out_scale, out, c}, stream);
+}
 
 template <typename T>
 int launch_ln_padded(const void* x, __nv_bfloat16* out, const float* ln_w,
                      const float* ln_b, const float* out_b,
                      const int8_t* w_qkv, const float* m_qkv,
                      const int8_t* wo, const float* ratio, int8_t* x8,
-                     int8_t* q8, int8_t* k8, int8_t* v8, int8_t* of8,
+                     int8_t* q8, int8_t* k8, int8_t* v8t, int8_t* of8,
                      int batch, int t, int c, int heads, float xs,
                      float score_scale, float out_scale, float eps,
-                     cudaStream_t stream) {
+                     const int* plans, cudaStream_t stream) {
   const int rows = batch * t;
   int err = launch_ln_quant<T>(x, x8, ln_w, ln_b, rows, c, xs, eps, nullptr,
                                0, stream);
   if (err != 0) return err;
-  err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8, of8, batch,
-                             t, c, heads, score_scale, stream);
+  err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8t, of8, batch,
+                             t, c, heads, score_scale, plans, stream);
   if (err != 0) return err;
-  return launch_s8_gemm(
-      of8, wo, rows, c, c,
+  return gemm90::launch_gemm<true>(
+      plans + 2 * gemm90::kPlanInts + kAttnPlanInts, of8, wo, rows, c, c, 0,
       ResidualS8Epi<T>{static_cast<const T*>(x), out_scale, out_b, out, c},
       stream);
 }
 
 // ---- K17 and K18 ------------------------------------------------------------
-// the three projections y = float(int32 x8 W^T) * (xs * ws[which][head]) in
-// fp32 into y [rows, 3c], the product's columns q | k | v; ws [4][heads]
-// holds the weight scales per head (K17) or the per-tensor scale repeated
-// (K18). __fmul_rn: the scales' product rounds first, as in the TPU kernel.
+// (b) y = float(int32 x8 W^T) * (xs * ws[which][head]) in fp32 into y [rows,
+// 3c], the product's columns q | k | v; ws [4][heads] holds the weight
+// scales per head (K17) or the per-tensor scale repeated (K18). __fmul_rn:
+// the scales' product rounds first, as in the TPU kernel. Returns the
+// pair's max|y|, which the product folds per 8-row group and column group
+// (part * groups + g, groups of gw columns) into amax[(part * batch + b) *
+// groups + g], b = row / t.
 struct AbsorbedProjEpi {
-  static constexpr bool kColMajor = false;
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 1;     // xs * ws[which][head]
+  static constexpr int kIntCols = 1;  // the column's group
+  static constexpr bool kGroupMax = true;
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
   const float* ws;
   float xs;
   float* y;
-  int c, d, heads;
-  __device__ void operator()(int row, int col, int sum) const {
+  unsigned* amax;
+  int c, d, heads, gw, batch, t;
+  __device__ float col_value(int, int col) const {
     const int which = col / c;
     const int h = (col - which * c) / d;
-    y[static_cast<long long>(row) * 3 * c + col] = __fmul_rn(
-        static_cast<float>(sum), __fmul_rn(xs, ws[which * heads + h]));
+    return __fmul_rn(xs, __ldg(ws + which * heads + h));
+  }
+  __device__ int col_int(int, int col) const {
+    const int which = col / c;
+    return which * (c / gw) + (col - which * c) / gw;
+  }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ float operator()(int row, int col, const float2* cv,
+                              const int2*, const RowPre&, const Pre&, int s0,
+                              int s1) const {
+    const float y0 = __fmul_rn(static_cast<float>(s0), cv[0].x);
+    const float y1 = __fmul_rn(static_cast<float>(s1), cv[0].y);
+    *reinterpret_cast<float2*>(y + static_cast<long long>(row) * 3 * c +
+                               col) = make_float2(y0, y1);
+    return fmaxf(fabsf(y0), fabsf(y1));
+  }
+  __device__ void group_max(int row, int group, float v) const {
+    const int groups = c / gw;
+    const int part = group / groups;
+    atomicMax(amax + (part * batch + row / t) * groups + (group - part *
+                                                              groups),
+              __float_as_uint(v));
   }
 };
 
-// Steps 2 and 7 of K17 and K18: the dynamic scale of each group of y
-// [batch * t, ld] and its codes. The columns [0, parts * part_cols) of y
-// are `parts` parts (q | k | v, or oh alone) of part_cols = groups * gw
-// columns; a group is one image's t rows by gw columns of one part (gw = d:
-// a head; K18's projections gw = c), indexed (p * batch + b) * groups + g.
-// Two kernels, so that every group is read by many blocks at once (the
-// first design gave each group one block: 2.1 ms per K17 forward, latency
-// bound, and K18's projections only 3 * batch blocks):
-// group_amax_kernel: one block per (image, 32-row chunk; group; part): the
-// chunk's max of |y|, then one atomicMax on the float's bits into
-// amax[group] (zeroed before; non-negative floats order as their bits, and
-// a max is exact in any order).
-constexpr int kAmaxRows = 32;
-
+// (c) and (e): the dynamic scale of each group of y [batch * t, ld] and its
+// codes. The columns [0, parts * c) of y are `parts` parts (q | k | v, or
+// oh alone) of c columns; a group is one image's t rows by gw columns of
+// one part, indexed (p * batch + b) * (c / gw) + g, its amax bits in amax
+// (folded by the product or the attention stage). One block per (64
+// tokens, image, part and 64 columns): s = max(amax, 1e-6) / 127 in fp32
+// (the group's first thread stores it in scales), y8 = rint(y / s), a true
+// division (|y / s| <= 127, so the clip of quant_s8 never bites); parts 0
+// and 1 into the head-padded pad[p] [batch * t, heads, dp], part 2
+// through shared memory into v8t [batch, heads, d, tp] as quant_qkv's.
 __global__ void __launch_bounds__(256)
-    group_amax_kernel(const float* __restrict__ y, unsigned* __restrict__ amax,
-                      int t, int ld, int part_cols, int gw) {
-  __shared__ float red[8];
-  const int chunks = (t + kAmaxRows - 1) / kAmaxRows;
-  const int b = blockIdx.x / chunks;
-  const int r0 = (blockIdx.x - b * chunks) * kAmaxRows;
-  const int g = blockIdx.y;
-  const int p = blockIdx.z;
-  const int n = min(kAmaxRows, t - r0) * gw;
-  const long long base = (static_cast<long long>(b) * t + r0) * ld +
-                         p * part_cols + g * gw;
-  float m = 0.f;
-  for (int i = threadIdx.x; i < n; i += 256) {
-    const int r = i / gw;
-    m = fmaxf(m, fabsf(y[base + static_cast<long long>(r) * ld +
-                         (i - r * gw)]));
+    group_quant_kernel(const float* __restrict__ y, int ld, int c, int gw,
+                       const unsigned* __restrict__ amax,
+                       float* __restrict__ scales, int8_t* __restrict__ pad0,
+                       int8_t* __restrict__ pad1, int8_t* __restrict__ v8t,
+                       int batch, int t, int heads, int dp, int tp,
+                       int ctiles) {
+  __shared__ int8_t vt[kTok][kTok + 4];  // part 2's codes, [column][token]
+  const int p = blockIdx.z / ctiles;
+  const int c0 = (blockIdx.z - p * ctiles) * kTok;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * kTok;
+  const int groups = c / gw;
+  const int d = c / heads;
+  for (int i = threadIdx.x; i < kTok * (kTok / 8); i += 256) {
+    const int r = i / (kTok / 8);
+    const int j = c0 + 8 * (i - r * (kTok / 8));
+    const int tok = t0 + r;
+    if (tok >= t || j >= c) continue;
+    const int g = j / gw;
+    const int gi = (p * batch + b) * groups + g;
+    const float s = fmaxf(__uint_as_float(amax[gi]), 1e-6f) / 127.f;
+    if (tok == 0 && j == g * gw) scales[gi] = s;
+    const float* src = y + static_cast<long long>(b * t + tok) * ld + p * c + j;
+    const float4 lo = *reinterpret_cast<const float4*>(src);
+    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    int8_t c8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) c8[e] = quant_s8(v[e] / s);
+    if (p < 2) {
+      const int h = j / d;
+      *reinterpret_cast<uint2*>(
+          (p == 0 ? pad0 : pad1) +
+          (static_cast<long long>(b * t + tok) * heads + h) * dp + (j - h * d)) =
+          pack_codes(c8);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[j - c0 + e][r] = c8[e];
+    }
   }
-  m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = m;
+  if (p < 2) return;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    m = warp_max(threadIdx.x < 8 ? red[threadIdx.x] : 0.f);
-    if (threadIdx.x == 0) {
-      const int batch = gridDim.x / chunks;
-      atomicMax(amax + (p * batch + b) * gridDim.y + g, __float_as_uint(m));
+  for (int i = threadIdx.x; i < kTok * (kTok / 4); i += 256) {
+    const int col = i / (kTok / 4);
+    const int q4 = (i - col * (kTok / 4)) * 4;
+    if (c0 + col < c && t0 + q4 < tp) {
+      *reinterpret_cast<uint32_t*>(
+          v8t + (static_cast<long long>(b) * c + c0 + col) * tp + t0 + q4) =
+          vt_word(vt[col], q4, t0, t);
     }
   }
 }
 
-// group_quant_kernel: one thread per 8 consecutive elements of a row: s =
-// max(amax, 1e-6) / 127 in fp32 (the group's first thread stores it in
-// scales), then y8 = rint(y / s), a true division (|y / s| <= 127, so the
-// clip of quant_s8 never bites).
-__global__ void __launch_bounds__(256)
-    group_quant_kernel(const float* __restrict__ y, int8_t* __restrict__ y8,
-                       const unsigned* __restrict__ amax,
-                       float* __restrict__ scales, int batch, int t, int ld,
-                       int part_cols, int gw, int units_per_row) {
-  const int u = blockIdx.x * 256 + threadIdx.x;
-  if (u >= batch * t * units_per_row) return;
-  const int row = u / units_per_row;
-  const int j = (u - row * units_per_row) * 8;
-  const int p = j / part_cols;
-  const int g = (j - p * part_cols) / gw;
-  const int b = row / t;
-  const int gi = (p * batch + b) * (part_cols / gw) + g;
-  const float s = fmaxf(__uint_as_float(amax[gi]), 1e-6f) / 127.f;
-  if (row == b * t && j == p * part_cols + g * gw) scales[gi] = s;
-  const long long at = static_cast<long long>(row) * ld + j;
-  const float4 lo = *reinterpret_cast<const float4*>(y + at);
-  const float4 hi = *reinterpret_cast<const float4*>(y + at + 4);
-  const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  char4 c0, c1;
-  c0.x = quant_s8(v[0] / s);
-  c0.y = quant_s8(v[1] / s);
-  c0.z = quant_s8(v[2] / s);
-  c0.w = quant_s8(v[3] / s);
-  c1.x = quant_s8(v[4] / s);
-  c1.y = quant_s8(v[5] / s);
-  c1.z = quant_s8(v[6] / s);
-  c1.w = quant_s8(v[7] / s);
-  *reinterpret_cast<char4*>(y8 + at) = c0;
-  *reinterpret_cast<char4*>(y8 + at + 4) = c1;
-}
-
-// steps 2 or 7 on `parts` parts of y: the amax bits (scratch, zeroed
-// here), then the scales and the codes
-int quant_groups(const float* y, int8_t* y8, float* scales, unsigned* amax,
-                 int batch, int t, int ld, int parts, int part_cols, int gw,
-                 cudaStream_t stream) {
-  const int groups = part_cols / gw;
-  int err = static_cast<int>(cudaMemsetAsync(
-      amax, 0, sizeof(unsigned) * parts * batch * groups, stream));
-  if (err != 0) return err;
-  const int chunks = (t + kAmaxRows - 1) / kAmaxRows;
-  group_amax_kernel<<<dim3(batch * chunks, groups, parts), 256, 0, stream>>>(
-      y, amax, t, ld, part_cols, gw);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const int per_row = parts * part_cols / 8;
-  const int units = batch * t * per_row;
-  group_quant_kernel<<<(units + 255) / 256, 256, 0, stream>>>(
-      y, y8, amax, scales, batch, t, ld, part_cols, gw, per_row);
+int launch_group_quant(const float* y, int ld, int parts, int c, int gw,
+                       const unsigned* amax, float* scales, int8_t* pad0,
+                       int8_t* pad1, int8_t* v8t, int batch, int t, int heads,
+                       int dp, int tp, cudaStream_t stream) {
+  const int ctiles = (c + kTok - 1) / kTok;
+  group_quant_kernel<<<dim3((t + kTok - 1) / kTok, batch, parts * ctiles),
+                       256, 0, stream>>>(y, ld, c, gw, amax, scales, pad0,
+                                         pad1, v8t, batch, t, heads, dp, tp,
+                                         ctiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kMaxDp = (kMaxD + 15) & ~15;  // a head's depth, padded
-
-// to_out per head: out[row, col] = bf16(sum over h, h = 0 first, of
-// float(int32 oh8[row, head h] . wo8[col, head h]) * (os[b][h] * wos[h]))
-// with b = row / t. Each head's depth d is zero-padded to a multiple of 16
-// in shared memory (zeros are exact); the 64 x 64 output tile's fp32 sums
-// stay in registers across the heads. __fmul_rn/__fadd_rn: no fused
-// multiply-add, so the sum rounds where the TPU kernel's does.
-__global__ void __launch_bounds__(kThreads)
-    head_out_kernel(const int8_t* __restrict__ oh8,
-                    const int8_t* __restrict__ wo8,
-                    const float* __restrict__ os,
-                    const float* __restrict__ wos,
-                    __nv_bfloat16* __restrict__ out, int rows, int t, int c,
-                    int heads) {
-  __shared__ __align__(256) int8_t As[kTile * kMaxDp];
-  __shared__ __align__(256) int8_t Bs[kTile * kMaxDp];
-  __shared__ __align__(256) int S[kTile * kStageLd];
-  constexpr int kPer = kTile * kTile / kThreads;
-  const int d = c / heads;
-  const int dp = (d + 15) & ~15;
-  const int r0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  float acc[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
-  for (int h = 0; h < heads; ++h) {
-    __syncthreads();
-    load_head_s8(As, oh8 + h * d, c, r0, rows, d, dp);
-    load_head_s8(Bs, wo8 + h * d, c, n0, c, d, dp);
-    __syncthreads();
-    score_tile(As, Bs, S, dp);
-    __syncthreads();
-    const float wsh = wos[h];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / kTile;
-      const int cc = i - r * kTile;
-      if (r0 + r < rows && n0 + cc < c) {
-        const float f = __fmul_rn(os[((r0 + r) / t) * heads + h], wsh);
-        acc[j] = __fadd_rn(
-            acc[j], __fmul_rn(static_cast<float>(S[r * kStageLd + cc]), f));
-      }
-    }
+// (f) out = bf16(the per-head sum), f[b][h] = os[b][h] * wos[h]
+struct HeadOutEpi {
+  const float* os;   // [batch][heads]
+  const float* wos;  // [heads]
+  __nv_bfloat16* out;
+  int n, heads;
+  __device__ float head_factor(int b, int h) const {
+    return __fmul_rn(__ldg(os + b * heads + h), __ldg(wos + h));
   }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / kTile;
-    const int cc = i - r * kTile;
-    if (r0 + r < rows && n0 + cc < c) {
-      out[static_cast<long long>(r0 + r) * c + n0 + cc] =
-          __float2bfloat16_rn(acc[j]);
-    }
+  __device__ void operator()(int row, int col, float a0, float a1) const {
+    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * n +
+                                 col) = sm90::pack_bf16(a0, a1);
   }
-}
+};
 
 // K17 (gw = d: the projections' scales per (image, head)) and K18 (gw = c:
-// per image), eight kernels on the stream: the static-scale quantize of x,
-// the three projections, their dynamic quantize (amax, codes), the
-// attention with the fp32 oh epilogue, its quantize per (image, head)
-// (amax, codes), to_out per head.
+// per image), six kernels on the stream. plans: sm90_gemm_plan's of [rows,
+// 3c, c], sm90_s8pv_attention_plan's, sm90_gemm_plan's of [rows, c, heads
+// * dp] (int8), in that order.
 template <typename T>
 int launch_absorbed_s8(const void* x, __nv_bfloat16* out,
-                       const int8_t* w_qkv, const int8_t* wo,
-                       const float* ws, int8_t* x8, float* y, int8_t* y8,
-                       float* oh, int8_t* oh8, float* scales, int batch,
-                       int t, int c, int heads, int gw, float xs,
-                       float scale, cudaStream_t stream) {
+                       const int8_t* w_qkv, const int8_t* wo_p,
+                       const float* ws, int8_t* x8, float* y, int8_t* q8,
+                       int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8,
+                       float* scales, int batch, int t, int c, int heads,
+                       int gw, float xs, float scale, const int* plans,
+                       cudaStream_t stream) {
   const int rows = batch * t;
   const int d = c / heads;
   const int groups = c / gw;
+  const int* attn_plan = plans + gemm90::kPlanInts;
+  const int dp = attn_plan[5];
+  const int tp = attn_plan[6];
   const int n_scales = 3 * batch * groups + batch * heads;
   float* os = scales + 3 * batch * groups;
   auto* amax = reinterpret_cast<unsigned*>(scales + n_scales);
+  unsigned* oh_amax = amax + 3 * batch * groups;
   int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
-                                      0.f, nullptr, 0, stream);
+                                      0.f, amax, n_scales, stream);
   if (err != 0) return err;
-  err = launch_s8_gemm(x8, w_qkv, rows, 3 * c, c,
-                       AbsorbedProjEpi{ws, xs, y, c, d, heads}, stream);
+  err = gemm90::launch_gemm<true>(
+      plans, x8, w_qkv, rows, 3 * c, c, 0,
+      AbsorbedProjEpi{ws, xs, y, amax, c, d, heads, gw, batch, t}, stream);
   if (err != 0) return err;
-  err = quant_groups(y, y8, scales, amax, batch, t, 3 * c, 3, c, gw, stream);
+  err = launch_group_quant(y, 3 * c, 3, c, gw, amax, scales, q8, k8, v8t,
+                           batch, t, heads, dp, tp, stream);
   if (err != 0) return err;
-  const size_t smem = attn_smem(d);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      attn_s8_kernel<kOutF32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
+  const Scales sc{scales, groups, nullptr, 0.f, 0.f, 0.f, scale, nullptr,
+                  oh_amax};
+  const attn90::Strides so{static_cast<long long>(t) * c, c, d};
+  err = launch_attn<attn90::kOutF32>(attn_plan, q8, k8, v8t, oh, so, batch,
+                                     t, heads, d, sc, stream);
   if (err != 0) return err;
-  const dim3 grid((t + kTile - 1) / kTile, batch * heads);
-  attn_s8_kernel<kOutF32><<<grid, kThreads, smem, stream>>>(
-      y8, y8 + c, y8 + 2 * c, oh, heads, t, d, 3 * c, nullptr, 0.f, 0.f, 0.f,
-      scale, nullptr, scales, groups);
-  err = static_cast<int>(cudaGetLastError());
+  err = launch_group_quant(oh, c, 1, c, d, oh_amax, os, oh8, nullptr,
+                           nullptr, batch, t, heads, dp, tp, stream);
   if (err != 0) return err;
-  err = quant_groups(oh, oh8, os, amax, batch, t, c, 1, c, d, stream);
-  if (err != 0) return err;
-  head_out_kernel<<<dim3((rows + kTile - 1) / kTile, (c + kTile - 1) / kTile),
-                    kThreads, 0, stream>>>(oh8, wo, os, ws + 3 * heads, out,
-                                           rows, t, c, heads);
-  return static_cast<int>(cudaGetLastError());
+  return gemm90::launch_gemm_heads(
+      plans + gemm90::kPlanInts + kAttnPlanInts, oh8, wo_p, rows, c, heads,
+      dp / 32, t, HeadOutEpi{os, ws + 3 * heads, out, c, heads}, stream);
+}
+
+// what the attention stage takes (K13, K15), and with the products (K11,
+// K10, K17, K18: T % 8 and C % 16, a row of x8 being a tensor map's stride)
+bool attn_takes(int batch, int t, int heads, int d) {
+  return batch >= 1 && t >= 1 && heads >= 1 && d >= 8 && d % 8 == 0 &&
+         d <= kMaxD && batch * heads <= 65535;
+}
+
+bool takes(int batch, int t, int c, int heads) {
+  return heads >= 1 && c % heads == 0 && attn_takes(batch, t, heads,
+                                                    c / heads) &&
+         t % 8 == 0 && c % 16 == 0;
 }
 
 int absorbed_s8_entry(int dtype, const void* x, void* out,
-                      const int8_t* w_qkv, const int8_t* wo, const float* ws,
-                      int8_t* x8, float* y, int8_t* y8, float* oh,
-                      int8_t* oh8, float* scales, int batch, int t, int c,
-                      int heads, int gw, float xs, float scale,
+                      const int8_t* w_qkv, const int8_t* wo_p,
+                      const float* ws, int8_t* x8, float* y, int8_t* q8,
+                      int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8,
+                      float* scales, int batch, int t, int c, int heads,
+                      int gw, float xs, float scale, const int* plans,
                       void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
-      static_cast<long long>(batch) * t * c * 3 >= (1ll << 31)) {
+  if (!takes(batch, t, c, heads) ||
+      static_cast<long long>(batch) * t * c * 3 >= (1ll << 31) ||
+      static_cast<long long>(batch) * c * ((t + 15) / 16 * 16) >=
+          (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (dtype == 0) {
-    return launch_absorbed_s8<float>(x, ob, w_qkv, wo, ws, x8, y, y8, oh,
-                                     oh8, scales, batch, t, c, heads, gw, xs,
-                                     scale, s);
+    return launch_absorbed_s8<float>(x, ob, w_qkv, wo_p, ws, x8, y, q8, k8,
+                                     v8t, oh, oh8, scales, batch, t, c,
+                                     heads, gw, xs, scale, plans, s);
   }
   if (dtype == 1) {
-    return launch_absorbed_s8<__nv_bfloat16>(x, ob, w_qkv, wo, ws, x8, y, y8,
-                                             oh, oh8, scales, batch, t, c,
-                                             heads, gw, xs, scale, s);
+    return launch_absorbed_s8<__nv_bfloat16>(
+        x, ob, w_qkv, wo_p, ws, x8, y, q8, k8, v8t, oh, oh8, scales, batch, t,
+        c, heads, gw, xs, scale, plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype of q, k, v: 0 = float32, 1 = bfloat16; each [batch, t, heads, d]
-// with unit stride on d, strides holding their (b, t, h) element strides in
-// that order. q8, k8, v8 (int8) are scratch and o (bf16) the output, each
-// [batch, t, heads, d] contiguous. scale_dev: null for the static scales
-// qs, ks, vs, else a device array of the three. Returns a cudaError_t (0 on
-// success).
+// K13: dtype of q, k, v: 0 = float32, 1 = bfloat16; each [batch, t, heads,
+// d] with unit stride on d, strides holding their (b, t, h) element strides
+// in that order. q8 and k8 (int8 [batch*t, heads, dp]) and v8t (int8
+// [batch, heads, d, tp]) are scratch and o (bf16) the output, [batch, t,
+// heads, d] contiguous. scale_dev: null for the static scales qs, ks, vs,
+// else a device array of the three. plan: sm90_s8pv_attention_plan's.
+// Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_s8(
     int dtype, const void* q, const void* k, const void* v,
-    const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8, void* o,
+    const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8t, void* o,
     int batch, int t, int heads, int d, const float* scale_dev, float qs,
-    float ks, float vs, float scale, void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || d < 8 || d % 8 != 0 || d > kMaxD ||
-      batch * heads > 65535 ||
-      static_cast<long long>(batch) * t * heads * d >= (1ll << 31)) {
+    float ks, float vs, float scale, const int* plan, void* stream) {
+  if (!attn_takes(batch, t, heads, d) ||
+      static_cast<long long>(batch) * ((t + 15) / 16 * 16) * heads * d >=
+          (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* ob = static_cast<__nv_bfloat16*>(o);
   if (dtype == 0) {
-    return launch<float>(q, k, v, strides, q8, k8, v8, ob, batch, t, heads, d,
-                         scale_dev, qs, ks, vs, scale, s);
+    return launch<float>(q, k, v, strides, q8, k8, v8t, ob, batch, t, heads,
+                         d, scale_dev, qs, ks, vs, scale, plan, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, strides, q8, k8, v8, ob, batch, t,
-                                 heads, d, scale_dev, qs, ks, vs, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, strides, q8, k8, v8t, ob, batch, t,
+                                 heads, d, scale_dev, qs, ks, vs, scale, plan,
+                                 s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -854,29 +995,32 @@ extern "C" int ldmseg_attention_s8(
 // K11: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous;
 // out bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns),
 // m_qkv fp32 [3c] (requant factors), wo int8 [c, c] (out, in), ratio fp32
-// [heads] (wos[h] / max(wos)). x8, q8, k8, v8 and of8 (int8, each [batch*t,
-// c]) are scratch. Returns a cudaError_t (0 on success).
+// [heads] (wos[h] / max(wos)). x8 and of8 (int8 [batch*t, c]), q8 and k8
+// (int8 [batch*t, heads, dp]) and v8t (int8 [batch, c, tp], its pad
+// positions zero) are scratch. plans: launch_padded's four. Returns a
+// cudaError_t (0 on success).
 extern "C" int ldmseg_attention_padded_s8(
     int dtype, const void* x, void* out, const int8_t* w_qkv,
     const float* m_qkv, const int8_t* wo, const float* ratio, int8_t* x8,
-    int8_t* q8, int8_t* k8, int8_t* v8, int8_t* of8, int batch, int t, int c,
-    int heads, float xs, float score_scale, float out_scale, void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
-      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    int8_t* q8, int8_t* k8, int8_t* v8t, int8_t* of8, int batch, int t, int c,
+    int heads, float xs, float score_scale, float out_scale, const int* plans,
+    void* stream) {
+  if (!takes(batch, t, c, heads) ||
+      static_cast<long long>(batch) * ((t + 15) / 16 * 16) * c >=
+          (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (dtype == 0) {
     return launch_padded<float>(x, ob, w_qkv, m_qkv, wo, ratio, x8, q8, k8,
-                                v8, of8, batch, t, c, heads, xs, score_scale,
-                                out_scale, s);
+                                v8t, of8, batch, t, c, heads, xs, score_scale,
+                                out_scale, plans, s);
   }
   if (dtype == 1) {
     return launch_padded<__nv_bfloat16>(x, ob, w_qkv, m_qkv, wo, ratio, x8,
-                                        q8, k8, v8, of8, batch, t, c, heads,
-                                        xs, score_scale, out_scale, s);
+                                        q8, k8, v8t, of8, batch, t, c, heads,
+                                        xs, score_scale, out_scale, plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -885,17 +1029,18 @@ extern "C" int ldmseg_attention_padded_s8(
 // layout [batch, t, c] (c = heads * d) with unit stride on c; strides holds
 // the (b, t) element strides of q, k and v in that order. The scales are
 // always dynamic: scratch (24 bytes, 4-byte aligned) receives the three
-// amax bit patterns and then the three scales (qs, ks, vs). q8, k8, v8
-// (int8) are scratch and o (bf16) the output, each [batch, t, c]
-// contiguous. Returns a cudaError_t (0 on success).
+// amax bit patterns and then the three scales (qs, ks, vs). q8, k8 and v8t
+// are scratch as in ldmseg_attention_s8 and o (bf16) the output, [batch,
+// t, c] contiguous. Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_packed_s8(
     int dtype, const void* q, const void* k, const void* v,
-    const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8, void* o,
+    const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8t, void* o,
     int batch, int t, int c, int heads, void* scratch, float scale,
-    void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
-      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    const int* plan, void* stream) {
+  if (heads < 1 || c % heads != 0 ||
+      !attn_takes(batch, t, heads, c / heads) ||
+      static_cast<long long>(batch) * ((t + 15) / 16 * 16) * c >=
+          (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int d = c / heads;
@@ -909,68 +1054,70 @@ extern "C" int ldmseg_attention_packed_s8(
   auto* ob = static_cast<__nv_bfloat16*>(o);
   auto* sc = static_cast<unsigned*>(scratch);
   if (dtype == 0) {
-    return launch_packed<float>(q, k, v, st, q8, k8, v8, ob, batch, t, heads,
-                                d, sc, scale, s);
+    return launch_packed<float>(q, k, v, st, q8, k8, v8t, ob, batch, t, heads,
+                                d, sc, scale, plan, s);
   }
   if (dtype == 1) {
-    return launch_packed<__nv_bfloat16>(q, k, v, st, q8, k8, v8, ob, batch,
-                                        t, heads, d, sc, scale, s);
+    return launch_packed<__nv_bfloat16>(q, k, v, st, q8, k8, v8t, ob, batch,
+                                        t, heads, d, sc, scale, plan, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K10 with v_bf16=False: dtype of x 0 = float32, 1 = bfloat16, x [batch*t,
 // c] contiguous; out bf16 [batch*t, c]; ln_w, ln_b, out_b fp32 [c]; w_qkv,
-// m_qkv, wo and ratio as in ldmseg_attention_padded_s8 (v requantized like
-// q and k); x8, q8, k8, v8 and of8 (int8, each [batch*t, c]) are scratch.
+// m_qkv, wo, ratio, the scratch and plans as in ldmseg_attention_padded_s8.
 // Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_ln_padded_s8(
     int dtype, const void* x, void* out, const float* ln_w,
     const float* ln_b, const float* out_b, const int8_t* w_qkv,
     const float* m_qkv, const int8_t* wo, const float* ratio, int8_t* x8,
-    int8_t* q8, int8_t* k8, int8_t* v8, int8_t* of8, int batch, int t, int c,
+    int8_t* q8, int8_t* k8, int8_t* v8t, int8_t* of8, int batch, int t, int c,
     int heads, float xs, float score_scale, float out_scale, float eps,
-    void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
-      static_cast<long long>(batch) * t * c >= (1ll << 31)) {
+    const int* plans, void* stream) {
+  if (!takes(batch, t, c, heads) ||
+      static_cast<long long>(batch) * ((t + 15) / 16 * 16) * c >=
+          (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (dtype == 0) {
     return launch_ln_padded<float>(x, ob, ln_w, ln_b, out_b, w_qkv, m_qkv,
-                                   wo, ratio, x8, q8, k8, v8, of8, batch, t,
+                                   wo, ratio, x8, q8, k8, v8t, of8, batch, t,
                                    c, heads, xs, score_scale, out_scale, eps,
-                                   s);
+                                   plans, s);
   }
   if (dtype == 1) {
     return launch_ln_padded<__nv_bfloat16>(
-        x, ob, ln_w, ln_b, out_b, w_qkv, m_qkv, wo, ratio, x8, q8, k8, v8,
-        of8, batch, t, c, heads, xs, score_scale, out_scale, eps, s);
+        x, ob, ln_w, ln_b, out_b, w_qkv, m_qkv, wo, ratio, x8, q8, k8, v8t,
+        of8, batch, t, c, heads, xs, score_scale, out_scale, eps, plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K17: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous; out
-// bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns) and
-// wo int8 [c, c] (out, in), quantized per head; ws fp32 [4][heads], the
-// per-head scales of q, k, v and o. x8 and oh8 (int8 [batch*t, c]), y
-// (fp32 [batch*t, 3c]), y8 (int8 [batch*t, 3c]), oh (fp32 [batch*t, c]) and
+// bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns),
+// quantized per head; wo_p int8 [c, heads, dp], to_out's codes (out, in)
+// with each head's d inputs padded with zeros to dp; ws fp32 [4][heads],
+// the per-head scales of q, k, v and o. x8 (int8 [batch*t, c]), y (fp32
+// [batch*t, 3c]), q8 and k8 (int8 [batch*t, heads, dp]), v8t (int8 [batch,
+// c, tp]), oh (fp32 [batch*t, c]), oh8 (int8 [batch*t, heads, dp]) and
 // scales (4-byte words [2 * 4 * batch * heads]: the scales, then as many
-// amax words) are scratch. xs: x's static scale.
-// Returns a cudaError_t (0 on success).
+// amax words) are scratch. xs: x's static scale. plans: launch_absorbed_s8's
+// three. Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_absorbed_s8(
     int dtype, const void* x, void* out, const int8_t* w_qkv,
-    const int8_t* wo, const float* ws, int8_t* x8, float* y, int8_t* y8,
-    float* oh, int8_t* oh8, float* scales, int batch, int t, int c,
-    int heads, float xs, float scale, void* stream) {
+    const int8_t* wo_p, const float* ws, int8_t* x8, float* y, int8_t* q8,
+    int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8, float* scales,
+    int batch, int t, int c, int heads, float xs, float scale,
+    const int* plans, void* stream) {
   if (heads < 1 || c % heads != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return absorbed_s8_entry(dtype, x, out, w_qkv, wo, ws, x8, y, y8, oh, oh8,
-                           scales, batch, t, c, heads, c / heads, xs, scale,
-                           stream);
+  return absorbed_s8_entry(dtype, x, out, w_qkv, wo_p, ws, x8, y, q8, k8,
+                           v8t, oh, oh8, scales, batch, t, c, heads,
+                           c / heads, xs, scale, plans, stream);
 }
 
 // K18: K17's arguments with ws holding each tensor's one scale repeated over
@@ -979,9 +1126,11 @@ extern "C" int ldmseg_attention_absorbed_s8(
 // cudaError_t.
 extern "C" int ldmseg_attention_absorbed_fullc_s8(
     int dtype, const void* x, void* out, const int8_t* w_qkv,
-    const int8_t* wo, const float* ws, int8_t* x8, float* y, int8_t* y8,
-    float* oh, int8_t* oh8, float* scales, int batch, int t, int c,
-    int heads, float xs, float scale, void* stream) {
-  return absorbed_s8_entry(dtype, x, out, w_qkv, wo, ws, x8, y, y8, oh, oh8,
-                           scales, batch, t, c, heads, c, xs, scale, stream);
+    const int8_t* wo_p, const float* ws, int8_t* x8, float* y, int8_t* q8,
+    int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8, float* scales,
+    int batch, int t, int c, int heads, float xs, float scale,
+    const int* plans, void* stream) {
+  return absorbed_s8_entry(dtype, x, out, w_qkv, wo_p, ws, x8, y, q8, k8, v8t,
+                           oh, oh8, scales, batch, t, c, heads, c, xs, scale,
+                           plans, stream);
 }

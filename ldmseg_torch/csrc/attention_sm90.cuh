@@ -1,14 +1,26 @@
 // The Hopper (sm_90a) attention forward skeleton, O = softmax(S) V with S =
-// Q K^T * scale, per (image * head, query tile). Two callers instantiate it,
-// each through a __global__ wrapper of its own name:
+// Q K^T * scale, per (image * head, query tile). Three callers instantiate
+// it, each through a __global__ wrapper of its own name:
 //   * attention_fwd.cu: attention_fwd_kernel_sm90 (K1, K14 and K16's
 //     attention stage): bf16 Q and K (kS8 false), P normalised by the row's
 //     final sum before it rounds to bf16 (K1's rounding point);
 //   * attention_ln_s8.cu: attn_s8_kernel_sm90 (K3's attention stage, and
 //     through it K8's and K10's): int8 q8 and k8 (kS8 true), P rounded to
 //     bf16 before any division and O = (P V) / l, l the sum of the rounded
-//     P (K3's rounding point, _abs_padded_ln_s8_vt_body's).
-// V is bf16 in both.
+//     P (K3's rounding point, _abs_padded_ln_s8_vt_body's);
+//   * attention_s8.cu: attn_s8pv_kernel_sm90 (K13's attention stage, and
+//     through it K15's, K11's, K10's without v_bf16, K17's and K18's):
+//     int8 q8 and k8, e = exp((s - max) + ln 127) with the sum l over the
+//     unrounded e, e8 = rint(e) (codes 0..127) and O = e8 V8 on int8 wgmma
+//     into int32 (kPV, K13's rounding point, _attn_kernel_s8's), then one of
+//     three epilogues (bf16, int8 or fp32 out).
+// V is bf16 in the first two. In the third it is int8 and transposed, keys
+// contiguous per head column (8-bit wgmma takes B only K-major), with the
+// keys of every 16 permuted so that the score registers of a thread, packed
+// four codes to a register, are the A fragment of the e8 V product without
+// a shuffle: position q of a 16-key group holds key
+// 2 ((q / 4) % 4) + (q % 2) + 8 ((q / 2) % 2) (ops/attention_s8.py:
+// key_of_position). The int32 sums are exact in any key order.
 //
 // Design (one block per (b*h, query tile)):
 //   * 128 query rows as two consumer warpgroups of 64 rows, plus a producer
@@ -31,19 +43,26 @@
 //     32, 40, 64, 80, 128, 160; V's zero columns give zero outputs). Each
 //     consumer issues its products one step ahead, so its exponentials
 //     overlap the tensor cores' work; two consumer warpgroups issue in turns.
+//   * kPV: the P V product is m64nNk32 s8 with the codes from registers and
+//     V^T from shared memory, N = d rounded up to an .s8 class (16, 32, 48,
+//     64, 80, 128, 160); a V^T box is 128 keys wide (one swizzle row) and
+//     `N` head columns deep (zeros past d), loaded at the tile's first key
+//     (at 64-key tiles only its first 64 keys are used).
 //   * Why two passes: the rounding point needs the row's exact max (and,
-//     for K1, its final sum) before any p rounds to bf16; a one-pass online
-//     softmax rounds p against a running max. Pass 1 computes S and the row
-//     statistics: bf16, the running max and sum of 2^(s c - m) with c =
-//     scale * log2(e); int8, only the int32 row max (scale > 0, so the max
-//     of float(s) * scale is float(max s) * scale). Pass 2 recomputes S and
-//     forms p = 2^(s c - m c) (K1: times 1 / l) in fp32, rounds it to bf16,
-//     (K3: adds the rounded p to l) and accumulates P V in fp32.
+//     for K1, its final sum) before any p rounds to bf16 (K13: to a code);
+//     a one-pass online softmax rounds p against a running max. Pass 1
+//     computes S and the row statistics: bf16, the running max and sum of
+//     2^(s c - m) with c = scale * log2(e); int8, only the int32 row max
+//     (scale > 0, so the max of float(s) * scale is float(max s) * scale).
+//     Pass 2 recomputes S and forms p = 2^(s c - m c) (K1: times 1 / l) in
+//     fp32, rounds it to bf16, (K3: adds the rounded p to l) and
+//     accumulates P V in fp32 (kPV: the codes and e8 V in int32).
 //     Exponentials are ex2.approx.ftz.f32: about 2 ulp of fp32 (PTX ISA),
 //     far below the bf16 rounding of p (2^-9). Keys past T are masked in the
 //     last tile of both passes (their zero-filled rows would score 0).
-//   * O is rounded to bf16 once (K3: after the true division by l), rows < T
-//     and columns < D stored through the caller's strides.
+//   * O is rounded to bf16 once (K3: after the true division by l; kPV:
+//     the caller's epilogue), rows < T and columns < D stored through the
+//     caller's strides.
 
 #pragma once
 
@@ -57,6 +76,7 @@
 
 #include <type_traits>
 
+#include "s8_common.cuh"  // quant_s8, warp_max (kPV's epilogues)
 #include "sm90.cuh"
 
 namespace attn90 {
@@ -64,15 +84,35 @@ namespace attn90 {
 using sm90::kRowBytes;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn127 = 4.844187086458591f;
 
 // ---- the launch plans' shared rules (host) ---------------------------------
 constexpr int kClasses[] = {16, 32, 40, 64, 80, 128, 160};
+// the N of the s8 e8 V product: .s8 wgmma takes N = 8, 16, 24 and then
+// multiples of 16 only
+constexpr int kS8Classes[] = {16, 32, 48, 64, 80, 128, 160};
 
 inline int head_class(int d) {
   for (int c : kClasses) {
     if (c >= d) return c;
   }
   return 0;
+}
+
+inline int s8_class(int d) {
+  for (int c : kS8Classes) {
+    if (c >= d) return c;
+  }
+  return 0;
+}
+
+// kPV's shared memory: the slack, Q, per stage a K tile and a V^T tile of
+// `cls` rows of 128 keys, the barriers
+inline int smem_bytes_s8pv(int block_q, int block_k, int qk_chunks, int cls,
+                           int stages) {
+  return 1024 + block_q * qk_chunks * kRowBytes +
+         stages * (block_k * qk_chunks + cls) * kRowBytes +
+         8 * (1 + 2 * stages);
 }
 
 // 1,024 bytes of slack to align the swizzled tiles, Q (qk_chunks boxes a
@@ -99,9 +139,25 @@ struct Strides {
   long long b, t, h;  // element strides of O's B, T and H axes (D is 1)
 };
 
-template <bool kS8_, int kDN, int kWG>
+// kPV: the e8 V product and its epilogue into O
+constexpr int kPVBf16 = 0;   // (no kPV) bf16 P V, bf16 O
+constexpr int kOutBf16 = 1;  // O = bf16(float(o32) * (out / l))    (K13, K15)
+constexpr int kOutS8 = 2;    // O = clip(rint(float(o32) * (out / l))) (K11)
+constexpr int kOutF32 = 3;   // O = (float(o32) * out) / l in fp32  (K17, K18)
+
+// kPV's per-block scales: s = float(S) * sc0 (sc0 = (qs ks) scale), the
+// epilogue's `out` (K13: (vs / 127) * 127; K11: wos[h] / max(wos); K17:
+// vs), and for kOutF32 the (image, head) slot that takes max|O| as float
+// bits
+struct PV8 {
+  float sc0 = 0.f, out = 0.f;
+  unsigned* amax = nullptr;
+};
+
+template <bool kS8_, int kDN, int kWG, int kPV_ = kPVBf16>
 struct Cfg {
   static constexpr bool kS8 = kS8_;
+  static constexpr int kPV = kPV_;
   using Score = typename std::conditional<kS8, int, float>::type;
   static constexpr int kBytes = kS8 ? 1 : 2;  // of a Q or K element
   static constexpr int kBox = kRowBytes / kBytes;  // Q/K columns of a box
@@ -113,7 +169,8 @@ struct Cfg {
   static constexpr int kThreads = 128 * (kWG + 1);
   static constexpr int kQSub = 64 * kQKChunks * kRowBytes;  // a warpgroup's Q
   static constexpr int kKTile = kBK * kQKChunks * kRowBytes;
-  static constexpr int kVTile = kBK * kVChunks * kRowBytes;
+  static constexpr int kVTile =
+      kPV ? kDN * kRowBytes : kBK * kVChunks * kRowBytes;
   static constexpr int kStage = kKTile + kVTile;
 };
 
@@ -325,21 +382,106 @@ struct Consumer {
     sm90::fence_regs(p);
     release();
   }
+
+  // kPV's pass 2 on key tile kt, in place (c = sc0): s = float(S) * sc0,
+  // rounded first (no fused multiply-add, as the TPU kernel); e = 2^(((s -
+  // m) + ln 127) log2 e), its sum into l unrounded, e8 = rint(e). Keys >= t
+  // give e = 0. ex2.approx against the reference's exp: about 2 ulp, so a
+  // code flips only where e lies that close to a half. The conversions run
+  // on the FMA pipe, not the conversion unit that ex2 shares: float(S) is
+  // exact as (S + 1.5 2^23) - 1.5 2^23 for |S| < 2^22 (|S| <= 160 127^2),
+  // and e + 1.5 2^23 rounds e to the nearest even integer in the low bits
+  // (0 <= e < 2^22), whose low byte is the code.
+  template <bool kRagged>
+  __device__ __forceinline__ void codes_in(Score (&s)[kS], int kt,
+                                           const float (&mf)[2],
+                                           float (&l)[2]) const {
+    constexpr float kMagic = 12582912.f;  // 1.5 2^23
+    const int key0 = kt * C::kBK + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int row = (i / 2) % 2;
+      const float sv =
+          __fsub_rn(__int_as_float(s[i] + 0x4B400000), kMagic);  // exact
+      const float sf = __fmul_rn(sv, c);
+      float e = ex2(__fmul_rn(__fadd_rn(__fsub_rn(sf, mf[row]), kLn127),
+                              kLog2e));
+      if constexpr (kRagged) {
+        if (key0 + 8 * (i / 4) + (i & 1) >= t) e = 0.f;
+      }
+      l[row] += e;
+      s[i] = __float_as_int(__fadd_rn(e, kMagic));  // the code in byte 0
+    }
+  }
+
+  __device__ void codes(Score (&s)[kS], int kt, const float (&mf)[2],
+                        float (&l)[2]) const {
+    if ((kt + 1) * C::kBK > t) {
+      codes_in<true>(s, kt, mf, l);
+    } else {
+      codes_in<false>(s, kt, mf, l);
+    }
+  }
+
+  // the codes (byte 0 of each score register) packed four to a register
+  // as the A fragment of each k32 step: step kk's registers 4kk + r (r:
+  // row lane/4 or + 8, then depth + 16) take the codes s[16kk + 2 (r % 2)
+  // + 8 (r / 2) + {0, 1, 4, 5}], which the permuted key order of V^T puts
+  // at depth 4 (lane % 4) + {0..3}
+  __device__ void pack8(const Score (&s)[kS], uint32_t (&p)[kS / 4]) const {
+#pragma unroll
+    for (int kk = 0; kk < kS / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 16 * kk + 2 * (r % 2) + 8 * (r / 2);
+        p[4 * kk + r] = __byte_perm(
+            __byte_perm(s[i], s[i + 1], 0x0040),
+            __byte_perm(s[i + 4], s[i + 5], 0x0040), 0x5410);
+      }
+    }
+  }
+
+  // O += e8 V of the oldest tile held, issued: V^T K-major, one k32 step
+  // per 32 keys
+  template <int kDN>
+  __device__ void issue_pv8(uint32_t (&p)[kS / 4],
+                            int (&acc)[kDN / 2]) const {
+    const uint32_t v = stage_of(done) + C::kKTile;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kBK / 32; ++kk) {
+      sm90::WgmmaRsS8<kDN>::rs(acc, &p[4 * kk],
+                               sm90::desc_sw128(v + kk * 32, 16, 1024), 1);
+    }
+    sm90::wgmma_commit();
+  }
+
+  template <int kDN>
+  __device__ void finish_pv8(uint32_t (&p)[kS / 4], int (&acc)[kDN / 2]) {
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(p);
+    release();
+  }
 };
 
 // The body of a caller's __global__ wrapper. Shared memory, from a
 // 1,024-byte aligned base: Q (one 64-row sub-tile per consumer warpgroup,
 // kQKChunks boxes each), then per stage a K tile (kQKChunks boxes of kBK
-// rows) and a V tile (kVChunks boxes of kBK rows), then the barriers: q,
-// full[stages], empty[stages].
-template <bool kS8, int kDN, int kWG>
+// rows) and a V tile (kVChunks boxes of kBK rows; kPV: one V^T box of kDN
+// rows), then the barriers: q, full[stages], empty[stages]. O is bf16
+// (kPV: bf16, int8 or fp32) through the element strides `so`; `pv` holds
+// kPV's scales (c is then unused).
+template <bool kS8, int kDN, int kWG, int kPV = kPVBf16>
 __device__ __forceinline__ void forward(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
-                                        __nv_bfloat16* __restrict__ o,
-                                        Strides so, int heads, int t, int d,
-                                        int stages, float c) {
-  using C = Cfg<kS8, kDN, kWG>;
+                                        void* __restrict__ o, Strides so,
+                                        int heads, int t, int d, int stages,
+                                        float c, PV8 pv = PV8{}) {
+  using C = Cfg<kS8, kDN, kWG, kPV>;
+  static_assert(kPV == kPVBf16 || kS8, "the e8 V product needs int8 scores");
   using Score = typename C::Score;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_smem = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -396,11 +538,17 @@ __device__ __forceinline__ void forward(const CUtensorMap& tq,
                               b);
           }
           if (pass == 1) {
+            if constexpr (kPV != kPVBf16) {
+              // V^T: 128 keys from the tile's first, kDN head columns
+              sm90::tma_load_4d(st + C::kKTile, &tv, full_bar + 8 * s,
+                                kt * C::kBK, 0, h, b);
+            } else {
 #pragma unroll
-            for (int ch = 0; ch < C::kVChunks; ++ch) {
-              sm90::tma_load_4d(st + C::kKTile + ch * C::kBK * kRowBytes,
-                                &tv, full_bar + 8 * s, ch * 64, h,
-                                kt * C::kBK, b);
+              for (int ch = 0; ch < C::kVChunks; ++ch) {
+                sm90::tma_load_4d(st + C::kKTile + ch * C::kBK * kRowBytes,
+                                  &tv, full_bar + 8 * s, ch * 64, h,
+                                  kt * C::kBK, b);
+              }
             }
           }
         }
@@ -413,7 +561,8 @@ __device__ __forceinline__ void forward(const CUtensorMap& tq,
     const int row = q0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
     const int col0 = 2 * (lane % 4);  // this thread's first column of each 8
     Consumer<C> cons{q_smem + wg * C::kQSub, kv_smem, full_bar, empty_bar,
-                     t, ntiles, stages, lane, wg, c};
+                     t, ntiles, stages, lane, wg,
+                     kPV != kPVBf16 ? pv.sc0 : c};
     if (wg == 1) cons.your_turn();  // warpgroup 0 issues first
     // two score buffers: tile kt's in one while kt + 1's is computed
     Score sa[C::kBK / 2], sb[C::kBK / 2];
@@ -463,70 +612,153 @@ __device__ __forceinline__ void forward(const CUtensorMap& tq,
       cons.release();
       cons.stats(sa, kt, m, l);
     }
-    // pass 2's p = 2^(s c - mc) * r: bf16, mc the running max and r = 1 / l;
-    // int8, mc = float(max s) * c (max(float(s) * c) for c > 0), l anew
-    float mc[2], r[2] = {1.f, 1.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if constexpr (kS8) {
-        mc[i] = static_cast<float>(quad_max(m[i])) * c;
-        l[i] = 0.f;
-      } else {
-        mc[i] = m[i];
-        r[i] = 1.f / quad_sum(l[i]);
-      }
-    }
 
-    // pass 2: P rounded to bf16, O += P V in fp32; sa holds tile kt's
-    // scores, then its probabilities
-    float acc[kDN / 2];
+    if constexpr (kPV != kPVBf16) {
+      // pass 2, K13's rounding point: the max of s = float(S) sc0 is
+      // float(max S) sc0 (sc0 > 0); e8 V summed in int32
+      float mf[2];
 #pragma unroll
-    for (int i = 0; i < kDN / 2; ++i) acc[i] = 0.f;
-    uint32_t p[C::kBK / 4];
-    cons.my_turn();
-    cons.issue_scores(sa);
-    cons.your_turn();
-    cons.template wait<0>(sa);
-    cons.probs(sa, 0, mc, r);
-    for (kt = 0; kt + 1 < ntiles; ++kt) {
-      cons.round(sa, p, l);
+      for (int i = 0; i < 2; ++i) {
+        mf[i] = __fmul_rn(static_cast<float>(quad_max(m[i])), pv.sc0);
+        l[i] = 0.f;
+      }
+      int acc[kDN / 2];
+#pragma unroll
+      for (int i = 0; i < kDN / 2; ++i) acc[i] = 0;
+      uint32_t p[C::kBK / 8];
       cons.my_turn();
       cons.issue_scores(sa);
+      cons.your_turn();
+      cons.template wait<0>(sa);
+      cons.codes(sa, 0, mf, l);
+      for (kt = 0; kt + 1 < ntiles; ++kt) {
+        cons.pack8(sa, p);
+        cons.my_turn();
+        cons.issue_scores(sa);
+        cons.template issue_pv8<kDN>(p, acc);
+        cons.your_turn();
+        cons.template wait<1>(sa);  // the scores, issued first; e8 V in flight
+        cons.codes(sa, kt + 1, mf, l);
+        cons.template finish_pv8<kDN>(p, acc);
+      }
+      cons.pack8(sa, p);
+      cons.my_turn();
+      cons.template issue_pv8<kDN>(p, acc);
+      cons.your_turn();
+      cons.template finish_pv8<kDN>(p, acc);
+      if (wg == 0) cons.my_turn();  // takes warpgroup 1's last turn
+
+      // the epilogue on rows < t, columns < d: f = out / l once per row (a
+      // true division), or (kOutF32) (o32 out) / l per element
+      const float lt[2] = {quad_sum(l[0]), quad_sum(l[1])};
+      const float f[2] = {pv.out / lt[0], pv.out / lt[1]};
+      const long long base = b * so.b + h * so.h;
+      float amax = 0.f;
+#pragma unroll
+      for (int j = 0; j < kDN / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col < d) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            if (row + 8 * rr < t) {
+              const long long at = base + (row + 8 * rr) * so.t + col;
+              const float a0 = static_cast<float>(acc[4 * j + 2 * rr]);
+              const float a1 = static_cast<float>(acc[4 * j + 2 * rr + 1]);
+              if constexpr (kPV == kOutBf16) {
+                *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(o) +
+                                             at) =
+                    sm90::pack_bf16(a0 * f[rr], a1 * f[rr]);
+              } else if constexpr (kPV == kOutS8) {
+                *reinterpret_cast<char2*>(static_cast<int8_t*>(o) + at) =
+                    make_char2(s8::quant_s8(a0 * f[rr]),
+                               s8::quant_s8(a1 * f[rr]));
+              } else {
+                const float o0 = (a0 * pv.out) / lt[rr];
+                const float o1 = (a1 * pv.out) / lt[rr];
+                *reinterpret_cast<float2*>(static_cast<float*>(o) + at) =
+                    make_float2(o0, o1);
+                amax = fmaxf(amax, fmaxf(fabsf(o0), fabsf(o1)));
+              }
+            }
+          }
+        }
+      }
+      if constexpr (kPV == kOutF32) {
+        // non-negative floats order as their bits; a max is exact in any
+        // order
+        amax = s8::warp_max(amax);
+        if (lane == 0 && pv.amax != nullptr) {
+          atomicMax(pv.amax, __float_as_uint(amax));
+        }
+      }
+      return;
+    } else {
+      // pass 2's p = 2^(s c - mc) * r: bf16, mc the running max and r =
+      // 1 / l; int8, mc = float(max s) * c (max(float(s) * c) for c > 0), l
+      // anew
+      float mc[2], r[2] = {1.f, 1.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (kS8) {
+          mc[i] = static_cast<float>(quad_max(m[i])) * c;
+          l[i] = 0.f;
+        } else {
+          mc[i] = m[i];
+          r[i] = 1.f / quad_sum(l[i]);
+        }
+      }
+
+      // pass 2: P rounded to bf16, O += P V in fp32; sa holds tile kt's
+      // scores, then its probabilities
+      float acc[kDN / 2];
+#pragma unroll
+      for (int i = 0; i < kDN / 2; ++i) acc[i] = 0.f;
+      uint32_t p[C::kBK / 4];
+      cons.my_turn();
+      cons.issue_scores(sa);
+      cons.your_turn();
+      cons.template wait<0>(sa);
+      cons.probs(sa, 0, mc, r);
+      for (kt = 0; kt + 1 < ntiles; ++kt) {
+        cons.round(sa, p, l);
+        cons.my_turn();
+        cons.issue_scores(sa);
+        cons.template issue_pv<kDN>(p, acc);
+        cons.your_turn();
+        cons.template wait<1>(sa);  // the scores, issued first; P V in flight
+        cons.probs(sa, kt + 1, mc, r);
+        cons.template finish_pv<kDN>(p, acc);
+      }
+      cons.round(sa, p, l);
+      cons.my_turn();
       cons.template issue_pv<kDN>(p, acc);
       cons.your_turn();
-      cons.template wait<1>(sa);  // the scores, issued first; P V in flight
-      cons.probs(sa, kt + 1, mc, r);
       cons.template finish_pv<kDN>(p, acc);
-    }
-    cons.round(sa, p, l);
-    cons.my_turn();
-    cons.template issue_pv<kDN>(p, acc);
-    cons.your_turn();
-    cons.template finish_pv<kDN>(p, acc);
-    if (wg == 0) cons.my_turn();  // takes warpgroup 1's last turn
+      if (wg == 0) cons.my_turn();  // takes warpgroup 1's last turn
 
-    // O rounded to bf16 once; int8 divides by l first, a true division as
-    // the plain version's; rows < t, columns < d
-    float lt[2] = {1.f, 1.f};
-    if constexpr (kS8) {
-      lt[0] = quad_sum(l[0]);
-      lt[1] = quad_sum(l[1]);
-    }
-    __nv_bfloat16* ob = o + b * so.b + h * so.h;
+      // O rounded to bf16 once; int8 divides by l first, a true division
+      // as the plain version's; rows < t, columns < d
+      float lt[2] = {1.f, 1.f};
+      if constexpr (kS8) {
+        lt[0] = quad_sum(l[0]);
+        lt[1] = quad_sum(l[1]);
+      }
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o) + b * so.b + h * so.h;
 #pragma unroll
-    for (int j = 0; j < kDN / 8; ++j) {
-      const int col = 8 * j + col0;
-      if (col < d) {
+      for (int j = 0; j < kDN / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col < d) {
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          if (row + 8 * rr < t) {
-            float o0 = acc[4 * j + 2 * rr], o1 = acc[4 * j + 2 * rr + 1];
-            if constexpr (kS8) {
-              o0 = o0 / lt[rr];
-              o1 = o1 / lt[rr];
+          for (int rr = 0; rr < 2; ++rr) {
+            if (row + 8 * rr < t) {
+              float o0 = acc[4 * j + 2 * rr], o1 = acc[4 * j + 2 * rr + 1];
+              if constexpr (kS8) {
+                o0 = o0 / lt[rr];
+                o1 = o1 / lt[rr];
+              }
+              *reinterpret_cast<uint32_t*>(ob + (row + 8 * rr) * so.t + col) =
+                  sm90::pack_bf16(o0, o1);
             }
-            *reinterpret_cast<uint32_t*>(ob + (row + 8 * rr) * so.t + col) =
-                sm90::pack_bf16(o0, o1);
           }
         }
       }

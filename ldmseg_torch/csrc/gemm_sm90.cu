@@ -1,12 +1,15 @@
 // The Hopper product of gemm_sm90.cuh with nothing around it: C = A W^T
 // stored as it is summed, int8 operands into int32 (ldmseg_gemm_s8) or
-// bf16 operands into fp32 (ldmseg_gemm_bf16). No model path calls these two
-// entry points; chip_smoke.py and the card tests hold them against
-// torch._int_mm (bit for bit: int8 sums are exact) and torch.matmul at the
-// product shapes of K3 and K4, which gives the blocks' products their
-// library yardstick (ops/gemm.py: gemm_s8, gemm_bf16). The int8 entry also
-// runs the two-operand form that K4's up product launches (two W tiles per
-// stage into two accumulator sets, 256 x 64 tiles at the first level).
+// bf16 operands into fp32 (ldmseg_gemm_bf16), and the per-head product of
+// K17's to_out with the caller's factors (ldmseg_gemm_s8_heads). No model
+// path calls these entry points; chip_smoke.py and the card tests hold them
+// against torch._int_mm (bit for bit: int8 sums are exact; per head for the
+// third, the fp32 promotion repeated in PyTorch in the same order) and
+// torch.matmul at the blocks' product shapes, which gives the blocks'
+// products their library yardstick (ops/gemm.py: gemm_s8, gemm_bf16,
+// gemm_s8_heads). The int8 entry also runs the two-operand form that K4's
+// up product launches (two W tiles per stage into two accumulator sets,
+// 256 x 64 tiles at the first level).
 
 #include "gemm_sm90.cuh"
 
@@ -60,6 +63,19 @@ struct Store2Epi {
   }
 };
 
+// the per-head product stored in fp32, f[b][h] = factors[b * heads + h]
+struct HeadsStoreEpi {
+  const float* factors;
+  float* out;
+  int n, heads;
+  __device__ float head_factor(int b, int h) const {
+    return factors[b * heads + h];
+  }
+  __device__ void operator()(int row, int col, float a0, float a1) const {
+    store_pair(out + static_cast<long long>(row) * n + col, a0, a1);
+  }
+};
+
 }  // namespace
 
 // a int8 [rows, k], w int8 [operands * n, k], out int32 [rows, operands *
@@ -90,5 +106,21 @@ extern "C" int ldmseg_gemm_bf16(const void* a, const void* w, void* out,
   return gemm90::launch_gemm<false>(
       plan, a, w, rows, n, k, 0,
       StoreEpi<float>{static_cast<float*>(out), n},
+      static_cast<cudaStream_t>(stream));
+}
+
+// a int8 [rows, heads * dp], w int8 [n, heads * dp] (dp = 32 head_steps),
+// factors fp32 [rows / t, heads], out fp32 [rows, n], all contiguous: out =
+// sum over h, h = 0 first, of float(int32 a_h w_h^T) * factors[row / t][h]
+// (gemm_sm90.cuh's gemm_heads_kernel); plan is sm90_gemm_plan(rows, n,
+// heads * dp, "int8"). Returns a cudaError_t.
+extern "C" int ldmseg_gemm_s8_heads(const void* a, const void* w,
+                                    const float* factors, void* out, int rows,
+                                    int n, int heads, int head_steps, int t,
+                                    const int* plan, void* stream) {
+  return gemm90::launch_gemm_heads(
+      plan, static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
+      rows, n, heads, head_steps, t,
+      HeadsStoreEpi{factors, static_cast<float*>(out), n, heads},
       static_cast<cudaStream_t>(stream));
 }

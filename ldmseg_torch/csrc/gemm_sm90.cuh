@@ -3,8 +3,11 @@
 // with fp32 sums, each output handed to the caller's epilogue straight from
 // the accumulator registers. It carries the products of K3 (the Q/K/V
 // projection, to_out; attention_ln_s8.cu), K4 and K12 (W1 with the gating,
-// W2; geglu_ln_s8.cu), and through them K8, K9 and K10; gemm_sm90.cu holds
-// its two test entry points (a plain int32 and a plain fp32 store).
+// W2; geglu_ln_s8.cu), and through them K8, K9 and K10; and of K11, K10
+// without v_bf16, K17 and K18 (attention_s8.cu: the Q/K projection, the
+// swapped V projection, to_out; K17's projection with its group amax and
+// its per-head to_out, gemm_heads_kernel below); gemm_sm90.cu holds its two
+// test entry points (a plain int32 and a plain fp32 store).
 //
 // Replaces, for those kernels, the Ampere-era helpers of s8_common.cuh
 // (synchronous 8-byte tile loads between __syncthreads, wmma 16x16x16 on
@@ -50,6 +53,11 @@
 //               epi.row_max(first row of the group, max) by lane 0. The
 //               caller keeps an 8-row group inside one scale slot (K4's
 //               interior scale per image and 512-token block; T % 8 == 0).
+//       kOps 1 with Epi::kGroupMax (K17's and K18's projection): epi(...)
+//               returns the pair's max|value|; int vector 0 holds each
+//               column's group, the same for the 8 columns of a block, so
+//               the warp folds its maximum per group and 8-row group and
+//               lane 0 hands it to epi.group_max(first row, group, max).
 // The launch plan (tile, ring depth, shared memory, grid) is chosen by
 // ldmseg_torch/ops/gemm.py:sm90_gemm_plan and checked here.
 
@@ -155,6 +163,27 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Epi::kGroupMax, false where an epilogue does not name it
+template <class E, class = void>
+struct GroupMax : std::false_type {};
+template <class E>
+struct GroupMax<E, std::void_t<decltype(E::kGroupMax)>>
+    : std::integral_constant<bool, E::kGroupMax> {};
+
+// the warp's maxima of its two 8-row groups (rows group0 and group0 + 8)
+// in column group `group`, handed over by lane 0
+template <class Epi>
+__device__ __forceinline__ void flush_group(const Epi& epi, int group,
+                                            const float (&mx)[2], int group0,
+                                            int rows, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float v = warp_max(mx[r]);
+    if (lane == 0 && group0 + 8 * r < rows) epi.group_max(group0 + 8 * r,
+                                                          group, v);
+  }
 }
 
 // Shared memory, from a 1,024-byte aligned base: per stage the A tile
@@ -294,7 +323,9 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
   for (int op = 0; op < kOps; ++op) sm90::fence_regs(acc[op]);
   sm90::bar_sync(1, 128 * kWG);  // the per-column vectors are staged
 
+  constexpr bool kGroups = kOps == 1 && GroupMax<Epi>::value;
   float mx[2] = {0.f, 0.f};
+  int group = -1;  // kGroups: the column group mx holds
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int col = col0 + 8 * j;
@@ -308,11 +339,23 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     for (int v = 0; v < Epi::kIntCols; ++v) {
       ci[v] = *reinterpret_cast<const int2*>(int_cols + v * kBN + col - n0);
     }
+    if constexpr (kGroups) {
+      // the same for the whole warp: its 8-column block lies in one group
+      if (ci[0].x != group) {
+        if (group >= 0) flush_group(epi, group, mx, group0, rows, lane);
+        group = ci[0].x;
+        mx[0] = mx[1] = 0.f;
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (col < n && row < rows) {
-        if constexpr (kOps == 1) {
+        if constexpr (kGroups) {
+          mx[r] = fmaxf(mx[r], epi(row, col, cv, ci, row_pre[r], pre[j][r],
+                                   acc[0][4 * j + 2 * r],
+                                   acc[0][4 * j + 2 * r + 1]));
+        } else if constexpr (kOps == 1) {
           epi(row, col, cv, ci, row_pre[r], pre[j][r],
               acc[0][4 * j + 2 * r], acc[0][4 * j + 2 * r + 1]);
         } else {
@@ -323,6 +366,9 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
         }
       }
     }
+  }
+  if constexpr (kGroups) {
+    if (group >= 0) flush_group(epi, group, mx, group0, rows, lane);
   }
   if constexpr (kOps == 2) {
     if constexpr (Epi::kRowMax) {
@@ -389,6 +435,201 @@ int launch_gemm(const int* plan, const void* a, const void* w, int rows,
   return p.block_n == 128
              ? launch_as<kS8, 128, 1>(p, maps, rows, n, w_row2, epi, stream)
              : launch_as<kS8, 64, 1>(p, maps, rows, n, w_row2, epi, stream);
+}
+
+// ---- the per-head product (K17's and K18's to_out) ------------------------
+// out = sum over heads h, h = 0 first, of float(int32 A_h W_h^T) * f[b][h],
+// b = row / t, with A [rows, heads * dp] and W [n, heads * dp] int8, each
+// head's dp columns (a multiple of 32, zeros past the head dim in W) one
+// group of head_steps = dp / 32 k32 steps. Each group's int32 sums are
+// promoted into fp32 registers when the group ends: acc = acc + float(c32)
+// * f, both rounded (no fused multiply-add), as the TPU kernel sums the
+// heads. f = epi.head_factor(b, h), staged per block in the per-column
+// vectors' shared memory for the images its rows touch. Each stage's
+// products are waited for before its tiles go back (the promotion needs
+// them done anyway). Then epi(row, col, a0, a1) for each pair inside the
+// output.
+template <int kBN, int kWG, class Epi>
+__global__ void __launch_bounds__(128 * (kWG + 1), 1)
+    gemm_heads_kernel(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tw, int rows, int n,
+                      int k_tiles, int stages, int heads, int head_steps,
+                      int t, Epi epi) {
+  constexpr int kATile = 64 * kWG * kRowBytes;
+  constexpr int kWTile = kBN * kRowBytes;
+  constexpr int kStage = kATile + kWTile;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t tiles = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_bar = tiles + stages * kStage;
+  const uint32_t empty_bar = full_bar + 8 * stages;
+  const int m0 = blockIdx.x * 64 * kWG;
+  const int n0 = blockIdx.y * kBN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(full_bar + 8 * s, 1);
+      sm90::mbar_init(empty_bar + 8 * s, 4 * kWG);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == kWG) {
+    if constexpr (kWG > 1) sm90::regs_dealloc<sm90::kProducerRegs>();
+    if (threadIdx.x == 128 * kWG) {
+      sm90::tma_prefetch_map(&ta);
+      sm90::tma_prefetch_map(&tw);
+      sm90::Slot slot;
+      for (int kt = 0; kt < k_tiles; ++kt, slot.next(stages)) {
+        const uint32_t s = slot.stage;
+        const uint32_t st = tiles + s * kStage;
+        sm90::mbar_wait(empty_bar + 8 * s, slot.phase ^ 1);
+        sm90::mbar_expect_tx(full_bar + 8 * s, kStage);
+        sm90::tma_load_2d(st, &ta, full_bar + 8 * s, kt * kRowBytes, m0);
+        sm90::tma_load_2d(st + kATile, &tw, full_bar + 8 * s, kt * kRowBytes,
+                          n0);
+      }
+    }
+    return;
+  }
+
+  if constexpr (kWG > 1) sm90::regs_alloc<ConsumerRegs<kWG>::value>();
+  const int lane = threadIdx.x % 32;
+  const int row0 = m0 + 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+  // the block's images and their head factors, [image - img0][heads]
+  const int img0 = m0 / t;
+  const int img_n = (min(m0 + 64 * kWG, rows) - 1) / t - img0 + 1;
+  float* fs = reinterpret_cast<float*>(
+      smem_raw + (tiles - sm90::smem_addr(smem_raw)) + stages * kStage +
+      16 * stages);
+  for (int i = threadIdx.x; i < img_n * heads; i += 128 * kWG) {
+    const int im = i / heads;
+    fs[i] = epi.head_factor(img0 + im, i - im * heads);
+  }
+  int fi[2];  // this thread's rows' offsets into fs
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    fi[r] = (min(row0 + 8 * r, rows - 1) / t - img0) * heads;
+  }
+
+  // each head's int32 sums, zeroed after each promotion so that every
+  // product accumulates; the steps past the last head (k_tiles' zero
+  // tail) add zeros that are never promoted
+  int acc[kBN / 2];
+  float out[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    acc[i] = 0;
+    out[i] = 0.f;
+  }
+  bool staged = false;
+  int h = 0, in_head = 0;  // the head and the step within it
+  sm90::Slot load;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    sm90::mbar_wait(full_bar + 8 * load.stage, load.phase);
+    const uint32_t st = tiles + load.stage * kStage;
+    const uint32_t done_stage = load.stage;
+    load.next(stages);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      sm90::WgmmaS8<kBN>::ss(
+          acc, sm90::desc_sw128(st + wg * 64 * kRowBytes + kk * 32, 16, 1024),
+          sm90::desc_sw128(st + kATile + kk * 32, 16, 1024), 1);
+      if (++in_head == head_steps && h < heads) {
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        if (!staged) {
+          sm90::bar_sync(1, 128 * kWG);  // fs is staged
+          staged = true;
+        }
+        const float f0 = fs[fi[0] + h], f1 = fs[fi[1] + h];
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          out[i] = __fadd_rn(out[i], __fmul_rn(static_cast<float>(acc[i]),
+                                               (i / 2) % 2 ? f1 : f0));
+          acc[i] = 0;
+        }
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+        in_head = 0;
+        ++h;
+      }
+    }
+    // the stage's products done before its tiles go back
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if (lane == 0) sm90::mbar_arrive(empty_bar + 8 * done_stage);
+  }
+
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = col0 + 8 * j;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (col < n && row < rows) {
+        epi(row, col, out[4 * j + 2 * r], out[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int kBN, int kWG, class Epi>
+int launch_heads_as(const Plan& p, const CUtensorMap* maps, int rows, int n,
+                    int heads, int head_steps, int t, Epi epi,
+                    cudaStream_t stream) {
+  auto kernel = gemm_heads_kernel<kBN, kWG, Epi>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<dim3(p.grid_x, p.grid_y), 128 * (kWG + 1), p.smem_bytes,
+           stream>>>(maps[0], maps[1], rows, n, p.k_tiles, p.stages, heads,
+                     head_steps, t, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the per-head product of int8 A [rows, heads * dp] and W [n, heads * dp]
+// (dp = 32 head_steps), `plan` sm90_gemm_plan's of [rows, n, heads * dp]
+// int8, checked; rows are images of t. Returns a cudaError_t.
+template <class Epi>
+int launch_gemm_heads(const int* plan, const int8_t* a, const int8_t* w,
+                      int rows, int n, int heads, int head_steps, int t,
+                      Epi epi, cudaStream_t stream) {
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+               plan[5], plan[6], plan[7], plan[8]};
+  const int k = heads * head_steps * 32;
+  if (!plan_ok(p, true, rows, n, k, 1) || head_steps < 1 || t < 1 ||
+      rows % t != 0 ||
+      ((p.block_m + t - 1) / t + 1) * heads * 4 > kColBytes ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int current = sm90::make_current(a);
+  if (current != 0) return current;
+  CUtensorMap maps[2];
+  int err = sm90::encode_map_2d(&maps[0], a, 1, rows, k, k, p.block_m);
+  if (err != 0) return err;
+  err = sm90::encode_map_2d(&maps[1], w, 1, n, k, k, p.block_n);
+  if (err != 0) return err;
+  if (p.block_m == 128) {
+    return p.block_n == 128
+               ? launch_heads_as<128, 2>(p, maps, rows, n, heads, head_steps,
+                                         t, epi, stream)
+               : launch_heads_as<64, 2>(p, maps, rows, n, heads, head_steps,
+                                        t, epi, stream);
+  }
+  return p.block_n == 128
+             ? launch_heads_as<128, 1>(p, maps, rows, n, heads, head_steps, t,
+                                       epi, stream)
+             : launch_heads_as<64, 1>(p, maps, rows, n, heads, head_steps, t,
+                                      epi, stream);
 }
 
 // ---- epilogues shared by the blocks ---------------------------------------

@@ -1,20 +1,11 @@
 // Pieces shared by K3 and K8 (attention_ln_s8.cu), K4, K9 and K12
-// (geglu_ln_s8.cu) and K13, K11, K15, K17 and K18 (attention_s8.cu): the
-// (LayerNorm +) static-scale int8 quantize of token rows (every one of
-// them), and the Ampere-era pieces that the kernels not yet moved to
-// gemm_sm90.cuh use: the int8 tile loaders, the 64x64 int8 product step
-// and the int8 Q K^T score tile on tensor cores (nvcuda::wmma s8 16x16x16
-// with int32 accumulators), and two whole products on 64x64 output tiles
-// with the caller's epilogue: int8 x int8 with int32 sums (K11's and K17's
-// projections, K11's to_out) and bf16 x bf16 with fp32 sums (K8's proj_in
-// prologue, K9's proj_out epilogue, K16's products). K3's, K4's and K12's
-// products run on gemm_sm90.cuh.
-//
-// Layout of an int8 tile in shared memory: "k-blocked", [depth / 16][64
-// rows][16]. Every 16-deep slice of a row then starts on a 16-byte boundary
-// and every wmma fragment (16 rows x 16 deep, ld = 16) on a 256-byte one, as
-// load_matrix_sync asks; a plain row-major tile would put the second slice
-// of a row only 16 bytes in.
+// (geglu_ln_s8.cu) and K13, K11, K15, K10, K17 and K18 (attention_s8.cu):
+// the (LayerNorm +) static-scale int8 quantize of token rows (every one of
+// them), and the one Ampere-era product that is left, bf16 x bf16 with fp32
+// sums on 64x64 output tiles (nvcuda::wmma 16x16x16) with the caller's
+// epilogue: K8's proj_in prologue, K9's proj_out epilogue and K16's
+// products. Every int8 product runs on gemm_sm90.cuh, every int8 attention
+// on attention_sm90.cuh.
 
 #pragma once
 
@@ -30,11 +21,7 @@ namespace s8 {
 constexpr int kTile = 64;           // rows and columns of an output tile
 constexpr int kThreads = 128;       // 4 warps; warp w owns rows [16w, 16w+16)
 constexpr int kDepth = 64;          // depth of one shared-memory stage
-constexpr int kSlab = kTile * 16;   // bytes of one 16-deep slice of a tile
 constexpr int kStageLd = kTile + 4; // row stride of the int32/fp32 staging
-
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16,
-                                       16, int>;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -110,112 +97,7 @@ int launch_ln_quant(const void* x, int8_t* x8, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows [r0, r0+64) x depth [k0, k0+64) of a row-major int8 matrix (row
-// stride ld) into a k-blocked tile; rows >= nrows and depth >= kdim read as
-// zero. 8-byte loads: ld and kdim are multiples of 8 and src is 8-byte
-// aligned (the wrappers check).
-__device__ __forceinline__ void load_s8_tile(int8_t* dst,
-                                             const int8_t* __restrict__ src,
-                                             long long ld, int r0, int nrows,
-                                             int k0, int kdim) {
-  for (int i = threadIdx.x; i < kTile * (kDepth / 8); i += kThreads) {
-    const int r = i >> 3;
-    const int u = i & 7;
-    const int k = k0 + u * 8;
-    uint2 val = make_uint2(0u, 0u);
-    if (r0 + r < nrows && k < kdim) {
-      val = *reinterpret_cast<const uint2*>(src + (r0 + r) * ld + k);
-    }
-    *reinterpret_cast<uint2*>(dst + (u >> 1) * kSlab + r * 16 +
-                              (u & 1) * 8) = val;
-  }
-}
-
-// acc (this warp's 16 rows x 64 columns) += A[64 x 64] * B[64 x 64]^T for
-// one stage: A holds rows, B holds output columns, both k-blocked.
-__device__ __forceinline__ void mma_s8_stage(AccFrag (&acc)[4],
-                                             const int8_t* As,
-                                             const int8_t* Bs) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int kb = 0; kb < kDepth / 16; ++kb) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, As + kb * kSlab + warp * 16 * 16, 16);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::col_major>
-          bf;
-      wmma::load_matrix_sync(bf, Bs + kb * kSlab + n * 16 * 16, 16);
-      wmma::mma_sync(acc[n], a, bf, acc[n]);
-    }
-  }
-}
-
-// this warp's accumulators into rows [16w, 16w+16) of a [64][kStageLd]
-// int32 staging tile
-__device__ __forceinline__ void stage_acc(int* S, const AccFrag (&acc)[4]) {
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    nvcuda::wmma::store_matrix_sync(S + warp * 16 * kStageLd + n * 16, acc[n],
-                                    kStageLd, nvcuda::wmma::mem_row_major);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(AccFrag (&acc)[4]) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n) nvcuda::wmma::fill_fragment(acc[n], 0);
-}
-
-// rows [row0, row0+64) of one head's int8 columns [0, d) (row stride ld,
-// the head's first column at src) into a k-blocked tile of depth dp, zero
-// past t and d
-__device__ __forceinline__ void load_head_s8(int8_t* dst,
-                                             const int8_t* __restrict__ src,
-                                             int ld, int row0, int t, int d,
-                                             int dp) {
-  const int units = dp / 8;
-  for (int i = threadIdx.x; i < kTile * units; i += kThreads) {
-    const int r = i / units;
-    const int u = i - r * units;
-    uint2 val = make_uint2(0u, 0u);
-    if (row0 + r < t && u * 8 < d) {
-      val = *reinterpret_cast<const uint2*>(
-          src + static_cast<long long>(row0 + r) * ld + u * 8);
-    }
-    *reinterpret_cast<uint2*>(dst + (u >> 1) * kSlab + r * 16 +
-                              (u & 1) * 8) = val;
-  }
-}
-
-// S = Q K^T (int32) for a 64 x 64 tile into rows [16w, 16w+16) of S
-__device__ __forceinline__ void score_tile(const int8_t* Qs, const int8_t* Ks,
-                                           int* S, int dp) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32;
-  AccFrag acc[4];
-  zero_acc(acc);
-  for (int kb = 0; kb < dp / 16; ++kb) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, Qs + kb * kSlab + warp * 16 * 16, 16);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::col_major>
-          bf;
-      wmma::load_matrix_sync(bf, Ks + kb * kSlab + n * 16 * 16, 16);
-      wmma::mma_sync(acc[n], a, bf, acc[n]);
-    }
-  }
-  stage_acc(S, acc);
-}
-
-
-// ---- whole products: C = A W^T on 64x64 output tiles ---------------------
+// ---- a whole product: C = A W^T on 64x64 output tiles ---------------------
 // A [rows, k] and W [n, k] row-major (k a multiple of 8), each element of
 // the product handed to epi(row, col, sum) for row < rows, col < n. The
 // epilogue is the caller's rounding point: a functor with a
@@ -223,46 +105,6 @@ __device__ __forceinline__ void score_tile(const int8_t* Qs, const int8_t* Ks,
 // the tile's elements go to threads down its columns (consecutive rows to
 // consecutive threads), so that a store to a channel-major [images][n][t]
 // output is coalesced.
-
-// int8 A and W, int32 sums
-template <class Epi>
-__global__ void __launch_bounds__(kThreads)
-    s8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                   int rows, int n, int k, Epi epi) {
-  __shared__ __align__(256) int8_t As[kTile * kDepth];
-  __shared__ __align__(256) int8_t Bs[kTile * kDepth];
-  __shared__ __align__(256) int S[kTile * kStageLd];
-  const int r0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  AccFrag acc[4];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < k; k0 += kDepth) {
-    __syncthreads();
-    load_s8_tile(As, a, k, r0, rows, k0, k);
-    load_s8_tile(Bs, w, k, n0, n, k0, k);
-    __syncthreads();
-    mma_s8_stage(acc, As, Bs);
-  }
-  stage_acc(S, acc);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int major = i / kTile;
-    const int minor = i - major * kTile;
-    const int r = Epi::kColMajor ? minor : major;
-    const int cc = Epi::kColMajor ? major : minor;
-    if (r0 + r < rows && n0 + cc < n) {
-      epi(r0 + r, n0 + cc, S[r * kStageLd + cc]);
-    }
-  }
-}
-
-template <class Epi>
-int launch_s8_gemm(const int8_t* a, const int8_t* w, int rows, int n, int k,
-                   Epi epi, cudaStream_t stream) {
-  const dim3 grid((rows + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  s8_gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(a, w, rows, n, k, epi);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // bf16 A and W, fp32 sums. kAColMajor: A is held channel-major,
 // [rows / t][k][t] (a GroupNorm's NCHW output read as tokens; t a multiple
@@ -377,23 +219,5 @@ int launch_bf16_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
       a, w, rows, n, k, t, epi);
   return static_cast<int>(cudaGetLastError());
 }
-
-// epilogue: q8, k8 and v8 requantized per column, clip(rint(sum * m[col]))
-// (K11), each [rows, c], the product's columns q | k | v (K3's head-padded
-// form with a bf16 v is attention_ln_s8.cu's QkvPadEpi)
-struct QkvEpi {
-  static constexpr bool kColMajor = false;
-  const float* m;
-  int8_t* q8;
-  int8_t* k8;
-  int8_t* v8;
-  int c;
-  __device__ void operator()(int row, int col, int sum) const {
-    const int which = col / c;
-    const long long at = static_cast<long long>(row) * c + (col - which * c);
-    (which == 0 ? q8 : which == 1 ? k8 : v8)[at] =
-        quant_s8(static_cast<float>(sum) * m[col]);
-  }
-};
 
 }  // namespace s8

@@ -2,9 +2,9 @@
 // through a tensor map (and the maps' encoding on the host), bulk copies,
 // threads' stores into a swizzled tile, and warpgroup matrix products
 // (wgmma) on bf16 with fp32 sums and on int8 with int32 sums. Used by
-// attention_sm90.cuh (the forward skeleton of K1, K14, K16's and K3's
-// attention stage), attention_bwd.cu (K2) and gemm_sm90.cuh (the products
-// of K3, K4, K8, K9, K10 and K12).
+// attention_sm90.cuh (the forward skeleton of K1, K14, K16's, K3's and
+// K13's attention stage), attention_bwd.cu (K2) and gemm_sm90.cuh (the
+// products of K3, K4, K8-K12, K17 and K18).
 //
 // Shared-memory operands of wgmma are described by a 64-bit descriptor. The
 // tiles here are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: rows
@@ -18,8 +18,9 @@
 //     `chunk_bytes` apart (the leading offset).
 // An int8 tile has the same byte geometry: a swizzled row holds 128 int8, a
 // k32 step of the int8 product moves 32 bytes along it, as a bf16 k16 step
-// does. The int8 product takes both operands K-major only (the PTX ISA has
-// no transposed 8-bit operand); every int8 operand here is K-major.
+// does. The int8 product takes its shared-memory operands K-major only (the
+// PTX ISA has no transposed 8-bit operand); every int8 operand here is
+// K-major, V of K13's e8 V product too (stored transposed, keys contiguous).
 
 #pragma once
 
@@ -274,10 +275,18 @@ __device__ __forceinline__ void fence_regs(int (&r)[kN]) {
 //     dQ = dS K, with dS stored as dS^T by store_sw128 and K as loaded).
 //   WgmmaS8<N>::ss: m64nNk32, int8 A (64 x 32) and B (32 x N) both K-major
 //     in shared memory, int32 sums d[N / 2] in the layout of d above.
+//   WgmmaRsS8<N>::rs: m64nNk32, int8 A from registers (a[0..3], 4 int8 each,
+//     byte 0 the lowest depth: rows lane/4 and lane/4 + 8 at depth
+//     4 (lane % 4) + 0..3, then the same two rows at 16 + 4 (lane % 4) +
+//     0..3), B K-major in shared memory (the only 8-bit B the PTX ISA
+//     has), int32 sums; N is one of the .s8 shapes (above 24 a multiple of
+//     16: 48, not 40).
 template <int kN>
 struct WgmmaSs;
 template <int kN>
 struct WgmmaS8;
+template <int kN>
+struct WgmmaRsS8;
 template <int kN>
 struct WgmmaRs;
 template <int kN>
@@ -559,6 +568,132 @@ struct WgmmaS8<128> {
   }
 };
 
+template <>
+struct WgmmaRsS8<16> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+        : R4(d, 0), R4(d, 4)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaRsS8<32> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaRsS8<48> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaRsS8<64> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20), R4(d, 24), R4(d, 28)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaRsS8<80> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20), R4(d, 24), R4(d, 28), R4(d, 32), R4(d, 36)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaRsS8<128> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20), R4(d, 24), R4(d, 28), R4(d, 32), R4(d, 36), R4(d, 40), R4(d, 44), R4(d, 48), R4(d, 52), R4(d, 56), R4(d, 60)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaRsS8<160> {
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79"
+        "}, {%80, %81, %82, %83}, %84, p;\n}\n"
+        : R4(d, 0), R4(d, 4), R4(d, 8), R4(d, 12), R4(d, 16), R4(d, 20), R4(d, 24), R4(d, 28), R4(d, 32), R4(d, 36), R4(d, 40), R4(d, 44), R4(d, 48), R4(d, 52), R4(d, 56), R4(d, 60), R4(d, 64), R4(d, 68), R4(d, 72), R4(d, 76)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+
 #undef R4
 #undef F4
 
@@ -663,6 +798,32 @@ inline int encode_map_s8(CUtensorMap* map, const void* ptr, int batch, int t,
       static_cast<cuuint64_t>(dp) * heads,
       static_cast<cuuint64_t>(dp) * heads * t};
   const cuuint32_t box[4] = {128, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a 4-D map over (T, D, H, B) of K13's transposed int8 values v8t [B, H,
+// d, tp] (keys contiguous, tp a multiple of 16): element strides (tp,
+// d tp, H d tp), bytes here; boxes of 128 keys (one swizzle row) x `rows`
+// head columns, zeros past tp and d
+inline int encode_map_s8t(CUtensorMap* map, const void* ptr, int batch,
+                          int tp, int heads, int d, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(tp),
+                              static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(tp), static_cast<cuuint64_t>(tp) * d,
+      static_cast<cuuint64_t>(tp) * d * heads};
+  const cuuint32_t box[4] = {128, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
                         const_cast<void*>(ptr), dims, strides, box, unit,

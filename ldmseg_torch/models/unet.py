@@ -277,7 +277,7 @@ class AbsorbedAttentionS8(CrossAttention):
         c = x.shape[-1]
         out = absorbed_self_attention_s8(x, p.w_qkv, p.wo_q, p.w_scale,
                                          self.heads, (c // self.heads) ** -0.5,
-                                         p.xs)
+                                         p.xs, p.wo_p)
         return out + self.to_out[0].bias.to(out.dtype)
 
 

@@ -25,6 +25,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# flags of one source: attention_s8.cu instantiates the attention skeleton
+# 42 times (7 head classes x 1 or 2 consumer warpgroups x 3 epilogues), so
+# its kernels are optimized on parallel threads (72 s alone otherwise on
+# the H100's host, against the others' 20-27 s)
+SOURCE_FLAGS = {"attention_s8": ("--split-compile=0",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -51,7 +56,8 @@ def library_path(name: str) -> Path:
     # the shared headers count: a changed header rebuilds every source
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ()))
+    digest = hashlib.sha1(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -73,7 +79,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.monotonic())

@@ -109,7 +109,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import (SM90_HEAD_CLASSES, absorbed_takes_kernel,
+from .attention import (SM90_HEAD_CLASSES, SM90_MAX_STAGES,
+                        SM90_SMEM_LIMIT, SM90_SMS, absorbed_takes_kernel,
                         packed_attention_fallback, packed_takes_kernel,
                         sm90_forward_tiles, sm90_smem_bytes)
 from .gemm import gemm_takes, plans_c, sm90_gemm_plan
@@ -336,6 +337,95 @@ def _ln_plans_c(b: int, t: int, c: int, heads: int):
     return plans_c(*ln_attention_plans(b, t, c, heads))
 
 
+# K13's attention stage on Hopper (csrc/attention_s8.cu,
+# attn_s8pv_kernel_sm90), which K15, K11, K10 without v_bf16, K17 and K18
+# run too: the skeleton of K1 and K3 (csrc/attention_sm90.cuh) with an int8
+# score product and an int8 e8·V product whose A operand is the codes in
+# registers and whose B operand is Vᵀ, int8 being K-major only. Vᵀ lies as
+# ``v8t [B, H, d, tp]`` (keys contiguous, tp = T rounded up to 16) with the
+# keys of every 16 permuted so that a thread's score registers are the A
+# fragment as they stand. Its N classes are the .s8 ``wgmma`` widths.
+S8PV_HEAD_CLASSES = (16, 32, 48, 64, 80, 128, 160)
+S8PV_BOX_KEYS = 128  # a Vᵀ box: one 128-byte swizzle row of keys
+
+
+def key_of_position(q):
+    """The key of a 16-key group that position ``q`` (0..15, numpy or int)
+    of ``v8t`` holds: ``2·((q/4) mod 4) + q mod 2 + 8·((q/2) mod 2)``. A
+    thread of lane l holds the scores of keys ``2(l mod 4) + {0, 1}`` and
+    ``+8`` of each 16; the A fragment of an 8-bit ``wgmma`` wants depth
+    ``4(l mod 4) + {0..3}``: this order makes the two the same."""
+    return 2 * ((q >> 2) & 3) + (q & 1) + 8 * ((q >> 1) & 1)
+
+
+def padded_keys(t: int) -> int:
+    """``tp``: the key stride of ``v8t``, T rounded up to a multiple of 16
+    (the permutation works on whole 16-key groups; a tensor map's strides
+    are multiples of 16 bytes)."""
+    return -(-t // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class S8PVAttentionPlan:
+    """How K13's attention stage covers one ``(B·H, T, d)``: ``head_class``
+    the N of its e8·V product (d rounded up to an .s8 class), ``block_q``
+    query rows per block (64 per consumer warpgroup), ``block_k`` keys per
+    tile, a ring of ``stages`` K/Vᵀ tiles, ``qk_chunks`` 128-column int8
+    boxes across a head of q8/k8, ``dp`` their head-padded width, ``tp`` the
+    key stride of ``v8t``, ``smem_bytes`` of dynamic shared memory and the
+    ``grid`` (query tiles, B·H)."""
+
+    head_class: int
+    block_q: int
+    block_k: int
+    stages: int
+    qk_chunks: int
+    dp: int
+    tp: int
+    smem_bytes: int
+    grid: tuple
+
+    def fields(self) -> tuple:
+        """The ten ints the C entry points read (``struct AttnPlan`` of
+        ``csrc/attention_s8.cu``)."""
+        return (self.head_class, self.block_q, self.block_k, self.stages,
+                self.qk_chunks, self.dp, self.tp, self.smem_bytes,
+                *self.grid)
+
+
+def s8pv_smem_bytes(block_q: int, block_k: int, qk_chunks: int,
+                    head_class: int, stages: int) -> int:
+    """1 KiB of slack, Q, per stage a K tile and a Vᵀ tile (``head_class``
+    rows of 128 keys), the mbarriers: ``csrc/attention_sm90.cuh:
+    smem_bytes_s8pv``."""
+    row = S8PV_BOX_KEYS
+    return (1024 + block_q * qk_chunks * row
+            + stages * (block_k * qk_chunks + head_class) * row
+            + 8 * (1 + 2 * stages))
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_s8pv_attention_plan(bh: int, t: int, d: int) -> S8PVAttentionPlan:
+    """K13's attention launch plan: K1's tile rules (``attention.py:
+    sm90_forward_tiles``: 128-query tiles where they still give every SM a
+    block, 128-key tiles up to class 80 and 64 above) and the deepest ring
+    of two to four stages that fits, no deeper than the key tiles of the
+    two passes."""
+    head_class = next(c for c in S8PV_HEAD_CLASSES if c >= d)
+    qk_chunks = -(-(-(-head_class // 32)) // 4)
+    block_k = 128 if head_class <= 80 else 64
+    block_q = 128 if bh * -(-t // 128) >= SM90_SMS else 64
+    deepest = max(2, min(SM90_MAX_STAGES, 2 * -(-t // block_k)))
+    stages = next(s for s in range(deepest, 1, -1)
+                  if s8pv_smem_bytes(block_q, block_k, qk_chunks, head_class,
+                                     s) <= SM90_SMEM_LIMIT)
+    return S8PVAttentionPlan(
+        head_class, block_q, block_k, stages, qk_chunks, head_padded_width(d),
+        padded_keys(t), s8pv_smem_bytes(block_q, block_k, qk_chunks,
+                                        head_class, stages),
+        (-(-t // block_q), bh))
+
+
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("attention_ln_s8"), entry)
@@ -523,9 +613,26 @@ def _s8_kernel():
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _s8pv_plan_c(bh: int, t: int, d: int):
+    return plans_c(sm90_s8pv_attention_plan(bh, t, d))
+
+
+def _s8_scratch(b: int, t: int, h: int, d: int, dev, zero_pad: bool = False):
+    """The attention stage's int8 inputs: q8 and k8 head-padded ``[B·T, H,
+    dp]`` (the padding never read: TMA fills zeros past d) and ``v8t [B, H,
+    d, tp]`` (``zero_pad``: zeroed, for a producer that leaves the
+    positions past T unwritten; their codes meet e8 = 0 anyway)."""
+    dp, tp = head_padded_width(d), padded_keys(t)
+    q8, k8 = (torch.empty((b * t, h, dp), dtype=torch.int8, device=dev)
+              for _ in range(2))
+    alloc = torch.zeros if zero_pad and tp != t else torch.empty
+    return q8, k8, alloc((b, h, d, tp), dtype=torch.int8, device=dev)
 
 
 def _s8_launch(q, k, v, scale, scales) -> torch.Tensor:
@@ -543,9 +650,11 @@ def _s8_launch(q, k, v, scale, scales) -> torch.Tensor:
                          f"{q.numel()} elements not taken")
     if any(x.stride(3) != 1 for x in xs):
         raise ValueError("K13: q, k, v need unit stride on D")
+    if not float(scale) > 0:
+        raise ValueError(f"K13: scale {scale} must be > 0 (the kernel takes "
+                         f"the row max of the int32 scores)")
     dev = q.device
-    q8, k8, v8 = (torch.empty((b, t, h, d), dtype=torch.int8, device=dev)
-                  for _ in range(3))
+    q8, k8, v8t = _s8_scratch(b, t, h, d, dev)
     out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=dev)
     strides = [s_ for x in xs for s_ in x.stride()[:3]]
     if isinstance(scales[0], torch.Tensor):
@@ -559,8 +668,8 @@ def _s8_launch(q, k, v, scale, scales) -> torch.Tensor:
         err = kernel(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             (ctypes.c_longlong * 9)(*strides), q8.data_ptr(), k8.data_ptr(),
-            v8.data_ptr(), out.data_ptr(), b, t, h, d, ptr, *host,
-            float(scale), stream)
+            v8t.data_ptr(), out.data_ptr(), b, t, h, d, ptr, *host,
+            float(scale), _s8pv_plan_c(b * h, t, d), stream)
     if err != 0:
         raise RuntimeError(f"K13 launch failed: CUDA error {err}")
     fused_self_attention_s8.launches += 1
@@ -746,9 +855,39 @@ def _padded_kernel():
     fn = _build.load("attention_s8").ldmseg_attention_padded_s8
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def padded_attention_plans(b: int, t: int, c: int, heads: int) -> tuple:
+    """K11's (and K10's without ``v_bf16``) four launch plans: the int8 Q/K
+    projection ``[B·T, 2C, C]``, the V projection with its operands swapped
+    ``[C, B·T, C]`` (its columns are tokens, so its epilogue writes
+    ``v8t``), the attention stage and the int8 ``to_out`` ``[B·T, C, C]``.
+    Raises ``ValueError`` on a shape the products do not take (C a
+    multiple of 16: a row of x8 is a tensor map's stride)."""
+    rows = b * t
+    if not gemm_takes(c, c, "int8") or rows % 8:
+        raise ValueError(f"C={c} must be a multiple of 16 and B*T={rows} "
+                         f"of 8 (the int8 products' operands)")
+    return (sm90_gemm_plan(rows, 2 * c, c, "int8"),
+            sm90_gemm_plan(c, rows, c, "int8"),
+            sm90_s8pv_attention_plan(b * heads, t, c // heads),
+            sm90_gemm_plan(rows, c, c, "int8"))
+
+
+@functools.lru_cache(maxsize=None)
+def _padded_plans_c(b: int, t: int, c: int, heads: int):
+    return plans_c(*padded_attention_plans(b, t, c, heads))
+
+
+def _padded_scratch(b: int, t: int, c: int, h: int, dev):
+    """x8 and of8 ``[B·T, C]`` and the attention stage's inputs (v8t zeroed
+    where T % 16 leaves positions that the V projection does not write)."""
+    x8, of8 = (torch.empty((b * t, c), dtype=torch.int8, device=dev)
+               for _ in range(2))
+    return (x8, *_s8_scratch(b, t, h, c // h, dev, zero_pad=True), of8)
 
 
 def _padded_launch(x: torch.Tensor, p: PaddedAttentionPack) -> torch.Tensor:
@@ -761,22 +900,24 @@ def _padded_launch(x: torch.Tensor, p: PaddedAttentionPack) -> torch.Tensor:
         raise ValueError(f"K11: head dim {c // h} (<= {MAX_HEAD_DIM}), "
                          f"B*heads {b * h} or {x.numel()} elements not "
                          f"taken")
+    try:
+        plans = _padded_plans_c(b, t, c, h)
+    except ValueError as e:
+        raise ValueError(f"K11: {e}") from None
     x = x.contiguous()
     ops = (p.w_qkv, p.m_qkv, p.wo_q, p.ratio)
     if any(o.device != x.device or not o.is_contiguous() for o in ops):
         raise ValueError("K11: the pack must be contiguous on x's device")
     dev = x.device
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-    x8, q8, k8, v8, of8 = (torch.empty((b * t, c), dtype=torch.int8,
-                                       device=dev) for _ in range(5))
+    scratch = _padded_scratch(b, t, c, h, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _padded_kernel()(
             _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
             p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo_q.data_ptr(),
-            p.ratio.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
-            v8.data_ptr(), of8.data_ptr(), b, t, c, h, p.xs, p.score_scale,
-            p.out_scale, stream)
+            p.ratio.data_ptr(), *(z.data_ptr() for z in scratch), b, t, c,
+            h, p.xs, p.score_scale, p.out_scale, plans, stream)
     if err != 0:
         raise RuntimeError(f"K11 launch failed: CUDA error {err}")
     return out
@@ -826,7 +967,8 @@ def _packed_s8_kernel():
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_float,
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -847,9 +989,11 @@ def _packed_s8_launch(q, k, v, heads, scale) -> torch.Tensor:
                          f"{q.numel()} elements not taken")
     if any(x.stride(2) != 1 for x in xs):
         raise ValueError("K15: q, k, v need unit stride on C")
+    if not float(scale) > 0:
+        raise ValueError(f"K15: scale {scale} must be > 0 (the kernel takes "
+                         f"the row max of the int32 scores)")
     dev = q.device
-    q8, k8, v8 = (torch.empty((b, t, c), dtype=torch.int8, device=dev)
-                  for _ in range(3))
+    q8, k8, v8t = _s8_scratch(b, t, heads, d, dev)
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
     scratch = torch.empty(6, dtype=torch.int32, device=dev)  # amax, scales
     strides = [s_ for x in xs for s_ in x.stride()[:2]]
@@ -858,8 +1002,9 @@ def _packed_s8_launch(q, k, v, heads, scale) -> torch.Tensor:
         err = _packed_s8_kernel()(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             (ctypes.c_longlong * 6)(*strides), q8.data_ptr(), k8.data_ptr(),
-            v8.data_ptr(), out.data_ptr(), b, t, c, heads,
-            scratch.data_ptr(), float(scale), stream)
+            v8t.data_ptr(), out.data_ptr(), b, t, c, heads,
+            scratch.data_ptr(), float(scale),
+            _s8pv_plan_c(b * heads, t, d), stream)
     if err != 0:
         raise RuntimeError(f"K15 launch failed: CUDA error {err}")
     fused_self_attention_packed_s8.launches += 1
@@ -939,7 +1084,7 @@ def _ln_padded_kernel():
     fn = _build.load("attention_s8").ldmseg_attention_ln_padded_s8
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
                    + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -956,23 +1101,25 @@ def _ln_padded_launch(x: torch.Tensor, p: LNRowMajorPack) -> torch.Tensor:
         raise ValueError(f"K10: head dim {c // h} (<= {MAX_HEAD_DIM}), "
                          f"B*heads {b * h} or {x.numel()} elements not "
                          f"taken")
+    try:
+        plans = _padded_plans_c(b, t, c, h)
+    except ValueError as e:
+        raise ValueError(f"K10: {e}") from None
     x = x.contiguous()
     ops = (ln.ln_w, ln.ln_b, ln.out_b, pd.w_qkv, pd.m_qkv, pd.wo_q, pd.ratio)
     if any(o.device != x.device or not o.is_contiguous() for o in ops):
         raise ValueError("K10: the pack must be contiguous on x's device")
     dev = x.device
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-    x8, q8, k8, v8, of8 = (torch.empty((b * t, c), dtype=torch.int8,
-                                       device=dev) for _ in range(5))
+    scratch = _padded_scratch(b, t, c, h, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _ln_padded_kernel()(
             _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
             ln.ln_w.data_ptr(), ln.ln_b.data_ptr(), ln.out_b.data_ptr(),
             pd.w_qkv.data_ptr(), pd.m_qkv.data_ptr(), pd.wo_q.data_ptr(),
-            pd.ratio.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
-            v8.data_ptr(), of8.data_ptr(), b, t, c, h, pd.xs,
-            pd.score_scale, pd.out_scale, ln.eps, stream)
+            pd.ratio.data_ptr(), *(z.data_ptr() for z in scratch), b, t, c,
+            h, pd.xs, pd.score_scale, pd.out_scale, ln.eps, plans, stream)
     if err != 0:
         raise RuntimeError(f"K10 launch failed: CUDA error {err}")
     return out
@@ -1014,6 +1161,20 @@ class AbsorbedAttentionPack:
     w_qkv: torch.Tensor    # int8 [3C, C]: to_q, to_k, to_v rows (out, in)
     wo_q: torch.Tensor     # int8 [C, C] (out, in)
     w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
+    wo_p: torch.Tensor     # int8 [C, H·dp]: wo_q head-padded (head_padded_wo)
+
+
+def head_padded_wo(wo_q: torch.Tensor, heads: int) -> torch.Tensor:
+    """``to_out``'s codes ``[C, C]`` (out, in) as K17's per-head product
+    reads them: ``[C, H, dp]`` with each head's d input columns padded with
+    zeros to dp = d rounded up to 32 (a k32 step of the int8 product), so
+    that each head's sums end on a step and the padding adds nothing."""
+    c = wo_q.shape[0]
+    d = c // heads
+    dp = head_padded_width(d)
+    out = wo_q.new_zeros((c, heads, dp))
+    out[:, :, :d] = wo_q.reshape(c, heads, d)
+    return out.reshape(c, heads * dp).contiguous()
 
 
 @torch.no_grad()
@@ -1028,7 +1189,8 @@ def pack_absorbed_attention(attn, heads: int,
         attn.to_out[0].weight, heads)
     return AbsorbedAttentionPack(
         heads=heads, xs=f32(xs), w_qkv=torch.cat([q8, k8, v8]).contiguous(),
-        wo_q=o8.contiguous(), w_scale=scales.contiguous())
+        wo_q=o8.contiguous(), w_scale=scales.contiguous(),
+        wo_p=head_padded_wo(o8, heads))
 
 
 def _per_head(w_scale: torch.Tensor, heads: int) -> torch.Tensor:
@@ -1106,17 +1268,36 @@ def absorbed_attention_s8_fallback(x: torch.Tensor, w_qkv: torch.Tensor,
 @functools.cache
 def _absorbed_s8_kernel(entry: str):
     fn = getattr(_build.load("attention_s8"), entry)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
                    + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def absorbed_s8_plans(b: int, t: int, c: int, heads: int) -> tuple:
+    """K17's (and K18's) three launch plans: the int8 ``[B·T, 3C, C]``
+    projection, the attention stage and the per-head ``to_out`` ``[B·T, C,
+    H·dp]``. Raises ``ValueError`` on a shape the products do not take."""
+    rows = b * t
+    d = c // heads
+    if not gemm_takes(c, c, "int8"):
+        raise ValueError(f"C={c} must be a multiple of 16 (the rows of the "
+                         f"int8 projection's operands)")
+    return (sm90_gemm_plan(rows, 3 * c, c, "int8"),
+            sm90_s8pv_attention_plan(b * heads, t, d),
+            sm90_gemm_plan(rows, c, heads * head_padded_width(d), "int8"))
+
+
+@functools.lru_cache(maxsize=None)
+def _absorbed_plans_c(b: int, t: int, c: int, heads: int):
+    return plans_c(*absorbed_s8_plans(b, t, c, heads))
+
+
 def _absorbed_s8_launch(name: str, x: torch.Tensor, w_qkv: torch.Tensor,
                         wo_q: torch.Tensor, w_scale: torch.Tensor,
-                        heads: int, scale: float,
-                        act_scale: float) -> torch.Tensor:
+                        heads: int, scale: float, act_scale: float,
+                        wo_p: Optional[torch.Tensor] = None) -> torch.Tensor:
     b, t, c = x.shape
     fullc = name == "K18"
     if x.dtype not in _DTYPE_CODE:
@@ -1135,19 +1316,32 @@ def _absorbed_s8_launch(name: str, x: torch.Tensor, w_qkv: torch.Tensor,
                          f"with scales {'[4]' if fullc else '[4, H]'}, got "
                          f"{tuple(w_qkv.shape)}, {tuple(wo_q.shape)}, "
                          f"{tuple(w_scale.shape)}")
+    if not float(scale) > 0:
+        raise ValueError(f"{name}: scale {scale} must be > 0 (the kernel "
+                         f"takes the row max of the int32 scores)")
+    try:
+        plans = _absorbed_plans_c(b, t, c, heads)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if wo_p is None:
+        wo_p = head_padded_wo(wo_q, heads)
     ws = _per_head(w_scale, heads)
-    ops = (w_qkv, wo_q, ws)
+    ops = (w_qkv, wo_p, ws)
     if any(o.device != x.device or not o.is_contiguous() for o in ops):
         raise ValueError(f"{name}: the weights must be contiguous on x's "
                          f"device")
+    dp = head_padded_width(d)
+    if wo_p.dtype != torch.int8 or wo_p.shape != (c, heads * dp):
+        raise ValueError(f"{name}: wo_p must be int8 [C, H*dp] "
+                         f"({c}, {heads * dp}), got {tuple(wo_p.shape)}")
     x = x.contiguous()
     dev = x.device
     rows = b * t
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-    x8, oh8 = (torch.empty((rows, c), dtype=torch.int8, device=dev)
-               for _ in range(2))
+    x8 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    oh8 = torch.empty((rows, heads * dp), dtype=torch.int8, device=dev)
     y = torch.empty((rows, 3 * c), dtype=torch.float32, device=dev)
-    y8 = torch.empty((rows, 3 * c), dtype=torch.int8, device=dev)
+    q8, k8, v8t = _s8_scratch(b, t, heads, d, dev)
     oh = torch.empty((rows, c), dtype=torch.float32, device=dev)
     # the scales, then as many amax words
     scales = torch.empty(2 * (3 * b * (1 if fullc else heads) + b * heads),
@@ -1158,17 +1352,17 @@ def _absorbed_s8_launch(name: str, x: torch.Tensor, w_qkv: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _absorbed_s8_kernel(entry)(
             _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
-            w_qkv.data_ptr(), wo_q.data_ptr(), ws.data_ptr(), x8.data_ptr(),
-            y.data_ptr(), y8.data_ptr(), oh.data_ptr(), oh8.data_ptr(),
-            scales.data_ptr(), b, t, c, heads, f32(act_scale), float(scale),
-            stream)
+            w_qkv.data_ptr(), wo_p.data_ptr(), ws.data_ptr(), x8.data_ptr(),
+            y.data_ptr(), q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
+            oh.data_ptr(), oh8.data_ptr(), scales.data_ptr(), b, t, c, heads,
+            f32(act_scale), float(scale), plans, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
 def _absorbed_s8(fn, name, x, w_qkv, wo_q, w_scale, heads, scale,
-                 act_scale):
+                 act_scale, wo_p=None):
     b, t, c = x.shape
     if not absorbed_takes_kernel(t, c, heads):
         fn.fallbacks += 1
@@ -1181,22 +1375,25 @@ def _absorbed_s8(fn, name, x, w_qkv, wo_q, w_scale, heads, scale,
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     out = _absorbed_s8_launch(name, x, w_qkv, wo_q, w_scale, heads, scale,
-                              act_scale)
+                              act_scale, wo_p)
     fn.launches += 1
     return out.to(x.dtype)
 
 
 def absorbed_self_attention_s8(x: torch.Tensor, w_qkv: torch.Tensor,
                                wo_q: torch.Tensor, w_scale: torch.Tensor,
-                               heads: int, scale: float,
-                               act_scale: float) -> torch.Tensor:
+                               heads: int, scale: float, act_scale: float,
+                               wo_p: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """K17: ``to_out(attention(x))`` without the ``to_out`` bias for ``x
     [B, T, C]`` (no gradient) on ``quantize_head_weights``' codes (``w_qkv
     [3C, C]``, ``wo_q [C, C]``, ``w_scale [4, H]``), x quantized with the
     static ``act_scale``; returned in x's dtype, the kernel's bf16 result
-    cast as the JAX wrapper casts it."""
+    cast as the JAX wrapper casts it. ``wo_p``: ``wo_q`` head-padded as
+    :func:`head_padded_wo` makes it (a pack's, made once); on the card
+    without it the wrapper pads per call."""
     return _absorbed_s8(absorbed_self_attention_s8, "K17", x, w_qkv, wo_q,
-                        w_scale, heads, scale, act_scale)
+                        w_scale, heads, scale, act_scale, wo_p)
 
 
 absorbed_self_attention_s8.launches = 0
@@ -1206,13 +1403,14 @@ absorbed_self_attention_s8.fallbacks = 0
 def absorbed_fullc_self_attention_s8(x: torch.Tensor, w_qkv: torch.Tensor,
                                      wo_q: torch.Tensor,
                                      w_scale: torch.Tensor, heads: int,
-                                     scale: float,
-                                     act_scale: float) -> torch.Tensor:
+                                     scale: float, act_scale: float,
+                                     wo_p: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
     """K18 (an op): K17's function on ``quantize_fullc_weights``' codes and
     per-tensor scales (``w_scale [4]``), with the projections' dynamic
-    scales per image; returned in x's dtype."""
+    scales per image; returned in x's dtype. ``wo_p`` as K17's."""
     return _absorbed_s8(absorbed_fullc_self_attention_s8, "K18", x, w_qkv,
-                        wo_q, w_scale, heads, scale, act_scale)
+                        wo_q, w_scale, heads, scale, act_scale, wo_p)
 
 
 absorbed_fullc_self_attention_s8.launches = 0

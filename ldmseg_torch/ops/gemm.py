@@ -9,10 +9,12 @@ tiles and ring, the wrappers pass it, and the C entry points check it.
 
 :func:`gemm_s8` and :func:`gemm_bf16` are the product with nothing around
 it (``csrc/gemm_sm90.cu``; ``gemm_s8(..., operands=2)`` the two-operand form
-K4's up product runs): no model path calls them; ``chip_smoke.py`` and the
-card tests hold them against ``torch._int_mm`` and ``torch.matmul``. A CPU
-tensor takes :func:`gemm_reference`; a CUDA tensor the kernel, or the
-wrapper raises.
+K4's up product runs), :func:`gemm_s8_heads` the per-head product of K17's
+and K18's ``to_out`` with the caller's factors: no model path calls them;
+``chip_smoke.py`` and the card tests hold them against ``torch._int_mm``
+and ``torch.matmul``. A CPU tensor takes :func:`gemm_reference` or
+:func:`gemm_heads_reference`; a CUDA tensor the kernel, or the wrapper
+raises.
 """
 
 from __future__ import annotations
@@ -193,3 +195,63 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 gemm_bf16.launches = 0
+
+
+def gemm_heads_reference(a: torch.Tensor, w: torch.Tensor,
+                         factors: torch.Tensor, heads: int) -> torch.Tensor:
+    """The per-head product in plain PyTorch: ``a [rows, H·dp]`` and ``w
+    [n, H·dp]`` int8, ``factors [rows / t, H]`` fp32; ``Σ_h float(int32
+    a_h·w_hᵀ)·f[row / t, h]`` in fp32, h = 0 first, each product and sum
+    rounded (two elementwise operations, no fused multiply-add)."""
+    rows = a.shape[0]
+    dp = a.shape[1] // heads
+    f = factors.repeat_interleave(rows // factors.shape[0], dim=0)
+    out = torch.zeros((rows, w.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    for h in range(heads):
+        c32 = exact_int8_matmul(a[:, h * dp:(h + 1) * dp],
+                                w[:, h * dp:(h + 1) * dp])
+        out = out + c32.float() * f[:, h:h + 1]
+    return out
+
+
+def gemm_s8_heads(a: torch.Tensor, w: torch.Tensor, factors: torch.Tensor,
+                  heads: int) -> torch.Tensor:
+    """fp32 ``Σ_h float(a_h·w_hᵀ)·factors[row / t, h]`` of int8 ``a [rows,
+    H·dp]`` and ``w [n, H·dp]`` (dp a multiple of 32), images of ``t =
+    rows / factors.shape[0]`` rows: ``csrc/gemm_sm90.cuh:gemm_heads_kernel``
+    behind the test entry ``ldmseg_gemm_s8_heads``."""
+    if (a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]
+            or a.dtype != torch.int8 or w.dtype != torch.int8
+            or a.shape[1] % (32 * heads) or factors.shape[-1] != heads
+            or a.shape[0] % factors.shape[0]):
+        raise ValueError(f"gemm_s8_heads: a [rows, H*dp], w [n, H*dp] int8 "
+                         f"(dp % 32), factors [images, H], got "
+                         f"{tuple(a.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(factors.shape)}")
+    if a.device.type == "cpu":
+        return gemm_heads_reference(a, w, factors.float(), heads)
+    if a.device.type != "cuda" or w.device != a.device:
+        raise ValueError("gemm_s8_heads: a and w on one CUDA device")
+    rows, k = a.shape
+    n = w.shape[0]
+    t = rows // factors.shape[0]
+    plan = sm90_gemm_plan(rows, n, k, "int8")
+    f = factors.float().contiguous()
+    out = torch.empty((rows, n), dtype=torch.float32, device=a.device)
+    fn = _build.load("gemm_sm90").ldmseg_gemm_s8_heads
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.contiguous().data_ptr(), w.contiguous().data_ptr(),
+                 f.data_ptr(), out.data_ptr(), rows, n, heads,
+                 k // heads // 32, t, plans_c(plan), stream)
+    if err != 0:
+        raise RuntimeError(f"gemm_s8_heads launch failed: CUDA error {err}")
+    gemm_s8_heads.launches += 1
+    return out
+
+
+gemm_s8_heads.launches = 0

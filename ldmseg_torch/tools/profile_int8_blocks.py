@@ -1,19 +1,22 @@
-"""Where the time of K3 and K4 goes, stage by stage, on the card.
+"""Where the time of the int8 blocks goes, stage by stage, on the card.
 
-    python -m ldmseg_torch.tools.profile_int8_blocks
+    python -m ldmseg_torch.tools.profile_int8_blocks [--blocks K3,K4,...]
 
-For each (B, T, C) of the default int8 UNet forward (batch 2, 32x64 latent,
-8 heads; ``chip_smoke.py``'s ``INT8_SHAPES``) it builds one transformer
-block's float modules with seeded weights, packs them as the int8 UNet does
-(``pack_ln_attention``, ``pack_geglu`` with the dynamic and a static
-interior scale) and traces 20 calls of K3 (``ln_attention_s8``) and of K4
-(``geglu_ln_s8``) on bf16 x with ``torch.profiler``. It prints one JSON
-line per (kernel, shape): the CUDA-event time per call, the device time
-per call summed over its kernels and split by kernel name (each of a
-call's launches is a stage: LN + quantize, the products, the attention or
-the interior quantize), and the number of launches per call. It reads
-the kernels' names from the trace, so it profiles whatever the checkout
-builds. Needs a CUDA device.
+For each (B, T, C) of the int8 UNet forward (batch 2, 32x64 latent, 8
+heads; ``chip_smoke.py``'s ``INT8_SHAPES``) it builds one transformer
+block's float modules with seeded weights, packs them as the int8 UNets do
+and traces 20 calls of each block on bf16 x with ``torch.profiler``: K3
+(``ln_attention_s8``), K4 (``geglu_ln_s8``, dynamic and a static interior
+scale), K13 (``fused_self_attention_s8`` on the head views of bf16 q, k, v,
+static scale 0.1), K15 (``fused_self_attention_packed_s8``), K11
+(``padded_attention_s8``) and K17 (``absorbed_self_attention_s8``). It
+prints one JSON line per (block, shape): the CUDA-event time per call, the
+device time per call summed over its kernels and split by kernel name, the
+same split by stage (:data:`STAGES`: LN + quantize, the products, the
+attention, the quantize passes), and the number of launches per call. It
+reads the kernels' names from the trace, so it profiles whatever checkout
+it imports: run it as a file with ``PYTHONPATH`` at another tree to
+profile that tree. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -81,6 +84,46 @@ def stages(fn, iters: int = 20) -> dict:
             "stages_device_ms": device}
 
 
+# stage -> regex on a kernel's short name, per block; a kernel that matches
+# no stage counts under "other". The names of the parent designs (the
+# Ampere-era attn_s8_kernel, s8_gemm_kernel, group_amax_kernel,
+# head_out_kernel) are kept so that an older tree splits the same way.
+STAGES = {
+    "K3": {"ln_quant": r"ln_quant_kernel", "qkv": r"QkvPadEpi",
+           "attention": r"attn_s8_kernel_sm90", "to_out": r"ResidualEpi"},
+    "K4": {"ln_quant": r"ln_quant_kernel", "up": r"GateEpi",
+           "quant": r"^quant_kernel", "down": r"DownEpi"},
+    "K13": {"quant": r"quant_qkv_kernel",
+            "attention": r"attn_s8pv_kernel_sm90|^attn_s8_kernel<"},
+    "K15": {"amax": r"amax_qkv_kernel|amax_scales_kernel|[Mm]emset",
+            "quant": r"quant_qkv_kernel",
+            "attention": r"attn_s8pv_kernel_sm90|^attn_s8_kernel<"},
+    "K11": {"ln_quant": r"ln_quant_kernel",
+            "qk": r"QkPadEpi|s8_gemm_kernel<.*QkvEpi", "v": r"VtEpi",
+            "attention": r"attn_s8pv_kernel_sm90|^attn_s8_kernel<",
+            "to_out": r"DequantEpi|DequantBf16Epi"},
+    "K17": {"ln_quant": r"ln_quant_kernel|[Mm]emset",
+            "qkv": r"AbsorbedProjEpi",
+            "quant": r"group_quant_kernel|group_amax_kernel",
+            "attention": r"attn_s8pv_kernel_sm90|^attn_s8_kernel<",
+            "to_out": r"gemm_heads_kernel|head_out_kernel"},
+}
+# K18's wrapper repeats its per-tensor weight scales over the heads
+STAGES["K18"] = {**STAGES["K17"], "scales": r"direct_copy_kernel"}
+STAGES["K10"] = {**STAGES["K11"], "to_out": r"ResidualS8Epi"}
+
+
+def by_stage(kid: str, by_name: dict) -> dict:
+    """A block's device ms by kernel name summed by stage
+    (:data:`STAGES`)."""
+    out = {}
+    for name, ms in by_name.items():
+        stage = next((k for k, pat in STAGES.get(kid, {}).items()
+                      if re.search(pat, name)), "other")
+        out[stage] = out.get(stage, 0.0) + ms
+    return out
+
+
 def block_modules(c: int, seed: int, device: str = "cuda"):
     """A transformer block's float modules (LayerNorm, CrossAttention,
     LayerNorm, FeedForward) with seeded weights, as ``chip_smoke.py``
@@ -96,39 +139,80 @@ def block_modules(c: int, seed: int, device: str = "cuda"):
     return mods
 
 
+def block_runs(kid: str, x: torch.Tensor, mods) -> dict:
+    """label -> a call of block ``kid`` on ``x [B, T, C]`` (bf16) with the
+    block's float modules ``mods`` packed as its int8 UNet packs them."""
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as K4
+    norm1, attn, norm3, ff = mods
+    b, t, c = x.shape
+    d = c // 8
+    if kid == "K3":
+        apack = S8.pack_ln_attention(norm1, attn, 8, 0.1)
+        return {"K3": lambda: S8.ln_attention_s8(x, apack)}
+    if kid == "K4":
+        return {f"K4 {mode}": (
+            lambda p=K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05,
+                                   gs): K4.geglu_ln_s8(x, p))
+            for mode, gs in (("dynamic", None), ("static", 0.02))}
+    if kid in ("K13", "K15"):
+        q, k, v = (x.roll(i, dims=1) for i in range(3))
+        if kid == "K15":
+            return {"K15": lambda: S8.fused_self_attention_packed_s8(
+                q, k, v, 8, d ** -0.5)}
+        qh, kh, vh = (z.unflatten(-1, (8, d)) for z in (q, k, v))
+        return {"K13": lambda: S8.fused_self_attention_s8(
+            qh, kh, vh, d ** -0.5, 0.1)}
+    if kid == "K11":
+        ppack = S8.pack_padded_attention(attn, 8, 0.05)
+        return {"K11": lambda: S8.padded_attention_s8(x, ppack)}
+    if kid == "K17":
+        p = S8.pack_absorbed_attention(attn, 8, 0.1)
+        # a pack of a tree before the head-padded to_out has no wo_p
+        extra = (p.wo_p,) if hasattr(p, "wo_p") else ()
+        return {"K17": lambda: S8.absorbed_self_attention_s8(
+            x, p.w_qkv, p.wo_q, p.w_scale, 8, d ** -0.5, p.xs, *extra)}
+    raise ValueError(f"unknown block {kid!r}")
+
+
+BLOCKS = ("K3", "K4", "K13", "K15", "K11", "K17")
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--blocks", default=",".join(BLOCKS),
+                        help="comma-separated, of " + ", ".join(BLOCKS))
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_int8_blocks: no CUDA device", file=sys.stderr)
         return 1
-    from ldmseg_torch.ops import attention_s8 as K3
-    from ldmseg_torch.ops import geglu as K4
     gen = torch.Generator(device="cuda").manual_seed(7)
     total = {}
     for (b, t, c), per_fwd in SHAPES:
-        norm1, attn, norm3, ff = block_modules(c, seed=t + c)
-        apack = K3.pack_ln_attention(norm1, attn, 8, 0.1)
+        mods = block_modules(c, seed=t + c)
         x = torch.randn((b, t, c), generator=gen, device="cuda").to(
             torch.bfloat16)
-        runs = {"K3": lambda: K3.ln_attention_s8(x, apack)}
-        for mode, gs in (("dynamic", None), ("static", 0.02)):
-            fpack = K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05, gs)
-            runs[f"K4 {mode}"] = (
-                lambda p=fpack: K4.geglu_ln_s8(x, p))
         with torch.inference_mode():
-            for kid, fn in runs.items():
-                row = stages(fn)
-                print(json.dumps({"kernel": kid, "shape_btc": [b, t, c],
-                                  "per_unet_forward": per_fwd, **row}),
-                      flush=True)
-                if isinstance(row["device_ms"], float):
-                    acc = total.setdefault(kid, [0.0, 0.0])
-                    acc[0] += row["event_ms"] * per_fwd
-                    acc[1] += row["device_ms"] * per_fwd
-    print(json.dumps({"per_unet_forward_ms": {
-        k: {"event_ms": v[0], "device_ms": v[1]} for k, v in total.items()},
-        "device": torch.cuda.get_device_name(0)}),
-        flush=True)
+            for kid in args.blocks.split(","):
+                for label, fn in block_runs(kid, x, mods).items():
+                    row = stages(fn)
+                    row["by_stage_device_ms"] = by_stage(
+                        kid, row["stages_device_ms"])
+                    print(json.dumps({"kernel": label, "shape_btc": [b, t, c],
+                                      "per_unet_forward": per_fwd, **row}),
+                          flush=True)
+                    if isinstance(row["device_ms"], float):
+                        acc = total.setdefault(label, {"event_ms": 0.0,
+                                                       "device_ms": 0.0,
+                                                       "by_stage": {}})
+                        acc["event_ms"] += row["event_ms"] * per_fwd
+                        acc["device_ms"] += row["device_ms"] * per_fwd
+                        for k, v in row["by_stage_device_ms"].items():
+                            acc["by_stage"][k] = (acc["by_stage"].get(k, 0.0)
+                                                  + v * per_fwd)
+    print(json.dumps({"per_unet_forward_ms": total,
+                      "device": torch.cuda.get_device_name(0)}),
+          flush=True)
     return 0
 
 

@@ -54,9 +54,14 @@ FAMILIES = (  # first match wins
     ("K4/K9/K12 products: up, down (sm90)",
      r"gemm_kernel<.*(GateEpi|DownEpi)"),
     ("K4/K9/K12 interior quantize", r"::quant_kernel"),
-    ("K13/K11/K15/K17 attention_s8", r"attn_s8_kernel|quant_qkv_kernel"),
+    ("K13/K11/K15/K17 attention (sm90), quantize, amax",
+     r"attn_s8pv_kernel_sm90|attn_s8_kernel|quant_qkv_kernel|amax_qkv_"
+     r"kernel|amax_scales_kernel"),
+    ("K11/K10/K17 products (sm90)",
+     r"gemm_kernel<.*(QkPadEpi|VtEpi|DequantEpi|ResidualS8Epi|"
+     r"AbsorbedProjEpi)|gemm_heads_kernel"),
     ("K17/K18 dynamic quantize, to_out per head",
-     r"group_quant_kernel|head_out_kernel"),
+     r"group_quant_kernel|group_amax_kernel|head_out_kernel"),
     ("K8/K9/K11/K16/K17 products (s8_common)",
      r"s8_gemm_kernel|bf16_gemm_kernel|f32_gemm_kernel"),
     ("K3/K4/K11/K12/K17 (LN +) quantize", r"ln_quant_kernel"),
