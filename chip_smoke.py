@@ -64,8 +64,11 @@ Phases, one line each:
      44 resnet halves of one bf16 forward captured by hooks, and K5 (bf16
      and fp32; bf16 also at the training shapes), K6 and K7 (with the
      half's own conv; 43 launches, 1 fallback by the 6 MiB rule) against
-     their plain versions there, with times, the bound and the bf16
-     PyTorch composition each replaces;
+     their plain versions there, with times (CUDA events; the device time,
+     the kernels a call and their split from ``torch.profiler``; the host
+     time a call, ``tools/profile_gn.py:measure``: one kernel a K5 call,
+     two a K6 call), the bound and the bf16 PyTorch composition each
+     replaces, per forward and per shape class;
   15. that UNet's forward on K5 against the plain GN: 44 K5 launches;
   16. ``sample_panoptic`` on it as phase 4: 2,200 K5 and 800 K1 per call;
   17. ``train_loop`` on it (2 warm-up, 3 timed steps): 88 K5, 32 K1, 16 K2
@@ -102,8 +105,11 @@ Phases, one line each:
      bound and the yardstick (SDPA and SDPA's backward for K14; SDPA and
      K13 on the head views for K15; K3, or LN + K11 + the residual, for
      K10), K14's, K2's and SDPA's device times from ``torch.profiler``,
-     K15's and K10's (``v_bf16`` False) device time by stage, and a
-     ragged T = 30 that each rule sends to its fallback;
+     K15's and K10's (``v_bf16`` False) device time by stage, F2's code
+     check (the LN + quantize stage's codes against the plain ones, +-1 at
+     no more than ``LN_CODE_FLIPS`` of them and next to a .5; K10 without
+     ``v_bf16`` against the plain steps fed those codes), and a ragged T =
+     30 that each rule sends to its fallback;
   25. the full-width bf16 UNet built with
      ``UNetConfig(use_packed_attention=True)`` against the same module on
      K1: 16 K14, 0 K1, no fallback;
@@ -139,7 +145,8 @@ Phases, one line each:
      K17, 16 K12) against the bf16 one; the absorbed-storage UNet
      (``prepare_int8_unet(..., absorbed_attention=True)``) whose K17s read
      the calibrated ``to_q`` sites, against the bf16 one;
-  34. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants);
+  34. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
+     K5, K6 and K7 with their device time and host time a call);
   35. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
@@ -1507,15 +1514,40 @@ def _max_err(out, ref):
 
 def _gn_row(shape, dtype, err, rmax, fn, plain, composition, bound,
             **extra):
-    ms = time_ms(fn)
+    """A GN kernel's row at one half: its CUDA-event ms, device ms, kernels
+    per call (by name) and host µs per call (``tools/profile_gn.py:
+    measure``), beside the plain version's and the bf16 composition's event
+    ms and the bound."""
+    from ldmseg_torch.tools.profile_gn import measure
+    m = measure(fn)
     plain_ms = time_ms(plain, iters=5, warmup=1)
     comp_ms = time_ms(composition)
     bound_ms, by, ops, nbytes = bound
     return {"shape_bchw": list(shape), "dtype": dtype, "max_abs_err": err,
-            "max_abs_ref": rmax, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_ref": rmax, "ms": m["event_ms"],
+            "device_ms": m["device_ms"], "host_us": m["host_us"],
+            "kernels_per_call": m["kernels_per_call"],
+            "kernel_launches": m["kernel_launches"],
+            "traced_calls": m["traced_calls"],
+            "kernels_device_ms": m["kernels_device_ms"], "plain_ms": plain_ms,
             "library_ms": None, "bf16_composition_ms": comp_ms,
             "bound_ms": bound_ms, "bound_by": by, "ops": ops,
             "bytes": nbytes, **extra}
+
+
+def _sum(rows, key):
+    """The rows' sum of ``key``; None when a trace gave no device time."""
+    vals = [r[key] for r in rows]
+    return None if any(v is None for v in vals) else sum(vals)
+
+
+def _kernels_summed(rows):
+    """Device ms by kernel name, summed over the rows."""
+    total = {}
+    for r in rows:
+        for name, ms in (r.get("kernels_device_ms") or {}).items():
+            total[name] = total.get(name, 0.0) + ms
+    return total
 
 
 def phase_gn_kernels(trainer, smi_line: str):
@@ -1653,13 +1685,31 @@ def phase_gn_kernels(trainer, smi_line: str):
                        [r for r in k5 if r["path"] == "training"]),
                       ("K6", k6), ("K7", [r for r in k7
                                           if not r["fallback"]])):
+        kpc = sorted({round(r["kernels_per_call"], 2) for r in rows
+                      if r["kernels_per_call"] is not None})
         print(f"phase 14 {kid}: {len(rows)} halves, max err "
               f"{max(r['max_abs_err'] for r in rows):.3e}; kernel "
-              f"{sum(r['ms'] for r in rows):.4f} ms, plain "
+              f"{sum(r['ms'] for r in rows):.4f} ms (device "
+              f"{_ms(_sum(rows, 'device_ms'))} ms, host "
+              f"{_sum(rows, 'host_us') / len(rows):.1f} us a call, kernels a "
+              f"call {kpc}: {_kernels_ms(_kernels_summed(rows))}), plain "
               f"{sum(r['plain_ms'] for r in rows):.4f} ms, bf16 composition"
               f" {sum(r['bf16_composition_ms'] for r in rows):.4f} ms, bound "
               f"{sum(r['bound_ms'] for r in rows):.4f} ms per UNet forward "
               f"[{smi_line}]", flush=True)
+    # the trace: one kernel a K5 call, two a K6 call (launch A and B), each
+    # at most once a call (a trace may drop a few events, never add one)
+    for kid, rows, want in (("K5", k5, {"gn_cluster_kernel"}),
+                            ("K6", k6, {"gn_cluster_kernel",
+                                        "gn_quant_kernel"})):
+        for r in rows:
+            seen = r["kernel_launches"]
+            names = {n.split("<")[0] for n in seen}
+            check(not seen or (names == want and max(seen.values())
+                               <= r["traced_calls"]),
+                  f"{kid} {r['shape_bchw']}: the trace shows {seen} over "
+                  f"{r['traced_calls']} calls; expected {sorted(want)} once "
+                  f"a call")
     for kid, rows in (("K5", [r for r in k5 if r["path"] == "sampling"]),
                       ("K6", k6), ("K7", [r for r in k7
                                           if not r["fallback"]])):
@@ -1674,9 +1724,15 @@ def phase_gn_kernels(trainer, smi_line: str):
     return k5, k6, k7
 
 
+def _kernels_ms(by_name):
+    """``{short name: ms}`` of a kernel split, four places."""
+    return {n.split("<")[0]: round(v, 4) for n, v in by_name.items()}
+
+
 def _by_shape_class(rows):
     """One line per (channels, pixels) of the rows: the number of halves
-    and their summed kernel, bound, plain and bf16 composition ms."""
+    and their summed kernel (event), device, bound, plain and bf16
+    composition ms, the host µs a call and the device ms by kernel."""
     classes = {}
     for r in rows:
         _, c, h, w = r["shape_bchw"]
@@ -1685,9 +1741,11 @@ def _by_shape_class(rows):
         total = {k: sum(r[k] for r in rs) for k in
                  ("ms", "bound_ms", "plain_ms", "bf16_composition_ms")}
         yield (f"C={c} at {hw} px: {len(rs)} halves, kernel "
-               f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, "
-               f"plain {total['plain_ms']:.4f} ms, bf16 composition "
-               f"{total['bf16_composition_ms']:.4f} ms")
+               f"{total['ms']:.4f} ms (device {_ms(_sum(rs, 'device_ms'))} "
+               f"ms, host {_sum(rs, 'host_us') / len(rs):.1f} us a call: "
+               f"{_kernels_ms(_kernels_summed(rs))}), bound "
+               f"{total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} "
+               f"ms, bf16 composition {total['bf16_composition_ms']:.4f} ms")
 
 
 def phase_gn_unet(trainer):
@@ -1850,6 +1908,12 @@ def gn_entry(name, kid, source, replaces, tpu_kernel, rows, launches,
         "launches": launches, "launches_by_path": by_path, "checked": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in rows),
+        "device_ms": _sum(rows, "device_ms"),
+        "device_ms_by_kernel": _kernels_summed(rows),
+        "host_us_per_call": _sum(rows, "host_us") / len(rows),
+        "kernels_per_call": sorted({round(r["kernels_per_call"], 2)
+                                    for r in rows
+                                    if r["kernels_per_call"] is not None}),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -2186,6 +2250,32 @@ def ln_padded_bound_ms(b: int, t: int, c: int, heads: int = 8):
             else "bytes", ops8, 0.0, nbytes)
 
 
+# F2: the int8 blocks' LN + quantize codes against the plain version's: +-1,
+# at no more than LN_CODE_FLIPS of them, each where the plain hn / xs lies
+# within LN_TIE_ULPS ulps of a .5 (the order of a row's sums is the one
+# difference; tests/test_torch_port_gn_sm90_card.py)
+LN_CODE_FLIPS, LN_TIE_ULPS = 1e-4, 8
+
+
+def _code_flips(label, x8, ref8, t):
+    """Check ``x8`` against ``ref8`` by F2's rule, ``t`` the plain hn / xs;
+    return the flips and their largest distance from a .5 in ulps."""
+    import torch
+    d = (x8.int() - ref8.int()).abs()
+    flipped = d > 0
+    n = int(flipped.sum().item())
+    dist = 0.0
+    if n:
+        t = t[flipped].abs()
+        ulp = torch.nextafter(t, torch.full_like(t, float("inf"))) - t
+        dist = ((t - (torch.floor(t) + 0.5)).abs() / ulp).max().item()
+    check(int(d.max().item()) <= 1 and n <= LN_CODE_FLIPS * x8.numel()
+          and dist <= LN_TIE_ULPS,
+          f"{label}: LN + quantize codes off by up to {int(d.max().item())}"
+          f" at {n} of {x8.numel()}, {dist} ulps from a .5")
+    return n, dist
+
+
 def phase_packed_kernels(seed: int = 17):
     """K14, K15 and K10 against their plain versions on the card. K14 in
     bf16 and fp32 at the four shapes of the sampling path's forward and the
@@ -2194,8 +2284,11 @@ def phase_packed_kernels(seed: int = 17):
     backward; K15 on bf16 q, k, v (its dynamic scales) at the sampling
     shapes, beside SDPA and K13 on the head views; K10 in both ``v_bf16``
     variants at the int8 shapes, beside K3 on the same pack (``v_bf16``) or
-    LN + K11 + the residual and bias; and a ragged T = 30 that each rule
-    sends to its fallback."""
+    LN + K11 + the residual and bias, with F2's code check (the codes of
+    the LN + quantize stage, ``ops/attention_s8.py:ln_quant_s8``, against
+    the plain ones; K10 without ``v_bf16`` also against the plain steps fed
+    those codes); and a ragged T = 30 that each rule sends to its
+    fallback."""
     import torch
     import torch.nn.functional as F
     from ldmseg_torch.ops import attention as A
@@ -2311,6 +2404,18 @@ def phase_packed_kernels(seed: int = 17):
             n1 = norm1.to(torch.bfloat16)
             out_b = pack.ln.out_b.to(torch.bfloat16)
             x = rand(shape)
+            if per:  # F2: the codes of K10's (and K3's, K4's) LN + quantize
+                ln, xs = pack.ln, pack.padded.xs
+                x8 = S8.ln_quant_s8(x, ln.ln_w, ln.ln_b, xs, ln.eps)
+                hn = S8._layer_norm(x.float(), ln.ln_w, ln.ln_b, ln.eps)
+                flips, ulps = _code_flips(
+                    f"K10 {shape}", x8,
+                    S8.ln_quant_reference(x, ln.ln_w, ln.ln_b, xs, ln.eps),
+                    hn / torch.full((), xs, device="cuda"))
+                print(f"phase 24 F2 {shape}: LN + quantize codes off by one "
+                      f"at {flips} of {x8.numel()} (<= {LN_CODE_FLIPS}), "
+                      f"{ulps:.1f} ulps from a .5 at most (<= "
+                      f"{LN_TIE_ULPS})", flush=True)
             for v_bf16, key in ((True, "K10 v_bf16"), (False, "K10 s8")):
                 def fn(v_bf16=v_bf16):
                     return S8.ln_attention_s8_rowmajor(x, pack, v_bf16)
@@ -2338,9 +2443,22 @@ def phase_packed_kernels(seed: int = 17):
                     S8.ln_attention_s8_rowmajor_reference(x, pack, v_bf16),
                     composition, bound)
                 row["v_bf16"] = v_bf16
+                row["ln_code_flips"], row["ln_flip_ulps"] = flips, ulps
                 if not v_bf16:
                     row["device_ms"], row["stages_device_ms"] = (
                         _stage_split(fn, _stages("K10")))
+                    # the plain steps fed the kernel's own codes
+                    own = S8.ln_attention_s8_rowmajor_reference(x, pack,
+                                                                False, x8)
+                    err = (out.float() - own.float()).abs()
+                    emax, rmax = err.max().item(), own.float().abs().max(
+                    ).item()
+                    check(emax <= INT8_MAX_TOL * rmax
+                          and err.mean().item() <= INT8_MEAN_TOL
+                          * own.float().abs().mean().item(),
+                          f"K10 v_bf16=False {shape} on its own codes: max "
+                          f"abs err {emax} (max|ref| {rmax})")
+                    row["own_codes_max_abs_err"] = emax
                 rows[key].append(row)
                 print(f"phase 24 K10 v_bf16={v_bf16} {shape}: err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
@@ -2353,7 +2471,9 @@ def phase_packed_kernels(seed: int = 17):
                       f"{row['bf16_block_ms']:.4f} ms"
                       + ("" if v_bf16 else
                          f"; device {_ms(row['device_ms'])}: "
-                         f"{row['stages_device_ms']}"), flush=True)
+                         f"{row['stages_device_ms']}; against the plain "
+                         f"steps on its own codes: max err "
+                         f"{row['own_codes_max_abs_err']:.3e}"), flush=True)
 
     # K14's backward: autograd through the wrapper (K14, then K2 on the
     # head views) against the plain backward; each gradient within the

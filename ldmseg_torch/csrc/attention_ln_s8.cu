@@ -346,3 +346,26 @@ extern "C" int ldmseg_attention_ln_s8_rowmajor(
                                 m_qkv, wo, x8, q8, k8, v, o, batch, t, c,
                                 heads, xs, score_scale, eps, plans, stream);
 }
+
+// The LN + quantize stage alone (s8_common.cuh:ln_quant_kernel with its LN,
+// which K3, K4, K8, K9 and K10 run first): x [rows, c] contiguous (dtype 0
+// = float32, 1 = bfloat16) -> x8 int8 [rows, c]; ln_w, ln_b fp32 [c];
+// stats fp32 [rows, 3], each row's (mu, var, r), or null. No model path
+// calls it: the tests and chip_smoke.py hold its codes against the plain
+// version's (ops/attention_s8.py:ln_quant_s8). Returns a cudaError_t.
+extern "C" int ldmseg_ln_quant_s8(int dtype, const void* x, int8_t* x8,
+                                  const float* ln_w, const float* ln_b,
+                                  float* stats, int rows, int c, float xs,
+                                  float eps, void* stream) {
+  if (rows < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_ln_quant<float>(x, x8, ln_w, ln_b, rows, c, xs, eps,
+                                  nullptr, 0, s, stats);
+  }
+  if (dtype == 1) {
+    return launch_ln_quant<__nv_bfloat16>(x, x8, ln_w, ln_b, rows, c, xs,
+                                          eps, nullptr, 0, s, stats);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

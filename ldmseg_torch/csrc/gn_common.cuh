@@ -4,19 +4,20 @@
 //
 // In NCHW the elements of one (image, group) are one contiguous span of
 // span = C/G * H * W values; span b * G + g starts at (b * G + g) * span.
-// Its statistics, in fp32:
+// Its statistics, in fp32 (span_stats):
 //   mean = sum(x) / n,  var = sum(x^2) / n - mean^2,  inv = 1 / sqrt(var +
 //   eps),  n = span;
 // then y = ((x - mean) * inv) * scale[c] + bias[c] and silu(y) = y * (1 /
 // (1 + exp(-y))). Every step is a separately rounded intrinsic (__fmul_rn,
 // __fadd_rn, ...): nvcc may not contract them into an FMA, so two kernels
-// that recompute y from x get the same bits (K6 does, twice), and the plain
-// PyTorch version, one rounding per operation, gets them too up to expf.
+// that recompute y from x get the same bits (K6's two launches do), and the
+// plain PyTorch version, one rounding per operation, gets them too up to
+// expf.
 //
-// The statistics are two steps. gn_stats_kernel: block (chunk k, span s) sums
-// kChunk elements of span s and writes its partial (sum x, sum x^2); the
-// chunks of one span are many blocks, since B * G alone (64 at batch 2) is
-// too few for 132 SMs. group_stats: a reader of span s folds its partials in
+// K5 and K6 take the sums of a span in one thread-block cluster
+// (groupnorm_silu.cu). K7 takes them in two steps: gn_stats_kernel, block
+// (chunk k, span s) sums kChunk elements of span s and writes its partial
+// (sum x, sum x^2); group_stats: a reader of span s folds its partials in
 // chunk order, so every reader gets the same mean and inv.
 
 #pragma once
@@ -91,7 +92,17 @@ __device__ __forceinline__ float gn_silu(float x, float mean, float inv,
   return __fmul_rn(y, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-y))));
 }
 
-// mean and 1 / sqrt(var + eps) of span s from its `chunks` partials
+// mean and 1 / sqrt(var + eps) of a span of n values from its sums s1 =
+// sum x and s2 = sum x^2
+__device__ __forceinline__ void span_stats(float s1, float s2, float n,
+                                           float eps, float& mean,
+                                           float& inv) {
+  mean = __fdiv_rn(s1, n);
+  const float var = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
+  inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+}
+
+// span_stats of span s from its `chunks` partials, folded in chunk order
 __device__ __forceinline__ void group_stats(const float2* __restrict__ part,
                                             int s, int chunks, float n,
                                             float eps, float& mean,
@@ -102,14 +113,12 @@ __device__ __forceinline__ void group_stats(const float2* __restrict__ part,
     s1 = __fadd_rn(s1, p.x);
     s2 = __fadd_rn(s2, p.y);
   }
-  mean = __fdiv_rn(s1, n);
-  const float var = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
-  inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  span_stats(s1, s2, n, eps, mean, inv);
 }
 
 // grid (chunks, spans): part[s * chunks + k] = (sum x, sum x^2) over chunk k
-// of span s. Block (0, 0) also zeroes `zero_words` words of `zero` (K6's
-// per-image amax), which a later kernel on the stream accumulates into.
+// of span s. Block (0, 0) also zeroes `zero_words` words of `zero` when it
+// is not null (K7 passes null).
 // kVec > 1 needs span % kVec == 0 and a 16-byte aligned x.
 template <typename T, int kVec>
 __global__ void __launch_bounds__(kThreads)

@@ -14,195 +14,375 @@
 // bytes per element. At the 44 resnet norms of one UNet forward at batch 2
 // on a 32x64 latent (~32 M elements) that is ~0.04 ms (K5) and ~0.03 ms
 // (K6) at 3.35 TB/s; the operations (an exp per element) are far below.
+// Per call the data is small (0.16-7.9 MB), so a launch's fixed cost, a
+// few microseconds, is of the order of the bytes' time: one launch per call
+// for K5 and two for K6 are what the design can reach.
 //
 // Design. The TPU kernel holds one image's whole (H, W, C) tile in VMEM and
 // takes the group sums with a [C, G] one-hot matmul, since Mosaic cannot
-// reshape across lanes. Neither carries over: in NCHW one (image, group) is
-// one contiguous span (20,480 to 61,440 elements on the 32x64 latent), and
-// B * G blocks (64 at batch 2) would leave most of the 132 SMs idle. So
-// every pass cuts each span into chunks of 4,096 elements, one block each:
-//   1. stats (gn_common.cuh): partial (sum x, sum x^2) per chunk;
-//   2. K5: apply: each block folds its span's partials in a fixed order,
-//      then normalizes, scales, shifts and applies the SiLU to its chunk,
-//      16-byte loads and stores (8 bf16 or 4 fp32 values a thread);
-//   2. K6: ymax: the same y, and the block's max |y| folded into the
-//      image's word by an integer atomicMax on the float's bits (|y| >= 0,
-//      so the bits order as the floats); pass 1 zeroed the words;
-//   3. K6: quant: the same y again (one device function, no FMA
-//      contraction: the same bits as in pass 2) and q = rint(y / s) with a
-//      true division; the first block of each image writes s.
-// The sums run in another order than on the TPU; nothing else differs.
+// reshape across lanes. In NCHW one (image, group) is one contiguous span
+// of C/G * H * W values (1,280 to 61,440 at the UNet's sites, 65,536 at the
+// 8 MiB rule's edge), and B * G spans (64 at batch 2) are too few blocks
+// for 132 SMs. So each span gets a thread-block cluster of k <= 8 CTAs of
+// 256 threads (ops/groupnorm_silu.py:sm90_gn_plan chooses k and the
+// elements per CTA; the entry points check the plan):
+//   1. each CTA loads its slice of the span once, 16 bytes a thread at a
+//      time, into registers (at most 32 values a thread: 8,192 a CTA);
+//   2. it folds (sum x, sum x^2) in a fixed order: each thread over its
+//      values in load order, the warp by a butterfly, the warps in order;
+//   3. through distributed shared memory every CTA reads the k CTAs'
+//      partials in rank order, so all of them hold the same sums and the
+//      same mean and inv (gn_common.cuh:span_stats, group_stats' formula);
+//   4. K5 applies gn_silu (gn_common.cuh) to the registers and stores: one
+//      launch, one read of x, one write, no scratch;
+//   4. K6 (launch A) computes the same y and its max |y|; the first CTA of
+//      the span stores (mean, inv) and every CTA its max in a scratch, plain
+//      stores; launch B, one 16-byte pack a thread and no clusters, takes
+//      s[b] from the image's maxima and recomputes y from x (still in L2)
+//      with the stored mean and inv through the same device function, so it
+//      gets A's bits, then q = rint(y / s) with a true division.
+// The scale and bias of a pack that lies in one channel are read with x, so
+// that no load waits behind the statistics.
+// A span larger than k * 8,192 values (fewer than 32 groups at the 8 MiB
+// edge) takes several rounds of registers and reads its slice twice; the
+// UNet's spans take one. The sums run in another order than on the TPU;
+// nothing else differs.
+
+#include <cooperative_groups.h>
 
 #include "gn_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace gn;
 
-// y of one element of span s (image b, group g) from its chunk's values;
-// scale and bias in their own dtype W (the UNet's bf16 or fp32 weights, read
-// as they are: no cast launched per call)
-template <typename T, typename W, int kVec, typename Fn>
-__device__ __forceinline__ void for_each_y(const T* __restrict__ x,
-                                           const W* __restrict__ scale,
-                                           const W* __restrict__ bias,
-                                           const float2* __restrict__ part,
-                                           int span, int chunks, int hw,
-                                           int cg, int groups, float eps,
-                                           Fn fn) {
-  const int s = blockIdx.y;
-  float mean, inv;
-  group_stats(part, s, chunks, static_cast<float>(span), eps, mean, inv);
-  const int c0 = (s % groups) * cg;
-  const long long base = static_cast<long long>(s) * span;
-  const int start = blockIdx.x * kChunk;
-  const int end = min(start + kChunk, span);
-  for (int i = start + threadIdx.x * kVec; i < end; i += kThreads * kVec) {
-    const Pack<T, kVec> p =
-        *reinterpret_cast<const Pack<T, kVec>*>(x + base + i);
-    int cl = i / hw;  // channel in the group, then the pixel
-    int r = i - cl * hw;
-    float y[kVec];
+constexpr int kValues = 32;                 // x values a thread holds
+constexpr int kRound = kThreads * kValues;  // elements a CTA holds at once
+constexpr int kMaxCluster = 8;              // CTAs of a span (portable)
+
+// ops/groupnorm_silu.py:GNPlan.fields(): 16-byte accesses (1) or scalar
+// (0), CTAs per span, elements per CTA, rounds of registers
+struct Plan {
+  int vec, k, per_cta, rounds;
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The arguments of both K6 launches and K5's
+template <typename T, typename W>
+struct Args {
+  const T* x;
+  void* out;            // K5: T [B, C, HW]; K6: int8 q
+  const W* scale;
+  const W* bias;
+  float* scratch;       // K6: (mean, inv) [spans], max |y| [spans * k], s [B]
+  int span, hw, cg, groups, spans, per_cta, rounds;
+  float eps;
+};
+
+// The y of one pack of kVec values at element i of span s. A pack that
+// lies in one channel (whole: hw % kVec == 0) takes that channel's scale
+// and bias, sc and bi, read ahead by the caller; else each value reads its
+// own.
+template <typename T, typename W, int kVec>
+__device__ __forceinline__ void pack_y(const Args<T, W>& a, int s, int i,
+                                       const Pack<T, kVec>& p, float mean,
+                                       float inv, bool whole, float sc,
+                                       float bi, float* y) {
+  if (whole) {
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      y[k] = gn_silu(to_f(p.v[k]), mean, inv, to_f(scale[c0 + cl]),
-                     to_f(bias[c0 + cl]));
-      if (++r == hw) {
-        r = 0;
-        ++cl;
+    for (int e = 0; e < kVec; ++e) {
+      y[e] = gn_silu(to_f(p.v[e]), mean, inv, sc, bi);
+    }
+    return;
+  }
+  const int c0 = (s % a.groups) * a.cg;
+  int cl = i / a.hw;  // channel in the group, then the pixel
+  int r = i - cl * a.hw;
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    y[e] = gn_silu(to_f(p.v[e]), mean, inv, to_f(a.scale[c0 + cl]),
+                   to_f(a.bias[c0 + cl]));
+    if (++r == a.hw) {
+      r = 0;
+      ++cl;
+    }
+  }
+}
+
+// the channel of element i of span s, as an index into scale and bias
+template <typename T, typename W>
+__device__ __forceinline__ int channel_of(const Args<T, W>& a, int s,
+                                          int i) {
+  return (s % a.groups) * a.cg + i / a.hw;
+}
+
+// K5, and K6's launch A: one cluster of k CTAs per span, grid spans * k.
+// A cluster of one CTA takes the block's barrier in place of the
+// cluster's.
+template <typename T, typename W, int kVec, bool kQuant>
+__global__ void __launch_bounds__(kThreads)
+    gn_cluster_kernel(const Args<T, W> a) {
+  constexpr int kIt = kValues / kVec;
+  // the packs' scale and bias are read with x when each pack lies in one
+  // channel (16-byte packs: 2 * kIt registers; the scalar path's 32
+  // values a thread read theirs as they go)
+  constexpr bool kAhead = kVec > 1;
+  __shared__ float2 part;             // this CTA's (sum x, sum x^2)
+  __shared__ float red[2][kThreads / 32];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.x / k;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
+  const T* xs = a.x + static_cast<long long>(s) * a.span;
+  const int start = rank * a.per_cta;
+  const int end = min(start + a.per_cta, a.span);
+  const bool whole = kAhead && a.hw % kVec == 0;
+
+  // 1-2. load the slice (and the packs' scale and bias) and fold its sums
+  Pack<T, kVec> v[kIt];
+  float sc[kAhead ? kIt : 1], bi[kAhead ? kIt : 1];
+  float s1 = 0.f, s2 = 0.f;
+  for (int rd = 0; rd < a.rounds; ++rd) {
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int i = start + rd * kRound + (it * kThreads + threadIdx.x) * kVec;
+      if (i < end) {
+        v[it] = *reinterpret_cast<const Pack<T, kVec>*>(xs + i);
+        if (whole && a.rounds == 1) {
+          const int ch = channel_of(a, s, i);
+          sc[kAhead ? it : 0] = to_f(a.scale[ch]);
+          bi[kAhead ? it : 0] = to_f(a.bias[ch]);
+        }
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float f = to_f(v[it].v[e]);
+          s1 = __fadd_rn(s1, f);
+          s2 = __fadd_rn(s2, __fmul_rn(f, f));
+        }
       }
     }
-    fn(base + i, y);
   }
-}
-
-// ---- K5 pass 2: normalize, affine, SiLU ------------------------------------
-template <typename T, typename W, int kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
-                    const W* __restrict__ scale,
-                    const W* __restrict__ bias,
-                    const float2* __restrict__ part, int span, int chunks,
-                    int hw, int cg, int groups, float eps) {
-  auto store = [&](long long at, const float* y) {
-    Pack<T, kVec> o;
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) o.v[k] = from_f<T>(y[k]);
-    *reinterpret_cast<Pack<T, kVec>*>(out + at) = o;
-  };
-  for_each_y<T, W, kVec>(x, scale, bias, part, span, chunks, hw, cg, groups,
-                         eps, store);
-}
-
-// ---- K6 pass 2: the per-image max |y| --------------------------------------
-template <typename T, typename W, int kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_ymax_kernel(const T* __restrict__ x, const W* __restrict__ scale,
-                   const W* __restrict__ bias,
-                   const float2* __restrict__ part,
-                   unsigned* __restrict__ amax, int span, int chunks, int hw,
-                   int cg, int groups, float eps) {
-  __shared__ float red[kThreads / 32];
-  float local = 0.f;
-  auto fold = [&](long long, const float* y) {
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) local = fmaxf(local, fabsf(y[k]));
-  };
-  for_each_y<T, W, kVec>(x, scale, bias, part, span, chunks, hw, cg, groups,
-                         eps, fold);
-  local = block_reduce<true>(local, red);
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    red[0][warp] = s1;
+    red[1][warp] = s2;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    atomicMax(amax + blockIdx.y / groups, __float_as_uint(local));
+    float t1 = 0.f, t2 = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      t1 = __fadd_rn(t1, red[0][w]);
+      t2 = __fadd_rn(t2, red[1][w]);
+    }
+    part = make_float2(t1, t2);
   }
+  // 3. the cluster's sums in rank order
+  float t1 = 0.f, t2 = 0.f;
+  if (k == 1) {
+    __syncthreads();
+    t1 = __fadd_rn(t1, part.x);
+    t2 = __fadd_rn(t2, part.y);
+  } else {
+    cluster_arrive();
+    cluster_wait();
+    float2 p[kMaxCluster];  // every rank's read in flight at once
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < k) p[q] = *cluster.map_shared_rank(&part, q);
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < k) {
+        t1 = __fadd_rn(t1, p[q].x);
+        t2 = __fadd_rn(t2, p[q].y);
+      }
+    }
+    // done with the other CTAs' `part`; the wait before the exit keeps
+    // this CTA's until every CTA of the cluster has read it
+    cluster_arrive();
+  }
+  float mean, inv;
+  span_stats(t1, t2, static_cast<float>(a.span), a.eps, mean, inv);
+
+  // 4. apply (and K6's max |y|)
+  float amax = 0.f;
+  for (int rd = 0; rd < a.rounds; ++rd) {
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int i = start + rd * kRound + (it * kThreads + threadIdx.x) * kVec;
+      if (i < end) {
+        float y[kVec];
+        if (a.rounds > 1) {  // held a round at a time: read the slice again
+          v[it] = *reinterpret_cast<const Pack<T, kVec>*>(xs + i);
+          const int ch = whole ? channel_of(a, s, i) : 0;
+          pack_y<T, W, kVec>(a, s, i, v[it], mean, inv, whole,
+                             to_f(a.scale[ch]), to_f(a.bias[ch]), y);
+        } else {
+          pack_y<T, W, kVec>(a, s, i, v[it], mean, inv, whole,
+                             sc[kAhead ? it : 0], bi[kAhead ? it : 0], y);
+        }
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) amax = fmaxf(amax, fabsf(y[e]));
+        } else {
+          Pack<T, kVec> o;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) o.v[e] = from_f<T>(y[e]);
+          *reinterpret_cast<Pack<T, kVec>*>(
+              static_cast<T*>(a.out) + static_cast<long long>(s) * a.span +
+              i) = o;
+        }
+      }
+    }
+  }
+  if constexpr (kQuant) {
+    amax = warp_max(amax);
+    __syncthreads();  // red was read above
+    if (lane == 0) red[0][warp] = amax;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, red[0][w]);
+      a.scratch[2 * a.spans + s * k + rank] = amax;
+      if (rank == 0) {
+        reinterpret_cast<float2*>(a.scratch)[s] = make_float2(mean, inv);
+      }
+    }
+  }
+  if (k > 1) cluster_wait();
 }
 
-// ---- K6 pass 3: quantize with the image's scale ----------------------------
+// K6's launch B: one pack of kVec elements a thread, grid
+// (packs of a span / kThreads, spans), no clusters: x's pack and the
+// span's (mean, inv) are read with the image's maxima, then s[b] and the
+// codes
 template <typename T, typename W, int kVec>
 __global__ void __launch_bounds__(kThreads)
-    gn_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                    float* __restrict__ s_out, const W* __restrict__ scale,
-                    const W* __restrict__ bias,
-                    const float2* __restrict__ part,
-                    const unsigned* __restrict__ amax, int span, int chunks,
-                    int hw, int cg, int groups, float eps) {
-  const int b = blockIdx.y / groups;
-  const float s = __fdiv_rn(fmaxf(__uint_as_float(amax[b]), 1e-6f), 127.f);
-  if (blockIdx.x == 0 && blockIdx.y % groups == 0 && threadIdx.x == 0) {
-    s_out[b] = s;
-  }
-  auto quantize = [&](long long at, const float* y) {
-    Pack<int8_t, kVec> o;
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      o.v[k] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(y[k], s)));
+    gn_quant_kernel(const Args<T, W> a, int k) {
+  __shared__ float red[kThreads / 32];
+  const int s = blockIdx.y;
+  const int b = s / a.groups;
+  const int i = (blockIdx.x * kThreads + threadIdx.x) * kVec;
+  Pack<T, kVec> p{};
+  float sc = 0.f, bi = 0.f;
+  const bool whole = kVec > 1 && a.hw % kVec == 0;
+  if (i < a.span) {
+    p = *reinterpret_cast<const Pack<T, kVec>*>(
+        a.x + static_cast<long long>(s) * a.span + i);
+    if (whole) {
+      const int ch = channel_of(a, s, i);
+      sc = to_f(a.scale[ch]);
+      bi = to_f(a.bias[ch]);
     }
-    *reinterpret_cast<Pack<int8_t, kVec>*>(q + at) = o;
-  };
-  for_each_y<T, W, kVec>(x, scale, bias, part, span, chunks, hw, cg, groups,
-                         eps, quantize);
+  }
+  const float2 mi = reinterpret_cast<const float2*>(a.scratch)[s];
+  const float* maxima = a.scratch + 2 * a.spans + b * a.groups * k;
+  float m = 0.f;
+  for (int j = threadIdx.x; j < a.groups * k; j += kThreads) {
+    m = fmaxf(m, maxima[j]);
+  }
+  m = block_reduce<true>(m, red);
+  const float scale = __fdiv_rn(fmaxf(m, 1e-6f), 127.f);
+  if (blockIdx.x == 0 && s % a.groups == 0 && threadIdx.x == 0) {
+    a.scratch[2 * a.spans + a.spans * k + b] = scale;
+  }
+  if (i >= a.span) return;
+  float y[kVec];
+  pack_y<T, W, kVec>(a, s, i, p, mi.x, mi.y, whole, sc, bi, y);
+  Pack<int8_t, kVec> o;
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    o.v[e] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(y[e], scale)));
+  }
+  *reinterpret_cast<Pack<int8_t, kVec>*>(
+      static_cast<int8_t*>(a.out) + static_cast<long long>(s) * a.span + i) =
+      o;
 }
 
-template <typename T, typename W, int kVec>
-int launch(const T* x, void* out, float* s_out, const W* scale,
-           const W* bias, float2* part, unsigned* amax, int batch, int c,
-           int hw, int groups, float eps, bool quantize, cudaStream_t stream) {
-  const int cg = c / groups;
-  const int span = cg * hw;
-  const int spans = batch * groups;
-  const int chunks = num_chunks(span);
-  int err = launch_stats<T>(x, part, spans, span, quantize ? amax : nullptr,
-                            batch, kVec > 1, stream);
-  if (err != 0) return err;
-  const dim3 grid(chunks, spans);
-  if (!quantize) {
-    gn_apply_kernel<T, W, kVec><<<grid, kThreads, 0, stream>>>(
-        x, static_cast<T*>(out), scale, bias, part, span, chunks, hw, cg,
-        groups, eps);
-    return static_cast<int>(cudaGetLastError());
+template <typename T, typename W, int kVec, bool kQuant>
+int launch(const Args<T, W>& a, int k, cudaStream_t stream) {
+  int err = 0;
+  if (k == 1) {  // a cluster of one: a plain launch
+    gn_cluster_kernel<T, W, kVec, kQuant><<<a.spans, kThreads, 0, stream>>>(
+        a);
+    err = static_cast<int>(cudaGetLastError());
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.spans * k);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = static_cast<int>(
+        cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T, W, kVec, kQuant>, a));
   }
-  gn_ymax_kernel<T, W, kVec><<<grid, kThreads, 0, stream>>>(
-      x, scale, bias, part, amax, span, chunks, hw, cg, groups, eps);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  gn_quant_kernel<T, W, kVec><<<grid, kThreads, 0, stream>>>(
-      x, static_cast<int8_t*>(out), s_out, scale, bias, part, amax, span,
-      chunks, hw, cg, groups, eps);
+  if (err != 0 || !kQuant) return err;
+  const dim3 grid((a.span / kVec + kThreads - 1) / kThreads, a.spans);
+  gn_quant_kernel<T, W, kVec><<<grid, kThreads, 0, stream>>>(a, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename W>
-int dispatch(const void* x, void* out, float* s_out, const void* scale,
-             const void* bias, float2* part, unsigned* amax, int batch,
-             int c, int hw, int groups, float eps, int vec, bool quantize,
-             cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const W* sc = static_cast<const W*>(scale);
-  const W* bi = static_cast<const W*>(bias);
-  if (vec) {
-    return launch<T, W, 16 / sizeof(T)>(xt, out, s_out, sc, bi, part, amax,
-                                        batch, c, hw, groups, eps, quantize,
-                                        stream);
-  }
-  return launch<T, W, 1>(xt, out, s_out, sc, bi, part, amax, batch, c, hw,
-                         groups, eps, quantize, stream);
+// the plan is what the kernels take: every CTA of a span non-empty and the
+// CTAs tiling it, the slices whole vectors, the rounds covering a slice
+bool plan_ok(const Plan& p, int span, int vec) {
+  const long long per = p.per_cta;
+  return p.k >= 1 && p.k <= kMaxCluster && per >= 1 && per % vec == 0 &&
+         (p.k - 1) * per < span && p.k * per >= span && p.rounds >= 1 &&
+         static_cast<long long>(p.rounds) * kRound >= per &&
+         static_cast<long long>(p.rounds - 1) * kRound < per;
 }
 
-int run(int dtype, int wdtype, const void* x, void* out, float* s_out,
-        const void* scale, const void* bias, float2* part, unsigned* amax,
-        int batch, int c, int hw, int groups, float eps, int vec,
-        bool quantize, void* stream) {
+template <typename T, typename W, bool kQuant>
+int dispatch(const void* x, void* out, float* scratch, const void* scale,
+             const void* bias, int batch, int c, int hw, int groups,
+             float eps, const Plan& p, cudaStream_t stream) {
+  const int cg = c / groups;
+  const Args<T, W> a{static_cast<const T*>(x), out,
+                     static_cast<const W*>(scale),
+                     static_cast<const W*>(bias), scratch, cg * hw, hw, cg,
+                     groups, batch * groups, p.per_cta, p.rounds, eps};
+  constexpr int kV = 16 / sizeof(T);
+  if ((p.vec != 0 && p.vec != 1) ||
+      !plan_ok(p, a.span, p.vec ? kV : 1) ||
+      (p.vec && a.span % kV != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return p.vec ? launch<T, W, kV, kQuant>(a, p.k, stream)
+               : launch<T, W, 1, kQuant>(a, p.k, stream);
+}
+
+template <bool kQuant>
+int run(int dtype, int wdtype, const void* x, void* out, float* scratch,
+        const void* scale, const void* bias, int batch, int c, int hw,
+        int groups, float eps, const int* plan, void* stream) {
   if (batch < 1 || c < 1 || hw < 1 || groups < 1 || c % groups != 0 ||
       batch * groups > 65535 ||
       static_cast<long long>(c / groups) * hw > (1ll << 30) || dtype < 0 ||
-      dtype > 1 || wdtype < 0 || wdtype > 1) {
+      dtype > 1 || wdtype < 0 || wdtype > 1 || plan == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Plan p{plan[0], plan[1], plan[2], plan[3]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   auto go = [&](auto t, auto w) {
-    return dispatch<decltype(t), decltype(w)>(x, out, s_out, scale, bias,
-                                              part, amax, batch, c, hw,
-                                              groups, eps, vec, quantize, s);
+    return dispatch<decltype(t), decltype(w), kQuant>(
+        x, out, scratch, scale, bias, batch, c, hw, groups, eps, p, s);
   };
   if (dtype == 0) {
     return wdtype == 0 ? go(float{}, float{}) : go(float{}, bf16{});
@@ -212,30 +392,28 @@ int run(int dtype, int wdtype, const void* x, void* out, float* s_out,
 
 }  // namespace
 
-// dtype of x and wdtype of scale and bias: 0 = float32, 1 = bfloat16. x and
-// out [batch, c, hw] contiguous, out in x's dtype; scale, bias [c]; part
-// fp32 scratch of 2 * batch * groups * chunks words (chunks = ceil(c /
-// groups * hw / 4096)). vec = 1 takes 16-byte accesses: it needs c / groups
-// * hw to be a multiple of 16 / sizeof(x) and 16-byte aligned x and out.
-// Returns a cudaError_t.
+// K5. dtype of x and wdtype of scale and bias: 0 = float32, 1 = bfloat16. x
+// and out [batch, c, hw] contiguous, out in x's dtype; scale, bias [c].
+// plan: the four ints of ops/groupnorm_silu.py:sm90_gn_plan; its 16-byte
+// accesses (plan[0] = 1) need c / groups * hw to be a multiple of 16 /
+// sizeof(x) and 16-byte aligned x and out. Returns a cudaError_t.
 extern "C" int ldmseg_group_norm_silu(int dtype, int wdtype, const void* x,
                                       void* out, const void* scale,
-                                      const void* bias, float* part,
-                                      int batch, int c, int hw, int groups,
-                                      float eps, int vec, void* stream) {
-  return run(dtype, wdtype, x, out, nullptr, scale, bias,
-             reinterpret_cast<float2*>(part), nullptr, batch, c, hw, groups,
-             eps, vec, false, stream);
+                                      const void* bias, int batch, int c,
+                                      int hw, int groups, float eps,
+                                      const int* plan, void* stream) {
+  return run<false>(dtype, wdtype, x, out, nullptr, scale, bias, batch, c,
+                    hw, groups, eps, plan, stream);
 }
 
-// K6: the arguments of ldmseg_group_norm_silu with q int8 [batch, c, hw], s
-// fp32 [batch] and amax, a scratch of batch words; vec = 1 also needs an
-// 8-byte (bf16) or 4-byte (fp32) aligned q.
+// K6: the arguments of ldmseg_group_norm_silu with q int8 [batch, c, hw]
+// and scratch fp32 of 2 * spans + spans * k + batch words (spans = batch *
+// groups, k = plan[1]), whose last batch words receive s; 16-byte accesses
+// also need an 8-byte (bf16) or 4-byte (fp32) aligned q.
 extern "C" int ldmseg_group_norm_silu_quant(
-    int dtype, int wdtype, const void* x, int8_t* q, float* s,
-    const void* scale, const void* bias, float* part, unsigned* amax,
-    int batch, int c, int hw, int groups, float eps, int vec, void* stream) {
-  return run(dtype, wdtype, x, q, s, scale, bias,
-             reinterpret_cast<float2*>(part), amax, batch, c, hw, groups, eps,
-             vec, true, stream);
+    int dtype, int wdtype, const void* x, int8_t* q, float* scratch,
+    const void* scale, const void* bias, int batch, int c, int hw, int groups,
+    float eps, const int* plan, void* stream) {
+  return run<true>(dtype, wdtype, x, q, scratch, scale, bias, batch, c, hw,
+                   groups, eps, plan, stream);
 }

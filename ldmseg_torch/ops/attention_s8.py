@@ -185,6 +185,67 @@ def _layer_norm(xf, w, b, eps):
     return xc * torch.rsqrt(var + eps) * w + b
 
 
+def ln_quant_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       xs: float, eps: float) -> torch.Tensor:
+    """The int8 blocks' LN + quantize stage in plain PyTorch: x8 =
+    ``clip(rint(_layer_norm(float(x)) / xs))``, a true division."""
+    hn = _layer_norm(x.float(), w, b, eps)
+    return quantize_s8(hn, torch.tensor(xs, device=x.device))
+
+
+@functools.cache
+def _ln_quant_kernel():
+    fn = _build.load("attention_ln_s8").ldmseg_ln_quant_s8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ln_quant_s8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                xs: float, eps: float, stats: bool = False):
+    """The LN + quantize stage that K3, K4, K8, K9 and K10 run first
+    (``csrc/s8_common.cuh:ln_quant_kernel``), alone: ``x [..., C]`` -> x8
+    int8 of its shape; with ``stats`` also each row's ``(mu, var, r)`` fp32
+    ``[rows, 3]``. An op: no model path calls it; the tests and
+    ``chip_smoke.py`` hold its codes against :func:`ln_quant_reference`. A
+    CPU tensor takes that plain version (its statistics with ``stats``), a
+    CUDA tensor the kernel (counted in ``ln_quant_s8.launches``)."""
+    c = x.shape[-1]
+    if x.device.type == "cpu":
+        x8 = ln_quant_reference(x, w, b, xs, eps)
+        if not stats:
+            return x8
+        xf = x.float().reshape(-1, c)
+        mu = xf.mean(-1)
+        var = ((xf - mu[:, None]) ** 2).mean(-1)
+        return x8, torch.stack([mu, var, torch.rsqrt(var + eps)], -1)
+    if x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(f"ln_quant_s8: x must be contiguous float32 or "
+                         f"bfloat16, got {x.dtype}")
+    if any(t.dtype != torch.float32 or t.shape != (c,) or t.device !=
+           x.device or not t.is_contiguous() for t in (w, b)):
+        raise ValueError(f"ln_quant_s8: w and b must be fp32 [{c}] on x's "
+                         f"device")
+    rows = x.numel() // c
+    x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    st = (torch.empty((rows, 3), dtype=torch.float32, device=x.device)
+          if stats else None)
+    with torch.cuda.device(x.device):
+        err = _ln_quant_kernel()(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), x8.data_ptr(), w.data_ptr(),
+            b.data_ptr(), None if st is None else st.data_ptr(), rows, c, xs,
+            eps, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ln_quant_s8 launch failed: CUDA error {err}")
+    ln_quant_s8.launches += 1
+    return (x8, st) if stats else x8
+
+
+ln_quant_s8.launches = 0
+
+
 def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
                               static_offset: Optional[float] = None
                               ) -> torch.Tensor:
@@ -199,8 +260,7 @@ def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
     h = p.heads
     d = c // h
     xf = x.float()
-    hn = _layer_norm(xf, p.ln_w, p.ln_b, p.eps)
-    x8 = torch.round(hn / p.xs).clamp_(-127, 127).to(torch.int8)
+    x8 = ln_quant_reference(xf, p.ln_w, p.ln_b, p.xs, p.eps)
     y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3C]
     q8, k8 = (torch.round(y[..., i * c:(i + 1) * c]).clamp_(-127, 127)
               .to(torch.int8) for i in range(2))
@@ -1063,18 +1123,21 @@ def pack_ln_attention_rowmajor(norm, attn, heads: int, xs: float,
 
 
 def ln_attention_s8_rowmajor_reference(x: torch.Tensor, p: LNRowMajorPack,
-                                       v_bf16: bool = True) -> torch.Tensor:
+                                       v_bf16: bool = True,
+                                       x8: Optional[torch.Tensor] = None
+                                       ) -> torch.Tensor:
     """K10's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16). With
     ``v_bf16`` it is K3's (:func:`ln_attention_s8_reference`: the TPU kernel
-    subtracts the row max, :768). Without it: the LN and quantize of K3,
+    subtracts the row max, :768). Without it: the LN and quantize of K3
+    (or the codes ``x8`` given, to run the later steps on a kernel's own),
     K11's int8 projections, e8 attention and ``of8``, and ``bf16((float(x)
     + float(of8·Wo8)·(as·max(wos))) + b_out)``."""
     if v_bf16:
         return ln_attention_s8_reference(x, p.ln)
     ln = p.ln
     xf = x.float()
-    hn = _layer_norm(xf, ln.ln_w, ln.ln_b, ln.eps)
-    x8 = quantize_s8(hn, torch.tensor(p.padded.xs, device=x.device))
+    if x8 is None:
+        x8 = ln_quant_reference(xf, ln.ln_w, ln.ln_b, p.padded.xs, ln.eps)
     out = _padded_core(x8, p.padded).float() * p.padded.out_scale
     return ((xf + out) + ln.out_b).to(torch.bfloat16)
 

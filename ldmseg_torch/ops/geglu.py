@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .attention_s8 import _layer_norm
+from .attention_s8 import _layer_norm, quantize_s8
 from .gemm import gemm_takes, plans_c, sm90_gemm_plan
 from .quant import exact_int8_matmul, f32, quantize_weight
 
@@ -127,7 +127,7 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_interior(hn, p: GegluPack):
-    x8 = torch.round(hn / p.xs).clamp_(-127, 127).to(torch.int8)
+    x8 = quantize_s8(hn, torch.tensor(p.xs, device=hn.device))
     m = p.w2.shape[1]
     u = exact_int8_matmul(x8, p.w1).float() * (p.xs * p.s1) + p.b1
     return u[..., :m], u[..., m:]

@@ -16,11 +16,17 @@ take raises) and a CPU tensor to the kernel's plain PyTorch version
 to :func:`gn_silu_reference` (the centred variance), counted in
 ``.fallbacks``. K5 is differentiable: its backward recomputes through
 :func:`gn_silu_reference`, as the JAX ``_bwd``; K6 is inference only.
+
+On the card each (image, group) span gets a thread-block cluster of up to
+eight CTAs that holds it in registers (:func:`sm90_gn_plan`): K5 is one
+launch, K6 two (the second takes the image's scale from the first's
+per-CTA maxima and writes the codes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Tuple
@@ -31,8 +37,12 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_TILE_BYTES = 8 * 1024 * 1024
-CHUNK = 4096  # elements of one (image, group) span per block (gn_common.cuh)
+CHUNK = 4096  # elements of one span per block of K7's statistics pass
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K5's and K6's clusters (csrc/groupnorm_silu.cu)
+THREADS = 256            # threads of a CTA
+VALUES = 32              # x values a thread holds in registers
+MAX_CLUSTER = 8          # CTAs of one span: the portable cluster size
 
 
 def _image_numel(x: torch.Tensor) -> int:
@@ -109,13 +119,74 @@ def group_norm_silu_quant_fallback(x, scale, bias, groups: int = 32,
     return _quantize(gn_silu_reference(x, scale, bias, groups, eps).float())
 
 
+@dataclasses.dataclass(frozen=True)
+class GNPlan:
+    """How K5 and K6 cover ``spans`` (image, group) spans of ``span``
+    elements: a cluster of ``cluster`` CTAs per span, ``per_cta`` elements
+    a CTA (whole ``vec``-element 16-byte accesses, or ``vec`` 1: scalar),
+    held in registers over ``rounds`` rounds of ``THREADS · VALUES``."""
+
+    span: int
+    spans: int
+    vec: int
+    cluster: int
+    per_cta: int
+    rounds: int
+
+    def fields(self) -> tuple:
+        """The four ints the C entry points read (``groupnorm_silu.cu``'s
+        ``Plan``)."""
+        return (int(self.vec > 1), self.cluster, self.per_cta, self.rounds)
+
+    @property
+    def ctas(self) -> int:
+        return self.spans * self.cluster
+
+    def k6_scratch_words(self, batch: int) -> int:
+        """K6's fp32 scratch: ``(mean, inv)`` per span, the max |y| per
+        CTA, and ``s`` per image, in that order."""
+        return 2 * self.spans + self.ctas + batch
+
+
+def sm90_gn_plan(b: int, c: int, hw: int, groups: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 aligned: bool = True) -> GNPlan:
+    """K5's and K6's launch for ``x [b, c, hw]``: the fewest CTAs per span
+    whose registers hold it (``VALUES`` a thread), at most ``MAX_CLUSTER``
+    (a larger span takes rounds), the span cut into slices of whole
+    16-byte accesses, every one non-empty. ``aligned``: x's base allows
+    16-byte accesses (the spans' length decides the rest)."""
+    if c % groups:
+        raise ValueError(f"C={c} does not divide into {groups} groups")
+    esize = dtype.itemsize
+    span = c // groups * hw
+    spans = b * groups
+    vec = 16 // esize if aligned and span * esize % 16 == 0 else 1
+    held = THREADS * VALUES
+    k = max(1, min(-(-span // held), MAX_CLUSTER))
+    while True:
+        per_cta = -(-span // k)
+        per_cta = -(-per_cta // vec) * vec
+        if k == 1 or (k - 1) * per_cta < span:
+            break
+        k -= 1
+    return GNPlan(span=span, spans=spans, vec=vec, cluster=k,
+                  per_cta=per_cta, rounds=-(-per_cta // held))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_c(b, c, hw, groups, dtype, aligned):
+    plan = sm90_gn_plan(b, c, hw, groups, dtype, aligned)
+    return plan, (ctypes.c_int * 4)(*plan.fields())
+
+
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("groupnorm_silu"), entry)
-    pointers = 5 if entry == "ldmseg_group_norm_silu" else 7  # K5, K6
+    pointers = 4 if entry == "ldmseg_group_norm_silu" else 5  # K5, K6
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * pointers
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p])
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -154,39 +225,48 @@ def vectorizes(x: torch.Tensor, groups: int) -> bool:
         and x.data_ptr() % 16 == 0
 
 
+def _affine_operands(name, x, scale, bias):
+    """Scale and shift as the kernels read them: bf16 or fp32, one dtype,
+    contiguous, on x's device; taken as they are when they already are."""
+    c = x.shape[1]
+    if scale.dtype != bias.dtype or scale.dtype not in _DTYPE_CODE:
+        scale, bias = scale.float(), bias.float()
+    if not (scale.is_contiguous() and bias.is_contiguous()):
+        scale, bias = scale.contiguous(), bias.contiguous()
+    if scale.device != x.device or bias.device != x.device \
+            or scale.numel() != c or bias.numel() != c:
+        raise ValueError(f"{name}: scale and bias must be [{c}] on x's "
+                         f"device")
+    return scale, bias
+
+
 def _launch(x, scale, bias, groups, eps, quantize: bool):
     name = "K6" if quantize else "K5"
     check_kernel_input(name, x, groups)
     b, c, h, w = x.shape
-    # the kernels read scale and shift in bf16 or fp32 as they are
-    sc, bi = scale.detach(), bias.detach()
-    if sc.dtype != bi.dtype or sc.dtype not in _DTYPE_CODE:
-        sc, bi = sc.float(), bi.float()
-    sc, bi = sc.contiguous(), bi.contiguous()
-    if sc.device != x.device or bi.device != x.device or sc.numel() != c \
-            or bi.numel() != c:
-        raise ValueError(f"{name}: scale and bias must be [{c}] on x's "
-                         f"device")
-    part = stats_scratch(x, groups)
-    vec = int(vectorizes(x, groups))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if quantize:
-            q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-            s = torch.empty(b, dtype=torch.float32, device=x.device)
-            amax = torch.empty(b, dtype=torch.int32, device=x.device)
-            err = _kernel("ldmseg_group_norm_silu_quant")(
-                _DTYPE_CODE[x.dtype], _DTYPE_CODE[sc.dtype], x.data_ptr(),
-                q.data_ptr(), s.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-                part.data_ptr(), amax.data_ptr(), b, c, h * w, groups, eps,
-                vec, stream)
-            out = (q, s)
-        else:
-            out = torch.empty_like(x)
-            err = _kernel("ldmseg_group_norm_silu")(
-                _DTYPE_CODE[x.dtype], _DTYPE_CODE[sc.dtype], x.data_ptr(),
-                out.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-                part.data_ptr(), b, c, h * w, groups, eps, vec, stream)
+    sc, bi = _affine_operands(name, x, scale, bias)
+    dev = x.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(x, scale, bias, groups, eps, quantize)
+    codes = (_DTYPE_CODE[x.dtype], _DTYPE_CODE[sc.dtype])
+    plan, plan_c = _plan_c(b, c, h * w, groups, x.dtype,
+                           x.data_ptr() % 16 == 0)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if quantize:
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        scratch = torch.empty(plan.k6_scratch_words(b), dtype=torch.float32,
+                              device=x.device)
+        err = _kernel("ldmseg_group_norm_silu_quant")(
+            *codes, x.data_ptr(), q.data_ptr(), scratch.data_ptr(),
+            sc.data_ptr(), bi.data_ptr(), b, c, h * w, groups, eps, plan_c,
+            stream)
+        out = (q, scratch[-b:])
+    else:
+        out = torch.empty_like(x)
+        err = _kernel("ldmseg_group_norm_silu")(
+            *codes, x.data_ptr(), out.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), b, c, h * w, groups, eps, plan_c, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
@@ -249,7 +329,6 @@ group_norm_silu.launches = 0
 group_norm_silu.fallbacks = 0
 
 
-@torch.no_grad()
 def group_norm_silu_quant(x: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, groups: int = 32,
                           eps: float = 1e-5,
@@ -261,9 +340,12 @@ def group_norm_silu_quant(x: torch.Tensor, scale: torch.Tensor,
     ``group_norm_silu_quant.fallbacks``. Inference only: no gradient."""
     if not takes_kernel(x, max_tile_bytes):
         group_norm_silu_quant.fallbacks += 1
-        return group_norm_silu_quant_fallback(x, scale, bias, groups, eps)
+        with torch.no_grad():
+            return group_norm_silu_quant_fallback(x, scale, bias, groups, eps)
     if x.device.type == "cpu":
-        return group_norm_silu_quant_reference(x, scale, bias, groups, eps)
+        with torch.no_grad():
+            return group_norm_silu_quant_reference(x, scale, bias, groups,
+                                                   eps)
     if x.device.type != "cuda":
         raise ValueError(f"K6: unsupported device {x.device}")
     out = _launch(x, scale, bias, groups, eps, quantize=True)

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 FAMILIES = (  # first match wins
-    ("K5/K6 groupnorm_silu", r"gn_(stats|apply|ymax|quant)_kernel"),
+    ("K5/K6 groupnorm_silu", r"gn_(cluster|stats|apply|ymax|quant)_kernel"),
     ("K7 gn_silu_conv", r"gn_conv_kernel"),
     ("K1/K14/K16 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),

@@ -599,7 +599,8 @@ def test_k8_k9_k11_wrappers_raise_instead_of_falling_back(cuda):
 # the GroupNorm + SiLU slice's modules (K5, K6, K7), one case each
 GN_MODULES = ["ops.groupnorm_silu", "ops.gn_silu_conv", "ops.quant",
               "models.layers", "models.unet", "tools.profile_sampling",
-              "tools.profile_training"]
+              "tools.profile_training", "tools.profile_gn",
+              "tools.ablate_gn"]
 
 
 @pytest.mark.parametrize("module", GN_MODULES)
