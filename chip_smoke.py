@@ -85,9 +85,11 @@ Phases, one line each:
      (variant (a)'s flags with ``use_padded_attention``, filled from the
      same masters) against their plain versions at the four shapes of a
      forward, with times, the bound and the PyTorch composition each
-     replaces, K11's device time by stage (quantize, the Q/K and V
-     products, the attention, to_out), and a ragged T = 30 that the rule
-     sends to each fallback;
+     replaces, K8's and K11's device time by stage (K8: the ``proj_in``
+     prologue and K3's four; K11: quantize, the Q/K and V products, the
+     attention, to_out; a kernel outside the stages fails), K8's prologue
+     alone against ``torch.matmul`` in fp32 with x channel-major and as
+     tokens, and a ragged T = 30 that the rule sends to each fallback;
   20. the int8 UNet with fused projs against the bf16 one: 16 K8, 16 K9,
      0 K1, K3 and K4, no fallback, correlation, ms per forward beside phase
      8's int8 UNet;
@@ -128,7 +130,9 @@ Phases, one line each:
      with times, the bound and the yardstick (F.linear x 3 + SDPA +
      F.linear and its backward for K16; the same in bf16 and float
      projections + K13 for K17 and K18), K16's device time (all its
-     launches, and its attention stage alone), K2's in its backward and
+     launches, its attention stage alone and, in bf16, by stage: the Q/K/V
+     product, the attention, to_out; a kernel outside the stages fails),
+     K2's in its backward and
      SDPA's from ``torch.profiler``, K17's and K18's device time by stage
      (quantize, projection, the code pass, attention, per-head to_out),
      and a ragged T = 30 that the rule sends to each fallback;
@@ -2023,6 +2027,29 @@ def _fallback_row(name, shape, fn, wrapper):
             "fallback": True, "ms": time_ms(fn, iters=5, warmup=1)}
 
 
+def _proj_in_check(xg, p8):
+    """K8's prologue alone (``ops/attention_s8.py:proj_in_f32``) on the
+    GroupNorm's tokens view ``xg`` (read channel-major) and on the same
+    tokens made contiguous, against ``x·Wpiᵀ + b_pi`` by ``torch.matmul``
+    in fp32 (TF32 off): within FP32_ATOL of max|ref| (the sums in another
+    order; the bf16 products are exact in fp32). Returns the larger
+    error relative to max|ref|."""
+    import torch
+    from ldmseg_torch.ops import attention_s8 as S8
+    b, t, c = xg.shape
+    ref = (torch.matmul(xg.float().reshape(b * t, c), p8.wpi.float().t())
+           + p8.bpi)
+    rmax = ref.abs().max().item()
+    worst = 0.0
+    for layout, x in (("channel-major", xg), ("tokens", xg.contiguous())):
+        err = (S8.proj_in_f32(x, p8) - ref).abs().max().item()
+        check(math.isfinite(err) and err <= FP32_ATOL * rmax,
+              f"K8 prologue ({layout}) {tuple(xg.shape)}: max abs err {err} "
+              f"> {FP32_ATOL} x max|ref| {rmax}")
+        worst = max(worst, err / rmax)
+    return worst
+
+
 def phase_padded_kernels(trainer, seed: int = 13):
     """K8, K9 and K11 against their plain versions on the card with the
     UNet's own weights (the fused-projs int8 UNet's packs for K8 and K9,
@@ -2107,9 +2134,11 @@ def phase_padded_kernels(trainer, seed: int = 13):
                                 comp, bound)
                 if kid == "K11":
                     row["k13_block_ms"] = time_ms(lambda: k13(xs))
-                    if per_fwd:
-                        row["device_ms"], row["stages_device_ms"] = (
-                            _stage_split(fn, _stages("K11")))
+                if kid in ("K8", "K11"):
+                    row["device_ms"], row["stages_device_ms"] = (
+                        _stage_split(fn, _stages(kid)))
+                if kid == "K8":
+                    row["proj_in_max_abs_err"] = _proj_in_check(xg, p8)
                 rows[kid].append(row)
                 print(f"phase 19 {kid} {shape} ({site}): err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
@@ -2120,10 +2149,15 @@ def phase_padded_kernels(trainer, seed: int = 13):
                       f" ms ({row['bound_by']}), composition "
                       f"{row['bf16_block_ms']:.4f} ms"
                       + (f", float projections + K13 "
-                         f"{row['k13_block_ms']:.4f} ms; device "
-                         f"{_ms(row.get('device_ms'))}: "
+                         f"{row['k13_block_ms']:.4f} ms"
+                         if kid == "K11" else "")
+                      + (f"; device {_ms(row.get('device_ms'))}: "
                          f"{row.get('stages_device_ms')}"
-                         if kid == "K11" else ""), flush=True)
+                         if kid in ("K8", "K11") else "")
+                      + (f"; the prologue alone against torch.matmul (fp32)"
+                         f", tokens and channel-major: max abs err "
+                         f"{row['proj_in_max_abs_err']}"
+                         if kid == "K8" else ""), flush=True)
     for kid, rs in rows.items():
         fb = [r for r in rs if r.get("fallback")]
         print(f"phase 19 {kid} T={RAGGED_T}: the rule's fallback, "
@@ -2822,6 +2856,17 @@ def phase_absorbed_kernels(seed: int = 19):
                         x, *ws, 8, scale)
                     dev_ms = device_ms(k16, ALL_KERNELS, K1_KERNEL)
                     attn_dev_ms = device_ms(k16, K1_KERNEL)
+                    # bf16: the device time by stage (the Q/K/V product,
+                    # the attention, to_out); fails if another kernel
+                    # (the wmma product it left) runs in the call
+                    stages = (_stage_split(k16, _stages("K16"))[1]
+                              if dtype == torch.bfloat16 else None)
+                    # the products' library yardstick: F.linear x 4
+                    # (cuBLAS), device time
+                    lin_dev_ms = (device_ms(
+                        lambda: [F.linear(x, w) for w in ws], ALL_KERNELS,
+                        whole_call=True) if dtype == torch.bfloat16
+                        else None)
                     qt = (x.unflatten(-1, (8, c // 8)).transpose(1, 2)
                           .contiguous())
                     lib_dev_ms = device_ms(
@@ -2835,6 +2880,8 @@ def phase_absorbed_kernels(seed: int = 19):
                         else 0, "max_abs_err": err, "max_abs_ref": rmax,
                         "ms": ms, "device_ms": dev_ms,
                         "attention_device_ms": attn_dev_ms,
+                        "stages_device_ms": stages,
+                        "linear_x4_device_ms": lin_dev_ms,
                         "plain_ms": plain_ms, "library_ms": None,
                         "library_device_ms": lib_dev_ms,
                         "composition_ms": comp_ms, "bound_ms": bound,
@@ -2842,7 +2889,9 @@ def phase_absorbed_kernels(seed: int = 19):
                     print(f"phase 29 {group} {shape} {dname}: err {err:.3e} "
                           f"(tol {tol} x max|ref| {rmax:.3e}), kernel "
                           f"{ms:.4f} ms (device {_ms(dev_ms)}, attention "
-                          f"stage {_ms(attn_dev_ms)}), plain {plain_ms:.4f} "
+                          f"stage {_ms(attn_dev_ms)}; by stage {stages}; "
+                          f"F.linear x 4 (device) {_ms(lin_dev_ms)}), "
+                          f"plain {plain_ms:.4f} "
                           f"ms, F.linear x3 + sdpa + F.linear {comp_ms:.4f} "
                           f"ms, sdpa (device) {_ms(lib_dev_ms)}, bound "
                           f"{bound:.4f} ms ({by})", flush=True)
@@ -3175,6 +3224,13 @@ def k16_entry(rows, launches, by_path):
         out["composition_ms"] = sum(r["composition_ms"] * r[per_key]
                                     for r in main)
         out["library_ms"] = None
+        if all(r.get("stages_device_ms") for r in main):
+            out["stages_device_ms"] = {
+                k: sum(r["stages_device_ms"][k] * r[per_key] for r in main)
+                for k in main[0]["stages_device_ms"]}
+        if all(r.get("linear_x4_device_ms") is not None for r in main):
+            out["linear_x4_device_ms"] = sum(
+                r["linear_x4_device_ms"] * r[per_key] for r in main)
         return out
     return {
         "name": "attention_absorbed", "id": "K16", "route": "cuda",
@@ -3185,7 +3241,10 @@ def k16_entry(rows, launches, by_path):
         "launches": launches, "launches_by_path": by_path, "checked": True,
         **unit("K16", "per_unet_forward"),
         "library_note": "no single PyTorch call computes this function; "
-                        "composition_ms is F.linear x 3 + SDPA + F.linear",
+                        "composition_ms is F.linear x 3 + SDPA + F.linear, "
+                        "linear_x4_device_ms the device time of its four "
+                        "F.linear (cuBLAS), the yardstick of the qkv and "
+                        "to_out stages",
         "unit": "one UNet forward (16 launches, bf16, batch 2, 32x64 latent)",
         "shapes": rows["K16"],
         "training_forward": {**unit("K16 training", "per_unet_forward"),

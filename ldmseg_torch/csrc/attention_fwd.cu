@@ -55,7 +55,7 @@
 #include <type_traits>
 
 #include "attention_sm90.cuh"
-#include "s8_common.cuh"  // bf16_gemm_kernel (K16's projections)
+#include "gemm_sm90.cuh"  // K16's projections
 #include "sm90.cuh"
 
 namespace {
@@ -272,16 +272,20 @@ struct K1Kernel {
   }
 };
 
+// in_context: the caller has made the tensors' device current (K16)
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int batch, int t, int heads, int d, const long long* st,
-                float scale, const int* plan, cudaStream_t stream) {
+                float scale, const int* plan, cudaStream_t stream,
+                bool in_context = false) {
   const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
                plan[5], plan[6], plan[7], plan[8]};
   if (!plan_ok(p, batch * heads, t, d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int current = sm90::make_current(q);
-  if (current != 0) return current;
+  if (!in_context) {
+    const int current = sm90::make_current(q);
+    if (current != 0) return current;
+  }
   CUtensorMap maps[3];
   const void* src[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -380,22 +384,56 @@ extern "C" int ldmseg_attention_fwd_packed(int dtype, const void* q,
 // What bounds it on an H100: per image 4 * 2 * t * c^2 (the projections)
 // plus 2 * 2 * t^2 * c (the attention) operations at the bf16 peak against
 // x in, the four [c, c] weights and the output: at the serving shapes the
-// tensor cores. The design is five launches on the stream, with q, k, v and
-// oh through device memory: three bf16_gemm_kernel products (s8_common.cuh)
-// with an epilogue that rounds to bf16, K1's kernel on the head views, and
-// one more product for to_out. fp32 takes a plain-FMA product (f32_gemm
-// below) and K1's fp32 variant. q, k, v and oh are the caller's buffers, so
-// a backward can read them (the port runs K2 on their head views).
+// tensor cores, except at t = 128 and 32, where the weights' bytes do.
+//
+// bf16 design: three launches on the stream, with q, k, v and oh through
+// device memory (the caller's buffers, so that a backward can read them:
+// the port runs K2 on their head views):
+//   a. Q, K and V in one launch of gemm_sm90.cuh's bf16 product (TMA ring,
+//      wgmma m64nNk16, fp32 sums in registers) over three W tensor maps, wq,
+//      wk and wv where the caller has them: each column tile takes its map
+//      and its destination from its column block, and StoreBf16Epi rounds
+//      each pair to bf16 into q, k or v. One launch gives the card three
+//      times the blocks of one projection (80 at t = 128: 132 SMs);
+//   b. K1's kernel on the head views of q, k and v;
+//   c. to_out, oh Wo^T, the same product with one map.
+// The plans (K1's and the two products') come from ops/attention.py:
+// absorbed_plans and are checked here; the wrapper makes the device
+// current once for the three launches. fp32 (no serving or training path)
+// takes a plain-FMA product (f32_gemm_kernel) and K1's fp32 variant.
 
 namespace {
 
-// out = bf16(sum), [rows, n]
+// out[i] = bf16(sum), each [rows, c]: columns [i c, i c + c) of the product
+// go to out[i] (K16's q, k and v from one launch; to_out's one output).
+// Where a column goes is worked out once per column and block (a code in
+// the int per-column vector: its output and its offset in the row); a
+// column tile lies in one output (the plan's tiles of c columns each).
 struct StoreBf16Epi {
-  static constexpr bool kColMajor = false;
-  __nv_bfloat16* out;
-  int n;
-  __device__ void operator()(int row, int col, float sum) const {
-    out[static_cast<long long>(row) * n + col] = __float2bfloat16_rn(sum);
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 1;  // the column's code
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  __nv_bfloat16* out0;
+  __nv_bfloat16* out1;
+  __nv_bfloat16* out2;
+  int c;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ int col_int(int, int col) const {
+    const int which = col / c;
+    return which << 28 | (col - which * c);
+  }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*,
+                             const int2* ci, const RowPre&, const Pre&,
+                             float s0, float s1) const {
+    const int which = ci[0].x >> 28;
+    __nv_bfloat16* out = which == 0 ? out0 : which == 1 ? out1 : out2;
+    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * c +
+                                 (ci[0].x & ((1 << 28) - 1))) =
+        sm90::pack_bf16(s0, s1);
   }
 };
 
@@ -462,65 +500,92 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// out = T(a w^T) with fp32 sums, [rows, n]
-template <typename T>
-int gemm(const void* a, const void* w, void* out, int rows, int n, int k,
-         cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value) {
-    const dim3 grid((rows + kGemmTile - 1) / kGemmTile,
-                    (n + kGemmTile - 1) / kGemmTile);
-    f32_gemm_kernel<<<grid, 256, 0, stream>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w),
-        static_cast<float*>(out), rows, n, k);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    return s8::launch_bf16_gemm<false>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(w), rows, n, k, 1,
-        StoreBf16Epi{static_cast<__nv_bfloat16*>(out), n}, stream);
-  }
+int f32_gemm(const void* a, const void* w, void* out, int rows, int n, int k,
+             cudaStream_t stream) {
+  const dim3 grid((rows + kGemmTile - 1) / kGemmTile,
+                  (n + kGemmTile - 1) / kGemmTile);
+  f32_gemm_kernel<<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w),
+      static_cast<float*>(out), rows, n, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_absorbed(const void* x, const void* const* w, void* const* qkvo,
-                    void* out, int batch, int t, int c, int heads,
-                    float scale, const int* plan, cudaStream_t stream) {
+int launch_absorbed_f32(const void* x, const void* const* w,
+                        void* const* qkvo, void* out, int batch, int t,
+                        int c, int heads, float scale, cudaStream_t stream) {
   const int rows = batch * t;
-  const int d = c / heads;
   for (int i = 0; i < 3; ++i) {
-    const int err = gemm<T>(x, w[i], qkvo[i], rows, c, c, stream);
+    const int err = f32_gemm(x, w[i], qkvo[i], rows, c, c, stream);
     if (err != 0) return err;
   }
+  long long st[12];
+  for (int i = 0; i < 4; ++i) {
+    st[3 * i] = static_cast<long long>(t) * c;
+    st[3 * i + 1] = c;
+    st[3 * i + 2] = c / heads;
+  }
+  const int err = launch_f32(qkvo[0], qkvo[1], qkvo[2], qkvo[3], batch, t,
+                             heads, c / heads, st, scale, stream);
+  if (err != 0) return err;
+  return f32_gemm(qkvo[3], w[3], out, rows, c, c, stream);
+}
+
+// plans: K1's (9 ints), then ops/gemm.py:sm90_gemm_plan's of the Q/K/V
+// product ([rows, c] x [3c, c]^T over three maps) and of to_out ([rows, c]
+// x [c, c]^T), bf16; the device is current
+int launch_absorbed_bf16(const void* x, const void* const* w,
+                         void* const* qkvo, void* out, int batch, int t,
+                         int c, int heads, float scale, const int* plans,
+                         cudaStream_t stream) {
+  const int rows = batch * t;
+  auto* q = static_cast<__nv_bfloat16*>(qkvo[0]);
+  auto* k = static_cast<__nv_bfloat16*>(qkvo[1]);
+  auto* v = static_cast<__nv_bfloat16*>(qkvo[2]);
+  auto* oh = static_cast<__nv_bfloat16*>(qkvo[3]);
+  // one launch for the three projections: three launches of one map each
+  // took 16% more of K16's device time per UNet forward on an H100, 65%
+  // more at t = 32 (tools/ablate_attention_fwd.py --k16)
+  int err = gemm90::launch_gemm_in_context<false, 3, false>(
+      plans + gemm90::kPlanInts, x, w, rows, 3 * c, c, 0, 1,
+      StoreBf16Epi{q, k, v, c}, stream);
+  if (err != 0) return err;
   // the head views [batch, t, heads, d] of q, k, v and oh
   long long st[12];
   for (int i = 0; i < 4; ++i) {
     st[3 * i] = static_cast<long long>(t) * c;
     st[3 * i + 1] = c;
-    st[3 * i + 2] = d;
+    st[3 * i + 2] = c / heads;
   }
-  const int err = launch(std::is_same<T, float>::value ? 0 : 1, qkvo[0],
-                         qkvo[1], qkvo[2], qkvo[3], batch, t, heads, d, st,
-                         scale, plan, stream);
+  err = launch_bf16(q, k, v, oh, batch, t, heads, c / heads, st, scale,
+                    plans, stream, true);
   if (err != 0) return err;
-  return gemm<T>(qkvo[3], w[3], out, rows, c, c, stream);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  return gemm90::launch_gemm_in_context<false, 1, false>(
+      plans + 2 * gemm90::kPlanInts, oh, &w[3], rows, c, c, 0, 1,
+      StoreBf16Epi{o, o, o, c}, stream);
 }
 
 }  // namespace
 
-// K16: dtype 0 = float32, 1 = bfloat16 for every tensor. x [batch * t, c]
-// contiguous; wq, wk, wv, wo [c, c] contiguous in the (out, in) layout of a
-// torch Linear weight. q, k, v and oh ([batch * t, c] each, contiguous) and
-// out ([batch * t, c]) are written: the three projections, the attention
-// output before to_out, and to_out of it without the bias. c = heads * d
-// with d a multiple of 8 up to 160; plan is K1's for (batch * heads, t, d),
-// for the attention stage. Returns a cudaError_t (0 on success).
-extern "C" int ldmseg_attention_absorbed(int dtype, const void* x,
-                                         const void* wq, const void* wk,
-                                         const void* wv, const void* wo,
-                                         void* q, void* k, void* v, void* oh,
-                                         void* out, int batch, int t, int c,
-                                         int heads, float scale,
-                                         const int* plan, void* stream) {
+// K16: dtype 0 = float32, 1 = bfloat16 for every tensor, all on CUDA
+// device `device`, which this makes current (the wrapper has made it the
+// thread's device). x [batch * t, c] contiguous; wq, wk, wv, wo [c, c]
+// contiguous in the (out, in) layout of a torch Linear weight. q, k, v and
+// oh ([batch * t, c] each, contiguous) and out ([batch * t, c]) are
+// written: the three projections, the attention output before to_out, and
+// to_out of it without the bias. c = heads * d with d a multiple of 8 up to
+// 160; plans: K1's for (batch * heads, t, d), then sm90_gemm_plan's of the
+// Q/K/V product (bf16, [batch * t, c] x [3c, c]^T, three maps) and of
+// to_out, 27 ints (fp32 reads none of them). Returns a cudaError_t (0 on
+// success).
+extern "C" int ldmseg_attention_absorbed(int dtype, int device,
+                                         const void* x, const void* wq,
+                                         const void* wk, const void* wv,
+                                         const void* wo, void* q, void* k,
+                                         void* v, void* oh, void* out,
+                                         int batch, int t, int c, int heads,
+                                         float scale, const int* plans,
+                                         void* stream) {
   if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 ||
       (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
       static_cast<long long>(batch) * t * c >= (1ll << 31)) {
@@ -530,12 +595,14 @@ extern "C" int ldmseg_attention_absorbed(int dtype, const void* x,
   void* qkvo[4] = {q, k, v, oh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_absorbed<float>(x, w, qkvo, out, batch, t, c, heads, scale,
-                                  plan, s);
+    return launch_absorbed_f32(x, w, qkvo, out, batch, t, c, heads, scale,
+                               s);
   }
-  if (dtype == 1) {
-    return launch_absorbed<__nv_bfloat16>(x, w, qkvo, out, batch, t, c, heads,
-                                          scale, plan, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // binds the device's context to this thread (the tensor maps' encoder
+  // needs one) without the pointer query of sm90::make_current
+  const cudaError_t dev = cudaSetDevice(device);
+  if (dev != cudaSuccess) return static_cast<int>(dev);
+  return launch_absorbed_bf16(x, w, qkvo, out, batch, t, c, heads, scale,
+                              plans, s);
 }

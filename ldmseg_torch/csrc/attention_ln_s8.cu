@@ -73,12 +73,18 @@
 //      that is never rounded to bf16: the LN reads it and so does the
 //      residual of step 6.
 // So K8 is K3's four kernels on an fp32 residual stream (launch<float>)
-// behind a fifth, the prologue (s8_common.cuh's bf16_gemm_kernel, not yet
-// moved to gemm_sm90.cuh): 64x64 tiles of x Wpi^T on bf16 wmma with
-// the bias epilogue, into an fp32 scratch [B*T, C]. It reads x either as
-// tokens [B, T, C] or channel-major [B, C, T], the GroupNorm's NCHW output
-// as it lies, which saves the caller a permute copy. Its 2*T*C^2 bf16
-// operations per image add ~1/3 to K3's bf16 work at every level.
+// behind a fifth, the prologue: gemm_sm90.cuh's bf16 product x Wpi^T with
+// BiasF32Epi (the bias staged per block before the main loop, fp32 pairs
+// sum + b_pi stored from the accumulator registers) into an fp32 scratch
+// xf [B*T, C], row-major, which ln_quant then reads by rows. It reads x
+// either as tokens [B*T, C] (A K-major, a 2-D map) or channel-major [B, C,
+// T], the GroupNorm's NCHW output as it lies, which saves the caller a
+// permute copy: A MN-major through a 3-D map over (T, C, B) in boxes of 64
+// tokens x 64 channels, the row tiles laid out per image (T = 32 and 120
+// leave a last tile partly empty: TMA fills zeros, the epilogue skips those
+// rows), the products wgmma's with A's transpose bit. Its 2*T*C^2 bf16
+// operations per image add ~1/3 to K3's bf16 work at every level; at T =
+// 128 and 32 Wpi's bytes bound it.
 
 #include "attention_sm90.cuh"
 #include "gemm_sm90.cuh"
@@ -87,7 +93,7 @@
 
 namespace {
 
-using namespace s8;  // ln_quant, quant_s8; K8's prologue (bf16_gemm_kernel)
+using namespace s8;  // ln_quant, quant_s8
 
 constexpr int kMaxD = 160;  // largest head dim taken
 
@@ -216,15 +222,44 @@ int launch_attn(const int* plan, const int8_t* q8, const int8_t* k8,
 }
 
 // the prologue's epilogue: xf = sum + bias[col] in fp32, [rows, n]
+// row-major, stored as pairs (the bias one of the per-column vectors)
 struct BiasF32Epi {
-  static constexpr bool kColMajor = false;
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 1;  // bias
+  static constexpr int kIntCols = 0;
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
   const float* bias;
   float* xf;
   int n;
-  __device__ void operator()(int row, int col, float sum) const {
-    xf[static_cast<long long>(row) * n + col] = sum + bias[col];
+  __device__ float col_value(int, int col) const { return __ldg(bias + col); }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2* cv,
+                             const int2*, const RowPre&, const Pre&,
+                             float s0, float s1) const {
+    *reinterpret_cast<float2*>(xf + static_cast<long long>(row) * n + col) =
+        make_float2(s0 + cv[0].x, s1 + cv[0].y);
   }
 };
+
+// K8's prologue: xf = x Wpi^T + bpi in fp32 from bf16 x, as tokens [batch
+// * t, c] or channel-major [batch, c, t] (the A operand MN-major, row
+// tiles per image); plan is sm90_gemm_plan's of [batch * t, c] x [c, c]^T
+// (bf16; channel-major with images = batch), checked
+int launch_proj_in(int channels_major, const void* x, const void* wpi,
+                   const float* bpi, float* xf, int batch, int t, int c,
+                   const int* plan, cudaStream_t stream) {
+  const int current = sm90::make_current(x);
+  if (current != 0) return current;
+  const BiasF32Epi epi{bpi, xf, c};
+  if (channels_major) {
+    return gemm90::launch_gemm_in_context<false, 1, true>(
+        plan, x, &wpi, batch * t, c, c, 0, t, epi, stream);
+  }
+  return gemm90::launch_gemm_in_context<false, 1, false>(
+      plan, x, &wpi, batch * t, c, c, 0, 1, epi, stream);
+}
 
 // plans: ops/gemm.py:sm90_gemm_plan's of the projection ([rows, c] x [3c,
 // c]^T, int8), ops/attention_s8.py:sm90_s8_attention_plan's, and
@@ -294,8 +329,10 @@ extern "C" int ldmseg_attention_ln_s8(
 
 // K8: x bf16, channel-major [batch, c, t] when channels_major, else
 // [batch*t, c]; wpi bf16 [c, c] (out, in), bpi fp32 [c]; xf fp32 [batch*t,
-// c] is scratch (the residual stream); the other arguments as in
-// ldmseg_attention_ln_s8. Returns a cudaError_t (0 on success).
+// c] is scratch (the residual stream); plans: the prologue's (9 ints, as
+// launch_proj_in takes it), then K3's three as ldmseg_attention_ln_s8
+// takes them; the other arguments as there. Returns a cudaError_t (0 on
+// success).
 extern "C" int ldmseg_attention_ln_s8_pin(
     int channels_major, const void* x, const void* wpi, const float* bpi,
     float* xf, void* out, const float* ln_w, const float* ln_b,
@@ -309,20 +346,29 @@ extern "C" int ldmseg_attention_ln_s8_pin(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wpib = static_cast<const __nv_bfloat16*>(wpi);
-  const int rows = batch * t;
-  const BiasF32Epi epi{bpi, xf, c};
-  const int err =
-      channels_major
-          ? launch_bf16_gemm<true>(xb, wpib, rows, c, c, t, epi, s)
-          : launch_bf16_gemm<false>(xb, wpib, rows, c, c, t, epi, s);
+  const int err = launch_proj_in(channels_major, x, wpi, bpi, xf, batch, t,
+                                 c, plans, s);
   if (err != 0) return err;
   return launch<float>(xf, out, ln_w, ln_b, out_b, w_qkv, m_qkv,
                        static_cast<const __nv_bfloat16*>(wo), x8, q8, k8,
                        static_cast<__nv_bfloat16*>(v),
                        static_cast<__nv_bfloat16*>(o), batch, t, c, heads,
-                       xs, score_scale, eps, plans, s);
+                       xs, score_scale, eps, plans + gemm90::kPlanInts, s);
+}
+
+// K8's prologue alone (launch_proj_in: xf = x Wpi^T + bpi in fp32; its
+// arguments). No model path calls it: the card tests and chip_smoke.py
+// hold it against torch.matmul in fp32 (ops/attention_s8.py:proj_in_f32).
+// Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_proj_in_f32(int channels_major, const void* x,
+                                  const void* wpi, const float* bpi,
+                                  float* xf, int batch, int t, int c,
+                                  const int* plan, void* stream) {
+  if (batch < 1 || t < 1 || c < 8 || (channels_major && t % 8 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_proj_in(channels_major, x, wpi, bpi, xf, batch, t, c, plan,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K10 with v_bf16=True: replaces ldmseg_tpu/ops/pallas/attention.py:

@@ -336,9 +336,9 @@ extern "C" int ldmseg_geglu_ln_s8_pout(
                                      block_t, xs, gs, dynamic, eps, plans,
                                      stream);
   if (err != 0) return err;
-  return launch_bf16_gemm<false>(
+  return launch_bf16_gemm(
       static_cast<const __nv_bfloat16*>(r),
-      static_cast<const __nv_bfloat16*>(wpo), batch * t, c, c, t,
+      static_cast<const __nv_bfloat16*>(wpo), batch * t, c, c,
       ChannelMajorBiasEpi{bpo, static_cast<__nv_bfloat16*>(out), c, t},
       static_cast<cudaStream_t>(stream));
 }

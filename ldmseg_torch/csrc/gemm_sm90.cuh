@@ -1,13 +1,16 @@
-// One Hopper (sm_90a) product for the int8 blocks: C = A W^T with A [rows,
-// k] and W [n, k] both row-major (K-major), int8 with int32 sums or bf16
-// with fp32 sums, each output handed to the caller's epilogue straight from
-// the accumulator registers. It carries the products of K3 (the Q/K/V
-// projection, to_out; attention_ln_s8.cu), K4 and K12 (W1 with the gating,
-// W2; geglu_ln_s8.cu), and through them K8, K9 and K10; and of K11, K10
-// without v_bf16, K17 and K18 (attention_s8.cu: the Q/K projection, the
-// swapped V projection, to_out; K17's projection with its group amax and
-// its per-head to_out, gemm_heads_kernel below); gemm_sm90.cu holds its two
-// test entry points (a plain int32 and a plain fp32 store).
+// One Hopper (sm_90a) product for the int8 blocks and the bf16 projections:
+// C = A W^T with A [rows, k] and W [n, k] both row-major (K-major), int8
+// with int32 sums or bf16 with fp32 sums, each output handed to the
+// caller's epilogue straight from the accumulator registers. It carries the
+// products of K3 (the Q/K/V projection, to_out; attention_ln_s8.cu), K4
+// and K12 (W1 with the gating, W2; geglu_ln_s8.cu), and through them K8,
+// K9 and K10; K8's proj_in prologue (bf16, fp32 out, A row-major or
+// channel-major); K16's projections (attention_fwd.cu: Q, K and V in one
+// launch over three W maps, to_out); and of K11, K10 without v_bf16, K17
+// and K18 (attention_s8.cu: the Q/K projection, the swapped V projection,
+// to_out; K17's projection with its group amax and its per-head to_out,
+// gemm_heads_kernel below); gemm_sm90.cu holds its test entry points (a
+// plain int32 and a plain fp32 store, the per-head product).
 //
 // Replaces, for those kernels, the Ampere-era helpers of s8_common.cuh
 // (synchronous 8-byte tile loads between __syncthreads, wmma 16x16x16 on
@@ -24,11 +27,14 @@
 //     (setmaxnreg gives two consumers 240 registers, four 112);
 //   * A and W stream through a ring of `stages` stages by TMA tile loads
 //     through 2-D tensor maps (one 128-byte swizzle row deep: 128 int8 or
-//     64 bf16 per stage; zeros past k, rows and n), with full/empty
+//     64 bf16 per stage; zeros past k, rows and n; W through one of up to
+//     three maps chosen per column tile, A channel-major through a 3-D map
+//     in boxes of 64 tokens x 64 channels: gemm_kernel), with full/empty
 //     mbarriers; a stage can hold a second W tile (`Epi::kOps == 2`: K4's
 //     h and gate rows of W1, `w_row2` rows apart, in two accumulator sets);
 //   * wgmma m64nNk32 (int8) or m64nNk16 (bf16), N = the tile's columns,
-//     both operands K-major in shared memory, one stage's products in
+//     both operands K-major in shared memory (A MN-major when it is
+//     channel-major: WgmmaSsAT), one stage's products in
 //     flight while the next stage's are issued;
 //   * the epilogue runs on the accumulator fragment: the thread of lane l
 //     in warp w of consumer warpgroup g owns rows 64g + 16w + l/4 and that
@@ -139,10 +145,17 @@ inline int plan_smem(int block_m, int block_n, int operands, int stages) {
          16 * stages + kColBytes;
 }
 
+// maps: the column tiles lie per map of n / maps columns; images: the row
+// tiles per image of rows / images rows (the channel-major A)
 inline bool plan_ok(const Plan& p, bool s8, int rows, int n, int k,
-                    int operands) {
+                    int operands, int maps = 1, int images = 1) {
   const int depth = s8 ? kRowBytes : kRowBytes / 2;
   const int esize = s8 ? 1 : 2;
+  if (maps < 1 || images < 1 || n % maps != 0 || rows % images != 0) {
+    return false;
+  }
+  const int map_cols = n / maps;
+  const int image_rows = rows / images;
   return p.dtype == (s8 ? 0 : 1) &&
          (p.block_m == 64 || p.block_m == 128 ||
           (p.block_m == 256 && p.block_n == 64 && operands == 2)) &&
@@ -152,10 +165,10 @@ inline bool plan_ok(const Plan& p, bool s8, int rows, int n, int k,
          p.smem_bytes ==
              plan_smem(p.block_m, p.block_n, operands, p.stages) &&
          p.smem_bytes <= kSmemLimit &&
-         p.grid_x == (rows + p.block_m - 1) / p.block_m &&
-         p.grid_y == (n + p.block_n - 1) / p.block_n && p.grid_y <= 65535 &&
-         rows >= 1 && n >= 8 && n % 8 == 0 && k >= 1 &&
-         (k * esize) % 16 == 0;
+         p.grid_x == images * ((image_rows + p.block_m - 1) / p.block_m) &&
+         p.grid_y == maps * ((map_cols + p.block_n - 1) / p.block_n) &&
+         p.grid_y <= 65535 && rows >= 1 && map_cols >= 8 &&
+         map_cols % 8 == 0 && k >= 1 && (k * esize) % 16 == 0;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -186,15 +199,35 @@ __device__ __forceinline__ void flush_group(const Epi& epi, int group,
   }
 }
 
+// the W operand's tensor maps: one, or kMaps (K16's wq, wk and wv as the
+// caller passes them), each over n / kMaps rows of the output's columns
+template <int kMaps>
+struct WMaps {
+  CUtensorMap map[kMaps];
+};
+
 // Shared memory, from a 1,024-byte aligned base: per stage the A tile
 // (block_m rows) and Epi::kOps W tiles (kBN rows each), one swizzle row
 // deep; then the full and the empty barriers, then the epilogue's
 // per-column vectors: [kCols][kBN] fp32, then [kIntCols][kBN] int.
-template <bool kS8, int kBN, int kWG, class Epi>
+//
+// kMaps > 1: the column tiles lie per map (ceil((n / kMaps) / kBN) each),
+// so a tile reads one W map and its columns n0 .. are the map's columns
+// shifted by the map's first column; the epilogue sees columns of the whole
+// [rows, n] output and none past its map's last column.
+// kAMN (bf16 only): A is channel-major, [rows / t][k][t] (a GroupNorm's
+// NCHW output, tokens contiguous), read through a 3-D map in boxes of 64
+// tokens x 64 channels (sm90::encode_map_cm), one per consumer warpgroup
+// and stage: an MN-major operand (wgmma's transpose bit for A). The row
+// tiles lie per image (ceil(t / block_m) each), so none straddles two
+// images; TMA fills the rows past t with zeros and the epilogue skips
+// them.
+template <bool kS8, int kBN, int kWG, class Epi, int kMaps, bool kAMN>
 __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     gemm_kernel(const __grid_constant__ CUtensorMap ta,
-                const __grid_constant__ CUtensorMap tw, int rows, int n,
-                int w_row2, int k_tiles, int stages, Epi epi) {
+                const __grid_constant__ WMaps<kMaps> tw, int rows, int n,
+                int w_row2, int k_tiles, int stages, int t, Epi epi) {
+  static_assert(!(kS8 && kAMN), "an MN-major A is bf16 only");
   constexpr int kOps = Epi::kOps;
   using Acc = typename std::conditional<kS8, int, float>::type;
   constexpr int kATile = 64 * kWG * kRowBytes;
@@ -205,8 +238,25 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
   const uint32_t tiles = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t full_bar = tiles + stages * kStage;
   const uint32_t empty_bar = full_bar + 8 * stages;
-  const int m0 = blockIdx.x * 64 * kWG;
-  const int n0 = blockIdx.y * kBN;
+  // the block's output rows [m0, row_end) (kAMN: tile tm0 of image img)
+  // and columns [n0, col_end) (its map's; wn0 the first within the map)
+  int m0, row_end, img = 0, tm0 = 0;
+  if constexpr (kAMN) {
+    const int per_image = (t + 64 * kWG - 1) / (64 * kWG);
+    img = blockIdx.x / per_image;
+    tm0 = (blockIdx.x - img * per_image) * 64 * kWG;
+    m0 = img * t + tm0;
+    row_end = img * t + t;
+  } else {
+    m0 = blockIdx.x * 64 * kWG;
+    row_end = rows;
+  }
+  const int map_cols = n / kMaps;
+  const int per_map = (map_cols + kBN - 1) / kBN;  // column tiles of a map
+  const int wmap = blockIdx.y / per_map;
+  const int wn0 = (blockIdx.y - wmap * per_map) * kBN;
+  const int n0 = wmap * map_cols + wn0;
+  const int col_end = wmap * map_cols + map_cols;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -222,20 +272,33 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     // producer warpgroup: one thread issues every copy
     if constexpr (kWG > 1) sm90::regs_dealloc<sm90::kProducerRegs>();
     if (threadIdx.x == 128 * kWG) {
+      const CUtensorMap* tw_map = &tw.map[0];
+#pragma unroll
+      for (int i = 1; i < kMaps; ++i) {
+        if (wmap == i) tw_map = &tw.map[i];
+      }
       sm90::tma_prefetch_map(&ta);
-      sm90::tma_prefetch_map(&tw);
+      sm90::tma_prefetch_map(tw_map);
       sm90::Slot slot;
       for (int kt = 0; kt < k_tiles; ++kt, slot.next(stages)) {
         const uint32_t s = slot.stage;
         const uint32_t st = tiles + s * kStage;
         sm90::mbar_wait(empty_bar + 8 * s, slot.phase ^ 1);
         sm90::mbar_expect_tx(full_bar + 8 * s, kStage);
-        sm90::tma_load_2d(st, &ta, full_bar + 8 * s, kt * kDepth, m0);
-        sm90::tma_load_2d(st + kATile, &tw, full_bar + 8 * s, kt * kDepth,
-                          n0);
+        if constexpr (kAMN) {
+#pragma unroll
+          for (int w = 0; w < kWG; ++w) {
+            sm90::tma_load_3d(st + w * 64 * kRowBytes, &ta, full_bar + 8 * s,
+                              tm0 + 64 * w, kt * kDepth, img);
+          }
+        } else {
+          sm90::tma_load_2d(st, &ta, full_bar + 8 * s, kt * kDepth, m0);
+        }
+        sm90::tma_load_2d(st + kATile, tw_map, full_bar + 8 * s, kt * kDepth,
+                          wn0);
         if constexpr (kOps == 2) {
-          sm90::tma_load_2d(st + kATile + kWTile, &tw, full_bar + 8 * s,
-                            kt * kDepth, w_row2 + n0);
+          sm90::tma_load_2d(st + kATile + kWTile, tw_map, full_bar + 8 * s,
+                            kt * kDepth, w_row2 + wn0);
         }
       }
     }
@@ -261,13 +324,13 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
   for (int i = threadIdx.x; i < Epi::kCols * kBN; i += 128 * kWG) {
     const int v = i / kBN;
     const int cc = i - v * kBN;
-    cols[i] = n0 + cc < n ? epi.col_value(v, n0 + cc) : 0.f;
+    cols[i] = n0 + cc < col_end ? epi.col_value(v, n0 + cc) : 0.f;
   }
   if constexpr (Epi::kIntCols > 0) {
     for (int i = threadIdx.x; i < Epi::kIntCols * kBN; i += 128 * kWG) {
       const int v = i / kBN;
       const int cc = i - v * kBN;
-      int_cols[i] = n0 + cc < n ? epi.col_int(v, n0 + cc) : 0;
+      int_cols[i] = n0 + cc < col_end ? epi.col_int(v, n0 + cc) : 0;
     }
   }
   typename Epi::RowPre row_pre[2];
@@ -275,10 +338,12 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    if (row < rows) row_pre[r] = epi.row_pre(row);
+    if (row < row_end) row_pre[r] = epi.row_pre(row);
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
-      if (row < rows && col0 + 8 * j < n) pre[j][r] = epi.pre(row, col0 + 8 * j);
+      if (row < row_end && col0 + 8 * j < col_end) {
+        pre[j][r] = epi.pre(row, col0 + 8 * j);
+      }
     }
   }
 
@@ -298,14 +363,22 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // 32 bytes along the swizzled rows
-      const uint64_t da =
-          sm90::desc_sw128(st + wg * 64 * kRowBytes + kk * 32, 16, 1024);
+      const uint32_t a_tile = st + wg * 64 * kRowBytes;
 #pragma unroll
       for (int op = 0; op < kOps; ++op) {
-        sm90::WgmmaK<kS8, kBN>::ss(
-            acc[op], da,
-            sm90::desc_sw128(st + kATile + op * kWTile + kk * 32, 16, 1024),
-            1);
+        const uint64_t db =
+            sm90::desc_sw128(st + kATile + op * kWTile + kk * 32, 16, 1024);
+        if constexpr (kAMN) {
+          // 16 channels (rows of the box) of 64 tokens a k16 step
+          sm90::WgmmaSsAT<kBN>::ss(
+              acc[op],
+              sm90::desc_sw128(a_tile + kk * 16 * kRowBytes, 64 * kRowBytes,
+                               1024),
+              db, 1);
+        } else {
+          sm90::WgmmaK<kS8, kBN>::ss(
+              acc[op], sm90::desc_sw128(a_tile + kk * 32, 16, 1024), db, 1);
+        }
       }
     }
     sm90::wgmma_commit();
@@ -342,7 +415,7 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     if constexpr (kGroups) {
       // the same for the whole warp: its 8-column block lies in one group
       if (ci[0].x != group) {
-        if (group >= 0) flush_group(epi, group, mx, group0, rows, lane);
+        if (group >= 0) flush_group(epi, group, mx, group0, row_end, lane);
         group = ci[0].x;
         mx[0] = mx[1] = 0.f;
       }
@@ -350,7 +423,7 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      if (col < n && row < rows) {
+      if (col < col_end && row < row_end) {
         if constexpr (kGroups) {
           mx[r] = fmaxf(mx[r], epi(row, col, cv, ci, row_pre[r], pre[j][r],
                                    acc[0][4 * j + 2 * r],
@@ -368,14 +441,14 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     }
   }
   if constexpr (kGroups) {
-    if (group >= 0) flush_group(epi, group, mx, group0, rows, lane);
+    if (group >= 0) flush_group(epi, group, mx, group0, row_end, lane);
   }
   if constexpr (kOps == 2) {
     if constexpr (Epi::kRowMax) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float v = warp_max(mx[r]);
-        if (lane == 0 && group0 + 8 * r < rows) {
+        if (lane == 0 && group0 + 8 * r < row_end) {
           epi.row_max(group0 + 8 * r, v);
         }
       }
@@ -383,58 +456,86 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
   }
 }
 
-template <bool kS8, int kBN, int kWG, class Epi>
-int launch_as(const Plan& p, const CUtensorMap* maps, int rows, int n,
-              int w_row2, Epi epi, cudaStream_t stream) {
-  auto kernel = gemm_kernel<kS8, kBN, kWG, Epi>;
+template <bool kS8, int kBN, int kWG, class Epi, int kMaps, bool kAMN>
+int launch_as(const Plan& p, const CUtensorMap& ta, const WMaps<kMaps>& tw,
+              int rows, int n, int w_row2, int t, Epi epi,
+              cudaStream_t stream) {
+  auto kernel = gemm_kernel<kS8, kBN, kWG, Epi, kMaps, kAMN>;
   // once per instantiation: any plan's shared memory is within the limit
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<dim3(p.grid_x, p.grid_y), 128 * (kWG + 1), p.smem_bytes,
-           stream>>>(maps[0], maps[1], rows, n, w_row2, p.k_tiles, p.stages,
-                     epi);
+           stream>>>(ta, tw, rows, n, w_row2, p.k_tiles, p.stages, t, epi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// C = A [W_0; ..; W_{kMaps-1}]^T with the caller's epilogue, on the device
+// the caller has made current: A [rows, k] row-major (kAMN: channel-major
+// [rows / t][k][t], bf16, t a multiple of 8) and each W_i [n / kMaps, k]
+// row-major, int8 (kS8) or bf16, 16-byte aligned, k * element size a
+// multiple of 16; with Epi::kOps == 2 (one map) W holds 2n rows, the second
+// operand's from w_row2. `plan` is sm90_gemm_plan's (with `maps` kMaps and,
+// kAMN, `images` rows / t), checked. Returns a cudaError_t.
+template <bool kS8, int kMaps, bool kAMN, class Epi>
+int launch_gemm_in_context(const int* plan, const void* a,
+                           const void* const* ws, int rows, int n, int k,
+                           int w_row2, int t, Epi epi, cudaStream_t stream) {
+  static_assert(kMaps == 1 || Epi::kOps == 1, "two operands on one map");
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+               plan[5], plan[6], plan[7], plan[8]};
+  const int images = kAMN ? (t >= 1 ? rows / t : 0) : 1;
+  bool ok = plan_ok(p, kS8, rows, n, k, Epi::kOps, kMaps, images) &&
+            reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+            (!kAMN || (t % 8 == 0 && images * t == rows));
+  for (int i = 0; i < kMaps; ++i) {
+    ok = ok && reinterpret_cast<uintptr_t>(ws[i]) % 16 == 0;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int esize = kS8 ? 1 : 2;
+  CUtensorMap ta;
+  WMaps<kMaps> tw;
+  int err = kAMN ? sm90::encode_map_cm(&ta, a, images, k, t)
+                 : sm90::encode_map_2d(&ta, a, esize, rows, k, k, p.block_m);
+  if (err != 0) return err;
+  for (int i = 0; i < kMaps; ++i) {
+    err = sm90::encode_map_2d(&tw.map[i], ws[i], esize,
+                              Epi::kOps == 2 ? w_row2 + n : n / kMaps, k, k,
+                              p.block_n);
+    if (err != 0) return err;
+  }
+  if constexpr (Epi::kOps == 2) {  // four consumer warpgroups
+    if (p.block_m == 256) {
+      return launch_as<kS8, 64, 4, Epi, kMaps, kAMN>(p, ta, tw, rows, n,
+                                                     w_row2, t, epi, stream);
+    }
+  }
+  if (p.block_m == 128) {
+    return p.block_n == 128
+               ? launch_as<kS8, 128, 2, Epi, kMaps, kAMN>(
+                     p, ta, tw, rows, n, w_row2, t, epi, stream)
+               : launch_as<kS8, 64, 2, Epi, kMaps, kAMN>(
+                     p, ta, tw, rows, n, w_row2, t, epi, stream);
+  }
+  return p.block_n == 128
+             ? launch_as<kS8, 128, 1, Epi, kMaps, kAMN>(p, ta, tw, rows, n,
+                                                        w_row2, t, epi, stream)
+             : launch_as<kS8, 64, 1, Epi, kMaps, kAMN>(p, ta, tw, rows, n,
+                                                       w_row2, t, epi, stream);
 }
 
 // C = A W^T with the caller's epilogue: A [rows, k] and W row-major with k
 // contiguous, int8 (kS8) or bf16, 16-byte aligned, k * element size a
 // multiple of 16; W holds n rows, or 2n (Epi::kOps == 2: the second
 // operand's rows start at w_row2). `plan` is sm90_gemm_plan's, checked.
-// Returns a cudaError_t.
+// Makes a's device current first. Returns a cudaError_t.
 template <bool kS8, class Epi>
 int launch_gemm(const int* plan, const void* a, const void* w, int rows,
                 int n, int k, int w_row2, Epi epi, cudaStream_t stream) {
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
-               plan[5], plan[6], plan[7], plan[8]};
-  if (!plan_ok(p, kS8, rows, n, k, Epi::kOps) ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const int current = sm90::make_current(a);
   if (current != 0) return current;
-  const int esize = kS8 ? 1 : 2;
-  CUtensorMap maps[2];
-  int err = sm90::encode_map_2d(&maps[0], a, esize, rows, k, k, p.block_m);
-  if (err != 0) return err;
-  err = sm90::encode_map_2d(&maps[1], w, esize,
-                            Epi::kOps == 2 ? w_row2 + n : n, k, k,
-                            p.block_n);
-  if (err != 0) return err;
-  if constexpr (Epi::kOps == 2) {  // four consumer warpgroups
-    if (p.block_m == 256) {
-      return launch_as<kS8, 64, 4>(p, maps, rows, n, w_row2, epi, stream);
-    }
-  }
-  if (p.block_m == 128) {
-    return p.block_n == 128
-               ? launch_as<kS8, 128, 2>(p, maps, rows, n, w_row2, epi, stream)
-               : launch_as<kS8, 64, 2>(p, maps, rows, n, w_row2, epi, stream);
-  }
-  return p.block_n == 128
-             ? launch_as<kS8, 128, 1>(p, maps, rows, n, w_row2, epi, stream)
-             : launch_as<kS8, 64, 1>(p, maps, rows, n, w_row2, epi, stream);
+  return launch_gemm_in_context<kS8, 1, false>(plan, a, &w, rows, n, k,
+                                               w_row2, 1, epi, stream);
 }
 
 // ---- the per-head product (K17's and K18's to_out) ------------------------

@@ -3,9 +3,10 @@
 // the (LayerNorm +) static-scale int8 quantize of token rows (every one of
 // them), and the one Ampere-era product that is left, bf16 x bf16 with fp32
 // sums on 64x64 output tiles (nvcuda::wmma 16x16x16) with the caller's
-// epilogue: K8's proj_in prologue, K9's proj_out epilogue and K16's
-// products. Every int8 product runs on gemm_sm90.cuh, every int8 attention
-// on attention_sm90.cuh.
+// epilogue, whose one caller is K9's proj_out (geglu_ln_s8.cu); it goes
+// when that moves to gemm_sm90.cuh. Every other product runs on
+// gemm_sm90.cuh (K8's proj_in prologue and K16's bf16 projections too),
+// every int8 attention on attention_sm90.cuh.
 
 #pragma once
 
@@ -121,27 +122,20 @@ int launch_ln_quant(const void* x, int8_t* x8, const float* w,
 }
 
 // ---- a whole product: C = A W^T on 64x64 output tiles ---------------------
-// A [rows, k] and W [n, k] row-major (k a multiple of 8), each element of
-// the product handed to epi(row, col, sum) for row < rows, col < n. The
-// epilogue is the caller's rounding point: a functor with a
+// A [rows, k] and W [n, k] row-major (k a multiple of 8), bf16, each
+// element of the fp32 product handed to epi(row, col, sum) for row < rows,
+// col < n. The epilogue is the caller's rounding point: a functor with a
 // __device__ operator() and a static constexpr bool kColMajor, which makes
 // the tile's elements go to threads down its columns (consecutive rows to
 // consecutive threads), so that a store to a channel-major [images][n][t]
 // output is coalesced.
-
-// bf16 A and W, fp32 sums. kAColMajor: A is held channel-major,
-// [rows / t][k][t] (a GroupNorm's NCHW output read as tokens; t a multiple
-// of 8, so 8 consecutive rows never straddle two images), staged [depth][64
-// rows] in shared memory and read by col_major fragments.
-template <bool kAColMajor, class Epi>
+template <class Epi>
 __global__ void __launch_bounds__(kThreads)
     bf16_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                      const __nv_bfloat16* __restrict__ w, int rows, int n,
-                     int k, int t, Epi epi) {
+                     int k, Epi epi) {
   using namespace nvcuda;
   constexpr int kLd = kDepth + 8;   // [64 rows][depth] tiles
-  constexpr int kLdT = kTile + 8;   // [depth][64 rows] tile of A
-  static_assert(kTile * kLd == kDepth * kLdT, "one buffer, both layouts");
   __shared__ __align__(256) __nv_bfloat16 As[kTile * kLd];
   __shared__ __align__(256) __nv_bfloat16 Bs[kTile * kLd];
   __shared__ __align__(256) float S[kTile * kStageLd];
@@ -164,55 +158,26 @@ __global__ void __launch_bounds__(kThreads)
       }
       *reinterpret_cast<uint4*>(Bs + r * kLd + u * 8) = bw;
       uint4 av = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (kAColMajor) {
-        // r runs over the depth here (kDepth == kTile): depth row r of the
-        // tile takes 8 consecutive tokens of input channel kd
-        const int kd = k0 + r;
-        const int row = r0 + u * 8;
-        if (kd < k && row < rows) {
-          const int img = row / t;
-          const long long at =
-              (static_cast<long long>(img) * k + kd) * t + (row - img * t);
-          av = *reinterpret_cast<const uint4*>(a + at);
-        }
-        *reinterpret_cast<uint4*>(As + r * kLdT + u * 8) = av;
-      } else {
-        if (kk < k && r0 + r < rows) {
-          av = *reinterpret_cast<const uint4*>(
-              a + static_cast<long long>(r0 + r) * k + kk);
-        }
-        *reinterpret_cast<uint4*>(As + r * kLd + u * 8) = av;
+      if (kk < k && r0 + r < rows) {
+        av = *reinterpret_cast<const uint4*>(
+            a + static_cast<long long>(r0 + r) * k + kk);
       }
+      *reinterpret_cast<uint4*>(As + r * kLd + u * 8) = av;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kDepth / 16; ++kk) {
-      if constexpr (kAColMajor) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          af;
+      wmma::load_matrix_sync(af, As + warp * 16 * kLd + kk * 16, kLd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                        wmma::col_major>
-            af;
-        wmma::load_matrix_sync(af, As + kk * 16 * kLdT + warp * 16, kLdT);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major>
-              bf;
-          wmma::load_matrix_sync(bf, Bs + j * 16 * kLd + kk * 16, kLd);
-          wmma::mma_sync(acc[j], af, bf, acc[j]);
-        }
-      } else {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af;
-        wmma::load_matrix_sync(af, As + warp * 16 * kLd + kk * 16, kLd);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major>
-              bf;
-          wmma::load_matrix_sync(bf, Bs + j * 16 * kLd + kk * 16, kLd);
-          wmma::mma_sync(acc[j], af, bf, acc[j]);
-        }
+            bf;
+        wmma::load_matrix_sync(bf, Bs + j * 16 * kLd + kk * 16, kLd);
+        wmma::mma_sync(acc[j], af, bf, acc[j]);
       }
     }
   }
@@ -233,13 +198,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kAColMajor, class Epi>
+template <class Epi>
 int launch_bf16_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
-                     int rows, int n, int k, int t, Epi epi,
-                     cudaStream_t stream) {
+                     int rows, int n, int k, Epi epi, cudaStream_t stream) {
   const dim3 grid((rows + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  bf16_gemm_kernel<kAColMajor, Epi><<<grid, kThreads, 0, stream>>>(
-      a, w, rows, n, k, t, epi);
+  bf16_gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(a, w, rows, n, k,
+                                                       epi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,7 @@
 // (wgmma) on bf16 with fp32 sums and on int8 with int32 sums. Used by
 // attention_sm90.cuh (the forward skeleton of K1, K14, K16's, K3's and
 // K13's attention stage), attention_bwd.cu (K2) and gemm_sm90.cuh (the
-// products of K3, K4, K8-K12, K17 and K18).
+// products of K3, K4, K8-K12 and K16-K18).
 //
 // Shared-memory operands of wgmma are described by a 64-bit descriptor. The
 // tiles here are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: rows
@@ -122,6 +122,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the box of the 3-D `map` at (c0, c1, c2), innermost first; as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -273,6 +285,9 @@ __device__ __forceinline__ void fence_regs(int (&r)[kN]) {
 //     of d above for a 16-column slice), B MN-major in shared memory.
 //   WgmmaSsT<N>::ss: A and B both MN-major in shared memory (the backward's
 //     dQ = dS K, with dS stored as dS^T by store_sw128 and K as loaded).
+//   WgmmaSsAT<N>::ss: A MN-major, B K-major in shared memory (gemm_sm90.cuh
+//     on a channel-major A: K8's proj_in prologue on the GroupNorm's NCHW
+//     output, tokens contiguous).
 //   WgmmaS8<N>::ss: m64nNk32, int8 A (64 x 32) and B (32 x N) both K-major
 //     in shared memory, int32 sums d[N / 2] in the layout of d above.
 //   WgmmaRsS8<N>::rs: m64nNk32, int8 A from registers (a[0..3], 4 int8 each,
@@ -291,6 +306,8 @@ template <int kN>
 struct WgmmaRs;
 template <int kN>
 struct WgmmaSsT;
+template <int kN>
+struct WgmmaSsAT;
 
 #define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 
@@ -522,6 +539,46 @@ struct WgmmaSsT<64> {
         "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
         : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12), F4(d, 16), F4(d, 20),
           F4(d, 24), F4(d, 28)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaSsAT<64> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12), F4(d, 16), F4(d, 20),
+          F4(d, 24), F4(d, 28)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaSsAT<128> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+        : F4(d, 0), F4(d, 4), F4(d, 8), F4(d, 12), F4(d, 16), F4(d, 20),
+          F4(d, 24), F4(d, 28), F4(d, 32), F4(d, 36), F4(d, 40), F4(d, 44),
+          F4(d, 48), F4(d, 52), F4(d, 56), F4(d, 60)
         : "l"(a), "l"(b), "r"(accumulate));
   }
 };
@@ -855,6 +912,31 @@ inline int encode_map_2d(CUtensorMap* map, const void* ptr, int esize,
       2, const_cast<void*>(ptr), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a 3-D map over (T, K, B) of a bf16 channel-major [B, K, T] tensor (a
+// GroupNorm's NCHW output: tokens contiguous, T a multiple of 8 so that the
+// strides are multiples of 16 bytes); boxes of 64 tokens (one 128-byte
+// swizzle row) x 64 channels x 1 image, zeros past T and K: a 64-row
+// MN-major A operand one swizzle row deep
+inline int encode_map_cm(CUtensorMap* map, const void* ptr, int batch, int k,
+                         int t) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(k),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(t) * 2,
+                                 static_cast<cuuint64_t>(t) * k * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

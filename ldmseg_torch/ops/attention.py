@@ -49,9 +49,11 @@ rounding points and sums ``oh·Wo[h]`` over the heads in fp32. The port keeps
 the JAX wrapper's shape rule (``T > 2048``, ``T % 8``, ``C % heads`` or ``d
 % 8`` go to :func:`absorbed_attention_fallback`, the float ``_xla_absorbed``
 :312, counted in ``absorbed_self_attention.fallbacks``); every other shape
-runs ``csrc/attention_fwd.cu:ldmseg_attention_absorbed`` (three hand-written
-products, K1's device code on the head views, one more product; counted in
-``absorbed_self_attention.launches``) or, on a CPU tensor,
+runs ``csrc/attention_fwd.cu:ldmseg_attention_absorbed`` (in bf16 the Q,
+K and V projections as one launch of the Hopper product
+``csrc/gemm_sm90.cuh`` over the three weights, K1's device code on the head
+views, ``to_out`` on the same product; plans from :func:`absorbed_plans`;
+counted in ``absorbed_self_attention.launches``) or, on a CPU tensor,
 :func:`absorbed_attention_reference`. JAX's backward is the XLA VJP of
 ``_xla_absorbed`` (:321-338); the port's runs K2 on the head views of the q,
 k, v the forward kept, with the products for x and the four weights in
@@ -102,10 +104,14 @@ class LaunchPlan:
     smem_bytes: int
     grid: tuple
 
-    def as_c(self):
+    def fields(self) -> tuple:
         """The nine ints the C entry points read (``struct Plan``)."""
-        fields = (self.head_class, self.block_q, self.block_k, self.stages,
-                  self.box_d, self.chunks, self.smem_bytes, *self.grid)
+        return (self.head_class, self.block_q, self.block_k, self.stages,
+                self.box_d, self.chunks, self.smem_bytes, *self.grid)
+
+    def as_c(self):
+        """:meth:`fields` as a C int array."""
+        fields = self.fields()
         return (ctypes.c_int * len(fields))(*fields)
 
 
@@ -641,10 +647,29 @@ def absorbed_attention_reference(x: torch.Tensor, wq: torch.Tensor,
     return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale)[0]
 
 
+@functools.lru_cache(maxsize=None)
+def absorbed_plans(b: int, t: int, c: int, heads: int) -> tuple:
+    """K16's three launch plans, in the order its C entry point reads them:
+    K1's for the attention stage, then the Hopper product's
+    (``ops/gemm.py:sm90_gemm_plan``, bf16) for the Q/K/V projection, one
+    launch over the three weights as three maps of C rows, and for
+    ``to_out``."""
+    from .gemm import sm90_gemm_plan
+    return (sm90_launch_plan(b * heads, t, c // heads),
+            sm90_gemm_plan(b * t, 3 * c, c, "bfloat16", maps=3),
+            sm90_gemm_plan(b * t, c, c, "bfloat16"))
+
+
+@functools.lru_cache(maxsize=None)
+def _absorbed_plans_c(b: int, t: int, c: int, heads: int):
+    from .gemm import plans_c
+    return plans_c(*absorbed_plans(b, t, c, heads))
+
+
 @functools.cache
 def _absorbed_kernel():
     fn = _build.load("attention_fwd").ldmseg_attention_absorbed
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
                       ctypes.c_void_p])
@@ -674,16 +699,23 @@ def _absorbed_forward(x, wq, wk, wv, wo, heads, scale):
         raise ValueError(f"K16: head dim {d} (a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}), B*heads {b * heads} or "
                          f"{x.numel()} elements not taken")
+    dev = x.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _absorbed_forward(x, wq, wk, wv, wo, heads, scale)
     x = x.contiguous()
     ws = [w.contiguous() for w in ws]
-    q, k, v, oh, out = (torch.empty_like(x) for _ in range(5))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _absorbed_kernel()(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), *(w.data_ptr() for w in ws),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
-            out.data_ptr(), b, t, c, heads, float(scale),
-            _plan_c(b * heads, t, d), stream)
+    # q, k, v and oh in one allocation: its four views are what autograd
+    # saves
+    q, k, v, oh = torch.empty((4, b, t, c), dtype=x.dtype,
+                              device=x.device).unbind(0)
+    out = torch.empty_like(x)
+    err = _absorbed_kernel()(
+        _DTYPE_CODE[x.dtype], dev, x.data_ptr(), *(w.data_ptr() for w in ws),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
+        out.data_ptr(), b, t, c, heads, float(scale),
+        _absorbed_plans_c(b, t, c, heads),
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"K16 launch failed: CUDA error {err}")
     absorbed_self_attention.launches += 1

@@ -48,7 +48,11 @@ K8 (``absorbed_padded_ln_self_attention_s8(..., proj_in=)``, :1070-1135,
 kernel ``_attn_kernel_abs_padded_ln_s8_vt_pin`` :875) keeps K3's rule; its
 fallback (:func:`ln_attention_s8_pin_fallback`) projects in fp32 on the
 float32 weight, rounds to x's dtype and takes K3's; its pack is K3's with
-the ``proj_in`` weight in bf16 and the bias (:func:`with_proj_in`). K11
+the ``proj_in`` weight in bf16 and the bias (:func:`with_proj_in`). On the
+card its prologue ``xf = x·Wpiᵀ + b_pi`` (fp32, never rounded) runs on the
+Hopper product (``csrc/gemm_sm90.cuh``), reading x as tokens or, where x is
+the tokens view of the GroupNorm's NCHW output, channel-major as it lies
+(plans from :func:`pin_plans`; alone, :func:`proj_in_f32`). K11
 (``absorbed_padded_self_attention_s8`` :1226, kernel
 ``_attn_kernel_abs_padded_s8`` :646) keeps the same rule; its fallback
 (:func:`padded_attention_s8_fallback`) is the float attention on the
@@ -397,6 +401,28 @@ def _ln_plans_c(b: int, t: int, c: int, heads: int):
     return plans_c(*ln_attention_plans(b, t, c, heads))
 
 
+def proj_in_plan(b: int, t: int, c: int, channels_major: bool):
+    """The launch plan of K8's prologue, ``[B·T, C]·[C, C]ᵀ`` in bf16: A as
+    tokens, or channel-major ``[B, C, T]`` with its row tiles per image."""
+    return sm90_gemm_plan(b * t, c, c, "bfloat16",
+                          images=b if channels_major else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def pin_plans(b: int, t: int, c: int, heads: int,
+              channels_major: bool) -> tuple:
+    """K8's four launch plans, in the order its C entry point reads them:
+    the prologue's (:func:`proj_in_plan`), then K3's three
+    (:func:`ln_attention_plans`)."""
+    return (proj_in_plan(b, t, c, channels_major),
+            *ln_attention_plans(b, t, c, heads))
+
+
+@functools.lru_cache(maxsize=None)
+def _pin_plans_c(b: int, t: int, c: int, heads: int, channels_major: bool):
+    return plans_c(*pin_plans(b, t, c, heads, channels_major))
+
+
 # K13's attention stage on Hopper (csrc/attention_s8.cu,
 # attn_s8pv_kernel_sm90), which K15, K11, K10 without v_bf16, K17 and K18
 # run too: the skeleton of K1 and K3 (csrc/attention_sm90.cuh) with an int8
@@ -526,13 +552,14 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
         raise ValueError(f"{name}: score_scale {p.score_scale} must be > 0 "
                          f"(the kernel takes the row max of the int32 "
                          f"scores)")
-    try:
-        plans = _ln_plans_c(b, t, c, h)
-    except ValueError as e:
-        raise ValueError(f"{name}: {e}") from None
     channels_major = pin and x.transpose(1, 2).is_contiguous()
     if not channels_major:
         x = x.contiguous()
+    try:
+        plans = (_pin_plans_c(b, t, c, h, channels_major) if pin
+                 else _ln_plans_c(b, t, c, h))
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     ops = (p.ln_w, p.ln_b, p.out_b, p.w_qkv, p.m_qkv, p.wo) + (
         (p.wpi, p.bpi) if pin else ())
     if any(o is None or o.device != x.device or not o.is_contiguous()
@@ -818,6 +845,43 @@ def ln_attention_s8_pin(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
 
 ln_attention_s8_pin.launches = 0
 ln_attention_s8_pin.fallbacks = 0
+
+
+@functools.cache
+def _proj_in_kernel():
+    fn = _build.load("attention_ln_s8").ldmseg_proj_in_f32
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def proj_in_f32(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+    """K8's prologue alone: ``xf = float(x)·float(Wpi)ᵀ + b_pi`` in fp32,
+    ``[B·T, C]``, from bf16 ``x [B, T, C]`` (tokens, or the tokens view of a
+    contiguous ``[B, C, T]``, read channel-major). No model path calls it:
+    the card tests and ``chip_smoke.py`` hold the kernel's prologue against
+    ``torch.matmul`` in fp32 with it (``csrc/attention_ln_s8.cu:
+    ldmseg_proj_in_f32``). A CPU tensor takes the plain version."""
+    b, t, c = x.shape
+    if x.dtype != torch.bfloat16 or p.wpi is None:
+        raise ValueError("proj_in_f32: bf16 x and a pack with proj_in")
+    if x.device.type == "cpu":
+        return (x.float() @ p.wpi.float().t() + p.bpi).reshape(b * t, c)
+    channels_major = x.transpose(1, 2).is_contiguous()
+    if not channels_major:
+        x = x.contiguous()
+    xf = torch.empty((b * t, c), dtype=torch.float32, device=x.device)
+    plan = plans_c(proj_in_plan(b, t, c, channels_major))
+    with torch.cuda.device(x.device):
+        err = _proj_in_kernel()(
+            int(channels_major), x.data_ptr(), p.wpi.data_ptr(),
+            p.bpi.data_ptr(), xf.data_ptr(), b, t, c, plan,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"proj_in_f32 launch failed: CUDA error {err}")
+    return xf
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
-"""The Hopper product of the int8 blocks, ``C = A·Wᵀ``, and its launch plan.
+"""The Hopper product of the int8 blocks and the bf16 projections, ``C =
+A·Wᵀ``, and its launch plan.
 
 ``csrc/gemm_sm90.cuh`` computes ``A [rows, k] · W [n, k]ᵀ`` with int8
 operands and int32 sums or bf16 operands and fp32 sums (TMA ring, ``wgmma``,
 the caller's epilogue on the accumulator registers). K3, K4, K8, K9, K10
 and K12 run their products on it (``csrc/attention_ln_s8.cu``,
-``csrc/geglu_ln_s8.cu``); :func:`sm90_gemm_plan` chooses each launch's
-tiles and ring, the wrappers pass it, and the C entry points check it.
+``csrc/geglu_ln_s8.cu``), K8's ``proj_in`` prologue too (A row-major or
+channel-major), K16 its projections (``csrc/attention_fwd.cu``: W over
+three maps) and K11, K17 and K18 theirs (``csrc/attention_s8.cu``);
+:func:`sm90_gemm_plan` chooses each launch's tiles and ring, the wrappers
+pass it, and the C entry points check it.
 
 :func:`gemm_s8` and :func:`gemm_bf16` are the product with nothing around
 it (``csrc/gemm_sm90.cu``; ``gemm_s8(..., operands=2)`` the two-operand form
@@ -82,28 +86,51 @@ def gemm_takes(n: int, k: int, dtype: str) -> bool:
     return n >= 8 and n % 8 == 0 and k >= 1 and (k * esize) % 16 == 0
 
 
+def gemm_grid(rows: int, n: int, block_m: int, block_n: int,
+              maps: int = 1, images: int = 1) -> tuple:
+    """(row tiles, column tiles) of ``[rows, n]``: the row tiles per image
+    of ``rows / images`` rows, the column tiles per map of ``n / maps``
+    columns (``gemm_kernel``: no tile straddles two images or two maps)."""
+    return (images * -(-(rows // images) // block_m),
+            maps * -(-(n // maps) // block_n))
+
+
 @functools.lru_cache(maxsize=None)
 def sm90_gemm_plan(rows: int, n: int, k: int, dtype: str,
-                   operands: int = 1) -> GemmPlan:
+                   operands: int = 1, maps: int = 1,
+                   images: int = 1) -> GemmPlan:
     """The launch plan of ``[rows, k] · [n, k]ᵀ`` (``dtype`` "int8" or
     "bfloat16"; ``operands`` 2: two W tiles per stage into two accumulator
-    sets, K4's h and gate). The first tile of :data:`TILES` (after
+    sets, K4's h and gate; ``maps``: W in that many maps of ``n / maps``
+    rows, K16's wq, wk and wv, the tiles narrowed to the widths that divide
+    ``n / maps`` where one does, so that no column tile is cut short;
+    ``images``: A channel-major, K8's ``[images, k, rows / images]``, its
+    row tiles per image). The first tile of :data:`TILES` (after
     :data:`TILES_TWO_OPERANDS` for two operands) whose grid gives every SM
-    a block, else the one with the most blocks (the small
-    row counts of T = 128 and 32, bound by the weights' bytes); the
-    deepest ring of two to four stages that fits, no deeper than k."""
+    a block, else the one with the most blocks (the small row counts of T
+    = 128 and 32, bound by the weights' bytes); the deepest ring of two to
+    four stages that fits, no deeper than k."""
     if dtype not in DTYPES:
         raise ValueError(f"sm90_gemm_plan: dtype {dtype!r}")
-    if not gemm_takes(n, k, dtype) or rows < 1:
+    if (maps < 1 or images < 1 or n % maps or rows % images
+            or (maps > 1 and operands != 1)
+            or (images > 1 and dtype != "bfloat16")):
+        raise ValueError(f"sm90_gemm_plan: {maps} maps, {images} images of "
+                         f"[{rows}, {k}] x [{n}, {k}]^T in {dtype} with "
+                         f"{operands} operands")
+    if not gemm_takes(n // maps, k, dtype) or rows < 1:
         raise ValueError(f"sm90_gemm_plan: [{rows}, {k}] x [{n}, {k}]^T in "
-                         f"{dtype}: n must be a multiple of 8 and a row of "
-                         f"k elements a multiple of 16 bytes")
+                         f"{dtype}: n (per map) must be a multiple of 8 and "
+                         f"a row of k elements a multiple of 16 bytes")
     depth = ROW_BYTES if dtype == "int8" else ROW_BYTES // 2
     k_tiles = -(-k // depth)
 
     def blocks(tile):
-        return -(-rows // tile[0]) * -(-n // tile[1])
+        gx, gy = gemm_grid(rows, n, *tile, maps, images)
+        return gx * gy
     tiles = (TILES_TWO_OPERANDS if operands == 2 else ()) + tuple(TILES)
+    if maps > 1:
+        tiles = tuple(t for t in tiles if (n // maps) % t[1] == 0) or tiles
     tile = next((t for t in tiles if blocks(t) >= SM90_SMS),
                 max(reversed(tiles), key=blocks))  # ties: the smaller tile
     block_m, block_n = tile
@@ -114,7 +141,7 @@ def sm90_gemm_plan(rows: int, n: int, k: int, dtype: str,
     return GemmPlan(DTYPES[dtype], block_m, block_n, operands, stages,
                     k_tiles, gemm_smem_bytes(block_m, block_n, operands,
                                              stages),
-                    (-(-rows // block_m), -(-n // block_n)))
+                    gemm_grid(rows, n, block_m, block_n, maps, images))
 
 
 def plans_c(*plans) -> ctypes.Array:

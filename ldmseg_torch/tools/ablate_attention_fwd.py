@@ -1,6 +1,6 @@
 """What bounds K1's bf16 kernel on the card: its time with parts taken out.
 
-    python -m ldmseg_torch.tools.ablate_attention_fwd [--iters N]
+    python -m ldmseg_torch.tools.ablate_attention_fwd [--iters N] [--k16]
 
 Builds copies of ``csrc/attention_fwd.cu`` with one part of the bf16 kernel
 (``attention_fwd_kernel_sm90``, the skeleton of ``csrc/attention_sm90.cuh``)
@@ -22,6 +22,17 @@ ran). The variants:
 * ``skeleton``: no loads, exponentials, products, row statistics or
   probabilities: the loop, the barriers and the ring's bookkeeping.
 
+With ``--k16`` it times K16's bf16 call (``ldmseg_attention_absorbed``:
+its Q/K/V product, K1's kernel, ``to_out``) in two forms of
+``csrc/attention_fwd.cu`` instead, device time per call summed over its
+kernels at the four shapes of the sampling forward (batch 2, 32x64 latent,
+8 heads) and per UNet forward (16 calls):
+
+* ``one launch``: the source as it is, Q, K and V in one launch of the
+  Hopper product over three weight maps;
+* ``three launches``: one launch per projection (a textual edit of the
+  source), each over the plan's column tiles of its weight.
+
 An edit that no longer matches the source raises. Needs a CUDA device and
 ``nvcc``; the copies are built under ``ldmseg_torch/_build/ablate/``.
 """
@@ -41,6 +52,27 @@ from ..ops import attention as A
 from .profile_sampling import _kernels
 
 SHAPES = [(2, 2048, 8, 40), (8, 1920, 8, 40)]
+# (B, T, C) of K16's calls in one UNet forward, with the calls of each
+K16_SHAPES = [((2, 2048, 320), 5), ((2, 512, 640), 5), ((2, 128, 1280), 5),
+              ((2, 32, 1280), 1)]
+# K16's Q/K/V as three launches of one weight map each, over the plan's
+# column tiles of one weight
+_K16_THREE_LAUNCHES = [(
+    "  int err = gemm90::launch_gemm_in_context<false, 3, false>(\n"
+    "      plans + gemm90::kPlanInts, x, w, rows, 3 * c, c, 0, 1,\n"
+    "      StoreBf16Epi{q, k, v, c}, stream);\n",
+    "  int plan1[gemm90::kPlanInts];\n"
+    "  for (int i = 0; i < gemm90::kPlanInts; ++i) {\n"
+    "    plan1[i] = plans[gemm90::kPlanInts + i];\n"
+    "  }\n"
+    "  plan1[gemm90::kPlanInts - 1] /= 3;\n"
+    "  int err = 0;\n"
+    "  for (int i = 0; i < 3 && err == 0; ++i) {\n"
+    "    auto* dst = static_cast<__nv_bfloat16*>(qkvo[i]);\n"
+    "    err = gemm90::launch_gemm_in_context<false, 1, false>(\n"
+    "        plan1, x, &w[i], rows, c, c, 0, 1,\n"
+    "        StoreBf16Epi{dst, dst, dst, c}, stream);\n"
+    "  }\n")]
 
 _NO_LOADS = [
     ("sm90::tma_load_4d(", "if (pass < 0) sm90::tma_load_4d("),
@@ -133,7 +165,9 @@ def _build_all(sources: dict, edited: str, target: str,
     return libs
 
 
-def _device_ms(fn, iters: int) -> float:
+def _device_ms(fn, iters: int, per_call: bool = False) -> float:
+    """K1's kernel's device time per launch, or (``per_call``) every
+    kernel's per call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -144,16 +178,75 @@ def _device_ms(fn, iters: int) -> float:
             fn()
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() for e in _kernels(prof)
-             if "attention_fwd_kernel_sm90" in e.name]
-    return sum(times) / len(times) / 1e3 if times else float("nan")
+             if per_call or "attention_fwd_kernel_sm90" in e.name]
+    if not times:
+        return float("nan")
+    return sum(times) / (iters if per_call else len(times)) / 1e3
+
+
+def k16_variants(src: str) -> dict:
+    """``csrc/attention_fwd.cu`` in K16's two forms by name."""
+    return {"one launch": src,
+            "three launches": _edit(src, _K16_THREE_LAUNCHES)}
+
+
+def ablate_k16(iters: int) -> dict:
+    """K16's device time per call and per UNet forward in each form of
+    :func:`k16_variants`, with its max abs error against the plain
+    version."""
+    from ..ops import gemm as G
+    libs = _build_all(k16_variants((_build.CSRC / "attention_fwd.cu")
+                                   .read_text()),
+                      "attention_fwd.cu", "attention_fwd.cu", "ablate_k16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    argtypes = A._absorbed_kernel().argtypes
+    dev = torch.cuda.current_device()
+    result = {}
+    for name, lib in libs.items():
+        fn = ctypes.CDLL(str(lib)).ldmseg_attention_absorbed
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        rows, per_forward = {}, 0.0
+        for (b, t, c), calls in K16_SHAPES:
+            x = torch.randn((b, t, c), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ws = [(0.05 * torch.randn((c, c), generator=gen, device="cuda"))
+                  .to(torch.bfloat16) for _ in range(4)]
+            bufs = [torch.empty_like(x) for _ in range(5)]
+            scale = (c // 8) ** -0.5
+            plans = G.plans_c(*A.absorbed_plans(b, t, c, 8))
+
+            def launch():
+                err = fn(1, dev, x.data_ptr(), *(w.data_ptr() for w in ws),
+                         *(z.data_ptr() for z in bufs), b, t, c, 8, scale,
+                         plans, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+
+            launch()
+            ref = A.absorbed_attention_reference(x, *ws, 8, scale)
+            ms = _device_ms(launch, iters, per_call=True)
+            per_forward += ms * calls
+            rows[str((b, t, c))] = {
+                "device_ms": ms, "calls_per_unet_forward": calls,
+                "max_abs_err": (bufs[4].float() - ref.float()).abs().max()
+                .item()}
+        result[name] = {"shapes": rows,
+                        "device_ms_per_unet_forward": per_forward}
+    return result
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--k16", action="store_true",
+                        help="K16's one-launch and three-launch Q/K/V")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_attention_fwd: needs a CUDA device")
+    if args.k16:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "k16": ablate_k16(args.iters)}), flush=True)
+        return 0
     libs = _build_all(
         variants((_build.CSRC / "attention_sm90.cuh").read_text()),
         "attention_sm90.cuh", "attention_fwd.cu")

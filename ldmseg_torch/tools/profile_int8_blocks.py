@@ -7,9 +7,15 @@ heads; ``chip_smoke.py``'s ``INT8_SHAPES``) it builds one transformer
 block's float modules with seeded weights, packs them as the int8 UNets do
 and traces 20 calls of each block on bf16 x with ``torch.profiler``: K3
 (``ln_attention_s8``), K4 (``geglu_ln_s8``, dynamic and a static interior
-scale), K13 (``fused_self_attention_s8`` on the head views of bf16 q, k, v,
-static scale 0.1), K15 (``fused_self_attention_packed_s8``), K11
-(``padded_attention_s8``) and K17 (``absorbed_self_attention_s8``). It
+scale), K8 (``ln_attention_s8_pin`` on the tokens view of a channel-major
+``[B, C, T]`` x, as the UNet hands it, with a seeded 1x1 ``proj_in``), K13
+(``fused_self_attention_s8`` on the head views of bf16 q, k, v, static
+scale 0.1), K15 (``fused_self_attention_packed_s8``), K11
+(``padded_attention_s8``), K17 (``absorbed_self_attention_s8``) and the
+bf16 K16 (``absorbed_self_attention`` on the block's four bf16 weights:
+the same shapes as the sampling path's, where K16 runs in bf16); beside
+K8 the bf16 1x1 ``proj_in`` conv alone (cuDNN: its prologue's library
+yardstick), beside K16 ``F.linear`` x 4 (cuBLAS: its products'). It
 prints one JSON line per (block, shape): the CUDA-event time per call, the
 device time per call summed over its kernels and split by kernel name, the
 same split by stage (:data:`STAGES`: LN + quantize, the products, the
@@ -87,7 +93,10 @@ def stages(fn, iters: int = 20) -> dict:
 # stage -> regex on a kernel's short name, per block; a kernel that matches
 # no stage counts under "other". The names of the parent designs (the
 # Ampere-era attn_s8_kernel, s8_gemm_kernel, group_amax_kernel,
-# head_out_kernel) are kept so that an older tree splits the same way.
+# head_out_kernel) are kept so that an older tree splits the same way; the
+# wmma product K8 and K16 ran before they moved to gemm_kernel
+# (bf16_gemm_kernel) is not: an older tree's K8 and K16 show it under
+# "other", and chip_smoke.py fails where it comes back.
 STAGES = {
     "K3": {"ln_quant": r"ln_quant_kernel", "qkv": r"QkvPadEpi",
            "attention": r"attn_s8_kernel_sm90", "to_out": r"ResidualEpi"},
@@ -111,6 +120,13 @@ STAGES = {
 # K18's wrapper repeats its per-tensor weight scales over the heads
 STAGES["K18"] = {**STAGES["K17"], "scales": r"direct_copy_kernel"}
 STAGES["K10"] = {**STAGES["K11"], "to_out": r"ResidualS8Epi"}
+# K8: K3's four behind the proj_in prologue on the Hopper product
+STAGES["K8"] = {"proj_in": r"^gemm_kernel<.*BiasF32Epi", **STAGES["K3"]}
+# K16 (bf16): Q, K and V in one launch over three W maps, K1's attention
+# kernel, to_out on one map
+STAGES["K16"] = {"qkv": r"^gemm_kernel<.*StoreBf16Epi, 3\b",
+                 "attention": r"attention_fwd_kernel_sm90",
+                 "to_out": r"^gemm_kernel<.*StoreBf16Epi, 1\b"}
 
 
 def by_stage(kid: str, by_name: dict) -> dict:
@@ -166,6 +182,29 @@ def block_runs(kid: str, x: torch.Tensor, mods) -> dict:
     if kid == "K11":
         ppack = S8.pack_padded_attention(attn, 8, 0.05)
         return {"K11": lambda: S8.padded_attention_s8(x, ppack)}
+    if kid == "K8":
+        from ldmseg_torch.models.layers import init_random_
+        conv = torch.nn.Conv2d(c, c, 1).to(x.device)
+        with torch.no_grad():
+            init_random_(conv, torch.Generator(device=x.device).manual_seed(c))
+        p = S8.with_proj_in(S8.pack_ln_attention(norm1, attn, 8, 0.1), conv)
+        xg = x.transpose(1, 2).contiguous().transpose(1, 2)  # [B, C, T]
+        # the prologue's library yardstick: the bf16 1x1 conv on NCHW
+        conv_b = torch.nn.Conv2d(c, c, 1).to(x.device, torch.bfloat16)
+        conv_b.load_state_dict(conv.state_dict())
+        x_nchw = xg.transpose(1, 2).unsqueeze(-1)
+        return {"K8": lambda: S8.ln_attention_s8_pin(xg, p),
+                "K8 proj_in conv (cuDNN)": lambda: conv_b(x_nchw)}
+    if kid == "K16":
+        import torch.nn.functional as F
+        from ldmseg_torch.ops import attention as A
+        ws = [m.weight.to(torch.bfloat16) for m in
+              (attn.to_q, attn.to_k, attn.to_v, attn.to_out[0])]
+        # its products' library yardstick: F.linear x 4 (cuBLAS)
+        return {"K16": lambda: A.absorbed_self_attention(x, *ws, 8,
+                                                         d ** -0.5),
+                "K16 F.linear x 4 (cuBLAS)": lambda: [F.linear(x, w)
+                                                      for w in ws]}
     if kid == "K17":
         p = S8.pack_absorbed_attention(attn, 8, 0.1)
         # a pack of a tree before the head-padded to_out has no wo_p
@@ -175,7 +214,7 @@ def block_runs(kid: str, x: torch.Tensor, mods) -> dict:
     raise ValueError(f"unknown block {kid!r}")
 
 
-BLOCKS = ("K3", "K4", "K13", "K15", "K11", "K17")
+BLOCKS = ("K3", "K4", "K8", "K13", "K15", "K11", "K17", "K16")
 
 
 def main() -> int:

@@ -49,6 +49,8 @@ FAMILIES = (  # first match wins
     ("K1/K14/K16 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
     ("K3/K8/K10 attention (sm90)", r"attn_s8_kernel_sm90"),
+    ("K8/K16 bf16 products: proj_in, qkv, to_out (sm90)",
+     r"gemm_kernel<.*(BiasF32Epi|StoreBf16Epi)"),
     ("K3/K8/K10 products: qkv, to_out (sm90)",
      r"gemm_kernel<.*(QkvPadEpi|ResidualEpi)"),
     ("K4/K9/K12 products: up, down (sm90)",
@@ -62,7 +64,7 @@ FAMILIES = (  # first match wins
      r"AbsorbedProjEpi)|gemm_heads_kernel"),
     ("K17/K18 dynamic quantize, to_out per head",
      r"group_quant_kernel|group_amax_kernel|head_out_kernel"),
-    ("K8/K9/K11/K16/K17 products (s8_common)",
+    ("K9 proj_out (s8_common), K16 fp32 products",
      r"s8_gemm_kernel|bf16_gemm_kernel|f32_gemm_kernel"),
     ("K3/K4/K11/K12/K17 (LN +) quantize", r"ln_quant_kernel"),
     ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
