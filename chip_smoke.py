@@ -67,8 +67,12 @@ Phases, one line each:
      their plain versions there, with times (CUDA events; the device time,
      the kernels a call and their split from ``torch.profiler``; the host
      time a call, ``tools/profile_gn.py:measure``: one kernel a K5 call,
-     two a K6 call), the bound and the bf16 PyTorch composition each
-     replaces, per forward and per shape class;
+     two a K6 call, two or three a K7 call as its plan says), the bound
+     and the bf16 PyTorch composition each replaces, per forward and per
+     shape class; K7 also bit-equal from call to call and per level (32x64
+     to 4x8) with its weight pack's time apart from the call and
+     ``F.conv2d``'s device time on the same y (cuDNN, the conv part's
+     yardstick), at the deep levels its share of 3.35 TB/s;
   15. that UNet's forward on K5 against the plain GN: 44 K5 launches;
   16. ``sample_panoptic`` on it as phase 4: 2,200 K5 and 800 K1 per call;
   17. ``train_loop`` on it (2 warm-up, 3 timed steps): 88 K5, 32 K1, 16 K2
@@ -85,9 +89,11 @@ Phases, one line each:
      (variant (a)'s flags with ``use_padded_attention``, filled from the
      same masters) against their plain versions at the four shapes of a
      forward, with times, the bound and the PyTorch composition each
-     replaces, K8's and K11's device time by stage (K8: the ``proj_in``
-     prologue and K3's four; K11: quantize, the Q/K and V products, the
-     attention, to_out; a kernel outside the stages fails), K8's prologue
+     replaces, K8's, K9's and K11's device time by stage (K8: the
+     ``proj_in`` prologue and K3's four; K9: K4's four and ``proj_out``,
+     beside ``F.linear`` on its operands; K11: quantize, the Q/K and V
+     products, the attention, to_out; a kernel outside the stages fails),
+     K8's prologue
      alone against ``torch.matmul`` in fp32 with x channel-major and as
      tokens, and a ragged T = 30 that the rule sends to each fallback;
   20. the int8 UNet with fused projs against the bf16 one: 16 K8, 16 K9,
@@ -1155,6 +1161,10 @@ def phase_unfused_kernels():
                     lambda: G.geglu_s8_reference(x, fpack),
                     lambda: f(x), geglu_bound_ms(b, t, c))
                 row["interior"] = mode
+                if per_fwd:
+                    row["device_ms"], row["stages_device_ms"] = (
+                        _stage_split(lambda: G.fused_geglu_s8(x, fpack),
+                                     _stages("K12")))
                 k12_rows.append(row)
                 print(f"phase 10 K12 {shape} {mode}: err "
                       f"{row['max_abs_err']:.3e} of max|ref| "
@@ -1163,7 +1173,9 @@ def phase_unfused_kernels():
                       f"; kernel {row['ms']:.4f} ms, plain "
                       f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                       f" ms ({row['bound_by']}), bf16 FF "
-                      f"{row['bf16_block_ms']:.4f} ms", flush=True)
+                      f"{row['bf16_block_ms']:.4f} ms; device "
+                      f"{_ms(row.get('device_ms'))}: "
+                      f"{row.get('stages_device_ms')}", flush=True)
     return k13_rows, k12_rows
 
 
@@ -1539,6 +1551,15 @@ def _gn_row(shape, dtype, err, rmax, fn, plain, composition, bound,
             "bytes": nbytes, **extra}
 
 
+def _per_forward(rows, key):
+    """The rows' ``key`` times their launches per forward, summed; None
+    when a trace gave no device time."""
+    vals = [(r.get(key), r["per_unet_forward"]) for r in rows
+            if r.get("per_unet_forward")]
+    return (None if any(v is None for v, _ in vals)
+            else sum(v * n for v, n in vals))
+
+
 def _sum(rows, key):
     """The rows' sum of ``key``; None when a trace gave no device time."""
     vals = [r[key] for r in rows]
@@ -1670,6 +1691,11 @@ def phase_gn_kernels(trainer, smi_line: str):
                 check(math.isfinite(err) and err <= GN_CONV_TOL * rmax,
                       f"K7 {label} {shape} -> {w.shape[0]}: max abs err "
                       f"{err} > {GN_CONV_TOL} x max|ref| {rmax}")
+                check(torch.equal(out, GC.gn_silu_conv(xs, sc, bi, w, cb, g,
+                                                       eps)),
+                      f"K7 {label} {shape}: two calls differ")
+                plan = GC.sm90_conv_plan(shape[0], shape[1], w.shape[0],
+                                         shape[2], shape[3], g)
                 row = _gn_row(
                     shape, "bfloat16", err, rmax,
                     lambda: GC.gn_silu_conv(xs, sc, bi, w, cb, g, eps),
@@ -1678,8 +1704,20 @@ def phase_gn_kernels(trainer, smi_line: str):
                     lambda: F.conv2d(F.silu(F.group_norm(xs, g, sc, bi, eps)),
                                      w, cb, padding=1),
                     _conv_bound(shape, w.shape[0]), site=label, path=group,
-                    cout=w.shape[0], fallback=False)
+                    cout=w.shape[0], fallback=False, splits=plan.splits,
+                    plan_launches=plan.launches)
                 row["tflops"] = row["ops"] / row["ms"] / 1e9
+                # the conv part's yardstick: cuDNN on the same y (K5's
+                # plain arithmetic, rounded to bf16), and the weight pack
+                # the call reads from its cache, timed apart
+                y = GN.group_norm_silu_reference(xs, sc, bi, g, eps)
+                row["conv2d_ms"] = time_ms(
+                    lambda: F.conv2d(y, w, cb, padding=1))
+                row["conv2d_device_ms"] = device_ms(
+                    lambda: F.conv2d(y, w, cb, padding=1), ALL_KERNELS,
+                    whole_call=True)
+                row["pack_ms"] = time_ms(lambda: GC.pack_conv_weight(w),
+                                         iters=5, warmup=1)
                 k7.append(row)
     check((k7_launched, k7_fallbacks) == (43, 1),
           f"K7 over the 44 halves: {k7_launched} launches and "
@@ -1701,12 +1739,18 @@ def phase_gn_kernels(trainer, smi_line: str):
               f" {sum(r['bf16_composition_ms'] for r in rows):.4f} ms, bound "
               f"{sum(r['bound_ms'] for r in rows):.4f} ms per UNet forward "
               f"[{smi_line}]", flush=True)
-    # the trace: one kernel a K5 call, two a K6 call (launch A and B), each
-    # at most once a call (a trace may drop a few events, never add one)
-    for kid, rows, want in (("K5", k5, {"gn_cluster_kernel"}),
-                            ("K6", k6, {"gn_cluster_kernel",
-                                        "gn_quant_kernel"})):
-        for r in rows:
+    # the trace: one kernel a K5 call, two a K6 call (launch A and B), two
+    # or three a K7 call (the activation pass, the product, the split's
+    # sum), each at most once a call (a trace may drop a few events, never
+    # add one)
+    k7_want = [(r, {"gn_pad_kernel", "gemm_kernel"}
+                | ({"conv_sum_kernel"} if r["splits"] > 1 else set()))
+               for r in k7 if not r["fallback"]]
+    for kid, rows_want in (("K5", [(r, {"gn_cluster_kernel"}) for r in k5]),
+                           ("K6", [(r, {"gn_cluster_kernel",
+                                        "gn_quant_kernel"}) for r in k6]),
+                           ("K7", k7_want)):
+        for r, want in rows_want:
             seen = r["kernel_launches"]
             names = {n.split("<")[0] for n in seen}
             check(not seen or (names == want and max(seen.values())
@@ -1719,6 +1763,8 @@ def phase_gn_kernels(trainer, smi_line: str):
                                           if not r["fallback"]])):
         for line in _by_shape_class(rows):
             print(f"phase 14 {kid} {line}", flush=True)
+    for line in _k7_levels([r for r in k7 if not r["fallback"]], smi_line):
+        print(f"phase 14 K7 {line}", flush=True)
     fp32_rel = max(r["fp32_max_abs_err"] / r["fp32_max_abs_ref"]
                    for r in k5 if "fp32_max_abs_err" in r)
     print(f"phase 14 K5 fp32: max err {fp32_rel:.3e} of max|ref| (tol "
@@ -1726,6 +1772,45 @@ def phase_gn_kernels(trainer, smi_line: str):
           f"{flips_total} of {codes_total}; K7 {k7_launched} launches, "
           f"{k7_fallbacks} fallback", flush=True)
     return k5, k6, k7
+
+
+def k7_levels(rows):
+    """K7's halves summed per level (H x W): halves, kernel (event) and
+    device ms, the bound, ``F.conv2d``'s device ms on the same y, the
+    weight packs' ms, the kernels a call, and the device's share of 3.35
+    TB/s for the bytes the bound counts."""
+    levels = {}
+    for r in rows:
+        _, _, h, w = r["shape_bchw"]
+        levels.setdefault(f"{h}x{w}", []).append(r)
+    out = {}
+    for level, rs in levels.items():
+        dev = _sum(rs, "device_ms")
+        out[level] = {
+            "halves": len(rs), "ms": sum(r["ms"] for r in rs),
+            "device_ms": dev, "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bytes": sum(r["bytes"] for r in rs),
+            "conv2d_device_ms": _sum(rs, "conv2d_device_ms"),
+            "conv2d_ms": sum(r["conv2d_ms"] for r in rs),
+            "pack_ms": sum(r["pack_ms"] for r in rs),
+            "kernels_per_call": sorted({round(r["kernels_per_call"], 2)
+                                        for r in rs
+                                        if r["kernels_per_call"]}),
+            "splits": sorted({r["splits"] for r in rs}),
+            "bandwidth_share": (sum(r["bytes"] for r in rs) / (dev * 1e-3)
+                                / PEAK_BYTES if dev else None)}
+    return out
+
+
+def _k7_levels(rows, smi_line):
+    for level, v in k7_levels(rows).items():
+        yield (f"level {level}: {v['halves']} halves, kernel "
+               f"{v['ms']:.4f} ms (device {_ms(v['device_ms'])} ms, "
+               f"kernels a call {v['kernels_per_call']}, splits "
+               f"{v['splits']}), bound {v['bound_ms']:.4f} ms, F.conv2d on "
+               f"the same y: device {_ms(v['conv2d_device_ms'])} ms, the "
+               f"weight packs {v['pack_ms']:.4f} ms (apart from the calls),"
+               f" share of 3.35 TB/s {v['bandwidth_share']} [{smi_line}]")
 
 
 def _kernels_ms(by_name):
@@ -2134,9 +2219,16 @@ def phase_padded_kernels(trainer, seed: int = 13):
                                 comp, bound)
                 if kid == "K11":
                     row["k13_block_ms"] = time_ms(lambda: k13(xs))
-                if kid in ("K8", "K11"):
+                if kid in ("K8", "K9", "K11"):
                     row["device_ms"], row["stages_device_ms"] = (
                         _stage_split(fn, _stages(kid)))
+                if kid == "K9":
+                    # proj_out's library yardstick: F.linear on operands of
+                    # its shapes (cuBLAS), never called by the port
+                    r2 = xs.reshape(b * t, c)
+                    row["proj_out_linear_device_ms"] = device_ms(
+                        lambda: F.linear(r2, p9.wpo), ALL_KERNELS,
+                        whole_call=True)
                 if kid == "K8":
                     row["proj_in_max_abs_err"] = _proj_in_check(xg, p8)
                 rows[kid].append(row)
@@ -2153,7 +2245,10 @@ def phase_padded_kernels(trainer, seed: int = 13):
                          if kid == "K11" else "")
                       + (f"; device {_ms(row.get('device_ms'))}: "
                          f"{row.get('stages_device_ms')}"
-                         if kid in ("K8", "K11") else "")
+                         if kid in ("K8", "K9", "K11") else "")
+                      + (f", F.linear on proj_out's operands (cuBLAS) "
+                         f"device {_ms(row['proj_out_linear_device_ms'])}"
+                         if kid == "K9" else "")
                       + (f"; the prologue alone against torch.matmul (fp32)"
                          f", tokens and channel-major: max abs err "
                          f"{row['proj_in_max_abs_err']}"
@@ -3507,7 +3602,12 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_pout_kernel",
                        padded_rows["K9"],
                        projs["default scales"]["counts"]["K9"],
-                       by_path("K9")),
+                       by_path("K9"))
+            | {"redesigned": "proj_out on csrc/gemm_sm90.cuh (bf16, "
+                             "operands swapped: Wpo r^T, stored "
+                             "channel-major)",
+               "proj_out_linear_device_ms": _per_forward(
+                   padded_rows["K9"], "proj_out_linear_device_ms")},
             int8_entry("attention_padded_s8", "K11",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:646",
@@ -3557,7 +3657,13 @@ def main() -> int:
                      " (bf16, batch 2, 32x64 latent; one falls back by the "
                      "6 MiB rule); no module routes to it, so 0 launches on "
                      "every path and 43 in phase 14")
-            | {"launches_in_its_phase": 43},
+            | {"launches_in_its_phase": 43,
+               "redesigned": "GN + SiLU into a padded channel-last scratch "
+                             "(a cluster per (image, group)), the 3x3 conv "
+                             "as one product on csrc/gemm_sm90.cuh over nine"
+                             " shifted taps, split-K at the deep levels",
+               "levels": k7_levels([r for r in k7_rows
+                                    if not r["fallback"]])},
             k14_entry(packed_rows, packed_counts["K14"], by_path("K14")),
             int8_entry("attention_packed_s8", "K15",
                        "ldmseg_torch/csrc/attention_s8.cu",

@@ -60,11 +60,17 @@
 // rounded, r = bf16(float(x) + y * gs * s2 + b2) over the whole row, then
 //   6. out = bf16(float(r Wpo) + b_po): bf16 operands, fp32 sums.
 // r crosses tiles of the product, so K4's kernels write it to a bf16
-// scratch [B*T, C] and one more, bf16_gemm_kernel (s8_common.cuh), runs the
-// product with the bias epilogue, writing out channel-major [B, C, T]: the
-// NCHW layout of Transformer2D's residual add, so the caller adds without a
-// permute. Its 2*T*C^2 bf16 operations per image are ~1/6 of K4's int8
-// operations counted at the bf16 rate.
+// scratch [B*T, C] and one more launch, gemm_sm90.cuh's bf16 product with
+// its operands swapped, computes out^T = Wpo r^T: A = Wpo [C_out, C_in]
+// and W = r, both K-major, so the product's rows are channels and its
+// columns tokens. The output is channel-major [B, C, T], the NCHW layout of
+// Transformer2D's residual add (the caller adds without a permute), and an
+// accumulator pair is two adjacent tokens of one image (T is even), one
+// 4-byte store; b_po is the row's value, fetched before the main loop
+// (ProjOutEpi). Its 2*T*C^2 bf16 operations per image are ~1/6 of K4's
+// int8 operations counted at the bf16 rate; at T = 128 and 32 (C = 1,280)
+// Wpo's 3.3 MB bound it, and its plan (ops/geglu.py:pout_plan) takes the
+// tile with the most blocks and a ring up to 8 stages deep to stream it.
 
 #include <type_traits>
 
@@ -236,17 +242,28 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
       stream);
 }
 
-// K9's epilogue: out = bf16(sum + bias[col]) channel-major, [rows / t][n][t]
-struct ChannelMajorBiasEpi {
-  static constexpr bool kColMajor = true;
+// K9's proj_out epilogue on the swapped product (rows: output channels,
+// columns: tokens of B*T): out = bf16(sum + b_po[row]) channel-major,
+// [B][c][t]; a column pair is two tokens of one image (t even)
+struct ProjOutEpi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 0;
+  using RowPre = float;  // b_po of the row
+  using Pre = gemm90::NoPre;
   const float* bias;
   __nv_bfloat16* out;
-  int n;
-  int t;
-  __device__ void operator()(int row, int col, float sum) const {
-    const int img = row / t;
-    out[(static_cast<long long>(img) * n + col) * t + (row - img * t)] =
-        __float2bfloat16_rn(sum + bias[col]);
+  int c, t;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ RowPre row_pre(int row) const { return __ldg(bias + row); }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*, const int2*,
+                             const RowPre& b, const Pre&, float s0,
+                             float s1) const {
+    const int img = col / t;
+    *reinterpret_cast<uint32_t*>(
+        out + (static_cast<long long>(img) * c + row) * t + (col - img * t)) =
+        sm90::pack_bf16(s0 + b, s1 + b);
   }
 };
 
@@ -323,7 +340,9 @@ extern "C" int ldmseg_geglu_s8(
 
 // K9: the arguments of ldmseg_geglu_ln_s8, with out bf16 channel-major
 // [batch, c, t], wpo bf16 [c, c] (out, in), bpo fp32 [c] and r bf16
-// [batch*t, c] scratch (the block's output, the product's A operand).
+// [batch*t, c] scratch (the block's output, the proj_out product's W
+// operand); plans holds a third plan, sm90_gemm_plan's of the swapped
+// proj_out product ([c, c] x [batch*t, c]^T, bf16).
 extern "C" int ldmseg_geglu_ln_s8_pout(
     int dtype, const void* x, void* out, const float* ln_w,
     const float* ln_b, const int8_t* w1, const float* s1, const float* b1,
@@ -336,9 +355,8 @@ extern "C" int ldmseg_geglu_ln_s8_pout(
                                      block_t, xs, gs, dynamic, eps, plans,
                                      stream);
   if (err != 0) return err;
-  return launch_bf16_gemm(
-      static_cast<const __nv_bfloat16*>(r),
-      static_cast<const __nv_bfloat16*>(wpo), batch * t, c, c,
-      ChannelMajorBiasEpi{bpo, static_cast<__nv_bfloat16*>(out), c, t},
+  return gemm90::launch_gemm<false>(
+      plans + 2 * gemm90::kPlanInts, wpo, r, c, batch * t, c, 0,
+      ProjOutEpi{bpo, static_cast<__nv_bfloat16*>(out), c, t},
       static_cast<cudaStream_t>(stream));
 }

@@ -1,23 +1,23 @@
-// One Hopper (sm_90a) product for the int8 blocks and the bf16 projections:
-// C = A W^T with A [rows, k] and W [n, k] both row-major (K-major), int8
-// with int32 sums or bf16 with fp32 sums, each output handed to the
-// caller's epilogue straight from the accumulator registers. It carries the
-// products of K3 (the Q/K/V projection, to_out; attention_ln_s8.cu), K4
-// and K12 (W1 with the gating, W2; geglu_ln_s8.cu), and through them K8,
-// K9 and K10; K8's proj_in prologue (bf16, fp32 out, A row-major or
-// channel-major); K16's projections (attention_fwd.cu: Q, K and V in one
-// launch over three W maps, to_out); and of K11, K10 without v_bf16, K17
-// and K18 (attention_s8.cu: the Q/K projection, the swapped V projection,
-// to_out; K17's projection with its group amax and its per-head to_out,
-// gemm_heads_kernel below); gemm_sm90.cu holds its test entry points (a
-// plain int32 and a plain fp32 store, the per-head product).
+// One Hopper (sm_90a) product for the int8 blocks, the bf16 projections
+// and the 3x3 conv: C = A W^T with A [rows, k] and W [n, k] both row-major
+// (K-major), int8 with int32 sums or bf16 with fp32 sums, each output handed
+// to the caller's epilogue straight from the accumulator registers. It
+// carries the products of K3 (the Q/K/V projection, to_out;
+// attention_ln_s8.cu), K4 and K12 (W1 with the gating, W2; geglu_ln_s8.cu),
+// and through them K8, K9 and K10; K9's proj_out (bf16, operands swapped:
+// Wpo r^T, the output channel-major); K8's proj_in prologue (bf16, fp32 out,
+// A row-major or channel-major); K16's projections (attention_fwd.cu: Q, K
+// and V in one launch over three W maps, to_out); K11, K10 without v_bf16,
+// K17 and K18 (attention_s8.cu: the Q/K projection, the swapped V
+// projection, to_out; K17's projection with its group amax and its
+// per-head to_out, gemm_heads_kernel below); and K7's 3x3 conv as nine
+// shifted taps of one padded activation (gn_silu_conv.cu, launch_gemm_taps
+// below); gemm_sm90.cu holds its test entry points (a plain int32 and a
+// plain fp32 store, the per-head product).
 //
-// Replaces, for those kernels, the Ampere-era helpers of s8_common.cuh
-// (synchronous 8-byte tile loads between __syncthreads, wmma 16x16x16 on
-// 64x64 tiles, each tile staged through shared memory before a scalar
-// epilogue). What bounds it on an H100: at the first level (4,096 rows,
-// k = 320 or 1,280) the tensor cores (1,979 TOPS int8, 989 TFLOP/s bf16);
-// at T = 128 and 32 (256 and 64 rows) the weights' bytes (3.35 TB/s).
+// What bounds it on an H100: at the first level (4,096 rows, k = 320 or
+// 1,280) the tensor cores (1,979 TOPS int8, 989 TFLOP/s bf16); at T = 128
+// and 32 (256 and 64 rows) the weights' bytes (3.35 TB/s).
 //
 // Design:
 //   * one block per (64 or 128 rows, 64 or 128 columns) output tile, or
@@ -32,6 +32,9 @@
 //     in boxes of 64 tokens x 64 channels: gemm_kernel), with full/empty
 //     mbarriers; a stage can hold a second W tile (`Epi::kOps == 2`: K4's
 //     h and gate rows of W1, `w_row2` rows apart, in two accumulator sets);
+//   * Epi::kTaps (K7): stage kt's coordinates come from the epilogue
+//     (epi.tap: a tap's weights and a row shift of W), and the stages are
+//     split over gridDim.z blocks per tile (split-K), each its own range;
 //   * wgmma m64nNk32 (int8) or m64nNk16 (bf16), N = the tile's columns,
 //     both operands K-major in shared memory (A MN-major when it is
 //     channel-major: WgmmaSsAT), one stage's products in
@@ -199,6 +202,13 @@ __device__ __forceinline__ void flush_group(const Epi& epi, int group,
   }
 }
 
+// Epi::kTaps, false where an epilogue does not name it
+template <class E, class = void>
+struct Taps : std::false_type {};
+template <class E>
+struct Taps<E, std::void_t<decltype(E::kTaps)>>
+    : std::integral_constant<bool, E::kTaps> {};
+
 // the W operand's tensor maps: one, or kMaps (K16's wq, wk and wv as the
 // caller passes them), each over n / kMaps rows of the output's columns
 template <int kMaps>
@@ -222,6 +232,9 @@ struct WMaps {
 // tiles lie per image (ceil(t / block_m) each), so none straddles two
 // images; TMA fills the rows past t with zeros and the epilogue skips
 // them.
+// Epi::kTaps: block z of gridDim.z takes the stages [z K / Z, (z + 1) K /
+// Z) of K = k_tiles, and stage kt loads A at (ak, m0) and W at (wk, wn0 +
+// shift) with epi.tap(kt, ak, wk, shift): K7's tap and channel block.
 template <bool kS8, int kBN, int kWG, class Epi, int kMaps, bool kAMN>
 __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     gemm_kernel(const __grid_constant__ CUtensorMap ta,
@@ -257,6 +270,18 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
   const int wn0 = (blockIdx.y - wmap * per_map) * kBN;
   const int n0 = wmap * map_cols + wn0;
   const int col_end = wmap * map_cols + map_cols;
+  // the block's stages [kt0, kt0 + kt_n): all of them, or its split's
+  constexpr bool kTapsMode = Taps<Epi>::value;
+  static_assert(!kTapsMode || (kMaps == 1 && !kAMN && Epi::kOps == 1),
+                "taps on one map, A row-major, one operand");
+  int kt0 = 0, kt_n = k_tiles;
+  if constexpr (kTapsMode) {
+    kt0 = static_cast<int>(static_cast<long long>(blockIdx.z) * k_tiles /
+                           gridDim.z);
+    kt_n = static_cast<int>(static_cast<long long>(blockIdx.z + 1) *
+                            k_tiles / gridDim.z) -
+           kt0;
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -280,11 +305,20 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
       sm90::tma_prefetch_map(&ta);
       sm90::tma_prefetch_map(tw_map);
       sm90::Slot slot;
-      for (int kt = 0; kt < k_tiles; ++kt, slot.next(stages)) {
+      for (int i = 0; i < kt_n; ++i, slot.next(stages)) {
+        const int kt = kt0 + i;
         const uint32_t s = slot.stage;
         const uint32_t st = tiles + s * kStage;
         sm90::mbar_wait(empty_bar + 8 * s, slot.phase ^ 1);
         sm90::mbar_expect_tx(full_bar + 8 * s, kStage);
+        if constexpr (kTapsMode) {
+          int ak, wk, shift;
+          epi.tap(kt, ak, wk, shift);
+          sm90::tma_load_2d(st, &ta, full_bar + 8 * s, ak, m0);
+          sm90::tma_load_2d(st + kATile, tw_map, full_bar + 8 * s, wk,
+                            wn0 + shift);
+          continue;
+        }
         if constexpr (kAMN) {
 #pragma unroll
           for (int w = 0; w < kWG; ++w) {
@@ -354,7 +388,7 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
     for (int i = 0; i < kBN / 2; ++i) acc[op][i] = 0;
   }
   sm90::Slot load, done;
-  for (int kt = 0; kt < k_tiles; ++kt) {
+  for (int kt = 0; kt < kt_n; ++kt) {
     sm90::mbar_wait(full_bar + 8 * load.stage, load.phase);
     const uint32_t st = tiles + load.stage * kStage;
     load.next(stages);
@@ -459,13 +493,13 @@ __global__ void __launch_bounds__(128 * (kWG + 1), 1)
 template <bool kS8, int kBN, int kWG, class Epi, int kMaps, bool kAMN>
 int launch_as(const Plan& p, const CUtensorMap& ta, const WMaps<kMaps>& tw,
               int rows, int n, int w_row2, int t, Epi epi,
-              cudaStream_t stream) {
+              cudaStream_t stream, int splits = 1) {
   auto kernel = gemm_kernel<kS8, kBN, kWG, Epi, kMaps, kAMN>;
   // once per instantiation: any plan's shared memory is within the limit
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<dim3(p.grid_x, p.grid_y), 128 * (kWG + 1), p.smem_bytes,
+  kernel<<<dim3(p.grid_x, p.grid_y, splits), 128 * (kWG + 1), p.smem_bytes,
            stream>>>(ta, tw, rows, n, w_row2, p.k_tiles, p.stages, t, epi);
   return static_cast<int>(cudaGetLastError());
 }
@@ -536,6 +570,52 @@ int launch_gemm(const int* plan, const void* a, const void* w, int rows,
   if (current != 0) return current;
   return launch_gemm_in_context<kS8, 1, false>(plan, a, &w, rows, n, k,
                                                w_row2, 1, epi, stream);
+}
+
+// ---- taps: K7's 3x3 conv as one implicit product ---------------------------
+// C = A W^T summed over Epi::kTaps stages: A [rows, a_cols] row-major (K7's
+// weights, [Cout, 9 Cin]) and W [w_rows, w_cols] row-major (its padded
+// activation, [positions, Cin]), bf16, 16-byte aligned, rows a multiple of
+// 16 bytes; the output is [rows, n], n a multiple of 8 (positions rounded
+// up; zeros past w_rows). Stage kt reads what epi.tap(kt, ...) names; the
+// stages split over `splits` blocks per tile (the epilogue sees
+// blockIdx.z). `plan` is sm90_gemm_plan's of [rows, n, 64 k_tiles] bf16,
+// checked. Makes a's device current first. Returns a cudaError_t.
+template <class Epi>
+int launch_gemm_taps(const int* plan, const void* a, const void* w, int rows,
+                     int a_cols, int n, int w_rows, int w_cols, int splits,
+                     Epi epi, cudaStream_t stream) {
+  static_assert(Taps<Epi>::value && Epi::kOps == 1, "a taps epilogue");
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+               plan[5], plan[6], plan[7], plan[8]};
+  if (!plan_ok(p, false, rows, n, 64 * p.k_tiles, 1) || splits < 1 ||
+      splits > p.k_tiles || splits > 65535 || w_rows < 1 || w_rows > n ||
+      a_cols < 1 || w_cols < 1 || (a_cols * 2) % 16 != 0 ||
+      (w_cols * 2) % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int current = sm90::make_current(a);
+  if (current != 0) return current;
+  CUtensorMap ta;
+  WMaps<1> tw;
+  int err = sm90::encode_map_2d(&ta, a, 2, rows, a_cols, a_cols, p.block_m);
+  if (err != 0) return err;
+  err = sm90::encode_map_2d(&tw.map[0], w, 2, w_rows, w_cols, w_cols,
+                            p.block_n);
+  if (err != 0) return err;
+  if (p.block_m == 128) {
+    return p.block_n == 128
+               ? launch_as<false, 128, 2, Epi, 1, false>(
+                     p, ta, tw, rows, n, 0, 1, epi, stream, splits)
+               : launch_as<false, 64, 2, Epi, 1, false>(
+                     p, ta, tw, rows, n, 0, 1, epi, stream, splits);
+  }
+  return p.block_n == 128
+             ? launch_as<false, 128, 1, Epi, 1, false>(p, ta, tw, rows, n, 0,
+                                                       1, epi, stream, splits)
+             : launch_as<false, 64, 1, Epi, 1, false>(p, ta, tw, rows, n, 0,
+                                                      1, epi, stream, splits);
 }
 
 // ---- the per-head product (K17's and K18's to_out) ------------------------

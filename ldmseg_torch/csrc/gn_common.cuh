@@ -14,11 +14,10 @@
 // plain PyTorch version, one rounding per operation, gets them too up to
 // expf.
 //
-// K5 and K6 take the sums of a span in one thread-block cluster
-// (groupnorm_silu.cu). K7 takes them in two steps: gn_stats_kernel, block
-// (chunk k, span s) sums kChunk elements of span s and writes its partial
-// (sum x, sum x^2); group_stats: a reader of span s folds its partials in
-// chunk order, so every reader gets the same mean and inv.
+// K5 and K6 (groupnorm_silu.cu) and K7's activation pass (gn_silu_conv.cu)
+// take the sums of a span in one thread-block cluster, folded in a fixed
+// order: each thread in load order, the warps in order, the CTAs in rank
+// order through distributed shared memory (cluster_arrive, cluster_wait).
 
 #pragma once
 
@@ -31,7 +30,6 @@
 namespace gn {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 4096;  // elements of one span per block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -102,71 +100,12 @@ __device__ __forceinline__ void span_stats(float s1, float s2, float n,
   inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
 }
 
-// span_stats of span s from its `chunks` partials, folded in chunk order
-__device__ __forceinline__ void group_stats(const float2* __restrict__ part,
-                                            int s, int chunks, float n,
-                                            float eps, float& mean,
-                                            float& inv) {
-  float s1 = 0.f, s2 = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    const float2 p = part[static_cast<long long>(s) * chunks + k];
-    s1 = __fadd_rn(s1, p.x);
-    s2 = __fadd_rn(s2, p.y);
-  }
-  span_stats(s1, s2, n, eps, mean, inv);
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-// grid (chunks, spans): part[s * chunks + k] = (sum x, sum x^2) over chunk k
-// of span s. Block (0, 0) also zeroes `zero_words` words of `zero` when it
-// is not null (K7 passes null).
-// kVec > 1 needs span % kVec == 0 and a 16-byte aligned x.
-template <typename T, int kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ part,
-                    int span, int chunks, unsigned* __restrict__ zero,
-                    int zero_words) {
-  __shared__ float red[kThreads / 32];
-  if (zero != nullptr && blockIdx.x == 0 && blockIdx.y == 0) {
-    for (int i = threadIdx.x; i < zero_words; i += kThreads) zero[i] = 0u;
-  }
-  const T* xs = x + static_cast<long long>(blockIdx.y) * span;
-  const int start = blockIdx.x * kChunk;
-  const int end = min(start + kChunk, span);
-  float s1 = 0.f, s2 = 0.f;
-  for (int i = start + threadIdx.x * kVec; i < end; i += kThreads * kVec) {
-    const Pack<T, kVec> p = *reinterpret_cast<const Pack<T, kVec>*>(xs + i);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      const float v = to_f(p.v[k]);
-      s1 += v;
-      s2 = fmaf(v, v, s2);
-    }
-  }
-  s1 = block_reduce<false>(s1, red);
-  s2 = block_reduce<false>(s2, red);
-  if (threadIdx.x == 0) {
-    part[static_cast<long long>(blockIdx.y) * chunks + blockIdx.x] =
-        make_float2(s1, s2);
-  }
-}
-
-inline int num_chunks(int span) { return (span + kChunk - 1) / kChunk; }
-
-// gn_stats_kernel on the stream; returns a cudaError_t
-template <typename T>
-inline int launch_stats(const T* x, float2* part, int spans, int span,
-                        unsigned* zero, int zero_words, bool vec,
-                        cudaStream_t stream) {
-  const dim3 grid(num_chunks(span), spans);
-  constexpr int kV = 16 / sizeof(T);
-  if (vec) {
-    gn_stats_kernel<T, kV><<<grid, kThreads, 0, stream>>>(
-        x, part, span, grid.x, zero, zero_words);
-  } else {
-    gn_stats_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
-        x, part, span, grid.x, zero, zero_words);
-  }
-  return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace gn

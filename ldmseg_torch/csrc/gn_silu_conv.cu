@@ -1,6 +1,6 @@
 // K7 on Hopper: one ResnetBlock half, out = conv3x3(silu(gn(x) * scale +
-// bias), w) + b, padding 1, on bf16 NCHW x [B, Cin, H, W], w [Cout, Cin, 3,
-// 3], fp32 sums, bf16 out [B, Cout, H, W].
+// bias), w) + b, padding 1, on bf16 NCHW x [B, Cin, H, W], fp32 sums, bf16
+// out [B, Cout, H, W].
 //
 // Replaces the TPU kernel ldmseg_tpu/ops/pallas/gn_silu_conv.py:_kernel
 // (pallas_call in _forward, public fused_gn_silu_conv / gn_silu_conv). Its
@@ -10,200 +10,394 @@
 // nine taps are products of bf16 values summed in fp32, and the bias is
 // added in fp32 before the cast.
 //
-// What bounds it on an H100: operations. 2 * B * H * W * 9 * Cin * Cout
-// bf16 operations at 989 TFLOP/s against x, w and the output at 3.35 TB/s;
-// at the first level of the UNet (B=2, 2048 pixels, Cin=Cout=320) ~7.5
-// GFLOP (~7.6 us) against ~5.3 MB (~1.6 us).
+// What bounds it on an H100: at the first level of the UNet (B = 2, 32x64,
+// Cin = Cout = 320) operations, ~7.5 GFLOP (~7.6 us at 989 TFLOP/s)
+// against ~5.3 MB (~1.6 us at 3.35 TB/s); at 8x16 and 4x8 (Cout = 1,280,
+// Cin up to 2,560) the weights, 29.5-59 MB (9-18 us).
 //
-// Design. The statistics are gn_common.cuh's stats pass. The conv is an
-// implicit GEMM: a block owns 4 rows x 16 columns of output pixels (one
-// 16-pixel row per warp, one wmma M fragment) and 64 output channels, and
-// walks Cin 16 channels at a time. For each 16 channels it stages
-//   - the input tile with its one-pixel halo, 6 x 18 pixels x 16 channels,
-//     normalized, scaled, shifted and SiLU'd from x and rounded to bf16,
-//     with zeros outside the image, laid out [row][column][channel] so that
-//     the A fragment of tap (dy, dx) for warp r is the 16 x 16 block at
-//     [r + dy][dx][0] with ld 16 (every such block starts on a 32-byte
-//     boundary, as wmma asks);
-//   - the weights of the 9 taps, [tap][16 channels][64 outputs], read from
-//     w's own layout (each output's 16 x 9 values are contiguous);
-// and runs 9 taps x 4 bf16 wmma m16n16k16 products per warp into fp32
-// accumulators. The epilogue stages the accumulators channel-major, adds the
-// bias in fp32 and writes bf16 rows of pixels. No stage overlaps its loads
-// with the products: a first design, right before fast.
+// Design: the TPU kernel's own trick, nine shifted matmuls over a padded
+// scratch, in three launches at most.
+//   a. gn_pad_kernel: y into a zero-padded, channel-last bf16 scratch of
+//      `wp` columns a row, [B][H + 2][wp][Cin]: image row r, column c at
+//      padded position p = (img (H + 2) + r + 1) wp + c; rows 0 and H + 1
+//      of each image and the columns [W, wp) of every row are zeros, which
+//      this pass writes itself. One column of zeros between two rows is
+//      both the right halo of one and the left halo of the next (p - 1 at
+//      c = 0 lands in the previous row's last column), so wp = W + 1
+//      rounded up to even: positions pair up as columns do. One thread-
+//      block cluster of k <= 8 CTAs per (image, group), as many as hold the
+//      span at 8,192 values a CTA (K5's budget; one CTA and no cluster
+//      barrier for a small span), each CTA a range of image rows of the
+//      group's channels: x read once (16-byte loads
+//      when W % 8 == 0) into shared memory, the sums folded in a fixed
+//      order (gn_common.cuh, through distributed shared memory), then y =
+//      gn_silu of the held values (gn_common.cuh, K5's arithmetic) stored
+//      channel-last, pairs of channels at a time (plan:
+//      ops/gn_silu_conv.py:sm90_conv_plan, checked here);
+//   b. the conv as one implicit GEMM on gemm_sm90.cuh, its operands
+//      swapped: A = the weights packed once tap-major and K-major, [Cout,
+//      9 Cin] (w.permute(0, 2, 3, 1), by the wrapper, cached per weight),
+//      W = the scratch seen as [positions, Cin]; rows of the product are
+//      output channels, columns padded positions. The reduction runs over
+//      (tap, 64-channel block) stages: tap (dy, dx) reads A at columns tap
+//      Cin + 64 cb and the scratch at rows p + (dy - 1) wp + (dx - 1), a
+//      2-D TMA box at a shifted row coordinate, zeros past either end (and
+//      past Cin, so a partial channel block's A columns of the next tap
+//      multiply zeros). Interior outputs never read across an image, so a
+//      tile may run over padded positions of several images; the epilogue
+//      drops the halo positions (9% of the columns at 32x64, up to 47% at
+//      4x8). ConvEpi adds b in fp32 and stores bf16 NCHW, a pair of
+//      columns two pixels of one row (one 4-byte store when W is even);
+//   c. where row tiles x column tiles is under the card's 132 SMs (the
+//      deep levels, whose weights bound them), the stages split over
+//      `splits` blocks per tile; each writes its fp32 partials to a
+//      workspace [splits][Cout][n] and conv_sum_kernel adds them in split
+//      order, then b, so that repeats are bit-equal.
+// The TPU kernel's per-image grid and VMEM limit are gone; the JAX dispatch
+// rule (6 MiB) stays in the wrapper.
 
-#include <mma.h>
+#include <cooperative_groups.h>
 
+#include "gemm_sm90.cuh"
 #include "gn_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using gn::group_stats;
+namespace cg = cooperative_groups;
 using gn::gn_silu;
-
-constexpr int kTW = 16;               // output columns of a tile
-constexpr int kTH = 4;                // output rows of a tile, one per warp
-constexpr int kTN = 64;               // output channels of a tile
-constexpr int kKC = 16;               // input channels of one stage
-constexpr int kThreads = 32 * kTH;
-constexpr int kHaloW = kTW + 2;
-constexpr int kHaloH = kTH + 2;
-constexpr int kPix = kTH * kTW;
-constexpr int kStLd = kPix + 4;       // fp32 staging row (one channel)
-
+using gn::kThreads;
 using bf16 = __nv_bfloat16;
 
-__global__ void __launch_bounds__(kThreads)
-    gn_conv_kernel(const bf16* __restrict__ x, const float2* __restrict__ part,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ bias, const bf16* __restrict__ w,
-                   const float* __restrict__ b, bf16* __restrict__ out, int cin,
-                   int cout, int h, int wd, int groups, int chunks, float eps,
-                   int tiles_x) {
-  __shared__ __align__(32) bf16 Hs[kHaloH * kHaloW * kKC];
-  __shared__ __align__(32) bf16 Ws[9 * kKC * kTN];
-  __shared__ __align__(32) float St[kTN * kStLd];
-  __shared__ float s_mean[kKC], s_inv[kKC];
+constexpr int kMaxCluster = 8;
+constexpr int kPadValues = 8192;  // x values a CTA of the pass holds
+constexpr int kPadSmemLimit = 200 * 1024;  // the activation pass's slice
 
-  const int img = blockIdx.z;
-  const int y0 = (blockIdx.x / tiles_x) * kTH;
-  const int x0 = (blockIdx.x % tiles_x) * kTW;
-  const int n0 = blockIdx.y * kTN;
+// ops/gn_silu_conv.py:ConvPlan.fields(): the product's nine plan ints, then
+// these
+struct TapsPlan {
+  int wp, cblocks, splits;    // padded row width, 64-channel blocks, split
+  int k, rows_per_cta, vec;   // the activation pass's cluster, rows, loads
+  int pad_smem;               // its dynamic shared memory
+};
+
+struct PadArgs {
+  const bf16* x;
+  const float* scale;
+  const float* bias;
+  bf16* y;
+  int c, h, w, wp, groups, cg, rows_per_cta;
+  float eps;
+};
+
+// ---- a: GN + SiLU into the padded channel-last scratch ---------------------
+// grid spans * k, clusters of k: CTA `rank` of span s = img * groups + g
+// holds image rows [rank r, rank r + r) (r = rows_per_cta) of the group's
+// cg channels, [channel][pixel] in shared memory, ld = pixels + 2 (odd in
+// words: the y loop's reads across channels fall in distinct banks)
+template <int kVec>
+__global__ void __launch_bounds__(kThreads) gn_pad_kernel(const PadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  __shared__ float2 part;
+  __shared__ float red[2][kThreads / 32];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.x / k;
+  const int img = s / a.groups;
+  const int c0 = (s - img * a.groups) * a.cg;
+  const int r0 = rank * a.rows_per_cta;
+  const int r1 = min(a.h, r0 + a.rows_per_cta);
+  const int npix = (r1 - r0) * a.w;
+  const int ld = npix + 2;
+  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x / 32;
-  const int cg = cin / groups;
-  const float n = static_cast<float>(cg) * static_cast<float>(h * wd);
-  const bf16* ximg = x + static_cast<long long>(img) * cin * h * wd;
-  const bool vec_w = cin % kKC == 0;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kTN / 16];
+  // 1. the slice, per channel a contiguous run of npix values
+  const int per_ch = npix / kVec;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < a.cg * per_ch; i += kThreads) {
+    const int cl = i / per_ch;
+    const int pv = (i - cl * per_ch) * kVec;
+    using P = gn::Pack<bf16, kVec>;
+    const P p = *reinterpret_cast<const P*>(
+        a.x + (static_cast<long long>(img) * a.c + c0 + cl) * a.h * a.w +
+        static_cast<long long>(r0) * a.w + pv);
 #pragma unroll
-  for (int f = 0; f < kTN / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int c0 = 0; c0 < cin; c0 += kKC) {
-    __syncthreads();  // the previous stage's products are done
-    if (threadIdx.x < kKC && c0 + threadIdx.x < cin) {
-      group_stats(part, img * groups + (c0 + threadIdx.x) / cg, chunks, n,
-                  eps, s_mean[threadIdx.x], s_inv[threadIdx.x]);
-    }
-    // weights: Ws[tap][ci][co] = w[n0 + co][c0 + ci][tap]
-    if (vec_w) {
-      constexpr int kRow = kKC * 9 / 8;  // 16-byte words per output
-      for (int i = threadIdx.x; i < kTN * kRow; i += kThreads) {
-        const int co = i / kRow;
-        const int j = (i - co * kRow) * 8;  // first (ci * 9 + tap) of 8
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (n0 + co < cout) {
-          raw = *reinterpret_cast<const uint4*>(
-              w + (static_cast<long long>(n0 + co) * cin + c0) * 9 + j);
-        }
-        const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int ci = (j + k) / 9;
-          const int tap = j + k - ci * 9;
-          Ws[(tap * kKC + ci) * kTN + co] = v[k];
-        }
-      }
-    } else {
-      for (int i = threadIdx.x; i < kTN * kKC * 9; i += kThreads) {
-        const int co = i / (kKC * 9);
-        const int j = i - co * (kKC * 9);
-        const int ci = j / 9;
-        const int tap = j - ci * 9;
-        bf16 v = __float2bfloat16_rn(0.f);
-        if (n0 + co < cout && c0 + ci < cin) {
-          v = w[(static_cast<long long>(n0 + co) * cin + c0 + ci) * 9 + tap];
-        }
-        Ws[(tap * kKC + ci) * kTN + co] = v;
-      }
-    }
-    __syncthreads();  // s_mean, s_inv
-    // the activation tile with its halo; y = 0 outside the image
-    for (int i = threadIdx.x; i < kKC * kHaloH * kHaloW; i += kThreads) {
-      const int hx = i % kHaloW;
-      const int rest = i / kHaloW;
-      const int hy = rest % kHaloH;
-      const int ci = rest / kHaloH;
-      const int c = c0 + ci;
-      const int yy = y0 - 1 + hy;
-      const int xx = x0 - 1 + hx;
-      float v = 0.f;
-      if (c < cin && yy >= 0 && yy < h && xx >= 0 && xx < wd) {
-        v = gn_silu(__bfloat162float(
-                        ximg[(static_cast<long long>(c) * h + yy) * wd + xx]),
-                    s_mean[ci], s_inv[ci], scale[c], bias[c]);
-      }
-      Hs[(hy * kHaloW + hx) * kKC + ci] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap - dy * 3;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Hs + ((warp + dy) * kHaloW + dx) * kKC, kKC);
-#pragma unroll
-      for (int f = 0; f < kTN / 16; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, Ws + tap * kKC * kTN + f * 16, kTN);
-        wmma::mma_sync(acc[f], a, bm, acc[f]);
-      }
+    for (int e = 0; e < kVec; ++e) {
+      const float f = __bfloat162float(p.v[e]);
+      s1 = __fadd_rn(s1, f);
+      s2 = __fadd_rn(s2, __fmul_rn(f, f));
+      xs[cl * ld + pv + e] = p.v[e];
     }
   }
-  // epilogue: St[co][pixel], then bias in fp32 and the bf16 cast
-#pragma unroll
-  for (int f = 0; f < kTN / 16; ++f) {
-    wmma::store_matrix_sync(St + f * 16 * kStLd + warp * 16, acc[f], kStLd,
-                            wmma::mem_col_major);
+  // 2. the span's sums: the warps in order, then the cluster's CTAs
+  s1 = gn::warp_sum(s1);
+  s2 = gn::warp_sum(s2);
+  if (lane == 0) {
+    red[0][warp] = s1;
+    red[1][warp] = s2;
   }
   __syncthreads();
-  bf16* oimg = out + static_cast<long long>(img) * cout * h * wd;
-  for (int i = threadIdx.x; i < kTN * kPix; i += kThreads) {
-    const int co = i / kPix;
-    const int p = i - co * kPix;
-    const int yy = y0 + p / kTW;
-    const int xx = x0 + p % kTW;
-    if (n0 + co < cout && yy < h && xx < wd) {
-      oimg[(static_cast<long long>(n0 + co) * h + yy) * wd + xx] =
-          __float2bfloat16_rn(__fadd_rn(St[co * kStLd + p], b[n0 + co]));
+  if (threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      t1 = __fadd_rn(t1, red[0][w]);
+      t2 = __fadd_rn(t2, red[1][w]);
+    }
+    part = make_float2(t1, t2);
+  }
+  float t1 = 0.f, t2 = 0.f;
+  if (k == 1) {
+    __syncthreads();
+    t1 = __fadd_rn(t1, part.x);
+    t2 = __fadd_rn(t2, part.y);
+  } else {
+    gn::cluster_arrive();
+    gn::cluster_wait();
+    float2 p[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < k) p[q] = *cluster.map_shared_rank(&part, q);
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < k) {
+        t1 = __fadd_rn(t1, p[q].x);
+        t2 = __fadd_rn(t2, p[q].y);
+      }
+    }
+    // done with the other CTAs' `part`; the wait before the exit keeps
+    // this CTA's until every CTA of the cluster has read it
+    gn::cluster_arrive();
+  }
+  float mean, inv;
+  gn::span_stats(t1, t2, static_cast<float>(a.cg * a.h * a.w), a.eps, mean,
+                 inv);
+
+  // 3. y channel-last, two channels a store where cg is even
+  bf16* yimg = a.y + static_cast<long long>(img) * (a.h + 2) * a.wp * a.c;
+  const int units = a.cg % 2 == 0 ? a.cg / 2 : a.cg;  // stores a pixel
+  const int per_unit = a.cg / units;
+  for (int i = threadIdx.x; i < npix * units; i += kThreads) {
+    const int pix = i / units;
+    const int j = (i - pix * units) * per_unit;
+    const int rr = r0 + pix / a.w;
+    const int cc = pix - (rr - r0) * a.w;
+    bf16* dst = yimg + (static_cast<long long>(rr + 1) * a.wp + cc) * a.c +
+                c0 + j;
+    const float y0 = gn_silu(__bfloat162float(xs[j * ld + pix]), mean, inv,
+                             a.scale[c0 + j], a.bias[c0 + j]);
+    if (per_unit == 2) {
+      const float y1 =
+          gn_silu(__bfloat162float(xs[(j + 1) * ld + pix]), mean, inv,
+                  a.scale[c0 + j + 1], a.bias[c0 + j + 1]);
+      *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(y0, y1);
+    } else {
+      *dst = __float2bfloat16_rn(y0);
     }
   }
+  // 4. the halo's zeros in the group's channels: the columns [w, wp) of
+  // this CTA's rows, row 0 (rank 0) and row h + 1 (the last rank)
+  const int right = a.wp - a.w;
+  const int side = (r1 - r0) * right;
+  const int top = rank == 0 ? a.wp : 0;
+  const int bottom = rank == k - 1 ? a.wp : 0;
+  for (int i = threadIdx.x; i < (side + top + bottom) * units;
+       i += kThreads) {
+    const int q = i / units;
+    const int j = (i - q * units) * per_unit;
+    int prow, col;
+    if (q < side) {
+      prow = r0 + 1 + q / right;
+      col = a.w + q % right;
+    } else if (q < side + top) {
+      prow = 0;
+      col = q - side;
+    } else {
+      prow = a.h + 1;
+      col = q - side - top;
+    }
+    bf16* dst = yimg + (static_cast<long long>(prow) * a.wp + col) * a.c +
+                c0 + j;
+    if (per_unit == 2) {
+      *reinterpret_cast<uint32_t*>(dst) = 0u;
+    } else {
+      *dst = __float2bfloat16_rn(0.f);
+    }
+  }
+  if (k > 1) gn::cluster_wait();
+}
+
+// ---- b: the product's taps and epilogue ------------------------------------
+// rows: output channels; columns: padded positions of [B][h + 2][wp]
+struct ConvEpi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 0;
+  static constexpr bool kTaps = true;
+  using RowPre = float;  // b of the row
+  using Pre = gemm90::NoPre;
+  const float* bias;
+  bf16* out;      // [batch][cout][h][w], splits == 1
+  float* part;    // [splits][cout][n], splits > 1
+  int batch, cout, h, w, wp, n, cin, cblocks, splits;
+  // stage kt: tap t = kt / cblocks (dy = t / 3, dx = t % 3), channel block
+  // cb; A (the weights) at column t cin + 64 cb, W (the scratch) at column
+  // 64 cb and the row shift of the tap
+  __device__ void tap(int kt, int& ak, int& wk, int& shift) const {
+    const int t = kt / cblocks;
+    const int cb = kt - t * cblocks;
+    ak = t * cin + 64 * cb;
+    wk = 64 * cb;
+    shift = (t / 3 - 1) * wp + (t % 3 - 1);
+  }
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ RowPre row_pre(int row) const { return __ldg(bias + row); }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*, const int2*,
+                             const RowPre& b, const Pre&, float s0,
+                             float s1) const {
+    if (splits > 1) {
+      *reinterpret_cast<float2*>(
+          part + (static_cast<long long>(blockIdx.z) * cout + row) * n +
+          col) = make_float2(s0, s1);
+      return;
+    }
+    const int per_img = (h + 2) * wp;
+    const int img = col / per_img;
+    const int rem = col - img * per_img;
+    const int prow = rem / wp;
+    const int cc = rem - prow * wp;  // even: wp and col are
+    if (img >= batch || prow < 1 || prow > h || cc >= w) return;
+    bf16* o = out + ((static_cast<long long>(img) * cout + row) * h +
+                     (prow - 1)) * w + cc;
+    const float v0 = __fadd_rn(s0, b), v1 = __fadd_rn(s1, b);
+    if (w % 2 == 0) {
+      *reinterpret_cast<uint32_t*>(o) = sm90::pack_bf16(v0, v1);
+    } else {
+      o[0] = __float2bfloat16_rn(v0);
+      if (cc + 1 < w) o[1] = __float2bfloat16_rn(v1);
+    }
+  }
+};
+
+// ---- c: the split's partials summed in split order, then b -----------------
+__global__ void __launch_bounds__(kThreads)
+    conv_sum_kernel(const float* __restrict__ part,
+                    const float* __restrict__ bias, bf16* __restrict__ out,
+                    int cout, int h, int w, int wp, int n, int splits,
+                    long long total) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int cc = static_cast<int>(i % w);
+  long long r = i / w;
+  const int rr = static_cast<int>(r % h);
+  r /= h;
+  const int co = static_cast<int>(r % cout);
+  const int img = static_cast<int>(r / cout);
+  const long long p =
+      (static_cast<long long>(img) * (h + 2) + rr + 1) * wp + cc;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    s = __fadd_rn(s, part[(static_cast<long long>(z) * cout + co) * n + p]);
+  }
+  out[i] = __float2bfloat16_rn(__fadd_rn(s, __ldg(bias + co)));
+}
+
+template <int kVec>
+int launch_pad(const PadArgs& a, int spans, int k, int smem,
+               cudaStream_t stream) {
+  auto kernel = gn_pad_kernel<kVec>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPadSmemLimit);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = k;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(spans * k);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a));
+}
+
+// the plan's geometry is the shape's (ops/gn_silu_conv.py:sm90_conv_plan)
+bool taps_ok(const TapsPlan& t, int batch, int cin, int cout, int h, int w,
+             int groups, bool aligned) {
+  const int cg_ = cin / groups;
+  // as many CTAs as hold the span at kPadValues each, at most kMaxCluster
+  const long long span = static_cast<long long>(cg_) * h * w;
+  const long long need = (span + kPadValues - 1) / kPadValues;  // >= 1
+  const int ctas = static_cast<int>(need < kMaxCluster ? need : kMaxCluster);
+  return t.wp == w + 1 + (w + 1) % 2 && t.cblocks == (cin + 63) / 64 &&
+         t.rows_per_cta >= 1 && t.k >= 1 && t.k <= kMaxCluster &&
+         t.k == (h + t.rows_per_cta - 1) / t.rows_per_cta &&
+         t.rows_per_cta == (h + ctas - 1) / ctas &&
+         (t.vec == 1 || (t.vec == 8 && w % 8 == 0 && aligned)) &&
+         t.pad_smem == cg_ * (t.rows_per_cta * w + 2) * 2 &&
+         t.pad_smem <= kPadSmemLimit && batch * groups * t.k <= 65535 * 8 &&
+         cout >= 1;
 }
 
 }  // namespace
 
-// x bf16 [batch, cin, h, w] and out bf16 [batch, cout, h, w] contiguous; w
-// bf16 [cout, cin, 3, 3] contiguous (16-byte aligned when cin % 16 == 0);
-// scale, bias fp32 [cin], b fp32 [cout]; part fp32 scratch of 2 * batch *
-// groups * chunks words (chunks = ceil(cin / groups * h * w / 4096)). vec =
-// 1 takes 16-byte loads in the statistics: it needs cin / groups * h * w % 8
-// == 0 and a 16-byte aligned x. Returns a cudaError_t.
+// x bf16 [batch, cin, h, w] and out bf16 [batch, cout, h, w] contiguous;
+// wpack bf16 [cout, 9 cin] (w.permute(0, 2, 3, 1)); scale, bias fp32 [cin],
+// b fp32 [cout]; ypad bf16 scratch [batch (h + 2) wp, cin]; part fp32
+// scratch of splits * cout * n words when splits > 1. cin a multiple of 8
+// (a scratch row and a weight row are multiples of 16 bytes); all 16-byte
+// aligned. plan: ops/gn_silu_conv.py:ConvPlan.fields(), the product's nine
+// ints (sm90_gemm_plan of [cout, n, 576 cblocks] bf16, n the positions
+// rounded up to 8) and TapsPlan's seven, checked. Returns a cudaError_t.
 extern "C" int ldmseg_gn_silu_conv(const void* x, const float* scale,
-                                   const float* bias, const void* w,
-                                   const float* b, void* out, float* part,
-                                   int batch, int cin, int cout, int h, int wd,
-                                   int groups, float eps, int vec,
-                                   void* stream) {
-  if (batch < 1 || cin < 1 || cout < 1 || h < 1 || wd < 1 || groups < 1 ||
-      cin % groups != 0 || batch > 65535 || batch * groups > 65535 ||
-      (cout + kTN - 1) / kTN > 65535 ||
-      static_cast<long long>(cin / groups) * h * wd > (1ll << 30)) {
+                                   const float* bias, const void* wpack,
+                                   const float* b, void* out, void* ypad,
+                                   float* part, int batch, int cin, int cout,
+                                   int h, int wd, int groups, float eps,
+                                   const int* plan, void* stream) {
+  if (plan == nullptr || batch < 1 || cin < 8 || cin % 8 != 0 || cout < 1 ||
+      h < 1 || wd < 1 || groups < 1 || cin % groups != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int* tp = plan + gemm90::kPlanInts;
+  const TapsPlan t{tp[0], tp[1], tp[2], tp[3], tp[4], tp[5], tp[6]};
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long positions = static_cast<long long>(batch) * (h + 2) * t.wp;
+  const long long n = (positions + 7) / 8 * 8;
+  if (!taps_ok(t, batch, cin, cout, h, wd, groups, aligned) ||
+      plan[5] != 9 * t.cblocks ||
+      n > (1ll << 30) || (t.splits > 1 && part == nullptr) ||
+      reinterpret_cast<uintptr_t>(ypad) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int current = sm90::make_current(x);
+  if (current != 0) return current;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  float2* p2 = reinterpret_cast<float2*>(part);
-  const int span = cin / groups * h * wd;
-  int err = gn::launch_stats<bf16>(xb, p2, batch * groups, span, nullptr, 0,
-                                   vec != 0, s);
+  const PadArgs a{static_cast<const bf16*>(x), scale, bias,
+                  static_cast<bf16*>(ypad), cin, h, wd, t.wp, groups,
+                  cin / groups, t.rows_per_cta, eps};
+  int err = t.vec == 8
+                ? launch_pad<8>(a, batch * groups, t.k, t.pad_smem, s)
+                : launch_pad<1>(a, batch * groups, t.k, t.pad_smem, s);
   if (err != 0) return err;
-  const int tiles_x = (wd + kTW - 1) / kTW;
-  const int tiles = tiles_x * ((h + kTH - 1) / kTH);
-  const dim3 grid(tiles, (cout + kTN - 1) / kTN, batch);
-  gn_conv_kernel<<<grid, kThreads, 0, s>>>(
-      xb, p2, scale, bias, static_cast<const bf16*>(w), b,
-      static_cast<bf16*>(out), cin, cout, h, wd, groups, gn::num_chunks(span),
-      eps, tiles_x);
+  const ConvEpi epi{b, static_cast<bf16*>(out), part, batch, cout, h, wd,
+                    t.wp, static_cast<int>(n), cin, t.cblocks, t.splits};
+  err = gemm90::launch_gemm_taps(plan, wpack, ypad, cout, 9 * cin,
+                                 static_cast<int>(n),
+                                 static_cast<int>(positions), cin, t.splits,
+                                 epi, s);
+  if (err != 0 || t.splits == 1) return err;
+  const long long total = static_cast<long long>(batch) * cout * h * wd;
+  conv_sum_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                    kThreads, 0, s>>>(part, b, static_cast<bf16*>(out), cout,
+                                      h, wd, t.wp, static_cast<int>(n),
+                                      t.splits, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@
 //      values in load order, the warp by a butterfly, the warps in order;
 //   3. through distributed shared memory every CTA reads the k CTAs'
 //      partials in rank order, so all of them hold the same sums and the
-//      same mean and inv (gn_common.cuh:span_stats, group_stats' formula);
+//      same mean and inv (gn_common.cuh:span_stats);
 //   4. K5 applies gn_silu (gn_common.cuh) to the registers and stores: one
 //      launch, one read of x, one write, no scratch;
 //   4. K6 (launch A) computes the same y and its max |y|; the first CTA of
@@ -66,14 +66,6 @@ constexpr int kMaxCluster = 8;              // CTAs of a span (portable)
 struct Plan {
   int vec, k, per_cta, rounds;
 };
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // The arguments of both K6 launches and K5's
 template <typename T, typename W>

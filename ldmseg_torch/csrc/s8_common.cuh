@@ -1,28 +1,20 @@
-// Pieces shared by K3 and K8 (attention_ln_s8.cu), K4, K9 and K12
-// (geglu_ln_s8.cu) and K13, K11, K15, K10, K17 and K18 (attention_s8.cu):
-// the (LayerNorm +) static-scale int8 quantize of token rows (every one of
-// them), and the one Ampere-era product that is left, bf16 x bf16 with fp32
-// sums on 64x64 output tiles (nvcuda::wmma 16x16x16) with the caller's
-// epilogue, whose one caller is K9's proj_out (geglu_ln_s8.cu); it goes
-// when that moves to gemm_sm90.cuh. Every other product runs on
-// gemm_sm90.cuh (K8's proj_in prologue and K16's bf16 projections too),
-// every int8 attention on attention_sm90.cuh.
+// What K3 and K8 (attention_ln_s8.cu), K4, K9 and K12 (geglu_ln_s8.cu)
+// and K13, K11, K15, K10, K17 and K18 (attention_s8.cu) share besides the
+// Hopper product: the (LayerNorm +) static-scale int8 quantize of token
+// rows. Every product runs on gemm_sm90.cuh, every int8 attention on
+// attention_sm90.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <math.h>
 #include <stdint.h>
 
 namespace s8 {
 
-constexpr int kTile = 64;           // rows and columns of an output tile
-constexpr int kThreads = 128;       // 4 warps; warp w owns rows [16w, 16w+16)
-constexpr int kDepth = 64;          // depth of one shared-memory stage
-constexpr int kStageLd = kTile + 4; // row stride of the int32/fp32 staging
+constexpr int kThreads = 128;  // 4 warps, one token row each
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -118,92 +110,6 @@ int launch_ln_quant(const void* x, int8_t* x8, const float* w,
   ln_quant_kernel<T, kLN><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), x8, w, b, rows, c, xs, eps, zero,
       zero_words, stats);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- a whole product: C = A W^T on 64x64 output tiles ---------------------
-// A [rows, k] and W [n, k] row-major (k a multiple of 8), bf16, each
-// element of the fp32 product handed to epi(row, col, sum) for row < rows,
-// col < n. The epilogue is the caller's rounding point: a functor with a
-// __device__ operator() and a static constexpr bool kColMajor, which makes
-// the tile's elements go to threads down its columns (consecutive rows to
-// consecutive threads), so that a store to a channel-major [images][n][t]
-// output is coalesced.
-template <class Epi>
-__global__ void __launch_bounds__(kThreads)
-    bf16_gemm_kernel(const __nv_bfloat16* __restrict__ a,
-                     const __nv_bfloat16* __restrict__ w, int rows, int n,
-                     int k, Epi epi) {
-  using namespace nvcuda;
-  constexpr int kLd = kDepth + 8;   // [64 rows][depth] tiles
-  __shared__ __align__(256) __nv_bfloat16 As[kTile * kLd];
-  __shared__ __align__(256) __nv_bfloat16 Bs[kTile * kLd];
-  __shared__ __align__(256) float S[kTile * kStageLd];
-  const int r0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int k0 = 0; k0 < k; k0 += kDepth) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTile * (kDepth / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int u = i & 7;
-      const int kk = k0 + u * 8;
-      uint4 bw = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < k && n0 + r < n) {
-        bw = *reinterpret_cast<const uint4*>(
-            w + static_cast<long long>(n0 + r) * k + kk);
-      }
-      *reinterpret_cast<uint4*>(Bs + r * kLd + u * 8) = bw;
-      uint4 av = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < k && r0 + r < rows) {
-        av = *reinterpret_cast<const uint4*>(
-            a + static_cast<long long>(r0 + r) * k + kk);
-      }
-      *reinterpret_cast<uint4*>(As + r * kLd + u * 8) = av;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          af;
-      wmma::load_matrix_sync(af, As + warp * 16 * kLd + kk * 16, kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major>
-            bf;
-        wmma::load_matrix_sync(bf, Bs + j * 16 * kLd + kk * 16, kLd);
-        wmma::mma_sync(acc[j], af, bf, acc[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::store_matrix_sync(S + warp * 16 * kStageLd + j * 16, acc[j],
-                            kStageLd, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int major = i / kTile;
-    const int minor = i - major * kTile;
-    const int r = Epi::kColMajor ? minor : major;
-    const int cc = Epi::kColMajor ? major : minor;
-    if (r0 + r < rows && n0 + cc < n) {
-      epi(r0 + r, n0 + cc, S[r * kStageLd + cc]);
-    }
-  }
-}
-
-template <class Epi>
-int launch_bf16_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
-                     int rows, int n, int k, Epi epi, cudaStream_t stream) {
-  const dim3 grid((rows + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  bf16_gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(a, w, rows, n, k,
-                                                       epi);
   return static_cast<int>(cudaGetLastError());
 }
 

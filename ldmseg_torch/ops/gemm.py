@@ -5,9 +5,11 @@ A·Wᵀ``, and its launch plan.
 operands and int32 sums or bf16 operands and fp32 sums (TMA ring, ``wgmma``,
 the caller's epilogue on the accumulator registers). K3, K4, K8, K9, K10
 and K12 run their products on it (``csrc/attention_ln_s8.cu``,
-``csrc/geglu_ln_s8.cu``), K8's ``proj_in`` prologue too (A row-major or
-channel-major), K16 its projections (``csrc/attention_fwd.cu``: W over
-three maps) and K11, K17 and K18 theirs (``csrc/attention_s8.cu``);
+``csrc/geglu_ln_s8.cu``), K9's ``proj_out`` too (operands swapped), K8's
+``proj_in`` prologue (A row-major or channel-major), K16 its projections
+(``csrc/attention_fwd.cu``: W over three maps), K11, K17 and K18 theirs
+(``csrc/attention_s8.cu``) and K7 its 3x3 conv (``csrc/gn_silu_conv.cu``:
+nine shifted taps, split-K);
 :func:`sm90_gemm_plan` chooses each launch's tiles and ring, the wrappers
 pass it, and the C entry points check it.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -34,7 +37,11 @@ from .attention import SM90_SMEM_LIMIT, SM90_SMS
 from .quant import exact_int8_matmul
 
 ROW_BYTES = 128          # one swizzle row: the depth of a stage
-MAX_STAGES = 4           # the deepest ring the plan takes (the C side: 8)
+# shared memory of an SM, and what the card keeps of it for each block
+# (NVIDIA's Hopper tuning guide): how many blocks of a plan are resident
+SM90_SMEM_PER_SM, SM90_SMEM_RESERVED = 233472, 1024
+MAX_STAGES = 4           # the deepest ring the plan takes by default
+DEEP_STAGES = 8          # ... where the weights' bytes bound (the C side's)
 # (rows, columns) of an output tile, in the order the plan tries them; a
 # two-operand product (K4's up, whose gating epilogue is most of its time)
 # tries 256 x 64 first: four consumer warpgroups share the epilogue
@@ -97,8 +104,9 @@ def gemm_grid(rows: int, n: int, block_m: int, block_n: int,
 
 @functools.lru_cache(maxsize=None)
 def sm90_gemm_plan(rows: int, n: int, k: int, dtype: str,
-                   operands: int = 1, maps: int = 1,
-                   images: int = 1) -> GemmPlan:
+                   operands: int = 1, maps: int = 1, images: int = 1,
+                   max_stages: int = MAX_STAGES,
+                   tile: Optional[tuple] = None) -> GemmPlan:
     """The launch plan of ``[rows, k] · [n, k]ᵀ`` (``dtype`` "int8" or
     "bfloat16"; ``operands`` 2: two W tiles per stage into two accumulator
     sets, K4's h and gate; ``maps``: W in that many maps of ``n / maps``
@@ -108,11 +116,15 @@ def sm90_gemm_plan(rows: int, n: int, k: int, dtype: str,
     row tiles per image). The first tile of :data:`TILES` (after
     :data:`TILES_TWO_OPERANDS` for two operands) whose grid gives every SM
     a block, else the one with the most blocks (the small row counts of T
-    = 128 and 32, bound by the weights' bytes); the deepest ring of two to
-    four stages that fits, no deeper than k."""
+    = 128 and 32, bound by the weights' bytes), or ``tile`` where the
+    caller names one; the deepest ring of two to ``max_stages`` stages
+    (four by default; K9's ``proj_out`` and K7, bound by their weights,
+    take up to :data:`DEEP_STAGES`) that fits, no deeper than k."""
     if dtype not in DTYPES:
         raise ValueError(f"sm90_gemm_plan: dtype {dtype!r}")
     if (maps < 1 or images < 1 or n % maps or rows % images
+            or not 2 <= max_stages <= DEEP_STAGES
+            or (tile is not None and tuple(tile) not in TILES)
             or (maps > 1 and operands != 1)
             or (images > 1 and dtype != "bfloat16")):
         raise ValueError(f"sm90_gemm_plan: {maps} maps, {images} images of "
@@ -131,10 +143,11 @@ def sm90_gemm_plan(rows: int, n: int, k: int, dtype: str,
     tiles = (TILES_TWO_OPERANDS if operands == 2 else ()) + tuple(TILES)
     if maps > 1:
         tiles = tuple(t for t in tiles if (n // maps) % t[1] == 0) or tiles
-    tile = next((t for t in tiles if blocks(t) >= SM90_SMS),
-                max(reversed(tiles), key=blocks))  # ties: the smaller tile
+    if tile is None:
+        tile = next((t for t in tiles if blocks(t) >= SM90_SMS),
+                    max(reversed(tiles), key=blocks))  # ties: the smaller
     block_m, block_n = tile
-    deepest = max(2, min(MAX_STAGES, k_tiles))
+    deepest = max(2, min(max_stages, k_tiles))
     stages = next(s for s in range(deepest, 1, -1)
                   if gemm_smem_bytes(block_m, block_n, operands, s)
                   <= SM90_SMEM_LIMIT)

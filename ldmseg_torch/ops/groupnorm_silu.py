@@ -37,7 +37,6 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_TILE_BYTES = 8 * 1024 * 1024
-CHUNK = 4096  # elements of one span per block of K7's statistics pass
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # K5's and K6's clusters (csrc/groupnorm_silu.cu)
 THREADS = 256            # threads of a CTA
@@ -208,21 +207,6 @@ def check_kernel_input(name: str, x: torch.Tensor, groups: int,
     if x.shape[0] * groups > 65535:
         raise ValueError(f"{name}: B x groups = {x.shape[0] * groups} > "
                          f"65535")
-
-
-def stats_scratch(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """The statistics pass's partial sums: 2 fp32 words per chunk of each
-    (image, group) span."""
-    chunks = -(-_image_numel(x) // groups // CHUNK)
-    return torch.empty(2 * x.shape[0] * groups * chunks, dtype=torch.float32,
-                       device=x.device)
-
-
-def vectorizes(x: torch.Tensor, groups: int) -> bool:
-    """16-byte accesses: every span a whole number of 16-byte words on an
-    aligned base."""
-    return (_image_numel(x) // groups * x.element_size()) % 16 == 0 \
-        and x.data_ptr() % 16 == 0
 
 
 def _affine_operands(name, x, scale, bias):

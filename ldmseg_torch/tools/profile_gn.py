@@ -128,7 +128,9 @@ def main() -> int:
     kids = args.kernels.split(",")
     gen = torch.Generator(device="cuda").manual_seed(3)
     classes = {}
-    with torch.inference_mode():
+    # no_grad, not inference_mode: K7 packs a weight once per version, and
+    # an inference tensor keeps no version (it would pack at every call)
+    with torch.no_grad():
         for shape, cout in site_shapes():
             c = shape[1]
             x = (torch.randn(shape, generator=gen, device="cuda") + 0.3).to(

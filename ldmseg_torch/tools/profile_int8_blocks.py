@@ -7,7 +7,8 @@ heads; ``chip_smoke.py``'s ``INT8_SHAPES``) it builds one transformer
 block's float modules with seeded weights, packs them as the int8 UNets do
 and traces 20 calls of each block on bf16 x with ``torch.profiler``: K3
 (``ln_attention_s8``), K4 (``geglu_ln_s8``, dynamic and a static interior
-scale), K8 (``ln_attention_s8_pin`` on the tokens view of a channel-major
+scale), K9 (``geglu_ln_s8_pout``, K4 with a seeded 1x1 ``proj_out``), K8
+(``ln_attention_s8_pin`` on the tokens view of a channel-major
 ``[B, C, T]`` x, as the UNet hands it, with a seeded 1x1 ``proj_in``), K13
 (``fused_self_attention_s8`` on the head views of bf16 q, k, v, static
 scale 0.1), K15 (``fused_self_attention_packed_s8``), K11
@@ -15,7 +16,8 @@ scale 0.1), K15 (``fused_self_attention_packed_s8``), K11
 bf16 K16 (``absorbed_self_attention`` on the block's four bf16 weights:
 the same shapes as the sampling path's, where K16 runs in bf16); beside
 K8 the bf16 1x1 ``proj_in`` conv alone (cuDNN: its prologue's library
-yardstick), beside K16 ``F.linear`` x 4 (cuBLAS: its products'). It
+yardstick), beside K9 ``F.linear`` on ``proj_out``'s operands (cuBLAS),
+beside K16 ``F.linear`` x 4 (cuBLAS: its products'). It
 prints one JSON line per (block, shape): the CUDA-event time per call, the
 device time per call summed over its kernels and split by kernel name, the
 same split by stage (:data:`STAGES`: LN + quantize, the products, the
@@ -96,7 +98,9 @@ def stages(fn, iters: int = 20) -> dict:
 # head_out_kernel) are kept so that an older tree splits the same way; the
 # wmma product K8 and K16 ran before they moved to gemm_kernel
 # (bf16_gemm_kernel) is not: an older tree's K8 and K16 show it under
-# "other", and chip_smoke.py fails where it comes back.
+# "other", and chip_smoke.py fails where it comes back. K9's proj_out ran
+# on it until it moved to gemm_kernel (ProjOutEpi): K9's "proj_out" stage
+# names both, so that the parent tree's K9 splits beside the change's.
 STAGES = {
     "K3": {"ln_quant": r"ln_quant_kernel", "qkv": r"QkvPadEpi",
            "attention": r"attn_s8_kernel_sm90", "to_out": r"ResidualEpi"},
@@ -120,6 +124,11 @@ STAGES = {
 # K18's wrapper repeats its per-tensor weight scales over the heads
 STAGES["K18"] = {**STAGES["K17"], "scales": r"direct_copy_kernel"}
 STAGES["K10"] = {**STAGES["K11"], "to_out": r"ResidualS8Epi"}
+# K12: K4's kernels without the LayerNorm (the same stage names)
+STAGES["K12"] = STAGES["K4"]
+# K9: K4's four, then proj_out on the Hopper product, operands swapped
+STAGES["K9"] = {**STAGES["K4"],
+                "proj_out": r"ProjOutEpi|bf16_gemm_kernel<.*ChannelMajor"}
 # K8: K3's four behind the proj_in prologue on the Hopper product
 STAGES["K8"] = {"proj_in": r"^gemm_kernel<.*BiasF32Epi", **STAGES["K3"]}
 # K16 (bf16): Q, K and V in one launch over three W maps, K1's attention
@@ -171,6 +180,20 @@ def block_runs(kid: str, x: torch.Tensor, mods) -> dict:
             lambda p=K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2], 0.05,
                                    gs): K4.geglu_ln_s8(x, p))
             for mode, gs in (("dynamic", None), ("static", 0.02))}
+    if kid == "K9":
+        import torch.nn.functional as F
+        from ldmseg_torch.models.layers import init_random_
+        conv = torch.nn.Conv2d(c, c, 1).to(x.device)
+        with torch.no_grad():
+            init_random_(conv, torch.Generator(device=x.device).manual_seed(
+                c + 1))
+        p = K4.with_proj_out(K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2],
+                                           0.05), conv)
+        r = x.reshape(b * t, c)
+        # proj_out's library yardstick: F.linear on operands of the same
+        # shapes (cuBLAS), never called by the port
+        return {"K9": lambda: K4.geglu_ln_s8_pout(x, p),
+                "K9 proj_out F.linear (cuBLAS)": lambda: F.linear(r, p.wpo)}
     if kid in ("K13", "K15"):
         q, k, v = (x.roll(i, dims=1) for i in range(3))
         if kid == "K15":
@@ -214,7 +237,7 @@ def block_runs(kid: str, x: torch.Tensor, mods) -> dict:
     raise ValueError(f"unknown block {kid!r}")
 
 
-BLOCKS = ("K3", "K4", "K8", "K13", "K15", "K11", "K17", "K16")
+BLOCKS = ("K3", "K4", "K9", "K8", "K13", "K15", "K11", "K17", "K16")
 
 
 def main() -> int:

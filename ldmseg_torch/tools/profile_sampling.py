@@ -45,7 +45,8 @@ import torch
 
 FAMILIES = (  # first match wins
     ("K5/K6 groupnorm_silu", r"gn_(cluster|stats|apply|ymax|quant)_kernel"),
-    ("K7 gn_silu_conv", r"gn_conv_kernel"),
+    ("K7 gn_silu_conv", r"gn_pad_kernel|gemm_kernel<.*ConvEpi|"
+                        r"conv_sum_kernel|gn_conv_kernel"),
     ("K1/K14/K16 attention_fwd", r"attention_fwd_kernel"),
     ("K2 attention_bwd", r"attention_bwd_"),
     ("K3/K8/K10 attention (sm90)", r"attn_s8_kernel_sm90"),
@@ -64,8 +65,9 @@ FAMILIES = (  # first match wins
      r"AbsorbedProjEpi)|gemm_heads_kernel"),
     ("K17/K18 dynamic quantize, to_out per head",
      r"group_quant_kernel|group_amax_kernel|head_out_kernel"),
-    ("K9 proj_out (s8_common), K16 fp32 products",
-     r"s8_gemm_kernel|bf16_gemm_kernel|f32_gemm_kernel"),
+    ("K9 proj_out (sm90; older trees: s8_common's products)",
+     r"gemm_kernel<.*ProjOutEpi|s8_gemm_kernel|bf16_gemm_kernel|"
+     r"f32_gemm_kernel"),
     ("K3/K4/K11/K12/K17 (LN +) quantize", r"ln_quant_kernel"),
     ("int8 matmul (s8 conv)", r"s8|i8|imma|int8|Int8"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),

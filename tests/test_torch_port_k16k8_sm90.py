@@ -253,17 +253,17 @@ def test_proj_in_f32_on_the_cpu_is_the_plain_prologue():
 
 
 # ---------------------------------------------------------------------------
-# the stage split and the wmma product's last caller
+# the stage split; the wmma product has no caller left
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kid,name,stage", [
     ("K16", "gemm_kernel<false, 64, 1, StoreBf16Epi, 3, false>", "qkv"),
     ("K16", "gemm_kernel<false, 128, 2, StoreBf16Epi, 3, false>", "qkv"),
     ("K16", "attention_fwd_kernel_sm90<40, 2>", "attention"),
     ("K16", "gemm_kernel<false, 64, 1, StoreBf16Epi, 1, false>", "to_out"),
-    ("K16", "bf16_gemm_kernel<false, StoreBf16Epi>", "other"),
+    ("K9", "gemm_kernel<false, 64, 1, ProjOutEpi, 1, false>", "proj_out"),
     ("K8", "gemm_kernel<false, 64, 1, BiasF32Epi, 1, true>", "proj_in"),
     ("K8", "gemm_kernel<false, 128, 2, BiasF32Epi, 1, false>", "proj_in"),
-    ("K8", "bf16_gemm_kernel<true, BiasF32Epi>", "other"),
+    ("K16", "bf16_gemm_kernel<StoreBf16Epi>", "other"),
     ("K8", "ln_quant_kernel<float, true>", "ln_quant"),
     ("K8", "gemm_kernel<true, 128, 2, QkvPadEpi, 1, false>", "qkv"),
     ("K8", "attn_s8_kernel_sm90<48, 2>", "attention"),
@@ -289,8 +289,14 @@ def test_profile_families_split_the_bf16_products():
     assert family("void gemm90::gemm_kernel<false, 64, 1, (anonymous "
                   "namespace)::BiasF32Epi, 1, true>(...)").startswith(
                       "K8/K16 bf16 products")
-    assert family("void s8::bf16_gemm_kernel<(anonymous namespace)::"
-                  "ChannelMajorBiasEpi>(...)").startswith("K9 proj_out")
+    assert family("void gemm90::gemm_kernel<false, 64, 1, (anonymous "
+                  "namespace)::ProjOutEpi, 1, false>(...)").startswith(
+                      "K9 proj_out")
+    assert family("void gemm90::gemm_kernel<false, 128, 2, (anonymous "
+                  "namespace)::ConvEpi, 1, false>(...)").startswith("K7")
+    # no source launches the wmma product any more
+    assert not any("bf16_gemm_kernel" in p.read_text()
+                   for p in CSRC.glob("*.cu*"))
 
 
 def test_k16_ablation_edit_still_matches_the_source():
@@ -301,7 +307,12 @@ def test_k16_ablation_edit_still_matches_the_source():
 
 
 def test_the_wmma_product_has_one_caller_left():
-    callers = [p.name for p in sorted(CSRC.glob("*.cu"))
-               if "launch_bf16_gemm" in p.read_text()]
-    assert callers == ["geglu_ln_s8.cu"]
+    # none since K9's proj_out moved to gemm_sm90.cuh: no source calls or
+    # holds the wmma product, and s8_common.cuh holds only the LN + quantize
+    callers = [p.name for p in sorted(CSRC.glob("*.cu*"))
+               if re.search(r"launch_bf16_gemm|bf16_gemm_kernel|wmma::",
+                            p.read_text())]
+    assert callers == []
     assert "s8_common.cuh" not in (CSRC / "attention_fwd.cu").read_text()
+    common = (CSRC / "s8_common.cuh").read_text()
+    assert "ln_quant_kernel" in common and "mma" not in common

@@ -618,8 +618,9 @@ def test_gn_sources_are_built_by_the_port():
     assert 'extern "C" int ldmseg_group_norm_silu(' in k56
     assert 'extern "C" int ldmseg_group_norm_silu_quant(' in k56
     k7 = (ROOT / "ldmseg_torch/csrc/gn_silu_conv.cu").read_text()
-    # the product is the kernel's own: wmma, no library call
-    assert "wmma::mma_sync" in k7
+    # the product is the kernel's own: gemm_sm90.cuh's TMA + wgmma product
+    # over nine taps, no library call
+    assert '#include "gemm_sm90.cuh"' in k7 and "launch_gemm_taps" in k7
     assert not any(lib in k7 for lib in ("cudnn", "cublas", "torch"))
 
 
