@@ -72,7 +72,9 @@ Phases, one line each:
      shape class; K7 also bit-equal from call to call and per level (32x64
      to 4x8) with its weight pack's time apart from the call and
      ``F.conv2d``'s device time on the same y (cuDNN, the conv part's
-     yardstick), at the deep levels its share of 3.35 TB/s;
+     yardstick), at the deep levels its share of 3.35 TB/s; then K7 at the
+     two shapes its repair added (Cin 36 in 4 groups; 320 channels at
+     64x64 in one group), against its plain version, bit-equal repeats;
   15. that UNet's forward on K5 against the plain GN: 44 K5 launches;
   16. ``sample_panoptic`` on it as phase 4: 2,200 K5 and 800 K1 per call;
   17. ``train_loop`` on it (2 warm-up, 3 timed steps): 88 K5, 32 K1, 16 K2
@@ -155,9 +157,19 @@ Phases, one line each:
      K17, 16 K12) against the bf16 one; the absorbed-storage UNet
      (``prepare_int8_unet(..., absorbed_attention=True)``) whose K17s read
      the calibrated ``to_q`` sites, against the bf16 one;
-  34. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
+  34. ``TrainerDiffusion.compute_pq`` end to end at full width: a
+     KITTI-DVPS val tree of 4 frames at 375x1242 written from seeded numpy,
+     read at 256x512 with ``keep_fullres_gt``, the phase-4 trainer at batch
+     2 with 50 DDIM steps (800 K1 a call), each prediction restored to
+     375x1242 and scored, then one batch of the resize branch; PQ, SQ, RQ,
+     s per frame, peak memory, and the card's cleaned maps against the CPU
+     path's restore of the same logits (>= 99.9% of the pixels equal);
+  35. ``ldmseg_torch.entry.entry()``'s forward against the plain attention,
+     and ``ldmseg_torch/tools/bench.py`` at batch 2 (its JSON line on a
+     line of its own, its launches checked);
+  36. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
      K5, K6 and K7 with their device time and host time a call);
-  35. the last line, ``{"ok": true, "device": {...}}``.
+  37. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -1771,7 +1783,87 @@ def phase_gn_kernels(trainer, smi_line: str):
           f"{GN_FP32_TOL}); K6 codes off by one at "
           f"{flips_total} of {codes_total}; K7 {k7_launched} launches, "
           f"{k7_fallbacks} fallback", flush=True)
-    return k5, k6, k7
+    return k5, k6, k7, k7_launched
+
+
+# the two shape classes JAX's K7 takes that the port's plan refused before
+# its repair: ((B, Cin, H, W), Cout, groups)
+K7_REPAIRED = [((2, 36, 32, 64), 64, 4), ((2, 320, 64, 64), 320, 1)]
+
+
+def phase_k7_repaired(smi_line: str, seed: int = 5):
+    """K7 at :data:`K7_REPAIRED` (Cin 36 in 4 groups: scratch and pack rows
+    of 40 channels; 320 channels at 64x64 in one group: a CTA's slice of
+    329 KB read twice, in chunks) against ``gn_silu_conv_reference`` within
+    ``GN_CONV_TOL`` of max|ref|, two calls bit-equal, with the time, the
+    bound, the plain version's and the bf16 composition's time."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.ops import gn_silu_conv as GC
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    # no inference mode: K7 keeps its weight pack and fp32 casts per tensor
+    # and version, and an inference tensor has no version (made anew at
+    # every call, elementwise launches in the trace)
+    with torch.no_grad():
+        for shape, cout, g in K7_REPAIRED:
+            cin = shape[1]
+            xs = (1.5 * torch.randn(shape, generator=gen, device="cuda")
+                  + 0.3).to(torch.bfloat16)
+            sc = 1.0 + 0.1 * torch.randn(cin, generator=gen, device="cuda")
+            bi = 0.1 * torch.randn(cin, generator=gen, device="cuda")
+            w = (torch.randn((cout, cin, 3, 3), generator=gen,
+                             device="cuda") / (9 * cin) ** 0.5).to(
+                torch.bfloat16)
+            cb = (0.1 * torch.randn(cout, generator=gen, device="cuda")).to(
+                torch.bfloat16)
+            plan = GC.sm90_conv_plan(*shape[:2], cout, *shape[2:], g)
+            # x read once when a CTA's slice is one chunk, else twice
+            x_reads = 1 if (plan.chunk_ch, plan.chunk_pix) == (
+                cin // g, plan.rows_per_cta * shape[3]) else 2
+            before = GC.gn_silu_conv.launches
+            out = GC.gn_silu_conv(xs, sc, bi, w, cb, g, 1e-5)
+            again = GC.gn_silu_conv(xs, sc, bi, w, cb, g, 1e-5)
+            torch.cuda.synchronize()
+            launched = GC.gn_silu_conv.launches - before
+            check(launched == 2,
+                  f"K7 repaired {shape}: launched {launched} times, not 2")
+            ref = GC.gn_silu_conv_reference(xs, sc, bi, w, cb, g, 1e-5)
+            err, rmax = _max_err(out, ref)
+            check(math.isfinite(err) and err <= GN_CONV_TOL * rmax,
+                  f"K7 repaired {shape} -> {cout} in {g} groups: max abs err"
+                  f" {err} > {GN_CONV_TOL} x max|ref| {rmax}")
+            check(torch.equal(out, again),
+                  f"K7 repaired {shape}: two calls differ")
+            row = _gn_row(
+                shape, "bfloat16", err, rmax,
+                lambda: GC.gn_silu_conv(xs, sc, bi, w, cb, g, 1e-5),
+                lambda: GC.gn_silu_conv_reference(xs, sc, bi, w, cb, g,
+                                                  1e-5),
+                lambda: F.conv2d(F.silu(F.group_norm(
+                    xs, g, sc.to(xs.dtype), bi.to(xs.dtype), 1e-5)), w, cb,
+                    padding=1),
+                _conv_bound(shape, cout), cout=cout, groups=g,
+                cin8=plan.cin8, chunk=[plan.chunk_ch, plan.chunk_pix],
+                x_reads=x_reads, splits=plan.splits,
+                plan_launches=plan.launches, launches=launched)
+            names = {n.split("<")[0] for n in row["kernel_launches"]}
+            want = {"gn_pad_kernel", "gemm_kernel"} | (
+                {"conv_sum_kernel"} if plan.splits > 1 else set())
+            check(not names or names == want,
+                  f"K7 repaired {shape}: the trace shows {names}")
+            print(f"phase 14 K7 repaired {list(shape)} -> {cout} in {g} "
+                  f"groups (cin8 {plan.cin8}, chunk {plan.chunk_ch} x "
+                  f"{plan.chunk_pix}, x read {x_reads}x, splits "
+                  f"{plan.splits}): max err {err:.3e} of max|ref| {rmax:.3e}"
+                  f" (tol {GN_CONV_TOL}), bit-equal repeats; kernel "
+                  f"{row['ms']:.4f} ms (device {_ms(row['device_ms'])}), "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"plain {row['plain_ms']:.4f} ms, bf16 composition "
+                  f"{row['bf16_composition_ms']:.4f} ms [{smi_line}]",
+                  flush=True)
+            rows.append(row)
+    return rows
 
 
 def k7_levels(rows):
@@ -3354,6 +3446,237 @@ def k16_entry(rows, launches, by_path):
     }
 
 
+# ---------------------------------------------------------------------------
+# the serving path's metric (phase 34), the entry and the bench line (35)
+# ---------------------------------------------------------------------------
+PQ_FRAMES, PQ_BATCH = 4, 2
+PQ_AGREE = 0.999  # the card's cleaned maps against the CPU path's
+
+
+def _agreement(trainer, captured, resize_hw=None):
+    """The share of pixels on which the card's restore + post-processing of
+    the captured logits equals the CPU path's on the same logits, the
+    pixels the card's maps keep (not -1), and the same share with the
+    thresholds at 0 (the restored logits' argmax under the valid mask:
+    random weights leave few segments past ``count_th``)."""
+    ths = (trainer.mask_th, trainer.count_th, trainer.overlap_th)
+    try:
+        trainer.mask_th = trainer.count_th = trainer.overlap_th = 0
+        argmax, _, _ = _agreement_at(trainer, captured, resize_hw)
+    finally:
+        trainer.mask_th, trainer.count_th, trainer.overlap_th = ths
+    share, total, kept = _agreement_at(trainer, captured, resize_hw)
+    return share, total, kept, argmax
+
+
+def _agreement_at(trainer, captured, resize_hw):
+    import numpy as np
+    same = total = kept = 0
+    for batch, logits in captured:
+        if resize_hw is None:
+            card = trainer.restore_fullres(logits, batch["meta"])
+            cpu = trainer.restore_fullres(logits.cpu(), batch["meta"])
+        else:
+            card = list(trainer.restore_resized(logits, resize_hw,
+                                                batch["mask"]))
+            cpu = list(trainer.restore_resized(logits.cpu(), resize_hw,
+                                               batch["mask"]))
+        for a, b in zip(card, cpu):
+            same += int(np.count_nonzero(a == b))
+            kept += int(np.count_nonzero(a != -1))
+            total += a.size
+    return same / total, total, kept
+
+
+def phase_compute_pq(smi_line: str, seed: int = 0):
+    """``TrainerDiffusion.compute_pq`` end to end at full width: a KITTI-DVPS
+    val tree of :data:`PQ_FRAMES` frames at KITTI's 375x1242 written from
+    seeded numpy into a temporary directory, read by ``get_dataset("kitti",
+    split="val", size=(256, 512), keep_fullres_gt=True)``, the phase-4
+    trainer (bf16, K1, the same seeded weights) at batch 2 with 50 DDIM
+    steps: each prediction restored to 375x1242 and scored; then one batch
+    without ``keep_fullres_gt`` (the resize branch). Gates: the launches
+    (800 K1 a call, nothing else) and the card's cleaned maps equal to the
+    CPU path's restore of the same logits on >= ``PQ_AGREE`` of the
+    pixels."""
+    import tempfile
+    import torch
+    from ldmseg_torch.data import get_dataset
+    from ldmseg_torch.tools.kitti_tree import write_kitti_dvps_tree
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import merge_dicts
+
+    cfg = merge_dicts(_config(), {"train_kwargs": {"batch_size": PQ_BATCH}})
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_kitti_dvps_tree(root, "val", frames=PQ_FRAMES, seed=seed)
+        tree_s = time.perf_counter() - t0
+        trainer = TrainerDiffusion(cfg)
+        trainer.init_params(seed=0)
+        captured = []
+        sample = trainer.sample_panoptic
+
+        def recording(batch, *a, **kw):
+            logits, x0 = sample(batch, *a, **kw)
+            captured.append((batch, logits))
+            return logits, x0
+        trainer.sample_panoptic = recording
+        steps = trainer.num_inference_steps
+        for branch, fullres, max_batches in (("full resolution", True,
+                                              None),
+                                             ("resize", False, 1)):
+            trainer.ds_val = get_dataset(
+                "kitti", prefix=root, split="val", size=(256, 512),
+                keep_fullres_gt=fullres)
+            calls = min(-(-len(trainer.ds_val) // PQ_BATCH),
+                        max_batches or 1 << 30)
+            frames = min(len(trainer.ds_val), calls * PQ_BATCH)
+            captured.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            res = trainer.compute_pq(max_batches=max_batches, seed=seed)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = _expect(K1=16 * steps * calls)
+            check(counts == want, f"compute_pq ({branch}) launched {counts},"
+                  f" expected {want}")
+            check(len(captured) == calls and all(
+                tuple(lg.shape) == (PQ_BATCH, 256, 512, trainer.num_classes)
+                and bool(torch.isfinite(lg).all()) for _, lg in captured),
+                f"compute_pq ({branch}): logits of {len(captured)} calls")
+            check(all(math.isfinite(res[k]) for k in ("pq", "sq", "rq")),
+                  f"compute_pq ({branch}): {res}")
+            agree, pixels, kept, argmax = _agreement(
+                trainer, captured, None if fullres else (256, 512))
+            check(agree >= PQ_AGREE and argmax >= PQ_AGREE,
+                  f"compute_pq ({branch}): the card's cleaned maps equal the "
+                  f"CPU path's on {agree:.6f} of {pixels} pixels, the argmax "
+                  f"maps on {argmax:.6f} (< {PQ_AGREE})")
+            out[branch] = {
+                "pq": res["pq"], "sq": res["sq"], "rq": res["rq"],
+                "tp": res["tp"], "fp": res["fp"], "fn": res["fn"],
+                "seconds": secs, "s_per_frame": secs / frames,
+                "frames": frames, "calls": calls,
+                "k1_launches": counts["K1"],
+                "k1_launches_per_call": counts["K1"] / calls,
+                "peak_bytes": peak, "cpu_agreement": agree,
+                "cpu_agreement_argmax": argmax, "pixels": pixels,
+                "pixels_kept": kept, "counts": counts}
+            print(f"phase 34 compute_pq ({branch}): {frames} KITTI-DVPS "
+                  f"frames of 375x1242 at 256x512, batch {PQ_BATCH}, {steps}"
+                  f" DDIM steps: PQ {res['pq']:.4f}, SQ {res['sq']:.4f}, RQ "
+                  f"{res['rq']:.4f} (tp {res['tp']}, fp {res['fp']}, fn "
+                  f"{res['fn']}; random weights), {secs:.3f} s, "
+                  f"{secs / frames:.3f} s per frame, K1 launches "
+                  f"{counts['K1']} ({counts['K1'] / calls:.0f} per call), "
+                  f"peak memory {peak / 2**30:.2f} GiB, cleaned maps equal "
+                  f"to the CPU path's on {agree:.6f} of {pixels} pixels "
+                  f"({kept} kept), the argmax maps on {argmax:.6f} "
+                  f"[{smi_line}]", flush=True)
+        out["tree_seconds"] = tree_s
+        del trainer, captured
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry_bench(smi_line: str, seed: int = 1):
+    """``ldmseg_torch.entry.entry()``'s forward (16 K1 a forward) against
+    the same UNet on the plain attention: on a random sample within 2e-2 of
+    max|ref|, as phase 3; on its own zero sample, whose near-constant maps
+    give GroupNorm a variance near 0 that magnifies any rounding, both bf16
+    paths against the fp32 forward on the plain attention, K1's error no
+    more than 1.25 times the plain path's or 2e-2. Then ``tools/bench.py``'s
+    ``run`` at batch 2 (one warm-up and one timed call per dtype): its JSON
+    line printed, its launches checked (the entry forward 23 times, 800 K1
+    a bf16 call, 800 K3 and 800 K4 an int8 call, nothing else)."""
+    import copy
+    import torch
+    from ldmseg_torch.entry import entry
+    from ldmseg_torch.models.unet import CrossAttention
+    from ldmseg_torch.tools import bench
+
+    fn, args = entry()
+    unet = fn.unet
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = (torch.randn(args[0].shape, generator=gen, device="cuda").to(
+        torch.bfloat16), torch.tensor([500], device="cuda"))
+    attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    unet32 = copy.deepcopy(unet).float()
+    for m in unet32.modules():
+        if isinstance(m, CrossAttention):
+            m.use_fused = False
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    errs = {}
+    for label, inputs in (("random sample, t 500", rand),
+                          ("zero sample, t 0", args)):
+        _zero_counts()
+        got = fn(*inputs).float()
+        torch.cuda.synchronize()
+        counts = _counts()
+        for m in attn:
+            m.use_fused = False
+        try:
+            ref = fn(*inputs).float()
+        finally:
+            for m in attn:
+                m.use_fused = True
+        with torch.inference_mode():
+            ref32 = unet32(inputs[0].float(), inputs[1]).float()
+        check(counts == _expect(K1=16),
+              f"entry forward ({label}) launched {counts}, expected 16 K1")
+        check(tuple(got.shape) == (1, 4, 32, 64)
+              and bool(torch.isfinite(got).all()),
+              f"entry forward ({label}): {tuple(got.shape)}, finite "
+              f"{bool(torch.isfinite(got).all())}")
+        e = {"vs_plain": rel(got, ref), "k1_vs_fp32": rel(got, ref32),
+             "plain_vs_fp32": rel(ref, ref32)}
+        if label.startswith("random"):
+            check(e["vs_plain"] <= 2e-2, f"entry forward ({label}) on K1 vs "
+                  f"the plain attention: max rel err {e['vs_plain']}")
+        else:
+            check(e["k1_vs_fp32"] <= max(2e-2, 1.25 * e["plain_vs_fp32"]),
+                  f"entry forward ({label}): K1's error against the fp32 "
+                  f"forward {e['k1_vs_fp32']} > max(2e-2, 1.25 x the plain "
+                  f"bf16 path's {e['plain_vs_fp32']})")
+        errs[label] = e
+    del unet32
+    del fn, args, unet, attn
+    torch.cuda.empty_cache()
+    _zero_counts()
+    line = bench.run(batch=2, steps=50, calls=1, warmup=1)
+    counts = _counts()
+    check((line["metric"], line["unit"]) == ("frames_per_s", "frames/s")
+          and line["value"] == line["int8"]["frames_per_s"] > 0
+          and "vs_baseline" not in line,
+          f"the bench line's head: {line['metric']}, {line['unit']}, "
+          f"{line['value']}")
+    want = _expect(K1=16 * (3 + 20) + 2 * 800, K3=2 * 800, K4=2 * 800)
+    check(counts == want, f"the bench run launched {counts}, expected "
+          f"{want}")
+    for kind, kids in (("bf16", {"K1": 800}),
+                       ("int8", {"K3": 800, "K4": 800})):
+        per = line[kind]["launches_per_call"]
+        check(all(per[k] == n for k, n in kids.items()),
+              f"bench {kind}: launches per call {per}")
+    print(f"phase 35 entry(): [1, 8, 32, 64] bf16 forward on K1 vs the "
+          f"plain attention, max rel err {errs} (tol 2e-2); bench at batch "
+          f"2: forward {line['unet_forward_ms']:.3f} ms, bf16 "
+          f"{line['bf16']['s_per_call']:.3f} s/call "
+          f"({line['bf16']['frames_per_s']:.3f} frames/s), int8 "
+          f"{line['int8']['s_per_call']:.3f} s/call "
+          f"({line['int8']['frames_per_s']:.3f} frames/s) [{smi_line}]",
+          flush=True)
+    print(json.dumps(line), flush=True)
+    return {"entry_max_rel_err": errs, "bench": line, "counts": counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -3414,7 +3737,9 @@ def main() -> int:
             torch.cuda.empty_cache()
         # the GroupNorm + SiLU family: K5, K6, K7
         trainer = _gn_trainer(_config())
-        k5_rows, k6_rows, k7_rows = phase_gn_kernels(trainer, smi_line)
+        k5_rows, k6_rows, k7_rows, k7_launched = phase_gn_kernels(
+            trainer, smi_line)
+        k7_repaired = phase_k7_repaired(smi_line)
         gn_unet_result = phase_gn_unet(trainer)
         gn_counts, gn_sample = phase_sample(
             trainer, smi_line, phase=16, expect={"K1": 16, "K5": 44})
@@ -3493,6 +3818,9 @@ def main() -> int:
             phase_absorbed_int8(trainer, smi_line, absorbed_sample))
         del trainer
         torch.cuda.empty_cache()
+        # the serving path's metric, the entry and the bench line
+        pq_result = phase_compute_pq(smi_line)
+        entry_result = phase_entry_bench(smi_line)
         sample_result.pop("x0")
         gn_sample.pop("x0")
         packed_sample.pop("x0")
@@ -3523,7 +3851,8 @@ def main() -> int:
             "absorbed_train": absorbed_train,
             "absorbed_int8_unet_forward": absorbed_int8_unet,
             "absorbed_int8_sample_panoptic": absorbed_int8,
-            "absorbed_storage_unet_forward": absorbed_storage}}),
+            "absorbed_storage_unet_forward": absorbed_storage,
+            "compute_pq": pq_result, "entry_and_bench": entry_result}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -3568,6 +3897,12 @@ def main() -> int:
                   f"use_absorbed_attention, {mode}"] = res["counts"]
         paths["UNet forward, int8 (a), absorbed storage"] = (
             absorbed_storage["counts"])
+        for branch, res in pq_result.items():
+            if isinstance(res, dict):
+                paths[f"compute_pq, {branch}, {res['calls']} calls"] = (
+                    res["counts"])
+        paths["tools/bench.py at batch 2: 23 entry forwards, 2 bf16 and 2 "
+              "int8 sample_panoptic calls"] = entry_result["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -3656,14 +3991,17 @@ def main() -> int:
                      "the 43 resnet halves of one UNet forward that it takes"
                      " (bf16, batch 2, 32x64 latent; one falls back by the "
                      "6 MiB rule); no module routes to it, so 0 launches on "
-                     "every path and 43 in phase 14")
-            | {"launches_in_its_phase": 43,
-               "redesigned": "GN + SiLU into a padded channel-last scratch "
+                     "every path and 47 checked in phase 14 (the 43 "
+                     "halves, 2 at each repaired shape)")
+            | {"redesigned": "GN + SiLU into a padded channel-last scratch "
                              "(a cluster per (image, group)), the 3x3 conv "
                              "as one product on csrc/gemm_sm90.cuh over nine"
                              " shifted taps, split-K at the deep levels",
                "levels": k7_levels([r for r in k7_rows
-                                    if not r["fallback"]])},
+                                    if not r["fallback"]]),
+               "repaired_shapes": k7_repaired,
+               "launches_in_its_phase": k7_launched + sum(
+                   r["launches"] for r in k7_repaired)},
             k14_entry(packed_rows, packed_counts["K14"], by_path("K14")),
             int8_entry("attention_packed_s8", "K15",
                        "ldmseg_torch/csrc/attention_s8.cu",

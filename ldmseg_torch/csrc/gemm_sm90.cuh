@@ -574,24 +574,25 @@ int launch_gemm(const int* plan, const void* a, const void* w, int rows,
 
 // ---- taps: K7's 3x3 conv as one implicit product ---------------------------
 // C = A W^T summed over Epi::kTaps stages: A [rows, a_cols] row-major (K7's
-// weights, [Cout, 9 Cin]) and W [w_rows, w_cols] row-major (its padded
-// activation, [positions, Cin]), bf16, 16-byte aligned, rows a multiple of
-// 16 bytes; the output is [rows, n], n a multiple of 8 (positions rounded
-// up; zeros past w_rows). Stage kt reads what epi.tap(kt, ...) names; the
+// weights, [Cout, 9 C8]) and W [w_rows, w_cols] with rows w_ld apart (its
+// padded activation, [positions, Cin] in rows of C8 channels), bf16,
+// 16-byte aligned, rows a multiple of 16 bytes apart; the output is [rows,
+// n], n a multiple of 8 (positions rounded up; zeros past w_rows and
+// w_cols). Stage kt reads what epi.tap(kt, ...) names; the
 // stages split over `splits` blocks per tile (the epilogue sees
 // blockIdx.z). `plan` is sm90_gemm_plan's of [rows, n, 64 k_tiles] bf16,
 // checked. Makes a's device current first. Returns a cudaError_t.
 template <class Epi>
 int launch_gemm_taps(const int* plan, const void* a, const void* w, int rows,
-                     int a_cols, int n, int w_rows, int w_cols, int splits,
-                     Epi epi, cudaStream_t stream) {
+                     int a_cols, int n, int w_rows, int w_cols, int w_ld,
+                     int splits, Epi epi, cudaStream_t stream) {
   static_assert(Taps<Epi>::value && Epi::kOps == 1, "a taps epilogue");
   const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
                plan[5], plan[6], plan[7], plan[8]};
   if (!plan_ok(p, false, rows, n, 64 * p.k_tiles, 1) || splits < 1 ||
       splits > p.k_tiles || splits > 65535 || w_rows < 1 || w_rows > n ||
-      a_cols < 1 || w_cols < 1 || (a_cols * 2) % 16 != 0 ||
-      (w_cols * 2) % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      a_cols < 1 || w_cols < 1 || w_ld < w_cols || (a_cols * 2) % 16 != 0 ||
+      (w_ld * 2) % 16 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -601,7 +602,7 @@ int launch_gemm_taps(const int* plan, const void* a, const void* w, int rows,
   WMaps<1> tw;
   int err = sm90::encode_map_2d(&ta, a, 2, rows, a_cols, a_cols, p.block_m);
   if (err != 0) return err;
-  err = sm90::encode_map_2d(&tw.map[0], w, 2, w_rows, w_cols, w_cols,
+  err = sm90::encode_map_2d(&tw.map[0], w, 2, w_rows, w_cols, w_ld,
                             p.block_n);
   if (err != 0) return err;
   if (p.block_m == 128) {

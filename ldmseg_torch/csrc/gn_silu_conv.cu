@@ -18,7 +18,9 @@
 // Design: the TPU kernel's own trick, nine shifted matmuls over a padded
 // scratch, in three launches at most.
 //   a. gn_pad_kernel: y into a zero-padded, channel-last bf16 scratch of
-//      `wp` columns a row, [B][H + 2][wp][Cin]: image row r, column c at
+//      `wp` columns a row, [B][H + 2][wp][C8] (C8: Cin rounded up to 8, so
+//      that a row is a multiple of 16 bytes; the product's map is Cin wide
+//      and reads zeros past Cin): image row r, column c at
 //      padded position p = (img (H + 2) + r + 1) wp + c; rows 0 and H + 1
 //      of each image and the columns [W, wp) of every row are zeros, which
 //      this pass writes itself. One column of zeros between two rows is
@@ -29,14 +31,16 @@
 //      span at 8,192 values a CTA (K5's budget; one CTA and no cluster
 //      barrier for a small span), each CTA a range of image rows of the
 //      group's channels: x read once (16-byte loads
-//      when W % 8 == 0) into shared memory, the sums folded in a fixed
+//      when W % 8 == 0) into shared memory, or, where the CTA's slice
+//      exceeds 200 KB, twice (the sums, then chunk by chunk), the sums
+//      folded in a fixed
 //      order (gn_common.cuh, through distributed shared memory), then y =
 //      gn_silu of the held values (gn_common.cuh, K5's arithmetic) stored
 //      channel-last, pairs of channels at a time (plan:
 //      ops/gn_silu_conv.py:sm90_conv_plan, checked here);
 //   b. the conv as one implicit GEMM on gemm_sm90.cuh, its operands
 //      swapped: A = the weights packed once tap-major and K-major, [Cout,
-//      9 Cin] (w.permute(0, 2, 3, 1), by the wrapper, cached per weight),
+//      9 C8] (w.permute(0, 2, 3, 1), by the wrapper, cached per weight),
 //      W = the scratch seen as [positions, Cin]; rows of the product are
 //      output channels, columns padded positions. The reduction runs over
 //      (tap, 64-channel block) stages: tap (dy, dx) reads A at columns tap
@@ -78,6 +82,7 @@ struct TapsPlan {
   int wp, cblocks, splits;    // padded row width, 64-channel blocks, split
   int k, rows_per_cta, vec;   // the activation pass's cluster, rows, loads
   int pad_smem;               // its dynamic shared memory
+  int chunk_ch, chunk_pix;    // its chunk (pad_chunk)
 };
 
 struct PadArgs {
@@ -85,21 +90,48 @@ struct PadArgs {
   const float* scale;
   const float* bias;
   bf16* y;
-  int c, h, w, wp, groups, cg, rows_per_cta;
+  int c, c8, h, w, wp, groups, cg, rows_per_cta, chunk_ch, chunk_pix;
   float eps;
 };
 
+// the pass's shared-memory chunk (ops/gn_silu_conv.py:pad_chunk): the
+// whole slice, cg channels x npix pixels, when it fits; else all cg
+// channels and the most pixels, a multiple of 8, that fit; else 64 pixels
+// and an even number of channels
+void pad_chunk(int cg, int npix, int& ch, int& pix) {
+  constexpr long long kVals = kPadSmemLimit / 2;
+  if (static_cast<long long>(cg) * (npix + 2) <= kVals) {
+    ch = cg;
+    pix = npix;
+  } else if (static_cast<long long>(cg) * 10 <= kVals) {
+    ch = cg;
+    pix = (static_cast<int>(kVals) / cg - 2) / 8 * 8;
+  } else {
+    pix = npix < 64 ? npix : 64;
+    ch = static_cast<int>(kVals) / (pix + 2);
+    ch -= ch % 2;
+  }
+}
+
 // ---- a: GN + SiLU into the padded channel-last scratch ---------------------
 // grid spans * k, clusters of k: CTA `rank` of span s = img * groups + g
-// holds image rows [rank r, rank r + r) (r = rows_per_cta) of the group's
-// cg channels, [channel][pixel] in shared memory, ld = pixels + 2 (odd in
-// words: the y loop's reads across channels fall in distinct banks)
+// takes image rows [rank r, rank r + r) (r = rows_per_cta) of the group's
+// cg channels, npix = r w pixels a channel. When that slice fits the plan's
+// chunk it is held whole in shared memory, [channel][pixel], ld = npix + 2
+// (odd in words: the y loop's reads across channels fall in distinct
+// banks), and x is read once. Otherwise x is read twice: once for the sums
+// (straight from global memory, in the same order), then chunk by chunk,
+// chunk_ch channels x chunk_pix pixels, into shared memory to be
+// normalised and stored. The scratch's rows are c8 (Cin rounded up to 8)
+// channels apart; the channels [Cin, c8) are never written: the product's
+// tensor map is Cin wide and reads zeros there.
 template <int kVec>
 __global__ void __launch_bounds__(kThreads) gn_pad_kernel(const PadArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   __shared__ float2 part;
   __shared__ float red[2][kThreads / 32];
+  using P = gn::Pack<bf16, kVec>;
   const cg::cluster_group cluster = cg::this_cluster();
   const int k = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -109,26 +141,28 @@ __global__ void __launch_bounds__(kThreads) gn_pad_kernel(const PadArgs a) {
   const int r0 = rank * a.rows_per_cta;
   const int r1 = min(a.h, r0 + a.rows_per_cta);
   const int npix = (r1 - r0) * a.w;
-  const int ld = npix + 2;
+  const bool whole = a.chunk_ch == a.cg && a.chunk_pix >= npix;
+  const long long hw = static_cast<long long>(a.h) * a.w;
+  // channel cl of the group, pixel 0 of this CTA's rows
+  const bf16* xg = a.x + (static_cast<long long>(img) * a.c + c0) * hw +
+                   static_cast<long long>(r0) * a.w;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x / 32;
 
-  // 1. the slice, per channel a contiguous run of npix values
+  // 1. the sums over the slice, per channel a contiguous run of npix
+  // values, in load order; held on the way when the slice fits
   const int per_ch = npix / kVec;
   float s1 = 0.f, s2 = 0.f;
   for (int i = threadIdx.x; i < a.cg * per_ch; i += kThreads) {
     const int cl = i / per_ch;
     const int pv = (i - cl * per_ch) * kVec;
-    using P = gn::Pack<bf16, kVec>;
-    const P p = *reinterpret_cast<const P*>(
-        a.x + (static_cast<long long>(img) * a.c + c0 + cl) * a.h * a.w +
-        static_cast<long long>(r0) * a.w + pv);
+    const P p = *reinterpret_cast<const P*>(xg + cl * hw + pv);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       const float f = __bfloat162float(p.v[e]);
       s1 = __fadd_rn(s1, f);
       s2 = __fadd_rn(s2, __fmul_rn(f, f));
-      xs[cl * ld + pv + e] = p.v[e];
+      if (whole) xs[cl * (npix + 2) + pv + e] = p.v[e];
     }
   }
   // 2. the span's sums: the warps in order, then the cluster's CTAs
@@ -175,30 +209,55 @@ __global__ void __launch_bounds__(kThreads) gn_pad_kernel(const PadArgs a) {
   gn::span_stats(t1, t2, static_cast<float>(a.cg * a.h * a.w), a.eps, mean,
                  inv);
 
-  // 3. y channel-last, two channels a store where cg is even
-  bf16* yimg = a.y + static_cast<long long>(img) * (a.h + 2) * a.wp * a.c;
-  const int units = a.cg % 2 == 0 ? a.cg / 2 : a.cg;  // stores a pixel
-  const int per_unit = a.cg / units;
-  for (int i = threadIdx.x; i < npix * units; i += kThreads) {
-    const int pix = i / units;
-    const int j = (i - pix * units) * per_unit;
-    const int rr = r0 + pix / a.w;
-    const int cc = pix - (rr - r0) * a.w;
-    bf16* dst = yimg + (static_cast<long long>(rr + 1) * a.wp + cc) * a.c +
-                c0 + j;
-    const float y0 = gn_silu(__bfloat162float(xs[j * ld + pix]), mean, inv,
-                             a.scale[c0 + j], a.bias[c0 + j]);
-    if (per_unit == 2) {
-      const float y1 =
-          gn_silu(__bfloat162float(xs[(j + 1) * ld + pix]), mean, inv,
-                  a.scale[c0 + j + 1], a.bias[c0 + j + 1]);
-      *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(y0, y1);
-    } else {
-      *dst = __float2bfloat16_rn(y0);
+  // 3. y channel-last, chunk by chunk (one chunk when the slice is held),
+  // two channels a store where the group's and the chunk's counts are even
+  bf16* yimg = a.y + static_cast<long long>(img) * (a.h + 2) * a.wp * a.c8;
+  for (int ch0 = 0; ch0 < a.cg; ch0 += a.chunk_ch) {
+    const int nch = min(a.chunk_ch, a.cg - ch0);
+    for (int p0 = 0; p0 < npix; p0 += a.chunk_pix) {
+      const int np = whole ? npix : min(a.chunk_pix, npix - p0);
+      const int ld = np + 2;
+      if (!whole) {
+        __syncthreads();  // the previous chunk's reads are done
+        const int per = np / kVec;
+        for (int i = threadIdx.x; i < nch * per; i += kThreads) {
+          const int cl = i / per;
+          const int pv = (i - cl * per) * kVec;
+          const P p = *reinterpret_cast<const P*>(xg + (ch0 + cl) * hw +
+                                                  p0 + pv);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) xs[cl * ld + pv + e] = p.v[e];
+        }
+        __syncthreads();
+      }
+      const int per_unit = a.cg % 2 == 0 && nch % 2 == 0 ? 2 : 1;
+      const int units = nch / per_unit;  // stores a pixel
+      for (int i = threadIdx.x; i < np * units; i += kThreads) {
+        const int pix = i / units;
+        const int j = (i - pix * units) * per_unit;
+        const int q = p0 + pix;  // pixel of the slice
+        const int rr = r0 + q / a.w;
+        const int cc = q - (rr - r0) * a.w;
+        const int ch = c0 + ch0 + j;
+        bf16* dst =
+            yimg + (static_cast<long long>(rr + 1) * a.wp + cc) * a.c8 + ch;
+        const float y0 = gn_silu(__bfloat162float(xs[j * ld + pix]), mean,
+                                 inv, a.scale[ch], a.bias[ch]);
+        if (per_unit == 2) {
+          const float y1 =
+              gn_silu(__bfloat162float(xs[(j + 1) * ld + pix]), mean, inv,
+                      a.scale[ch + 1], a.bias[ch + 1]);
+          *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(y0, y1);
+        } else {
+          *dst = __float2bfloat16_rn(y0);
+        }
+      }
     }
   }
   // 4. the halo's zeros in the group's channels: the columns [w, wp) of
   // this CTA's rows, row 0 (rank 0) and row h + 1 (the last rank)
+  const int per_unit = a.cg % 2 == 0 ? 2 : 1;
+  const int units = a.cg / per_unit;
   const int right = a.wp - a.w;
   const int side = (r1 - r0) * right;
   const int top = rank == 0 ? a.wp : 0;
@@ -218,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) gn_pad_kernel(const PadArgs a) {
       prow = a.h + 1;
       col = q - side - top;
     }
-    bf16* dst = yimg + (static_cast<long long>(prow) * a.wp + col) * a.c +
+    bf16* dst = yimg + (static_cast<long long>(prow) * a.wp + col) * a.c8 +
                 c0 + j;
     if (per_unit == 2) {
       *reinterpret_cast<uint32_t*>(dst) = 0u;
@@ -241,14 +300,14 @@ struct ConvEpi {
   const float* bias;
   bf16* out;      // [batch][cout][h][w], splits == 1
   float* part;    // [splits][cout][n], splits > 1
-  int batch, cout, h, w, wp, n, cin, cblocks, splits;
+  int batch, cout, h, w, wp, n, c8, cblocks, splits;
   // stage kt: tap t = kt / cblocks (dy = t / 3, dx = t % 3), channel block
-  // cb; A (the weights) at column t cin + 64 cb, W (the scratch) at column
-  // 64 cb and the row shift of the tap
+  // cb; A (the weights, c8 columns a tap) at column t c8 + 64 cb, W (the
+  // scratch) at column 64 cb and the row shift of the tap
   __device__ void tap(int kt, int& ak, int& wk, int& shift) const {
     const int t = kt / cblocks;
     const int cb = kt - t * cblocks;
-    ak = t * cin + 64 * cb;
+    ak = t * c8 + 64 * cb;
     wk = 64 * cb;
     shift = (t / 3 - 1) * wp + (t % 3 - 1);
   }
@@ -336,12 +395,15 @@ bool taps_ok(const TapsPlan& t, int batch, int cin, int cout, int h, int w,
   const long long span = static_cast<long long>(cg_) * h * w;
   const long long need = (span + kPadValues - 1) / kPadValues;  // >= 1
   const int ctas = static_cast<int>(need < kMaxCluster ? need : kMaxCluster);
+  int ch = 0, pix = 0;
+  if (t.rows_per_cta >= 1) pad_chunk(cg_, t.rows_per_cta * w, ch, pix);
   return t.wp == w + 1 + (w + 1) % 2 && t.cblocks == (cin + 63) / 64 &&
          t.rows_per_cta >= 1 && t.k >= 1 && t.k <= kMaxCluster &&
          t.k == (h + t.rows_per_cta - 1) / t.rows_per_cta &&
          t.rows_per_cta == (h + ctas - 1) / ctas &&
          (t.vec == 1 || (t.vec == 8 && w % 8 == 0 && aligned)) &&
-         t.pad_smem == cg_ * (t.rows_per_cta * w + 2) * 2 &&
+         t.chunk_ch == ch && t.chunk_pix == pix &&
+         t.pad_smem == t.chunk_ch * (t.chunk_pix + 2) * 2 &&
          t.pad_smem <= kPadSmemLimit && batch * groups * t.k <= 65535 * 8 &&
          cout >= 1;
 }
@@ -349,25 +411,29 @@ bool taps_ok(const TapsPlan& t, int batch, int cin, int cout, int h, int w,
 }  // namespace
 
 // x bf16 [batch, cin, h, w] and out bf16 [batch, cout, h, w] contiguous;
-// wpack bf16 [cout, 9 cin] (w.permute(0, 2, 3, 1)); scale, bias fp32 [cin],
-// b fp32 [cout]; ypad bf16 scratch [batch (h + 2) wp, cin]; part fp32
-// scratch of splits * cout * n words when splits > 1. cin a multiple of 8
-// (a scratch row and a weight row are multiples of 16 bytes); all 16-byte
-// aligned. plan: ops/gn_silu_conv.py:ConvPlan.fields(), the product's nine
-// ints (sm90_gemm_plan of [cout, n, 576 cblocks] bf16, n the positions
-// rounded up to 8) and TapsPlan's seven, checked. Returns a cudaError_t.
+// c8 = cin rounded up to 8 (a scratch row and a weight row are then
+// multiples of 16 bytes, as a tensor map's stride must be); wpack bf16
+// [cout, 9 c8] (w.permute(0, 2, 3, 1), zeros in the channels [cin, c8) of
+// each tap); scale, bias fp32 [cin], b fp32 [cout]; ypad bf16 scratch
+// [batch (h + 2) wp, c8]; part fp32 scratch of splits * cout * n words when
+// splits > 1; all 16-byte aligned. plan: ops/gn_silu_conv.py:
+// ConvPlan.fields(), the product's nine ints (sm90_gemm_plan of [cout, n,
+// 576 cblocks] bf16, n the positions rounded up to 8) and TapsPlan's nine,
+// checked. Returns a cudaError_t.
 extern "C" int ldmseg_gn_silu_conv(const void* x, const float* scale,
                                    const float* bias, const void* wpack,
                                    const float* b, void* out, void* ypad,
                                    float* part, int batch, int cin, int cout,
                                    int h, int wd, int groups, float eps,
                                    const int* plan, void* stream) {
-  if (plan == nullptr || batch < 1 || cin < 8 || cin % 8 != 0 || cout < 1 ||
-      h < 1 || wd < 1 || groups < 1 || cin % groups != 0) {
+  if (plan == nullptr || batch < 1 || cin < 1 || cout < 1 || h < 1 ||
+      wd < 1 || groups < 1 || cin % groups != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int c8 = (cin + 7) / 8 * 8;
   const int* tp = plan + gemm90::kPlanInts;
-  const TapsPlan t{tp[0], tp[1], tp[2], tp[3], tp[4], tp[5], tp[6]};
+  const TapsPlan t{tp[0], tp[1], tp[2], tp[3], tp[4],
+                   tp[5], tp[6], tp[7], tp[8]};
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const long long positions = static_cast<long long>(batch) * (h + 2) * t.wp;
   const long long n = (positions + 7) / 8 * 8;
@@ -381,18 +447,20 @@ extern "C" int ldmseg_gn_silu_conv(const void* x, const float* scale,
   if (current != 0) return current;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PadArgs a{static_cast<const bf16*>(x), scale, bias,
-                  static_cast<bf16*>(ypad), cin, h, wd, t.wp, groups,
-                  cin / groups, t.rows_per_cta, eps};
+                  static_cast<bf16*>(ypad), cin, c8, h, wd, t.wp, groups,
+                  cin / groups, t.rows_per_cta, t.chunk_ch, t.chunk_pix,
+                  eps};
   int err = t.vec == 8
                 ? launch_pad<8>(a, batch * groups, t.k, t.pad_smem, s)
                 : launch_pad<1>(a, batch * groups, t.k, t.pad_smem, s);
   if (err != 0) return err;
   const ConvEpi epi{b, static_cast<bf16*>(out), part, batch, cout, h, wd,
-                    t.wp, static_cast<int>(n), cin, t.cblocks, t.splits};
-  err = gemm90::launch_gemm_taps(plan, wpack, ypad, cout, 9 * cin,
+                    t.wp, static_cast<int>(n), c8, t.cblocks, t.splits};
+  // the scratch's map is cin wide with rows c8 apart: zeros past cin
+  err = gemm90::launch_gemm_taps(plan, wpack, ypad, cout, 9 * c8,
                                  static_cast<int>(n),
-                                 static_cast<int>(positions), cin, t.splits,
-                                 epi, s);
+                                 static_cast<int>(positions), cin, c8,
+                                 t.splits, epi, s);
   if (err != 0 || t.splits == 1) return err;
   const long long total = static_cast<long long>(batch) * cout * h * wd;
   conv_sum_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),

@@ -118,14 +118,15 @@ def make_ddim_schedule(num_train_timesteps: int = 1000,
         clip_sample_range=clip_sample_range)
 
 
-def inference_timesteps(num_train_timesteps: int, num_inference_steps: int
-                        ) -> np.ndarray:
+def inference_timesteps(num_train_timesteps: int, num_inference_steps: int,
+                        tmin: int = 0) -> np.ndarray:
     """Descending inference timesteps with the fork's offset
     ``step_ratio - 1``, so that t = T-1 is always sampled (999, 979, ...,
-    19 for 1000/50)."""
+    19 for 1000/50); those below ``tmin`` dropped."""
     step_ratio = num_train_timesteps // num_inference_steps
     ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
-    return ts.astype(np.int64) + step_ratio - 1
+    ts = ts.astype(np.int64) + step_ratio - 1
+    return ts[ts >= tmin]
 
 
 def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int

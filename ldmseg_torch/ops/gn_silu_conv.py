@@ -9,8 +9,8 @@ port's layouts, x ``[B, Cin, H, W]`` and w ``[Cout, Cin, 3, 3]`` (the JAX
 function NHWC and HWIO).
 
 Dispatch, as in JAX: when ``max(H·W·Cin, H·W·Cout)·4 <= 6 MiB`` a CUDA
-tensor goes to ``csrc/gn_silu_conv.cu`` (bf16 only, the path's type, Cin a
-multiple of 8; any other input it cannot take raises; counted in
+tensor goes to ``csrc/gn_silu_conv.cu`` (bf16 only, the path's type; any
+other input it cannot take raises; counted in
 ``gn_silu_conv.launches``) and a CPU tensor to the kernel's plain version
 :func:`gn_silu_conv_reference`; larger images go to
 :func:`gn_silu_conv_fallback`, counted in ``gn_silu_conv.fallbacks``.
@@ -46,7 +46,7 @@ MAX_TILE_BYTES = 6 * 1024 * 1024
 # stages split over blocks where its grid leaves SMs idle
 CONV_TILE = (128, 128)
 CHANNEL_BLOCK = 64       # channels of one stage (one 128-byte swizzle row)
-PAD_SMEM_LIMIT = 200 * 1024  # the activation pass's slice of x
+PAD_SMEM_LIMIT = 200 * 1024  # the activation pass's chunk of x
 PAD_VALUES = 8192        # x values a CTA of the activation pass holds (K5's)
 
 
@@ -94,7 +94,12 @@ class ConvPlan:
     rounded up to 8), its stages split over ``splits`` blocks per tile; the
     activation pass's cluster of ``cluster`` CTAs per (image, group), each
     ``rows_per_cta`` image rows, 16-byte loads (``vec`` 8) or scalar ones,
-    ``pad_smem`` bytes of shared memory."""
+    its slice of x held in chunks of ``chunk_ch`` channels x ``chunk_pix``
+    pixels (:func:`pad_chunk`; x read once when the slice is one chunk,
+    else twice, the sums and then chunk by chunk), ``pad_smem`` bytes of
+    shared memory; the
+    scratch's and the pack's rows ``cin8`` channels a tap (Cin rounded up
+    to 8)."""
 
     gemm: GemmPlan
     wp: int
@@ -104,14 +109,18 @@ class ConvPlan:
     rows_per_cta: int
     vec: int
     pad_smem: int
+    chunk_ch: int
+    chunk_pix: int
+    cin8: int
     positions: int
     n: int
 
     def fields(self) -> tuple:
-        """The sixteen ints the C entry point reads: the product's nine,
+        """The eighteen ints the C entry point reads: the product's nine,
         then ``gn_silu_conv.cu``'s ``TapsPlan``."""
         return (*self.gemm.fields(), self.wp, self.cblocks, self.splits,
-                self.cluster, self.rows_per_cta, self.vec, self.pad_smem)
+                self.cluster, self.rows_per_cta, self.vec, self.pad_smem,
+                self.chunk_ch, self.chunk_pix)
 
     def split_ranges(self) -> list:
         """The stages ``[first, end)`` of each split, in the kernel's
@@ -128,6 +137,23 @@ class ConvPlan:
         return 2 + (self.splits > 1)
 
 
+def pad_chunk(cg: int, npix: int) -> tuple:
+    """(channels, pixels) of the activation pass's chunk of x for a CTA
+    slice of ``cg`` channels x ``npix`` pixels, at most
+    :data:`PAD_SMEM_LIMIT` bytes as bf16 ``[channels, pixels + 2]``: the
+    whole slice when it fits (x read once); else all ``cg`` channels and
+    the most pixels, a multiple of 8 (16-byte loads), that fit; else 64
+    pixels and an even number of channels (pairs of channels a store)."""
+    values = PAD_SMEM_LIMIT // 2
+    if cg * (npix + 2) <= values:
+        return cg, npix
+    if cg * 10 <= values:
+        return cg, (values // cg - 2) // 8 * 8
+    pix = min(npix, 64)
+    ch = values // (pix + 2)
+    return ch - ch % 2, pix
+
+
 @functools.lru_cache(maxsize=None)
 def sm90_conv_plan(b: int, cin: int, cout: int, h: int, w: int,
                    groups: int, aligned: bool = True) -> ConvPlan:
@@ -137,15 +163,16 @@ def sm90_conv_plan(b: int, cin: int, cout: int, h: int, w: int,
     SMs idle (the deep levels, bound by their weights); the activation pass
     with as many CTAs per (image, group) as hold its ``C/G·H·W`` values at
     :data:`PAD_VALUES` a CTA (at most 8, each a range of ``rows_per_cta``
-    image rows; a small span takes one CTA and no cluster barrier).
-    ``aligned``: x's base allows 16-byte
-    loads (with ``w % 8 == 0``). Raises ``ValueError`` on a shape the
-    kernels do not take (Cin a multiple of 8: a row of the scratch and of
-    the packed weights is a tensor map's stride)."""
-    if (min(b, cin, cout, h, w, groups) < 1 or cin % 8 or cin % groups):
-        raise ValueError(f"K7 takes Cin a multiple of 8 and of the groups, "
-                         f"got [{b}, {cin}, {h}, {w}] -> {cout} in {groups} "
-                         f"groups")
+    image rows; a small span takes one CTA and no cluster barrier), each
+    CTA's slice in :func:`pad_chunk`'s chunks. ``aligned``: x's base allows
+    16-byte loads (with ``w % 8 == 0``). Any Cin the groups divide: the
+    scratch's and the pack's rows are ``cin8`` channels (a tensor map's
+    stride is a multiple of 16 bytes). Raises ``ValueError`` on a
+    non-positive dimension or Cin not divisible by the groups."""
+    if min(b, cin, cout, h, w, groups) < 1 or cin % groups:
+        raise ValueError(f"K7 takes positive dimensions and Cin a multiple "
+                         f"of the groups, got [{b}, {cin}, {h}, {w}] -> "
+                         f"{cout} in {groups} groups")
     wp = padded_width(w)
     positions = b * (h + 2) * wp
     n = -(-positions // 8) * 8
@@ -155,16 +182,16 @@ def sm90_conv_plan(b: int, cin: int, cout: int, h: int, w: int,
                           max_stages=DEEP_STAGES, tile=CONV_TILE)
     blocks = gemm.grid[0] * gemm.grid[1]
     splits = max(1, min(SM90_SMS // blocks, stages))
-    span = cin // groups * h * w
-    rows_per_cta = -(-h // max(1, min(MAX_CLUSTER, -(-span // PAD_VALUES))))
-    pad_smem = cin // groups * (rows_per_cta * w + 2) * 2
-    if pad_smem > PAD_SMEM_LIMIT:
-        raise ValueError(f"K7: a CTA's slice of x takes {pad_smem} bytes of "
-                         f"shared memory (> {PAD_SMEM_LIMIT})")
+    cg = cin // groups
+    rows_per_cta = -(-h // max(1, min(MAX_CLUSTER,
+                                      -(-cg * h * w // PAD_VALUES))))
+    chunk_ch, chunk_pix = pad_chunk(cg, rows_per_cta * w)
     return ConvPlan(gemm=gemm, wp=wp, cblocks=cblocks, splits=splits,
                     cluster=-(-h // rows_per_cta), rows_per_cta=rows_per_cta,
                     vec=8 if aligned and w % 8 == 0 else 1,
-                    pad_smem=pad_smem, positions=positions, n=n)
+                    pad_smem=chunk_ch * (chunk_pix + 2) * 2,
+                    chunk_ch=chunk_ch, chunk_pix=chunk_pix,
+                    cin8=-(-cin // 8) * 8, positions=positions, n=n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,11 +202,15 @@ def _plan_c(*key):
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """K7's A operand: ``w [Cout, Cin, 3, 3]`` as bf16 ``[Cout, 9·Cin]``,
-    tap-major and K-major (``w.permute(0, 2, 3, 1)``): a tap's ``Cin``
-    weights of an output channel contiguous, a TMA box at a fixed tap."""
-    return (w.detach().permute(0, 2, 3, 1).reshape(w.shape[0], -1)
-            .to(torch.bfloat16).contiguous())
+    """K7's A operand: ``w [Cout, Cin, 3, 3]`` as bf16 ``[Cout, 9·cin8]``,
+    tap-major and K-major (``w.permute(0, 2, 3, 1)``, each tap's Cin
+    weights followed by zeros up to ``cin8``, Cin rounded up to 8): a tap's
+    weights of an output channel contiguous, a TMA box at a fixed tap, a
+    row a multiple of 16 bytes."""
+    t = w.detach().permute(0, 2, 3, 1)
+    cin = t.shape[-1]
+    t = F.pad(t, (0, -(-cin // 8) * 8 - cin))
+    return t.reshape(w.shape[0], -1).to(torch.bfloat16).contiguous()
 
 
 def _fp32(t: torch.Tensor) -> torch.Tensor:
@@ -246,7 +277,7 @@ def _launch(x, scale, bias, w, b, groups, eps):
                          f"lie on x's device")
     dev = x.device
     out = torch.empty((bsz, cout, h, wd), dtype=x.dtype, device=dev)
-    ypad = torch.empty((plan.positions, cin), dtype=torch.bfloat16,
+    ypad = torch.empty((plan.positions, plan.cin8), dtype=torch.bfloat16,
                        device=dev)
     part = torch.empty(plan.splits * cout * plan.n if plan.splits > 1 else 1,
                        dtype=torch.float32, device=dev)

@@ -1,0 +1,177 @@
+"""The port's bench line: 50-step panoptic inference throughput on the card.
+
+    python3 -m ldmseg_torch.tools.bench [--batch 16] [--steps 50] [--calls 3]
+
+The counterpart of the JAX package's ``bench.py``: the full inference
+pipeline, RGB image-VAE encode -> 50 DDIM steps of the SD-1.4-width UNet
+(8 input channels, no self-conditioning) -> seg-VAE decode to 128 logits,
+on 256x512 frames (a 32x64 latent), batch 16 by default, seeded random
+weights, through ``TrainerDiffusion.sample_panoptic``. It runs twice: in
+bf16 (self-attention on K1) and on the default int8 path
+(``sampling_kwargs.int8_inference`` with ``fused_norms`` and ``fused_ff``:
+s8 convs, K3 and K4), each with one warm-up call and ``--calls`` timed
+calls (host clock around work that ends in ``torch.cuda.synchronize()``).
+Beside them it times the flagship UNet forward of
+:func:`ldmseg_torch.entry.entry` (CUDA events).
+
+Prints ONE JSON line: ``{"metric": "frames_per_s", "value": <the int8
+path's frames/s>, "unit": "frames/s", ...}`` with the forward's ms, each
+path's s per call, frames/s, peak device memory and kernel launches per
+call, the batch, the steps, and the card's ``nvidia-smi`` name and power
+limit. It has no ``vs_baseline``: the JAX bench's baseline was taken on a
+TPU. One difference from the JAX bench: the port's image VAE runs in bf16
+(JAX's bench runs ``ImageVAE(use_int8=True)``; the int8 image VAE is not
+ported yet). Needs a CUDA device; without one it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+IMAGE_HW = (256, 512)
+
+
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def bench_config(int8: bool) -> dict:
+    """The JAX bench's pipeline as a trainer config: DEFAULT_CONFIG's seg
+    VAE (16 bits in, 128 logits), bf16 compute, no self-conditioning, 50
+    DDIM steps; with ``int8`` the default int8 path."""
+    from ..utils.config import DEFAULT_CONFIG, merge_dicts
+    return merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": False,
+                         "weight_dtype": "bfloat16"},
+        "sampling_kwargs": {"int8_inference": int8}})
+
+
+def _launch_counters() -> dict:
+    from ..ops import attention as A
+    from ..ops import attention_s8 as AS
+    from ..ops import geglu as G
+    return {"K1": A.fused_self_attention, "K3": AS.ln_attention_s8,
+            "K4": G.geglu_ln_s8}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_sampling(trainer, batch: int, steps: int, calls: int,
+                     warmup: int, image_hw=IMAGE_HW) -> dict:
+    """``sample_panoptic`` on ``batch`` random ``image_hw`` frames:
+    ``warmup`` calls, then ``calls`` timed ones; s per call (their mean,
+    and each call's), frames/s, peak memory and the kernels' launches per
+    call."""
+    dev = trainer.device
+    image = np.random.RandomState(0).randn(
+        batch, *image_hw, 3).astype(np.float32)
+    frames = {"image": image}
+    for _ in range(warmup):
+        trainer.sample_panoptic(frames, num_inference_steps=steps)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    counters = _launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    each = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        logits, _ = trainer.sample_panoptic(frames,
+                                            num_inference_steps=steps)
+        _sync(dev)
+        each.append(time.perf_counter() - t0)
+    secs = sum(each) / calls
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("bench: sample_panoptic gave non-finite logits")
+    return {
+        "s_per_call": secs, "s_each_call": each,
+        "frames_per_s": batch / secs,
+        "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                       if dev.type == "cuda" else None),
+        "launches_per_call": {k: (f.launches - before[k]) / calls
+                              for k, f in counters.items()},
+        "logits_shape": list(logits.shape)}
+
+
+def measure_forward(fn, args, iters: int = 20, warmup: int = 3) -> float:
+    """ms per call of ``fn(*args)`` on the card (CUDA events)."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run(batch: int = 16, steps: int = 50, calls: int = 3,
+        warmup: int = 1) -> dict:
+    """The bench line as a dict, on the card: the flagship forward of
+    :func:`ldmseg_torch.entry.entry`, then the full-width pipeline in bf16
+    and on the default int8 path."""
+    from ..entry import entry
+    from ..train.trainer_ldm import TrainerDiffusion
+    device = torch.device("cuda")
+    line = {"metric": "frames_per_s", "value": None, "unit": "frames/s",
+            "batch": batch, "steps": steps, "image_hw": list(IMAGE_HW),
+            "calls": calls, "warmup": warmup}
+    fn, args = entry(device)
+    line["unet_forward_ms"] = measure_forward(fn, args)
+    line["unet_forward_shape"] = list(args[0].shape)
+    del fn, args
+    torch.cuda.empty_cache()
+    for kind, int8 in (("bf16", False), ("int8", True)):
+        trainer = TrainerDiffusion(bench_config(int8), device=device)
+        trainer.init_params(seed=0)
+        line[kind] = measure_sampling(trainer, batch, steps, calls, warmup)
+        del trainer
+        torch.cuda.empty_cache()
+    line["value"] = line["int8"]["frames_per_s"]
+    line["path"] = ("int8: s8 convs, K3 and K4 (fused_norms, fused_ff); "
+                    "bf16 image VAE")
+    line["device"] = torch.cuda.get_device_name(device)
+    line["nvidia_smi"] = smi_line()
+    return line
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--steps", type=int, default=50)
+    parser.add_argument("--calls", type=int, default=3)
+    parser.add_argument("--warmup", type=int, default=1)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("bench: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(run(args.batch, args.steps, args.calls, args.warmup)),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,9 +11,12 @@ port's loader. A ``unet_config`` with ``use_packed_attention`` runs the
 self-attention of both paths on K14 (its backward on K2), as JAX's
 ``fused_self_attention_packed``. ``sample_panoptic`` runs the serving path:
 RGB frames -> image-VAE encoder (posterior mode x 0.18215) -> DDIM with
-self-conditioning -> seg-VAE decode to per-instance logits. Batches and
-results are NHWC at this boundary, as in the JAX package; the models run
-NCHW.
+self-conditioning -> seg-VAE decode to per-instance logits.
+``compute_pq`` scores it on ``val_dataset``: each prediction restored to its
+ground truth's resolution by host-built bilinear weight matrices contracted
+on the device, panoptic post-processing, then ``PanopticEvaluator``.
+Batches and results are NHWC at this boundary, as in the JAX package; the
+models run NCHW.
 
 With ``sampling_kwargs.int8_inference`` the 50 steps run on the int8 UNet
 (s8 convs; K3 and K4 with ``fused_norms``, the default; K13 and K12, or K13
@@ -27,10 +30,11 @@ adopted weights). Its other layers run in the compute dtype, as the bf16
 path does; the JAX trainer hands that UNet its fp32 masters, so there they
 promote the activations to fp32.
 
-EMA, checkpoints, video clips and pose consistency, classifier-free
-guidance, text descriptors, clip sampling, the DPM-Solver++ sampler, int8
-clip sampling, and the parallel modes are later slices: a
-config that asks for one of them raises ``NotImplementedError`` naming it.
+EMA, checkpoints (and so ``compute_pq``'s best-PQ save), image logging,
+video clips and pose consistency, classifier-free guidance, text
+descriptors, clip sampling, the DPM-Solver++ sampler, int8 clip sampling,
+and the parallel modes are later slices: a config or an argument that asks
+for one of them raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import dataclasses
 import time
 from typing import Callable, List, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -112,10 +117,11 @@ class TrainerDiffusion:
     JAX trainer does, on ``device`` (``"cuda"`` unless the caller asks for
     the CPU). Call :meth:`init_params` or :meth:`load_jax_params` before
     :meth:`train_step`, :meth:`train_loop` or :meth:`sample_panoptic`;
-    ``dataset`` feeds :meth:`train_loop`."""
+    ``dataset`` feeds :meth:`train_loop`, ``val_dataset``
+    :meth:`compute_pq`."""
 
     def __init__(self, p: dict, unet_config: Optional[UNetConfig] = None,
-                 device="cuda", dataset=None):
+                 device="cuda", dataset=None, val_dataset=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -184,6 +190,7 @@ class TrainerDiffusion:
                                         device=device)
         self.p = p
         self.ds = dataset
+        self.ds_val = val_dataset
         self.min_noise_level = tk.get("min_noise_level", 0)
         self.rgb_noise_level = tk.get("rgb_noise_level", 0)
         self.cond_noise_level = tk.get("cond_noise_level", 0)
@@ -600,7 +607,8 @@ class TrainerDiffusion:
     # ------------------------------------------------------------------
     def _sample_decode(self, unet: nn.Module, rgb_latents: torch.Tensor,
                        generator: Optional[torch.Generator],
-                       init_noise=None, num_inference_steps: int = 50):
+                       init_noise=None, num_inference_steps: int = 50,
+                       repeat_noise: bool = False):
         b, _, lh, lw = rgb_latents.shape
         if init_noise is not None:
             init = torch.as_tensor(init_noise, dtype=torch.float32,
@@ -612,6 +620,9 @@ class TrainerDiffusion:
         else:
             init = torch.randn((b, 4, lh, lw), generator=generator,
                                device=self.device)
+        if repeat_noise:
+            # one noise map shared by the batch (JAX :859-861)
+            init = init[:1].expand_as(init).contiguous()
 
         def model_fn(latents, condition, t):
             return self._unet_apply(unet, latents, rgb_latents, condition, t)
@@ -626,13 +637,18 @@ class TrainerDiffusion:
     def sample_panoptic(self, batch: Mapping,
                         generator: Optional[torch.Generator] = None,
                         init_noise=None,
-                        num_inference_steps: Optional[int] = None):
+                        num_inference_steps: Optional[int] = None,
+                        repeat_noise: bool = False,
+                        guidance_scale: Optional[float] = None):
         """``batch["image"]`` ``[B, H, W, 3]`` (ImageNet-normalised) ->
         (logits ``[B, H, W, C]`` fp32, x0 latents ``[B, H/8, W/8, 4]``).
         ``init_noise`` (NHWC) replaces the draw of the initial noise from
         ``generator``; with neither, the generator is seeded from
-        ``sampling_kwargs.seed``. With ``int8_inference`` the steps run on
-        :meth:`int8_unet`."""
+        ``sampling_kwargs.seed``. ``repeat_noise`` gives every frame row 0
+        of that noise. ``guidance_scale`` acts only with a context, as in
+        JAX (``_uncond_context`` gives none without one); the port refuses
+        descriptors, so there is none and it has no effect. With
+        ``int8_inference`` the steps run on :meth:`int8_unet`."""
         self._require_params()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
@@ -646,6 +662,156 @@ class TrainerDiffusion:
             rgb_latents = self._encode_rgb(batch["image"])
             logits, x0 = self._sample_decode(
                 unet, rgb_latents, generator, init_noise,
-                num_inference_steps or self.num_inference_steps)
+                num_inference_steps or self.num_inference_steps,
+                repeat_noise)
         return (logits.permute(0, 2, 3, 1).contiguous(),
                 x0.permute(0, 2, 3, 1).contiguous())
+
+    # ------------------------------------------------------------------
+    # eval (the JAX trainer's compute_metrics, compute_pq, _eval_fullres
+    # and _fullres_post, :1152-1284)
+    # ------------------------------------------------------------------
+    def compute_metrics(self, metrics=("pq",), **kw) -> dict:
+        """Eval dispatcher (JAX :1152)."""
+        out = {}
+        if "pq" in metrics:
+            out["pq"] = self.compute_pq(**kw)
+        return out
+
+    def compute_pq(self, num_inference_steps: Optional[int] = None,
+                   max_batches: Optional[int] = None,
+                   thing_ids=frozenset(), save_model: bool = False,
+                   seed: int = 0,
+                   log_images: Optional[bool] = None) -> dict:
+        """Sampled-segmentation PQ on ``val_dataset`` (JAX :1159): its
+        batches in order (``shuffle=False, drop_last=False``), each through
+        :meth:`sample_panoptic` with the draws from a generator seeded by
+        ``seed``; with full-resolution ground truth in every meta
+        (``gt_sem``, ``keep_fullres_gt``) :meth:`restore_fullres`, else the
+        bilinear resize to ``semseg``'s size and post-processing under
+        ``mask``; scored by ``PanopticEvaluator`` (class-agnostic without
+        ``thing_ids``). ``save_model`` and ``log_images`` raise
+        ``NotImplementedError`` (checkpoints and image logging are not
+        ported)."""
+        if log_images is None:
+            log_images = bool(self.p["eval_kwargs"].get("log_images", False))
+        if save_model:
+            raise NotImplementedError(
+                "compute_pq(save_model=True): checkpoints are not ported yet"
+                " (ROADMAP.md queue 4)")
+        if log_images:
+            raise NotImplementedError(
+                "compute_pq(log_images=True): image logging is not ported "
+                "yet (ROADMAP.md queue 5)")
+        from ..evals import PanopticEvaluator
+        if self.ds_val is None:
+            raise ValueError("TrainerDiffusion.compute_pq needs a "
+                             "val_dataset")
+        ev = PanopticEvaluator(thing_ids=set(thing_ids),
+                               class_agnostic=not thing_ids,
+                               ignore_label=self.ignore_label)
+        loader = Loader(self.ds_val, self.batch_size, shuffle=False,
+                        drop_last=False)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        for i, batch in enumerate(loader.epoch(0)):
+            logits, _ = self.sample_panoptic(
+                batch, generator, num_inference_steps=num_inference_steps)
+            metas = batch.get("meta")
+            if metas and all("gt_sem" in m for m in metas):
+                self._eval_fullres(ev, logits, metas)
+            else:
+                h, w = batch["semseg"].shape[1:3]
+                cleaned = self.restore_resized(logits, (h, w),
+                                               batch["mask"])
+                for bi in range(cleaned.shape[0]):
+                    ev.add_image(cleaned[bi], batch["semseg"][bi])
+            if max_batches is not None and i + 1 >= max_batches:
+                break
+        return ev.evaluate()
+
+    def _eval_fullres(self, ev, logits: torch.Tensor, metas,
+                      bucket: int = 128) -> None:
+        """Each prediction restored to its own ground truth's resolution
+        (:meth:`restore_fullres`) and scored against ``gt_sem`` (and
+        ``gt_inst`` where the reader gives it)."""
+        for m, cleaned in zip(metas, self.restore_fullres(logits, metas,
+                                                          bucket)):
+            ev.add_image(cleaned, m["gt_sem"], m.get("gt_inst"))
+
+    def restore_fullres(self, logits: torch.Tensor, metas,
+                        bucket: int = 128) -> list:
+        """Cleaned panoptic maps ``[oh, ow]`` (numpy int32), one per meta,
+        at ``gt_sem``'s size (JAX ``_eval_fullres``, :1218): per image two
+        host-built weight matrices (:func:`resize_weight_matrix`, the
+        bilinear resize of ``jax.image.resize``; the crop of
+        ``meta['padding'] = (top, bottom, left, right)`` folded in) into a
+        canvas rounded up to ``bucket``, the out-of-image region and
+        ``gt_mask``'s zeros left out through ``valid_mask``; images sharing
+        a canvas restored together, at most 8 a call
+        (:meth:`_fullres_post`), on the logits' device."""
+        from ..ops.resize import resize_weight_matrix
+        ih, iw = logits.shape[1:3]
+        groups: dict = {}
+        for bi, m in enumerate(metas):
+            t, b_, le, r = m.get("padding") or (0, 0, 0, 0)
+            oh, ow = m["gt_sem"].shape
+            bh = -(-oh // bucket) * bucket
+            bw = -(-ow // bucket) * bucket
+            wh = np.zeros((ih, bh), np.float32)
+            wh[t:ih - b_, :oh] = resize_weight_matrix(ih - t - b_, oh)
+            ww = np.zeros((iw, bw), np.float32)
+            ww[le:iw - r, :ow] = resize_weight_matrix(iw - le - r, ow)
+            valid = np.zeros((bh, bw), bool)
+            gm = m.get("gt_mask")
+            valid[:oh, :ow] = True if gm is None else \
+                np.asarray(gm).astype(bool)
+            groups.setdefault((bh, bw), []).append((bi, wh, ww, valid))
+        out = [None] * len(metas)
+        for items in groups.values():
+            for s in range(0, len(items), 8):
+                chunk = items[s:s + 8]
+                cleaned = self._fullres_post(
+                    logits[[it[0] for it in chunk]],
+                    *(np.stack([it[k] for it in chunk]) for k in (1, 2, 3)))
+                for k, (bi, *_unused) in enumerate(chunk):
+                    oh, ow = metas[bi]["gt_sem"].shape
+                    out[bi] = cleaned[k, :oh, :ow]
+        return out
+
+    def restore_resized(self, logits: torch.Tensor, size_hw, mask
+                        ) -> np.ndarray:
+        """Cleaned panoptic maps ``[B, h, w]`` (numpy int32) after the
+        bilinear resize of the logits to ``size_hw`` (JAX :1198-1209,
+        ``jax.image.resize(..., "linear")``), post-processed under
+        ``mask`` ``[B, h, w]``. The resize is the same contraction as
+        :meth:`restore_fullres` with :func:`resize_weight_matrix`, not
+        ``F.interpolate``: the two differ where the size shrinks
+        (``jax.image.resize`` widens its triangle kernel by the scale)."""
+        from ..ops.resize import resize_weight_matrix
+        (h, w), (ih, iw) = size_hw, logits.shape[1:3]
+        wh, ww = resize_weight_matrix(ih, h), resize_weight_matrix(iw, w)
+        mask = np.asarray(mask).astype(bool)
+        return np.concatenate([
+            self._fullres_post(
+                logits[s:s + 8], np.broadcast_to(wh, (len(m),) + wh.shape),
+                np.broadcast_to(ww, (len(m),) + ww.shape), m)
+            for s in range(0, logits.shape[0], 8)
+            for m in (mask[s:s + 8],)])
+
+    @torch.no_grad()
+    def _fullres_post(self, li: torch.Tensor, wh, ww, valid) -> np.ndarray:
+        """One restore call (JAX :1275): ``einsum("bhwc,bhH,bwW->bHWc")``
+        of the logits with the weight matrices in fp32 on the logits'
+        device, then ``panoptic_post_process`` with ``valid_mask``."""
+        from ..ops.panoptic import panoptic_post_process
+        dev = li.device
+        resized = torch.einsum(
+            "bhwc,bhH,bwW->bHWc", li.float(),
+            torch.as_tensor(np.ascontiguousarray(wh), device=dev),
+            torch.as_tensor(np.ascontiguousarray(ww), device=dev))
+        cleaned, _ = panoptic_post_process(
+            resized, mask_th=self.mask_th, count_th=self.count_th,
+            overlap_th=self.overlap_th, ignore_label=self.ignore_label,
+            valid_mask=torch.as_tensor(np.ascontiguousarray(valid),
+                                       device=dev))
+        return cleaned.cpu().numpy()

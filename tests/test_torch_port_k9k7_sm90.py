@@ -102,9 +102,10 @@ def _pallas_k7(x, scale, bias, wk, bk, groups):
 
 
 # (B, H, W, Cin, Cout, groups): 4x8, 8x16, widths 12 and 7 (not multiples
-# of 16; 7 odd), Cin 40 and 72 (not multiples of 64), Cout not of 128
+# of 16; 7 odd), Cin 40 and 72 (not multiples of 64), Cout not of 128, Cin
+# 36 (not a multiple of 8: rows of 40 channels, 9 a group)
 K7_CASES = [(2, 4, 8, 64, 24, 8), (1, 8, 16, 32, 16, 4),
-            (2, 5, 12, 40, 24, 8), (1, 6, 7, 72, 8, 8)]
+            (2, 5, 12, 40, 24, 8), (1, 6, 7, 72, 8, 8), (1, 6, 8, 36, 16, 4)]
 
 
 # ---------------------------------------------------------------------------
@@ -181,14 +182,18 @@ def _taps_ok(plan, b, cin, cout, h, w, groups, aligned=True):
     rows_per_cta = plan.rows_per_cta
     ctas = min(8, -(-(cin // groups * h * w) // K7.PAD_VALUES))
     n = -(-b * (h + 2) * plan.wp // 8) * 8
-    return (cin % 8 == 0 and cin % groups == 0
+    c8 = -(-cin // 8) * 8
+    return (cin >= 1 and cin % groups == 0 and plan.cin8 == c8
+            and (9 * c8 * 2) % 16 == 0 and (c8 * 2) % 16 == 0
             and plan.wp == w + 1 + (w + 1) % 2
             and plan.cblocks == -(-cin // 64)
             and rows_per_cta == -(-h // ctas)
             and 1 <= plan.cluster <= 8
             and plan.cluster == -(-h // rows_per_cta)
             and (plan.vec == 1 or (plan.vec == 8 and w % 8 == 0 and aligned))
-            and plan.pad_smem == cin // groups * (rows_per_cta * w + 2) * 2
+            and 1 <= plan.chunk_ch <= cin // groups
+            and 1 <= plan.chunk_pix <= rows_per_cta * w
+            and plan.pad_smem == plan.chunk_ch * (plan.chunk_pix + 2) * 2
             and plan.pad_smem <= K7.PAD_SMEM_LIMIT
             and plan.gemm.k_tiles == 9 * plan.cblocks
             and 1 <= plan.splits <= plan.gemm.k_tiles
@@ -217,7 +222,11 @@ def test_k7_plan_at_the_unet_halves():
         assert blocks * plan.splits <= SM90_SMS or plan.splits == 1
         assert plan.launches == 2 + (plan.splits > 1) <= 3
         assert plan.vec == 8
-        assert len(plan.fields()) == 16
+        assert len(plan.fields()) == 18
+        # x read once: the CTA's slice is one chunk
+        assert (plan.chunk_ch, plan.chunk_pix) == (c // 32,
+                                                   plan.rows_per_cta * w)
+        assert plan.cin8 == c
     # the deep levels split, the first level does not
     deep = K7.sm90_conv_plan(2, 1280, 1280, 4, 8, 32)
     assert deep.splits == 13 and deep.launches == 3
@@ -234,10 +243,43 @@ def test_k7_plan_at_ragged_shapes(shape, cout, groups):
 
 
 def test_k7_plan_refuses_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError):          # Cin % 8
-        K7.sm90_conv_plan(1, 36, 16, 6, 8, 4)
-    with pytest.raises(ValueError):          # a CTA's slice of x
-        K7.sm90_conv_plan(1, 64, 16, 1, 2048, 1)
+    with pytest.raises(ValueError):          # Cin % groups
+        K7.sm90_conv_plan(1, 36, 16, 6, 8, 8)
+    for bad in range(6):                     # a non-positive dimension
+        args = [1, 64, 16, 6, 8, 4]
+        args[bad] = 0
+        with pytest.raises(ValueError):
+            K7.sm90_conv_plan(*args)
+
+
+# ((B, Cin, H, W), Cout, groups, cin8, chunk, x_reads): the shapes JAX's
+# kernel takes that the plan refused before (Cin 36 in 4 groups; a CTA's
+# slice of 320 channels x 8 rows of 64, 329 KB), a row of 2,048 in one
+# group, and a group wider than a chunk of 64 pixels holds
+K7_REPAIRED = [((2, 36, 32, 64), 64, 4, 40, (9, 704), 1),
+               ((2, 320, 64, 64), 320, 1, 320, (320, 312), 2),
+               ((1, 64, 1, 2048), 16, 1, 64, (64, 1592), 2),
+               ((1, 12000, 1, 16), 8, 1, 12000, (5688, 16), 2)]
+
+
+@pytest.mark.parametrize("shape,cout,groups,cin8,chunk,x_reads", K7_REPAIRED)
+def test_k7_plan_takes_what_jax_takes(shape, cout, groups, cin8, chunk,
+                                      x_reads):
+    b, c, h, w = shape
+    # JAX's dispatch sends it to its Pallas kernel (the 6 MiB rule)
+    assert K7.takes_kernel(torch.empty(shape, device="meta"), cout,
+                           K7.MAX_TILE_BYTES)
+    plan = K7.sm90_conv_plan(b, c, cout, h, w, groups)
+    assert _taps_ok(plan, b, c, cout, h, w, groups), plan
+    assert plan.cin8 == cin8 and (plan.chunk_ch, plan.chunk_pix) == chunk
+    # x read once when the CTA's slice is one chunk, else twice
+    one_chunk = plan.chunk_ch * plan.chunk_pix == c // groups * (
+        plan.rows_per_cta * w)
+    assert x_reads == (1 if one_chunk else 2) and len(plan.fields()) == 18
+    # every chunk's pixels start on a 16-byte load and pairs of channels
+    # stay pairs
+    assert plan.chunk_pix % 8 == 0 or plan.chunk_pix == plan.rows_per_cta * w
+    assert plan.chunk_ch == c // groups or plan.chunk_ch % 2 == 0
 
 
 def test_k7_c_checks_are_the_ones_transcribed():
@@ -247,11 +289,16 @@ def test_k7_c_checks_are_the_ones_transcribed():
                  "t.k == (h + t.rows_per_cta - 1) / t.rows_per_cta",
                  "t.rows_per_cta == (h + ctas - 1) / ctas",
                  "(span + kPadValues - 1) / kPadValues",
-                 "t.pad_smem == cg_ * (t.rows_per_cta * w + 2) * 2",
+                 "t.pad_smem == t.chunk_ch * (t.chunk_pix + 2) * 2",
+                 "t.chunk_ch == ch && t.chunk_pix == pix",
+                 "pix = (static_cast<int>(kVals) / cg - 2) / 8 * 8;",
+                 "ch -= ch % 2;",
+                 "const int c8 = (cin + 7) / 8 * 8;",
                  "plan[5] != 9 * t.cblocks"):
         assert rule in src, rule
     gemm = (CSRC / "gemm_sm90.cuh").read_text()
     assert "splits > p.k_tiles" in gemm
+    assert "w_ld < w_cols" in gemm and "(w_ld * 2) % 16 != 0" in gemm
     assert "plan_ok(p, false, rows, n, 64 * p.k_tiles, 1)" in gemm
 
 
@@ -269,6 +316,14 @@ def test_pack_conv_weight_is_the_permuted_weight():
     # tap (dy, dx) of output o is the Cin weights at [o, (3 dy + dx) Cin:]
     assert torch.equal(pack[5, (3 * 2 + 1) * 40:(3 * 2 + 2) * 40],
                        w[5, :, 2, 1].to(torch.bfloat16))
+    # Cin 36: each tap's 36 weights, then 4 zeros (rows of 40 channels)
+    w36 = w[:, :36]
+    pack = K7.pack_conv_weight(w36)
+    assert pack.shape == (24, 9 * 40)
+    taps = pack.reshape(24, 9, 40)
+    assert torch.equal(taps[..., :36], w36.permute(0, 2, 3, 1).reshape(
+        24, 9, 36).to(torch.bfloat16))
+    assert not taps[..., 36:].any()
 
 
 def test_packed_weight_is_made_once_per_version():

@@ -9,8 +9,10 @@ scratch, the 3x3 conv as one product over nine shifted taps, split-K at the
 deep levels) is held to its plain version within ``GN_CONV_TOL`` of
 max|ref| (``chip_smoke.py``'s gate: sums over up to 9 x 2560 bf16 products
 in another order, rounded to bf16) at every shape class of the 43 resnet
-halves it takes in a sampling forward and at ragged shapes (Cin not a
-multiple of 64, Cout not a multiple of 128, W = 8, an odd W), two calls
+halves it takes in a sampling forward, at ragged shapes (Cin not a
+multiple of 64, Cout not a multiple of 128, W = 8, an odd W) and at the
+two shapes of ``K7_REPAIRED`` (Cin 36 in 4 groups; 320 channels at 64x64
+in one group, whose slice is read twice, in chunks), two calls
 bit-equal (the split's partials are summed in a fixed order), and the
 trace shows the launches its plan names. K9 (K4's kernels, then the bf16
 ``proj_out`` product with its operands swapped, stored channel-major) is
@@ -49,6 +51,11 @@ K7_SITES = [((2, 320, 32, 64), 320, 7), ((2, 640, 32, 64), 320, 2),
 # multiple of 128, W = 8, odd widths (scalar loads and stores), one image
 K7_RAGGED = [((1, 40, 5, 7), 24, 8), ((2, 96, 8, 8), 200, 32),
              ((1, 72, 6, 12), 48, 8), ((2, 200, 3, 9), 136, 8)]
+# ((B, Cin, H, W), Cout, groups) that JAX's kernel takes and K7's plan
+# refused before its repair: Cin 36, not a multiple of 8 (scratch and pack
+# rows of 40 channels), and a CTA's slice of 320 channels x 8 rows of 64
+# (329 KB: x read twice, the second time in chunks of 312 pixels)
+K7_REPAIRED = [((2, 36, 32, 64), 64, 4), ((2, 320, 64, 64), 320, 1)]
 # (B, T, C) of K9's launches in one fused-projs int8 forward, and ragged
 # ones the rule takes (T = 120; C = 80, not a multiple of 64)
 K9_PATH = [(2, 2048, 320), (2, 512, 640), (2, 128, 1280), (2, 32, 1280)]
@@ -73,8 +80,10 @@ def conv_taps_model(x, scale, bias, w, b, groups, eps, plan):
     sums: the padded scratch (:func:`padded_activation`), read as the
     product's W operand through a window of zeros past either end (TMA's
     zeros); each stage kt = (tap t, channel block cb) the 64-wide A box of
-    the packed weights (in x's dtype) at column ``t·Cin + 64·cb`` (past Cin it holds the
-    next tap's weights, which meet the scratch's zero channels) times the
+    the packed weights (in x's dtype; ``cin8``, Cin rounded up to 8,
+    columns a tap, zeros past Cin) at column ``t·cin8 + 64·cb`` (past Cin
+    it holds zeros or the next tap's weights, which meet the scratch's
+    zero channels) times the
     scratch's rows shifted by ``(t // 3 − 1)·wp + (t % 3 − 1)``; the stages
     summed in order within each split of ``plan.split_ranges()``, the
     splits' partials in split order, b added, the halo positions dropped,
@@ -86,15 +95,16 @@ def conv_taps_model(x, scale, bias, w, b, groups, eps, plan):
     margin = wp + 1
     ext = torch.zeros((margin + n + margin, cb64), device=x.device)
     ext[margin:margin + plan.positions, :cin] = flat
-    wk = torch.zeros((cout, 9 * cin + 64), device=x.device)
+    c8 = plan.cin8
+    wk = torch.zeros((cout, 9 * c8 + 64), device=x.device)
     # the packed weights (pack_conv_weight's layout) in x's dtype
-    wk[:, :9 * cin] = w.permute(0, 2, 3, 1).reshape(cout, -1).to(
-        x.dtype).float()
+    wk[:, :9 * c8].view(cout, 9, c8)[..., :cin] = w.permute(
+        0, 2, 3, 1).reshape(cout, 9, cin).to(x.dtype).float()
 
     def stage(kt):
         t, c = divmod(kt, plan.cblocks)
         shift = (t // 3 - 1) * wp + (t % 3 - 1)
-        a = wk[:, t * cin + 64 * c:t * cin + 64 * c + 64]
+        a = wk[:, t * c8 + 64 * c:t * c8 + 64 * c + 64]
         rows = ext[margin + shift:margin + shift + n, 64 * c:64 * c + 64]
         return a @ rows.t()                                   # [cout, n]
 
@@ -164,7 +174,8 @@ def _kernel_names(fn, calls=4):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,cout,groups",
-                         [(s, co, 32) for s, co, _ in K7_SITES] + K7_RAGGED)
+                         [(s, co, 32) for s, co, _ in K7_SITES] + K7_RAGGED
+                         + K7_REPAIRED)
 def test_k7_matches_plain_version_and_repeats_bit_equal(cuda, shape, cout,
                                                         groups):
     x, scale, bias, w, b = _k7_inputs(cuda, shape, cout, 2)
@@ -186,7 +197,7 @@ def test_k7_matches_plain_version_and_repeats_bit_equal(cuda, shape, cout,
 @pytest.mark.parametrize("shape,cout,groups", [
     ((2, 320, 32, 64), 320, 32), ((2, 640, 16, 32), 640, 32),
     ((2, 1280, 8, 16), 1280, 32), ((2, 2560, 4, 8), 1280, 32),
-    ((1, 40, 5, 7), 24, 8)])
+    ((1, 40, 5, 7), 24, 8)] + K7_REPAIRED)
 def test_k7_is_its_decomposition(cuda, shape, cout, groups):
     # the kernel against conv_taps_model on the card: the same y (both
     # round gn_silu to bf16; the statistics' sums in another order can move
@@ -227,8 +238,8 @@ def test_k7_launches_what_its_plan_names(cuda, shape, cout):
 @pytest.mark.gpu
 def test_k7_raises_on_what_it_does_not_take(cuda):
     x, scale, bias, w, b = _k7_inputs(cuda, (1, 36, 6, 8), 16, 5)
-    with pytest.raises(ValueError):   # Cin % 8: a tensor map's stride
-        GC.gn_silu_conv(x, scale, bias, w, b, 4, 1e-5)
+    with pytest.raises(ValueError):   # Cin % groups
+        GC.gn_silu_conv(x, scale, bias, w, b, 8, 1e-5)
     x, scale, bias, w, b = _k7_inputs(cuda, (1, 64, 6, 8), 16, 5)
     with pytest.raises(ValueError):   # w's shape
         GC.gn_silu_conv(x, scale, bias, w[:, :32], b, 32, 1e-5)
