@@ -15,7 +15,12 @@ Phases, one line each:
      plain attention;
   4. ``TrainerDiffusion.sample_panoptic`` end to end at full width (50 DDIM
      steps, batch 2 of 256x512 frames) and ``panoptic_post_process``, with
-     K1's and K2's launch counts over that run;
+     K1's and K2's launch counts over that run; like every sampling phase
+     below (9, 12, 13, 16, 18, 21, 23, 26, 28, 31, 33, 34, 35) its steps
+     replay a CUDA graph (``ddim_sample``'s default on the card; the
+     counters count the replays); here the eager loop too, at the same
+     noise: x0 bit-equal, the same launches, and one call of each profiled
+     (wall, kernel time, host time, busy share);
   5. K2 (self-attention backward) against its plain PyTorch version at the
      training path's shapes, two calls bit-equal, with times (CUDA events,
      and the device time of each of its two kernels from
@@ -42,7 +47,9 @@ Phases, one line each:
   9. ``sample_panoptic`` with ``int8_inference`` as in phase 4: twice with
      the default scales (dynamic interior), then ``calibrate_int8`` and
      twice with the calibrated scales (static interior); 800 K3 and 800 K4,
-     0 K1 and no fallback per call;
+     0 K1 and no fallback per call; each mode's graph held bit for bit to
+     the eager loop (and profiled), the calibrated x0 different from the
+     default one (no stale graph);
   10. K13 (the int8 attention without fused norms) and K12 (the int8 GEGLU
      feed-forward without LN and residual, dynamic and static interior
      scale) against their plain PyTorch versions at the unfused int8 path's
@@ -167,9 +174,19 @@ Phases, one line each:
   35. ``ldmseg_torch.entry.entry()``'s forward against the plain attention,
      and ``ldmseg_torch/tools/bench.py`` at batch 2 (its JSON line on a
      line of its own, its launches checked);
-  36. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
+  36. the run around the UNet at full width, in a temporary directory:
+     ``tools/main_ldm.py`` (the default configuration with ``ema_on``,
+     2 steps at batch 8 of 192x640 synthetic frames through the threaded
+     loader and the H2D prefetch, the save, ``compute_pq`` at 10 DDIM
+     steps with the best-PQ snapshot; 32 K1 and 16 K2 a step), a fresh
+     trainer's ``resume`` (masters, AdamW state and EMA bit-equal),
+     ``tools/export_checkpoint.py --ema`` (read back equal by
+     ``load_reference_ldm``) and ``tools/predict.py`` from the checkpoint
+     (2 frames' PNG pairs); the checkpoint's bytes and the save and resume
+     seconds;
+  37. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
      K5, K6 and K7 with their device time and host time a call);
-  37. the last line, ``{"ok": true, "device": {...}}``.
+  38. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -296,6 +313,8 @@ S8PV_REDESIGN = {
 
 
 def _ms(x):
+    if isinstance(x, str):
+        return x
     return "n/a" if x is None else f"{x:.4f}"
 
 
@@ -497,11 +516,15 @@ def phase_unet(trainer, seed: int = 1):
 
 
 def phase_sample(trainer, smi_line: str, seed: int = 0, phase: int = 4,
-                 expect=None):
+                 expect=None, eager_check: bool = False):
     """``sample_panoptic`` end to end at full width: 50 DDIM steps on 2
-    frames of 256x512, then ``panoptic_post_process``. Returns the launch
-    counts over the timed call (the main path), checked against ``expect``
-    per UNet forward (default: 16 K1, every other kernel 0)."""
+    frames of 256x512 (a CUDA graph replayed, ``ddim_sample``'s default on
+    the card), then ``panoptic_post_process``. Returns the launch counts
+    over the timed call (the main path), checked against ``expect`` per
+    UNet forward (default: 16 K1, every other kernel 0). With
+    ``eager_check`` the eager loop runs at the same noise and its x0 must
+    equal the graph's bit for bit with the same launches, and one call of
+    each is profiled (:func:`host_profile`)."""
     import numpy as np
     import torch
     from ldmseg_torch.ops.panoptic import panoptic_post_process
@@ -537,13 +560,100 @@ def phase_sample(trainer, smi_line: str, seed: int = 0, phase: int = 4,
     check(counts == want, f"bf16 sampling launched {counts}, expected "
           f"{want}")
     x0_host = x0.float().cpu().numpy()
-    print(f"phase {phase} sample_panoptic: {steps} DDIM steps, 2 x 256x512 "
-          f"frames -> logits {tuple(logits.shape)}: {secs:.3f} s per call "
-          f"(post-process included), {2 / secs:.3f} frames/s, peak memory "
-          f"{peak / 2**30:.2f} GiB, K1 launches {launches}, launches "
-          f"{counts} [{smi_line}]", flush=True)
-    return counts, {"seconds": secs, "frames_per_s": 2 / secs,
-                    "peak_bytes": peak, "x0": x0_host}
+    print(f"phase {phase} sample_panoptic: {steps} DDIM steps (CUDA graph),"
+          f" 2 x 256x512 frames -> logits {tuple(logits.shape)}: "
+          f"{secs:.3f} s per call (post-process included), "
+          f"{2 / secs:.3f} frames/s, peak memory {peak / 2**30:.2f} GiB, "
+          f"K1 launches {launches}, launches {counts} [{smi_line}]",
+          flush=True)
+    result = {"seconds": secs, "frames_per_s": 2 / secs,
+              "peak_bytes": peak, "x0": x0_host}
+    if eager_check:
+        result["eager"] = graph_vs_eager(
+            f"phase {phase} bf16", lambda g: trainer.sample_panoptic(
+                batch, graph=g), x0, counts, smi_line)
+    return counts, result
+
+
+def graph_vs_eager(label: str, sample, x0_graph, graph_counts,
+                   smi_line: str, profile: bool = True) -> dict:
+    """The eager loop (``graph=False``) at the graph call's noise: x0 bit
+    for bit and the same launches, its wall time beside; with ``profile``
+    one graph call traced (:func:`host_profile`)."""
+    import torch
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, x0_eager = sample(False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    counts = _counts()
+    check(torch.equal(x0_eager, x0_graph),
+          f"{label}: the graph's x0 differs from the eager loop's, max "
+          f"{(x0_eager - x0_graph).abs().max().item()}")
+    check(counts == graph_counts, f"{label}: the eager loop launched "
+          f"{counts}, the graph {graph_counts}")
+    prof = None
+    if profile:
+        # the counters add the capture's delta per replay: the trace shows
+        # that the replays ran those kernels on the card (a trace can drop
+        # events, never add them: a short one is taken again)
+        want = {k: graph_counts[k] for k in TRACE_NAMES}
+        for _ in range(3):
+            prof = host_profile(lambda: sample(True))
+            if prof["trace_launches"] == want:
+                break
+        check(prof["trace_launches"] == want,
+              f"{label}: one traced graph call ran {prof['trace_launches']}"
+              f" kernels by name, its counters say {want}")
+    print(f"{label} graph vs eager: x0 bit-equal, the same launches"
+          + ("; the traced graph call ran the counted kernels "
+             f"{prof['trace_launches']}" if prof else "") + "; eager "
+          f"{eager_s:.3f} s a call" + (
+              f"; a graph call traced: wall {prof['wall_ms']:.1f} ms, "
+              f"kernels {_ms(prof.get('device_ms'))} ms, host "
+              f"{_ms(prof.get('host_ms'))} ms, busy "
+              f"{_ms(prof.get('busy_share'))}" if prof else "")
+          + f" [{smi_line}]", flush=True)
+    return {"x0_bit_equal": True, "eager_seconds": eager_s,
+            "graph_profile": prof}
+
+
+# one device kernel of each sampling wrapper per launch, by its name in a
+# trace: K1's attention (the Hopper bf16 kernel or the fp32 one), K3's
+# attention stage, K4's down product
+TRACE_NAMES = {"K1": r"attention_fwd_kernel", "K3": r"attn_s8_kernel_sm90",
+               "K4": r"DownEpi"}
+
+
+def trace_launches(prof, per: int) -> dict:
+    """The device kernels of ``TRACE_NAMES`` that ran in the trace ``prof``
+    of ``per`` calls, per call, counted by name: what the card ran, beside
+    what the wrappers' counters say."""
+    import re
+    import torch
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    return {"trace_launches": {
+        k: sum(1 for n in names if re.search(p, n)) // per
+        for k, p in TRACE_NAMES.items()}}
+
+
+def host_profile(fn) -> dict:
+    """One traced call of ``fn`` after an untraced one
+    (``tools/profile_sampling.py:_profile``): wall ms, kernel ms, the
+    device's busy share, host ms = wall minus kernel time, and the
+    :func:`trace_launches` of the call."""
+    from ldmseg_torch.tools.profile_sampling import _profile
+    for _ in range(2):  # a trace now and then comes back without them
+        out = _profile(fn, 1, "call", trace_launches)
+        if isinstance(out.get("device_ms"), float):
+            break
+    if isinstance(out.get("device_ms"), float):
+        out["host_ms"] = out["wall_ms"] - out["device_ms"]
+    for k in ("families_ms", "top_kernels_ms"):
+        out.pop(k, None)
+    return out
 
 
 def k2_device_ms(fn):
@@ -1230,13 +1340,18 @@ def phase_unfused_unet(trainer, seed: int = 1):
 
 def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
                       bf16_result: dict, calibrate: bool, phase: int,
-                      calls: int = 1, seed: int = 0):
+                      calls: int = 1, seed: int = 0,
+                      eager_check: bool = False):
     """int8 ``sample_panoptic`` as phase 4 (same frames, same init noise):
     a warm-up call, ``calls`` timed calls with the default scales and, with
     ``calibrate``, ``calls`` after ``calibrate_int8`` (the host's speed
     moves a single call: the fastest is reported); every call's launches
-    checked against ``expect`` (per UNet forward). Returns each mode's
-    counts and measurements."""
+    checked against ``expect`` (per UNet forward). With ``eager_check``
+    each mode's last call is held bit for bit to the eager loop
+    (:func:`graph_vs_eager`), and the calibrated graph's x0 must differ
+    from the default scales' (a graph captured afresh after the
+    recalibration, not replayed stale). Returns each mode's counts and
+    measurements."""
     import numpy as np
     import torch
     from ldmseg_torch.ops.panoptic import panoptic_post_process
@@ -1246,7 +1361,7 @@ def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
     batch = {"image": image}
     steps = trainer.num_inference_steps
     want = _expect(**{k: n * steps for k, n in expect.items()})
-    results = {}
+    results, x0s = {}, {}
     modes = (["warm-up"] + ["default scales"] * calls
              + (["calibrated"] * calls if calibrate else []))
     timings = {}
@@ -1290,6 +1405,16 @@ def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
         results[mode] = {"seconds": secs, "seconds_each_call": timings[mode],
                          "frames_per_s": 2 / secs, "peak_bytes": peak,
                          "counts": counts, "x0_correlation_with_bf16": corr}
+        if eager_check:
+            results[mode]["eager"] = graph_vs_eager(
+                f"phase {phase} {label} ({mode})",
+                lambda g: trainer.sample_panoptic(batch, graph=g), x0,
+                counts, smi_line, profile=mode == "default scales")
+            x0s[mode] = x0
+            if mode == "calibrated":
+                check(not torch.equal(x0, x0s["default scales"]),
+                      f"{label}: the calibrated call's x0 equals the default"
+                      f" scales' (a stale graph?)")
         if mode == "calibrated":
             results[mode]["calibrate_seconds"] = calib_s
         each = ", ".join(f"{x:.3f}" for x in timings[mode])
@@ -3654,7 +3779,7 @@ def phase_entry_bench(smi_line: str, seed: int = 1):
     counts = _counts()
     check((line["metric"], line["unit"]) == ("frames_per_s", "frames/s")
           and line["value"] == line["int8"]["frames_per_s"] > 0
-          and "vs_baseline" not in line,
+          and "vs_baseline" not in line and "CUDA graph" in line["sampler"],
           f"the bench line's head: {line['metric']}, {line['unit']}, "
           f"{line['value']}")
     want = _expect(K1=16 * (3 + 20) + 2 * 800, K3=2 * 800, K4=2 * 800)
@@ -3675,6 +3800,183 @@ def phase_entry_bench(smi_line: str, seed: int = 1):
           flush=True)
     print(json.dumps(line), flush=True)
     return {"entry_max_rel_err": errs, "bench": line, "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# the run around the UNet (phase 36): main_ldm, save, resume, predict
+# ---------------------------------------------------------------------------
+LIFECYCLE_STEPS = 2       # optimizer steps of main_ldm (batch 8)
+LIFECYCLE_PQ_STEPS = 10   # DDIM steps of its evals and of predict
+# free space the phase needs in TMPDIR: main_ldm writes step_N and
+# best_model, each about 12.2 GiB (fp32 masters, AdamW moments, EMA;
+# 13,049,730,885 bytes on the H100), before best_model is removed and the
+# 6.2 GiB export is written
+LIFECYCLE_DISK_BYTES = 28 * 2**30
+
+
+def _opt_state(trainer) -> dict:
+    return {(i, k): v for i, st in trainer.state.optimizer.torch_opt
+            .state_dict()["state"].items() for k, v in st.items()}
+
+
+def phase_lifecycle(smi_line: str):
+    """``main_ldm`` at full width (the default configuration, bf16 on fp32
+    masters, self-conditioning, ``ema_on``; synthetic 192x640 frames at
+    batch 8) in a temporary directory: ``LIFECYCLE_STEPS`` steps through
+    the threaded loader and the H2D prefetch, the final save, and PQ on
+    the val frames with the best-PQ snapshot; its K1 and K2 launches
+    checked (32 K1 and 16 K2 a step, 16 K1 a DDIM step of the two eval
+    calls). A fresh trainer resumes from the checkpoint: masters, AdamW
+    state and EMA bit-equal on the card to the run's. ``export_checkpoint
+    --ema`` writes the reference's save dict from the run directory, which
+    ``load_reference_ldm`` reads back equal to the run's masters and EMA.
+    ``predict`` writes the PNG pairs of 2 frames from the checkpoint.
+    Prints the checkpoint's bytes and the seconds of each save and of the
+    resume."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from ldmseg_torch.models.torch_import import load_reference_ldm
+    from ldmseg_torch.tools import export_checkpoint, main_ldm, predict
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+
+    with tempfile.TemporaryDirectory() as root:
+        free = shutil.disk_usage(root).free
+        check(free >= LIFECYCLE_DISK_BYTES,
+              f"phase 36 needs {LIFECYCLE_DISK_BYTES / 2**30:.0f} GiB free "
+              f"in the temporary directory {root} (TMPDIR) for two "
+              f"checkpoints; it has {free / 2**30:.1f} GiB")
+        saves = []
+        save = TrainerDiffusion.save
+
+        def timed_save(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(self, *a, **kw)
+            saves.append((os.path.basename(path),
+                          time.perf_counter() - t0))
+            return path
+        overrides = ["train_kwargs.self_condition=True",
+                     "train_kwargs.weight_dtype=bfloat16", "ema_on=True",
+                     f"train_kwargs.train_num_steps={LIFECYCLE_STEPS}",
+                     f"sampling_kwargs.num_inference_steps="
+                     f"{LIFECYCLE_PQ_STEPS}"]
+        TrainerDiffusion.save = timed_save
+        _zero_counts()
+        try:
+            t0 = time.perf_counter()
+            live = main_ldm.main(overrides + [
+                f"output_dir={root}", "run_idx=0", "eval_first=False"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            TrainerDiffusion.save = save
+        counts = _counts()
+        calls = -(-len(live.ds_val) // live.batch_size)
+        want = _expect(K1=32 * LIFECYCLE_STEPS + 16 * LIFECYCLE_PQ_STEPS
+                       * min(calls, 4), K2=16 * LIFECYCLE_STEPS)
+        check(counts == want, f"main_ldm launched {counts}, expected {want}")
+        check(live.state.step == LIFECYCLE_STEPS,
+              f"main_ldm stopped at step {live.state.step}")
+        run_dir = os.path.join(root, "run_0")
+        ckpts = os.path.join(run_dir, "checkpoints")
+        names = sorted(os.listdir(ckpts))
+        check(names == ["best_model", "metrics.jsonl",
+                        f"step_{LIFECYCLE_STEPS}"],
+              f"main_ldm wrote {names}")
+        path = os.path.join(ckpts, f"step_{LIFECYCLE_STEPS}")
+        nbytes = os.path.getsize(path)
+        # resume and predict read step_N: the snapshot's disk goes back
+        os.remove(os.path.join(ckpts, "best_model"))
+        losses = [r["loss"] for r in map(_json.loads, open(
+            os.path.join(ckpts, "metrics.jsonl"))) if "loss" in r]
+        check(len(losses) == 1 and math.isfinite(losses[0]),
+              f"metrics.jsonl losses {losses}")
+
+        cfg = _json.load(open(os.path.join(run_dir, "config.json")))
+        fresh = TrainerDiffusion(
+            cfg, unet_config=main_ldm.build_unet_config(cfg),
+            results_folder=ckpts)
+        main_ldm.load_weights(fresh, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.resume(path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        for (n, p), q in zip(live.unet.named_parameters(),
+                             fresh.unet.parameters()):
+            check(torch.equal(p, q), f"resumed master {n} differs")
+        for e, f in zip(live.state.ema_params, fresh.state.ema_params):
+            check(torch.equal(e, f), "a resumed EMA tensor differs")
+        ours, theirs = _opt_state(live), _opt_state(fresh)
+        check(ours.keys() == theirs.keys() and all(
+            torch.equal(v, theirs[k]) for k, v in ours.items()),
+            "the resumed AdamW state differs")
+        check(not all(torch.equal(p, e) for p, e in zip(
+            live.unet.parameters(), live.state.ema_params)),
+            "the EMA never moved off the masters")
+        # step_N was written before the eval that set best_pq
+        check(fresh.state.step == LIFECYCLE_STEPS and fresh.best_pq == -1.0
+              and live.best_pq > -1.0, "resumed step or best_pq")
+        del fresh, ours, theirs
+        torch.cuda.empty_cache()
+
+        # the reference's save dict from the run directory, read back
+        exported = os.path.join(root, "model.pt")
+        t0 = time.perf_counter()
+        export_checkpoint.main(["--run_dir", run_dir, "--out", exported,
+                                "--ema"])
+        export_s = time.perf_counter() - t0
+        vk = cfg["vae_model_kwargs"]
+        back = load_reference_ldm(
+            exported, live.unet_config, tuple(vk["block_out_channels"]),
+            vk.get("num_upscalers", 1))
+        for (n, p), e in zip(live.unet.named_parameters(),
+                             live.state.ema_params):
+            check(torch.equal(back["unet"][n], p.cpu())
+                  and torch.equal(back["ema"][n], e.cpu()),
+                  f"the exported {n} differs from the run's")
+        check(back["step"] == LIFECYCLE_STEPS, f"exported step "
+              f"{back['step']}")
+        export_bytes = os.path.getsize(exported)
+        del live, back
+        os.remove(exported)
+        torch.cuda.empty_cache()
+
+        out = os.path.join(root, "predictions")
+        t0 = time.perf_counter()
+        written = predict.main(overrides + [
+            f"out_dir={out}", f"checkpoint={path}", "max_batches=1",
+            "eval_kwargs.batch_size=2"])
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        check(written == 2 and len(pngs) == 4, f"predict wrote {pngs}")
+        for f in pngs:
+            a = np.asarray(Image.open(os.path.join(out, f)))
+            check(a.shape == (192, 640) and a.dtype == np.uint8,
+                  f"{f}: {a.shape} {a.dtype}")
+    result = {"steps": LIFECYCLE_STEPS, "pq_steps": LIFECYCLE_PQ_STEPS,
+              "main_ldm_seconds": run_s, "checkpoint_bytes": nbytes,
+              "saves_seconds": saves, "resume_seconds": resume_s,
+              "predict_seconds": predict_s, "free_bytes_before": free,
+              "export_seconds": export_s, "export_bytes": export_bytes,
+              "counts": counts}
+    print(f"phase 36 main_ldm, {LIFECYCLE_STEPS} steps at batch 8 of "
+          f"192x640, ema_on, then compute_pq ({LIFECYCLE_PQ_STEPS} DDIM "
+          f"steps, {min(calls, 4)} calls): {run_s:.1f} s, launches {counts};"
+          f" checkpoint {nbytes} bytes ({nbytes / 2**30:.2f} GiB), saves "
+          f"{[(n, round(t, 2)) for n, t in saves]} s, resume "
+          f"{resume_s:.2f} s, masters, AdamW state and EMA bit-equal; "
+          f"export_checkpoint --ema {export_bytes} bytes in {export_s:.1f} "
+          f"s, read back bit-equal; predict {written} frames in "
+          f"{predict_s:.1f} s [{smi_line}]",
+          flush=True)
+    return result
 
 
 def main() -> int:
@@ -3704,7 +4006,8 @@ def main() -> int:
         trainer = TrainerDiffusion(_config())
         trainer.init_params(seed=0)
         unet_result = phase_unet(trainer)
-        bf16_counts, sample_result = phase_sample(trainer, smi_line)
+        bf16_counts, sample_result = phase_sample(trainer, smi_line,
+                                                  eager_check=True)
         del trainer
         torch.cuda.empty_cache()
         bwd_rows = phase_attention_backward()
@@ -3716,7 +4019,7 @@ def main() -> int:
         int8_unet_result = phase_int8_unet(trainer)
         int8_results = phase_int8_sample(
             trainer, "int8", {"K3": 16, "K4": 16}, smi_line, sample_result,
-            calibrate=True, phase=9, calls=2)
+            calibrate=True, phase=9, calls=2, eager_check=True)
         del trainer
         torch.cuda.empty_cache()
         k13_rows, k12_rows = phase_unfused_kernels()
@@ -3821,6 +4124,8 @@ def main() -> int:
         # the serving path's metric, the entry and the bench line
         pq_result = phase_compute_pq(smi_line)
         entry_result = phase_entry_bench(smi_line)
+        torch.cuda.empty_cache()
+        lifecycle = phase_lifecycle(smi_line)
         sample_result.pop("x0")
         gn_sample.pop("x0")
         packed_sample.pop("x0")
@@ -3852,7 +4157,8 @@ def main() -> int:
             "absorbed_int8_unet_forward": absorbed_int8_unet,
             "absorbed_int8_sample_panoptic": absorbed_int8,
             "absorbed_storage_unet_forward": absorbed_storage,
-            "compute_pq": pq_result, "entry_and_bench": entry_result}}),
+            "compute_pq": pq_result, "entry_and_bench": entry_result,
+            "lifecycle": lifecycle}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -3903,6 +4209,8 @@ def main() -> int:
                     res["counts"])
         paths["tools/bench.py at batch 2: 23 entry forwards, 2 bf16 and 2 "
               "int8 sample_panoptic calls"] = entry_result["counts"]
+        paths[f"main_ldm: {LIFECYCLE_STEPS} train steps, compute_pq "
+              f"({LIFECYCLE_PQ_STEPS} DDIM steps)"] = lifecycle["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}

@@ -2,8 +2,10 @@
 
 The tables are built in numpy exactly as the JAX package builds them
 (``alphas_cumprod`` a float64 cumprod cast to float32) and held as fp32
-tensors on the caller's device; per-step scalars stay 0-d fp32 tensors, so
-the step runs the same fp32 arithmetic as the JAX step.
+tensors on the caller's device. :func:`ddim_step` runs one step at a Python
+timestep on 0-d fp32 tensors, the JAX step's fp32 arithmetic; the sampler
+runs :func:`table_step` on a row of :func:`step_table`, whose coefficients
+are worked out once per ``(steps, tmin)`` in float64 on the host.
 """
 
 from __future__ import annotations
@@ -84,6 +86,9 @@ class DDIMSchedule:
     clip_sample: bool
     clip_sample_range: float
     init_noise_sigma: float = 1.0
+    # step_table's cache, by (num_inference_steps, tmin)
+    tables: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
 
 def make_ddim_schedule(num_train_timesteps: int = 1000,
@@ -181,4 +186,82 @@ def ddim_step(sched: DDIMSchedule, model_output: torch.Tensor,
 
     direction = (1.0 - alpha_prod_t_prev) ** 0.5 * pred_eps
     prev_sample = alpha_prod_t_prev**0.5 * pred_x0 + direction
+    return prev_sample, pred_x0
+
+
+# the columns of a StepTable's ``coef`` row
+SQRT_A, SQRT_1MA, INV_SQRT_A, INV_SQRT_1MA, SQRT_A_PREV, SQRT_1MA_PREV = \
+    range(6)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepTable:
+    """The DDIM sampler's per-step table on the schedule's device.
+
+    ``timesteps`` ``[S]`` int64 and ``coef`` ``[S, 6]`` fp32, row i for
+    step i: √ᾱ_t, √(1-ᾱ_t), 1/√ᾱ_t, 1/√(1-ᾱ_t), √ᾱ_prev and √(1-ᾱ_prev),
+    each worked out in float64 from the fp32 ᾱ and rounded once to fp32.
+    :func:`table_step` only multiplies by them: the step's two divisions
+    are multiplications by the stored reciprocals (on the card a division
+    by a host scalar would multiply by its fp32 reciprocal and a division
+    by a device tensor would not, so a stored divisor would make the two
+    paths differ). ``host_timesteps`` is the numpy copy of ``timesteps``.
+    """
+    timesteps: torch.Tensor
+    coef: torch.Tensor
+    host_timesteps: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.host_timesteps)
+
+
+def step_table(sched: DDIMSchedule, num_inference_steps: int,
+               tmin: int = 0) -> StepTable:
+    """The :class:`StepTable` of ``(num_inference_steps, tmin)``, built once
+    and cached on ``sched``."""
+    key = (int(num_inference_steps), int(tmin))
+    if key not in sched.tables:
+        ts = inference_timesteps(sched.num_train_timesteps,
+                                 num_inference_steps, tmin=tmin)
+        ac = sched.alphas_cumprod.cpu().numpy().astype(np.float64)
+        final = float(sched.final_alpha_cumprod.cpu())
+        prev_t = ts - sched.num_train_timesteps // num_inference_steps
+        a = ac[ts]
+        a_prev = np.where(prev_t >= 0, ac[np.clip(prev_t, 0, None)], final)
+        coef = np.stack([np.sqrt(a), np.sqrt(1.0 - a), 1.0 / np.sqrt(a),
+                         1.0 / np.sqrt(1.0 - a), np.sqrt(a_prev),
+                         np.sqrt(1.0 - a_prev)], axis=1)
+        dev = sched.alphas_cumprod.device
+        sched.tables[key] = StepTable(
+            timesteps=torch.as_tensor(ts.astype(np.int64), device=dev),
+            coef=torch.as_tensor(coef.reshape(-1, 6).astype(np.float32),
+                                 device=dev),
+            host_timesteps=ts)
+    return sched.tables[key]
+
+
+def table_step(sched: DDIMSchedule, row: torch.Tensor,
+               model_output: torch.Tensor, sample: torch.Tensor):
+    """One deterministic (eta=0) DDIM update with the coefficients ``row``
+    (a ``[6]`` row of :attr:`StepTable.coef` on the sample's device): the
+    arithmetic of :func:`ddim_step` with its divisions by √ᾱ_t and
+    √(1-ᾱ_t) as multiplications by their reciprocals. Reads no host value,
+    so a CUDA graph can capture it. Returns ``(prev_sample,
+    pred_original_sample)``."""
+    c = row.unbind(0)
+    if sched.prediction_type == "epsilon":
+        pred_x0 = (sample - c[SQRT_1MA] * model_output) * c[INV_SQRT_A]
+        pred_eps = model_output
+    elif sched.prediction_type == "sample":
+        pred_x0 = model_output
+        pred_eps = (sample - c[SQRT_A] * pred_x0) * c[INV_SQRT_1MA]
+    elif sched.prediction_type == "v_prediction":
+        pred_x0 = c[SQRT_A] * sample - c[SQRT_1MA] * model_output
+        pred_eps = c[SQRT_A] * model_output + c[SQRT_1MA] * sample
+    else:
+        raise NotImplementedError(sched.prediction_type)
+    if sched.clip_sample:
+        pred_x0 = pred_x0.clamp(-sched.clip_sample_range,
+                                sched.clip_sample_range)
+    prev_sample = c[SQRT_A_PREV] * pred_x0 + c[SQRT_1MA_PREV] * pred_eps
     return prev_sample, pred_x0

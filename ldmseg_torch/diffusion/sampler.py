@@ -1,49 +1,147 @@
 """The DDIM sampling loop (counterpart of
-``ldmseg_tpu/diffusion/sampler.py:ddim_sample``).
+``ldmseg_tpu/diffusion/sampler.py:ddim_sample``, one ``lax.scan`` there).
 
-A Python loop over the static timestep table: per step the model predicts,
-DDIM steps, and with self-conditioning the predicted x0 becomes the next
-step's condition. Like the reference it returns the last step's predicted
-x0, not the last ``prev_sample``.
+Per step the model predicts, DDIM steps on the step's row of
+:func:`~.ddim.step_table`, and with self-conditioning the predicted x0
+becomes the next step's condition. Like the reference it returns the last
+step's predicted x0, not the last ``prev_sample``.
+
+On a CUDA tensor the steps replay a CUDA graph, the counterpart of the
+scan's compile-once loop: the first step runs eagerly (the kernels build,
+their caches fill), the next is captured on a side stream (the model, the
+DDIM update and the self-condition copy, on static buffers for the
+latents, the condition, x0 and the step index, which the graph advances),
+and the graph is replayed for the rest. It is captured afresh on every
+call, so it never reads a weight or a pack that a later ``prepare``,
+calibration or training step replaced. The kernels' launch counters count
+the replays (:class:`~..ops.counters.CountReplay`). A capture that fails
+raises; it never falls back to the eager loop. ``graph=False`` asks for the
+eager loop, which the CPU always runs.
 """
 
 from __future__ import annotations
 
+import traceback
 from typing import Callable, Optional
 
 import torch
 
-from .ddim import DDIMSchedule, ddim_step, inference_timesteps
+from .ddim import DDIMSchedule, StepTable, step_table, table_step
 
-ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], int], torch.Tensor]
+ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor],
+                   torch.Tensor]
 
 
 def ddim_sample(sched: DDIMSchedule, model_fn: ModelFn,
                 init_latents: torch.Tensor, num_inference_steps: int = 50,
                 self_condition: bool = False, tmin: int = 0,
-                return_all: bool = False):
+                return_all: bool = False, graph: Optional[bool] = None):
     """Run the deterministic DDIM sampler.
 
     ``model_fn(latents, condition_or_None, t)`` predicts the noise (or
-    sample); the caller closes over the RGB latents. ``init_latents`` is
-    standard-normal noise. Timesteps below ``tmin`` are dropped. Returns
-    the predicted x0 of the last step and, with ``return_all``, the
-    stacked trajectory of each step's latents ``[S, ...]``.
+    sample), ``t`` a 0-d int64 tensor on the latents' device; the caller
+    closes over the RGB latents. ``init_latents`` is standard-normal noise.
+    Timesteps below ``tmin`` are dropped. ``graph`` (default: whether the
+    latents are on a CUDA device) replays the step as a CUDA graph. Returns
+    the predicted x0 of the last step and, with ``return_all``, the stacked
+    trajectory of each step's latents ``[S, ...]``.
     """
+    cuda = init_latents.device.type == "cuda"
+    if graph is None:
+        graph = cuda
+    if graph and not cuda:
+        raise ValueError("ddim_sample(graph=True) needs CUDA latents; "
+                         f"got {init_latents.device}")
+    table = step_table(sched, num_inference_steps, tmin)
     latents = init_latents * sched.init_noise_sigma
     condition = torch.zeros_like(init_latents) if self_condition else None
     x0 = torch.zeros_like(init_latents)
-    traj = []
-    for t in inference_timesteps(sched.num_train_timesteps,
-                                 num_inference_steps, tmin=tmin):
-        pred = model_fn(latents, condition, int(t))
-        latents, x0 = ddim_step(sched, pred, int(t), latents,
-                                num_inference_steps)
-        if self_condition:
-            condition = x0
-        if return_all:
-            traj.append(latents)
+    if len(table) == 0:
+        return (x0, init_latents.new_zeros((0,) + init_latents.shape)) \
+            if return_all else x0
+    run = _graph_loop if graph else _eager_loop
+    traj = run(sched, table, model_fn, latents, condition, x0, return_all)
     if return_all:
-        return x0, (torch.stack(traj) if traj else
-                    init_latents.new_zeros((0,) + init_latents.shape))
+        return x0, torch.stack(traj)
     return x0
+
+
+def _step(sched, table: StepTable, model_fn, latents, condition, x0, idx):
+    """One step on the static buffers; ``idx`` is the ``[1]`` int64 step
+    index on the device, which the step advances. The eager loop and the
+    graph run this same step."""
+    row = table.coef.index_select(0, idx)[0]
+    t = table.timesteps.index_select(0, idx)[0]
+    pred = model_fn(latents, condition, t)
+    prev, new_x0 = table_step(sched, row, pred, latents)
+    latents.copy_(prev)
+    x0.copy_(new_x0)
+    if condition is not None:
+        condition.copy_(new_x0)
+    idx.add_(1)
+
+
+def _eager_loop(sched, table, model_fn, latents, condition, x0,
+                return_all):
+    idx = torch.zeros(1, dtype=torch.long, device=latents.device)
+    traj = []
+    for _ in range(len(table)):
+        _step(sched, table, model_fn, latents, condition, x0, idx)
+        if return_all:
+            traj.append(latents.clone())
+    return traj
+
+
+def _graph_loop(sched, table, model_fn, latents, condition, x0,
+                return_all):
+    from ..ops.counters import CountReplay
+
+    dev = latents.device
+    idx = torch.zeros(1, dtype=torch.long, device=dev)
+    counts = CountReplay()
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        _step(sched, table, model_fn, latents, condition, x0, idx)
+        if len(table) > 1:
+            # capture_begin/end rather than torch.cuda.graph, whose entry
+            # also synchronises, collects garbage and empties the cache
+            g = torch.cuda.CUDAGraph()
+            counts.start()
+            try:
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    _step(sched, table, model_fn, latents, condition, x0,
+                          idx)
+                finally:
+                    g.capture_end()
+            except Exception as e:
+                raise RuntimeError(
+                    "ddim_sample: capturing the DDIM step as a CUDA graph "
+                    f"failed at {_where(e)}: {e}") from e
+            finally:
+                counts.stop()
+    main.wait_stream(side)
+    # the capture ran nothing: the buffers still hold the first step's
+    traj = [latents.clone()] if return_all else []
+    for _ in range(1, len(table)):
+        g.replay()
+        counts.replay()
+        if return_all:
+            traj.append(latents.clone())
+    return traj
+
+
+def _where(e: BaseException) -> str:
+    """The innermost frame in the port's modules of ``e`` or of the error
+    that ``e`` followed (ending a failed capture raises again): the op whose
+    call broke the capture."""
+    while e is not None:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "ldmseg_torch" in f.filename]
+        if frames and not frames[-1].filename.endswith("sampler.py"):
+            f = frames[-1]
+            return f"{f.filename}:{f.lineno} ({f.name}: {f.line})"
+        e = e.__context__
+    return "the capture's end"

@@ -623,8 +623,8 @@ class MidBlockCrossAttn(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    """The denoiser: ``sample`` ``[B, C_in, H, W]``, ``timesteps`` an int or
-    ``[B]`` -> ``[B, C_out, H, W]`` in the sample's dtype."""
+    """The denoiser: ``sample`` ``[B, C_in, H, W]``, ``timesteps`` an int, a
+    0-d tensor or ``[B]`` -> ``[B, C_out, H, W]`` in the sample's dtype."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
@@ -681,7 +681,16 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps) -> torch.Tensor:
         cfg = self.config
         b = sample.shape[0]
-        t = torch.as_tensor(timesteps, device=sample.device)
+        if isinstance(timesteps, torch.Tensor):
+            # no copy on the sample's device: a captured step reads its
+            # timestep from the device
+            t = timesteps.to(sample.device)
+        elif isinstance(timesteps, int):
+            t = torch.full((), timesteps, dtype=torch.long,
+                           device=sample.device)
+        else:
+            # a [B] list or array: a host copy, outside any capture
+            t = torch.as_tensor(timesteps, device=sample.device)
         if t.dim() == 0:
             t = t.expand(b)
         emb = timestep_embedding(t, cfg.block_out_channels[0])

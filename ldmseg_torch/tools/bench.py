@@ -1,12 +1,15 @@
 """The port's bench line: 50-step panoptic inference throughput on the card.
 
     python3 -m ldmseg_torch.tools.bench [--batch 16] [--steps 50] [--calls 3]
+        [--eager]
 
 The counterpart of the JAX package's ``bench.py``: the full inference
 pipeline, RGB image-VAE encode -> 50 DDIM steps of the SD-1.4-width UNet
 (8 input channels, no self-conditioning) -> seg-VAE decode to 128 logits,
 on 256x512 frames (a 32x64 latent), batch 16 by default, seeded random
-weights, through ``TrainerDiffusion.sample_panoptic``. It runs twice: in
+weights, through ``TrainerDiffusion.sample_panoptic``, whose DDIM steps
+replay a CUDA graph (``--eager``: the eager loop; the line's ``sampler``
+says which). It runs twice: in
 bf16 (self-attention on K1) and on the default int8 path
 (``sampling_kwargs.int8_inference`` with ``fused_norms`` and ``fused_ff``:
 s8 convs, K3 and K4), each with one warm-up call and ``--calls`` timed
@@ -74,17 +77,18 @@ def _sync(device: torch.device) -> None:
 
 
 def measure_sampling(trainer, batch: int, steps: int, calls: int,
-                     warmup: int, image_hw=IMAGE_HW) -> dict:
-    """``sample_panoptic`` on ``batch`` random ``image_hw`` frames:
-    ``warmup`` calls, then ``calls`` timed ones; s per call (their mean,
-    and each call's), frames/s, peak memory and the kernels' launches per
-    call."""
+                     warmup: int, image_hw=IMAGE_HW, graph=None) -> dict:
+    """``sample_panoptic`` on ``batch`` random ``image_hw`` frames
+    (``graph`` as ``ddim_sample`` takes it): ``warmup`` calls, then
+    ``calls`` timed ones; s per call (their mean, and each call's),
+    frames/s, peak memory and the kernels' launches per call."""
     dev = trainer.device
     image = np.random.RandomState(0).randn(
         batch, *image_hw, 3).astype(np.float32)
     frames = {"image": image}
     for _ in range(warmup):
-        trainer.sample_panoptic(frames, num_inference_steps=steps)
+        trainer.sample_panoptic(frames, num_inference_steps=steps,
+                                graph=graph)
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -94,7 +98,8 @@ def measure_sampling(trainer, batch: int, steps: int, calls: int,
     for _ in range(calls):
         t0 = time.perf_counter()
         logits, _ = trainer.sample_panoptic(frames,
-                                            num_inference_steps=steps)
+                                            num_inference_steps=steps,
+                                            graph=graph)
         _sync(dev)
         each.append(time.perf_counter() - t0)
     secs = sum(each) / calls
@@ -126,16 +131,19 @@ def measure_forward(fn, args, iters: int = 20, warmup: int = 3) -> float:
 
 
 def run(batch: int = 16, steps: int = 50, calls: int = 3,
-        warmup: int = 1) -> dict:
+        warmup: int = 1, eager: bool = False) -> dict:
     """The bench line as a dict, on the card: the flagship forward of
     :func:`ldmseg_torch.entry.entry`, then the full-width pipeline in bf16
-    and on the default int8 path."""
+    and on the default int8 path, its steps a CUDA graph (or with
+    ``eager`` the eager loop)."""
     from ..entry import entry
     from ..train.trainer_ldm import TrainerDiffusion
     device = torch.device("cuda")
     line = {"metric": "frames_per_s", "value": None, "unit": "frames/s",
             "batch": batch, "steps": steps, "image_hw": list(IMAGE_HW),
-            "calls": calls, "warmup": warmup}
+            "calls": calls, "warmup": warmup,
+            "sampler": ("DDIM, the eager loop" if eager else
+                        "DDIM, each call's steps replayed as a CUDA graph")}
     fn, args = entry(device)
     line["unet_forward_ms"] = measure_forward(fn, args)
     line["unet_forward_shape"] = list(args[0].shape)
@@ -144,7 +152,8 @@ def run(batch: int = 16, steps: int = 50, calls: int = 3,
     for kind, int8 in (("bf16", False), ("int8", True)):
         trainer = TrainerDiffusion(bench_config(int8), device=device)
         trainer.init_params(seed=0)
-        line[kind] = measure_sampling(trainer, batch, steps, calls, warmup)
+        line[kind] = measure_sampling(trainer, batch, steps, calls, warmup,
+                                      graph=not eager)
         del trainer
         torch.cuda.empty_cache()
     line["value"] = line["int8"]["frames_per_s"]
@@ -161,6 +170,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--warmup", type=int, default=1)
+    parser.add_argument("--eager", action="store_true",
+                        help="the eager DDIM loop instead of the CUDA graph")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench: no CUDA device (torch.cuda.is_available() is False)",
@@ -168,8 +179,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(run(args.batch, args.steps, args.calls, args.warmup)),
-          flush=True)
+    print(json.dumps(run(args.batch, args.steps, args.calls, args.warmup,
+                         args.eager)), flush=True)
     return 0
 
 

@@ -1,0 +1,136 @@
+"""Stage-2 LDM training from the command line (counterpart of
+``ldmseg_tpu/tools/main_ldm.py``).
+
+    python -m ldmseg_torch.tools.main_ldm [datasets=synthetic]
+        [output_dir=runs] [run_idx=0] [config=path.yaml] [data_prefix=...]
+        [device=cpu] [save_every=2000] [key.sub=value ...]
+
+Composes the config (defaults, a YAML file, the dataset preset, the dot
+overrides), makes the run directory (``<output_dir>/run_<idx>`` with its
+``config.json``), builds the trainer on the card (``device=cpu`` for the
+plain PyTorch path), adopts the weights (:func:`load_weights`), resumes
+from the newest ``step_*`` checkpoint of the run, evaluates once (unless
+``eval_first=False``; ``eval_only=True`` stops there), trains to
+``train_kwargs.train_num_steps`` with a checkpoint every ``save_every``
+optimizer steps, saves, and scores PQ on 4 val batches with the best-PQ
+snapshot. Without weights the models start from seeded random ones.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .main_ae import DATASET_PRESETS, build_datasets
+
+
+def build_unet_config(cfg):
+    """The UNetConfig of the run config's ``model_kwargs`` size overrides
+    (``block_out_channels`` and the keys beside it), or None: the trainer's
+    SD-1.4-sized default. Shared with ``predict`` and
+    ``export_checkpoint``, so that they rebuild the run's UNet."""
+    from ..models.unet import UNetConfig
+    mk, tk = cfg["model_kwargs"], cfg["train_kwargs"]
+    if "block_out_channels" not in mk:
+        return None
+    cond = mk.get("cond_channels", 0)
+    if tk.get("self_condition", False) and cond == 0:
+        cond = 4
+    kw = {}
+    if "attn_down" in mk:
+        kw["attn_down"] = tuple(mk["attn_down"])
+    return UNetConfig(
+        in_channels=mk.get("in_channels", 8) + cond, out_channels=4,
+        block_out_channels=tuple(mk["block_out_channels"]),
+        layers_per_block=mk.get("layers_per_block", 2),
+        attention_head_dim=mk.get("attention_head_dim", 8),
+        norm_num_groups=mk.get("norm_num_groups", 32),
+        use_fused_attention=tk.get("fused_attention", True), **kw)
+
+
+def load_weights(trainer, cfg: dict, seed: int = 0) -> None:
+    """Fill the trainer's three models as the JAX ``main_ldm`` does: the
+    UNet and the image VAE from a local diffusers SD-1.4 directory
+    (``pretrained_model_path``; ``conv_in`` widened by
+    ``model_kwargs.init_mode_*``), the seg VAE from a reference stage-1
+    ``{'vae': ...}`` file (``vae_model_kwargs.pretrained_path``; JAX reads
+    its own orbax checkpoint there), or all three from a reference
+    stage-2 save dict (``pretrained_ldm_path``, its EMA preferred); the
+    rest seeded random weights."""
+    from ..models import torch_import as ti
+    unet = vae_img = vae_seg = None
+    vk, mk = cfg["vae_model_kwargs"], cfg["model_kwargs"]
+    pretrained = cfg.get("pretrained_model_path")
+    if pretrained:
+        unet = ti.expand_conv_in(
+            ti.load_diffusers_unet(pretrained, trainer.unet_config),
+            init_mode_seg=mk.get("init_mode_seg", "copy"),
+            init_mode_image=mk.get("init_mode_image", "zero"),
+            cond_channels=trainer.unet_config.in_channels - 8,
+            init_mode_cond=mk.get("init_mode_cond", "zero"))
+        vae_img = ti.load_diffusers_vae(pretrained)
+    if vk.get("pretrained_path"):
+        vae_seg = ti.load_reference_seg_vae(
+            vk["pretrained_path"], tuple(vk["block_out_channels"]),
+            vk.get("num_upscalers", 1))
+    ref_ldm = cfg.get("pretrained_ldm_path")
+    if ref_ldm:
+        loaded = ti.load_reference_ldm(
+            ref_ldm, trainer.unet_config, tuple(vk["block_out_channels"]),
+            vk.get("num_upscalers", 1))
+        unet = loaded["ema"] or loaded["unet"]
+        vae_img, vae_seg = loaded["vae_image"], loaded["vae_semseg"]
+        print(f"Loaded reference LDM checkpoint {ref_ldm} (step "
+              f"{loaded['step']}, ema={'yes' if loaded['ema'] else 'no'})",
+              flush=True)
+    trainer.load_state_dicts(unet, vae_img, vae_seg, seed=seed)
+
+
+def main(argv=None):
+    """Run the stage-2 pipeline; returns the trainer."""
+    from ..train.trainer_ldm import TrainerDiffusion
+    from ..utils.config import (load_config, merge_dicts,
+                                parse_dot_overrides, prepare_config)
+
+    overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
+    dataset = overrides.pop("datasets", "synthetic")
+    config_path = overrides.pop("config", None)
+    prefix = overrides.pop("data_prefix", None)
+    output_dir = overrides.pop("output_dir", "runs")
+    run_idx = overrides.pop("run_idx", -1)
+    device = overrides.pop("device", "cuda")
+    save_every = overrides.pop("save_every", 2000)
+
+    cfg = load_config(config_path)
+    cfg = merge_dicts(cfg, DATASET_PRESETS.get(dataset, {}))
+    cfg = merge_dicts(cfg, overrides)
+    if (cfg.get("pose_model_kwargs") or {}).get("pretrained_path"):
+        raise NotImplementedError(
+            "pose_model_kwargs.pretrained_path: the pose net is not ported "
+            "yet (ROADMAP.md queue 9)")
+    cfg = prepare_config(cfg, output_dir, run_idx)
+    print(f"Run dir: {cfg['output_dir']}", flush=True)
+
+    train_ds, val_ds = build_datasets(cfg, prefix)
+    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
+                               device=device, dataset=train_ds,
+                               val_dataset=val_ds,
+                               results_folder=cfg["checkpoint_dir"])
+    load_weights(trainer, cfg)
+    trainer.resume()
+
+    if cfg.get("eval_only"):
+        print(trainer.compute_pq(max_batches=8), flush=True)
+        return trainer
+    if cfg.get("eval_first", True):
+        print("step-0 eval:", trainer.compute_metrics(
+            max_batches=1, num_inference_steps=5), flush=True)
+    remaining = trainer.train_num_steps - trainer.state.step
+    if remaining > 0:
+        trainer.train_loop(max_steps=remaining, save_every=save_every)
+    trainer.save()
+    print(trainer.compute_pq(max_batches=4, save_model=True), flush=True)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

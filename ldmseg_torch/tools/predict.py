@@ -1,0 +1,95 @@
+"""Batch panoptic inference from the command line (counterpart of
+``ldmseg_tpu/tools/predict.py``): per frame ``<stem>_cat.png`` and
+``<stem>_ins.png`` (uint8, the frame's size), the layout the DVPQ
+evaluator reads, ``stem`` the meta's ``image_id`` on 12 digits.
+
+    python -m ldmseg_torch.tools.predict [datasets=synthetic]
+        [out_dir=predictions] [checkpoint=run/checkpoints/step_N]
+        [data_prefix=...] [image_only=True] [max_batches=N] [config=...]
+        [device=cpu] [sampling_kwargs.num_inference_steps=50]
+        [key.sub=value ...]
+
+Per batch: RGB -> image-VAE encoder -> DDIM (a CUDA graph on the card) ->
+seg-VAE decode -> the bilinear resize to the frame's size and the panoptic
+post-process under the batch's mask. The segments are class-agnostic
+instances: ``ins`` is the panoptic id (0 where none), ``cat`` is 0. The
+UNet is built as ``main_ldm`` builds it, from the same overrides; a
+``checkpoint`` of ``main_ldm`` is resumed (its EMA with ``ema_on``).
+``clips=`` (pose-warped video sampling) raises: the pose net is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+from PIL import Image
+
+
+def main(argv=None):
+    """Write the prediction pairs; returns how many."""
+    from ..data import make_loader
+    from ..train.trainer_ldm import TrainerDiffusion
+    from ..utils.config import load_config, merge_dicts, parse_dot_overrides
+    from .main_ae import DATASET_PRESETS, build_datasets
+    from .main_ldm import build_unet_config, load_weights
+
+    overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
+    dataset = overrides.pop("datasets", "synthetic")
+    config_path = overrides.pop("config", None)
+    prefix = overrides.pop("data_prefix", None)
+    out_dir = overrides.pop("out_dir", "predictions")
+    checkpoint = overrides.pop("checkpoint", None)
+    max_batches = overrides.pop("max_batches", None)
+    image_only = bool(overrides.pop("image_only", False))
+    device = overrides.pop("device", "cuda")
+    if overrides.pop("clips", None):
+        raise NotImplementedError(
+            "predict clips=: pose-consistent clip sampling is not ported "
+            "yet (ROADMAP.md queue 9)")
+
+    cfg = load_config(config_path)
+    cfg = merge_dicts(cfg, DATASET_PRESETS.get(dataset, {}))
+    cfg = merge_dicts(cfg, overrides)
+    os.makedirs(out_dir, exist_ok=True)
+    _, val_ds = build_datasets(
+        cfg, prefix, val_kwargs={"image_only": True} if image_only else None)
+    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
+                               device=device, val_dataset=val_ds)
+    load_weights(trainer, cfg)
+    if checkpoint:
+        trainer.resume(checkpoint)
+
+    import torch
+    loader = make_loader(val_ds, cfg["eval_kwargs"].get("batch_size", 8),
+                         shuffle=False, drop_last=False)
+    generator = torch.Generator(device=trainer.device).manual_seed(
+        cfg["sampling_kwargs"].get("seed", 0))
+    written = 0
+    batches = loader.epoch(0)
+    try:
+        for bi, batch in enumerate(batches):
+            logits, _ = trainer.sample_panoptic(batch, generator)
+            # the frames' size: image_only batches have no ground truth
+            h, w = batch["image"].shape[-3:-1]
+            cleaned = trainer.restore_resized(logits, (h, w), batch["mask"])
+            for i, meta in enumerate(batch["meta"]):
+                stem = f"{meta['image_id']:012d}"
+                ins = np.maximum(cleaned[i], 0).astype(np.uint8)
+                cat = np.zeros_like(ins)
+                Image.fromarray(cat).save(
+                    os.path.join(out_dir, f"{stem}_cat.png"))
+                Image.fromarray(ins).save(
+                    os.path.join(out_dir, f"{stem}_ins.png"))
+                written += 1
+            if max_batches is not None and bi + 1 >= int(max_batches):
+                break
+    finally:
+        batches.close()
+    print(f"wrote {written} prediction pairs to {out_dir}", flush=True)
+    return written
+
+
+if __name__ == "__main__":
+    main()

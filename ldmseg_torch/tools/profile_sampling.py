@@ -1,7 +1,7 @@
 """Where the time of the sampling path goes on the card.
 
     python -m ldmseg_torch.tools.profile_sampling [--int8 [fused|a|b|c]] [--gn]
-        [--projs] [--padded] [--packed] [--absorbed]
+        [--projs] [--padded] [--packed] [--absorbed] [--eager]
 
 Builds the default deployment of ``chip_smoke.py`` (SD-1.4 UNet and image
 VAE, DEFAULT_CONFIG seg VAE, bf16, self-conditioning) with seeded random
@@ -25,10 +25,12 @@ projections on K16 (bf16), or with ``--int8 a`` on K17.
 ``--padded`` traces the K11 UNet instead (:data:`PADDED_FLAGS`, filled by
 ``prepare_int8_unet`` from the trainer's masters: K11 and K12): (a) 5
 forwards and (b) one 50-step ``ddim_sample`` on that latent, the RGB
-latents random. For each window it prints one JSON line: wall time, device time
-summed over kernels, the device's busy share (the union of kernel intervals
-over the wall time), device time by kernel family and the top kernels.
-Needs a CUDA device.
+latents random. The 50 steps replay a CUDA graph (``ddim_sample``'s default on
+the card; each line says ``"graph": true``); ``--eager`` runs the eager loop.
+For each window it prints one JSON line: wall time, device time summed over
+kernels, the device's busy share (the union of kernel intervals over the
+wall time), device time by kernel family and the top kernels. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -114,9 +116,10 @@ def int8_unet_from(masters, flags: dict, dtype=torch.bfloat16,
 
 
 def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
-                  steps: int = 50) -> torch.Tensor:
+                  steps: int = 50, graph=None) -> torch.Tensor:
     """The port's ``ddim_sample`` with self-conditioning on ``unet``, the
-    RGB latents ``rgb`` beside the noisy ones as the trainer feeds them."""
+    RGB latents ``rgb`` beside the noisy ones as the trainer feeds them
+    (a CUDA graph on the card unless ``graph`` is False)."""
     from ldmseg_torch.diffusion.ddim import make_ddim_schedule
     from ldmseg_torch.diffusion.sampler import ddim_sample
     from ldmseg_torch.utils.config import DEFAULT_CONFIG
@@ -125,10 +128,10 @@ def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
 
     def model_fn(z, cond, t):
         x = torch.cat([z, rgb, cond], dim=1).to(rgb.dtype)
-        return unet(x, torch.full((z.shape[0],), t, device=z.device))
+        return unet(x, t)
     with torch.no_grad():
         return ddim_sample(sched, model_fn, noise, steps,
-                           self_condition=True)
+                           self_condition=True, graph=graph)
 
 
 def unet_config_for(gn: bool = False, projs: bool = False,
@@ -235,7 +238,11 @@ def main() -> int:
                         help="UNetConfig.use_packed_attention (K14, K15)")
     parser.add_argument("--absorbed", action="store_true",
                         help="UNetConfig.use_absorbed_attention (K16, K17)")
+    parser.add_argument("--eager", action="store_true",
+                        help="the eager DDIM loop instead of the CUDA graph")
     args = parser.parse_args()
+    graph = not args.eager
+    mode = {"graph": graph}
     if args.padded and (args.int8 or args.projs or args.packed
                         or args.absorbed):
         parser.error("--padded profiles the K11 UNet: no --int8, --projs, "
@@ -266,9 +273,9 @@ def main() -> int:
                 lambda: unet(x, t), 5,
                 "UNet forward, K11 UNet, [2, 12, 32, 64]")), flush=True)
         print(json.dumps(_profile(
-            lambda: padded_sample(unet, rgb, noise), 1,
-            "ddim_sample, K11 UNet, 50 DDIM steps, [2, 4, 32, 64]")),
-            flush=True)
+            lambda: padded_sample(unet, rgb, noise, graph=graph), 1,
+            "ddim_sample, K11 UNet, 50 DDIM steps, [2, 4, 32, 64]",
+            lambda *_: mode)), flush=True)
         return 0
     image = np.random.RandomState(0).randn(2, 256, 512, 3).astype(
         np.float32)
@@ -291,9 +298,9 @@ def main() -> int:
                 lambda: unet(x, t), 5,
                 f"UNet forward, {kind}, [2, 12, 32, 64]")), flush=True)
         print(json.dumps(_profile(
-            lambda: trainer.sample_panoptic({"image": image}), 1,
-            f"sample_panoptic, {kind}, 50 DDIM steps, 2 x 256x512")),
-            flush=True)
+            lambda: trainer.sample_panoptic({"image": image}, graph=graph),
+            1, f"sample_panoptic, {kind}, 50 DDIM steps, 2 x 256x512",
+            lambda *_: mode)), flush=True)
     return 0
 
 

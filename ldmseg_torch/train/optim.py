@@ -167,3 +167,37 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.torch_opt.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """``{"count", "torch"}``: the step count and the torch optimizer's
+        state dict, its tensors copied to the CPU."""
+        sd = self.torch_opt.state_dict()
+        state = {i: {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                         else v) for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        return {"count": self.count,
+                "torch": {"state": state, "param_groups": sd["param_groups"]}}
+
+    @torch.no_grad()
+    def load_state_dict_(self, sd: dict) -> None:
+        """Restore :meth:`state_dict` in place: each tensor the optimizer
+        already holds is ``copy_``'d into, one it lacks is made on its
+        parameter's device (``step`` where torch keeps it, on the CPU), so
+        the state is never held twice on the device."""
+        groups = self.torch_opt.param_groups
+        saved = sd["torch"]
+        if [len(g["params"]) for g in saved["param_groups"]] != \
+                [len(g["params"]) for g in groups]:
+            raise ValueError("optimizer state of another parameter grouping")
+        params = [p for g in groups for p in g["params"]]
+        for i, p in enumerate(params):
+            live = self.torch_opt.state[p]
+            for k, v in saved["state"].get(i, {}).items():
+                cur = live.get(k)
+                if not isinstance(v, torch.Tensor):
+                    live[k] = v
+                elif isinstance(cur, torch.Tensor) and cur.shape == v.shape:
+                    cur.copy_(v)
+                else:
+                    live[k] = v.clone() if k == "step" else v.to(p.device)
+        self.count = int(sd["count"])

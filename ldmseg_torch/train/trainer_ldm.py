@@ -30,17 +30,30 @@ adopted weights). Its other layers run in the compute dtype, as the bf16
 path does; the JAX trainer hands that UNet its fp32 masters, so there they
 promote the activations to fp32.
 
-EMA, checkpoints (and so ``compute_pq``'s best-PQ save), image logging,
-video clips and pose consistency, classifier-free guidance, text
-descriptors, clip sampling, the DPM-Solver++ sampler, int8 clip sampling,
-and the parallel modes are later slices: a config or an argument that asks
-for one of them raises ``NotImplementedError`` naming it.
+With ``ema_on`` the trainer keeps an fp32 EMA of the masters on the device
+(decay ``ema_kwargs.decay``, JAX's 0.9999 by default; updated after each
+optimizer step) and samples and calibrates with it, as JAX's
+``eval_params``. :meth:`save` writes ``torch.save`` checkpoints
+``{params, opt_state, step, best_pq, ema_params?}`` under
+``results_folder`` (``step_N``, the newest 3 kept, or a tag such as
+``best_model``; JAX writes orbax trees), :meth:`resume` restores one in
+place, ``compute_pq(save_model=True)`` keeps the best-PQ snapshot, and
+:meth:`train_loop` saves and evaluates on a cadence, logging to
+``metrics.jsonl``. :meth:`export_reference` writes the reference's torch
+save dict.
+
+Image logging, video clips and pose consistency, classifier-free guidance,
+text descriptors, clip sampling, the DPM-Solver++ sampler, int8 clip
+sampling, wandb and the parallel modes are later slices: a config or an
+argument that asks for one of them raises ``NotImplementedError`` naming
+it.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from typing import Callable, List, Mapping, Optional
 
@@ -49,7 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..data.loader import Loader
+from ..data.loader import make_loader, prefetch_to_device
 from ..diffusion.ddim import add_noise, make_ddim_schedule, remove_noise
 from ..diffusion.sampler import ddim_sample
 from ..losses.diffusion_losses import diffusion_loss
@@ -62,6 +75,8 @@ from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
                          prepare_int8_unet)
+from ..utils.meters import AverageMeter
+from ..utils.metrics_sink import MetricsSink
 from .optim import Optimizer, freeze_filter, make_lr_schedule
 from .state import TrainState
 
@@ -97,7 +112,6 @@ def _refuse_later_slices(p: Mapping) -> None:
             "gradient checkpointing"),
         "optimizer_name": (p.get("optimizer_name") == "adafactor",
                            "Adafactor"),
-        "ema_on": (p.get("ema_on", False), "EMA weights"),
         "optimizer_zero_redundancy": (
             p.get("optimizer_zero_redundancy", False),
             "ZeRO-1 optimizer-state sharding"),
@@ -115,13 +129,16 @@ def _refuse_later_slices(p: Mapping) -> None:
 class TrainerDiffusion:
     """Builds the UNet, the image VAE and the seg VAE from the config as the
     JAX trainer does, on ``device`` (``"cuda"`` unless the caller asks for
-    the CPU). Call :meth:`init_params` or :meth:`load_jax_params` before
-    :meth:`train_step`, :meth:`train_loop` or :meth:`sample_panoptic`;
-    ``dataset`` feeds :meth:`train_loop`, ``val_dataset``
-    :meth:`compute_pq`."""
+    the CPU). Call :meth:`init_params`, :meth:`load_jax_params` or
+    :meth:`load_state_dicts` before :meth:`train_step`, :meth:`train_loop`
+    or :meth:`sample_panoptic`; ``dataset`` feeds :meth:`train_loop`,
+    ``val_dataset`` :meth:`compute_pq`. ``results_folder`` (default the
+    config's ``checkpoint_dir``) takes the checkpoints and
+    ``metrics.jsonl``."""
 
     def __init__(self, p: dict, unet_config: Optional[UNetConfig] = None,
-                 device="cuda", dataset=None, val_dataset=None):
+                 device="cuda", dataset=None, val_dataset=None,
+                 results_folder: Optional[str] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -130,6 +147,17 @@ class TrainerDiffusion:
                 "device=torch.device('cpu') to run the plain PyTorch path")
         _refuse_later_slices(p)
         self.device = device
+        self.results_folder = results_folder or p.get("checkpoint_dir")
+        if self.results_folder:
+            os.makedirs(self.results_folder, exist_ok=True)
+        self.metrics = MetricsSink(
+            os.path.join(self.results_folder, "metrics.jsonl")
+            if self.results_folder else None,
+            use_wandb=p.get("wandb", False))
+        self.ema_on = bool(p.get("ema_on", False))
+        self.ema_decay = float((p.get("ema_kwargs") or {}).get("decay",
+                                                               0.9999))
+        self.best_pq = -1.0
         tk, mk, sk, ek = (p["train_kwargs"], p["model_kwargs"],
                           p["sampling_kwargs"], p["eval_kwargs"])
 
@@ -181,6 +209,9 @@ class TrainerDiffusion:
                     use_fused_norms=fused_norms,
                     int8_attn_act_scale=sk.get("int8_attn_act_scale", 0.1)))
         self._unet_infer: Optional[nn.Module] = None
+        # the fp32 module sampling and calibration read: the masters, or
+        # with ema_on a copy whose parameters are the EMA
+        self._eval_unet: Optional[nn.Module] = None
         # calibrate_int8 fills the scales; adopted weights must not sample
         # with the global defaults unnoticed (:meth:`_ensure_int8_ready`)
         self._int8_act_scales: Optional[dict] = None
@@ -225,16 +256,28 @@ class TrainerDiffusion:
                         vae_seg: Mapping) -> None:
         """Adopt the JAX package's parameter trees (nested dicts of numpy
         arrays): the UNet's, the image VAE's encoder tree and the seg VAE's."""
-        pairs = (
-            (self.unet, unet_state_dict_from_jax(unet, self.unet_config)),
-            (self.vae_img, image_vae_state_dict_from_jax(vae_img)),
-            (self.vae_seg, seg_vae_state_dict_from_jax(
-                vae_seg, self.vae_seg_kwargs)))
-        for model, sd in pairs:
+        self.load_state_dicts(
+            unet_state_dict_from_jax(unet, self.unet_config),
+            image_vae_state_dict_from_jax(vae_img),
+            seg_vae_state_dict_from_jax(vae_seg, self.vae_seg_kwargs))
+
+    def load_state_dicts(self, unet: Optional[Mapping] = None,
+                         vae_img: Optional[Mapping] = None,
+                         vae_seg: Optional[Mapping] = None,
+                         seed: int = 0) -> None:
+        """Adopt the port's state dicts (those of
+        :mod:`~..models.torch_import`); a model given none gets the seeded
+        random weights of :meth:`init_params`. Adopted UNet weights count as
+        pretrained for the int8 scale guard."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for model, sd in ((self.vae_img, vae_img), (self.vae_seg, vae_seg),
+                          (self.unet, unet)):
             model.to_empty(device=self.device)
-            model.load_state_dict(sd, strict=True)
-        # adopted weights count as pretrained for the int8 scale guard
-        self._params_pretrained = True
+            if sd is None:
+                init_random_(model, gen)
+            else:
+                model.load_state_dict(sd, strict=True)
+        self._params_pretrained = unet is not None
         self._frozen_ready()
 
     def _frozen_ready(self) -> None:
@@ -246,8 +289,11 @@ class TrainerDiffusion:
             model.eval().requires_grad_(False)
             model.to(self.compute_dtype)
         self.unet.eval().requires_grad_(True)
+        self._eval_unet = self.unet
+        if self.ema_on:  # real copies (TrainState.create's jnp.copy)
+            self._eval_unet = copy.deepcopy(self.unet).requires_grad_(False)
         if self.compute_dtype == torch.float32:
-            self._unet_infer = self.unet
+            self._unet_infer = self._eval_unet
         else:
             self._unet_infer = copy.deepcopy(self.unet).to(
                 self.compute_dtype).requires_grad_(False)
@@ -280,7 +326,10 @@ class TrainerDiffusion:
             weight_decay=ok.get("weight_decay", 0.0),
             weight_decay_norm=ok.get("weight_decay_norm"),
             clip_grad=tk.get("clip_grad", 0.0), lr_factor_fn=lr_factor)
-        return TrainState(optimizer, accumulate=tk.get("accumulate", 1))
+        return TrainState(
+            optimizer, accumulate=tk.get("accumulate", 1),
+            ema_params=(list(self._eval_unet.parameters()) if self.ema_on
+                        else None), ema_decay=self.ema_decay)
 
     def _require_params(self) -> None:
         if self._unet_infer is None:
@@ -288,27 +337,29 @@ class TrainerDiffusion:
                                "load_jax_params first")
 
     def inference_unet(self) -> nn.Module:
-        """Refresh the compute-dtype working copy from the fp32 masters:
-        once per call, outside the step loop."""
+        """Refresh the compute-dtype working copy from the fp32 masters, or
+        their EMA with ``ema_on``: once per call, outside the step loop, in
+        place (a graph captured on it reads the same addresses)."""
         self._require_params()
-        if self._unet_infer is not self.unet:
+        if self._unet_infer is not self._eval_unet:
             with torch.no_grad():
                 for dst, src in zip(self._unet_infer.parameters(),
-                                    self.unet.parameters()):
+                                    self._eval_unet.parameters()):
                     dst.copy_(src)
         return self._unet_infer
 
     def int8_unet(self) -> nn.Module:
-        """Quantize the fp32 masters into the int8 UNet with the current
-        activation scales (``prequantize_conv_tree``, ``apply_act_scales``
-        and ``pack_inference_tiles`` of the JAX trainer's ``_prequant``):
-        once per call, outside the step loop."""
+        """Quantize the fp32 masters (their EMA with ``ema_on``) into the
+        int8 UNet with the current activation scales
+        (``prequantize_conv_tree``, ``apply_act_scales`` and
+        ``pack_inference_tiles`` of the JAX trainer's ``_prequant``): once
+        per call, outside the step loop."""
         self._require_params()
         if self._unet_int8 is None:
             raise RuntimeError("int8 inference not enabled "
                                "(sampling_kwargs.int8_inference)")
         apply_act_scales(self._unet_int8, self._int8_act_scales)
-        prepare_int8_unet(self._unet_int8, self.unet)
+        prepare_int8_unet(self._unet_int8, self._eval_unet)
         return self._unet_int8
 
     def _ensure_int8_ready(self, batch: Mapping,
@@ -336,9 +387,10 @@ class TrainerDiffusion:
         float UNet on ``batch["image"]`` (trainer_ldm.py:1116-1150): the
         noisy half of its input is ``noise`` (NHWC ``[B, h, w, 4]``) or a
         draw from ``generator``, the timestep ``num_train_timesteps // 2``.
-        The forward runs on the fp32 masters, as JAX's on its fp32 tree,
-        with the input rounded to the compute dtype. Later int8 calls use
-        the scales. Returns them, keyed by int8 site."""
+        The forward runs on the fp32 masters (their EMA with ``ema_on``), as
+        JAX's on its fp32 ``eval_params``, with the input rounded to the
+        compute dtype. Later int8 calls use the scales. Returns them, keyed
+        by int8 site."""
         if not self.int8_inference:
             raise RuntimeError("calibrate_int8: int8 inference not enabled")
         self._require_params()
@@ -357,7 +409,7 @@ class TrainerDiffusion:
         t = torch.full((b,), self.sched.num_train_timesteps // 2,
                        device=self.device, dtype=torch.long)
         self._int8_act_scales = calibrate_act_scale_tree(
-            self.unet, inp, t, percentile=percentile)
+            self._eval_unet, inp, t, percentile=percentile)
         return self._int8_act_scales
 
     # ------------------------------------------------------------------
@@ -567,40 +619,193 @@ class TrainerDiffusion:
         return out
 
     def train_loop(self, max_steps: Optional[int] = None,
-                   log_every: int = 20, seed: int = 0) -> List[float]:
-        """Train on ``dataset`` through the port's loader for ``max_steps``
-        calls of :meth:`train_step` (default ``train_num_steps``), with the
-        draws from a generator seeded by ``seed``. Losses are read back from
-        the device only every ``log_every`` steps, when the mean is printed.
-        Returns every step's loss."""
+                   log_every: int = 20, seed: int = 0,
+                   save_every: Optional[int] = None,
+                   eval_every: Optional[int] = None,
+                   eval_kwargs: Optional[dict] = None,
+                   vis_every: Optional[int] = None) -> List[float]:
+        """Train on ``dataset`` for ``max_steps`` calls of :meth:`train_step`
+        (default ``train_num_steps``), with the draws from a generator
+        seeded by ``seed``: batches from the threaded loader
+        (:func:`~..data.loader.make_loader`) through the double-buffered H2D
+        (:func:`~..data.loader.prefetch_to_device`). Losses are read back
+        from the device only every ``log_every`` steps, when the mean is
+        printed and the last one logged to ``metrics.jsonl``. Every
+        ``save_every`` optimizer steps :meth:`save` writes ``step_N`` (JAX's
+        ``train_loop`` saves every 2000 by default; ``main_ldm`` passes
+        that); with ``eval_every`` (default ``eval_kwargs.eval_every``)
+        :meth:`compute_pq` runs before the first step and every
+        ``eval_every`` optimizer steps with ``save_model=True``, its PQ
+        logged. ``vis_every`` raises: image logging is not ported. Returns
+        every step's loss."""
+        if vis_every:
+            raise NotImplementedError(
+                "train_loop(vis_every=...): image logging is not ported yet"
+                " (ROADMAP.md queue 5)")
         if self.ds is None:
             raise ValueError("TrainerDiffusion.train_loop needs a dataset")
         self._require_params()
-        loader = Loader(self.ds, self.batch_size, seed=seed)
+        if eval_every is None:
+            eval_every = self.p["eval_kwargs"].get("eval_every")
+        if save_every or eval_every:
+            self._folder()
+        loader = make_loader(self.ds, self.batch_size, seed=seed)
         if len(loader) == 0:
             raise ValueError(f"dataset of {len(self.ds)} samples gives no "
                              f"batch of {self.batch_size}")
         max_steps = max_steps or self.train_num_steps
+        eval_kw = dict(eval_kwargs or {})
         generator = torch.Generator(device=self.device).manual_seed(seed)
+        meter = AverageMeter("loss", ":.4f")
         losses: List[float] = []
         pending: List[torch.Tensor] = []
+        if eval_every:
+            self._eval_during_training(self.state.step, eval_kw)
         step, epoch, t0 = 0, 0, time.perf_counter()
         while step < max_steps:
-            for batch in loader.epoch(epoch):
-                loss, _, _ = self.train_step(batch, generator=generator)
-                pending.append(loss)
-                step += 1
-                if step % log_every == 0 or step == max_steps:
-                    values = torch.stack(pending).tolist()
-                    pending.clear()
-                    losses += values
-                    print(f"Epoch [{epoch}] step {step}/{max_steps}: loss "
-                          f"{sum(values) / len(values):.4f} "
-                          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-                if step >= max_steps:
-                    break
+            batches = prefetch_to_device(loader.epoch(epoch), self.device)
+            try:
+                for batch in batches:
+                    before = self.state.step
+                    loss, _, _ = self.train_step(batch, generator=generator)
+                    pending.append(loss)
+                    step += 1
+                    gstep = self.state.step
+                    if step % log_every == 0 or step == max_steps:
+                        values = torch.stack(pending).tolist()
+                        pending.clear()
+                        losses += values
+                        for v in values:
+                            meter.update(v, self.batch_size)
+                        self.metrics.log(gstep, loss=meter.val)
+                        print(f"Epoch [{epoch}] step {step}/{max_steps}: "
+                              f"loss {sum(values) / len(values):.4f} "
+                              f"({time.perf_counter() - t0:.1f} s)",
+                              flush=True)
+                    if gstep != before:
+                        if save_every and gstep % save_every == 0:
+                            self.save(gstep)
+                        if eval_every and gstep % eval_every == 0:
+                            self._eval_during_training(gstep, eval_kw)
+                    if step >= max_steps:
+                        break
+            finally:
+                batches.close()
             epoch += 1
         return losses
+
+    def _eval_during_training(self, step: int, eval_kw: dict):
+        """In-training eval with the best-PQ snapshot (JAX :779-790)."""
+        if self.ds_val is None:
+            return None
+        res = self.compute_pq(save_model=True, **eval_kw)
+        self.metrics.log(step, pq=res["pq"], sq=res.get("sq"),
+                         rq=res.get("rq"), best_pq=self.best_pq)
+        print(f"[eval @ step {step}] PQ {res['pq']:.2f} "
+              f"(best {self.best_pq:.2f})", flush=True)
+        return res
+
+    # ------------------------------------------------------------------
+    # checkpoints (the JAX trainer's save, resume, _rotate_checkpoints and
+    # export_reference, :1287-1400)
+    # ------------------------------------------------------------------
+    def _folder(self) -> str:
+        if not self.results_folder:
+            raise ValueError("TrainerDiffusion: checkpoints need a "
+                             "results_folder (or the config's "
+                             "checkpoint_dir)")
+        return os.path.abspath(self.results_folder)
+
+    def _step_checkpoints(self) -> List[str]:
+        root = self._folder()
+        steps = [d for d in os.listdir(root)
+                 if d.startswith("step_") and d[5:].isdigit()]
+        return [os.path.join(root, d)
+                for d in sorted(steps, key=lambda d: int(d[5:]))]
+
+    def save(self, step: Optional[int] = None,
+             tag: Optional[str] = None) -> str:
+        """``torch.save`` of ``{params, opt_state, step, best_pq,
+        ema_params?}`` (the masters and the EMA by parameter name, the
+        optimizer's :meth:`~.optim.Optimizer.state_dict`; all on the CPU)
+        under ``results_folder`` as ``tag`` or ``step_N``, then the newest 3
+        ``step_*`` are kept. Returns the path."""
+        self._require_params()
+        name = tag or f"step_{step or self.state.step}"
+        path = os.path.join(self._folder(), name)
+        named = list(self.unet.named_parameters())
+        payload = {"params": {n: p.detach().cpu() for n, p in named},
+                   "opt_state": self.state.optimizer.state_dict(),
+                   "step": int(self.state.step),
+                   "best_pq": float(self.best_pq)}
+        if self.state.ema_params is not None:
+            payload["ema_params"] = {
+                n: e.detach().cpu()
+                for (n, _), e in zip(named, self.state.ema_params)}
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        self._rotate_checkpoints()
+        return path
+
+    def _rotate_checkpoints(self, keep: int = 3) -> None:
+        """Keep the newest ``keep`` step checkpoints; tagged ones, such as
+        ``best_model``, are never removed."""
+        for path in self._step_checkpoints()[:-keep]:
+            os.remove(path)
+
+    def resume(self, path: Optional[str] = None) -> Optional[str]:
+        """Restore a checkpoint of :meth:`save` (default the newest
+        ``step_*``; none: start fresh and return None). It is read on the
+        CPU (``weights_only``) and ``copy_``'d into the live masters, EMA
+        and optimizer state, never a second copy on the device. A
+        checkpoint without ``best_pq`` or ``ema_params`` keeps the current
+        ones. Resumed weights count as pretrained for the int8 scale
+        guard."""
+        self._require_params()
+        if path is None:
+            found = self._step_checkpoints()
+            if not found:
+                print("No checkpoint found; starting fresh", flush=True)
+                return None
+            path = found[-1]
+        data = torch.load(path, map_location="cpu", weights_only=True)
+        named = dict(self.unet.named_parameters())
+        if set(named) != set(data["params"]):
+            raise ValueError(f"checkpoint {path} holds another UNet: "
+                             f"{sorted(set(named) ^ set(data['params']))[:5]}")
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(data["params"][n])
+            if self.state.ema_params is not None and "ema_params" in data:
+                for n, e in zip(named, self.state.ema_params):
+                    e.copy_(data["ema_params"][n])
+        self.state.zero_grad()
+        self.state.optimizer.load_state_dict_(data["opt_state"])
+        self.state.step = int(data["step"])
+        self.state.micro_step = self.state.step * self.state.accumulate
+        self.best_pq = float(data.get("best_pq", self.best_pq))
+        self._params_pretrained = True
+        del data
+        print(f"Resumed from {path} at step {self.state.step}", flush=True)
+        return path
+
+    def export_reference(self, path: str, use_ema: bool = False) -> str:
+        """Write the current model as the reference's torch stage-2 save
+        dict ``{step, epoch, vae_image, vae_semseg, unet, ema?}``
+        (:func:`~..models.torch_export.export_reference_ldm`), the EMA only
+        with ``use_ema`` and ``ema_on``."""
+        from ..models.torch_export import export_reference_ldm
+        self._require_params()
+        vk = self.p["vae_model_kwargs"]
+        export_reference_ldm(
+            path, self.unet.state_dict(), self.vae_img.state_dict(),
+            self.vae_seg.state_dict(), self.unet_config,
+            block_out_channels=tuple(vk["block_out_channels"]),
+            num_upscalers=vk.get("num_upscalers", 1),
+            ema=(self._eval_unet.state_dict()
+                 if use_ema and self.ema_on else None),
+            step=int(self.state.step))
+        return path
 
     # ------------------------------------------------------------------
     # sampling
@@ -608,7 +813,8 @@ class TrainerDiffusion:
     def _sample_decode(self, unet: nn.Module, rgb_latents: torch.Tensor,
                        generator: Optional[torch.Generator],
                        init_noise=None, num_inference_steps: int = 50,
-                       repeat_noise: bool = False):
+                       repeat_noise: bool = False,
+                       graph: Optional[bool] = None):
         b, _, lh, lw = rgb_latents.shape
         if init_noise is not None:
             init = torch.as_tensor(init_noise, dtype=torch.float32,
@@ -629,7 +835,7 @@ class TrainerDiffusion:
 
         x0 = ddim_sample(self.sched, model_fn, init,
                          num_inference_steps=num_inference_steps,
-                         self_condition=self.self_condition)
+                         self_condition=self.self_condition, graph=graph)
         z = (x0 * (1.0 / self.seg_scale)).to(self.compute_dtype)
         logits = self.vae_seg.decode(z, True).float()
         return logits, x0
@@ -639,7 +845,8 @@ class TrainerDiffusion:
                         init_noise=None,
                         num_inference_steps: Optional[int] = None,
                         repeat_noise: bool = False,
-                        guidance_scale: Optional[float] = None):
+                        guidance_scale: Optional[float] = None,
+                        graph: Optional[bool] = None):
         """``batch["image"]`` ``[B, H, W, 3]`` (ImageNet-normalised) ->
         (logits ``[B, H, W, C]`` fp32, x0 latents ``[B, H/8, W/8, 4]``).
         ``init_noise`` (NHWC) replaces the draw of the initial noise from
@@ -648,7 +855,9 @@ class TrainerDiffusion:
         of that noise. ``guidance_scale`` acts only with a context, as in
         JAX (``_uncond_context`` gives none without one); the port refuses
         descriptors, so there is none and it has no effect. With
-        ``int8_inference`` the steps run on :meth:`int8_unet`."""
+        ``int8_inference`` the steps run on :meth:`int8_unet`. On the card
+        the steps replay a CUDA graph unless ``graph`` is False
+        (:func:`~..diffusion.sampler.ddim_sample`)."""
         self._require_params()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
@@ -663,7 +872,7 @@ class TrainerDiffusion:
             logits, x0 = self._sample_decode(
                 unet, rgb_latents, generator, init_noise,
                 num_inference_steps or self.num_inference_steps,
-                repeat_noise)
+                repeat_noise, graph)
         return (logits.permute(0, 2, 3, 1).contiguous(),
                 x0.permute(0, 2, 3, 1).contiguous())
 
@@ -690,15 +899,14 @@ class TrainerDiffusion:
         (``gt_sem``, ``keep_fullres_gt``) :meth:`restore_fullres`, else the
         bilinear resize to ``semseg``'s size and post-processing under
         ``mask``; scored by ``PanopticEvaluator`` (class-agnostic without
-        ``thing_ids``). ``save_model`` and ``log_images`` raise
-        ``NotImplementedError`` (checkpoints and image logging are not
-        ported)."""
+        ``thing_ids``). With ``save_model`` a PQ above ``best_pq`` becomes
+        it and is saved as ``best_model`` (a ``results_folder`` is needed
+        up front). ``log_images`` raises ``NotImplementedError`` (image
+        logging is not ported)."""
         if log_images is None:
             log_images = bool(self.p["eval_kwargs"].get("log_images", False))
         if save_model:
-            raise NotImplementedError(
-                "compute_pq(save_model=True): checkpoints are not ported yet"
-                " (ROADMAP.md queue 4)")
+            self._folder()
         if log_images:
             raise NotImplementedError(
                 "compute_pq(log_images=True): image logging is not ported "
@@ -710,24 +918,33 @@ class TrainerDiffusion:
         ev = PanopticEvaluator(thing_ids=set(thing_ids),
                                class_agnostic=not thing_ids,
                                ignore_label=self.ignore_label)
-        loader = Loader(self.ds_val, self.batch_size, shuffle=False,
-                        drop_last=False)
+        loader = make_loader(self.ds_val, self.batch_size, shuffle=False,
+                             drop_last=False)
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        for i, batch in enumerate(loader.epoch(0)):
-            logits, _ = self.sample_panoptic(
-                batch, generator, num_inference_steps=num_inference_steps)
-            metas = batch.get("meta")
-            if metas and all("gt_sem" in m for m in metas):
-                self._eval_fullres(ev, logits, metas)
-            else:
-                h, w = batch["semseg"].shape[1:3]
-                cleaned = self.restore_resized(logits, (h, w),
-                                               batch["mask"])
-                for bi in range(cleaned.shape[0]):
-                    ev.add_image(cleaned[bi], batch["semseg"][bi])
-            if max_batches is not None and i + 1 >= max_batches:
-                break
-        return ev.evaluate()
+        batches = loader.epoch(0)
+        try:
+            for i, batch in enumerate(batches):
+                logits, _ = self.sample_panoptic(
+                    batch, generator,
+                    num_inference_steps=num_inference_steps)
+                metas = batch.get("meta")
+                if metas and all("gt_sem" in m for m in metas):
+                    self._eval_fullres(ev, logits, metas)
+                else:
+                    h, w = batch["semseg"].shape[1:3]
+                    cleaned = self.restore_resized(logits, (h, w),
+                                                   batch["mask"])
+                    for bi in range(cleaned.shape[0]):
+                        ev.add_image(cleaned[bi], batch["semseg"][bi])
+                if max_batches is not None and i + 1 >= max_batches:
+                    break
+        finally:
+            batches.close()
+        results = ev.evaluate()
+        if save_model and results["pq"] > self.best_pq:
+            self.best_pq = results["pq"]
+            self.save(tag="best_model")
+        return results
 
     def _eval_fullres(self, ev, logits: torch.Tensor, metas,
                       bucket: int = 128) -> None:

@@ -1,18 +1,27 @@
-"""The configuration keys the sampling and training paths read.
+"""The configuration keys the port reads, :func:`load_config`,
+:func:`parse_dot_overrides` and :func:`prepare_config`.
 
-Own copy of the matching keys of ``ldmseg_tpu/utils/config.py:DEFAULT_CONFIG``
-(the reference's ``tools/configs/base/base.yaml``), with the same names and
-defaults, plus :func:`merge_dicts`. Keys that only evaluation, data loading
-or the later slices read are not copied. ``sampling_kwargs.
-int8_auto_calibrate`` is not a key there either: both trainers read it with
-the default True.
+Own copy of the matching keys of ``ldmseg_tpu/utils/config.py`` (the
+reference's ``tools/configs/base/base.yaml`` as plain dicts), with the same
+names and defaults, plus :func:`merge_dicts`. Keys that no port module
+reads are not copied, so that a default never stands for a setting that
+does nothing. ``sampling_kwargs.int8_auto_calibrate`` is not a key there
+either: both trainers read it with the default True. The CLIs also read
+keys that the defaults leave out: ``checkpoint_dir`` (set by
+:func:`prepare_config`), ``pretrained_ldm_path`` and ``eval_first``.
 """
 
 from __future__ import annotations
 
 import copy
+import datetime
+import os
+from typing import Optional
 
 DEFAULT_CONFIG: dict = {
+    "pretrained_model_path": None,
+    "wandb": False,
+    "eval_only": False,
     "image_scaling_factor": 0.18215,
     "vae_model_kwargs": {
         "in_channels": 16,
@@ -86,6 +95,7 @@ DEFAULT_CONFIG: dict = {
         "video_clips": None,
         "temporal_consistency_weight": 0.0,
     },
+    "pose_model_kwargs": {"pretrained_path": None},
     "sampling_kwargs": {
         "num_inference_steps": 50,
         "sampler": "ddim",
@@ -101,6 +111,8 @@ DEFAULT_CONFIG: dict = {
         "mask_th": 0.5,
         "count_th": 512,
         "overlap_th": 0.5,
+        "batch_size": 16,
+        "eval_every": None,
     },
     "optimizer_name": "adamw",
     "optimizer_kwargs": {
@@ -113,8 +125,21 @@ DEFAULT_CONFIG: dict = {
     "tensor_parallel": False,
     "spatial_parallel": False,
     "ema_on": False,
+    "ema_kwargs": {"decay": 0.9999},
     "lr_scheduler_name": "warmup",
     "lr_scheduler_kwargs": {"final_lr": 0.000001, "warmup_iters": 200},
+    "transformation_kwargs": {
+        "size": 192,
+        "size_2": 640,
+        "flip": True,
+        "normalize": True,
+        "normalize_params": {"mean": [0.485, 0.456, 0.406],
+                             "std": [0.229, 0.224, 0.225]},
+    },
+    "train_db_name": "kitti",
+    "val_db_name": "kitti",
+    "num_classes": 128,
+    "num_bits": 16,
     "ignore_label": 127,
 }
 
@@ -128,3 +153,61 @@ def merge_dicts(base: dict, override: dict) -> dict:
         else:
             out[k] = copy.deepcopy(v)
     return out
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Optional[dict] = None) -> dict:
+    """Compose DEFAULT_CONFIG (+ optional YAML file) (+ overrides)."""
+    cfg = copy.deepcopy(DEFAULT_CONFIG)
+    if path is not None:
+        import yaml
+        with open(path) as f:
+            cfg = merge_dicts(cfg, yaml.safe_load(f) or {})
+    if overrides:
+        cfg = merge_dicts(cfg, overrides)
+    return cfg
+
+
+def parse_dot_overrides(args: list[str]) -> dict:
+    """CLI ``a.b.c=value`` overrides (the reference scripts' hydra style);
+    values through ``ast.literal_eval``, else strings."""
+    import ast
+    out: dict = {}
+    for arg in args:
+        if "=" not in arg:
+            continue
+        key, val = arg.split("=", 1)
+        try:
+            val = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            pass
+        node = out
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return out
+
+
+def prepare_config(cfg: dict, output_dir: str, run_idx: int = -1) -> dict:
+    """Create the run directory tree ``<output_dir>/run_<idx>`` with
+    ``checkpoints/`` and ``logs/`` (``run_idx=-1``: a timestamped name) and
+    write the composed config to its ``config.json``, from which
+    ``tools/export_checkpoint.py`` rebuilds the trainer; returns cfg with
+    ``output_dir``, ``checkpoint_dir`` and ``log_dir`` set."""
+    cfg = copy.deepcopy(cfg)
+    if run_idx == -1:
+        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        run_name = f"run_{stamp}"
+    else:
+        run_name = f"run_{run_idx}"
+    root = os.path.join(output_dir, run_name)
+    cfg["output_dir"] = root
+    cfg["checkpoint_dir"] = os.path.join(root, "checkpoints")
+    cfg["log_dir"] = os.path.join(root, "logs")
+    for d in (root, cfg["checkpoint_dir"], cfg["log_dir"]):
+        os.makedirs(d, exist_ok=True)
+    import json
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1, default=str)
+    return cfg

@@ -1,0 +1,39 @@
+"""The metrics sink: one JSON object a line in ``metrics.jsonl`` (counterpart
+of ``ldmseg_tpu/utils/metrics_sink.py``, its scalar records
+``{"step", "time", <scalars>}``; image panels wait for image logging). The
+JAX sink mirrors to wandb on request; the card has no wandb, so
+``use_wandb=True`` raises."""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+
+class MetricsSink:
+    def __init__(self, path: Optional[str] = None, use_wandb: bool = False,
+                 wandb_kwargs: Optional[dict] = None):
+        if use_wandb:
+            raise NotImplementedError(
+                "wandb: True: the port logs to metrics.jsonl only (no wandb "
+                "where it runs)")
+        self.path = path
+        self.file = None
+        if path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self.file = open(path, "a")
+
+    def log(self, step: int, **scalars) -> None:
+        if self.file is None:
+            return
+        rec = {"step": int(step), "time": time.time(),
+               **{k: float(v) for k, v in scalars.items() if v is not None}}
+        self.file.write(json.dumps(rec) + "\n")
+        self.file.flush()
+
+    def close(self) -> None:
+        if self.file is not None:
+            self.file.close()
+            self.file = None

@@ -182,7 +182,7 @@ def test_restores_match_jax_pixel_for_pixel(val_root, monkeypatch):
 def test_compute_pq_refuses_what_is_not_ported(val_root, monkeypatch):
     ds = KittiDVPS(prefix=val_root, split="val", size=SIZE)
     trainer, calls = _port_trainer(ds, SIZE, monkeypatch)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    with pytest.raises(ValueError, match="results_folder"):
         trainer.compute_pq(save_model=True)
     with pytest.raises(NotImplementedError, match="queue 5"):
         trainer.compute_pq(log_images=True)

@@ -133,7 +133,7 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
 @pytest.mark.parametrize("override,named", [
     ({"train_kwargs": {"image_descriptors": "clip_text"}}, "descriptors"),
     ({"sampling_kwargs": {"sampler": "dpmpp_2m"}}, "DPM-Solver"),
-    ({"ema_on": True}, "EMA"),
+    ({"wandb": True}, "wandb"),
     ({"model_kwargs": {"separate_conv": True}}, "separate"),
     ({"vae_model_kwargs": {"num_mid_blocks": 1}}, "mid blocks"),
     ({"vae_model_kwargs": {"parametrization": "auto"}}, "bottlenecks"),
