@@ -184,9 +184,31 @@ Phases, one line each:
      ``load_reference_ldm``) and ``tools/predict.py`` from the checkpoint
      (2 frames' PNG pairs); the checkpoint's bytes and the save and resume
      seconds;
-  37. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
+  37. stage 1 at full width: ``TrainerAE.train_loop`` on the default
+     SegVAE (blocks 32-256, 256 interior channels, 128 logits, the KITTI
+     preset's 10 bit channels) at batch 8 of 192x640 synthetic frames with
+     12,544 points, AdamW, bf16 on fp32 masters: 2 warm-up and 5 timed
+     steps (s/step, peak memory, no kernel launched), one step's loss on
+     the card against the same step on the CPU (same weights, batch and
+     draws; 1e-2 relative), ``compute_miou`` and ``compute_pq`` over 2
+     batches;
+  38. stage 1 to stage 2: ``tools/main_ae.py`` (synthetic preset, 3 steps
+     at batch 8), ``tools/export_checkpoint.py --stage ae``, and
+     ``tools/main_ldm.py`` (a narrow UNet) reading that file through
+     ``vae_model_kwargs.pretrained_path`` (its seg VAE equal to the
+     stage-1 weights) for 2 steps, its launches checked;
+  39. phase 6's training with ``gradient_checkpointing``: 1 warm-up and 2
+     timed steps with exactly 47 K1 (16 + 16 + the 15 sites of the
+     rematerialised down and up blocks again in the backward) and 16 K2
+     launches a step, one step's gradients against the same step without
+     remat (cosine >= 0.999), both steps' peak memory;
+  40. one full-width training step (batch 2) each with Adafactor, dropout
+     0.1 (standard and gaussian), ``sample_posterior_rgb`` and the int8
+     UNet trained through the straight-through path: finite losses,
+     changed parameters;
+  41. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
      K5, K6 and K7 with their device time and host time a call);
-  38. the last line, ``{"ok": true, "device": {...}}``.
+  42. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -3979,6 +4001,368 @@ def phase_lifecycle(smi_line: str):
     return result
 
 
+# ---------------------------------------------------------------------------
+# training, both stages (phases 37-40)
+# ---------------------------------------------------------------------------
+AE_BATCH, AE_WARMUP, AE_TIMED = 8, 2, 5
+AE_CPU_BATCH = 2       # the CPU comparison's images (the same weights, draws)
+REMAT_WARMUP, REMAT_TIMED = 1, 2
+# K1 a training step with self-conditioning: 16 in the no-gradient pass, 16
+# in the forward, and again in the backward at each site of a
+# rematerialised block: the down and up blocks' 15 (the mid block's one is
+# not rematerialised, as in JAX)
+REMAT_K1 = 16 + 16 + 15
+
+
+def _ae_config(**over):
+    from ldmseg_torch.tools.main_ae import DATASET_PRESETS
+    from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
+    # the default SegVAE (blocks 32-256, int_channels 256, 128 logits) on
+    # the KITTI preset's 10 bit channels; 12,544 points, AdamW, bf16 compute
+    return merge_dicts(merge_dicts(DEFAULT_CONFIG, DATASET_PRESETS["kitti"]),
+                       merge_dicts({"train_kwargs": {
+                           "batch_size": AE_BATCH,
+                           "weight_dtype": "bfloat16"},
+                           "ignore_label": 0}, over))
+
+
+def _ae_draws(trainer, b: int, hw, gen):
+    """The posterior noise and the point coordinates of one stage-1 step,
+    drawn on the CPU (the card and the CPU step take the same numbers)."""
+    import torch
+    cfg = trainer.loss_cfg
+    f = trainer.vae.downsample_factor
+    n = int(cfg.num_points * cfg.oversample_ratio)
+    k = cfg.num_points - int(cfg.importance_sample_ratio * cfg.num_points)
+    pts = {name: (torch.rand((m, n, 2), generator=gen),
+                  torch.rand((m, k, 2), generator=gen))
+           for name, m in (("ce", b), ("mask", b * cfg.max_masks))}
+    return {"noise": torch.randn((b, 4, hw[0] // f, hw[1] // f),
+                                 generator=gen), "points": pts}
+
+
+def phase_ae_train(smi_line: str, seed: int = 0):
+    """Stage 1 at full width (phase 37): ``TrainerAE.train_loop`` on
+    ``SyntheticDVPS`` (5 bits, 192x640) at batch 8, bf16 on fp32 masters,
+    AdamW: warm-up steps, then timed steps (s/step, peak memory, no kernel
+    launched: the seg VAE runs convs, GroupNorm and LayerNorm); one step's
+    loss on the card against the same step on the CPU from the same
+    weights, batch and draws (``AE_CPU_BATCH`` images, 1e-2 relative);
+    ``compute_miou`` and ``compute_pq`` over 2 val batches."""
+    import torch
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.train.trainer_ae import TrainerAE
+
+    ds = SyntheticDVPS(length=2 * AE_BATCH, size=TRAIN_HW, num_bits=5)
+    trainer = TrainerAE(_ae_config(), dataset=ds, val_dataset=ds)
+    trainer.init_params(seed=seed)
+    masters = {n: p.detach().clone() for n, p in
+               trainer.vae.named_parameters()}
+    warm = trainer.train_loop(max_steps=AE_WARMUP, log_every=AE_WARMUP,
+                              seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    timed = trainer.train_loop(max_steps=AE_TIMED, log_every=AE_TIMED,
+                               seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / AE_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    losses = warm + timed
+    check(all(math.isfinite(x) for x in losses),
+          f"stage-1 losses not finite: {losses}")
+    check(counts == _expect(), f"the stage-1 steps launched {counts}")
+    moved = [not torch.equal(p, masters[n])
+             for n, p in trainer.vae.named_parameters()]
+    check(all(moved), f"{moved.count(False)} seg-VAE parameters unchanged")
+    del masters
+
+    # one step on a loaded batch, traced: its kernels, host and families
+    from ldmseg_torch.tools.profile_sampling import _profile
+    loaded = collate([ds[i] for i in range(AE_BATCH)])
+    prof = _profile(lambda: trainer.train_step(loaded), 2, "stage-1 step")
+    prof["families_ms"] = dict(list(prof.get("families_ms", {}).items())[:6])
+    prof.pop("top_kernels_ms", None)
+    print(f"phase 37 one stage-1 train_step on a loaded batch, traced: "
+          f"wall {_ms(prof['wall_ms'])} ms, kernels "
+          f"{_ms(prof.get('device_ms'))} ms, busy "
+          f"{_ms(prof.get('busy_share'))}, {prof.get('kernel_launches')} "
+          f"launches; families {prof['families_ms']}", flush=True)
+    del loaded
+
+    # one step's loss on the card and on the CPU: same weights and draws
+    batch = collate([ds[i] for i in range(AE_CPU_BATCH)])
+    draws = _ae_draws(trainer, AE_CPU_BATCH, TRAIN_HW,
+                      torch.Generator().manual_seed(seed + 2))
+    cpu = TrainerAE(_ae_config(), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         trainer.vae.state_dict().items()})
+
+    def to(d, dev):
+        if isinstance(d, dict):
+            return {k: to(v, dev) for k, v in d.items()}
+        if isinstance(d, tuple):
+            return tuple(to(v, dev) for v in d)
+        return d.to(dev)
+    with torch.no_grad():
+        card_loss, card_parts = trainer.forward_loss(
+            batch, draws=to(draws, trainer.device))
+        cpu_loss, cpu_parts = cpu.forward_loss(batch, draws=draws)
+    card_loss, cpu_loss = card_loss.item(), cpu_loss.item()
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(math.isfinite(card_loss) and rel <= 1e-2,
+          f"stage-1 loss on the card {card_loss} vs the CPU {cpu_loss}: "
+          f"rel {rel}")
+    del cpu
+    t0 = time.perf_counter()
+    metrics = trainer.compute_metrics(max_batches=2)
+    eval_s = time.perf_counter() - t0
+    miou, pq = metrics["miou"]["mIoU"], metrics["pq"]["pq"]
+    check(math.isfinite(miou) and math.isfinite(pq),
+          f"stage-1 eval mIoU {miou} PQ {pq}")
+    print(f"phase 37 stage-1 train_loop: {AE_TIMED} steps, batch {AE_BATCH}"
+          f" x {TRAIN_HW[0]}x{TRAIN_HW[1]}, 12,544 points, bf16 on fp32 "
+          f"masters: {secs:.4f} s/step, {AE_BATCH / secs:.2f} samples/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, no kernel launched, losses "
+          f"{[round(x, 4) for x in losses]}; one step's loss on the card "
+          f"{card_loss:.6f} vs the CPU {cpu_loss:.6f} (rel {rel:.2e}, tol "
+          f"1e-2, batch {AE_CPU_BATCH}); compute_miou + compute_pq over 2 "
+          f"batches: mIoU {miou:.3f}, PQ {pq:.3f} in {eval_s:.2f} s "
+          f"[{smi_line}]", flush=True)
+    result = {"seconds_per_step": secs, "samples_per_s": AE_BATCH / secs,
+              "peak_bytes": peak, "losses": losses,
+              "card_loss": card_loss, "cpu_loss": cpu_loss,
+              "loss_rel": rel, "miou": miou, "pq": pq,
+              "eval_seconds": eval_s, "counts": counts,
+              "loaded_step_profile": prof}
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_stage1_to_stage2(smi_line: str):
+    """Phase 38: ``main_ae`` (the synthetic preset, 3 steps at batch 8 of
+    192x640, its two evaluations), ``export_checkpoint --stage ae``, then
+    ``main_ldm`` reading that file through
+    ``vae_model_kwargs.pretrained_path`` (its seg VAE equal to the stage-1
+    weights) and taking 2 steps (no eval first; 2 DDIM steps in its final
+    PQ); the launches of the stage-2 run checked."""
+    import os
+    import tempfile
+    import torch
+    from ldmseg_torch.tools import export_checkpoint, main_ae, main_ldm
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _zero_counts()
+        ae = main_ae.main(["train_kwargs.train_num_steps=3",
+                           f"output_dir={root}/ae", "run_idx=0"])
+        torch.cuda.synchronize()
+        ae_s = time.perf_counter() - t0
+        check(ae.state.step == 3 and _counts() == _expect(),
+              f"main_ae: step {ae.state.step}, launches {_counts()}")
+        ckpts = os.path.join(root, "ae", "run_0", "checkpoints")
+        check(sorted(os.listdir(ckpts)) == ["metrics.jsonl", "step_3"],
+              f"main_ae wrote {sorted(os.listdir(ckpts))}")
+        out = os.path.join(root, "vae.pt")
+        export_checkpoint.main(["--run_dir", os.path.join(root, "ae",
+                                                          "run_0"),
+                                "--out", out, "--stage", "ae"])
+        stage1 = {k: v.detach().clone()
+                  for k, v in ae.vae.state_dict().items()}
+        del ae
+        torch.cuda.empty_cache()
+        _zero_counts()
+        t0 = time.perf_counter()
+        # a narrow UNet (4 attention sites) keeps the run's two checkpoints
+        # small; the seg VAE is the stage-1 one
+        ldm = main_ldm.main([
+            "train_kwargs.self_condition=True",
+            "train_kwargs.weight_dtype=bfloat16",
+            "train_kwargs.train_num_steps=2",
+            "model_kwargs.block_out_channels=[64,128]",
+            "model_kwargs.layers_per_block=1",
+            "model_kwargs.attn_down=[True,False]",
+            "sampling_kwargs.num_inference_steps=2", "eval_first=False",
+            f"vae_model_kwargs.pretrained_path={out}",
+            f"output_dir={root}/ldm", "run_idx=0"])
+        torch.cuda.synchronize()
+        ldm_s = time.perf_counter() - t0
+        counts = _counts()
+        calls = min(-(-len(ldm.ds_val) // ldm.batch_size), 4)
+        sites = 4
+        want = _expect(K1=2 * sites * 2 + sites * 2 * calls, K2=sites * 2)
+        check(counts == want, f"main_ldm launched {counts}, expected {want}")
+        check(ldm.state.step == 2, f"main_ldm stopped at {ldm.state.step}")
+        for k, v in ldm.vae_seg.state_dict().items():
+            check(torch.equal(v, stage1[k].to(v.dtype)),
+                  f"main_ldm's seg VAE {k} is not the stage-1 export's")
+        del ldm, stage1
+        torch.cuda.empty_cache()
+    print(f"phase 38 main_ae (3 steps, synthetic preset, batch 8 of "
+          f"192x640): {ae_s:.1f} s; export_checkpoint --stage ae; main_ldm "
+          f"on that seg VAE (2 steps, PQ at 2 DDIM steps, {calls} calls): "
+          f"{ldm_s:.1f} s, launches {counts}, its seg VAE bit-equal to the "
+          f"stage-1 weights [{smi_line}]", flush=True)
+    return {"main_ae_seconds": ae_s, "main_ldm_seconds": ldm_s,
+            "counts": counts}
+
+
+def phase_remat_train(smi_line: str, seed: int = 0):
+    """Phase 39: phase 6's training (batch 8 of 192x640, K1/K2, bf16 on
+    fp32 masters, self-conditioning) with ``gradient_checkpointing``:
+    warm-up, then timed steps with the exact launch counts (K1 16 + 16 +
+    15 a step: the recompute of the down and up blocks' sites in the
+    backward; K2 16); one step's gradients against the same step without
+    remat from the same state (cosine >= 0.999); both steps' peak
+    memory."""
+    import dataclasses
+    import torch
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import merge_dicts
+
+    ds = SyntheticDVPS(length=2 * TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
+    trainer = TrainerDiffusion(merge_dicts(_train_config(), {
+        "train_kwargs": {"gradient_checkpointing": True}}), dataset=ds)
+    check(trainer.unet_config.gradient_checkpointing,
+          "train_kwargs.gradient_checkpointing did not reach the UNet")
+    trainer.init_params(seed=seed)
+    trainer.train_loop(max_steps=REMAT_WARMUP, log_every=REMAT_WARMUP,
+                       seed=seed)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train_loop(max_steps=REMAT_TIMED,
+                                log_every=REMAT_TIMED, seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / REMAT_TIMED
+    counts = _counts()
+    want = _expect(K1=REMAT_K1 * REMAT_TIMED, K2=16 * REMAT_TIMED)
+    check(counts == want, f"remat train steps launched {counts}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses), f"remat losses {losses}")
+
+    batch = collate([ds[i] for i in range(TRAIN_BATCH)])
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    lh, lw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    noise = torch.randn((TRAIN_BATCH, lh, lw, 4), generator=gen, device=dev)
+    steps = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)
+    cfg = trainer.unet.config
+    out = {}
+    for remat in (True, False):
+        trainer.unet.config = dataclasses.replace(
+            cfg, gradient_checkpointing=remat)
+        trainer.state.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, _ = trainer.forward_backward(batch, noise=noise,
+                                              timesteps=steps)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # to the host: the other step's peak must not hold this copy
+        out[remat] = (loss.item(), _flat_grads(trainer.unet).cpu(), peak)
+    # each step on the loaded batch, traced: kernels and launches
+    from ldmseg_torch.tools.profile_sampling import _profile
+    profs = {}
+    for remat in (True, False):
+        trainer.unet.config = dataclasses.replace(
+            cfg, gradient_checkpointing=remat)
+        p = _profile(lambda: trainer.train_step(batch), 1, "remat step")
+        profs[remat] = {k: p.get(k) for k in ("wall_ms", "device_ms",
+                                              "busy_share",
+                                              "kernel_launches")}
+    trainer.unet.config = cfg
+    trainer.state.zero_grad()
+    (loss_r, g_r, peak_r), (loss_p, g_p, peak_p) = out[True], out[False]
+    # the host copies' cosine, summed in float64 on the card in chunks
+    sums = torch.zeros(3, dtype=torch.float64, device=dev)
+    for i in range(0, g_r.numel(), 1 << 26):
+        a, b = (g[i:i + (1 << 26)].to(dev, torch.float64) for g in (g_r, g_p))
+        sums += torch.stack([(a * b).sum(), (a * a).sum(), (b * b).sum()])
+    cos = (sums[0] / (sums[1].sqrt() * sums[2].sqrt())).item()
+    del out, g_r, g_p
+    check(cos >= 0.999, f"remat gradient cosine {cos}")
+    print(f"phase 39 train_loop with gradient_checkpointing: {REMAT_TIMED} "
+          f"steps, batch {TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+          f"{secs:.4f} s/step, launches {counts} ({REMAT_K1} K1 and 16 K2 a"
+          f" step); one step with remat vs without from the same state: "
+          f"loss {loss_r:.6f} vs {loss_p:.6f}, gradient cosine {cos:.6f} "
+          f"(>= 0.999), peak memory {peak_r / 2**30:.2f} GiB vs "
+          f"{peak_p / 2**30:.2f} GiB; train_step on the loaded batch, "
+          f"traced, remat vs not: {profs[True]} vs {profs[False]} "
+          f"[{smi_line}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"seconds_per_step": secs, "counts": counts,
+            "loss_remat": loss_r, "loss_plain": loss_p,
+            "grad_cosine": cos, "peak_bytes_remat": peak_r,
+            "peak_bytes_plain": peak_p, "step_profile_remat": profs[True],
+            "step_profile_plain": profs[False]}
+
+
+def phase_train_options(smi_line: str, seed: int = 0):
+    """Phase 40: one full-width training step (batch 2 of 192x640, bf16 on
+    fp32 masters, self-conditioning) with each option this slice ported:
+    Adafactor, dropout 0.1 in each mode, ``sample_posterior_rgb``, and the
+    int8 UNet (``use_int8_conv`` and ``use_int8_ff``) trained through the
+    straight-through path; each a finite loss and a changed parameter."""
+    import torch
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import merge_dicts
+
+    ds = SyntheticDVPS(length=2, size=TRAIN_HW, num_bits=8)
+    batch = collate([ds[0], ds[1]])
+    base = {"train_kwargs": {"batch_size": 2}}
+    options = {
+        "adafactor": ({"optimizer_name": "adafactor"}, {}),
+        "dropout 0.1 standard": ({"train_kwargs": {"dropout": 0.1}}, {}),
+        "dropout 0.1 gaussian": ({}, {"dropout": 0.1,
+                                      "dropout_mode": "gaussian"}),
+        "sample_posterior_rgb": ({"train_kwargs": {
+            "sample_posterior_rgb": True}}, {}),
+        "int8 straight-through": ({}, {"use_int8_conv": True,
+                                       "use_int8_ff": True,
+                                       "int8_act_scale": 0.05}),
+    }
+    results = {}
+    for name, (over, ucfg) in options.items():
+        cfg = merge_dicts(_train_config(), merge_dicts(base, over))
+        unet_config = (UNetConfig(in_channels=12, use_fused_attention=True,
+                                  **ucfg) if ucfg else None)
+        trainer = TrainerDiffusion(cfg, unet_config=unet_config)
+        trainer.init_params(seed=seed)
+        named = list(trainer.unet.named_parameters())
+        probe = [(n, p.detach().clone()) for n, p in named
+                 if n.endswith("conv1.weight")][:1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = trainer.train_step(batch)
+        loss = loss.item()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n, before = probe[0]
+        changed = not torch.equal(dict(named)[n], before)
+        check(math.isfinite(loss) and changed,
+              f"{name}: loss {loss}, {n} changed {changed}")
+        results[name] = {"loss": loss, "seconds": secs}
+        del trainer, named, probe
+        torch.cuda.empty_cache()
+    print(f"phase 40 one training step each (batch 2 of 192x640): "
+          + "; ".join(f"{k} loss {v['loss']:.4f} ({v['seconds']:.2f} s)"
+                      for k, v in results.items())
+          + f"; each moved its parameters [{smi_line}]", flush=True)
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -4126,6 +4510,12 @@ def main() -> int:
         entry_result = phase_entry_bench(smi_line)
         torch.cuda.empty_cache()
         lifecycle = phase_lifecycle(smi_line)
+        torch.cuda.empty_cache()
+        # training, both stages
+        ae_train = phase_ae_train(smi_line)
+        stage1_to_2 = phase_stage1_to_stage2(smi_line)
+        remat_train = phase_remat_train(smi_line)
+        train_options = phase_train_options(smi_line)
         sample_result.pop("x0")
         gn_sample.pop("x0")
         packed_sample.pop("x0")
@@ -4158,7 +4548,9 @@ def main() -> int:
             "absorbed_int8_sample_panoptic": absorbed_int8,
             "absorbed_storage_unet_forward": absorbed_storage,
             "compute_pq": pq_result, "entry_and_bench": entry_result,
-            "lifecycle": lifecycle}}),
+            "lifecycle": lifecycle, "stage1_train": ae_train,
+            "stage1_to_stage2": stage1_to_2, "remat_train": remat_train,
+            "train_options": train_options}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -4211,6 +4603,12 @@ def main() -> int:
               "int8 sample_panoptic calls"] = entry_result["counts"]
         paths[f"main_ldm: {LIFECYCLE_STEPS} train steps, compute_pq "
               f"({LIFECYCLE_PQ_STEPS} DDIM steps)"] = lifecycle["counts"]
+        paths[f"TrainerAE.train_loop, {AE_TIMED} steps"] = ae_train[
+            "counts"]
+        paths["main_ldm on main_ae's export: 2 train steps, compute_pq (2 "
+              "DDIM steps)"] = stage1_to_2["counts"]
+        paths[f"train_loop with gradient_checkpointing, {REMAT_TIMED} "
+              f"steps"] = remat_train["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}

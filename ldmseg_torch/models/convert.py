@@ -125,64 +125,94 @@ def unet_state_dict_from_jax(params: Mapping, config) -> StateDict:
     return sd
 
 
-def image_vae_state_dict_from_jax(params: Mapping) -> StateDict:
-    """JAX ``ImageVAE`` encoder tree (as ``ImageVAE.encode`` initialises it)
-    -> :class:`~.image_vae.ImageVAE` state dict."""
-    p = _root(params)
-    enc = p["encoder"]
-    sd: StateDict = {}
-    _conv(sd, "encoder.conv_in", enc["conv_in"])
-    _norm(sd, "encoder.conv_norm_out", enc["norm_out"])
-    _conv(sd, "encoder.conv_out", enc["conv_out"])
+def _vae_encoder(sd: StateDict, pfx: str, enc: Mapping) -> None:
+    """The AutoencoderKL encoder topology (``VAEEncoder``)."""
+    _conv(sd, f"{pfx}.conv_in", enc["conv_in"])
+    _norm(sd, f"{pfx}.conv_norm_out", enc["norm_out"])
+    _conv(sd, f"{pfx}.conv_out", enc["conv_out"])
     i = 0
     while f"down{i}" in enc:
         blk = enc[f"down{i}"]
         j = 0
         while f"resnet{j}" in blk:
-            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}",
+            _resnet(sd, f"{pfx}.down_blocks.{i}.resnets.{j}",
                     blk[f"resnet{j}"])
             j += 1
         if "downsample" in blk:
-            _conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+            _conv(sd, f"{pfx}.down_blocks.{i}.downsamplers.0.conv",
                   blk["downsample"])
         i += 1
-    _resnet(sd, "encoder.mid_block.resnets.0", enc["mid_resnet0"])
-    _resnet(sd, "encoder.mid_block.resnets.1", enc["mid_resnet1"])
+    _resnet(sd, f"{pfx}.mid_block.resnets.0", enc["mid_resnet0"])
+    _resnet(sd, f"{pfx}.mid_block.resnets.1", enc["mid_resnet1"])
     at = enc["mid_attn"]
-    _norm(sd, "encoder.mid_block.attentions.0.group_norm", at["group_norm"])
-    _attention(sd, "encoder.mid_block.attentions.0", at)
+    _norm(sd, f"{pfx}.mid_block.attentions.0.group_norm", at["group_norm"])
+    _attention(sd, f"{pfx}.mid_block.attentions.0", at)
+
+
+def image_vae_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``ImageVAE`` encoder tree (as ``ImageVAE.encode`` initialises it)
+    -> :class:`~.image_vae.ImageVAE` state dict."""
+    p = _root(params)
+    sd: StateDict = {}
+    _vae_encoder(sd, "encoder", p["encoder"])
     _conv(sd, "quant_conv", p["quant_conv"])
     return sd
 
 
+def _mid_block(sd: StateDict, pfx: str, node) -> None:
+    _resnet(sd, f"{pfx}.resnets.0", node["resnet0"])
+    _resnet(sd, f"{pfx}.resnets.1", node["resnet1"])
+
+
+def _plan(sd: StateDict, group: str, tree: Mapping, plan) -> None:
+    for i, (name, kind) in enumerate(plan):
+        pfx = f"{group}.{i}"
+        if kind == "conv":
+            _conv(sd, pfx, tree[name])
+        elif kind == "convt":
+            _conv_transpose(sd, pfx, tree[name])
+        elif kind == "norm":
+            _norm(sd, pfx, tree[name])
+        elif kind == "ln2d":
+            _norm(sd, pfx, tree[name]["ln"])
+        elif kind == "mid":
+            _mid_block(sd, pfx, tree[name])
+        elif kind == "mids":
+            j = 0
+            while f"mid{j}" in tree:
+                _mid_block(sd, f"{pfx}.{j}", tree[f"mid{j}"])
+                j += 1
+
+
 def seg_vae_state_dict_from_jax(params: Mapping, config: Mapping
                                 ) -> StateDict:
-    """JAX ``SegVAE`` tree -> :class:`~.seg_vae.SegVAE` state dict with the
-    reference's Sequential indices (the port's copy of
-    ``torch_import.seg_vae_key_map``). ``config`` is the ``vae_model_kwargs``
+    """JAX ``SegVAE`` variables -> :class:`~.seg_vae.SegVAE` state dict, for
+    every option: the Sequential indices of
+    :func:`~.seg_vae.encoder_plan`/:func:`~.seg_vae.decoder_plan` (the
+    reference's keys), the image encoder's AutoencoderKL keys, and the
+    codebook (``codebook.weight``): the ``codebook`` parameter, or under
+    ``freeze_codebook`` the ``"constants"`` variable, which ``params`` must
+    then hold beside ``"params"``. ``config`` is the ``vae_model_kwargs``
     the model was built from."""
+    from .seg_vae import decoder_plan, encoder_plan
     root = _root(params)
     sd: StateDict = {}
-    enc = root["encoder"]
-    _conv(sd, "encoder.0", enc["in_conv"])
-    idx = 2  # conv_in + SiLU
-    for i in range(len(config.get("block_out_channels",
-                                  (32, 64, 128, 256))) - 1):
-        _conv(sd, f"encoder.{idx}", enc[f"down{i}_conv1"])
-        _conv(sd, f"encoder.{idx + 1}", enc[f"down{i}_conv2"])
-        idx += 3  # conv, stride-2 conv, SiLU
-    _conv(sd, f"encoder.{idx}", enc["out_conv1"])
-    idx += 2  # conv + Identity (no mid blocks)
-    _norm(sd, f"encoder.{idx}", enc["norm"])
-    _conv(sd, f"encoder.{idx + 2}", enc["out_conv2"])
-
-    dec = root["decoder"]
-    _conv(sd, "decoder.0", dec["in_conv"])
-    idx = 2  # conv_in + Identity (no mid blocks)
-    for i in range(config.get("num_upscalers", 1)):
-        _conv_transpose(sd, f"decoder.{idx}", dec[f"up{i}_convt"])
-        _norm(sd, f"decoder.{idx + 1}", dec[f"up{i}_ln"]["ln"])
-        idx += 3  # convT, LayerNorm2d, SiLU
-    _norm(sd, f"decoder.{idx}", dec["norm"])
-    _conv(sd, f"decoder.{idx + 2}", dec["out_conv"])
+    n_mid = config.get("num_mid_blocks", 0)
+    if config.get("image_encoder", False):
+        _vae_encoder(sd, "encoder", root["encoder"])
+    else:
+        _plan(sd, "encoder", root["encoder"], encoder_plan(
+            config.get("block_out_channels", (32, 64, 128, 256)), n_mid,
+            config.get("resize_input", False),
+            config.get("skip_encoder", False)))
+    _plan(sd, "decoder", root["decoder"],
+          decoder_plan(config.get("num_upscalers", 1), n_mid))
+    if config.get("parametrization", "gaussian").startswith("discrete"):
+        if config.get("freeze_codebook", False):
+            if "constants" not in params:
+                raise KeyError("a frozen codebook needs the JAX variables' "
+                               "'constants' collection")
+            sd["codebook.weight"] = _t(params["constants"]["codebook"])
+        else:
+            sd["codebook.weight"] = _t(root["codebook"])
     return sd

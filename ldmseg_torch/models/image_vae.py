@@ -56,10 +56,11 @@ class VAEEncoder(nn.Module):
     def __init__(self, block_out_channels: Tuple[int, ...] = (128, 256, 512,
                                                               512),
                  latent_channels: int = 4, layers_per_block: int = 2,
-                 groups: int = 32, use_fused_attention: bool = False):
+                 groups: int = 32, use_fused_attention: bool = False,
+                 in_channels: int = 3):
         super().__init__()
         chans = tuple(block_out_channels)
-        self.conv_in = conv3x3(3, chans[0])
+        self.conv_in = conv3x3(in_channels, chans[0])
         cin, blocks = chans[0], []
         for i, cout in enumerate(chans):
             blocks.append(DownEncoderBlock(cin, cout, layers_per_block,

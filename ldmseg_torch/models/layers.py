@@ -246,8 +246,12 @@ class TimestepEmbedding(nn.Module):
 @torch.no_grad()
 def init_random_(module: nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights: LeCun-normal convs and linears (Flax's
-    default), zero biases, unit norm scales."""
+    default), zero biases, unit norm scales; a module with its own
+    ``random_init_(gen)`` (the seg VAE's codebook) fills itself."""
     for m in module.modules():
+        if hasattr(m, "random_init_"):
+            m.random_init_(gen)
+            continue
         params = dict(m.named_parameters(recurse=False))
         if not params:
             continue

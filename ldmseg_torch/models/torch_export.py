@@ -155,3 +155,27 @@ def export_reference_ldm(path: str, unet: Mapping, vae_image: Mapping,
         shadows = _ordered(ema, keys)
         payload["ema"] = {"shadow_params": [shadows[k] for k in keys]}
     torch.save(payload, path)
+
+
+def export_reference_ae(path: str, vae_semseg: Mapping, config: Mapping,
+                        step: int = 0) -> None:
+    """Write the reference's stage-1 save dict ``{'vae': <GeneralVAESeg
+    state dict>, 'step'}`` from the port seg VAE's state dict, what
+    ``ldmseg_tpu``'s ``TrainerAE.export_reference`` writes. ``config`` is
+    the ``vae_model_kwargs``; the reference's keys cover the default
+    topology only (JAX's ``seg_vae_key_map`` asserts the same), so the
+    other encoders, mid blocks and the discrete bottlenecks raise."""
+    other = {k: config.get(k) for k in ("resize_input", "skip_encoder",
+                                         "image_encoder", "num_mid_blocks")
+             if config.get(k)}
+    if config.get("parametrization", "gaussian") != "gaussian":
+        other["parametrization"] = config["parametrization"]
+    if other:
+        raise NotImplementedError(
+            f"export of a seg VAE with {other}: the reference keys cover the "
+            "default topology only")
+    keys = seg_vae_keys(tuple(config.get("block_out_channels",
+                                         (32, 64, 128, 256))),
+                        config.get("num_upscalers", 1))
+    torch.save({"vae": _ordered(vae_semseg, keys), "step": int(step)}, path)
+

@@ -50,9 +50,20 @@ So with fused norms the packed and absorbed flags do nothing (K3 + K4
 run), ``use_absorbed_attention`` wins over ``use_packed_attention`` and
 both over ``use_fused_attention``, which the trainer sets by default.
 
-The int8 UNet's quantized modules hold no float weights (K11 and K17 keep
-their attention's: they are its parameter keys):
-``ops/quant.py:prepare_int8_unet`` fills them from a float UNet.
+The int8 UNet's s8 convs and linears hold the float convs' and linears'
+weights (their keys; training through int8 runs them straight-through
+before a prepare), its fused int8 blocks none (K11 and K17 keep their
+attention's: they are its parameter keys): ``ops/quant.py:
+prepare_int8_unet`` fills them from a float UNet.
+
+Training: ``dropout`` drops or scales the UNet's input (unet.py:870-878;
+``standard`` or ``gaussian``), with the mask or the noise handed in as
+``forward(..., dropout=...)`` (:func:`draw_input_dropout` makes it from a
+generator), outside every rematerialised block; ``gradient_checkpointing``
+rematerialises each down and up block in the backward
+(``torch.utils.checkpoint``, non-reentrant; JAX ``nn.remat``, :931-939,
+:993-994; the mid block is not, as in JAX) with ``remat_policy`` mapped to
+a selective checkpoint (:data:`REMAT_POLICIES`).
 """
 
 from __future__ import annotations
@@ -76,6 +87,68 @@ from ..ops.attention_s8 import (absorbed_self_attention_s8,
 from ..ops.geglu import (fused_geglu_s8, geglu_ln_s8, geglu_ln_s8_pout,
                          pack_geglu, pack_geglu_s8, with_proj_out)
 from ..ops.quant import QuantConv2d, QuantLinear
+
+# jax.checkpoint_policies names -> the aten ops whose outputs a remat site
+# keeps (None: keep nothing, recompute everything; "all": keep everything)
+_WEIGHT_PRODUCTS = ("mm", "addmm", "convolution")
+REMAT_POLICIES = {
+    None: None,
+    "nothing_saveable": None,
+    "everything_saveable": "all",
+    "dots_saveable": _WEIGHT_PRODUCTS + ("bmm", "baddbmm"),
+    "checkpoint_dots": _WEIGHT_PRODUCTS + ("bmm", "baddbmm"),
+    "dots_with_no_batch_dims_saveable": _WEIGHT_PRODUCTS,
+    "checkpoint_dots_with_no_batch_dims": _WEIGHT_PRODUCTS,
+}
+
+
+def remat_context_fn(policy: Optional[str]):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a
+    ``remat_policy`` name (None for full recompute); an unknown name
+    raises."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: the port maps "
+                         f"{sorted(k for k in REMAT_POLICIES if k)}")
+    keep = REMAT_POLICIES[policy]
+    if keep is None:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    ops = None if keep == "all" else {
+        getattr(torch.ops.aten, name).default for name in keep}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if ops is None or op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts,
+                             policy_fn)
+
+
+def draw_input_dropout(shape, rate: float, mode: str,
+                       generator: Optional[torch.Generator] = None,
+                       device=None) -> torch.Tensor:
+    """The input dropout's draw: the keep mask (``u < 1 - rate``,
+    ``standard``) or the standard normal noise (``gaussian``)."""
+    if mode == "standard":
+        return torch.rand(shape, generator=generator, device=device) < \
+            1.0 - rate
+    if mode == "gaussian":
+        return torch.randn(shape, generator=generator, device=device)
+    raise ValueError(f"dropout_mode {mode!r}")
+
+
+def input_dropout(sample: torch.Tensor, rate: float, mode: str,
+                  draw: torch.Tensor) -> torch.Tensor:
+    """unet.py:870-878: ``standard`` keeps ``sample / (1 - rate)`` where
+    the mask is True; ``gaussian`` multiplies by ``1 + std * noise`` with
+    ``p = rate / (1 - rate)``, ``std = sqrt(p / (1 - p))`` (the JAX
+    formula, as it stands)."""
+    if mode == "standard":
+        return torch.where(draw.to(torch.bool), sample / (1.0 - rate),
+                           torch.zeros_like(sample))
+    p = rate / (1.0 - rate)
+    std = (p / (1.0 - p)) ** 0.5
+    return sample * (1.0 + std * draw.to(sample.dtype))
 from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
                      conv3x3, timestep_embedding)
 
@@ -124,6 +197,12 @@ class UNetConfig:
     # use_int8_conv K6 feeding the s8 convs (inference only)
     use_pallas_gn: bool = False
     int8_fuse_gn: bool = False
+    # training: the input dropout (its draw passed to forward) and the
+    # down/up blocks' rematerialisation with a jax.checkpoint_policies name
+    dropout: float = 0.0
+    dropout_mode: str = "standard"
+    gradient_checkpointing: bool = False
+    remat_policy: Optional[str] = None
 
 
 class CrossAttention(nn.Module):
@@ -677,8 +756,17 @@ class UNet2DCondition(nn.Module):
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(groups, c0, eps)
         self.conv_out = conv3x3(c0, cfg.out_channels)
+        # an unknown policy raises whether or not remat is on, as in JAX
+        context_fn = remat_context_fn(cfg.remat_policy)
+        self._remat = None
+        if cfg.gradient_checkpointing:
+            from torch.utils.checkpoint import noop_context_fn
+            self._remat = context_fn or noop_context_fn
 
-    def forward(self, sample: torch.Tensor, timesteps) -> torch.Tensor:
+    def forward(self, sample: torch.Tensor, timesteps,
+                dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``dropout``: the input dropout's draw (:func:`draw_input_dropout`,
+        the sample's shape), applied when ``config.dropout > 0``."""
         cfg = self.config
         b = sample.shape[0]
         if isinstance(timesteps, torch.Tensor):
@@ -697,16 +785,38 @@ class UNet2DCondition(nn.Module):
         # sin/cos and MLP in fp32, then the activation dtype
         emb = self.time_embedding(emb).to(sample.dtype)
 
+        if cfg.dropout > 0 and dropout is not None:
+            sample = input_dropout(sample, cfg.dropout, cfg.dropout_mode,
+                                   dropout)
+        remat = self._remat if (cfg.gradient_checkpointing
+                                and torch.is_grad_enabled()) else None
+
+        def run(block, *args, **kw):
+            if remat is None:
+                return block(*args, **kw)
+            # the block's weights go in as inputs: the recompute in the
+            # backward must read the tensors this forward read (a caller's
+            # functional_call, the trainer's compute-dtype cast, has ended
+            # by then)
+            names, weights = zip(*block.named_parameters())
+            n = len(args)
+
+            def fn(*inputs):
+                return torch.func.functional_call(
+                    block, dict(zip(names, inputs[n:])), inputs[:n], kw)
+            return torch.utils.checkpoint.checkpoint(
+                fn, *args, *weights, use_reentrant=False, context_fn=remat)
+
         x = self.conv_in(sample)
         res_stack = [x]
         for block in self.down_blocks:
-            x, res = block(x, emb)
+            x, res = run(block, x, emb)
             res_stack.extend(res)
         x = self.mid_block(x, emb)
         for block in self.up_blocks:
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
             size = tuple(res_stack[-1].shape[-2:]) if res_stack else None
-            x = block(x, res, emb, upsample_size=size)
+            x = run(block, x, res, emb, upsample_size=size)
         x = F.silu(self.conv_norm_out(x))
         return self.conv_out(x)

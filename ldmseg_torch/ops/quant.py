@@ -3,11 +3,13 @@ the int8 UNet's weight preparation and its per-site calibration.
 
 Counterpart of ``ldmseg_tpu/ops/quant.py``: ``quantize_weight`` (:98),
 ``quantize_activation`` (:106), the s8 convolution ``_s8_conv`` (:36) and
-``QuantConv`` (:448) on prequantized weights, ``QuantDense`` (:406) on
-prequantized leaves (:class:`QuantLinear`; the in-graph ``int8_dot`` with its
-straight-through backward serves unprepared trees and training, not
-ported), ``prequantize_conv_tree`` (:132) with ``pack_inference_tiles``
-(:243), and ``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633).
+``QuantConv`` (:448) and ``QuantDense`` (:406) on prequantized weights
+(:class:`QuantConv2d`, :class:`QuantLinear` after ``prepare``) and on their
+float weights through ``int8_conv`` (:73-95) and ``int8_dot`` (:381-403),
+whose backward is the float conv's or matmul's gradient (straight-through:
+training through int8, :class:`Int8ConvSTE`, :class:`Int8LinearSTE`),
+``prequantize_conv_tree`` (:132) with ``pack_inference_tiles`` (:243), and
+``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633).
 
 Rounding is half-to-even (``torch.round``), as ``jnp.round``. Scales are
 float32 and computed in the JAX package's order, so the int8 codes and the
@@ -108,14 +110,65 @@ def s8_conv2d(x_q: torch.Tensor, w_mat: torch.Tensor,
     return y.reshape(b, ho, wo, -1)
 
 
-class QuantConv2d(nn.Module):
-    """3x3 conv, padding 1, on prequantized int8 weights (``QuantConv``
-    :448 with a ``{"q", "scale"}`` kernel): int8 codes and float32
-    per-output-channel scales in buffers that :meth:`prepare` fills from a
-    float conv. The input is quantized per tensor with the calibrated
-    ``x_scale`` when set, else the module's ``act_scale``, else its own
-    amax. ``y = float(s8 conv) * (x_scale * w_scale)`` cast to the input
-    dtype, plus the bias.
+class Int8ConvSTE(torch.autograd.Function):
+    """``int8_conv`` (:73-95): the 3x3 (padding 1) s8 conv of ``x`` NCHW
+    with ``w`` quantized per output channel and ``x`` per tensor
+    (``act_scale`` or its amax), ``float(s8) * (xs * ws)`` in ``x``'s dtype;
+    the backward is the float conv's (``w`` cast to ``x``'s dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, act_scale: Optional[float]):
+        q, ws = quantize_weight(w, dims=(1, 2, 3))
+        x_q, xs = quantize_activation(x, act_scale)
+        y = s8_conv2d(x_q, q.permute(0, 2, 3, 1).reshape(q.shape[0], -1),
+                      stride)
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        y = (y.float() * (xs * ws)).to(x.dtype)
+        return y.permute(0, 3, 1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wx = w.to(x.dtype)
+        gx = torch.nn.grad.conv2d_input(x.shape, wx, g, ctx.stride, 1)
+        gw = torch.nn.grad.conv2d_weight(x, w.shape, g, ctx.stride, 1)
+        return gx, gw.to(w.dtype), None, None
+
+
+class Int8LinearSTE(torch.autograd.Function):
+    """``int8_dot`` (:381-403): ``x [..., in]`` per tensor, ``w [out, in]``
+    per output row, ``int32 x8·w8ᵀ`` dequantized in ``x``'s dtype; the
+    backward is the float matmul's (``w`` cast to ``x``'s dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, act_scale: Optional[float]):
+        q, ws = quantize_weight(w, dims=(1,))
+        x_q, xs = quantize_activation(x, act_scale)
+        y = int8_matmul(x_q.reshape(-1, x.shape[-1]), q)
+        ctx.save_for_backward(x, w)
+        y = y.reshape(*x.shape[:-1], w.shape[0])
+        return (y.float() * (xs * ws)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.to(x.dtype)
+        gw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return gx, gw.to(w.dtype), None
+
+
+class QuantConv2d(nn.Conv2d):
+    """3x3 conv, padding 1, the int8 ``QuantConv`` (:448). Its float
+    ``weight`` and ``bias`` are the float conv's (the same keys). After
+    :meth:`prepare` (``QuantConv`` with a ``{"q", "scale"}`` kernel) it runs
+    on int8 codes and float32 per-output-channel scales in buffers filled
+    from a float conv's weights: the input is quantized per tensor with the
+    calibrated ``x_scale`` when set, else the module's ``act_scale``, else
+    its own amax, ``y = float(s8 conv) * (x_scale * w_scale)`` cast to the
+    input dtype, plus the bias. Unprepared, it runs :class:`Int8ConvSTE` on
+    its own weight (training through int8, as ``QuantConv`` on a float
+    kernel).
 
     The input may also be K6's ``(q int8 [B, Cin, H, W], s float32 [B])``
     (``int8_fuse_gn``, :478-486): the s8 conv runs on those codes and ``y =
@@ -124,12 +177,11 @@ class QuantConv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  act_scale: Optional[float] = None):
-        super().__init__()
-        self.in_channels, self.out_channels = in_channels, out_channels
-        self.stride = stride
+        super().__init__(in_channels, out_channels, 3, stride=stride,
+                         padding=1)
+        self.s8_stride = stride
         self.act_scale = act_scale
         self.x_scale: Optional[float] = None
-        self.bias = nn.Parameter(torch.zeros(out_channels))
         self.register_buffer("w_q", None, persistent=False)
         self.register_buffer("w_scale", None, persistent=False)
 
@@ -146,39 +198,42 @@ class QuantConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.w_q is None:
-            raise RuntimeError("QuantConv2d: weights not prepared (run "
-                               "prepare_int8_unet)")
+            if isinstance(x, tuple):
+                raise RuntimeError("QuantConv2d: K6's codes need prepared "
+                                   "weights (run prepare_int8_unet)")
+            y = Int8ConvSTE.apply(x, self.weight, self.s8_stride,
+                                  self.act_scale)
+            return y + self.bias.to(y.dtype)[:, None, None]
         if isinstance(x, tuple):
             x_q, s = x
-            y = s8_conv2d(x_q, self.w_q, self.stride)
+            y = s8_conv2d(x_q, self.w_q, self.s8_stride)
             scale = s[:, None, None, None] * self.w_scale
             y = (y.float() * scale).to(torch.bfloat16)
         else:
             site = (self.x_scale if self.x_scale is not None
                     else self.act_scale)
             x_q, xs = quantize_activation(x, site)
-            y = s8_conv2d(x_q, self.w_q, self.stride)
+            y = s8_conv2d(x_q, self.w_q, self.s8_stride)
             y = (y.float() * (xs * self.w_scale)).to(x.dtype)
         y = y + self.bias.to(y.dtype)
         return y.permute(0, 3, 1, 2).contiguous()
 
 
-class QuantLinear(nn.Module):
-    """``QuantDense`` (:406) on a prequantized ``{"q", "scale"}`` leaf
-    (:422-436): int8 codes ``[out, in]`` and float32 per-output-channel
-    scales in buffers that :meth:`prepare` fills from a float
-    ``nn.Linear``. The input is quantized per tensor with the calibrated
-    ``x_scale`` when set, else ``act_scale``, else its own amax (clipped);
-    ``y = float(int32 x8·W8ᵀ)·(xs·w_scale)`` cast to the input dtype, plus
-    the bias."""
+class QuantLinear(nn.Linear):
+    """``QuantDense`` (:406), the float linear's keys. On a prequantized
+    ``{"q", "scale"}`` leaf (:422-436, after :meth:`prepare`): int8 codes
+    ``[out, in]`` and float32 per-output-channel scales in buffers filled
+    from a float ``nn.Linear``; the input is quantized per tensor with the
+    calibrated ``x_scale`` when set, else ``act_scale``, else its own amax
+    (clipped); ``y = float(int32 x8·W8ᵀ)·(xs·w_scale)`` cast to the input
+    dtype, plus the bias. Unprepared, :class:`Int8LinearSTE` on its own
+    weight (``int8_dot``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  act_scale: Optional[float] = None):
-        super().__init__()
-        self.in_features, self.out_features = in_features, out_features
+        super().__init__(in_features, out_features)
         self.act_scale = act_scale
         self.x_scale: Optional[float] = None
-        self.bias = nn.Parameter(torch.zeros(out_features))
         self.register_buffer("w_q", None, persistent=False)
         self.register_buffer("w_scale", None, persistent=False)
 
@@ -187,8 +242,8 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.w_q is None:
-            raise RuntimeError("QuantLinear: weights not prepared (run "
-                               "prepare_int8_unet)")
+            y = Int8LinearSTE.apply(x, self.weight, self.act_scale)
+            return y + self.bias.to(y.dtype)
         site = self.x_scale if self.x_scale is not None else self.act_scale
         x_q, xs = quantize_activation(x, site)
         y = int8_matmul(x_q.reshape(-1, self.in_features), self.w_q)

@@ -4,13 +4,15 @@
     python -m ldmseg_torch.tools.export_checkpoint --run_dir runs/run_0 \\
         --out model.pt [--ckpt step_1000] [--ema] [--device cpu]
 
-Rebuilds the trainer from the run directory's ``config.json``, adopts the
-weights the run started from (``main_ldm.load_weights``: the frozen VAEs
-are not in the port's checkpoints), resumes its newest ``step_*`` (or
-``--ckpt``) checkpoint and writes the reference's stage-2 save dict
-``{step, epoch, vae_image, vae_semseg, unet, ema?}``, with the EMA under
-``--ema``. ``--stage ae`` (the stage-1 ``{'vae': ...}`` dict) raises: the
-stage-1 trainer is not ported.
+Rebuilds the trainer from the run directory's ``config.json``, resumes
+its newest ``step_*`` (or ``--ckpt``) checkpoint and writes the
+reference's save dict, with the EMA under ``--ema``: for a ``main_ldm``
+run (``--stage ldm``, the default) the stage-2 ``{step, epoch, vae_image,
+vae_semseg, unet, ema?}`` after adopting the weights the run started from
+(``main_ldm.load_weights``: the frozen VAEs are not in the port's
+checkpoints); for a ``main_ae`` run (``--stage ae``) the stage-1 ``{'vae':
+..., 'step'}``, which ``main_ldm`` reads through
+``vae_model_kwargs.pretrained_path``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import sys
 
 def main(argv=None):
     """Write the export; returns its path."""
+    from ..train.trainer_ae import TrainerAE
     from ..train.trainer_ldm import TrainerDiffusion
     from .main_ldm import build_unet_config, load_weights
 
@@ -38,26 +41,27 @@ def main(argv=None):
                     help="export the EMA weights too")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.stage == "ae":
-        raise NotImplementedError(
-            "export_checkpoint --stage ae: the stage-1 trainer is not "
-            "ported yet (ROADMAP.md queue 8)")
 
     with open(os.path.join(args.run_dir, "config.json")) as f:
         cfg = json.load(f)
     cfg["checkpoint_dir"] = os.path.join(args.run_dir, "checkpoints")
-    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
-                               device=args.device,
-                               results_folder=cfg["checkpoint_dir"])
-    load_weights(trainer, cfg)
+    if args.stage == "ae":
+        trainer = TrainerAE(cfg, device=args.device,
+                            results_folder=cfg["checkpoint_dir"])
+        trainer.init_params()
+    else:
+        trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
+                                   device=args.device,
+                                   results_folder=cfg["checkpoint_dir"])
+        load_weights(trainer, cfg)
     resumed = trainer.resume(os.path.join(cfg["checkpoint_dir"], args.ckpt)
                              if args.ckpt else None)
     if resumed is None:
         raise FileNotFoundError(f"no checkpoint under "
                                 f"{cfg['checkpoint_dir']}")
     trainer.export_reference(args.out, use_ema=args.ema)
-    print(f"exported ldm checkpoint (step {trainer.state.step}) -> "
-          f"{args.out}", flush=True)
+    print(f"exported {args.stage} checkpoint (step {trainer.state.step}) "
+          f"-> {args.out}", flush=True)
     return args.out
 
 

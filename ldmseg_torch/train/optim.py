@@ -10,8 +10,11 @@ optax's ``scale_by_schedule`` does, so the first update uses ``schedule(0)``.
 Adam and AdamW are ``torch.optim.AdamW`` (``scale_by_adam``'s arithmetic,
 eps 1e-8) with one parameter group per (lr factor, weight decay); SGD is
 ``torch.optim.SGD`` with the decay applied beside it, decoupled from the
-momentum as optax adds it after ``trace``. Parameter names are the port's
-``named_parameters`` keys (the diffusers names).
+momentum as optax adds it after ``trace``. Adafactor is
+:class:`FactoredRMS`, optax's ``scale_by_factored_rms`` at its defaults
+(the JAX chain's :143-146), followed by the same decoupled decay.
+Parameter names are the port's ``named_parameters`` keys (the diffusers
+names).
 """
 
 from __future__ import annotations
@@ -86,6 +89,75 @@ def make_lr_schedule(name: Optional[str], base_lr: float, total_steps: int,
     raise NotImplementedError(f"lr schedule {name!r}")
 
 
+def factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """optax ``_factored_dims``: the (second largest, largest) axes when the
+    second largest has at least ``min_dim_size_to_factor`` entries, else
+    None. The factored update is symmetric in the pair, so the port's
+    layouts (``[out, in, kh, kw]``, ``[out, in]``) give the same update as
+    JAX's (``[kh, kw, in, out]``, ``[in, out]``), which pick the same two
+    axes."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return order[-2], order[-1]
+
+
+class FactoredRMS:
+    """optax ``scale_by_factored_rms()`` at its defaults (Adafactor's
+    second moments, no first moment, no update clipping): decay
+    ``1 - (t + 1)^-0.8`` at step count t, epsilon 1e-30 added to the
+    squared gradient, row and column moments for a parameter whose second
+    largest axis has 128 entries or more, the full moment below. Its state
+    (``v_row``, ``v_col``, ``v`` per parameter) is made at the first
+    step."""
+
+    def __init__(self, params: List[torch.nn.Parameter],
+                 decay_rate: float = 0.8, epsilon: float = 1e-30,
+                 min_dim_size_to_factor: int = 128):
+        self.params = params
+        self.decay_rate = decay_rate
+        self.epsilon = epsilon
+        self.min_dim = min_dim_size_to_factor
+        self.state: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def _init(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        dims = factored_dims(p.shape, self.min_dim)
+        if dims is None:
+            return {"v": torch.zeros_like(p)}
+        d1, d0 = dims
+        shape = list(p.shape)
+        return {"v_row": p.new_zeros(shape[:d0] + shape[d0 + 1:]),
+                "v_col": p.new_zeros(shape[:d1] + shape[d1 + 1:])}
+
+    @torch.no_grad()
+    def updates(self, count: int) -> List[torch.Tensor]:
+        """The scaled gradients at step ``count`` (a parameter without a
+        gradient counts as a zero one, as optax sees it)."""
+        t = torch.tensor(count + 1, dtype=torch.float32)
+        beta = float(1.0 - t ** (-self.decay_rate))
+        out = []
+        for i, p in enumerate(self.params):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            st = self.state.setdefault(i, self._init(p))
+            gsq = g * g + self.epsilon
+            dims = factored_dims(p.shape, self.min_dim)
+            if dims is None:
+                st["v"].mul_(beta).add_(gsq, alpha=1.0 - beta)
+                out.append(g * st["v"].rsqrt())
+                continue
+            d1, d0 = dims
+            st["v_row"].mul_(beta).add_(gsq.mean(d0), alpha=1.0 - beta)
+            st["v_col"].mul_(beta).add_(gsq.mean(d1), alpha=1.0 - beta)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row = (st["v_row"] / st["v_row"].mean(reduced_d1, keepdim=True)
+                   ).rsqrt()
+            out.append(g * row.unsqueeze(d0)
+                       * st["v_col"].rsqrt().unsqueeze(d1))
+        return out
+
+
 class Optimizer:
     """The JAX package's optimizer chain on a list of named parameters.
     :meth:`step` reads each parameter's ``.grad``."""
@@ -100,17 +172,15 @@ class Optimizer:
                  clip_grad: float = 0.0,
                  lr_factor_fn: Optional[Callable[[str], float]] = None,
                  momentum: float = 0.9):
-        if name == "adafactor":
-            raise NotImplementedError(
-                "optimizer 'adafactor': Adafactor is not ported yet")
-        if name not in ("adamw", "adam", "sgd"):
+        if name not in ("adamw", "adam", "sgd", "adafactor"):
             raise NotImplementedError(f"optimizer {name!r}")
         self.schedule = (learning_rate if callable(learning_rate)
                          else (lambda step: learning_rate))
         self.clip_grad = clip_grad
         self.count = 0
         # adam takes no weight decay in the JAX chain; sgd only when asked
-        decays = name == "adamw" or (name == "sgd" and weight_decay)
+        decays = name in ("adamw", "adafactor") or (name == "sgd"
+                                                   and weight_decay)
 
         def decay(n: str) -> float:
             if not decays:
@@ -130,7 +200,14 @@ class Optimizer:
         param_groups = [{"params": ps, "lr_factor": f, "weight_decay": wd}
                         for (f, wd), ps in groups.items()]
         self.momentum = momentum
-        if name == "sgd":
+        self.factored = None
+        if name == "adafactor":
+            self._sgd_decay = []
+            self.torch_opt = None
+            self.param_groups = param_groups
+            self.factored = FactoredRMS(
+                [p for g in param_groups for p in g["params"]])
+        elif name == "sgd":
             self._sgd_decay = [(g["params"], g["lr_factor"], g["weight_decay"])
                                for g in param_groups if g["weight_decay"]]
             for g in param_groups:
@@ -158,6 +235,10 @@ class Optimizer:
         lr = float(self.schedule(self.count))
         if self.clip_grad and self.clip_grad > 0:
             self.clip_()
+        if self.factored is not None:
+            self._factored_step(lr)
+            self.count += 1
+            return
         for params, factor, wd in self._sgd_decay:
             torch._foreach_mul_(params, 1.0 - lr * factor * wd)
         for g in self.torch_opt.param_groups:
@@ -165,12 +246,32 @@ class Optimizer:
         self.torch_opt.step()
         self.count += 1
 
+    def _factored_step(self, lr: float) -> None:
+        """Adafactor: ``p -= lr * factor * (u + wd * p)`` with ``u`` the
+        factored-RMS update, in the JAX chain's order."""
+        updates = iter(self.factored.updates(self.count))
+        for g in self.param_groups:
+            for p in g["params"]:
+                u = next(updates)
+                if g["weight_decay"]:
+                    u = u + g["weight_decay"] * p
+                p.sub_(u, alpha=lr * g["lr_factor"])
+
     def zero_grad(self) -> None:
-        self.torch_opt.zero_grad(set_to_none=True)
+        if self.torch_opt is None:
+            for p in self.params:
+                p.grad = None
+        else:
+            self.torch_opt.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
         """``{"count", "torch"}``: the step count and the torch optimizer's
-        state dict, its tensors copied to the CPU."""
+        state dict, its tensors copied to the CPU (Adafactor: ``{"count",
+        "factored"}``, its moments by parameter index)."""
+        if self.factored is not None:
+            return {"count": self.count, "factored": {
+                i: {k: v.detach().cpu() for k, v in st.items()}
+                for i, st in self.factored.state.items()}}
         sd = self.torch_opt.state_dict()
         state = {i: {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
                          else v) for k, v in st.items()}
@@ -184,6 +285,15 @@ class Optimizer:
         already holds is ``copy_``'d into, one it lacks is made on its
         parameter's device (``step`` where torch keeps it, on the CPU), so
         the state is never held twice on the device."""
+        if self.factored is not None:
+            for i, st in sd["factored"].items():
+                p = self.factored.params[int(i)]
+                live = self.factored.state.setdefault(
+                    int(i), self.factored._init(p))
+                for k, v in st.items():
+                    live[k].copy_(v)
+            self.count = int(sd["count"])
+            return
         groups = self.torch_opt.param_groups
         saved = sd["torch"]
         if [len(g["params"]) for g in saved["param_groups"]] != \

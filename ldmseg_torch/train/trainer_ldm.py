@@ -42,11 +42,15 @@ place, ``compute_pq(save_model=True)`` keeps the best-PQ snapshot, and
 ``metrics.jsonl``. :meth:`export_reference` writes the reference's torch
 save dict.
 
-Image logging, video clips and pose consistency, classifier-free guidance,
-text descriptors, clip sampling, the DPM-Solver++ sampler, int8 clip
-sampling, wandb and the parallel modes are later slices: a config or an
-argument that asks for one of them raises ``NotImplementedError`` naming
-it.
+Training also takes the UNet's input dropout, gradient checkpointing
+(``remat_policy``), Adafactor, sampling the RGB posterior
+(``sample_posterior_rgb``, in training and sampling as in JAX) and image
+logging (:meth:`log_images_train`, :meth:`log_images_val`,
+:meth:`visualize_noise_schedule`). Video clips and pose consistency,
+classifier-free guidance, text descriptors, clip sampling, the
+DPM-Solver++ sampler, int8 clip sampling, wandb and the parallel modes are
+later slices: a config or an argument that asks for one of them raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -72,12 +76,13 @@ from ..models.convert import (image_vae_state_dict_from_jax,
 from ..models.image_vae import ImageVAE
 from ..models.layers import init_random_
 from ..models.seg_vae import SegVAE
-from ..models.unet import UNet2DCondition, UNetConfig
+from ..models.unet import UNet2DCondition, UNetConfig, draw_input_dropout
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
                          prepare_int8_unet)
 from ..utils.meters import AverageMeter
 from ..utils.metrics_sink import MetricsSink
 from .optim import Optimizer, freeze_filter, make_lr_schedule
+from .restore import PanopticRestore
 from .state import TrainState
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -96,9 +101,6 @@ def _refuse_later_slices(p: Mapping) -> None:
         "train_kwargs.image_descriptors": (
             tk.get("image_descriptors", "remove") != "remove",
             "text/CLIP descriptors, cross-attention and guidance"),
-        "train_kwargs.sample_posterior_rgb": (
-            tk.get("sample_posterior_rgb", False),
-            "sampling the RGB posterior"),
         "sampling_kwargs.sampler": (
             sk.get("sampler", "ddim") != "ddim",
             "the DPM-Solver++ sampler"),
@@ -106,12 +108,6 @@ def _refuse_later_slices(p: Mapping) -> None:
             tk.get("video_clips") is not None
             or tk.get("temporal_consistency_weight", 0.0) > 0,
             "video clips and pose consistency"),
-        "train_kwargs.dropout": (tk.get("dropout", 0.0) > 0, "dropout"),
-        "train_kwargs.gradient_checkpointing": (
-            tk.get("gradient_checkpointing", False),
-            "gradient checkpointing"),
-        "optimizer_name": (p.get("optimizer_name") == "adafactor",
-                           "Adafactor"),
         "optimizer_zero_redundancy": (
             p.get("optimizer_zero_redundancy", False),
             "ZeRO-1 optimizer-state sharding"),
@@ -126,7 +122,7 @@ def _refuse_later_slices(p: Mapping) -> None:
                 f"config {key}: {what} is not ported yet")
 
 
-class TrainerDiffusion:
+class TrainerDiffusion(PanopticRestore):
     """Builds the UNet, the image VAE and the seg VAE from the config as the
     JAX trainer does, on ``device`` (``"cuda"`` unless the caller asks for
     the CPU). Call :meth:`init_params`, :meth:`load_jax_params` or
@@ -182,7 +178,11 @@ class TrainerDiffusion:
         if unet_config is None:
             unet_config = UNetConfig(
                 in_channels=mk.get("in_channels", 8) + cond_channels,
-                use_fused_attention=tk.get("fused_attention", True))
+                use_fused_attention=tk.get("fused_attention", True),
+                dropout=tk.get("dropout", 0.0),
+                gradient_checkpointing=tk.get("gradient_checkpointing",
+                                              False),
+                remat_policy=tk.get("remat_policy"))
         self.unet_config = unet_config
         # bf16 covers the reference's float16 AMP dtype, as in JAX
         self.compute_dtype = (torch.bfloat16 if tk.get("weight_dtype") in
@@ -231,6 +231,7 @@ class TrainerDiffusion:
         self.loss_type = tk.get("loss", "l2")
         self.ohem_ratio = tk.get("ohem_ratio", 1.0)
         self.sample_posterior = tk.get("sample_posterior", False)
+        self.sample_posterior_rgb = tk.get("sample_posterior_rgb", False)
         self.batch_size = tk["batch_size"]
         self.train_num_steps = tk["train_num_steps"]
         self.state: Optional[TrainState] = None
@@ -394,7 +395,7 @@ class TrainerDiffusion:
         if not self.int8_inference:
             raise RuntimeError("calibrate_int8: int8 inference not enabled")
         self._require_params()
-        rgb = self._encode_rgb(batch["image"])
+        rgb = self._encode_rgb(batch["image"], generator)
         b, _, lh, lw = rgb.shape
         if noise is None:
             noisy = torch.randn((b, 4, lh, lw), generator=generator,
@@ -415,27 +416,35 @@ class TrainerDiffusion:
     # ------------------------------------------------------------------
     # shared by both paths
     # ------------------------------------------------------------------
-    def _encode_rgb(self, image) -> torch.Tensor:
+    def _encode_rgb(self, image, generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """ImageNet-normalised NHWC frames -> scaled RGB latents, NCHW
-        fp32."""
+        fp32: the posterior's mode, or under ``sample_posterior_rgb`` a
+        sample (``noise``, NCHW, or a draw from ``generator``), in training
+        and in sampling as in JAX (:409-423)."""
         x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
         mean = torch.tensor(_IMAGENET_MEAN, dtype=x.dtype, device=x.device)
         std = torch.tensor(_IMAGENET_STD, dtype=x.dtype, device=x.device)
         rgb = 2.0 * (x * std + mean).clamp(0.0, 1.0).to(
             self.compute_dtype) - 1.0
         rgb = rgb.permute(0, 3, 1, 2).contiguous()
-        lat = self.vae_img.encode(rgb).mode()
+        post = self.vae_img.encode(rgb)
+        lat = (post.sample(generator, noise) if self.sample_posterior_rgb
+               else post.mode())
         return lat.float() * self.img_scale
 
     def _unet_apply(self, unet: Callable, latents: torch.Tensor,
                     rgb_latents: torch.Tensor,
-                    condition: Optional[torch.Tensor], t) -> torch.Tensor:
+                    condition: Optional[torch.Tensor], t,
+                    dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``unet(x, t)`` on [latents, rgb(, condition)] in the compute
-        dtype; fp32 out."""
+        dtype, with the input dropout's draw when given; fp32 out."""
         parts = [latents, rgb_latents]
         if condition is not None:
             parts.append(condition)
         inputs = torch.cat(parts, dim=1).to(self.compute_dtype)
+        if dropout is not None:
+            return unet(inputs, t, dropout).float()
         return unet(inputs, t).float()
 
     # ------------------------------------------------------------------
@@ -447,7 +456,8 @@ class TrainerDiffusion:
         return x.permute(0, 3, 1, 2).contiguous()
 
     def _encode(self, batch: Mapping,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rgb_noise: Optional[torch.Tensor] = None):
         """Frozen encoders: bits -> seg latents (posterior mode, or a sample
         under ``sample_posterior``) and their mean, x ``seg_scale`` in fp32;
         RGB -> scaled RGB latents; the loss mask. All NCHW."""
@@ -457,7 +467,7 @@ class TrainerDiffusion:
         latents = latents_mean
         if self.sample_posterior:
             latents = (post.sample(generator) * self.seg_scale).float()
-        rgb_latents = self._encode_rgb(batch["image"])
+        rgb_latents = self._encode_rgb(batch["image"], generator, rgb_noise)
         loss_mask = self._loss_weight_mask(batch, latents.shape[-2:])
         return latents, latents_mean, rgb_latents, loss_mask
 
@@ -493,8 +503,8 @@ class TrainerDiffusion:
         land in fp32 on the masters."""
         params = {n: p.to(self.compute_dtype)
                   for n, p in self.unet.named_parameters()}
-        return lambda x, t: torch.func.functional_call(self.unet, params,
-                                                       (x, t))
+        return lambda x, t, *drop: torch.func.functional_call(
+            self.unet, params, (x, t, *drop))
 
     @torch.no_grad()
     def _predict_sample(self, unet: Callable, latents: torch.Tensor,
@@ -515,13 +525,19 @@ class TrainerDiffusion:
 
     def forward_backward(self, batch: Mapping,
                          generator: Optional[torch.Generator] = None,
-                         noise=None, timesteps=None):
+                         noise=None, timesteps=None, rgb_noise=None,
+                         dropout=None):
         """One training step without the optimizer update: the loss's
         gradients are added to the masters' ``.grad``. ``noise`` (NHWC,
-        the latents' shape) and ``timesteps`` (``[B]``) replace the draws
-        from ``generator``; the other draws (posterior sample, predicted
-        latents, inpainting, condition and RGB noise) come from it. Returns
-        ``(loss, metrics, pred_x0)``, ``pred_x0`` NHWC."""
+        the latents' shape), ``timesteps`` (``[B]``), ``rgb_noise`` (the RGB
+        posterior's sample under ``sample_posterior_rgb``, NCHW) and
+        ``dropout`` (the UNet's input dropout draw, NCHW, the UNet input's
+        shape) replace the draws from ``generator``; the other draws
+        (posterior sample, predicted latents, inpainting, condition and RGB
+        noise) come from it. The input dropout acts on the forward whose
+        gradient trains (JAX's trainer never turns it on: its apply keeps
+        ``deterministic=True``). Returns ``(loss, metrics, pred_x0)``,
+        ``pred_x0`` NHWC."""
         self._require_params()
         if getattr(batch["image"], "ndim", 4) == 5:
             raise NotImplementedError(
@@ -530,7 +546,7 @@ class TrainerDiffusion:
         dev = self.device
         with torch.no_grad():
             latents, latents_mean, rgb_latents, loss_mask = self._encode(
-                batch, generator)
+                batch, generator, rgb_noise)
         b = latents.shape[0]
         unet = self._compute_unet()
 
@@ -586,7 +602,13 @@ class TrainerDiffusion:
             t_img = torch.randint(0, self.rgb_noise_level, (b,),
                                   generator=generator, device=dev)
             rgb_in = add_noise(self.sched, rgb_in, rn, t_img)
-        pred = self._unet_apply(unet, noisy, rgb_in, condition, timesteps)
+        cfg = self.unet_config
+        if cfg.dropout > 0 and dropout is None:
+            dropout = draw_input_dropout(
+                (b, cfg.in_channels) + tuple(noisy.shape[-2:]),
+                cfg.dropout, cfg.dropout_mode, generator, dev)
+        pred = self._unet_apply(unet, noisy, rgb_in, condition, timesteps,
+                                dropout if cfg.dropout > 0 else None)
         target = (noise if self.sched.prediction_type == "epsilon"
                   else latents_mean)
         loss = diffusion_loss(
@@ -636,18 +658,14 @@ class TrainerDiffusion:
         that); with ``eval_every`` (default ``eval_kwargs.eval_every``)
         :meth:`compute_pq` runs before the first step and every
         ``eval_every`` optimizer steps with ``save_model=True``, its PQ
-        logged. ``vis_every`` raises: image logging is not ported. Returns
-        every step's loss."""
-        if vis_every:
-            raise NotImplementedError(
-                "train_loop(vis_every=...): image logging is not ported yet"
-                " (ROADMAP.md queue 5)")
+        logged; every ``vis_every`` steps :meth:`log_images_train` writes
+        the step's panel. Returns every step's loss."""
         if self.ds is None:
             raise ValueError("TrainerDiffusion.train_loop needs a dataset")
         self._require_params()
         if eval_every is None:
             eval_every = self.p["eval_kwargs"].get("eval_every")
-        if save_every or eval_every:
+        if save_every or eval_every or vis_every:
             self._folder()
         loader = make_loader(self.ds, self.batch_size, seed=seed)
         if len(loader) == 0:
@@ -667,9 +685,12 @@ class TrainerDiffusion:
             try:
                 for batch in batches:
                     before = self.state.step
-                    loss, _, _ = self.train_step(batch, generator=generator)
+                    loss, _, pred_x0 = self.train_step(batch,
+                                                       generator=generator)
                     pending.append(loss)
                     step += 1
+                    if vis_every and step % vis_every == 0:
+                        self.log_images_train(batch, pred_x0, step)
                     gstep = self.state.step
                     if step % log_every == 0 or step == max_steps:
                         values = torch.stack(pending).tolist()
@@ -693,6 +714,61 @@ class TrainerDiffusion:
                 batches.close()
             epoch += 1
         return losses
+
+    # ------------------------------------------------------------------
+    # image logging (JAX :724-777)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def log_images_train(self, batch: Mapping, pred_x0, step: int) -> str:
+        """``rgb_gt_pred_<step>.jpg``: the first frame, its ground truth and
+        the argmax of the seg VAE's decode of its predicted x0 latents
+        (``pred_x0`` NHWC, from :meth:`train_step`), resized to the labels'
+        size (trainers_ldm_cond.py:1378-1512)."""
+        from ..utils.visualization import save_train_panel, to_numpy
+        from .restore import resize_logits
+        z = torch.as_tensor(pred_x0[:1], device=self.device).permute(
+            0, 3, 1, 2) * (1.0 / self.seg_scale)
+        logits = self.vae_seg.decode(z.to(self.compute_dtype), True).float()
+        pred = resize_logits(logits.permute(0, 2, 3, 1),
+                             batch["semseg"].shape[1:3]).argmax(-1)
+        path = os.path.join(self._folder(), f"rgb_gt_pred_{step}.jpg")
+        save_train_panel(path, to_numpy(batch["image"][0]),
+                         to_numpy(batch["semseg"][0]), to_numpy(pred[0]))
+        self.metrics.log_image(step, "train_panel", path)
+        return path
+
+    def log_images_val(self, batch: Mapping, logits,
+                       identifier: str = "") -> str:
+        """``overview<identifier>.png``: columns the batch's frames, rows
+        RGB, ground truth (when the batch has it), the sampled prediction
+        and the inpainting mask (when it has one), the logits resized to
+        the frames' size (trainers_ldm_cond.py:1378-1438)."""
+        from ..utils.visualization import save_val_overview, to_numpy
+        from .restore import resize_logits
+        img = to_numpy(batch["image"])
+        pred = resize_logits(torch.as_tensor(logits),
+                             img.shape[1:3]).argmax(-1)
+        path = os.path.join(self._folder(), f"overview{identifier}.png")
+        save_val_overview(
+            path, img,
+            to_numpy(batch["semseg"]) if "semseg" in batch else None,
+            to_numpy(pred),
+            inpainting=(to_numpy(batch["inpainting_mask"])
+                        if "inpainting_mask" in batch else None))
+        self.metrics.log_image(self.state.step if self.state else 0,
+                               "val_overview", path)
+        return path
+
+    def visualize_noise_schedule(self, seed: int = 42) -> str:
+        """``noise_schedule.jpg``: the first val (else train) sample's bits
+        noised at strided timesteps, decoded and stacked
+        (trainers_ldm_cond.py:1625-1660; one normal draw from a CPU
+        generator seeded ``seed``)."""
+        from ..utils.visualization import noise_schedule_panel
+        ds = self.ds_val if self.ds_val is not None else self.ds
+        return noise_schedule_panel(
+            os.path.join(self._folder(), "noise_schedule.jpg"), self.sched,
+            np.asarray(ds[0]["image_semseg"]), seed=seed)
 
     def _eval_during_training(self, step: int, eval_kw: dict):
         """In-training eval with the best-PQ snapshot (JAX :779-790)."""
@@ -868,7 +944,7 @@ class TrainerDiffusion:
         else:
             unet = self.inference_unet()
         with torch.inference_mode():
-            rgb_latents = self._encode_rgb(batch["image"])
+            rgb_latents = self._encode_rgb(batch["image"], generator)
             logits, x0 = self._sample_decode(
                 unet, rgb_latents, generator, init_noise,
                 num_inference_steps or self.num_inference_steps,
@@ -901,16 +977,12 @@ class TrainerDiffusion:
         ``mask``; scored by ``PanopticEvaluator`` (class-agnostic without
         ``thing_ids``). With ``save_model`` a PQ above ``best_pq`` becomes
         it and is saved as ``best_model`` (a ``results_folder`` is needed
-        up front). ``log_images`` raises ``NotImplementedError`` (image
-        logging is not ported)."""
+        up front). ``log_images`` (default ``eval_kwargs.log_images``)
+        writes the first batch's overview strip (:meth:`log_images_val`)."""
         if log_images is None:
             log_images = bool(self.p["eval_kwargs"].get("log_images", False))
-        if save_model:
+        if save_model or log_images:
             self._folder()
-        if log_images:
-            raise NotImplementedError(
-                "compute_pq(log_images=True): image logging is not ported "
-                "yet (ROADMAP.md queue 5)")
         from ..evals import PanopticEvaluator
         if self.ds_val is None:
             raise ValueError("TrainerDiffusion.compute_pq needs a "
@@ -927,6 +999,9 @@ class TrainerDiffusion:
                 logits, _ = self.sample_panoptic(
                     batch, generator,
                     num_inference_steps=num_inference_steps)
+                if log_images and i == 0:
+                    self.log_images_val(batch, logits,
+                                        identifier=f"_val{self.state.step}")
                 metas = batch.get("meta")
                 if metas and all("gt_sem" in m for m in metas):
                     self._eval_fullres(ev, logits, metas)
@@ -954,81 +1029,3 @@ class TrainerDiffusion:
         for m, cleaned in zip(metas, self.restore_fullres(logits, metas,
                                                           bucket)):
             ev.add_image(cleaned, m["gt_sem"], m.get("gt_inst"))
-
-    def restore_fullres(self, logits: torch.Tensor, metas,
-                        bucket: int = 128) -> list:
-        """Cleaned panoptic maps ``[oh, ow]`` (numpy int32), one per meta,
-        at ``gt_sem``'s size (JAX ``_eval_fullres``, :1218): per image two
-        host-built weight matrices (:func:`resize_weight_matrix`, the
-        bilinear resize of ``jax.image.resize``; the crop of
-        ``meta['padding'] = (top, bottom, left, right)`` folded in) into a
-        canvas rounded up to ``bucket``, the out-of-image region and
-        ``gt_mask``'s zeros left out through ``valid_mask``; images sharing
-        a canvas restored together, at most 8 a call
-        (:meth:`_fullres_post`), on the logits' device."""
-        from ..ops.resize import resize_weight_matrix
-        ih, iw = logits.shape[1:3]
-        groups: dict = {}
-        for bi, m in enumerate(metas):
-            t, b_, le, r = m.get("padding") or (0, 0, 0, 0)
-            oh, ow = m["gt_sem"].shape
-            bh = -(-oh // bucket) * bucket
-            bw = -(-ow // bucket) * bucket
-            wh = np.zeros((ih, bh), np.float32)
-            wh[t:ih - b_, :oh] = resize_weight_matrix(ih - t - b_, oh)
-            ww = np.zeros((iw, bw), np.float32)
-            ww[le:iw - r, :ow] = resize_weight_matrix(iw - le - r, ow)
-            valid = np.zeros((bh, bw), bool)
-            gm = m.get("gt_mask")
-            valid[:oh, :ow] = True if gm is None else \
-                np.asarray(gm).astype(bool)
-            groups.setdefault((bh, bw), []).append((bi, wh, ww, valid))
-        out = [None] * len(metas)
-        for items in groups.values():
-            for s in range(0, len(items), 8):
-                chunk = items[s:s + 8]
-                cleaned = self._fullres_post(
-                    logits[[it[0] for it in chunk]],
-                    *(np.stack([it[k] for it in chunk]) for k in (1, 2, 3)))
-                for k, (bi, *_unused) in enumerate(chunk):
-                    oh, ow = metas[bi]["gt_sem"].shape
-                    out[bi] = cleaned[k, :oh, :ow]
-        return out
-
-    def restore_resized(self, logits: torch.Tensor, size_hw, mask
-                        ) -> np.ndarray:
-        """Cleaned panoptic maps ``[B, h, w]`` (numpy int32) after the
-        bilinear resize of the logits to ``size_hw`` (JAX :1198-1209,
-        ``jax.image.resize(..., "linear")``), post-processed under
-        ``mask`` ``[B, h, w]``. The resize is the same contraction as
-        :meth:`restore_fullres` with :func:`resize_weight_matrix`, not
-        ``F.interpolate``: the two differ where the size shrinks
-        (``jax.image.resize`` widens its triangle kernel by the scale)."""
-        from ..ops.resize import resize_weight_matrix
-        (h, w), (ih, iw) = size_hw, logits.shape[1:3]
-        wh, ww = resize_weight_matrix(ih, h), resize_weight_matrix(iw, w)
-        mask = np.asarray(mask).astype(bool)
-        return np.concatenate([
-            self._fullres_post(
-                logits[s:s + 8], np.broadcast_to(wh, (len(m),) + wh.shape),
-                np.broadcast_to(ww, (len(m),) + ww.shape), m)
-            for s in range(0, logits.shape[0], 8)
-            for m in (mask[s:s + 8],)])
-
-    @torch.no_grad()
-    def _fullres_post(self, li: torch.Tensor, wh, ww, valid) -> np.ndarray:
-        """One restore call (JAX :1275): ``einsum("bhwc,bhH,bwW->bHWc")``
-        of the logits with the weight matrices in fp32 on the logits'
-        device, then ``panoptic_post_process`` with ``valid_mask``."""
-        from ..ops.panoptic import panoptic_post_process
-        dev = li.device
-        resized = torch.einsum(
-            "bhwc,bhH,bwW->bHWc", li.float(),
-            torch.as_tensor(np.ascontiguousarray(wh), device=dev),
-            torch.as_tensor(np.ascontiguousarray(ww), device=dev))
-        cleaned, _ = panoptic_post_process(
-            resized, mask_th=self.mask_th, count_th=self.count_th,
-            overlap_th=self.overlap_th, ignore_label=self.ignore_label,
-            valid_mask=torch.as_tensor(np.ascontiguousarray(valid),
-                                       device=dev))
-        return cleaned.cpu().numpy()

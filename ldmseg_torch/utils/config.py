@@ -82,6 +82,7 @@ DEFAULT_CONFIG: dict = {
         "self_condition": False,
         "sample_posterior": False,
         "sample_posterior_rgb": False,
+        "latent_mask": False,
         "train_num_steps": 24000,
         "batch_size": 8,
         "accumulate": 1,
@@ -91,11 +92,20 @@ DEFAULT_CONFIG: dict = {
         "clip_grad": 3.0,
         "freeze_layers": ["time_embedding"],
         "gradient_checkpointing": False,
+        "remat_policy": None,
         "fused_attention": True,
         "video_clips": None,
         "temporal_consistency_weight": 0.0,
     },
     "pose_model_kwargs": {"pretrained_path": None},
+    "loss_kwargs": {
+        "num_points": 12544,
+        "oversample_ratio": 3,
+        "importance_sample_ratio": 0.75,
+        "temperature": 1.0,
+        "max_masks": 128,
+    },
+    "loss_weights": {"ce": 1.0, "mask": 1.0, "kl": 0.0},
     "sampling_kwargs": {
         "num_inference_steps": 50,
         "sampler": "ddim",

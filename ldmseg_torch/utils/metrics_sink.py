@@ -1,8 +1,8 @@
 """The metrics sink: one JSON object a line in ``metrics.jsonl`` (counterpart
 of ``ldmseg_tpu/utils/metrics_sink.py``, its scalar records
-``{"step", "time", <scalars>}``; image panels wait for image logging). The
-JAX sink mirrors to wandb on request; the card has no wandb, so
-``use_wandb=True`` raises."""
+``{"step", "time", <scalars>}``, and ``{"step", "time", "image": {"name",
+"ref"}}`` pointing at a saved panel). The JAX sink mirrors to wandb on
+request; the card has no wandb, so ``use_wandb=True`` raises."""
 
 from __future__ import annotations
 
@@ -31,6 +31,17 @@ class MetricsSink:
         rec = {"step": int(step), "time": time.time(),
                **{k: float(v) for k, v in scalars.items() if v is not None}}
         self.file.write(json.dumps(rec) + "\n")
+        self.file.flush()
+
+    def log_image(self, step: int, name: str, image, caption=None) -> None:
+        """Record a visualization panel: ``image`` is a saved panel's path
+        (an array is recorded as ``<array name>``)."""
+        if self.file is None:
+            return
+        ref = image if isinstance(image, str) else f"<array {name}>"
+        self.file.write(json.dumps({"step": int(step), "time": time.time(),
+                                    "image": {"name": name, "ref": ref}})
+                        + "\n")
         self.file.flush()
 
     def close(self) -> None:

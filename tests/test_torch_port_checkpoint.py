@@ -22,24 +22,25 @@ import pytest
 jax = pytest.importorskip("jax")
 pytest.importorskip("flax")
 optax = pytest.importorskip("optax")
-import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from ldmseg_tpu.models.unet import UNet2DCondition as JUNet  # noqa: E402
+from ldmseg_tpu.models import torch_import as jimport  # noqa: E402
 from ldmseg_tpu.models.unet import UNetConfig as JUNetConfig  # noqa: E402
 from ldmseg_tpu.train import optim as joptim  # noqa: E402
 from ldmseg_tpu.train.state import TrainState as JState  # noqa: E402
 from ldmseg_torch.data.synthetic import SyntheticDVPS  # noqa: E402
 from ldmseg_torch.models import convert  # noqa: E402
-from ldmseg_torch.models.unet import UNetConfig  # noqa: E402
+from ldmseg_torch.models.unet import UNet2DCondition, UNetConfig  # noqa
 from ldmseg_torch.train import optim  # noqa: E402
 from ldmseg_torch.train.state import TrainState  # noqa: E402
 from ldmseg_torch.train.trainer_ldm import TrainerDiffusion  # noqa: E402
 from ldmseg_torch.utils.config import merge_dicts  # noqa: E402
 
-from test_torch_port_sampling import CFG, UNET_KW, _random_params  # noqa
+from test_torch_port_sampling import CFG, UNET_KW  # noqa: E402
 
 CPU = torch.device("cpu")
+FAST_XLA = {"xla_backend_optimization_level": 0,
+            "xla_llvm_disable_expensive_passes": True}
 TRAIN_CFG = merge_dicts(CFG, {
     "train_kwargs": {"batch_size": 2, "clip_grad": 1.0},
     "optimizer_kwargs": {"lr": 1e-3, "weight_decay": 0.01},
@@ -47,18 +48,87 @@ TRAIN_CFG = merge_dicts(CFG, {
     "ema_kwargs": {"decay": 0.9}})
 
 
-@pytest.mark.parametrize("accumulate,decay", [(1, 0.9), (2, 0.9),
-                                               (2, 0.9999)])
-def test_ema_matches_jax_train_state(accumulate, decay):
-    cfg = UNetConfig(**UNET_KW)
-    junet = JUNet(JUNetConfig(use_cross_attention=False, cond_channels=4,
-                              **UNET_KW))
-    params = _random_params(lambda: junet.init(
-        jax.random.key(0), jnp.zeros((1, 4, 8, 12)),
-        jnp.zeros((1,), jnp.int32)), 0)
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tiny tensors: the suite runs
+    several workers at once, and torch's default pool of every core in
+    each of them costs more than it gains here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def unet_params():
+    """The tiny UNet's JAX parameters, drawn with numpy on the port
+    UNet's shapes and read into JAX's tree by its own importer
+    (``unet_params_from_sd``; tracing JAX's ``init`` costs more)."""
+    with torch.device("meta"):
+        shapes = UNet2DCondition(UNetConfig(**UNET_KW)).state_dict()
+    rng = np.random.RandomState(0)
+    sd = {}
+    for k, v in shapes.items():
+        if k.endswith("bias"):
+            sd[k] = 0.1 * rng.randn(*v.shape)
+        elif v.dim() == 1:  # norm scales
+            sd[k] = 1.0 + 0.1 * rng.randn(*v.shape)
+        else:
+            sd[k] = rng.randn(*v.shape) / np.prod(v.shape[1:]) ** 0.5
+    jcfg = JUNetConfig(use_cross_attention=False, cond_channels=4, **UNET_KW)
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32),
+        jimport.unet_params_from_sd(sd, jcfg))
+
+
+def _flat(tree):
+    """The tree's leaves as one vector: this chain (clip by the global
+    norm, AdamW with one decay for every leaf, the EMA) acts on each
+    element alone or on the norm of all, so one leaf gives JAX's numbers
+    at a fraction of the trace."""
+    return {"all": np.concatenate([np.ravel(x) for x in
+                                   jax.tree_util.tree_leaves(tree)])}
+
+
+def _unflat(vec, like):
+    leaves, treedef = jax.tree_util.tree_flatten(like)
+    out, at = [], 0
+    for x in leaves:
+        out.append(np.asarray(vec[at:at + x.size]).reshape(x.shape))
+        at += x.size
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
+@pytest.fixture(scope="module")
+def jax_ema(unet_params):
+    """JAX's ``TrainState`` at step 0 on the flattened parameters and its
+    compiled ``apply_gradients`` (the EMA decay an argument), one per
+    ``accumulate`` for the module."""
     tx = joptim.make_optimizer("adamw", learning_rate=1e-2, weight_decay=0.1,
                                clip_grad=1.0)
-    jstate = JState.create(params, tx, ema=True, accumulate=accumulate)
+    made = {}
+
+    def get(accumulate):
+        if accumulate not in made:
+            flat = _flat(unet_params)
+            jstate = JState.create(flat, tx, ema=True, accumulate=accumulate)
+            zeros = {"all": np.zeros_like(flat["all"])}
+            # XLA's CPU backend at its lowest optimisation level: a
+            # fraction of the compile time
+            made[accumulate] = jstate, jax.jit(
+                lambda s, g, d: s.apply_gradients(g, ema_decay=d)).lower(
+                    jstate, zeros, 0.5).compile(compiler_options=FAST_XLA)
+        return made[accumulate]
+    return get
+
+
+@pytest.mark.parametrize("accumulate,decay", [(1, 0.9), (2, 0.9),
+                                               (2, 0.9999)])
+def test_ema_matches_jax_train_state(accumulate, decay, unet_params,
+                                     jax_ema):
+    cfg = UNetConfig(**UNET_KW)
+    params = unet_params
+    jstate, apply = jax_ema(accumulate)
     sd = convert.unet_state_dict_from_jax(params, cfg)
     named = [(k, torch.nn.Parameter(v.clone())) for k, v in sd.items()]
     opt = optim.Optimizer(named, "adamw", learning_rate=1e-2,
@@ -66,12 +136,11 @@ def test_ema_matches_jax_train_state(accumulate, decay):
     state = TrainState(opt, accumulate=accumulate,
                        ema_params=[p.detach().clone() for _, p in named],
                        ema_decay=decay)
-    apply = jax.jit(lambda s, g: s.apply_gradients(g, ema_decay=decay))
     rng = np.random.RandomState(4)
     for i in range(4):
         grads = jax.tree_util.tree_map(
             lambda x: rng.randn(*np.shape(x)).astype(np.float32), params)
-        jstate = apply(jstate, grads)
+        jstate = apply(jstate, _flat(grads), decay)
         tgrads = convert.unet_state_dict_from_jax(grads, cfg)
         for k, p in named:
             p.grad = tgrads[k].clone() if p.grad is None else \
@@ -79,7 +148,8 @@ def test_ema_matches_jax_train_state(accumulate, decay):
         stepped = state.apply_gradients()
         assert stepped == ((i + 1) % accumulate == 0)
     assert state.step == int(jstate.step) == 4 // accumulate
-    ema = convert.unet_state_dict_from_jax(jstate.ema_params, cfg)
+    ema = convert.unet_state_dict_from_jax(
+        _unflat(jstate.ema_params["all"], params), cfg)
     moved = 0
     for (k, p), e in zip(named, state.ema_params):
         ref = ema[k].numpy()
@@ -229,8 +299,9 @@ def test_train_loop_saves_evaluates_and_logs(tmp_path, monkeypatch):
     evals = [r for r in recs if "pq" in r]
     assert [(r["step"], r["pq"], r["best_pq"]) for r in evals] == [
         (0, 10.0, 10.0), (2, 5.0, 10.0)]
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        t.train_loop(max_steps=1, vis_every=1)
+    # image logging: the step's panel beside the checkpoints
+    t.train_loop(max_steps=1, vis_every=1)
+    assert os.path.exists(tmp_path / "rgb_gt_pred_1.jpg")
 
 
 def test_compute_pq_keeps_the_best_snapshot(tmp_path):

@@ -36,6 +36,7 @@ from ldmseg_torch.utils import config  # noqa: E402
 from ldmseg_torch.utils.meters import AverageMeter, ProgressMeter  # noqa
 from ldmseg_torch.utils.metrics_sink import MetricsSink  # noqa: E402
 
+
 # the widths of both CLIs' runs (JAX's predict reads the UNet's sizes but
 # not attn_down: its UNet differs, its files' layout does not)
 TINY = ["transformation_kwargs.size=32", "transformation_kwargs.size_2=64",
@@ -55,6 +56,103 @@ TINY = ["transformation_kwargs.size=32", "transformation_kwargs.size_2=64",
         "sampling_kwargs.num_inference_steps=2"]
 PORT = TINY + ["model_kwargs.attn_down=[True,False]", "device=cpu",
                "ema_on=True"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tiny tensors: the suite runs
+    several workers at once, and torch's default pool of every core in
+    each of them costs more than it gains here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _numpy_sd(module, seed):
+    """Numpy weights on a port module's state-dict shapes."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in module.state_dict().items():
+        if k.endswith("bias"):
+            out[k] = 0.1 * rng.randn(*v.shape)
+        elif v.dim() == 1:  # norm scales
+            out[k] = 1.0 + 0.1 * rng.randn(*v.shape)
+        else:
+            out[k] = rng.randn(*v.shape) / np.prod(v.shape[1:]) ** 0.5
+    return out
+
+
+def _jax_params(t):
+    """The JAX trainer's three parameter trees from numpy weights on the
+    port's shapes, read by the JAX package's own importers (its
+    ``init_state`` would trace, compile and run each ``init``)."""
+    from ldmseg_torch.models.image_vae import ImageVAE
+    from ldmseg_torch.models.seg_vae import SegVAE
+    from ldmseg_torch.models.unet import UNet2DCondition, UNetConfig
+    jc, vk = t.unet_config, t.vae_seg
+    with torch.device("meta"):
+        unet = UNet2DCondition(UNetConfig(
+            in_channels=jc.in_channels, out_channels=jc.out_channels,
+            block_out_channels=jc.block_out_channels,
+            layers_per_block=jc.layers_per_block,
+            attention_head_dim=jc.attention_head_dim,
+            norm_num_groups=jc.norm_num_groups,
+            attn_down=jc.attn_down[:len(jc.block_out_channels)]))
+        ivae = ImageVAE(block_out_channels=t.vae_img.block_out_channels,
+                        groups=t.vae_img.groups)
+        svae = SegVAE(in_channels=vk.in_channels,
+                      int_channels=vk.int_channels,
+                      out_channels=vk.out_channels,
+                      block_out_channels=vk.block_out_channels,
+                      norm_num_groups=vk.norm_num_groups,
+                      num_upscalers=vk.num_upscalers,
+                      upscale_channels=vk.upscale_channels)
+    return {"unet_params": jimport.unet_params_from_sd(_numpy_sd(unet, 3),
+                                                       jc),
+            "vae_img_params": jimport.image_vae_params_from_sd(
+                _numpy_sd(ivae, 1), decoder_enabled=False),
+            "vae_seg_params": jimport.seg_vae_params_from_sd(
+                _numpy_sd(svae, 2), vk.block_out_channels,
+                vk.num_upscalers)}
+
+
+@pytest.fixture(scope="module")
+def jax_predict():
+    """JAX's ``predict.main`` with one JAX trainer for the module: both
+    calls build the same models from the same widths (the datasets differ,
+    not the networks), so the second reuses the first's parameters and
+    compiled sampler instead of building them again."""
+    from ldmseg_tpu.train import trainer_ldm as jtrainer
+    real, built = jtrainer.TrainerDiffusion, {}
+
+    def trainer(cfg, unet_config=None, val_dataset=None, results_folder=None,
+                **kw):
+        key = json.dumps([cfg[k] for k in (
+            "model_kwargs", "vae_model_kwargs", "image_vae_kwargs",
+            "sampling_kwargs", "eval_kwargs", "ignore_label")],
+            sort_keys=True, default=str)
+        if key not in built:
+            t = real(cfg, unet_config=unet_config, val_dataset=val_dataset,
+                     results_folder=results_folder, **kw)
+            init = t.init_state
+
+            def init_once(batch, *a, **k):
+                if t.state is None:
+                    init(batch, *a, **_jax_params(t), **k)
+            t.init_state = init_once
+            built[key] = t
+        t = built[key]
+        t.ds_val, t.results_folder = val_dataset, results_folder
+        return t
+
+    def run(argv):
+        jtrainer.TrainerDiffusion = trainer
+        try:
+            return jpredict.main(argv)
+        finally:
+            jtrainer.TrainerDiffusion = real
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -101,12 +199,12 @@ def _pngs(d):
     return out
 
 
-def test_predict_writes_jax_s_files(run, tmp_path):
+def test_predict_writes_jax_s_files(run, tmp_path, jax_predict):
     root = run[0]
     ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
     n = predict.main(PORT + [f"out_dir={ours}", "max_batches=1",
                              f"checkpoint={root}/checkpoints/step_3"])
-    m = jpredict.main(TINY + [f"out_dir={ref}", "max_batches=1"])
+    m = jax_predict(TINY + [f"out_dir={ref}", "max_batches=1"])
     assert n == m == 2
     got = _pngs(ours)
     assert got == _pngs(ref) and len(got) == 4
@@ -123,12 +221,12 @@ def _rgb_tree(root, n=3, hw=(48, 96)):
     return root
 
 
-def test_predict_image_only_writes_jax_s_files(tmp_path):
+def test_predict_image_only_writes_jax_s_files(tmp_path, jax_predict):
     data = _rgb_tree(str(tmp_path / "data"))
     ours, ref = str(tmp_path / "ours"), str(tmp_path / "ref")
     kitti = ["datasets=kitti", f"data_prefix={data}", "image_only=1"]
     n = predict.main(PORT + kitti + [f"out_dir={ours}"])
-    m = jpredict.main(TINY + kitti + [f"out_dir={ref}"])
+    m = jax_predict(TINY + kitti + [f"out_dir={ref}"])
     assert n == m == 3
     assert _pngs(ours) == _pngs(ref)
 
@@ -158,16 +256,21 @@ def test_export_checkpoint_round_trips(run, tmp_path):
             jema[k], ema[k]), k
     for k, v in trainer.vae_seg.state_dict().items():
         assert torch.equal(ours["vae_semseg"][k], v), k
-    with pytest.raises(NotImplementedError, match="queue 8"):
+    # --stage ae reads a main_ae run: a main_ldm run's checkpoints are
+    # another model's
+    with pytest.raises(ValueError, match="another seg VAE"):
         export_checkpoint.main(["--run_dir", str(root), "--out", out,
-                                "--stage", "ae"])
+                                "--stage", "ae", "--device", "cpu"])
 
 
 def test_what_is_not_ported_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="queue 9"):
         predict.main(PORT + ["clips=3", f"out_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        main_ae.main([])
+    # main_ae is ported (tests/test_torch_port_main_ae.py); it runs on the
+    # card unless asked for the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device=torch.device"):
+            main_ae.main([f"output_dir={tmp_path}", "run_idx=0"])
     with pytest.raises(NotImplementedError, match="wandb"):
         MetricsSink(str(tmp_path / "m.jsonl"), use_wandb=True)
 

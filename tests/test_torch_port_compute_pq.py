@@ -184,7 +184,8 @@ def test_compute_pq_refuses_what_is_not_ported(val_root, monkeypatch):
     trainer, calls = _port_trainer(ds, SIZE, monkeypatch)
     with pytest.raises(ValueError, match="results_folder"):
         trainer.compute_pq(save_model=True)
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    # image logging is ported: without a results_folder it is refused
+    with pytest.raises(ValueError, match="results_folder"):
         trainer.compute_pq(log_images=True)
     assert calls == []
     bare = TrainerDiffusion(CFG, unet_config=UNetConfig(**UNET_KW),
