@@ -173,7 +173,8 @@ Phases, one line each:
      path's restore of the same logits (>= 99.9% of the pixels equal);
   35. ``ldmseg_torch.entry.entry()``'s forward against the plain attention,
      and ``ldmseg_torch/tools/bench.py`` at batch 2 (its JSON line on a
-     line of its own, its launches checked);
+     line of its own, the JAX bench's image VAE, the DPM-Solver++(2M)
+     frames/s beside the headline, its launches checked);
   36. the run around the UNet at full width, in a temporary directory:
      ``tools/main_ldm.py`` (the default configuration with ``ema_on``,
      2 steps at batch 8 of 192x640 synthetic frames through the threaded
@@ -203,12 +204,32 @@ Phases, one line each:
      launches a step, one step's gradients against the same step without
      remat (cosine >= 0.999), both steps' peak memory;
   40. one full-width training step (batch 2) each with Adafactor, dropout
-     0.1 (standard and gaussian), ``sample_posterior_rgb`` and the int8
-     UNet trained through the straight-through path: finite losses,
+     0.1 (standard and gaussian), ``sample_posterior_rgb``, the int8
+     UNet trained through the straight-through path and the JAX bench's
+     image VAE encoding the batch (one K1 D=512 a step): finite losses,
      changed parameters;
-  41. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants;
-     K5, K6 and K7 with their device time and host time a call);
-  42. the last line, ``{"ok": true, "device": {...}}``.
+  41. K1's wide class (head dim 512, the image VAE's mid attention)
+     against its plain version at [2, 2048, 1, 512], [16, 2048, 1, 512]
+     and [8, 1920, 1, 512], two calls bit-equal, one launch a call on its
+     own counter, P one bf16 ulp off at few entries; event and device ms,
+     the plain version's, SDPA's (and its backend) and the bound;
+  42. the JAX bench's image VAE at full width (int8, ``int8_act_scale``
+     0.05, fused attention, prepared from bf16 weights) against the bf16
+     encoder at batch 2 of 256x512 (correlation >= 0.99, one K1 D=512
+     counted and traced, no other hand-written kernel in the trace), the
+     int8 seg-VAE decode against the bf16 one, and an image-VAE round trip
+     through the decoder;
+  43. ``sample_panoptic`` in the JAX bench's serving configuration
+     (``tools/bench.py:bench_config``) at batch 2 with 50 DDIM steps: 800
+     K3, 800 K4 and one K1 D=512 a call, the graph bit-equal to the eager
+     loop, one traced graph call's kernels against the counters;
+  44. the same with 20 DPM-Solver++(2M) steps (320 K3 and 320 K4);
+  45. the native host codec built with g++ at first use, equal to the
+     numpy codec on a 375x1242 frame, with both host ms;
+  46. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants,
+     K1's wide class; K5, K6 and K7 with their device time and host time a
+     call);
+  47. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -643,8 +664,9 @@ def graph_vs_eager(label: str, sample, x0_graph, graph_counts,
 # one device kernel of each sampling wrapper per launch, by its name in a
 # trace: K1's attention (the Hopper bf16 kernel or the fp32 one), K3's
 # attention stage, K4's down product
-TRACE_NAMES = {"K1": r"attention_fwd_kernel", "K3": r"attn_s8_kernel_sm90",
-               "K4": r"DownEpi"}
+TRACE_NAMES = {"K1": r"attention_fwd_kernel(?!_sm90_wide)",
+               "K1w": r"attention_fwd_kernel_sm90_wide",
+               "K3": r"attn_s8_kernel_sm90", "K4": r"DownEpi"}
 
 
 def trace_launches(prof, per: int) -> dict:
@@ -1157,8 +1179,11 @@ def _wrappers():
 
 
 def _counts():
+    """Launches by kernel id (``K1w``: K1's wide class, head dim 512, on
+    its own counter) and the fallbacks summed."""
     w = _wrappers()
     out = {k: f.launches for k, f in w.items()}
+    out["K1w"] = w["K1"].wide_launches
     out["fallbacks"] = sum(getattr(f, "fallbacks", 0) for f in w.values())
     return out
 
@@ -1168,11 +1193,13 @@ def _zero_counts():
         f.launches = 0
         if hasattr(f, "fallbacks"):
             f.fallbacks = 0
+    _wrappers()["K1"].wide_launches = 0
 
 
 def _expect(**launches):
     """The counts of a run that launched only ``launches``."""
     out = {k: 0 for k in _wrappers()}
+    out["K1w"] = 0
     out.update(launches)
     out["fallbacks"] = 0
     return out
@@ -1363,12 +1390,13 @@ def phase_unfused_unet(trainer, seed: int = 1):
 def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
                       bf16_result: dict, calibrate: bool, phase: int,
                       calls: int = 1, seed: int = 0,
-                      eager_check: bool = False):
+                      eager_check: bool = False, per_call=None):
     """int8 ``sample_panoptic`` as phase 4 (same frames, same init noise):
     a warm-up call, ``calls`` timed calls with the default scales and, with
     ``calibrate``, ``calls`` after ``calibrate_int8`` (the host's speed
     moves a single call: the fastest is reported); every call's launches
-    checked against ``expect`` (per UNet forward). With ``eager_check``
+    checked against ``expect`` (per UNet forward) and ``per_call`` (per
+    call: the image encode's K1 D=512). With ``eager_check``
     each mode's last call is held bit for bit to the eager loop
     (:func:`graph_vs_eager`), and the calibrated graph's x0 must differ
     from the default scales' (a graph captured afresh after the
@@ -1382,7 +1410,8 @@ def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
         np.float32)
     batch = {"image": image}
     steps = trainer.num_inference_steps
-    want = _expect(**{k: n * steps for k, n in expect.items()})
+    want = _expect(**{k: n * steps for k, n in expect.items()},
+                   **(per_call or {}))
     results, x0s = {}, {}
     modes = (["warm-up"] + ["default scales"] * calls
              + (["calibrated"] * calls if calibrate else []))
@@ -1440,8 +1469,11 @@ def phase_int8_sample(trainer, label: str, expect: dict, smi_line: str,
         if mode == "calibrated":
             results[mode]["calibrate_seconds"] = calib_s
         each = ", ".join(f"{x:.3f}" for x in timings[mode])
-        print(f"phase {phase} {label} sample_panoptic ({mode}): {steps} DDIM"
-              f" steps, 2 x 256x512 -> logits {tuple(logits.shape)}: "
+        sampler = "DPM-Solver++(2M)" if trainer.sampler == "dpmpp_2m" \
+            else "DDIM"
+        print(f"phase {phase} {label} sample_panoptic ({mode}): {steps} "
+              f"{sampler} steps, 2 x 256x512 -> logits "
+              f"{tuple(logits.shape)}: "
               f"{secs:.3f} s per call (the fastest of {each}), "
               f"{2 / secs:.3f} frames/s, peak memory {peak / 2**30:.2f} GiB,"
               f" launches {counts}; x0 correlation with the bf16 call "
@@ -3740,7 +3772,8 @@ def phase_entry_bench(smi_line: str, seed: int = 1):
     more than 1.25 times the plain path's or 2e-2. Then ``tools/bench.py``'s
     ``run`` at batch 2 (one warm-up and one timed call per dtype): its JSON
     line printed, its launches checked (the entry forward 23 times, 800 K1
-    a bf16 call, 800 K3 and 800 K4 an int8 call, nothing else)."""
+    a bf16 call, 800 K3 and 800 K4 an int8 call, 320 of each a DPM call,
+    one K1 D=512 a call in the image encode, nothing else)."""
     import copy
     import torch
     from ldmseg_torch.entry import entry
@@ -3801,14 +3834,20 @@ def phase_entry_bench(smi_line: str, seed: int = 1):
     counts = _counts()
     check((line["metric"], line["unit"]) == ("frames_per_s", "frames/s")
           and line["value"] == line["int8"]["frames_per_s"] > 0
+          and line["dpm_fps"] == line["dpm"]["frames_per_s"] > 0
+          and line["image_vae"]["use_int8"] is True
           and "vs_baseline" not in line and "CUDA graph" in line["sampler"],
           f"the bench line's head: {line['metric']}, {line['unit']}, "
-          f"{line['value']}")
-    want = _expect(K1=16 * (3 + 20) + 2 * 800, K3=2 * 800, K4=2 * 800)
+          f"{line['value']}, dpm_fps {line.get('dpm_fps')}")
+    # two calls (warm-up, timed) of each pipeline, one image encode (one K1
+    # D=512) a call; DPM at 20 steps
+    want = _expect(K1=16 * (3 + 20) + 2 * 800, K1w=3 * 2,
+                   K3=2 * 800 + 2 * 320, K4=2 * 800 + 2 * 320)
     check(counts == want, f"the bench run launched {counts}, expected "
           f"{want}")
-    for kind, kids in (("bf16", {"K1": 800}),
-                       ("int8", {"K3": 800, "K4": 800})):
+    for kind, kids in (("bf16", {"K1": 800, "K1 D=512": 1}),
+                       ("int8", {"K3": 800, "K4": 800, "K1 D=512": 1}),
+                       ("dpm", {"K3": 320, "K4": 320, "K1 D=512": 1})):
         per = line[kind]["launches_per_call"]
         check(all(per[k] == n for k, n in kids.items()),
               f"bench {kind}: launches per call {per}")
@@ -3818,7 +3857,9 @@ def phase_entry_bench(smi_line: str, seed: int = 1):
           f"{line['bf16']['s_per_call']:.3f} s/call "
           f"({line['bf16']['frames_per_s']:.3f} frames/s), int8 "
           f"{line['int8']['s_per_call']:.3f} s/call "
-          f"({line['int8']['frames_per_s']:.3f} frames/s) [{smi_line}]",
+          f"({line['int8']['frames_per_s']:.3f} frames/s), DPM 20 steps "
+          f"{line['dpm']['s_per_call']:.3f} s/call "
+          f"({line['dpm_fps']:.3f} frames/s) [{smi_line}]",
           flush=True)
     print(json.dumps(line), flush=True)
     return {"entry_max_rel_err": errs, "bench": line, "counts": counts}
@@ -4311,7 +4352,10 @@ def phase_train_options(smi_line: str, seed: int = 0):
     fp32 masters, self-conditioning) with each option this slice ported:
     Adafactor, dropout 0.1 in each mode, ``sample_posterior_rgb``, and the
     int8 UNet (``use_int8_conv`` and ``use_int8_ff``) trained through the
-    straight-through path; each a finite loss and a changed parameter."""
+    straight-through path; and the JAX bench's image VAE (int8, fused
+    attention) encoding the batch; each a finite loss and a changed
+    parameter, one K1 D=512 launch in the last step and none in the
+    others."""
     import torch
     from ldmseg_torch.data.collate import collate
     from ldmseg_torch.data.synthetic import SyntheticDVPS
@@ -4332,6 +4376,10 @@ def phase_train_options(smi_line: str, seed: int = 0):
         "int8 straight-through": ({}, {"use_int8_conv": True,
                                        "use_int8_ff": True,
                                        "int8_act_scale": 0.05}),
+        # the JAX bench's image VAE encodes the batch: one K1 D=512 a step
+        "int8 image VAE, fused attention": ({"image_vae_kwargs": {
+            "use_int8": True, "int8_act_scale": 0.05,
+            "use_fused_attention": True}}, {}),
     }
     results = {}
     for name, (over, ucfg) in options.items():
@@ -4344,16 +4392,21 @@ def phase_train_options(smi_line: str, seed: int = 0):
         probe = [(n, p.detach().clone()) for n, p in named
                  if n.endswith("conv1.weight")][:1]
         torch.cuda.synchronize()
+        _zero_counts()
         t0 = time.perf_counter()
         loss, _, _ = trainer.train_step(batch)
         loss = loss.item()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        wide = _counts()["K1w"]
         n, before = probe[0]
         changed = not torch.equal(dict(named)[n], before)
-        check(math.isfinite(loss) and changed,
-              f"{name}: loss {loss}, {n} changed {changed}")
-        results[name] = {"loss": loss, "seconds": secs}
+        check(math.isfinite(loss) and changed
+              and wide == (1 if "image VAE" in name else 0),
+              f"{name}: loss {loss}, {n} changed {changed}, {wide} K1 "
+              f"D=512 launches")
+        results[name] = {"loss": loss, "seconds": secs,
+                         "k1_d512_launches": wide}
         del trainer, named, probe
         torch.cuda.empty_cache()
     print(f"phase 40 one training step each (batch 2 of 192x640): "
@@ -4361,6 +4414,401 @@ def phase_train_options(smi_line: str, seed: int = 0):
                       for k, v in results.items())
           + f"; each moved its parameters [{smi_line}]", flush=True)
     return results
+
+
+
+# ---------------------------------------------------------------------------
+# the JAX bench's serving configuration (phases 41-45): K1's wide class, the
+# int8 VAEs, the image-VAE decoder, DPM-Solver++(2M), the native codec
+# ---------------------------------------------------------------------------
+# (B, T, H, D) of K1's wide class: the image encode at 256x512 (its 32x64
+# mid block) at batch 2, the bench's batch 16, KITTI's 192x640 at batch 8
+K1W_SHAPES = [(2, 2048, 1, 512), (16, 2048, 1, 512), (8, 1920, 1, 512)]
+K1W_KERNEL = r"attention_fwd_kernel_sm90_wide"
+K1W_P_FLIPS = 2e-4
+VAE_CORR = 0.99  # JAX's own gate (tests/test_int8_inference.py:128-143)
+
+
+def hand_written_kernels() -> list:
+    """The ``__global__`` functions of ``ldmseg_torch/csrc``: the names a
+    trace shows for the port's own kernels."""
+    import re
+    from ldmseg_torch.ops import _build
+    names = set()
+    for path in _build.CSRC.glob("*.cu*"):
+        src = path.read_text()
+        for m in re.finditer(r"__global__", src):
+            for ident in re.findall(r"([A-Za-z_]\w*)\s*\(",
+                                    src[m.end():m.end() + 400]):
+                if ident != "__launch_bounds__":
+                    if "kernel" in ident:
+                        names.add(ident)
+                    break
+    return sorted(names)
+
+
+# SDPA at D = 512 traced in a fresh process: late in a long process
+# ``torch.profiler`` drops device events (it showed none for SDPA here)
+_SDPA_CHILD = r"""
+import json, sys
+import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
+out = []
+for b, t, h, d in json.loads(sys.argv[1]):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for _ in range(3))
+    fn = lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    out.append({"names": sorted({e.name for e in ev}),
+                "device_ms": sum(e.time_range.elapsed_us() for e in ev)
+                / 10 / 1e3 if ev else None})
+print(json.dumps(out))
+"""
+
+
+def sdpa_traced(shapes) -> list:
+    """SDPA on [B, T, H, D] bf16 inputs (viewed [B, H, T, D], as phase 41
+    calls it) at each of ``shapes``, traced in a fresh process: the backend
+    it takes, from its kernels' names, and its device ms per call."""
+    proc = subprocess.run([sys.executable, "-c", _SDPA_CHILD,
+                           json.dumps([list(s) for s in shapes])],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"the SDPA trace process failed: {proc.stderr[-2000:]}")
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    for r in rows:
+        names = " ".join(r["names"]).lower()
+        r["backend"] = "unknown (the trace held no device events)"
+        if names:
+            r["backend"] = "math (matrix products and a softmax): " + \
+                " ".join(r["names"])[:200]
+        for key, backend in (("flash", "flash attention"),
+                             ("cudnn", "cuDNN attention"),
+                             ("fmha", "memory-efficient attention"),
+                             ("mem_eff", "memory-efficient attention")):
+            if names and key in names:
+                r["backend"] = backend
+                break
+    return rows
+
+
+def phase_k1_wide(smi_line: str, seed: int = 23):
+    """Phase 41: K1's wide class (``attention_fwd_kernel_sm90_wide``, head
+    dim 512) against its plain version at ``K1W_SHAPES``: O within
+    ``BF16_ATOL`` of max|O|, two calls bit-equal, one launch a call on its
+    own counter and none on K1's; P (V = I at T = D = 512) one bf16 ulp
+    off at no more than ``K1W_P_FLIPS`` of its entries; event and device
+    ms, the plain version's, SDPA's (its device ms and the backend it takes
+    at D = 512 from a trace in a fresh process) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from ldmseg_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    sdpa_rows = sdpa_traced(K1W_SHAPES)
+    for shape, sdpa_row in zip(K1W_SHAPES, sdpa_rows):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        scale = shape[3] ** -0.5
+        _zero_counts()
+        out = A.fused_self_attention(q, k, v, scale)
+        again = A.fused_self_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        counts = _counts()
+        check(counts == _expect(K1w=2), f"K1 {shape}: two calls launched "
+              f"{counts}, expected 2 of the wide class")
+        check(torch.equal(out, again), f"K1 {shape}: repeats differ")
+        ref = A.attention_reference(q, k, v, scale)
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        check(math.isfinite(err) and err <= BF16_ATOL * peak,
+              f"K1 {shape}: max abs err {err} > {BF16_ATOL} x max|O| {peak}")
+        ms = time_ms(lambda: A.fused_self_attention(q, k, v, scale))
+        dev = device_ms(lambda: A.fused_self_attention(q, k, v, scale),
+                        K1W_KERNEL)
+        plain_ms = time_ms(lambda: A.attention_reference(q, k, v, scale),
+                           iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, scale=scale)
+        lib_ms = time_ms(sdpa)
+        lib_dev, backend = sdpa_row["device_ms"], sdpa_row["backend"]
+        bound, by, flops, nbytes = attention_bound_ms(shape, "bfloat16")
+        rows.append({"shape_btHd": list(shape), "dtype": "bfloat16",
+                     "max_abs_err": err, "max_abs_ref": peak, "ms": ms,
+                     "device_ms": dev, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev,
+                     "library_backend": backend, "bound_ms": bound,
+                     "bound_by": by, "flops": flops, "bytes": nbytes})
+        print(f"phase 41 K1 D=512 {shape}: err {err:.3e} (max|O| "
+              f"{peak:.3e}), kernel {ms:.4f} ms (device {_ms(dev)}), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+              f"{_ms(lib_dev)}; {backend}), bound {bound:.4f} ms ({by}), "
+              f"{flops / ((dev or ms) * 1e9):.1f} TFLOP/s [{smi_line}]",
+              flush=True)
+    # P at the rounding point: V = I turns O into the rounded P
+    t = 512
+    q, k = (torch.randn((1, t, 1, 512), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    eye = torch.eye(t, device="cuda", dtype=torch.bfloat16)[None, :, None]
+    p = A.fused_self_attention(q, k, eye, 512 ** -0.5).float()
+    p_ref = A.attention_reference(q, k, eye, 512 ** -0.5).float()
+    differ = p != p_ref
+    ulp = torch.exp2(torch.floor(torch.log2(p_ref.clamp_min(1e-38))) - 7)
+    flips = int(differ.sum())
+    check(bool(((p - p_ref).abs()[differ] <= ulp[differ] * 1.0001).all())
+          and flips <= K1W_P_FLIPS * t * t,
+          f"K1 D=512: P differs from the plain version's at {flips} of "
+          f"{t * t} entries, or by more than one bf16 ulp")
+    print(f"phase 41 K1 D=512 P at T = D = 512: {flips} of {t * t} entries "
+          f"one bf16 ulp off (tol {K1W_P_FLIPS})", flush=True)
+    return rows, flips
+
+
+def k1_wide_entry(rows, launches, by_path, p_flips):
+    """The kernels-line entry for K1's wide class: its row at the serving
+    shape (batch 2), the other shapes beside it."""
+    main = rows[0]
+    return {
+        "name": "attention_fwd_sm90_wide",
+        "id": "K1 D=512",
+        "route": "cuda",
+        "source": "ldmseg_torch/csrc/attention_fwd.cu",
+        "replaces": "ldmseg_tpu/ops/pallas/attention.py:28",
+        "tpu_kernel": "ldmseg_tpu/ops/pallas/attention.py:_attn_kernel "
+                      "(block_q=512, the image VAE's AttentionBlock2D)",
+        "launches": launches,
+        "launches_by_path": by_path,
+        "checked": True,
+        "p_flips": p_flips,
+        **{key: main[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "device_ms", "library_device_ms",
+                                      "library_backend")},
+        "unit": "one call at [2, 2048, 1, 512] (one image encode at batch 2"
+                " of 256x512)",
+        "shapes": rows,
+    }
+
+
+def _image_vae(seed: int, **kw):
+    """The SD image VAE at full width in bf16 on seeded random weights;
+    an int8 one prepared from them."""
+    import torch
+    from ldmseg_torch.models.image_vae import ImageVAE
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.ops.quant import prepare_int8_vae
+    vae = ImageVAE(**kw).cuda()
+    init_random_(vae, torch.Generator(device="cuda").manual_seed(seed))
+    vae = vae.to(torch.bfloat16).eval().requires_grad_(False)
+    return prepare_int8_vae(vae)
+
+
+def _corr(a, b) -> float:
+    import numpy as np
+    return float(np.corrcoef(a.float().cpu().numpy().ravel(),
+                             b.float().cpu().numpy().ravel())[0, 1])
+
+
+def phase_int8_vaes(smi_line: str, seed: int = 29):
+    """Phase 42: the JAX bench's image VAE (int8, ``int8_act_scale`` 0.05,
+    fused attention, its codes prepared from the bf16 weights) against the
+    bf16 encoder on the same weights at batch 2 of 256x512: the modes'
+    correlation >= ``VAE_CORR``, exactly one K1 D=512 launch counted and
+    one traced with no other hand-written kernel in the trace, each ms and
+    peak memory; the int8 seg-VAE decode (the default seg VAE) against the
+    bf16 one; an image-VAE round trip (``ImageVAE.forward``, the decoder
+    on) finite, with its ms."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.models.seg_vae import SegVAE
+    from ldmseg_torch.ops.quant import prepare_int8_vae
+    from ldmseg_torch.utils.config import DEFAULT_CONFIG
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.rand((2, 3, 256, 512), generator=gen, device="cuda") * 2
+         - 1).to(torch.bfloat16)
+    vae8 = _image_vae(seed, use_int8=True, int8_act_scale=0.05,
+                      use_fused_attention=True)
+    vae16 = _image_vae(seed, use_fused_attention=True)
+    out = {}
+    with torch.inference_mode():
+        _zero_counts()
+        m8 = vae8.encode(x).mode()
+        torch.cuda.synchronize()
+        counts = _counts()
+        m16 = vae16.encode(x).mode()
+        corr = _corr(m8, m16)
+        check(counts == _expect(K1w=1), f"int8 encode launched {counts}, "
+              f"expected one K1 D=512")
+        check(tuple(m8.shape) == (2, 4, 32, 64)
+              and bool(torch.isfinite(m8).all()) and corr >= VAE_CORR,
+              f"int8 encode {tuple(m8.shape)}: correlation with bf16 "
+              f"{corr}")
+        ours = "|".join(re.escape(n) for n in hand_written_kernels())
+        for _ in range(3):  # a trace may drop events, never add them
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                vae8.encode(x)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and re.search(ours, e.name)]
+            if names:
+                break
+        wide = sum(1 for n in names if re.search(K1W_KERNEL, n))
+        check(wide == 1 and len(names) == 1, f"the traced int8 encode ran "
+              f"the port's kernels {names}, expected one {K1W_KERNEL}")
+        torch.cuda.reset_peak_memory_stats()
+        ms8 = time_ms(lambda: vae8.encode(x), iters=5, warmup=1)
+        peak8 = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms16 = time_ms(lambda: vae16.encode(x), iters=5, warmup=1)
+        peak16 = torch.cuda.max_memory_allocated()
+        out["image_encode"] = {
+            "counts": counts,
+            "correlation_int8_bf16": corr, "int8_ms": ms8, "bf16_ms": ms16,
+            "int8_peak_bytes": peak8, "bf16_peak_bytes": peak16,
+            "traced_hand_written_kernels": names}
+        print(f"phase 42 image encode, batch 2 of 256x512: int8 "
+              f"{ms8:.3f} ms (peak {peak8 / 2**30:.2f} GiB), bf16 "
+              f"{ms16:.3f} ms (peak {peak16 / 2**30:.2f} GiB), correlation "
+              f"{corr:.5f} (gate {VAE_CORR}); launches {counts}; traced: "
+              f"{names} [{smi_line}]", flush=True)
+        del vae8, vae16
+        torch.cuda.empty_cache()
+        # the int8 seg-VAE decode against the bf16 one
+        vk = {k: v for k, v in DEFAULT_CONFIG["vae_model_kwargs"].items()
+              if k != "pretrained_path"}
+        vk["block_out_channels"] = tuple(vk["block_out_channels"])
+        seg16 = SegVAE(**vk).cuda()
+        init_random_(seg16, gen)
+        seg16 = seg16.to(torch.bfloat16).eval()
+        seg8 = SegVAE(**vk, use_int8=True).cuda().to(torch.bfloat16).eval()
+        seg8.load_state_dict(seg16.state_dict(), strict=True)
+        prepare_int8_vae(seg8)
+        z = torch.randn((2, 4, 32, 64), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        d8, d16 = seg8.decode(z, True), seg16.decode(z, True)
+        dcorr = _corr(d8, d16)
+        check(bool(torch.isfinite(d8).all()) and dcorr >= VAE_CORR
+              and d8.shape == d16.shape,
+              f"int8 seg decode: correlation with bf16 {dcorr}")
+        dms8 = time_ms(lambda: seg8.decode(z, True), iters=5, warmup=1)
+        dms16 = time_ms(lambda: seg16.decode(z, True), iters=5, warmup=1)
+        out["seg_decode"] = {"correlation_int8_bf16": dcorr,
+                             "int8_ms": dms8, "bf16_ms": dms16,
+                             "shape": list(d8.shape)}
+        print(f"phase 42 seg-VAE decode [2, 4, 32, 64] -> "
+              f"{tuple(d8.shape)}: int8 {dms8:.3f} ms, bf16 {dms16:.3f} ms,"
+              f" correlation {dcorr:.5f} (gate {VAE_CORR}) [{smi_line}]",
+              flush=True)
+        del seg8, seg16
+        torch.cuda.empty_cache()
+        # the round trip through the decoder
+        full = _image_vae(seed, decoder_enabled=True,
+                          use_fused_attention=True)
+        rec, post = full(x)
+        torch.cuda.synchronize()
+        check(tuple(rec.shape) == (2, 3, 256, 512)
+              and bool(torch.isfinite(rec).all()),
+              f"image VAE round trip: {tuple(rec.shape)}, finite "
+              f"{bool(torch.isfinite(rec).all())}")
+        rms = time_ms(lambda: full(x), iters=3, warmup=1)
+        out["round_trip"] = {"ms": rms, "shape": list(rec.shape)}
+        print(f"phase 42 image VAE round trip (ImageVAE.forward, bf16, "
+              f"batch 2 of 256x512): {rms:.3f} ms, finite [{smi_line}]",
+              flush=True)
+        del full
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving(smi_line: str, bf16_result: dict):
+    """Phases 43-44: ``sample_panoptic`` in the JAX bench's serving
+    configuration (``tools/bench.py:bench_config``: the int8 image VAE with
+    fused attention, the default int8 UNet, bf16) at batch 2 of 256x512,
+    with 50-step DDIM (phase 43) and 20-step DPM-Solver++(2M) (phase 44):
+    each as phase 9 (a warm-up and a timed call, every launch checked: 16
+    K3 and 16 K4 a step and one K1 D=512 a call), the graph held bit for
+    bit to the eager loop with the same launches and one traced graph
+    call's kernels by name against the counters."""
+    import torch
+    from ldmseg_torch.tools.bench import bench_config
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+
+    out = {}
+    for phase, sampler, steps in ((43, "ddim", 50), (44, "dpmpp_2m", 20)):
+        cfg = bench_config(True, sampler)
+        cfg["sampling_kwargs"]["num_inference_steps"] = steps
+        trainer = TrainerDiffusion(cfg)
+        trainer.init_params(seed=0)
+        out[sampler] = phase_int8_sample(
+            trainer, f"serving ({sampler})", {"K3": 16, "K4": 16}, smi_line,
+            bf16_result, calibrate=False, phase=phase,
+            eager_check=True, per_call={"K1w": 1})
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_codec(smi_line: str, seed: int = 31):
+    """Phase 45: the native host codec (``ldmseg_torch/data/native``, built
+    with g++ at first use) on a KITTI-size 375x1242 frame: its bits equal
+    to the numpy codec's, decode and remap too, and its ms against
+    numpy's (host clock, warm)."""
+    import numpy as np
+    from ldmseg_torch.data import native
+    from ldmseg_torch.ops.bits import decode_bits_np, encode_bits_np
+
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    x = np.random.RandomState(seed).randint(0, 300, (375, 1242)).astype(
+        np.int32)
+    ours = native.encode_bits_native(x, 8)
+    ref, _ = encode_bits_np(x, 8)
+    analog = 2.0 * ref - 1.0
+    check(np.array_equal(ours, ref)
+          and np.array_equal(native.decode_bits_native(analog),
+                             decode_bits_np(analog)),
+          "the native codec differs from the numpy codec")
+
+    def host_ms(fn, n=20):
+        fn()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e3
+    nat = host_ms(lambda: native.encode_bits_native(x, 8))
+    num = host_ms(lambda: encode_bits_np(x, 8))
+    print(f"phase 45 native codec ({path.name}, built in {build_s:.2f} s): "
+          f"375x1242 ids -> 8 bits equal to numpy's; encode {nat:.3f} ms "
+          f"native, {num:.3f} ms numpy (host) [{smi_line}]", flush=True)
+    return {"native_ms": nat, "numpy_ms": num, "build_seconds": build_s}
+
+
+_T0 = time.perf_counter()
+
+
+def lap(done: str) -> None:
+    """The script's wall-clock seconds so far, after ``done``."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:.1f} s] {done} done",
+          flush=True)
 
 
 def main() -> int:
@@ -4397,6 +4845,7 @@ def main() -> int:
         bwd_rows = phase_attention_backward()
         train_counts, train_result = phase_train(smi_line)
         torch.cuda.empty_cache()
+        lap("phases 1-6")
         k3_rows, k4_rows, gemm_rows = phase_int8_kernels()
         trainer = TrainerDiffusion(_int8_config())
         trainer.init_params(seed=0)
@@ -4422,6 +4871,7 @@ def main() -> int:
                 sample_result, calibrate=key != "c", phase=phase)
             del trainer
             torch.cuda.empty_cache()
+        lap("phases 7-13")
         # the GroupNorm + SiLU family: K5, K6, K7
         trainer = _gn_trainer(_config())
         k5_rows, k6_rows, k7_rows, k7_launched = phase_gn_kernels(
@@ -4441,6 +4891,7 @@ def main() -> int:
             smi_line, gn_sample, calibrate=True, phase=18)
         del trainer
         torch.cuda.empty_cache()
+        lap("phases 14-18")
         # the padded-attention flags: K8, K9, K11 and the F1 repair
         from ldmseg_torch.tools.profile_sampling import (PADDED_FLAGS,
                                                          int8_unet_from)
@@ -4465,6 +4916,7 @@ def main() -> int:
         k11_counts, k11_sample = phase_padded_sample(k11_unet)
         del trainer, k11_unet, bf16
         torch.cuda.empty_cache()
+        lap("phases 19-24")
         # use_packed_attention: K14 (with K2 as its backward), K15; K10
         packed_rows, k10_checked = phase_packed_kernels()
         torch.cuda.empty_cache()
@@ -4486,6 +4938,7 @@ def main() -> int:
             smi_line, packed_sample, calibrate=True, phase=28)
         del trainer
         torch.cuda.empty_cache()
+        lap("phases 25-28")
         # use_absorbed_attention: K16 (with K2 in its backward), K17; K18
         absorbed_rows = phase_absorbed_kernels()
         k18_checked = sum(1 for r in absorbed_rows["K18"]
@@ -4505,17 +4958,33 @@ def main() -> int:
             phase_absorbed_int8(trainer, smi_line, absorbed_sample))
         del trainer
         torch.cuda.empty_cache()
+        lap("phases 29-33")
         # the serving path's metric, the entry and the bench line
         pq_result = phase_compute_pq(smi_line)
+        lap("phase 34")
         entry_result = phase_entry_bench(smi_line)
+        lap("phase 35")
         torch.cuda.empty_cache()
         lifecycle = phase_lifecycle(smi_line)
+        lap("phase 36")
         torch.cuda.empty_cache()
         # training, both stages
         ae_train = phase_ae_train(smi_line)
         stage1_to_2 = phase_stage1_to_stage2(smi_line)
+        lap("phases 37-38")
         remat_train = phase_remat_train(smi_line)
         train_options = phase_train_options(smi_line)
+        lap("phases 39-40")
+        torch.cuda.empty_cache()
+        # the JAX bench's serving configuration
+        k1w_rows, k1w_flips = phase_k1_wide(smi_line)
+        lap("phase 41")
+        vaes = phase_int8_vaes(smi_line)
+        lap("phase 42")
+        serving = phase_serving(smi_line, sample_result)
+        lap("phases 43-44")
+        codec = phase_codec(smi_line)
+        lap("phase 45")
         sample_result.pop("x0")
         gn_sample.pop("x0")
         packed_sample.pop("x0")
@@ -4550,7 +5019,8 @@ def main() -> int:
             "compute_pq": pq_result, "entry_and_bench": entry_result,
             "lifecycle": lifecycle, "stage1_train": ae_train,
             "stage1_to_stage2": stage1_to_2, "remat_train": remat_train,
-            "train_options": train_options}}),
+            "train_options": train_options, "k1_wide": k1w_rows,
+            "int8_vaes": vaes, "serving": serving, "codec": codec}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -4599,8 +5069,8 @@ def main() -> int:
             if isinstance(res, dict):
                 paths[f"compute_pq, {branch}, {res['calls']} calls"] = (
                     res["counts"])
-        paths["tools/bench.py at batch 2: 23 entry forwards, 2 bf16 and 2 "
-              "int8 sample_panoptic calls"] = entry_result["counts"]
+        paths["tools/bench.py at batch 2: 23 entry forwards, 2 bf16, 2 "
+              "int8 and 2 DPM sample_panoptic calls"] = entry_result["counts"]
         paths[f"main_ldm: {LIFECYCLE_STEPS} train steps, compute_pq "
               f"({LIFECYCLE_PQ_STEPS} DDIM steps)"] = lifecycle["counts"]
         paths[f"TrainerAE.train_loop, {AE_TIMED} steps"] = ae_train[
@@ -4609,12 +5079,22 @@ def main() -> int:
               "DDIM steps)"] = stage1_to_2["counts"]
         paths[f"train_loop with gradient_checkpointing, {REMAT_TIMED} "
               f"steps"] = remat_train["counts"]
+        paths["ImageVAE.encode, int8 with fused attention, batch 2"] = (
+            vaes["image_encode"]["counts"])
+        for sampler, what in (("ddim", "50 DDIM steps"),
+                              ("dpmpp_2m", "20 DPM-Solver++(2M) steps")):
+            paths[f"sample_panoptic, the JAX bench's serving configuration, "
+                  f"{what}"] = serving[sampler]["default scales"]["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
         unfused = variant["a"]["default scales"]["counts"]
         print(json.dumps({"kernels": [
             k1_entry(rows, bf16_counts["K1"], by_path("K1")),
+            k1_wide_entry(
+                k1w_rows,
+                serving["ddim"]["default scales"]["counts"]["K1w"],
+                by_path("K1w"), k1w_flips),
             k2_entry(bwd_rows, train_counts["K2"], by_path("K2")),
             int8_entry("attention_ln_s8", "K3",
                        "ldmseg_torch/csrc/attention_ln_s8.cu",

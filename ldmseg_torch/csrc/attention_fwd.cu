@@ -44,6 +44,19 @@
 // fp32 (on no serving or training path) keeps a plain SIMT kernel
 // (attention_fwd_kernel_f32): 64-row query tiles through shared memory, the
 // same two passes with FMA loops.
+//
+// Head dims above 160 (bf16 only): the image VAE's mid attention is one
+// head of D = 512 (ldmseg_tpu/models/layers.py:AttentionBlock2D, which
+// calls fused_self_attention with block_q=512). It runs the skeleton's wide
+// class (attention_fwd_kernel_sm90_wide): blocks of 64 query rows, each
+// computing S = Q K^T over all 512 columns (eight 64-column boxes of Q and
+// K) in both passes and P V on one 128-column slice of V, four slices of
+// blocks across the grid; shared memory 230,440 bytes (Q 64 KB, two stages
+// of a 64-key K tile, 64 KB, and V slice, 16 KB). Bound: the tensor cores
+// (4 B T^2 D = 17.2 GFLOP at B = 2, T = 2048, about 17 us at 989 TFLOP/s);
+// each slice recomputes S, so the kernel issues 4.5 times the products
+// owed. Right and simple first: a sliced S shared across a cluster would
+// drop the repeats.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -60,7 +73,8 @@
 
 namespace {
 
-constexpr int kMaxD = 160;  // largest head dim taken
+constexpr int kMaxD = 160;  // largest head dim taken (fp32, K16)
+constexpr int kMaxWideD = attn90::kWideClass;  // bf16 K1 and K14
 
 using Strides = attn90::Strides;  // element strides of B, T and H
 
@@ -243,11 +257,13 @@ struct Plan {
 };
 
 bool plan_ok(const Plan& p, int bh, int t, int d) {
+  const bool wide = d > kMaxD;
   const int chunks = (p.head_class + kBox - 1) / kBox;
-  return p.head_class == attn90::head_class(d) && p.box_d == kBox &&
-         p.chunks == chunks &&
+  const int v_chunks = wide ? attn90::kWideN / kBox : chunks;
+  return p.head_class == (wide ? attn90::kWideClass : attn90::head_class(d)) &&
+         p.box_d == kBox && p.chunks == chunks &&
          p.smem_bytes == attn90::smem_bytes(p.block_q, p.block_k, chunks,
-                                            chunks, p.stages) &&
+                                            v_chunks, p.stages) &&
          attn90::tiles_ok(p.head_class, p.block_q, p.block_k, p.stages,
                           p.smem_bytes, p.grid_x, p.grid_y, bh, t);
 }
@@ -269,6 +285,29 @@ struct K1Kernel {
   template <int kDN, int kWG>
   static auto kernel() {
     return attention_fwd_kernel_sm90<kDN, kWG>;
+  }
+};
+
+// the wide class: Q K^T over kWideClass columns, P V on a kWideN slice
+using WideCfg = attn90::Cfg<false, attn90::kWideN, 1, attn90::kPVBf16,
+                            attn90::kWideClass>;
+__global__ void __launch_bounds__(WideCfg::kThreads, 1)
+    attention_fwd_kernel_sm90_wide(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   __nv_bfloat16* __restrict__ o, Strides so,
+                                   int heads, int t, int d, int stages,
+                                   float c) {
+  attn90::forward<false, attn90::kWideN, 1, attn90::kPVBf16,
+                  attn90::kWideClass>(tq, tk, tv, o, so, heads, t, d, stages,
+                                      c);
+}
+
+struct K1WideKernel {
+  static constexpr bool kS8 = false;
+  template <int kDN, int kWG>
+  static auto kernel() {
+    return attention_fwd_kernel_sm90_wide;
   }
 };
 
@@ -298,6 +337,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                          static_cast<__nv_bfloat16*>(o),
                          Strides{st[9], st[10], st[11]}, heads, t, d,
                          scale * attn90::kLog2e};
+  if (p.head_class == attn90::kWideClass) {
+    return attn90::launch_as<K1WideKernel, attn90::kWideN, 1>(a, stream);
+  }
   return attn90::launch<K1Kernel>(a, stream);
 }
 
@@ -315,14 +357,15 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // with unit stride on d; strides holds the (b, t, h) element strides of q,
 // k, v and o in that order. plan is ops/attention.py:sm90_launch_plan's for
 // (batch * heads, t, d), read by the bf16 kernel (checked; fp32 ignores it).
-// Returns a cudaError_t (0 on success).
+// d is a multiple of 8 up to 160 (fp32) or 512 (bf16). Returns a
+// cudaError_t (0 on success).
 extern "C" int ldmseg_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, void* o, int batch, int t,
                                     int heads, int d,
                                     const long long* strides, float scale,
                                     const int* plan, void* stream) {
-  if (t < 1 || d < 8 || d > kMaxD || d % 8 != 0 || batch * heads < 1 ||
-      batch * heads > 65535) {
+  if (t < 1 || d < 8 || d > (dtype == 1 ? kMaxWideD : kMaxD) || d % 8 != 0 ||
+      batch * heads < 1 || batch * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(dtype, q, k, v, o, batch, t, heads, d, strides, scale, plan,

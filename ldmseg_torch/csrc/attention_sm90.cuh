@@ -63,6 +63,15 @@
 //   * O is rounded to bf16 once (K3: after the true division by l; kPV:
 //     the caller's epilogue), rows < T and columns < D stored through the
 //     caller's strides.
+//   * K1's wide class (head dims above 160: the image VAE's mid attention,
+//     one head of D = 512): a 64 x 512 fp32 O would take 256 registers a
+//     thread and Q with two stages of full-width K and V 320 KB of shared
+//     memory, so V and O are split into column slices of kWideN across the
+//     grid (blockIdx.x = query tile * slices + slice: the slices of one
+//     query tile run side by side and share its Q and K in L2). Each block
+//     computes S = Q K^T over the whole depth kDQK (both passes) and P V
+//     on its slice of V only, into a 64 x kWideN accumulator: one consumer
+//     warpgroup, 64-key tiles, two stages.
 
 #pragma once
 
@@ -88,6 +97,10 @@ constexpr float kLn127 = 4.844187086458591f;
 
 // ---- the launch plans' shared rules (host) ---------------------------------
 constexpr int kClasses[] = {16, 32, 40, 64, 80, 128, 160};
+// K1's class above 160 (bf16 only) and the V/O columns of one of its blocks
+constexpr int kWideClass = 512;
+constexpr int kWideN = 128;
+constexpr int kWideSlices = kWideClass / kWideN;
 // the N of the s8 e8 V product: .s8 wgmma takes N = 8, 16, 24 and then
 // multiples of 16 only
 constexpr int kS8Classes[] = {16, 32, 48, 64, 80, 128, 160};
@@ -125,12 +138,16 @@ inline int smem_bytes(int block_q, int block_k, int qk_chunks, int v_chunks,
          8 * (1 + 2 * stages);
 }
 
-// the tiles and the grid of a plan for (bh, t) at head class cls
+// the tiles and the grid of a plan for (bh, t) at head class cls (the wide
+// class: 64-row query tiles, each kWideSlices blocks along x)
 inline bool tiles_ok(int cls, int block_q, int block_k, int stages,
                      int smem, int grid_x, int grid_y, int bh, int t) {
-  return cls != 0 && (block_q == 64 || block_q == 128) &&
+  const bool wide = cls == kWideClass;
+  const int slices = wide ? kWideSlices : 1;
+  return cls != 0 && (block_q == 64 || (block_q == 128 && !wide)) &&
          block_k == (cls <= 80 ? 128 : 64) && stages >= 2 && stages <= 8 &&
-         smem <= sm90::kSmemLimit && grid_x == (t + block_q - 1) / block_q &&
+         smem <= sm90::kSmemLimit &&
+         grid_x == slices * ((t + block_q - 1) / block_q) &&
          grid_y == bh && bh >= 1 && bh <= 65535;
 }
 
@@ -154,18 +171,21 @@ struct PV8 {
   unsigned* amax = nullptr;
 };
 
-template <bool kS8_, int kDN, int kWG, int kPV_ = kPVBf16>
+// kDN: the N of P V (the head class, or the wide class's slice kWideN);
+// kDQK: the depth of Q K^T (the head class; kWideClass for the wide one)
+template <bool kS8_, int kDN, int kWG, int kPV_ = kPVBf16, int kDQK = kDN>
 struct Cfg {
   static constexpr bool kS8 = kS8_;
   static constexpr int kPV = kPV_;
   using Score = typename std::conditional<kS8, int, float>::type;
   static constexpr int kBytes = kS8 ? 1 : 2;  // of a Q or K element
   static constexpr int kBox = kRowBytes / kBytes;  // Q/K columns of a box
-  static constexpr int kSteps = (kDN * kBytes + 31) / 32;  // 32-byte k steps
+  static constexpr int kSteps = (kDQK * kBytes + 31) / 32;  // 32-byte k steps
   static constexpr int kQKChunks = (kSteps + 3) / 4;  // Q/K boxes across D
-  static constexpr int kVChunks = (kDN + 63) / 64;    // V boxes across D
+  static constexpr int kVChunks = (kDN + 63) / 64;    // V boxes of a slice
+  static constexpr int kSlices = kDQK / kDN;  // V/O slices across the grid
   static constexpr int kBQ = 64 * kWG;
-  static constexpr int kBK = kDN <= 80 ? 128 : 64;  // registers
+  static constexpr int kBK = kDN <= 80 && kDQK <= 80 ? 128 : 64;  // registers
   static constexpr int kThreads = 128 * (kWG + 1);
   static constexpr int kQSub = 64 * kQKChunks * kRowBytes;  // a warpgroup's Q
   static constexpr int kKTile = kBK * kQKChunks * kRowBytes;
@@ -472,16 +492,20 @@ struct Consumer {
 // rows) and a V tile (kVChunks boxes of kBK rows; kPV: one V^T box of kDN
 // rows), then the barriers: q, full[stages], empty[stages]. O is bf16
 // (kPV: bf16, int8 or fp32) through the element strides `so`; `pv` holds
-// kPV's scales (c is then unused).
-template <bool kS8, int kDN, int kWG, int kPV = kPVBf16>
+// kPV's scales (c is then unused). kDQK > kDN: the wide class, V and O
+// column slice blockIdx.x % kSlices.
+template <bool kS8, int kDN, int kWG, int kPV = kPVBf16, int kDQK = kDN>
 __device__ __forceinline__ void forward(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
                                         const CUtensorMap& tv,
                                         void* __restrict__ o, Strides so,
                                         int heads, int t, int d, int stages,
                                         float c, PV8 pv = PV8{}) {
-  using C = Cfg<kS8, kDN, kWG, kPV>;
+  using C = Cfg<kS8, kDN, kWG, kPV, kDQK>;
   static_assert(kPV == kPVBf16 || kS8, "the e8 V product needs int8 scores");
+  static_assert(C::kSlices == 1 || (!kS8 && kWG == 1 &&
+                                    C::kSlices * kDN == kDQK),
+                "V/O slices: bf16 scores, one consumer warpgroup");
   using Score = typename C::Score;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_smem = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -492,7 +516,9 @@ __device__ __forceinline__ void forward(const CUtensorMap& tq,
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y - b * heads;
-  const int q0 = blockIdx.x * C::kBQ;
+  const int slice = static_cast<int>(blockIdx.x) % C::kSlices;
+  const int q0 = (static_cast<int>(blockIdx.x) / C::kSlices) * C::kBQ;
+  const int v0 = slice * kDN;  // this block's first V and O column
   const int ntiles = (t + C::kBK - 1) / C::kBK;
 
   if (threadIdx.x == 0) {
@@ -546,7 +572,7 @@ __device__ __forceinline__ void forward(const CUtensorMap& tq,
 #pragma unroll
               for (int ch = 0; ch < C::kVChunks; ++ch) {
                 sm90::tma_load_4d(st + C::kKTile + ch * C::kBK * kRowBytes,
-                                  &tv, full_bar + 8 * s, ch * 64, h,
+                                  &tv, full_bar + 8 * s, v0 + ch * 64, h,
                                   kt * C::kBK, b);
               }
             }
@@ -743,11 +769,12 @@ __device__ __forceinline__ void forward(const CUtensorMap& tq,
         lt[0] = quad_sum(l[0]);
         lt[1] = quad_sum(l[1]);
       }
-      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o) + b * so.b + h * so.h;
+      __nv_bfloat16* ob =
+          static_cast<__nv_bfloat16*>(o) + b * so.b + h * so.h + v0;
 #pragma unroll
       for (int j = 0; j < kDN / 8; ++j) {
         const int col = 8 * j + col0;
-        if (col < d) {
+        if (v0 + col < d) {
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr) {
             if (row + 8 * rr < t) {

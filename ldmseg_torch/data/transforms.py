@@ -2,9 +2,10 @@
 ``ldmseg_tpu/data/transforms.py`` and of ``encode_bits_np`` in
 ``ldmseg_tpu/ops/bits.py``): the square crop box, the per-modality resizes
 (RGB and depth bilinear, labels nearest), ImageNet normalisation, the
-horizontal flip of a sample and the analog-bits encoding of an id map. The
-bits encoding is the JAX package's numpy path; its native C++ codec gives
-the same values and is not copied."""
+horizontal flip of a sample and the analog-bits encoding of an id map:
+:func:`encode_bits` is the numpy path, :func:`encode_bits_host` (the
+readers') the native C++ codec of ``data/native`` (JAX
+``transforms.py:103-107``)."""
 
 from __future__ import annotations
 
@@ -115,7 +116,8 @@ def encode_bits(x: np.ndarray, num_bits: int,
 
 
 def encode_bits_host(x, num_bits, ignore_label=0, fill_value=0.5):
-    """``encode_bits_host`` of the readers: :func:`encode_bits` of ``x`` as
-    int32 (the JAX package's native codec reads int32)."""
-    return encode_bits(np.ascontiguousarray(x, dtype=np.int32), num_bits,
-                       ignore_label, fill_value)
+    """The readers' analog-bits encode: the native C++ pass
+    (``data/native:encode_bits_native``, built with g++ at first use) on
+    ``x`` as int32; the same values as :func:`encode_bits`."""
+    from .native import encode_bits_native
+    return encode_bits_native(x, num_bits, ignore_label, fill_value)

@@ -16,13 +16,16 @@ call, so it never reads a weight or a pack that a later ``prepare``,
 calibration or training step replaced. The kernels' launch counters count
 the replays (:class:`~..ops.counters.CountReplay`). A capture that fails
 raises; it never falls back to the eager loop. ``graph=False`` asks for the
-eager loop, which the CPU always runs.
+eager loop, which the CPU always runs. :func:`run_steps` is that loop for
+any step on static buffers; ``diffusion/dpm.py`` runs DPM-Solver++(2M) on
+it.
 """
 
 from __future__ import annotations
 
+import functools
 import traceback
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -59,8 +62,11 @@ def ddim_sample(sched: DDIMSchedule, model_fn: ModelFn,
     if len(table) == 0:
         return (x0, init_latents.new_zeros((0,) + init_latents.shape)) \
             if return_all else x0
-    run = _graph_loop if graph else _eager_loop
-    traj = run(sched, table, model_fn, latents, condition, x0, return_all)
+    idx = torch.zeros(1, dtype=torch.long, device=latents.device)
+    step = functools.partial(_step, sched, table, model_fn, latents,
+                             condition, x0, idx)
+    traj = run_steps(step, len(table), latents, graph, return_all,
+                     "ddim_sample", "the DDIM step")
     if return_all:
         return x0, torch.stack(traj)
     return x0
@@ -81,30 +87,31 @@ def _step(sched, table: StepTable, model_fn, latents, condition, x0, idx):
     idx.add_(1)
 
 
-def _eager_loop(sched, table, model_fn, latents, condition, x0,
-                return_all):
-    idx = torch.zeros(1, dtype=torch.long, device=latents.device)
-    traj = []
-    for _ in range(len(table)):
-        _step(sched, table, model_fn, latents, condition, x0, idx)
-        if return_all:
-            traj.append(latents.clone())
-    return traj
-
-
-def _graph_loop(sched, table, model_fn, latents, condition, x0,
-                return_all):
+def run_steps(step: Callable[[], None], n: int, latents: torch.Tensor,
+              graph: bool, return_all: bool = False, name: str = "sampler",
+              what: str = "the step") -> List[torch.Tensor]:
+    """Run ``step()`` ``n`` times: eagerly, or (``graph``) the first
+    eagerly and the rest as replays of a CUDA graph captured on a side
+    stream from the second. ``step`` works on static buffers only and
+    advances its own device-side step index. Returns each step's
+    ``latents`` (cloned) with ``return_all``, else ``[]``."""
+    if not graph:
+        traj = []
+        for _ in range(n):
+            step()
+            if return_all:
+                traj.append(latents.clone())
+        return traj
     from ..ops.counters import CountReplay
 
     dev = latents.device
-    idx = torch.zeros(1, dtype=torch.long, device=dev)
     counts = CountReplay()
     main = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(device=dev)
     side.wait_stream(main)
     with torch.cuda.stream(side):
-        _step(sched, table, model_fn, latents, condition, x0, idx)
-        if len(table) > 1:
+        step()
+        if n > 1:
             # capture_begin/end rather than torch.cuda.graph, whose entry
             # also synchronises, collects garbage and empties the cache
             g = torch.cuda.CUDAGraph()
@@ -112,20 +119,19 @@ def _graph_loop(sched, table, model_fn, latents, condition, x0,
             try:
                 g.capture_begin(capture_error_mode="thread_local")
                 try:
-                    _step(sched, table, model_fn, latents, condition, x0,
-                          idx)
+                    step()
                 finally:
                     g.capture_end()
             except Exception as e:
                 raise RuntimeError(
-                    "ddim_sample: capturing the DDIM step as a CUDA graph "
-                    f"failed at {_where(e)}: {e}") from e
+                    f"{name}: capturing {what} as a CUDA graph failed at "
+                    f"{_where(e)}: {e}") from e
             finally:
                 counts.stop()
     main.wait_stream(side)
     # the capture ran nothing: the buffers still hold the first step's
     traj = [latents.clone()] if return_all else []
-    for _ in range(1, len(table)):
+    for _ in range(1, n):
         g.replay()
         counts.replay()
         if return_all:
@@ -140,7 +146,8 @@ def _where(e: BaseException) -> str:
     while e is not None:
         frames = [f for f in traceback.extract_tb(e.__traceback__)
                   if "ldmseg_torch" in f.filename]
-        if frames and not frames[-1].filename.endswith("sampler.py"):
+        if frames and not frames[-1].filename.endswith(("sampler.py",
+                                                         "dpm.py")):
             f = frames[-1]
             return f"{f.filename}:{f.lineno} ({f.name}: {f.line})"
         e = e.__context__

@@ -149,13 +149,42 @@ def _vae_encoder(sd: StateDict, pfx: str, enc: Mapping) -> None:
     _attention(sd, f"{pfx}.mid_block.attentions.0", at)
 
 
+def _vae_decoder(sd: StateDict, pfx: str, dec: Mapping) -> None:
+    """The AutoencoderKL decoder topology (``VAEDecoder``)."""
+    _conv(sd, f"{pfx}.conv_in", dec["conv_in"])
+    _norm(sd, f"{pfx}.conv_norm_out", dec["norm_out"])
+    _conv(sd, f"{pfx}.conv_out", dec["conv_out"])
+    i = 0
+    while f"up{i}" in dec:
+        blk = dec[f"up{i}"]
+        j = 0
+        while f"resnet{j}" in blk:
+            _resnet(sd, f"{pfx}.up_blocks.{i}.resnets.{j}",
+                    blk[f"resnet{j}"])
+            j += 1
+        if "upsample" in blk:
+            _conv(sd, f"{pfx}.up_blocks.{i}.upsamplers.0.conv",
+                  blk["upsample"])
+        i += 1
+    _resnet(sd, f"{pfx}.mid_block.resnets.0", dec["mid_resnet0"])
+    _resnet(sd, f"{pfx}.mid_block.resnets.1", dec["mid_resnet1"])
+    at = dec["mid_attn"]
+    _norm(sd, f"{pfx}.mid_block.attentions.0.group_norm", at["group_norm"])
+    _attention(sd, f"{pfx}.mid_block.attentions.0", at)
+
+
 def image_vae_state_dict_from_jax(params: Mapping) -> StateDict:
-    """JAX ``ImageVAE`` encoder tree (as ``ImageVAE.encode`` initialises it)
-    -> :class:`~.image_vae.ImageVAE` state dict."""
+    """JAX ``ImageVAE`` tree -> :class:`~.image_vae.ImageVAE` state dict:
+    the encoder and ``quant_conv`` (the tree ``ImageVAE.encode``
+    initialises), and where the tree has them the decoder and
+    ``post_quant_conv`` (``decoder_enabled``)."""
     p = _root(params)
     sd: StateDict = {}
     _vae_encoder(sd, "encoder", p["encoder"])
     _conv(sd, "quant_conv", p["quant_conv"])
+    if "decoder" in p:
+        _vae_decoder(sd, "decoder", p["decoder"])
+        _conv(sd, "post_quant_conv", p["post_quant_conv"])
     return sd
 
 

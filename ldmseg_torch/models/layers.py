@@ -18,7 +18,8 @@ from torch import nn
 
 from ..ops.attention import fused_self_attention
 from ..ops.groupnorm_silu import group_norm_silu, group_norm_silu_quant
-from ..ops.quant import QuantConv2d
+from ..ops.quant import (QuantConv2d, int8_matmul, quantize_activation,
+                         quantize_weight)
 
 
 class GroupNorm(nn.Module):
@@ -155,8 +156,9 @@ class ResnetBlock(nn.Module):
 
 class AttentionBlock2D(nn.Module):
     """Single-head spatial self-attention over HW tokens (the diffusers VAE
-    mid-block attention). ``use_fused`` sends it to K1, which takes head dims
-    up to 160: at the SD width (D=512) a CUDA input then raises."""
+    mid-block attention, JAX :148-183). ``use_fused`` sends it to K1
+    (``fused_self_attention``; at the SD width one head of D = 512, K1's
+    wide class on the card), else the plain einsum of the JAX module."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6,
                  num_heads: int = 1, use_fused: bool = False):
@@ -187,13 +189,17 @@ class AttentionBlock2D(nn.Module):
 
 class MidBlock2D(nn.Module):
     """diffusers UNetMidBlock2D without cross-attention: resnet, optional
-    self-attention, resnet."""
+    self-attention, resnet. ``use_int8`` makes both resnets int8 (the image
+    VAE encoder's ``mid_resnet0``/``mid_resnet1``)."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6,
-                 add_attention: bool = False, use_fused: bool = False):
+                 add_attention: bool = False, use_fused: bool = False,
+                 use_int8: bool = False,
+                 int8_act_scale: Optional[float] = None):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock(channels, channels, groups, eps) for _ in range(2)])
+            ResnetBlock(channels, channels, groups, eps, use_int8=use_int8,
+                        int8_act_scale=int8_act_scale) for _ in range(2)])
         self.attentions = nn.ModuleList(
             [AttentionBlock2D(channels, groups, eps, use_fused=use_fused)]
             if add_attention else [])
@@ -209,10 +215,58 @@ class ConvTranspose2x(nn.ConvTranspose2d):
     """ConvTranspose 2x2, stride 2. The JAX module computes it as one matmul
     plus a pixel shuffle on its ``[2, 2, Cin, Cout]`` kernel; the weight here
     is torch's ``[Cin, Cout, 2, 2]`` with the taps flipped
-    (``models/convert.py``)."""
+    (``models/convert.py``).
 
-    def __init__(self, in_channels: int, out_channels: int):
+    ``use_int8`` (inference only, JAX :240-300) runs the matmul as a 1x1 s8
+    product to ``4·Cout`` columns (``torch._int_mm``, as ``s8_conv2d``; no
+    Pallas kernel computes it in JAX): the weight with one scale per
+    ``(tap, channel)`` column, as JAX's ``int8_dot`` quantizes a float
+    kernel (the JAX trainer's form: it prequantizes no VAE), the input per
+    tensor (``act_scale``, else its amax), ``float(int32)·(xs·col_scale)``
+    in the input dtype, then the pixel shuffle and the bias. The codes are
+    those of the weight's JAX layout, column ``(kh, kw, o)`` holding tap
+    ``(kh, kw)`` after JAX's flip, which is the torch weight's own tap
+    ``(kh, kw)``. :meth:`prepare` fills them once from a float module;
+    unprepared, each call quantizes the weight again (the same codes)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 use_int8: bool = False,
+                 act_scale: Optional[float] = None):
         super().__init__(in_channels, out_channels, 2, stride=2)
+        self.use_int8 = use_int8
+        self.act_scale = act_scale
+        self.register_buffer("w_q", None, persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+
+    @staticmethod
+    def _codes(weight: torch.Tensor):
+        """``[4·Cout, Cin]`` int8 rows (column order (kh, kw, o)) and the
+        per-column scales."""
+        q, s = quantize_weight(weight, dims=(0,))
+        cin, o = weight.shape[:2]
+        return (q.permute(2, 3, 1, 0).reshape(-1, cin).contiguous(),
+                s.reshape(o, 4).t().reshape(-1).contiguous())
+
+    @torch.no_grad()
+    def prepare(self, src: nn.ConvTranspose2d) -> None:
+        self.w_q, self.w_scale = self._codes(src.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.use_int8:
+            return super().forward(x)
+        b, c, h, w = x.shape
+        o = self.out_channels
+        if self.w_q is None:
+            w_q, col_scale = self._codes(self.weight.detach())
+        else:
+            w_q, col_scale = self.w_q, self.w_scale
+        x_q, xs = quantize_activation(x.permute(0, 2, 3, 1).reshape(-1, c),
+                                      self.act_scale)
+        y = int8_matmul(x_q, w_q)
+        y = (y.float() * (xs * col_scale)).to(x.dtype)
+        y = y.reshape(b, h, w, 2, 2, o).permute(0, 5, 1, 3, 2, 4)
+        y = y.reshape(b, o, 2 * h, 2 * w)
+        return y + self.bias.to(y.dtype)[:, None, None]
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:

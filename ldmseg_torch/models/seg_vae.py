@@ -26,7 +26,14 @@ indices are the reference keys (``encoder.<i>`` / ``decoder.<i>``) that
 ``models/convert.py``. The mid blocks sit at the reference's placeholder
 index (an ``nn.Identity`` without them). The random draws of a sample
 (Gaussian or Gumbel noise) come from a ``torch.Generator`` or are handed in
-(``noise``). The int8 decoder (``use_int8``) is queue 6 and raises.
+(``noise``). The int8 decoder (``use_int8``, inference only, JAX
+:230-276) runs ``in_conv`` and ``out_conv`` as s8 convs
+(:class:`~..ops.quant.QuantConv2d`) and the upscalers as int8
+:class:`~.layers.ConvTranspose2x`, all with ``int8_act_scale`` (None: each
+input's own amax); the mid block stays float, as in JAX. Its parameters are
+the float decoder's; :func:`~..ops.quant.prepare_int8_vae` fills the codes
+(the upscalers' with one scale per (tap, channel) column, as the JAX
+trainer's float kernels are quantized).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import QuantConv2d
 from ..ops.resize import bilinear_upsample_2x, resize_weight_matrix
 from .layers import (ConvTranspose2x, GroupNorm, LayerNorm2d, MidBlock2D,
                      conv3x3)
@@ -295,10 +303,6 @@ class SegVAE(nn.Module):
         super().__init__()
         if parametrization not in PARAMETRIZATIONS:
             raise NotImplementedError(parametrization)
-        if use_int8:
-            raise NotImplementedError(
-                "SegVAE use_int8=True: the int8 seg-VAE decoder is not "
-                "ported yet (ROADMAP.md queue 6)")
         self.block_out_channels = tuple(block_out_channels)
         self.num_upscalers = num_upscalers
         self.parametrization = parametrization
@@ -323,17 +327,22 @@ class SegVAE(nn.Module):
             self.encoder = nn.Sequential(*self._encoder_layers(
                 cin, ic, enc_out, g, num_mid_blocks, resize_input,
                 skip_encoder))
-        layers = [conv3x3(latent_channels, ic),
+        if use_int8:
+            def conv(cin, cout):
+                return QuantConv2d(cin, cout, act_scale=int8_act_scale)
+        else:
+            conv = conv3x3
+        layers = [conv(latent_channels, ic),
                   MidBlock2D(ic, g, 1e-6) if num_mid_blocks
                   else nn.Identity()]
         ch = ic
         for _ in range(num_upscalers):
-            layers += [ConvTranspose2x(ch, upscale_channels),
+            layers += [ConvTranspose2x(ch, upscale_channels, use_int8,
+                                       int8_act_scale),
                        LayerNorm2d(upscale_channels), nn.SiLU()]
             ch = upscale_channels
         # the decoder head uses torch's GroupNorm eps (vae.py:163)
-        layers += [GroupNorm(g, ch, 1e-5), nn.SiLU(),
-                   conv3x3(ch, out_channels)]
+        layers += [GroupNorm(g, ch, 1e-5), nn.SiLU(), conv(ch, out_channels)]
         self.decoder = nn.Sequential(*layers)
 
     def _encoder_layers(self, cin, ic, enc_out, g, num_mid_blocks,

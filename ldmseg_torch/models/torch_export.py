@@ -86,10 +86,11 @@ def unet_keys(sd: Mapping, config) -> List[str]:
     return keys
 
 
-def image_vae_keys(sd: Mapping) -> List[str]:
+def image_vae_keys(sd: Mapping, decoder: bool = False) -> List[str]:
     """The AutoencoderKL encoder's keys and ``quant_conv`` in the JAX
-    exporter's order (``image_vae_sd_from_params`` without the decoder);
-    blocks and resnets as many as ``sd`` has."""
+    exporter's order (``image_vae_sd_from_params``), with ``decoder`` then
+    the decoder's and ``post_quant_conv``; blocks and resnets as many as
+    ``sd`` has."""
     keys: List[str] = []
     for name in ("encoder.conv_in", "encoder.conv_norm_out",
                  "encoder.conv_out"):
@@ -110,6 +111,27 @@ def image_vae_keys(sd: Mapping) -> List[str]:
     for name in ("to_q", "to_k", "to_v", "to_out.0"):
         _pair(keys, f"{at}.{name}")
     _pair(keys, "quant_conv")
+    if not decoder:
+        return keys
+    for name in ("decoder.conv_in", "decoder.conv_norm_out",
+                 "decoder.conv_out"):
+        _pair(keys, name)
+    i = 0
+    while f"decoder.up_blocks.{i}.resnets.0.norm1.weight" in sd:
+        j = 0
+        while f"decoder.up_blocks.{i}.resnets.{j}.norm1.weight" in sd:
+            _resnet(keys, sd, f"decoder.up_blocks.{i}.resnets.{j}")
+            j += 1
+        if f"decoder.up_blocks.{i}.upsamplers.0.conv.weight" in sd:
+            _pair(keys, f"decoder.up_blocks.{i}.upsamplers.0.conv")
+        i += 1
+    _resnet(keys, sd, "decoder.mid_block.resnets.0")
+    _resnet(keys, sd, "decoder.mid_block.resnets.1")
+    at = "decoder.mid_block.attentions.0"
+    _pair(keys, f"{at}.group_norm")
+    for name in ("to_q", "to_k", "to_v", "to_out.0"):
+        _pair(keys, f"{at}.{name}")
+    _pair(keys, "post_quant_conv")
     return keys
 
 
@@ -147,7 +169,8 @@ def export_reference_ldm(path: str, unet: Mapping, vae_image: Mapping,
         "step": step,
         "epoch": epoch,
         "unet": _ordered(unet, keys),
-        "vae_image": _ordered(vae_image, image_vae_keys(vae_image)),
+        "vae_image": _ordered(vae_image, image_vae_keys(
+            vae_image, "post_quant_conv.weight" in vae_image)),
         "vae_semseg": _ordered(vae_semseg, seg_vae_keys(
             block_out_channels, num_upscalers)),
     }

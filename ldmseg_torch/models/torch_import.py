@@ -4,13 +4,13 @@
 Reads LOCAL files only: a diffusers model directory
 (``<dir>/unet/diffusion_pytorch_model.{safetensors,bin}``, ``<dir>/vae/...``),
 the reference's stage-2 save dict and its stage-1 ``{'vae': ...}`` dict.
-The port's modules carry the reference's keys and layouts, so a state dict
-is read by picking the keys the model uses (:mod:`.torch_export`'s key
-lists: a diffusers UNet's cross-attention and a VAE's decoder are left
-out), in fp32; ``module.`` prefixes are stripped. ``.bin`` files and save
-dicts load with ``torch.load(weights_only=True)``; ``.safetensors`` files
-are parsed here (an 8-byte little-endian header length, a JSON header,
-then the raw buffers), with no ``safetensors`` package.
+The port's modules carry the reference's keys and layouts, so a state dict is
+read by picking the keys the model uses (:mod:`.torch_export`'s key lists: a
+diffusers UNet's cross-attention is left out, and a VAE's decoder unless
+``decoder_enabled`` asks for it), in fp32; ``module.`` prefixes are stripped.
+``.bin`` files and save dicts load with ``torch.load(weights_only=True)``;
+``.safetensors`` files are parsed here (an 8-byte little-endian header length,
+a JSON header, then the raw buffers), with no ``safetensors`` package.
 """
 
 from __future__ import annotations
@@ -79,11 +79,13 @@ def unet_state_dict(sd: Mapping, config) -> StateDict:
     return _ordered(sd, unet_keys(sd, config))
 
 
-def image_vae_state_dict(sd: Mapping) -> StateDict:
-    """The port ImageVAE's state dict (the encoder and ``quant_conv``) out
-    of an AutoencoderKL state dict; the legacy attention names (``query``,
-    ``key``, ``value``, ``proj_attn``) read as ``to_q``, ``to_k``,
-    ``to_v``, ``to_out.0``."""
+def image_vae_state_dict(sd: Mapping, decoder_enabled: bool = False
+                         ) -> StateDict:
+    """The port ImageVAE's state dict (the encoder and ``quant_conv``; with
+    ``decoder_enabled`` also the decoder and ``post_quant_conv``, JAX
+    ``torch_import.py:196-245``) out of an AutoencoderKL state dict; the
+    legacy attention names (``query``, ``key``, ``value``, ``proj_attn``)
+    read as ``to_q``, ``to_k``, ``to_v``, ``to_out.0``."""
     legacy = {".query.": ".to_q.", ".key.": ".to_k.", ".value.": ".to_v.",
               ".proj_attn.": ".to_out.0."}
     renamed = {}
@@ -92,7 +94,7 @@ def image_vae_state_dict(sd: Mapping) -> StateDict:
             if ".attentions." in k and old in k:
                 k = k.replace(old, new)
         renamed[k] = v
-    return _ordered(renamed, image_vae_keys(renamed))
+    return _ordered(renamed, image_vae_keys(renamed, decoder_enabled))
 
 
 def load_diffusers_unet(model_dir: str, config) -> StateDict:
@@ -104,13 +106,11 @@ def load_diffusers_unet(model_dir: str, config) -> StateDict:
 
 def load_diffusers_vae(model_dir: str,
                        decoder_enabled: bool = False) -> StateDict:
-    """The port ImageVAE's state dict from ``<model_dir>/vae``. The port's
-    ImageVAE has no decoder, so ``decoder_enabled`` raises."""
-    if decoder_enabled:
-        raise NotImplementedError(
-            "load_diffusers_vae(decoder_enabled=True): the port's ImageVAE "
-            "is the encoder only")
-    return image_vae_state_dict(_diffusers_state_dict(model_dir, "vae"))
+    """The port ImageVAE's state dict from ``<model_dir>/vae``, the decoder
+    too with ``decoder_enabled`` (for ``ImageVAE(decoder_enabled=True)``;
+    the trainer's image VAE is the encoder only, the port's default)."""
+    return image_vae_state_dict(_diffusers_state_dict(model_dir, "vae"),
+                                decoder_enabled)
 
 
 def _expand_slice(base: np.ndarray, mode: str, rng: np.random.RandomState,
@@ -218,15 +218,13 @@ def load_reference_ldm(path: str, unet_config,
     vae_semseg, unet, ema?, ...}`` as the port's state dicts: ``{"unet",
     "vae_image", "vae_semseg", "ema" (or None), "step"}``. The EMA's
     ``shadow_params`` list is read in the order of the file's ``unet``
-    keys (a dict of named tensors is read by name)."""
-    if image_vae_decoder:
-        raise NotImplementedError(
-            "load_reference_ldm(image_vae_decoder=True): the port's "
-            "ImageVAE is the encoder only")
+    keys (a dict of named tensors is read by name). ``image_vae_decoder``
+    also reads ``vae_image``'s decoder and ``post_quant_conv``."""
     data = torch.load(path, map_location="cpu", weights_only=True)
     raw_unet = _strip(data["unet"])
     out = {"unet": unet_state_dict(raw_unet, unet_config),
-           "vae_image": image_vae_state_dict(data["vae_image"]),
+           "vae_image": image_vae_state_dict(data["vae_image"],
+                                             image_vae_decoder),
            "vae_semseg": seg_vae_state_dict(
                data["vae_semseg"], block_out_channels, num_upscalers),
            "ema": None,

@@ -71,7 +71,9 @@ import torch.nn.functional as F
 
 from . import _build
 
-MAX_HEAD_DIM = 160
+MAX_HEAD_DIM = 160  # K2's, K16's and the fp32 kernels' largest head dim
+# K1's in bf16: the image VAE's mid attention is one head of 512
+MAX_FWD_HEAD_DIM = 512
 PACKED_MAX_SEQ = 2048  # fused_self_attention_packed's max_seq
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,6 +87,11 @@ SM90_SMEM_LIMIT = 232448
 SM90_HEAD_CLASSES = (16, 32, 40, 64, 80, 128, 160)
 SM90_BOX_D = 64
 SM90_MAX_STAGES = 4
+# the wide class above 160 (csrc/attention_sm90.cuh: kWideClass, kWideN):
+# Q·Kᵀ over all 512 columns, P·V on a 128-column slice of V per block, the
+# slices side by side along the grid's x
+SM90_WIDE_CLASS = 512
+SM90_WIDE_SLICE = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +110,17 @@ class LaunchPlan:
     chunks: int
     smem_bytes: int
     grid: tuple
+
+    @property
+    def slices(self) -> int:
+        """Blocks per query tile: V and O column slices (the wide class)."""
+        return (SM90_WIDE_CLASS // SM90_WIDE_SLICE
+                if self.head_class == SM90_WIDE_CLASS else 1)
+
+    @property
+    def v_chunks(self) -> int:
+        """TMA boxes across one block's columns of V."""
+        return self.chunks // self.slices
 
     def fields(self) -> tuple:
         """The nine ints the C entry points read (``struct Plan``)."""
@@ -151,7 +169,21 @@ def sm90_forward_tiles(bh: int, t: int, head_class: int, chunks: int,
 def sm90_launch_plan(bh: int, t: int, d: int) -> LaunchPlan:
     """The bf16 kernel's launch plan for ``B·H`` heads of ``T`` tokens and
     head dim ``d`` (:func:`sm90_forward_tiles`); the C entry points check
-    it."""
+    it. Above class 160 the wide class: one consumer warpgroup of 64 query
+    rows, 64-key tiles, the ring as deep as fits (two stages: 230,440
+    bytes of Q, K and a V slice), ``SM90_WIDE_CLASS / SM90_WIDE_SLICE``
+    blocks per query tile along x."""
+    if d > SM90_HEAD_CLASSES[-1]:
+        chunks = SM90_WIDE_CLASS // SM90_BOX_D
+        v_chunks = SM90_WIDE_SLICE // SM90_BOX_D
+        stages = next(s for s in range(SM90_MAX_STAGES, 1, -1)
+                      if sm90_smem_bytes(64, 64, chunks, s, v_chunks)
+                      <= SM90_SMEM_LIMIT)
+        slices = SM90_WIDE_CLASS // SM90_WIDE_SLICE
+        return LaunchPlan(SM90_WIDE_CLASS, 64, 64, stages, SM90_BOX_D,
+                          chunks, sm90_smem_bytes(64, 64, chunks, stages,
+                                                  v_chunks),
+                          (slices * -(-t // 64), bh))
     head_class = next(c for c in SM90_HEAD_CLASSES if c >= d)
     chunks = -(-head_class // SM90_BOX_D)
     block_q, block_k, stages = sm90_forward_tiles(bh, t, head_class, chunks,
@@ -339,7 +371,7 @@ def _backward_kernel():
     return fn
 
 
-def _check_kernel_inputs(**tensors):
+def _check_kernel_inputs(max_d: int = MAX_HEAD_DIM, **tensors):
     names = list(tensors)
     xs = list(tensors.values())
     x0 = xs[0]
@@ -354,10 +386,10 @@ def _check_kernel_inputs(**tensors):
     if any(x.device != x0.device for x in xs):
         raise ValueError("attention kernel: inputs on different devices")
     b, t, h, d = x0.shape
-    if d % 8 != 0 or not 8 <= d <= MAX_HEAD_DIM:
+    if d % 8 != 0 or not 8 <= d <= max_d:
         raise ValueError(
             f"attention kernel: head dim {d} not supported (a multiple of 8 "
-            f"up to {MAX_HEAD_DIM})")
+            f"up to {max_d} for {x0.dtype})")
     if t < 1 or not 1 <= b * h <= 65535:
         raise ValueError(f"attention kernel: shape {tuple(x0.shape)} out of "
                          f"range (T >= 1, 1 <= B*H <= 65535)")
@@ -380,7 +412,9 @@ def _attention_forward(q, k, v, scale):
         return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
-    _check_kernel_inputs(q=q, k=k, v=v)
+    _check_kernel_inputs(
+        MAX_FWD_HEAD_DIM if q.dtype == torch.bfloat16 else MAX_HEAD_DIM,
+        q=q, k=k, v=v)
     b, t, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     kernel = _forward_kernel()
@@ -392,7 +426,10 @@ def _attention_forward(q, k, v, scale):
             _plan_c(b * h, t, d), stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    fused_self_attention.launches += 1
+    if d > MAX_HEAD_DIM:  # the wide class's kernel
+        fused_self_attention.wide_launches += 1
+    else:
+        fused_self_attention.launches += 1
     return out
 
 
@@ -446,10 +483,17 @@ fused_self_attention_backward.launches = 0
 
 
 class _FusedSelfAttention(torch.autograd.Function):
-    """K1 forward, K2 backward; saves q, k, v as ``_fwd`` does (:1404)."""
+    """K1 forward, K2 backward; saves q, k, v as ``_fwd`` does (:1404).
+    K2 takes head dims up to 160: a CUDA input above that (the image VAE's
+    D = 512, through which no path trains) raises here."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        if q.device.type == "cuda" and q.shape[-1] > MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"fused_self_attention: no backward at head dim "
+                f"{q.shape[-1]} (K2 takes up to {MAX_HEAD_DIM}); run it "
+                f"under torch.no_grad()")
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
         return _attention_forward(q, k, v, scale)
@@ -465,12 +509,15 @@ class _FusedSelfAttention(torch.autograd.Function):
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float) -> torch.Tensor:
     """Multi-head self-attention on ``[B, T, H, D]``; returns ``[B, T, H, D]``
-    contiguous, in the input dtype. CUDA tensors run K1 (bf16 or fp32, D a
-    multiple of 8 up to 160, any T); CPU tensors run
-    :func:`attention_reference`. Under autograd the backward is K2 (CUDA) or
+    contiguous, in the input dtype. CUDA tensors run K1 (D a multiple of 8
+    up to 512 in bf16, 160 in fp32, any T); CPU tensors run
+    :func:`attention_reference`. Under autograd the backward is K2 (CUDA,
+    D up to 160) or
     :func:`attention_backward_reference` (CPU); without it (``no_grad``,
     ``inference_mode`` or no input that requires grad) nothing is saved.
-    ``fused_self_attention.launches`` counts K1's launches."""
+    ``fused_self_attention.launches`` counts K1's launches at head dims up
+    to 160, ``fused_self_attention.wide_launches`` those of its wide class
+    (``attention_fwd_kernel_sm90_wide``)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FusedSelfAttention.apply(q, k, v, scale)
@@ -478,6 +525,7 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_self_attention.launches = 0
+fused_self_attention.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------

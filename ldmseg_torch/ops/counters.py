@@ -1,8 +1,9 @@
 """The kernels' launch counters, and their replay under a CUDA graph.
 
 Every kernel wrapper of the port counts on the host where it launches its
-kernel (``fn.launches += 1``) and, where it has a plain branch on a shape
-its kernel does not take, where it takes that branch (``fn.fallbacks``).
+kernel (``fn.launches += 1``; K1's wide class in ``wide_launches``) and,
+where it has a plain branch on a shape its kernel does not take, where it
+takes that branch (``fn.fallbacks``).
 A CUDA graph launches its kernels without running the wrappers, so
 :class:`CountReplay` records what one capture counted and adds it again on
 every replay: the counters then read as they would after the same steps
@@ -14,7 +15,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, Iterable, List, Optional, Tuple
 
-COUNTERS = ("launches", "fallbacks")
+COUNTERS = ("launches", "fallbacks", "wide_launches")
 # the modules that hold counted wrappers
 _MODULES = ("attention", "attention_s8", "geglu", "gemm", "gn_silu_conv",
             "groupnorm_silu")

@@ -9,7 +9,8 @@ float weights through ``int8_conv`` (:73-95) and ``int8_dot`` (:381-403),
 whose backward is the float conv's or matmul's gradient (straight-through:
 training through int8, :class:`Int8ConvSTE`, :class:`Int8LinearSTE`),
 ``prequantize_conv_tree`` (:132) with ``pack_inference_tiles`` (:243), and
-``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633).
+``calibrate_act_scale_tree``/``apply_act_scales`` (:549, :633), and the
+VAE half of ``prequantize_conv_tree`` (:func:`prepare_int8_vae`).
 
 Rounding is half-to-even (``torch.round``), as ``jnp.round``. Scales are
 float32 and computed in the JAX package's order, so the int8 codes and the
@@ -32,7 +33,7 @@ step loop.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,15 +95,29 @@ def exact_int8_matmul(a: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def s8_conv2d(x_q: torch.Tensor, w_mat: torch.Tensor,
-              stride: int) -> torch.Tensor:
-    """3x3 conv, padding 1, of int8 NCHW ``x_q`` with the ``[Cout, 9*Cin]``
-    codes (taps major, then input channels) -> int32 NHWC ``[B, Ho, Wo,
-    Cout]``."""
+Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
+
+
+def pad_pairs(padding: Padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``padding`` as JAX's ``((top, bottom), (left, right))``."""
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (pt, pb), (pl, pr) = padding
+    return (int(pt), int(pb)), (int(pl), int(pr))
+
+
+def s8_conv2d(x_q: torch.Tensor, w_mat: torch.Tensor, stride: int,
+              padding: Padding = 1) -> torch.Tensor:
+    """3x3 conv of int8 NCHW ``x_q`` with the ``[Cout, 9*Cin]`` codes (taps
+    major, then input channels) -> int32 NHWC ``[B, Ho, Wo, Cout]``.
+    ``padding`` is an int or JAX's ``((top, bottom), (left, right))`` (the
+    image VAE's downsample: ``((0, 1), (0, 1))``), zero codes."""
     b, cin, h, w = x_q.shape
     s = stride
-    xp = F.pad(x_q.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
-    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    (pt, pb), (pl, pr) = pad_pairs(padding)
+    xp = F.pad(x_q.permute(0, 2, 3, 1), (0, 0, pl, pr, pt, pb))
+    ho = (h + pt + pb - 3) // s + 1
+    wo = (w + pl + pr - 3) // s + 1
     cols = torch.stack([xp[:, i:i + s * (ho - 1) + 1:s,
                            j:j + s * (wo - 1) + 1:s]
                         for i in range(3) for j in range(3)], dim=3)
@@ -111,19 +126,20 @@ def s8_conv2d(x_q: torch.Tensor, w_mat: torch.Tensor,
 
 
 class Int8ConvSTE(torch.autograd.Function):
-    """``int8_conv`` (:73-95): the 3x3 (padding 1) s8 conv of ``x`` NCHW
-    with ``w`` quantized per output channel and ``x`` per tensor
+    """``int8_conv`` (:73-95): the 3x3 s8 conv (symmetric ``padding``) of
+    ``x`` NCHW with ``w`` quantized per output channel and ``x`` per tensor
     (``act_scale`` or its amax), ``float(s8) * (xs * ws)`` in ``x``'s dtype;
     the backward is the float conv's (``w`` cast to ``x``'s dtype)."""
 
     @staticmethod
-    def forward(ctx, x, w, stride: int, act_scale: Optional[float]):
+    def forward(ctx, x, w, stride: int, act_scale: Optional[float],
+                padding: int = 1):
         q, ws = quantize_weight(w, dims=(1, 2, 3))
         x_q, xs = quantize_activation(x, act_scale)
         y = s8_conv2d(x_q, q.permute(0, 2, 3, 1).reshape(q.shape[0], -1),
-                      stride)
+                      stride, padding)
         ctx.save_for_backward(x, w)
-        ctx.stride = stride
+        ctx.stride, ctx.padding = stride, padding
         y = (y.float() * (xs * ws)).to(x.dtype)
         return y.permute(0, 3, 1, 2).contiguous()
 
@@ -131,9 +147,11 @@ class Int8ConvSTE(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         wx = w.to(x.dtype)
-        gx = torch.nn.grad.conv2d_input(x.shape, wx, g, ctx.stride, 1)
-        gw = torch.nn.grad.conv2d_weight(x, w.shape, g, ctx.stride, 1)
-        return gx, gw.to(w.dtype), None, None
+        gx = torch.nn.grad.conv2d_input(x.shape, wx, g, ctx.stride,
+                                        ctx.padding)
+        gw = torch.nn.grad.conv2d_weight(x, w.shape, g, ctx.stride,
+                                         ctx.padding)
+        return gx, gw.to(w.dtype), None, None, None
 
 
 class Int8LinearSTE(torch.autograd.Function):
@@ -159,7 +177,9 @@ class Int8LinearSTE(torch.autograd.Function):
 
 
 class QuantConv2d(nn.Conv2d):
-    """3x3 conv, padding 1, the int8 ``QuantConv`` (:448). Its float
+    """3x3 conv, the int8 ``QuantConv`` (:448), with a stride and
+    ``padding`` (an int, or JAX's ``((top, bottom), (left, right))``: the
+    image VAE's downsample pads ``((0, 1), (0, 1))``). Its float
     ``weight`` and ``bias`` are the float conv's (the same keys). After
     :meth:`prepare` (``QuantConv`` with a ``{"q", "scale"}`` kernel) it runs
     on int8 codes and float32 per-output-channel scales in buffers filled
@@ -176,10 +196,17 @@ class QuantConv2d(nn.Conv2d):
     dtype, plus the bias; ``x_scale`` and ``act_scale`` are not read."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 act_scale: Optional[float] = None):
+                 act_scale: Optional[float] = None, padding: Padding = 1):
+        pairs = pad_pairs(padding)
+        even = pairs[0][0] == pairs[0][1] == pairs[1][0] == pairs[1][1]
         super().__init__(in_channels, out_channels, 3, stride=stride,
-                         padding=1)
+                         padding=pairs[0][0] if even else 0)
         self.s8_stride = stride
+        self.s8_padding = pairs
+        # an uneven padding is applied to the float input of the
+        # straight-through path (zeros quantize to zero codes)
+        (pt, pb), (pl, pr) = pairs
+        self.float_pad = None if even else (pl, pr, pt, pb)
         self.act_scale = act_scale
         self.x_scale: Optional[float] = None
         self.register_buffer("w_q", None, persistent=False)
@@ -201,19 +228,21 @@ class QuantConv2d(nn.Conv2d):
             if isinstance(x, tuple):
                 raise RuntimeError("QuantConv2d: K6's codes need prepared "
                                    "weights (run prepare_int8_unet)")
+            if self.float_pad is not None:
+                x = F.pad(x, self.float_pad)
             y = Int8ConvSTE.apply(x, self.weight, self.s8_stride,
-                                  self.act_scale)
+                                  self.act_scale, self.padding[0])
             return y + self.bias.to(y.dtype)[:, None, None]
         if isinstance(x, tuple):
             x_q, s = x
-            y = s8_conv2d(x_q, self.w_q, self.s8_stride)
+            y = s8_conv2d(x_q, self.w_q, self.s8_stride, self.s8_padding)
             scale = s[:, None, None, None] * self.w_scale
             y = (y.float() * scale).to(torch.bfloat16)
         else:
             site = (self.x_scale if self.x_scale is not None
                     else self.act_scale)
             x_q, xs = quantize_activation(x, site)
-            y = s8_conv2d(x_q, self.w_q, self.s8_stride)
+            y = s8_conv2d(x_q, self.w_q, self.s8_stride, self.s8_padding)
             y = (y.float() * (xs * self.w_scale)).to(x.dtype)
         y = y + self.bias.to(y.dtype)
         return y.permute(0, 3, 1, 2).contiguous()
@@ -317,6 +346,28 @@ def prepare_int8_unet(int8_unet: nn.Module, masters: nn.Module,
     for name, m in reversed(list(int8_unet.named_modules())):
         if callable(getattr(m, "prepare", None)):
             m.prepare(masters.get_submodule(name))
+
+
+@torch.no_grad()
+def prepare_int8_vae(vae: nn.Module) -> nn.Module:
+    """Fill the int8 codes of an image VAE or seg VAE built with
+    ``use_int8`` from its own float weights, once: the resnet
+    ``conv1``/``conv2`` and the image VAE's ``downsample``, and the seg
+    decoder's ``in_conv``, ``out_conv`` and ``up{i}_convt``, the sites of
+    the VAE half of ``prequantize_conv_tree`` (:132-241). The convs' codes
+    are that function's (one scale per output channel, as ``QuantConv``
+    also quantizes a float kernel); the upscalers' are those ``int8_dot``
+    makes of a float kernel (one scale per (tap, channel) column), since
+    the JAX trainer prequantizes no VAE. The weights are read as the module
+    holds them (the trainer's compute-dtype cast, as the JAX trainer and
+    bench quantize their cast trees); run it again whenever they change.
+    Returns ``vae``."""
+    for m in vae.modules():
+        if isinstance(m, QuantConv2d) or (
+                getattr(m, "use_int8", False) is True
+                and callable(getattr(m, "prepare", None))):
+            m.prepare(m)
+    return vae
 
 
 # ---------------------------------------------------------------------------

@@ -7,24 +7,28 @@ The counterpart of the JAX package's ``bench.py``: the full inference
 pipeline, RGB image-VAE encode -> 50 DDIM steps of the SD-1.4-width UNet
 (8 input channels, no self-conditioning) -> seg-VAE decode to 128 logits,
 on 256x512 frames (a 32x64 latent), batch 16 by default, seeded random
-weights, through ``TrainerDiffusion.sample_panoptic``, whose DDIM steps
-replay a CUDA graph (``--eager``: the eager loop; the line's ``sampler``
-says which). It runs twice: in
-bf16 (self-attention on K1) and on the default int8 path
+weights, through ``TrainerDiffusion.sample_panoptic``, whose steps replay a
+CUDA graph (``--eager``: the eager loop; the line's ``sampler`` says
+which). The image VAE is the JAX bench's: ``ImageVAE(use_int8=True,
+int8_act_scale=0.05, use_fused_attention=True)``, its codes prepared once
+from its bf16 weights (s8 resnet convs and downsamples, its mid attention
+on K1 at head dim 512). The pipeline runs three times: in bf16
+(self-attention on K1), on the default int8 path
 (``sampling_kwargs.int8_inference`` with ``fused_norms`` and ``fused_ff``:
-s8 convs, K3 and K4), each with one warm-up call and ``--calls`` timed
-calls (host clock around work that ends in ``torch.cuda.synchronize()``).
+s8 convs, K3 and K4), and on that path with DPM-Solver++(2M) at
+``DPM_STEPS`` = 20 steps (``sampling_kwargs.sampler: dpmpp_2m``, JAX's
+``dpm_fps`` probe, ``bench.py:171``), each with one warm-up call and ``--calls`` timed calls
+(host clock around work that ends in ``torch.cuda.synchronize()``).
 Beside them it times the flagship UNet forward of
 :func:`ldmseg_torch.entry.entry` (CUDA events).
 
 Prints ONE JSON line: ``{"metric": "frames_per_s", "value": <the int8
-path's frames/s>, "unit": "frames/s", ...}`` with the forward's ms, each
-path's s per call, frames/s, peak device memory and kernel launches per
-call, the batch, the steps, and the card's ``nvidia-smi`` name and power
-limit. It has no ``vs_baseline``: the JAX bench's baseline was taken on a
-TPU. One difference from the JAX bench: the port's image VAE runs in bf16
-(JAX's bench runs ``ImageVAE(use_int8=True)``; the int8 image VAE is not
-ported yet). Needs a CUDA device; without one it exits 1.
+DDIM path's frames/s>, "unit": "frames/s", "dpm_fps": <the DPM path's>,
+...}`` with the forward's ms, each path's s per call, frames/s, peak device
+memory and kernel launches per call, the batch, the steps, and the card's
+``nvidia-smi`` name and power limit. It has no ``vs_baseline``: the JAX
+bench's baseline was taken on a TPU. Needs a CUDA device; without one it
+exits 1.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import numpy as np
 import torch
 
 IMAGE_HW = (256, 512)
+# the steps of the JAX bench's DPM-Solver++(2M) probe (bench.py:171)
+DPM_STEPS = 20
 
 
 def smi_line() -> str:
@@ -52,23 +58,34 @@ def smi_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def bench_config(int8: bool) -> dict:
-    """The JAX bench's pipeline as a trainer config: DEFAULT_CONFIG's seg
-    VAE (16 bits in, 128 logits), bf16 compute, no self-conditioning, 50
-    DDIM steps; with ``int8`` the default int8 path."""
+# the JAX bench's image VAE (bench.py:59-60)
+IMAGE_VAE_KWARGS = {"use_int8": True, "int8_act_scale": 0.05,
+                    "use_fused_attention": True}
+
+
+def bench_config(int8: bool, sampler: str = "ddim") -> dict:
+    """The JAX bench's pipeline as a trainer config: its image VAE,
+    DEFAULT_CONFIG's seg VAE (16 bits in, 128 logits), bf16 compute, no
+    self-conditioning; with ``int8`` the default int8 path; ``sampler``
+    "ddim" or "dpmpp_2m"."""
     from ..utils.config import DEFAULT_CONFIG, merge_dicts
     return merge_dicts(DEFAULT_CONFIG, {
         "train_kwargs": {"self_condition": False,
                          "weight_dtype": "bfloat16"},
-        "sampling_kwargs": {"int8_inference": int8}})
+        "image_vae_kwargs": dict(IMAGE_VAE_KWARGS),
+        "sampling_kwargs": {"int8_inference": int8, "sampler": sampler}})
 
 
-def _launch_counters() -> dict:
+def _launch_counts() -> dict:
+    """The launch counters of the pipeline's kernels: K1 (the UNet's
+    head dims), K1's wide class (the image VAE's mid attention, D = 512),
+    K3 and K4."""
     from ..ops import attention as A
     from ..ops import attention_s8 as AS
     from ..ops import geglu as G
-    return {"K1": A.fused_self_attention, "K3": AS.ln_attention_s8,
-            "K4": G.geglu_ln_s8}
+    return {"K1": A.fused_self_attention.launches,
+            "K1 D=512": A.fused_self_attention.wide_launches,
+            "K3": AS.ln_attention_s8.launches, "K4": G.geglu_ln_s8.launches}
 
 
 def _sync(device: torch.device) -> None:
@@ -92,8 +109,7 @@ def measure_sampling(trainer, batch: int, steps: int, calls: int,
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    counters = _launch_counters()
-    before = {k: f.launches for k, f in counters.items()}
+    before = _launch_counts()
     each = []
     for _ in range(calls):
         t0 = time.perf_counter()
@@ -110,8 +126,8 @@ def measure_sampling(trainer, batch: int, steps: int, calls: int,
         "frames_per_s": batch / secs,
         "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                        if dev.type == "cuda" else None),
-        "launches_per_call": {k: (f.launches - before[k]) / calls
-                              for k, f in counters.items()},
+        "launches_per_call": {k: (n - before[k]) / calls
+                              for k, n in _launch_counts().items()},
         "logits_shape": list(logits.shape)}
 
 
@@ -133,32 +149,39 @@ def measure_forward(fn, args, iters: int = 20, warmup: int = 3) -> float:
 def run(batch: int = 16, steps: int = 50, calls: int = 3,
         warmup: int = 1, eager: bool = False) -> dict:
     """The bench line as a dict, on the card: the flagship forward of
-    :func:`ldmseg_torch.entry.entry`, then the full-width pipeline in bf16
-    and on the default int8 path, its steps a CUDA graph (or with
-    ``eager`` the eager loop)."""
+    :func:`ldmseg_torch.entry.entry`, then the full-width pipeline in bf16,
+    on the default int8 path and on that path with DPM-Solver++(2M) at
+    ``DPM_STEPS``, its steps a CUDA graph (or with ``eager`` the eager
+    loop)."""
     from ..entry import entry
     from ..train.trainer_ldm import TrainerDiffusion
     device = torch.device("cuda")
     line = {"metric": "frames_per_s", "value": None, "unit": "frames/s",
             "batch": batch, "steps": steps, "image_hw": list(IMAGE_HW),
             "calls": calls, "warmup": warmup,
+            "dpm_steps": DPM_STEPS,
             "sampler": ("DDIM, the eager loop" if eager else
-                        "DDIM, each call's steps replayed as a CUDA graph")}
+                        "DDIM, each call's steps replayed as a CUDA graph"),
+            "image_vae": dict(IMAGE_VAE_KWARGS)}
     fn, args = entry(device)
     line["unet_forward_ms"] = measure_forward(fn, args)
     line["unet_forward_shape"] = list(args[0].shape)
     del fn, args
     torch.cuda.empty_cache()
-    for kind, int8 in (("bf16", False), ("int8", True)):
-        trainer = TrainerDiffusion(bench_config(int8), device=device)
+    for kind, int8, sampler, n in (("bf16", False, "ddim", steps),
+                                   ("int8", True, "ddim", steps),
+                                   ("dpm", True, "dpmpp_2m", DPM_STEPS)):
+        trainer = TrainerDiffusion(bench_config(int8, sampler),
+                                   device=device)
         trainer.init_params(seed=0)
-        line[kind] = measure_sampling(trainer, batch, steps, calls, warmup,
+        line[kind] = measure_sampling(trainer, batch, n, calls, warmup,
                                       graph=not eager)
         del trainer
         torch.cuda.empty_cache()
     line["value"] = line["int8"]["frames_per_s"]
+    line["dpm_fps"] = line["dpm"]["frames_per_s"]
     line["path"] = ("int8: s8 convs, K3 and K4 (fused_norms, fused_ff); "
-                    "bf16 image VAE")
+                    "int8 image VAE with its mid attention on K1 (D = 512)")
     line["device"] = torch.cuda.get_device_name(device)
     line["nvidia_smi"] = smi_line()
     return line

@@ -11,7 +11,13 @@ port's loader. A ``unet_config`` with ``use_packed_attention`` runs the
 self-attention of both paths on K14 (its backward on K2), as JAX's
 ``fused_self_attention_packed``. ``sample_panoptic`` runs the serving path:
 RGB frames -> image-VAE encoder (posterior mode x 0.18215) -> DDIM with
-self-conditioning -> seg-VAE decode to per-instance logits.
+self-conditioning (or with ``sampling_kwargs.sampler: dpmpp_2m``
+DPM-Solver++(2M), ``diffusion/dpm.py``) -> seg-VAE decode to per-instance
+logits. ``image_vae_kwargs`` (``use_int8``, ``int8_act_scale``,
+``use_fused_attention``, ``decoder_enabled``) and ``vae_model_kwargs.
+use_int8`` build the two VAEs as the JAX trainer does; an int8 VAE's codes
+are filled from its compute-dtype weights once, whenever the weights are
+set (:func:`~..ops.quant.prepare_int8_vae`).
 ``compute_pq`` scores it on ``val_dataset``: each prediction restored to its
 ground truth's resolution by host-built bilinear weight matrices contracted
 on the device, panoptic post-processing, then ``PanopticEvaluator``.
@@ -47,10 +53,10 @@ Training also takes the UNet's input dropout, gradient checkpointing
 (``sample_posterior_rgb``, in training and sampling as in JAX) and image
 logging (:meth:`log_images_train`, :meth:`log_images_val`,
 :meth:`visualize_noise_schedule`). Video clips and pose consistency,
-classifier-free guidance, text descriptors, clip sampling, the
-DPM-Solver++ sampler, int8 clip sampling, wandb and the parallel modes are
-later slices: a config or an argument that asks for one of them raises
-``NotImplementedError`` naming it.
+classifier-free guidance, text descriptors, clip sampling, int8 clip
+sampling, wandb and the parallel modes are later slices: a config or an
+argument that asks for one of them raises ``NotImplementedError`` naming
+it.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from torch import nn
 
 from ..data.loader import make_loader, prefetch_to_device
 from ..diffusion.ddim import add_noise, make_ddim_schedule, remove_noise
+from ..diffusion.dpm import dpmpp_2m_sample
 from ..diffusion.sampler import ddim_sample
 from ..losses.diffusion_losses import diffusion_loss
 from ..models.convert import (image_vae_state_dict_from_jax,
@@ -78,7 +85,7 @@ from ..models.layers import init_random_
 from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig, draw_input_dropout
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
-                         prepare_int8_unet)
+                         prepare_int8_unet, prepare_int8_vae)
 from ..utils.meters import AverageMeter
 from ..utils.metrics_sink import MetricsSink
 from .optim import Optimizer, freeze_filter, make_lr_schedule
@@ -90,7 +97,7 @@ _IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def _refuse_later_slices(p: Mapping) -> None:
-    tk, sk, mk = p["train_kwargs"], p["sampling_kwargs"], p["model_kwargs"]
+    tk, mk = p["train_kwargs"], p["model_kwargs"]
     later = {
         "model_kwargs.separate_conv": (
             mk.get("separate_conv", False), "the separate seg/image conv_in"),
@@ -101,9 +108,6 @@ def _refuse_later_slices(p: Mapping) -> None:
         "train_kwargs.image_descriptors": (
             tk.get("image_descriptors", "remove") != "remove",
             "text/CLIP descriptors, cross-attention and guidance"),
-        "sampling_kwargs.sampler": (
-            sk.get("sampler", "ddim") != "ddim",
-            "the DPM-Solver++ sampler"),
         "train_kwargs.video_clips": (
             tk.get("video_clips") is not None
             or tk.get("temporal_consistency_weight", 0.0) > 0,
@@ -236,6 +240,11 @@ class TrainerDiffusion(PanopticRestore):
         self.train_num_steps = tk["train_num_steps"]
         self.state: Optional[TrainState] = None
         self.num_inference_steps = sk.get("num_inference_steps", 50)
+        # "ddim" (the reference's) or "dpmpp_2m" (trainer_ldm.py:145-148)
+        self.sampler = sk.get("sampler", "ddim")
+        if self.sampler not in ("ddim", "dpmpp_2m"):
+            raise ValueError(f"sampling_kwargs.sampler {self.sampler!r}: "
+                             "expected 'ddim' or 'dpmpp_2m'")
         self.seed = sk.get("seed", 0)
         self.mask_th = ek.get("mask_th", 0.5)
         self.count_th = ek.get("count_th", 512)
@@ -289,6 +298,7 @@ class TrainerDiffusion(PanopticRestore):
         for model in (self.vae_img, self.vae_seg):
             model.eval().requires_grad_(False)
             model.to(self.compute_dtype)
+            prepare_int8_vae(model)  # no-op for a float VAE
         self.unet.eval().requires_grad_(True)
         self._eval_unet = self.unet
         if self.ema_on:  # real copies (TrainState.create's jnp.copy)
@@ -909,9 +919,11 @@ class TrainerDiffusion(PanopticRestore):
         def model_fn(latents, condition, t):
             return self._unet_apply(unet, latents, rgb_latents, condition, t)
 
-        x0 = ddim_sample(self.sched, model_fn, init,
-                         num_inference_steps=num_inference_steps,
-                         self_condition=self.self_condition, graph=graph)
+        sample_fn = (dpmpp_2m_sample if self.sampler == "dpmpp_2m"
+                     else ddim_sample)
+        x0 = sample_fn(self.sched, model_fn, init,
+                       num_inference_steps=num_inference_steps,
+                       self_condition=self.self_condition, graph=graph)
         z = (x0 * (1.0 / self.seg_scale)).to(self.compute_dtype)
         logits = self.vae_seg.decode(z, True).float()
         return logits, x0
@@ -931,9 +943,11 @@ class TrainerDiffusion(PanopticRestore):
         of that noise. ``guidance_scale`` acts only with a context, as in
         JAX (``_uncond_context`` gives none without one); the port refuses
         descriptors, so there is none and it has no effect. With
-        ``int8_inference`` the steps run on :meth:`int8_unet`. On the card
-        the steps replay a CUDA graph unless ``graph`` is False
-        (:func:`~..diffusion.sampler.ddim_sample`)."""
+        ``int8_inference`` the steps run on :meth:`int8_unet`; with
+        ``sampling_kwargs.sampler: dpmpp_2m`` they are DPM-Solver++(2M)'s.
+        On the card the steps replay a CUDA graph unless ``graph`` is False
+        (:func:`~..diffusion.sampler.ddim_sample`,
+        :func:`~..diffusion.dpm.dpmpp_2m_sample`)."""
         self._require_params()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(

@@ -19,14 +19,21 @@ trace shows the launches its plan names. K9 (K4's kernels, then the bf16
 held to its plain version within the int8 blocks' tolerances
 (``INT8_MAX_TOL`` two bf16 ulps of max|ref|, ``INT8_MEAN_TOL`` of
 mean|ref|) at the four shapes of the int8 path and ragged ones, and the
-trace shows its five kernels and no other. Without a card each test skips
-in the ``cuda`` fixture.
+trace shows its five kernels and no other. The traces are taken in a fresh
+process each (:func:`_kernel_names`): late in a long process, as in a full
+``-m gpu`` run, ``torch.profiler`` drops device events. Without a card
+each test skips in the ``cuda`` fixture.
 
 :func:`conv_taps_model` and :func:`pout_swapped_model`, K7's and K9's
 decompositions in plain PyTorch, live here so that the CPU tests
 (``tests/test_torch_port_k9k7_sm90.py``) hold them against the JAX
 package.
 """
+
+import json
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -158,8 +165,31 @@ def _k7_inputs(dev, shape, cout, seed):
     return x, scale, bias, w, b
 
 
-def _kernel_names(fn, calls=4):
+HERE = pathlib.Path(__file__).resolve().parent
+_TRACE_CHILD = (
+    "import json, sys; sys.path.insert(0, sys.argv[1]); "
+    "import test_torch_port_k9k7_sm90_card as m; "
+    "print(json.dumps(m.trace_case(json.loads(sys.argv[2]))))")
+
+
+def trace_case(case, calls=4):
+    """The device kernels' names of ``calls`` calls of a K7 (``["k7",
+    shape, cout]``) or K9 (``["k9", static]``) case after one untraced
+    call, traced in this process."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.device("cuda")
+    if case[0] == "k7":
+        _, shape, cout = case
+        x, scale, bias, w, b = _k7_inputs(cuda, tuple(shape), cout, 4)
+
+        def fn():
+            GC.gn_silu_conv(x, scale, bias, w, b, 32, 1e-5)
+    else:
+        pack = _k9_pack(cuda, 640, case[1], 8)
+        x = torch.randn((2, 512, 640), device=cuda).to(torch.bfloat16)
+
+        def fn():
+            K4.geglu_ln_s8_pout(x, pack)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -170,6 +200,18 @@ def _kernel_names(fn, calls=4):
     return [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)], calls
+
+
+def _kernel_names(case):
+    """:func:`trace_case` in a fresh process (the kernels are built
+    already): late in a long process ``torch.profiler`` drops device
+    events."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRACE_CHILD, str(HERE), json.dumps(case)],
+        cwd=HERE.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    names, calls = json.loads(proc.stdout.strip().splitlines()[-1])
+    return names, calls
 
 
 @pytest.mark.gpu
@@ -216,11 +258,9 @@ def test_k7_is_its_decomposition(cuda, shape, cout, groups):
                                         ((2, 640, 16, 32), 640),
                                         ((2, 2560, 4, 8), 1280)])
 def test_k7_launches_what_its_plan_names(cuda, shape, cout):
-    x, scale, bias, w, b = _k7_inputs(cuda, shape, cout, 4)
     plan = GC.sm90_conv_plan(shape[0], shape[1], cout, shape[2], shape[3],
                              32)
-    names, calls = _kernel_names(
-        lambda: GC.gn_silu_conv(x, scale, bias, w, b, 32, 1e-5))
+    names, calls = _kernel_names(["k7", list(shape), cout])
     if not names:  # a trace without device events says nothing
         return
     # each of the plan's kernels once a call and nothing else (no cast of
@@ -293,9 +333,7 @@ def test_k9_matches_plain_version_and_its_swapped_model(cuda, b, t, c,
 @pytest.mark.gpu
 @pytest.mark.parametrize("static", [False, True])
 def test_k9_launches_its_five_kernels(cuda, static):
-    pack = _k9_pack(cuda, 640, static, 8)
-    x = torch.randn((2, 512, 640), device=cuda).to(torch.bfloat16)
-    names, calls = _kernel_names(lambda: K4.geglu_ln_s8_pout(x, pack))
+    names, calls = _kernel_names(["k9", static])
     if not names:
         return
     stages = ("ln_quant_kernel", "GateEpi", "::quant_kernel(", "DownEpi",

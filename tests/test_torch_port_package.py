@@ -24,6 +24,7 @@ from ldmseg_torch.ops import attention_s8 as K3
 from ldmseg_torch.ops import attention_s8 as K13
 from ldmseg_torch.ops import geglu as K4
 from ldmseg_torch.ops import geglu as K12
+from ldmseg_torch.ops.quant import QuantConv2d
 from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
 from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
 
@@ -130,6 +131,16 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
         trainer.sample_panoptic({"image": torch.zeros(1, 32, 32, 3)})
 
 
+# the cases of test_trainer_names_what_is_not_ported that the trainer now
+# takes, each with what it builds (held against JAX in test_torch_port_dpm,
+# test_torch_port_vae_int8)
+NOW_PORTED = {
+    "DPM-Solver": lambda t: t.sampler == "dpmpp_2m",
+    "int8 seg-VAE": lambda t: isinstance(t.vae_seg.decoder[0], QuantConv2d),
+    "decoder": lambda t: t.vae_img.decoder_enabled,
+}
+
+
 @pytest.mark.parametrize("override,named", [
     ({"train_kwargs": {"image_descriptors": "clip_text"}}, "descriptors"),
     ({"sampling_kwargs": {"sampler": "dpmpp_2m"}}, "DPM-Solver"),
@@ -150,6 +161,11 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
 ])
 def test_trainer_names_what_is_not_ported(override, named):
     cfg = merge_dicts(DEFAULT_CONFIG, override)
+    if named in NOW_PORTED:
+        # ported since: the trainer builds what the key asks for
+        trainer = TrainerDiffusion(cfg, device=torch.device("cpu"))
+        assert NOW_PORTED[named](trainer)
+        return
     with pytest.raises((NotImplementedError, ValueError), match=named):
         TrainerDiffusion(cfg, device=torch.device("cpu"))
 
@@ -263,9 +279,11 @@ def test_k1_kernel_takes_strided_views(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype", [
-    ((1, 64, 1, 512), torch.bfloat16),   # the VAE mid attention's D
+    # the VAE mid attention's D in fp32 (K1 takes D = 512 in bf16 only)
+    ((1, 64, 1, 512), torch.float32),
     ((1, 64, 2, 40), torch.float16),
     ((1, 64, 2, 36), torch.bfloat16),
+    ((1, 64, 1, 520), torch.bfloat16),   # above K1's widest class
 ])
 def test_k1_wrapper_raises_instead_of_falling_back(cuda, shape, dtype):
     x = torch.randn(shape, device=cuda).to(dtype)

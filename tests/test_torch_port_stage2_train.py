@@ -56,7 +56,10 @@ def _one_torch_thread():
 
 
 def _t(x):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    # always a copy: a tensor that shares a numpy array with the JAX side
+    # would let an in-place update reach JAX's pending work (on the CPU, JAX
+    # reads an aligned numpy operand in place and asynchronously)
+    return torch.from_numpy(np.array(x, np.float32, order="C"))
 
 
 def _nchw(x):

@@ -164,11 +164,24 @@ def test_seg_vae_encode_matches_jax(seg_vae):
 
 def test_seg_vae_encode_refuses_other_bottlenecks():
     # every JAX bottleneck is ported (tests/test_torch_port_stage1.py); an
-    # unknown one and the int8 decoder (queue 6) still raise
+    # unknown one still raises. The int8 decoder is ported: it keeps the
+    # float decoder's parameters and, prepared, decodes (held against JAX
+    # in tests/test_torch_port_vae_int8.py)
     with pytest.raises(NotImplementedError, match="vq"):
         SegVAE(**dict(SVAE_KW, parametrization="vq"))
-    with pytest.raises(NotImplementedError, match="int8 seg-VAE"):
-        SegVAE(**dict(SVAE_KW, use_int8=True))
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.ops.quant import prepare_int8_vae
+    float_vae, int8_vae = SegVAE(**SVAE_KW), SegVAE(**dict(SVAE_KW,
+                                                           use_int8=True))
+    init_random_(float_vae, torch.Generator().manual_seed(0))
+    int8_vae.load_state_dict(float_vae.state_dict(), strict=True)
+    prepare_int8_vae(int8_vae)
+    z = torch.randn(1, 4, 4, 8, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out, ref = int8_vae.decode(z), float_vae.decode(z)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert np.corrcoef(out.flatten().numpy(),
+                       ref.flatten().numpy())[0, 1] > 0.99
 
 
 # ---------------------------------------------------------------------------

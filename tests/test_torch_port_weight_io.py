@@ -220,8 +220,16 @@ def test_diffusers_directory_loads_as_jax_loads_it(tmp_path, fmt):
     _, sp = _vae_trees()
     _same_outputs(jtree, usd, jip, isd, sp,
                   convert.seg_vae_state_dict_from_jax(sp, VK), 4)
-    with pytest.raises(NotImplementedError, match="encoder only"):
-        timport.load_diffusers_vae(str(tmp_path), decoder_enabled=True)
+    # the decoder keys too, as JAX's loader reads them
+    jfull = jimport.load_diffusers_vae(str(tmp_path), decoder_enabled=True)
+    full = timport.load_diffusers_vae(str(tmp_path), decoder_enabled=True)
+    ref = convert.image_vae_state_dict_from_jax(jfull)
+    want = jexport.image_vae_sd_from_params(jfull, decoder_enabled=True)
+    assert list(full) == list(want) and set(full) == set(ref)
+    assert any(k.startswith("decoder.") for k in full)
+    for k in ref:
+        assert torch.equal(full[k], ref[k]), k
+    ImageVAE(decoder_enabled=True, **IVK).load_state_dict(full, strict=True)
 
 
 def test_reference_save_dicts_load_as_jax_loads_them(tmp_path):
