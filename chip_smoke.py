@@ -16,7 +16,8 @@ Phases, one line each:
   4. ``TrainerDiffusion.sample_panoptic`` end to end at full width (50 DDIM
      steps, batch 2 of 256x512 frames) and ``panoptic_post_process``, with
      K1's and K2's launch counts over that run; like every sampling phase
-     below (9, 12, 13, 16, 18, 21, 23, 26, 28, 31, 33, 34, 35) its steps
+     below (9, 12, 13, 16, 18, 21, 23, 26, 28, 31, 33, 34, 35, 43, 44, 46,
+     47) its steps
      replay a CUDA graph (``ddim_sample``'s default on the card; the
      counters count the replays); here the eager loop too, at the same
      noise: x0 bit-equal, the same launches, and one call of each profiled
@@ -226,10 +227,35 @@ Phases, one line each:
   44. the same with 20 DPM-Solver++(2M) steps (320 K3 and 320 K4);
   45. the native host codec built with g++ at first use, equal to the
      numpy codec on a 375x1242 frame, with both host ms;
-  46. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants,
+  46. ``sample_panoptic_clip`` in the default deployment at full width on
+     one static clip of 3 frames of 256x512 with a full-size
+     ``PoseExpNet`` attached: DDIM 50 and a 15-step DDIM tail
+     (``ddim_refine``), both CUDA graphs: 1,040 K1 a call counted and
+     traced, graph bit-equal to eager (the call, and the first pass alone),
+     the warped clip more consistent than the unwarped one; s a call,
+     kernel ms, busy share, peak memory;
+  47. the same in the JAX bench's serving configuration, DDIM 50 (1,040 K3
+     and 1,040 K4) and DPM-Solver++(2M) 20 with a 6-step DDIM tail (416
+     each), one K1 D=512 a call, graph bit-equal to eager; DDIM's call
+     traced and its x0 correlated >= 0.9 with the bf16 UNet's;
+  48. clip training at full width (2 clips of 3 frames of 192x640,
+     ``temporal_consistency_weight`` 0.1, the pose net attached): 32 K1
+     and 16 K2 a step, the consistency term finite and > 0, the parameters
+     moved, one step's loss and gradient cosine against the plain
+     attention; s/step, peak memory;
+  49. ``TrainerPose`` at full size (batch 4 of 3-frame clips of 192x640,
+     the explainability decoder): 3 timed steps, finite terms, moved
+     parameters, no hand-written kernel;
+  50. VPQ on the card: ``vpq_eval_device`` on phase 46's maps and on a
+     crowded pair (over 256 segments: ``evaluate_dvpq`` grows
+     ``max_seg``) equal to the numpy oracle's counts, iou within 1e-5;
+  51. the video CLIs chained: ``main_pose`` -> ``main_ldm video_clips=3``
+     with its pose checkpoint -> ``predict clips=3`` -> ``eval_dvpq`` on
+     the written PNGs, launches checked;
+  52. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants,
      K1's wide class; K5, K6 and K7 with their device time and host time a
      call);
-  47. the last line, ``{"ok": true, "device": {...}}``.
+  53. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -4802,6 +4828,570 @@ def phase_codec(smi_line: str, seed: int = 31):
     return {"native_ms": nat, "numpy_ms": num, "build_seconds": build_s}
 
 
+# ---------------------------------------------------------------------------
+# video and pose (phases 46-51)
+# ---------------------------------------------------------------------------
+CLIP_T = 3                  # frames a clip (nb_ref_imgs = 2)
+CLIP_HW = (256, 512)        # the sampling frames
+CLIP_STRENGTH = 0.3         # sample_panoptic_clip's default refine strength
+CLIP_TRAIN_CLIPS = 2        # clip training: 2 clips of 3 frames of 192x640
+POSE_BATCH, POSE_STEPS = 4, 3
+
+
+def _refine_steps(steps: int, strength: float = CLIP_STRENGTH) -> int:
+    """k of ``ddim_refine``: the DDIM tail's steps after an S-step pass."""
+    return max(1, min(steps, int(round(strength * steps))))
+
+
+def _attach_random_pose(trainer, seed: int = 7):
+    """A full-size ``PoseExpNet(nb_ref_imgs=2)`` with seeded random weights
+    (LeCun-normal), attached without its decoder as ``main_ldm`` does."""
+    import torch
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.models.posenet import PoseExpNet
+    pose = PoseExpNet(nb_ref_imgs=CLIP_T - 1).to("cuda")
+    init_random_(pose, torch.Generator(device="cuda").manual_seed(seed))
+    trainer.attach_pose(pose)
+
+
+def _static_clip(hw, num_bits: int = 8):
+    """One clip of ``SyntheticDVPS``'s first frame repeated 3 times (image,
+    depth, ground truth), as the JAX test makes its clip static
+    (``tests/test_pose_ldm_integration.py:97-101``): a batch of 1 clip."""
+    import numpy as np
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.data.video import ClipDataset
+    clip = ClipDataset(SyntheticDVPS(length=CLIP_T, size=hw,
+                                     num_bits=num_bits,
+                                     frames_per_scene=CLIP_T),
+                       clip_len=CLIP_T)[0]
+    out = {k: np.repeat(clip[k][:1], CLIP_T, axis=0)[None]
+           for k in ("image", "depth", "semseg", "instance")}
+    out["meta"] = [clip["meta"]]
+    return out
+
+
+def _clip_call(trainer, batch, label: str, want: dict, smi_line: str,
+               profile: bool = True):
+    """A warm-up and a counted ``sample_panoptic_clip`` call (both passes
+    CUDA graphs) with ``panoptic_post_process``: s a call, peak memory, the
+    launches against ``want``; then the eager loop at the same noise (x0
+    bit-equal, the same launches) and one traced graph call
+    (:func:`graph_vs_eager`, with ``profile``)."""
+    import torch
+    from ldmseg_torch.ops.panoptic import panoptic_post_process
+    trainer.sample_panoptic_clip(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, x0 = trainer.sample_panoptic_clip(batch)
+    cleaned, _ = panoptic_post_process(
+        logits, mask_th=trainer.mask_th, count_th=trainer.count_th,
+        overlap_th=trainer.overlap_th, ignore_label=trainer.ignore_label)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    h, w = CLIP_HW
+    check(tuple(logits.shape) == (CLIP_T, h, w, trainer.num_classes)
+          and bool(torch.isfinite(logits).all())
+          and tuple(x0.shape) == (CLIP_T, h // 8, w // 8, 4)
+          and tuple(cleaned.shape) == (CLIP_T, h, w),
+          f"{label}: logits, x0 or post-process of the wrong shape or not "
+          f"finite")
+    check(counts == want, f"{label}: launched {counts}, expected {want}")
+    eager = graph_vs_eager(
+        label, lambda g: trainer.sample_panoptic_clip(batch, graph=g), x0,
+        counts, smi_line, profile=profile)
+    return {"seconds": secs, "frames_per_s": CLIP_T / secs,
+            "peak_bytes": peak, "counts": counts, "eager": eager}, x0, \
+        cleaned
+
+
+def phase_clip_sample(smi_line: str, seed: int = 0):
+    """Phase 46: ``sample_panoptic_clip`` in the default deployment at full
+    width (the SD-1.4 UNet and image VAE, bf16, self-conditioning; seeded
+    random weights) on one static clip of 3 frames of 256x512 with a
+    full-size ``PoseExpNet`` attached: DDIM 50, then the pose warp and a
+    15-step DDIM tail (``refine_strength`` 0.3), both passes CUDA graphs:
+    16 x 65 = 1,040 K1 a call on the counters and in one traced graph call,
+    the graph bit-equal to the eager loop (the whole call, and the first
+    pass alone with ``pose_warp=False``); then, at the same per-frame noise
+    (``repeat_noise=False``), the warped call's frames disagree less than
+    the unwarped call's."""
+    import numpy as np
+    import torch
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+
+    trainer = TrainerDiffusion(_config())
+    trainer.init_params(seed=seed)
+    _attach_random_pose(trainer)
+    batch = _static_clip(CLIP_HW)
+    steps = trainer.num_inference_steps
+    k = _refine_steps(steps)
+    res, x0, cleaned = _clip_call(
+        trainer, batch, "phase 46 bf16 clip", _expect(K1=16 * (steps + k)),
+        smi_line)
+    # frame consistency at the same per-frame noise, warped or not; the
+    # unwarped call (the first pass alone) against its eager loop too
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    lh, lw = CLIP_HW[0] // 8, CLIP_HW[1] // 8
+    init = torch.randn((1, CLIP_T, lh, lw, 4), generator=gen, device="cuda")
+    refine = torch.randn((1, 1, lh, lw, 4), generator=gen, device="cuda")
+
+    def clip_x0(pose_warp, graph=None):
+        return trainer.sample_panoptic_clip(
+            batch, init_noise=init, refine_noise=refine, repeat_noise=False,
+            pose_warp=pose_warp, graph=graph)[1]
+
+    def disagreement(x):
+        return float((x[1:] - x[:-1]).abs().mean())
+    unwarped = clip_x0(False)
+    _zero_counts()
+    first_eager = clip_x0(False, graph=False)
+    torch.cuda.synchronize()
+    check(torch.equal(first_eager, unwarped)
+          and _counts() == _expect(K1=16 * steps),
+          f"phase 46: the first pass's graph differs from its eager loop "
+          f"(launches {_counts()})")
+    warped, plain = disagreement(clip_x0(True)), disagreement(unwarped)
+    check(warped < plain, f"phase 46: the warped clip's frames disagree "
+          f"{warped} >= the unwarped clip's {plain}")
+    prof = res["eager"]["graph_profile"]
+    print(f"phase 46 sample_panoptic_clip (bf16, DDIM {steps} + a {k}-step "
+          f"DDIM tail, both CUDA graphs, 1 clip x {CLIP_T} x "
+          f"{CLIP_HW[0]}x{CLIP_HW[1]}, PoseExpNet attached): "
+          f"{res['seconds']:.3f} s a call, {res['frames_per_s']:.3f} "
+          f"frames/s, kernels {_ms(prof.get('device_ms'))} ms, busy "
+          f"{_ms(prof.get('busy_share'))}, peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB, K1 {res['counts']['K1']}; "
+          f"the first pass alone bit-equal to its eager loop; frame "
+          f"disagreement warped {warped:.5f} vs unwarped {plain:.5f}"
+          f" [{smi_line}]", flush=True)
+    res.update({"x0": x0.float().cpu().numpy(),
+                "disagreement_warped": warped,
+                "disagreement_unwarped": plain})
+    gt = {"semseg": batch["semseg"][0], "instance": batch["instance"][0],
+          "cleaned": cleaned.cpu().numpy()}
+    del trainer
+    torch.cuda.empty_cache()
+    return res, gt
+
+
+def phase_clip_serving(smi_line: str, seed: int = 0):
+    """Phase 47: ``sample_panoptic_clip`` in the JAX bench's serving
+    configuration (``tools/bench.py:bench_config``: the int8 image VAE with
+    fused attention, the int8 UNet, bf16) on phase 46's clip, with DDIM 50
+    (a 15-step tail) and DPM-Solver++(2M) 20 (then a DDIM tail of 6 steps):
+    16 K3 and 16 K4 a step of either pass (1,040 and 416 a call) and one K1
+    D=512 a call (the 3 frames encode in one batch), the graphs bit-equal
+    to the eager loop; DDIM's: one traced graph call, and the x0 correlated
+    >= 0.9 with the same trainer's bf16 UNet on the same noise."""
+    import numpy as np
+    import torch
+    from ldmseg_torch.tools.bench import bench_config
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+
+    batch = _static_clip(CLIP_HW)
+    out = {}
+    for sampler, steps in (("ddim", 50), ("dpmpp_2m", 20)):
+        cfg = bench_config(True, sampler)
+        cfg["sampling_kwargs"]["num_inference_steps"] = steps
+        trainer = TrainerDiffusion(cfg)
+        trainer.init_params(seed=seed)
+        _attach_random_pose(trainer)
+        n = 16 * (steps + _refine_steps(steps))
+        label = f"phase 47 serving clip ({sampler} {steps})"
+        ddim = sampler == "ddim"
+        res, x0, _ = _clip_call(trainer, batch, label,
+                                _expect(K3=n, K4=n, K1w=1), smi_line,
+                                profile=ddim)
+        corr = None
+        if ddim:
+            trainer.int8_inference = False  # the same weights, bf16 UNet
+            try:
+                _, x0_bf16 = trainer.sample_panoptic_clip(batch)
+            finally:
+                trainer.int8_inference = True
+            corr = float(np.corrcoef(
+                x0.float().cpu().numpy().ravel(),
+                x0_bf16.float().cpu().numpy().ravel())[0, 1])
+            check(corr >= 0.9, f"{label}: x0 correlation with bf16 {corr}")
+        prof = res["eager"]["graph_profile"] or {}
+        print(f"{label}: {res['seconds']:.3f} s a call, "
+              f"{res['frames_per_s']:.3f} frames/s, kernels "
+              f"{_ms(prof.get('device_ms'))} ms, busy "
+              f"{_ms(prof.get('busy_share'))}, peak memory "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB, launches "
+              f"{res['counts']}; x0 correlation with the bf16 UNet's "
+              f"{_ms(corr)} [{smi_line}]", flush=True)
+        res["x0_correlation_with_bf16"] = corr
+        out[sampler] = res
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_clip_train(smi_line: str, seed: int = 0, timed: int = 2):
+    """Phase 48: clip training at full width: ``train_loop`` on 2 clips x 3
+    frames of 192x640 (``ClipDataset`` of ``SyntheticDVPS``) with
+    ``temporal_consistency_weight`` 0.1 and a full-size pose net attached
+    (bf16 on fp32 masters, self-conditioning, AdamW): 1 warm-up and
+    ``timed`` timed steps, 32 K1 and 16 K2 a step; a finite consistency
+    term > 0, every trained parameter changed; one step's loss and
+    gradients on K1/K2 against the same step on the plain attention (loss
+    1e-2, cosine >= 0.99), as phase 6."""
+    import torch
+    from ldmseg_torch.data import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.data.video import ClipDataset
+    from ldmseg_torch.models.unet import CrossAttention
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import merge_dicts
+
+    clips = ClipDataset(SyntheticDVPS(length=2 * CLIP_TRAIN_CLIPS * CLIP_T,
+                                      size=TRAIN_HW, num_bits=8,
+                                      frames_per_scene=CLIP_T),
+                        clip_len=CLIP_T)
+    cfg = merge_dicts(_train_config(), {"train_kwargs": {
+        "batch_size": CLIP_TRAIN_CLIPS, "video_clips": CLIP_T,
+        "temporal_consistency_weight": 0.1}})
+    trainer = TrainerDiffusion(cfg, dataset=clips)
+    trainer.init_params(seed=seed)
+    _attach_random_pose(trainer)
+    unet = trainer.unet
+    masters = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    warm = trainer.train_loop(max_steps=1, log_every=1, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train_loop(max_steps=timed, log_every=timed,
+                                seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == _expect(K1=32 * timed, K2=16 * timed),
+          f"clip train steps launched {counts}, expected {32 * timed} K1 "
+          f"and {16 * timed} K2")
+    check(all(math.isfinite(x) for x in warm + losses),
+          f"clip train losses {warm + losses}")
+    moved = [not torch.equal(p.detach(), masters[n])
+             for n, p in unet.named_parameters()
+             if not n.startswith("time_embedding")]
+    check(all(moved), f"{moved.count(False)} trained parameters unchanged")
+    del masters
+    batch = collate([clips[0], clips[1]])
+    frames = CLIP_TRAIN_CLIPS * CLIP_T
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    lh, lw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    noise = torch.randn((frames, lh, lw, 4), generator=gen, device=dev)
+    steps = torch.randint(0, 1000, (CLIP_TRAIN_CLIPS,), generator=gen,
+                          device=dev).repeat_interleave(CLIP_T)
+    attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    results = {}
+    for fused in (True, False):
+        for m in attn:
+            m.use_fused = fused
+        trainer.state.zero_grad()
+        loss, metrics, _ = trainer.forward_backward(batch, noise=noise,
+                                                    timesteps=steps)
+        results[fused] = (loss.item(), float(metrics["consistency"]),
+                          _flat_grads(unet))
+    for m in attn:
+        m.use_fused = True
+    trainer.state.zero_grad()
+    (loss_f, cons_f, g_f), (loss_p, cons_p, g_p) = results[True], \
+        results[False]
+    cos = (torch.dot(g_f, g_p) / (g_f.norm() * g_p.norm())).item()
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    del results, g_f, g_p
+    check(math.isfinite(cons_f) and cons_f > 0,
+          f"the consistency term is {cons_f}")
+    check(loss_rel <= 1e-2, f"clip train loss on K1/K2 vs plain: rel "
+          f"{loss_rel}")
+    check(cos >= 0.99, f"clip gradient cosine on K1/K2 vs plain: {cos}")
+    print(f"phase 48 clip train_loop: {timed} steps of {CLIP_TRAIN_CLIPS} "
+          f"clips x {CLIP_T} x {TRAIN_HW[0]}x{TRAIN_HW[1]} with the pose "
+          f"net and temporal_consistency_weight 0.1: "
+          f"{secs / timed:.4f} s/step, {frames * timed / secs:.3f} frames/s,"
+          f" peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} held "
+          f"before the window), launches K1 {counts['K1']}"
+          f" / K2 {counts['K2']}; consistency {cons_f:.5f} (plain "
+          f"{cons_p:.5f}), loss {loss_f:.6f} vs plain {loss_p:.6f} (rel "
+          f"{loss_rel:.2e}), gradient cosine {cos:.6f} [{smi_line}]",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"seconds_per_step": secs / timed, "peak_bytes": peak,
+            "held_bytes": held, "counts": counts, "consistency": cons_f,
+            "loss_rel": loss_rel, "grad_cosine": cos, "losses": warm + losses}
+
+
+def phase_pose_train(smi_line: str, seed: int = 0):
+    """Phase 49: ``TrainerPose`` at full size (``PoseExpNet(nb_ref_imgs=2,
+    output_exp=True)``, fp32, AdamW) on batches of 4 clips of 3 frames of
+    192x640: 1 warm-up and 3 timed steps; the photometric and mask terms
+    finite, every parameter that a loss term reaches changed. No
+    hand-written kernel runs here (0 launches)."""
+    import os
+    import tempfile
+    import torch
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.data.video import ClipDataset
+    from ldmseg_torch.train.trainer_pose import TrainerPose
+    from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
+
+    clips = ClipDataset(SyntheticDVPS(length=POSE_BATCH * CLIP_T,
+                                      size=TRAIN_HW, num_bits=8,
+                                      frames_per_scene=CLIP_T),
+                        clip_len=CLIP_T)
+    cfg = merge_dicts(DEFAULT_CONFIG, {"train_kwargs": {
+        "batch_size": POSE_BATCH, "train_num_steps": 1 + POSE_STEPS}})
+    with tempfile.TemporaryDirectory() as root:
+        trainer = TrainerPose(cfg, dataset=clips, results_folder=root,
+                              nb_ref_imgs=CLIP_T - 1, output_exp=True)
+        trainer.init_params(seed=seed)
+        before = {n: p.detach().clone()
+                  for n, p in trainer.model.named_parameters()}
+        trainer.train_loop(seed=seed, max_steps=1, log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses = trainer.train_loop(seed=seed + 1, max_steps=POSE_STEPS,
+                                    log_every=POSE_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        from ldmseg_torch.data import collate
+        batch = collate([clips[i] for i in range(POSE_BATCH)])
+        with torch.no_grad():
+            _, parts = trainer.forward_loss(batch)
+        photo, mask = float(parts["photo"]), float(parts["mask_reg"])
+        path = trainer.save(step=1 + POSE_STEPS)
+        ckpt_bytes = os.path.getsize(path)
+    check(counts == _expect(), f"TrainerPose launched {counts}")
+    check(all(math.isfinite(x) for x in losses + [photo, mask])
+          and photo > 0 and mask > 0,
+          f"TrainerPose losses {losses}, photo {photo}, mask {mask}")
+    # the coarser masks (predict_mask2-4) feed no loss term
+    unused = ("predict_mask2", "predict_mask3", "predict_mask4")
+    moved = [not torch.equal(p.detach(), before[n])
+             for n, p in trainer.model.named_parameters()
+             if not n.startswith(unused)]
+    check(all(moved), f"{moved.count(False)} pose parameters unchanged")
+    print(f"phase 49 TrainerPose: {POSE_STEPS} steps of {POSE_BATCH} clips "
+          f"x {CLIP_T} x {TRAIN_HW[0]}x{TRAIN_HW[1]}, PoseExpNet with the "
+          f"explainability decoder, fp32: {secs / POSE_STEPS:.4f} s/step, "
+          f"peak memory {peak / 2**30:.2f} GiB; photo {photo:.5f}, mask_reg"
+          f" {mask:.5f}; checkpoint {ckpt_bytes} bytes; no hand-written "
+          f"kernel runs here (launches {counts}) [{smi_line}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"seconds_per_step": secs / POSE_STEPS, "peak_bytes": peak,
+            "losses": losses, "photo": photo, "mask_reg": mask,
+            "checkpoint_bytes": ckpt_bytes}
+
+
+def _crowded_pair(hw=(256, 512), block: int = 8, seed: int = 7):
+    """A prediction and a ground truth of about 400 distinct ids each (8
+    thing classes x 50 instances on a grid of blocks), the prediction a
+    fifth resampled: a window past 256 segments."""
+    import numpy as np
+    from ldmseg_torch.evals.vpq import MAX_INS
+    rng = np.random.RandomState(seed)
+    hs, ws = hw[0] // block, hw[1] // block
+
+    def ids():
+        return rng.randint(0, 8, (hs, ws)) * MAX_INS + rng.randint(
+            0, 50, (hs, ws))
+    up = np.ones((block, block), dtype=np.int64)
+    gt = np.kron(ids(), up)
+    pred = gt.copy()
+    m = np.kron(rng.rand(hs, ws) < 0.2, up).astype(bool)
+    pred[m] = np.kron(ids(), up)[m]
+    return pred // MAX_INS, pred % MAX_INS, gt // MAX_INS, gt % MAX_INS
+
+
+def phase_vpq(smi_line: str, clip_gt: dict):
+    """Phase 50: VPQ statistics on the card (``evals/vpq.py:
+    vpq_eval_device``) for each 2-frame window of phase 46's post-processed
+    maps (class-agnostic: ``cat`` 0, ``ins`` the panoptic id, as
+    ``predict`` writes them) against the clip's ground truth, and for a
+    crowded pair of frames (over 256 segments a map, so that
+    ``evaluate_dvpq``'s exact count grows ``max_seg``): tp, fn and fp equal
+    to the numpy oracle's, iou within 1e-5, ``evaluate_dvpq`` on the card
+    equal to the oracle's scores; device and host ms a window."""
+    import numpy as np
+    import torch
+    from ldmseg_torch.evals import (count_segments_device, dvpq_windows,
+                                    evaluate_dvpq, grown_max_seg,
+                                    vpq_eval_device, vpq_eval_np)
+
+    cleaned = clip_gt["cleaned"]
+    ins = [np.maximum(c, 0) for c in cleaned]
+    cat = [np.zeros_like(i) for i in ins]
+    gt_cat = list(clip_gt["semseg"])
+    gt_ins = list(clip_gt["instance"])
+    pc, pi, gc, gi = _crowded_pair()
+    sets = {"phase 46 clip": (cat, ins, gt_cat, gt_ins),
+            "crowded": ([pc, pc], [pi, pi], [gc, gc], [gi, gi])}
+    out = {}
+    for name, frames in sets.items():
+        dev_ms, host_ms, segs = [], [], []
+        for pred, gt in dvpq_windows(*frames, eval_frames=2):
+            p, g = torch.from_numpy(pred).cuda(), torch.from_numpy(gt).cuda()
+            n_gt, n_pred = (int(x) for x in count_segments_device(p, g))
+            check((n_gt, n_pred) == (len(np.unique(gt)),
+                                     len(np.unique(pred))),
+                  f"phase 50 {name}: segment counts {(n_gt, n_pred)}")
+            seg = grown_max_seg(max(n_gt, n_pred))
+            segs.append((n_gt, n_pred, seg))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ours = [x.cpu().numpy() for x in vpq_eval_device(p, g,
+                                                              max_seg=seg)]
+            dev_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            ref = vpq_eval_np(pred, gt)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            for a, b, what in zip(ours, ref, ("iou", "tp", "fn", "fp")):
+                ok = (np.allclose(a, b, rtol=0, atol=1e-5) if what == "iou"
+                      else np.array_equal(a, b))
+                check(ok, f"phase 50 {name}: {what} {a} vs the oracle's {b}")
+        scores = evaluate_dvpq(*frames, eval_frames=2)
+        host = evaluate_dvpq(*frames, eval_frames=2, device="host")
+        check(all(abs(scores[k] - host[k]) <= 1e-6 * max(1.0, abs(host[k]))
+                  for k in ("pq", "tpq", "spq")),
+              f"phase 50 {name}: evaluate_dvpq {scores} vs the oracle's "
+              f"{host}")
+        out[name] = {"segments": segs, "device_ms": dev_ms,
+                     "host_ms": host_ms, "pq": scores["pq"]}
+        print(f"phase 50 VPQ on the card, {name}: {len(dev_ms)} windows of "
+              f"2 frames, segments (gt, pred, max_seg) {segs}: counts equal "
+              f"to the numpy oracle's, iou within 1e-5, PQ {scores['pq']:.3f}"
+              f" equal to the oracle's; device {_ms(min(dev_ms))} ms a "
+              f"window (host clock, the read-back included), numpy "
+              f"{_ms(min(host_ms))} ms [{smi_line}]", flush=True)
+    check(max(s[2] for s in out["crowded"]["segments"]) > 256,
+          "phase 50: the crowded window did not grow max_seg")
+    return out
+
+
+def phase_video_cli(smi_line: str):
+    """Phase 51: the video command lines chained on the card in a temporary
+    directory, each reading the file the one before wrote: ``main_pose``
+    (synthetic preset, 2 steps at batch 4 of 3-frame clips) -> ``main_ldm
+    video_clips=3 pose_model_kwargs.pretrained_path=...`` (a narrow UNet,
+    as phase 38; 2 steps at batch 2 clips with
+    ``temporal_consistency_weight`` 0.1; 32 K1 and 16 K2 a step on its 4
+    attention sites, then its ``compute_pq``) -> ``predict clips=3`` (that
+    run's checkpoint and the pose net: 2 clips, 2 DDIM steps and a 1-step
+    tail) -> ``eval_dvpq`` on the written PNGs against the ground truth
+    of those frames, on the card and with the numpy oracle: equal
+    scores."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.data.video import ClipDataset
+    from ldmseg_torch.tools import eval_dvpq, main_ldm, main_pose, predict
+
+    narrow = ["train_kwargs.self_condition=True",
+              "train_kwargs.weight_dtype=bfloat16",
+              "model_kwargs.block_out_channels=[64,128]",
+              "model_kwargs.layers_per_block=1",
+              "model_kwargs.attn_down=[True,False]",
+              "sampling_kwargs.num_inference_steps=2"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _zero_counts()
+        pose = main_pose.main(["train_kwargs.train_num_steps=2",
+                               "train_kwargs.batch_size=4", "clip_len=3",
+                               f"output_dir={root}/pose", "run_idx=0"])
+        torch.cuda.synchronize()
+        pose_s = time.perf_counter() - t0
+        ckpt = os.path.join(root, "pose", "run_0", "checkpoints", "step_2")
+        check(pose.state.step == 2 and os.path.exists(ckpt)
+              and _counts() == _expect(),
+              f"main_pose: step {pose.state.step}, launches {_counts()}")
+        del pose
+        _zero_counts()
+        t0 = time.perf_counter()
+        ldm = main_ldm.main(narrow + [
+            "train_kwargs.train_num_steps=2", "train_kwargs.batch_size=2",
+            "train_kwargs.video_clips=3",
+            "train_kwargs.temporal_consistency_weight=0.1",
+            f"pose_model_kwargs.pretrained_path={ckpt}",
+            "eval_first=False", f"output_dir={root}/ldm", "run_idx=0"])
+        torch.cuda.synchronize()
+        ldm_s = time.perf_counter() - t0
+        counts = _counts()
+        calls = min(-(-len(ldm.ds_val) // ldm.batch_size), 4)
+        sites = 4
+        want = _expect(K1=2 * sites * 2 + sites * 2 * calls, K2=sites * 2)
+        check(counts == want, f"main_ldm on clips launched {counts}, "
+              f"expected {want}")
+        check(ldm.state.step == 2 and ldm.pose_model is not None
+              and ldm.ds.clip_len == 3,
+              f"main_ldm on clips stopped at {ldm.state.step}")
+        del ldm
+        torch.cuda.empty_cache()
+        preds = os.path.join(root, "preds")
+        _zero_counts()
+        t0 = time.perf_counter()
+        written = predict.main(narrow + [
+            "clips=3", "max_batches=1", "eval_kwargs.batch_size=2",
+            f"pose_model_kwargs.pretrained_path={ckpt}",
+            f"checkpoint={root}/ldm/run_0/checkpoints/step_2",
+            f"out_dir={preds}"])
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        pcounts = _counts()
+        check(written == 6 and pcounts == _expect(K1=sites * (2 + 1) * 1),
+              f"predict clips=3 wrote {written} pairs, launched {pcounts}")
+        # the ground truth of the frames predict wrote (its val clips)
+        val = ClipDataset(SyntheticDVPS(length=16, size=TRAIN_HW,
+                                        num_classes=20, num_bits=5),
+                          clip_len=3, stride=3)
+        gt_dir = os.path.join(root, "gt")
+        os.makedirs(gt_dir)
+        for clip in val.clips[:2]:
+            for i in clip:
+                f = val.base[i]
+                stem = f"{f['meta']['image_id']:012d}"
+                Image.fromarray(f["semseg"].astype(np.uint8)).save(
+                    os.path.join(gt_dir, f"{stem}_gtFine_class.png"))
+                Image.fromarray(f["instance"].astype(np.uint8)).save(
+                    os.path.join(gt_dir, f"{stem}_gtFine_instance.png"))
+        args = ["--pan_dir", preds, "--gt_dir", gt_dir, "--eval_frames", "2"]
+        t0 = time.perf_counter()
+        scores = eval_dvpq.main(args)
+        eval_s = time.perf_counter() - t0
+        host = eval_dvpq.main(args + ["--host"])
+        check(all(abs(scores[k] - host[k]) <= 1e-6 * max(1.0, abs(host[k]))
+                  for k in ("pq", "tpq", "spq")),
+              f"eval_dvpq on the card {scores} vs the oracle's {host}")
+    print(f"phase 51 video CLIs: main_pose (2 steps, batch 4 clips of "
+          f"192x640) {pose_s:.1f} s; main_ldm video_clips=3 with its pose "
+          f"net (2 steps, batch 2 clips, PQ at 2 DDIM steps, {calls} calls)"
+          f" {ldm_s:.1f} s, launches {counts}; predict clips=3 ({written} "
+          f"frames, launches {pcounts}) {predict_s:.1f} s; eval_dvpq on the"
+          f" card {eval_s:.2f} s, PQ {scores['pq']:.3f} equal to the "
+          f"oracle's [{smi_line}]", flush=True)
+    return {"main_pose_seconds": pose_s, "main_ldm_seconds": ldm_s,
+            "predict_seconds": predict_s, "eval_dvpq_seconds": eval_s,
+            "counts": counts, "predict_counts": pcounts}
+
+
 _T0 = time.perf_counter()
 
 
@@ -4985,6 +5575,18 @@ def main() -> int:
         lap("phases 43-44")
         codec = phase_codec(smi_line)
         lap("phase 45")
+        # video and pose
+        clip_sample, clip_gt = phase_clip_sample(smi_line)
+        lap("phase 46")
+        clip_serving = phase_clip_serving(smi_line)
+        lap("phase 47")
+        clip_train = phase_clip_train(smi_line)
+        pose_train = phase_pose_train(smi_line)
+        lap("phases 48-49")
+        vpq = phase_vpq(smi_line, clip_gt)
+        video_cli = phase_video_cli(smi_line)
+        lap("phases 50-51")
+        clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
         packed_sample.pop("x0")
@@ -5020,7 +5622,10 @@ def main() -> int:
             "lifecycle": lifecycle, "stage1_train": ae_train,
             "stage1_to_stage2": stage1_to_2, "remat_train": remat_train,
             "train_options": train_options, "k1_wide": k1w_rows,
-            "int8_vaes": vaes, "serving": serving, "codec": codec}}),
+            "int8_vaes": vaes, "serving": serving, "codec": codec,
+            "clip_sample": clip_sample, "clip_serving": clip_serving,
+            "clip_train": clip_train, "pose_train": pose_train,
+            "vpq": vpq, "video_cli": video_cli}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -5085,6 +5690,19 @@ def main() -> int:
                               ("dpmpp_2m", "20 DPM-Solver++(2M) steps")):
             paths[f"sample_panoptic, the JAX bench's serving configuration, "
                   f"{what}"] = serving[sampler]["default scales"]["counts"]
+        paths["sample_panoptic_clip, bf16, 1 clip of 3 frames: DDIM 50 + a "
+              "15-step DDIM tail"] = clip_sample["counts"]
+        for sampler, what in (("ddim", "DDIM 50 + a 15-step DDIM tail"),
+                              ("dpmpp_2m", "DPM-Solver++(2M) 20 + a 6-step "
+                                           "DDIM tail")):
+            paths[f"sample_panoptic_clip, the JAX bench's serving "
+                  f"configuration, {what}"] = clip_serving[sampler]["counts"]
+        paths["train_loop on 2 clips of 3 frames with the consistency "
+              "term, 2 steps"] = clip_train["counts"]
+        paths["main_ldm video_clips=3: 2 train steps, compute_pq (2 DDIM "
+              "steps)"] = video_cli["counts"]
+        paths["predict clips=3: 2 clips, 2 DDIM steps + a 1-step tail"] = (
+            video_cli["predict_counts"])
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}

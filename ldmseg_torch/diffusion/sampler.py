@@ -18,7 +18,7 @@ the replays (:class:`~..ops.counters.CountReplay`). A capture that fails
 raises; it never falls back to the eager loop. ``graph=False`` asks for the
 eager loop, which the CPU always runs. :func:`run_steps` is that loop for
 any step on static buffers; ``diffusion/dpm.py`` runs DPM-Solver++(2M) on
-it.
+it, and :func:`ddim_refine` the low-noise tail of the DDIM table.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from .ddim import DDIMSchedule, StepTable, step_table, table_step
+from .ddim import DDIMSchedule, StepTable, add_noise, step_table, table_step
 
 ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], torch.Tensor],
                    torch.Tensor]
@@ -70,6 +70,46 @@ def ddim_sample(sched: DDIMSchedule, model_fn: ModelFn,
     if return_all:
         return x0, torch.stack(traj)
     return x0
+
+
+def ddim_refine(sched: DDIMSchedule, model_fn: ModelFn, x0: torch.Tensor,
+                noise: torch.Tensor, num_inference_steps: int = 50,
+                strength: float = 0.3, self_condition: bool = False,
+                tmin: int = 0, graph: Optional[bool] = None) -> torch.Tensor:
+    """Partial (SDEdit-style) DDIM (JAX ``sampler.py:ddim_refine``):
+    re-noise the x0 estimate ``x0`` with ``noise`` to the timestep
+    ``strength`` of the way up the inference schedule, then run only the
+    last k = max(1, min(S, round(strength * S))) steps of the S-step table
+    that :func:`ddim_sample` runs (the same rows of
+    :func:`~.ddim.step_table`), the self-condition starting at zeros.
+    ``add_noise`` at the first of those timesteps takes no
+    ``init_noise_sigma`` factor. Returns the last step's predicted x0, in
+    fresh buffers (``x0`` is not written). ``graph`` as in
+    :func:`ddim_sample`: on a CUDA tensor the steps replay a graph
+    captured afresh for this call."""
+    cuda = x0.device.type == "cuda"
+    if graph is None:
+        graph = cuda
+    if graph and not cuda:
+        raise ValueError("ddim_refine(graph=True) needs CUDA latents; "
+                         f"got {x0.device}")
+    table = step_table(sched, num_inference_steps, tmin)
+    n = len(table)
+    if n == 0:
+        raise ValueError(f"ddim_refine: no timestep left above tmin={tmin}")
+    k = max(1, min(n, int(round(strength * n))))
+    t_start = torch.full((x0.shape[0],), int(table.host_timesteps[-k]),
+                         dtype=torch.long, device=x0.device)
+    latents = add_noise(sched, x0, noise, t_start)
+    condition = torch.zeros_like(latents) if self_condition else None
+    out = torch.zeros_like(latents)
+    # the step index starts at the tail's first row of the full table
+    idx = torch.full((1,), n - k, dtype=torch.long, device=latents.device)
+    step = functools.partial(_step, sched, table, model_fn, latents,
+                             condition, out, idx)
+    run_steps(step, k, latents, graph, False, "ddim_refine",
+              "the DDIM refine step")
+    return out
 
 
 def _step(sched, table: StepTable, model_fn, latents, condition, x0, idx):

@@ -245,3 +245,31 @@ def seg_vae_state_dict_from_jax(params: Mapping, config: Mapping
         else:
             sd["codebook.weight"] = _t(root["codebook"])
     return sd
+
+
+def pose_state_dict_from_jax(params: Mapping,
+                             output_exp: bool = False) -> StateDict:
+    """JAX ``PoseExpNet`` tree -> :class:`~.posenet.PoseExpNet` state dict,
+    with the ``upconv*`` and ``predict_mask*`` leaves when ``output_exp``.
+    A tree trained with ``output_exp`` converts for a model without it
+    (those leaves dropped, as Flax ignores them); any other missing or
+    extra leaf raises."""
+    from .posenet import DECODER_PREFIXES, PLANES, UP_PLANES
+    root = _root(params)
+    encoder = [f"conv{i + 1}" for i in range(len(PLANES))] + ["pose_pred"]
+    decoder = ([f"upconv{5 - i}" for i in range(len(UP_PLANES))]
+               + [f"predict_mask{4 - i}" for i in range(len(UP_PLANES) - 1)])
+    want = set(encoder) | (set(decoder) if output_exp else set())
+    have = {k for k in root if output_exp or not k.startswith(
+        DECODER_PREFIXES)}
+    if have != want:
+        raise KeyError(f"PoseExpNet tree: missing {sorted(want - have)}, "
+                       f"extra {sorted(have - want)}")
+    sd: StateDict = {}
+    for name in encoder:
+        _conv(sd, name, root[name])
+    if output_exp:
+        for name in decoder:
+            (_conv_transpose if name.startswith("upconv") else _conv)(
+                sd, name, root[name])
+    return sd

@@ -8,8 +8,12 @@
 Composes the config (defaults, a YAML file, the dataset preset, the dot
 overrides), makes the run directory (``<output_dir>/run_<idx>`` with its
 ``config.json``), builds the trainer on the card (``device=cpu`` for the
-plain PyTorch path), adopts the weights (:func:`load_weights`), resumes
-from the newest ``step_*`` checkpoint of the run, evaluates once (unless
+plain PyTorch path), with ``train_kwargs.video_clips=T`` on T-frame clips
+of the train split (:class:`~..data.video.ClipDataset`), adopts a pose net
+of ``main_pose`` from ``pose_model_kwargs.pretrained_path`` (the
+temporal-consistency term with ``train_kwargs.temporal_consistency_weight``),
+adopts the weights (:func:`load_weights`), resumes from the newest
+``step_*`` checkpoint of the run, evaluates once (unless
 ``eval_first=False``; ``eval_only=True`` stops there), trains to
 ``train_kwargs.train_num_steps`` with a checkpoint every ``save_every``
 optimizer steps, saves, and scores PQ on 4 val batches with the best-PQ
@@ -85,6 +89,23 @@ def load_weights(trainer, cfg: dict, seed: int = 0) -> None:
     trainer.load_state_dicts(unet, vae_img, vae_seg, seed=seed)
 
 
+def attach_pose_from_config(trainer, cfg: dict) -> bool:
+    """Adopt the pose net of ``pose_model_kwargs.pretrained_path`` (a
+    ``main_pose`` checkpoint; ``nb_ref_imgs`` from the file unless the
+    config gives it), without its explainability decoder, as JAX's
+    ``main_ldm`` and ``predict`` do. Returns whether one was attached."""
+    from ..train.trainer_pose import load_pose_checkpoint
+    pk = cfg.get("pose_model_kwargs") or {}
+    if not pk.get("pretrained_path"):
+        return False
+    model, sd = load_pose_checkpoint(pk["pretrained_path"],
+                                     pk.get("nb_ref_imgs"))
+    trainer.attach_pose(model, sd)
+    print(f"Attached pose net ({model.nb_ref_imgs} ref frames) from "
+          f"{pk['pretrained_path']}", flush=True)
+    return True
+
+
 def main(argv=None):
     """Run the stage-2 pipeline; returns the trainer."""
     from ..train.trainer_ldm import TrainerDiffusion
@@ -103,18 +124,21 @@ def main(argv=None):
     cfg = load_config(config_path)
     cfg = merge_dicts(cfg, DATASET_PRESETS.get(dataset, {}))
     cfg = merge_dicts(cfg, overrides)
-    if (cfg.get("pose_model_kwargs") or {}).get("pretrained_path"):
-        raise NotImplementedError(
-            "pose_model_kwargs.pretrained_path: the pose net is not ported "
-            "yet (ROADMAP.md queue 9)")
     cfg = prepare_config(cfg, output_dir, run_idx)
     print(f"Run dir: {cfg['output_dir']}", flush=True)
 
     train_ds, val_ds = build_datasets(cfg, prefix)
+    clip_len = cfg["train_kwargs"].get("video_clips")
+    if clip_len:
+        from ..data.video import ClipDataset
+        train_ds = ClipDataset(train_ds, clip_len=int(clip_len))
+        print(f"Clip training: {len(train_ds)} clips of {clip_len}",
+              flush=True)
     trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
                                device=device, dataset=train_ds,
                                val_dataset=val_ds,
                                results_folder=cfg["checkpoint_dir"])
+    attach_pose_from_config(trainer, cfg)
     load_weights(trainer, cfg)
     trainer.resume()
 

@@ -15,7 +15,10 @@ post-process under the batch's mask. The segments are class-agnostic
 instances: ``ins`` is the panoptic id (0 where none), ``cat`` is 0. The
 UNet is built as ``main_ldm`` builds it, from the same overrides; a
 ``checkpoint`` of ``main_ldm`` is resumed (its EMA with ``ema_on``).
-``clips=`` (pose-warped video sampling) raises: the pose net is not ported.
+With ``clips=T`` the val frames are grouped into T-frame clips (stride T)
+and sampled by ``sample_panoptic_clip``: clip-shared noise, and with a pose
+net of ``main_pose`` (``pose_model_kwargs.pretrained_path``) the
+pose-warped blend refined by a DDIM tail; the pairs are written per frame.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ def main(argv=None):
     from ..train.trainer_ldm import TrainerDiffusion
     from ..utils.config import load_config, merge_dicts, parse_dot_overrides
     from .main_ae import DATASET_PRESETS, build_datasets
-    from .main_ldm import build_unet_config, load_weights
+    from .main_ldm import (attach_pose_from_config, build_unet_config,
+                           load_weights)
 
     overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
     dataset = overrides.pop("datasets", "synthetic")
@@ -44,10 +48,7 @@ def main(argv=None):
     max_batches = overrides.pop("max_batches", None)
     image_only = bool(overrides.pop("image_only", False))
     device = overrides.pop("device", "cuda")
-    if overrides.pop("clips", None):
-        raise NotImplementedError(
-            "predict clips=: pose-consistent clip sampling is not ported "
-            "yet (ROADMAP.md queue 9)")
+    clip_len = overrides.pop("clips", None)
 
     cfg = load_config(config_path)
     cfg = merge_dicts(cfg, DATASET_PRESETS.get(dataset, {}))
@@ -55,9 +56,15 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
     _, val_ds = build_datasets(
         cfg, prefix, val_kwargs={"image_only": True} if image_only else None)
+    if clip_len:
+        from ..data.video import ClipDataset
+        val_ds = ClipDataset(val_ds, clip_len=int(clip_len),
+                             stride=int(clip_len))
     trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
                                device=device, val_dataset=val_ds)
     load_weights(trainer, cfg)
+    if clip_len:
+        attach_pose_from_config(trainer, cfg)
     if checkpoint:
         trainer.resume(checkpoint)
 
@@ -70,7 +77,12 @@ def main(argv=None):
     batches = loader.epoch(0)
     try:
         for bi, batch in enumerate(batches):
-            logits, _ = trainer.sample_panoptic(batch, generator)
+            if clip_len:
+                from ..data.video import flatten_clip_batch
+                logits, _ = trainer.sample_panoptic_clip(batch, generator)
+                batch = flatten_clip_batch(batch)
+            else:
+                logits, _ = trainer.sample_panoptic(batch, generator)
             # the frames' size: image_only batches have no ground truth
             h, w = batch["image"].shape[-3:-1]
             cleaned = trainer.restore_resized(logits, (h, w), batch["mask"])

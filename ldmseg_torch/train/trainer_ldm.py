@@ -52,11 +52,20 @@ Training also takes the UNet's input dropout, gradient checkpointing
 (``remat_policy``), Adafactor, sampling the RGB posterior
 (``sample_posterior_rgb``, in training and sampling as in JAX) and image
 logging (:meth:`log_images_train`, :meth:`log_images_val`,
-:meth:`visualize_noise_schedule`). Video clips and pose consistency,
-classifier-free guidance, text descriptors, clip sampling, int8 clip
-sampling, wandb and the parallel modes are later slices: a config or an
-argument that asks for one of them raises ``NotImplementedError`` naming
-it.
+:meth:`visualize_noise_schedule`).
+
+Video clips (JAX :335-369, :569-690, :935-1088): a batch ``[B, T, ...]`` of
+:class:`~..data.video.ClipDataset` clips trains with its frames flattened
+clip-major onto the batch axis and one timestep per clip; with a pose net
+adopted by :meth:`attach_pose` and ``temporal_consistency_weight`` > 0 the
+loss gains the pose-warped temporal-consistency term on the frames' x0
+estimates. :meth:`sample_panoptic_clip` samples a clip batch with
+clip-shared noise, warps the middle frame's x0 into the others by the
+inverted predicted poses and refines the blend with a DDIM tail
+(:func:`~..diffusion.sampler.ddim_refine`), bf16 or int8, after a DDIM or
+DPM first pass. Classifier-free guidance, text descriptors, wandb and the
+parallel modes are later slices: a config that asks for one of them raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -73,15 +82,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.loader import make_loader, prefetch_to_device
+from ..data.video import clip_focal
 from ..diffusion.ddim import add_noise, make_ddim_schedule, remove_noise
 from ..diffusion.dpm import dpmpp_2m_sample
-from ..diffusion.sampler import ddim_sample
+from ..diffusion.sampler import ddim_refine, ddim_sample
+from ..losses.pose_consistency import (inverse_warp, invert_pose_mat,
+                                       pose_vec_to_mat)
 from ..losses.diffusion_losses import diffusion_loss
 from ..models.convert import (image_vae_state_dict_from_jax,
                               seg_vae_state_dict_from_jax,
                               unet_state_dict_from_jax)
 from ..models.image_vae import ImageVAE
 from ..models.layers import init_random_
+from ..models.posenet import PoseExpNet, load_pose_state_dict
 from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig, draw_input_dropout
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
@@ -94,6 +107,8 @@ from .state import TrainState
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+# the per-frame keys of a clip batch, flattened to [B*T, ...] for a step
+_FRAME_KEYS = ("image", "image_semseg", "semseg", "mask", "inpainting_mask")
 
 
 def _refuse_later_slices(p: Mapping) -> None:
@@ -108,10 +123,6 @@ def _refuse_later_slices(p: Mapping) -> None:
         "train_kwargs.image_descriptors": (
             tk.get("image_descriptors", "remove") != "remove",
             "text/CLIP descriptors, cross-attention and guidance"),
-        "train_kwargs.video_clips": (
-            tk.get("video_clips") is not None
-            or tk.get("temporal_consistency_weight", 0.0) > 0,
-            "video clips and pose consistency"),
         "optimizer_zero_redundancy": (
             p.get("optimizer_zero_redundancy", False),
             "ZeRO-1 optimizer-state sharding"),
@@ -231,6 +242,10 @@ class TrainerDiffusion(PanopticRestore):
         self.cond_noise_level = tk.get("cond_noise_level", 0)
         self.prob_train_on_pred = tk.get("prob_train_on_pred", 0.0)
         self.prob_inpainting = tk.get("prob_inpainting", 0.0)
+        # pose-consistent video training and sampling (attach_pose)
+        self.temporal_consistency_weight = tk.get(
+            "temporal_consistency_weight", 0.0)
+        self.pose_model: Optional[PoseExpNet] = None
         self.type_mask = tk.get("type_mask", "ignore")
         self.loss_type = tk.get("loss", "l2")
         self.ohem_ratio = tk.get("ohem_ratio", 1.0)
@@ -388,6 +403,9 @@ class TrainerDiffusion(PanopticRestore):
                 "leave sampling_kwargs.int8_auto_calibrate enabled")
         print("int8 inference on pretrained weights: calibrating per-site "
               "activation scales on this batch", flush=True)
+        image = batch["image"]
+        if image.ndim == 5:  # a clip batch: calibrate on its frames
+            batch = {"image": image.reshape((-1,) + tuple(image.shape[2:]))}
         self.calibrate_int8(batch, generator=generator)
 
     @torch.no_grad()
@@ -424,14 +442,101 @@ class TrainerDiffusion(PanopticRestore):
         return self._int8_act_scales
 
     # ------------------------------------------------------------------
+    # the pose net (JAX :331-372)
+    # ------------------------------------------------------------------
+    def attach_pose(self, pose_model: PoseExpNet,
+                    state_dict: Optional[Mapping] = None) -> None:
+        """Stage-3 handoff: adopt a trained :class:`PoseExpNet`, frozen,
+        for the clip-training temporal-consistency term and pose-warped
+        clip sampling. ``pose_model.nb_ref_imgs`` must be ``clip_len - 1``
+        (target = middle frame, refs = the rest). ``state_dict`` (the
+        port's keys; a JAX tree converts with
+        :func:`~..models.convert.pose_state_dict_from_jax`) is loaded with
+        :func:`~..models.posenet.load_pose_state_dict`; without it the
+        model keeps its weights. The weights are rounded to the compute
+        dtype and kept in fp32: the JAX trainer casts the frozen pose
+        params to the compute dtype and Flax promotes them by the fp32
+        frames, so its pose net computes in fp32 on bf16-rounded weights."""
+        if any(p.is_meta for p in pose_model.parameters()):
+            if state_dict is None:
+                raise ValueError("attach_pose: the pose model's parameters "
+                                 "are on the meta device; pass its "
+                                 "state_dict")
+            pose_model.to_empty(device=self.device)
+        if state_dict is not None:
+            load_pose_state_dict(pose_model, state_dict)
+        pose_model = pose_model.to(self.device).eval().requires_grad_(False)
+        with torch.no_grad():
+            for p in pose_model.parameters():
+                p.copy_(p.to(self.compute_dtype).float())
+        self.pose_model = pose_model
+
+    def _clip_poses(self, images_clip: torch.Tensor):
+        """``[B, T, H, W, 3]`` clip -> (poses ``[B, R, 6]``, mid, ref frame
+        indices): the middle frame is the target, the others in order (cut
+        to ``nb_ref_imgs``) the refs. No gradient reaches the pose net."""
+        t = images_clip.shape[1]
+        mid = t // 2
+        ref_idx = [i for i in range(t) if i != mid]
+        ref_idx = ref_idx[: self.pose_model.nb_ref_imgs]
+        frames = images_clip.float().permute(0, 1, 4, 2, 3)
+        with torch.no_grad():
+            _, pose = self.pose_model(frames[:, mid],
+                                      [frames[:, i] for i in ref_idx],
+                                      train=False)
+        return pose, mid, ref_idx
+
+    @staticmethod
+    def _latent_depth_focal(depth: torch.Tensor, focal: torch.Tensor,
+                            lh: int, lw: int):
+        """GT depth ``[B(, T), H, W]`` + focal ``[B]`` -> latent-res depth
+        (nearest with half-pixel centres, as ``jax.image.resize``) and the
+        focal scaled by the same downsampling factor."""
+        h, w = depth.shape[-2:]
+        d = F.interpolate(depth.float().reshape(-1, 1, h, w), size=(lh, lw),
+                          mode="nearest-exact")
+        d = d.reshape(tuple(depth.shape[:-2]) + (lh, lw))
+        return d, focal.float() * (lw / w)
+
+    def _clip_depth_focal(self, batch: Mapping):
+        """A clip batch's depth ``[B, T, H, W]`` (fp32, on the device) and
+        focal ``[B]``: each clip's first frame's ``meta['focal']``, KITTI's
+        707 where it gives none (or the batch has no meta)."""
+        depth = torch.as_tensor(batch["depth"], device=self.device).float()
+        focal = clip_focal(batch.get("meta"), depth.shape[0])
+        return depth, torch.from_numpy(focal).to(self.device)
+
+    def _consistency(self, x0p: torch.Tensor, clip_shape, pose_info
+                     ) -> torch.Tensor:
+        """The temporal-consistency term (JAX :665-690): each ref frame's
+        x0 latent warped onto the middle frame by the predicted pose and
+        the frame's depth, the L1 disagreement over the valid pixels and
+        the channels, averaged over the refs."""
+        bc, tt = clip_shape
+        x0c = x0p.reshape((bc, tt) + tuple(x0p.shape[1:]))
+        poses, mid, ref_idx, d_lat, f_lat = pose_info
+        total = 0.0
+        for i, r in enumerate(ref_idx):
+            warped, valid = inverse_warp(x0c[:, r], d_lat[:, mid],
+                                         poses[:, i], f_lat,
+                                         channels_last=False)
+            valid = valid.float()
+            num = ((warped - x0c[:, mid]).abs() * valid[:, None]).sum()
+            den = torch.clamp_min(valid.sum() * x0p.shape[1], 1.0)
+            total = total + num / den
+        return total / len(ref_idx)
+
+    # ------------------------------------------------------------------
     # shared by both paths
     # ------------------------------------------------------------------
     def _encode_rgb(self, image, generator: Optional[torch.Generator] = None,
-                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    noise: Optional[torch.Tensor] = None,
+                    sample: Optional[bool] = None) -> torch.Tensor:
         """ImageNet-normalised NHWC frames -> scaled RGB latents, NCHW
         fp32: the posterior's mode, or under ``sample_posterior_rgb`` a
         sample (``noise``, NCHW, or a draw from ``generator``), in training
-        and in sampling as in JAX (:409-423)."""
+        and in sampling as in JAX (:409-423). ``sample`` overrides the
+        config (clip sampling takes the mode, as JAX's)."""
         x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
         mean = torch.tensor(_IMAGENET_MEAN, dtype=x.dtype, device=x.device)
         std = torch.tensor(_IMAGENET_STD, dtype=x.dtype, device=x.device)
@@ -439,8 +544,9 @@ class TrainerDiffusion(PanopticRestore):
             self.compute_dtype) - 1.0
         rgb = rgb.permute(0, 3, 1, 2).contiguous()
         post = self.vae_img.encode(rgb)
-        lat = (post.sample(generator, noise) if self.sample_posterior_rgb
-               else post.mode())
+        if sample is None:
+            sample = self.sample_posterior_rgb
+        lat = post.sample(generator, noise) if sample else post.mode()
         return lat.float() * self.img_scale
 
     def _unet_apply(self, unet: Callable, latents: torch.Tensor,
@@ -546,19 +652,40 @@ class TrainerDiffusion(PanopticRestore):
         (posterior sample, predicted latents, inpainting, condition and RGB
         noise) come from it. The input dropout acts on the forward whose
         gradient trains (JAX's trainer never turns it on: its apply keeps
-        ``deterministic=True``). Returns ``(loss, metrics, pred_x0)``,
-        ``pred_x0`` NHWC."""
+        ``deterministic=True``).
+
+        A clip batch (``image`` ``[B, T, H, W, 3]``) trains its frames
+        flattened clip-major to ``[B*T, ...]`` (``noise`` and ``timesteps``
+        then have B*T rows) with one timestep per clip drawn and repeated T
+        times; with a pose net attached, ``temporal_consistency_weight`` >
+        0 and ``depth`` in the batch the loss gains that weight times the
+        temporal-consistency term (:meth:`_consistency`), reported as
+        ``metrics['consistency']`` (0 otherwise). Returns ``(loss, metrics,
+        pred_x0)``, ``pred_x0`` NHWC."""
         self._require_params()
-        if getattr(batch["image"], "ndim", 4) == 5:
-            raise NotImplementedError(
-                "video clip batches: video clips and pose consistency are "
-                "not ported yet")
         dev = self.device
+        clip_image, clip_shape = batch["image"], None
+        if getattr(clip_image, "ndim", 4) == 5:
+            clip_shape = tuple(clip_image.shape[:2])
+            batch = dict(batch, **{
+                k: batch[k].reshape((-1,) + tuple(batch[k].shape[2:]))
+                for k in _FRAME_KEYS if k in batch})
         with torch.no_grad():
             latents, latents_mean, rgb_latents, loss_mask = self._encode(
                 batch, generator, rgb_noise)
         b = latents.shape[0]
         unet = self._compute_unet()
+
+        pose_info = None
+        if (clip_shape is not None and self.pose_model is not None
+                and self.temporal_consistency_weight > 0
+                and "depth" in batch):
+            poses, mid, ref_idx = self._clip_poses(torch.as_tensor(
+                clip_image, device=dev))
+            depth, focal = self._clip_depth_focal(batch)
+            d_lat, f_lat = self._latent_depth_focal(
+                depth, focal, *latents.shape[-2:])
+            pose_info = (poses, mid, ref_idx, d_lat, f_lat)
 
         if self.prob_train_on_pred > 0:
             pred_latents = self._predict_sample(
@@ -573,7 +700,14 @@ class TrainerDiffusion(PanopticRestore):
                                 device=dev)
         else:
             noise = self._nchw(noise)
-        if timesteps is None:
+        if timesteps is None and clip_shape is not None:
+            # one timestep per clip, shared by its frames, so that their x0
+            # estimates are comparable for the consistency term
+            timesteps = torch.randint(
+                self.min_noise_level, self.sched.num_train_timesteps,
+                clip_shape[:1], generator=generator,
+                device=dev).repeat_interleave(clip_shape[1])
+        elif timesteps is None:
             timesteps = torch.randint(
                 self.min_noise_level, self.sched.num_train_timesteps, (b,),
                 generator=generator, device=dev)
@@ -625,6 +759,12 @@ class TrainerDiffusion(PanopticRestore):
             pred, target, timesteps=timesteps,
             schedule_weights=self.sched.weights, loss_mask=loss_mask,
             loss_type=self.loss_type, ohem_ratio=self.ohem_ratio)
+        cons = torch.zeros((), device=dev)
+        if pose_info is not None:
+            x0p = (remove_noise(self.sched, noisy, pred, timesteps)
+                   if self.sched.prediction_type == "epsilon" else pred)
+            cons = self._consistency(x0p, clip_shape, pose_info)
+            loss = loss + self.temporal_consistency_weight * cons
         loss.backward()
 
         with torch.no_grad():
@@ -637,7 +777,8 @@ class TrainerDiffusion(PanopticRestore):
                 pred_x0 = torch.where(inpaint > 0, latents_mean, pred_x0)
         loss = loss.detach()
         metrics = {"loss": loss,
-                   "timestep_mean": timesteps.float().mean()}
+                   "timestep_mean": timesteps.float().mean(),
+                   "consistency": cons.detach()}
         return loss, metrics, pred_x0.permute(0, 2, 3, 1).contiguous()
 
     def train_step(self, batch: Mapping,
@@ -963,6 +1104,115 @@ class TrainerDiffusion(PanopticRestore):
                 unet, rgb_latents, generator, init_noise,
                 num_inference_steps or self.num_inference_steps,
                 repeat_noise, graph)
+        return (logits.permute(0, 2, 3, 1).contiguous(),
+                x0.permute(0, 2, 3, 1).contiguous())
+
+    def _noise(self, given, shape, generator, what: str) -> torch.Tensor:
+        """NHWC ``given`` ``[B, n, h, w, 4]`` as ``[B, n, 4, h, w]``, or a
+        draw of ``shape`` from ``generator``."""
+        if given is None:
+            return torch.randn(shape, generator=generator,
+                               device=self.device)
+        x = (given.to(self.device, torch.float32)
+             if isinstance(given, torch.Tensor) else
+             torch.tensor(np.asarray(given), dtype=torch.float32,
+                          device=self.device))
+        want = (shape[0], shape[1], shape[3], shape[4], shape[2])
+        if tuple(x.shape) != want:
+            raise ValueError(f"{what} must be [B, n, h, w, 4] = {want}, got "
+                             f"{tuple(x.shape)}")
+        return x.permute(0, 1, 4, 2, 3)
+
+    def sample_panoptic_clip(self, batch: Mapping,
+                             generator: Optional[torch.Generator] = None,
+                             init_noise=None, refine_noise=None,
+                             num_inference_steps: Optional[int] = None,
+                             repeat_noise: bool = True,
+                             pose_warp: bool = True,
+                             refine_strength: float = 0.3,
+                             warp_blend: float = 0.5,
+                             guidance_scale: Optional[float] = None,
+                             graph: Optional[bool] = None):
+        """A clip batch ``image`` ``[B, T, H, W, 3]`` -> (logits
+        ``[B*T, H, W, C]``, x0 ``[B*T, h, w, 4]``), frames clip-major (JAX
+        ``_sample_clip_impl``, :935-1021): every frame encoded in one
+        batch (the posterior's mode), then DDIM (or DPM-Solver++(2M)) from
+        clip-shared noise (``repeat_noise``: one map per clip, else one
+        per frame); then, with a pose net attached and ``pose_warp``, the
+        middle frame's x0 warped into each other frame r by the inverse of
+        the predicted target->ref pose and the frame's depth
+        (``batch['depth']``, focal from ``meta``), blended in by
+        ``warp_blend`` where valid, and the whole clip refined by a DDIM
+        tail of ``refine_strength`` of the steps
+        (:func:`~..diffusion.sampler.ddim_refine`; DDIM after a DPM first
+        pass too) from clip-shared re-noising; then the seg-VAE decode.
+        ``init_noise`` (NHWC ``[B, 1 or T, h, w, 4]``) and
+        ``refine_noise`` (``[B, 1, h, w, 4]``) replace the draws from
+        ``generator`` (default: seeded from ``sampling_kwargs.seed``).
+        ``guidance_scale`` has no effect, as in :meth:`sample_panoptic`.
+        int8 with ``int8_inference``. On the card both passes replay CUDA
+        graphs, each captured afresh, unless ``graph`` is False."""
+        self._require_params()
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.seed)
+        image = torch.as_tensor(batch["image"], device=self.device)
+        if image.ndim != 5:
+            raise ValueError(f"sample_panoptic_clip needs a clip batch "
+                             f"[B, T, H, W, 3], got {tuple(image.shape)}")
+        if self.int8_inference:
+            self._ensure_int8_ready({"image": image}, generator)
+            unet = self.int8_unet()
+        else:
+            unet = self.inference_unet()
+        bc, tt = image.shape[:2]
+        steps = num_inference_steps or self.num_inference_steps
+        warp = pose_warp and self.pose_model is not None
+        with torch.inference_mode():
+            rgb = self._encode_rgb(image.reshape((-1,) + image.shape[2:]),
+                                   sample=False)
+            b, _, lh, lw = rgb.shape
+            init = self._noise(init_noise, (bc, 1 if repeat_noise else tt,
+                                            4, lh, lw), generator,
+                               "init_noise")
+            init = init.expand(bc, tt, 4, lh, lw).reshape(b, 4, lh, lw)
+
+            def model_fn(latents, condition, t):
+                return self._unet_apply(unet, latents, rgb, condition, t)
+
+            sample_fn = (dpmpp_2m_sample if self.sampler == "dpmpp_2m"
+                         else ddim_sample)
+            x0 = sample_fn(self.sched, model_fn, init.contiguous(),
+                           num_inference_steps=steps,
+                           self_condition=self.self_condition, graph=graph)
+            if warp:
+                poses, mid, ref_idx = self._clip_poses(image)
+                depth, focal = self._clip_depth_focal(batch)
+                d_lat, f_lat = self._latent_depth_focal(depth, focal, lh, lw)
+                x0c = x0.reshape(bc, tt, 4, lh, lw)
+                anchor = x0c[:, mid]
+                frames = [x0c[:, i] for i in range(tt)]
+                for i, r in enumerate(ref_idx):
+                    # anchor -> frame r: the inverse of the predicted
+                    # target->ref pose
+                    minv = invert_pose_mat(pose_vec_to_mat(poses[:, i]))
+                    warped, valid = inverse_warp(anchor, d_lat[:, r], minv,
+                                                 f_lat, channels_last=False)
+                    v = valid[:, None].float()
+                    frames[r] = (1 - v * warp_blend) * frames[r] + \
+                        v * warp_blend * warped
+                blended = torch.stack(frames, dim=1).reshape(x0.shape)
+                noise = self._noise(refine_noise, (bc, 1, 4, lh, lw),
+                                    generator, "refine_noise")
+                noise = noise.expand(bc, tt, 4, lh, lw).reshape(x0.shape)
+                x0 = ddim_refine(self.sched, model_fn, blended,
+                                 noise.contiguous(),
+                                 num_inference_steps=steps,
+                                 strength=refine_strength,
+                                 self_condition=self.self_condition,
+                                 graph=graph)
+            z = (x0 * (1.0 / self.seg_scale)).to(self.compute_dtype)
+            logits = self.vae_seg.decode(z, True).float()
         return (logits.permute(0, 2, 3, 1).contiguous(),
                 x0.permute(0, 2, 3, 1).contiguous())
 

@@ -97,7 +97,7 @@ DEFAULT_CONFIG: dict = {
         "video_clips": None,
         "temporal_consistency_weight": 0.0,
     },
-    "pose_model_kwargs": {"pretrained_path": None},
+    "pose_model_kwargs": {"pretrained_path": None, "nb_ref_imgs": None},
     "loss_kwargs": {
         "num_points": 12544,
         "oversample_ratio": 3,

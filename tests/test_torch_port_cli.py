@@ -264,8 +264,14 @@ def test_export_checkpoint_round_trips(run, tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        predict.main(PORT + ["clips=3", f"out_dir={tmp_path}"])
+    # clips= is ported: 2 clips of 3 frames sampled with clip-shared noise
+    # (no pose net given), a pair a frame (test_torch_port_video_cli holds
+    # the pose-warped chain against JAX)
+    out = tmp_path / "clips"
+    assert predict.main(PORT + ["clips=3", f"out_dir={out}",
+                                "max_batches=1"]) == 6
+    assert set(_pngs(str(out)).values()) == {((32, 64), np.dtype(np.uint8))}
+    assert len(_pngs(str(out))) == 12
     # main_ae is ported (tests/test_torch_port_main_ae.py); it runs on the
     # card unless asked for the CPU
     if not torch.cuda.is_available():

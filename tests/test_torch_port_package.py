@@ -133,8 +133,12 @@ def test_trainer_runs_on_cuda_unless_told_otherwise():
 
 # the cases of test_trainer_names_what_is_not_ported that the trainer now
 # takes, each with what it builds (held against JAX in test_torch_port_dpm,
-# test_torch_port_vae_int8)
+# test_torch_port_vae_int8, test_torch_port_clip_train)
 NOW_PORTED = {
+    # the clip path (test_torch_port_clip_train, test_torch_port_video_cli)
+    "video clips": lambda t: t.p["train_kwargs"]["video_clips"] == 3,
+    "pose": lambda t: (t.temporal_consistency_weight == 0.1
+                       and t.pose_model is None),
     "DPM-Solver": lambda t: t.sampler == "dpmpp_2m",
     "int8 seg-VAE": lambda t: isinstance(t.vae_seg.decoder[0], QuantConv2d),
     "decoder": lambda t: t.vae_img.decoder_enabled,
