@@ -8,9 +8,10 @@ Phases, one line each:
   1. build every CUDA kernel under ``ldmseg_torch/csrc/`` (one nvcc each,
      all at once);
   2. K1 (self-attention forward) against its plain PyTorch version at the
-     sampling path's shapes, with times (CUDA events, and the kernel's
-     device time per launch from ``torch.profiler``), the bound and the
-     library yardstick (SDPA, event-timed and its device time);
+     sampling path's shapes and the trained gate's (bf16 and fp32), with
+     times (CUDA events, and the kernel's device time per launch from
+     ``torch.profiler``), the bound and the library yardstick (SDPA,
+     event-timed and its device time);
   3. the full-width SD-1.4 UNet forward on K1 against the same module on the
      plain attention;
   4. ``TrainerDiffusion.sample_panoptic`` end to end at full width (50 DDIM
@@ -23,7 +24,7 @@ Phases, one line each:
      noise: x0 bit-equal, the same launches, and one call of each profiled
      (wall, kernel time, host time, busy share);
   5. K2 (self-attention backward) against its plain PyTorch version at the
-     training path's shapes, two calls bit-equal, with times (CUDA events,
+     training path's shapes and the trained gate's, two calls bit-equal, with times (CUDA events,
      and the device time of each of its two kernels from
      ``torch.profiler``), TFLOP/s, the bound and the library yardstick
      (SDPA's backward, event-timed and its device time);
@@ -34,7 +35,8 @@ Phases, one line each:
      same step on the plain attention;
   7. K3 (the int8 LN + attention block) and K4 (the int8 LN + GEGLU block,
      dynamic and static interior scale) against their plain PyTorch
-     versions at the int8 sampling path's shapes and a ragged T, with
+     versions at the int8 sampling path's shapes, a ragged T and the
+     trained gate's 2-head sites, each call launching its kernel, with
      times (CUDA events, and the device time of each stage from
      ``torch.profiler``), the bound and the bf16 block each replaces; two
      calls of each bit-equal; their Hopper product (``ops/gemm.py``) at
@@ -252,10 +254,21 @@ Phases, one line each:
   51. the video CLIs chained: ``main_pose`` -> ``main_ldm video_clips=3``
      with its pose checkpoint -> ``predict clips=3`` -> ``eval_dvpq`` on
      the written PNGs, launches checked;
-  52. a JSON line ``{"kernels": [...]}`` (K1-K18, K10 in both variants,
-     K1's wide class; K5, K6 and K7 with their device time and host time a
-     call);
-  53. the last line, ``{"ok": true, "device": {...}}``.
+  52. ``tools/trained_gate.py`` at reduced steps (20 / 30 / 5, one
+     validation batch of 8 frames of 96x320): DVPQ(gt, gt) 100 in every
+     category the frames hold, every number finite, each stage's launches
+     exactly those JAX's shape rules send to kernels at the gate's shapes
+     (K1 and K2 in stage-2 training, K1 in bf16 sampling, K3 and K4 in
+     int8 sampling, no fallback), stage 2's sampling graph bit-equal to
+     its eager loop; the three gates printed, not asserted;
+  53. ``tools/loader_bench.py`` at 32 frames of 375x1242 (samples/s and the
+     host's cores);
+  54. ``tools/profile_training.py --remat-sweep`` and ``tools/bench.py
+     --breakdown`` at batch 2, one timed step or call each;
+  55. the script's total seconds, then a JSON line ``{"kernels": [...]}``
+     (K1-K18, K10 in both variants, K1's wide class; K5, K6 and K7 with
+     their device time and host time a call);
+  56. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -287,6 +300,11 @@ K1_SHAPES = [((2, 2048, 8, 40), 5), ((2, 512, 8, 80), 5),
 # batch 8 (192x640 frames), with the number of launches of each
 K2_SHAPES = [((8, 1920, 8, 40), 5), ((8, 480, 8, 80), 5),
              ((8, 120, 8, 160), 5), ((8, 30, 8, 160), 1)]
+# (B, T, H, D) of K1's and K2's launches in the trained gate's UNet
+# (tools/trained_gate.py: widths 32 and 64, 2 heads, a 12x40 latent at
+# batch 8): the head classes 16 and 32, checked in bf16 (stage-2 training
+# and sampling) and fp32 (K1 in the int8 calibration's forward)
+GATE_ATTN_SHAPES = [(8, 480, 2, 16), (8, 120, 2, 32)]
 TRAIN_BATCH, TRAIN_HW = 8, (192, 640)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # (B, T, C) of K3's and K4's launches in one int8 UNet forward on a 32x64
@@ -294,6 +312,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # launches of each
 INT8_SHAPES = [((2, 2048, 320), 5), ((2, 512, 640), 5),
                ((2, 128, 1280), 5), ((2, 32, 1280), 1)]
+# (B, T, C) of K3's and K4's launches in the trained gate's int8 sampling
+# (2 heads: head dims 16 and 32; K4's interior M = 128 and 256)
+GATE_INT8_SHAPES = [((8, 480, 32), 0), ((8, 120, 64), 0)]
 # K3/K4 against their plain versions: two bf16 ulps of max|ref| at most,
 # and 2.5e-3 of mean|ref| on the mean (a rare int8 code that a summation
 # order flips moves a few outputs by a code's worth); K12 and K13 the same
@@ -500,6 +521,8 @@ def phase_attention():
     cases += [((2, 512, 8, 80), 0, torch.float32),
               ((2, 100, 8, 40), 0, torch.bfloat16),
               ((1, 100, 2, 160), 0, torch.float32)]
+    cases += [(s, 0, dt) for s in GATE_ATTN_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
     rows = []
     for shape, per_fwd, dtype in cases:
         q, k, v = inputs(shape, dtype)
@@ -764,6 +787,7 @@ def phase_attention_backward():
     cases += [((8, 480, 8, 80), 0, torch.float32),
               ((8, 100, 8, 40), 0, torch.bfloat16),
               ((1, 100, 2, 160), 0, torch.float32)]
+    cases += [(s, 0, torch.bfloat16) for s in GATE_ATTN_SHAPES]
     rows = []
     for shape, per_bwd, dtype in cases:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -964,7 +988,7 @@ def _int8_config(**sk):
     return cfg
 
 
-def _block_modules(c: int, seed: int):
+def _block_modules(c: int, seed: int, heads: int = 8):
     """A transformer block's float modules (LayerNorm, CrossAttention on K1,
     LayerNorm, FeedForward) on the card in fp32 with seeded weights, which
     the kernels' packs quantize."""
@@ -972,12 +996,24 @@ def _block_modules(c: int, seed: int):
     from ldmseg_torch.models.layers import LayerNorm, init_random_
     from ldmseg_torch.models.unet import CrossAttention, FeedForward
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    mods = [LayerNorm(c), CrossAttention(c, 8, use_fused=True),
+    mods = [LayerNorm(c), CrossAttention(c, heads, use_fused=True),
             LayerNorm(c), FeedForward(c)]
     for m in mods:
         m.to("cuda")
         init_random_(m, gen)
     return mods
+
+
+def _launched(wrapper, *args):
+    """``wrapper(*args)``; fails unless it launched its kernel once and fell
+    back to the plain version no time."""
+    n, fb = wrapper.launches, wrapper.fallbacks
+    out = wrapper(*args)
+    check(wrapper.launches == n + 1 and wrapper.fallbacks == fb,
+          f"{wrapper.__name__} at {tuple(args[0].shape)}: "
+          f"{wrapper.launches - n} launches, {wrapper.fallbacks - fb} "
+          "fallbacks, expected one launch")
+    return out
 
 
 def _int8_row(name, shape, per_fwd, out, ref, fn, plain, context, bound):
@@ -1110,11 +1146,13 @@ def phase_int8_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     k3_rows, k4_rows, gemm_rows = [], [], []
-    ragged = [((1, 120, 320), 0)]
+    # the ragged T and the trained gate's 2-head sites go to K3 as well
+    ragged = [((1, 120, 320), 0)] + GATE_INT8_SHAPES
     for shape, per_fwd in INT8_SHAPES + ragged + [((1, 1024, 320), 0)]:
         b, t, c = shape
-        norm1, attn, norm3, ff = _block_modules(c, seed=t + c)
-        apack = K3.pack_ln_attention(norm1, attn, 8, 0.1)
+        heads = 2 if (shape, per_fwd) in GATE_INT8_SHAPES else 8
+        norm1, attn, norm3, ff = _block_modules(c, t + c, heads)
+        apack = K3.pack_ln_attention(norm1, attn, heads, 0.1)
         fpacks = {mode: K4.pack_geglu(norm3, ff.net[0].proj, ff.net[2],
                                       0.05, gs)
                   for mode, gs in (("dynamic", None), ("static", 0.02))}
@@ -1124,7 +1162,7 @@ def phase_int8_kernels():
             torch.bfloat16)
         with torch.inference_mode():
             if (shape, per_fwd) in INT8_SHAPES + ragged:
-                out = K3.ln_attention_s8(x, apack)
+                out = _launched(K3.ln_attention_s8, x, apack)
                 torch.cuda.synchronize()
                 row = _int8_row(
                     "K3", shape, per_fwd, out,
@@ -1132,6 +1170,7 @@ def phase_int8_kernels():
                     lambda: K3.ln_attention_s8(x, apack),
                     lambda: K3.ln_attention_s8_reference(x, apack),
                     lambda: x + at(n1(x)), ln_attention_bound_ms(b, t, c))
+                row["heads"] = heads
                 if per_fwd:
                     check(torch.equal(out, K3.ln_attention_s8(x, apack)),
                           f"K3 {shape}: two calls differ")
@@ -1139,7 +1178,8 @@ def phase_int8_kernels():
                         _stage_split(lambda: K3.ln_attention_s8(x, apack),
                                      _stages("K3")))
                 k3_rows.append(row)
-                print(f"phase 7 K3 {shape}: err {row['max_abs_err']:.3e} of "
+                print(f"phase 7 K3 {shape} {heads} heads: err "
+                      f"{row['max_abs_err']:.3e} of "
                       f"max|ref| {row['max_abs_ref']:.3e}, mean "
                       f"{row['mean_abs_err']:.3e} of {row['mean_abs_ref']:.3e}"
                       f"; kernel {row['ms']:.4f} ms (device "
@@ -1149,7 +1189,7 @@ def phase_int8_kernels():
                       f" ms ({row['bound_by']}), bf16 block on K1 "
                       f"{row['bf16_block_ms']:.4f} ms", flush=True)
             for mode, fpack in fpacks.items():
-                out = K4.geglu_ln_s8(x, fpack)
+                out = _launched(K4.geglu_ln_s8, x, fpack)
                 torch.cuda.synchronize()
                 row = _int8_row(
                     "K4", shape, per_fwd, out,
@@ -5392,6 +5432,175 @@ def phase_video_cli(smi_line: str):
             "counts": counts, "predict_counts": pcounts}
 
 
+# the trained-model gate at reduced steps (its defaults: 300 / 500 / 100)
+GATE_STEPS = {"ae": 20, "ldm": 30, "pose": 5}
+
+
+def _attention_sites(unet) -> int:
+    from ldmseg_torch.models.unet import Transformer2D
+    return sum(isinstance(m, Transformer2D) for m in unet.modules())
+
+
+def _gate_counts(stages: dict) -> dict:
+    """The gate's launches and fallbacks summed over its stages, keyed as
+    :func:`_counts` (each stage set the counters to 0 when it started)."""
+    ids = {f.__name__: k for k, f in _wrappers().items()}
+    out = _expect()
+    for stage in stages.values():
+        if not isinstance(stage, dict) or "launches" not in stage:
+            continue
+        for name, n in stage["launches"].items():
+            kid = "K1w" if name == "K1 D=512" else ids.get(name, name)
+            out[kid] = out.get(kid, 0) + n
+        out["fallbacks"] += sum(stage["fallbacks"].values())
+    return out
+
+
+def phase_trained_gate(smi_line: str):
+    """Phase 52: ``tools/trained_gate.py`` at reduced steps (stage 1 20,
+    stage 2 30, pose 5; 1 validation batch of 8 frames of 96x320, 10 DDIM
+    steps) in its temporary directory. The ground truth scored against itself
+    reads 100 in every category it holds; every number is finite; each
+    stage launches the kernels JAX's rules send its sites to and no other
+    (12x40 latent: T = 480 and 120, head dims 16 and 32, all kernel
+    shapes): K2 once a site a step and K1 in stage-2 training, K1 once a
+    site a step in bf16 sampling (the pose-warped clip call's 4-step tail
+    too), K3 and K4 once a site a step in int8 sampling (K1 once a site in
+    its calibration's fp32 forward), nothing in stage 1 and the pose net,
+    no fallback anywhere; stage 2's sampling graph bit-equal to
+    its eager loop on one batch. The three gates are printed, not
+    asserted: they need the default steps."""
+    import math
+    import torch
+    from ldmseg_torch.data.loader import Loader
+    from ldmseg_torch.tools import trained_gate
+
+    t0 = time.perf_counter()
+    line, stages, tr = trained_gate.run(
+        GATE_STEPS["ae"], GATE_STEPS["ldm"], GATE_STEPS["pose"],
+        val_batches=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _gate_counts(stages)
+    sanity = stages["sanity DVPQ(gt, gt)"]
+    check(sanity["present_pq_min"] > 100 - 1e-6
+          and sanity["present_pq_max"] < 100 + 1e-6,
+          f"DVPQ(gt, gt) per held category {sanity}, expected 100")
+    numbers = [line[k] for k in line if k.startswith(("dvpq", "recon"))]
+    check(all(math.isfinite(v) for v in numbers),
+          f"the gate's line has a non-finite number: {line}")
+    sites = _attention_sites(tr["ldm"].unet)
+    steps = 10
+    want = {
+        "stage 2 sample, step 0": {"K1": sites * steps},
+        "stage 2 sample": {"K1": sites * steps},
+        # the calibration's forward on the fp32 masters runs K1 (fp32)
+        "int8 sample": {"K1": sites, "K3": sites * steps,
+                        "K4": sites * steps},
+        "clip sample, per frame": {"K1": sites * steps},
+    }
+    check(math.isfinite(stages["stage 1 reconstruction DVPQ"]),
+          f"stage 1 reconstruction DVPQ {stages}")
+    for name, stage in stages.items():
+        if not isinstance(stage, dict) or "launches" not in stage:
+            continue
+        got = {k: v for k, v in stage["launches"].items() if v}
+        check(not any(stage["fallbacks"].values()),
+              f"{name}: fallbacks {stage['fallbacks']} at shapes JAX's "
+              f"rules send to the kernels")
+        if name == "stage 2 train":
+            check(set(got) == {"K1", "K2"}
+                  and got["K2"] == sites * GATE_STEPS["ldm"]
+                  and got["K1"] >= sites * GATE_STEPS["ldm"],
+                  f"{name} launched {got} ({sites} attention sites)")
+        elif name in want:
+            check(got == want[name], f"{name} launched {got}, expected "
+                  f"{want[name]}")
+        elif name == "clip sample, pose-warped":
+            tail = _refine_steps(steps, 0.4)
+            check(got == {"K1": sites * (steps + tail)},
+                  f"{name} launched {got}, expected K1 "
+                  f"{sites * (steps + tail)}")
+        else:
+            check(not got, f"{name} launched {got}, expected none")
+    # stage 2's sampling: the graph bit-equal to the eager loop
+    ldm = tr["ldm"]
+    batch = next(iter(Loader(tr["val"], 8, shuffle=False)))
+    b, h, w = batch["semseg"].shape
+    noise = torch.randn((b, h // 8, w // 8, 4),
+                        generator=torch.Generator().manual_seed(0))
+    _, x0_graph = ldm.sample_panoptic(batch, init_noise=noise)
+    _, x0_eager = ldm.sample_panoptic(batch, init_noise=noise,
+                                      graph=False)
+    check(torch.equal(x0_graph, x0_eager),
+          "stage 2: the sampling graph's x0 differs from the eager "
+          f"loop's by {(x0_graph - x0_eager).abs().max().item():.3e}")
+    del tr, ldm
+    torch.cuda.empty_cache()
+    s_per_step = {name: round(stage["step_timer"]["mean_s"], 4)
+                  for name, stage in stages.items()
+                  if isinstance(stage, dict) and stage.get("step_timer")}
+    print(f"phase 52 trained gate at {GATE_STEPS} steps: {seconds:.1f} s; "
+          f"DVPQ(gt, gt) {sanity['dvpq']:.3f} over 32 categories, "
+          f"{sanity['present']} held at 100; reconstruction DVPQ "
+          f"{stages['stage 1 reconstruction DVPQ']:.2f}; line "
+          f"{json.dumps(line)}; s/step {json.dumps(s_per_step)}; gates "
+          f"(not asserted at these steps) {line['gates']}; graph bit-equal "
+          f"to eager [{smi_line}]", flush=True)
+    return {"seconds": seconds, "line": line, "stages": stages,
+            "counts": counts}
+
+
+def phase_loader_bench(smi_line: str):
+    """Phase 53: ``tools/loader_bench.py`` at 32 frames of 375x1242 (4
+    scenes, batch 16, 8 threads): samples/s of the port's ``Loader``
+    on the host's cores, and the single-thread decode ms a sample."""
+    from ldmseg_torch.tools import loader_bench
+    t0 = time.perf_counter()
+    line = loader_bench.main(["--frames", "32"])
+    seconds = time.perf_counter() - t0
+    check(line["frames"] == 32 and line["value"] > 0,
+          f"loader_bench: {line}")
+    print(f"phase 53 loader bench: {line['value']} samples/s over "
+          f"{line['frames']} frames on {line['host_cores_usable']} of "
+          f"{line['host_cores']} host cores, {line['threads']} threads; "
+          f"{line['per_sample_decode_ms_1thread']} ms a sample on one "
+          f"thread; {seconds:.1f} s [{smi_line}]", flush=True)
+    return line | {"seconds": seconds}
+
+
+def phase_perf_tools(smi_line: str):
+    """Phase 54: ``tools/profile_training.py --remat-sweep`` and
+    ``tools/bench.py --breakdown`` at batch 2, one timed step or call each:
+    every remat setting runs (no out-of-memory at this batch) with finite
+    samples/s and its peak memory; the breakdown's encode, 50-step loop and
+    decode ms finite and positive."""
+    import math
+    import torch
+    from ldmseg_torch.tools import bench, profile_training
+    t0 = time.perf_counter()
+    sweep = profile_training.remat_sweep(batch=2, iters=1)
+    torch.cuda.empty_cache()
+    check(all("error" not in r and math.isfinite(r["samples_per_s"])
+              and r["samples_per_s"] > 0 for r in sweep.values())
+          and len(sweep) == len(profile_training.REMAT_SETTINGS),
+          f"remat sweep at batch 2: {sweep}")
+    parts = bench.breakdown(batch=2, iters=1, loop_iters=1)
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(parts[k]) and parts[k] > 0
+              for k in ("encode_ms", "loop_ms", "decode_ms")),
+          f"breakdown at batch 2: {parts}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 54 remat sweep at batch 2: " + "; ".join(
+        f"{k} {v['samples_per_s']:.2f} samples/s, peak "
+        f"{v['peak_bytes'] / 2**30:.2f} GiB" for k, v in sweep.items())
+        + f"; breakdown at batch 2: encode {parts['encode_ms']:.1f} ms, "
+        f"loop {parts['loop_ms']:.1f} ms, decode {parts['decode_ms']:.1f} "
+        f"ms, {parts['frames_per_s']:.2f} frames/s; {seconds:.1f} s "
+        f"[{smi_line}]", flush=True)
+    return {"remat_sweep": sweep, "breakdown": parts, "seconds": seconds}
+
+
 _T0 = time.perf_counter()
 
 
@@ -5586,6 +5795,12 @@ def main() -> int:
         vpq = phase_vpq(smi_line, clip_gt)
         video_cli = phase_video_cli(smi_line)
         lap("phases 50-51")
+        # the trained-model gate and the run's tools
+        gate = phase_trained_gate(smi_line)
+        lap("phase 52")
+        loader = phase_loader_bench(smi_line)
+        perf_tools = phase_perf_tools(smi_line)
+        lap("phases 53-54")
         clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
@@ -5625,7 +5840,8 @@ def main() -> int:
             "int8_vaes": vaes, "serving": serving, "codec": codec,
             "clip_sample": clip_sample, "clip_serving": clip_serving,
             "clip_train": clip_train, "pose_train": pose_train,
-            "vpq": vpq, "video_cli": video_cli}}),
+            "vpq": vpq, "video_cli": video_cli, "trained_gate": gate,
+            "loader_bench": loader, "perf_tools": perf_tools}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -5703,10 +5919,14 @@ def main() -> int:
               "steps)"] = video_cli["counts"]
         paths["predict clips=3: 2 clips, 2 DDIM steps + a 1-step tail"] = (
             video_cli["predict_counts"])
+        paths[f"trained_gate at {GATE_STEPS} steps, 1 val batch"] = gate[
+            "counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
         unfused = variant["a"]["default scales"]["counts"]
+        print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s in all",
+              flush=True)
         print(json.dumps({"kernels": [
             k1_entry(rows, bf16_counts["K1"], by_path("K1")),
             k1_wide_entry(

@@ -2,6 +2,7 @@
 
     python3 -m ldmseg_torch.tools.bench [--batch 16] [--steps 50] [--calls 3]
         [--eager]
+    python3 -m ldmseg_torch.tools.bench --breakdown [--batch 16] [--steps 50]
 
 The counterpart of the JAX package's ``bench.py``: the full inference
 pipeline, RGB image-VAE encode -> 50 DDIM steps of the SD-1.4-width UNet
@@ -27,8 +28,20 @@ DDIM path's frames/s>, "unit": "frames/s", "dpm_fps": <the DPM path's>,
 ...}`` with the forward's ms, each path's s per call, frames/s, peak device
 memory and kernel launches per call, the batch, the steps, and the card's
 ``nvidia-smi`` name and power limit. It has no ``vs_baseline``: the JAX
-bench's baseline was taken on a TPU. Needs a CUDA device; without one it
-exits 1.
+bench's baseline was taken on a TPU.
+
+``--breakdown`` (the JAX package's ``tools/perf/breakdown.py``) splits the
+int8 pipeline into its stages instead, at ``bench_config(int8=True)``
+(which is the JAX breakdown's configuration: padded attention with fused
+norms, s8 convs at act scale 0.05, int8 fused feed-forward, attention act
+scale 0.1, the int8 image VAE with fused attention, the seg VAE 16 -> 128
+logits) on random 256x512 frames: the image encode, the ``--steps``-step
+DDIM loop (one CUDA graph a call) and the seg-VAE decode, each timed with
+CUDA events over repeated calls after a warm-up call (5 for the encode and
+decode, 3 for the loop), and prints one JSON line with their ms and the
+frames/s of their sum.
+
+Needs a CUDA device; without one it exits 1.
 """
 
 from __future__ import annotations
@@ -187,6 +200,62 @@ def run(batch: int = 16, steps: int = 50, calls: int = 3,
     return line
 
 
+def breakdown(batch: int = 16, steps: int = 50, iters: int = 5,
+              loop_iters: int = 3) -> dict:
+    """Encode, the DDIM loop and decode of the int8 bench pipeline apart,
+    in ms (CUDA events) and the frames/s of their sum."""
+    from ..diffusion.sampler import ddim_sample
+    from ..train.trainer_ldm import TrainerDiffusion
+    device = torch.device("cuda")
+    trainer = TrainerDiffusion(bench_config(int8=True), device=device)
+    trainer.init_params(seed=0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    h, w = IMAGE_HW
+    image = torch.randn((batch, h, w, 3), generator=gen, device=device)
+    init = torch.randn((batch, 4, h // 8, w // 8), generator=gen,
+                       device=device)
+    unet = trainer.int8_unet()
+    with torch.inference_mode():
+        rgb = trainer._encode_rgb(image)
+        x0 = ddim_sample(trainer.sched, lambda z, c, t: trainer._unet_apply(
+            unet, z, rgb, c, t), init, num_inference_steps=steps)
+
+        def encode():
+            return trainer._encode_rgb(image)
+
+        def loop():
+            return ddim_sample(
+                trainer.sched, lambda z, c, t: trainer._unet_apply(
+                    unet, z, rgb, c, t), init, num_inference_steps=steps)
+
+        def decode():
+            z = (x0 * (1.0 / trainer.seg_scale)).to(trainer.compute_dtype)
+            return trainer.vae_seg.decode(z, True)
+
+        enc_ms = measure_forward(encode, (), iters, warmup=1)
+        loop_ms = measure_forward(loop, (), loop_iters, warmup=1)
+        dec_ms = measure_forward(decode, (), iters, warmup=1)
+        logits = decode()
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("breakdown: non-finite logits")
+    total = enc_ms + loop_ms + dec_ms
+    for name, ms in (("encode", enc_ms), (f"loop{steps}", loop_ms),
+                     ("decode", dec_ms)):
+        print(f"{name:8s} {ms:8.1f} ms", flush=True)
+    return {"metric": "stage_breakdown", "batch": batch, "steps": steps,
+            "image_hw": list(IMAGE_HW), "encode_ms": enc_ms,
+            "loop_ms": loop_ms, "loop_ms_per_step": loop_ms / steps,
+            "decode_ms": dec_ms, "total_ms": total,
+            "frames_per_s": batch / (total / 1e3),
+            "iters": {"encode": iters, "loop": loop_iters,
+                      "decode": iters},
+            "path": "int8: s8 convs, K3 and K4; the int8 image VAE with "
+                    "its mid attention on K1 (D = 512); the loop one CUDA "
+                    "graph a call",
+            "device": torch.cuda.get_device_name(device),
+            "nvidia_smi": smi_line()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, default=16)
@@ -195,6 +264,8 @@ def main() -> int:
     parser.add_argument("--warmup", type=int, default=1)
     parser.add_argument("--eager", action="store_true",
                         help="the eager DDIM loop instead of the CUDA graph")
+    parser.add_argument("--breakdown", action="store_true",
+                        help="encode, the DDIM loop and decode apart")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench: no CUDA device (torch.cuda.is_available() is False)",
@@ -202,6 +273,9 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.breakdown:
+        print(json.dumps(breakdown(args.batch, args.steps)), flush=True)
+        return 0
     print(json.dumps(run(args.batch, args.steps, args.calls, args.warmup,
                          args.eager)), flush=True)
     return 0

@@ -11,10 +11,14 @@ int8 UNet, and with the serving configuration's int8 image VAE as well
 (``tools/bench.py:bench_config``'s, whose encoder differs from JAX's by up
 to 2e-2 of the latents' range, ``test_torch_port_dpm``), the port's x0
 is nearer JAX's int8 x0 than JAX's float x0 is, and nearer it than to
-JAX's float x0. (Through the pose warp and the refine
-tail of this clip the port's distance from JAX's int8 x0 is about 0.55 of
+JAX's float x0. (The port's distance from JAX's int8 x0 is about 0.55 of
 the quantization's effect on the int8 UNet, 0.63 with the int8 VAE; the
-single-frame test's yardstick of half that effect does not hold here.)
+single-frame test's yardstick of half that effect does not hold here.
+``test_torch_port_clip_int8_trait`` shows why: the distance is the int8
+UNet forward's, the port's kernels' arithmetic against JAX's CPU
+fallbacks, already in the first pass; and JAX's own int8-VAE clip x0
+moves by most of the effect when its frames change by a part in a
+million.)
 """
 
 import numpy as np
