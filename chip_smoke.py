@@ -265,10 +265,27 @@ Phases, one line each:
      host's cores);
   54. ``tools/profile_training.py --remat-sweep`` and ``tools/bench.py
      --breakdown`` at batch 2, one timed step or call each;
-  55. the script's total seconds, then a JSON line ``{"kernels": [...]}``
+  55. conditioning at full width (SD-1.4, cross_attention_dim 768, 8
+     heads; the ``none`` descriptor, a seeded context [2, 77, 768]): bf16
+     ``sample_panoptic`` at guidance 7.5 (classifier-free guidance, two
+     UNet calls a step: 1,600 K1 a call), the graph bit-equal to the eager
+     loop and one call traced (busy share), s a call and peak memory; at
+     guidance 1.0 (800 K1) another x0; another context another x0; a
+     3-frame clip with CFG (2,080 K1);
+  56. the same in int8 with fused norms (K3 -> attn2 in bf16 -> K4 a
+     block: 1,600 K3 and 1,600 K4, no fallback), x0 correlated >= 0.9 with
+     phase 55's; ``calibrate_int8`` refuses the descriptor (the trait);
+  57. training with ``learnable`` queries (77 x 768), ``separate_encoder``
+     and ``add_adaptor`` (22 attention sites: 44 K1 and 22 K2 a step),
+     batch 8 of 192x640, 3 timed steps (s/step, peak memory), one step's
+     loss (1e-2) and gradient cosine (>= 0.99) against the plain attention;
+  58. one forward each of ``separate_conv``, the upscaler head (on K1,
+     within 2e-2 of the plain attention) and ``Upscaler``: finite, of the
+     right shape;
+  59. the script's total seconds, then a JSON line ``{"kernels": [...]}``
      (K1-K18, K10 in both variants, K1's wide class; K5, K6 and K7 with
      their device time and host time a call);
-  56. the last line, ``{"ok": true, "device": {...}}``.
+  60. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -5601,6 +5618,368 @@ def phase_perf_tools(smi_line: str):
     return {"remat_sweep": sweep, "breakdown": parts, "seconds": seconds}
 
 
+COND_SEED = 41                    # the conditioning phases' draws
+COND_CONTEXT = (2, 77, 768)       # a CLIP-text-sized context, batch 2
+
+
+def _cond_config(**over):
+    """The default deployment (``_config``) with the ``none`` descriptor:
+    cross-attention on a caller's context, guidance 7.5 (the default
+    config's)."""
+    from ldmseg_torch.utils.config import merge_dicts
+    return merge_dicts(_config(), {"train_kwargs": {
+        "image_descriptors": "none"}, **over})
+
+
+def _cond_batch(seed: int = COND_SEED, scale: float = 1.0):
+    import numpy as np
+    import torch
+    image = np.random.RandomState(seed).randn(2, 256, 512, 3).astype(
+        np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ctx = torch.randn(COND_CONTEXT, generator=gen, device="cuda") * scale
+    return {"image": image, "context": ctx}
+
+
+def _cond_call(trainer, batch, label: str, want: dict, **kw):
+    """One counted ``sample_panoptic`` (a CUDA graph): s a call, peak
+    memory, the launches against ``want``; returns (result, x0)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, x0 = trainer.sample_panoptic(batch, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    check(tuple(logits.shape) == (2, 256, 512, trainer.num_classes)
+          and bool(torch.isfinite(logits).all())
+          and tuple(x0.shape) == (2, 32, 64, 4)
+          and bool(torch.isfinite(x0).all()),
+          f"{label}: logits or x0 of the wrong shape or not finite")
+    check(counts == want, f"{label}: launched {counts}, expected {want}")
+    return {"seconds": secs, "frames_per_s": 2 / secs, "counts": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated()}, x0
+
+
+def phase_cond_sample(smi_line: str, seed: int = 0):
+    """Phase 55: conditioning and classifier-free guidance at full width
+    (:func:`_cond_config`; seeded random weights, 50 DDIM steps, batch 2
+    of 256x512, a context of :data:`COND_CONTEXT`). Each UNet call runs
+    16 K1 (self-attention; ``attn2`` is the plain einsum, as in JAX); CFG
+    makes two calls a step: 16 x 50 x 2 = 1,600 K1 at guidance 7.5, the
+    graph bit-equal to the eager loop with the same launches, one graph
+    call traced (its kernels by name against the counters; the kernel
+    time over the traced wall, and over the untraced call's wall: the
+    profiler slows the host); 800 K1 at guidance 1.0, whose
+    x0 differs; another context another x0; then a clip of 3 frames with
+    its context per clip and a pose net: 16 x (50 + 15) x 2 = 2,080
+    K1. Prints the seconds of each part."""
+    import torch
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    t0 = time.perf_counter()
+    trainer = TrainerDiffusion(_cond_config())
+    trainer.init_params(seed=seed)
+    check(trainer.guidance_scale == 7.5
+          and trainer.unet_config.use_cross_attention
+          and trainer.unet_config.cross_attention_dim == COND_CONTEXT[2],
+          f"phase 55: the trainer's conditioning {trainer.unet_config}")
+    steps = trainer.num_inference_steps
+    batch = _cond_batch()
+    parts = {"build": time.perf_counter() - t0}
+    tp = time.perf_counter()
+    trainer.sample_panoptic(batch)  # warm-up
+    res, x0 = _cond_call(trainer, batch, "phase 55 bf16 CFG 7.5",
+                         _expect(K1=16 * steps * 2))
+    parts["warm-up and the call"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    res["eager"] = graph_vs_eager(
+        "phase 55 bf16 CFG 7.5", lambda g: trainer.sample_panoptic(
+            batch, graph=g), x0, res["counts"], smi_line, profile=False)
+    parts["eager"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    want = {k: res["counts"][k] for k in TRACE_NAMES}
+    for _ in range(2):  # a trace can drop events, never add them
+        prof = host_profile(lambda: trainer.sample_panoptic(batch))
+        if prof["trace_launches"] == want:
+            break
+    check(prof["trace_launches"] == want,
+          f"phase 55: the traced guided call ran {prof['trace_launches']} "
+          f"kernels by name, its counters say {want}")
+    busy_untraced = (prof["device_ms"] / (1e3 * res["seconds"])
+                     if isinstance(prof.get("device_ms"), float) else None)
+    parts["trace"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    one, x0_one = _cond_call(trainer, batch, "phase 55 bf16 guidance 1.0",
+                             _expect(K1=16 * steps), guidance_scale=1.0)
+    other = dict(batch, context=_cond_batch(COND_SEED + 1)["context"])
+    _, x0_other = _cond_call(trainer, other, "phase 55 another context",
+                             _expect(K1=16 * steps * 2))
+    diff_one = (x0_one - x0).abs().max().item()
+    diff_ctx = (x0_other - x0).abs().max().item()
+    check(diff_one > 1e-3 and diff_ctx > 1e-3,
+          f"phase 55: guidance 1.0 or another context left x0 unchanged "
+          f"(max diffs {diff_one}, {diff_ctx})")
+    parts["guidance 1.0, another context"] = time.perf_counter() - tp
+    tp = time.perf_counter()
+    _attach_random_pose(trainer)
+    clip = _static_clip(CLIP_HW)
+    clip["context"] = batch["context"][:1]  # one clip: repeated per frame
+    k = _refine_steps(steps)
+    torch.cuda.synchronize()
+    _zero_counts()
+    tc = time.perf_counter()
+    logits, x0_clip = trainer.sample_panoptic_clip(clip)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - tc
+    clip_counts = _counts()
+    check(clip_counts == _expect(K1=16 * (steps + k) * 2)
+          and bool(torch.isfinite(x0_clip).all())
+          and tuple(x0_clip.shape) == (CLIP_T, 32, 64, 4),
+          f"phase 55 clip with CFG: launched {clip_counts}, expected K1 "
+          f"{16 * (steps + k) * 2}")
+    parts["clip"] = time.perf_counter() - tp
+    seconds = time.perf_counter() - t0
+    print(f"phase 55 conditioning ('none' descriptor, context "
+          f"{list(COND_CONTEXT)}, bf16, DDIM {steps}, batch 2 x 256x512): "
+          f"guidance 7.5 {res['seconds']:.3f} s a call, K1 "
+          f"{res['counts']['K1']}, peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB, graph bit-equal to eager "
+          f"(eager {res['eager']['eager_seconds']:.3f} s); the call "
+          f"traced: wall {_ms(prof.get('wall_ms'))} ms, kernels "
+          f"{_ms(prof.get('device_ms'))} ms, busy "
+          f"{_ms(prof.get('busy_share'))} (kernels over the untraced "
+          f"wall {_ms(busy_untraced)}), K1 by name "
+          f"{prof['trace_launches']['K1']}; "
+          f"guidance 1.0 {one['seconds']:.3f} s a call, K1 "
+          f"{one['counts']['K1']}, x0 max diff {diff_one:.4f}; another "
+          f"context: x0 max diff {diff_ctx:.4f}; a 3-frame clip with CFG "
+          f"(DDIM {steps} + a {k}-step tail): {clip_s:.3f} s a call, K1 "
+          f"{clip_counts['K1']}; {seconds:.1f} s ("
+          + ", ".join(f"{k_} {v:.1f}" for k_, v in parts.items())
+          + f") [{smi_line}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    res.update({"guidance_1": one, "clip_seconds": clip_s,
+                "traced_call": prof, "parts_seconds": parts,
+                "busy_untraced": busy_untraced,
+                "clip_counts": clip_counts, "x0": x0, "seconds": seconds,
+                "x0_diff_guidance_1": diff_one,
+                "x0_diff_other_context": diff_ctx})
+    return res
+
+
+def phase_cond_int8(smi_line: str, bf16_result: dict, seed: int = 0):
+    """Phase 56: phase 55's call in int8 with fused norms (the same
+    weights and noise; the int8 UNet's blocks K3 -> ``attn2`` in bf16 ->
+    K4): 1,600 K3 and 1,600 K4 a call at guidance 7.5, no fallback, no K1;
+    x0 correlated >= 0.9 with phase 55's; ``calibrate_int8`` refuses the
+    descriptor (JAX's calibration runs without a context and fails)."""
+    import torch
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    t0 = time.perf_counter()
+    trainer = TrainerDiffusion(_cond_config(sampling_kwargs={
+        "int8_inference": True}))
+    trainer.init_params(seed=seed)
+    steps = trainer.num_inference_steps
+    batch = _cond_batch()
+    trainer.sample_panoptic(batch)  # warm-up
+    res, x0 = _cond_call(trainer, batch, "phase 56 int8 CFG 7.5",
+                         _expect(K3=16 * steps * 2, K4=16 * steps * 2))
+    corr = _corr(x0, bf16_result["x0"])
+    check(corr >= 0.9, f"phase 56: int8 x0 correlates {corr} with bf16's")
+    try:
+        trainer.calibrate_int8(batch)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "without a context" in refused,
+          f"phase 56: calibrate_int8 with a context descriptor: {refused}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 56 conditioning in int8 (fused norms, guidance 7.5): "
+          f"{res['seconds']:.3f} s a call, peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB, K3 {res['counts']['K3']},"
+          f" K4 {res['counts']['K4']}, no fallback; x0 correlation with "
+          f"bf16 {corr:.4f} (>= 0.9); calibrate_int8 refused the 'none' "
+          f"descriptor; {seconds:.1f} s [{smi_line}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return res | {"x0_corr_bf16": corr, "seconds": seconds}
+
+
+COND_TIMED = 3
+
+
+def phase_cond_train(smi_line: str, seed: int = 0):
+    """Phase 57: training with ``learnable`` queries (77 x 768),
+    ``separate_encoder`` and ``add_adaptor`` at full width (phase 6's
+    deployment: batch 8 of 192x640, bf16 on fp32 masters,
+    self-conditioning: the 12 channels split 6/6): 22 attention sites (16
+    and the image path's 6), so a step runs 44 K1 (the self-condition pass
+    and the forward) and 22 K2; 1 warm-up and :data:`COND_TIMED` timed
+    steps (s/step, peak memory); then one step's loss (1e-2) and gradient
+    cosine (>= 0.99) on K1/K2 against the plain attention."""
+    import torch
+    from ldmseg_torch.data.loader import Loader
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.models.unet import CrossAttention
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import merge_dicts
+    t0 = time.perf_counter()
+    cfg = merge_dicts(_train_config(), {
+        "train_kwargs": {"image_descriptors": "learnable"},
+        "model_kwargs": {"separate_encoder": True, "add_adaptor": True}})
+    ds = SyntheticDVPS(length=2 * TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
+    trainer = TrainerDiffusion(cfg, dataset=ds)
+    trainer.init_params(seed=seed)
+    unet = trainer.unet
+    sites = _attention_sites(unet)
+    check(sites == 22 and tuple(unet.object_queries.weight.shape) ==
+          (77, 768), f"phase 57: {sites} attention sites, queries "
+          f"{tuple(unet.object_queries.weight.shape)}")
+    trainer.train_loop(max_steps=1, log_every=1, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    tt = time.perf_counter()
+    losses = trainer.train_loop(max_steps=COND_TIMED, log_every=COND_TIMED,
+                                seed=seed + 1)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - tt) / COND_TIMED
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 57: losses {losses}")
+    want = _expect(K1=2 * sites * COND_TIMED, K2=sites * COND_TIMED)
+    check(counts == want, f"phase 57: launched {counts}, expected {want}")
+    batch = next(iter(Loader(ds, TRAIN_BATCH, seed=seed + 2)))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    lh, lw = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    noise = torch.randn((TRAIN_BATCH, lh, lw, 4), generator=gen,
+                        device="cuda")
+    steps = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                          device="cuda")
+    attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+    results = {}
+    for fused in (True, False):
+        for m in attn:
+            m.use_fused = fused
+        trainer.state.zero_grad()
+        loss, _, _ = trainer.forward_backward(batch, noise=noise,
+                                              timesteps=steps)
+        results[fused] = (loss.item(), _flat_grads(unet))
+    for m in attn:
+        m.use_fused = True
+    (loss_f, g_f), (loss_p, g_p) = results[True], results[False]
+    check(unet.object_queries.weight.grad.abs().max().item() > 0,
+          "phase 57: no gradient reached the object queries")
+    trainer.state.zero_grad()
+    cos = (torch.dot(g_f, g_p) / (g_f.norm() * g_p.norm())).item()
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    del results, g_f, g_p
+    check(loss_rel <= 1e-2 and cos >= 0.99,
+          f"phase 57: loss rel {loss_rel} (tol 1e-2), gradient cosine {cos}"
+          f" (>= 0.99) on K1/K2 against the plain attention")
+    seconds = time.perf_counter() - t0
+    print(f"phase 57 training with learnable queries (77 x 768), "
+          f"separate_encoder and add_adaptor ({sites} attention sites), "
+          f"batch {TRAIN_BATCH} x {TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16: "
+          f"{secs:.4f} s/step over {COND_TIMED} steps, peak memory "
+          f"{peak / 2**30:.2f} GiB, K1 {counts['K1']}, K2 {counts['K2']}; "
+          f"one step vs plain attention: loss {loss_f:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.2e}), gradient cosine {cos:.6f}; "
+          f"{seconds:.1f} s [{smi_line}]", flush=True)
+    del trainer, unet
+    torch.cuda.empty_cache()
+    return {"seconds_per_step": secs, "peak_bytes": peak, "counts": counts,
+            "losses": losses, "loss_rel": loss_rel, "grad_cosine": cos,
+            "seconds": seconds}
+
+
+def phase_cond_surgery(smi_line: str, seed: int = 0):
+    """Phase 58: one bf16 forward each, at full width with cross-attention
+    and a context, batch 2 at a 32x64 latent: ``separate_conv`` (12
+    channels 6/6) and the upscaler head (128 classes, dim 256: logits at
+    64x128), each on K1 (16 launches) within 2e-2 of the plain attention
+    at the trunk's output (``conv_out``'s; the head's input, the head
+    itself has no kernel: its output's error, which its two norms scale
+    up on random weights, is printed); and ``Upscaler`` (the seg-VAE
+    decoder alone, 128 logits, resized x4 to 256x512): finite, of the
+    right shape."""
+    import torch
+    from ldmseg_torch.models.layers import init_random_
+    from ldmseg_torch.models.unet import (CrossAttention, UNet2DCondition,
+                                          UNetConfig)
+    from ldmseg_torch.models.upscaler import Upscaler
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, 12, 32, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ctx = torch.randn(COND_CONTEXT, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    t = torch.tensor([999, 19], device="cuda")
+    out = {}
+    for name, kw, shape in (
+            ("separate_conv", {"separate_conv": True}, (2, 4, 32, 64)),
+            ("upscaler head", {"upscaler_classes": 128},
+             (2, 128, 64, 128))):
+        with torch.device("cuda"):
+            unet = UNet2DCondition(UNetConfig(
+                in_channels=12, use_cross_attention=True,
+                use_fused_attention=True, **kw))
+        init_random_(unet, gen)
+        unet = unet.to(torch.bfloat16).eval()
+        attn = [m for m in unet.modules() if isinstance(m, CrossAttention)]
+        trunk = []
+        if "upscaler" in name:
+            unet.upscaler.register_forward_hook(
+                lambda m, inputs, o: trunk.append(inputs[0].float()))
+        with torch.inference_mode():
+            _zero_counts()
+            fused = unet(x, t, ctx).float()
+            torch.cuda.synchronize()
+            n = _counts()["K1"]
+            for m in attn:
+                m.use_fused = False
+            plain = unet(x, t, ctx).float()
+
+        def rel_err(a, b):
+            return ((a - b).abs().max() / b.abs().max()).item()
+        rel = rel_err(fused, plain)
+        rel_trunk = rel_err(*trunk) if trunk else rel
+        check(tuple(fused.shape) == shape
+              and bool(torch.isfinite(fused).all()) and n == 16
+              and rel_trunk <= 2e-2,
+              f"phase 58 {name}: shape {tuple(fused.shape)} (want {shape}),"
+              f" {n} K1 (want 16), rel err {rel_trunk} at the trunk's "
+              f"output vs plain (tol 2e-2)")
+        out[name] = {"k1": n, "max_rel_err": rel,
+                     "max_rel_err_trunk": rel_trunk}
+        del unet, attn, trunk
+    with torch.device("cuda"):
+        up = Upscaler()
+    init_random_(up, gen)
+    up = up.to(torch.bfloat16).eval()
+    z = torch.randn((2, 4, 32, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        logits = up(z, interpolate=True)
+    check(tuple(logits.shape) == (2, 128, 256, 512)
+          and bool(torch.isfinite(logits).all()),
+          f"phase 58 Upscaler: {tuple(logits.shape)} or not finite")
+    del up
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"phase 58 surgery forwards (bf16, context {list(COND_CONTEXT)}):"
+          + "; ".join(f" {k}: {v['k1']} K1, max rel err vs plain "
+                      f"{v['max_rel_err_trunk']:.3e} at the trunk, "
+                      f"{v['max_rel_err']:.3e} out" for k, v in out.items())
+          + f"; Upscaler -> {tuple(logits.shape)} finite; {seconds:.1f} s "
+          f"[{smi_line}]", flush=True)
+    return out | {"seconds": seconds}
+
+
 _T0 = time.perf_counter()
 
 
@@ -5801,6 +6180,14 @@ def main() -> int:
         loader = phase_loader_bench(smi_line)
         perf_tools = phase_perf_tools(smi_line)
         lap("phases 53-54")
+        # conditioning and the UNet surgery
+        cond_sample = phase_cond_sample(smi_line)
+        cond_int8 = phase_cond_int8(smi_line, cond_sample)
+        cond_sample.pop("x0")
+        lap("phases 55-56")
+        cond_train = phase_cond_train(smi_line)
+        cond_surgery = phase_cond_surgery(smi_line)
+        lap("phases 57-58")
         clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
@@ -5841,7 +6228,9 @@ def main() -> int:
             "clip_sample": clip_sample, "clip_serving": clip_serving,
             "clip_train": clip_train, "pose_train": pose_train,
             "vpq": vpq, "video_cli": video_cli, "trained_gate": gate,
-            "loader_bench": loader, "perf_tools": perf_tools}}),
+            "loader_bench": loader, "perf_tools": perf_tools,
+            "cond_sample": cond_sample, "cond_int8": cond_int8,
+            "cond_train": cond_train, "cond_surgery": cond_surgery}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -5921,6 +6310,16 @@ def main() -> int:
             video_cli["predict_counts"])
         paths[f"trained_gate at {GATE_STEPS} steps, 1 val batch"] = gate[
             "counts"]
+        paths["sample_panoptic with a context, bf16, CFG 7.5 (2 UNet calls "
+              "a step), 50 DDIM steps"] = cond_sample["counts"]
+        paths["sample_panoptic with a context, bf16, guidance 1.0"] = (
+            cond_sample["guidance_1"]["counts"])
+        paths["sample_panoptic_clip with a context, bf16, CFG 7.5, DDIM 50 "
+              "+ a 15-step tail"] = cond_sample["clip_counts"]
+        paths["sample_panoptic with a context, int8 fused norms, CFG 7.5"] = (
+            cond_int8["counts"])
+        paths[f"train_loop, learnable queries + separate_encoder + "
+              f"add_adaptor, {COND_TIMED} steps"] = cond_train["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}

@@ -19,6 +19,8 @@ raises; it never falls back to the eager loop. ``graph=False`` asks for the
 eager loop, which the CPU always runs. :func:`run_steps` is that loop for
 any step on static buffers; ``diffusion/dpm.py`` runs DPM-Solver++(2M) on
 it, and :func:`ddim_refine` the low-noise tail of the DDIM table.
+:func:`cfg_model_fn` wraps a model in classifier-free guidance for any of
+them.
 """
 
 from __future__ import annotations
@@ -110,6 +112,24 @@ def ddim_refine(sched: DDIMSchedule, model_fn: ModelFn, x0: torch.Tensor,
     run_steps(step, k, latents, graph, False, "ddim_refine",
               "the DDIM refine step")
     return out
+
+
+def cfg_model_fn(raw_model_fn: ModelFn, uncond_model_fn: ModelFn,
+                 guidance_scale: float) -> ModelFn:
+    """Classifier-free guidance (JAX ``sampler.py:cfg_model_fn``; reference
+    :1147-1149): ``uncond + scale * (cond - uncond)``, two calls of the
+    model rather than a doubled batch, as in JAX. Scale 1 is the
+    conditional model itself: the unconditional branch never runs. A
+    sampler captures both calls in its graph; the contexts they close over
+    must live as long as the call."""
+    if guidance_scale == 1.0:
+        return raw_model_fn
+
+    def fn(latents, condition, t):
+        cond = raw_model_fn(latents, condition, t)
+        uncond = uncond_model_fn(latents, condition, t)
+        return uncond + guidance_scale * (cond - uncond)
+    return fn
 
 
 def _step(sched, table: StepTable, model_fn, latents, condition, x0, idx):

@@ -75,6 +75,9 @@ def _transformer(sd: StateDict, pfx: str, node) -> None:
         bp, blk = f"{pfx}.transformer_blocks.{i}", node[f"block{i}"]
         _norm(sd, f"{bp}.norm1", blk["norm1"])
         _attention(sd, f"{bp}.attn1", blk["attn1"])
+        if "attn2" in blk:  # use_cross_attention
+            _norm(sd, f"{bp}.norm2", blk["norm2"])
+            _attention(sd, f"{bp}.attn2", blk["attn2"])
         _norm(sd, f"{bp}.norm3", blk["norm3"])
         _dense(sd, f"{bp}.ff.net.0.proj", blk["ff"]["proj_in"])
         _dense(sd, f"{bp}.ff.net.2", blk["ff"]["proj_out"])
@@ -85,28 +88,64 @@ def _root(params: Mapping) -> Mapping:
     return params["params"] if "params" in params else params
 
 
+def _down_blocks(sd: StateDict, p: Mapping, config, ours: str,
+                 theirs: str) -> None:
+    n_blocks = len(config.block_out_channels)
+    for i in range(n_blocks):
+        blk = p[f"{theirs}{i}"]
+        for j in range(config.layers_per_block):
+            _resnet(sd, f"{ours}.{i}.resnets.{j}", blk[f"resnet{j}"])
+            if config.attn_down[i]:
+                _transformer(sd, f"{ours}.{i}.attentions.{j}",
+                             blk[f"attn{j}"])
+        if i < n_blocks - 1:
+            _conv(sd, f"{ours}.{i}.downsamplers.0.conv",
+                  blk["downsample"]["conv"])
+
+
+def _upscaler_head(sd: StateDict, pfx: str, node) -> None:
+    _conv(sd, f"{pfx}.conv1", node["conv1"])
+    _conv_transpose(sd, f"{pfx}.convt", node["convt"])
+    _norm(sd, f"{pfx}.ln", node["ln"]["ln"])
+    _conv(sd, f"{pfx}.conv2", node["conv2"])
+    _norm(sd, f"{pfx}.norm", node["norm"])
+    _conv(sd, f"{pfx}.conv3", node["conv3"])
+
+
 def unet_state_dict_from_jax(params: Mapping, config) -> StateDict:
     """JAX ``UNet2DCondition`` tree -> :class:`~.unet.UNet2DCondition` state
-    dict. ``config`` is a ``UNetConfig`` of either package."""
+    dict. ``config`` is a ``UNetConfig`` of either package (its sizes);
+    the optional parts are read as the tree has them: ``norm2``/``attn2``,
+    ``encoder_hid_proj``, ``object_queries`` (``object_queries.weight``),
+    ``conv_in_seg``, ``conv_in_img``, ``down_blocks_img{i}``
+    (``down_blocks_img.{i}``), ``adaptor{i}_{j}`` (``adaptors.{i}.{j}``)
+    and the ``upscaler`` head in place of ``conv_out``."""
     p = _root(params)
     n_blocks = len(config.block_out_channels)
     lpb = config.layers_per_block
     sd: StateDict = {}
     _conv(sd, "conv_in", p["conv_in"])
+    for name in ("conv_in_seg", "conv_in_img"):
+        if name in p:
+            _conv(sd, name, p[name])
     _dense(sd, "time_embedding.linear_1", p["time_embedding"]["linear_1"])
     _dense(sd, "time_embedding.linear_2", p["time_embedding"]["linear_2"])
+    if "encoder_hid_proj" in p:
+        _dense(sd, "encoder_hid_proj", p["encoder_hid_proj"])
+    if "object_queries" in p:
+        sd["object_queries.weight"] = _t(p["object_queries"])
     _norm(sd, "conv_norm_out", p["conv_norm_out"])
-    _conv(sd, "conv_out", p["conv_out"])
-    for i in range(n_blocks):
-        blk = p[f"down_blocks{i}"]
-        for j in range(lpb):
-            _resnet(sd, f"down_blocks.{i}.resnets.{j}", blk[f"resnet{j}"])
-            if config.attn_down[i]:
-                _transformer(sd, f"down_blocks.{i}.attentions.{j}",
-                             blk[f"attn{j}"])
-        if i < n_blocks - 1:
-            _conv(sd, f"down_blocks.{i}.downsamplers.0.conv",
-                  blk["downsample"]["conv"])
+    if "upscaler" in p:
+        _upscaler_head(sd, "upscaler", p["upscaler"])
+    else:
+        _conv(sd, "conv_out", p["conv_out"])
+    _down_blocks(sd, p, config, "down_blocks", "down_blocks")
+    if "down_blocks_img0" in p:
+        _down_blocks(sd, p, config, "down_blocks_img", "down_blocks_img")
+    for key in p:
+        if key.startswith("adaptor"):
+            i, j = key[len("adaptor"):].split("_")
+            _conv(sd, f"adaptors.{i}.{j}", p[key])
     mid = p["mid_block"]
     _resnet(sd, "mid_block.resnets.0", mid["resnet0"])
     _transformer(sd, "mid_block.attentions.0", mid["attn"])
@@ -122,6 +161,17 @@ def unet_state_dict_from_jax(params: Mapping, config) -> StateDict:
         if i < n_blocks - 1:
             _conv(sd, f"up_blocks.{i}.upsamplers.0.conv",
                   blk["upsample"]["conv"])
+    return sd
+
+
+def upscaler_state_dict_from_jax(params: Mapping, num_upscalers: int = 1,
+                                num_mid_blocks: int = 0) -> StateDict:
+    """JAX ``Upscaler`` tree -> :class:`~.upscaler.Upscaler` state dict:
+    its ``decoder`` under the seg VAE decoder's Sequential indices."""
+    from .seg_vae import decoder_plan
+    sd: StateDict = {}
+    _plan(sd, "decoder", _root(params)["decoder"],
+          decoder_plan(num_upscalers, num_mid_blocks))
     return sd
 
 

@@ -279,6 +279,35 @@ def decoder_plan(num_upscalers: int = 1, num_mid_blocks: int = 0) -> Plan:
     return plan + [("norm", "norm"), (None, None), ("out_conv", "conv")]
 
 
+def decoder_layers(latent_channels: int, int_channels: int,
+                   out_channels: int, groups: int, num_mid_blocks: int = 0,
+                   num_upscalers: int = 1, upscale_channels: int = 256,
+                   use_int8: bool = False,
+                   int8_act_scale: Optional[float] = None) -> nn.Sequential:
+    """The decoder of :func:`decoder_plan` (JAX ``SegDecoder``), shared by
+    :class:`SegVAE` and :class:`~.upscaler.Upscaler`; ``use_int8`` makes
+    its convs and upscalers s8 (inference only)."""
+    if use_int8:
+        def conv(cin, cout):
+            return QuantConv2d(cin, cout, act_scale=int8_act_scale)
+    else:
+        conv = conv3x3
+    ic = int_channels
+    layers = [conv(latent_channels, ic),
+              MidBlock2D(ic, groups, 1e-6) if num_mid_blocks
+              else nn.Identity()]
+    ch = ic
+    for _ in range(num_upscalers):
+        layers += [ConvTranspose2x(ch, upscale_channels, use_int8,
+                                   int8_act_scale),
+                   LayerNorm2d(upscale_channels), nn.SiLU()]
+        ch = upscale_channels
+    # the decoder head uses torch's GroupNorm eps (vae.py:163)
+    layers += [GroupNorm(groups, ch, 1e-5), nn.SiLU(),
+               conv(ch, out_channels)]
+    return nn.Sequential(*layers)
+
+
 def _mid_blocks(n: int, channels: int, groups: int) -> nn.Module:
     return nn.Sequential(*[MidBlock2D(channels, groups, 1e-6)
                            for _ in range(n)]) if n else nn.Identity()
@@ -327,23 +356,9 @@ class SegVAE(nn.Module):
             self.encoder = nn.Sequential(*self._encoder_layers(
                 cin, ic, enc_out, g, num_mid_blocks, resize_input,
                 skip_encoder))
-        if use_int8:
-            def conv(cin, cout):
-                return QuantConv2d(cin, cout, act_scale=int8_act_scale)
-        else:
-            conv = conv3x3
-        layers = [conv(latent_channels, ic),
-                  MidBlock2D(ic, g, 1e-6) if num_mid_blocks
-                  else nn.Identity()]
-        ch = ic
-        for _ in range(num_upscalers):
-            layers += [ConvTranspose2x(ch, upscale_channels, use_int8,
-                                       int8_act_scale),
-                       LayerNorm2d(upscale_channels), nn.SiLU()]
-            ch = upscale_channels
-        # the decoder head uses torch's GroupNorm eps (vae.py:163)
-        layers += [GroupNorm(g, ch, 1e-5), nn.SiLU(), conv(ch, out_channels)]
-        self.decoder = nn.Sequential(*layers)
+        self.decoder = decoder_layers(
+            latent_channels, ic, out_channels, g, num_mid_blocks,
+            num_upscalers, upscale_channels, use_int8, int8_act_scale)
 
     def _encoder_layers(self, cin, ic, enc_out, g, num_mid_blocks,
                         resize_input, skip_encoder) -> list:

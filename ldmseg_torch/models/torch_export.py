@@ -8,8 +8,8 @@ convs, ``[out, in]`` linears), so a state dict is written as it is, in
 fp32, in the key order of the JAX exporter: :func:`unet_keys`,
 :func:`image_vae_keys` and :func:`seg_vae_keys` give that order and pick
 the keys a model of the port uses out of a larger state dict (a diffusers
-UNet's cross-attention, a VAE's decoder), which ``torch_import`` reads
-with them.
+UNet's cross-attention unless the config has ``use_cross_attention``, a
+VAE's decoder), which ``torch_import`` reads with them.
 
 ``export_reference_ldm`` writes the reference's stage-2 save dict ``{step,
 epoch, vae_image, vae_semseg, unet, ema?}`` (reference
@@ -39,48 +39,61 @@ def _resnet(keys: List[str], sd: Mapping, pfx: str) -> None:
             _pair(keys, f"{pfx}.{part}")
 
 
-def _transformer(keys: List[str], sd: Mapping, pfx: str) -> None:
+def _attention(keys: List[str], pfx: str) -> None:
+    keys += [f"{pfx}.{q}.weight" for q in ("to_q", "to_k", "to_v")]
+    _pair(keys, f"{pfx}.to_out.0")
+
+
+def _transformer(keys: List[str], sd: Mapping, pfx: str,
+                 cross: bool) -> None:
     for part in ("norm", "proj_in", "proj_out"):
         _pair(keys, f"{pfx}.{part}")
     i = 0
     while f"{pfx}.transformer_blocks.{i}.norm1.weight" in sd:
         bp = f"{pfx}.transformer_blocks.{i}"
         _pair(keys, f"{bp}.norm1")
-        keys += [f"{bp}.attn1.{q}.weight" for q in ("to_q", "to_k", "to_v")]
-        _pair(keys, f"{bp}.attn1.to_out.0")
+        _attention(keys, f"{bp}.attn1")
         _pair(keys, f"{bp}.norm3")
         _pair(keys, f"{bp}.ff.net.0.proj")
         _pair(keys, f"{bp}.ff.net.2")
+        if cross:  # after the FF, as the JAX exporter writes them
+            _pair(keys, f"{bp}.norm2")
+            _attention(keys, f"{bp}.attn2")
         i += 1
 
 
 def unet_keys(sd: Mapping, config) -> List[str]:
     """The UNet's keys in the JAX exporter's order (``unet_sd_from_params``:
     conv_in, time_embedding, conv_norm_out, conv_out, then the blocks),
-    without cross-attention; the optional parts (``time_emb_proj``,
-    ``conv_shortcut``, the transformer blocks) as ``sd`` has them."""
+    with each block's ``norm2``/``attn2`` when ``config.use_cross_attention``
+    (JAX :88-90); the optional parts (``time_emb_proj``, ``conv_shortcut``,
+    the transformer blocks) as ``sd`` has them. The surgery's other
+    parameters are not in the reference's format, as in JAX."""
     keys: List[str] = []
     for name in ("conv_in", "time_embedding.linear_1",
                  "time_embedding.linear_2", "conv_norm_out", "conv_out"):
         _pair(keys, name)
     n_blocks = len(config.block_out_channels)
     lpb = config.layers_per_block
+    cross = bool(getattr(config, "use_cross_attention", False))
     for i in range(n_blocks):
         for j in range(lpb):
             _resnet(keys, sd, f"down_blocks.{i}.resnets.{j}")
             if config.attn_down[i]:
-                _transformer(keys, sd, f"down_blocks.{i}.attentions.{j}")
+                _transformer(keys, sd, f"down_blocks.{i}.attentions.{j}",
+                             cross)
         if i < n_blocks - 1:
             _pair(keys, f"down_blocks.{i}.downsamplers.0.conv")
     _resnet(keys, sd, "mid_block.resnets.0")
-    _transformer(keys, sd, "mid_block.attentions.0")
+    _transformer(keys, sd, "mid_block.attentions.0", cross)
     _resnet(keys, sd, "mid_block.resnets.1")
     attn_up = tuple(reversed(config.attn_down))
     for i in range(n_blocks):
         for j in range(lpb + 1):
             _resnet(keys, sd, f"up_blocks.{i}.resnets.{j}")
             if attn_up[i]:
-                _transformer(keys, sd, f"up_blocks.{i}.attentions.{j}")
+                _transformer(keys, sd, f"up_blocks.{i}.attentions.{j}",
+                             cross)
         if i < n_blocks - 1:
             _pair(keys, f"up_blocks.{i}.upsamplers.0.conv")
     return keys

@@ -6,8 +6,10 @@ Reads LOCAL files only: a diffusers model directory
 the reference's stage-2 save dict and its stage-1 ``{'vae': ...}`` dict.
 The port's modules carry the reference's keys and layouts, so a state dict is
 read by picking the keys the model uses (:mod:`.torch_export`'s key lists: a
-diffusers UNet's cross-attention is left out, and a VAE's decoder unless
-``decoder_enabled`` asks for it), in fp32; ``module.`` prefixes are stripped.
+diffusers UNet's cross-attention ``attn2``/``norm2`` only with the config's
+``use_cross_attention``, as JAX's ``torch_import.py:108-110``, and a VAE's
+decoder only when ``decoder_enabled`` asks for it), in fp32; ``module.``
+prefixes are stripped.
 ``.bin`` files and save dicts load with ``torch.load(weights_only=True)``;
 ``.safetensors`` files are parsed here (an 8-byte little-endian header length,
 a JSON header, then the raw buffers), with no ``safetensors`` package.
@@ -99,8 +101,9 @@ def image_vae_state_dict(sd: Mapping, decoder_enabled: bool = False
 
 def load_diffusers_unet(model_dir: str, config) -> StateDict:
     """The port UNet's state dict from ``<model_dir>/unet``: the SD-1.4
-    UNet's, without cross-attention (its ``conv_in`` still 4 channels:
-    :func:`expand_conv_in` widens it)."""
+    UNet's, with its pretrained ``attn2``/``norm2`` when
+    ``config.use_cross_attention`` and without them otherwise (its
+    ``conv_in`` still 4 channels: :func:`expand_conv_in` widens it)."""
     return unet_state_dict(_diffusers_state_dict(model_dir, "unet"), config)
 
 

@@ -11,10 +11,30 @@ K1 (``fused_self_attention``) when ``use_fused_attention`` is, else to the
 plain einsum path. Parameter names are the diffusers keys that
 ``ldmseg_tpu/models/torch_export.py:unet_sd_from_params`` emits.
 
-The port holds the trainer's default UNet: no cross-attention, a plain
-``conv_in``, the SD time embedding (``flip_sin_to_cos``, no frequency
-shift). K1/K2 make the fused self-attention differentiable. The rest of
-the reference surgery is a later slice.
+The SD time embedding (``flip_sin_to_cos``, no frequency shift); K1/K2
+make the fused self-attention differentiable. The reference surgery is
+config, as in JAX (:9-25):
+
+- ``use_cross_attention`` puts ``norm2`` + ``attn2`` between each block's
+  self-attention and its FF (:485-489): ``attn2`` reads the context
+  (``encoder_hidden_states`` ``[B, T, cross_attention_dim]``, after
+  ``encoder_hid_proj`` when ``encoder_hid_dim`` > 0, or the learnable
+  ``object_queries`` broadcast over the batch when ``num_object_queries``
+  > 0, :862-868) with the plain einsum and an fp32 softmax (:328-331),
+  never a kernel: JAX sends only self-attention to one. The port's
+  default is without it, the trainer's ``image_descriptors: remove``; JAX's
+  ``UNetConfig`` defaults to True. The context runs in the sample's dtype.
+- ``separate_conv`` (:923-927): the input split in half along the
+  channels, ``conv_in_seg`` on the first half plus ``conv_in`` on the
+  second.
+- ``separate_encoder`` (:884-922): the same split, ``conv_in`` on the
+  first half and an image path (``conv_in_img`` and ``down_blocks_img``,
+  the time embedding of ``timesteps_img``, 0 by default, through the
+  shared MLP) on the second, whose outputs are added to the skips; with
+  ``add_adaptor`` each of them passes a zero-initialised 3x3 conv
+  (``adaptors``) first.
+- ``upscaler_classes`` > 0 replaces ``conv_out`` with :class:`UpscalerHead`
+  (:795-814), logits at twice the latent size.
 
 The int8 UNet of ``sampling_kwargs.int8_inference`` is this class built with
 ``use_int8_conv`` (s8 resnet, Downsample and Upsample convs,
@@ -149,28 +169,42 @@ def input_dropout(sample: torch.Tensor, rate: float, mode: str,
     p = rate / (1.0 - rate)
     std = (p / (1.0 - p)) ** 0.5
     return sample * (1.0 + std * draw.to(sample.dtype))
-from .layers import (GroupNorm, LayerNorm, ResnetBlock, TimestepEmbedding,
-                     conv3x3, timestep_embedding)
+from .layers import (ConvTranspose2x, GroupNorm, LayerNorm, LayerNorm2d,
+                     ResnetBlock, TimestepEmbedding, conv3x3,
+                     timestep_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """SD-1.4 defaults; the fields of the JAX ``UNetConfig`` that the
-    sampling path without cross-attention reads, among them flags that a
+    """SD-1.4 defaults; the fields of the JAX ``UNetConfig`` (its
+    ``cond_channels`` is in ``in_channels`` here), among them flags that a
     caller sets only through ``unet_config``: the resnet norms'
     ``use_pallas_gn`` (K5) and ``int8_fuse_gn`` (K6, with
     ``use_int8_conv``), ``use_absorbed_attention`` (K16, K17),
     ``use_packed_attention`` (K14, K15), ``use_padded_attention`` (K11) and
-    ``use_fused_projs`` (K8, K9)."""
+    ``use_fused_projs`` (K8, K9). ``use_cross_attention`` defaults to
+    False (JAX: True), the trainer's default descriptor ``remove``."""
 
     in_channels: int = 4
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
+    cross_attention_dim: int = 768
     attention_head_dim: int = 8  # = number of heads (SD v1 semantics)
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
+    use_cross_attention: bool = False
     attn_down: Tuple[bool, ...] = (True, True, True, False)
+    # the surgery (unet.py:57-65)
+    separate_conv: bool = False
+    separate_encoder: bool = False
+    add_adaptor: bool = False
+    upscaler_classes: int = 0  # > 0 replaces conv_out with UpscalerHead
+    upscaler_dim: int = 256
+    num_object_queries: int = 0
+    # > 0: encoder_hid_proj, Linear(encoder_hid_dim, cross_attention_dim),
+    # on the context (JAX's nn.Dense infers this input width)
+    encoder_hid_dim: int = 0
     use_fused_attention: bool = False
     # K16, the projections inside (K2 in its backward), K17 with
     # use_int8_attention; wins over use_packed_attention and
@@ -206,8 +240,12 @@ class UNetConfig:
 
 
 class CrossAttention(nn.Module):
-    """Multi-head self-attention (diffusers Attention): q/k/v without bias,
-    out projection with bias; the projections stay float (unet.py:290-327).
+    """Multi-head attention (diffusers Attention), self-attention without a
+    ``context``: q/k/v without bias, out projection with bias; the
+    projections stay float (unet.py:290-327). ``context_dim`` (``attn2``)
+    sizes ``to_k``/``to_v`` for the context; with a context the attention
+    is the plain einsum with an fp32 softmax whatever the flags (JAX sends
+    only self-attention to a kernel, :280-331).
     ``absorbed`` (float only) sends it to K16 with the four weights
     (``CrossAttention._absorbed``'s float branch, :209-216: the ``to_out``
     bias added outside, in the output's dtype); else ``packed`` to K14 on
@@ -222,7 +260,8 @@ class CrossAttention(nn.Module):
 
     def __init__(self, query_dim: int, heads: int, use_fused: bool = False,
                  int8: bool = False, int8_act_scale: Optional[float] = None,
-                 packed: bool = False, absorbed: bool = False):
+                 packed: bool = False, absorbed: bool = False,
+                 context_dim: Optional[int] = None):
         super().__init__()
         if absorbed and int8:
             raise ValueError("the int8 absorbed attention is "
@@ -233,31 +272,36 @@ class CrossAttention(nn.Module):
         self.int8, self.int8_act_scale = int8, int8_act_scale
         if int8:
             self.act_scale_sites = {"to_q": None}
+        kv_dim = context_dim or query_dim
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(query_dim, query_dim, bias=False)
+        self.to_k = nn.Linear(kv_dim, query_dim, bias=False)
+        self.to_v = nn.Linear(kv_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, c = x.shape
         hd = c // self.heads
         scale = hd ** -0.5
-        if self.absorbed:
+        is_self = context is None
+        if is_self and self.absorbed:
             out = absorbed_self_attention(
                 x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
                 self.to_out[0].weight, self.heads, scale)
             return out + self.to_out[0].bias.to(out.dtype)
-        if self.packed:
+        if is_self and self.packed:
             q, k, v = (proj(x) for proj in (self.to_q, self.to_k, self.to_v))
             attend = (fused_self_attention_packed_s8 if self.int8
                       else fused_self_attention_packed)
             return self.to_out[0](attend(q, k, v, self.heads, scale))
-        q, k, v = (proj(x).reshape(b, t, self.heads, hd)
-                   for proj in (self.to_q, self.to_k, self.to_v))
-        if self.use_fused and self.int8:
+        src = x if is_self else context
+        q = self.to_q(x).reshape(b, t, self.heads, hd)
+        k, v = (proj(src).reshape(b, src.shape[1], self.heads, hd)
+                for proj in (self.to_k, self.to_v))
+        if is_self and self.use_fused and self.int8:
             out = fused_self_attention_s8(q, k, v, scale,
                                           self.int8_act_scale)
-        elif self.use_fused:
+        elif is_self and self.use_fused:
             out = fused_self_attention(q, k, v, scale)
         else:
             attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -479,8 +523,12 @@ class BasicTransformerBlock(nn.Module):
     :class:`LNFeedForwardS8`), else ``norm3`` + a :class:`FeedForwardS8`
     (``int8_ff``) or a float FF; the LayerNorms stay float.
     ``fused_projs`` (from Transformer2D) makes them K8 and K9 and needs both
-    fusions (:469-470). :meth:`prepare` packs K3's and K4's operands from a
-    float block."""
+    fusions and no cross-attention (:469-470). With ``context_dim`` (the
+    UNet's ``use_cross_attention``) ``norm2`` + ``attn2`` (a float
+    :class:`CrossAttention`, the plain einsum on the context) and a
+    residual come between the two halves in every variant: with fused
+    norms, K3 -> ``attn2`` in the compute dtype -> K4 (:485-489).
+    :meth:`prepare` packs K3's and K4's operands from a float block."""
 
     def __init__(self, dim: int, heads: int, use_fused: bool = False,
                  int8_attention: bool = False, int8_ff: bool = False,
@@ -489,7 +537,8 @@ class BasicTransformerBlock(nn.Module):
                  packed_attention: bool = False,
                  absorbed_attention: bool = False,
                  int8_act_scale: Optional[float] = None,
-                 int8_attn_act_scale: Optional[float] = None):
+                 int8_attn_act_scale: Optional[float] = None,
+                 context_dim: Optional[int] = None):
         super().__init__()
         self.heads = heads
         self.fuse_attn = fused_norms and padded_attention
@@ -499,6 +548,9 @@ class BasicTransformerBlock(nn.Module):
                 "use_fused_projs needs the fused attention and FF blocks: "
                 "use_fused_norms with use_padded_attention, use_int8_ff and "
                 "use_fused_ff (sampling_kwargs.fused_ff)")
+        if fused_projs and context_dim:
+            raise ValueError("use_fused_projs takes no cross-attention "
+                             "(unet.py:469-470)")
         attn_scale = int8_attn_act_scale or 0.1
         if self.fuse_attn:
             self.attn1 = LNAttentionS8(heads, attn_scale, fused_projs)
@@ -513,6 +565,10 @@ class BasicTransformerBlock(nn.Module):
                     dim, heads, use_fused=use_fused, int8=int8_attention,
                     int8_act_scale=int8_attn_act_scale,
                     packed=packed_attention, absorbed=absorbed_attention)
+        self.cross = bool(context_dim)
+        if self.cross:
+            self.norm2 = LayerNorm(dim)
+            self.attn2 = CrossAttention(dim, heads, context_dim=context_dim)
         if self.fuse_ff:
             self.ff = LNFeedForwardS8(int8_act_scale or 0.05, fused_projs)
         else:
@@ -530,8 +586,11 @@ class BasicTransformerBlock(nn.Module):
             f.pack = pack_geglu(src.norm3, src.ff.net[0].proj, src.ff.net[2],
                                 xs, f.g_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.attn1(x) if self.fuse_attn else x + self.attn1(self.norm1(x))
+        if self.cross:
+            x = x + self.attn2(self.norm2(x), context)
         return self.ff(x) if self.fuse_ff else x + self.ff(self.norm3(x))
 
 
@@ -547,17 +606,20 @@ class Transformer2D(nn.Module):
                  use_fused: bool = False, int8: Optional[dict] = None,
                  fused_norms: bool = False, padded_attention: bool = False,
                  fused_projs: bool = False, packed_attention: bool = False,
-                 absorbed_attention: bool = False):
+                 absorbed_attention: bool = False,
+                 context_dim: Optional[int] = None):
         super().__init__()
         self.norm = GroupNorm(groups, channels, 1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        # JAX ignores fused_projs without fused_norms
-        self.fused_projs = fused_projs and fused_norms
+        # JAX takes fused_projs only with fused_norms and without
+        # cross-attention (:547-548)
+        self.fused_projs = fused_projs and fused_norms and not context_dim
         block = BasicTransformerBlock(
             channels, heads, use_fused, fused_norms=fused_norms,
             padded_attention=padded_attention,
             fused_projs=self.fused_projs, packed_attention=packed_attention,
-            absorbed_attention=absorbed_attention, **(int8 or {}))
+            absorbed_attention=absorbed_attention, context_dim=context_dim,
+            **(int8 or {}))
         self.transformer_blocks = nn.ModuleList([block])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
@@ -568,7 +630,8 @@ class Transformer2D(nn.Module):
             blk.attn1.pack = with_proj_in(blk.attn1.pack, src.proj_in)
             blk.ff.pack = with_proj_out(blk.ff.pack, src.proj_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, c, h, w = x.shape
         if self.fused_projs:
             # the GN output's tokens view; K9 returns a channel-major one
@@ -577,7 +640,7 @@ class Transformer2D(nn.Module):
             return y.transpose(1, 2).reshape(b, c, h, w) + x
         y = self.proj_in(self.norm(x))
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y = self.transformer_blocks[0](y)
+        y = self.transformer_blocks[0](y, context)
         y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(y) + x
 
@@ -636,12 +699,13 @@ class DownBlock(nn.Module):
             [Downsample(out_channels, res_kw["use_int8"])]
             if add_downsample else [])
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor):
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                context: Optional[torch.Tensor] = None):
         res_outputs = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if self.attentions:
-                x = self.attentions[i](x)
+                x = self.attentions[i](x, context)
             res_outputs.append(x)
         for down in self.downsamplers:
             x = down(x)
@@ -673,12 +737,13 @@ class UpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, res_samples: List[torch.Tensor],
                 temb: torch.Tensor,
-                upsample_size: Optional[Tuple[int, int]] = None):
+                upsample_size: Optional[Tuple[int, int]] = None,
+                context: Optional[torch.Tensor] = None):
         res_samples = list(res_samples)
         for i, resnet in enumerate(self.resnets):
             x = resnet(torch.cat([x, res_samples.pop()], dim=1), temb)
             if self.attentions:
-                x = self.attentions[i](x)
+                x = self.attentions[i](x, context)
         for up in self.upsamplers:
             x = up(x, upsample_size)
         return x
@@ -695,10 +760,58 @@ class MidBlockCrossAttn(nn.Module):
         self.attentions = nn.ModuleList([
             Transformer2D(channels, heads, groups, **attn_kw)])
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x)
+        x = self.attentions[0](x, context)
         return self.resnets[1](x, temb)
+
+
+class ZeroConv2d(nn.Conv2d):
+    """A 3x3 conv whose seeded init is zero (the adaptors' Flax
+    ``kernel_init``/``bias_init``, unet.py:915-918)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 3, padding=1)
+
+    @torch.no_grad()
+    def random_init_(self, gen: torch.Generator) -> None:
+        self.weight.zero_()
+        self.bias.zero_()
+
+
+class ObjectQueries(nn.Module):
+    """The learnable queries ``[N, cross_attention_dim]``, drawn from a
+    standard normal at init (unet.py:866-867)."""
+
+    def __init__(self, n: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, dim))
+
+    @torch.no_grad()
+    def random_init_(self, gen: torch.Generator) -> None:
+        self.weight.normal_(0.0, 1.0, generator=gen)
+
+
+class UpscalerHead(nn.Module):
+    """``define_upscaler``'s head (unet.py:795-814): conv -> ConvTranspose
+    2x -> LayerNorm2d -> SiLU -> conv -> GroupNorm (eps 1e-5) -> SiLU ->
+    conv to ``num_classes``."""
+
+    def __init__(self, in_channels: int, num_classes: int, dim: int = 256,
+                 groups: int = 32):
+        super().__init__()
+        self.conv1 = conv3x3(in_channels, dim)
+        self.convt = ConvTranspose2x(dim, dim)
+        self.ln = LayerNorm2d(dim)
+        self.conv2 = conv3x3(dim, dim)
+        self.norm = GroupNorm(groups, dim, 1e-5)
+        self.conv3 = conv3x3(dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.ln(self.convt(self.conv1(x))))
+        h = F.silu(self.norm(self.conv2(h)))
+        return self.conv3(h)
 
 
 class UNet2DCondition(nn.Module):
@@ -726,22 +839,51 @@ class UNet2DCondition(nn.Module):
                                  fused_projs=cfg.use_fused_projs,
                                  packed_attention=cfg.use_packed_attention,
                                  absorbed_attention=(
-                                     cfg.use_absorbed_attention)))
+                                     cfg.use_absorbed_attention),
+                                 context_dim=(cfg.cross_attention_dim
+                                              if cfg.use_cross_attention
+                                              else None)))
         c0 = chans[0]
         temb = c0 * 4
-        self.conv_in = conv3x3(cfg.in_channels, c0)
+        split = cfg.separate_conv or cfg.separate_encoder
+        if split and cfg.in_channels % 2:
+            raise ValueError(
+                f"separate_conv / separate_encoder split the input's "
+                f"{cfg.in_channels} channels in half (jnp.split, "
+                f"unet.py:886, :925): an even count is needed")
+        cin0 = cfg.in_channels // 2 if split else cfg.in_channels
+        self.conv_in = conv3x3(cin0, c0)
+        if cfg.separate_conv and not cfg.separate_encoder:
+            self.conv_in_seg = conv3x3(cin0, c0)
         self.time_embedding = TimestepEmbedding(c0, temb)
+        if cfg.encoder_hid_dim > 0:
+            self.encoder_hid_proj = nn.Linear(cfg.encoder_hid_dim,
+                                              cfg.cross_attention_dim)
+        if cfg.num_object_queries > 0:
+            self.object_queries = ObjectQueries(cfg.num_object_queries,
+                                                cfg.cross_attention_dim)
 
-        skips = [c0]
-        down, cin = [], c0
-        for i, cout in enumerate(chans):
-            last = i == len(chans) - 1
-            down.append(DownBlock(cin, cout, cfg.layers_per_block,
-                                  cfg.attn_down[i], heads, groups, eps,
-                                  not last, temb, **opts))
-            skips += [cout] * (cfg.layers_per_block + (0 if last else 1))
-            cin = cout
-        self.down_blocks = nn.ModuleList(down)
+        def down_path():
+            blocks, skips, cin = [], [c0], c0
+            for i, cout in enumerate(chans):
+                last = i == len(chans) - 1
+                blocks.append(DownBlock(cin, cout, cfg.layers_per_block,
+                                        cfg.attn_down[i], heads, groups, eps,
+                                        not last, temb, **opts))
+                skips += [cout] * (cfg.layers_per_block + (0 if last else 1))
+                cin = cout
+            return nn.ModuleList(blocks), skips
+
+        self.down_blocks, skips = down_path()
+        if cfg.separate_encoder:
+            self.conv_in_img = conv3x3(cin0, c0)
+            self.down_blocks_img, _ = down_path()
+            if cfg.add_adaptor:
+                # one per output of each image down block
+                self.adaptors = nn.ModuleList([
+                    nn.ModuleList([ZeroConv2d(cout) for _ in range(
+                        len(blk.resnets) + len(blk.downsamplers))])
+                    for blk, cout in zip(self.down_blocks_img, chans)])
         self.mid_block = MidBlockCrossAttn(chans[-1], heads, groups, eps,
                                            temb, **opts)
         up, cin = [], chans[-1]
@@ -755,7 +897,11 @@ class UNet2DCondition(nn.Module):
             cin = cout
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(groups, c0, eps)
-        self.conv_out = conv3x3(c0, cfg.out_channels)
+        if cfg.upscaler_classes > 0:
+            self.upscaler = UpscalerHead(c0, cfg.upscaler_classes,
+                                         cfg.upscaler_dim, groups)
+        else:
+            self.conv_out = conv3x3(c0, cfg.out_channels)
         # an unknown policy raises whether or not remat is on, as in JAX
         context_fn = remat_context_fn(cfg.remat_policy)
         self._remat = None
@@ -763,11 +909,7 @@ class UNet2DCondition(nn.Module):
             from torch.utils.checkpoint import noop_context_fn
             self._remat = context_fn or noop_context_fn
 
-    def forward(self, sample: torch.Tensor, timesteps,
-                dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``dropout``: the input dropout's draw (:func:`draw_input_dropout`,
-        the sample's shape), applied when ``config.dropout > 0``."""
-        cfg = self.config
+    def _temb(self, timesteps, sample: torch.Tensor) -> torch.Tensor:
         b = sample.shape[0]
         if isinstance(timesteps, torch.Tensor):
             # no copy on the sample's device: a captured step reads its
@@ -781,9 +923,32 @@ class UNet2DCondition(nn.Module):
             t = torch.as_tensor(timesteps, device=sample.device)
         if t.dim() == 0:
             t = t.expand(b)
-        emb = timestep_embedding(t, cfg.block_out_channels[0])
+        emb = timestep_embedding(t, self.config.block_out_channels[0])
         # sin/cos and MLP in fp32, then the activation dtype
-        emb = self.time_embedding(emb).to(sample.dtype)
+        return self.time_embedding(emb).to(sample.dtype)
+
+    def forward(self, sample: torch.Tensor, timesteps,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                timesteps_img=None,
+                dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``encoder_hidden_states``: the context ``[B, T, D]`` of
+        ``attn2`` (``D`` = ``encoder_hid_dim`` with ``encoder_hid_proj``,
+        else ``cross_attention_dim``; ignored with object queries, which
+        replace it). ``timesteps_img``: the image branch's timestep under
+        ``separate_encoder`` (default 0). ``dropout``: the input dropout's
+        draw (:func:`draw_input_dropout`, the sample's shape), applied when
+        ``config.dropout > 0``."""
+        cfg = self.config
+        b = sample.shape[0]
+        emb = self._temb(timesteps, sample)
+        context = encoder_hidden_states
+        if context is not None:
+            context = context.to(sample.dtype)
+            if cfg.encoder_hid_dim > 0:
+                context = self.encoder_hid_proj(context)
+        if cfg.num_object_queries > 0:
+            oq = self.object_queries.weight
+            context = oq[None].expand((b,) + tuple(oq.shape))
 
         if cfg.dropout > 0 and dropout is not None:
             sample = input_dropout(sample, cfg.dropout, cfg.dropout_mode,
@@ -807,16 +972,39 @@ class UNet2DCondition(nn.Module):
             return torch.utils.checkpoint.checkpoint(
                 fn, *args, *weights, use_reentrant=False, context_fn=remat)
 
-        x = self.conv_in(sample)
+        extra = None
+        if cfg.separate_encoder:
+            # the image half through its own conv_in and down path, its
+            # residuals added to the skips (:884-922, :966-967)
+            seg, img = sample.chunk(2, dim=1)
+            emb_img = self._temb(0 if timesteps_img is None
+                                 else timesteps_img, sample)
+            x_img = self.conv_in_img(img)
+            extra = [x_img]
+            for i, block in enumerate(self.down_blocks_img):
+                x_img, res = block(x_img, emb_img, context)
+                if cfg.add_adaptor:
+                    res = [conv(r) for conv, r in zip(self.adaptors[i], res)]
+                extra.extend(res)
+            x = self.conv_in(seg)
+        elif cfg.separate_conv:
+            seg, img = sample.chunk(2, dim=1)
+            x = self.conv_in_seg(seg) + self.conv_in(img)
+        else:
+            x = self.conv_in(sample)
         res_stack = [x]
         for block in self.down_blocks:
-            x, res = run(block, x, emb)
+            x, res = run(block, x, emb, context)
             res_stack.extend(res)
-        x = self.mid_block(x, emb)
+        if extra is not None:
+            res_stack = [r + e for r, e in zip(res_stack, extra)]
+        x = self.mid_block(x, emb, context)
         for block in self.up_blocks:
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
             size = tuple(res_stack[-1].shape[-2:]) if res_stack else None
-            x = run(block, x, res, emb, upsample_size=size)
+            x = run(block, x, res, emb, size, context)
         x = F.silu(self.conv_norm_out(x))
+        if cfg.upscaler_classes > 0:
+            return self.upscaler(x)
         return self.conv_out(x)

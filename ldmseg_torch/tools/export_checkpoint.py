@@ -27,7 +27,8 @@ def main(argv=None):
     """Write the export; returns its path."""
     from ..train.trainer_ae import TrainerAE
     from ..train.trainer_ldm import TrainerDiffusion
-    from .main_ldm import build_unet_config, load_weights
+    from .main_ldm import (build_unet_config, descriptor_from_config,
+                           load_weights)
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--run_dir", required=True,
@@ -50,9 +51,12 @@ def main(argv=None):
                             results_folder=cfg["checkpoint_dir"])
         trainer.init_params()
     else:
-        trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
+        desc = descriptor_from_config(cfg)
+        trainer = TrainerDiffusion(cfg,
+                                   unet_config=build_unet_config(cfg, desc),
                                    device=args.device,
-                                   results_folder=cfg["checkpoint_dir"])
+                                   results_folder=cfg["checkpoint_dir"],
+                                   descriptor=desc)
         load_weights(trainer, cfg)
     resumed = trainer.resume(os.path.join(cfg["checkpoint_dir"], args.ckpt)
                              if args.ckpt else None)

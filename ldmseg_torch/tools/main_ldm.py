@@ -8,7 +8,10 @@
 Composes the config (defaults, a YAML file, the dataset preset, the dot
 overrides), makes the run directory (``<output_dir>/run_<idx>`` with its
 ``config.json``), builds the trainer on the card (``device=cpu`` for the
-plain PyTorch path), with ``train_kwargs.video_clips=T`` on T-frame clips
+plain PyTorch path) with the conditioning of
+``train_kwargs.image_descriptors`` (``remove``, ``none``, ``learnable``;
+``clip``/``text`` with a local ``descriptor_pretrained_path``), with
+``train_kwargs.video_clips=T`` on T-frame clips
 of the train split (:class:`~..data.video.ClipDataset`), adopts a pose net
 of ``main_pose`` from ``pose_model_kwargs.pretrained_path`` (the
 temporal-consistency term with ``train_kwargs.temporal_consistency_weight``),
@@ -27,15 +30,31 @@ import sys
 from .main_ae import DATASET_PRESETS, build_datasets
 
 
-def build_unet_config(cfg):
+def descriptor_from_config(cfg):
+    """The conditioning descriptor of ``train_kwargs.image_descriptors``
+    (``descriptor_pretrained_path`` for the CLIP towers), resolved once:
+    the trainer and :func:`build_unet_config` take the same one."""
+    from ..models.descriptors import get_image_descriptors
+    return get_image_descriptors(
+        cfg["train_kwargs"].get("image_descriptors", "remove"),
+        pretrained_path=cfg.get("descriptor_pretrained_path"))
+
+
+def build_unet_config(cfg, descriptor=None):
     """The UNetConfig of the run config's ``model_kwargs`` size overrides
-    (``block_out_channels`` and the keys beside it), or None: the trainer's
-    SD-1.4-sized default. Shared with ``predict`` and
-    ``export_checkpoint``, so that they rebuild the run's UNet."""
+    (``block_out_channels`` and the keys beside it, the surgery's
+    ``separate_conv``, ``separate_encoder``, ``add_adaptor`` and
+    ``cross_attention_dim``) with the descriptor's cross-attention, object
+    queries and ``encoder_hid_proj`` (:func:`descriptor_from_config` when
+    None), or None: the trainer's SD-1.4-sized default, which it builds
+    from the same keys. Shared with ``predict`` and ``export_checkpoint``,
+    so that they rebuild the run's UNet."""
     from ..models.unet import UNetConfig
     mk, tk = cfg["model_kwargs"], cfg["train_kwargs"]
     if "block_out_channels" not in mk:
         return None
+    if descriptor is None:
+        descriptor = descriptor_from_config(cfg)
     cond = mk.get("cond_channels", 0)
     if tk.get("self_condition", False) and cond == 0:
         cond = 4
@@ -48,6 +67,13 @@ def build_unet_config(cfg):
         layers_per_block=mk.get("layers_per_block", 2),
         attention_head_dim=mk.get("attention_head_dim", 8),
         norm_num_groups=mk.get("norm_num_groups", 32),
+        cross_attention_dim=mk.get("cross_attention_dim", 768),
+        use_cross_attention=descriptor.use_cross_attention,
+        num_object_queries=descriptor.num_object_queries,
+        encoder_hid_dim=descriptor.encoder_hid_dim,
+        separate_conv=mk.get("separate_conv", False),
+        separate_encoder=mk.get("separate_encoder", False),
+        add_adaptor=mk.get("add_adaptor", False),
         use_fused_attention=tk.get("fused_attention", True), **kw)
 
 
@@ -134,10 +160,12 @@ def main(argv=None):
         train_ds = ClipDataset(train_ds, clip_len=int(clip_len))
         print(f"Clip training: {len(train_ds)} clips of {clip_len}",
               flush=True)
-    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
+    desc = descriptor_from_config(cfg)
+    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg, desc),
                                device=device, dataset=train_ds,
                                val_dataset=val_ds,
-                               results_folder=cfg["checkpoint_dir"])
+                               results_folder=cfg["checkpoint_dir"],
+                               descriptor=desc)
     attach_pose_from_config(trainer, cfg)
     load_weights(trainer, cfg)
     trainer.resume()

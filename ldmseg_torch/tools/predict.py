@@ -13,7 +13,10 @@ Per batch: RGB -> image-VAE encoder -> DDIM (a CUDA graph on the card) ->
 seg-VAE decode -> the bilinear resize to the frame's size and the panoptic
 post-process under the batch's mask. The segments are class-agnostic
 instances: ``ins`` is the panoptic id (0 where none), ``cat`` is 0. The
-UNet is built as ``main_ldm`` builds it, from the same overrides; a
+UNet and its conditioning (``train_kwargs.image_descriptors``,
+``descriptor_pretrained_path``; with a context ``sampling_kwargs.
+guidance_scale`` runs classifier-free guidance) are built as ``main_ldm``
+builds them, from the same overrides; a
 ``checkpoint`` of ``main_ldm`` is resumed (its EMA with ``ema_on``).
 With ``clips=T`` the val frames are grouped into T-frame clips (stride T)
 and sampled by ``sample_panoptic_clip``: clip-shared noise, and with a pose
@@ -37,7 +40,7 @@ def main(argv=None):
     from ..utils.config import load_config, merge_dicts, parse_dot_overrides
     from .main_ae import DATASET_PRESETS, build_datasets
     from .main_ldm import (attach_pose_from_config, build_unet_config,
-                           load_weights)
+                           descriptor_from_config, load_weights)
 
     overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
     dataset = overrides.pop("datasets", "synthetic")
@@ -60,8 +63,10 @@ def main(argv=None):
         from ..data.video import ClipDataset
         val_ds = ClipDataset(val_ds, clip_len=int(clip_len),
                              stride=int(clip_len))
-    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg),
-                               device=device, val_dataset=val_ds)
+    desc = descriptor_from_config(cfg)
+    trainer = TrainerDiffusion(cfg, unet_config=build_unet_config(cfg, desc),
+                               device=device, val_dataset=val_ds,
+                               descriptor=desc)
     load_weights(trainer, cfg)
     if clip_len:
         attach_pose_from_config(trainer, cfg)

@@ -44,14 +44,17 @@ def freeze_filter(layers: Tuple[str, ...] = ("norm", "time_embedding")
                   ) -> Callable[[str], bool]:
     """Predicate on parameter names, the port's ``freeze_layers``
     (``ldmseg_tpu/models/unet.py:freeze_filter``): True where the update
-    must be zero. The trainer gives those parameters lr factor 0. The JAX
-    package's ``conv_in`` and ``down_blocks`` entries select the ``*_img``
-    modules of the UNet surgery, which the port does not have yet."""
+    must be zero. The trainer gives those parameters lr factor 0. The
+    ``conv_in`` and ``down_blocks`` entries select the image branch of
+    ``separate_encoder``: ``conv_in_img`` and ``down_blocks_img``
+    (unet.py:1113-1116)."""
 
     def fn(name: str) -> bool:
         return any((layer == "norm" and is_norm_param(name))
                    or (layer == "time_embedding"
                        and "time_embedding" in name.lower())
+                   or (layer == "conv_in" and "conv_in_img" in name)
+                   or (layer == "down_blocks" and "down_blocks_img" in name)
                    for layer in layers)
 
     return fn

@@ -63,9 +63,31 @@ estimates. :meth:`sample_panoptic_clip` samples a clip batch with
 clip-shared noise, warps the middle frame's x0 into the others by the
 inverted predicted poses and refines the blend with a DDIM tail
 (:func:`~..diffusion.sampler.ddim_refine`), bf16 or int8, after a DDIM or
-DPM first pass. Classifier-free guidance, text descriptors, wandb and the
-parallel modes are later slices: a config that asks for one of them raises
-``NotImplementedError`` naming it.
+DPM first pass.
+
+Conditioning (JAX :78-105, :455-545): ``train_kwargs.image_descriptors``
+(with ``descriptor_pretrained_path`` for the CLIP towers) resolves to a
+:class:`~..models.descriptors.DescriptorSpec`, from which the UNet is built
+(``use_cross_attention``, object queries, ``encoder_hid_proj``); the
+surgery's ``model_kwargs.separate_conv``, ``separate_encoder`` and
+``add_adaptor`` are read as in JAX. The context of a batch
+(:meth:`context`) is ``batch["context"]`` (``none``), the frozen CLIP text
+tower on ``text_tokens`` (or on the tokenized ``text``; ``clip_text``) or
+the frozen CLIP vision tower on the frame (``clip_vision``); ``learnable``
+and ``remove`` give none. The tower's weights are rounded to the compute
+dtype and kept in fp32, as the JAX trainer's cast towers compute (Flax
+promotes them by their fp32 inputs). The context reaches the UNet in the
+compute dtype (JAX hands it over in fp32, so Flax promotes the
+cross-attention and what follows it to fp32). With a context and
+``guidance_scale`` != 1, sampling runs classifier-free guidance
+(:func:`~..diffusion.sampler.cfg_model_fn`: two UNet calls a step, the
+unconditional one on zeros, or on the empty caption's embedding, computed
+once, for the text tower) in DDIM, DPM-Solver++(2M) and the clip tail, all
+on the CUDA-graph loop. A trait copied from JAX: int8 calibration runs the
+UNet without a context (JAX :1139-1141), where JAX's ``attn2`` falls back to
+self-attention and fails, so :meth:`calibrate_int8` refuses a descriptor
+that yields one. Wandb and the parallel modes are later slices: a config
+that asks for one of them raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -85,16 +107,18 @@ from ..data.loader import make_loader, prefetch_to_device
 from ..data.video import clip_focal
 from ..diffusion.ddim import add_noise, make_ddim_schedule, remove_noise
 from ..diffusion.dpm import dpmpp_2m_sample
-from ..diffusion.sampler import ddim_refine, ddim_sample
+from ..diffusion.sampler import cfg_model_fn, ddim_refine, ddim_sample
 from ..losses.pose_consistency import (inverse_warp, invert_pose_mat,
                                        pose_vec_to_mat)
 from ..losses.diffusion_losses import diffusion_loss
+from ..models.descriptors import DescriptorSpec, get_image_descriptors
 from ..models.convert import (image_vae_state_dict_from_jax,
                               seg_vae_state_dict_from_jax,
                               unet_state_dict_from_jax)
 from ..models.image_vae import ImageVAE
 from ..models.layers import init_random_
 from ..models.posenet import PoseExpNet, load_pose_state_dict
+from ..ops.resize import resize_weight_matrix
 from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig, draw_input_dropout
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
@@ -107,22 +131,16 @@ from .state import TrainState
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+# descriptors whose context comes from outside the UNet
+_EXTERNAL_CONTEXT = ("none", "clip_text", "clip_vision")
 # the per-frame keys of a clip batch, flattened to [B*T, ...] for a step
 _FRAME_KEYS = ("image", "image_semseg", "semseg", "mask", "inpainting_mask")
 
 
 def _refuse_later_slices(p: Mapping) -> None:
-    tk, mk = p["train_kwargs"], p["model_kwargs"]
     later = {
-        "model_kwargs.separate_conv": (
-            mk.get("separate_conv", False), "the separate seg/image conv_in"),
-        "model_kwargs.separate_encoder": (
-            mk.get("separate_encoder", False), "the separate image encoder"),
-        "model_kwargs.add_adaptor": (
-            mk.get("add_adaptor", False), "the image-encoder adaptors"),
-        "train_kwargs.image_descriptors": (
-            tk.get("image_descriptors", "remove") != "remove",
-            "text/CLIP descriptors, cross-attention and guidance"),
         "optimizer_zero_redundancy": (
             p.get("optimizer_zero_redundancy", False),
             "ZeRO-1 optimizer-state sharding"),
@@ -149,7 +167,8 @@ class TrainerDiffusion(PanopticRestore):
 
     def __init__(self, p: dict, unet_config: Optional[UNetConfig] = None,
                  device="cuda", dataset=None, val_dataset=None,
-                 results_folder: Optional[str] = None):
+                 results_folder: Optional[str] = None,
+                 descriptor: Optional[DescriptorSpec] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -190,18 +209,38 @@ class TrainerDiffusion(PanopticRestore):
         if self.self_condition and cond_channels == 0:
             # the reference trains self_condition with cond_channels=4
             cond_channels = 4
+        # bf16 covers the reference's float16 AMP dtype, as in JAX
+        self.compute_dtype = (torch.bfloat16 if tk.get("weight_dtype") in
+                              ("bfloat16", "float16") else torch.float32)
+        if descriptor is None:
+            descriptor = get_image_descriptors(
+                tk.get("image_descriptors", "remove"),
+                pretrained_path=p.get("descriptor_pretrained_path"))
+        self.descriptor = descriptor
+        self.descriptor_model = None
+        if descriptor.model is not None:
+            # frozen; fp32 on weights rounded to the compute dtype
+            model = descriptor.model.to(device).eval().requires_grad_(False)
+            with torch.no_grad():
+                for q in model.parameters():
+                    q.copy_(q.to(self.compute_dtype).float())
+            self.descriptor_model = model
+        self._uncond_embed: Optional[torch.Tensor] = None
         if unet_config is None:
             unet_config = UNetConfig(
                 in_channels=mk.get("in_channels", 8) + cond_channels,
+                use_cross_attention=descriptor.use_cross_attention,
+                num_object_queries=descriptor.num_object_queries,
+                encoder_hid_dim=descriptor.encoder_hid_dim,
+                separate_conv=mk.get("separate_conv", False),
+                separate_encoder=mk.get("separate_encoder", False),
+                add_adaptor=mk.get("add_adaptor", False),
                 use_fused_attention=tk.get("fused_attention", True),
                 dropout=tk.get("dropout", 0.0),
                 gradient_checkpointing=tk.get("gradient_checkpointing",
                                               False),
                 remat_policy=tk.get("remat_policy"))
         self.unet_config = unet_config
-        # bf16 covers the reference's float16 AMP dtype, as in JAX
-        self.compute_dtype = (torch.bfloat16 if tk.get("weight_dtype") in
-                              ("bfloat16", "float16") else torch.float32)
         # built without storage; init_params / load_jax_params fill them
         # int8 sampling (trainer_ldm.py:157-193): the UNet the JAX trainer
         # builds with the int8 flags (:163-176), beside the float one
@@ -261,6 +300,9 @@ class TrainerDiffusion(PanopticRestore):
             raise ValueError(f"sampling_kwargs.sampler {self.sampler!r}: "
                              "expected 'ddim' or 'dpmpp_2m'")
         self.seed = sk.get("seed", 0)
+        # classifier-free guidance (reference base.yaml:118); acts only
+        # with a context
+        self.guidance_scale = float(sk.get("guidance_scale", 1.0))
         self.mask_th = ek.get("mask_th", 0.5)
         self.count_th = ek.get("count_th", 512)
         self.overlap_th = ek.get("overlap_th", 0.5)
@@ -422,6 +464,15 @@ class TrainerDiffusion(PanopticRestore):
         by int8 site."""
         if not self.int8_inference:
             raise RuntimeError("calibrate_int8: int8 inference not enabled")
+        if self.descriptor.kind in _EXTERNAL_CONTEXT:
+            raise RuntimeError(
+                f"calibrate_int8 with the {self.descriptor.kind!r} "
+                "descriptor: the calibration forward runs the UNet without "
+                "a context (JAX trainer_ldm.py:1139-1141), where JAX's "
+                "attn2 falls back to self-attention and fails on its "
+                "context-sized to_k/to_v; int8 with a context samples only "
+                "with the default scales, on weights not adopted as "
+                "pretrained")
         self._require_params()
         rgb = self._encode_rgb(batch["image"], generator)
         b, _, lh, lw = rgb.shape
@@ -552,16 +603,123 @@ class TrainerDiffusion(PanopticRestore):
     def _unet_apply(self, unet: Callable, latents: torch.Tensor,
                     rgb_latents: torch.Tensor,
                     condition: Optional[torch.Tensor], t,
-                    dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``unet(x, t)`` on [latents, rgb(, condition)] in the compute
-        dtype, with the input dropout's draw when given; fp32 out."""
+                    dropout: Optional[torch.Tensor] = None,
+                    context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``unet(x, t, context)`` on [latents, rgb(, condition)] in the
+        compute dtype, with the input dropout's draw when given; fp32
+        out."""
         parts = [latents, rgb_latents]
         if condition is not None:
             parts.append(condition)
         inputs = torch.cat(parts, dim=1).to(self.compute_dtype)
         if dropout is not None:
-            return unet(inputs, t, dropout).float()
-        return unet(inputs, t).float()
+            return unet(inputs, t, context, dropout=dropout).float()
+        return unet(inputs, t, context).float()
+
+    # ------------------------------------------------------------------
+    # conditioning (JAX :455-545; reference process_inputs :722-735)
+    # ------------------------------------------------------------------
+    def tokenize(self, texts) -> Optional[np.ndarray]:
+        """Captions -> ``[B, 77]`` int32 token ids (the descriptor's
+        tokenizer; None without one)."""
+        tok = self.descriptor.tokenizer
+        if tok is None:
+            return None
+        enc = tok(list(texts), padding="max_length", max_length=77,
+                  truncation=True, return_tensors="np")
+        return enc["input_ids"].astype(np.int32)
+
+    @torch.no_grad()
+    def _clip_pixels(self, image) -> torch.Tensor:
+        """ImageNet-normalised NHWC frames -> the CLIP vision tower's
+        ``[B, 3, 224, 224]`` input (JAX :489-497): [0, 1], the antialiased
+        linear resize of ``jax.image.resize`` (host-built weight matrices
+        along H and W), CLIP's statistics."""
+        x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+        mean = torch.tensor(_IMAGENET_MEAN, device=self.device)
+        std = torch.tensor(_IMAGENET_STD, device=self.device)
+        x01 = (x * std + mean).clamp(0.0, 1.0)
+        wh, ww = (torch.from_numpy(resize_weight_matrix(n, 224)).to(
+            self.device) for n in x.shape[1:3])
+        pix = torch.einsum("bhwc,hH,wW->bHWc", x01, wh, ww)
+        pix = (pix - torch.tensor(_CLIP_MEAN, device=self.device)) / \
+            torch.tensor(_CLIP_STD, device=self.device)
+        return pix.permute(0, 3, 1, 2).contiguous()
+
+    @torch.no_grad()
+    def context(self, batch: Mapping) -> Optional[torch.Tensor]:
+        """The batch's ``encoder_hidden_states`` ``[B, T, D]`` (fp32) from
+        the descriptor (JAX ``_context_impl`` after ``_device_batch``):
+        ``none`` ``batch["context"]``; ``clip_text`` the text tower on
+        ``batch["text_tokens"]`` (the tokenized ``batch["text"]``, or empty
+        captions, where it has none); ``clip_vision`` the vision tower on
+        ``batch["image"]``; ``remove`` and ``learnable`` (and a batch
+        without what its descriptor reads) None."""
+        kind = self.descriptor.kind
+        if kind == "none":
+            ctx = batch.get("context")
+            return None if ctx is None else torch.as_tensor(
+                ctx, device=self.device).float()
+        if kind == "clip_text":
+            ids = batch.get("text_tokens")
+            if ids is None and self.descriptor.tokenizer is not None:
+                n = len(batch["image"])
+                ids = self.tokenize(batch.get("text", [""] * n))
+            if ids is None:
+                return None
+            ids = torch.as_tensor(ids, device=self.device).long()
+            return self.descriptor_model(input_ids=ids)[0].float()
+        if kind == "clip_vision":
+            return self.descriptor_model(
+                pixel_values=self._clip_pixels(batch["image"]))[0].float()
+        return None
+
+    @torch.no_grad()
+    def _uncond_context(self, context: Optional[torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        """The unconditional branch's context (JAX :501-519): the empty
+        caption's embedding for a text tower with a tokenizer (computed
+        once, batch 1, and broadcast), zeros otherwise; None without a
+        context."""
+        if context is None:
+            return None
+        if (self.descriptor.kind == "clip_text"
+                and self.descriptor.tokenizer is not None):
+            if self._uncond_embed is None:
+                ids = torch.as_tensor(self.tokenize([""]),
+                                      device=self.device).long()
+                self._uncond_embed = self.descriptor_model(
+                    input_ids=ids)[0].float()
+            e = self._uncond_embed
+            return e.expand((context.shape[0],) + tuple(e.shape[1:]))
+        return torch.zeros_like(context)
+
+    def _guidance(self, context: Optional[torch.Tensor],
+                  guidance_scale: Optional[float]):
+        """(context, unconditional context or None) in the compute dtype,
+        made before any capture, for a sampling call at ``guidance_scale``
+        (default ``sampling_kwargs.guidance_scale``)."""
+        gs = (self.guidance_scale if guidance_scale is None
+              else float(guidance_scale))
+        uncond = self._uncond_context(context) if gs != 1.0 else None
+        cast = (lambda c: None if c is None  # noqa: E731
+                else c.to(self.compute_dtype).contiguous())
+        return cast(context), cast(uncond), gs
+
+    def _model_fn(self, unet, rgb: torch.Tensor, context, uncond,
+                  guidance_scale: float):
+        """The sampler's ``model_fn`` on the RGB latents, with CFG when
+        there is an unconditional context and the scale is not 1."""
+        def model_fn(latents, condition, t):
+            return self._unet_apply(unet, latents, rgb, condition, t,
+                                    context=context)
+        if uncond is None or guidance_scale == 1.0:
+            return model_fn
+
+        def uncond_fn(latents, condition, t):
+            return self._unet_apply(unet, latents, rgb, condition, t,
+                                    context=uncond)
+        return cfg_model_fn(model_fn, uncond_fn, guidance_scale)
 
     # ------------------------------------------------------------------
     # training (the JAX trainer's _encode_impl, _train_step_impl and
@@ -619,13 +777,15 @@ class TrainerDiffusion(PanopticRestore):
         land in fp32 on the masters."""
         params = {n: p.to(self.compute_dtype)
                   for n, p in self.unet.named_parameters()}
-        return lambda x, t, *drop: torch.func.functional_call(
-            self.unet, params, (x, t, *drop))
+        return lambda x, t, context=None, dropout=None: \
+            torch.func.functional_call(self.unet, params, (x, t, context),
+                                       {"dropout": dropout})
 
     @torch.no_grad()
     def _predict_sample(self, unet: Callable, latents: torch.Tensor,
                         rgb_latents: torch.Tensor,
-                        generator: Optional[torch.Generator], tmax: int
+                        generator: Optional[torch.Generator], tmax: int,
+                        context: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
         """One denoise at a random t < ``tmax``, clipped to the latents'
         range (the JAX trainer's ``_predict_sample``)."""
@@ -635,20 +795,45 @@ class TrainerDiffusion(PanopticRestore):
                           device=self.device)
         noisy = add_noise(self.sched, latents, noise, t)
         cond = torch.zeros_like(noisy) if self.self_condition else None
-        pred = self._unet_apply(unet, noisy, rgb_latents, cond, t)
+        pred = self._unet_apply(unet, noisy, rgb_latents, cond, t,
+                                context=context)
         out = remove_noise(self.sched, noisy, pred, t)
         return out.clamp(latents.min(), latents.max())
+
+    @staticmethod
+    def _per_frame(batch: Mapping, bc: int, tt: int) -> dict:
+        """A clip batch's conditioning over its flattened frames (JAX
+        :1041-1059): ``text``, ``text_tokens`` and ``context`` given per
+        clip repeat T times (clip i's frames are contiguous); already flat
+        ``[B*T, ...]`` ones pass through."""
+        out = {}
+        if "text" in batch:
+            out["text"] = ([s for s in batch["text"] for _ in range(tt)]
+                           if len(batch["text"]) == bc else
+                           list(batch["text"]))
+        for key in ("text_tokens", "context"):
+            if key in batch:
+                v = batch[key]
+                v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+                if v.shape[0] == bc:
+                    v = (v.repeat_interleave(tt, 0)
+                         if isinstance(v, torch.Tensor)
+                         else np.repeat(v, tt, axis=0))
+                out[key] = v
+        return out
 
     def forward_backward(self, batch: Mapping,
                          generator: Optional[torch.Generator] = None,
                          noise=None, timesteps=None, rgb_noise=None,
-                         dropout=None):
+                         dropout=None, context=None):
         """One training step without the optimizer update: the loss's
         gradients are added to the masters' ``.grad``. ``noise`` (NHWC,
         the latents' shape), ``timesteps`` (``[B]``), ``rgb_noise`` (the RGB
         posterior's sample under ``sample_posterior_rgb``, NCHW) and
         ``dropout`` (the UNet's input dropout draw, NCHW, the UNet input's
-        shape) replace the draws from ``generator``; the other draws
+        shape) replace the draws from ``generator``; ``context`` replaces
+        the descriptor's (:meth:`context`; a clip's per-clip conditioning
+        repeats over its frames); the other draws
         (posterior sample, predicted latents, inpainting, condition and RGB
         noise) come from it. The input dropout acts on the forward whose
         gradient trains (JAX's trainer never turns it on: its apply keeps
@@ -669,12 +854,17 @@ class TrainerDiffusion(PanopticRestore):
             clip_shape = tuple(clip_image.shape[:2])
             batch = dict(batch, **{
                 k: batch[k].reshape((-1,) + tuple(batch[k].shape[2:]))
-                for k in _FRAME_KEYS if k in batch})
+                for k in _FRAME_KEYS if k in batch},
+                **self._per_frame(batch, *clip_shape))
         with torch.no_grad():
             latents, latents_mean, rgb_latents, loss_mask = self._encode(
                 batch, generator, rgb_noise)
         b = latents.shape[0]
         unet = self._compute_unet()
+        if context is None:
+            context = self.context(batch)
+        else:
+            context = torch.as_tensor(context, device=dev).float()
 
         pose_info = None
         if (clip_shape is not None and self.pose_model is not None
@@ -690,7 +880,7 @@ class TrainerDiffusion(PanopticRestore):
         if self.prob_train_on_pred > 0:
             pred_latents = self._predict_sample(
                 unet, latents, rgb_latents, generator,
-                tmax=self.sched.num_train_timesteps // 2)
+                tmax=self.sched.num_train_timesteps // 2, context=context)
             take = torch.rand((b, 1, 1, 1), generator=generator,
                               device=dev) < self.prob_train_on_pred
             latents = torch.where(take, pred_latents, latents)
@@ -731,7 +921,7 @@ class TrainerDiffusion(PanopticRestore):
             with torch.no_grad():
                 pred0 = self._unet_apply(
                     unet, noisy, rgb_latents, torch.zeros_like(noisy),
-                    timesteps)
+                    timesteps, context=context)
                 condition = remove_noise(self.sched, noisy, pred0, timesteps)
                 if self.cond_noise_level > 0:
                     cn = torch.randn(condition.shape, generator=generator,
@@ -752,7 +942,8 @@ class TrainerDiffusion(PanopticRestore):
                 (b, cfg.in_channels) + tuple(noisy.shape[-2:]),
                 cfg.dropout, cfg.dropout_mode, generator, dev)
         pred = self._unet_apply(unet, noisy, rgb_in, condition, timesteps,
-                                dropout if cfg.dropout > 0 else None)
+                                dropout if cfg.dropout > 0 else None,
+                                context=context)
         target = (noise if self.sched.prediction_type == "epsilon"
                   else latents_mean)
         loss = diffusion_loss(
@@ -1041,7 +1232,10 @@ class TrainerDiffusion(PanopticRestore):
                        generator: Optional[torch.Generator],
                        init_noise=None, num_inference_steps: int = 50,
                        repeat_noise: bool = False,
-                       graph: Optional[bool] = None):
+                       graph: Optional[bool] = None,
+                       context: Optional[torch.Tensor] = None,
+                       uncond_context: Optional[torch.Tensor] = None,
+                       guidance_scale: float = 1.0):
         b, _, lh, lw = rgb_latents.shape
         if init_noise is not None:
             init = torch.as_tensor(init_noise, dtype=torch.float32,
@@ -1057,9 +1251,8 @@ class TrainerDiffusion(PanopticRestore):
             # one noise map shared by the batch (JAX :859-861)
             init = init[:1].expand_as(init).contiguous()
 
-        def model_fn(latents, condition, t):
-            return self._unet_apply(unet, latents, rgb_latents, condition, t)
-
+        model_fn = self._model_fn(unet, rgb_latents, context,
+                                  uncond_context, guidance_scale)
         sample_fn = (dpmpp_2m_sample if self.sampler == "dpmpp_2m"
                      else ddim_sample)
         x0 = sample_fn(self.sched, model_fn, init,
@@ -1081,9 +1274,11 @@ class TrainerDiffusion(PanopticRestore):
         ``init_noise`` (NHWC) replaces the draw of the initial noise from
         ``generator``; with neither, the generator is seeded from
         ``sampling_kwargs.seed``. ``repeat_noise`` gives every frame row 0
-        of that noise. ``guidance_scale`` acts only with a context, as in
-        JAX (``_uncond_context`` gives none without one); the port refuses
-        descriptors, so there is none and it has no effect. With
+        of that noise. The descriptor's context (:meth:`context`) goes to
+        every UNet call; with one, ``guidance_scale`` (default
+        ``sampling_kwargs.guidance_scale``) != 1 runs classifier-free
+        guidance, two UNet calls a step (JAX :853-932); without one it has
+        no effect. With
         ``int8_inference`` the steps run on :meth:`int8_unet`; with
         ``sampling_kwargs.sampler: dpmpp_2m`` they are DPM-Solver++(2M)'s.
         On the card the steps replay a CUDA graph unless ``graph`` is False
@@ -1100,10 +1295,12 @@ class TrainerDiffusion(PanopticRestore):
             unet = self.inference_unet()
         with torch.inference_mode():
             rgb_latents = self._encode_rgb(batch["image"], generator)
+            context, uncond, gs = self._guidance(self.context(batch),
+                                                 guidance_scale)
             logits, x0 = self._sample_decode(
                 unet, rgb_latents, generator, init_noise,
                 num_inference_steps or self.num_inference_steps,
-                repeat_noise, graph)
+                repeat_noise, graph, context, uncond, gs)
         return (logits.permute(0, 2, 3, 1).contiguous(),
                 x0.permute(0, 2, 3, 1).contiguous())
 
@@ -1149,7 +1346,10 @@ class TrainerDiffusion(PanopticRestore):
         ``init_noise`` (NHWC ``[B, 1 or T, h, w, 4]``) and
         ``refine_noise`` (``[B, 1, h, w, 4]``) replace the draws from
         ``generator`` (default: seeded from ``sampling_kwargs.seed``).
-        ``guidance_scale`` has no effect, as in :meth:`sample_panoptic`.
+        The descriptor's context and ``guidance_scale`` act per flattened
+        frame as in :meth:`sample_panoptic`, in both passes; ``text``,
+        ``text_tokens`` and ``context`` may be given per clip (repeated
+        over its frames) or per frame.
         int8 with ``int8_inference``. On the card both passes replay CUDA
         graphs, each captured afresh, unless ``graph`` is False."""
         self._require_params()
@@ -1176,10 +1376,11 @@ class TrainerDiffusion(PanopticRestore):
                                             4, lh, lw), generator,
                                "init_noise")
             init = init.expand(bc, tt, 4, lh, lw).reshape(b, 4, lh, lw)
-
-            def model_fn(latents, condition, t):
-                return self._unet_apply(unet, latents, rgb, condition, t)
-
+            flat = {"image": image.reshape((-1,) + image.shape[2:]),
+                    **self._per_frame(batch, bc, tt)}
+            context, uncond, gs = self._guidance(self.context(flat),
+                                                 guidance_scale)
+            model_fn = self._model_fn(unet, rgb, context, uncond, gs)
             sample_fn = (dpmpp_2m_sample if self.sampler == "dpmpp_2m"
                          else ddim_sample)
             x0 = sample_fn(self.sched, model_fn, init.contiguous(),

@@ -142,10 +142,24 @@ NOW_PORTED = {
     "DPM-Solver": lambda t: t.sampler == "dpmpp_2m",
     "int8 seg-VAE": lambda t: isinstance(t.vae_seg.decoder[0], QuantConv2d),
     "decoder": lambda t: t.vae_img.decoder_enabled,
+    # conditioning and the UNet surgery (test_torch_port_unet_surgery,
+    # test_torch_port_conditioning, test_torch_port_descriptors)
+    "separate": lambda t: (t.unet_config.separate_conv
+                           and hasattr(t.unet, "conv_in_seg")),
+    "separate image": lambda t: (t.unet_config.separate_encoder
+                                 and hasattr(t.unet, "down_blocks_img")),
+    "adaptors": lambda t: t.unet_config.add_adaptor,
+    "learnable": lambda t: (t.descriptor.kind == "learnable"
+                            and t.unet_config.num_object_queries == 77
+                            and t.unet_config.use_cross_attention),
+    "none": lambda t: (t.descriptor.kind == "none"
+                       and t.unet_config.use_cross_attention
+                       and t.guidance_scale == 7.5),
 }
 
 
 @pytest.mark.parametrize("override,named", [
+    # JAX's "need local pretrained weights" ValueError: no CLIP weights
     ({"train_kwargs": {"image_descriptors": "clip_text"}}, "descriptors"),
     ({"sampling_kwargs": {"sampler": "dpmpp_2m"}}, "DPM-Solver"),
     ({"wandb": True}, "wandb"),
@@ -162,6 +176,8 @@ NOW_PORTED = {
     ({"train_kwargs": {"gradient_checkpointing": True,
                        "remat_policy": "save_only_these_names"}},
      "remat_policy"),
+    ({"train_kwargs": {"image_descriptors": "learnable"}}, "learnable"),
+    ({"train_kwargs": {"image_descriptors": "none"}}, "none"),
 ])
 def test_trainer_names_what_is_not_ported(override, named):
     cfg = merge_dicts(DEFAULT_CONFIG, override)
@@ -172,6 +188,30 @@ def test_trainer_names_what_is_not_ported(override, named):
         return
     with pytest.raises((NotImplementedError, ValueError), match=named):
         TrainerDiffusion(cfg, device=torch.device("cpu"))
+
+
+# the conditioning slice's modules, one case each
+CONDITIONING_MODULES = ["models.descriptors", "models.upscaler",
+                        "models.unet", "models.convert",
+                        "diffusion.sampler", "train.trainer_ldm",
+                        "tools.main_ldm", "tools.predict"]
+
+
+@pytest.mark.parametrize("module", CONDITIONING_MODULES)
+def test_conditioning_module_imports_no_jax(module):
+    path = ROOT / "ldmseg_torch" / (module.replace(".", "/") + ".py")
+    assert [n for n in _imported_roots(path) if n in FORBIDDEN] == []
+    importlib.import_module(f"ldmseg_torch.{module}")
+
+
+def test_descriptors_import_transformers_only_in_the_clip_branches():
+    tree = ast.parse((ROOT / "ldmseg_torch/models/descriptors.py")
+                     .read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert not any((getattr(n, "module", None) or "").startswith(
+        "transformers") or any(a.name.startswith("transformers")
+                               for a in n.names) for n in top)
 
 
 def test_trainer_accepts_int8_inference():
