@@ -282,10 +282,30 @@ Phases, one line each:
   58. one forward each of ``separate_conv``, the upscaler head (on K1,
      within 2e-2 of the plain attention) and ``Upscaler``: finite, of the
      right shape;
-  59. the script's total seconds, then a JSON line ``{"kernels": [...]}``
+  59. one rank over NCCL: a process started with torchrun's variables
+     (world size 1) runs phase 6's stage-2 step with ZeRO-1 without a
+     process group and again after ``initialize_from_env``: the loss and
+     the masters bit-equal, the K1 and K2 launches equal;
+  60. two ranks sharing the card: NCCL's refusal of two ranks on one
+     device printed; the one-rank stage-2 and stage-1 steps in this
+     process, handed over in a temporary file; two gloo ranks of 4 rows
+     each (ZeRO-1, self-conditioning): loss within 1e-3 and the reduced
+     gradients' cosine >= 0.999 against the one-rank step, the update's
+     cosine >= 0.999 against the one-rank step on the ranks' two
+     micro-batches, the ranks' masters bit-equal, each rank's optimizer
+     state 45-55% of one rank's; the step timed (s/step, the reduction's
+     device ms, peak memory, launches; two ranks on one card are no
+     scaling figure); ``compute_pq`` on 4 frames, 2 a rank, equal to one
+     process fed the same images; the stage-1 step's loss within 1e-3;
+  61. ``entry.dryrun_multichip(2, "cuda")``: stages A and D, each stage's
+     seconds, K1 and K2 launched on each rank and no other kernel. It runs
+     first, with nothing else on the card; phase 59's process then runs
+     beside phase 60's one-rank steps (their seconds printed as
+     contended), and phase 60's ranks run alone;
+  62. the script's total seconds, then a JSON line ``{"kernels": [...]}``
      (K1-K18, K10 in both variants, K1's wide class; K5, K6 and K7 with
      their device time and host time a call);
-  60. the last line, ``{"ok": true, "device": {...}}``.
+  63. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -5980,6 +6000,579 @@ def phase_cond_surgery(smi_line: str, seed: int = 0):
     return out | {"seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: one NCCL rank, two gloo ranks sharing the card, the
+# multi-rank dry run (phases 59-61)
+# ---------------------------------------------------------------------------
+DP_ROWS = 4            # a rank's rows of phase 6's global batch of 8
+DP_PQ_FRAMES = 4       # phase 60's compute_pq val set, 2 frames a rank
+DP_PQ_STEPS = 4        # its DDIM steps
+DP_TIMEOUT_S = 300     # each distributed run's deadline
+
+
+def _dp_config():
+    from ldmseg_torch.utils.config import merge_dicts
+    # phase 6's training configuration with ZeRO-1
+    return merge_dicts(_train_config(), {"optimizer_zero_redundancy": True})
+
+
+def _dp_batch(rows):
+    """``rows`` of phase 6's global batch (``SyntheticDVPS``, 8 bits,
+    192x640), each rank rendering only its own."""
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    ds = SyntheticDVPS(length=TRAIN_BATCH, size=TRAIN_HW, num_bits=8)
+    return collate([ds[i] for i in range(TRAIN_BATCH)[rows]])
+
+
+def _dp_draws(seed: int, rows=slice(None)):
+    """``rows`` of a global step's draws (NHWC noise, timesteps) from a CPU
+    generator, the same in every process."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    noise = torch.randn((TRAIN_BATCH, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, 4),
+                        generator=gen)
+    steps = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen)
+    return noise[rows], steps[rows]
+
+
+def phase59_child(out_path: str) -> None:
+    """Phase 59's process, started with torchrun's variables for one rank:
+    the stage-2 step with ZeRO-1 without a process group, then
+    ``initialize_from_env`` (NCCL) and the same step on a trainer whose mesh
+    spans the group; their losses, masters and launches to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from ldmseg_torch.parallel.multihost import initialize_from_env
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batch = _dp_batch(slice(None))
+    noise, steps = _dp_draws(5)
+
+    def step():
+        trainer = TrainerDiffusion(_dp_config())
+        trainer.init_params(seed=0)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = trainer.train_step(batch, noise=noise, timesteps=steps)
+        torch.cuda.synchronize()
+        out = {"loss": loss.item(), "seconds": time.perf_counter() - t0,
+               "counts": _counts(), "mesh": trainer.mesh.shape,
+               "grouped": trainer.mesh.data_group is not None,
+               "steps": trainer.state.step}
+        masters = [p.detach().clone() for p in trainer.unet.parameters()]
+        del trainer
+        torch.cuda.empty_cache()
+        return out, masters
+
+    plain, before = step()
+    info = initialize_from_env(device="cuda")
+    backend = dist.get_backend()
+    grouped, after = step()
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"plain": plain, "grouped": grouped, "info": info,
+                   "backend": backend, "masters_equal": same,
+                   "tensors": len(after)}, f)
+
+
+def _start_phase59() -> dict:
+    """Start phase 59's process (:func:`phase59_child`) with torchrun's
+    variables for one rank (``RANK`` 0, ``WORLD_SIZE`` 1, a free local
+    port); :func:`_finish_phase59` waits for it."""
+    import os
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "phase59.json")
+    log = open(os.path.join(tmp.name, "phase59.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.phase59_child({out!r})"],
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "tmp": tmp, "out": out, "log": log,
+            "t0": time.perf_counter()}
+
+
+def _stop_phase59(run: dict) -> None:
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    run["log"].close()
+    run["tmp"].cleanup()
+
+
+def _finish_phase59(run: dict, smi_line: str) -> dict:
+    """Phase 59: one rank over NCCL on the card. Its process runs phase 6's
+    stage-2 step with ZeRO-1 without a group and again after
+    ``initialize_from_env``: the loss and the masters bit-equal (K1 and K2
+    repeat bit for bit; cuDNN deterministic), the launches equal."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter()
+                                                   - run["t0"])))
+    except subprocess.TimeoutExpired:
+        raise CheckFailed(f"phase 59's process outlived {DP_TIMEOUT_S} s")
+    run["log"].seek(0)
+    check(proc.returncode == 0, f"phase 59's process exited "
+          f"{proc.returncode}: {run['log'].read()[-4000:]}")
+    with open(run["out"]) as f:
+        res = json.load(f)
+    plain, grouped = res["plain"], res["grouped"]
+    check(res["backend"] == "nccl" and res["info"]["process_count"] == 1
+          and grouped["grouped"] and not plain["grouped"],
+          f"phase 59: backend {res['backend']}, {res['info']}")
+    check(grouped["steps"] == plain["steps"] == 1, "phase 59: no step taken")
+    check(grouped["loss"] == plain["loss"], f"phase 59: loss "
+          f"{grouped['loss']!r} in the group, {plain['loss']!r} without")
+    check(res["masters_equal"], "phase 59: the masters after the step in "
+          "the NCCL group differ from the step without a group")
+    check(grouped["counts"] == plain["counts"]
+          and grouped["counts"]["K1"] == 32 and grouped["counts"]["K2"] == 16,
+          f"phase 59: launches {grouped['counts']} in the group, "
+          f"{plain['counts']} without")
+    seconds = time.perf_counter() - run["t0"]
+    print(f"phase 59 one NCCL rank (torchrun variables, world size 1): the "
+          f"stage-2 step with ZeRO-1 at batch {TRAIN_BATCH} of "
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]}: loss {grouped['loss']:.6f} and "
+          f"{res['tensors']} masters bit-equal to the step without a group, "
+          f"K1 {grouped['counts']['K1']} / K2 {grouped['counts']['K2']} "
+          f"launches in both; step {grouped['seconds']:.3f} s in the group, "
+          f"{plain['seconds']:.3f} s without (first steps; contended: "
+          f"beside phase 60's one-rank steps); its process {seconds:.1f} s "
+          f"(contended) [{smi_line}]", flush=True)
+    return {"loss": grouped["loss"], "counts": grouped["counts"],
+            "contended_step_seconds": grouped["seconds"],
+            "contended_plain_step_seconds": plain["seconds"],
+            "contended_seconds": seconds}
+
+
+def _nccl_probe_rank(rank: int) -> None:
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(1, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+
+
+def _flat_cos(tensors, ref) -> float:
+    """The cosine of ``tensors`` (on the card, flattened in order) and the
+    flat CPU ``ref``, in float64, a tensor at a time."""
+    import torch
+    dot = n1 = n2 = torch.zeros((), dtype=torch.float64, device="cuda")
+    off = 0
+    for t in tensors:
+        a = t.reshape(-1).double()
+        b = ref[off:off + a.numel()].to("cuda").double()
+        off += a.numel()
+        dot, n1, n2 = dot + a @ b, n1 + a @ a, n2 + b @ b
+    assert off == ref.numel()
+    return float(dot / (n1.sqrt() * n2.sqrt()))
+
+
+def _dp_rank(rank: int, spec: dict) -> dict:
+    """Phase 60 on one of two gloo ranks sharing the card: its 4 rows of
+    the stage-2 step (ZeRO-1, self-conditioning) timed and held against
+    the one-rank steps' gradients and update, ``compute_pq`` on its 2
+    frames, and its 4 rows of the stage-1 step."""
+    import os
+    import numpy as np
+    import torch
+    import ldmseg_torch.train.state as state_mod
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.evals import PanopticEvaluator
+    from ldmseg_torch.parallel.mesh import (broadcast_tensors, group_mean,
+                                            make_mesh)
+    from ldmseg_torch.train.trainer_ae import TrainerAE
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh()
+    rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
+    out, t = {"seconds": {}}, time.perf_counter()
+
+    def lap_(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t
+        t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = TrainerDiffusion(_dp_config(), mesh=mesh)
+    trainer.init_params(seed=0)
+    params = list(trainer.unet.parameters())
+    before = torch.cat([p.detach().reshape(-1) for p in params]).cpu()
+    batch = _dp_batch(rows)
+    noise, steps = _dp_draws(5, rows)
+    lap_("build (replicate included)")
+    # the one-rank references: the parent writes them while the ranks
+    # start, and renames the file when it is whole
+    while not os.path.exists(spec["ref"]):
+        if time.perf_counter() - t > DP_TIMEOUT_S:
+            raise TimeoutError(f"no {spec['ref']}")
+        time.sleep(0.2)
+    ref = torch.load(spec["ref"], weights_only=True)
+    lap_("load the references")
+    reduce_events = []
+    reduce = state_mod.reduce_gradients
+
+    def timed_reduce(ps, group):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        reduce(ps, group)
+        b.record()
+        reduce_events.append((a, b))
+    state_mod.reduce_gradients = timed_reduce
+    opt = trainer.state.optimizer
+    opt_step = opt.step
+
+    def read_then_step():
+        t_cos = time.perf_counter()
+        out["grad_cos"] = _flat_cos([p.grad for p in opt.params],
+                                    ref["grads"])
+        out["cos_seconds"] = time.perf_counter() - t_cos
+        opt_step()
+    opt.step = read_then_step
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, _ = trainer.train_step(batch, noise=noise, timesteps=steps)
+    torch.cuda.synchronize()
+    # the step without the check read inside it
+    out["step_seconds"] = time.perf_counter() - t0 - out["cos_seconds"]
+    opt.step = opt_step
+    state_mod.reduce_gradients = reduce
+    out["reduce_ms"] = reduce_events[0][0].elapsed_time(reduce_events[0][1])
+    out["loss"] = float(group_mean(loss, mesh))
+    lap_("the step")
+    offsets = np.cumsum([0] + [p.numel() for p in params])[:-1]
+    out["update_split_cos"] = _flat_cos(
+        (p.detach().reshape(-1) - before[o:o + p.numel()].to("cuda")
+         for p, o in zip(params, offsets)), ref["update_split"])
+    del before, ref
+    copies = [p.detach().clone() for p in params]
+    broadcast_tensors(copies, 0, mesh.data_group)  # rank 0's masters
+    out["masters_equal"] = all(torch.equal(c, p)
+                               for c, p in zip(copies, params))
+    del copies
+    out["state_bytes"] = opt.state_bytes()
+    lap_("update and masters checked")
+    # compute_pq on this rank's 2 of the 4 frames, the evaluator's images
+    # kept for the parent's one-process evaluator
+    images = []
+
+    class Recording(PanopticEvaluator):
+        def add_image(self, pred, gt, inst=None):
+            images.append((np.array(pred), np.array(gt)))
+            super().add_image(pred, gt, inst)
+    trainer.ds_val = SyntheticDVPS(length=DP_PQ_FRAMES, size=TRAIN_HW,
+                                   num_bits=8, seed=3)
+    pq = trainer.compute_pq(num_inference_steps=DP_PQ_STEPS,
+                            evaluator=Recording(
+                                thing_ids=set(), class_agnostic=True,
+                                ignore_label=trainer.ignore_label))
+    out["pq"] = {k: pq[k] for k in ("pq", "sq", "rq", "tp", "fp", "fn",
+                                    "iou_sum")}
+    out["pq_images"] = images
+    out["counts"] = _counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del trainer, params, opt
+    torch.cuda.empty_cache()
+    lap_("compute_pq")
+    # stage 1: this rank's rows of the one-rank step's batch and draws
+    ae = TrainerAE(_ae_config(), mesh=mesh)
+    ae.init_params(seed=0)
+    k = ae.loss_cfg.max_masks
+    d = spec["ae_draws"]
+    draws = {"noise": d["noise"][rows].cuda(), "points": {
+        "ce": tuple(u[rows].cuda() for u in d["points"]["ce"]),
+        "mask": tuple(u[rank * DP_ROWS * k:(rank + 1) * DP_ROWS * k].cuda()
+                      for u in d["points"]["mask"])}}
+    ds = SyntheticDVPS(length=AE_BATCH, size=TRAIN_HW, num_bits=5)
+    ae_loss, _ = ae.train_step(collate([ds[i] for i in
+                                        range(AE_BATCH)[rows]]),
+                               draws=draws)
+    out["ae_loss"] = float(group_mean(ae_loss, mesh))
+    lap_("stage-1 step")
+    return out
+
+
+def _one_rank_step(micro, accumulate: int = 1):
+    """The one-rank stage-2 step of phase 60 from the ranks' first masters,
+    in this process: ``micro`` the (rows, draws seed) of each micro-batch.
+    Returns the loss of the last, the gradients the optimizer read and the
+    update, both bf16 on the CPU, and the optimizer state's bytes."""
+    import torch
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    from ldmseg_torch.utils.config import merge_dicts
+    trainer = TrainerDiffusion(merge_dicts(_dp_config(), {
+        "train_kwargs": {"accumulate": accumulate}}))
+    trainer.init_params(seed=0)
+    params = list(trainer.unet.parameters())
+    before = [p.detach().clone() for p in params]
+    opt, seen = trainer.state.optimizer, {}
+    opt_step = opt.step
+
+    def read_then_step():
+        seen["grads"] = torch.cat([p.grad.reshape(-1).bfloat16()
+                                   for p in opt.params]).cpu()
+        opt_step()
+    opt.step = read_then_step
+    for rows in micro:
+        noise, steps = _dp_draws(5, rows)
+        loss, _, _ = trainer.train_step(_dp_batch(rows), noise=noise,
+                                        timesteps=steps)
+    check(trainer.state.step == 1, "phase 60: the one-rank step took no "
+          "optimizer step")
+    update = torch.cat([(p.detach() - b).reshape(-1).bfloat16()
+                        for p, b in zip(params, before)]).cpu()
+    out = (loss.item(), seen["grads"], update, opt.state_bytes())
+    del trainer, params, before, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_references() -> dict:
+    """Phase 60's first part, in this process: NCCL's answer to two ranks
+    on one device (probed in a thread meanwhile), the one-rank stage-2
+    steps (the global batch, and the same rows in the ranks' two
+    micro-batches; the cosine of their updates) and the one-rank stage-1
+    step."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    from ldmseg_torch.parallel.launch import run_ranks
+    from ldmseg_torch.train.trainer_ae import TrainerAE
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            probe = pool.submit(run_ranks, _nccl_probe_rank, 2,
+                                device="cuda", local_rank=0, timeout_s=120)
+            one_loss, grads, update, one_bytes = _one_rank_step(
+                [slice(None)])
+            _, _, update_split, _ = _one_rank_step(
+                [slice(0, DP_ROWS), slice(DP_ROWS, 2 * DP_ROWS)],
+                accumulate=2)
+            floor = _flat_cos([update_split.cuda().float()], update)
+            ae = TrainerAE(_ae_config())
+            ae.init_params(seed=0)
+            ae_draws = _ae_draws(ae, AE_BATCH, TRAIN_HW,
+                                 torch.Generator().manual_seed(9))
+            ds = SyntheticDVPS(length=AE_BATCH, size=TRAIN_HW, num_bits=5)
+            ae_one, _ = ae.train_step(
+                collate([ds[i] for i in range(AE_BATCH)]),
+                draws={"noise": ae_draws["noise"].cuda(), "points": {
+                    n: tuple(u.cuda() for u in v)
+                    for n, v in ae_draws["points"].items()}})
+            ae_one = ae_one.item()
+            del ae
+            torch.cuda.empty_cache()
+            try:
+                probe.result()
+                nccl = "NCCL took two ranks on one device"
+            except RuntimeError as e:
+                lines = [ln.strip() for ln in str(e).splitlines()
+                         if ln.strip()]
+                hit = [ln for ln in lines if "uplicate" in ln]
+                nccl = "NCCL refused: " + (hit[0] if hit
+                                           else lines[-1])[:300]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {"nccl": nccl, "one_loss": one_loss, "grads": grads,
+            "update_split": update_split,
+            "one_bytes": one_bytes, "floor": floor, "ae_one": ae_one,
+            "ae_draws": ae_draws, "seconds": time.perf_counter() - t0}
+
+
+def phase_dp_two_ranks(smi_line: str, refs: dict) -> dict:
+    """Phase 60: two ranks sharing the one H100. NCCL refuses two ranks on
+    one device (its error printed), so the ranks use gloo over CUDA
+    tensors, whose collectives here are all-reduce and broadcast. The
+    one-rank steps (:func:`_dp_references`) hand their results over in a
+    temporary file; then 2 ranks of 4 rows each: the stage-2 step with
+    ZeRO-1 and self-conditioning (loss within 1e-3 and the reduced
+    gradients' cosine >= 0.999 against the one-rank step on the global
+    batch, the update's cosine >= 0.999 against the one-rank step on the
+    same rows in the ranks' two micro-batches, which the ranks' split
+    computes; the ranks' masters bit-equal; each rank's optimizer state
+    45-55% of one rank's; its seconds and the reduction's device ms),
+    ``compute_pq`` on 4 frames (2 a rank) against a one-process evaluator
+    fed the same images, and the stage-1 step (loss within 1e-3). AdamW's
+    first step moves each element by about lr times the sign of its
+    gradient, so elements whose gradient is within bf16's difference
+    between a batch of 8 and two of 4 flip: the one-rank micro-batch
+    step's update against the global-batch step's is printed. Two ranks on
+    one card measure no scaling."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from ldmseg_torch.evals import PanopticEvaluator
+    from ldmseg_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    print(f"phase 60 NCCL with two ranks on one device: {refs['nccl']}",
+          flush=True)
+    one_loss, one_bytes = refs["one_loss"], refs["one_bytes"]
+    ae_one, floor, ref_s = refs["ae_one"], refs["floor"], refs["seconds"]
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(1) as pool:
+        path = os.path.join(tmp, "one_rank.pt")
+        spawned = pool.submit(
+            run_ranks, _dp_rank, 2, args=({"ref": path,
+                                           "ae_draws": refs["ae_draws"]},),
+            device="cuda", backend="gloo", local_rank=0,
+            timeout_s=DP_TIMEOUT_S)
+        # written while the ranks start; they wait for the name
+        torch.save({k: refs.pop(k) for k in ("grads", "update_split")},
+                   path + ".part")
+        os.replace(path + ".part", path)
+        ranks = spawned.result()
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    one = PanopticEvaluator(thing_ids=set(), class_agnostic=True,
+                            ignore_label=0)
+    for r in ranks:
+        for pred, gt in r["pq_images"]:
+            one.add_image(pred, gt)
+    want = one.evaluate(synchronize=False)
+    rel = abs(r0["loss"] - one_loss) / abs(one_loss)
+    ae_rel = abs(r0["ae_loss"] - ae_one) / abs(ae_one)
+    shares = [r["state_bytes"] / one_bytes for r in ranks]
+    grad_cos = min(r["grad_cos"] for r in ranks)
+    split_cos = min(r["update_split_cos"] for r in ranks)
+    reduce_ms = r0["reduce_ms"]
+    print(f"phase 60 two gloo ranks sharing the card, global batch "
+          f"{TRAIN_BATCH} of {TRAIN_HW[0]}x{TRAIN_HW[1]} ({DP_ROWS} a rank), "
+          f"ZeRO-1, self-conditioning: loss {r0['loss']:.6f} vs one rank "
+          f"{one_loss:.6f} (rel {rel:.2e}, tol 1e-3); reduced gradients' "
+          f"cosine {grad_cos:.6f} (>= 0.999); update cosine {split_cos:.6f} "
+          f"with the one-rank step in the ranks' two micro-batches (>= "
+          f"0.999; that step's own with the global-batch step, AdamW's "
+          f"first step on bf16 gradients: {floor:.6f}); masters bit-equal "
+          f"across "
+          f"ranks: {r0['masters_equal'] and r1['masters_equal']}; "
+          f"optimizer state a rank {[round(s, 4) for s in shares]} of one "
+          f"rank's ({one_bytes / 2**30:.2f} GiB); stage-1 loss "
+          f"{r0['ae_loss']:.6f} vs {ae_one:.6f} (rel {ae_rel:.2e}); "
+          f"compute_pq on {DP_PQ_FRAMES} frames ({DP_PQ_STEPS} DDIM steps, "
+          f"2 a rank) summed: PQ {r0['pq']['pq']:.3f}, tp {r0['pq']['tp']}, "
+          f"fp {r0['pq']['fp']}, fn {r0['pq']['fn']} (one process: PQ "
+          f"{want['pq']:.3f}, tp {want['tp']}, fp {want['fp']}, fn "
+          f"{want['fn']})", flush=True)
+    print(f"phase 60 timings (two ranks on ONE card: not a scaling figure): "
+          f"the stage-2 step {r0['step_seconds']:.3f} / "
+          f"{r1['step_seconds']:.3f} s/step (the first on its trainer); "
+          f"gradient reduction (gloo, 3.4 GB of fp32) {reduce_ms:.1f} ms of "
+          f"device time (CUDA events); peak memory a rank "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB; K1 "
+          f"{r0['counts']['K1']} / K2 {r0['counts']['K2']} launches a rank "
+          f"(the step + compute_pq); one-rank references and the NCCL "
+          f"probe {ref_s:.1f} s (contended: beside phase 59's process), "
+          f"the ranks alone "
+          f"{ranks_s:.1f} s (rank 0: "
+          f"{ {k: round(v, 1) for k, v in r0['seconds'].items()} }) "
+          f"[{smi_line}]", flush=True)
+    check(r0["loss"] == r1["loss"] and rel <= 1e-3,
+          f"phase 60: two-rank loss {r0['loss']} vs one rank {one_loss}")
+    check(grad_cos >= 0.999, f"phase 60: reduced gradients' cosine "
+          f"{[r['grad_cos'] for r in ranks]}")
+    check(split_cos >= 0.999, f"phase 60: update cosine "
+          f"{[r['update_split_cos'] for r in ranks]}")
+    check(r0["masters_equal"] and r1["masters_equal"],
+          "phase 60: the two ranks' masters differ")
+    check(all(0.45 <= s <= 0.55 for s in shares),
+          f"phase 60: optimizer state shares {shares}")
+    check(ae_rel <= 1e-3, f"phase 60: stage-1 loss {r0['ae_loss']} on two "
+          f"ranks vs {ae_one}")
+    for r in ranks:
+        got = r["pq"]
+        check(len(r["pq_images"]) == DP_PQ_FRAMES // 2
+              and (got["tp"], got["fp"], got["fn"]) == (want["tp"],
+                                                        want["fp"],
+                                                        want["fn"])
+              and all(abs(got[k] - want[k]) <= 1e-12 * max(1.0, abs(want[k]))
+                      for k in ("pq", "sq", "rq", "iou_sum")),
+              f"phase 60: summed PQ {got} vs one process "
+              f"{ {k: want[k] for k in got} }")
+        check(r["counts"] == r0["counts"] and r["counts"]["K1"] > 0
+              and r["counts"]["K2"] == 16,
+              f"phase 60: launches {[x['counts'] for x in ranks]}")
+    return {"nccl_two_ranks": refs["nccl"], "loss": r0["loss"],
+            "one_rank_loss": one_loss, "loss_rel": rel,
+            "grad_cosine": grad_cos, "update_cosine_split": split_cos,
+            "one_rank_split_vs_global_update_cosine": floor,
+            "state_shares": shares, "ae_loss_rel": ae_rel,
+            "pq": want["pq"], "step_seconds": [r["step_seconds"]
+                                               for r in ranks],
+            "reduce_device_ms": reduce_ms,
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "counts": r0["counts"], "rank0_seconds": r0["seconds"],
+            "contended_references_seconds": ref_s, "ranks_seconds": ranks_s}
+
+
+def phase_dp_dryrun(smi_line: str) -> dict:
+    """Phase 61: ``entry.dryrun_multichip(2, "cuda")``, stages A and D on
+    two ranks sharing the card (gloo), nothing else on it: each stage's
+    seconds, K1 and K2 launched on each rank, no other kernel."""
+    from ldmseg_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(2, "cuda", timeout_s=DP_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        n = r["launches"]
+        check(n["K1"] > 0 and n["K2"] > 0 and n["other"] == 0,
+              f"phase 61: launches {[x['launches'] for x in ranks]}")
+    a, d = ranks[0]["A"], ranks[0]["D"]
+    print(f"phase 61 dryrun_multichip(2, cuda): stage A {a['seconds']:.1f} "
+          f"s, stage D {d['seconds']:.1f} s (rank 0), K1 "
+          f"{ranks[0]['launches']['K1']} / K2 {ranks[0]['launches']['K2']} "
+          f"launches a rank, {seconds:.1f} s in all (alone on the card) "
+          f"[{smi_line}]",
+          flush=True)
+    return {"A_seconds": a["seconds"], "D_seconds": d["seconds"],
+            "launches": ranks[0]["launches"], "seconds": seconds}
+
+
+def phase_dp(smi_line: str):
+    """Phases 59-61. Phase 61 runs first with nothing else on the card, so
+    its stage seconds are its own; then phase 59's process runs while
+    phase 60's one-rank steps run here (both checks of values: their
+    seconds are contended and printed so); phase 60's two ranks, whose
+    step and reduction are timed, then run alone. Returns the three
+    phases' results and their seconds together."""
+    t0 = time.perf_counter()
+    dry = phase_dp_dryrun(smi_line)
+    run = _start_phase59()
+    try:
+        refs = _dp_references()
+        one = _finish_phase59(run, smi_line)
+    finally:
+        _stop_phase59(run)
+    two = phase_dp_two_ranks(smi_line, refs)
+    seconds = time.perf_counter() - t0
+    print(f"phases 59-61 data parallelism: {seconds:.1f} s in all (phase 61 "
+          f"{dry['seconds']:.1f} s alone; phase 59's process "
+          f"{one['contended_seconds']:.1f} s beside phase 60's one-rank "
+          f"steps {two['contended_references_seconds']:.1f} s; phase 60's "
+          f"ranks {two['ranks_seconds']:.1f} s alone) [{smi_line}]",
+          flush=True)
+    return one, two, dry, seconds
+
+
 _T0 = time.perf_counter()
 
 
@@ -6188,6 +6781,10 @@ def main() -> int:
         cond_train = phase_cond_train(smi_line)
         cond_surgery = phase_cond_surgery(smi_line)
         lap("phases 57-58")
+        # data parallelism: each run in processes of its own
+        torch.cuda.empty_cache()
+        dp_one, dp_two, dp_dry, dp_seconds = phase_dp(smi_line)
+        lap("phases 59-61")
         clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
@@ -6230,7 +6827,11 @@ def main() -> int:
             "vpq": vpq, "video_cli": video_cli, "trained_gate": gate,
             "loader_bench": loader, "perf_tools": perf_tools,
             "cond_sample": cond_sample, "cond_int8": cond_int8,
-            "cond_train": cond_train, "cond_surgery": cond_surgery}}),
+            "cond_train": cond_train, "cond_surgery": cond_surgery,
+            "data_parallel": {"one_nccl_rank": dp_one,
+                              "two_gloo_ranks": dp_two,
+                              "dryrun_multichip": dp_dry,
+                              "seconds": dp_seconds}}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -6320,6 +6921,14 @@ def main() -> int:
             cond_int8["counts"])
         paths[f"train_loop, learnable queries + separate_encoder + "
               f"add_adaptor, {COND_TIMED} steps"] = cond_train["counts"]
+        paths["one NCCL rank (torchrun variables): a stage-2 step with "
+              "ZeRO-1"] = dp_one["counts"]
+        paths[f"two gloo ranks sharing the card, rank 0: a stage-2 step "
+              f"with ZeRO-1 ({DP_ROWS} rows), compute_pq ({DP_PQ_STEPS} DDIM "
+              f"steps, 2 frames)"] = dp_two["counts"]
+        paths["dryrun_multichip(2, cuda), rank 0: stages A and D"] = (
+            _expect(K1=dp_dry["launches"]["K1"],
+                    K2=dp_dry["launches"]["K2"]))
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}

@@ -2,16 +2,17 @@
 ``ldmseg_tpu/data/loader.py:Loader`` and ``make_loader``).
 
 A per-epoch seeded shuffle (``shuffle``), padded so that every one of
-``num_shards`` shards sees the same count and cut to ``shard_id``'s share
-(``DistributedSampler``'s padding), then ``collate`` of ``batch_size``
-samples at a time; the last partial batch is dropped, or yielded short with
-``drop_last=False``. ``num_threads`` workers (default min(8, cores)) decode
-batches ahead of the consumer, at most ``prefetch + num_threads`` batches
-ahead; batches come out in order, and an exception in a worker is raised in
-the consumer. When the epoch's generator is closed or collected, or the
-loader's :meth:`Loader.close` is called, the workers stop and are joined:
-an epoch left part-way leaves no thread behind (the JAX loader's workers
-live on there).
+``num_shards`` shards sees the same count (``DistributedSampler``'s
+padding; ``pad=False`` leaves it out, so that an evaluation counts each
+sample once) and cut to ``shard_id``'s share, then ``collate`` of
+``batch_size`` samples at a time; the last partial batch is dropped, or
+yielded short with ``drop_last=False``. ``num_threads`` workers (default
+min(8, cores)) decode batches ahead of the consumer, at most ``prefetch +
+num_threads`` batches ahead; batches come out in order, and an exception in
+a worker is raised in the consumer. When the epoch's generator is closed
+or collected, or the loader's :meth:`Loader.close` is called, the workers
+stop and are joined: an epoch left part-way leaves no thread behind (the
+JAX loader's workers live on there).
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_threads: Optional[int] = None,
                  prefetch: int = 4, seed: int = 0, shard_id: int = 0,
-                 num_shards: int = 1):
+                 num_shards: int = 1, pad: bool = True):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if not 0 <= shard_id < num_shards:
@@ -110,24 +111,29 @@ class Loader:
         self.seed = seed
         self.shard_id = shard_id
         self.num_shards = num_shards
+        self.pad = pad
         self._epochs: "weakref.WeakSet[_Epoch]" = weakref.WeakSet()
 
     def indices(self, epoch: int) -> np.ndarray:
         """This shard's sample order in ``epoch``: the JAX loader's
         per-epoch shuffle (or the dataset's order without ``shuffle``),
-        padded from its start to a multiple of ``num_shards``."""
+        padded from its start to a multiple of ``num_shards`` (with
+        ``pad``)."""
         n = len(self.ds)
         idx = np.arange(n)
         if self.shuffle:
             rng = np.random.default_rng(
                 np.random.SeedSequence([self.seed, epoch]))
             rng.shuffle(idx)
-        per = -(-n // self.num_shards)
-        padded = np.concatenate([idx, idx[:per * self.num_shards - n]])
-        return padded[self.shard_id::self.num_shards]
+        if self.pad:
+            per = -(-n // self.num_shards)
+            idx = np.concatenate([idx, idx[:per * self.num_shards - n]])
+        return idx[self.shard_id::self.num_shards]
 
     def __len__(self) -> int:
-        per = -(-len(self.ds) // self.num_shards)
+        n = len(self.ds)
+        per = (-(-n // self.num_shards) if self.pad else
+               len(range(self.shard_id, n, self.num_shards)))
         if self.drop_last:
             return per // self.batch_size
         return -(-per // self.batch_size)
@@ -158,15 +164,21 @@ class Loader:
         return self.epoch(0)
 
 
-def make_loader(dataset, batch_size: int, **kwargs) -> Loader:
-    """A :class:`Loader` on this process's shard when ``torch.distributed``
-    is initialised (rank of world size), as JAX's ``make_loader`` takes its
-    shard from ``jax.process_index()``; ``batch_size`` is per process."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        kwargs.setdefault("shard_id", dist.get_rank())
-        kwargs.setdefault("num_shards", dist.get_world_size())
-    return Loader(dataset, batch_size, **kwargs)
+def make_loader(dataset, batch_size: int, mesh=None, **kwargs) -> Loader:
+    """A :class:`Loader` on this data rank's shard: ``batch_size`` is the
+    global batch, of which each of the mesh's ``data`` ranks loads
+    ``batch_size / data`` samples a step (refused unless it divides), from
+    shard ``data_rank`` of ``data`` (not the global rank, so that ranks
+    along a model axis read the same rows). ``mesh`` defaults to the
+    initialised process group's (``parallel/mesh.py:make_mesh``); one
+    process reads everything. JAX's ``make_loader`` takes ``batch_size``
+    per process instead."""
+    if mesh is None:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh()
+    kwargs.setdefault("shard_id", mesh.data_rank)
+    kwargs.setdefault("num_shards", mesh.data)
+    return Loader(dataset, mesh.local_batch(batch_size), **kwargs)
 
 
 # numpy kinds the H2D prefetch moves to the device (uint8 the only unsigned)

@@ -1,7 +1,8 @@
 """mIoU meter, the port's counterpart of ``ldmseg_tpu/evals/miou.py``:
 the per-batch intersection and union counts are computed on the tensors'
 device (:func:`batch_stats`), accumulated on the host in float64;
-``synchronize`` is a no-op in one process."""
+``synchronize`` sums them over ``torch.distributed`` ranks (a no-op in one
+process)."""
 
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ def batch_stats(pred: torch.Tensor, gt: torch.Tensor, num_classes: int,
 
 class SemsegMeter:
     def __init__(self, num_classes: int, class_names=None,
-                 has_bg: bool = False, ignore_index: int = 255):
+                 has_bg: bool = False, ignore_index: int = 255,
+                 group=None):
         self.num_classes = num_classes
+        self.group = group
         self.has_bg = has_bg
         self.ignore_index = ignore_index
         n = num_classes + int(has_bg)
@@ -52,14 +55,19 @@ class SemsegMeter:
         self.union += union.cpu().numpy()
 
     def synchronize(self, axis_name=None):
-        """A no-op in one process (see ``PanopticEvaluator.
-        synchronize_between_processes``)."""
+        """Sum ``inter`` and ``union`` over the group's ranks (reference
+        semseg_evaluation.py:59-70; the counts are integers in float64, so
+        the sum is exact). ``axis_name`` is JAX's and unused. A no-op in
+        one process."""
         import torch.distributed as dist
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "SemsegMeter: summing the counts across processes is not "
-                "ported yet (ROADMAP.md queue 10)")
+
+        from ..parallel.multihost import all_gather_host
+        if not dist.is_initialized() or dist.get_world_size(self.group) == 1:
+            return
+        stacked = np.stack(all_gather_host(
+            np.stack([self.inter, self.union]), self.group))
+        self.inter = stacked[:, 0].sum(0)
+        self.union = stacked[:, 1].sum(0)
 
     def return_score(self, verbose: bool = False) -> dict:
         jac = self.inter / np.maximum(self.union, 1e-8)

@@ -1,6 +1,7 @@
 """Greedy-IoU panoptic quality evaluator (host numpy), the port's own copy
-of ``ldmseg_tpu/evals/pq.py:PanopticEvaluator``; only
-``synchronize_between_processes`` differs (one process).
+of ``ldmseg_tpu/evals/pq.py:PanopticEvaluator``;
+``synchronize_between_processes`` sums over ``torch.distributed`` ranks
+(``group``) where JAX sums over its processes.
 
 Reference: ldmseg/evaluations/cityscapes_pap_eval.py:9-249
 (``CityscapesPanopticEvaluator``) and kitti_pap_eval.py. Semantics:
@@ -27,8 +28,12 @@ from scipy import ndimage
 class PanopticEvaluator:
     def __init__(self, thing_ids=frozenset({11, 12, 13, 14, 15, 16, 17, 18}),
                  ignore_label: int = 0, iou_thresh: float = 0.5,
-                 max_ins: int = 1 << 20, class_agnostic: bool = False):
+                 max_ins: int = 1 << 20, class_agnostic: bool = False,
+                 group=None):
         self.thing_ids = set(thing_ids)
+        # the ranks whose images together make the set (None: the whole
+        # initialised group)
+        self.group = group
         self.ignore_label = ignore_label
         self.iou_thresh = iou_thresh
         self.max_ins = max_ins
@@ -142,17 +147,46 @@ class PanopticEvaluator:
                 self._cls(cat_of(pid))["fp"] += 1
 
     def synchronize_between_processes(self):
-        """A no-op in one process. The JAX evaluator sums its counters
-        across processes; under an initialised ``torch.distributed`` of
-        more than one rank this raises ``NotImplementedError`` until the
-        port's parallel queue (``ROADMAP.md`` queue 10) brings that sum."""
+        """Sum the counters and the per-class table over the group's ranks,
+        so that a sharded val set scores as a whole (the reference gathers
+        the ranks' records, panoptic_evaluation.py:97-100; the counter sums
+        are exact because matching is per image). Packed as JAX packs them:
+        a head row and at most 4096 class rows, refused above that; the
+        ranks' tables are merged in rank order. A no-op in one process."""
         import torch.distributed as dist
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "PanopticEvaluator: summing the counters across "
-                f"{dist.get_world_size()} processes is not ported yet "
-                "(ROADMAP.md queue 10)")
+
+        from ..parallel.multihost import all_gather_host
+        if not dist.is_initialized() or dist.get_world_size(self.group) == 1:
+            return
+        cap = 4096  # the per-class table's row budget, as JAX's
+        cats = sorted(self.per_class)
+        if len(cats) > cap:
+            # never truncate silently: the per-class, thing and stuff
+            # breakdowns would be wrong for the dropped ids
+            raise ValueError(
+                f"per-class PQ table has {len(cats)} class ids > packing "
+                f"cap {cap}")
+        rows = np.zeros((len(cats), 5), np.float64)
+        for i, c in enumerate(cats):
+            st = self.per_class[c]
+            rows[i] = [c, st["tp"], st["fp"], st["fn"], st["iou"]]
+        head = np.array([self.TP, self.FP, self.FN, self.iou_sum,
+                         len(cats)], np.float64)
+        gathered = all_gather_host(np.concatenate([head[None], rows]),
+                                   self.group)
+        self.reset()
+        for packed in gathered:
+            h = packed[0]
+            self.TP += int(h[0])
+            self.FP += int(h[1])
+            self.FN += int(h[2])
+            self.iou_sum += float(h[3])
+            for r in packed[1:1 + int(h[4])]:
+                st = self._cls(int(r[0]))
+                st["tp"] += int(r[1])
+                st["fp"] += int(r[2])
+                st["fn"] += int(r[3])
+                st["iou"] += float(r[4])
 
     def evaluate(self, synchronize: bool = True) -> dict:
         if synchronize:

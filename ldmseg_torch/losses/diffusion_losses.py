@@ -1,6 +1,9 @@
 """Diffusion training loss (counterpart of
 ``ldmseg_tpu/losses/diffusion_losses.py``): masked L1 / L2 / smooth-L1 with
-per-timestep SNR weights and optional OHEM top-k.
+per-timestep SNR weights and optional OHEM top-k. Under data parallelism
+(``group``) the loss is the global batch's, as JAX computes it on a mesh:
+the plain mean over equal shards already is; OHEM's top-k is taken over
+every rank's losses together (``parallel/mesh.py:global_topk_mean``).
 
 The port's latents are NCHW, so the mask broadcasts over the channel axis as
 the reference does (``losses * mask[:, None]``); the JAX package, being
@@ -13,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import global_topk_mean
+
 LOSS_TYPES = ("l1", "l2", "smooth_l1")
 
 
@@ -21,13 +26,15 @@ def diffusion_loss(prediction: torch.Tensor, target: torch.Tensor,
                    schedule_weights: Optional[torch.Tensor] = None,
                    loss_mask: Optional[torch.Tensor] = None,
                    loss_type: str = "l2",
-                   ohem_ratio: float = 1.0) -> torch.Tensor:
+                   ohem_ratio: float = 1.0, group=None) -> torch.Tensor:
     """Per-element loss -> mask -> SNR weight -> OHEM top-k -> mean, in fp32.
 
     ``prediction``/``target`` ``[B, C, h, w]``; ``timesteps`` ``[B]`` indexes
     ``schedule_weights`` ``[T]`` (``DDIMSchedule.weights``); ``loss_mask``
     ``[B, h, w]``; ``ohem_ratio`` < 1 keeps that fraction of the largest
-    losses."""
+    losses. ``group``: the data ranks whose batches together make the
+    global batch (None: this batch alone); the value returned is then this
+    rank's share, whose mean over the ranks is the global loss."""
     diff = prediction.float() - target.float()
     if loss_type == "l1":
         losses = diff.abs()
@@ -50,5 +57,5 @@ def diffusion_loss(prediction: torch.Tensor, target: torch.Tensor,
 
     flat = losses.reshape(-1)
     if ohem_ratio < 1.0:
-        flat = torch.topk(flat, int(ohem_ratio * flat.numel())).values
+        return global_topk_mean(flat, ohem_ratio, group)
     return flat.mean()

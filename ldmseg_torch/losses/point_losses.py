@@ -14,7 +14,9 @@ Logits are NCHW ``[B, C, h, w]`` (the JAX functions take NHWC); targets are
 ``[B, H, W]`` class ids. The random point coordinates come from
 ``generator``, or from ``draws``: ``{"ce": (oversampled, extra), "mask":
 (oversampled, extra)}`` for the two calls of
-:func:`~..ops.uncertainty.get_uncertain_point_coords`.
+:func:`~..ops.uncertainty.get_uncertain_point_coords`. Under data
+parallelism (``group``) the CE's valid-point count and the mask count are
+the global batch's, as on JAX's mesh (``parallel/mesh.py:global_mean``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.grid_sample import point_sample
+from ..parallel.mesh import global_mean
 from ..ops.uncertainty import (get_uncertain_point_coords, topk_indices,
                                uncertainty_sigmoid, uncertainty_top2)
 
@@ -85,7 +88,7 @@ def bilinear_corner_ids(targets: torch.Tensor, coords: torch.Tensor):
 
 
 def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
-             cfg: PointLossConfig, generator=None, draws=None):
+             cfg: PointLossConfig, generator=None, draws=None, group=None):
     """CE with ignore on uncertainty-sampled points (losses.py:303-362):
     labels by nearest sampling, logits bilinear, / temperature."""
     coords = get_uncertain_point_coords(
@@ -98,17 +101,19 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
     logp = F.log_softmax(point_logits, dim=-1)
     picked = torch.gather(logp, -1, labels[..., None])[..., 0]
     valid = (labels != cfg.ignore_label).float()
-    return -(picked * valid).sum() / valid.sum().clamp_min(1.0)
+    return global_mean(-(picked * valid).sum(), valid.sum(), group)
 
 
 def _mask_losses(logits: torch.Tensor, targets: torch.Tensor,
-                 cfg: PointLossConfig, generator=None, draws=None):
+                 cfg: PointLossConfig, generator=None, draws=None,
+                 group=None):
     """BCE + Dice per selected class on sampled points (losses.py:117-207),
-    normalised by the number of masks."""
+    normalised by the number of masks (over the global batch with
+    ``group``)."""
     b, c, h, w = logits.shape
     k, p = cfg.max_masks, cfg.num_points
     ids, valid = select_topk_masks(targets, c, cfg.ignore_label, k)
-    num_masks = valid.float().sum().clamp_min(1.0)
+    num_masks = valid.float().sum()
     src = torch.gather(logits, 1, ids[:, :, None, None].expand(-1, -1, h, w))
     src = src.reshape(b * k, 1, h, w)
     coords = get_uncertain_point_coords(
@@ -125,26 +130,28 @@ def _mask_losses(logits: torch.Tensor, targets: torch.Tensor,
 
     x = point_logits
     bce = x.clamp_min(0) - x * point_labels + torch.log1p(torch.exp(-x.abs()))
-    loss_bce = (bce.mean(-1) * vmask).sum() / num_masks
+    loss_bce = global_mean((bce.mean(-1) * vmask).sum(), num_masks, group)
     prob = torch.sigmoid(x)
     numerator = 2.0 * (prob * point_labels).sum(-1)
     denominator = prob.sum(-1) + point_labels.sum(-1)
     dice = 1.0 - (numerator + 1.0) / (denominator + 1.0)
-    return loss_bce + (dice * vmask).sum() / num_masks
+    return loss_bce + global_mean((dice * vmask).sum(), num_masks, group)
 
 
 def point_losses(logits: torch.Tensor, targets: torch.Tensor,
                  cfg: PointLossConfig,
                  corrupt_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 draws: Optional[Mapping] = None) -> dict:
+                 draws: Optional[Mapping] = None, group=None) -> dict:
     """``{"ce", "mask"}`` (losses.py:364-395). Where ``corrupt_mask``
-    ``[B, H, W]`` is 0 the targets become the ignore label."""
+    ``[B, H, W]`` is 0 the targets become the ignore label. ``group``: the
+    data ranks of the global batch (each value is then this rank's share,
+    whose mean over the ranks is the global loss)."""
     if corrupt_mask is not None:
         targets = torch.where(corrupt_mask.bool(), targets,
                               torch.full_like(targets, cfg.ignore_label))
     draws = draws or {}
     return {"ce": _ce_loss(logits, targets, cfg, generator,
-                           draws.get("ce")),
+                           draws.get("ce"), group),
             "mask": _mask_losses(logits, targets, cfg, generator,
-                                 draws.get("mask"))}
+                                 draws.get("mask"), group)}

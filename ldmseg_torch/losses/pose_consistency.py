@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..ops.grid_sample import grid_sample
+from ..parallel.mesh import global_mean
 
 
 def _mat33(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -184,12 +185,15 @@ def segmentation_consistency_loss(
     depth: torch.Tensor,
     pose: torch.Tensor,
     focal: torch.Tensor,
+    group=None,
 ) -> torch.Tensor:
     """Temporal consistency on analog-bits maps: warp the reference
     frame's bit planes onto the target (nearest, half to even — ids must
-    not blend) and penalize disagreement on valid pixels."""
+    not blend) and penalize disagreement on valid pixels (their count over
+    the global batch with ``group``, :func:`~..parallel.mesh.
+    global_mean`)."""
     warped, valid = inverse_warp(ref_bits, depth, pose, focal,
                                  mode="nearest")
     per_pixel = (warped - target_bits).abs().mean(-1)
-    denom = torch.clamp_min(valid.sum().float(), 1.0)
-    return (per_pixel * valid).sum() / denom
+    return global_mean((per_pixel * valid).sum(), valid.sum().float(),
+                       group)

@@ -21,6 +21,10 @@ adopts the weights (:func:`load_weights`), resumes from the newest
 ``train_kwargs.train_num_steps`` with a checkpoint every ``save_every``
 optimizer steps, saves, and scores PQ on 4 val batches with the best-PQ
 snapshot. Without weights the models start from seeded random ones.
+
+On N GPUs: ``torchrun --nproc_per_node=N -m ldmseg_torch.tools.main_ldm
+...`` (or one SLURM task a GPU): each rank trains its ``batch_size / N``
+rows of the global ``train_kwargs.batch_size`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -138,6 +142,8 @@ def main(argv=None):
     from ..utils.config import (load_config, merge_dicts,
                                 parse_dot_overrides, prepare_config)
 
+    from ..parallel.multihost import initialize_from_env
+
     overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
     dataset = overrides.pop("datasets", "synthetic")
     config_path = overrides.pop("config", None)
@@ -145,6 +151,8 @@ def main(argv=None):
     output_dir = overrides.pop("output_dir", "runs")
     run_idx = overrides.pop("run_idx", -1)
     device = overrides.pop("device", "cuda")
+    # one rank a GPU under torchrun or SLURM; one process without them
+    device = initialize_from_env(device=device)["device"]
     save_every = overrides.pop("save_every", 2000)
 
     cfg = load_config(config_path)

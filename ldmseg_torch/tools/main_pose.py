@@ -28,6 +28,8 @@ def main(argv=None):
     from ..utils.config import (load_config, merge_dicts,
                                 parse_dot_overrides, prepare_config)
 
+    from ..parallel.multihost import initialize_from_env
+
     overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
     dataset = overrides.pop("datasets", "synthetic")
     config_path = overrides.pop("config", None)
@@ -36,6 +38,8 @@ def main(argv=None):
     run_idx = overrides.pop("run_idx", -1)
     clip_len = int(overrides.pop("clip_len", 3))
     device = overrides.pop("device", "cuda")
+    # one rank a GPU under torchrun or SLURM; one process without them
+    device = initialize_from_env(device=device)["device"]
 
     cfg = load_config(config_path)
     cfg = merge_dicts(cfg, DATASET_PRESETS.get(dataset, {}))

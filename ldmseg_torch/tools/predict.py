@@ -42,6 +42,8 @@ def main(argv=None):
     from .main_ldm import (attach_pose_from_config, build_unet_config,
                            descriptor_from_config, load_weights)
 
+    from ..parallel.multihost import initialize_from_env
+
     overrides = parse_dot_overrides(sys.argv[1:] if argv is None else argv)
     dataset = overrides.pop("datasets", "synthetic")
     config_path = overrides.pop("config", None)
@@ -51,6 +53,8 @@ def main(argv=None):
     max_batches = overrides.pop("max_batches", None)
     image_only = bool(overrides.pop("image_only", False))
     device = overrides.pop("device", "cuda")
+    # one rank a GPU under torchrun or SLURM; one process without them
+    device = initialize_from_env(device=device)["device"]
     clip_len = overrides.pop("clips", None)
 
     cfg = load_config(config_path)
@@ -74,8 +78,9 @@ def main(argv=None):
         trainer.resume(checkpoint)
 
     import torch
+    # each rank writes its share of the frames, each frame once
     loader = make_loader(val_ds, cfg["eval_kwargs"].get("batch_size", 8),
-                         shuffle=False, drop_last=False)
+                         shuffle=False, drop_last=False, pad=False)
     generator = torch.Generator(device=trainer.device).manual_seed(
         cfg["sampling_kwargs"].get("seed", 0))
     written = 0

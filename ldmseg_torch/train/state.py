@@ -9,6 +9,12 @@ does. ``step`` counts optimizer steps. ``ema_params`` (fp32 tensors on the
 masters' device, one per master) follow ``e <- decay * e + (1 - decay) * p``
 after every optimizer step and hold on the micro-steps between, in one
 ``torch._foreach_lerp_`` pass (``e + (1 - decay) * (p - e)``).
+
+Under data parallelism (``group``, the mesh's data group) the gradients
+are averaged over the group's ranks once per optimizer step, after the last
+micro-batch and before the optimizer, so that clipping reads the global
+gradients as JAX's does (``parallel/mesh.py:reduce_gradients``); every rank
+then steps to the same masters and applies the EMA to them.
 """
 
 from __future__ import annotations
@@ -17,13 +23,14 @@ from typing import List, Optional
 
 import torch
 
+from ..parallel.mesh import reduce_gradients
 from .optim import Optimizer
 
 
 class TrainState:
     def __init__(self, optimizer: Optimizer, accumulate: int = 1,
                  ema_params: Optional[List[torch.Tensor]] = None,
-                 ema_decay: float = 0.9999):
+                 ema_decay: float = 0.9999, group=None):
         if accumulate < 1:
             raise ValueError(f"accumulate must be >= 1, got {accumulate}")
         if ema_params is not None and len(ema_params) != len(
@@ -34,6 +41,7 @@ class TrainState:
         self.accumulate = accumulate
         self.ema_params = ema_params
         self.ema_decay = ema_decay
+        self.group = group
         self.step = 0
         self.micro_step = 0
 
@@ -43,11 +51,13 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self) -> bool:
         """Count one micro-batch whose gradients are in ``.grad``; every
-        ``accumulate``-th call steps the optimizer on the mean, updates the
-        EMA and clears ``.grad``. Returns whether it stepped."""
+        ``accumulate``-th call averages them over the data group, steps
+        the optimizer on the mean, updates the EMA and clears ``.grad``.
+        Returns whether it stepped."""
         self.micro_step += 1
         if self.micro_step % self.accumulate:
             return False
+        reduce_gradients(self.optimizer.params, self.group)
         if self.accumulate > 1:
             grads = [p.grad for p in self.optimizer.params
                      if p.grad is not None]

@@ -20,8 +20,16 @@ reference's stage-1 ``{'vae': ...}`` dict that ``main_ldm`` reads through
 
 Batches are NHWC at this boundary, as in the JAX package; the model runs
 NCHW. Every random draw comes from a ``torch.Generator`` or is handed in
-(``draws`` of :meth:`forward_loss`). One device: the JAX trainer's mesh
-is queue 10.
+(``draws`` of :meth:`forward_loss`).
+
+Data parallelism (``mesh``, as ``TrainerDiffusion``'s): ``batch_size`` is
+the global batch, each data rank trains its rows; the CE's valid-point
+count and the mask count are the global batch's (``point_losses(group=)``;
+the KL is a mean over equal shards); the gradients are averaged before the
+optimizer; ``optimizer_zero_redundancy`` partitions its state (ZeRO-1);
+``compute_miou`` and ``compute_pq`` score each rank's share of the val set
+and sum the meters. Only the main process writes checkpoints, metrics and
+panels.
 """
 
 from __future__ import annotations
@@ -40,10 +48,13 @@ from ..losses.point_losses import PointLossConfig, point_losses
 from ..models.convert import seg_vae_state_dict_from_jax
 from ..models.layers import init_random_
 from ..models.seg_vae import SegVAE
+from ..parallel.mesh import (check_mesh_device, group_mean, make_mesh,
+                             rank_seed, replicate)
+from ..parallel.multihost import is_main_process
 from ..utils.meters import AverageMeter
 from ..utils.metrics_sink import MetricsSink
 from ..utils.visualization import save_train_panel, to_numpy
-from .optim import Optimizer, make_lr_schedule
+from .optim import Optimizer, make_lr_schedule, norm_param_names
 from .restore import PanopticRestore, resize_logits
 from .state import TrainState
 
@@ -57,17 +68,17 @@ class TrainerAE(PanopticRestore):
     :meth:`load_state_dict` before training or evaluating."""
 
     def __init__(self, p: dict, device="cuda", dataset=None,
-                 val_dataset=None, results_folder: Optional[str] = None):
+                 val_dataset=None, results_folder: Optional[str] = None,
+                 mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TrainerAE: device 'cuda' asked for but "
                 "torch.cuda.is_available() is False; pass "
                 "device=torch.device('cpu') to run the plain PyTorch path")
-        if p.get("optimizer_zero_redundancy", False):
-            raise NotImplementedError(
-                "config optimizer_zero_redundancy: ZeRO-1 optimizer-state "
-                "sharding is not ported yet")
+        self.mesh = mesh if mesh is not None else make_mesh()
+        check_mesh_device(self.mesh, device, "TrainerAE")
+        self.zero1 = bool(p.get("optimizer_zero_redundancy", False))
         self.p, self.device = p, device
         tk, lk = p["train_kwargs"], p["loss_kwargs"]
         vk = dict(p["vae_model_kwargs"])
@@ -78,7 +89,8 @@ class TrainerAE(PanopticRestore):
             self.vae = SegVAE(**vk)
         self.num_classes = vk["out_channels"]
         self.ignore_label = p["ignore_label"]
-        self.batch_size = tk["batch_size"]
+        self.batch_size = tk["batch_size"]  # the global batch
+        self.mesh.local_batch(self.batch_size)
         self.train_num_steps = tk["train_num_steps"]
         self.prob_inpainting = tk.get("prob_inpainting", 0.0)
         self.latent_mask = tk.get("latent_mask", False)
@@ -105,7 +117,7 @@ class TrainerAE(PanopticRestore):
             os.makedirs(self.results_folder, exist_ok=True)
         self.metrics = MetricsSink(
             os.path.join(self.results_folder, "metrics.jsonl")
-            if self.results_folder else None,
+            if self.results_folder and is_main_process() else None,
             use_wandb=p.get("wandb", False))
         self.ema_on = bool(p.get("ema_on", False))
         self.ema_decay = float((p.get("ema_kwargs") or {}).get("decay",
@@ -139,6 +151,7 @@ class TrainerAE(PanopticRestore):
         self._ready()
 
     def _ready(self) -> None:
+        replicate(self.mesh, self.vae)  # the first data rank's weights
         self.vae.train().requires_grad_(True)
         self._eval_vae = self.vae
         if self.ema_on:
@@ -155,11 +168,13 @@ class TrainerAE(PanopticRestore):
             betas=tuple(ok.get("betas", (0.9, 0.999))),
             weight_decay=ok.get("weight_decay", 0.0),
             weight_decay_norm=ok.get("weight_decay_norm"),
-            clip_grad=tk.get("clip_grad", 0.0))
+            clip_grad=tk.get("clip_grad", 0.0), mesh=self.mesh,
+            zero1=self.zero1, norm_names=norm_param_names(self.vae))
         self.state = TrainState(
             optimizer, accumulate=tk.get("accumulate", 1),
             ema_params=(list(self._eval_vae.parameters()) if self.ema_on
-                        else None), ema_decay=self.ema_decay)
+                        else None), ema_decay=self.ema_decay,
+            group=self.mesh.data_group)
 
     def _require_params(self) -> None:
         if self.state is None:
@@ -240,7 +255,8 @@ class TrainerAE(PanopticRestore):
             generator=generator, noise=draws.get("noise"))
         losses = point_losses(logits.float(), targets, self.loss_cfg,
                               corrupt_mask=corrupt, generator=generator,
-                              draws=draws.get("points"))
+                              draws=draws.get("points"),
+                              group=self.mesh.loss_group)
         losses["kl"] = posterior.kl().mean()
         total = sum(self.loss_weights[k] * v for k, v in losses.items())
         return total, losses
@@ -271,19 +287,23 @@ class TrainerAE(PanopticRestore):
         mIoU and PQ before the first step and every ``eval_every`` steps,
         the best PQ saved as ``best_model``; with ``vis_every`` a panel
         every ``vis_every`` steps (:meth:`save_train_images`). Returns
-        every step's loss."""
+        every step's loss (the data group's means; each data rank draws
+        from a generator seeded by ``(seed, data rank)``)."""
         if self.ds is None:
             raise ValueError("TrainerAE.train_loop needs a dataset")
         self._require_params()
         if eval_every is None:
             eval_every = self.p["eval_kwargs"].get("eval_every")
-        loader = make_loader(self.ds, self.batch_size, seed=seed)
+        loader = make_loader(self.ds, self.batch_size, seed=seed,
+                             mesh=self.mesh)
         if len(loader) == 0:
             raise ValueError(f"dataset of {len(self.ds)} samples gives no "
                              f"batch of {self.batch_size}")
         max_steps = max_steps or self.train_num_steps
         eval_kw = dict(eval_kwargs or {})
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        main = is_main_process()
+        generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, self.mesh))
         meters = {k: AverageMeter(k, ":.4f") for k in ("loss",) + LOSS_KEYS}
         losses: List[float] = []
         pending: List[torch.Tensor] = []
@@ -301,7 +321,8 @@ class TrainerAE(PanopticRestore):
                     step += 1
                     gstep = self.state.step
                     if step % log_every == 0 or step == max_steps:
-                        rows = torch.stack(pending).tolist()
+                        rows = group_mean(torch.stack(pending),
+                                          self.mesh).tolist()
                         pending.clear()
                         for row in rows:
                             for meter, v in zip(meters.values(), row):
@@ -309,25 +330,28 @@ class TrainerAE(PanopticRestore):
                         losses += [r[0] for r in rows]
                         self.metrics.log(gstep, **dict(zip(meters,
                                                            rows[-1])))
-                        print(f"Epoch [{epoch}] step {step}/{max_steps}: "
-                              + " ".join(f"{k} {m.avg:.4f}"
-                                         for k, m in meters.items())
-                              + f" ({time.perf_counter() - t0:.1f} s)",
-                              flush=True)
+                        if main:
+                            print(f"Epoch [{epoch}] step {step}/"
+                                  f"{max_steps}: "
+                                  + " ".join(f"{k} {m.avg:.4f}"
+                                             for k, m in meters.items())
+                                  + f" ({time.perf_counter() - t0:.1f} s)",
+                                  flush=True)
                     if gstep != before:
                         if save_every and gstep % save_every == 0:
                             self.save(gstep)
                         if eval_every and gstep % eval_every == 0:
                             self._eval_during_training(gstep, eval_kw)
-                        if vis_every and gstep % vis_every == 0:
+                        if vis_every and gstep % vis_every == 0 and main:
                             self.save_train_images(batch, gstep)
                     if step >= max_steps:
                         break
             finally:
                 batches.close()
             epoch += 1
-        print(f"Training finished in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        if main:
+            print(f"Training finished in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
         return losses
 
     def _eval_during_training(self, step: int, eval_kw: dict):
@@ -341,9 +365,10 @@ class TrainerAE(PanopticRestore):
             self.save(tag="best_model")
         self.metrics.log(step, pq=pq, miou=res["miou"]["mIoU"],
                          best_pq=self.best_pq)
-        print(f"[eval @ step {step}] PQ {pq:.2f} mIoU "
-              f"{res['miou']['mIoU']:.4f} (best {self.best_pq:.2f})",
-              flush=True)
+        if is_main_process():
+            print(f"[eval @ step {step}] PQ {pq:.2f} mIoU "
+                  f"{res['miou']['mIoU']:.4f} (best {self.best_pq:.2f})",
+                  flush=True)
         return res
 
     def save_train_images(self, batch: Mapping, step: int) -> str:
@@ -390,8 +415,10 @@ class TrainerAE(PanopticRestore):
     def _val_batches(self, batch_size: Optional[int] = None):
         if self.ds_val is None:
             raise ValueError("TrainerAE: evaluation needs a val_dataset")
+        # this data rank's share, each sample once
         return make_loader(self.ds_val, batch_size or self.batch_size,
-                           shuffle=False, drop_last=False).epoch(0)
+                           shuffle=False, drop_last=False, pad=False,
+                           mesh=self.mesh).epoch(0)
 
     def compute_miou(self, max_batches: Optional[int] = None,
                      batch_size: Optional[int] = None) -> dict:
@@ -399,7 +426,8 @@ class TrainerAE(PanopticRestore):
         resized to the labels' size (``jax.image.resize`` linear), argmax,
         ``SemsegMeter`` with the ignore label."""
         from ..evals import SemsegMeter
-        meter = SemsegMeter(self.num_classes, ignore_index=self.ignore_label)
+        meter = SemsegMeter(self.num_classes, ignore_index=self.ignore_label,
+                            group=self.mesh.data_group)
         batches = self._val_batches(batch_size)
         try:
             for i, batch in enumerate(batches):
@@ -411,7 +439,8 @@ class TrainerAE(PanopticRestore):
                     break
         finally:
             batches.close()
-        meter.synchronize()
+        if self.mesh.data > 1:
+            meter.synchronize()
         return meter.return_score()
 
     def compute_pq(self, mask_th: float = 0.5, count_th: int = 128,
@@ -427,7 +456,8 @@ class TrainerAE(PanopticRestore):
         self.mask_th, self.count_th, self.overlap_th = (mask_th, count_th,
                                                         overlap_th)
         ev = PanopticEvaluator(thing_ids=set(), class_agnostic=True,
-                               ignore_label=self.ignore_label)
+                               ignore_label=self.ignore_label,
+                               group=self.mesh.data_group)
         batches = self._val_batches()
         try:
             for i, batch in enumerate(batches):
@@ -450,7 +480,7 @@ class TrainerAE(PanopticRestore):
                     break
         finally:
             batches.close()
-        return ev.evaluate()
+        return ev.evaluate(synchronize=self.mesh.data > 1)
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -474,15 +504,22 @@ class TrainerAE(PanopticRestore):
         """``torch.save`` of ``{params, buffers, opt_state, step, best_pq,
         ema_params?}`` (by name, on the CPU) as ``tag`` or ``step_N`` under
         ``results_folder``; the newest 3 ``step_*`` are kept. Returns the
-        path."""
+        path. Every data rank calls it (ZeRO-1 gathers the optimizer
+        state onto the main process); the main process writes."""
         self._require_params()
         name = tag or f"step_{step or self.state.step}"
         path = os.path.join(self._folder(), name)
+        opt = self.state.optimizer
+        # collective under ZeRO-1; otherwise only the writer copies it
+        opt_state = (opt.state_dict() if opt.owner is not None
+                     or is_main_process() else None)
+        if not is_main_process():
+            return path
         named = list(self.vae.named_parameters())
         payload = {"params": {n: p.detach().cpu() for n, p in named},
                    "buffers": {n: b.detach().cpu()
                                for n, b in self.vae.named_buffers()},
-                   "opt_state": self.state.optimizer.state_dict(),
+                   "opt_state": opt_state,
                    "step": int(self.state.step),
                    "best_pq": float(self.best_pq)}
         if self.state.ema_params is not None:
@@ -502,7 +539,8 @@ class TrainerAE(PanopticRestore):
         if path is None:
             found = self._step_checkpoints()
             if not found:
-                print("No checkpoint found; starting fresh", flush=True)
+                if is_main_process():
+                    print("No checkpoint found; starting fresh", flush=True)
                 return None
             path = found[-1]
         data = torch.load(path, map_location="cpu", weights_only=True)
@@ -522,7 +560,9 @@ class TrainerAE(PanopticRestore):
         self.state.step = int(data["step"])
         self.state.micro_step = self.state.step * self.state.accumulate
         self.best_pq = float(data.get("best_pq", self.best_pq))
-        print(f"Resumed from {path} at step {self.state.step}", flush=True)
+        if is_main_process():
+            print(f"Resumed from {path} at step {self.state.step}",
+                  flush=True)
         return path
 
     def export_reference(self, path: str, use_ema: bool = False) -> str:

@@ -86,8 +86,25 @@ once, for the text tower) in DDIM, DPM-Solver++(2M) and the clip tail, all
 on the CUDA-graph loop. A trait copied from JAX: int8 calibration runs the
 UNet without a context (JAX :1139-1141), where JAX's ``attn2`` falls back to
 self-attention and fails, so :meth:`calibrate_int8` refuses a descriptor
-that yields one. Wandb and the parallel modes are later slices: a config
-that asks for one of them raises ``NotImplementedError`` naming it.
+that yields one. Wandb is not ported: a config that asks for it raises
+``NotImplementedError`` naming it.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``; by default the
+initialised process group's, or one process): ``train_kwargs.batch_size``
+stays the global batch, of which each data rank loads and trains
+``batch_size / data`` rows (refused unless it divides); the losses are the
+global batch's (``diffusion_loss(group=)``, the consistency term's valid
+count), the gradients are averaged over the data group before the
+optimizer, and ``optimizer_zero_redundancy`` partitions the optimizer
+state (ZeRO-1, ``train/optim.py``). The masters are broadcast from the
+first data rank when the state is made. ``train_loop`` draws each rank's
+noise from a generator seeded with ``(seed, data rank)`` and logs the data
+group's mean loss; ``compute_pq`` samples each rank's share of the val set
+and sums the evaluator. Only the main process writes checkpoints (their
+optimizer state gathered from every rank first), ``metrics.jsonl`` and
+images; every rank resumes. ``spatial_parallel`` and ``tensor_parallel``
+act as JAX's do on a mesh without a model axis, which is not at all; with
+a model axis they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -123,6 +140,9 @@ from ..models.seg_vae import SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig, draw_input_dropout
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
                          prepare_int8_unet, prepare_int8_vae)
+from ..parallel.mesh import (check_mesh_device, global_mean, group_mean,
+                             make_mesh, rank_seed, replicate)
+from ..parallel.multihost import is_main_process
 from ..utils.meters import AverageMeter
 from ..utils.metrics_sink import MetricsSink
 from .optim import Optimizer, freeze_filter, make_lr_schedule
@@ -139,20 +159,17 @@ _EXTERNAL_CONTEXT = ("none", "clip_text", "clip_vision")
 _FRAME_KEYS = ("image", "image_semseg", "semseg", "mask", "inpainting_mask")
 
 
-def _refuse_later_slices(p: Mapping) -> None:
-    later = {
-        "optimizer_zero_redundancy": (
-            p.get("optimizer_zero_redundancy", False),
-            "ZeRO-1 optimizer-state sharding"),
-        "spatial_parallel": (p.get("spatial_parallel", False),
-                             "spatial parallelism"),
-        "tensor_parallel": (p.get("tensor_parallel", False),
-                            "tensor parallelism"),
-    }
-    for key, (asked, what) in later.items():
-        if asked:
+def refuse_model_axis(p: Mapping, mesh) -> None:
+    """``spatial_parallel`` and ``tensor_parallel`` shard over the mesh's
+    model axis; without one they do nothing, as JAX's ``has_spatial_axis``
+    rules (JAX trainer_ldm.py:202-208, 311-312). With one they are not
+    ported yet (``parallel/sp.py`` and ``tp.py``)."""
+    for key, what in (("spatial_parallel", "spatial parallelism"),
+                      ("tensor_parallel", "tensor parallelism")):
+        if p.get(key, False) and mesh.model > 1:
             raise NotImplementedError(
-                f"config {key}: {what} is not ported yet")
+                f"config {key}: {what} over a model axis of {mesh.model} "
+                "ranks is not ported yet")
 
 
 class TrainerDiffusion(PanopticRestore):
@@ -168,21 +185,24 @@ class TrainerDiffusion(PanopticRestore):
     def __init__(self, p: dict, unet_config: Optional[UNetConfig] = None,
                  device="cuda", dataset=None, val_dataset=None,
                  results_folder: Optional[str] = None,
-                 descriptor: Optional[DescriptorSpec] = None):
+                 descriptor: Optional[DescriptorSpec] = None, mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TrainerDiffusion: device 'cuda' asked for but "
                 "torch.cuda.is_available() is False; pass "
                 "device=torch.device('cpu') to run the plain PyTorch path")
-        _refuse_later_slices(p)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        refuse_model_axis(p, self.mesh)
+        check_mesh_device(self.mesh, device, "TrainerDiffusion")
+        self.zero1 = bool(p.get("optimizer_zero_redundancy", False))
         self.device = device
         self.results_folder = results_folder or p.get("checkpoint_dir")
         if self.results_folder:
             os.makedirs(self.results_folder, exist_ok=True)
         self.metrics = MetricsSink(
             os.path.join(self.results_folder, "metrics.jsonl")
-            if self.results_folder else None,
+            if self.results_folder and is_main_process() else None,
             use_wandb=p.get("wandb", False))
         self.ema_on = bool(p.get("ema_on", False))
         self.ema_decay = float((p.get("ema_kwargs") or {}).get("decay",
@@ -290,7 +310,8 @@ class TrainerDiffusion(PanopticRestore):
         self.ohem_ratio = tk.get("ohem_ratio", 1.0)
         self.sample_posterior = tk.get("sample_posterior", False)
         self.sample_posterior_rgb = tk.get("sample_posterior_rgb", False)
-        self.batch_size = tk["batch_size"]
+        self.batch_size = tk["batch_size"]  # the global batch
+        self.mesh.local_batch(self.batch_size)
         self.train_num_steps = tk["train_num_steps"]
         self.state: Optional[TrainState] = None
         self.num_inference_steps = sk.get("num_inference_steps", 50)
@@ -351,7 +372,9 @@ class TrainerDiffusion(PanopticRestore):
         # the two VAEs are frozen and run entirely in the compute dtype (cast
         # once); the UNet keeps trainable fp32 masters, each training forward
         # runs on a differentiable cast (:meth:`_compute_unet`) and
-        # sampling on a working copy refreshed once per call
+        # sampling on a working copy refreshed once per call; every data
+        # rank starts from the first one's weights (DDP's broadcast)
+        replicate(self.mesh, [self.vae_img, self.vae_seg, self.unet])
         for model in (self.vae_img, self.vae_seg):
             model.eval().requires_grad_(False)
             model.to(self.compute_dtype)
@@ -393,11 +416,13 @@ class TrainerDiffusion(PanopticRestore):
             betas=tuple(ok.get("betas", (0.9, 0.999))),
             weight_decay=ok.get("weight_decay", 0.0),
             weight_decay_norm=ok.get("weight_decay_norm"),
-            clip_grad=tk.get("clip_grad", 0.0), lr_factor_fn=lr_factor)
+            clip_grad=tk.get("clip_grad", 0.0), lr_factor_fn=lr_factor,
+            mesh=self.mesh, zero1=self.zero1)
         return TrainState(
             optimizer, accumulate=tk.get("accumulate", 1),
             ema_params=(list(self._eval_unet.parameters()) if self.ema_on
-                        else None), ema_decay=self.ema_decay)
+                        else None), ema_decay=self.ema_decay,
+            group=self.mesh.data_group)
 
     def _require_params(self) -> None:
         if self._unet_infer is None:
@@ -573,8 +598,8 @@ class TrainerDiffusion(PanopticRestore):
                                          channels_last=False)
             valid = valid.float()
             num = ((warped - x0c[:, mid]).abs() * valid[:, None]).sum()
-            den = torch.clamp_min(valid.sum() * x0p.shape[1], 1.0)
-            total = total + num / den
+            total = total + global_mean(num, valid.sum() * x0p.shape[1],
+                                        self.mesh.loss_group)
         return total / len(ref_idx)
 
     # ------------------------------------------------------------------
@@ -949,7 +974,8 @@ class TrainerDiffusion(PanopticRestore):
         loss = diffusion_loss(
             pred, target, timesteps=timesteps,
             schedule_weights=self.sched.weights, loss_mask=loss_mask,
-            loss_type=self.loss_type, ohem_ratio=self.ohem_ratio)
+            loss_type=self.loss_type, ohem_ratio=self.ohem_ratio,
+            group=self.mesh.loss_group)
         cons = torch.zeros((), device=dev)
         if pose_info is not None:
             x0p = (remove_noise(self.sched, noisy, pred, timesteps)
@@ -1001,7 +1027,12 @@ class TrainerDiffusion(PanopticRestore):
         :meth:`compute_pq` runs before the first step and every
         ``eval_every`` optimizer steps with ``save_model=True``, its PQ
         logged; every ``vis_every`` steps :meth:`log_images_train` writes
-        the step's panel. Returns every step's loss."""
+        the step's panel. Returns every step's loss.
+
+        Under data parallelism each rank loads its rows of every global
+        batch, draws from a generator seeded by ``(seed, data rank)``
+        (:func:`rank_seed`), and the losses read back are the data group's
+        means; only the main process prints and writes."""
         if self.ds is None:
             raise ValueError("TrainerDiffusion.train_loop needs a dataset")
         self._require_params()
@@ -1009,13 +1040,16 @@ class TrainerDiffusion(PanopticRestore):
             eval_every = self.p["eval_kwargs"].get("eval_every")
         if save_every or eval_every or vis_every:
             self._folder()
-        loader = make_loader(self.ds, self.batch_size, seed=seed)
+        loader = make_loader(self.ds, self.batch_size, seed=seed,
+                             mesh=self.mesh)
         if len(loader) == 0:
             raise ValueError(f"dataset of {len(self.ds)} samples gives no "
                              f"batch of {self.batch_size}")
         max_steps = max_steps or self.train_num_steps
         eval_kw = dict(eval_kwargs or {})
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        main = is_main_process()
+        generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, self.mesh))
         meter = AverageMeter("loss", ":.4f")
         losses: List[float] = []
         pending: List[torch.Tensor] = []
@@ -1031,20 +1065,23 @@ class TrainerDiffusion(PanopticRestore):
                                                        generator=generator)
                     pending.append(loss)
                     step += 1
-                    if vis_every and step % vis_every == 0:
+                    if vis_every and step % vis_every == 0 and main:
                         self.log_images_train(batch, pred_x0, step)
                     gstep = self.state.step
                     if step % log_every == 0 or step == max_steps:
-                        values = torch.stack(pending).tolist()
+                        values = group_mean(torch.stack(pending),
+                                            self.mesh).tolist()
                         pending.clear()
                         losses += values
                         for v in values:
                             meter.update(v, self.batch_size)
                         self.metrics.log(gstep, loss=meter.val)
-                        print(f"Epoch [{epoch}] step {step}/{max_steps}: "
-                              f"loss {sum(values) / len(values):.4f} "
-                              f"({time.perf_counter() - t0:.1f} s)",
-                              flush=True)
+                        if main:
+                            print(f"Epoch [{epoch}] step {step}/"
+                                  f"{max_steps}: loss "
+                                  f"{sum(values) / len(values):.4f} "
+                                  f"({time.perf_counter() - t0:.1f} s)",
+                                  flush=True)
                     if gstep != before:
                         if save_every and gstep % save_every == 0:
                             self.save(gstep)
@@ -1119,8 +1156,9 @@ class TrainerDiffusion(PanopticRestore):
         res = self.compute_pq(save_model=True, **eval_kw)
         self.metrics.log(step, pq=res["pq"], sq=res.get("sq"),
                          rq=res.get("rq"), best_pq=self.best_pq)
-        print(f"[eval @ step {step}] PQ {res['pq']:.2f} "
-              f"(best {self.best_pq:.2f})", flush=True)
+        if is_main_process():
+            print(f"[eval @ step {step}] PQ {res['pq']:.2f} "
+                  f"(best {self.best_pq:.2f})", flush=True)
         return res
 
     # ------------------------------------------------------------------
@@ -1147,13 +1185,21 @@ class TrainerDiffusion(PanopticRestore):
         ema_params?}`` (the masters and the EMA by parameter name, the
         optimizer's :meth:`~.optim.Optimizer.state_dict`; all on the CPU)
         under ``results_folder`` as ``tag`` or ``step_N``, then the newest 3
-        ``step_*`` are kept. Returns the path."""
+        ``step_*`` are kept. Returns the path. Under data parallelism every
+        rank calls it (ZeRO-1 gathers the optimizer state onto the main
+        process) and the main process writes."""
         self._require_params()
         name = tag or f"step_{step or self.state.step}"
         path = os.path.join(self._folder(), name)
+        opt = self.state.optimizer
+        # collective under ZeRO-1; otherwise only the writer copies it
+        opt_state = (opt.state_dict() if opt.owner is not None
+                     or is_main_process() else None)
+        if not is_main_process():
+            return path
         named = list(self.unet.named_parameters())
         payload = {"params": {n: p.detach().cpu() for n, p in named},
-                   "opt_state": self.state.optimizer.state_dict(),
+                   "opt_state": opt_state,
                    "step": int(self.state.step),
                    "best_pq": float(self.best_pq)}
         if self.state.ema_params is not None:
@@ -1183,7 +1229,8 @@ class TrainerDiffusion(PanopticRestore):
         if path is None:
             found = self._step_checkpoints()
             if not found:
-                print("No checkpoint found; starting fresh", flush=True)
+                if is_main_process():
+                    print("No checkpoint found; starting fresh", flush=True)
                 return None
             path = found[-1]
         data = torch.load(path, map_location="cpu", weights_only=True)
@@ -1204,7 +1251,9 @@ class TrainerDiffusion(PanopticRestore):
         self.best_pq = float(data.get("best_pq", self.best_pq))
         self._params_pretrained = True
         del data
-        print(f"Resumed from {path} at step {self.state.step}", flush=True)
+        if is_main_process():
+            print(f"Resumed from {path} at step {self.state.step}",
+                  flush=True)
         return path
 
     def export_reference(self, path: str, use_ema: bool = False) -> str:
@@ -1431,8 +1480,8 @@ class TrainerDiffusion(PanopticRestore):
     def compute_pq(self, num_inference_steps: Optional[int] = None,
                    max_batches: Optional[int] = None,
                    thing_ids=frozenset(), save_model: bool = False,
-                   seed: int = 0,
-                   log_images: Optional[bool] = None) -> dict:
+                   seed: int = 0, log_images: Optional[bool] = None,
+                   evaluator=None) -> dict:
         """Sampled-segmentation PQ on ``val_dataset`` (JAX :1159): its
         batches in order (``shuffle=False, drop_last=False``), each through
         :meth:`sample_panoptic` with the draws from a generator seeded by
@@ -1443,7 +1492,12 @@ class TrainerDiffusion(PanopticRestore):
         ``thing_ids``). With ``save_model`` a PQ above ``best_pq`` becomes
         it and is saved as ``best_model`` (a ``results_folder`` is needed
         up front). ``log_images`` (default ``eval_kwargs.log_images``)
-        writes the first batch's overview strip (:meth:`log_images_val`)."""
+        writes the first batch's overview strip (:meth:`log_images_val`).
+        ``evaluator`` replaces the ``PanopticEvaluator`` it fills. Under
+        data parallelism each data rank samples its share of the val set
+        (each sample once) with a generator seeded ``(seed, data rank)``,
+        and the evaluator sums the ranks' counters before it scores; every
+        rank returns the same results."""
         if log_images is None:
             log_images = bool(self.p["eval_kwargs"].get("log_images", False))
         if save_model or log_images:
@@ -1452,19 +1506,23 @@ class TrainerDiffusion(PanopticRestore):
         if self.ds_val is None:
             raise ValueError("TrainerDiffusion.compute_pq needs a "
                              "val_dataset")
-        ev = PanopticEvaluator(thing_ids=set(thing_ids),
-                               class_agnostic=not thing_ids,
-                               ignore_label=self.ignore_label)
+        ev = evaluator
+        if ev is None:
+            ev = PanopticEvaluator(thing_ids=set(thing_ids),
+                                   class_agnostic=not thing_ids,
+                                   ignore_label=self.ignore_label)
+        ev.group = self.mesh.data_group
         loader = make_loader(self.ds_val, self.batch_size, shuffle=False,
-                             drop_last=False)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+                             drop_last=False, pad=False, mesh=self.mesh)
+        generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, self.mesh))
         batches = loader.epoch(0)
         try:
             for i, batch in enumerate(batches):
                 logits, _ = self.sample_panoptic(
                     batch, generator,
                     num_inference_steps=num_inference_steps)
-                if log_images and i == 0:
+                if log_images and i == 0 and is_main_process():
                     self.log_images_val(batch, logits,
                                         identifier=f"_val{self.state.step}")
                 metas = batch.get("meta")
@@ -1480,7 +1538,7 @@ class TrainerDiffusion(PanopticRestore):
                     break
         finally:
             batches.close()
-        results = ev.evaluate()
+        results = ev.evaluate(synchronize=self.mesh.data > 1)
         if save_model and results["pq"] > self.best_pq:
             self.best_pq = results["pq"]
             self.save(tag="best_model")

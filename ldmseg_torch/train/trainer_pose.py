@@ -10,6 +10,12 @@ with global-norm clipping, as the JAX trainer's optax chain. The learned
 poses feed :meth:`~.trainer_ldm.TrainerDiffusion.attach_pose`.
 Checkpoints are ``torch.save`` files ``{params, nb_ref}`` (JAX writes
 orbax trees; neither reads the other's).
+
+Data parallelism (``mesh``, as ``TrainerDiffusion``'s): ``batch_size`` is
+the global batch of clips, each data rank trains its rows, and the
+gradients are averaged before the optimizer (the photometric and mask
+terms are means over equal shards, so the ranks' mean is the global
+batch's). Only the main process prints and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ from ..losses.pose_consistency import photometric_consistency_loss
 from ..models.convert import pose_state_dict_from_jax
 from ..models.layers import init_random_
 from ..models.posenet import PoseExpNet, load_pose_state_dict
+from ..parallel.mesh import (check_mesh_device, group_mean, make_mesh,
+                             replicate)
+from ..parallel.multihost import is_main_process
 from ..utils.meters import AverageMeter
 from .optim import Optimizer, make_lr_schedule
 from .state import TrainState
@@ -40,13 +49,15 @@ class TrainerPose:
     def __init__(self, p: dict, dataset=None,
                  results_folder: Optional[str] = None,
                  nb_ref_imgs: int = 2, output_exp: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TrainerPose: device 'cuda' asked for but "
                 "torch.cuda.is_available() is False; pass "
                 "device=torch.device('cpu') to run the plain PyTorch path")
+        self.mesh = mesh if mesh is not None else make_mesh()
+        check_mesh_device(self.mesh, device, "TrainerPose")
         self.p = p
         self.device = device
         tk = p["train_kwargs"]
@@ -55,7 +66,8 @@ class TrainerPose:
         with torch.device("meta"):
             self.model = PoseExpNet(nb_ref_imgs=nb_ref_imgs,
                                     output_exp=output_exp)
-        self.batch_size = tk["batch_size"]
+        self.batch_size = tk["batch_size"]  # the global batch
+        self.mesh.local_batch(self.batch_size)
         self.train_num_steps = tk["train_num_steps"]
         self.clip_grad = tk.get("clip_grad", 0.0)
         self.ds = dataset
@@ -66,6 +78,7 @@ class TrainerPose:
 
     # ------------------------------------------------------------------
     def _ready(self) -> None:
+        replicate(self.mesh, self.model)  # the first data rank's weights
         self.model.train().requires_grad_(True)
         ok = self.p["optimizer_kwargs"]
         schedule = make_lr_schedule(
@@ -77,7 +90,7 @@ class TrainerPose:
             list(self.model.named_parameters()), "adamw",
             learning_rate=schedule,
             weight_decay=ok.get("weight_decay", 0.0),
-            clip_grad=self.clip_grad))
+            clip_grad=self.clip_grad), group=self.mesh.data_group)
 
     def init_params(self, seed: int = 0) -> None:
         """Seeded random weights (LeCun-normal, zero biases) and a fresh
@@ -162,7 +175,8 @@ class TrainerPose:
             raise ValueError("TrainerPose.train_loop needs a dataset")
         if self.state is None:
             self.init_params(seed)
-        loader = make_loader(self.ds, self.batch_size, seed=seed)
+        loader = make_loader(self.ds, self.batch_size, seed=seed,
+                             mesh=self.mesh)
         if len(loader) == 0:
             raise ValueError(f"dataset of {len(self.ds)} clips gives no "
                              f"batch of {self.batch_size}")
@@ -180,12 +194,14 @@ class TrainerPose:
                     pending.append(self.train_step(batch)["loss"])
                     step += 1
                     if step % log_every == 0 or step == max_steps:
-                        values = torch.stack(pending).tolist()
+                        values = group_mean(torch.stack(pending),
+                                            self.mesh).tolist()
                         pending.clear()
                         losses += values
                         for v in values:
                             meter.update(v)
-                        print(f"pose step {step}: {meter}", flush=True)
+                        if is_main_process():
+                            print(f"pose step {step}: {meter}", flush=True)
                     if step >= max_steps:
                         break
             finally:
@@ -198,10 +214,13 @@ class TrainerPose:
              tag: Optional[str] = None) -> str:
         """``torch.save`` of ``{params, nb_ref}`` (the state dict on the
         CPU) under ``results_folder`` as ``tag`` or ``step_N``: the file
-        ``main_ldm``'s ``pose_model_kwargs.pretrained_path`` reads."""
+        ``main_ldm``'s ``pose_model_kwargs.pretrained_path`` reads (by the
+        main process; every rank holds the same weights)."""
         self._require_params()
         name = tag or f"step_{step if step is not None else 0}"
         path = os.path.join(os.path.abspath(self.results_folder), name)
+        if not is_main_process():
+            return path
         payload = {"params": {k: v.detach().cpu()
                               for k, v in self.model.state_dict().items()},
                    "nb_ref": int(self.nb_ref)}

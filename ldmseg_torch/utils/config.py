@@ -204,10 +204,14 @@ def prepare_config(cfg: dict, output_dir: str, run_idx: int = -1) -> dict:
     ``checkpoints/`` and ``logs/`` (``run_idx=-1``: a timestamped name) and
     write the composed config to its ``config.json``, from which
     ``tools/export_checkpoint.py`` rebuilds the trainer; returns cfg with
-    ``output_dir``, ``checkpoint_dir`` and ``log_dir`` set."""
+    ``output_dir``, ``checkpoint_dir`` and ``log_dir`` set. Under
+    ``torch.distributed`` every rank takes the main process's stamp and
+    only the main process writes the file."""
+    from ..parallel.multihost import broadcast_host, is_main_process
     cfg = copy.deepcopy(cfg)
     if run_idx == -1:
-        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        stamp = broadcast_host(
+            datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
         run_name = f"run_{stamp}"
     else:
         run_name = f"run_{run_idx}"
@@ -217,7 +221,8 @@ def prepare_config(cfg: dict, output_dir: str, run_idx: int = -1) -> dict:
     cfg["log_dir"] = os.path.join(root, "logs")
     for d in (root, cfg["checkpoint_dir"], cfg["log_dir"]):
         os.makedirs(d, exist_ok=True)
-    import json
-    with open(os.path.join(root, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=1, default=str)
+    if is_main_process():
+        import json
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1, default=str)
     return cfg

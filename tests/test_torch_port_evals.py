@@ -124,18 +124,39 @@ def test_panoptic_evaluator_matches_jax(case):
 
 
 def test_panoptic_evaluator_refuses_a_multiprocess_sum(monkeypatch):
+    """One process: a no-op. Two (faked, the other rank's table gathered
+    as ``all_gather_host`` would hand it over): the counters and the
+    per-class table are summed, and a table above the packing cap of 4096
+    class ids is refused, as JAX refuses it. The real two-process sum is
+    tests/test_torch_port_parallel.py's."""
     ev = E.PanopticEvaluator()
     pred, gt, _ = _scene(np.random.RandomState(0))
     ev.add_image(pred, gt)
     ev.synchronize_between_processes()      # one process: a no-op
     assert ev.evaluate(synchronize=True)["tp"] == ev.TP
     import torch.distributed as dist
+    from ldmseg_torch.parallel import multihost
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        ev.evaluate()
-    with pytest.raises(NotImplementedError, match="queue 10"):
-        E.SemsegMeter(4).synchronize()
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(multihost.dist, "all_gather_object",
+                        lambda out, obj, group=None: out.__setitem__(
+                            slice(None), [obj, obj]))
+    one = ev.evaluate(synchronize=False)
+    two = ev.evaluate()
+    assert (two["tp"], two["fp"], two["fn"]) == (
+        2 * one["tp"], 2 * one["fp"], 2 * one["fn"])
+    assert two["pq"] == pytest.approx(one["pq"])
+    meter = E.SemsegMeter(4)
+    meter.update(np.array([[[0, 1], [2, 3]]]), np.array([[[0, 1], [2, 2]]]))
+    inter, union = meter.inter.copy(), meter.union.copy()
+    meter.synchronize()
+    np.testing.assert_array_equal(meter.inter, 2 * inter)
+    np.testing.assert_array_equal(meter.union, 2 * union)
+    crowded = E.PanopticEvaluator()
+    for c in range(4097):
+        crowded._cls(c)
+    with pytest.raises(ValueError, match="packing cap 4096"):
+        crowded.synchronize_between_processes()
 
 
 # ---------------------------------------------------------------------------

@@ -144,10 +144,14 @@ def test_make_loader_takes_its_shard_from_torch_distributed(monkeypatch):
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_rank", lambda: 2)
     monkeypatch.setattr(dist, "get_world_size", lambda: 3)
-    loader = make_loader(Counting(8), 2, shuffle=False)
+    # batch_size is the global batch: each of the 3 data ranks loads 2
+    loader = make_loader(Counting(8), 6, shuffle=False)
     assert (loader.shard_id, loader.num_shards) == (2, 3)
+    assert loader.batch_size == 2
     ref = JLoader(Counting(8), 2, shuffle=False, shard_id=2, num_shards=3)
     _same(list(loader.epoch(0)), list(ref.epoch(0)))
+    with pytest.raises(ValueError, match="does not split over 3"):
+        make_loader(Counting(8), 2)
 
 
 def test_prefetch_passes_host_batches_on_the_cpu():

@@ -155,6 +155,13 @@ NOW_PORTED = {
     "none": lambda t: (t.descriptor.kind == "none"
                        and t.unet_config.use_cross_attention
                        and t.guidance_scale == 7.5),
+    # data parallelism (test_torch_port_parallel, test_torch_port_dp_train):
+    # ZeRO-1 is honoured; TP and SP act as JAX's on a mesh without a model
+    # axis (none here), and are refused with one (test_torch_port_parallel::
+    # test_model_axis_options_refused_with_a_model_axis)
+    "ZeRO": lambda t: t.zero1 and t.mesh.shape == {"data": 1, "model": 1},
+    "tensor parallel": lambda t: t.mesh.model == 1,
+    "spatial parallel": lambda t: t.mesh.model == 1,
 }
 
 
