@@ -297,15 +297,30 @@ Phases, one line each:
      device ms, peak memory, launches; two ranks on one card are no
      scaling figure); ``compute_pq`` on 4 frames, 2 a rank, equal to one
      process fed the same images; the stage-1 step's loss within 1e-3;
-  61. ``entry.dryrun_multichip(2, "cuda")``: stages A and D, each stage's
-     seconds, K1 and K2 launched on each rank and no other kernel. It runs
-     first, with nothing else on the card; phase 59's process then runs
-     beside phase 60's one-rank steps (their seconds printed as
-     contended), and phase 60's ranks run alone;
-  62. the script's total seconds, then a JSON line ``{"kernels": [...]}``
+  61. ``entry.dryrun_multichip(4, "cuda")``: stages A-D on four gloo
+     ranks, each stage's seconds; B (a ``(2, 2)`` mesh): the TP UNet's
+     forward and gradients within 1e-2 of the replicated one's and a
+     rank's share of its parameters; C: a TP + ZeRO-1 + SP step, each
+     rank's ZeRO-1 state about a quarter of the ranks' sum; K1 and K2
+     launched on each rank and no other kernel. It runs first, with
+     nothing else on the card; phase 59's process then runs beside phase
+     60's one-rank steps (their seconds printed as contended), and phase
+     60's ranks run alone;
+  62. the model axis at full width: the one-rank step (phase 6's
+     configuration at batch 2 with ZeRO-1, the image VAE on K1's wide
+     class) and a 4-step bf16 ``sample_panoptic`` in this process, then
+     two gloo ranks sharing the card on a ``(data=1, model=2)`` mesh with
+     ``tensor_parallel`` and ``spatial_parallel``: loss within 1e-3, the
+     gathered gradients' cosine >= 0.9999, the one-rank optimizer fed the
+     gathered TP gradients within 1e-3 x lr (plus an ulp of the fp32
+     master) of the gathered TP masters (the update's cosine against the
+     one-rank step printed), x0 within 2e-2 of max|x0|; each rank's UNet
+     bytes (50-55% of one rank's), peak memory, K1, K2 and K1 wide launches, the spatial
+     stages run whole (none), seconds;
+  63. the script's total seconds, then a JSON line ``{"kernels": [...]}``
      (K1-K18, K10 in both variants, K1's wide class; K5, K6 and K7 with
      their device time and host time a call);
-  63. the last line, ``{"ok": true, "device": {...}}``.
+  64. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -6524,26 +6539,47 @@ def phase_dp_two_ranks(smi_line: str, refs: dict) -> dict:
             "contended_references_seconds": ref_s, "ranks_seconds": ranks_s}
 
 
+DRY_RANKS = 4  # phase 61's ranks: stages B and C need a (2, 2) mesh
+
+
 def phase_dp_dryrun(smi_line: str) -> dict:
-    """Phase 61: ``entry.dryrun_multichip(2, "cuda")``, stages A and D on
-    two ranks sharing the card (gloo), nothing else on it: each stage's
-    seconds, K1 and K2 launched on each rank, no other kernel."""
+    """Phase 61: ``entry.dryrun_multichip(4, "cuda")``, stages A-D on four
+    ranks sharing the card (gloo), nothing else on it: each stage's
+    seconds; B's TP forward and gradient errors against the replicated
+    UNet (JAX's bound, 1e-2) and a rank's share of the UNet's parameters;
+    C's ZeRO-1 state a rank (about a quarter of the ranks' sum); K1 and K2
+    launched on each rank, no other kernel."""
     from ldmseg_torch.entry import dryrun_multichip
     t0 = time.perf_counter()
-    ranks = dryrun_multichip(2, "cuda", timeout_s=DP_TIMEOUT_S)
+    ranks = dryrun_multichip(DRY_RANKS, "cuda", timeout_s=DP_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     for r in ranks:
         n = r["launches"]
         check(n["K1"] > 0 and n["K2"] > 0 and n["other"] == 0,
               f"phase 61: launches {[x['launches'] for x in ranks]}")
-    a, d = ranks[0]["A"], ranks[0]["D"]
-    print(f"phase 61 dryrun_multichip(2, cuda): stage A {a['seconds']:.1f} "
-          f"s, stage D {d['seconds']:.1f} s (rank 0), K1 "
+    a, b, c, d = (ranks[0][k] for k in "ABCD")
+    total = sum(r["C"]["state_bytes"] for r in ranks)
+    shares = [r["C"]["state_bytes"] / total for r in ranks]
+    check(max(b["fwd_err"], b["grad_err"]) < 1e-2
+          and 0.5 < b["param_share"] < 0.55,
+          f"phase 61 stage B: {b}")
+    check(all(0.2 < x < 0.3 for x in shares) and c["sp_stages"] > 0,
+          f"phase 61 stage C: state shares {shares}, {c}")
+    print(f"phase 61 dryrun_multichip({DRY_RANKS}, cuda): stage A "
+          f"{a['seconds']:.1f} s, B {b['seconds']:.1f} s (TP fwd err "
+          f"{b['fwd_err']:.2e}, grad err {b['grad_err']:.2e}, tol 1e-2; a "
+          f"rank's UNet {b['param_share']:.4f} of the parameters), C "
+          f"{c['seconds']:.1f} s (TP + ZeRO-1 + SP step, loss "
+          f"{c['loss']:.4f}, {c['sp_stages']} spatial stages, ZeRO-1 state "
+          f"a rank {[round(x, 4) for x in shares]} of the ranks' sum), D "
+          f"{d['seconds']:.1f} s (rank 0); K1 "
           f"{ranks[0]['launches']['K1']} / K2 {ranks[0]['launches']['K2']} "
           f"launches a rank, {seconds:.1f} s in all (alone on the card) "
           f"[{smi_line}]",
           flush=True)
-    return {"A_seconds": a["seconds"], "D_seconds": d["seconds"],
+    return {"A_seconds": a["seconds"], "B_seconds": b["seconds"],
+            "C_seconds": c["seconds"], "D_seconds": d["seconds"],
+            "B": b, "C_loss": c["loss"], "C_state_shares": shares,
             "launches": ranks[0]["launches"], "seconds": seconds}
 
 
@@ -6571,6 +6607,301 @@ def phase_dp(smi_line: str):
           f"ranks {two['ranks_seconds']:.1f} s alone) [{smi_line}]",
           flush=True)
     return one, two, dry, seconds
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor and spatial parallelism on two gloo ranks sharing
+# the card (phase 62)
+# ---------------------------------------------------------------------------
+MA_BATCH = 2           # phase 62's batch of 192x640 frames
+MA_STEPS = 4           # its sample's DDIM steps
+MA_TIMEOUT_S = 420     # the ranks' deadline
+
+
+def _ma_config(parallel: bool):
+    """Phase 6's training configuration at batch 2 with ZeRO-1, the image
+    VAE's attention on K1's wide class; ``parallel``: with
+    ``tensor_parallel`` and ``spatial_parallel``."""
+    from ldmseg_torch.utils.config import merge_dicts
+    cfg = merge_dicts(_train_config(), {
+        "train_kwargs": {"batch_size": MA_BATCH},
+        "image_vae_kwargs": {"use_fused_attention": True},
+        "optimizer_zero_redundancy": True})
+    if parallel:
+        cfg = merge_dicts(cfg, {"tensor_parallel": True,
+                                "spatial_parallel": True})
+    return cfg
+
+
+def _ma_inputs():
+    """Phase 62's batch (phase 6's first 2 frames), the step's noise and
+    timesteps, and the sample's initial noise, NHWC, from a CPU
+    generator."""
+    import torch
+    gen = torch.Generator().manual_seed(62)
+    lat = (MA_BATCH, TRAIN_HW[0] // 8, TRAIN_HW[1] // 8, 4)
+    return (_dp_batch(slice(0, MA_BATCH)), torch.randn(lat, generator=gen),
+            torch.randint(0, 1000, (MA_BATCH,), generator=gen),
+            torch.randn(lat, generator=gen))
+
+
+def _ma_step(trainer, keep_before: bool = False):
+    """One train step and the 4-step bf16 sample on phase 62's inputs:
+    the gradients the optimizer read (before the clip) and the update (and
+    with ``keep_before`` the masters before the step), by parameter name,
+    the loss, x0, each part's seconds and the launches."""
+    import torch
+    batch, noise, steps, init = _ma_inputs()
+    opt, seen = trainer.state.optimizer, {}
+    named = list(trainer.unet.named_parameters())
+    before = {n: p.detach().clone() for n, p in named}
+    opt_step = opt.step
+
+    def read_then_step():
+        seen.update({n: p.grad.detach().clone() for n, p in named})
+        opt_step()
+    opt.step = read_then_step
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, _ = trainer.train_step(batch, noise=noise, timesteps=steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.step = opt_step
+    update = {n: p.detach() - before[n] for n, p in named}
+    if not keep_before:
+        before = None
+    _, x0 = trainer.sample_panoptic({"image": batch["image"]},
+                                    init_noise=init,
+                                    num_inference_steps=MA_STEPS, graph=False)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grads": seen, "update": update,
+            "before": before, "x0": x0.float().cpu(), "step_seconds": t1 - t0,
+            "sample_seconds": time.perf_counter() - t1, "counts": _counts()}
+
+
+def _ma_reference(path: str) -> dict:
+    """Phase 62's one-rank step and sample in this process; the gradients
+    and the update (bf16, flat in parameter order) go to ``path`` for the
+    ranks."""
+    import torch
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    t0 = time.perf_counter()
+    trainer = TrainerDiffusion(_ma_config(False))
+    trainer.init_params(seed=0)
+    out = _ma_step(trainer)
+    named = list(trainer.unet.named_parameters())
+    torch.save({"names": [n for n, _ in named],
+                "shapes": [tuple(p.shape) for _, p in named],
+                "grads": torch.cat([out["grads"][n].reshape(-1).bfloat16()
+                                    for n, _ in named]).cpu(),
+                "update": torch.cat([out["update"][n].reshape(-1).bfloat16()
+                                     for n, _ in named]).cpu()},
+               path + ".part")
+    import os
+    os.replace(path + ".part", path)
+    unet_bytes = sum(p.numel() * p.element_size() for _, p in named)
+    del trainer, named, out["grads"], out["update"]
+    torch.cuda.empty_cache()
+    return out | {"unet_bytes": unet_bytes,
+                  "seconds": time.perf_counter() - t0}
+
+
+def _ma_rank(rank: int, spec: dict) -> dict:
+    """Phase 62 on one of two gloo ranks sharing the card, a ``(1, 2)``
+    mesh: the trainer with ``tensor_parallel`` and ``spatial_parallel``,
+    the step and the sample of :func:`_ma_step`; the cosines of the
+    gathered gradients and update with the one-rank ones (each rank's
+    shards against their slices, a replicated tensor counted on model rank
+    0, the sums all-reduced over the model group). AdamW's first step
+    moves each element by about lr times the sign of its gradient, so an
+    element whose gradient is within the two steps' bf16 rounding of zero
+    may move either way: the update's cosine is read, not held. What is
+    held: the one-rank optimizer fed the gathered TP gradients, from the
+    gathered masters before the step, ends at the gathered TP masters
+    (the sharded clip, AdamW and ZeRO-1 against the unsharded ones, apart
+    from the rounding), on model rank 0."""
+    import torch
+    import torch.distributed as dist
+    from ldmseg_torch.parallel import sp, tp
+    from ldmseg_torch.parallel.mesh import make_mesh
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(1, 2)
+    trainer = TrainerDiffusion(_ma_config(True), mesh=mesh)
+    trainer.init_params(seed=0)
+    build_s = time.perf_counter() - t0
+    replicated = sp.run_stage.replicated
+    out = _ma_step(trainer, keep_before=True)
+    lay, ax = tp.layout(trainer.unet), sp.model_axis(mesh)
+    ref = torch.load(spec["ref"], mmap=True, weights_only=True)
+    offsets, off = {}, 0
+    for n, s in zip(ref["names"], ref["shapes"]):
+        offsets[n] = (off, s)
+        off += math.prod(s)
+    # dot, |a|^2, |b|^2 of the gradients, of the update
+    sums = torch.zeros(6, dtype=torch.float64, device="cuda")
+
+    def add(i, a, b):
+        a, b = a.reshape(-1).double(), b.reshape(-1).double()
+        sums[i:i + 3] += torch.stack([a @ b, a @ a, b @ b])
+    for n, g in out["grads"].items():
+        if n not in lay and mesh.model_rank != 0:
+            continue
+        o, s = offsets[n]
+        rg, ru = (ref[k][o:o + math.prod(s)].view(s).to("cuda")
+                  for k in ("grads", "update"))
+        if n in lay:
+            rg, ru = (tp.local_tensor(r, lay[n][0], ax, lay[n][1])
+                      for r in (rg, ru))
+        u = out["update"][n]
+        add(0, g, rg)
+        add(3, u, ru)
+    dist.all_reduce(sums, group=mesh.model_group)
+    sums = sums.tolist()
+    del ref, out["update"]
+    peak = torch.cuda.max_memory_allocated()  # before the reference below
+    t_opt = time.perf_counter()
+    named = list(trainer.unet.named_parameters())
+    keep = mesh.model_rank == 0
+    whole = [tp.full_tensors(mesh, [(n, t[n]) for n, _ in named], lay, keep)
+             for t in (out.pop("before"), out.pop("grads"), dict(named))]
+    opt, opt_err = trainer.state.optimizer, None
+    if keep:
+        params = [torch.nn.Parameter(b.cuda()) for b in whole[0]]
+        for q, g in zip(params, whole[1]):
+            q.grad = g.cuda()
+        trainer.make_optimizer([(n, q) for (n, _), q in zip(named, params)]
+                               ).step()
+        # within 1e-3 x lr, plus one rounding of the fp32 master (lr is
+        # 5e-7 on the warm-up's first step: below an ulp of a master near 1)
+        lr, eps = float(opt.schedule(0)), torch.finfo(torch.float32).eps
+        err, over, unequal, total = 0.0, 0, 0, 0
+        for q, a in zip(params, whole[2]):
+            d = (q.detach() - a.cuda()).abs()
+            err = max(err, float(d.max()))
+            over += int((d > 1e-3 * lr + eps * q.detach().abs()).sum())
+            unequal += int((d > 0).sum())
+            total += d.numel()
+        opt_err = {"lr": lr, "max_lr": err / lr, "over": over,
+                   "unequal": unequal / total}
+        del params
+    del whole
+    torch.cuda.empty_cache()
+    unet_bytes = sum(p.numel() * p.element_size()
+                     for p in trainer.unet.parameters())
+    return out | {
+        "grad_cos": sums[0] / math.sqrt(sums[1] * sums[2]),
+        "update_cos": sums[3] / math.sqrt(sums[4] * sums[5]),
+        "optimizer_err": opt_err,
+        "optimizer_seconds": time.perf_counter() - t_opt,
+        "unet_bytes": unet_bytes, "sharded": len(lay),
+        "replicated_stages": sp.run_stage.replicated - replicated,
+        "sp_stages": sp.run_stage.sharded,
+        "peak_bytes": peak,
+        "build_seconds": build_s, "seconds": time.perf_counter() - t0}
+
+
+def phase_model_axis(smi_line: str) -> dict:
+    """Phase 62: the model axis at full width. The one-rank step and
+    sample run here first (phase 6's configuration at batch 2 with ZeRO-1
+    and the image VAE on K1's wide class), then two gloo ranks sharing the
+    card on a ``(data=1, model=2)`` mesh with ``tensor_parallel`` and
+    ``spatial_parallel`` run the same step and sample: loss within 1e-3,
+    the gathered gradients' cosine >= 0.9999 against the one-rank step,
+    the one-rank optimizer fed the gathered TP gradients within 1e-3 x lr
+    (plus an ulp of the fp32 master) of the gathered TP masters
+    (:func:`_ma_rank`; the update's cosine against the one-rank step is
+    printed), x0 within 2e-2 of max|x0|;
+    each rank holds 50-55% of the UNet's bytes, and launched K1, K2 and
+    K1's wide class. Two ranks on one card through gloo measure no
+    scaling: every collective crosses the host."""
+    import os
+    import tempfile
+    import torch
+    from ldmseg_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "one_rank.pt")
+        one = _ma_reference(path)
+        ref_s = time.perf_counter() - t0
+        ranks = run_ranks(_ma_rank, 2, args=({"ref": path},),
+                          device="cuda", backend="gloo", local_rank=0,
+                          timeout_s=MA_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0 - ref_s
+    r0 = ranks[0]
+    rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    xerr = max(float((r["x0"] - one["x0"]).abs().max()) for r in ranks)
+    xmax = float(one["x0"].abs().max())
+    shares = [r["unet_bytes"] / one["unet_bytes"] for r in ranks]
+    grad_cos = min(r["grad_cos"] for r in ranks)
+    update_cos = min(r["update_cos"] for r in ranks)
+    opt = r0["optimizer_err"]
+    counts = [{k: r["counts"][k] for k in ("K1", "K2", "K1w")}
+              for r in ranks]
+    print(f"phase 62 model axis (data=1, model=2), two gloo ranks sharing "
+          f"the card, tensor_parallel + spatial_parallel + ZeRO-1, batch "
+          f"{MA_BATCH} of {TRAIN_HW[0]}x{TRAIN_HW[1]}, bf16 on fp32 masters, "
+          f"clip_grad 3.0: loss {r0['loss']:.6f} vs one rank "
+          f"{one['loss']:.6f} (rel {rel:.2e}, tol 1e-3); gathered "
+          f"gradients' cosine {grad_cos:.6f} (>= 0.9999); the one-rank "
+          f"optimizer fed the gathered TP gradients: max |masters - TP "
+          f"masters| {opt['max_lr']:.3e} x lr ({opt['lr']:.3e}), "
+          f"{opt['over']} elements "
+          f"over 1e-3 x lr + an ulp of the master (none allowed), "
+          f"{opt['unequal']:.3e} of them not bit-equal "
+          f"({r0['optimizer_seconds']:.1f} s); "
+          f"update cosine against the one-rank step {update_cos:.6f} (read, "
+          f"not held: AdamW's first step is lr x the sign of each "
+          f"gradient); {MA_STEPS}-step bf16 sample "
+          f"(eager) x0 max err {xerr:.3e} of max|x0| {xmax:.3e} (tol 2e-2 "
+          f"of it)", flush=True)
+    for i, r in enumerate(ranks):
+        print(f"phase 62 rank {i}: UNet bytes {shares[i]:.4f} of one rank's "
+              f"({r['sharded']} sharded tensors), peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, launches {counts[i]}, "
+              f"spatial stages sharded {r['sp_stages']} / replicated "
+              f"{r['replicated_stages']}, train step {r['step_seconds']:.3f} "
+              f"s, sample {r['sample_seconds']:.3f} s, trainer built in "
+              f"{r['build_seconds']:.1f} s, {r['seconds']:.1f} s in all "
+              f"[{smi_line}]", flush=True)
+    print(f"phase 62 one rank: step {one['step_seconds']:.3f} s, sample "
+          f"{one['sample_seconds']:.3f} s (eager), launches "
+          f"{ {k: one['counts'][k] for k in ('K1', 'K2', 'K1w')} }; the "
+          f"reference {ref_s:.1f} s, the ranks {ranks_s:.1f} s (two ranks on "
+          f"ONE card over gloo: not a scaling figure) [{smi_line}]",
+          flush=True)
+    check(rel <= 1e-3, f"phase 62: loss {r0['loss']} vs one rank "
+          f"{one['loss']}")
+    check(all(r["loss"] == r0["loss"] for r in ranks),
+          f"phase 62: the ranks' losses {[r['loss'] for r in ranks]}")
+    check(grad_cos >= 0.9999, f"phase 62: gradient cosine "
+          f"{[r['grad_cos'] for r in ranks]}")
+    check(opt["over"] == 0, f"phase 62: the one-rank optimizer on the "
+          f"gathered TP gradients against the TP masters: {opt}")
+    check(xerr <= 2e-2 * xmax, f"phase 62: x0 err {xerr} of {xmax}")
+    check(all(0.50 <= s <= 0.55 for s in shares),
+          f"phase 62: UNet byte shares {shares}")
+    for c in counts:
+        check(c["K1"] > 0 and c["K2"] > 0 and c["K1w"] > 0,
+              f"phase 62: launches {counts}")
+    check(all(r["replicated_stages"] == 0 for r in ranks),
+          "phase 62: a spatial stage ran whole")
+    return {"loss": r0["loss"], "one_rank_loss": one["loss"],
+            "loss_rel": rel, "grad_cosine": grad_cos,
+            "update_cosine": update_cos, "optimizer_err": opt,
+            "x0_err": xerr, "x0_max": xmax,
+            "unet_byte_shares": shares,
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "counts": counts, "one_rank_counts": one["counts"],
+            "replicated_stages": [r["replicated_stages"] for r in ranks],
+            "step_seconds": [r["step_seconds"] for r in ranks],
+            "sample_seconds": [r["sample_seconds"] for r in ranks],
+            "one_rank_step_seconds": one["step_seconds"],
+            "one_rank_sample_seconds": one["sample_seconds"],
+            "reference_seconds": ref_s, "ranks_seconds": ranks_s,
+            "seconds": time.perf_counter() - t0}
 
 
 _T0 = time.perf_counter()
@@ -6785,6 +7116,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp_one, dp_two, dp_dry, dp_seconds = phase_dp(smi_line)
         lap("phases 59-61")
+        # the model axis: tensor and spatial parallelism at full width
+        torch.cuda.empty_cache()
+        model_axis = phase_model_axis(smi_line)
+        lap("phase 62")
         clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
@@ -6831,7 +7166,8 @@ def main() -> int:
             "data_parallel": {"one_nccl_rank": dp_one,
                               "two_gloo_ranks": dp_two,
                               "dryrun_multichip": dp_dry,
-                              "seconds": dp_seconds}}}),
+                              "seconds": dp_seconds},
+            "model_axis": model_axis}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -6926,9 +7262,13 @@ def main() -> int:
         paths[f"two gloo ranks sharing the card, rank 0: a stage-2 step "
               f"with ZeRO-1 ({DP_ROWS} rows), compute_pq ({DP_PQ_STEPS} DDIM "
               f"steps, 2 frames)"] = dp_two["counts"]
-        paths["dryrun_multichip(2, cuda), rank 0: stages A and D"] = (
-            _expect(K1=dp_dry["launches"]["K1"],
-                    K2=dp_dry["launches"]["K2"]))
+        paths[f"dryrun_multichip({DRY_RANKS}, cuda), rank 0: stages "
+              f"A-D"] = _expect(K1=dp_dry["launches"]["K1"],
+                                K2=dp_dry["launches"]["K2"])
+        for rank, counts in enumerate(model_axis["counts"]):
+            paths[f"model axis (data=1, model=2), rank {rank}: a TP + SP "
+                  f"+ ZeRO-1 step (batch {MA_BATCH}), a {MA_STEPS}-step bf16 "
+                  f"sample_panoptic"] = _expect(**counts)
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}

@@ -256,7 +256,11 @@ class CrossAttention(nn.Module):
     An int8 attention takes the calibration key ``to_q`` and ignores it:
     JAX records that scale (quant.py:607-613), but with float projections
     no quantized leaf holds it, so K13 keeps ``int8_act_scale`` and K15
-    its dynamic scales."""
+    its dynamic scales.
+
+    The head count of the plain path comes from the projections' width:
+    under tensor parallelism (``parallel/tp.py:apply_tp``) they hold this
+    rank's heads."""
 
     def __init__(self, query_dim: int, heads: int, use_fused: bool = False,
                  int8: bool = False, int8_act_scale: Optional[float] = None,
@@ -295,8 +299,8 @@ class CrossAttention(nn.Module):
                       else fused_self_attention_packed)
             return self.to_out[0](attend(q, k, v, self.heads, scale))
         src = x if is_self else context
-        q = self.to_q(x).reshape(b, t, self.heads, hd)
-        k, v = (proj(src).reshape(b, src.shape[1], self.heads, hd)
+        q = self.to_q(x).reshape(b, t, -1, hd)
+        k, v = (proj(src).reshape(b, src.shape[1], -1, hd)
                 for proj in (self.to_k, self.to_v))
         if is_self and self.use_fused and self.int8:
             out = fused_self_attention_s8(q, k, v, scale,
@@ -307,7 +311,7 @@ class CrossAttention(nn.Module):
             attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
             attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        return self.to_out[0](out.reshape(b, t, c))
+        return self.to_out[0](out.reshape(b, t, -1))
 
 
 class PaddedAttentionS8(CrossAttention):

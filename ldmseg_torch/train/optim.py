@@ -24,6 +24,11 @@ so every rank holds the same masters. Clipping reads every gradient, which
 every rank holds after the reduction. :meth:`Optimizer.state_dict` is then
 collective and returns the one-rank layout on data rank 0 alone, and
 :meth:`Optimizer.load_state_dict_` takes that layout for any partition.
+
+Tensor parallelism (``sharded``, the names of the parameters that hold this
+model rank's shard, ``parallel/tp.py``): the global norm of the clip adds
+the sharded gradients' squares over the model group and counts each
+replicated parameter once.
 """
 
 from __future__ import annotations
@@ -199,7 +204,9 @@ class Optimizer:
     ``mesh`` (``parallel/mesh.py:Mesh``) whose data group is set, the state
     is partitioned over its data ranks (the module docstring).
     ``norm_names`` adds parameters that count as a norm layer's to those
-    :func:`is_norm_param` finds by name (:func:`norm_param_names`)."""
+    :func:`is_norm_param` finds by name (:func:`norm_param_names`).
+    ``sharded`` names the parameters that hold a shard over the mesh's
+    model axis (tensor parallelism)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  name: str = "adamw",
@@ -211,13 +218,16 @@ class Optimizer:
                  clip_grad: float = 0.0,
                  lr_factor_fn: Optional[Callable[[str], float]] = None,
                  momentum: float = 0.9, mesh=None, zero1: bool = False,
-                 norm_names: frozenset = frozenset()):
+                 norm_names: frozenset = frozenset(),
+                 sharded: frozenset = frozenset()):
         if name not in ("adamw", "adam", "sgd", "adafactor"):
             raise NotImplementedError(f"optimizer {name!r}")
         self.schedule = (learning_rate if callable(learning_rate)
                          else (lambda step: learning_rate))
         self.clip_grad = clip_grad
         self.count = 0
+        self.model_group = (mesh.model_group if sharded and mesh is not None
+                            else None)
         # adam takes no weight decay in the JAX chain; sgd only when asked
         decays = name in ("adamw", "adafactor") or (name == "sgd"
                                                    and weight_decay)
@@ -234,10 +244,12 @@ class Optimizer:
 
         groups: Dict[Tuple[float, float], List[torch.nn.Parameter]] = {}
         self.params: List[torch.nn.Parameter] = []
+        self.sharded: List[bool] = []
         for n, p in named_params:
             factor = 1.0 if lr_factor_fn is None else float(lr_factor_fn(n))
             groups.setdefault((factor, decay(n)), []).append(p)
             self.params.append(p)
+            self.sharded.append(n in sharded)
         param_groups = [{"params": ps, "lr_factor": f, "weight_decay": wd}
                         for (f, wd), ps in groups.items()]
         # the one-rank state layout indexes this grouped order
@@ -280,8 +292,22 @@ class Optimizer:
         """optax ``clip_by_global_norm``: scale every gradient by
         ``clip / norm`` when the global norm reaches ``clip``."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        if self.model_group is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+        else:
+            # a shard's squares summed over the model group, a replicated
+            # gradient (the same on every model rank) counted once
+            def squares(shard: bool) -> torch.Tensor:
+                part = [p.grad for p, s in zip(self.params, self.sharded)
+                        if s == shard and p.grad is not None]
+                if not part:
+                    return grads[0].new_zeros((), dtype=torch.float32)
+                return torch.stack(torch._foreach_norm(part)).float() \
+                    .square().sum()
+            sharded = squares(True)
+            dist.all_reduce(sharded, group=self.model_group)
+            norm = (sharded + squares(False)).sqrt()
         factor = torch.where(norm < self.clip_grad, torch.ones_like(norm),
                              self.clip_grad / norm)
         torch._foreach_mul_(grads, factor)

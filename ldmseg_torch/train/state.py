@@ -14,7 +14,10 @@ Under data parallelism (``group``, the mesh's data group) the gradients
 are averaged over the group's ranks once per optimizer step, after the last
 micro-batch and before the optimizer, so that clipping reads the global
 gradients as JAX's does (``parallel/mesh.py:reduce_gradients``); every rank
-then steps to the same masters and applies the EMA to them.
+then steps to the same masters and applies the EMA to them. Under tensor
+parallelism (``model_group``) the gradients of the ``replicated``
+parameters, the same on every model rank, are averaged over the model group
+too, so that those masters stay equal whatever the rounding.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from .optim import Optimizer
 class TrainState:
     def __init__(self, optimizer: Optimizer, accumulate: int = 1,
                  ema_params: Optional[List[torch.Tensor]] = None,
-                 ema_decay: float = 0.9999, group=None):
+                 ema_decay: float = 0.9999, group=None, model_group=None,
+                 replicated: Optional[List[torch.Tensor]] = None):
         if accumulate < 1:
             raise ValueError(f"accumulate must be >= 1, got {accumulate}")
         if ema_params is not None and len(ema_params) != len(
@@ -42,6 +46,8 @@ class TrainState:
         self.ema_params = ema_params
         self.ema_decay = ema_decay
         self.group = group
+        self.model_group = model_group
+        self.replicated = replicated or []
         self.step = 0
         self.micro_step = 0
 
@@ -58,6 +64,7 @@ class TrainState:
         if self.micro_step % self.accumulate:
             return False
         reduce_gradients(self.optimizer.params, self.group)
+        reduce_gradients(self.replicated, self.model_group)
         if self.accumulate > 1:
             grads = [p.grad for p in self.optimizer.params
                      if p.grad is not None]

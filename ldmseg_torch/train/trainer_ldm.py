@@ -102,9 +102,24 @@ noise from a generator seeded with ``(seed, data rank)`` and logs the data
 group's mean loss; ``compute_pq`` samples each rank's share of the val set
 and sums the evaluator. Only the main process writes checkpoints (their
 optimizer state gathered from every rank first), ``metrics.jsonl`` and
-images; every rank resumes. ``spatial_parallel`` and ``tensor_parallel``
-act as JAX's do on a mesh without a model axis, which is not at all; with
-a model axis they raise ``NotImplementedError``.
+images; every rank resumes.
+
+A ``model`` axis (``make_mesh(num_data, num_model)``; rank = data index x
+model size + model index): the model ranks of one data index train the same
+rows with the same draws (:func:`rank_seed` keys on the data rank). With
+``tensor_parallel`` each holds its shards of the UNet
+(``parallel/tp.py:apply_tp``: column- and row-parallel layers, K1 and K2
+on its local heads), the optimizer (and ZeRO-1's partition over the data
+group) runs on the shards, the clip's global norm sums the shards over the
+model group, and a checkpoint is gathered to the one-rank layout (and a
+one-rank checkpoint resumes onto the shards). With ``spatial_parallel``
+each runs the frozen VAEs on its rows of H (``parallel/sp.py:run_stage``:
+the encoders' moments gathered before the posterior's draws, the decode's
+logits gathered before post-processing). Sampling then runs the eager loop:
+a CUDA graph cannot capture gloo's host-staged collectives. Without a model
+axis the two flags do nothing (JAX's ``has_spatial_axis`` rule). The other
+options that a model axis does not take yet raise ``NotImplementedError``
+naming themselves (:func:`refuse_model_axis`).
 """
 
 from __future__ import annotations
@@ -136,10 +151,11 @@ from ..models.image_vae import ImageVAE
 from ..models.layers import init_random_
 from ..models.posenet import PoseExpNet, load_pose_state_dict
 from ..ops.resize import resize_weight_matrix
-from ..models.seg_vae import SegVAE
+from ..models.seg_vae import DiagonalGaussian, SegVAE
 from ..models.unet import UNet2DCondition, UNetConfig, draw_input_dropout
 from ..ops.quant import (apply_act_scales, calibrate_act_scale_tree,
                          prepare_int8_unet, prepare_int8_vae)
+from ..parallel import sp, tp
 from ..parallel.mesh import (check_mesh_device, global_mean, group_mean,
                              make_mesh, rank_seed, replicate)
 from ..parallel.multihost import is_main_process
@@ -159,17 +175,49 @@ _EXTERNAL_CONTEXT = ("none", "clip_text", "clip_vision")
 _FRAME_KEYS = ("image", "image_semseg", "semseg", "mask", "inpainting_mask")
 
 
-def refuse_model_axis(p: Mapping, mesh) -> None:
-    """``spatial_parallel`` and ``tensor_parallel`` shard over the mesh's
-    model axis; without one they do nothing, as JAX's ``has_spatial_axis``
-    rules (JAX trainer_ldm.py:202-208, 311-312). With one they are not
-    ported yet (``parallel/sp.py`` and ``tp.py``)."""
-    for key, what in (("spatial_parallel", "spatial parallelism"),
-                      ("tensor_parallel", "tensor parallelism")):
-        if p.get(key, False) and mesh.model > 1:
-            raise NotImplementedError(
-                f"config {key}: {what} over a model axis of {mesh.model} "
-                "ranks is not ported yet")
+def refuse_model_axis(p: Mapping, mesh, unet_config: UNetConfig,
+                      descriptor: DescriptorSpec) -> None:
+    """The options that a model axis of more than one rank does not take in
+    the port yet raise ``NotImplementedError`` naming each of them (JAX
+    computes every one of them on a model axis). Without a model axis
+    nothing is refused."""
+    if mesh.model <= 1:
+        return
+    tk, mk, sk = (p["train_kwargs"], p["model_kwargs"],
+                  p["sampling_kwargs"])
+    refused = []
+    if sk.get("int8_inference", False):
+        refused.append("sampling_kwargs.int8_inference")
+    if (p.get("image_vae_kwargs") or {}).get("use_int8", False):
+        refused.append("image_vae_kwargs.use_int8")
+    if p["vae_model_kwargs"].get("use_int8", False):
+        refused.append("vae_model_kwargs.use_int8")
+    for key in ("use_packed_attention", "use_absorbed_attention",
+                "use_fused_projs"):
+        if getattr(unet_config, key):
+            refused.append(f"unet_config.{key}")
+    if descriptor.use_cross_attention:
+        refused.append(f"train_kwargs.image_descriptors {descriptor.kind!r} "
+                       "(a context, and classifier-free guidance)")
+    for key in ("separate_conv", "separate_encoder"):
+        if mk.get(key, False):
+            refused.append(f"model_kwargs.{key}")
+    if tk.get("temporal_consistency_weight", 0.0) > 0:
+        refused.append("train_kwargs.temporal_consistency_weight (video "
+                       "clips and pose)")
+    if p.get("optimizer_name", "adamw") == "adafactor":
+        refused.append("optimizer_name adafactor")
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)}: not ported over a model axis of "
+            f"{mesh.model} ranks")
+
+
+def _refuse_video(mesh, what: str) -> None:
+    if mesh.model > 1:
+        raise NotImplementedError(f"{what} (video clips and pose): not "
+                                  f"ported over a model axis of "
+                                  f"{mesh.model} ranks")
 
 
 class TrainerDiffusion(PanopticRestore):
@@ -193,8 +241,12 @@ class TrainerDiffusion(PanopticRestore):
                 "torch.cuda.is_available() is False; pass "
                 "device=torch.device('cpu') to run the plain PyTorch path")
         self.mesh = mesh if mesh is not None else make_mesh()
-        refuse_model_axis(p, self.mesh)
         check_mesh_device(self.mesh, device, "TrainerDiffusion")
+        # the model axis (JAX :202-208, :311-312): nothing without one
+        self.tensor_parallel = (bool(p.get("tensor_parallel", False))
+                                and self.mesh.model > 1)
+        self.spatial_parallel = (bool(p.get("spatial_parallel", False))
+                                 and sp.has_spatial_axis(self.mesh))
         self.zero1 = bool(p.get("optimizer_zero_redundancy", False))
         self.device = device
         self.results_folder = results_folder or p.get("checkpoint_dir")
@@ -261,6 +313,7 @@ class TrainerDiffusion(PanopticRestore):
                                               False),
                 remat_policy=tk.get("remat_policy"))
         self.unet_config = unet_config
+        refuse_model_axis(p, self.mesh, unet_config, descriptor)
         # built without storage; init_params / load_jax_params fill them
         # int8 sampling (trainer_ldm.py:157-193): the UNet the JAX trainer
         # builds with the int8 flags (:163-176), beside the float one
@@ -290,6 +343,7 @@ class TrainerDiffusion(PanopticRestore):
         # with the global defaults unnoticed (:meth:`_ensure_int8_ready`)
         self._int8_act_scales: Optional[dict] = None
         self._params_pretrained = False
+        self._said_eager = False
 
         self.sched = make_ddim_schedule(**p["noise_scheduler_kwargs"],
                                         device=device)
@@ -334,6 +388,7 @@ class TrainerDiffusion(PanopticRestore):
     def init_params(self, seed: int = 0) -> None:
         """Seeded random weights for the three models."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._whole_unet()
         for model in (self.vae_img, self.vae_seg, self.unet):
             model.to_empty(device=self.device)
             init_random_(model, gen)
@@ -358,6 +413,7 @@ class TrainerDiffusion(PanopticRestore):
         random weights of :meth:`init_params`. Adopted UNet weights count as
         pretrained for the int8 scale guard."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._whole_unet()
         for model, sd in ((self.vae_img, vae_img), (self.vae_seg, vae_seg),
                           (self.unet, unet)):
             model.to_empty(device=self.device)
@@ -367,6 +423,13 @@ class TrainerDiffusion(PanopticRestore):
                 model.load_state_dict(sd, strict=True)
         self._params_pretrained = unet is not None
         self._frozen_ready()
+
+    def _whole_unet(self) -> None:
+        """A UNet cut into shards by an earlier call is built whole again
+        (without storage) before new weights fill it."""
+        if tp.layout(self.unet):
+            with torch.device("meta"):
+                self.unet = UNet2DCondition(self.unet_config)
 
     def _frozen_ready(self) -> None:
         # the two VAEs are frozen and run entirely in the compute dtype (cast
@@ -379,6 +442,10 @@ class TrainerDiffusion(PanopticRestore):
             model.eval().requires_grad_(False)
             model.to(self.compute_dtype)
             prepare_int8_vae(model)  # no-op for a float VAE
+            if self.spatial_parallel:
+                sp.apply_sp(model)
+        if self.tensor_parallel:
+            tp.apply_tp(self.mesh, self.unet)
         self.unet.eval().requires_grad_(True)
         self._eval_unet = self.unet
         if self.ema_on:  # real copies (TrainState.create's jnp.copy)
@@ -394,10 +461,13 @@ class TrainerDiffusion(PanopticRestore):
                 False)
         self.state = self._make_state()
 
-    def _make_state(self) -> TrainState:
-        """The JAX trainer's optimizer (trainer_ldm.py:219-240): the lr
-        schedule, AdamW with the config's decay values, clipping, and lr
-        factor 0 on ``freeze_layers``."""
+    def make_optimizer(self, named, mesh=None, zero1: bool = False,
+                       sharded: frozenset = frozenset()) -> Optimizer:
+        """The JAX trainer's optimizer (trainer_ldm.py:219-240) over the
+        named parameters ``named``: the lr schedule, AdamW with the
+        config's decay values, clipping, and lr factor 0 on
+        ``freeze_layers``; ``mesh``, ``zero1`` and ``sharded`` as
+        :class:`~.optim.Optimizer` takes them."""
         p, tk = self.p, self.p["train_kwargs"]
         ok, sk = p["optimizer_kwargs"], p["lr_scheduler_kwargs"]
         schedule = make_lr_schedule(
@@ -410,19 +480,31 @@ class TrainerDiffusion(PanopticRestore):
         if frozen:
             flt = freeze_filter(frozen)
             lr_factor = lambda name: 0.0 if flt(name) else 1.0  # noqa: E731
-        optimizer = Optimizer(
-            list(self.unet.named_parameters()),
-            p.get("optimizer_name", "adamw"), learning_rate=schedule,
+        return Optimizer(
+            named, p.get("optimizer_name", "adamw"), learning_rate=schedule,
             betas=tuple(ok.get("betas", (0.9, 0.999))),
             weight_decay=ok.get("weight_decay", 0.0),
             weight_decay_norm=ok.get("weight_decay_norm"),
             clip_grad=tk.get("clip_grad", 0.0), lr_factor_fn=lr_factor,
-            mesh=self.mesh, zero1=self.zero1)
+            mesh=mesh, zero1=zero1, sharded=sharded)
+
+    def _make_state(self) -> TrainState:
+        """The training state over the UNet's masters: the optimizer of
+        :meth:`make_optimizer` (ZeRO-1 and the model axis's shards on the
+        mesh), accumulation, the EMA."""
+        tk = self.p["train_kwargs"]
+        lay = tp.layout(self.unet)
+        optimizer = self.make_optimizer(
+            list(self.unet.named_parameters()), mesh=self.mesh,
+            zero1=self.zero1, sharded=frozenset(lay))
         return TrainState(
             optimizer, accumulate=tk.get("accumulate", 1),
             ema_params=(list(self._eval_unet.parameters()) if self.ema_on
                         else None), ema_decay=self.ema_decay,
-            group=self.mesh.data_group)
+            group=self.mesh.data_group,
+            model_group=self.mesh.model_group if lay else None,
+            replicated=[q for n, q in self.unet.named_parameters()
+                        if lay and n not in lay])
 
     def _require_params(self) -> None:
         if self._unet_infer is None:
@@ -532,7 +614,9 @@ class TrainerDiffusion(PanopticRestore):
         model keeps its weights. The weights are rounded to the compute
         dtype and kept in fp32: the JAX trainer casts the frozen pose
         params to the compute dtype and Flax promotes them by the fp32
-        frames, so its pose net computes in fp32 on bf16-rounded weights."""
+        frames, so its pose net computes in fp32 on bf16-rounded weights.
+        Not over a model axis."""
+        _refuse_video(self.mesh, "attach_pose")
         if any(p.is_meta for p in pose_model.parameters()):
             if state_dict is None:
                 raise ValueError("attach_pose: the pose model's parameters "
@@ -619,11 +703,49 @@ class TrainerDiffusion(PanopticRestore):
         rgb = 2.0 * (x * std + mean).clamp(0.0, 1.0).to(
             self.compute_dtype) - 1.0
         rgb = rgb.permute(0, 3, 1, 2).contiguous()
-        post = self.vae_img.encode(rgb)
+        if self.spatial_parallel:
+            # the moments gathered before the posterior's draw (JAX
+            # :418-427)
+            vae = self.vae_img
+            post = DiagonalGaussian.from_moments(sp.run_stage(
+                lambda x: vae.quant_conv(vae.encoder(x)), rgb, self.mesh,
+                2 ** (len(vae.block_out_channels) - 1)))
+        else:
+            post = self.vae_img.encode(rgb)
         if sample is None:
             sample = self.sample_posterior_rgb
         lat = post.sample(generator, noise) if sample else post.mode()
         return lat.float() * self.img_scale
+
+    def _seg_encode(self, bits: torch.Tensor):
+        """The seg VAE's posterior on NCHW bits; under
+        ``spatial_parallel`` each model rank encodes its rows and the
+        moments are gathered before the posterior (JAX :380-406)."""
+        vae = self.vae_seg
+        if not self.spatial_parallel:
+            return vae.encode(bits)
+        return vae.make_posterior(sp.run_stage(
+            vae.encoder, bits, self.mesh, vae.downsample_factor))
+
+    def _seg_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """The seg VAE's decode to full-resolution logits; under
+        ``spatial_parallel`` each model rank decodes its rows of the latent
+        and the logits are gathered (JAX :888-892)."""
+        if not self.spatial_parallel:
+            return self.vae_seg.decode(z, True)
+        return sp.run_stage(lambda x: self.vae_seg.decode(x, True), z,
+                            self.mesh)
+
+    def _graph(self, graph: Optional[bool]) -> Optional[bool]:
+        """The sampler's ``graph`` flag: on a model axis the eager loop, as a
+        CUDA graph cannot capture gloo's host-staged collectives."""
+        if self.mesh.model > 1 and graph is not False:
+            if self.device.type == "cuda" and not self._said_eager:
+                self._said_eager = True
+                print(f"sample_panoptic: the eager loop over a model axis of "
+                      f"{self.mesh.model} ranks (no CUDA graph)", flush=True)
+            return False
+        return graph
 
     def _unet_apply(self, unet: Callable, latents: torch.Tensor,
                     rgb_latents: torch.Tensor,
@@ -761,7 +883,7 @@ class TrainerDiffusion(PanopticRestore):
         under ``sample_posterior``) and their mean, x ``seg_scale`` in fp32;
         RGB -> scaled RGB latents; the loss mask. All NCHW."""
         bits = self._nchw(batch["image_semseg"])
-        post = self.vae_seg.encode((2.0 * bits - 1.0).to(self.compute_dtype))
+        post = self._seg_encode((2.0 * bits - 1.0).to(self.compute_dtype))
         latents_mean = (post.mode() * self.seg_scale).float()
         latents = latents_mean
         if self.sample_posterior:
@@ -872,11 +994,13 @@ class TrainerDiffusion(PanopticRestore):
         temporal-consistency term (:meth:`_consistency`), reported as
         ``metrics['consistency']`` (0 otherwise). Returns ``(loss, metrics,
         pred_x0)``, ``pred_x0`` NHWC."""
-        self._require_params()
-        dev = self.device
         clip_image, clip_shape = batch["image"], None
         if getattr(clip_image, "ndim", 4) == 5:
+            _refuse_video(self.mesh, "a clip batch")
             clip_shape = tuple(clip_image.shape[:2])
+        self._require_params()
+        dev = self.device
+        if clip_shape is not None:
             batch = dict(batch, **{
                 k: batch[k].reshape((-1,) + tuple(batch[k].shape[2:]))
                 for k in _FRAME_KEYS if k in batch},
@@ -1187,29 +1311,91 @@ class TrainerDiffusion(PanopticRestore):
         under ``results_folder`` as ``tag`` or ``step_N``, then the newest 3
         ``step_*`` are kept. Returns the path. Under data parallelism every
         rank calls it (ZeRO-1 gathers the optimizer state onto the main
-        process) and the main process writes."""
+        process) and the main process writes. Under tensor parallelism the
+        first data rank's model ranks gather their shards of the masters,
+        the EMA and the optimizer state onto the main process: the
+        checkpoint is the one-rank layout."""
         self._require_params()
         name = tag or f"step_{step or self.state.step}"
         path = os.path.join(self._folder(), name)
         opt = self.state.optimizer
-        # collective under ZeRO-1; otherwise only the writer copies it
-        opt_state = (opt.state_dict() if opt.owner is not None
-                     or is_main_process() else None)
-        if not is_main_process():
+        lay = tp.layout(self.unet)
+        writers = self.mesh.data_rank == 0 if lay else is_main_process()
+        # collective under ZeRO-1; otherwise only the writers copy it
+        opt_state = (opt.state_dict() if opt.owner is not None or writers
+                     else None)
+        if not writers:
             return path
+        main = is_main_process()
         named = list(self.unet.named_parameters())
-        payload = {"params": {n: p.detach().cpu() for n, p in named},
+        names = [n for n, _ in named]
+        params = tp.full_tensors(self.mesh, named, lay, main)
+        ema = None
+        if self.state.ema_params is not None:
+            ema = tp.full_tensors(self.mesh, list(zip(
+                names, self.state.ema_params)), lay, main)
+        if lay:
+            opt_state = self._whole_opt_state(opt_state, main)
+        if not main:
+            return path
+        payload = {"params": dict(zip(names, params)),
                    "opt_state": opt_state,
                    "step": int(self.state.step),
                    "best_pq": float(self.best_pq)}
-        if self.state.ema_params is not None:
-            payload["ema_params"] = {
-                n: e.detach().cpu()
-                for (n, _), e in zip(named, self.state.ema_params)}
+        if ema is not None:
+            payload["ema_params"] = dict(zip(names, ema))
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
         self._rotate_checkpoints()
         return path
+
+    def _grouped_names(self) -> List[str]:
+        """The UNet's parameter names in the optimizer's grouped order (the
+        index of its state)."""
+        name = {id(q): n for n, q in self.unet.named_parameters()}
+        return [name[id(q)] for q in self.state.optimizer.grouped]
+
+    def _opt_tensors(self, opt_state: dict):
+        """``(name, state, key)`` of each of the optimizer state's tensors
+        that mirror a sharded parameter (AdamW's moments)."""
+        lay = tp.layout(self.unet)
+        names = self._grouped_names()
+        return [(names[i], st, k) for i, st in sorted(
+            opt_state["torch"]["state"].items())
+            for k, v in st.items() if names[i] in lay
+            and isinstance(v, torch.Tensor) and v.dim() > 0]
+
+    def _whole_opt_state(self, opt_state: dict, keep: bool):
+        """Tensor parallelism: the model ranks' shards of the optimizer
+        state (each a one-rank state dict over its shards) gathered into
+        the one-rank state dict on ``keep``'s rank (collective over the
+        model group)."""
+        items = self._opt_tensors(opt_state)
+        whole = tp.full_tensors(
+            self.mesh, [(n, st[k].to(self.device)) for n, st, k in items],
+            tp.layout(self.unet), keep)
+        if keep:
+            for (_, st, k), t in zip(items, whole):
+                st[k] = t
+        return opt_state
+
+    def _local_checkpoint(self, data: dict) -> dict:
+        """Tensor parallelism: a one-rank checkpoint cut to this model
+        rank's shards (the masters, the EMA, the optimizer's moments)."""
+        lay = tp.layout(self.unet)
+        ax = sp.model_axis(self.mesh)
+
+        def cut(n, t):
+            d, pairs = lay[n]
+            return tp.local_tensor(t, d, ax, pairs)
+        for key in ("params", "ema_params"):
+            if key in data:
+                data[key] = {n: cut(n, t) if n in lay else t
+                             for n, t in data[key].items()}
+        if data.get("opt_state") and "torch" in data["opt_state"]:
+            for n, st, k in self._opt_tensors(data["opt_state"]):
+                st[k] = cut(n, st[k])
+        return data
 
     def _rotate_checkpoints(self, keep: int = 3) -> None:
         """Keep the newest ``keep`` step checkpoints; tagged ones, such as
@@ -1224,7 +1410,8 @@ class TrainerDiffusion(PanopticRestore):
         and optimizer state, never a second copy on the device. A
         checkpoint without ``best_pq`` or ``ema_params`` keeps the current
         ones. Resumed weights count as pretrained for the int8 scale
-        guard."""
+        guard. Under tensor parallelism each model rank takes its shards of
+        the one-rank checkpoint."""
         self._require_params()
         if path is None:
             found = self._step_checkpoints()
@@ -1234,6 +1421,9 @@ class TrainerDiffusion(PanopticRestore):
                 return None
             path = found[-1]
         data = torch.load(path, map_location="cpu", weights_only=True)
+        if tp.layout(self.unet):
+            # this model rank's shards of the one-rank layout
+            data = self._local_checkpoint(data)
         named = dict(self.unet.named_parameters())
         if set(named) != set(data["params"]):
             raise ValueError(f"checkpoint {path} holds another UNet: "
@@ -1260,17 +1450,32 @@ class TrainerDiffusion(PanopticRestore):
         """Write the current model as the reference's torch stage-2 save
         dict ``{step, epoch, vae_image, vae_semseg, unet, ema?}``
         (:func:`~..models.torch_export.export_reference_ldm`), the EMA only
-        with ``use_ema`` and ``ema_on``."""
+        with ``use_ema`` and ``ema_on``. Under tensor parallelism every
+        model rank calls it and the main process writes the gathered
+        UNet."""
         from ..models.torch_export import export_reference_ldm
         self._require_params()
         vk = self.p["vae_model_kwargs"]
+        lay, main = tp.layout(self.unet), is_main_process()
+
+        def whole(module):
+            # under tensor parallelism every model rank gathers with the
+            # main process, which writes
+            if not lay:
+                return module.state_dict()
+            named = list(module.named_parameters())
+            return dict(zip([n for n, _ in named],
+                            tp.full_tensors(self.mesh, named, lay, main)
+                            or []))
+        unet = whole(self.unet)
+        ema = whole(self._eval_unet) if use_ema and self.ema_on else None
+        if lay and not main:
+            return path
         export_reference_ldm(
-            path, self.unet.state_dict(), self.vae_img.state_dict(),
+            path, unet, self.vae_img.state_dict(),
             self.vae_seg.state_dict(), self.unet_config,
             block_out_channels=tuple(vk["block_out_channels"]),
-            num_upscalers=vk.get("num_upscalers", 1),
-            ema=(self._eval_unet.state_dict()
-                 if use_ema and self.ema_on else None),
+            num_upscalers=vk.get("num_upscalers", 1), ema=ema,
             step=int(self.state.step))
         return path
 
@@ -1306,9 +1511,10 @@ class TrainerDiffusion(PanopticRestore):
                      else ddim_sample)
         x0 = sample_fn(self.sched, model_fn, init,
                        num_inference_steps=num_inference_steps,
-                       self_condition=self.self_condition, graph=graph)
+                       self_condition=self.self_condition,
+                       graph=self._graph(graph))
         z = (x0 * (1.0 / self.seg_scale)).to(self.compute_dtype)
-        logits = self.vae_seg.decode(z, True).float()
+        logits = self._seg_decode(z).float()
         return logits, x0
 
     def sample_panoptic(self, batch: Mapping,
@@ -1400,7 +1606,9 @@ class TrainerDiffusion(PanopticRestore):
         ``text_tokens`` and ``context`` may be given per clip (repeated
         over its frames) or per frame.
         int8 with ``int8_inference``. On the card both passes replay CUDA
-        graphs, each captured afresh, unless ``graph`` is False."""
+        graphs, each captured afresh, unless ``graph`` is False. Not over
+        a model axis."""
+        _refuse_video(self.mesh, "sample_panoptic_clip")
         self._require_params()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(

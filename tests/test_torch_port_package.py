@@ -157,11 +157,15 @@ NOW_PORTED = {
                        and t.guidance_scale == 7.5),
     # data parallelism (test_torch_port_parallel, test_torch_port_dp_train):
     # ZeRO-1 is honoured; TP and SP act as JAX's on a mesh without a model
-    # axis (none here), and are refused with one (test_torch_port_parallel::
-    # test_model_axis_options_refused_with_a_model_axis)
+    # axis (none here: no effect), and take effect with one
+    # (test_torch_port_parallel::
+    # test_model_axis_options_refused_with_a_model_axis, test_torch_port_tp,
+    # test_torch_port_sp, test_torch_port_model_axis_train)
     "ZeRO": lambda t: t.zero1 and t.mesh.shape == {"data": 1, "model": 1},
-    "tensor parallel": lambda t: t.mesh.model == 1,
-    "spatial parallel": lambda t: t.mesh.model == 1,
+    "tensor parallel": lambda t: (t.mesh.model == 1
+                                  and not t.tensor_parallel),
+    "spatial parallel": lambda t: (t.mesh.model == 1
+                                   and not t.spatial_parallel),
 }
 
 
@@ -195,6 +199,58 @@ def test_trainer_names_what_is_not_ported(override, named):
         return
     with pytest.raises((NotImplementedError, ValueError), match=named):
         TrainerDiffusion(cfg, device=torch.device("cpu"))
+
+
+# what a model axis of more than one rank does not take yet (ROADMAP queue
+# 1), one case each: (config override, unet_config fields, name raised)
+MODEL_AXIS_REFUSED = [
+    ({"sampling_kwargs": {"int8_inference": True}}, {}, "int8_inference"),
+    ({"image_vae_kwargs": {"use_int8": True}}, {},
+     "image_vae_kwargs.use_int8"),
+    ({"vae_model_kwargs": {"use_int8": True}}, {},
+     "vae_model_kwargs.use_int8"),
+    ({}, {"use_packed_attention": True}, "use_packed_attention"),
+    ({}, {"use_absorbed_attention": True}, "use_absorbed_attention"),
+    ({}, {"use_fused_projs": True}, "use_fused_projs"),
+    ({"train_kwargs": {"image_descriptors": "none"}}, {},
+     "image_descriptors 'none'"),
+    ({"train_kwargs": {"image_descriptors": "learnable"}}, {},
+     "image_descriptors 'learnable'"),
+    ({"model_kwargs": {"separate_conv": True}}, {}, "separate_conv"),
+    ({"model_kwargs": {"separate_encoder": True}}, {}, "separate_encoder"),
+    ({"train_kwargs": {"temporal_consistency_weight": 0.1}}, {},
+     "temporal_consistency_weight"),
+    ({"optimizer_name": "adafactor"}, {}, "adafactor"),
+]
+
+
+@pytest.mark.parametrize("override,unet_kw,named", MODEL_AXIS_REFUSED,
+                         ids=[c[2].split()[0] for c in MODEL_AXIS_REFUSED])
+def test_model_axis_refuses_by_name(override, unet_kw, named):
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.parallel.mesh import Mesh
+    cfg = merge_dicts(DEFAULT_CONFIG, dict(override, tensor_parallel=True,
+                                           spatial_parallel=True))
+    unet_config = UNetConfig(in_channels=12, **unet_kw) if unet_kw else None
+    with pytest.raises(NotImplementedError, match=named):
+        TrainerDiffusion(cfg, unet_config=unet_config, device="cpu",
+                         mesh=Mesh(model=2))
+    # without a model axis the option is taken as before
+    TrainerDiffusion(cfg, unet_config=unet_config, device="cpu")
+
+
+@pytest.mark.parametrize("call", ["attach_pose", "sample_panoptic_clip",
+                                  "a clip batch"])
+def test_model_axis_refuses_video_at_the_call(call):
+    from ldmseg_torch.parallel.mesh import Mesh
+    trainer = TrainerDiffusion(DEFAULT_CONFIG, device="cpu",
+                               mesh=Mesh(model=2))
+    clip = {"image": torch.zeros(1, 2, 32, 32, 3)}
+    run = {"attach_pose": lambda: trainer.attach_pose(None),
+           "sample_panoptic_clip": lambda: trainer.sample_panoptic_clip(clip),
+           "a clip batch": lambda: trainer.forward_backward(clip)}[call]
+    with pytest.raises(NotImplementedError, match=f"{call}.*video clips"):
+        run()
 
 
 # the conditioning slice's modules, one case each

@@ -15,8 +15,11 @@ the CPU:
     whole batch, and Adafactor under ZeRO-1 bit-equal to one process;
   * a rank that raises fails ``run_ranks`` with its traceback, one that
     outlives the deadline is killed, and none is left running;
-  * ``spatial_parallel``/``tensor_parallel`` refused with a model axis;
-  * ``entry.dryrun_multichip(2, "cpu")``: stages A and D;
+  * ``spatial_parallel``/``tensor_parallel`` take effect with a model axis
+    (and none without one);
+  * ``entry.dryrun_multichip(2, "cpu")``: stages A and D (B and C need 4
+    ranks); ``rank_seed`` keys on the data rank, so the model ranks of one
+    data index draw alike;
   * the slice's modules, and the ranks' helper, import no JAX.
 """
 
@@ -56,6 +59,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 # the data-parallel slice's modules, one case each
 PARALLEL_MODULES = ["parallel", "parallel.mesh", "parallel.multihost",
+                    "parallel.tp", "parallel.sp",
                     "parallel.launch", "entry", "train.optim", "train.state",
                     "train.trainer_ae", "train.trainer_pose",
                     "losses.point_losses", "losses.pose_consistency",
@@ -372,11 +376,37 @@ def test_one_rank_state_dict_is_torchs_own_layout(name):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("key", ["spatial_parallel", "tensor_parallel"])
 def test_model_axis_options_refused_with_a_model_axis(key):
-    cfg = merge_dicts(DEFAULT_CONFIG, {key: True})
-    with pytest.raises(NotImplementedError, match=f"{key}.*model axis of 2"):
-        TrainerDiffusion(cfg, device="cpu", mesh=M.Mesh(model=2))
+    # no longer refused: with a model axis of 2 each takes effect (a mesh
+    # without a group: the cut and the class swaps need no collective)
+    from ldmseg_torch.entry import DRYRUN_UNET, _dryrun_config
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.parallel import sp, tp
+    cfg = merge_dicts(_dryrun_config(1, "cpu"), {key: True})
+    unet_config = UNetConfig(in_channels=12, **DRYRUN_UNET)
+    trainer = TrainerDiffusion(cfg, unet_config=unet_config, device="cpu",
+                               mesh=M.Mesh(model=2))
+    trainer.init_params(seed=0)
+    assert getattr(trainer, key)
+    halos = [isinstance(m, sp.SpatialConv2d)
+             for v in (trainer.vae_img, trainer.vae_seg)
+             for m in v.modules() if isinstance(m, torch.nn.Conv2d)]
+    lay = tp.layout(trainer.unet)
+    if key == "tensor_parallel":
+        assert lay and not any(halos)
+        assert set(trainer.state.optimizer.sharded) == {True, False}
+    else:
+        assert not lay and halos and all(halos)
     # no model axis: JAX's has_spatial_axis rule, no effect
-    assert TrainerDiffusion(cfg, device="cpu").mesh.model == 1
+    one = TrainerDiffusion(cfg, unet_config=unet_config, device="cpu")
+    assert one.mesh.model == 1 and not getattr(one, key)
+
+
+def test_rank_seed_keys_on_the_data_rank():
+    # the model ranks of one data index share their draws
+    seeds = {(d, m): M.rank_seed(0, M.Mesh(2, 2, d, m)) for d in range(2)
+             for m in range(2)}
+    assert seeds[(0, 0)] == seeds[(0, 1)] != seeds[(1, 0)] == seeds[(1, 1)]
+    assert M.rank_seed(5, M.Mesh(1, 2, 0, 1)) == 5
 
 
 def test_dryrun_multichip_stages_a_and_d_on_two_cpu_ranks(capsys):
@@ -384,7 +414,7 @@ def test_dryrun_multichip_stages_a_and_d_on_two_cpu_ranks(capsys):
     ranks = dryrun_multichip(2, "cpu", timeout_s=240)
     text = capsys.readouterr().out
     assert "A: DP train step" in text and "D: pose-consistent" in text
-    assert "B, C: not run" in text
+    assert "B, C: need 4 ranks" in text
     for out in ranks:
         assert len(out["A"]["losses"]) == 2  # accumulate 2: one step
         assert out["A"]["logits"] == (2, 32, 64, 24)  # 2 frames a rank
@@ -392,3 +422,21 @@ def test_dryrun_multichip_stages_a_and_d_on_two_cpu_ranks(capsys):
     # ZeRO-1: the two ranks hold about half the state each
     a, b = (r["A"]["state_bytes"] for r in ranks)
     assert 0.45 < a / (a + b) < 0.55
+
+
+def test_dryrun_multichip_stages_b_and_c_on_four_cpu_ranks(capsys):
+    # a (2, 2) mesh: B holds the TP UNet to the replicated one (JAX's
+    # 1e-2; fp32 on the CPU agrees far closer), C takes a TP + ZeRO-1 + SP
+    # step with each rank holding about a quarter of the optimizer state
+    from ldmseg_torch.entry import dryrun_multichip
+    ranks = dryrun_multichip(4, "cpu", timeout_s=240)
+    text = capsys.readouterr().out
+    assert "B: (data=2, model=2)" in text and "C: TP+ZeRO-1+SP" in text
+    total = sum(r["C"]["state_bytes"] for r in ranks)
+    for out in ranks:
+        b = out["B"]
+        assert max(b["fwd_err"], b["grad_err"]) < 1e-4
+        assert 0.5 < b["param_share"] < 0.55
+        assert np.isfinite(out["C"]["loss"]) and out["C"]["sp_stages"] == 2
+        assert 0.2 < out["C"]["state_bytes"] / total < 0.3
+        assert len(out["A"]["losses"]) == 2 and out["D"]["consistency"] > 0

@@ -276,3 +276,179 @@ def hang_on(rank: int, which: int) -> int:
     if rank == which:
         time.sleep(600)
     return rank
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor and spatial parallelism
+# ---------------------------------------------------------------------------
+def tp_unet(rank: int, cases: list) -> list:
+    """For each case ``{"unet_kw", "sd", "x", "t"}`` on a ``(1, 2)`` mesh:
+    the whole UNet of ``sd`` cut by ``apply_tp``, its forward on ``x``
+    (NCHW) and the gradients of ``mean(out ** 2)``: the output, the loss,
+    this rank's gradient shards and the layout."""
+    from ldmseg_torch.models.unet import UNet2DCondition, UNetConfig
+    from ldmseg_torch.parallel import tp
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2)
+    out = []
+    for case in cases:
+        with torch.device("meta"):
+            unet = UNet2DCondition(UNetConfig(**case["unet_kw"]))
+        unet.to_empty(device="cpu")
+        unet.load_state_dict(case["sd"], strict=True)
+        tp.apply_tp(mesh, unet)
+        y = unet(torch.from_numpy(case["x"]), torch.from_numpy(case["t"]))
+        loss = (y ** 2).mean()
+        loss.backward()
+        out.append({"out": y.detach(), "loss": loss.item(),
+                    "grads": {n: p.grad for n, p in unet.named_parameters()},
+                    "layout": tp.layout(unet),
+                    "attn_tp": [isinstance(m.to_q, tp.ColumnLinear)
+                                and isinstance(m.to_out[0], tp.RowLinear)
+                                for m in unet.modules()
+                                if hasattr(m, "to_q")]})
+    return out
+
+
+def _sp_module(kind: str, sd: dict):
+    """The port module of an SP case, its weights from ``sd``."""
+    from torch import nn
+
+    from ldmseg_torch.models import image_vae, layers, seg_vae
+    from ldmseg_torch.parallel import sp
+    kinds = {
+        "conv_s2": lambda: nn.Conv2d(8, 8, 3, stride=2, padding=1),
+        "down_pad": lambda: image_vae._Downsample(8),
+        "nearest_conv": lambda: image_vae._Upsample(8),
+        "bilinear_2": lambda: seg_vae.SegVAE(**sd["kw"]),
+        "bilinear_4": lambda: seg_vae.SegVAE(**sd["kw"]),
+        "resize": lambda: seg_vae.Resize(8),
+        "group_norm": lambda: layers.GroupNorm(4, 8, 1e-6),
+        "seg_encode": lambda: seg_vae.SegVAE(**sd["kw"]),
+        "seg_decode": lambda: seg_vae.SegVAE(**sd["kw"]),
+        "image_encode": lambda: image_vae.ImageVAE(**sd["kw"]),
+        "replicated": lambda: seg_vae.SegVAE(**sd["kw"]),
+    }
+    m = kinds[kind]()
+    if sd.get("state"):
+        m.load_state_dict(sd["state"], strict=True)
+    m = sp.apply_sp(m.to(sd.get("dtype", torch.float32)))
+    if kind.startswith("bilinear"):
+        return m.upsample, 1
+    if kind in ("seg_encode", "replicated"):
+        return m.encoder, m.downsample_factor
+    if kind == "seg_decode":
+        return (lambda z: m.decode(z, True)), 1
+    if kind == "image_encode":
+        return (lambda x: m.quant_conv(m.encoder(x))), 8
+    if kind == "resize":
+        return m, 8
+    return m, (2 if kind in ("conv_s2", "down_pad") else 1)
+
+
+def sp_layers(rank: int, cases: list) -> list:
+    """For each case ``(kind, sd, x)`` on a ``(1, 2)`` mesh: the port's
+    layer or VAE stage run by ``sp.run_stage`` on this rank's rows of
+    ``x`` (NCHW), the output gathered; with the stage's sharded and
+    replicated counts."""
+    from ldmseg_torch.parallel import sp
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2)
+    out = []
+    for kind, sd, x in cases:
+        fn, stride = _sp_module(kind, sd)
+        before = (sp.run_stage.sharded, sp.run_stage.replicated)
+        x = torch.from_numpy(x).to(sd.get("dtype", torch.float32))
+        with torch.no_grad():
+            y = sp.run_stage(fn, x, mesh, stride)
+        out.append({"out": y.float(),
+                    "sharded": sp.run_stage.sharded - before[0],
+                    "replicated": sp.run_stage.replicated - before[1]})
+    return out
+
+
+def model_axis_stage2(rank: int, spec: dict) -> dict:
+    """On a ``(2, 2)`` mesh: one ``TrainerDiffusion`` step with
+    ``tensor_parallel``, ``spatial_parallel`` and ZeRO-1 on this data
+    rank's rows and draws (the loss, this rank's gradient shards before the
+    clip, its masters after, the optimizer state's bytes, a checkpoint and
+    whether a fresh trainer on the mesh resumes it bit-equal);
+    one step of ``acc_cfg`` (accumulation, EMA) over ``acc_micro`` (the
+    gradients, masters and EMA shards); then a bf16 trainer's
+    ``sample_panoptic`` on the same weights with the given initial noise
+    (logits and x0)."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.mesh import group_mean
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(2, 2)
+    trainer = tl.TrainerDiffusion(
+        spec["cfg"], unet_config=UNetConfig(**spec["unet_kw"]),
+        device="cpu", results_folder=spec["folder"], mesh=mesh)
+    trainer.load_jax_params(*spec["params"])
+    steps: list = []
+    _capture_steps(trainer.state.optimizer, steps)
+    batch, draws = spec["micro"]
+    loss, _, _ = trainer.forward_backward(
+        shard_batch(mesh, batch), noise=_rows(draws["noise"], mesh),
+        timesteps=_rows(draws["timesteps"], mesh))
+    trainer.state.apply_gradients()
+    saved = trainer.save(tag="tp_checkpoint")
+    named = list(trainer.unet.named_parameters())
+    # the one-rank checkpoint resumed onto the mesh: this rank's shards
+    import torch.distributed as dist
+    dist.barrier()  # the main process has written it
+    again = tl.TrainerDiffusion(
+        spec["cfg"], unet_config=UNetConfig(**spec["unet_kw"]),
+        device="cpu", mesh=mesh)
+    again.load_jax_params(*spec["params"])
+    again.resume(saved)
+    opt, opt2 = (t.state.optimizer.torch_opt for t in (trainer, again))
+    resumed = (again.state.step == trainer.state.step and all(
+        torch.equal(p, q) for (_, p), q in zip(
+            named, again.unet.parameters())) and all(
+        torch.equal(v, opt2.state[q][k])
+        for p, q in zip(trainer.unet.parameters(), again.unet.parameters())
+        for k, v in opt.state.get(p, {}).items()))
+    del again
+    out = {"loss": float(group_mean(loss, mesh)),
+           "grads": _named(named, steps)[0],
+           "masters": {n: p.detach().clone() for n, p in named},
+           "layout": tp.layout(trainer.unet),
+           "state_bytes": trainer.state.optimizer.state_bytes(),
+           "saved": saved, "resumed": resumed,
+           "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank}
+    del trainer
+    # accumulation and EMA on the mesh: two micro-batches, one step
+    acc = tl.TrainerDiffusion(
+        spec["acc_cfg"], unet_config=UNetConfig(**spec["unet_kw"]),
+        device="cpu", mesh=mesh)
+    acc.load_jax_params(*spec["params"])
+    acc_steps: list = []
+    _capture_steps(acc.state.optimizer, acc_steps)
+    for batch, draws in spec["acc_micro"]:
+        acc.forward_backward(shard_batch(mesh, batch),
+                             noise=_rows(draws["noise"], mesh),
+                             timesteps=_rows(draws["timesteps"], mesh))
+        acc.state.apply_gradients()
+    named = list(acc.unet.named_parameters())
+    out["acc"] = {"step": acc.state.step,
+                  "grads": _named(named, acc_steps)[0],
+                  "masters": {n: p.detach().clone() for n, p in named},
+                  "ema": {n: e.detach().clone() for (n, _), e in
+                          zip(named, acc.state.ema_params)}}
+    del acc
+    sampler = tl.TrainerDiffusion(
+        spec["sample_cfg"], unet_config=UNetConfig(**spec["unet_kw"]),
+        device="cpu", mesh=mesh)
+    sampler.load_jax_params(*spec["params"])
+    logits, x0 = sampler.sample_panoptic(
+        shard_batch(mesh, spec["sample_batch"]),
+        init_noise=_rows(spec["init"], mesh), num_inference_steps=2)
+    out.update(logits=logits, x0=x0)
+    return out
