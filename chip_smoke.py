@@ -14,8 +14,9 @@ Phases, one line each:
      event-timed and its device time);
   3. the full-width SD-1.4 UNet forward on K1 against the same module on the
      plain attention;
-  4. ``TrainerDiffusion.sample_panoptic`` end to end at full width (50 DDIM
-     steps, batch 2 of 256x512 frames) and ``panoptic_post_process``, with
+  4. ``TrainerDiffusion.sample_panoptic`` end to end at full width
+     (``SAMPLE_STEPS``, 20 DDIM steps, the default's 50 cut for the time
+     limit, as every sampling phase's below; batch 2 of 256x512 frames) and ``panoptic_post_process``, with
      K1's and K2's launch counts over that run; like every sampling phase
      below (9, 12, 13, 16, 18, 21, 23, 26, 28, 31, 33, 34, 35, 43, 44, 46,
      47) its steps
@@ -49,7 +50,7 @@ Phases, one line each:
      relative error and correlation, ms per forward and the s8 convs' share;
   9. ``sample_panoptic`` with ``int8_inference`` as in phase 4: twice with
      the default scales (dynamic interior), then ``calibrate_int8`` and
-     twice with the calibrated scales (static interior); 800 K3 and 800 K4,
+     twice with the calibrated scales (static interior); 320 K3 and 320 K4,
      0 K1 and no fallback per call; each mode's graph held bit for bit to
      the eager loop (and profiled), the calibrated x0 different from the
      default one (no stale graph);
@@ -64,10 +65,10 @@ Phases, one line each:
      K3 and K4 launches, no fallback, correlation, ms per forward;
   12. ``sample_panoptic`` with ``fused_norms: False``, variant (a) (K13 +
      K12) and (b) (``fused_ff: False``: K13 + s8 linears), each with the
-     default scales and after ``calibrate_int8``: 800 K13 per call, 800 K12
+     default scales and after ``calibrate_int8``: 320 K13 per call, 320 K12
      in (a) and 0 in (b), 0 K1/K3/K4, no fallback;
   13. one call of (c) (``fused_ff: False`` with fused norms: K3 + s8
-     linears): 800 K3, 0 K4, K12 and K13;
+     linears): 320 K3, 0 K4, K12 and K13;
   14. the GroupNorm + SiLU family on the UNet built with
      ``UNetConfig(use_pallas_gn=True, int8_fuse_gn=True)`` (its resnet norm
      scales and shifts and conv biases drawn too): the input of each of the
@@ -86,14 +87,14 @@ Phases, one line each:
      two shapes its repair added (Cin 36 in 4 groups; 320 channels at
      64x64 in one group), against its plain version, bit-equal repeats;
   15. that UNet's forward on K5 against the plain GN: 44 K5 launches;
-  16. ``sample_panoptic`` on it as phase 4: 2,200 K5 and 800 K1 per call;
+  16. ``sample_panoptic`` on it as phase 4: 880 K5 and 320 K1 per call;
   17. ``train_loop`` on it (2 warm-up, 3 timed steps): 88 K5, 32 K1, 16 K2
      per step; one step's loss and gradients against the plain GN, a
      gradient on every resnet norm;
   18. its int8 UNet (``int8_fuse_gn``: K6 feeding the s8 convs) against the
      bf16 one (44 K6, 16 K3, 16 K4 per forward), and int8
-     ``sample_panoptic`` with default and calibrated scales: 2,200 K6, 800
-     K3, 800 K4, 0 K5, no fallback per call;
+     ``sample_panoptic`` with default and calibrated scales: 880 K6, 320
+     K3, 320 K4, 0 K5, no fallback per call;
   19. the padded-attention flags on the int8 trainer built with
      ``UNetConfig(use_fused_projs=True)`` (the Transformer2D proj biases and
      the blocks' LayerNorm rows and ``to_out`` biases drawn too): K8 and K9
@@ -112,11 +113,11 @@ Phases, one line each:
      0 K1, K3 and K4, no fallback, correlation, ms per forward beside phase
      8's int8 UNet;
   21. ``sample_panoptic`` on it with the default and the calibrated scales:
-     800 K8 and 800 K9 per call, every other kernel 0;
+     320 K8 and 320 K9 per call, every other kernel 0;
   22. F1 at full width: the UNet with variant B's flags
      (``tools/perf/acc_check.py:62-67``) runs 16 K13 and 16 K4, 0 K3;
   23. the K11 UNet against the bf16 one (16 K11, 16 K12, 0 K3 and K13),
-     and the port's 50-step ``ddim_sample`` on it: 800 K11 and 800 K12;
+     and the port's 20-step ``ddim_sample`` on it: 320 K11 and 320 K12;
   24. ``use_packed_attention``'s kernels and K10: K14 (bf16 and fp32) at
      the four shapes of the sampling forward and the three of the training
      forward, its backward (K2 on the head views) at the training shapes,
@@ -133,12 +134,12 @@ Phases, one line each:
   25. the full-width bf16 UNet built with
      ``UNetConfig(use_packed_attention=True)`` against the same module on
      K1: 16 K14, 0 K1, no fallback;
-  26. ``sample_panoptic`` on it as phase 4: 800 K14 per call, 0 K1;
+  26. ``sample_panoptic`` on it as phase 4: 320 K14 per call, 0 K1;
   27. ``train_loop`` on it (2 warm-up, 3 timed steps): 30 K14, 2 fallbacks
      (T = 30) and 15 K2 per step, 0 K1; one step's loss and gradients
      against the plain attention;
   28. int8 ``sample_panoptic`` with ``fused_norms: False`` on it, default
-     and calibrated scales: 800 K15 and 800 K12 per call, 0 K1/K3/K4/K13,
+     and calibrated scales: 320 K15 and 320 K12 per call, 0 K1/K3/K4/K13,
      no fallback; its UNet forward (16 K15, 16 K12) against the bf16 one;
   29. ``use_absorbed_attention``'s kernels and K18: K16 (bf16 and fp32) at
      the four shapes of the sampling forward and the three of the training
@@ -157,12 +158,12 @@ Phases, one line each:
   30. the full-width bf16 UNet built with
      ``UNetConfig(use_absorbed_attention=True)`` against the same module
      on K1: 16 K16, 0 K1 and K14, no fallback;
-  31. ``sample_panoptic`` on it as phase 4: 800 K16 per call, 0 K1;
+  31. ``sample_panoptic`` on it as phase 4: 320 K16 per call, 0 K1;
   32. ``train_loop`` on it (2 warm-up, 3 timed steps): 30 K16, 2 fallbacks
      (T = 30) and 15 K2 per step, 0 K1 and K14, the peak memory; one
      step's loss and gradients against the plain attention;
   33. int8 ``sample_panoptic`` with ``fused_norms: False`` on it, default
-     and calibrated scales: 800 K17 and 800 K12 per call, 0 K1/K3/K4/K13/
+     and calibrated scales: 320 K17 and 320 K12 per call, 0 K1/K3/K4/K13/
      K15, no fallback, K17's input scale 0.1 in both; its UNet forward (16
      K17, 16 K12) against the bf16 one; the absorbed-storage UNet
      (``prepare_int8_unet(..., absorbed_attention=True)``) whose K17s read
@@ -170,7 +171,7 @@ Phases, one line each:
   34. ``TrainerDiffusion.compute_pq`` end to end at full width: a
      KITTI-DVPS val tree of 4 frames at 375x1242 written from seeded numpy,
      read at 256x512 with ``keep_fullres_gt``, the phase-4 trainer at batch
-     2 with 50 DDIM steps (800 K1 a call), each prediction restored to
+     2 with 20 DDIM steps (320 K1 a call), each prediction restored to
      375x1242 and scored, then one batch of the resize branch; PQ, SQ, RQ,
      s per frame, peak memory, and the card's cleaned maps against the CPU
      path's restore of the same logits (>= 99.9% of the pixels equal);
@@ -178,11 +179,12 @@ Phases, one line each:
      and ``ldmseg_torch/tools/bench.py`` at batch 2 (its JSON line on a
      line of its own, the JAX bench's image VAE, the DPM-Solver++(2M)
      frames/s beside the headline, its launches checked);
-  36. the run around the UNet at full width, in a temporary directory:
+  36. the run around the UNet at SD-1.4's widths and one resnet a block
+     (10 transformer blocks), in a temporary directory:
      ``tools/main_ldm.py`` (the default configuration with ``ema_on``,
      2 steps at batch 8 of 192x640 synthetic frames through the threaded
-     loader and the H2D prefetch, the save, ``compute_pq`` at 10 DDIM
-     steps with the best-PQ snapshot; 32 K1 and 16 K2 a step), a fresh
+     loader and the H2D prefetch, the save, ``compute_pq`` at 4 DDIM
+     steps with the best-PQ snapshot; 20 K1 and 10 K2 a step), a fresh
      trainer's ``resume`` (masters, AdamW state and EMA bit-equal),
      ``tools/export_checkpoint.py --ema`` (read back equal by
      ``load_reference_ldm``) and ``tools/predict.py`` from the checkpoint
@@ -223,21 +225,22 @@ Phases, one line each:
      int8 seg-VAE decode against the bf16 one, and an image-VAE round trip
      through the decoder;
   43. ``sample_panoptic`` in the JAX bench's serving configuration
-     (``tools/bench.py:bench_config``) at batch 2 with 50 DDIM steps: 800
-     K3, 800 K4 and one K1 D=512 a call, the graph bit-equal to the eager
+     (``tools/bench.py:bench_config``) at batch 2 with 20 DDIM steps: 320
+     K3, 320 K4 and one K1 D=512 a call, the graph bit-equal to the eager
      loop, one traced graph call's kernels against the counters;
-  44. the same with 20 DPM-Solver++(2M) steps (320 K3 and 320 K4);
+  44. the same with 10 DPM-Solver++(2M) steps (``DPM_STEPS``; 160 K3 and
+     160 K4);
   45. the native host codec built with g++ at first use, equal to the
      numpy codec on a 375x1242 frame, with both host ms;
   46. ``sample_panoptic_clip`` in the default deployment at full width on
      one static clip of 3 frames of 256x512 with a full-size
-     ``PoseExpNet`` attached: DDIM 50 and a 15-step DDIM tail
-     (``ddim_refine``), both CUDA graphs: 1,040 K1 a call counted and
+     ``PoseExpNet`` attached: DDIM 20 and a 6-step DDIM tail
+     (``ddim_refine``), both CUDA graphs: 416 K1 a call counted and
      traced, graph bit-equal to eager (the call, and the first pass alone),
      the warped clip more consistent than the unwarped one; s a call,
      kernel ms, busy share, peak memory;
-  47. the same in the JAX bench's serving configuration, DDIM 50 (1,040 K3
-     and 1,040 K4) and DPM-Solver++(2M) 20 with a 6-step DDIM tail (416
+  47. the same in the JAX bench's serving configuration, DDIM 20 (416 K3
+     and 416 K4) and DPM-Solver++(2M) 10 with a 3-step DDIM tail (208
      each), one K1 D=512 a call, graph bit-equal to eager; DDIM's call
      traced and its x0 correlated >= 0.9 with the bf16 UNet's;
   48. clip training at full width (2 clips of 3 frames of 192x640,
@@ -268,12 +271,12 @@ Phases, one line each:
   55. conditioning at full width (SD-1.4, cross_attention_dim 768, 8
      heads; the ``none`` descriptor, a seeded context [2, 77, 768]): bf16
      ``sample_panoptic`` at guidance 7.5 (classifier-free guidance, two
-     UNet calls a step: 1,600 K1 a call), the graph bit-equal to the eager
+     UNet calls a step: 640 K1 a call), the graph bit-equal to the eager
      loop and one call traced (busy share), s a call and peak memory; at
-     guidance 1.0 (800 K1) another x0; another context another x0; a
+     guidance 1.0 (320 K1) another x0; another context another x0; a
      3-frame clip with CFG (2,080 K1);
   56. the same in int8 with fused norms (K3 -> attn2 in bf16 -> K4 a
-     block: 1,600 K3 and 1,600 K4, no fallback), x0 correlated >= 0.9 with
+     block: 640 K3 and 640 K4, no fallback), x0 correlated >= 0.9 with
      phase 55's; ``calibrate_int8`` refuses the descriptor (the trait);
   57. training with ``learnable`` queries (77 x 768), ``separate_encoder``
      and ``add_adaptor`` (22 attention sites: 44 K1 and 22 K2 a step),
@@ -283,7 +286,8 @@ Phases, one line each:
      within 2e-2 of the plain attention) and ``Upscaler``: finite, of the
      right shape;
   59. one rank over NCCL: a process started with torchrun's variables
-     (world size 1) runs phase 6's stage-2 step with ZeRO-1 without a
+     (world size 1) runs phase 6's stage-2 step (its UNet at one resnet a
+     block, as phases 60 and 62: ``_shallow_unet``) with ZeRO-1 without a
      process group and again after ``initialize_from_env``: the loss and
      the masters bit-equal, the K1 and K2 launches equal;
   60. two ranks sharing the card: NCCL's refusal of two ranks on one
@@ -306,9 +310,10 @@ Phases, one line each:
      nothing else on the card; phase 59's process then runs beside phase
      60's one-rank steps (their seconds printed as contended), and phase
      60's ranks run alone;
-  62. the model axis at full width: the one-rank step (phase 6's
-     configuration at batch 2 with ZeRO-1, the image VAE on K1's wide
-     class) and a 4-step bf16 ``sample_panoptic`` in this process, then
+  62. the model axis at full width (one resnet a block): the one-rank
+     step (phase 6's configuration at batch 2 with ZeRO-1, the image VAE
+     on K1's wide class) and a 4-step bf16 ``sample_panoptic`` in this
+     process, then
      two gloo ranks sharing the card on a ``(data=1, model=2)`` mesh with
      ``tensor_parallel`` and ``spatial_parallel``: loss within 1e-3, the
      gathered gradients' cosine >= 0.9999, the one-rank optimizer fed the
@@ -317,10 +322,32 @@ Phases, one line each:
      one-rank step printed), x0 within 2e-2 of max|x0|; each rank's UNet
      bytes (50-55% of one rank's), peak memory, K1, K2 and K1 wide launches, the spatial
      stages run whole (none), seconds;
-  63. the script's total seconds, then a JSON line ``{"kernels": [...]}``
+  63. serving on the model axis at full width: K3, K4, K12 and K13 in
+     their partial modes at a rank's shapes of a model axis of 2 (4 of 8
+     heads, half the GEGLU columns; dynamic and static scales) against
+     their plain versions, and the two ranks' partials summed against the
+     one-rank kernel (phase 7's tolerances); then, on phase 62's ranks
+     after it and on one rank here first, the JAX bench's int8 pipeline
+     with the int8 seg decoder (``tools/bench.py:bench_config``) at batch 2
+     of 256x512 with ``tensor_parallel`` and ``spatial_parallel``:
+     ``calibrate_int8`` (and ``calibrate_act_scale_tree`` on the cut
+     masters), 4-step samples with fused norms (K3, K4), without (K13,
+     K12), and guided (CFG 7.5, a ``none`` context of [2, 77, 768]) in
+     int8 and bf16: a UNet forward and x0 within the larger of 2e-2 of
+     max|ref| (2e-3 on the mean) and twice one rank's own move for a nudge
+     of its input below a bf16 ulp, the launches a rank (K3 and K4
+     64, 128 with CFG; K13 and K12 64; K1 wide 1), no fallback, the scales
+     against one rank's, 50-55% of the int8 UNet's bytes, no stage run
+     whole, seconds a sample; controls on the unfused UNet (K12's
+     dynamic interior): the 16 amaxes its model group returns in a
+     forward are the same on both ranks, each rank's own amax planted
+     makes them differ, and the other rank's partials dropped put the
+     forward outside the bound above;
+  64. the script's total seconds, then a JSON line ``{"kernels": [...]}``
      (K1-K18, K10 in both variants, K1's wide class; K5, K6 and K7 with
-     their device time and host time a call);
-  64. the last line, ``{"ok": true, "device": {...}}``.
+     their device time and host time a call; K3, K4, K12 and K13 with
+     their partial modes);
+  65. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -611,12 +638,21 @@ def phase_attention():
     return rows
 
 
+# the sampling phases' DDIM steps (the default deployment's 50, cut so that
+# the script keeps inside its limit with phase 63 beside them), and the
+# serving configuration's DPM-Solver++(2M) steps (its 20, cut alike)
+SAMPLE_STEPS = 20
+DPM_STEPS = 10
+
+
 def _config():
     from ldmseg_torch.utils.config import DEFAULT_CONFIG, merge_dicts
     # the default deployment: SD-1.4 UNet and image VAE, the seg VAE of
-    # DEFAULT_CONFIG, bf16 compute, self-conditioning, 50 DDIM steps
-    return merge_dicts(DEFAULT_CONFIG, {"train_kwargs": {
-        "self_condition": True, "weight_dtype": "bfloat16"}})
+    # DEFAULT_CONFIG, bf16 compute, self-conditioning; SAMPLE_STEPS DDIM
+    # steps
+    return merge_dicts(DEFAULT_CONFIG, {
+        "train_kwargs": {"self_condition": True, "weight_dtype": "bfloat16"},
+        "sampling_kwargs": {"num_inference_steps": SAMPLE_STEPS}})
 
 
 def phase_unet(trainer, seed: int = 1):
@@ -661,7 +697,8 @@ def phase_unet(trainer, seed: int = 1):
 
 def phase_sample(trainer, smi_line: str, seed: int = 0, phase: int = 4,
                  expect=None, eager_check: bool = False):
-    """``sample_panoptic`` end to end at full width: 50 DDIM steps on 2
+    """``sample_panoptic`` end to end at full width: the trainer's DDIM
+    steps (``SAMPLE_STEPS`` in :func:`_config`) on 2
     frames of 256x512 (a CUDA graph replayed, ``ddim_sample``'s default on
     the card), then ``panoptic_post_process``. Returns the launch counts
     over the timed call (the main path), checked against ``expect`` per
@@ -2685,10 +2722,10 @@ def _unet_vs_bf16(label, phase, unet, bf16, expect, seed: int = 1,
             "correlation": corr, "counts": counts}
 
 
-def phase_padded_sample(unet, seed: int = 2, steps: int = 50):
+def phase_padded_sample(unet, seed: int = 2, steps: int = SAMPLE_STEPS):
     """The port's ``ddim_sample`` with self-conditioning on the K11 UNet, 50
-    steps at batch 2 on a 32x64 latent (random RGB latents): 800 K11 and
-    800 K12 launches, 0 of every other kernel, no fallback."""
+    steps at batch 2 on a 32x64 latent (random RGB latents): 320 K11 and
+    320 K12 launches, 0 of every other kernel, no fallback."""
     import torch
     from ldmseg_torch.tools.profile_sampling import padded_sample
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3653,7 +3690,7 @@ def _k17_scales(unet):
 def phase_absorbed_int8(trainer, smi_line: str, bf16_result: dict):
     """int8 (a) with absorbed attention (phase 33): its UNet forward
     against the bf16 one (16 K17, 16 K12); ``sample_panoptic`` with the
-    default and the calibrated scales (800 K17 + 800 K12 per call), K17's
+    default and the calibrated scales (320 K17 + 320 K12 per call), K17's
     input scale 0.1 (``int8_attn_act_scale``) in both, as JAX's in-graph
     branch; then the absorbed-storage UNet (``prepare_int8_unet(...,
     absorbed_attention=True)`` on the calibrated scales), whose K17s read
@@ -3790,10 +3827,10 @@ def phase_compute_pq(smi_line: str, seed: int = 0):
     val tree of :data:`PQ_FRAMES` frames at KITTI's 375x1242 written from
     seeded numpy into a temporary directory, read by ``get_dataset("kitti",
     split="val", size=(256, 512), keep_fullres_gt=True)``, the phase-4
-    trainer (bf16, K1, the same seeded weights) at batch 2 with 50 DDIM
-    steps: each prediction restored to 375x1242 and scored; then one batch
-    without ``keep_fullres_gt`` (the resize branch). Gates: the launches
-    (800 K1 a call, nothing else) and the card's cleaned maps equal to the
+    trainer (bf16, K1, the same seeded weights) at batch 2 with
+    ``SAMPLE_STEPS`` DDIM steps: each prediction restored to 375x1242 and
+    scored; then one batch without ``keep_fullres_gt`` (the resize branch).
+    Gates: the launches (16 K1 a step, nothing else) and the card's cleaned maps equal to the
     CPU path's restore of the same logits on >= ``PQ_AGREE`` of the
     pixels."""
     import tempfile
@@ -3987,11 +4024,14 @@ def phase_entry_bench(smi_line: str, seed: int = 1):
 # the run around the UNet (phase 36): main_ldm, save, resume, predict
 # ---------------------------------------------------------------------------
 LIFECYCLE_STEPS = 2       # optimizer steps of main_ldm (batch 8)
-LIFECYCLE_PQ_STEPS = 10   # DDIM steps of its evals and of predict
+LIFECYCLE_PQ_STEPS = 4    # DDIM steps of its evals and of predict
+# the UNet at SD-1.4's widths with one resnet a block (the default's depth
+# is 2: 12.2 GiB a checkpoint, 8.2 GiB at this depth)
+LIFECYCLE_UNET = ["model_kwargs.block_out_channels=[320,640,1280,1280]",
+                  "model_kwargs.layers_per_block=1"]
 # free space the phase needs in TMPDIR: main_ldm writes step_N and
-# best_model, each about 12.2 GiB (fp32 masters, AdamW moments, EMA;
-# 13,049,730,885 bytes on the H100), before best_model is removed and the
-# 6.2 GiB export is written
+# best_model (fp32 masters, AdamW moments, EMA; 12.2 GiB each at the
+# default depth), before best_model is removed and the export is written
 LIFECYCLE_DISK_BYTES = 28 * 2**30
 
 
@@ -4001,14 +4041,16 @@ def _opt_state(trainer) -> dict:
 
 
 def phase_lifecycle(smi_line: str):
-    """``main_ldm`` at full width (the default configuration, bf16 on fp32
+    """``main_ldm`` at full width and one resnet a block
+    (``LIFECYCLE_UNET``: the default configuration otherwise, bf16 on fp32
     masters, self-conditioning, ``ema_on``; synthetic 192x640 frames at
     batch 8) in a temporary directory: ``LIFECYCLE_STEPS`` steps through
     the threaded loader and the H2D prefetch, the final save, and PQ on
     the val frames with the best-PQ snapshot; its K1 and K2 launches
-    checked (32 K1 and 16 K2 a step, 16 K1 a DDIM step of the two eval
-    calls). A fresh trainer resumes from the checkpoint: masters, AdamW
-    state and EMA bit-equal on the card to the run's. ``export_checkpoint
+    checked (two K1 and one K2 a transformer block a step, one K1 a block
+    a DDIM step of the two eval calls). A fresh trainer resumes from the
+    checkpoint: masters, AdamW state and EMA bit-equal on the card to the
+    run's. ``export_checkpoint
     --ema`` writes the reference's save dict from the run directory, which
     ``load_reference_ldm`` reads back equal to the run's masters and EMA.
     ``predict`` writes the PNG pairs of 2 frames from the checkpoint.
@@ -4045,7 +4087,7 @@ def phase_lifecycle(smi_line: str):
                      "train_kwargs.weight_dtype=bfloat16", "ema_on=True",
                      f"train_kwargs.train_num_steps={LIFECYCLE_STEPS}",
                      f"sampling_kwargs.num_inference_steps="
-                     f"{LIFECYCLE_PQ_STEPS}"]
+                     f"{LIFECYCLE_PQ_STEPS}"] + LIFECYCLE_UNET
         TrainerDiffusion.save = timed_save
         _zero_counts()
         try:
@@ -4058,8 +4100,10 @@ def phase_lifecycle(smi_line: str):
             TrainerDiffusion.save = save
         counts = _counts()
         calls = -(-len(live.ds_val) // live.batch_size)
-        want = _expect(K1=32 * LIFECYCLE_STEPS + 16 * LIFECYCLE_PQ_STEPS
-                       * min(calls, 4), K2=16 * LIFECYCLE_STEPS)
+        sites = _attention_sites(live.unet)
+        want = _expect(K1=2 * sites * LIFECYCLE_STEPS + sites
+                       * LIFECYCLE_PQ_STEPS * min(calls, 4),
+                       K2=sites * LIFECYCLE_STEPS)
         check(counts == want, f"main_ldm launched {counts}, expected {want}")
         check(live.state.step == LIFECYCLE_STEPS,
               f"main_ldm stopped at step {live.state.step}")
@@ -4142,13 +4186,15 @@ def phase_lifecycle(smi_line: str):
             check(a.shape == (192, 640) and a.dtype == np.uint8,
                   f"{f}: {a.shape} {a.dtype}")
     result = {"steps": LIFECYCLE_STEPS, "pq_steps": LIFECYCLE_PQ_STEPS,
+              "unet": LIFECYCLE_UNET, "transformer_blocks": sites,
               "main_ldm_seconds": run_s, "checkpoint_bytes": nbytes,
               "saves_seconds": saves, "resume_seconds": resume_s,
               "predict_seconds": predict_s, "free_bytes_before": free,
               "export_seconds": export_s, "export_bytes": export_bytes,
               "counts": counts}
-    print(f"phase 36 main_ldm, {LIFECYCLE_STEPS} steps at batch 8 of "
-          f"192x640, ema_on, then compute_pq ({LIFECYCLE_PQ_STEPS} DDIM "
+    print(f"phase 36 main_ldm (SD-1.4 widths, one resnet a block: "
+          f"{sites} transformer blocks), {LIFECYCLE_STEPS} steps at batch 8 "
+          f"of 192x640, ema_on, then compute_pq ({LIFECYCLE_PQ_STEPS} DDIM "
           f"steps, {min(calls, 4)} calls): {run_s:.1f} s, launches {counts};"
           f" checkpoint {nbytes} bytes ({nbytes / 2**30:.2f} GiB), saves "
           f"{[(n, round(t, 2)) for n, t in saves]} s, resume "
@@ -4870,7 +4916,8 @@ def phase_serving(smi_line: str, bf16_result: dict):
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
 
     out = {}
-    for phase, sampler, steps in ((43, "ddim", 50), (44, "dpmpp_2m", 20)):
+    for phase, sampler, steps in ((43, "ddim", SAMPLE_STEPS),
+                                  (44, "dpmpp_2m", DPM_STEPS)):
         cfg = bench_config(True, sampler)
         cfg["sampling_kwargs"]["num_inference_steps"] = steps
         trainer = TrainerDiffusion(cfg)
@@ -5005,9 +5052,10 @@ def phase_clip_sample(smi_line: str, seed: int = 0):
     """Phase 46: ``sample_panoptic_clip`` in the default deployment at full
     width (the SD-1.4 UNet and image VAE, bf16, self-conditioning; seeded
     random weights) on one static clip of 3 frames of 256x512 with a
-    full-size ``PoseExpNet`` attached: DDIM 50, then the pose warp and a
-    15-step DDIM tail (``refine_strength`` 0.3), both passes CUDA graphs:
-    16 x 65 = 1,040 K1 a call on the counters and in one traced graph call,
+    full-size ``PoseExpNet`` attached: DDIM (``SAMPLE_STEPS``), then the
+    pose warp and a DDIM tail of 0.3 of those steps (``refine_strength``),
+    both passes CUDA graphs: 16 K1 a step of either pass on the counters
+    and in one traced graph call,
     the graph bit-equal to the eager loop (the whole call, and the first
     pass alone with ``pose_warp=False``); then, at the same per-frame noise
     (``repeat_noise=False``), the warped call's frames disagree less than
@@ -5074,9 +5122,9 @@ def phase_clip_sample(smi_line: str, seed: int = 0):
 def phase_clip_serving(smi_line: str, seed: int = 0):
     """Phase 47: ``sample_panoptic_clip`` in the JAX bench's serving
     configuration (``tools/bench.py:bench_config``: the int8 image VAE with
-    fused attention, the int8 UNet, bf16) on phase 46's clip, with DDIM 50
-    (a 15-step tail) and DPM-Solver++(2M) 20 (then a DDIM tail of 6 steps):
-    16 K3 and 16 K4 a step of either pass (1,040 and 416 a call) and one K1
+    fused attention, the int8 UNet, bf16) on phase 46's clip, with DDIM
+    ``SAMPLE_STEPS`` and DPM-Solver++(2M) ``DPM_STEPS``, each with a DDIM
+    tail of 0.3 of its steps: 16 K3 and 16 K4 a step of either pass and one K1
     D=512 a call (the 3 frames encode in one batch), the graphs bit-equal
     to the eager loop; DDIM's: one traced graph call, and the x0 correlated
     >= 0.9 with the same trainer's bf16 UNet on the same noise."""
@@ -5087,7 +5135,7 @@ def phase_clip_serving(smi_line: str, seed: int = 0):
 
     batch = _static_clip(CLIP_HW)
     out = {}
-    for sampler, steps in (("ddim", 50), ("dpmpp_2m", 20)):
+    for sampler, steps in (("ddim", SAMPLE_STEPS), ("dpmpp_2m", DPM_STEPS)):
         cfg = bench_config(True, sampler)
         cfg["sampling_kwargs"]["num_inference_steps"] = steps
         trainer = TrainerDiffusion(cfg)
@@ -5700,17 +5748,17 @@ def _cond_call(trainer, batch, label: str, want: dict, **kw):
 
 def phase_cond_sample(smi_line: str, seed: int = 0):
     """Phase 55: conditioning and classifier-free guidance at full width
-    (:func:`_cond_config`; seeded random weights, 50 DDIM steps, batch 2
-    of 256x512, a context of :data:`COND_CONTEXT`). Each UNet call runs
-    16 K1 (self-attention; ``attn2`` is the plain einsum, as in JAX); CFG
-    makes two calls a step: 16 x 50 x 2 = 1,600 K1 at guidance 7.5, the
+    (:func:`_cond_config`; seeded random weights, ``SAMPLE_STEPS`` DDIM
+    steps, batch 2 of 256x512, a context of :data:`COND_CONTEXT`). Each
+    UNet call runs 16 K1 (self-attention; ``attn2`` is the plain einsum, as
+    in JAX); CFG makes two calls a step: 32 K1 a step at guidance 7.5, the
     graph bit-equal to the eager loop with the same launches, one graph
     call traced (its kernels by name against the counters; the kernel
     time over the traced wall, and over the untraced call's wall: the
-    profiler slows the host); 800 K1 at guidance 1.0, whose
-    x0 differs; another context another x0; then a clip of 3 frames with
-    its context per clip and a pose net: 16 x (50 + 15) x 2 = 2,080
-    K1. Prints the seconds of each part."""
+    profiler slows the host); 16 a step at guidance 1.0, whose x0
+    differs; another context another x0; then a clip of 3 frames with its
+    context per clip and a pose net: 32 K1 a step of either pass. Prints
+    the seconds of each part."""
     import torch
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
     t0 = time.perf_counter()
@@ -5808,7 +5856,7 @@ def phase_cond_sample(smi_line: str, seed: int = 0):
 def phase_cond_int8(smi_line: str, bf16_result: dict, seed: int = 0):
     """Phase 56: phase 55's call in int8 with fused norms (the same
     weights and noise; the int8 UNet's blocks K3 -> ``attn2`` in bf16 ->
-    K4): 1,600 K3 and 1,600 K4 a call at guidance 7.5, no fallback, no K1;
+    K4): 640 K3 and 640 K4 a call at guidance 7.5, no fallback, no K1;
     x0 correlated >= 0.9 with phase 55's; ``calibrate_int8`` refuses the
     descriptor (JAX's calibration runs without a context and fails)."""
     import torch
@@ -6031,6 +6079,19 @@ def _dp_config():
     return merge_dicts(_train_config(), {"optimizer_zero_redundancy": True})
 
 
+# phases 59, 60 and 62 (the data and model axes' steps) run phase 6's UNet
+# at SD-1.4's widths with one resnet a block (the default's depth is 2:
+# 10 transformer blocks, not 16), so that the script keeps inside its
+# limit with phase 63 beside them
+SHALLOW_SITES = 10
+
+
+def _shallow_unet():
+    from ldmseg_torch.models.unet import UNetConfig
+    return UNetConfig(in_channels=12, layers_per_block=1,
+                      use_fused_attention=True)
+
+
 def _dp_batch(rows):
     """``rows`` of phase 6's global batch (``SyntheticDVPS``, 8 bits,
     192x640), each rank rendering only its own."""
@@ -6067,7 +6128,7 @@ def phase59_child(out_path: str) -> None:
     noise, steps = _dp_draws(5)
 
     def step():
-        trainer = TrainerDiffusion(_dp_config())
+        trainer = TrainerDiffusion(_dp_config(), unet_config=_shallow_unet())
         trainer.init_params(seed=0)
         _zero_counts()
         torch.cuda.synchronize()
@@ -6153,7 +6214,8 @@ def _finish_phase59(run: dict, smi_line: str) -> dict:
     check(res["masters_equal"], "phase 59: the masters after the step in "
           "the NCCL group differ from the step without a group")
     check(grouped["counts"] == plain["counts"]
-          and grouped["counts"]["K1"] == 32 and grouped["counts"]["K2"] == 16,
+          and grouped["counts"]["K1"] == 2 * SHALLOW_SITES
+          and grouped["counts"]["K2"] == SHALLOW_SITES,
           f"phase 59: launches {grouped['counts']} in the group, "
           f"{plain['counts']} without")
     seconds = time.perf_counter() - run["t0"]
@@ -6224,7 +6286,8 @@ def _dp_rank(rank: int, spec: dict) -> dict:
         out["seconds"][name] = time.perf_counter() - t
         t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    trainer = TrainerDiffusion(_dp_config(), mesh=mesh)
+    trainer = TrainerDiffusion(_dp_config(), unet_config=_shallow_unet(),
+                               mesh=mesh)
     trainer.init_params(seed=0)
     params = list(trainer.unet.parameters())
     before = torch.cat([p.detach().reshape(-1) for p in params]).cpu()
@@ -6333,7 +6396,8 @@ def _one_rank_step(micro, accumulate: int = 1):
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
     from ldmseg_torch.utils.config import merge_dicts
     trainer = TrainerDiffusion(merge_dicts(_dp_config(), {
-        "train_kwargs": {"accumulate": accumulate}}))
+        "train_kwargs": {"accumulate": accumulate}}),
+        unet_config=_shallow_unet())
     trainer.init_params(seed=0)
     params = list(trainer.unet.parameters())
     before = [p.detach().clone() for p in params]
@@ -6491,8 +6555,8 @@ def phase_dp_two_ranks(smi_line: str, refs: dict) -> dict:
     print(f"phase 60 timings (two ranks on ONE card: not a scaling figure): "
           f"the stage-2 step {r0['step_seconds']:.3f} / "
           f"{r1['step_seconds']:.3f} s/step (the first on its trainer); "
-          f"gradient reduction (gloo, 3.4 GB of fp32) {reduce_ms:.1f} ms of "
-          f"device time (CUDA events); peak memory a rank "
+          f"gradient reduction (gloo, the fp32 gradients) {reduce_ms:.1f} ms "
+          f"of device time (CUDA events); peak memory a rank "
           f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB; K1 "
           f"{r0['counts']['K1']} / K2 {r0['counts']['K2']} launches a rank "
           f"(the step + compute_pq); one-rank references and the NCCL "
@@ -6524,7 +6588,7 @@ def phase_dp_two_ranks(smi_line: str, refs: dict) -> dict:
               f"phase 60: summed PQ {got} vs one process "
               f"{ {k: want[k] for k in got} }")
         check(r["counts"] == r0["counts"] and r["counts"]["K1"] > 0
-              and r["counts"]["K2"] == 16,
+              and r["counts"]["K2"] == SHALLOW_SITES,
               f"phase 60: launches {[x['counts'] for x in ranks]}")
     return {"nccl_two_ranks": refs["nccl"], "loss": r0["loss"],
             "one_rank_loss": one_loss, "loss_rel": rel,
@@ -6615,7 +6679,7 @@ def phase_dp(smi_line: str):
 # ---------------------------------------------------------------------------
 MA_BATCH = 2           # phase 62's batch of 192x640 frames
 MA_STEPS = 4           # its sample's DDIM steps
-MA_TIMEOUT_S = 420     # the ranks' deadline
+MA_TIMEOUT_S = 600     # the ranks' deadline (phases 62 and 63)
 
 
 def _ma_config(parallel: bool):
@@ -6687,7 +6751,7 @@ def _ma_reference(path: str) -> dict:
     import torch
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
     t0 = time.perf_counter()
-    trainer = TrainerDiffusion(_ma_config(False))
+    trainer = TrainerDiffusion(_ma_config(False), unet_config=_shallow_unet())
     trainer.init_params(seed=0)
     out = _ma_step(trainer)
     named = list(trainer.unet.named_parameters())
@@ -6729,7 +6793,8 @@ def _ma_rank(rank: int, spec: dict) -> dict:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     mesh = make_mesh(1, 2)
-    trainer = TrainerDiffusion(_ma_config(True), mesh=mesh)
+    trainer = TrainerDiffusion(_ma_config(True), unet_config=_shallow_unet(),
+                               mesh=mesh)
     trainer.init_params(seed=0)
     build_s = time.perf_counter() - t0
     replicated = sp.run_stage.replicated
@@ -6803,7 +6868,7 @@ def _ma_rank(rank: int, spec: dict) -> dict:
         "build_seconds": build_s, "seconds": time.perf_counter() - t0}
 
 
-def phase_model_axis(smi_line: str) -> dict:
+def phase_model_axis(smi_line: str) -> tuple:
     """Phase 62: the model axis at full width. The one-rank step and
     sample run here first (phase 6's configuration at batch 2 with ZeRO-1
     and the image VAE on K1's wide class), then two gloo ranks sharing the
@@ -6816,7 +6881,12 @@ def phase_model_axis(smi_line: str) -> dict:
     printed), x0 within 2e-2 of max|x0|;
     each rank holds 50-55% of the UNet's bytes, and launched K1, K2 and
     K1's wide class. Two ranks on one card through gloo measure no
-    scaling: every collective crosses the host."""
+    scaling: every collective crosses the host.
+
+    Phase 63 runs on the same ranks after it (:func:`_serve`, its one-rank
+    references here first): the bench's int8 serving pipeline with tensor
+    and spatial parallelism (:func:`serve_report`). Returns both phases'
+    results."""
     import os
     import tempfile
     import torch
@@ -6826,10 +6896,16 @@ def phase_model_axis(smi_line: str) -> dict:
         path = os.path.join(tmp, "one_rank.pt")
         one = _ma_reference(path)
         ref_s = time.perf_counter() - t0
-        ranks = run_ranks(_ma_rank, 2, args=({"ref": path},),
-                          device="cuda", backend="gloo", local_rank=0,
-                          timeout_s=MA_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0 - ref_s
+        torch.cuda.empty_cache()
+        serve_one = _serve()
+        serve_one_s = time.perf_counter() - t0 - ref_s
+        print(f"phase 63 one rank: {serve_one_s:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        both = run_ranks(_ma_and_serve_rank, 2, args=({"ref": path},),
+                         device="cuda", backend="gloo", local_rank=0,
+                         timeout_s=MA_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0 - ref_s - serve_one_s
+    ranks = [r["ma"] for r in both]
     r0 = ranks[0]
     rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
     xerr = max(float((r["x0"] - one["x0"]).abs().max()) for r in ranks)
@@ -6901,7 +6977,556 @@ def phase_model_axis(smi_line: str) -> dict:
             "one_rank_step_seconds": one["step_seconds"],
             "one_rank_sample_seconds": one["sample_seconds"],
             "reference_seconds": ref_s, "ranks_seconds": ranks_s,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0}, serve_report(
+                smi_line, serve_one, [r["serve"] for r in both],
+                serve_one_s)
+
+
+# ---------------------------------------------------------------------------
+# serving on the model axis (phase 63): K3, K4, K12 and K13 on a rank's
+# heads and GEGLU columns, and the bench's int8 pipeline on two gloo ranks
+# ---------------------------------------------------------------------------
+SERVE_STEPS = 4           # phase 63's DDIM steps a sample
+SERVE_HW = (256, 512)     # the bench's frames
+SERVE_CONTEXT = (2, 77, 768)
+SERVE_GUIDANCE = 7.5
+# the calibrated scales on the mesh against one rank's (``calibrate_int8``,
+# and ``calibrate_act_scale_tree`` on the cut masters at one fixed input):
+# the TP forward's fp32 activations differ from one rank's by the reordered
+# sums of its row-parallel layers, which the amaxes carry
+SERVE_SCALE_RTOL = 1e-5
+
+
+def _rank_pack(pack, r: int, n: int = 2):
+    """Rank ``r``'s slice of a whole K3 or K4 pack on a model axis of
+    ``n``: K3 its heads (``w_qkv``'s and ``m_qkv``'s rows of each of q, k,
+    v; ``wo``'s columns; the per-head scales), K4 its GEGLU columns (``w1``'s
+    paired h and gate rows, ``w2``'s columns); the rest whole. These are the
+    codes ``apply_tp`` + ``prepare_int8_unet`` give a rank (held bit for bit
+    in ``tests/test_torch_port_model_axis_serving.py``)."""
+    import dataclasses
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.sp import Axis
+    ax = Axis(n, r)
+
+    def cut(t, dim, pairs=1):
+        return tp.local_tensor(t, dim, ax, pairs)
+    if hasattr(pack, "w_qkv"):
+        return dataclasses.replace(
+            pack, heads=pack.heads // n, w_qkv=cut(pack.w_qkv, 0, 3),
+            m_qkv=cut(pack.m_qkv, 0, 3), wo=cut(pack.wo, 1),
+            wo_q=cut(pack.wo_q, 1), w_scale=cut(pack.w_scale, 1))
+    return dataclasses.replace(
+        pack, w1=cut(pack.w1, 0, 2), s1=cut(pack.s1, 0, 2),
+        b1=cut(pack.b1, 0, 2), w2=cut(pack.w2, 1))
+
+
+class _AmaxGroup:
+    """A model group of two ranks in one process, for the partial modes'
+    kernel checks: ``max`` returns ``both`` (the two ranks' maximum, read
+    in an earlier call), or, where ``both`` is None, records the amax it is
+    given and returns it."""
+
+    def __init__(self, both=None):
+        self.both, self.amaxes = both, []
+
+    def max(self, amax):
+        if self.both is not None:
+            return self.both
+        self.amaxes.append(amax.clone())
+        return amax
+
+    def of_both(self) -> "_AmaxGroup":
+        """The group whose ``max`` gives the maximum of the amaxes recorded
+        here (one call on each rank's shard)."""
+        import torch
+        return _AmaxGroup(torch.maximum(*self.amaxes) if self.amaxes
+                          else None)
+
+
+def _two_rank_check(name, shape, mode, parts, plains, summed, one_rank):
+    """The partial-mode row: each rank's fp32 partial against its plain
+    version's, the two summed (and finished) against the one-rank kernel;
+    both within phase 7's tolerances."""
+    def errs(out, ref):
+        err = (out.float() - ref.float()).abs()
+        return (err.max().item(), ref.float().abs().max().item(),
+                err.mean().item(), ref.float().abs().mean().item())
+    row = {"shape": list(shape), "mode": mode, "ranks": []}
+    for r, (out, ref) in enumerate(zip(parts, plains)):
+        emax, rmax, emean, rmean = errs(out, ref)
+        check(emax <= INT8_MAX_TOL * rmax and emean <= INT8_MEAN_TOL * rmean,
+              f"phase 63 {name} {shape} {mode} rank {r}: partial err "
+              f"{emax} (max|ref| {rmax}), mean {emean} ({rmean})")
+        row["ranks"].append({"max_abs_err": emax, "max_abs_ref": rmax,
+                             "mean_abs_err": emean, "mean_abs_ref": rmean})
+    emax, rmax, emean, rmean = errs(summed, one_rank)
+    check(emax <= INT8_MAX_TOL * rmax and emean <= INT8_MEAN_TOL * rmean,
+          f"phase 63 {name} {shape} {mode}: the two ranks' sum against the "
+          f"one-rank kernel, err {emax} (max|ref| {rmax}), mean {emean}")
+    row.update(sum_max_abs_err=emax, sum_max_abs_ref=rmax,
+               sum_mean_abs_err=emean, sum_mean_abs_ref=rmean,
+               max_abs_err=max([emax] + [x["max_abs_err"]
+                                         for x in row["ranks"]]))
+    return row
+
+
+def phase_partial_kernels():
+    """Phase 63's kernel checks: K3, K4, K12 and K13 in their partial modes
+    on the card at the local shapes of a model axis of 2 (4 of 8 heads;
+    half of the 4C GEGLU columns), each rank's fp32 partial held against
+    its plain version's, and the two ranks' partials summed (K3, K4: plus
+    the residual and bias; K4 and K12's dynamic scale: the two ranks' amax
+    slots' maximum between the halves) against the one-rank kernel."""
+    import torch
+    from ldmseg_torch.ops import attention_s8 as A
+    from ldmseg_torch.ops import geglu as G
+
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    rows = {"K3": [], "K4": [], "K12": [], "K13": []}
+    for shape, _ in INT8_SHAPES:
+        b, t, c = shape
+        norm1, attn, norm3, ff = _block_modules(c, t + c + 63)
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        with torch.inference_mode():
+            whole = A.pack_ln_attention(norm1, attn, 8, 0.1)
+            packs = [_rank_pack(whole, r) for r in range(2)]
+            parts = [A._launch(x, q, partial=True) for q in packs]
+            plains = [A.ln_attention_s8_reference(x, q, partial=True)
+                      for q in packs]
+            summed = A.ln_attention_s8_finish(x, parts[0] + parts[1], whole,
+                                              fallback=False)
+            row = _two_rank_check("K3", shape, "4 of 8 heads", parts,
+                                  plains, summed,
+                                  _launched(A.ln_attention_s8, x, whole))
+            row["ms"] = time_ms(lambda: A._launch(x, packs[0],
+                                                  partial=True))
+            rows["K3"].append(row)
+            for kid, block in (("K4", True), ("K12", False)):
+                for mode, gs in (("dynamic", None), ("static", 0.02)):
+                    fw = G.pack_geglu(norm3, ff.net[0].proj, ff.net[2],
+                                      0.05, gs)
+                    fq = [_rank_pack(fw, r) for r in range(2)]
+                    ref = (G.geglu_ln_s8_reference if block
+                           else G.geglu_s8_reference)
+                    # the kernel's and the plain version's amax slots take
+                    # the two ranks' maximum, each rank's read in a first
+                    # call
+                    runs = {"kernel": lambda q, grp: G._launch(
+                                x, q, block, group=grp),
+                            "plain": lambda q, grp: ref(
+                                x, q, partial=True, group=grp)}
+                    out, both = {}, {}
+                    for key, run in runs.items():
+                        seen = _AmaxGroup()
+                        for q in fq:
+                            run(q, seen)
+                        both[key] = seen.of_both()
+                        out[key] = [run(q, both[key]) for q in fq]
+                    parts, plains = out["kernel"], out["plain"]
+                    summed = G.geglu_finish(x, parts[0] + parts[1], fw,
+                                            block, fallback=False)
+                    wrapper = G.geglu_ln_s8 if block else G.fused_geglu_s8
+                    row = _two_rank_check(kid, shape, mode, parts, plains,
+                                          summed, _launched(wrapper, x, fw))
+                    row["ms"] = time_ms(lambda: G._launch(
+                        x, fq[0], block, group=both["kernel"]))
+                    rows[kid].append(row)
+        del norm1, attn, norm3, ff
+    for shape, _ in K13_SHAPES:
+        b, t, h, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        scale = d ** -0.5
+        with torch.inference_mode():
+            for mode, act in (("static 0.1", 0.1), ("dynamic", None)):
+                local = [tuple(z[:, :, r * h // 2:(r + 1) * h // 2]
+                               for z in (q, k, v)) for r in range(2)]
+                amax = _AmaxGroup(torch.maximum(*[torch.stack(
+                    [z.abs().amax() for z in qkv]) for qkv in local]))
+                parts = [A.fused_self_attention_s8(*qkv, scale, act, amax)
+                         for qkv in local]
+                plains = [A.fused_self_attention_s8_reference(
+                    *qkv, scale, act, amax) for qkv in local]
+                row = _two_rank_check(
+                    "K13", shape, mode, parts, plains,
+                    torch.cat(parts, dim=2),
+                    _launched(A.fused_self_attention_s8, q, k, v, scale,
+                              act))
+                row["ms"] = time_ms(lambda: A.fused_self_attention_s8(
+                    *local[0], scale, act, amax))
+                rows["K13"].append(row)
+    for kid, rs in rows.items():
+        print(f"phase 63 {kid} partial mode (a rank of 2): "
+              + "; ".join(f"{r['shape']} {r['mode']}: rank err "
+                          f"{max(x['max_abs_err'] for x in r['ranks']):.3e},"
+                          f" sum vs one rank {r['sum_max_abs_err']:.3e} of "
+                          f"{r['sum_max_abs_ref']:.3e}, {r['ms']:.4f} ms"
+                          for r in rs), flush=True)
+    return rows
+
+
+def _serve_config(parallel: bool, **over):
+    """Phase 63's configurations: the JAX bench's serving pipeline
+    (``tools/bench.py:bench_config(int8=True)``: the int8 UNet, the int8
+    image VAE on K1's wide class) with the int8 seg decoder; ``over``
+    merged in; ``parallel``: with ``tensor_parallel`` and
+    ``spatial_parallel``."""
+    from ldmseg_torch.tools.bench import bench_config
+    from ldmseg_torch.utils.config import merge_dicts
+    cfg = merge_dicts(bench_config(int8=True), {
+        "vae_model_kwargs": {"use_int8": True},
+        "train_kwargs": {"batch_size": 2}})
+    cfg = merge_dicts(cfg, over)
+    if parallel:
+        cfg = merge_dicts(cfg, {"tensor_parallel": True,
+                                "spatial_parallel": True})
+    return cfg
+
+
+# phase 63's samples: (label, config overrides, guided, int8 on)
+SERVE_RUNS = (
+    ("int8 fused norms", {}, False),
+    ("int8 fused_norms False", {"sampling_kwargs": {"fused_norms": False}},
+     False),
+    ("guided int8", {"train_kwargs": {"image_descriptors": "none"}}, True),
+)
+
+
+def _serve_inputs():
+    """Phase 63's frames, calibration noise, initial noise and context,
+    from a CPU generator."""
+    import torch
+    gen = torch.Generator().manual_seed(630)
+    lat = (2, SERVE_HW[0] // 8, SERVE_HW[1] // 8, 4)
+    return (torch.randn((2,) + SERVE_HW + (3,), generator=gen),
+            torch.randn(lat, generator=gen), torch.randn(lat, generator=gen),
+            torch.randn(SERVE_CONTEXT, generator=gen))
+
+
+def _int8_unet_bytes(unet) -> int:
+    """An int8 UNet's bytes: its parameters and buffers, and the K3 and K4
+    packs' tensors."""
+    import torch
+    total = sum(t.numel() * t.element_size()
+                for t in list(unet.parameters()) + list(unet.buffers()))
+    for m in unet.modules():
+        pack = getattr(m, "pack", None)
+        if pack is not None:
+            total += sum(v.numel() * v.element_size()
+                         for v in vars(pack).values()
+                         if isinstance(v, torch.Tensor))
+    return total
+
+
+def _serve(mesh=None) -> dict:
+    """Phase 63's calls on one rank (``mesh`` None) or on this rank of the
+    mesh: for each of ``SERVE_RUNS`` a trainer from seed 0, the first
+    calibrated (``calibrate_int8``), one UNet forward on a fixed input
+    (:func:`_serve_forward`) and a ``SERVE_STEPS``-step sample (eager) with
+    each run's launches; the guided trainer in int8 and then in bf16
+    (``int8_inference`` off on the same masters). One rank also samples
+    from the initial noise moved by ``SERVE_NUDGE`` (:func:`_serve_nudge`):
+    how far the sample itself moves for less than a bf16 ulp."""
+    import torch
+    from ldmseg_torch.parallel import sp
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    # the calibration forwards run on the fp32 masters: no TF32 in this
+    # process either (a spawned rank starts with cuDNN's TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    image, calib, init, context = _serve_inputs()
+    out = {}
+    for label, over, guided in SERVE_RUNS:
+        t0 = time.perf_counter()
+        trainer = TrainerDiffusion(_serve_config(mesh is not None, **over),
+                                   mesh=mesh)
+        trainer.init_params(seed=0)
+        build_s = time.perf_counter() - t0
+        if label == "int8 fused norms":
+            from ldmseg_torch.ops.quant import calibrate_act_scale_tree
+            _zero_counts()
+            out["scales"] = trainer.calibrate_int8({"image": image},
+                                                   noise=calib)
+            out["calibrate_counts"] = _counts()
+            gen = torch.Generator().manual_seed(631)
+            x = torch.randn((2, trainer.unet_config.in_channels)
+                            + tuple(n // 8 for n in SERVE_HW), generator=gen)
+            with torch.no_grad():
+                out["direct_scales"] = calibrate_act_scale_tree(
+                    trainer._eval_unet,
+                    x.to(torch.bfloat16).float().cuda(),
+                    torch.full((2,), 500, device="cuda"))
+        batch = {"image": image, "context": context} if guided else \
+            {"image": image}
+        modes = ("int8", "bf16") if guided else ("int8",)
+        for mode in modes:
+            trainer.int8_inference = mode == "int8"
+            replicated = sp.run_stage.replicated
+            _zero_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, x0 = trainer.sample_panoptic(
+                batch, init_noise=init, num_inference_steps=SERVE_STEPS,
+                guidance_scale=SERVE_GUIDANCE if guided else None,
+                graph=False)
+            torch.cuda.synchronize()
+            key = label if mode == "int8" else "guided bf16"
+            out[key] = {"x0": x0.float().cpu(), "counts": _counts(),
+                        "seconds": time.perf_counter() - t1,
+                        "build_seconds": build_s,
+                        "replicated": sp.run_stage.replicated - replicated,
+                        "forward": _serve_forward(
+                            trainer, context if guided else None)}
+            if mesh is None:
+                _, nudged = trainer.sample_panoptic(
+                    batch, init_noise=_serve_nudge(init),
+                    num_inference_steps=SERVE_STEPS,
+                    guidance_scale=SERVE_GUIDANCE if guided else None,
+                    graph=False)
+                out[key]["nudged_x0"] = nudged.float().cpu()
+                out[key]["nudged_forward"] = _serve_forward(
+                    trainer, context if guided else None, nudged=True)
+        if label == "int8 fused norms":
+            out["int8_unet_bytes"] = _int8_unet_bytes(trainer._unet_int8)
+        if label == "int8 fused_norms False" and mesh is not None:
+            out["controls"] = _serve_controls(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+# the input's relative nudge of phase 63's sensitivity runs: below a bf16
+# ulp (2^-8), as the UNet reads its input in bf16. A rank's forward and x0
+# are held within the larger of 2e-2 of max|ref| (2e-3 on the mean) and
+# SERVE_FLOOR_FACTOR times one rank's own move for the nudge, max and mean
+# (one draw of that move estimates it; the mesh's reordered sums act at
+# every layer, the nudge at the input)
+SERVE_NUDGE = 2.0 ** -9
+SERVE_FLOOR_FACTOR = 2.0
+
+
+def _serve_nudge(init):
+    """``init`` times ``1 +- SERVE_NUDGE`` (a seeded sign an element)."""
+    import torch
+    gen = torch.Generator().manual_seed(632)
+    sign = torch.randint(0, 2, init.shape, generator=gen) * 2 - 1
+    return init * (1 + SERVE_NUDGE * sign)
+
+
+def _serve_forward(trainer, context, nudged: bool = False):
+    """One UNet forward of the trainer's sampling UNet (int8 or bf16) on a
+    fixed input (bf16, [2, C, 32, 64], t = 999 and 499, the context when
+    guided; ``nudged``: the input moved by ``SERVE_NUDGE``): the output on
+    the CPU in fp32."""
+    import torch
+    gen = torch.Generator().manual_seed(633)
+    unet = (trainer.int8_unet() if trainer.int8_inference
+            else trainer.inference_unet())
+    x = torch.randn((2, unet.config.in_channels)
+                    + tuple(n // 8 for n in SERVE_HW), generator=gen)
+    if nudged:
+        x = _serve_nudge(x)
+    ctx = None if context is None else context.cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        y = unet(x.cuda().to(torch.bfloat16),
+                 torch.tensor([999, 499], device="cuda"), ctx)
+    return y.float().cpu()
+
+
+# phase 63's planted faults (:func:`_serve_controls`): the model group's
+# reduction each one replaces with this rank's own value
+SERVE_FAULTS = ("rank-local amax", "dropped partials")
+
+
+def _serve_controls(trainer) -> dict:
+    """Phase 63's controls on this rank of the mesh, on the unfused int8
+    UNet (K12's interior on its dynamic scale, one amax per (image, token
+    block) over all 4C columns): one UNet forward (:func:`_serve_forward`)
+    as it runs, and one with each of ``SERVE_FAULTS`` planted in its model
+    group: ``max`` returning the rank's own amax, ``sum`` the rank's own
+    partial (the other rank's dropped). Each returns the forward's output
+    and the amaxes that the group's ``max`` returned, in order."""
+    from ldmseg_torch.parallel.tp import ModelGroup
+    group = next(m.__dict__["tp_group"] for m in trainer._unet_int8.modules()
+                 if isinstance(m.__dict__.get("tp_group"), ModelGroup))
+    out = {}
+    for fault in ("none",) + SERVE_FAULTS:
+        seen = []
+
+        def amax(a, fault=fault):
+            y = a if fault == "rank-local amax" else ModelGroup.max(group, a)
+            seen.append(y.detach().cpu())
+            return y
+        group.max = amax
+        if fault == "dropped partials":
+            group.sum = lambda x: x.float()
+        try:
+            y = _serve_forward(trainer, None)
+        finally:
+            vars(group).pop("max")
+            vars(group).pop("sum", None)
+        out[fault] = {"forward": y, "amaxes": seen}
+    return out
+
+
+def _ma_and_serve_rank(rank: int, spec: dict) -> dict:
+    """Phase 62 (:func:`_ma_rank`), then phase 63's serving calls
+    (:func:`_serve`) on the same rank and ``(1, 2)`` mesh."""
+    from ldmseg_torch.parallel.mesh import make_mesh
+    ma = _ma_rank(rank, spec)
+    t0 = time.perf_counter()
+    serve = _serve(make_mesh(1, 2))
+    serve["seconds"] = time.perf_counter() - t0
+    print(f"phase 63 rank {rank}: serving {serve['seconds']:.1f} s",
+          flush=True)
+    return {"ma": ma, "serve": serve}
+
+
+def serve_report(smi_line: str, one: dict, ranks: list,
+                 one_seconds: float) -> dict:
+    """Phase 63's checks and lines: each rank's UNet forward and x0 against
+    one rank's, within the larger of 2e-2 of max|ref| (2e-3 on the mean)
+    and ``SERVE_FLOOR_FACTOR`` times one rank's own move when its input
+    moves by ``SERVE_NUDGE`` (below a bf16 ulp; int8 codes flip near .5 and
+    a dynamic per-tensor amax moves every code),
+    its calibrated scales against one rank's, the launches (K3 and K4 64
+    a sample, 128 with CFG; K13 and K12 64; K1's wide class once an
+    encode; no fallback), 50-55% of the int8 UNet's bytes, no spatial
+    stage run whole."""
+    steps = SERVE_STEPS
+    want = {"int8 fused norms": {"K3": 16 * steps, "K4": 16 * steps,
+                                  "K1w": 1},
+            "int8 fused_norms False": {"K13": 16 * steps, "K12": 16 * steps,
+                                        "K1w": 1},
+            "guided int8": {"K3": 32 * steps, "K4": 32 * steps, "K1w": 1},
+            "guided bf16": {"K1": 32 * steps, "K1w": 1}}
+    result = {"one_rank_seconds": one_seconds, "runs": {},
+              "rank_seconds": [r["seconds"] for r in ranks]}
+    for i, r in enumerate(ranks):
+        for key, expect in want.items():
+            got, ref = r[key], one[key]
+
+            def errs(out, name, got=got, ref=ref):
+                # the max and mean error against one rank's, one rank's
+                # own move when its input moves by less than a bf16 ulp
+                # (max and mean), and max|ref|
+                d = (got[out] - ref[out]).abs()
+                n = (ref[name] - ref[out]).abs()
+                return (float(d.max()), float(d.mean()), float(n.max()),
+                        float(n.mean()), float(ref[out].abs().max()))
+            fe = errs("forward", "nudged_forward")
+            xe = errs("x0", "nudged_x0")
+            result["runs"].setdefault(key, []).append(
+                {"forward_err": fe, "x0_err": xe,
+                 "counts": got["counts"], "seconds": got["seconds"]})
+            print(f"phase 63 rank {i} {key}: a UNet forward's err max "
+                  f"{fe[0]:.3e} mean {fe[1]:.3e} of max|out| {fe[4]:.3e} "
+                  f"(one rank's own move for a {SERVE_NUDGE} nudge of its "
+                  f"input: max {fe[2]:.3e} mean {fe[3]:.3e}); "
+                  f"{steps}-step sample (eager, batch 2 of "
+                  f"{SERVE_HW[0]}x{SERVE_HW[1]}) x0 err max {xe[0]:.3e} "
+                  f"mean {xe[1]:.3e} of max|x0| {xe[4]:.3e} (its own move "
+                  f"for the nudge of its initial noise: max {xe[2]:.3e} "
+                  f"mean {xe[3]:.3e}); each within the larger of 2e-2 of "
+                  f"max|ref| (2e-3 on the mean) and {SERVE_FLOOR_FACTOR:g} "
+                  f"times that move; "
+                  f"launches {({k: v for k, v in got['counts'].items() if v})}"
+                  f"; {got['seconds']:.3f} s a sample on the rank (two gloo "
+                  f"ranks on ONE card: not a speed), one rank "
+                  f"{ref['seconds']:.3f} s [{smi_line}]", flush=True)
+            for name, e in (("forward", fe), ("x0", xe)):
+                emax, emean, nmax, nmean, rmax = e
+                check(_serve_within(e),
+                      f"phase 63 rank {i} {key}: {name} err max {emax} "
+                      f"mean {emean} of max|ref| {rmax}; one rank's own "
+                      f"move for a {SERVE_NUDGE} nudge max {nmax} mean "
+                      f"{nmean}")
+            check(got["counts"] == _expect(**expect),
+                  f"phase 63 rank {i} {key}: launched {got['counts']}, "
+                  f"expected {_expect(**expect)}")
+            check(got["replicated"] == 0, f"phase 63 rank {i} {key}: a "
+                  "spatial stage ran whole")
+        result.setdefault("controls", []).append(
+            _control_report(i, r["controls"], ranks[1 - i]["controls"],
+                            one["int8 fused_norms False"], smi_line))
+        worst = {}
+        for key in ("direct_scales", "scales"):
+            check(r[key].keys() == one[key].keys(),
+                  f"phase 63 rank {i}: calibrated sites differ")
+            worst[key] = max(abs(v - one[key][k]) / abs(one[key][k])
+                             for k, v in r[key].items())
+        share = r["int8_unet_bytes"] / one["int8_unet_bytes"]
+        print(f"phase 63 rank {i}: calibrate_act_scale_tree on the cut "
+              f"masters within {worst['direct_scales']:.2e} of one rank's "
+              f"and calibrate_int8 within {worst['scales']:.2e} (rtol "
+              f"{SERVE_SCALE_RTOL}), {len(r['scales'])} sites; int8 "
+              f"UNet bytes {share:.4f} of one rank's; {r['seconds']:.1f} s "
+              f"in all", flush=True)
+        for key, err in worst.items():
+            check(err <= SERVE_SCALE_RTOL, f"phase 63 rank {i}: {key} "
+                  f"{err} from one rank's (rtol {SERVE_SCALE_RTOL})")
+        check(0.50 <= share <= 0.55, f"phase 63 rank {i}: int8 UNet byte "
+              f"share {share}")
+        result.setdefault("scale_rel_err", []).append(worst)
+        result.setdefault("int8_unet_byte_shares", []).append(share)
+    return result
+
+
+def _serve_within(e) -> bool:
+    """Phase 63's bound on an error tuple of :func:`serve_report`'s
+    ``errs`` (max, mean, the nudge's max and mean, max|ref|): within the
+    larger of 2e-2 of max|ref| (2e-3 on the mean) and
+    ``SERVE_FLOOR_FACTOR`` times one rank's own move for the nudge."""
+    emax, emean, nmax, nmean, rmax = e
+    return (emax <= max(2e-2 * rmax, SERVE_FLOOR_FACTOR * nmax)
+            and emean <= max(2e-3 * rmax, SERVE_FLOOR_FACTOR * nmean))
+
+
+def _control_report(i: int, ctl: dict, other: dict, ref: dict,
+                    smi_line: str) -> dict:
+    """Phase 63's controls on rank ``i`` (:func:`_serve_controls`; ``other``
+    the other rank's): the forward as it runs is within the phase's bound
+    of one rank's and reads 16 amaxes from its group (K12's, one a block),
+    the same on both ranks; with the rank-local amax planted, the ranks'
+    amaxes differ; with the other rank's partials dropped, the forward
+    fails the bound. The rank-local amax's forward error is
+    printed beside the bound, not checked: a finer scale on a rank's
+    columns is a quantization of the same size, which no bound on the
+    output can tell from the reordered sums."""
+    import torch
+    row = {}
+    for fault in ("none",) + SERVE_FAULTS:
+        c = ctl[fault]
+        d = (c["forward"] - ref["forward"]).abs()
+        n = (ref["nudged_forward"] - ref["forward"]).abs()
+        e = (float(d.max()), float(d.mean()), float(n.max()),
+             float(n.mean()), float(ref["forward"].abs().max()))
+        differ = sum(not torch.equal(a, b) for a, b in
+                     zip(c["amaxes"], other[fault]["amaxes"]))
+        row[fault] = {"forward_err": e, "within_bound": _serve_within(e),
+                      "amaxes": len(c["amaxes"]), "amaxes_differ": differ}
+        print(f"phase 63 rank {i} control, {fault} planted: forward err "
+              f"max {e[0]:.3e} mean {e[1]:.3e} of max|out| {e[4]:.3e} "
+              f"(within the bound: {_serve_within(e)}); {differ} of "
+              f"{len(c['amaxes'])} amaxes differ between the ranks "
+              f"[{smi_line}]", flush=True)
+    true = row["none"]
+    check(true["within_bound"] and true["amaxes"] == 16
+          and true["amaxes_differ"] == 0,
+          f"phase 63 rank {i} control: the forward as it runs, "
+          f"{true['forward_err']} (within the bound: "
+          f"{true['within_bound']}), {true['amaxes']} amaxes from the "
+          f"group, {true['amaxes_differ']} differing between the ranks "
+          f"(16 and 0 expected)")
+    check(row["rank-local amax"]["amaxes_differ"] > 0,
+          f"phase 63 rank {i} control: a rank-local amax left the ranks' "
+          f"amaxes equal")
+    check(not row["dropped partials"]["within_bound"],
+          f"phase 63 rank {i} control: dropping the other rank's partials "
+          f"stayed within the bound")
+    return row
 
 
 _T0 = time.perf_counter()
@@ -7116,10 +7741,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp_one, dp_two, dp_dry, dp_seconds = phase_dp(smi_line)
         lap("phases 59-61")
-        # the model axis: tensor and spatial parallelism at full width
+        # the model axis: tensor and spatial parallelism at full width, then
+        # serving on it (phase 63: the partial kernels here, the pipeline on
+        # phase 62's ranks)
         torch.cuda.empty_cache()
-        model_axis = phase_model_axis(smi_line)
-        lap("phase 62")
+        t63 = time.perf_counter()
+        partial_rows = phase_partial_kernels()
+        partial_s = time.perf_counter() - t63
+        torch.cuda.empty_cache()
+        model_axis, serving_axis = phase_model_axis(smi_line)
+        serving_axis["seconds"] = (
+            partial_s + serving_axis["one_rank_seconds"]
+            + max(serving_axis["rank_seconds"]))
+        print(f"phase 63 seconds: {serving_axis['seconds']:.1f} (the "
+              f"partial kernels {partial_s:.1f}, one rank "
+              f"{serving_axis['one_rank_seconds']:.1f}, the ranks' serving "
+              f"{max(serving_axis['rank_seconds']):.1f}"
+              f")", flush=True)
+        lap("phases 62-63")
         clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
@@ -7167,7 +7806,9 @@ def main() -> int:
                               "two_gloo_ranks": dp_two,
                               "dryrun_multichip": dp_dry,
                               "seconds": dp_seconds},
-            "model_axis": model_axis}}),
+            "model_axis": model_axis,
+            "model_axis_serving": serving_axis,
+            "model_axis_partial_kernels": partial_rows}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -7190,7 +7831,7 @@ def main() -> int:
                 "counts"]
         paths["UNet forward, variant B flags"] = variant_b_unet["counts"]
         paths["UNet forward, K11 UNet"] = k11_unet_result["counts"]
-        paths["ddim_sample, K11 UNet, 50 steps"] = k11_counts
+        paths[f"ddim_sample, K11 UNet, {SAMPLE_STEPS} steps"] = k11_counts
         paths["UNet forward, use_packed_attention"] = packed_unet["counts"]
         paths["sample_panoptic, use_packed_attention"] = packed_counts
         paths[f"train_loop, use_packed_attention, {PACKED_TIMED_STEPS} "
@@ -7228,15 +7869,19 @@ def main() -> int:
               f"steps"] = remat_train["counts"]
         paths["ImageVAE.encode, int8 with fused attention, batch 2"] = (
             vaes["image_encode"]["counts"])
-        for sampler, what in (("ddim", "50 DDIM steps"),
-                              ("dpmpp_2m", "20 DPM-Solver++(2M) steps")):
+        tail, dpm_tail = _refine_steps(SAMPLE_STEPS), _refine_steps(DPM_STEPS)
+        for sampler, what in (("ddim", f"{SAMPLE_STEPS} DDIM steps"),
+                              ("dpmpp_2m", f"{DPM_STEPS} DPM-Solver++(2M) "
+                                           f"steps")):
             paths[f"sample_panoptic, the JAX bench's serving configuration, "
                   f"{what}"] = serving[sampler]["default scales"]["counts"]
-        paths["sample_panoptic_clip, bf16, 1 clip of 3 frames: DDIM 50 + a "
-              "15-step DDIM tail"] = clip_sample["counts"]
-        for sampler, what in (("ddim", "DDIM 50 + a 15-step DDIM tail"),
-                              ("dpmpp_2m", "DPM-Solver++(2M) 20 + a 6-step "
-                                           "DDIM tail")):
+        paths[f"sample_panoptic_clip, bf16, 1 clip of 3 frames: DDIM "
+              f"{SAMPLE_STEPS} + a {tail}-step DDIM tail"] = clip_sample[
+                  "counts"]
+        for sampler, what in (("ddim", f"DDIM {SAMPLE_STEPS} + a {tail}-step "
+                                       f"DDIM tail"),
+                              ("dpmpp_2m", f"DPM-Solver++(2M) {DPM_STEPS} + a "
+                                           f"{dpm_tail}-step DDIM tail")):
             paths[f"sample_panoptic_clip, the JAX bench's serving "
                   f"configuration, {what}"] = clip_serving[sampler]["counts"]
         paths["train_loop on 2 clips of 3 frames with the consistency "
@@ -7247,12 +7892,13 @@ def main() -> int:
             video_cli["predict_counts"])
         paths[f"trained_gate at {GATE_STEPS} steps, 1 val batch"] = gate[
             "counts"]
-        paths["sample_panoptic with a context, bf16, CFG 7.5 (2 UNet calls "
-              "a step), 50 DDIM steps"] = cond_sample["counts"]
+        paths[f"sample_panoptic with a context, bf16, CFG 7.5 (2 UNet calls "
+              f"a step), {SAMPLE_STEPS} DDIM steps"] = cond_sample["counts"]
         paths["sample_panoptic with a context, bf16, guidance 1.0"] = (
             cond_sample["guidance_1"]["counts"])
-        paths["sample_panoptic_clip with a context, bf16, CFG 7.5, DDIM 50 "
-              "+ a 15-step tail"] = cond_sample["clip_counts"]
+        paths[f"sample_panoptic_clip with a context, bf16, CFG 7.5, DDIM "
+              f"{SAMPLE_STEPS} + a {tail}-step tail"] = cond_sample[
+                  "clip_counts"]
         paths["sample_panoptic with a context, int8 fused norms, CFG 7.5"] = (
             cond_int8["counts"])
         paths[f"train_loop, learnable queries + separate_encoder + "
@@ -7269,6 +7915,11 @@ def main() -> int:
             paths[f"model axis (data=1, model=2), rank {rank}: a TP + SP "
                   f"+ ZeRO-1 step (batch {MA_BATCH}), a {MA_STEPS}-step bf16 "
                   f"sample_panoptic"] = _expect(**counts)
+        for key, runs in serving_axis["runs"].items():
+            for rank, run in enumerate(runs):
+                paths[f"model axis (data=1, model=2), rank {rank}: the "
+                      f"bench's serving pipeline, {key}, a {SERVE_STEPS}-step"
+                      f" sample_panoptic"] = run["counts"]
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -7288,13 +7939,15 @@ def main() -> int:
                        "ldmseg_tpu/ops/pallas/attention.py:"
                        "_attn_kernel_abs_padded_ln_s8_vt",
                        k3_rows, dyn["K3"], by_path("K3"))
-            | products_entry(gemm_rows, "K3"),
+            | products_entry(gemm_rows, "K3")
+            | {"model_axis_partial": partial_rows["K3"]},
             int8_entry("geglu_ln_s8", "K4",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:164",
                        "ldmseg_tpu/ops/pallas/geglu.py:_geglu_ln_kernel",
                        k4_rows, dyn["K4"], by_path("K4"))
-            | products_entry(gemm_rows, "K4"),
+            | products_entry(gemm_rows, "K4")
+            | {"model_axis_partial": partial_rows["K4"]},
             int8_entry("attention_ln_s8_pin", "K8",
                        "ldmseg_torch/csrc/attention_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:875",
@@ -7327,12 +7980,14 @@ def main() -> int:
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:123",
                        "ldmseg_tpu/ops/pallas/geglu.py:_geglu_kernel",
-                       k12_rows, unfused["K12"], by_path("K12")),
+                       k12_rows, unfused["K12"], by_path("K12"))
+            | {"model_axis_partial": partial_rows["K12"]},
             int8_entry("attention_s8", "K13",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:47",
                        "ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_s8",
                        k13_rows, unfused["K13"], by_path("K13"))
+            | {"model_axis_partial": partial_rows["K13"]}
             | S8PV_REDESIGN,
             gn_entry("group_norm_silu", "K5",
                      "ldmseg_torch/csrc/groupnorm_silu.cu",

@@ -85,6 +85,15 @@
 // rows), the products wgmma's with A's transpose bit. Its 2*T*C^2 bf16
 // operations per image add ~1/3 to K3's bf16 work at every level; at T =
 // 128 and 32 Wpi's bytes bound it.
+//
+// Tensor parallelism (ldmseg_torch/parallel/tp.py): a rank holds the rows of
+// Wq, Wk and Wv of its heads and the columns of Wo that read them, so its
+// inner width ci = heads_local * d differs from c. The LayerNorm still runs
+// over the whole replicated c; b. writes 3 * ci columns, c. attends over the
+// local heads, and d. is [rows, ci] x [c, ci]^T with PartialF32Epi: the fp32
+// product alone, without the residual and b_out
+// (ldmseg_attention_ln_s8_partial). The caller sums the ranks' partials in
+// fp32, adds x and b_out and rounds once, where step 6 rounds.
 
 #include "attention_sm90.cuh"
 #include "gemm_sm90.cuh"
@@ -101,7 +110,9 @@ constexpr int kMaxD = 160;  // largest head dim taken
 // q8 and k8 requantized per column, clip(rint(sum * m[col])), into the
 // head-padded [rows, heads, dp]; v dequantized to bf16 [rows, c]; the
 // product's columns are q | k | v (attention_s8.cu's QkPadEpi requantizes
-// K11's q8 and k8 the same way). Where a column goes is worked out once per
+// K11's q8 and k8 the same way); c here is the inner width, ci of a
+// rank's heads under tensor parallelism. Where a column goes is worked out
+// once per
 // column and block (a code in the int per-column vector: its section and
 // its offset in the row), so the pairs' stores take no division. A column
 // pair never straddles a head or a section: c and d are multiples of 8 and
@@ -243,6 +254,27 @@ struct BiasF32Epi {
   }
 };
 
+// to_out's epilogue on a model axis: the fp32 partial product of this
+// rank's heads alone, [rows, n] row-major, stored as pairs
+struct PartialF32Epi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 0;
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  float* out;
+  int n;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*, const int2*,
+                             const RowPre&, const Pre&, float s0,
+                             float s1) const {
+    *reinterpret_cast<float2*>(out + static_cast<long long>(row) * n + col) =
+        make_float2(s0, s1);
+  }
+};
+
 // K8's prologue: xf = x Wpi^T + bpi in fp32 from bf16 x, as tokens [batch
 // * t, c] or channel-major [batch, c, t] (the A operand MN-major, row
 // tiles per image); plan is sm90_gemm_plan's of [batch * t, c] x [c, c]^T
@@ -261,34 +293,47 @@ int launch_proj_in(int channels_major, const void* x, const void* wpi,
       plan, x, &wpi, batch * t, c, c, 0, 1, epi, stream);
 }
 
-// plans: ops/gemm.py:sm90_gemm_plan's of the projection ([rows, c] x [3c,
+// plans: ops/gemm.py:sm90_gemm_plan's of the projection ([rows, c] x [3ci,
 // c]^T, int8), ops/attention_s8.py:sm90_s8_attention_plan's, and
-// sm90_gemm_plan's of to_out ([rows, c] x [c, c]^T, bf16), in that order
-// (9 + 10 + 9 ints)
+// sm90_gemm_plan's of to_out ([rows, ci] x [c, ci]^T, bf16), in that order
+// (9 + 10 + 9 ints). ci = c but on a model axis; with partial, to_out's fp32
+// product goes there (out, the residual and out_b unused), else to out.
 template <typename T>
-int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
-           const float* out_b, const int8_t* w_qkv, const float* m_qkv,
-           const __nv_bfloat16* wo, int8_t* x8, int8_t* q8, int8_t* k8,
-           __nv_bfloat16* v, __nv_bfloat16* o, int batch, int t, int c,
-           int heads, float xs, float score_scale, float eps,
-           const int* plans, cudaStream_t stream) {
+int launch(const void* x, void* out, float* partial, const float* ln_w,
+           const float* ln_b, const float* out_b, const int8_t* w_qkv,
+           const float* m_qkv, const __nv_bfloat16* wo, int8_t* x8,
+           int8_t* q8, int8_t* k8, __nv_bfloat16* v, __nv_bfloat16* o,
+           int batch, int t, int c, int ci, int heads, float xs,
+           float score_scale, float eps, const int* plans,
+           cudaStream_t stream) {
   const int rows = batch * t;
-  const int d = c / heads;
+  const int d = ci / heads;
   int err = launch_ln_quant<T>(x, x8, ln_w, ln_b, rows, c, xs, eps, nullptr,
                                0, stream);
   if (err != 0) return err;
   err = gemm90::launch_gemm<true>(
-      plans, x8, w_qkv, rows, 3 * c, c, 0,
-      QkvPadEpi{m_qkv, q8, k8, v, c, d, (d + 31) / 32 * 32, heads}, stream);
+      plans, x8, w_qkv, rows, 3 * ci, c, 0,
+      QkvPadEpi{m_qkv, q8, k8, v, ci, d, (d + 31) / 32 * 32, heads}, stream);
   if (err != 0) return err;
-  err = launch_attn(plans + gemm90::kPlanInts, q8, k8, v, o, batch, t, c,
+  err = launch_attn(plans + gemm90::kPlanInts, q8, k8, v, o, batch, t, ci,
                     heads, score_scale, stream);
   if (err != 0) return err;
+  const int* out_plan = plans + gemm90::kPlanInts + kAttnPlanInts;
+  if (partial != nullptr) {
+    return gemm90::launch_gemm<false>(out_plan, o, wo, rows, c, ci, 0,
+                                      PartialF32Epi{partial, c}, stream);
+  }
   return gemm90::launch_gemm<false>(
-      plans + gemm90::kPlanInts + kAttnPlanInts, o, wo, rows, c, c, 0,
+      out_plan, o, wo, rows, c, ci, 0,
       gemm90::ResidualEpi<T>{static_cast<const T*>(x), out_b,
                              static_cast<__nv_bfloat16*>(out), c},
       stream);
+}
+
+bool shape_ok(int batch, int t, int c, int ci, int heads) {
+  return batch >= 1 && t >= 1 && heads >= 1 && ci % heads == 0 &&
+         c % 8 == 0 && ci % 8 == 0 && (ci / heads) % 8 == 0 &&
+         ci / heads <= kMaxD && batch * heads <= 65535;
 }
 
 }  // namespace
@@ -306,8 +351,7 @@ extern "C" int ldmseg_attention_ln_s8(
     const float* m_qkv, const void* wo, int8_t* x8, int8_t* q8, int8_t* k8,
     void* v, void* o, int batch, int t, int c, int heads, float xs,
     float score_scale, float eps, const int* plans, void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535) {
+  if (!shape_ok(batch, t, c, c, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -315,14 +359,48 @@ extern "C" int ldmseg_attention_ln_s8(
   auto* vb = static_cast<__nv_bfloat16*>(v);
   auto* obf = static_cast<__nv_bfloat16*>(o);
   if (dtype == 0) {
-    return launch<float>(x, out, ln_w, ln_b, out_b, w_qkv, m_qkv, wob, x8, q8,
-                         k8, vb, obf, batch, t, c, heads, xs, score_scale,
-                         eps, plans, s);
+    return launch<float>(x, out, nullptr, ln_w, ln_b, out_b, w_qkv, m_qkv,
+                         wob, x8, q8, k8, vb, obf, batch, t, c, c, heads, xs,
+                         score_scale, eps, plans, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, out, ln_w, ln_b, out_b, w_qkv, m_qkv, wob,
-                                 x8, q8, k8, vb, obf, batch, t, c, heads, xs,
-                                 score_scale, eps, plans, s);
+    return launch<__nv_bfloat16>(x, out, nullptr, ln_w, ln_b, out_b, w_qkv,
+                                 m_qkv, wob, x8, q8, k8, vb, obf, batch, t, c,
+                                 c, heads, xs, score_scale, eps, plans, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3 on this rank's heads of a model axis: the arguments of
+// ldmseg_attention_ln_s8 without out and out_b, with the inner width ci =
+// heads * d of the rank's heads: w_qkv int8 [3ci, c] (its q, k, v rows),
+// m_qkv fp32 [3ci], wo bf16 [c, ci] (the columns of to_out that read
+// them); q8 and k8 [batch*t, heads, dp], v and o bf16 [batch*t, ci]
+// scratch; partial fp32 [batch*t, c] receives o Wo^T alone. plans as
+// launch() takes them for ci. Returns a cudaError_t (0 on success).
+extern "C" int ldmseg_attention_ln_s8_partial(
+    int dtype, const void* x, float* partial, const float* ln_w,
+    const float* ln_b, const int8_t* w_qkv, const float* m_qkv,
+    const void* wo, int8_t* x8, int8_t* q8, int8_t* k8, void* v, void* o,
+    int batch, int t, int c, int ci, int heads, float xs, float score_scale,
+    float eps, const int* plans, void* stream) {
+  if (!shape_ok(batch, t, c, ci, heads) || partial == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* wob = static_cast<const __nv_bfloat16*>(wo);
+  auto* vb = static_cast<__nv_bfloat16*>(v);
+  auto* obf = static_cast<__nv_bfloat16*>(o);
+  if (dtype == 0) {
+    return launch<float>(x, nullptr, partial, ln_w, ln_b, nullptr, w_qkv,
+                         m_qkv, wob, x8, q8, k8, vb, obf, batch, t, c, ci,
+                         heads, xs, score_scale, eps, plans, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(x, nullptr, partial, ln_w, ln_b, nullptr,
+                                 w_qkv, m_qkv, wob, x8, q8, k8, vb, obf,
+                                 batch, t, c, ci, heads, xs, score_scale, eps,
+                                 plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -340,19 +418,17 @@ extern "C" int ldmseg_attention_ln_s8_pin(
     const void* wo, int8_t* x8, int8_t* q8, int8_t* k8, void* v, void* o,
     int batch, int t, int c, int heads, float xs, float score_scale,
     float eps, const int* plans, void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 || c % 8 != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
-      (channels_major && t % 8 != 0)) {
+  if (!shape_ok(batch, t, c, c, heads) || (channels_major && t % 8 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_proj_in(channels_major, x, wpi, bpi, xf, batch, t,
                                  c, plans, s);
   if (err != 0) return err;
-  return launch<float>(xf, out, ln_w, ln_b, out_b, w_qkv, m_qkv,
+  return launch<float>(xf, out, nullptr, ln_w, ln_b, out_b, w_qkv, m_qkv,
                        static_cast<const __nv_bfloat16*>(wo), x8, q8, k8,
                        static_cast<__nv_bfloat16*>(v),
-                       static_cast<__nv_bfloat16*>(o), batch, t, c, heads,
+                       static_cast<__nv_bfloat16*>(o), batch, t, c, c, heads,
                        xs, score_scale, eps, plans + gemm90::kPlanInts, s);
 }
 

@@ -71,6 +71,18 @@
 // int8 operations counted at the bf16 rate; at T = 128 and 32 (C = 1,280)
 // Wpo's 3.3 MB bound it, and its plan (ops/geglu.py:pout_plan) takes the
 // tile with the most blocks and a ring up to 8 stages deep to stream it.
+//
+// Tensor parallelism (ldmseg_torch/parallel/tp.py): a rank holds its M / n
+// h rows of W1, then its M / n gate rows (the paired layout), and the
+// matching M / n columns of W2, so its m is M / n; the LayerNorm and x8 are
+// over the whole replicated c. A dynamic interior scale is one amax over
+// all M columns, so the launch splits in two (ldmseg_geglu_s8_up: a. and
+// b.; ldmseg_geglu_s8_down_partial: c. and d.) and the caller takes the
+// maximum of the ranks' amax slots between them (the slots hold the
+// floats' bits, which order as the floats). d. then writes the fp32 partial
+// y * gs * s2 alone (DownEpi kDownPartial: no residual, no b2); the caller
+// sums the ranks' partials in fp32 and adds x and b2 (K4), or rounds the
+// sum (K12), where step 5 rounds.
 
 #include <type_traits>
 
@@ -160,9 +172,14 @@ struct GateEpi {
   }
 };
 
-// ---- d: W2's epilogue: the interior scale, residual and bias (kBlock) ------
-template <typename T, bool kBlock>
+// ---- d: W2's epilogue: the interior scale, then per kMode --------------------
+// kDownFF (K12): bf16(y * s2) into out; kDownBlock (K4): bf16(x + y * s2 +
+// b2) into out; kDownPartial (a model axis): fp32 y * s2 into partial
+enum DownMode { kDownFF = 0, kDownBlock = 1, kDownPartial = 2 };
+
+template <typename T, int kMode>
 struct DownEpi {
+  static constexpr bool kBlock = kMode == kDownBlock;
   static constexpr int kOps = 1;
   static constexpr int kCols = kBlock ? 2 : 1;  // s2, b2
   static constexpr int kIntCols = 0;
@@ -174,6 +191,7 @@ struct DownEpi {
   const float* s2;
   const float* b2;
   __nv_bfloat16* out;
+  float* partial;
   int c, t, block_t;
   float gs_static;
   int dynamic;
@@ -197,6 +215,12 @@ struct DownEpi {
                              int a0, int a1) const {
     const float y0 = static_cast<float>(a0) * gs;
     const float y1 = static_cast<float>(a1) * gs;
+    const long long at = static_cast<long long>(row) * c + col;
+    if constexpr (kMode == kDownPartial) {
+      *reinterpret_cast<float2*>(partial + at) =
+          make_float2(y0 * cv[0].x, y1 * cv[0].y);
+      return;
+    }
     uint32_t pair;
     if constexpr (kBlock) {
       const float2 xf = gemm90::to_f2(xv);
@@ -205,10 +229,49 @@ struct DownEpi {
     } else {
       pair = sm90::pack_bf16(y0 * cv[0].x, y1 * cv[0].y);
     }
-    *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * c +
-                                 col) = pair;
+    *reinterpret_cast<uint32_t*>(out + at) = pair;
   }
 };
+
+// a. and b.: kBlock with the LayerNorm (K4), else x quantized as it is
+// (K12); plan: sm90_gemm_plan's of up
+template <typename T, bool kBlock>
+int launch_up(const void* x, const float* ln_w, const float* ln_b,
+              const int8_t* w1, const float* s1, const float* b1, int8_t* x8,
+              float* g, int8_t* g8, unsigned* amax, int batch, int t, int c,
+              int m, int block_t, float xs, float gs, int dynamic, float eps,
+              const int* plan, cudaStream_t stream) {
+  const int rows = batch * t;
+  const int slots = batch * (t / block_t);
+  int err = launch_ln_quant<T, kBlock>(x, x8, ln_w, ln_b, rows, c, xs, eps,
+                                       dynamic ? amax : nullptr, slots,
+                                       stream);
+  if (err != 0) return err;
+  return gemm90::launch_gemm<true>(
+      plan, x8, w1, rows, m, c, m,
+      GateEpi{s1, b1, g, g8, amax, m, t, block_t, xs, gs, dynamic}, stream);
+}
+
+// c. (dynamic only) and d.; plan: sm90_gemm_plan's of down
+template <typename T, int kMode>
+int launch_down(const void* x, void* out, float* partial, const int8_t* w2,
+                const float* s2, const float* b2, const float* g, int8_t* g8,
+                const unsigned* amax, int batch, int t, int c, int m,
+                int block_t, float gs, int dynamic, const int* plan,
+                cudaStream_t stream) {
+  const int rows = batch * t;
+  if (dynamic) {
+    quant_kernel<<<rows, 256, 0, stream>>>(g, g8, amax, t, m, block_t);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  return gemm90::launch_gemm<true>(
+      plan, g8, w2, rows, c, m, 0,
+      DownEpi<T, kMode>{static_cast<const T*>(x), amax, s2, b2,
+                        static_cast<__nv_bfloat16*>(out), partial, c, t,
+                        block_t, gs, dynamic},
+      stream);
+}
 
 // kBlock: K4 (LayerNorm, residual and b2); else K12 (ln_w, ln_b, b2 and eps
 // unused). plans: sm90_gemm_plan's of up, then down.
@@ -219,27 +282,13 @@ int launch(const void* x, void* out, const float* ln_w, const float* ln_b,
            float* g, int8_t* g8, unsigned* amax, int batch, int t, int c,
            int m, int block_t, float xs, float gs, int dynamic, float eps,
            const int* plans, cudaStream_t stream) {
-  const int rows = batch * t;
-  const int slots = batch * (t / block_t);
-  int err = launch_ln_quant<T, kBlock>(x, x8, ln_w, ln_b, rows, c, xs, eps,
-                                       dynamic ? amax : nullptr, slots,
-                                       stream);
+  const int err = launch_up<T, kBlock>(x, ln_w, ln_b, w1, s1, b1, x8, g, g8,
+                                       amax, batch, t, c, m, block_t, xs, gs,
+                                       dynamic, eps, plans, stream);
   if (err != 0) return err;
-  err = gemm90::launch_gemm<true>(
-      plans, x8, w1, rows, m, c, m,
-      GateEpi{s1, b1, g, g8, amax, m, t, block_t, xs, gs, dynamic}, stream);
-  if (err != 0) return err;
-  if (dynamic) {
-    quant_kernel<<<rows, 256, 0, stream>>>(g, g8, amax, t, m, block_t);
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
-  return gemm90::launch_gemm<true>(
-      plans + gemm90::kPlanInts, g8, w2, rows, c, m, 0,
-      DownEpi<T, kBlock>{static_cast<const T*>(x), amax, s2, b2,
-                         static_cast<__nv_bfloat16*>(out), c, t, block_t, gs,
-                         dynamic},
-      stream);
+  return launch_down<T, kBlock ? kDownBlock : kDownFF>(
+      x, out, nullptr, w2, s2, b2, g, g8, amax, batch, t, c, m, block_t, gs,
+      dynamic, plans + gemm90::kPlanInts, stream);
 }
 
 // K9's proj_out epilogue on the swapped product (rows: output channels,
@@ -359,4 +408,57 @@ extern "C" int ldmseg_geglu_ln_s8_pout(
       plans + 2 * gemm90::kPlanInts, wpo, r, c, batch * t, c, 0,
       ProjOutEpi{bpo, static_cast<__nv_bfloat16*>(out), c, t},
       static_cast<cudaStream_t>(stream));
+}
+
+// The first half of K4 (block = 1) or K12 (block = 0) on this rank's GEGLU
+// columns of a model axis: a. and b. of ldmseg_geglu_ln_s8 with its
+// arguments (w1 int8 [2m, c]: the rank's m h rows, then its m gate rows),
+// the amax slots (dynamic) or g8 (static) left for
+// ldmseg_geglu_s8_down_partial; plan: sm90_gemm_plan's of up. Returns a
+// cudaError_t (0 on success).
+extern "C" int ldmseg_geglu_s8_up(
+    int dtype, int block, const void* x, const float* ln_w, const float* ln_b,
+    const int8_t* w1, const float* s1, const float* b1, int8_t* x8, float* g,
+    int8_t* g8, unsigned* amax, int batch, int t, int c, int m, int block_t,
+    float xs, float gs, int dynamic, float eps, const int* plan,
+    void* stream) {
+  if (!shape_ok(batch, t, c, m, block_t, gs, dynamic) || block < 0 ||
+      block > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return block ? launch_up<float, true>(x, ln_w, ln_b, w1, s1, b1, x8, g,
+                                          g8, amax, batch, t, c, m, block_t,
+                                          xs, gs, dynamic, eps, plan, s)
+                 : launch_up<float, false>(x, ln_w, ln_b, w1, s1, b1, x8, g,
+                                           g8, amax, batch, t, c, m, block_t,
+                                           xs, gs, dynamic, eps, plan, s);
+  }
+  if (dtype == 1) {
+    return block ? launch_up<__nv_bfloat16, true>(
+                       x, ln_w, ln_b, w1, s1, b1, x8, g, g8, amax, batch, t,
+                       c, m, block_t, xs, gs, dynamic, eps, plan, s)
+                 : launch_up<__nv_bfloat16, false>(
+                       x, ln_w, ln_b, w1, s1, b1, x8, g, g8, amax, batch, t,
+                       c, m, block_t, xs, gs, dynamic, eps, plan, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The second half: c. (dynamic: the slots hold the maximum over the model
+// group by now) and d. with w2 int8 [c, m] (the rank's m columns) and s2
+// fp32 [c] (each row's scale over all M columns), writing partial fp32
+// [batch*t, c] = y * gs * s2; g, g8 and amax as ldmseg_geglu_s8_up left
+// them; plan: sm90_gemm_plan's of down. Returns a cudaError_t.
+extern "C" int ldmseg_geglu_s8_down_partial(
+    const float* g, int8_t* g8, const unsigned* amax, const int8_t* w2,
+    const float* s2, float* partial, int batch, int t, int c, int m,
+    int block_t, float gs, int dynamic, const int* plan, void* stream) {
+  if (!shape_ok(batch, t, c, m, block_t, gs, dynamic) || partial == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_down<float, kDownPartial>(
+      nullptr, nullptr, partial, w2, s2, nullptr, g, g8, amax, batch, t, c, m,
+      block_t, gs, dynamic, plan, static_cast<cudaStream_t>(stream));
 }

@@ -71,14 +71,19 @@ class GroupNormSiLU(GroupNorm):
             return F.silu(self.normalize(x)).to(x.dtype)
         b, c = x.shape[:2]
         g = self.num_groups
-        xr = x.reshape(b, g, -1).float()
-        mean = xr.mean(-1, keepdim=True)                     # [B, G, 1]
-        var = (xr - mean).square().mean(-1, keepdim=True)
+        mean, var = self.group_stats(x.reshape(b, g, -1).float())
         w = self.weight.float().reshape(g, -1) * torch.rsqrt(var + self.eps)
         shift = self.bias.float().reshape(g, -1) - mean * w  # [B, G, C/G]
         y = (x * w.reshape(b, c, 1, 1).to(x.dtype)
              + shift.reshape(b, c, 1, 1).to(x.dtype))
         return F.silu(y)
+
+
+    def group_stats(self, xr: torch.Tensor):
+        """The lowp path's fp32 mean and variance ``[B, G, 1]`` of each
+        (image, group) of ``xr [B, G, n]``."""
+        mean = xr.mean(-1, keepdim=True)
+        return mean, (xr - mean).square().mean(-1, keepdim=True)
 
 
 class LayerNorm(nn.Module):
@@ -251,6 +256,10 @@ class ConvTranspose2x(nn.ConvTranspose2d):
     def prepare(self, src: nn.ConvTranspose2d) -> None:
         self.w_q, self.w_scale = self._codes(src.weight)
 
+    def input_scale(self, x: torch.Tensor):
+        """The input's int8 scale: ``act_scale`` (None: its amax)."""
+        return self.act_scale
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.use_int8:
             return super().forward(x)
@@ -261,7 +270,7 @@ class ConvTranspose2x(nn.ConvTranspose2d):
         else:
             w_q, col_scale = self.w_q, self.w_scale
         x_q, xs = quantize_activation(x.permute(0, 2, 3, 1).reshape(-1, c),
-                                      self.act_scale)
+                                      self.input_scale(x))
         y = int8_matmul(x_q, w_q)
         y = (y.float() * (xs * col_scale)).to(x.dtype)
         y = y.reshape(b, h, w, 2, 2, o).permute(0, 5, 1, 3, 2, 4)

@@ -260,7 +260,11 @@ class CrossAttention(nn.Module):
 
     The head count of the plain path comes from the projections' width:
     under tensor parallelism (``parallel/tp.py:apply_tp``) they hold this
-    rank's heads."""
+    rank's heads, and ``tp_group`` (the model group's reductions, which
+    ``apply_tp`` sets) gives K13's dynamic scales the amax over all of
+    them."""
+
+    tp_group = None
 
     def __init__(self, query_dim: int, heads: int, use_fused: bool = False,
                  int8: bool = False, int8_act_scale: Optional[float] = None,
@@ -304,7 +308,8 @@ class CrossAttention(nn.Module):
                 for proj in (self.to_k, self.to_v))
         if is_self and self.use_fused and self.int8:
             out = fused_self_attention_s8(q, k, v, scale,
-                                          self.int8_act_scale)
+                                          self.int8_act_scale,
+                                          self.tp_group)
         elif is_self and self.use_fused:
             out = fused_self_attention(q, k, v, scale)
         else:
@@ -423,7 +428,12 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU to 4x the width and back (diffusers ``ff.net``); ``linear``
-    builds both projections."""
+    builds both projections. Under tensor parallelism its GEGLU output
+    holds a rank's columns and ``tp_group`` (set by ``apply_tp``) is the
+    model group's reductions: the calibration takes that site's amax over
+    the group."""
+
+    tp_group = None
 
     def __init__(self, dim: int, linear=nn.Linear):
         super().__init__()
@@ -443,7 +453,9 @@ class FeedForwardS8(FeedForward):
     around the exact erf gelu. Sites (on the ``QuantLinear``s):
     ``net.0.proj`` (K12's input scale, else ``act_scale`` or 0.05) and
     ``net.2`` (K12's interior scale, else dynamic; the unfused proj_out
-    quantizes with the static ``act_scale``)."""
+    quantizes with the static ``act_scale``). Under tensor parallelism
+    (``tp_group``) K12 writes a rank's fp32 partial, summed over the group
+    before b2."""
 
     def __init__(self, dim: int, act_scale: Optional[float], fused: bool):
         super().__init__(dim, functools.partial(QuantLinear,
@@ -463,16 +475,20 @@ class FeedForwardS8(FeedForward):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fused:
             return super().forward(x)
-        y = fused_geglu_s8(x, self.pack)
+        y = fused_geglu_s8(x, self.pack, self.tp_group)
         return y + self.net[2].bias.to(y.dtype)
 
 
 class LNAttentionS8(nn.Module):
     """``norm1`` + ``attn1`` + residual of an int8 block as K3, or with
     ``proj_in`` as K8 on the GroupNorm output. Its site ``to_q`` takes the
-    calibrated scale of the LN1 output (``x_scale``); else ``act_scale``."""
+    calibrated scale of the LN1 output (``x_scale``); else ``act_scale``.
+    Under tensor parallelism the pack holds a rank's heads and
+    ``tp_group`` (set by ``apply_tp``) sums K3's partial ``to_out``
+    products over the model group."""
 
     act_scale_sites = {"to_q": "x_scale"}
+    tp_group = None
 
     def __init__(self, heads: int, act_scale: float, proj_in: bool = False):
         super().__init__()
@@ -486,7 +502,7 @@ class LNAttentionS8(nn.Module):
                                "prepare_int8_unet)")
         if self.proj_in:
             return ln_attention_s8_pin(x, self.pack)
-        return ln_attention_s8(x, self.pack)
+        return ln_attention_s8(x, self.pack, self.tp_group)
 
 
 class LNFeedForwardS8(nn.Module):
@@ -494,9 +510,12 @@ class LNFeedForwardS8(nn.Module):
     ``proj_out`` as K9, which returns Transformer2D's ``proj_out`` of the
     block's output. Sites: ``net.0.proj`` (LN3 output, ``x_scale``, else
     ``act_scale``) and ``net.2`` (the gated interior, ``g_scale``, else
-    dynamic)."""
+    dynamic). Under tensor parallelism the pack holds a rank's GEGLU
+    columns and ``tp_group`` (set by ``apply_tp``) sums K4's partial
+    outputs, and takes a dynamic interior amax, over the model group."""
 
     act_scale_sites = {"net.0.proj": "x_scale", "net.2": "g_scale"}
+    tp_group = None
 
     def __init__(self, act_scale: float, proj_out: bool = False):
         super().__init__()
@@ -511,7 +530,7 @@ class LNFeedForwardS8(nn.Module):
                                "prepare_int8_unet)")
         if self.proj_out:
             return geglu_ln_s8_pout(x, self.pack)
-        return geglu_ln_s8(x, self.pack)
+        return geglu_ln_s8(x, self.pack, self.tp_group)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -544,7 +563,7 @@ class BasicTransformerBlock(nn.Module):
                  int8_attn_act_scale: Optional[float] = None,
                  context_dim: Optional[int] = None):
         super().__init__()
-        self.heads = heads
+        self.dim, self.heads = dim, heads
         self.fuse_attn = fused_norms and padded_attention
         self.fuse_ff = fused_norms and int8_ff and fused_ff
         if fused_projs and not (self.fuse_attn and self.fuse_ff):

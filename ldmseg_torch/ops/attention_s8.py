@@ -33,6 +33,17 @@ kernel computes with are: the per-column Q/K requant factors
 ``w_scale·(xs/as)``, ``as²·d^-0.5``, the per-head V dequant ``w_scale·xs``,
 ``to_out`` dequantized to bf16 per head, the LN and bias rows.
 
+On a model axis (``parallel/tp.py``) K3 runs on the pack of a rank's
+heads: ``w_qkv [3ci, C]`` and ``wo [C, ci]`` with ``ci = heads_local·d``;
+the LayerNorm and x8 stay over the whole replicated C. Given ``group``
+(the model group's reductions, ``parallel/tp.py:ModelGroup``: ``sum`` in
+fp32, ``max``), :func:`ln_attention_s8` computes the rank's fp32 ``to_out``
+product alone (the kernel's ``ldmseg_attention_ln_s8_partial``, the plain
+version's and the fallback's ``partial``), sums it over the group and
+then adds the residual and the bias and rounds once, where the one-rank
+block rounds. K13 takes a rank's ``[B, T, H/n, d]`` q, k and v as they
+are; its dynamic scales take the group's maximum of each tensor's amax.
+
 K13 is the counterpart of ``fused_self_attention_s8`` (:104) and its kernel
 ``_attn_kernel_s8`` (:47). It keeps the wrapper's shape rule (``T > 4096``,
 ``T % min(1024, T)`` or ``T % 8`` go to the float ``_xla_bthd``, :1420,
@@ -144,6 +155,8 @@ class LNAttentionPack:
     wo: torch.Tensor      # bf16 [C, C] (out, in), dequantized per head
     wo_q: torch.Tensor    # int8 [C, C] (out, in), for the fallback
     w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
+    # (on a model axis: ``heads`` this rank's, 3ci rows of w_qkv and m_qkv,
+    # ci columns of wo and wo_q, ci = heads·d)
     # K8's prologue, Transformer2D's 1x1 proj_in (:func:`with_proj_in`)
     wpi: Optional[torch.Tensor] = None    # bf16 [C, C] (out, in)
     wpi_f: Optional[torch.Tensor] = None  # fp32, for the fallback
@@ -156,11 +169,13 @@ def pack_ln_attention(norm, attn, heads: int, xs: float,
     """Quantize a block's ``norm1`` (LayerNorm) and ``attn1``
     (CrossAttention) float weights and pack K3's operands, in the JAX
     package's float32 order (``quantize_head_weights``, ``_abs_padded_prep``
-    :1161, ``pack_padded_ln_vt_tiles``)."""
+    :1161, ``pack_padded_ln_vt_tiles``). ``heads`` is the block's; where
+    ``attn1`` holds a rank's heads (tensor parallelism: ``to_q`` ``[ci,
+    C]``) the pack holds them, ``ci / d`` of them."""
     wq, wk, wv = (p.weight for p in (attn.to_q, attn.to_k, attn.to_v))
     to_out = attn.to_out[0]
-    c = wq.shape[0]
-    d = c // heads
+    d = wq.shape[1] // heads
+    heads = wq.shape[0] // d
     q8, k8, v8, o8, scales = quantize_head_weights(wq, wk, wv,
                                                    to_out.weight, heads)
     xs32, as32 = np.float32(xs), np.float32(attn_scale)
@@ -251,24 +266,26 @@ ln_quant_s8.launches = 0
 
 
 def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
-                              static_offset: Optional[float] = None
-                              ) -> torch.Tensor:
+                              static_offset: Optional[float] = None,
+                              partial: bool = False) -> torch.Tensor:
     """K3's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): the LN and
     quantize, the int8 projections with int32 sums, the per-column requant
     of q and k and the bf16 v, per head ``p = bf16(exp(s - rowmax))``,
     ``o = bf16((p·v) / Σp)`` with both sums over the rounded p in fp32, and
-    ``bf16(x + o·Wo + b_out)`` with fp32 sums. ``static_offset`` swaps the
-    row max for the TPU kernel's form, ``exp(min(s - offset, 80))``
-    (:939-941), to compare with it; the kernel has no such option."""
+    ``bf16(x + o·Wo + b_out)`` with fp32 sums; ``partial``: the fp32
+    ``o·Wo`` alone (a rank's heads). ``static_offset`` swaps the row max
+    for the TPU kernel's form, ``exp(min(s - offset, 80))`` (:939-941), to
+    compare with it; the kernel has no such option."""
     b, t, c = x.shape
     h = p.heads
-    d = c // h
+    ci = p.w_qkv.shape[0] // 3
+    d = ci // h
     xf = x.float()
     x8 = ln_quant_reference(xf, p.ln_w, p.ln_b, p.xs, p.eps)
-    y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3C]
-    q8, k8 = (torch.round(y[..., i * c:(i + 1) * c]).clamp_(-127, 127)
+    y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv     # [B, T, 3ci]
+    q8, k8 = (torch.round(y[..., i * ci:(i + 1) * ci]).clamp_(-127, 127)
               .to(torch.int8) for i in range(2))
-    v = y[..., 2 * c:].to(torch.bfloat16)
+    v = y[..., 2 * ci:].to(torch.bfloat16)
 
     def heads_of(z):
         return z.reshape(b, t, h, d).transpose(1, 2)          # [B, H, T, d]
@@ -280,9 +297,11 @@ def ln_attention_s8_reference(x: torch.Tensor, p: LNAttentionPack,
         s = (s - static_offset).clamp_max(80.0)
     e = torch.exp(s).to(torch.bfloat16).float()
     o = (e @ heads_of(v).float()) / e.sum(-1, keepdim=True)
-    o = o.to(torch.bfloat16).transpose(1, 2).reshape(b, t, c)
-    out = xf + o.float() @ p.wo.float().t()
-    return (out + p.out_b).to(torch.bfloat16)
+    o = o.to(torch.bfloat16).transpose(1, 2).reshape(b, t, ci)
+    part = o.float() @ p.wo.float().t()
+    if partial:
+        return part
+    return ((xf + part) + p.out_b).to(torch.bfloat16)
 
 
 def _dequantized_attention(hs: torch.Tensor, w_qkv: torch.Tensor,
@@ -293,13 +312,15 @@ def _dequantized_attention(hs: torch.Tensor, w_qkv: torch.Tensor,
     """``absorbed_padded_self_attention_s8``'s float branch (:1244-1256) on
     fp32 ``hs [B, T, C]``: float attention on the dequantized weights (no
     activation quantize), ``to_out`` without its bias, fp32.
-    ``softmax_scale`` defaults to d^-0.5."""
+    ``softmax_scale`` defaults to d^-0.5. ``w_qkv`` may hold a rank's
+    ``heads`` (``[3ci, C]``, ``wo_q [C, ci]``)."""
     b, t, c = hs.shape
-    d = c // heads
+    ci = w_qkv.shape[0] // 3
+    d = ci // heads
     if softmax_scale is None:
         softmax_scale = d ** -0.5
-    scale = w_scale.repeat_interleave(d, dim=1)                # [4, C]
-    wq, wk, wv = (w_qkv[i * c:(i + 1) * c].float() * scale[i][:, None]
+    scale = w_scale.repeat_interleave(d, dim=1)               # [4, ci]
+    wq, wk, wv = (w_qkv[i * ci:(i + 1) * ci].float() * scale[i][:, None]
                   for i in range(3))
     wo = wo_q.float() * scale[3][None, :]
 
@@ -308,21 +329,38 @@ def _dequantized_attention(hs: torch.Tensor, w_qkv: torch.Tensor,
 
     q, k, v = (heads_of(F.linear(hs, w)) for w in (wq, wk, wv))
     a = torch.softmax((q @ k.transpose(-1, -2)) * softmax_scale, dim=-1)
-    o = (a @ v).transpose(1, 2).reshape(b, t, c)
+    o = (a @ v).transpose(1, 2).reshape(b, t, ci)
     return F.linear(o, wo)
 
 
-def ln_attention_s8_fallback(x: torch.Tensor,
-                             p: LNAttentionPack) -> torch.Tensor:
+def ln_attention_s8_fallback(x: torch.Tensor, p: LNAttentionPack,
+                             partial: bool = False) -> torch.Tensor:
     """The JAX wrapper's float branch (:1112-1117 with
     ``absorbed_padded_self_attention_s8``'s :1247-1258) for the shapes K3
     does not take: LN in the input dtype, float attention on the
     dequantized weights (no activation quantize), then the residual and
-    bias in fp32; returns the input dtype."""
+    bias in fp32; returns the input dtype. ``partial``: the fp32 attention
+    of the pack's heads alone (:func:`ln_attention_s8_finish` adds the
+    rest)."""
     hs = _layer_norm(x.float(), p.ln_w, p.ln_b, p.eps).to(x.dtype).float()
-    attn = _dequantized_attention(hs, p.w_qkv, p.wo_q, p.w_scale,
-                                  p.heads).to(x.dtype)
-    return (x.float() + attn.float() + p.out_b).to(x.dtype)
+    attn = _dequantized_attention(hs, p.w_qkv, p.wo_q, p.w_scale, p.heads)
+    if partial:
+        return attn
+    return ln_attention_s8_finish(x, attn, p, fallback=True)
+
+
+def ln_attention_s8_finish(x: torch.Tensor, attn: torch.Tensor,
+                           p: LNAttentionPack, fallback: bool
+                           ) -> torch.Tensor:
+    """The block's output from the fp32 ``to_out`` product ``attn`` (on a
+    model axis the sum of the ranks' partials), in x's dtype, rounded where
+    the one-rank path rounds: the kernel's ``bf16(x + attn + b_out)``, or
+    the fallback's attention rounded to x's dtype first, then the residual
+    and bias in fp32."""
+    if fallback:
+        attn = attn.to(x.dtype).float()
+        return (x.float() + attn + p.out_b).to(x.dtype)
+    return ((x.float() + attn) + p.out_b).to(torch.bfloat16).to(x.dtype)
 
 
 # K3's attention stage on Hopper (csrc/attention_ln_s8.cu,
@@ -382,23 +420,27 @@ def sm90_s8_attention_plan(bh: int, t: int, d: int) -> S8AttentionPlan:
         (-(-t // block_q), bh))
 
 
-def ln_attention_plans(b: int, t: int, c: int, heads: int) -> tuple:
+def ln_attention_plans(b: int, t: int, c: int, heads: int,
+                       ci: Optional[int] = None) -> tuple:
     """K3's three launch plans: the int8 Q/K/V projection, the attention
-    stage and the bf16 ``to_out``. Raises ``ValueError`` on a shape the
-    products do not take (C a multiple of 16: a row of x8 is a tensor
+    stage and the bf16 ``to_out``; ``ci`` the inner width of ``heads`` (a
+    rank's on a model axis; default C). Raises ``ValueError`` on a shape
+    the products do not take (C a multiple of 16: a row of x8 is a tensor
     map's stride)."""
     rows = b * t
-    if not gemm_takes(c, c, "int8"):
-        raise ValueError(f"C={c} must be a multiple of 16 (the rows of "
-                         f"the int8 projection's operands)")
-    return (sm90_gemm_plan(rows, 3 * c, c, "int8"),
-            sm90_s8_attention_plan(b * heads, t, c // heads),
-            sm90_gemm_plan(rows, c, c, "bfloat16"))
+    ci = c if ci is None else ci
+    if not (gemm_takes(3 * ci, c, "int8") and gemm_takes(c, ci, "bfloat16")):
+        raise ValueError(f"C={c} must be a multiple of 16 and ci={ci} of 8 "
+                         f"(the rows of the products' operands)")
+    return (sm90_gemm_plan(rows, 3 * ci, c, "int8"),
+            sm90_s8_attention_plan(b * heads, t, ci // heads),
+            sm90_gemm_plan(rows, c, ci, "bfloat16"))
 
 
 @functools.lru_cache(maxsize=None)
-def _ln_plans_c(b: int, t: int, c: int, heads: int):
-    return plans_c(*ln_attention_plans(b, t, c, heads))
+def _ln_plans_c(b: int, t: int, c: int, heads: int,
+                ci: Optional[int] = None):
+    return plans_c(*ln_attention_plans(b, t, c, heads, ci))
 
 
 def proj_in_plan(b: int, t: int, c: int, channels_major: bool):
@@ -515,10 +557,13 @@ def sm90_s8pv_attention_plan(bh: int, t: int, d: int) -> S8PVAttentionPlan:
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("attention_ln_s8"), entry)
-    # K3 and K10: dtype, x; K8: channels_major, x, wpi, bpi, xf
+    # K3 and K10: dtype, x; K8: channels_major, x, wpi, bpi, xf; K3's
+    # partial mode: no b_out, and ci
     head = [ctypes.c_int] + [ctypes.c_void_p] * (
         4 if entry == "ldmseg_attention_ln_s8_pin" else 1)
-    fn.argtypes = (head + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+    partial = entry == _LN_ENTRIES["K3 partial"]
+    fn.argtypes = (head + [ctypes.c_void_p] * (11 if partial else 12)
+                   + [ctypes.c_int] * (5 if partial else 4)
                    + [ctypes.c_float] * 3
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -526,26 +571,30 @@ def _kernel(entry: str):
 
 
 _LN_ENTRIES = {"K3": "ldmseg_attention_ln_s8",
+               "K3 partial": "ldmseg_attention_ln_s8_partial",
                "K8": "ldmseg_attention_ln_s8_pin",
                "K10": "ldmseg_attention_ln_s8_rowmajor"}
 
 
-def _launch(x: torch.Tensor, p: LNAttentionPack,
-            name: str = "K3") -> torch.Tensor:
+def _launch(x: torch.Tensor, p: LNAttentionPack, name: str = "K3",
+            partial: bool = False) -> torch.Tensor:
     """K3, K8 (x the GroupNorm output, bf16, read channel-major when it is
     the tokens view of a contiguous ``[B, C, T]``) or K10 with ``v_bf16``
-    (K3's kernels behind K10's entry point)."""
+    (K3's kernels behind K10's entry point). ``partial``: K3 on a rank's
+    heads, the fp32 ``to_out`` product ``[B, T, C]`` of the pack's heads
+    alone (``ldmseg_attention_ln_s8_partial``: no residual, no bias)."""
     pin = name == "K8"
     b, t, c = x.shape
     h = p.heads
+    ci = p.w_qkv.shape[0] // 3
     if pin and x.dtype != torch.bfloat16:
         raise ValueError(f"K8: x must be bfloat16 (the prologue's bf16 "
                          f"operand), got {x.dtype}")
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    if c // h > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {c // h} > {MAX_HEAD_DIM}")
+    if ci // h > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {ci // h} > {MAX_HEAD_DIM}")
     if b * h > 65535:
         raise ValueError(f"{name}: B*heads {b * h} > 65535")
     if not p.score_scale > 0:
@@ -557,7 +606,7 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
         x = x.contiguous()
     try:
         plans = (_pin_plans_c(b, t, c, h, channels_major) if pin
-                 else _ln_plans_c(b, t, c, h))
+                 else _ln_plans_c(b, t, c, h, ci))
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     ops = (p.ln_w, p.ln_b, p.out_b, p.w_qkv, p.m_qkv, p.wo) + (
@@ -567,20 +616,22 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
         raise ValueError(f"{name}: the pack must be contiguous on x's "
                          f"device{' and carry proj_in' if pin else ''}")
     dev = x.device
-    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, t, c), dtype=torch.float32 if partial
+                      else torch.bfloat16, device=dev)
     x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
     # head-padded [B·T, H, dp]: the padding is never read (TMA fills zeros
     # past d)
-    q8, k8 = (torch.empty((b * t, h, head_padded_width(c // h)),
+    q8, k8 = (torch.empty((b * t, h, head_padded_width(ci // h)),
                           dtype=torch.int8, device=dev) for _ in range(2))
-    v, o = (torch.empty((b * t, c), dtype=torch.bfloat16, device=dev)
+    v, o = (torch.empty((b * t, ci), dtype=torch.bfloat16, device=dev)
             for _ in range(2))
-    block = (out.data_ptr(), p.ln_w.data_ptr(), p.ln_b.data_ptr(),
-             p.out_b.data_ptr(), p.w_qkv.data_ptr(), p.m_qkv.data_ptr(),
-             p.wo.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
-             v.data_ptr(), o.data_ptr(), b, t, c, h, p.xs, p.score_scale,
-             p.eps, plans)
-    kernel = _kernel(_LN_ENTRIES[name])
+    weights = (p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo.data_ptr(),
+               x8.data_ptr(), q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
+               o.data_ptr(), b, t, c) + ((ci,) if partial else ()) + (
+                   h, p.xs, p.score_scale, p.eps, plans)
+    block = (out.data_ptr(), p.ln_w.data_ptr(), p.ln_b.data_ptr()) + (
+        () if partial else (p.out_b.data_ptr(),)) + weights
+    kernel = _kernel(_LN_ENTRIES["K3 partial" if partial else name])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pin:
@@ -594,21 +645,35 @@ def _launch(x: torch.Tensor, p: LNAttentionPack,
     return out
 
 
-def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack,
+                    group=None) -> torch.Tensor:
     """``x + to_out(attention(LN(x))) + b_out`` for ``x [B, T, C]``,
     returned in ``x``'s dtype (the kernel's result is bf16, cast as the JAX
-    wrapper's ``.astype(x.dtype)``)."""
-    b, t, c = x.shape
-    if not absorbed_takes_kernel(t, c, p.heads):
+    wrapper's ``.astype(x.dtype)``). With ``group`` (a model axis: ``p``
+    holds this rank's heads) the rank's fp32 ``to_out`` product is summed
+    over the group before the residual and the bias."""
+    t = x.shape[1]
+    ci = p.w_qkv.shape[0] // 3
+    if not absorbed_takes_kernel(t, ci, p.heads):
         ln_attention_s8.fallbacks += 1
-        return ln_attention_s8_fallback(x, p)
+        if group is None:
+            return ln_attention_s8_fallback(x, p)
+        return ln_attention_s8_finish(
+            x, group.sum(ln_attention_s8_fallback(x, p, partial=True)), p,
+            fallback=True)
     if x.device.type == "cpu":
-        return ln_attention_s8_reference(x, p).to(x.dtype)
-    if x.device.type != "cuda":
+        if group is None:
+            return ln_attention_s8_reference(x, p).to(x.dtype)
+        part = ln_attention_s8_reference(x, p, partial=True)
+    elif x.device.type != "cuda":
         raise ValueError(f"K3: unsupported device {x.device}")
-    out = _launch(x, p)
-    ln_attention_s8.launches += 1
-    return out.to(x.dtype)
+    else:
+        out = _launch(x, p, partial=group is not None)
+        ln_attention_s8.launches += 1
+        if group is None:
+            return out.to(x.dtype)
+        part = out
+    return ln_attention_s8_finish(x, group.sum(part), p, fallback=False)
 
 
 ln_attention_s8.launches = 0
@@ -635,14 +700,18 @@ def attention_s8_fallback(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def s8_scales(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              act_scale: Optional[float]):
+              act_scale: Optional[float], group=None):
     """The q, k, v scales of the JAX wrapper (:123-131): the static
     ``act_scale`` (made float32) for all three, else ``max(amax, 1e-6) /
-    127`` of each tensor in float32 (0-d tensors, no host sync)."""
+    127`` of each tensor in float32 (0-d tensors, no host sync).
+    With ``group`` q, k and v hold a rank's heads and the amaxes are the
+    whole tensors', the maximum over the model group."""
     if act_scale is not None:
         return (float(np.float32(act_scale)),) * 3
-    return tuple(x.abs().amax().clamp_min(1e-6).float() / 127.0
-                 for x in (q, k, v))
+    amax = torch.stack([x.abs().amax() for x in (q, k, v)])
+    if group is not None:
+        amax = group.max(amax)
+    return tuple((amax.clamp_min(1e-6).float() / 127.0).unbind(0))
 
 
 def attention_s8_reference(q8: torch.Tensor, k8: torch.Tensor,
@@ -676,13 +745,13 @@ def quantize_s8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def fused_self_attention_s8_reference(q: torch.Tensor, k: torch.Tensor,
                                       v: torch.Tensor, scale: float,
-                                      act_scale: Optional[float] = None
-                                      ) -> torch.Tensor:
+                                      act_scale: Optional[float] = None,
+                                      group=None) -> torch.Tensor:
     """The kernel branch of :func:`fused_self_attention_s8` in plain
     PyTorch on any device: the scales, the quantize of q, k and v, and
     :func:`attention_s8_reference` with ``sc0 = (qs·ks)·scale`` and ``sc1 =
     vs / 127`` in float32 -> bf16 ``[B, T, H, D]``."""
-    scales = s8_scales(q, k, v, act_scale)
+    scales = s8_scales(q, k, v, act_scale, group)
     qs, ks, vs = (torch.as_tensor(x, dtype=torch.float32, device=q.device)
                   for x in scales)
     sc0 = (qs * ks) * torch.tensor(scale, dtype=torch.float32,
@@ -765,22 +834,23 @@ def _s8_launch(q, k, v, scale, scales) -> torch.Tensor:
 
 def fused_self_attention_s8(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, scale: float,
-                            act_scale: Optional[float] = None
-                            ) -> torch.Tensor:
+                            act_scale: Optional[float] = None,
+                            group=None) -> torch.Tensor:
     """int8 self-attention on float ``[B, T, H, D]`` q, k, v (no gradient),
     returned in q's dtype: the kernel's bf16 result cast as the JAX wrapper
     casts it. ``act_scale`` is the static q/k/v scale, None one dynamic
-    amax per tensor."""
+    amax per tensor (with ``group`` q, k and v hold a rank's heads: the
+    amaxes over the model group)."""
     t = q.shape[1]
     if not s8_takes_kernel(t):
         fused_self_attention_s8.fallbacks += 1
         return attention_s8_fallback(q, k, v, scale)
     if q.device.type == "cpu":
-        return fused_self_attention_s8_reference(q, k, v, scale,
-                                                 act_scale).to(q.dtype)
+        return fused_self_attention_s8_reference(
+            q, k, v, scale, act_scale, group).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"K13: unsupported device {q.device}")
-    scales = s8_scales(q, k, v, act_scale)
+    scales = s8_scales(q, k, v, act_scale, group)
     return _s8_launch(q, k, v, scale, scales).to(q.dtype)
 
 

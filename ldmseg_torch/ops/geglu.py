@@ -31,6 +31,19 @@ entry point of ``csrc/geglu_ln_s8.cu`` (counted in
 The caller adds b2 in the activation dtype, the block the residual
 (``unet.py:415``, ``:502``).
 
+On a model axis (``parallel/tp.py``) K4 and K12 run on the pack of a
+rank's GEGLU columns: ``w1`` holds its ``M/n`` h rows, then its ``M/n``
+gate rows (the paired layout), ``w2 [C, M/n]`` with ``s2`` the scales of
+whole rows (:func:`pack_geglu` reads them through ``quantize_rows``). Given
+``group`` (the model group's reductions, ``parallel/tp.py:ModelGroup``:
+``sum`` in fp32, ``max``), :func:`geglu_ln_s8` and :func:`fused_geglu_s8`
+compute the rank's fp32 ``y·gs·s2`` alone, sum it over the group, then
+add the residual and b2 (K4) or round (K12) where the one-rank kernel
+does. A dynamic interior scale is one amax per (image, token block) over
+all M columns: the group's maximum of the ranks' amaxes (on the card
+between the kernel's two halves, ``ldmseg_geglu_s8_up`` and
+``ldmseg_geglu_s8_down_partial``; one launch counted).
+
 K9 is the counterpart of ``fused_geglu_ln_s8(..., proj_out=)`` (:327) and
 its kernel ``_geglu_ln_pout_kernel`` (:186): K4 with Transformer2D's 1x1
 ``proj_out`` conv as a bf16 epilogue, ``bf16(bf16(K4(x))·Wpoᵀ + b_po)``
@@ -62,7 +75,7 @@ from .attention import SM90_SMS
 from .gemm import (DEEP_STAGES, SM90_SMEM_PER_SM, SM90_SMEM_RESERVED,
                    gemm_grid, gemm_smem_bytes, gemm_takes, plans_c,
                    sm90_gemm_plan)
-from .quant import exact_int8_matmul, f32, quantize_weight
+from .quant import exact_int8_matmul, f32, quantize_rows, quantize_weight
 
 BLOCK_T = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -100,9 +113,10 @@ def pack_geglu(norm, proj_in, proj_out, xs: float,
     """Quantize a block's ``norm3`` (LayerNorm) and feed-forward
     ``proj_in``/``proj_out`` (Linear) float weights per output channel
     (``prequantize_conv_tree(quantize_ff=True)``, :223-235) and pack K4's
-    operands (``pack_geglu_ln_tiles``)."""
+    operands (``pack_geglu_ln_tiles``); a row-parallel ``proj_out`` is
+    quantized over its whole rows (``quantize_rows``)."""
     w1, s1 = quantize_weight(proj_in.weight, dims=(1,))
-    w2, s2 = quantize_weight(proj_out.weight, dims=(1,))
+    w2, s2 = quantize_rows(proj_out)
     return GegluPack(
         eps=norm.eps, xs=f32(xs), gs=None if gs is None else f32(gs),
         ln_w=_vec(norm.weight), ln_b=_vec(norm.bias), w1=w1.contiguous(),
@@ -140,9 +154,11 @@ def _gated_interior(hn, p: GegluPack):
     return u[..., :m], u[..., m:]
 
 
-def _kernel_interior(h, p: GegluPack, block_t: int) -> torch.Tensor:
+def _kernel_interior(h, p: GegluPack, block_t: int,
+                     group=None) -> torch.Tensor:
     """The kernels' interior on the float input ``h`` of W1 (K4: the LN
-    output, K12: x): ``y = float(int32 g8·W2)·gs`` in fp32, ``[B, T, C]``."""
+    output, K12: x): ``y = float(int32 g8·W2)·gs`` in fp32, ``[B, T, C]``.
+    ``group``: the dynamic amaxes are the model group's maximum."""
     b, t, _ = h.shape
     uh, ug = _gated_interior(h, p)
     g = uh * gelu_tanh(ug)                                 # [B, T, M]
@@ -151,6 +167,8 @@ def _kernel_interior(h, p: GegluPack, block_t: int) -> torch.Tensor:
     else:
         bt = min(block_t, t)
         amax = g.abs().reshape(b, t // bt, -1).amax(-1)    # [B, T / bt]
+        if group is not None:
+            amax = group.max(amax)
         gs = (amax.clamp_min(1e-6) / 127.0).repeat_interleave(bt, dim=1)
         gs = gs[..., None]
     g8 = torch.round(g / gs).clamp_(-127, 127).to(torch.int8)
@@ -158,53 +176,84 @@ def _kernel_interior(h, p: GegluPack, block_t: int) -> torch.Tensor:
 
 
 def geglu_ln_s8_reference(x: torch.Tensor, p: GegluPack,
-                          block_t: int = BLOCK_T) -> torch.Tensor:
+                          block_t: int = BLOCK_T, partial: bool = False,
+                          group=None) -> torch.Tensor:
     """K4's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): LN and
     quantize, ``u`` from the int32 product, the tanh-gelu gating, the
     interior quantized with ``gs`` (clipped) or with one dynamic amax per
     (image, ``min(block_t, T)``-token block), the int32 product with W2 and
-    ``bf16(x + y·gs·s2 + b2)``. The dynamic codes are clipped too, which
-    changes nothing: ``|g| / gs <= 127`` by construction."""
+    ``bf16(x + y·gs·s2 + b2)``; ``partial``: the fp32 ``y·gs·s2`` alone (a
+    rank's columns, ``group`` the dynamic amaxes' maximum). The
+    dynamic codes are clipped too, which changes nothing: ``|g| / gs <=
+    127`` by construction."""
     xf = x.float()
-    y = _kernel_interior(_layer_norm(xf, p.ln_w, p.ln_b, p.eps), p, block_t)
+    y = _kernel_interior(_layer_norm(xf, p.ln_w, p.ln_b, p.eps), p, block_t,
+                         group)
+    if partial:
+        return y * p.s2
     return ((xf + y * p.s2) + p.b2).to(torch.bfloat16)
 
 
 def geglu_s8_reference(x: torch.Tensor, p: GegluPack,
-                       block_t: int = BLOCK_T) -> torch.Tensor:
+                       block_t: int = BLOCK_T, partial: bool = False,
+                       group=None) -> torch.Tensor:
     """K12's arithmetic in plain PyTorch: K4's without the LayerNorm, b2
-    and the residual, ``bf16(y·gs·s2)``."""
-    return (_kernel_interior(x.float(), p, block_t) * p.s2).to(
-        torch.bfloat16)
+    and the residual, ``bf16(y·gs·s2)``; ``partial`` as there."""
+    y = _kernel_interior(x.float(), p, block_t, group) * p.s2
+    return y if partial else y.to(torch.bfloat16)
 
 
 def _gelu_exact(x):
     return x * 0.5 * (1.0 + torch.erf(x / np.float32(np.sqrt(2.0))))
 
 
-def geglu_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+def geglu_s8_fallback(x: torch.Tensor, p: GegluPack, partial: bool = False,
+                      group=None) -> torch.Tensor:
     """``_xla_geglu_s8`` (:377) for the shapes K12 does not take: the exact
     erf gelu, one interior amax over the whole tensor when dynamic (its
-    codes unclipped, as there), the result in the input dtype, no b2."""
+    codes unclipped, as there), the result in the input dtype, no b2;
+    ``partial``: fp32, a rank's columns (``group`` as in
+    :func:`geglu_s8_reference`)."""
     uh, ug = _gated_interior(x.float(), p)
     g = uh * _gelu_exact(ug)
     if p.gs is not None:
         gs = p.gs
         g8 = torch.round(g / gs).clamp_(-127, 127)
     else:
-        gs = g.abs().amax().clamp_min(1e-6) / 127.0
+        amax = g.abs().amax()
+        if group is not None:
+            amax = group.max(amax)
+        gs = amax.clamp_min(1e-6) / 127.0
         g8 = torch.round(g / gs)
     y = exact_int8_matmul(g8.to(torch.int8), p.w2).float() * (gs * p.s2)
-    return y.to(x.dtype)
+    return y if partial else y.to(x.dtype)
 
 
-def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+def geglu_ln_s8_fallback(x: torch.Tensor, p: GegluPack, partial: bool = False,
+                         group=None) -> torch.Tensor:
     """``_xla_geglu_ln_s8`` (:281) with ``_xla_geglu_s8`` (:377) for the
     shapes K4 does not take: LN in the input dtype, then
-    :func:`geglu_s8_fallback`, then the residual and bias in fp32."""
+    :func:`geglu_s8_fallback`, then the residual and bias in fp32;
+    ``partial`` as there."""
     xf = x.float()
     h = _layer_norm(xf, p.ln_w, p.ln_b, p.eps).to(x.dtype)
+    if partial:
+        return geglu_s8_fallback(h, p, True, group)
     return (xf + geglu_s8_fallback(h, p).float() + p.b2).to(x.dtype)
+
+
+def geglu_finish(x: torch.Tensor, y: torch.Tensor, p: GegluPack,
+                 block: bool, fallback: bool) -> torch.Tensor:
+    """The output from the fp32 ``y·gs·s2`` (on a model axis the sum of the
+    ranks' partials), in x's dtype, rounded where the one-rank path rounds:
+    K4 (``block``) ``bf16(x + y + b2)``, its fallback the FF rounded to x's
+    dtype first; K12 ``bf16(y)``, its fallback ``y`` in x's dtype."""
+    if fallback:
+        y = y.to(x.dtype)
+        return (x.float() + y.float() + p.b2).to(x.dtype) if block else y
+    if block:
+        y = (x.float() + y) + p.b2
+    return y.to(torch.bfloat16).to(x.dtype)
 
 
 def geglu_plans(b: int, t: int, c: int, m: int) -> tuple:
@@ -255,6 +304,13 @@ def _plans_c(b: int, t: int, c: int, m: int, pout: bool = False):
                    *((pout_plan(b, t, c),) if pout else ()))
 
 
+@functools.lru_cache(maxsize=None)
+def _half_plans_c(b: int, t: int, c: int, m: int):
+    """The up and the down product's plans apart, for a rank's columns'
+    two launches."""
+    return tuple(plans_c(plan) for plan in geglu_plans(b, t, c, m))
+
+
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("geglu_ln_s8"), entry)
@@ -267,19 +323,58 @@ def _kernel(entry: str):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_float] + tail)
-    else:                               # K12
+    elif entry == "ldmseg_geglu_s8":    # K12
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                        + [ctypes.c_int] + tail)
+    elif entry == "ldmseg_geglu_s8_up":  # a rank's columns: the first half
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_float] + tail)
+    else:                               # the second half, the fp32 partial
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int] + tail)
     fn.restype = ctypes.c_int
     return fn
 
 
+def _geglu(x: torch.Tensor, p: GegluPack, block: bool, group,
+           counter) -> torch.Tensor:
+    """K4 (``block``) or K12 by the shape rule, on one rank or (``group``)
+    on a rank's columns."""
+    if not takes_kernel(x.shape[1]):
+        counter.fallbacks += 1
+        fallback = geglu_ln_s8_fallback if block else geglu_s8_fallback
+        if group is None:
+            return fallback(x, p)
+        part = fallback(x, p, True, group)
+        return geglu_finish(x, group.sum(part), p, block, fallback=True)
+    if x.device.type == "cpu":
+        ref = geglu_ln_s8_reference if block else geglu_s8_reference
+        if group is None:
+            return ref(x, p).to(x.dtype)
+        part = ref(x, p, partial=True, group=group)
+    elif x.device.type != "cuda":
+        raise ValueError(f"{'K4' if block else 'K12'}: unsupported device "
+                         f"{x.device}")
+    else:
+        out = _launch(x, p, block=block, group=group)
+        counter.launches += 1
+        if group is None:
+            return out.to(x.dtype)
+        part = out
+    return geglu_finish(x, group.sum(part), p, block, fallback=False)
+
+
 def _launch(x: torch.Tensor, p: GegluPack, block: bool,
-            pout: bool = False) -> torch.Tensor:
+            pout: bool = False, group=None) -> torch.Tensor:
     """K4 (``block``: LN, residual and b2), K9 (``pout`` too: the proj_out
     epilogue, the result channel-major ``[B, C, T]`` seen as ``[B, T, C]``)
-    or K12 on the card."""
+    or K12 on the card. With ``group`` (K4 or K12 on a rank's GEGLU
+    columns) the fp32 ``y·gs·s2`` alone, in two launches
+    (``ldmseg_geglu_s8_up``, then ``ldmseg_geglu_s8_down_partial``), a
+    dynamic scale's amax slots taking ``group.max`` between them (the slots
+    hold non-negative floats' bits, which order as the floats)."""
     name = "K9" if pout else ("K4" if block else "K12")
     b, t, c = x.shape
     m = p.w2.shape[1]
@@ -287,7 +382,8 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
         raise ValueError(f"{name}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
     try:
-        plans = _plans_c(b, t, c, m, pout)
+        plans = (_half_plans_c(b, t, c, m) if group is not None
+                 else _plans_c(b, t, c, m, pout))
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     bt = min(BLOCK_T, t)
@@ -301,7 +397,8 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
                          f"device{' and carry proj_out' if pout else ''}")
     dev = x.device
     out = torch.empty((b, c, t) if pout else (b, t, c),
-                      dtype=torch.bfloat16, device=dev)
+                      dtype=torch.bfloat16 if group is None
+                      else torch.float32, device=dev)
     x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
     dynamic = p.gs is None
     # g (fp32) only with the dynamic scale: the static one quantizes in
@@ -315,7 +412,23 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
                b, t, c, m, bt, p.xs, gs, int(dynamic))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if pout:
+        if group is not None:
+            err = _kernel("ldmseg_geglu_s8_up")(
+                _DTYPE_CODE[x.dtype], int(block), x.data_ptr(),
+                p.ln_w.data_ptr() if block else None,
+                p.ln_b.data_ptr() if block else None, p.w1.data_ptr(),
+                p.s1.data_ptr(), p.b1.data_ptr(), x8.data_ptr(),
+                g.data_ptr(), g8.data_ptr(), amax.data_ptr(), b, t, c, m, bt,
+                p.xs, gs, int(dynamic), p.eps if block else 0.0, plans[0],
+                stream)
+            if err == 0 and dynamic:
+                amax.copy_(group.max(amax))
+            if err == 0:
+                err = _kernel("ldmseg_geglu_s8_down_partial")(
+                    g.data_ptr(), g8.data_ptr(), amax.data_ptr(),
+                    p.w2.data_ptr(), p.s2.data_ptr(), out.data_ptr(), b, t,
+                    c, m, bt, gs, int(dynamic), plans[1], stream)
+        elif pout:
             r = torch.empty((b * t, c), dtype=torch.bfloat16, device=dev)
             err = _kernel("ldmseg_geglu_ln_s8_pout")(
                 _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
@@ -341,37 +454,24 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
     return out.transpose(1, 2) if pout else out
 
 
-def geglu_ln_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
-    """``x + FF(LN(x))`` for ``x [B, T, C]``, returned in ``x``'s dtype."""
-    if not takes_kernel(x.shape[1]):
-        geglu_ln_s8.fallbacks += 1
-        return geglu_ln_s8_fallback(x, p)
-    if x.device.type == "cpu":
-        return geglu_ln_s8_reference(x, p).to(x.dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"K4: unsupported device {x.device}")
-    out = _launch(x, p, block=True)
-    geglu_ln_s8.launches += 1
-    return out.to(x.dtype)
+def geglu_ln_s8(x: torch.Tensor, p: GegluPack, group=None) -> torch.Tensor:
+    """``x + FF(LN(x))`` for ``x [B, T, C]``, returned in ``x``'s dtype.
+    With ``group`` (a model axis: ``p`` holds this rank's columns) the
+    rank's fp32 FF output is summed over the group before the residual and
+    b2, and a dynamic interior amax is the group's maximum."""
+    return _geglu(x, p, True, group, geglu_ln_s8)
 
 
 geglu_ln_s8.launches = 0
 geglu_ln_s8.fallbacks = 0
 
 
-def fused_geglu_s8(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+def fused_geglu_s8(x: torch.Tensor, p: GegluPack,
+                   group=None) -> torch.Tensor:
     """``FF(x)`` without b2 for ``x [B, T, C]``, returned in ``x``'s dtype
-    (the kernel's result is bf16, cast as the JAX wrapper casts it)."""
-    if not takes_kernel(x.shape[1]):
-        fused_geglu_s8.fallbacks += 1
-        return geglu_s8_fallback(x, p)
-    if x.device.type == "cpu":
-        return geglu_s8_reference(x, p).to(x.dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"K12: unsupported device {x.device}")
-    out = _launch(x, p, block=False)
-    fused_geglu_s8.launches += 1
-    return out.to(x.dtype)
+    (the kernel's result is bf16, cast as the JAX wrapper casts it);
+    ``group`` as in :func:`geglu_ln_s8`."""
+    return _geglu(x, p, False, group, fused_geglu_s8)
 
 
 fused_geglu_s8.launches = 0

@@ -46,27 +46,51 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def quantize_weight(w: torch.Tensor, dims) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def quantize_weight(w: torch.Tensor, dims, group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 codes with one scale per index of the dimensions not
     in ``dims``: ``scale = max(amax, 1e-8) / 127``, ``q = round(w / scale)``
     in float32 (``quantize_weight`` :98 reduces the HWIO axes 0-2, i.e.
-    per output channel)."""
+    per output channel). With ``group`` (the model group's reductions,
+    ``parallel/tp.py:ModelGroup``) ``w`` holds a slice along ``dims`` (a
+    row-parallel layer's input channels) and the amax is the whole
+    tensor's, the maximum over the group."""
     wf = w.detach().float()
-    scale = wf.abs().amax(dim=dims, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = wf.abs().amax(dim=dims, keepdim=True)
+    if group is not None:
+        amax = group.max(amax)
+    scale = amax.clamp_min(1e-8) / 127.0
     return torch.round(wf / scale).to(torch.int8), scale.flatten()
 
 
-def quantize_activation(x: torch.Tensor, act_scale: Optional[float] = None):
+def quantize_rows(linear: nn.Linear) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A linear's weight ``[out, in]`` quantized per output row. A
+    row-parallel layer (``parallel/tp.py:RowLinear``) holds a slice of each
+    row: the whole row's amax comes from its ``tp_group``, so the codes and
+    scales are the slice of the one-rank ones."""
+    return quantize_weight(linear.weight, dims=(1,),
+                           group=getattr(linear, "tp_group", None))
+
+
+def quantize_activation(x: torch.Tensor, act_scale=None):
     """Per-tensor symmetric int8 quantize: the static ``act_scale`` (made
-    float32) or, when it is None, ``max(amax, 1e-8) / 127`` of ``x`` (a
-    0-d tensor, no host sync). Returns ``(codes, scale)``."""
+    float32; a 0-d tensor is taken as it is) or, when it is None,
+    ``max(amax, 1e-8) / 127`` of ``x`` (a 0-d tensor, no host sync).
+    Returns ``(codes, scale)``."""
     xf = x.float()
     if act_scale is None:
-        scale = xf.abs().amax().clamp_min(1e-8) / 127.0
+        scale = dynamic_scale(xf.abs().amax())
+    elif isinstance(act_scale, torch.Tensor):
+        scale = act_scale
     else:
         scale = f32(act_scale)
     return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
+
+
+def dynamic_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The dynamic per-tensor scale of :func:`quantize_activation` from a
+    tensor's amax: ``max(amax, 1e-8) / 127`` in float32."""
+    return amax.float().clamp_min(1e-8) / 127.0
 
 
 def int8_matmul(a: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
@@ -238,12 +262,25 @@ class QuantConv2d(nn.Conv2d):
             y = s8_conv2d(x_q, self.w_q, self.s8_stride, self.s8_padding)
             scale = s[:, None, None, None] * self.w_scale
             y = (y.float() * scale).to(torch.bfloat16)
-        else:
-            site = (self.x_scale if self.x_scale is not None
-                    else self.act_scale)
-            x_q, xs = quantize_activation(x, site)
-            y = s8_conv2d(x_q, self.w_q, self.s8_stride, self.s8_padding)
-            y = (y.float() * (xs * self.w_scale)).to(x.dtype)
+            y = y + self.bias.to(y.dtype)
+            return y.permute(0, 3, 1, 2).contiguous()
+        return self.s8_forward(x, self.site_scale())
+
+    def site_scale(self) -> Optional[float]:
+        """The input's static scale: the calibrated ``x_scale``, else
+        ``act_scale``; None: its dynamic amax."""
+        return self.x_scale if self.x_scale is not None else self.act_scale
+
+    def s8_forward(self, x: torch.Tensor, scale, padding=None
+                   ) -> torch.Tensor:
+        """The prepared path on a float ``x``: quantized with ``scale`` (a
+        float, a 0-d tensor, or None for its amax), the s8 conv with
+        ``padding`` (default the module's), ``float(s8 conv) * (xs *
+        w_scale)`` in x's dtype, the bias; NCHW."""
+        x_q, xs = quantize_activation(x, scale)
+        y = s8_conv2d(x_q, self.w_q, self.s8_stride,
+                      self.s8_padding if padding is None else padding)
+        y = (y.float() * (xs * self.w_scale)).to(x.dtype)
         y = y + self.bias.to(y.dtype)
         return y.permute(0, 3, 1, 2).contiguous()
 
@@ -267,7 +304,7 @@ class QuantLinear(nn.Linear):
         self.register_buffer("w_scale", None, persistent=False)
 
     def prepare(self, src: nn.Linear) -> None:
-        self.w_q, self.w_scale = quantize_weight(src.weight, dims=(1,))
+        self.w_q, self.w_scale = quantize_rows(src)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.w_q is None:
@@ -289,16 +326,16 @@ def quantize_head_weights(wq, wk, wv, wo, heads: int):
     weights ``[out, in]``: one scale per head for each of the four
     projections (rows of head h of ``to_q/k/v``, columns of head h of
     ``to_out``). Returns the codes in the same layout and ``scales [4, H]``
-    float32."""
-    c = wq.shape[0]
-    d = c // heads
+    float32. Under tensor parallelism the weights hold this rank's heads:
+    ``to_q/k/v`` ``[ci, C]``, ``to_out`` ``[C, ci]``, ``heads`` of them."""
+    d = wq.shape[0] // heads
     codes, scales = [], []
     for w in (wq, wk, wv):
-        q, s = quantize_weight(w.reshape(heads, d, c), dims=(1, 2))
-        codes.append(q.reshape(c, c))
+        q, s = quantize_weight(w.reshape(heads, d, -1), dims=(1, 2))
+        codes.append(q.reshape(w.shape))
         scales.append(s)
-    q, s = quantize_weight(wo.reshape(c, heads, d), dims=(0, 2))
-    codes.append(q.reshape(c, c))
+    q, s = quantize_weight(wo.reshape(wo.shape[0], heads, d), dims=(0, 2))
+    codes.append(q.reshape(wo.shape))
     scales.append(s)
     return (*codes, torch.stack(scales))
 
@@ -374,21 +411,25 @@ def prepare_int8_vae(vae: nn.Module) -> nn.Module:
 # calibration
 # ---------------------------------------------------------------------------
 def _sites(unet: nn.Module):
-    """(site key, module whose output sets it, percentile allowed) for each
-    int8 activation site of a float UNet: resnet ``norm1``/``norm2`` outputs
-    key ``conv1``/``conv2``; a transformer block's ``norm1`` keys
-    ``attn1.to_q``, its ``norm3`` keys ``ff.net.0.proj``, its gated interior
-    (the GEGLU output) keys ``ff.net.2`` (:599-625)."""
+    """(site key, module whose output sets it, percentile allowed, model
+    group or None) for each int8 activation site of a float UNet: resnet
+    ``norm1``/``norm2`` outputs key ``conv1``/``conv2``; a transformer
+    block's ``norm1`` keys ``attn1.to_q``, its ``norm3`` keys
+    ``ff.net.0.proj``, its gated interior (the GEGLU output) keys
+    ``ff.net.2`` (:599-625). Under tensor parallelism the norms' outputs are
+    whole on every rank; the gated interior holds a rank's columns, and
+    its amax is the maximum over the model group (the FF's ``tp_group``,
+    set where ``apply_tp`` cut its columns)."""
     from ..models.layers import ResnetBlock
     from ..models.unet import BasicTransformerBlock
     for name, m in unet.named_modules():
         if isinstance(m, ResnetBlock):
-            yield f"{name}.conv1", m.norm1, True
-            yield f"{name}.conv2", m.norm2, True
+            yield f"{name}.conv1", m.norm1, True, None
+            yield f"{name}.conv2", m.norm2, True, None
         elif isinstance(m, BasicTransformerBlock):
-            yield f"{name}.attn1.to_q", m.norm1, True
-            yield f"{name}.ff.net.0.proj", m.norm3, True
-            yield f"{name}.ff.net.2", m.ff.net[0], False
+            yield f"{name}.attn1.to_q", m.norm1, True, None
+            yield f"{name}.ff.net.0.proj", m.norm3, True, None
+            yield f"{name}.ff.net.2", m.ff.net[0], False, m.ff.tp_group
 
 
 @torch.no_grad()
@@ -403,19 +444,22 @@ def calibrate_act_scale_tree(unet: nn.Module, sample: torch.Tensor,
     size limit."""
     scales: Dict[str, float] = {}
 
-    def record(key, use_percentile):
+    def record(key, use_percentile, group):
         def hook(_module, _inputs, out):
             if percentile is not None and use_percentile:
                 a = np.abs(out.detach().float().cpu().numpy()).ravel()
                 amax = np.percentile(a, percentile)
             else:
-                amax = np.float32(out.detach().float().abs().amax().item())
+                amax = out.detach().float().abs().amax()
+                if group is not None:
+                    amax = group.max(amax)
+                amax = np.float32(amax.item())
             scales[key] = max(scales.get(key, 0.0),
                               float(max(amax, 1e-6) / 127.0))
         return hook
 
-    handles = [m.register_forward_hook(record(key, pct))
-               for key, m, pct in _sites(unet)]
+    handles = [m.register_forward_hook(record(key, pct, group))
+               for key, m, pct, group in _sites(unet)]
     try:
         unet(sample, timesteps)
     finally:

@@ -15,9 +15,18 @@ gradient crosses them); outside one each layer runs as its base class:
     the image's borders: the convolution's own padding), then runs on its
     own rows with the window's stride; the stride-2 convolutions need
     shards whose row count the stride divides;
+  * the int8 VAEs' s8 convolution (:class:`SpatialQuantConv2d`: the
+    resnets', the image VAE's downsample with its ``(0, 1)`` padding, the
+    seg decoder's ``in_conv`` and ``out_conv``) takes the same halo rows;
+    its input scale is the site's static one or the maximum over the model
+    group of the ranks' amaxes (one rank's scale), so its int32 sums are a
+    rank's rows of the one-rank ones; the int8 ``ConvTranspose2x``
+    (:class:`SpatialConvTranspose2x`, 2x2 with stride 2: no halo) takes its
+    dynamic scale the same way;
   * ``GroupNorm`` (:class:`SpatialGroupNorm`) all-reduces its fp32 sums
     over the model group: the group means first, then the centred sums of
-    squares;
+    squares; the int8 resnets' ``lowp`` GroupNorm + SiLU the same sums,
+    then its affine in the input's dtype;
   * the VAE mid-block attention (:class:`SpatialAttentionBlock2D`) gathers
     the tokens of every shard, runs (K1's wide class with
     ``use_fused_attention``) on all of them and keeps its own rows;
@@ -46,8 +55,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.image_vae import _Downsample
-from ..models.layers import AttentionBlock2D, GroupNorm, GroupNormSiLU
+from ..models.layers import (AttentionBlock2D, ConvTranspose2x, GroupNorm,
+                             GroupNormSiLU)
 from ..models.seg_vae import Resize, SegVAE
+from ..ops.quant import QuantConv2d, dynamic_scale
 from ..ops.resize import resize_weight_matrix
 
 
@@ -85,6 +96,12 @@ def all_reduce_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     out = x.detach().clone()
     dist.all_reduce(out, group=ax.group)
     return out
+
+
+def all_reduce_max(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x``, exact in any dtype:
+    the ranks' tensors gathered (:func:`all_gather`), then their max."""
+    return all_gather(x.detach().unsqueeze(0), ax, 0).amax(0)
 
 
 _ACTIVE: Optional[Axis] = None
@@ -180,22 +197,15 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int, ax: Axis,
     return torch.cat([above, x, below], dim=2)
 
 
-def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d,
-                pad: Optional[Tuple[int, int, int, int]] = None
-                ) -> torch.Tensor:
-    """``conv`` on this rank's rows of the image inside a sharded stage:
-    ``pad`` (left, right, top, bottom; default the convolution's own
-    symmetric padding) as the convolution pads the whole image, the rows
-    its windows read from the neighbours exchanged first. The shard's row
-    count must be a multiple of the stride, and the output's rows split
-    evenly."""
+def haloed_rows(x: torch.Tensor, kh: int, sh: int, top: int,
+                bottom: int) -> torch.Tensor:
+    """This rank's rows of the image inside a sharded stage with the rows a
+    ``kh``-row window of stride ``sh``, padded ``top``/``bottom`` over the
+    whole image, reads from the neighbours (zeros at the image's borders),
+    so that a window without row padding gives this rank's output rows.
+    The shard's row count must be a multiple of the stride, and the
+    output's rows split evenly."""
     ax = active()
-    kh, kw = conv.kernel_size
-    sh, sw = conv.stride
-    if pad is None:
-        ph, pw = conv.padding
-        pad = (pw, pw, ph, ph)
-    left, right, top, bottom = pad
     h = x.shape[2]
     if h % sh or (ax.size * h + top + bottom - kh) // sh + 1 != \
             ax.size * h // sh:
@@ -204,11 +214,35 @@ def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d,
                          "output's rows do not split evenly")
     below = kh - sh - top  # rows past the shard the last window reads
     x = halo_rows(x, top, max(below, 0), ax)
-    if below < 0:
-        x = x[:, :, :x.shape[2] + below]
+    return x[:, :, :x.shape[2] + below] if below < 0 else x
+
+
+def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d,
+                pad: Optional[Tuple[int, int, int, int]] = None
+                ) -> torch.Tensor:
+    """``conv`` on this rank's rows of the image inside a sharded stage:
+    ``pad`` (left, right, top, bottom; default the convolution's own
+    symmetric padding) as the convolution pads the whole image, the rows
+    its windows read from the neighbours exchanged first
+    (:func:`haloed_rows`)."""
+    kh, _ = conv.kernel_size
+    sh, sw = conv.stride
+    if pad is None:
+        ph, pw = conv.padding
+        pad = (pw, pw, ph, ph)
+    left, right, top, bottom = pad
+    x = haloed_rows(x, kh, sh, top, bottom)
     if left or right:
         x = F.pad(x, (left, right, 0, 0))
     return F.conv2d(x, conv.weight, conv.bias, (sh, sw))
+
+
+def group_scale(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The dynamic per-tensor int8 scale of the whole tensor of which ``x``
+    holds this rank's part (a rank's rows, or its channels under tensor
+    parallelism): the maximum of the ranks' amaxes."""
+    return dynamic_scale(all_reduce_max(x.detach().float().abs().amax(),
+                                        ax))
 
 
 class SpatialConv2d(nn.Conv2d):
@@ -221,14 +255,46 @@ class SpatialConv2d(nn.Conv2d):
         return conv2d_rows(x, self)
 
 
-class SpatialDownsample(_Downsample):
-    """The image VAE's downsample: pad (0, 1), so a shard reads one row of
-    the shard below."""
+class SpatialQuantConv2d(QuantConv2d):
+    """An s8 convolution (prepared) that exchanges halos inside a sharded
+    stage: the input scale of the whole image (:func:`group_scale` where it
+    is dynamic), the halo rows of its window and padding, then the s8
+    convolution of the extended rows with its column padding alone."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _ACTIVE is None:
+        ax = _ACTIVE
+        if ax is None:
+            return super().forward(x)
+        if self.w_q is None or isinstance(x, tuple):
+            raise RuntimeError("SpatialQuantConv2d: a prepared s8 conv on a "
+                               "float input (prepare_int8_vae)")
+        scale = self.site_scale()
+        if scale is None:
+            scale = group_scale(x, ax)
+        (top, bottom), cols = self.s8_padding
+        xh = haloed_rows(x, 3, self.s8_stride, top, bottom)
+        return self.s8_forward(xh, scale, ((0, 0), cols))
+
+
+class SpatialDownsample(_Downsample):
+    """The image VAE's downsample: pad (0, 1), so a shard reads one row of
+    the shard below (int8: its :class:`SpatialQuantConv2d` pads so)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _ACTIVE is None or self.use_int8:
             return super().forward(x)
         return conv2d_rows(x, self.conv, (0, 1, 0, 1))
+
+
+class SpatialConvTranspose2x(ConvTranspose2x):
+    """The int8 upscaler on this rank's rows (a 2x2 window of stride 2
+    reads no other rows): a dynamic input scale is the whole image's."""
+
+    def input_scale(self, x: torch.Tensor):
+        ax = _ACTIVE
+        if ax is None or self.act_scale is not None:
+            return self.act_scale
+        return group_scale(x, ax)
 
 
 class _SpatialNorm:
@@ -251,6 +317,18 @@ class _SpatialNorm:
         shape = (1, c) + (1,) * (x.dim() - 2)
         return (y * self.weight.float().reshape(shape)
                 + self.bias.float().reshape(shape))
+
+    def group_stats(self, xr: torch.Tensor):
+        """The ``lowp`` path's group mean and variance over the whole
+        image: the same two all-reduced passes."""
+        ax = _ACTIVE
+        if ax is None:
+            return super().group_stats(xr)
+        count = xr.shape[-1] * ax.size
+        mean = all_reduce_sum(xr.sum(-1, keepdim=True), ax) / count
+        var = all_reduce_sum((xr - mean).square().sum(-1, keepdim=True),
+                             ax) / count
+        return mean, var
 
 
 class SpatialGroupNorm(_SpatialNorm, GroupNorm):
@@ -319,16 +397,20 @@ _SPATIAL = {GroupNorm: SpatialGroupNorm,
             GroupNormSiLU: SpatialGroupNormSiLU,
             _Downsample: SpatialDownsample,
             AttentionBlock2D: SpatialAttentionBlock2D,
-            Resize: SpatialResize, SegVAE: SpatialSegVAE}
+            Resize: SpatialResize, SegVAE: SpatialSegVAE,
+            QuantConv2d: SpatialQuantConv2d,
+            ConvTranspose2x: SpatialConvTranspose2x}
 
 
 def apply_sp(module: nn.Module) -> nn.Module:
     """Give every ``nn.Conv2d`` of ``module`` the halo exchange of
-    :class:`SpatialConv2d`, and each layer that reads across rows (a
-    GroupNorm, the image VAE's downsample, the mid-block attention,
-    ``Resize``, the seg VAE's upsample) its spatial subclass; their
-    parameters and names stay, and outside a sharded stage they run as
-    before. Returns ``module``."""
+    :class:`SpatialConv2d`, and each layer that reads across rows or takes
+    a whole image's scale (a GroupNorm, the ``lowp`` GroupNorm + SiLU, the
+    image VAE's downsample, the mid-block attention, ``Resize``, the seg
+    VAE's upsample, an s8 conv, the int8 upscaler) its spatial subclass;
+    their parameters and names stay, and outside a sharded stage they run
+    as before. K5 and K6 (``use_pallas``, ``quantize``) raise
+    ``NotImplementedError``. Returns ``module``."""
     for m in module.modules():
         kind = type(m)
         if kind is nn.Conv2d:
@@ -339,11 +421,9 @@ def apply_sp(module: nn.Module) -> nn.Module:
                     "and no dilation only")
             m.__class__ = SpatialConv2d
         elif kind in _SPATIAL:
-            if getattr(m, "use_int8", False) or any(
-                    getattr(m, k, False)
-                    for k in ("use_pallas", "quantize", "lowp")):
+            if any(getattr(m, k, False) for k in ("use_pallas", "quantize")):
                 raise NotImplementedError(
-                    f"spatial parallelism of {kind.__name__}: int8 and the "
-                    "fused GroupNorm kernels are not ported")
+                    f"spatial parallelism of {kind.__name__}: the fused "
+                    "GroupNorm kernels (K5, K6) are not ported")
             m.__class__ = _SPATIAL[kind]
     return module

@@ -41,10 +41,45 @@ zero-filled buffer, ``parallel/sp.py:all_gather``):
     input: this rank's channels are taken (:func:`scatter_to`: slice,
     all-gather backward).
 
-The replicated parameters (norms, the time embedding) receive the same
-gradient on every model rank; the trainer averages them over the group all
-the same. A checkpoint holds the one-rank layout (:func:`full_tensors`,
-:func:`local_tensor`).
+The replicated parameters (norms, the time embedding, the learnable
+``object_queries``) receive the same gradient on every model rank; the
+trainer averages them over the group all the same. A checkpoint holds the
+one-rank layout (:func:`full_tensors`, :func:`local_tensor`).
+
+The int8 UNet of ``sampling_kwargs.int8_inference`` is cut by the same
+rules, its codes filled from the cut masters (``ops/quant.py:
+prepare_int8_unet``), so that every rank's codes and scales are the slice
+of the one-rank ones:
+
+  * an s8 conv (``QuantConv2d``: the resnets', Down- and Upsample's) is
+    column-parallel (:class:`ColumnQuantConv2d`), its per-output-channel
+    codes a slice; its input is replicated, so a dynamic per-tensor scale
+    is the same on every rank;
+  * K3 (``LNAttentionS8``) packs a rank's heads (``w_qkv [3ci, C]``,
+    ``wo [C, ci]``, per-head scales) and K4 (``LNFeedForwardS8``) a rank's
+    GEGLU columns (``w1``'s paired rows, ``w2 [C, M/n]``); each writes its
+    fp32 partial, summed over the group (:class:`ModelGroup`, their
+    ``tp_group``) before the residual and bias are added and rounded once;
+  * without fused norms, ``ff.net.0.proj`` is a column-parallel
+    ``QuantLinear`` (:class:`ColumnQuantLinear`) and ``ff.net.2`` a
+    row-parallel one (:class:`RowQuantLinear`: its int32 partials
+    dequantized and summed in fp32, the bias once), K12 the rank's fp32
+    partial, K13 the rank's heads;
+  * a row-parallel layer's per-output-channel scale is an amax over the
+    whole input dimension: ``RowLinear.tp_group`` gives the maximum over
+    the group of the rank's amaxes (``ops/quant.py:quantize_rows``); so do
+    the dynamic activation scales of what a rank holds a slice of (K4's and
+    K12's interior per (image, token block), K13's q, k and v, the unfused
+    ``ff.net.2``'s input) and the calibration's gated-interior site;
+  * where the axis does not divide a block's heads, its attentions take
+    no group (their q, k and v are gathered, as in the float UNet); where
+    it does not divide the 4C GEGLU columns, the feed-forward stays whole
+    and takes none.
+
+Conditioning takes the same rules: ``attn2``'s ``to_q``/``to_k``/``to_v``
+are column-parallel (``to_k``/``to_v`` on the replicated context),
+``to_out`` row-parallel, ``encoder_hid_proj`` column-parallel with a
+gather; ``object_queries`` stay replicated.
 """
 
 from __future__ import annotations
@@ -56,7 +91,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from .sp import Axis, all_gather, model_axis
+from ..ops.quant import (QuantConv2d, QuantLinear, int8_matmul,
+                         quantize_activation)
+from .sp import Axis, all_gather, all_reduce_max, group_scale, model_axis
 
 ROW_PARALLEL_MARKERS = ("to_out", "proj_out")
 REPLICATED_MARKERS = ("norm", "ln", "time_embedding", "codebook")
@@ -213,6 +250,65 @@ class RowLinear(nn.Linear):
         y = reduce_from(F.linear(x, self.weight), self.tp)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
+    @property
+    def tp_group(self) -> "ModelGroup":
+        """The model group's reductions: the weight's per-row quantization
+        takes the whole rows' amax from them
+        (``ops/quant.py:quantize_rows``)."""
+        return ModelGroup(self.tp)
+
+
+class ModelGroup:
+    """The model group's reductions that the int8 ops take as ``group``
+    (``apply_tp`` sets them as ``tp_group`` on a module whose projections
+    it cut): ``sum`` adds the ranks' fp32 partials (in fp32), ``max`` takes
+    the maximum of the ranks' amaxes (exact, any dtype)."""
+
+    def __init__(self, ax: Axis):
+        self.ax = ax
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _reduce(x.float(), self.ax)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max(x, self.ax)
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+class ColumnQuantConv2d(ColumnConv2d, QuantConv2d):
+    """An s8 conv on this rank's output channels (their codes and scales),
+    on the replicated input; gathered."""
+
+
+class ColumnQuantLinear(ColumnLinear, QuantLinear):
+    """An s8 linear on this rank's output features, gathered where
+    ``gather``."""
+
+
+class RowQuantLinear(RowLinear, QuantLinear):
+    """An s8 linear on this rank's input features (prepared: the codes of
+    the whole rows' scales): the input quantized per tensor with the site's
+    static scale, else with the amax over the group; the int32 partial
+    product dequantized in fp32, the ranks' partials summed in fp32, then
+    rounded to the input's dtype and the bias added once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w_q is None:
+            raise RuntimeError("RowQuantLinear: prepare it first (run "
+                               "prepare_int8_unet)")
+        if self.scatter:
+            x = scatter_to(x, self.tp, -1)
+        site = self.x_scale if self.x_scale is not None else self.act_scale
+        if site is None:
+            site = group_scale(x, self.tp)
+        x_q, xs = quantize_activation(x, site)
+        y = int8_matmul(x_q.reshape(-1, self.in_features), self.w_q)
+        y = y.reshape(*x.shape[:-1], self.out_features)
+        y = _reduce(y.float() * (xs * self.w_scale), self.tp).to(x.dtype)
+        return y + self.bias.to(y.dtype)
+
 
 def local_tensor(full: torch.Tensor, dim: int, ax: Axis,
                  pairs: int = 1) -> torch.Tensor:
@@ -238,12 +334,14 @@ def layout(module: nn.Module) -> Dict[str, Tuple[int, int]]:
     return getattr(module, LAYOUT, {})
 
 
-_REFUSED = ("use_cross_attention", "encoder_hid_dim", "num_object_queries",
-            "separate_conv", "separate_encoder", "add_adaptor",
+_REFUSED = ("separate_conv", "separate_encoder", "add_adaptor",
             "upscaler_classes", "use_packed_attention",
-            "use_absorbed_attention", "use_padded_attention",
-            "use_fused_projs", "use_int8_conv", "use_int8_attention",
-            "use_int8_ff", "use_fused_norms", "int8_fuse_gn")
+            "use_absorbed_attention", "use_fused_projs", "int8_fuse_gn")
+# the layers apply_tp cuts: (column-parallel class, row-parallel class)
+_CUT = {nn.Conv2d: (ColumnConv2d, RowConv2d),
+        nn.Linear: (ColumnLinear, RowLinear),
+        QuantConv2d: (ColumnQuantConv2d, None),
+        QuantLinear: (ColumnQuantLinear, RowQuantLinear)}
 
 
 def apply_tp(mesh, unet: nn.Module) -> nn.Module:
@@ -253,34 +351,58 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
     Without a model axis nothing changes. A UNet option that the model axis
     does not take raises ``NotImplementedError`` naming it. Returns
     ``unet``."""
-    from ..models.unet import CrossAttention, FeedForward
+    from ..models.unet import BasicTransformerBlock, CrossAttention
     ax = model_axis(mesh)
     if ax is None:
         return unet
     if layout(unet):
         raise RuntimeError("apply_tp: the UNet is cut already")
     cfg = unet.config
-    for key in _REFUSED:
-        if getattr(cfg, key):
-            raise NotImplementedError(
-                f"UNetConfig.{key} with tensor parallelism over a model "
-                f"axis of {ax.size} ranks is not ported")
+    refused = [key for key in _REFUSED if getattr(cfg, key)]
+    if cfg.use_padded_attention and not cfg.use_fused_norms:
+        refused.append("use_padded_attention (K11, without "
+                       "use_fused_norms)")
+    if cfg.use_fused_norms and cfg.attention_head_dim % ax.size:
+        refused.append(f"use_fused_norms with {cfg.attention_head_dim} "
+                       "heads (K3 on a rank's heads)")
+    if refused:
+        raise NotImplementedError(
+            f"UNetConfig.{refused[0]} with tensor parallelism over a model "
+            f"axis of {ax.size} ranks is not ported")
+    group = ModelGroup(ax)
     found: Dict[str, Tuple[int, int]] = {}
-    # column layers whose output stays local, GEGLU's paired ones, and the
-    # row layers that take such an output (an attention whose heads the
-    # axis cuts gathers q, k and v and scatters to_out's input)
-    local_out, paired, local_in = set(), set(), set()
-    for mn, m in unet.named_modules():
-        if isinstance(m, CrossAttention) and m.heads % ax.size == 0:
-            local_out.update(f"{mn}.{p}" for p in ("to_q", "to_k", "to_v"))
-            local_in.add(f"{mn}.to_out.0")
-        elif isinstance(m, FeedForward):
-            paired.add(f"{mn}.net.0.proj")
-            local_in.add(f"{mn}.net.2")
+    # column layers whose output stays local, GEGLU's paired ones, the row
+    # layers that take such an output, and the layers kept whole. An
+    # attention whose heads the axis cuts keeps q, k and v local (else it
+    # gathers them and scatters to_out's input); a feed-forward whose 4C
+    # columns it cuts runs on a rank's columns (else it stays whole). The
+    # int8 blocks (K3, K4, K12, K13) get the group where their pack or
+    # projections hold a rank's share, and only there.
+    local_out, paired, local_in, whole = set(), set(), set(), set()
+    for bn, blk in unet.named_modules():
+        if not isinstance(blk, BasicTransformerBlock):
+            continue
+        heads_cut = blk.heads % ax.size == 0
+        for an in ("attn1", "attn2"):
+            attn = getattr(blk, an, None)
+            if attn is None or not heads_cut:
+                continue
+            attn.tp_group = group
+            if isinstance(attn, CrossAttention):
+                local_out.update(f"{bn}.{an}.{p}"
+                                 for p in ("to_q", "to_k", "to_v"))
+                local_in.add(f"{bn}.{an}.to_out.0")
+        names = (f"{bn}.ff.net.0.proj", f"{bn}.ff.net.2")
+        if 4 * blk.dim % ax.size:
+            whole.update(names)
+            continue
+        blk.ff.tp_group = group
+        paired.add(names[0])
+        local_in.add(names[1])
     local_out |= paired
     with torch.no_grad():
         for mn, m in list(unet.named_modules()):
-            if type(m) not in (nn.Conv2d, nn.Linear):
+            if type(m) not in _CUT or mn in whole:
                 continue
             dims = {pn: tp_spec_for(f"{mn}.{pn}", tuple(p.shape), ax.size)
                     for pn, p in m.named_parameters(recurse=False)}
@@ -290,6 +412,10 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
             if "bias" in dims and dims["bias"] != (0 if wdim == 0 else None):
                 raise NotImplementedError(f"{mn}: a column-parallel layer "
                                           "with a replicated bias")
+            column, row = _CUT[type(m)]
+            if wdim != 0 and row is None:
+                raise NotImplementedError(f"{mn}: a row-parallel "
+                                          f"{type(m).__name__}")
             conv = isinstance(m, nn.Conv2d)
             pairs = 2 if mn in paired else 1
             for pn, p in m.named_parameters(recurse=False):
@@ -297,11 +423,10 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
                 if d is not None:
                     p.data = local_tensor(p.data, d, ax, pairs)
                     found[f"{mn}.{pn}"] = (d, pairs)
+            m.__class__ = column if wdim == 0 else row
             if conv:
-                m.__class__ = ColumnConv2d if wdim == 0 else RowConv2d
                 m.out_channels, m.in_channels = m.weight.shape[:2]
             else:
-                m.__class__ = ColumnLinear if wdim == 0 else RowLinear
                 m.out_features, m.in_features = m.weight.shape
                 if wdim == 0:
                     m.gather = mn not in local_out

@@ -115,11 +115,18 @@ model group, and a checkpoint is gathered to the one-rank layout (and a
 one-rank checkpoint resumes onto the shards). With ``spatial_parallel``
 each runs the frozen VAEs on its rows of H (``parallel/sp.py:run_stage``:
 the encoders' moments gathered before the posterior's draws, the decode's
-logits gathered before post-processing). Sampling then runs the eager loop:
-a CUDA graph cannot capture gloo's host-staged collectives. Without a model
-axis the two flags do nothing (JAX's ``has_spatial_axis`` rule). The other
-options that a model axis does not take yet raise ``NotImplementedError``
-naming themselves (:func:`refuse_model_axis`).
+logits gathered before post-processing). Serving takes the model axis
+whole: the int8 UNet (fused norms or not) is cut as the float one (K3 and
+K4, or K13 and K12, on a rank's heads and GEGLU columns, their partials
+summed over the model group), its codes quantized from the cut masters
+and its calibration taken on them, the same scales on every rank; the
+int8 image VAE and seg decoder run under ``spatial_parallel`` on a rank's
+rows; the ``none``, ``learnable`` and CLIP descriptors' context and
+classifier-free guidance run on the cut UNet. Sampling then runs the eager
+loop: a CUDA graph cannot capture gloo's host-staged collectives. Without
+a model axis the two flags do nothing (JAX's ``has_spatial_axis`` rule).
+The other options that a model axis does not take yet raise
+``NotImplementedError`` naming themselves (:func:`refuse_model_axis`).
 """
 
 from __future__ import annotations
@@ -175,30 +182,22 @@ _EXTERNAL_CONTEXT = ("none", "clip_text", "clip_vision")
 _FRAME_KEYS = ("image", "image_semseg", "semseg", "mask", "inpainting_mask")
 
 
-def refuse_model_axis(p: Mapping, mesh, unet_config: UNetConfig,
-                      descriptor: DescriptorSpec) -> None:
+def refuse_model_axis(p: Mapping, mesh, unet_config: UNetConfig) -> None:
     """The options that a model axis of more than one rank does not take in
     the port yet raise ``NotImplementedError`` naming each of them (JAX
-    computes every one of them on a model axis). Without a model axis
-    nothing is refused."""
+    computes every one of them on a model axis), an int8 UNet with one of
+    them too. Without a model axis nothing is refused."""
     if mesh.model <= 1:
         return
     tk, mk, sk = (p["train_kwargs"], p["model_kwargs"],
                   p["sampling_kwargs"])
     refused = []
-    if sk.get("int8_inference", False):
-        refused.append("sampling_kwargs.int8_inference")
-    if (p.get("image_vae_kwargs") or {}).get("use_int8", False):
-        refused.append("image_vae_kwargs.use_int8")
-    if p["vae_model_kwargs"].get("use_int8", False):
-        refused.append("vae_model_kwargs.use_int8")
+    int8 = (" with sampling_kwargs.int8_inference"
+            if sk.get("int8_inference", False) else "")
     for key in ("use_packed_attention", "use_absorbed_attention",
                 "use_fused_projs"):
         if getattr(unet_config, key):
-            refused.append(f"unet_config.{key}")
-    if descriptor.use_cross_attention:
-        refused.append(f"train_kwargs.image_descriptors {descriptor.kind!r} "
-                       "(a context, and classifier-free guidance)")
+            refused.append(f"unet_config.{key}{int8}")
     for key in ("separate_conv", "separate_encoder"):
         if mk.get(key, False):
             refused.append(f"model_kwargs.{key}")
@@ -313,7 +312,7 @@ class TrainerDiffusion(PanopticRestore):
                                               False),
                 remat_policy=tk.get("remat_policy"))
         self.unet_config = unet_config
-        refuse_model_axis(p, self.mesh, unet_config, descriptor)
+        refuse_model_axis(p, self.mesh, unet_config)
         # built without storage; init_params / load_jax_params fill them
         # int8 sampling (trainer_ldm.py:157-193): the UNet the JAX trainer
         # builds with the int8 flags (:163-176), beside the float one
@@ -446,6 +445,11 @@ class TrainerDiffusion(PanopticRestore):
                 sp.apply_sp(model)
         if self.tensor_parallel:
             tp.apply_tp(self.mesh, self.unet)
+            # the int8 UNet takes the same cut (its codes come from the
+            # cut masters by name), once
+            if self._unet_int8 is not None and not tp.layout(
+                    self._unet_int8):
+                tp.apply_tp(self.mesh, self._unet_int8)
         self.unet.eval().requires_grad_(True)
         self._eval_unet = self.unet
         if self.ema_on:  # real copies (TrainState.create's jnp.copy)
@@ -528,7 +532,9 @@ class TrainerDiffusion(PanopticRestore):
         int8 UNet with the current activation scales
         (``prequantize_conv_tree``, ``apply_act_scales`` and
         ``pack_inference_tiles`` of the JAX trainer's ``_prequant``): once
-        per call, outside the step loop."""
+        per call, outside the step loop. With ``tensor_parallel`` each rank
+        quantizes its cut masters into its cut int8 UNet (row-parallel
+        layers over their whole rows): the slice of the one-rank codes."""
         self._require_params()
         if self._unet_int8 is None:
             raise RuntimeError("int8 inference not enabled "
@@ -568,7 +574,9 @@ class TrainerDiffusion(PanopticRestore):
         The forward runs on the fp32 masters (their EMA with ``ema_on``), as
         JAX's on its fp32 ``eval_params``, with the input rounded to the
         compute dtype. Later int8 calls use the scales. Returns them, keyed
-        by int8 site."""
+        by int8 site. On a model axis every rank runs it on the same batch
+        and draws (the cut masters; the gated-interior sites' amax over the
+        model group) and gets the one-rank scales."""
         if not self.int8_inference:
             raise RuntimeError("calibrate_int8: int8 inference not enabled")
         if self.descriptor.kind in _EXTERNAL_CONTEXT:

@@ -202,7 +202,8 @@ def test_trainer_names_what_is_not_ported(override, named):
 
 
 # what a model axis of more than one rank does not take yet (ROADMAP queue
-# 1), one case each: (config override, unet_config fields, name raised)
+# 1), one case each: (config override, unet_config fields, name raised);
+# the cases that MODEL_AXIS_NOW_PORTED names take effect instead
 MODEL_AXIS_REFUSED = [
     ({"sampling_kwargs": {"int8_inference": True}}, {}, "int8_inference"),
     ({"image_vae_kwargs": {"use_int8": True}}, {},
@@ -221,14 +222,82 @@ MODEL_AXIS_REFUSED = [
     ({"train_kwargs": {"temporal_consistency_weight": 0.1}}, {},
      "temporal_consistency_weight"),
     ({"optimizer_name": "adafactor"}, {}, "adafactor"),
+    # an int8 UNet with an attention variant the model axis does not take
+    ({"sampling_kwargs": {"int8_inference": True}},
+     {"use_packed_attention": True},
+     "use_packed_attention with sampling_kwargs.int8_inference"),
+    ({"sampling_kwargs": {"int8_inference": True}},
+     {"use_absorbed_attention": True},
+     "use_absorbed_attention with sampling_kwargs.int8_inference"),
+    ({"sampling_kwargs": {"int8_inference": True}},
+     {"use_fused_projs": True},
+     "use_fused_projs with sampling_kwargs.int8_inference"),
 ]
+
+
+def _column_attn2(t):
+    from ldmseg_torch.parallel import tp
+    blk = t.unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    return (isinstance(blk.attn2.to_k, tp.ColumnLinear)
+            and not blk.attn2.to_k.gather
+            and isinstance(blk.attn2.to_out[0], tp.RowLinear))
+
+
+def _spatial_s8(vae):
+    from ldmseg_torch.parallel import sp
+    convs = [m for m in vae.modules() if isinstance(m, QuantConv2d)]
+    return convs and all(isinstance(m, sp.SpatialQuantConv2d)
+                         and m.w_q is not None for m in convs)
+
+
+def _cut_int8_unet(t):
+    from ldmseg_torch.parallel import tp
+    u = t._unet_int8
+    blk = u.down_blocks[0].attentions[0].transformer_blocks[0]
+    lay, masters = tp.layout(u), tp.layout(t.unet)
+    return (lay and all(masters[n] == cut for n, cut in lay.items())
+            and isinstance(u.down_blocks[0].resnets[0].conv1,
+                           tp.ColumnQuantConv2d)
+            and isinstance(blk.attn1.tp_group, tp.ModelGroup)
+            and isinstance(blk.ff.tp_group, tp.ModelGroup))
+
+
+# ported since (test_torch_port_model_axis_serving,
+# test_torch_port_model_axis_context): with a model axis of 2 each takes
+# effect on a small trainer (a mesh without a group: the cuts and the class
+# swaps need no collective)
+MODEL_AXIS_NOW_PORTED = {
+    "int8_inference": _cut_int8_unet,
+    "image_vae_kwargs.use_int8": lambda t: _spatial_s8(t.vae_img),
+    "vae_model_kwargs.use_int8": lambda t: _spatial_s8(t.vae_seg),
+    "image_descriptors 'none'": _column_attn2,
+    "image_descriptors 'learnable'": lambda t: (
+        _column_attn2(t) and "object_queries.weight" not in
+        __import__("ldmseg_torch.parallel.tp",
+                   fromlist=["layout"]).layout(t.unet)),
+}
 
 
 @pytest.mark.parametrize("override,unet_kw,named", MODEL_AXIS_REFUSED,
                          ids=[c[2].split()[0] for c in MODEL_AXIS_REFUSED])
 def test_model_axis_refuses_by_name(override, unet_kw, named):
+    from ldmseg_torch.entry import DRYRUN_UNET, _dryrun_config
+    from ldmseg_torch.models.descriptors import get_image_descriptors
     from ldmseg_torch.models.unet import UNetConfig
     from ldmseg_torch.parallel.mesh import Mesh
+    if named in MODEL_AXIS_NOW_PORTED:
+        cfg = merge_dicts(_dryrun_config(1, "cpu"), dict(
+            override, tensor_parallel=True, spatial_parallel=True))
+        spec = get_image_descriptors(cfg["train_kwargs"].get(
+            "image_descriptors", "remove"))
+        unet_config = UNetConfig(
+            in_channels=12, use_cross_attention=spec.use_cross_attention,
+            num_object_queries=spec.num_object_queries, **DRYRUN_UNET)
+        trainer = TrainerDiffusion(cfg, unet_config=unet_config,
+                                   device="cpu", mesh=Mesh(model=2))
+        trainer.init_params(seed=0)
+        assert MODEL_AXIS_NOW_PORTED[named](trainer)
+        return
     cfg = merge_dicts(DEFAULT_CONFIG, dict(override, tensor_parallel=True,
                                            spatial_parallel=True))
     unet_config = UNetConfig(in_channels=12, **unet_kw) if unet_kw else None

@@ -260,6 +260,7 @@ def test_constraints_and_their_no_ops():
 
 def _spatial_kinds():
     from ldmseg_torch.models import image_vae, layers, seg_vae
+    from ldmseg_torch.ops.quant import QuantConv2d
     return {
         "group_norm": (lambda: layers.GroupNorm(4, 8, 1e-6), (2, 8, 8, 6)),
         "group_norm_silu": (lambda: layers.GroupNormSiLU(4, 8, 1e-6),
@@ -268,7 +269,20 @@ def _spatial_kinds():
         "attention": (lambda: layers.AttentionBlock2D(8, 4),
                       (2, 8, 4, 6)),
         "resize": (lambda: seg_vae.Resize(4), (2, 8, 8, 8)),
+        # the int8 VAEs' layers (serving on the model axis)
+        "group_norm_silu_lowp": (lambda: layers.GroupNormSiLU(
+            4, 8, 1e-6, lowp=True), (2, 8, 8, 6)),
+        "s8_conv": (lambda: _prepared(QuantConv2d(8, 8)), (2, 8, 8, 6)),
+        "s8_down_pad": (lambda: _prepared(image_vae._Downsample(
+            8, use_int8=True)), (2, 8, 8, 6)),
+        "s8_upscaler": (lambda: _prepared(layers.ConvTranspose2x(
+            8, 4, use_int8=True)), (2, 8, 8, 6)),
     }
+
+
+def _prepared(m):
+    from ldmseg_torch.ops.quant import prepare_int8_vae
+    return prepare_int8_vae(m)
 
 
 @pytest.mark.parametrize("kind", list(_spatial_kinds()))
@@ -289,5 +303,12 @@ def test_apply_sp_refuses_what_it_does_not_take(kind):
     from ldmseg_torch.models import image_vae, layers
     m = (image_vae._Downsample(8, use_int8=True) if kind == "int8"
          else layers.GroupNormSiLU(4, 8, 1e-6, **{kind: True}))
+    if kind == "int8":
+        # taken since serving came to the model axis: the s8 conv with its
+        # halo (test_torch_port_model_axis_context)
+        sp.apply_sp(m)
+        assert isinstance(m, sp.SpatialDownsample)
+        assert isinstance(m.conv, sp.SpatialQuantConv2d)
+        return
     with pytest.raises(NotImplementedError, match="spatial parallelism"):
         sp.apply_sp(m)

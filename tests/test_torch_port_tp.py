@@ -266,6 +266,31 @@ def test_whole_tensor_inverts_local_tensor():
         assert torch.equal(tp.whole_tensor(shards, dim, pairs), x)
 
 
+def _attn2_cut(unet):
+    blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    return (isinstance(blk.attn2.to_k, tp.ColumnLinear)
+            and not blk.attn2.to_k.gather
+            and isinstance(blk.attn2.to_out[0], tp.RowLinear))
+
+
+def _s8_convs_cut(unet):
+    from ldmseg_torch.ops.quant import QuantConv2d
+    lay = tp.layout(unet)
+    convs = [(n, m) for n, m in unet.named_modules()
+             if isinstance(m, QuantConv2d)]
+    return convs and all(isinstance(m, tp.ColumnQuantConv2d)
+                         and lay[f"{n}.weight"] == (0, 1)
+                         and m.out_channels == m.weight.shape[0]
+                         for n, m in convs)
+
+
+# the options apply_tp takes since serving came to the model axis, each
+# with what its cut makes (held against JAX in
+# test_torch_port_model_axis_serving and test_torch_port_model_axis_context)
+NOW_TAKEN = {"use_cross_attention": _attn2_cut,
+             "use_int8_conv": _s8_convs_cut}
+
+
 @pytest.mark.parametrize("key", [
     "use_cross_attention", "separate_conv", "use_packed_attention",
     "use_absorbed_attention", "use_int8_conv", "upscaler_classes"])
@@ -275,6 +300,25 @@ def test_apply_tp_refuses_what_it_does_not_take(key):
         key: 5 if key == "upscaler_classes" else True})
     with torch.device("meta"):
         unet = UNet2DCondition(cfg)
+    if key in NOW_TAKEN:
+        tp.apply_tp(Mesh(model=2), unet)
+        assert NOW_TAKEN[key](unet)
+        return
+    with pytest.raises(NotImplementedError, match=key):
+        tp.apply_tp(Mesh(model=2), unet)
+
+
+@pytest.mark.parametrize("key", ["use_padded_attention", "int8_fuse_gn",
+                                 "use_fused_norms"])
+def test_apply_tp_refuses_the_int8_options_it_does_not_take(key):
+    # K11 (padded attention without fused norms), K6, and K3 where the
+    # axis does not divide the heads
+    kw = dict(TOY, use_int8_conv=True, **{key: True})
+    if key == "use_fused_norms":
+        kw.update(SPLIT, use_padded_attention=True, use_int8_conv=True,
+                  use_fused_norms=True)
+    with torch.device("meta"):
+        unet = UNet2DCondition(UNetConfig(**kw))
     with pytest.raises(NotImplementedError, match=key):
         tp.apply_tp(Mesh(model=2), unet)
 

@@ -452,3 +452,233 @@ def model_axis_stage2(rank: int, spec: dict) -> dict:
         init_noise=_rows(spec["init"], mesh), num_inference_steps=2)
     out.update(logits=logits, x0=x0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving on the model axis: the int8 UNet under tensor parallelism, the
+# int8 VAEs under spatial parallelism, contexts and guidance
+# ---------------------------------------------------------------------------
+def _int8_codes(unet) -> dict:
+    """Every code and scale a prepared int8 UNet holds: the s8 convs' and
+    linears' buffers, K3's and K4's packs (by module name and field)."""
+    from ldmseg_torch.ops.quant import QuantConv2d, QuantLinear
+    out = {}
+    for name, m in unet.named_modules():
+        if isinstance(m, (QuantConv2d, QuantLinear)) and m.w_q is not None:
+            out[f"{name}.w_q"] = m.w_q.clone()
+            out[f"{name}.w_scale"] = m.w_scale.clone()
+        pack = getattr(m, "pack", None)
+        if pack is not None and hasattr(pack, "w_qkv"):
+            for f in ("w_qkv", "m_qkv", "wo", "wo_q", "w_scale", "out_b"):
+                out[f"{name}.pack.{f}"] = getattr(pack, f).clone()
+            out[f"{name}.pack.heads"] = pack.heads
+        elif pack is not None and hasattr(pack, "w1"):
+            for f in ("w1", "s1", "b1", "w2", "s2", "b2"):
+                out[f"{name}.pack.{f}"] = getattr(pack, f).clone()
+    return out
+
+
+def _cut(ax, layers: list) -> None:
+    """``apply_tp``'s cut of loose layers: ``(linear, dim, pairs)``, a
+    row-parallel one (dim 1) given ``RowLinear``'s class and axis."""
+    from ldmseg_torch.parallel import tp
+    for m, dim, pairs in layers:
+        m.weight.data = tp.local_tensor(m.weight.data, dim, ax, pairs)
+        if m.bias is not None and dim == 0:
+            m.bias.data = tp.local_tensor(m.bias.data, 0, ax, pairs)
+        if dim == 1:
+            m.__class__, m.tp = tp.RowLinear, ax
+
+
+def _partial_modes(mesh, cases: list) -> list:
+    """The K3/K4/K12/K13 plain versions' partial modes on this rank's
+    shard of each case: the op with the model group (what the int8 blocks
+    pass as ``group``), on a whole pack cut by
+    ``apply_tp``'s rules."""
+    from ldmseg_torch.ops import attention_s8 as A
+    from ldmseg_torch.ops import geglu as G
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.sp import model_axis
+    ax = model_axis(mesh)
+    group = tp.ModelGroup(ax)
+    out = []
+    for case in cases:
+        x, kind = case.get("x"), case["kind"]
+        if kind == "K3":
+            norm, attn = case["modules"]
+            _cut(ax, [(attn.to_q, 0, 1), (attn.to_k, 0, 1),
+                      (attn.to_v, 0, 1), (attn.to_out[0], 1, 1)])
+            p = A.pack_ln_attention(norm, attn, case["heads"], case["xs"])
+            y = A.ln_attention_s8(x, p, group)
+        elif kind in ("K4", "K12"):
+            norm, ff = case["modules"]
+            _cut(ax, [(ff.net[0].proj, 0, 2), (ff.net[2], 1, 1)])
+            p = G.pack_geglu(norm, ff.net[0].proj, ff.net[2], case["xs"],
+                             case["gs"])
+            if kind == "K4":
+                y = G.geglu_ln_s8(x, p, group)
+            else:
+                y = G.fused_geglu_s8(x, p, group)
+        else:  # K13 on this rank's heads
+            q, k, v = (tp.local_tensor(t, 2, ax) for t in case["qkv"])
+            y = A.fused_self_attention_s8(q, k, v, case["scale"],
+                                          case["act_scale"], group)
+            y = tp.gather_from(y, ax, 2)
+        out.append(y)
+    return out
+
+
+def serving(rank: int, spec: dict) -> dict:
+    """On a ``(1, 2)`` mesh: the plain versions' partial modes of the cases
+    ``spec["partial"]``; for each of ``spec["trainers"]`` (``{key: {"cfg",
+    "calibrate", "direct"}}``, the tiny UNet of ``unet_kw``, the JAX
+    weights of ``params``) a trainer on the mesh: its calibrated scales
+    (and ``calibrate_act_scale_tree`` on its cut masters at ``calib_x``,
+    ``calib_t`` with ``direct``), its int8 UNet's codes (with the scales
+    ``code_scales``), an int8
+    ``sample_panoptic`` from ``init`` (x0, logits, the stages run whole,
+    the int8 UNet's bytes); and with ``spec["vaes"]`` the int8 VAEs alone
+    under spatial parallelism (the image encoder's moments, the seg
+    decode)."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.ops.quant import QuantConv2d, calibrate_act_scale_tree
+    from ldmseg_torch.parallel import sp
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2)
+    out = {"partial": _partial_modes(mesh, spec.get("partial", []))}
+    for key, run in spec.get("trainers", {}).items():
+        tr = tl.TrainerDiffusion(run["cfg"], unet_config=UNetConfig(
+            **spec["unet_kw"]), device="cpu", mesh=mesh)
+        tr.load_jax_params(*spec["params"])
+        res = out[key] = {}
+        if run.get("calibrate"):
+            res["scales"] = tr.calibrate_int8({"image": spec["image"]},
+                                              noise=spec["calib_noise"])
+        else:
+            tr._params_pretrained = False  # the default scales
+        if run.get("direct"):
+            with torch.no_grad():
+                res["direct"] = calibrate_act_scale_tree(
+                    tr._eval_unet, torch.from_numpy(spec["calib_x"]),
+                    torch.from_numpy(spec["calib_t"]))
+        before = sp.run_stage.replicated
+        # the dynamic per-tensor amax that each s8 conv without a static
+        # scale (the Down- and Upsample convs) reads from its input
+        amaxes = res["dynamic_amax"] = []
+        hooks = [m.register_forward_pre_hook(
+            lambda m, args: amaxes.append(args[0].detach().abs().amax()))
+            for m in tr._unet_int8.modules()
+            if isinstance(m, QuantConv2d) and m.site_scale() is None]
+        res["logits"], res["x0"] = tr.sample_panoptic(
+            {"image": spec["image"]}, init_noise=spec["init"],
+            num_inference_steps=spec["steps"])
+        for h in hooks:
+            h.remove()
+        res["replicated"] = sp.run_stage.replicated - before
+        # the codes with the same scales as the one-rank UNet's
+        tr._int8_act_scales = spec.get("code_scales")
+        res["codes"] = _int8_codes(tr.int8_unet())
+        res["bytes"] = sum(p.numel() * p.element_size()
+                           for p in tr._unet_int8.parameters())
+        del tr
+    vaes = spec.get("vaes")
+    if vaes:
+        from ldmseg_torch.models.image_vae import ImageVAE
+        from ldmseg_torch.models.seg_vae import SegVAE
+        from ldmseg_torch.ops.quant import prepare_int8_vae
+        ivae = ImageVAE(**vaes["image_kw"])
+        ivae.load_state_dict(vaes["image_sd"], strict=True)
+        svae = SegVAE(**vaes["seg_kw"])
+        svae.load_state_dict(vaes["seg_sd"], strict=True)
+        for m in (ivae, svae):
+            sp.apply_sp(prepare_int8_vae(m.to(vaes["dtype"]).eval()))
+        before = sp.run_stage.replicated
+        with torch.no_grad():
+            moments = sp.run_stage(
+                lambda x: ivae.quant_conv(ivae.encoder(x)),
+                vaes["rgb"].to(vaes["dtype"]), mesh, 8)
+            logits = sp.run_stage(lambda z: svae.decode(z, True),
+                                  vaes["z"].to(vaes["dtype"]), mesh)
+        out["vaes"] = {"moments": moments.float(), "logits": logits.float(),
+                       "replicated": sp.run_stage.replicated - before}
+    if spec.get("context"):
+        out["context"] = _context_runs(mesh, spec["context"])
+    return out
+
+
+def _context_runs(mesh, spec: dict) -> dict:
+    """The conditioning paths on the mesh, each a trainer with
+    ``tensor_parallel`` and ``spatial_parallel``: a guided
+    ``sample_panoptic`` with the ``none`` descriptor on a caller's context
+    (``encoder_hid_proj`` on it), and one training step with ``learnable``
+    queries (the loss, this rank's gradient shards, the layout)."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.models.descriptors import DescriptorSpec
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.parallel import tp
+
+    out = {}
+    g = spec["guided"]
+    tr = tl.TrainerDiffusion(
+        g["cfg"], unet_config=UNetConfig(**g["unet_kw"]), device="cpu",
+        mesh=mesh, descriptor=DescriptorSpec(kind="none",
+                                             use_cross_attention=True))
+    tr.load_jax_params(*g["params"])
+    logits, x0 = tr.sample_panoptic(g["batch"], init_noise=g["init"],
+                                    num_inference_steps=g["steps"],
+                                    guidance_scale=g["guidance"])
+    blk = tr.unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    out["guided"] = {
+        "logits": logits, "x0": x0,
+        "column_attn2": isinstance(blk.attn2.to_k, tp.ColumnLinear)
+        and not blk.attn2.to_k.gather
+        and isinstance(blk.attn2.to_out[0], tp.RowLinear),
+        "column_hid_proj": isinstance(tr.unet.encoder_hid_proj,
+                                      tp.ColumnLinear)
+        and tr.unet.encoder_hid_proj.gather}
+    del tr
+    q = spec["learnable"]
+    tr = tl.TrainerDiffusion(
+        q["cfg"], unet_config=UNetConfig(**q["unet_kw"]), device="cpu",
+        mesh=mesh, descriptor=DescriptorSpec(
+            kind="learnable", use_cross_attention=True,
+            num_object_queries=q["unet_kw"]["num_object_queries"]))
+    tr.load_jax_params(*q["params"])
+    loss, _, _ = tr.forward_backward(q["batch"], noise=q["noise"],
+                                     timesteps=q["timesteps"])
+    out["learnable"] = {
+        "loss": float(loss), "layout": tp.layout(tr.unet),
+        "grads": {n: p.grad.detach().clone()
+                  for n, p in tr.unet.named_parameters()}}
+    return out
+
+
+def uneven_axis(rank: int, spec: dict) -> dict:
+    """On a ``(1, spec["model"])`` mesh with tensor parallelism, for each
+    of ``spec["trainers"]`` (``{key: cfg}``, the UNet of ``unet_kw``, the
+    weights of ``init_params(seed)``): an int8 ``sample_panoptic`` from
+    ``init`` (x0), the int8 UNet's modules that hold the model group
+    (``tp_group``) and its cut parameters."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.parallel import tp
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, spec["model"])
+    out = {}
+    for key, cfg in spec["trainers"].items():
+        tr = tl.TrainerDiffusion(cfg, unet_config=UNetConfig(
+            **spec["unet_kw"]), device="cpu", mesh=mesh)
+        tr.init_params(seed=spec["seed"])
+        _, x0 = tr.sample_panoptic({"image": spec["image"]},
+                                   init_noise=spec["init"],
+                                   num_inference_steps=spec["steps"])
+        unet = tr._unet_int8
+        out[key] = {"x0": x0,
+                    "grouped": {n for n, m in unet.named_modules()
+                                if getattr(m, "tp_group", None) is not None},
+                    "cut": set(tp.layout(unet))}
+        del tr
+    return out
