@@ -6121,8 +6121,7 @@ def phase59_child(out_path: str) -> None:
     import torch.distributed as dist
     from ldmseg_torch.parallel.multihost import initialize_from_env
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # no TF32: each trainer turns it off when it is built
     torch.backends.cudnn.deterministic = True
     batch = _dp_batch(slice(None))
     noise, steps = _dp_draws(5)
@@ -6273,8 +6272,7 @@ def _dp_rank(rank: int, spec: dict) -> dict:
                                             make_mesh)
     from ldmseg_torch.train.trainer_ae import TrainerAE
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # no TF32: each trainer turns it off when it is built
     torch.backends.cudnn.deterministic = True
     mesh = make_mesh()
     rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
@@ -6885,8 +6883,10 @@ def phase_model_axis(smi_line: str) -> tuple:
 
     Phase 63 runs on the same ranks after it (:func:`_serve`, its one-rank
     references here first): the bench's int8 serving pipeline with tensor
-    and spatial parallelism (:func:`serve_report`). Returns both phases'
-    results."""
+    and spatial parallelism (:func:`serve_report`); then the emulated
+    modules against :func:`module_emulation` (:func:`emulation_report`);
+    then phase 64 (:func:`_axis_rank`, its one-rank references here
+    first, :func:`axis_report`). Returns the three phases' results."""
     import os
     import tempfile
     import torch
@@ -6901,10 +6901,22 @@ def phase_model_axis(smi_line: str) -> tuple:
         serve_one_s = time.perf_counter() - t0 - ref_s
         print(f"phase 63 one rank: {serve_one_s:.1f} s", flush=True)
         torch.cuda.empty_cache()
-        both = run_ranks(_ma_and_serve_rank, 2, args=({"ref": path},),
+        t1 = time.perf_counter()
+        emulated = module_emulation()
+        axis_path = os.path.join(tmp, "axis_")
+        axis_one = _axis_reference(axis_path)
+        axis_one_s = time.perf_counter() - t1
+        print(f"phase 64 one rank: {axis_one_s:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        both = run_ranks(_ma_and_serve_rank, 2,
+                         args=({"ref": path, "axis_ref": axis_path,
+                                "axis_scales": {
+                                    flag: res["int8"]["scales"]
+                                    for flag, res in axis_one.items()}},),
                          device="cuda", backend="gloo", local_rank=0,
                          timeout_s=MA_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0 - ref_s - serve_one_s
+    ranks_s = (time.perf_counter() - t0 - ref_s - serve_one_s
+               - axis_one_s)
     ranks = [r["ma"] for r in both]
     r0 = ranks[0]
     rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
@@ -6979,7 +6991,11 @@ def phase_model_axis(smi_line: str) -> tuple:
             "reference_seconds": ref_s, "ranks_seconds": ranks_s,
             "seconds": time.perf_counter() - t0}, serve_report(
                 smi_line, serve_one, [r["serve"] for r in both],
-                serve_one_s)
+                serve_one_s) | {"emulation": emulation_report(
+                    emulated, [r["modules"] for r in both])}, {
+                **axis_report(smi_line, axis_one, [r["axis"] for r in both]),
+                "one_rank_seconds": axis_one_s,
+                "rank_seconds": [r["axis_seconds"] for r in both]}
 
 
 # ---------------------------------------------------------------------------
@@ -6998,12 +7014,15 @@ SERVE_SCALE_RTOL = 1e-5
 
 
 def _rank_pack(pack, r: int, n: int = 2):
-    """Rank ``r``'s slice of a whole K3 or K4 pack on a model axis of
+    """Rank ``r``'s slice of a whole K3, K4 or K17 pack on a model axis of
     ``n``: K3 its heads (``w_qkv``'s and ``m_qkv``'s rows of each of q, k,
     v; ``wo``'s columns; the per-head scales), K4 its GEGLU columns (``w1``'s
-    paired h and gate rows, ``w2``'s columns); the rest whole. These are the
-    codes ``apply_tp`` + ``prepare_int8_unet`` give a rank (held bit for bit
-    in ``tests/test_torch_port_model_axis_serving.py``)."""
+    paired h and gate rows, ``w2``'s columns), K17 its heads (``w_qkv``'s
+    rows of each of q, k, v; ``wo_q``'s and ``wo_p``'s columns; the per-head
+    scales); the rest whole. These are the codes ``apply_tp`` +
+    ``prepare_int8_unet`` give a rank (held bit for bit in
+    ``tests/test_torch_port_model_axis_serving.py`` and
+    ``tests/test_torch_port_model_axis_attention_int8.py``)."""
     import dataclasses
     from ldmseg_torch.parallel import tp
     from ldmseg_torch.parallel.sp import Axis
@@ -7011,6 +7030,11 @@ def _rank_pack(pack, r: int, n: int = 2):
 
     def cut(t, dim, pairs=1):
         return tp.local_tensor(t, dim, ax, pairs)
+    if hasattr(pack, "wo_p"):
+        return dataclasses.replace(
+            pack, heads=pack.heads // n, w_qkv=cut(pack.w_qkv, 0, 3),
+            wo_q=cut(pack.wo_q, 1), w_scale=cut(pack.w_scale, 1),
+            wo_p=cut(pack.wo_p, 1))
     if hasattr(pack, "w_qkv"):
         return dataclasses.replace(
             pack, heads=pack.heads // n, w_qkv=cut(pack.w_qkv, 0, 3),
@@ -7044,7 +7068,8 @@ class _AmaxGroup:
                           else None)
 
 
-def _two_rank_check(name, shape, mode, parts, plains, summed, one_rank):
+def _two_rank_check(name, shape, mode, parts, plains, summed, one_rank,
+                    phase: int = 63):
     """The partial-mode row: each rank's fp32 partial against its plain
     version's, the two summed (and finished) against the one-rank kernel;
     both within phase 7's tolerances."""
@@ -7056,14 +7081,15 @@ def _two_rank_check(name, shape, mode, parts, plains, summed, one_rank):
     for r, (out, ref) in enumerate(zip(parts, plains)):
         emax, rmax, emean, rmean = errs(out, ref)
         check(emax <= INT8_MAX_TOL * rmax and emean <= INT8_MEAN_TOL * rmean,
-              f"phase 63 {name} {shape} {mode} rank {r}: partial err "
+              f"phase {phase} {name} {shape} {mode} rank {r}: partial err "
               f"{emax} (max|ref| {rmax}), mean {emean} ({rmean})")
         row["ranks"].append({"max_abs_err": emax, "max_abs_ref": rmax,
                              "mean_abs_err": emean, "mean_abs_ref": rmean})
     emax, rmax, emean, rmean = errs(summed, one_rank)
     check(emax <= INT8_MAX_TOL * rmax and emean <= INT8_MEAN_TOL * rmean,
-          f"phase 63 {name} {shape} {mode}: the two ranks' sum against the "
-          f"one-rank kernel, err {emax} (max|ref| {rmax}), mean {emean}")
+          f"phase {phase} {name} {shape} {mode}: the two ranks' sum against "
+          f"the one-rank kernel, err {emax} (max|ref| {rmax}), mean "
+          f"{emean}")
     row.update(sum_max_abs_err=emax, sum_max_abs_ref=rmax,
                sum_mean_abs_err=emean, sum_mean_abs_ref=rmean,
                max_abs_err=max([emax] + [x["max_abs_err"]
@@ -7232,10 +7258,9 @@ def _serve(mesh=None) -> dict:
     import torch
     from ldmseg_torch.parallel import sp
     from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
-    # the calibration forwards run on the fp32 masters: no TF32 in this
-    # process either (a spawned rank starts with cuDNN's TF32 on)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the calibration forwards run on the fp32 masters without TF32: each
+    # trainer turns it off when it is built (utils/precision.py), in a
+    # spawned rank too
     image, calib, init, context = _serve_inputs()
     out = {}
     for label, over, guided in SERVE_RUNS:
@@ -7373,15 +7398,24 @@ def _serve_controls(trainer) -> dict:
 
 def _ma_and_serve_rank(rank: int, spec: dict) -> dict:
     """Phase 62 (:func:`_ma_rank`), then phase 63's serving calls
-    (:func:`_serve`) on the same rank and ``(1, 2)`` mesh."""
+    (:func:`_serve`), the emulated modules (:func:`_module_outputs`) and
+    phase 64's calls (:func:`_axis_rank`) on the same rank and ``(1, 2)``
+    mesh."""
     from ldmseg_torch.parallel.mesh import make_mesh
     ma = _ma_rank(rank, spec)
+    mesh = make_mesh(1, 2)
     t0 = time.perf_counter()
-    serve = _serve(make_mesh(1, 2))
+    serve = _serve(mesh)
     serve["seconds"] = time.perf_counter() - t0
     print(f"phase 63 rank {rank}: serving {serve['seconds']:.1f} s",
           flush=True)
-    return {"ma": ma, "serve": serve}
+    t0 = time.perf_counter()
+    modules = _module_outputs(mesh)
+    axis = _axis_rank(mesh, spec)
+    axis_s = time.perf_counter() - t0
+    print(f"phase 64 rank {rank}: {axis_s:.1f} s", flush=True)
+    return {"ma": ma, "serve": serve, "modules": modules, "axis": axis,
+            "axis_seconds": axis_s}
 
 
 def serve_report(smi_line: str, one: dict, ranks: list,
@@ -7407,17 +7441,8 @@ def serve_report(smi_line: str, one: dict, ranks: list,
     for i, r in enumerate(ranks):
         for key, expect in want.items():
             got, ref = r[key], one[key]
-
-            def errs(out, name, got=got, ref=ref):
-                # the max and mean error against one rank's, one rank's
-                # own move when its input moves by less than a bf16 ulp
-                # (max and mean), and max|ref|
-                d = (got[out] - ref[out]).abs()
-                n = (ref[name] - ref[out]).abs()
-                return (float(d.max()), float(d.mean()), float(n.max()),
-                        float(n.mean()), float(ref[out].abs().max()))
-            fe = errs("forward", "nudged_forward")
-            xe = errs("x0", "nudged_x0")
+            fe = _errs(got, ref, "forward", "nudged_forward")
+            xe = _errs(got, ref, "x0", "nudged_x0")
             result["runs"].setdefault(key, []).append(
                 {"forward_err": fe, "x0_err": xe,
                  "counts": got["counts"], "seconds": got["seconds"]})
@@ -7475,8 +7500,8 @@ def serve_report(smi_line: str, one: dict, ranks: list,
 
 
 def _serve_within(e) -> bool:
-    """Phase 63's bound on an error tuple of :func:`serve_report`'s
-    ``errs`` (max, mean, the nudge's max and mean, max|ref|): within the
+    """Phases 63-64's bound on an error tuple of :func:`_errs` (max,
+    mean, the nudge's max and mean, max|ref|): within the
     larger of 2e-2 of max|ref| (2e-3 on the mean) and
     ``SERVE_FLOOR_FACTOR`` times one rank's own move for the nudge."""
     emax, emean, nmax, nmean, rmax = e
@@ -7529,6 +7554,760 @@ def _control_report(i: int, ctl: dict, other: dict, ref: dict,
     return row
 
 
+# ---------------------------------------------------------------------------
+# packed and absorbed attention on the model axis (phase 64): K14-K17 on a
+# rank's heads, and the one-process emulation of every partial mode
+# ---------------------------------------------------------------------------
+AXIS_FLAGS = {"packed": ("use_packed_attention", "K14", "K15"),
+              "absorbed": ("use_absorbed_attention", "K16", "K17")}
+# the shape of the modules whose mesh outputs the emulation holds bit for
+# bit (phase 63's K3, K4, K12 and K13, phase 64's K15, K16 and K17): the
+# second level of a 32x64 latent, 8 heads of 80
+EMULATED_SHAPE = (2, 512, 640)
+
+
+def axis_entry(rows: dict, axis: dict, kid: str) -> dict:
+    """The kernels-line fields of ``kid``'s mode on a model axis of 2
+    (phase 64): its rows, the times of one rank's launches summed over one
+    UNet forward (16 sites), the largest error against the plain version,
+    the ranks' outputs together against the one-rank kernel in bf16 ulps,
+    and its launches on rank 0's phase 64 paths."""
+    main = rows[kid]
+
+    def total(key):
+        return sum(r[key] * r["per_unet_forward"] for r in main)
+    flag = next(f for f, ids in AXIS_FLAGS.items() if kid in ids)
+    counts = axis[flag]["ranks"][0]["counts"]
+    return {"model_axis": {
+        "mode": {"K14": "a rank's [B, T, C/2] column shard, 4 of 8 heads",
+                 "K15": "a rank's heads, the group's amax between its two "
+                        "stages (ldmseg_attention_packed_s8, stages 1-2)",
+                 "K16": "fp32 to_out partial of a rank's heads "
+                        "(ldmseg_attention_absorbed, partial 1)",
+                 "K17": "fp32 to_out partial of a rank's heads "
+                        "(ldmseg_attention_absorbed_s8, partial 1)"}[kid],
+        "max_abs_err": max(r["max_abs_err"] for r in main),
+        "ulps_vs_one_rank": max(r["ulps"] for r in main),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "one_rank_ms": total("one_rank_ms"), "bound_ms": total("bound_ms"),
+        "launches": {k: v[kid] for k, v in counts.items()},
+        "unit": "one rank's launches in one UNet forward (16, batch 2, "
+                "32x64 latent)", "shapes": main}}
+
+
+def _bf16_ulps(a, b) -> int:
+    """The largest distance of ``a`` from ``b`` in bf16 ulps (both rounded
+    to bf16; their bit patterns mapped to an order-preserving integer)."""
+    import torch
+
+    def order(x):
+        i = x.to(torch.bfloat16).contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((order(a) - order(b)).abs().max())
+
+
+def _flagged_unet(cfg, flag: str):
+    """The UNet the trainer builds from ``cfg`` (its input channels, K1)
+    with ``flag``'s attention: ``use_packed_attention`` or
+    ``use_absorbed_attention``."""
+    from ldmseg_torch.models.unet import UNetConfig
+    mk, tk = cfg["model_kwargs"], cfg["train_kwargs"]
+    cond = mk.get("cond_channels", 0) or (4 if tk.get("self_condition")
+                                          else 0)
+    return UNetConfig(in_channels=mk.get("in_channels", 8) + cond,
+                      use_fused_attention=tk.get("fused_attention", True),
+                      **{AXIS_FLAGS[flag][0]: True})
+
+
+def _within_ulp(summed, one_rank, summed_parts: bool = False) -> bool:
+    """``summed`` within one bf16 ulp of ``one_rank`` elementwise; where the
+    ranks' fp32 partials were added (``summed_parts``), within 2^-16 of
+    max|one_rank| where that is more: the two products sum ``to_out``'s
+    terms in another order (the one-rank kernel's k-tiles cross the ranks'
+    boundary), and where the terms cancel to near zero that reordering is
+    more than a bf16 ulp of the result (about sqrt(C) fp32 ulps of the
+    terms, 1e-6 of max|out| at C = 320)."""
+    import torch
+    ref = one_rank.float()
+    _, e = torch.frexp(ref)
+    bound = torch.ldexp(torch.ones_like(ref), e - 8)
+    if summed_parts:
+        bound = bound.clamp_min(2.0 ** -16 * float(ref.abs().max()))
+    return bool(((summed.float() - ref).abs() <= bound).all())
+
+
+def _ulp_row(name, shape, parts, plains, summed, one_rank, tol,
+             summed_parts: bool = False):
+    """Phase 64's row: each rank's output against its plain version's,
+    within ``tol`` x max|plain| (``"int8"``: phase 7's max and mean
+    bounds), and the ranks' outputs put together (gathered, or with
+    ``summed_parts`` the fp32 partials summed and rounded once) within one
+    bf16 ulp of the one-rank kernel's (:func:`_within_ulp`); the largest
+    distance in bf16 ulps is recorded."""
+    if tol == "int8":
+        row = _two_rank_check(name, shape, "4 of 8 heads", parts, plains,
+                              summed, one_rank, phase=64)
+    else:
+        row = {"shape": list(shape), "mode": "4 of 8 heads", "ranks": []}
+        for r, (out, ref) in enumerate(zip(parts, plains)):
+            err = (out.float() - ref.float()).abs().max().item()
+            rmax = ref.float().abs().max().item()
+            check(math.isfinite(err) and err <= tol * rmax,
+                  f"phase 64 {name} {shape} rank {r}: err {err} > {tol} x "
+                  f"max|plain| {rmax}")
+            row["ranks"].append({"max_abs_err": err, "max_abs_ref": rmax})
+        row["max_abs_err"] = max(x["max_abs_err"] for x in row["ranks"])
+    row["ulps"] = _bf16_ulps(summed, one_rank)
+    row["max_abs_diff_vs_one_rank"] = float(
+        (summed.float() - one_rank.float()).abs().max())
+    check(_within_ulp(summed, one_rank, summed_parts),
+          f"phase 64 {name} {shape}: the ranks' outputs together are "
+          f"{row['ulps']} bf16 ulps (max |diff| "
+          f"{row['max_abs_diff_vs_one_rank']}) from the one-rank kernel's, "
+          f"beyond one bf16 ulp (or 2^-16 of max|out| near zero)")
+    return row
+
+
+def phase_axis_kernels(seed: int = 64) -> dict:
+    """Phase 64's kernel checks at the sampling shapes of a rank of 2 (4
+    of 8 heads): K14 on a column shard of q, k and v (strided views of the
+    whole tensors), K15 with the two ranks' amax bits' maximum between its
+    stages, K16's and K17's fp32 partials on a rank's weights and pack,
+    each against its plain version (K15's and K17's at phase 7's bounds,
+    their scales the same); then the two ranks' outputs put together
+    against the one-rank kernel, within one bf16 ulp. Each row has the
+    rank's call's time, the one-rank kernel's, its plain version's and its
+    bound."""
+    import torch
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {kid: [] for kid in ("K14", "K15", "K16", "K17")}
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def timed(row, fn, plain, bound, one_rank):
+        row["ms"] = time_ms(fn)
+        row["plain_ms"] = time_ms(plain, iters=5, warmup=1)
+        row["one_rank_ms"] = time_ms(one_rank)
+        row["bound_ms"], row["bound_by"] = bound[:2]
+        return row
+
+    with torch.inference_mode():
+        for shape, per in K14_SHAPES:
+            b, t, c = shape
+            half, scale = c // 2, (c // 8) ** -0.5
+            q, k, v = (rand(shape) for _ in range(3))
+            # K14 on the column shards as views of the whole tensors
+            local = [tuple(z[:, :, r * half:(r + 1) * half] for z in (q, k, v))
+                     for r in range(2)]
+            outs = [_launched(A.fused_self_attention_packed, *z, 4, scale)
+                    for z in local]
+            plains = [A.packed_attention_reference(*z, 4, scale)
+                      for z in local]
+            one = _launched(A.fused_self_attention_packed, q, k, v, 8, scale)
+            row = _ulp_row("K14", shape, outs, plains, torch.cat(outs, 2),
+                           one, BF16_ATOL)
+            rows["K14"].append(timed(
+                row, lambda: A.fused_self_attention_packed(*local[0], 4,
+                                                           scale),
+                lambda: A.packed_attention_reference(*local[0], 4, scale),
+                attention_bound_ms((b, t, 4, c // 8), "bfloat16"),
+                lambda: A.fused_self_attention_packed(q, k, v, 8, scale)))
+            # K15 on a rank's [B, T, C/2] with the group's amax
+            local = [tuple(z.contiguous() for z in zs) for zs in local]
+            both = {}
+            for key, fn in (("kernel", S8.fused_self_attention_packed_s8),
+                            ("plain",
+                             S8.fused_self_attention_packed_s8_reference)):
+                seen = _AmaxGroup()
+                for z in local:
+                    fn(*z, 4, scale, seen)
+                both[key] = seen.of_both()
+            check(torch.equal(both["kernel"].both.view(torch.float32),
+                              both["plain"].both.float()),
+                  f"phase 64 K15 {shape}: the kernel's amaxes "
+                  f"{both['kernel'].both.view(torch.float32).tolist()} are "
+                  f"not the plain version's "
+                  f"{both['plain'].both.float().tolist()}")
+            n = S8.fused_self_attention_packed_s8.launches
+            outs = [S8.fused_self_attention_packed_s8(*z, 4, scale,
+                                                      both["kernel"])
+                    for z in local]
+            check(S8.fused_self_attention_packed_s8.launches == n + 2,
+                  f"phase 64 K15 {shape}: not launched")
+            plains = [S8.fused_self_attention_packed_s8_reference(
+                *z, 4, scale, both["plain"]) for z in local]
+            one = _launched(S8.fused_self_attention_packed_s8, q, k, v, 8,
+                            scale)
+            row = _ulp_row("K15", shape, outs, plains, torch.cat(outs, 2),
+                           one, "int8")
+            rows["K15"].append(timed(
+                row, lambda: S8.fused_self_attention_packed_s8(
+                    *local[0], 4, scale, both["kernel"]),
+                lambda: S8.fused_self_attention_packed_s8_reference(
+                    *local[0], 4, scale, both["plain"]),
+                k15_bound_ms(b, t, half, 4),
+                lambda: S8.fused_self_attention_packed_s8(q, k, v, 8,
+                                                          scale)))
+            del local, outs, plains, one
+            # K16's partial on a rank's rows of wq, wk, wv, columns of wo
+            x = rand(shape)
+            ws = _absorbed_weights(gen, c, torch.bfloat16)
+            wl = [[w[r * half:(r + 1) * half].contiguous() for w in ws[:3]]
+                  + [ws[3][:, r * half:(r + 1) * half].contiguous()]
+                  for r in range(2)]
+            parts = [_launched(A.absorbed_self_attention, x, *w, 4, scale,
+                               True) for w in wl]
+            plains = [A.absorbed_attention_reference(x, *w, 4, scale,
+                                                     partial=True)
+                      for w in wl]
+            one = _launched(A.absorbed_self_attention, x, *ws, 8, scale)
+            row = _ulp_row("K16", shape, parts, plains,
+                           (parts[0] + parts[1]).to(torch.bfloat16), one,
+                           BF16_ATOL, summed_parts=True)
+            rows["K16"].append(timed(
+                row, lambda: A.absorbed_self_attention(x, *wl[0], 4, scale,
+                                                       True),
+                lambda: A.absorbed_attention_reference(x, *wl[0], 4, scale,
+                                                       partial=True),
+                absorbed_partial_bound_ms(b, t, c, half, "bfloat16"),
+                lambda: A.absorbed_self_attention(x, *ws, 8, scale)))
+            # K17's partial on the pack of a rank's heads
+            _, attn, _, _ = _block_modules(c, seed=t + c + 3)
+            whole = S8.pack_absorbed_attention(attn, 8, 0.1)
+            packs = [_rank_pack(whole, r) for r in range(2)]
+
+            def k17(p, fn=S8.absorbed_self_attention_s8):
+                return fn(x, p.w_qkv, p.wo_q, p.w_scale, p.heads, scale,
+                          p.xs, p.wo_p, True)
+            n = S8.absorbed_self_attention_s8.launches
+            parts = [k17(p) for p in packs]
+            check(S8.absorbed_self_attention_s8.launches == n + 2,
+                  f"phase 64 K17 {shape}: not launched")
+            plains = [S8.absorbed_attention_s8_reference(
+                x, p.w_qkv, p.wo_q, p.w_scale, p.heads, scale, p.xs,
+                partial=True) for p in packs]
+            one = _launched(S8.absorbed_self_attention_s8, x, whole.w_qkv,
+                            whole.wo_q, whole.w_scale, 8, scale, whole.xs,
+                            whole.wo_p)
+            row = _ulp_row("K17", shape, parts, plains,
+                           (parts[0] + parts[1]).to(torch.bfloat16), one,
+                           "int8", summed_parts=True)
+            rows["K17"].append(timed(
+                row, lambda: k17(packs[0]),
+                lambda: S8.absorbed_attention_s8_reference(
+                    x, packs[0].w_qkv, packs[0].wo_q, packs[0].w_scale, 4,
+                    scale, packs[0].xs, partial=True),
+                absorbed_s8_partial_bound_ms(b, t, c, half),
+                lambda: S8.absorbed_self_attention_s8(
+                    x, whole.w_qkv, whole.wo_q, whole.w_scale, 8, scale,
+                    whole.xs, whole.wo_p)))
+            for kid in rows:
+                r = rows[kid][-1]
+                r["per_unet_forward"] = per
+            del q, k, v, x, ws, wl, parts, plains, one, attn, whole, packs
+            torch.cuda.empty_cache()
+    for kid, rs in rows.items():
+        print(f"phase 64 {kid} on a rank's heads (4 of 8): "
+              + "; ".join(f"{r['shape']}: err {r['max_abs_err']:.3e}, the "
+                          f"ranks together {r['ulps']} bf16 ulps (max "
+                          f"|diff| {r['max_abs_diff_vs_one_rank']:.3e}) from "
+                          f"one rank, {r['ms']:.4f} ms (one rank's kernel "
+                          f"{r['one_rank_ms']:.4f}, plain "
+                          f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
+                          f"{r['bound_by']})" for r in rs), flush=True)
+    return rows
+
+
+def absorbed_partial_bound_ms(b, t, c, ci, dtype_name):
+    """K16's partial mode's bound for one call: the Q/K/V product's
+    2·B·T·C·3ci, the attention's 2·2·B·T²·ci and to_out's 2·B·T·ci·C
+    operations, against x in, the four [ci, C] weights and the fp32
+    partial out."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    flops = 4 * 2.0 * b * t * c * ci + 2 * 2.0 * b * t * t * ci
+    nbytes = float(esize) * (b * t * c + 4 * c * ci) + 4.0 * b * t * c
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def absorbed_s8_partial_bound_ms(b, t, c, ci, heads: int = 4):
+    """K17's partial mode's bound: K16's partial operations on int8 at the
+    int8 peak, against bf16 x in, the int8 weights of a rank's heads with
+    their scales and the fp32 partial out."""
+    ops8 = 4 * 2.0 * b * t * c * ci + 2 * 2.0 * b * t * t * ci
+    nbytes = 2.0 * b * t * c + 4 * c * ci + 4 * 4 * heads + 4.0 * b * t * c
+    t_ops = ops8 / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def _module_inputs():
+    """The emulated modules' inputs, the same in every process on the card
+    (seeded CUDA generators): a transformer block's float modules at
+    ``EMULATED_SHAPE``'s width, x, K13's q, k, v and K16's weights."""
+    import torch
+    b, t, c = EMULATED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(640)
+    norm1, attn, norm3, ff = _block_modules(c, seed=641)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    return {"norm1": norm1, "attn": attn, "norm3": norm3, "ff": ff,
+            "x": rand((b, t, c)),
+            "qkv": tuple(rand((b, t, 8, c // 8)) for _ in range(3)),
+            "ws": _absorbed_weights(gen, c, torch.bfloat16),
+            "scale": (c // 8) ** -0.5}
+
+
+def _module_packs(inp):
+    """The whole packs of the emulated modules: K3's, K4's (and K12's) with
+    a dynamic and a static interior scale, K17's."""
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as G
+    return {"K3": S8.pack_ln_attention(inp["norm1"], inp["attn"], 8, 0.1),
+            "dynamic": G.pack_geglu(inp["norm3"], inp["ff"].net[0].proj,
+                                    inp["ff"].net[2], 0.05, None),
+            "static": G.pack_geglu(inp["norm3"], inp["ff"].net[0].proj,
+                                   inp["ff"].net[2], 0.05, 0.02),
+            "K17": S8.pack_absorbed_attention(inp["attn"], 8, 0.1)}
+
+
+# the emulated modules, K4 and K12 in both interior scale modes (the mesh
+# also runs PR 25's planted control, "K12 rank-local amax": each rank
+# quantizing K12's interior on its own amax)
+EMULATED = ("K3", "K4 dynamic", "K4 static", "K12 dynamic", "K12 static",
+            "K13", "K15", "K16", "K17")
+
+
+def _module_run(name, inp, packs, r, group, heads=4):
+    """Rank ``r``'s output of the emulated module ``name`` with ``group``
+    (the model group's reductions, or a one-process stand-in)."""
+    import torch
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as G
+    x, scale = inp["x"], inp["scale"]
+    half = x.shape[-1] // 2
+    if name == "K3":
+        return S8.ln_attention_s8(x, _rank_pack(packs["K3"], r), group)
+    if name.startswith(("K4", "K12")):
+        kid, mode = name.split(" ", 1)
+        p = _rank_pack(packs["static" if mode == "static" else "dynamic"], r)
+        fn = G.geglu_ln_s8 if kid == "K4" else G.fused_geglu_s8
+        return fn(x, p, group)
+    if name == "K13":
+        q, k, v = (z[:, :, r * heads:(r + 1) * heads] for z in inp["qkv"])
+        return S8.fused_self_attention_s8(q, k, v, scale, None, group)
+    if name == "K15":
+        q, k, v = (z.flatten(2)[:, :, r * half:(r + 1) * half].contiguous()
+                   for z in inp["qkv"])
+        return S8.fused_self_attention_packed_s8(q, k, v, heads, scale,
+                                                 group)
+    if name == "K16":
+        ws = inp["ws"]
+        wl = ([w[r * half:(r + 1) * half].contiguous() for w in ws[:3]]
+              + [ws[3][:, r * half:(r + 1) * half].contiguous()])
+        part = A.absorbed_self_attention(x, *wl, heads, scale, True)
+        return group.sum(part).to(torch.bfloat16)
+    p = _rank_pack(packs["K17"], r)
+    part = S8.absorbed_self_attention_s8(x, p.w_qkv, p.wo_q, p.w_scale,
+                                         heads, scale, p.xs, p.wo_p, True)
+    return group.sum(part).to(torch.bfloat16)
+
+
+class _SumGroup(_AmaxGroup):
+    """A model group of two ranks in one process for the emulation:
+    ``max`` as :class:`_AmaxGroup`'s; ``sum`` of a rank's fp32 partial
+    returns ``total`` (both ranks' partials added in rank order), or,
+    where ``total`` is None, records the partial and returns it."""
+
+    def __init__(self, both=None, total=None):
+        super().__init__(both)
+        self.total, self.parts = total, []
+
+    def sum(self, x):
+        if self.total is not None:
+            return self.total
+        self.parts.append(x.float().clone())
+        return x.float()
+
+
+def module_emulation() -> dict:
+    """Each emulated module's output on each rank of a model axis of 2,
+    computed in this one process from the sliced packs, in three passes
+    over the two ranks: the first records their amaxes, the second their
+    fp32 partials with the amaxes' maximum, the third gives each rank's
+    output from that maximum and the partials added in rank order,
+    rounded where a rank rounds."""
+    import torch
+    inp = _module_inputs()
+    packs = _module_packs(inp)
+    out = {}
+    with torch.inference_mode():
+        for name in EMULATED:
+            first = _SumGroup()
+            for r in range(2):
+                _module_run(name, inp, packs, r, first)
+            amax = (torch.maximum(*first.amaxes) if first.amaxes
+                    else None)
+            second = _SumGroup(amax)
+            for r in range(2):
+                _module_run(name, inp, packs, r, second)
+            total = (second.parts[0] + second.parts[1] if second.parts
+                     else None)
+            third = _SumGroup(amax, total)
+            out[name] = [_module_run(name, inp, packs, r, third).cpu()
+                         for r in range(2)]
+    return out
+
+
+def _module_outputs(mesh) -> dict:
+    """The emulated modules on this rank of the mesh, with the model group
+    (gloo's collectives), and PR 25's planted control: K12 on its dynamic
+    interior scale with the group's ``max`` returning this rank's own
+    amax."""
+    import torch
+    from ldmseg_torch.parallel import sp, tp
+    ax = sp.model_axis(mesh)
+    group = tp.ModelGroup(ax)
+    inp = _module_inputs()
+    packs = _module_packs(inp)
+    out = {}
+    with torch.inference_mode():
+        for name in EMULATED:
+            out[name] = _module_run(name, inp, packs, ax.rank, group).cpu()
+        planted = tp.ModelGroup(ax)
+        planted.max = lambda a: a
+        out["K12 rank-local amax"] = _module_run(
+            "K12 dynamic", inp, packs, ax.rank, planted).cpu()
+    return out
+
+
+def emulation_report(emulated: dict, ranks: list) -> dict:
+    """Each rank's module outputs from the mesh against the one-process
+    emulation: bit-equal for every module, the planted rank-local amax
+    not (its distance in bf16 ulps printed)."""
+    import torch
+    result = {}
+    for name in EMULATED + ("K12 rank-local amax",):
+        want = emulated["K12 dynamic" if name == "K12 rank-local amax"
+                        else name]
+        row = []
+        for r, got in enumerate(ranks):
+            g, w = got[name], want[r]
+            row.append({"bit_equal": g.dtype == w.dtype and torch.equal(g, w),
+                        "ulps": _bf16_ulps(g, w),
+                        "max_abs_diff": float((g.float() - w.float()).abs()
+                                              .max())})
+        result[name] = row
+        print(f"phase 64 emulation {name}: "
+              + ", ".join(f"rank {r} "
+                          f"{'bit-equal' if x['bit_equal'] else 'differs'}"
+                          f" ({x['ulps']} bf16 ulps, max |diff| "
+                          f"{x['max_abs_diff']:.3e})"
+                          for r, x in enumerate(row)), flush=True)
+        if name == "K12 rank-local amax":
+            check(not all(x["bit_equal"] for x in row),
+                  "phase 64 emulation: the planted rank-local amax for K12 "
+                  "left the mesh's output bit-equal to the emulation")
+        else:
+            check(all(x["bit_equal"] for x in row),
+                  f"phase 64 emulation {name}: the mesh's output differs "
+                  f"from the one-process emulation: {row}")
+    return result
+
+
+def _axis_inputs():
+    """Phase 64's training batch (``SyntheticDVPS`` at the bench's 256x512,
+    batch 2), the step's noise and timesteps, from a CPU generator."""
+    import torch
+    from ldmseg_torch.data.collate import collate
+    from ldmseg_torch.data.synthetic import SyntheticDVPS
+    ds = SyntheticDVPS(length=MA_BATCH, size=SERVE_HW, num_bits=8)
+    batch = collate([ds[i] for i in range(MA_BATCH)])
+    gen = torch.Generator().manual_seed(64)
+    lat = (MA_BATCH, SERVE_HW[0] // 8, SERVE_HW[1] // 8, 4)
+    return (batch, torch.randn(lat, generator=gen),
+            torch.randint(0, 1000, (MA_BATCH,), generator=gen))
+
+
+def _axis_runs(flag: str, mesh=None, nudge: bool = False,
+               scales=None) -> dict:
+    """Phase 64's calls for ``flag`` on one rank (``mesh`` None) or on this
+    rank of the mesh: the bf16 training configuration's trainer (phase 62's,
+    the full-depth UNet with the flag) takes one step on
+    :func:`_axis_inputs` (the gradients the optimizer read, the loss) and a
+    ``MA_STEPS``-step bf16 sample on the phase 63 frames and noise; then
+    the unfused int8 serving trainer (phase 63's configuration with
+    ``fused_norms: False`` and the flag) calibrates (its scales kept) and
+    samples, on ``scales`` where given (one rank's: the mesh's own are
+    ulps apart, which flips codes next to a .5). Each with one UNet forward
+    on phase 63's fixed input, its launches and seconds; ``nudge``: also
+    the sample and forward from the inputs moved by ``SERVE_NUDGE``."""
+    import torch
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    parallel = mesh is not None
+    batch, noise, steps = _axis_inputs()
+    image, calib, init, _ = _serve_inputs()
+    out = {}
+    cfg = _ma_config(parallel)
+    trainer = TrainerDiffusion(cfg, unet_config=_flagged_unet(cfg, flag),
+                               mesh=mesh)
+    trainer.init_params(seed=0)
+    named = list(trainer.unet.named_parameters())
+    opt, seen = trainer.state.optimizer, {}
+    opt_step = opt.step
+
+    def read_then_step():
+        seen.update({n: p.grad.detach().clone() for n, p in named})
+        opt_step()
+    opt.step = read_then_step
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, _ = trainer.train_step(batch, noise=noise, timesteps=steps)
+    torch.cuda.synchronize()
+    out["step"] = {"loss": float(loss), "grads": seen,
+                   "layout": tp.layout(trainer.unet),
+                   "seconds": time.perf_counter() - t0, "counts": _counts()}
+    opt.step = opt_step
+    out["bf16"] = _axis_sample(trainer, image, init, nudge)
+    del trainer, named, opt, seen
+    torch.cuda.empty_cache()
+    cfg8 = _serve_config(parallel, sampling_kwargs={"fused_norms": False})
+    trainer = TrainerDiffusion(cfg8, unet_config=_flagged_unet(cfg8, flag),
+                               mesh=mesh)
+    trainer.init_params(seed=0)
+    calibrated = trainer.calibrate_int8({"image": image}, noise=calib)
+    if scales is not None:
+        trainer._int8_act_scales = dict(scales)
+    out["int8"] = _axis_sample(trainer, image, init, nudge)
+    out["int8"]["scales"] = calibrated
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _axis_sample(trainer, image, init, nudge: bool) -> dict:
+    """A ``MA_STEPS``-step eager sample and one UNet forward
+    (:func:`_serve_forward`) of ``trainer``, with launches and seconds;
+    ``nudge``: from the nudged inputs too."""
+    import torch
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, x0 = trainer.sample_panoptic({"image": image}, init_noise=init,
+                                    num_inference_steps=MA_STEPS,
+                                    graph=False)
+    torch.cuda.synchronize()
+    res = {"x0": x0.float().cpu(), "counts": _counts(),
+           "seconds": time.perf_counter() - t0,
+           "forward": _serve_forward(trainer, None)}
+    if nudge:
+        _, nudged = trainer.sample_panoptic(
+            {"image": image}, init_noise=_serve_nudge(init),
+            num_inference_steps=MA_STEPS, graph=False)
+        res["nudged_x0"] = nudged.float().cpu()
+        res["nudged_forward"] = _serve_forward(trainer, None, nudged=True)
+    return res
+
+
+def _axis_reference(path: str) -> dict:
+    """Phase 64's one-rank calls for both flags (:func:`_axis_runs`, with
+    the nudged sample and forward); each step's gradients (bf16, flat in
+    parameter order, with their names and shapes) go to ``path`` + flag for
+    the ranks."""
+    import os
+    import torch
+    out = {}
+    for flag in AXIS_FLAGS:
+        t0 = time.perf_counter()
+        res = out[flag] = _axis_runs(flag, nudge=True)
+        grads = res["step"].pop("grads")
+        res["step"].pop("layout")
+        torch.save({"names": list(grads),
+                    "shapes": [tuple(g.shape) for g in grads.values()],
+                    "grads": torch.cat([g.reshape(-1).bfloat16()
+                                        for g in grads.values()]).cpu()},
+                   path + flag + ".part")
+        os.replace(path + flag + ".part", path + flag)
+        del grads
+        res["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grad_cosine(grads: dict, lay: dict, mesh, ref_path: str) -> float:
+    """The cosine of this rank's gradient shards (``lay``: the TP layout),
+    put together over the model group, with the one-rank step's
+    (``ref_path``): each rank's shards against their slices, a replicated
+    tensor counted on model rank 0, the sums all-reduced over the model
+    group."""
+    import torch
+    import torch.distributed as dist
+    from ldmseg_torch.parallel import sp, tp
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    ax = sp.model_axis(mesh)
+    offsets, off = {}, 0
+    for n, s in zip(ref["names"], ref["shapes"]):
+        offsets[n] = (off, s)
+        off += math.prod(s)
+    sums = torch.zeros(3, dtype=torch.float64, device="cuda")
+    for n, g in grads.items():
+        if n not in lay and mesh.model_rank != 0:
+            continue
+        o, s = offsets[n]
+        rg = ref["grads"][o:o + math.prod(s)].view(s).to("cuda")
+        if n in lay:
+            rg = tp.local_tensor(rg, lay[n][0], ax, lay[n][1])
+        a, b = g.reshape(-1).double(), rg.reshape(-1).double()
+        sums += torch.stack([a @ b, a @ a, b @ b])
+    dist.all_reduce(sums, group=mesh.model_group)
+    s = sums.tolist()
+    return s[0] / math.sqrt(s[1] * s[2])
+
+
+def _axis_rank(mesh, spec: dict) -> dict:
+    """Phase 64's calls for both flags on this rank of the mesh
+    (:func:`_axis_runs`; the int8 sample on one rank's scales,
+    ``spec["axis_scales"]``), the step's gradient cosine with the one-rank
+    step's (``spec["axis_ref"]`` + flag)."""
+    import torch
+    out = {}
+    for flag in AXIS_FLAGS:
+        t0 = time.perf_counter()
+        res = out[flag] = _axis_runs(flag, mesh,
+                                     scales=spec["axis_scales"][flag])
+        grads = res["step"].pop("grads")
+        lay = res["step"].pop("layout")
+        res["step"]["grad_cos"] = _grad_cosine(grads, lay, mesh,
+                                               spec["axis_ref"] + flag)
+        res["step"]["sharded"] = len(lay)
+        del grads
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _errs(got: dict, ref: dict, out: str, nudged: str) -> tuple:
+    """Phases 63-64's error tuple of ``got[out]`` against one rank's
+    ``ref[out]``: max and mean error, one rank's own move when its input
+    moves by ``SERVE_NUDGE`` (``ref[nudged]``; max and mean), max|ref|."""
+    d = (got[out] - ref[out]).abs()
+    n = (ref[nudged] - ref[out]).abs()
+    return (float(d.max()), float(d.mean()), float(n.max()), float(n.mean()),
+            float(ref[out].abs().max()))
+
+
+def axis_report(smi_line: str, one: dict, ranks: list) -> dict:
+    """Phase 64's checks and lines for each flag: the TP + SP step's loss
+    within 1e-3 of one rank's and its gradient cosine >= 0.9999 (phase
+    62's bounds), K14 or K16 32 and K2 16 launches a step; the bf16 and the
+    unfused int8 samples' forward and x0 within phase 63's bound of one
+    rank's, K14 or K16 64 (bf16), K15 or K17 and K12 64 (int8) and K1's
+    wide class once a sample; no fallback; the seconds of a rank's and of
+    one rank's calls."""
+    def err(row, mode, what):
+        e = row[mode][f"{what}_err"]
+        return f"{e[0]:.3e} of {e[4]:.3e} (nudge {e[2]:.3e})"
+    calls = ("step", "bf16", "int8")
+    result = {}
+    for flag, (_, kid, kid8) in AXIS_FLAGS.items():
+        ref = one[flag]
+        want = {"bf16": _expect(**{kid: 16 * MA_STEPS, "K1w": 1}),
+                "int8": _expect(**{kid8: 16 * MA_STEPS,
+                                   "K12": 16 * MA_STEPS, "K1w": 1})}
+        res = result[flag] = {"one_rank": {
+            "loss": ref["step"]["loss"],
+            "step_seconds": ref["step"]["seconds"],
+            "bf16_sample_seconds": ref["bf16"]["seconds"],
+            "int8_sample_seconds": ref["int8"]["seconds"],
+            "counts": {k: ref[k]["counts"] for k in calls},
+            "seconds": ref["seconds"]}, "ranks": []}
+        for i, r in enumerate(ranks):
+            got = r[flag]
+            st = got["step"]
+            rel = abs(st["loss"] - ref["step"]["loss"]) / abs(
+                ref["step"]["loss"])
+            row = {"loss": st["loss"], "loss_rel": rel,
+                   "grad_cos": st["grad_cos"], "sharded": st["sharded"],
+                   "step_seconds": st["seconds"],
+                   "counts": {k: got[k]["counts"] for k in calls},
+                   "seconds": got["seconds"]}
+            check(rel <= 1e-3, f"phase 64 {flag} rank {i}: loss "
+                  f"{st['loss']} vs one rank {ref['step']['loss']}")
+            check(st["grad_cos"] >= 0.9999, f"phase 64 {flag} rank {i}: "
+                  f"gradient cosine {st['grad_cos']}")
+            mine, theirs = got["int8"]["scales"], ref["int8"]["scales"]
+            check(mine.keys() == theirs.keys(),
+                  f"phase 64 {flag} rank {i}: calibrated sites differ")
+            row["scales_err"] = max(abs(v - theirs[k]) / abs(theirs[k])
+                                    for k, v in mine.items())
+            check(row["scales_err"] <= SERVE_SCALE_RTOL,
+                  f"phase 64 {flag} rank {i}: calibrate_int8 "
+                  f"{row['scales_err']} from one rank's (rtol "
+                  f"{SERVE_SCALE_RTOL})")
+            for mode in ("bf16", "int8"):
+                fe = _errs(got[mode], ref[mode], "forward", "nudged_forward")
+                xe = _errs(got[mode], ref[mode], "x0", "nudged_x0")
+                row[mode] = {"forward_err": fe, "x0_err": xe,
+                             "seconds": got[mode]["seconds"]}
+                for name, e in (("forward", fe), ("x0", xe)):
+                    check(_serve_within(e),
+                          f"phase 64 {flag} rank {i} {mode}: {name} err max "
+                          f"{e[0]} mean {e[1]} of max|ref| {e[4]}; one "
+                          f"rank's own move for a {SERVE_NUDGE} nudge max "
+                          f"{e[2]} mean {e[3]}")
+            res["ranks"].append(row)
+            print(f"phase 64 {flag} rank {i} (data=1, model=2, TP + SP + "
+                  f"ZeRO-1, {kid} on 4 of 8 heads): step loss "
+                  f"{st['loss']:.6f} vs one rank {ref['step']['loss']:.6f} "
+                  f"(rel {rel:.2e}, tol 1e-3), gradient cosine "
+                  f"{st['grad_cos']:.6f} (>= 0.9999), {st['sharded']} "
+                  f"sharded tensors; {MA_STEPS}-step bf16 sample x0 err max "
+                  f"{err(row, 'bf16', 'x0')}, forward "
+                  f"{err(row, 'bf16', 'forward')}; int8 fused_norms False "
+                  f"({kid8}; calibrate_int8 within {row['scales_err']:.2e} "
+                  f"of one rank's, sampling on one rank's scales) x0 "
+                  f"{err(row, 'int8', 'x0')}, forward "
+                  f"{err(row, 'int8', 'forward')}; "
+                  f"seconds: step {st['seconds']:.3f} (one rank "
+                  f"{ref['step']['seconds']:.3f}), bf16 sample "
+                  f"{got['bf16']['seconds']:.3f} "
+                  f"({ref['bf16']['seconds']:.3f}), int8 sample "
+                  f"{got['int8']['seconds']:.3f} "
+                  f"({ref['int8']['seconds']:.3f}); two gloo ranks on ONE "
+                  f"card: not a speed [{smi_line}]", flush=True)
+        for who, got in [("one rank", ref)] + [
+                (f"rank {i}", r[flag]) for i, r in enumerate(ranks)]:
+            c = got["step"]["counts"]
+            print(f"phase 64 {flag} {who} launches: step "
+                  f"{ {k: v for k, v in c.items() if v} }, bf16 sample "
+                  f"{ {k: v for k, v in got['bf16']['counts'].items() if v} }"
+                  f", int8 sample "
+                  f"{ {k: v for k, v in got['int8']['counts'].items() if v} }",
+                  flush=True)
+            check(c[kid] == 32 and c["K2"] == 16 and c["K1"] == 0
+                  and c["fallbacks"] == 0,
+                  f"phase 64 {flag} {who}: a step launched {c} (32 {kid}, "
+                  f"16 K2, no K1, no fallback expected)")
+            for mode in want:
+                check(got[mode]["counts"] == want[mode],
+                      f"phase 64 {flag} {who} {mode} sample: launched "
+                      f"{got[mode]['counts']}, expected {want[mode]}")
+    return result
+
+
 _T0 = time.perf_counter()
 
 
@@ -7554,8 +8333,8 @@ def main() -> int:
         print(f"chip_smoke: the ldmseg_torch package is missing: {e}",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from ldmseg_torch.utils.precision import strict_fp32
+    strict_fp32()
 
     try:
         name, count, smi_line = phase_device()
@@ -7749,7 +8528,18 @@ def main() -> int:
         partial_rows = phase_partial_kernels()
         partial_s = time.perf_counter() - t63
         torch.cuda.empty_cache()
-        model_axis, serving_axis = phase_model_axis(smi_line)
+        t64 = time.perf_counter()
+        axis_rows = phase_axis_kernels()
+        axis_kernels_s = time.perf_counter() - t64
+        torch.cuda.empty_cache()
+        model_axis, serving_axis, attention_axis = phase_model_axis(smi_line)
+        attention_axis["seconds"] = (
+            axis_kernels_s + attention_axis["one_rank_seconds"]
+            + max(attention_axis["rank_seconds"]))
+        print(f"phase 64 seconds: {attention_axis['seconds']:.1f} (the "
+              f"kernels {axis_kernels_s:.1f}, one rank "
+              f"{attention_axis['one_rank_seconds']:.1f}, the ranks "
+              f"{max(attention_axis['rank_seconds']):.1f})", flush=True)
         serving_axis["seconds"] = (
             partial_s + serving_axis["one_rank_seconds"]
             + max(serving_axis["rank_seconds"]))
@@ -7758,7 +8548,7 @@ def main() -> int:
               f"{serving_axis['one_rank_seconds']:.1f}, the ranks' serving "
               f"{max(serving_axis['rank_seconds']):.1f}"
               f")", flush=True)
-        lap("phases 62-63")
+        lap("phases 62-64")
         clip_sample.pop("x0")
         sample_result.pop("x0")
         gn_sample.pop("x0")
@@ -7808,7 +8598,9 @@ def main() -> int:
                               "seconds": dp_seconds},
             "model_axis": model_axis,
             "model_axis_serving": serving_axis,
-            "model_axis_partial_kernels": partial_rows}}),
+            "model_axis_partial_kernels": partial_rows,
+            "model_axis_attention": attention_axis,
+            "model_axis_attention_kernels": axis_rows}}),
             flush=True)
         dyn, cal = (int8_results[k]["counts"]
                     for k in ("default scales", "calibrated"))
@@ -7920,6 +8712,21 @@ def main() -> int:
                 paths[f"model axis (data=1, model=2), rank {rank}: the "
                       f"bench's serving pipeline, {key}, a {SERVE_STEPS}-step"
                       f" sample_panoptic"] = run["counts"]
+        for flag, res in attention_axis.items():
+            if flag not in AXIS_FLAGS:
+                continue
+            for rank, row in enumerate(res["ranks"]):
+                for what, counts in row["counts"].items():
+                    paths[f"model axis (data=1, model=2), rank {rank}, "
+                          f"{AXIS_FLAGS[flag][0]}: "
+                          + {"step": f"a TP + SP + ZeRO-1 step (batch "
+                                     f"{MA_BATCH} of {SERVE_HW[0]}x"
+                                     f"{SERVE_HW[1]})",
+                             "bf16": f"a {MA_STEPS}-step bf16 "
+                                     f"sample_panoptic",
+                             "int8": f"a {MA_STEPS}-step int8 "
+                                     f"sample_panoptic, fused_norms False"}[
+                                what]] = counts
 
         def by_path(kid):
             return {path: counts[kid] for path, counts in paths.items()}
@@ -8029,7 +8836,8 @@ def main() -> int:
                "repaired_shapes": k7_repaired,
                "launches_in_its_phase": k7_launched + sum(
                    r["launches"] for r in k7_repaired)},
-            k14_entry(packed_rows, packed_counts["K14"], by_path("K14")),
+            k14_entry(packed_rows, packed_counts["K14"], by_path("K14"))
+            | axis_entry(axis_rows, attention_axis, "K14"),
             int8_entry("attention_packed_s8", "K15",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:142",
@@ -8037,7 +8845,7 @@ def main() -> int:
                        "_attn_kernel_btc_s8", packed_rows["K15"],
                        packed_int8["default scales"]["counts"]["K15"],
                        by_path("K15"))
-            | S8PV_REDESIGN,
+            | S8PV_REDESIGN | axis_entry(axis_rows, attention_axis, "K15"),
             int8_entry("attention_ln_s8_rowmajor (v_bf16=True)", "K10",
                        "ldmseg_torch/csrc/attention_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:716",
@@ -8059,7 +8867,8 @@ def main() -> int:
                "launches_in_its_phase": k10_checked // 2,
                "launches_note": "an op: no module routes to it, so 0 "
                                 "launches on every path"},
-            k16_entry(absorbed_rows, absorbed_counts["K16"], by_path("K16")),
+            k16_entry(absorbed_rows, absorbed_counts["K16"], by_path("K16"))
+            | axis_entry(axis_rows, attention_axis, "K16"),
             int8_entry("attention_absorbed_s8", "K17",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:360",
@@ -8067,7 +8876,7 @@ def main() -> int:
                        "_attn_kernel_absorbed_s8", absorbed_rows["K17"],
                        absorbed_int8["default scales"]["counts"]["K17"],
                        by_path("K17"))
-            | S8PV_REDESIGN,
+            | S8PV_REDESIGN | axis_entry(axis_rows, attention_axis, "K17"),
             int8_entry("attention_absorbed_fullc_s8", "K18",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:500",

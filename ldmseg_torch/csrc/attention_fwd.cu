@@ -480,6 +480,28 @@ struct StoreBf16Epi {
   }
 };
 
+// to_out's epilogue on a model axis: the fp32 product over this rank's
+// heads alone, [rows, n] row-major, stored as pairs (attention_ln_s8.cu's
+// PartialF32Epi for K3)
+struct PartialF32Epi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 0;
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  float* out;
+  int n;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*, const int2*,
+                             const RowPre&, const Pre&, float s0,
+                             float s1) const {
+    *reinterpret_cast<float2*>(out + static_cast<long long>(row) * n + col) =
+        make_float2(s0, s1);
+  }
+};
+
 constexpr int kGemmTile = 64;   // rows and columns of an fp32 output tile
 constexpr int kGemmDepth = 16;  // depth of one shared-memory stage
 
@@ -555,30 +577,35 @@ int f32_gemm(const void* a, const void* w, void* out, int rows, int n, int k,
 
 int launch_absorbed_f32(const void* x, const void* const* w,
                         void* const* qkvo, void* out, int batch, int t,
-                        int c, int heads, float scale, cudaStream_t stream) {
+                        int c, int ci, int heads, float scale,
+                        cudaStream_t stream) {
   const int rows = batch * t;
   for (int i = 0; i < 3; ++i) {
-    const int err = f32_gemm(x, w[i], qkvo[i], rows, c, c, stream);
+    const int err = f32_gemm(x, w[i], qkvo[i], rows, ci, c, stream);
     if (err != 0) return err;
   }
   long long st[12];
   for (int i = 0; i < 4; ++i) {
-    st[3 * i] = static_cast<long long>(t) * c;
-    st[3 * i + 1] = c;
-    st[3 * i + 2] = c / heads;
+    st[3 * i] = static_cast<long long>(t) * ci;
+    st[3 * i + 1] = ci;
+    st[3 * i + 2] = ci / heads;
   }
   const int err = launch_f32(qkvo[0], qkvo[1], qkvo[2], qkvo[3], batch, t,
-                             heads, c / heads, st, scale, stream);
+                             heads, ci / heads, st, scale, stream);
   if (err != 0) return err;
-  return f32_gemm(qkvo[3], w[3], out, rows, c, c, stream);
+  return f32_gemm(qkvo[3], w[3], out, rows, c, ci, stream);
 }
 
 // plans: K1's (9 ints), then ops/gemm.py:sm90_gemm_plan's of the Q/K/V
-// product ([rows, c] x [3c, c]^T over three maps) and of to_out ([rows, c]
-// x [c, c]^T), bf16; the device is current
+// product ([rows, c] x [3ci, c]^T over three maps) and of to_out ([rows,
+// ci] x [c, ci]^T), bf16; the device is current. ci = heads * d is the
+// inner width: c, or this rank's heads on a model axis, where `partial`
+// stores to_out's fp32 product (out float [rows, c]) in place of its bf16
+// rounding
 int launch_absorbed_bf16(const void* x, const void* const* w,
                          void* const* qkvo, void* out, int batch, int t,
-                         int c, int heads, float scale, const int* plans,
+                         int c, int ci, int heads, float scale,
+                         const int* plans, bool partial,
                          cudaStream_t stream) {
   const int rows = batch * t;
   auto* q = static_cast<__nv_bfloat16*>(qkvo[0]);
@@ -589,22 +616,27 @@ int launch_absorbed_bf16(const void* x, const void* const* w,
   // took 16% more of K16's device time per UNet forward on an H100, 65%
   // more at t = 32 (tools/ablate_attention_fwd.py --k16)
   int err = gemm90::launch_gemm_in_context<false, 3, false>(
-      plans + gemm90::kPlanInts, x, w, rows, 3 * c, c, 0, 1,
-      StoreBf16Epi{q, k, v, c}, stream);
+      plans + gemm90::kPlanInts, x, w, rows, 3 * ci, c, 0, 1,
+      StoreBf16Epi{q, k, v, ci}, stream);
   if (err != 0) return err;
   // the head views [batch, t, heads, d] of q, k, v and oh
   long long st[12];
   for (int i = 0; i < 4; ++i) {
-    st[3 * i] = static_cast<long long>(t) * c;
-    st[3 * i + 1] = c;
-    st[3 * i + 2] = c / heads;
+    st[3 * i] = static_cast<long long>(t) * ci;
+    st[3 * i + 1] = ci;
+    st[3 * i + 2] = ci / heads;
   }
-  err = launch_bf16(q, k, v, oh, batch, t, heads, c / heads, st, scale,
+  err = launch_bf16(q, k, v, oh, batch, t, heads, ci / heads, st, scale,
                     plans, stream, true);
   if (err != 0) return err;
+  if (partial) {
+    return gemm90::launch_gemm_in_context<false, 1, false>(
+        plans + 2 * gemm90::kPlanInts, oh, &w[3], rows, c, ci, 0, 1,
+        PartialF32Epi{static_cast<float*>(out), c}, stream);
+  }
   auto* o = static_cast<__nv_bfloat16*>(out);
   return gemm90::launch_gemm_in_context<false, 1, false>(
-      plans + 2 * gemm90::kPlanInts, oh, &w[3], rows, c, c, 0, 1,
+      plans + 2 * gemm90::kPlanInts, oh, &w[3], rows, c, ci, 0, 1,
       StoreBf16Epi{o, o, o, c}, stream);
 }
 
@@ -612,25 +644,31 @@ int launch_absorbed_bf16(const void* x, const void* const* w,
 
 // K16: dtype 0 = float32, 1 = bfloat16 for every tensor, all on CUDA
 // device `device`, which this makes current (the wrapper has made it the
-// thread's device). x [batch * t, c] contiguous; wq, wk, wv, wo [c, c]
-// contiguous in the (out, in) layout of a torch Linear weight. q, k, v and
-// oh ([batch * t, c] each, contiguous) and out ([batch * t, c]) are
-// written: the three projections, the attention output before to_out, and
-// to_out of it without the bias. c = heads * d with d a multiple of 8 up to
-// 160; plans: K1's for (batch * heads, t, d), then sm90_gemm_plan's of the
-// Q/K/V product (bf16, [batch * t, c] x [3c, c]^T, three maps) and of
-// to_out, 27 ints (fp32 reads none of them). Returns a cudaError_t (0 on
-// success).
+// thread's device). x [batch * t, c] contiguous; ci = heads * d is the inner
+// width, c, or on a model axis's rank the width of its heads; wq, wk, wv
+// [ci, c] and wo [c, ci] contiguous in the (out, in) layout of a torch
+// Linear weight (a rank's rows of each, its columns of wo). q, k, v and oh
+// ([batch * t, ci] each, contiguous) and out ([batch * t, c]) are written:
+// the three projections, the attention output before to_out, and to_out
+// of it without the bias. d is a multiple of 8 up to 160. partial 0: out in
+// the dtype; 1 (the partial mode): out fp32, to_out's product over these
+// heads alone, not rounded (the caller sums the ranks' partials in fp32 and
+// rounds once). plans: K1's for (batch * heads, t, d), then
+// sm90_gemm_plan's of the Q/K/V product (bf16, [batch * t, c] x [3ci, c]^T,
+// three maps) and of to_out ([batch * t, ci] x [c, ci]^T), 27 ints (fp32
+// reads none of them). Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_absorbed(int dtype, int device,
                                          const void* x, const void* wq,
                                          const void* wk, const void* wv,
                                          const void* wo, void* q, void* k,
                                          void* v, void* oh, void* out,
-                                         int batch, int t, int c, int heads,
-                                         float scale, const int* plans,
+                                         int batch, int t, int c, int ci,
+                                         int heads, float scale,
+                                         const int* plans, int partial,
                                          void* stream) {
-  if (batch < 1 || t < 1 || heads < 1 || c % heads != 0 ||
-      (c / heads) % 8 != 0 || c / heads > kMaxD || batch * heads > 65535 ||
+  if (batch < 1 || t < 1 || heads < 1 || ci < 1 || ci > c ||
+      ci % heads != 0 || (ci / heads) % 8 != 0 || ci / heads > kMaxD ||
+      c % 8 != 0 || batch * heads > 65535 || partial < 0 || partial > 1 ||
       static_cast<long long>(batch) * t * c >= (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -638,14 +676,14 @@ extern "C" int ldmseg_attention_absorbed(int dtype, int device,
   void* qkvo[4] = {q, k, v, oh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_absorbed_f32(x, w, qkvo, out, batch, t, c, heads, scale,
-                               s);
+    return launch_absorbed_f32(x, w, qkvo, out, batch, t, c, ci, heads,
+                               scale, s);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   // binds the device's context to this thread (the tensor maps' encoder
   // needs one) without the pointer query of sm90::make_current
   const cudaError_t dev = cudaSetDevice(device);
   if (dev != cudaSuccess) return static_cast<int>(dev);
-  return launch_absorbed_bf16(x, w, qkvo, out, batch, t, c, heads, scale,
-                              plans, s);
+  return launch_absorbed_bf16(x, w, qkvo, out, batch, t, c, ci, heads, scale,
+                              plans, partial != 0, s);
 }

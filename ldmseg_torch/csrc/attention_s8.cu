@@ -502,12 +502,15 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
 }
 
 // K15: the dynamic scales into scratch (amax bits, then the three
-// scales), then K13's two kernels reading them from device memory
+// scales), then K13's two kernels reading them from device memory. stage
+// 1 runs the amax alone and stage 2 the rest on the amax bits the caller
+// left in scratch (a model axis: the group's maximum of the ranks' amaxes
+// between the two); stage 0 both
 template <typename T>
 int launch_packed(const void* q, const void* k, const void* v,
                   const long long* st, int8_t* q8, int8_t* k8, int8_t* v8t,
                   __nv_bfloat16* o, int batch, int t, int heads, int d,
-                  unsigned* scratch, float scale, const int* plan,
+                  unsigned* scratch, float scale, const int* plan, int stage,
                   cudaStream_t stream) {
   QKV a;
   a.x[0] = q;
@@ -515,14 +518,17 @@ int launch_packed(const void* q, const void* k, const void* v,
   a.x[2] = v;
   for (int i = 0; i < 3; ++i) a.st[i] = Strides{st[3 * i], st[3 * i + 1],
                                                 st[3 * i + 2]};
-  int err = static_cast<int>(
-      cudaMemsetAsync(scratch, 0, 3 * sizeof(unsigned), stream));
-  if (err != 0) return err;
-  const int units = batch * t * heads * (d / 8);
-  amax_qkv_kernel<T><<<dim3((units + 255) / 256, 3), 256, 0, stream>>>(
-      a, units, t, heads, d, scratch);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
+  int err = 0;
+  if (stage != 2) {
+    err = static_cast<int>(
+        cudaMemsetAsync(scratch, 0, 3 * sizeof(unsigned), stream));
+    if (err != 0) return err;
+    const int units = batch * t * heads * (d / 8);
+    amax_qkv_kernel<T><<<dim3((units + 255) / 256, 3), 256, 0, stream>>>(
+        a, units, t, heads, d, scratch);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0 || stage == 1) return err;
+  }
   float* scales = reinterpret_cast<float*>(scratch + 3);
   amax_scales_kernel<T><<<1, 32, 0, stream>>>(scratch, scales);
   err = static_cast<int>(cudaGetLastError());
@@ -872,21 +878,39 @@ struct HeadOutEpi {
   }
 };
 
+// (f) on a model axis: the per-head sum over this rank's heads in fp32, not
+// rounded (the caller sums the ranks' partials and rounds once)
+struct HeadPartialEpi {
+  const float* os;   // [batch][heads]
+  const float* wos;  // [heads]
+  float* out;
+  int n, heads;
+  __device__ float head_factor(int b, int h) const {
+    return __fmul_rn(__ldg(os + b * heads + h), __ldg(wos + h));
+  }
+  __device__ void operator()(int row, int col, float a0, float a1) const {
+    *reinterpret_cast<float2*>(out + static_cast<long long>(row) * n + col) =
+        make_float2(a0, a1);
+  }
+};
+
 // K17 (gw = d: the projections' scales per (image, head)) and K18 (gw = c:
-// per image), six kernels on the stream. plans: sm90_gemm_plan's of [rows,
-// 3c, c], sm90_s8pv_attention_plan's, sm90_gemm_plan's of [rows, c, heads
-// * dp] (int8), in that order.
+// per image), six kernels on the stream. x is [rows, c]; ci = heads * d is
+// the inner width, c, or this rank's heads on a model axis (K17), where
+// `partial` (fp32 [rows, c]) takes the per-head sum in place of out.
+// plans: sm90_gemm_plan's of [rows, 3ci, c], sm90_s8pv_attention_plan's,
+// sm90_gemm_plan's of [rows, c, heads * dp] (int8), in that order.
 template <typename T>
-int launch_absorbed_s8(const void* x, __nv_bfloat16* out,
+int launch_absorbed_s8(const void* x, __nv_bfloat16* out, float* partial,
                        const int8_t* w_qkv, const int8_t* wo_p,
                        const float* ws, int8_t* x8, float* y, int8_t* q8,
                        int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8,
-                       float* scales, int batch, int t, int c, int heads,
-                       int gw, float xs, float scale, const int* plans,
-                       cudaStream_t stream) {
+                       float* scales, int batch, int t, int c, int ci,
+                       int heads, int gw, float xs, float scale,
+                       const int* plans, cudaStream_t stream) {
   const int rows = batch * t;
-  const int d = c / heads;
-  const int groups = c / gw;
+  const int d = ci / heads;
+  const int groups = ci / gw;
   const int* attn_plan = plans + gemm90::kPlanInts;
   const int dp = attn_plan[5];
   const int tp = attn_plan[6];
@@ -898,24 +922,30 @@ int launch_absorbed_s8(const void* x, __nv_bfloat16* out,
                                       0.f, amax, n_scales, stream);
   if (err != 0) return err;
   err = gemm90::launch_gemm<true>(
-      plans, x8, w_qkv, rows, 3 * c, c, 0,
-      AbsorbedProjEpi{ws, xs, y, amax, c, d, heads, gw, batch, t}, stream);
+      plans, x8, w_qkv, rows, 3 * ci, c, 0,
+      AbsorbedProjEpi{ws, xs, y, amax, ci, d, heads, gw, batch, t}, stream);
   if (err != 0) return err;
-  err = launch_group_quant(y, 3 * c, 3, c, gw, amax, scales, q8, k8, v8t,
+  err = launch_group_quant(y, 3 * ci, 3, ci, gw, amax, scales, q8, k8, v8t,
                            batch, t, heads, dp, tp, stream);
   if (err != 0) return err;
   const Scales sc{scales, groups, nullptr, 0.f, 0.f, 0.f, scale, nullptr,
                   oh_amax};
-  const attn90::Strides so{static_cast<long long>(t) * c, c, d};
+  const attn90::Strides so{static_cast<long long>(t) * ci, ci, d};
   err = launch_attn<attn90::kOutF32>(attn_plan, q8, k8, v8t, oh, so, batch,
                                      t, heads, d, sc, stream);
   if (err != 0) return err;
-  err = launch_group_quant(oh, c, 1, c, d, oh_amax, os, oh8, nullptr,
+  err = launch_group_quant(oh, ci, 1, ci, d, oh_amax, os, oh8, nullptr,
                            nullptr, batch, t, heads, dp, tp, stream);
   if (err != 0) return err;
+  const int* out_plan = plans + gemm90::kPlanInts + kAttnPlanInts;
+  if (partial != nullptr) {
+    return gemm90::launch_gemm_heads(
+        out_plan, oh8, wo_p, rows, c, heads, dp / 32, t,
+        HeadPartialEpi{os, ws + 3 * heads, partial, c, heads}, stream);
+  }
   return gemm90::launch_gemm_heads(
-      plans + gemm90::kPlanInts + kAttnPlanInts, oh8, wo_p, rows, c, heads,
-      dp / 32, t, HeadOutEpi{os, ws + 3 * heads, out, c, heads}, stream);
+      out_plan, oh8, wo_p, rows, c, heads, dp / 32, t,
+      HeadOutEpi{os, ws + 3 * heads, out, c, heads}, stream);
 }
 
 // what the attention stage takes (K13, K15), and with the products (K11,
@@ -931,30 +961,32 @@ bool takes(int batch, int t, int c, int heads) {
          t % 8 == 0 && c % 16 == 0;
 }
 
-int absorbed_s8_entry(int dtype, const void* x, void* out,
+int absorbed_s8_entry(int dtype, const void* x, void* out, float* partial,
                       const int8_t* w_qkv, const int8_t* wo_p,
                       const float* ws, int8_t* x8, float* y, int8_t* q8,
                       int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8,
-                      float* scales, int batch, int t, int c, int heads,
-                      int gw, float xs, float scale, const int* plans,
-                      void* stream) {
-  if (!takes(batch, t, c, heads) ||
-      static_cast<long long>(batch) * t * c * 3 >= (1ll << 31) ||
-      static_cast<long long>(batch) * c * ((t + 15) / 16 * 16) >=
+                      float* scales, int batch, int t, int c, int ci,
+                      int heads, int gw, float xs, float scale,
+                      const int* plans, void* stream) {
+  if (ci < 1 || ci > c || c % 16 != 0 || heads < 1 || ci % heads != 0 ||
+      t % 8 != 0 || !attn_takes(batch, t, heads, ci / heads) ||
+      static_cast<long long>(batch) * t * ci * 3 >= (1ll << 31) ||
+      static_cast<long long>(batch) * t * c >= (1ll << 31) ||
+      static_cast<long long>(batch) * ci * ((t + 15) / 16 * 16) >=
           (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (dtype == 0) {
-    return launch_absorbed_s8<float>(x, ob, w_qkv, wo_p, ws, x8, y, q8, k8,
-                                     v8t, oh, oh8, scales, batch, t, c,
-                                     heads, gw, xs, scale, plans, s);
+    return launch_absorbed_s8<float>(x, ob, partial, w_qkv, wo_p, ws, x8, y,
+                                     q8, k8, v8t, oh, oh8, scales, batch, t,
+                                     c, ci, heads, gw, xs, scale, plans, s);
   }
   if (dtype == 1) {
     return launch_absorbed_s8<__nv_bfloat16>(
-        x, ob, w_qkv, wo_p, ws, x8, y, q8, k8, v8t, oh, oh8, scales, batch, t,
-        c, heads, gw, xs, scale, plans, s);
+        x, ob, partial, w_qkv, wo_p, ws, x8, y, q8, k8, v8t, oh, oh8, scales,
+        batch, t, c, ci, heads, gw, xs, scale, plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1031,13 +1063,18 @@ extern "C" int ldmseg_attention_padded_s8(
 // always dynamic: scratch (24 bytes, 4-byte aligned) receives the three
 // amax bit patterns and then the three scales (qs, ks, vs). q8, k8 and v8t
 // are scratch as in ldmseg_attention_s8 and o (bf16) the output, [batch,
-// t, c] contiguous. Returns a cudaError_t (0 on success).
+// t, c] contiguous. stage 0 runs the whole of it. On a model axis (q, k and
+// v hold this rank's heads, c = heads * d of them) it runs in two: stage 1
+// writes the three amax bit patterns into scratch and returns; the caller
+// replaces them with the model group's maximum; stage 2 computes the scales
+// from them and runs the attention, on the same arguments. Returns a
+// cudaError_t (0 on success).
 extern "C" int ldmseg_attention_packed_s8(
     int dtype, const void* q, const void* k, const void* v,
     const long long* strides, int8_t* q8, int8_t* k8, int8_t* v8t, void* o,
     int batch, int t, int c, int heads, void* scratch, float scale,
-    const int* plan, void* stream) {
-  if (heads < 1 || c % heads != 0 ||
+    const int* plan, int stage, void* stream) {
+  if (heads < 1 || c % heads != 0 || stage < 0 || stage > 2 ||
       !attn_takes(batch, t, heads, c / heads) ||
       static_cast<long long>(batch) * ((t + 15) / 16 * 16) * c >=
           (1ll << 31)) {
@@ -1055,11 +1092,12 @@ extern "C" int ldmseg_attention_packed_s8(
   auto* sc = static_cast<unsigned*>(scratch);
   if (dtype == 0) {
     return launch_packed<float>(q, k, v, st, q8, k8, v8t, ob, batch, t, heads,
-                                d, sc, scale, plan, s);
+                                d, sc, scale, plan, stage, s);
   }
   if (dtype == 1) {
     return launch_packed<__nv_bfloat16>(q, k, v, st, q8, k8, v8t, ob, batch,
-                                        t, heads, d, sc, scale, plan, s);
+                                        t, heads, d, sc, scale, plan, stage,
+                                        s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1096,41 +1134,50 @@ extern "C" int ldmseg_attention_ln_padded_s8(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K17: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous; out
-// bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns),
-// quantized per head; wo_p int8 [c, heads, dp], to_out's codes (out, in)
-// with each head's d inputs padded with zeros to dp; ws fp32 [4][heads],
-// the per-head scales of q, k, v and o. x8 (int8 [batch*t, c]), y (fp32
-// [batch*t, 3c]), q8 and k8 (int8 [batch*t, heads, dp]), v8t (int8 [batch,
-// c, tp]), oh (fp32 [batch*t, c]), oh8 (int8 [batch*t, heads, dp]) and
-// scales (4-byte words [2 * 4 * batch * heads]: the scales, then as many
-// amax words) are scratch. xs: x's static scale. plans: launch_absorbed_s8's
-// three. Returns a cudaError_t (0 on success).
+// K17: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous;
+// ci = heads * d is the inner width, c, or on a model axis's rank the width
+// of its heads; w_qkv int8 [3ci, c] (rows: q, k, v output columns, a rank's
+// rows of each), quantized per head; wo_p int8 [c, heads, dp], to_out's
+// codes (out, in) of these heads with each head's d inputs padded with
+// zeros to dp; ws fp32 [4][heads], the per-head scales of q, k, v and o.
+// partial 0: out bf16 [batch*t, c]; 1 (the partial mode): out fp32
+// [batch*t, c], to_out's per-head sum over these heads, not rounded (the
+// scales are per (image, head), so a rank's heads need nothing of the
+// others). x8 (int8 [batch*t, c]), y (fp32 [batch*t, 3ci]), q8 and k8
+// (int8 [batch*t, heads, dp]), v8t (int8 [batch, ci, tp]), oh (fp32
+// [batch*t, ci]), oh8 (int8 [batch*t, heads, dp]) and scales (4-byte words
+// [2 * 4 * batch * heads]: the scales, then as many amax words) are
+// scratch. xs: x's static scale. plans: sm90_gemm_plan's of [batch*t, 3ci,
+// c], sm90_s8pv_attention_plan's, sm90_gemm_plan's of [batch*t, c, heads *
+// dp]. Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_absorbed_s8(
     int dtype, const void* x, void* out, const int8_t* w_qkv,
     const int8_t* wo_p, const float* ws, int8_t* x8, float* y, int8_t* q8,
     int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8, float* scales,
-    int batch, int t, int c, int heads, float xs, float scale,
-    const int* plans, void* stream) {
-  if (heads < 1 || c % heads != 0) {
+    int batch, int t, int c, int ci, int heads, float xs, float scale,
+    const int* plans, int partial, void* stream) {
+  if (heads < 1 || ci % heads != 0 || partial < 0 || partial > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return absorbed_s8_entry(dtype, x, out, w_qkv, wo_p, ws, x8, y, q8, k8,
-                           v8t, oh, oh8, scales, batch, t, c, heads,
-                           c / heads, xs, scale, plans, stream);
+  float* part = partial ? static_cast<float*>(out) : nullptr;
+  return absorbed_s8_entry(dtype, x, partial ? nullptr : out, part, w_qkv,
+                           wo_p, ws, x8, y, q8, k8, v8t, oh, oh8, scales,
+                           batch, t, c, ci, heads, ci / heads, xs, scale,
+                           plans, stream);
 }
 
-// K18: K17's arguments with ws holding each tensor's one scale repeated over
-// the heads, the projections' dynamic scales per image over all c columns;
-// scales is [2 * (3 * batch + batch * heads)] 4-byte words. Returns a
-// cudaError_t.
+// K18: K17's arguments with ci = c and partial 0 (it has no partial mode),
+// ws holding each tensor's one scale repeated over the heads, the
+// projections' dynamic scales per image over all c columns; scales is [2 *
+// (3 * batch + batch * heads)] 4-byte words. Returns a cudaError_t.
 extern "C" int ldmseg_attention_absorbed_fullc_s8(
     int dtype, const void* x, void* out, const int8_t* w_qkv,
     const int8_t* wo_p, const float* ws, int8_t* x8, float* y, int8_t* q8,
     int8_t* k8, int8_t* v8t, float* oh, int8_t* oh8, float* scales,
-    int batch, int t, int c, int heads, float xs, float scale,
-    const int* plans, void* stream) {
-  return absorbed_s8_entry(dtype, x, out, w_qkv, wo_p, ws, x8, y, q8, k8, v8t,
-                           oh, oh8, scales, batch, t, c, heads, c, xs, scale,
-                           plans, stream);
+    int batch, int t, int c, int ci, int heads, float xs, float scale,
+    const int* plans, int partial, void* stream) {
+  if (ci != c || partial != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return absorbed_s8_entry(dtype, x, out, nullptr, w_qkv, wo_p, ws, x8, y,
+                           q8, k8, v8t, oh, oh8, scales, batch, t, c, c,
+                           heads, c, xs, scale, plans, stream);
 }

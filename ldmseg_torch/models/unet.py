@@ -258,11 +258,20 @@ class CrossAttention(nn.Module):
     no quantized leaf holds it, so K13 keeps ``int8_act_scale`` and K15
     its dynamic scales.
 
-    The head count of the plain path comes from the projections' width:
-    under tensor parallelism (``parallel/tp.py:apply_tp``) they hold this
-    rank's heads, and ``tp_group`` (the model group's reductions, which
-    ``apply_tp`` sets) gives K13's dynamic scales the amax over all of
-    them."""
+    Every path takes its head count from the projections' width: under
+    tensor parallelism (``parallel/tp.py:apply_tp``, where the axis
+    divides the heads) they hold this rank's heads and ``tp_group`` (the
+    model group's reductions and collectives, which ``apply_tp`` sets) is
+    set. Then K13's and K15's dynamic scales take the amax over all the
+    heads (``group.max``); K14 attends over the rank's heads between
+    ``to_q``/``to_k``/``to_v`` kept local and the row-parallel ``to_out``,
+    as K1 does; and K16, whose kernel reads the four weights itself (its
+    ``to_out`` stays a plain ``Linear`` holding this rank's columns), runs
+    its partial mode on x through ``copy_to`` (the gradient summed over the
+    ranks), the ranks' fp32 partials summed with ``reduce_from`` (the
+    gradient passes) and rounded once, then the bias. Where the axis does
+    not divide the heads, q, k and v are gathered for K1, K13, K14 and K15,
+    and an absorbed attention stays whole on every rank."""
 
     tp_group = None
 
@@ -293,15 +302,26 @@ class CrossAttention(nn.Module):
         scale = hd ** -0.5
         is_self = context is None
         if is_self and self.absorbed:
-            out = absorbed_self_attention(
-                x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
-                self.to_out[0].weight, self.heads, scale)
+            ws = (self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                  self.to_out[0].weight)
+            heads = ws[0].shape[0] // hd
+            g = self.tp_group
+            if g is None:
+                out = absorbed_self_attention(x, *ws, heads, scale)
+            else:
+                part = absorbed_self_attention(g.copy_to(x), *ws, heads,
+                                               scale, partial=True)
+                out = g.reduce_from(part).to(x.dtype)
             return out + self.to_out[0].bias.to(out.dtype)
         if is_self and self.packed:
             q, k, v = (proj(x) for proj in (self.to_q, self.to_k, self.to_v))
-            attend = (fused_self_attention_packed_s8 if self.int8
-                      else fused_self_attention_packed)
-            return self.to_out[0](attend(q, k, v, self.heads, scale))
+            heads = q.shape[-1] // hd
+            if self.int8:
+                out = fused_self_attention_packed_s8(q, k, v, heads, scale,
+                                                     self.tp_group)
+            else:
+                out = fused_self_attention_packed(q, k, v, heads, scale)
+            return self.to_out[0](out)
         src = x if is_self else context
         q = self.to_q(x).reshape(b, t, -1, hd)
         k, v = (proj(src).reshape(b, src.shape[1], -1, hd)
@@ -376,7 +396,13 @@ class AbsorbedAttentionS8(CrossAttention):
     prequantized leaves of ``prequantize_conv_tree(absorbed_attention=
     True)`` (branch 1), and its in-graph branch on float leaves, which the
     trainer's unfused int8 UNet takes, ignores it. Inference only: JAX has
-    no gradient for K17, so a forward that autograd would record raises."""
+    no gradient for K17, so a forward that autograd would record raises.
+
+    Under tensor parallelism (``parallel/tp.py:apply_tp``, where the axis
+    divides the heads) the four projections hold this rank's heads and
+    ``tp_group`` is the model group: K17 runs its partial mode on them,
+    the ranks' fp32 partials are summed (``group.sum``) and rounded once to
+    bf16, as one rank's kernel rounds, then the bias."""
 
     act_scale_sites = {"to_q": "x_scale"}
 
@@ -393,8 +419,15 @@ class AbsorbedAttentionS8(CrossAttention):
             return self.x_scale
         return self.act_scale
 
+    def _local_heads(self, src: CrossAttention) -> int:
+        """The heads ``src``'s projections hold (this rank's under tensor
+        parallelism)."""
+        return src.to_q.weight.shape[0] * self.heads // \
+            src.to_q.weight.shape[1]
+
     def prepare(self, src: CrossAttention) -> None:
-        self.pack = pack_absorbed_attention(src, self.heads, self._xs())
+        self.pack = pack_absorbed_attention(src, self._local_heads(src),
+                                            self._xs())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() and (
@@ -405,11 +438,16 @@ class AbsorbedAttentionS8(CrossAttention):
                 "inference only: run it under torch.no_grad() on weights "
                 "that require no gradient")
         p = (self.pack if self.pack is not None
-             else pack_absorbed_attention(self, self.heads, self._xs()))
+             else pack_absorbed_attention(self, self._local_heads(self),
+                                          self._xs()))
         c = x.shape[-1]
-        out = absorbed_self_attention_s8(x, p.w_qkv, p.wo_q, p.w_scale,
-                                         self.heads, (c // self.heads) ** -0.5,
-                                         p.xs, p.wo_p)
+        args = (x, p.w_qkv, p.wo_q, p.w_scale, p.heads,
+                (c // self.heads) ** -0.5, p.xs, p.wo_p)
+        if self.tp_group is None:
+            out = absorbed_self_attention_s8(*args)
+        else:
+            part = absorbed_self_attention_s8(*args, partial=True)
+            out = self.tp_group.sum(part).to(torch.bfloat16).to(x.dtype)
         return out + self.to_out[0].bias.to(out.dtype)
 
 

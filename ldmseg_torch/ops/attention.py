@@ -58,6 +58,16 @@ counted in ``absorbed_self_attention.launches``) or, on a CPU tensor,
 ``_xla_absorbed`` (:321-338); the port's runs K2 on the head views of the q,
 k, v the forward kept, with the products for x and the four weights in
 ``torch.matmul``, as XLA computes them outside any kernel.
+
+On a model axis (``parallel/tp.py:apply_tp``, where the axis divides the
+heads) K14 runs unchanged on a rank's ``[B, T, C/n]`` with ``heads / n``
+heads (its backward K2 on the same head views), and K16 in its partial
+mode (``partial=True``, the same entry with ``partial`` 1):
+rectangular weights of a rank's
+heads (``wq``/``wk``/``wv`` ``[ci, C]``, ``wo`` ``[C, ci]``, ``ci =
+heads·d``), q, k, v and oh ``[B, T, ci]``, and ``to_out``'s fp32 product
+in place of its bf16 rounding, which the caller sums over the model group
+and rounds once.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -665,104 +676,127 @@ def absorbed_takes_kernel(t: int, c: int, heads: int) -> bool:
 def absorbed_attention_fallback(x: torch.Tensor, wq: torch.Tensor,
                                 wk: torch.Tensor, wv: torch.Tensor,
                                 wo: torch.Tensor, heads: int,
-                                scale: float) -> torch.Tensor:
+                                scale: float,
+                                partial: bool = False) -> torch.Tensor:
     """``_xla_absorbed`` (:312-318): the projections in the input dtype,
     ``_xla_bthd``'s attention (the scores of the input dtype, the softmax in
-    fp32 rounded back) and ``to_out`` in the input dtype. Differentiable by
-    autograd."""
+    fp32 rounded back) and ``to_out`` in the input dtype (``partial``: in
+    fp32, not rounded). Differentiable by autograd."""
     q, k, v = (F.linear(x, w) for w in (wq, wk, wv))
-    return F.linear(packed_attention_fallback(q, k, v, heads, scale), wo)
+    oh = packed_attention_fallback(q, k, v, heads, scale)
+    if partial:
+        return F.linear(oh.to(_acc_dtype(x)), wo.to(_acc_dtype(x)))
+    return F.linear(oh, wo)
 
 
-def _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale):
+def _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale,
+                              partial=False):
     acc = _acc_dtype(x)
     q, k, v = (F.linear(x.to(acc), w.to(acc)).to(x.dtype)
                for w in (wq, wk, wv))
     oh = packed_attention_reference(q, k, v, heads, scale)
-    out = F.linear(oh.to(acc), wo.to(acc)).to(x.dtype)
-    return out, q, k, v, oh
+    out = F.linear(oh.to(acc), wo.to(acc))
+    return (out if partial else out.to(x.dtype)), q, k, v, oh
 
 
 def absorbed_attention_reference(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  wo: torch.Tensor, heads: int,
-                                 scale: float) -> torch.Tensor:
+                                 scale: float,
+                                 partial: bool = False) -> torch.Tensor:
     """K16's arithmetic in plain PyTorch on ``[B, T, C]``: q, k, v = the
     projections summed in fp32 and rounded to the input dtype, K1's
     attention on their head views (:func:`packed_attention_reference`), and
     ``to_out`` over the whole depth summed in fp32, rounded once (the TPU
-    kernel's per-head fp32 accumulation up to the summation order)."""
-    return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale)[0]
+    kernel's per-head fp32 accumulation up to the summation order);
+    ``partial``: not rounded (a rank's heads, :func:`absorbed_self_attention`
+    with ``partial``)."""
+    return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale,
+                                     partial)[0]
 
 
 @functools.lru_cache(maxsize=None)
-def absorbed_plans(b: int, t: int, c: int, heads: int) -> tuple:
+def absorbed_plans(b: int, t: int, c: int, heads: int,
+                   ci: Optional[int] = None) -> tuple:
     """K16's three launch plans, in the order its C entry point reads them:
     K1's for the attention stage, then the Hopper product's
     (``ops/gemm.py:sm90_gemm_plan``, bf16) for the Q/K/V projection, one
-    launch over the three weights as three maps of C rows, and for
-    ``to_out``."""
+    launch over the three weights as three maps of ``ci`` rows, and for
+    ``to_out``. ``ci = heads·d`` is the inner width: ``c``, or a model
+    axis's ``heads`` of a rank (the partial mode)."""
     from .gemm import sm90_gemm_plan
-    return (sm90_launch_plan(b * heads, t, c // heads),
-            sm90_gemm_plan(b * t, 3 * c, c, "bfloat16", maps=3),
-            sm90_gemm_plan(b * t, c, c, "bfloat16"))
+    ci = c if ci is None else ci
+    return (sm90_launch_plan(b * heads, t, ci // heads),
+            sm90_gemm_plan(b * t, 3 * ci, c, "bfloat16", maps=3),
+            sm90_gemm_plan(b * t, c, ci, "bfloat16"))
 
 
 @functools.lru_cache(maxsize=None)
-def _absorbed_plans_c(b: int, t: int, c: int, heads: int):
+def _absorbed_plans_c(b: int, t: int, c: int, heads: int,
+                      ci: Optional[int] = None):
     from .gemm import plans_c
-    return plans_c(*absorbed_plans(b, t, c, heads))
+    return plans_c(*absorbed_plans(b, t, c, heads, ci))
 
 
 @functools.cache
 def _absorbed_kernel():
     fn = _build.load("attention_fwd").ldmseg_attention_absorbed
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 4
+                   + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int),
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _absorbed_forward(x, wq, wk, wv, wo, heads, scale):
-    """(out, q, k, v, oh), each ``[B, T, C]`` in x's dtype: K16 on a CUDA
-    tensor, its plain version on a CPU one."""
+def _absorbed_forward(x, wq, wk, wv, wo, heads, scale, partial=False):
+    """(out, q, k, v, oh): q, k, v and oh ``[B, T, ci]`` in x's dtype, out
+    ``[B, T, C]`` in x's dtype (``partial``: fp32, not rounded): K16 on a
+    CUDA tensor, its plain version on a CPU one."""
     if x.device.type == "cpu":
-        return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale)
+        return _absorbed_reference_parts(x, wq, wk, wv, wo, heads, scale,
+                                         partial)
     if x.device.type != "cuda":
         raise ValueError(f"K16: unsupported device {x.device}")
     b, t, c = x.shape
+    ci = wq.shape[0]
     ws = (wq, wk, wv, wo)
     if x.dtype not in _DTYPE_CODE or any(w.dtype != x.dtype for w in ws):
         raise ValueError(f"K16: x and the four weights must share float32 "
                          f"or bfloat16, got {x.dtype} and "
                          f"{[w.dtype for w in ws]}")
-    if any(w.shape != (c, c) or w.device != x.device for w in ws):
-        raise ValueError(f"K16: the weights must be [{c}, {c}] on x's "
-                         f"device, got {[tuple(w.shape) for w in ws]}")
-    d = c // heads
-    if (c % heads or d % 8 or not 8 <= d <= MAX_HEAD_DIM
+    shapes = ((ci, c),) * 3 + ((c, ci),)
+    if (any(w.shape != s_ or w.device != x.device
+            for w, s_ in zip(ws, shapes))
+            or (ci != c and not partial) or ci > c):
+        raise ValueError(f"K16: the weights must be [{ci}, {c}] x 3 and "
+                         f"[{c}, {ci}] on x's device (rectangular only in "
+                         f"the partial mode), got "
+                         f"{[tuple(w.shape) for w in ws]}")
+    d = ci // heads
+    if (ci % heads or d % 8 or not 8 <= d <= MAX_HEAD_DIM or c % 8
             or not 1 <= b * heads <= 65535 or x.numel() >= 2 ** 31):
         raise ValueError(f"K16: head dim {d} (a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}), B*heads {b * heads} or "
+                         f"{MAX_HEAD_DIM}), C {c}, B*heads {b * heads} or "
                          f"{x.numel()} elements not taken")
     dev = x.device.index
     if dev != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return _absorbed_forward(x, wq, wk, wv, wo, heads, scale)
+            return _absorbed_forward(x, wq, wk, wv, wo, heads, scale,
+                                     partial)
     x = x.contiguous()
     ws = [w.contiguous() for w in ws]
     # q, k, v and oh in one allocation: its four views are what autograd
     # saves
-    q, k, v, oh = torch.empty((4, b, t, c), dtype=x.dtype,
+    q, k, v, oh = torch.empty((4, b, t, ci), dtype=x.dtype,
                               device=x.device).unbind(0)
-    out = torch.empty_like(x)
+    out = torch.empty((b, t, c), device=x.device,
+                      dtype=torch.float32 if partial else x.dtype)
     err = _absorbed_kernel()(
-        _DTYPE_CODE[x.dtype], dev, x.data_ptr(), *(w.data_ptr() for w in ws),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
-        out.data_ptr(), b, t, c, heads, float(scale),
-        _absorbed_plans_c(b, t, c, heads),
+        _DTYPE_CODE[x.dtype], dev, x.data_ptr(),
+        *(w.data_ptr() for w in ws), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), oh.data_ptr(), out.data_ptr(), b, t, c, ci, heads,
+        float(scale), _absorbed_plans_c(b, t, c, heads, ci), int(partial),
         torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"K16 launch failed: CUDA error {err}")
@@ -777,11 +811,15 @@ def _rows(z: torch.Tensor) -> torch.Tensor:
 class _AbsorbedSelfAttention(torch.autograd.Function):
     """K16 forward; the backward is K2 on the head views of the saved q, k,
     v, with the gradient products of x and the four weights in
-    ``torch.matmul`` (JAX: the XLA VJP of ``_xla_absorbed``, :330-338)."""
+    ``torch.matmul`` (JAX: the XLA VJP of ``_xla_absorbed``, :330-338). In
+    the partial mode the fp32 output's gradient is cast to x's dtype first,
+    and ``dx`` is this rank's share, summed over the ranks by the caller's
+    ``copy_to``."""
 
     @staticmethod
-    def forward(ctx, x, wq, wk, wv, wo, heads, scale):
-        out, q, k, v, oh = _absorbed_forward(x, wq, wk, wv, wo, heads, scale)
+    def forward(ctx, x, wq, wk, wv, wo, heads, scale, partial):
+        out, q, k, v, oh = _absorbed_forward(x, wq, wk, wv, wo, heads, scale,
+                                             partial)
         ctx.save_for_backward(x, wq, wk, wv, wo, q, k, v, oh)
         ctx.heads, ctx.scale = heads, scale
         return out
@@ -790,23 +828,24 @@ class _AbsorbedSelfAttention(torch.autograd.Function):
     def backward(ctx, g):
         x, wq, wk, wv, wo, q, k, v, oh = ctx.saved_tensors
         h = ctx.heads
-        g = g.contiguous()
+        g = g.to(x.dtype).contiguous()
         d_oh = torch.matmul(g, wo).contiguous()
         grads = fused_self_attention_backward(
             _heads(q, h), _heads(k, h), _heads(v, h), _heads(d_oh, h),
             ctx.scale)
-        dq, dk, dv = (z.reshape(x.shape) for z in grads)
+        dq, dk, dv = (z.reshape(q.shape) for z in grads)
         dx = (torch.matmul(dq, wq) + torch.matmul(dk, wk)
               + torch.matmul(dv, wv))
         dws = [torch.matmul(_rows(dz).t(), _rows(src))
                for dz, src in ((dq, x), (dk, x), (dv, x), (g, oh))]
-        return (dx, *dws, None, None)
+        return (dx, *dws, None, None, None)
 
 
 def absorbed_self_attention(x: torch.Tensor, wq: torch.Tensor,
                             wk: torch.Tensor, wv: torch.Tensor,
                             wo: torch.Tensor, heads: int,
-                            scale: float) -> torch.Tensor:
+                            scale: float, partial: bool = False
+                            ) -> torch.Tensor:
     """``to_out(attention(x Wqᵀ, x Wkᵀ, x Wvᵀ))`` without the ``to_out``
     bias, for ``x [B, T, C]`` and ``[C, C]`` weights in the ``Linear``
     layout (out, in), returned ``[B, T, C]`` in x's dtype. Shapes the JAX
@@ -814,15 +853,27 @@ def absorbed_self_attention(x: torch.Tensor, wq: torch.Tensor,
     (CUDA: bf16 or fp32, d a multiple of 8 up to 160) or
     :func:`absorbed_attention_reference` (CPU), with K2 (CUDA) or
     :func:`attention_backward_reference` (CPU) in the backward under
-    autograd. ``absorbed_self_attention.launches`` counts K16's launches."""
+    autograd. ``absorbed_self_attention.launches`` counts K16's launches.
+
+    ``partial`` (a model axis: ``heads`` of this rank, ``wq``/``wk``/``wv``
+    its ``[ci, C]`` rows and ``wo`` its ``[C, ci]`` columns, ``ci =
+    heads·d``): ``to_out``'s fp32 product over these heads alone, not
+    rounded (``csrc/attention_fwd.cu:ldmseg_attention_absorbed`` with
+    ``partial`` 1);
+    the caller passes x through the model group's ``copy_to``, sums the
+    ranks' partials in fp32 with its ``reduce_from`` and rounds once
+    (``models/unet.py:CrossAttention``)."""
     b, t, c = x.shape
-    if not absorbed_takes_kernel(t, c, heads):
+    ci = wq.shape[0]
+    if not absorbed_takes_kernel(t, ci, heads):
         absorbed_self_attention.fallbacks += 1
-        return absorbed_attention_fallback(x, wq, wk, wv, wo, heads, scale)
+        return absorbed_attention_fallback(x, wq, wk, wv, wo, heads, scale,
+                                           partial)
     if torch.is_grad_enabled() and any(z.requires_grad
                                        for z in (x, wq, wk, wv, wo)):
-        return _AbsorbedSelfAttention.apply(x, wq, wk, wv, wo, heads, scale)
-    return _absorbed_forward(x, wq, wk, wv, wo, heads, scale)[0]
+        return _AbsorbedSelfAttention.apply(x, wq, wk, wv, wo, heads, scale,
+                                            partial)
+    return _absorbed_forward(x, wq, wk, wv, wo, heads, scale, partial)[0]
 
 
 absorbed_self_attention.launches = 0

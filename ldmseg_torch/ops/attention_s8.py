@@ -43,6 +43,16 @@ version's and the fallback's ``partial``), sums it over the group and
 then adds the residual and the bias and rounds once, where the one-rank
 block rounds. K13 takes a rank's ``[B, T, H/n, d]`` q, k and v as they
 are; its dynamic scales take the group's maximum of each tensor's amax.
+So do K15's, on a rank's ``[B, T, C/n]``: with ``group`` its launch splits
+in two (``ldmseg_attention_packed_s8`` stage 1, the amax bits, and 2,
+the scales and the attention), ``group.max`` between them, so that the scales
+equal one rank's bit for bit. K17 takes the pack of a rank's heads
+(``w_qkv [3ci, C]``, ``wo_q [C, ci]``, ``w_scale [4, H/n]``, ``wo_p [C,
+(H/n)·dp]``: its scales are per (image, head) and x's is static, so a rank
+needs nothing of the others) and with ``partial`` writes its fp32
+``to_out`` sum over them (``ldmseg_attention_absorbed_s8``, ``partial``
+1), which
+the caller sums over the group and rounds once to bf16.
 
 K13 is the counterpart of ``fused_self_attention_s8`` (:104) and its kernel
 ``_attn_kernel_s8`` (:47). It keeps the wrapper's shape rule (``T > 4096``,
@@ -1145,14 +1155,16 @@ padded_attention_s8.fallbacks = 0
 def fused_self_attention_packed_s8_reference(q: torch.Tensor,
                                              k: torch.Tensor,
                                              v: torch.Tensor, heads: int,
-                                             scale: float) -> torch.Tensor:
+                                             scale: float,
+                                             group=None) -> torch.Tensor:
     """K15's arithmetic in plain PyTorch on ``[B, T, C]`` -> bf16:
     :func:`fused_self_attention_s8_reference` on the head views with the
-    dynamic scales (``act_scale=None``)."""
+    dynamic scales (``act_scale=None``; ``group`` as in
+    :func:`fused_self_attention_packed_s8`)."""
     b, t, c = q.shape
     qh, kh, vh = (x.unflatten(-1, (heads, c // heads)) for x in (q, k, v))
-    return fused_self_attention_s8_reference(qh, kh, vh, scale).reshape(
-        b, t, c)
+    return fused_self_attention_s8_reference(qh, kh, vh, scale, None,
+                                             group).reshape(b, t, c)
 
 
 @functools.cache
@@ -1162,12 +1174,13 @@ def _packed_s8_kernel():
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p, ctypes.c_float,
-                      ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                      ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _packed_s8_launch(q, k, v, heads, scale) -> torch.Tensor:
+def _packed_s8_launch(q, k, v, heads, scale, group=None) -> torch.Tensor:
     b, t, c = q.shape
     xs = (q, k, v)
     if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in xs):
@@ -1191,14 +1204,25 @@ def _packed_s8_launch(q, k, v, heads, scale) -> torch.Tensor:
     out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
     scratch = torch.empty(6, dtype=torch.int32, device=dev)  # amax, scales
     strides = [s_ for x in xs for s_ in x.stride()[:2]]
+    fn = _packed_s8_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _packed_s8_kernel()(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            (ctypes.c_longlong * 6)(*strides), q8.data_ptr(), k8.data_ptr(),
-            v8t.data_ptr(), out.data_ptr(), b, t, c, heads,
-            scratch.data_ptr(), float(scale),
-            _s8pv_plan_c(b * heads, t, d), stream)
+
+        def stage(n):
+            return fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), (ctypes.c_longlong * 6)(*strides),
+                      q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
+                      out.data_ptr(), b, t, c, heads, scratch.data_ptr(),
+                      float(scale), _s8pv_plan_c(b * heads, t, d), n, stream)
+        if group is None:
+            err = stage(0)
+        else:
+            # the amax bits (non-negative floats, which order as their
+            # bits), the group's maximum, then the scales and the attention
+            err = stage(1)
+            if err == 0:
+                scratch[:3].copy_(group.max(scratch[:3]))
+                err = stage(2)
     if err != 0:
         raise RuntimeError(f"K15 launch failed: CUDA error {err}")
     fused_self_attention_packed_s8.launches += 1
@@ -1207,20 +1231,25 @@ def _packed_s8_launch(q, k, v, heads, scale) -> torch.Tensor:
 
 def fused_self_attention_packed_s8(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, heads: int,
-                                   scale: float) -> torch.Tensor:
+                                   scale: float, group=None) -> torch.Tensor:
     """int8 self-attention on float ``[B, T, C]`` q, k, v (no gradient),
     returned in q's dtype: the kernel's bf16 result cast as the JAX wrapper
-    casts it. The scales are always dynamic: there is no ``act_scale``."""
+    casts it. The scales are always dynamic: there is no ``act_scale``.
+    ``group`` (a model axis: q, k and v hold this rank's ``heads``): the
+    amaxes are the whole tensors', the model group's maximum of the ranks'
+    (on the card two launches, ``ldmseg_attention_packed_s8`` stages 1
+    and 2, with ``group.max`` of the amax bits between them), so the scales
+    equal one rank's bit for bit."""
     b, t, c = q.shape
     if not packed_takes_kernel(t, c, heads):
         fused_self_attention_packed_s8.fallbacks += 1
         return packed_attention_fallback(q, k, v, heads, scale)
     if q.device.type == "cpu":
         return fused_self_attention_packed_s8_reference(
-            q, k, v, heads, scale).to(q.dtype)
+            q, k, v, heads, scale, group).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"K15: unsupported device {q.device}")
-    return _packed_s8_launch(q, k, v, heads, scale).to(q.dtype)
+    return _packed_s8_launch(q, k, v, heads, scale, group).to(q.dtype)
 
 
 fused_self_attention_packed_s8.launches = 0
@@ -1355,19 +1384,21 @@ class AbsorbedAttentionPack:
 
     heads: int
     xs: float              # the input's static int8 scale
-    w_qkv: torch.Tensor    # int8 [3C, C]: to_q, to_k, to_v rows (out, in)
-    wo_q: torch.Tensor     # int8 [C, C] (out, in)
+    w_qkv: torch.Tensor    # int8 [3ci, C]: to_q, to_k, to_v rows (out, in)
+    wo_q: torch.Tensor     # int8 [C, ci] (out, in)
     w_scale: torch.Tensor  # [4, H] per-head scales of q, k, v, o
     wo_p: torch.Tensor     # int8 [C, H·dp]: wo_q head-padded (head_padded_wo)
+    # ci = heads·d: C, or a model axis's heads of a rank (apply_tp's cut)
 
 
 def head_padded_wo(wo_q: torch.Tensor, heads: int) -> torch.Tensor:
-    """``to_out``'s codes ``[C, C]`` (out, in) as K17's per-head product
-    reads them: ``[C, H, dp]`` with each head's d input columns padded with
-    zeros to dp = d rounded up to 32 (a k32 step of the int8 product), so
-    that each head's sums end on a step and the padding adds nothing."""
+    """``to_out``'s codes ``[C, ci]`` (out, in; ``ci = heads·d``) as K17's
+    per-head product reads them: ``[C, H, dp]`` with each head's d input
+    columns padded with zeros to dp = d rounded up to 32 (a k32 step of the
+    int8 product), so that each head's sums end on a step and the padding
+    adds nothing."""
     c = wo_q.shape[0]
-    d = c // heads
+    d = wo_q.shape[1] // heads
     dp = head_padded_width(d)
     out = wo_q.new_zeros((c, heads, dp))
     out[:, :, :d] = wo_q.reshape(c, heads, d)
@@ -1380,7 +1411,10 @@ def pack_absorbed_attention(attn, heads: int,
     """Quantize an attention's ``to_q/k/v/to_out`` weights per head
     (``quantize_head_weights``: the in-graph quantize of
     ``CrossAttention._absorbed``'s int8 branch, :201-208, and the storage of
-    ``prequantize_conv_tree(absorbed_attention=True)``, :192-222)."""
+    ``prequantize_conv_tree(absorbed_attention=True)``, :192-222). Under
+    tensor parallelism ``attn`` holds this rank's ``heads`` (``to_q/k/v``
+    ``[ci, C]``, ``to_out`` ``[C, ci]``): the per-head scales are local to
+    a head, so the pack is the slice of one rank's bit for bit."""
     q8, k8, v8, o8, scales = quantize_head_weights(
         attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
         attn.to_out[0].weight, heads)
@@ -1402,7 +1436,8 @@ def absorbed_attention_s8_reference(x: torch.Tensor, w_qkv: torch.Tensor,
                                     wo_q: torch.Tensor,
                                     w_scale: torch.Tensor, heads: int,
                                     scale: float, act_scale: float,
-                                    per_image: bool = False
+                                    per_image: bool = False,
+                                    partial: bool = False
                                     ) -> torch.Tensor:
     """K17's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16), or K18's
     with ``per_image`` (and ``[4]`` per-tensor scales), in fp32: ``x8 =
@@ -1414,9 +1449,11 @@ def absorbed_attention_s8_reference(x: torch.Tensor, w_qkv: torch.Tensor,
     ``os = max(amax|oh|, 1e-6) / 127``, ``oh8 = rint(oh / os)``; ``out =
     Σ_h float(oh8_h·Wo8[:, h]ᵀ)·(os·wos[h])``, h = 0 first, as bf16. Every
     division is by a tensor on x's device, a true division as the
-    kernel's."""
+    kernel's. ``partial`` (K17 on a rank's ``heads``: ``w_qkv [3ci, C]``,
+    ``wo_q [C, ci]``): the fp32 sum over these heads, not rounded."""
     b, t, c = x.shape
-    d = c // heads
+    ci = w_qkv.shape[0] // 3
+    d = ci // heads
     dev = x.device
 
     def dev_f32(v):
@@ -1424,10 +1461,10 @@ def absorbed_attention_s8_reference(x: torch.Tensor, w_qkv: torch.Tensor,
     ws = _per_head(w_scale, heads)
     xs = dev_f32(f32(act_scale))
     x8 = quantize_s8(x, xs)
-    fac = (xs * ws[:3]).repeat_interleave(d, dim=1).reshape(3 * c)
-    y = exact_int8_matmul(x8, w_qkv).float() * fac              # [B, T, 3C]
+    fac = (xs * ws[:3]).repeat_interleave(d, dim=1).reshape(3 * ci)
+    y = exact_int8_matmul(x8, w_qkv).float() * fac             # [B, T, 3ci]
     groups = 1 if per_image else heads
-    y = y.reshape(b, t, 3, groups, c // groups)
+    y = y.reshape(b, t, 3, groups, ci // groups)
     ys = y.abs().amax(dim=(1, 4), keepdim=True).clamp_min(1e-6) / dev_f32(
         127.0)                                                # [B, 1, 3, G, 1]
     y8 = torch.round(y / ys).to(torch.int8).reshape(b, t, 3, heads, d)
@@ -1447,77 +1484,91 @@ def absorbed_attention_s8_reference(x: torch.Tensor, w_qkv: torch.Tensor,
         c32 = exact_int8_matmul(oh8[:, h], wo_q[:, h * d:(h + 1) * d])
         contrib = c32.float() * (os_[:, h] * ws[3, h])
         out = contrib if out is None else out + contrib
-    return out.to(torch.bfloat16)
+    return out if partial else out.to(torch.bfloat16)
 
 
 def absorbed_attention_s8_fallback(x: torch.Tensor, w_qkv: torch.Tensor,
                                    wo_q: torch.Tensor, w_scale: torch.Tensor,
-                                   heads: int, scale: float) -> torch.Tensor:
+                                   heads: int, scale: float,
+                                   partial: bool = False) -> torch.Tensor:
     """The float branch of ``absorbed_self_attention_s8`` (:488-492) and of
     ``absorbed_fullc_self_attention_s8`` (:631-638) for the shapes the
     kernels do not take: float attention on the dequantized weights, x
-    unquantized, in x's dtype."""
-    return _dequantized_attention(x.float(), w_qkv, wo_q,
-                                  _per_head(w_scale, heads), heads,
-                                  scale).to(x.dtype)
+    unquantized, in x's dtype (``partial``: a rank's heads, fp32, not
+    rounded)."""
+    out = _dequantized_attention(x.float(), w_qkv, wo_q,
+                                 _per_head(w_scale, heads), heads, scale)
+    return out if partial else out.to(x.dtype)
 
 
 @functools.cache
-def _absorbed_s8_kernel(entry: str):
-    fn = getattr(_build.load("attention_s8"), entry)
+def _absorbed_s8_kernel(fullc: bool):
+    lib = _build.load("attention_s8")
+    fn = (lib.ldmseg_attention_absorbed_fullc_s8 if fullc
+          else lib.ldmseg_attention_absorbed_s8)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def absorbed_s8_plans(b: int, t: int, c: int, heads: int) -> tuple:
-    """K17's (and K18's) three launch plans: the int8 ``[B·T, 3C, C]``
+def absorbed_s8_plans(b: int, t: int, c: int, heads: int,
+                      ci: Optional[int] = None) -> tuple:
+    """K17's (and K18's) three launch plans: the int8 ``[B·T, 3ci, C]``
     projection, the attention stage and the per-head ``to_out`` ``[B·T, C,
-    H·dp]``. Raises ``ValueError`` on a shape the products do not take."""
+    H·dp]`` (``ci = heads·d``: C, or a rank's heads in the partial mode).
+    Raises ``ValueError`` on a shape the products do not take."""
     rows = b * t
-    d = c // heads
+    ci = c if ci is None else ci
+    d = ci // heads
     if not gemm_takes(c, c, "int8"):
         raise ValueError(f"C={c} must be a multiple of 16 (the rows of the "
                          f"int8 projection's operands)")
-    return (sm90_gemm_plan(rows, 3 * c, c, "int8"),
+    return (sm90_gemm_plan(rows, 3 * ci, c, "int8"),
             sm90_s8pv_attention_plan(b * heads, t, d),
             sm90_gemm_plan(rows, c, heads * head_padded_width(d), "int8"))
 
 
 @functools.lru_cache(maxsize=None)
-def _absorbed_plans_c(b: int, t: int, c: int, heads: int):
-    return plans_c(*absorbed_s8_plans(b, t, c, heads))
+def _absorbed_plans_c(b: int, t: int, c: int, heads: int,
+                      ci: Optional[int] = None):
+    return plans_c(*absorbed_s8_plans(b, t, c, heads, ci))
 
 
 def _absorbed_s8_launch(name: str, x: torch.Tensor, w_qkv: torch.Tensor,
                         wo_q: torch.Tensor, w_scale: torch.Tensor,
                         heads: int, scale: float, act_scale: float,
-                        wo_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        wo_p: Optional[torch.Tensor] = None,
+                        partial: bool = False) -> torch.Tensor:
     b, t, c = x.shape
+    ci = w_qkv.shape[0] // 3
     fullc = name == "K18"
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    d = c // heads
+    d = ci // heads
     if (d > MAX_HEAD_DIM or b * heads > 65535
             or 3 * x.numel() >= 2 ** 31):
         raise ValueError(f"{name}: head dim {d} (<= {MAX_HEAD_DIM}), "
                          f"B*heads {b * heads} or {x.numel()} elements not "
                          f"taken")
     if (w_qkv.dtype != torch.int8 or wo_q.dtype != torch.int8
-            or w_qkv.shape != (3 * c, c) or wo_q.shape != (c, c)
+            or w_qkv.shape != (3 * ci, c) or wo_q.shape != (c, ci)
+            or ci % heads or (ci != c and not partial) or ci > c
+            or (fullc and partial)
             or w_scale.shape != ((4,) if fullc else (4, heads))):
-        raise ValueError(f"{name}: weights must be int8 [3C, C] and [C, C] "
-                         f"with scales {'[4]' if fullc else '[4, H]'}, got "
+        raise ValueError(f"{name}: weights must be int8 [3ci, C] and [C, "
+                         f"ci] (ci = C but in K17's partial mode) with "
+                         f"scales {'[4]' if fullc else '[4, H]'}, got "
                          f"{tuple(w_qkv.shape)}, {tuple(wo_q.shape)}, "
                          f"{tuple(w_scale.shape)}")
     if not float(scale) > 0:
         raise ValueError(f"{name}: scale {scale} must be > 0 (the kernel "
                          f"takes the row max of the int32 scores)")
     try:
-        plans = _absorbed_plans_c(b, t, c, heads)
+        plans = _absorbed_plans_c(b, t, c, heads, ci)
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
     if wo_p is None:
@@ -1534,63 +1585,74 @@ def _absorbed_s8_launch(name: str, x: torch.Tensor, w_qkv: torch.Tensor,
     x = x.contiguous()
     dev = x.device
     rows = b * t
-    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, t, c), device=dev,
+                      dtype=torch.float32 if partial else torch.bfloat16)
     x8 = torch.empty((rows, c), dtype=torch.int8, device=dev)
     oh8 = torch.empty((rows, heads * dp), dtype=torch.int8, device=dev)
-    y = torch.empty((rows, 3 * c), dtype=torch.float32, device=dev)
+    y = torch.empty((rows, 3 * ci), dtype=torch.float32, device=dev)
     q8, k8, v8t = _s8_scratch(b, t, heads, d, dev)
-    oh = torch.empty((rows, c), dtype=torch.float32, device=dev)
+    oh = torch.empty((rows, ci), dtype=torch.float32, device=dev)
     # the scales, then as many amax words
     scales = torch.empty(2 * (3 * b * (1 if fullc else heads) + b * heads),
                          dtype=torch.float32, device=dev)
-    entry = ("ldmseg_attention_absorbed_fullc_s8" if fullc
-             else "ldmseg_attention_absorbed_s8")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _absorbed_s8_kernel(entry)(
+        err = _absorbed_s8_kernel(fullc)(
             _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
             w_qkv.data_ptr(), wo_p.data_ptr(), ws.data_ptr(), x8.data_ptr(),
             y.data_ptr(), q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
-            oh.data_ptr(), oh8.data_ptr(), scales.data_ptr(), b, t, c, heads,
-            f32(act_scale), float(scale), plans, stream)
+            oh.data_ptr(), oh8.data_ptr(), scales.data_ptr(), b, t, c, ci,
+            heads, f32(act_scale), float(scale), plans, int(partial), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
 def _absorbed_s8(fn, name, x, w_qkv, wo_q, w_scale, heads, scale,
-                 act_scale, wo_p=None):
+                 act_scale, wo_p=None, partial=False):
     b, t, c = x.shape
-    if not absorbed_takes_kernel(t, c, heads):
+    ci = w_qkv.shape[0] // 3
+    if not absorbed_takes_kernel(t, ci, heads):
         fn.fallbacks += 1
         return absorbed_attention_s8_fallback(x, w_qkv, wo_q, w_scale, heads,
-                                              scale)
+                                              scale, partial)
     if x.device.type == "cpu":
-        return absorbed_attention_s8_reference(
+        out = absorbed_attention_s8_reference(
             x, w_qkv, wo_q, w_scale, heads, scale, act_scale,
-            per_image=name == "K18").to(x.dtype)
-    if x.device.type != "cuda":
+            per_image=name == "K18", partial=partial)
+    elif x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    out = _absorbed_s8_launch(name, x, w_qkv, wo_q, w_scale, heads, scale,
-                              act_scale, wo_p)
-    fn.launches += 1
-    return out.to(x.dtype)
+    else:
+        out = _absorbed_s8_launch(name, x, w_qkv, wo_q, w_scale, heads,
+                                  scale, act_scale, wo_p, partial)
+        fn.launches += 1
+    return out if partial else out.to(x.dtype)
 
 
 def absorbed_self_attention_s8(x: torch.Tensor, w_qkv: torch.Tensor,
                                wo_q: torch.Tensor, w_scale: torch.Tensor,
                                heads: int, scale: float, act_scale: float,
-                               wo_p: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
+                               wo_p: Optional[torch.Tensor] = None,
+                               partial: bool = False) -> torch.Tensor:
     """K17: ``to_out(attention(x))`` without the ``to_out`` bias for ``x
     [B, T, C]`` (no gradient) on ``quantize_head_weights``' codes (``w_qkv
     [3C, C]``, ``wo_q [C, C]``, ``w_scale [4, H]``), x quantized with the
     static ``act_scale``; returned in x's dtype, the kernel's bf16 result
     cast as the JAX wrapper casts it. ``wo_p``: ``wo_q`` head-padded as
     :func:`head_padded_wo` makes it (a pack's, made once); on the card
-    without it the wrapper pads per call."""
+    without it the wrapper pads per call.
+
+    ``partial`` (a model axis: ``heads`` of this rank, ``w_qkv [3ci, C]``,
+    ``wo_q [C, ci]``, ``w_scale [4, heads]``, ``ci = heads·d``): the fp32
+    ``to_out`` sum over these heads alone, not rounded
+    (``csrc/attention_s8.cu:ldmseg_attention_absorbed_s8``, ``partial``
+    1). The
+    scales are per (image, head) and x's is static, so a rank's heads need
+    nothing of the others; the caller sums the ranks' partials over the
+    model group and rounds once to bf16 (``models/unet.py:
+    AbsorbedAttentionS8``)."""
     return _absorbed_s8(absorbed_self_attention_s8, "K17", x, w_qkv, wo_q,
-                        w_scale, heads, scale, act_scale, wo_p)
+                        w_scale, heads, scale, act_scale, wo_p, partial)
 
 
 absorbed_self_attention_s8.launches = 0

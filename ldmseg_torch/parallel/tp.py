@@ -26,13 +26,22 @@ zero-filled buffer, ``parallel/sp.py:all_gather``):
     convolutions, ``time_emb_proj`` and Transformer2D's ``proj_in``; so
     every ``GroupNorm`` and ``LayerNorm`` sees whole activations and its
     parameters stay replicated;
-  * ``to_q``/``to_k``/``to_v`` keep their output local: K1 (K2 backward)
+  * ``to_q``/``to_k``/``to_v`` keep their output local: K1 (K2 backward),
+    or K14 on the packed ``[B, T, C/n]`` (``use_packed_attention``),
     attends over this rank's ``heads / n`` heads, and the row-parallel
     ``to_out`` sums the ranks' partial products (:func:`reduce_from`:
     all-reduce, identity backward) before its bias, added once; where the
     axis does not divide the heads (JAX then splits a head), q, k and v
-    are gathered, K1 attends over all the heads and ``to_out`` takes this
-    rank's channels of its input (:func:`scatter_to`);
+    are gathered, K1 or K14 attends over all the heads and ``to_out`` takes
+    this rank's channels of its input (:func:`scatter_to`);
+  * an absorbed attention (``use_absorbed_attention``: K16 reads the four
+    weights inside its kernel) keeps its plain ``Linear`` layers holding
+    this rank's shards (``to_q``/``to_k``/``to_v`` ``[C/n, C]``, ``to_out``
+    ``[C, C/n]``) and takes the group as ``tp_group``: x passes through
+    :func:`copy_to`, K16's partial mode writes ``to_out``'s fp32 product
+    over the rank's heads, summed with :func:`reduce_from`, rounded once,
+    then the bias; where the axis does not divide the heads it stays whole
+    on every rank;
   * GEGLU's ``proj`` (JAX's one Dense of ``2 * inner``) holds this rank's
     ``h`` rows and its ``gate`` rows side by side (``pairs`` 2), so that
     each rank computes its slice of the gated product locally; ``ff.net.2``
@@ -64,17 +73,22 @@ of the one-rank ones:
     ``QuantLinear`` (:class:`ColumnQuantLinear`) and ``ff.net.2`` a
     row-parallel one (:class:`RowQuantLinear`: its int32 partials
     dequantized and summed in fp32, the bias once), K12 the rank's fp32
-    partial, K13 the rank's heads;
+    partial, K13 or K15 (``use_packed_attention``) the rank's heads, and
+    K17 (``use_absorbed_attention``, ``AbsorbedAttentionS8``) a pack of the
+    rank's heads (its per-head scales local to a head, so the codes are the
+    slice of one rank's) writing its fp32 ``to_out`` partial, summed over
+    the group and rounded once to bf16;
   * a row-parallel layer's per-output-channel scale is an amax over the
     whole input dimension: ``RowLinear.tp_group`` gives the maximum over
     the group of the rank's amaxes (``ops/quant.py:quantize_rows``); so do
     the dynamic activation scales of what a rank holds a slice of (K4's and
-    K12's interior per (image, token block), K13's q, k and v, the unfused
-    ``ff.net.2``'s input) and the calibration's gated-interior site;
+    K12's interior per (image, token block), K13's and K15's q, k and v,
+    the unfused ``ff.net.2``'s input) and the calibration's gated-interior
+    site;
   * where the axis does not divide a block's heads, its attentions take
-    no group (their q, k and v are gathered, as in the float UNet); where
-    it does not divide the 4C GEGLU columns, the feed-forward stays whole
-    and takes none.
+    no group (their q, k and v are gathered, as in the float UNet, or an
+    absorbed one stays whole); where it does not divide the 4C GEGLU
+    columns, the feed-forward stays whole and takes none.
 
 Conditioning takes the same rules: ``attn2``'s ``to_q``/``to_k``/``to_v``
 are column-parallel (``to_k``/``to_v`` on the replicated context),
@@ -262,7 +276,9 @@ class ModelGroup:
     """The model group's reductions that the int8 ops take as ``group``
     (``apply_tp`` sets them as ``tp_group`` on a module whose projections
     it cut): ``sum`` adds the ranks' fp32 partials (in fp32), ``max`` takes
-    the maximum of the ranks' amaxes (exact, any dtype)."""
+    the maximum of the ranks' amaxes (exact, any dtype); and the
+    collectives with their backward that K16's partial mode runs between
+    (``copy_to``, ``reduce_from``)."""
 
     def __init__(self, ax: Axis):
         self.ax = ax
@@ -272,6 +288,16 @@ class ModelGroup:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce_max(x, self.ax)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`copy_to` over the group (identity; the gradient
+        summed)."""
+        return copy_to(x, self.ax)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`reduce_from` over the group (the sum; the gradient
+        passes)."""
+        return reduce_from(x, self.ax)
 
     def __deepcopy__(self, memo):
         return self
@@ -335,8 +361,7 @@ def layout(module: nn.Module) -> Dict[str, Tuple[int, int]]:
 
 
 _REFUSED = ("separate_conv", "separate_encoder", "add_adaptor",
-            "upscaler_classes", "use_packed_attention",
-            "use_absorbed_attention", "use_fused_projs", "int8_fuse_gn")
+            "upscaler_classes", "use_fused_projs", "int8_fuse_gn")
 # the layers apply_tp cuts: (column-parallel class, row-parallel class)
 _CUT = {nn.Conv2d: (ColumnConv2d, RowConv2d),
         nn.Linear: (ColumnLinear, RowLinear),
@@ -376,22 +401,31 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
     # attention whose heads the axis cuts keeps q, k and v local (else it
     # gathers them and scatters to_out's input); a feed-forward whose 4C
     # columns it cuts runs on a rank's columns (else it stays whole). The
-    # int8 blocks (K3, K4, K12, K13) get the group where their pack or
-    # projections hold a rank's share, and only there.
+    # int8 blocks (K3, K4, K12, K13, K15, K17) get the group where their
+    # pack or projections hold a rank's share, and only there. An absorbed
+    # attention (K16, K17) reads its four weights itself: they are cut
+    # where the axis divides its heads and keep their plain class
+    # (``weights_only``), else the attention stays whole.
     local_out, paired, local_in, whole = set(), set(), set(), set()
+    weights_only = set()
     for bn, blk in unet.named_modules():
         if not isinstance(blk, BasicTransformerBlock):
             continue
         heads_cut = blk.heads % ax.size == 0
         for an in ("attn1", "attn2"):
             attn = getattr(blk, an, None)
-            if attn is None or not heads_cut:
+            if attn is None:
+                continue
+            projs = [f"{bn}.{an}.{p}" for p in ("to_q", "to_k", "to_v",
+                                                "to_out.0")]
+            if getattr(attn, "absorbed", False):
+                (weights_only if heads_cut else whole).update(projs)
+            if not heads_cut:
                 continue
             attn.tp_group = group
-            if isinstance(attn, CrossAttention):
-                local_out.update(f"{bn}.{an}.{p}"
-                                 for p in ("to_q", "to_k", "to_v"))
-                local_in.add(f"{bn}.{an}.to_out.0")
+            if isinstance(attn, CrossAttention) and not attn.absorbed:
+                local_out.update(projs[:3])
+                local_in.add(projs[3])
         names = (f"{bn}.ff.net.0.proj", f"{bn}.ff.net.2")
         if 4 * blk.dim % ax.size:
             whole.update(names)
@@ -423,6 +457,9 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
                 if d is not None:
                     p.data = local_tensor(p.data, d, ax, pairs)
                     found[f"{mn}.{pn}"] = (d, pairs)
+            if mn in weights_only:
+                m.out_features, m.in_features = m.weight.shape
+                continue
             m.__class__ = column if wdim == 0 else row
             if conv:
                 m.out_channels, m.in_channels = m.weight.shape[:2]

@@ -59,8 +59,8 @@ K16_SHAPES = [((2, 2048, 320), 5), ((2, 512, 640), 5), ((2, 128, 1280), 5),
 # column tiles of one weight
 _K16_THREE_LAUNCHES = [(
     "  int err = gemm90::launch_gemm_in_context<false, 3, false>(\n"
-    "      plans + gemm90::kPlanInts, x, w, rows, 3 * c, c, 0, 1,\n"
-    "      StoreBf16Epi{q, k, v, c}, stream);\n",
+    "      plans + gemm90::kPlanInts, x, w, rows, 3 * ci, c, 0, 1,\n"
+    "      StoreBf16Epi{q, k, v, ci}, stream);\n",
     "  int plan1[gemm90::kPlanInts];\n"
     "  for (int i = 0; i < gemm90::kPlanInts; ++i) {\n"
     "    plan1[i] = plans[gemm90::kPlanInts + i];\n"
@@ -70,8 +70,8 @@ _K16_THREE_LAUNCHES = [(
     "  for (int i = 0; i < 3 && err == 0; ++i) {\n"
     "    auto* dst = static_cast<__nv_bfloat16*>(qkvo[i]);\n"
     "    err = gemm90::launch_gemm_in_context<false, 1, false>(\n"
-    "        plan1, x, &w[i], rows, c, c, 0, 1,\n"
-    "        StoreBf16Epi{dst, dst, dst, c}, stream);\n"
+    "        plan1, x, &w[i], rows, ci, c, 0, 1,\n"
+    "        StoreBf16Epi{dst, dst, dst, ci}, stream);\n"
     "  }\n")]
 
 _NO_LOADS = [
@@ -217,8 +217,9 @@ def ablate_k16(iters: int) -> dict:
 
             def launch():
                 err = fn(1, dev, x.data_ptr(), *(w.data_ptr() for w in ws),
-                         *(z.data_ptr() for z in bufs), b, t, c, 8, scale,
-                         plans, torch.cuda.current_stream().cuda_stream)
+                         *(z.data_ptr() for z in bufs), b, t, c, c, 8,
+                         scale, plans, 0,
+                         torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
 

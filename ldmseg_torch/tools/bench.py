@@ -55,6 +55,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.precision import strict_fp32
+
 IMAGE_HW = (256, 512)
 # the steps of the JAX bench's DPM-Solver++(2M) probe (bench.py:171)
 DPM_STEPS = 20
@@ -271,8 +273,7 @@ def main() -> int:
         print("bench: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    strict_fp32()
     if args.breakdown:
         print(json.dumps(breakdown(args.batch, args.steps)), flush=True)
         return 0

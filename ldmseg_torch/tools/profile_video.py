@@ -42,6 +42,7 @@ import time
 
 import torch
 
+from ..utils.precision import strict_fp32
 from .profile_sampling import _profile
 
 HW = (192, 640)
@@ -199,8 +200,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_video: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    strict_fp32()
     print(json.dumps({"clip_train": clip_train()}), flush=True)
     print(json.dumps({"pose_train": pose_train()}), flush=True)
     return 0

@@ -53,6 +53,7 @@ from ..parallel.mesh import (check_mesh_device, group_mean, make_mesh,
 from ..parallel.multihost import is_main_process
 from ..utils.meters import AverageMeter
 from ..utils.metrics_sink import MetricsSink
+from ..utils.precision import strict_fp32
 from ..utils.visualization import save_train_panel, to_numpy
 from .optim import Optimizer, make_lr_schedule, norm_param_names
 from .restore import PanopticRestore, resize_logits
@@ -70,6 +71,8 @@ class TrainerAE(PanopticRestore):
     def __init__(self, p: dict, device="cuda", dataset=None,
                  val_dataset=None, results_folder: Optional[str] = None,
                  mesh=None):
+        # fp32 as the reference computes it, in this process: no TF32
+        strict_fp32()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

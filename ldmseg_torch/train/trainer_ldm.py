@@ -109,17 +109,21 @@ model size + model index): the model ranks of one data index train the same
 rows with the same draws (:func:`rank_seed` keys on the data rank). With
 ``tensor_parallel`` each holds its shards of the UNet
 (``parallel/tp.py:apply_tp``: column- and row-parallel layers, K1 and K2
-on its local heads), the optimizer (and ZeRO-1's partition over the data
-group) runs on the shards, the clip's global norm sums the shards over the
-model group, and a checkpoint is gathered to the one-rank layout (and a
-one-rank checkpoint resumes onto the shards). With ``spatial_parallel``
+on its local heads, or with ``use_packed_attention`` K14 and K2, with
+``use_absorbed_attention`` K16's partial mode and K2), the optimizer (and
+ZeRO-1's partition over the data group) runs on the shards, the clip's
+global norm sums the shards over the model group, and a checkpoint is
+gathered to the one-rank layout (and a one-rank checkpoint resumes onto
+the shards). With ``spatial_parallel``
 each runs the frozen VAEs on its rows of H (``parallel/sp.py:run_stage``:
 the encoders' moments gathered before the posterior's draws, the decode's
 logits gathered before post-processing). Serving takes the model axis
 whole: the int8 UNet (fused norms or not) is cut as the float one (K3 and
 K4, or K13 and K12, on a rank's heads and GEGLU columns, their partials
-summed over the model group), its codes quantized from the cut masters
-and its calibration taken on them, the same scales on every rank; the
+summed over the model group; with the packed or absorbed flag K15 on a
+rank's heads with the group's amaxes, or K17's partial mode), its codes
+quantized from the cut masters and its calibration taken on them, the
+same scales on every rank; the
 int8 image VAE and seg decoder run under ``spatial_parallel`` on a rank's
 rows; the ``none``, ``learnable`` and CLIP descriptors' context and
 classifier-free guidance run on the cut UNet. Sampling then runs the eager
@@ -168,6 +172,7 @@ from ..parallel.mesh import (check_mesh_device, global_mean, group_mean,
 from ..parallel.multihost import is_main_process
 from ..utils.meters import AverageMeter
 from ..utils.metrics_sink import MetricsSink
+from ..utils.precision import strict_fp32
 from .optim import Optimizer, freeze_filter, make_lr_schedule
 from .restore import PanopticRestore
 from .state import TrainState
@@ -186,7 +191,10 @@ def refuse_model_axis(p: Mapping, mesh, unet_config: UNetConfig) -> None:
     """The options that a model axis of more than one rank does not take in
     the port yet raise ``NotImplementedError`` naming each of them (JAX
     computes every one of them on a model axis), an int8 UNet with one of
-    them too. Without a model axis nothing is refused."""
+    them too. Without a model axis nothing is refused. The packed and
+    absorbed attentions are taken, float and int8 alike; K11 without fused
+    norms, ``int8_fuse_gn`` and fused norms on heads the axis does not
+    divide are refused by ``parallel/tp.py:apply_tp``."""
     if mesh.model <= 1:
         return
     tk, mk, sk = (p["train_kwargs"], p["model_kwargs"],
@@ -194,10 +202,8 @@ def refuse_model_axis(p: Mapping, mesh, unet_config: UNetConfig) -> None:
     refused = []
     int8 = (" with sampling_kwargs.int8_inference"
             if sk.get("int8_inference", False) else "")
-    for key in ("use_packed_attention", "use_absorbed_attention",
-                "use_fused_projs"):
-        if getattr(unet_config, key):
-            refused.append(f"unet_config.{key}{int8}")
+    if unet_config.use_fused_projs:
+        refused.append(f"unet_config.use_fused_projs{int8}")
     for key in ("separate_conv", "separate_encoder"):
         if mk.get(key, False):
             refused.append(f"model_kwargs.{key}")
@@ -233,6 +239,8 @@ class TrainerDiffusion(PanopticRestore):
                  device="cuda", dataset=None, val_dataset=None,
                  results_folder: Optional[str] = None,
                  descriptor: Optional[DescriptorSpec] = None, mesh=None):
+        # fp32 as the reference computes it, in this process: no TF32
+        strict_fp32()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

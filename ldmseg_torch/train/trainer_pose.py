@@ -35,6 +35,7 @@ from ..parallel.mesh import (check_mesh_device, group_mean, make_mesh,
                              replicate)
 from ..parallel.multihost import is_main_process
 from ..utils.meters import AverageMeter
+from ..utils.precision import strict_fp32
 from .optim import Optimizer, make_lr_schedule
 from .state import TrainState
 
@@ -50,6 +51,8 @@ class TrainerPose:
                  results_folder: Optional[str] = None,
                  nb_ref_imgs: int = 2, output_exp: bool = True,
                  device="cuda", mesh=None):
+        # fp32 as the reference computes it, in this process: no TF32
+        strict_fp32()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package builds on it
 optax = pytest.importorskip("optax")
 import torch  # noqa: E402
 

@@ -144,8 +144,8 @@ def test_k16_raises_on_what_it_refuses(cuda):
     bufs = [torch.empty_like(x) for _ in range(5)]
     err = A._absorbed_kernel()(
         1, x.device.index, x.data_ptr(), *(w.data_ptr() for w in ws),
-        *(z.data_ptr() for z in bufs), 1, 64, 384, 8, 0.1,
-        (ctypes.c_int * len(plans))(*plans),
+        *(z.data_ptr() for z in bufs), 1, 64, 384, 384, 8, 0.1,
+        (ctypes.c_int * len(plans))(*plans), 0,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
 

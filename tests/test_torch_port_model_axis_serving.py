@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package builds on it
 import torch  # noqa: E402
 
 from ldmseg_tpu.models.unet import UNetConfig as JUNetConfig  # noqa: E402

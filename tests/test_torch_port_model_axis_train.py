@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package builds on it
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

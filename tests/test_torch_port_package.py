@@ -250,6 +250,23 @@ def _spatial_s8(vae):
                          and m.w_q is not None for m in convs)
 
 
+def _attn1_cut(t, flag):
+    # the masters' first attention: K14 between local q, k, v and a
+    # row-parallel to_out, or K16's plain Linear layers of a rank's heads
+    # with the model group
+    from torch import nn
+
+    from ldmseg_torch.parallel import tp
+    a = t.unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1
+    if flag == "packed":
+        return (a.packed and isinstance(a.to_q, tp.ColumnLinear)
+                and not a.to_q.gather
+                and isinstance(a.to_out[0], tp.RowLinear))
+    return (a.absorbed and type(a.to_out[0]) is nn.Linear
+            and isinstance(a.tp_group, tp.ModelGroup)
+            and a.to_q.weight.shape[0] * 2 == a.to_q.weight.shape[1])
+
+
 def _cut_int8_unet(t):
     from ldmseg_torch.parallel import tp
     u = t._unet_int8
@@ -275,6 +292,13 @@ MODEL_AXIS_NOW_PORTED = {
         _column_attn2(t) and "object_queries.weight" not in
         __import__("ldmseg_torch.parallel.tp",
                    fromlist=["layout"]).layout(t.unet)),
+    # test_torch_port_model_axis_attention*
+    "use_packed_attention": lambda t: _attn1_cut(t, "packed"),
+    "use_absorbed_attention": lambda t: _attn1_cut(t, "absorbed"),
+    "use_packed_attention with sampling_kwargs.int8_inference": lambda t: (
+        _attn1_cut(t, "packed") and _cut_int8_unet(t)),
+    "use_absorbed_attention with sampling_kwargs.int8_inference": lambda t: (
+        _attn1_cut(t, "absorbed") and _cut_int8_unet(t)),
 }
 
 
@@ -292,7 +316,8 @@ def test_model_axis_refuses_by_name(override, unet_kw, named):
             "image_descriptors", "remove"))
         unet_config = UNetConfig(
             in_channels=12, use_cross_attention=spec.use_cross_attention,
-            num_object_queries=spec.num_object_queries, **DRYRUN_UNET)
+            num_object_queries=spec.num_object_queries,
+            **dict(DRYRUN_UNET, **unet_kw))
         trainer = TrainerDiffusion(cfg, unet_config=unet_config,
                                    device="cpu", mesh=Mesh(model=2))
         trainer.init_params(seed=0)
@@ -1221,6 +1246,11 @@ def test_absorbed_sources_are_built_by_the_port():
     assert 'extern "C" int ldmseg_attention_absorbed(' in fwd      # K16
     assert 'extern "C" int ldmseg_attention_absorbed_s8(' in s8    # K17
     assert 'extern "C" int ldmseg_attention_absorbed_fullc_s8(' in s8  # K18
+    # one entry a kernel: the model axis's modes are its arguments (K15's
+    # stage, K16's and K17's inner width and partial flag)
+    assert fwd.count('extern "C" int ldmseg_attention_absorbed') == 1
+    assert s8.count('extern "C" int ldmseg_attention_absorbed') == 2
+    assert s8.count('extern "C" int ldmseg_attention_packed_s8') == 1
 
 
 def test_trainer_carries_the_absorbed_flag_into_both_unets():

@@ -12,8 +12,11 @@ the JAX package's ``parallel/tp.py`` on the conftest's virtual CPU devices:
     at JAX's own TP-vs-replicated bounds (``test_optim_parallel.py:157,
     189-194``): with 2 heads (local heads), 3 heads (the axis cuts a head:
     q, k, v gathered) and with gradient checkpointing;
-  * the options the model axis does not take raise by name, and without a
-    model axis nothing changes.
+  * the options the model axis does not take raise by name (those it
+    takes since, with what their cut makes), and without a model axis
+    nothing changes;
+  * the shards of a UNet with ``use_packed_attention`` or
+    ``use_absorbed_attention`` equal JAX's too.
 
 The ranks run ``tests/torch_dp_workers.py`` (no JAX there), in a thread
 while JAX compiles.
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package builds on it
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
@@ -135,19 +139,27 @@ def test_tp_spec_for_gives_jax_axis(width):
         assert got[f"{blk}.ff.net.2.weight"] == 1
 
 
+# the UNet's attention flags whose cut JAX's apply_tp makes alike (the
+# packed and absorbed attentions keep the same Dense kernels)
+FLAGS = {"plain": {}, "packed": {"use_packed_attention": True},
+         "absorbed": {"use_absorbed_attention": True}}
+
+
+@pytest.mark.parametrize("flag", list(FLAGS))
 @pytest.mark.parametrize("rank", [0, 1])
-def test_shards_equal_jax_apply_tp(rank):
-    model, params = _jax_params(TOY)
+def test_shards_equal_jax_apply_tp(rank, flag):
+    kw = dict(TOY, **FLAGS[flag])
+    model, params = _jax_params(kw)
     mesh = jmake_mesh(num_data=1, num_model=2, devices=jax.devices()[:2])
     placed = japply_tp(mesh, jax.tree_util.tree_map(jnp.asarray, params))
     device = mesh.devices[0, rank]
-    sd = convert.unet_state_dict_from_jax(params, UNetConfig(**TOY))
+    sd = convert.unet_state_dict_from_jax(params, UNetConfig(**kw))
     with torch.device("meta"):
-        unet = UNet2DCondition(UNetConfig(**TOY))
+        unet = UNet2DCondition(UNetConfig(**kw))
     unet.to_empty(device="cpu")
     unet.load_state_dict(sd)
     tp.apply_tp(Mesh(model=2, model_rank=rank), unet)
-    paths = _jax_paths(TOY)
+    paths = _jax_paths(kw)
     leaves = {_path(p): leaf for p, leaf in
               jax.tree_util.tree_leaves_with_path(placed)}
     lay = tp.layout(unet)
@@ -284,11 +296,39 @@ def _s8_convs_cut(unet):
                          for n, m in convs)
 
 
+def _packed_cut(unet):
+    # K14 between to_q/k/v kept local and a row-parallel to_out, as K1
+    blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    a = blk.attn1
+    return (a.packed and isinstance(a.to_q, tp.ColumnLinear)
+            and not a.to_q.gather and isinstance(a.to_out[0], tp.RowLinear)
+            and not a.to_out[0].scatter)
+
+
+def _absorbed_cut(unet):
+    # K16 reads the weights itself: plain Linear layers holding a rank's
+    # heads, the model group as tp_group
+    blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    a, lay = blk.attn1, tp.layout(unet)
+    name = "down_blocks.0.attentions.0.transformer_blocks.0.attn1"
+    return (a.absorbed and type(a.to_q) is torch.nn.Linear
+            and type(a.to_out[0]) is torch.nn.Linear
+            and isinstance(a.tp_group, tp.ModelGroup)
+            and lay[f"{name}.to_q.weight"] == (0, 1)
+            and lay[f"{name}.to_out.0.weight"] == (1, 1)
+            and f"{name}.to_out.0.bias" not in lay
+            and tuple(a.to_q.weight.shape) == (8, 16)
+            and tuple(a.to_out[0].weight.shape) == (16, 8))
+
+
 # the options apply_tp takes since serving came to the model axis, each
 # with what its cut makes (held against JAX in
-# test_torch_port_model_axis_serving and test_torch_port_model_axis_context)
+# test_torch_port_model_axis_serving, test_torch_port_model_axis_context
+# and test_torch_port_model_axis_attention*)
 NOW_TAKEN = {"use_cross_attention": _attn2_cut,
-             "use_int8_conv": _s8_convs_cut}
+             "use_int8_conv": _s8_convs_cut,
+             "use_packed_attention": _packed_cut,
+             "use_absorbed_attention": _absorbed_cut}
 
 
 @pytest.mark.parametrize("key", [

@@ -657,10 +657,12 @@ def _context_runs(mesh, spec: dict) -> dict:
 
 def uneven_axis(rank: int, spec: dict) -> dict:
     """On a ``(1, spec["model"])`` mesh with tensor parallelism, for each
-    of ``spec["trainers"]`` (``{key: cfg}``, the UNet of ``unet_kw``, the
-    weights of ``init_params(seed)``): an int8 ``sample_panoptic`` from
-    ``init`` (x0), the int8 UNet's modules that hold the model group
-    (``tp_group``) and its cut parameters."""
+    of ``spec["trainers"]`` (``{key: cfg}``, the UNet of ``unet_kw`` or of
+    ``unet_kws[key]``, the
+    weights of ``init_params(seed)``): an int8 (or float)
+    ``sample_panoptic`` from ``init`` (x0), the int8 (or float) UNet's
+    modules that hold the model group (``tp_group``) and its cut
+    parameters."""
     import ldmseg_torch.train.trainer_ldm as tl
     from ldmseg_torch.models.unet import UNetConfig
     from ldmseg_torch.parallel import tp
@@ -669,16 +671,201 @@ def uneven_axis(rank: int, spec: dict) -> dict:
     mesh = make_mesh(1, spec["model"])
     out = {}
     for key, cfg in spec["trainers"].items():
-        tr = tl.TrainerDiffusion(cfg, unet_config=UNetConfig(
-            **spec["unet_kw"]), device="cpu", mesh=mesh)
+        kw = spec.get("unet_kws", {}).get(key, spec.get("unet_kw"))
+        tr = tl.TrainerDiffusion(cfg, unet_config=UNetConfig(**kw),
+                                 device="cpu", mesh=mesh)
         tr.init_params(seed=spec["seed"])
         _, x0 = tr.sample_panoptic({"image": spec["image"]},
                                    init_noise=spec["init"],
                                    num_inference_steps=spec["steps"])
-        unet = tr._unet_int8
+        unet = tr._unet_int8 if tr._unet_int8 is not None else tr.unet
         out[key] = {"x0": x0,
                     "grouped": {n for n, m in unet.named_modules()
                                 if getattr(m, "tp_group", None) is not None},
                     "cut": set(tp.layout(unet))}
         del tr
     return out
+
+
+# ---------------------------------------------------------------------------
+# packed and absorbed attention on the model axis (K14-K17 on a rank's
+# heads), and compute_pq there
+# ---------------------------------------------------------------------------
+def _absorbed_packs(unet) -> dict:
+    """Every K17 pack a prepared int8 UNet holds, by module name and field
+    (``heads`` as an int)."""
+    out = {}
+    for name, m in unet.named_modules():
+        pack = getattr(m, "pack", None)
+        if pack is not None and hasattr(pack, "wo_p"):
+            for f in ("w_qkv", "wo_q", "w_scale", "wo_p"):
+                out[f"{name}.pack.{f}"] = getattr(pack, f).clone()
+            out[f"{name}.pack.heads"] = pack.heads
+    return out
+
+
+def attention_axis(rank: int, spec: dict) -> dict:
+    """On a ``(1, 2)`` mesh, for each ``{key: run}`` of ``spec["runs"]`` a
+    trainer of ``run["cfg"]`` on the UNet of ``run["unet_kw"]`` with the
+    JAX weights ``spec["params"]``: ``run["kind"]`` "step" (one
+    ``forward_backward`` on ``spec["batch"]`` with ``spec["draws"]``, then
+    the optimizer step: the group's mean loss, this rank's gradient shards
+    before the clip, its masters after, the layout), "sample" (a
+    ``sample_panoptic`` from ``spec["init"]``: logits, x0) or "int8"
+    (``calibrate_int8`` on ``spec["calib_noise"]``, then, on
+    ``run["scales"]`` where given, one int8 UNet forward of
+    ``spec["forward"]`` and the sample: the scales, forward, logits, x0,
+    the int8 UNet's K17 packs and the modules holding the model group).
+    Each also returns the fallbacks of K14-K17 it took."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.models.unet import UNetConfig
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.mesh import group_mean
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2)
+    counters = (A.fused_self_attention_packed, A.absorbed_self_attention,
+                S8.fused_self_attention_packed_s8,
+                S8.absorbed_self_attention_s8)
+    out = {}
+    for key, run in spec["runs"].items():
+        before = [f.fallbacks for f in counters]
+        tr = tl.TrainerDiffusion(run["cfg"], unet_config=UNetConfig(
+            **run["unet_kw"]), device="cpu", mesh=mesh)
+        tr.load_jax_params(*spec["params"])
+        res = out[key] = {}
+        if run["kind"] == "step":
+            steps: list = []
+            _capture_steps(tr.state.optimizer, steps)
+            loss, _, _ = tr.forward_backward(
+                spec["batch"], noise=spec["draws"]["noise"],
+                timesteps=spec["draws"]["timesteps"])
+            tr.state.apply_gradients()
+            named = list(tr.unet.named_parameters())
+            res.update(loss=float(group_mean(loss, mesh)),
+                       grads=_named(named, steps)[0],
+                       masters={n: p.detach().clone() for n, p in named},
+                       layout=tp.layout(tr.unet))
+        else:
+            if run["kind"] == "int8":
+                res["scales"] = tr.calibrate_int8(
+                    {"image": spec["image"]}, noise=spec["calib_noise"])
+                if "scales" in run:
+                    # sample on the given scales (one rank's): the mesh's
+                    # own are an ulp apart from them, which flips codes
+                    tr._int8_act_scales = dict(run["scales"])
+                x, t = spec["forward"]
+                with torch.no_grad():
+                    res["forward"] = tr.int8_unet()(
+                        x.to(tr.compute_dtype), t).float().permute(
+                            0, 2, 3, 1).contiguous()
+            res["logits"], res["x0"] = tr.sample_panoptic(
+                {"image": spec["image"]}, init_noise=spec["init"],
+                num_inference_steps=spec["steps"])
+            if run["kind"] == "int8":
+                unet = tr.int8_unet()
+                res["packs"] = _absorbed_packs(unet)
+                res["grouped"] = {n for n, m in unet.named_modules()
+                                  if getattr(m, "tp_group", None)
+                                  is not None}
+        res["fallbacks"] = [f.fallbacks - b for f, b in zip(counters,
+                                                             before)]
+        del tr
+    return out
+
+
+def attention_partials(rank: int, cases: list) -> list:
+    """On a ``(1, 2)`` mesh, each case on this rank's heads of whole
+    inputs, through the ops as the UNet calls them: K14 ("K14": q, k, v
+    sliced on C, the output gathered), K15 ("K15": the same with the model
+    group, and the three scales ``s8_scales`` gives on the rank's head
+    views with the group), K16 ("K16": wq, wk, wv's rows and wo's columns,
+    the fp32 partial summed over the group and rounded once) and K17
+    ("K17": a pack of the cut attention, whose fields are returned, its
+    fp32 partial summed and rounded once to bf16). Returns each case's
+    output (and fields)."""
+    from ldmseg_torch.ops import attention as A
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.sp import model_axis
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2)
+    ax = model_axis(mesh)
+    group = tp.ModelGroup(ax)
+    out = []
+    for case in cases:
+        kind, heads = case["kind"], case["heads"] // 2
+        res = {}
+        if kind in ("K14", "K15"):
+            q, k, v = (tp.local_tensor(z, 2, ax) for z in case["qkv"])
+            if kind == "K14":
+                y = A.fused_self_attention_packed(q, k, v, heads,
+                                                  case["scale"])
+            else:
+                y = S8.fused_self_attention_packed_s8(q, k, v, heads,
+                                                      case["scale"], group)
+                qh, kh, vh = (z.unflatten(-1, (heads, -1)) for z in (q, k, v))
+                res["scales"] = torch.stack(S8.s8_scales(qh, kh, vh, None,
+                                                         group))
+            res["out"] = tp.gather_from(y, ax, 2)
+        elif kind == "K16":
+            wq, wk, wv = (tp.local_tensor(w, 0, ax) for w in case["w"][:3])
+            wo = tp.local_tensor(case["w"][3], 1, ax)
+            x = group.copy_to(case["x"])
+            part = A.absorbed_self_attention(x, wq, wk, wv, wo, heads,
+                                             case["scale"], partial=True)
+            res["partial"] = part
+            res["out"] = group.reduce_from(part).to(x.dtype)
+        else:  # K17
+            attn = case["attn"]
+            _cut(ax, [(attn.to_q, 0, 1), (attn.to_k, 0, 1),
+                      (attn.to_v, 0, 1), (attn.to_out[0], 1, 1)])
+            p = S8.pack_absorbed_attention(attn, heads, case["xs"])
+            part = S8.absorbed_self_attention_s8(
+                case["x"], p.w_qkv, p.wo_q, p.w_scale, heads, case["scale"],
+                p.xs, p.wo_p, partial=True)
+            res["pack"] = {f: getattr(p, f)
+                           for f in ("w_qkv", "wo_q", "w_scale", "wo_p")}
+            res["partial"] = part
+            res["out"] = group.sum(part).to(torch.bfloat16)
+        out.append(res)
+    return out
+
+
+def _sharpen_seg_decoder(trainer, factor: float) -> None:
+    """Random weights give flat logits, which post-processing drops: the
+    seg decoder's last convolution scaled by ``factor`` and shifted so that
+    about one class a pixel has a positive logit on a seeded latent
+    (``test_torch_port_sampling._sharpen``'s rule, in the weights)."""
+    conv = [m for m in trainer.vae_seg.modules()
+            if isinstance(m, torch.nn.Conv2d)][-1]
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn((2, 4, 4, 8), generator=gen).to(conv.weight.dtype)
+    with torch.no_grad():
+        logits = trainer.vae_seg.decode(z, False).float() * factor
+        shift = float(torch.quantile(logits.flatten()[::7], 0.96))
+        conv.weight.mul_(factor)
+        conv.bias.mul_(factor).sub_(shift)
+
+
+def compute_pq_axis(rank: int, spec: dict) -> dict:
+    """``compute_pq`` on a ``(1, 2)`` mesh with ``tensor_parallel``: the
+    trainer of ``spec["cfg"]`` from ``init_params(spec["seed"])`` (the seg
+    decoder sharpened by ``spec["sharpen"]``) on the KITTI-DVPS val tree at
+    ``spec["root"]``, ``spec["steps"]`` DDIM steps. Returns its results."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.data import KittiDVPS
+    from ldmseg_torch.models.unet import UNetConfig
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2)
+    ds = KittiDVPS(prefix=spec["root"], split="val", size=spec["size"],
+                   keep_fullres_gt=True)
+    tr = tl.TrainerDiffusion(spec["cfg"], unet_config=UNetConfig(
+        **spec["unet_kw"]), device="cpu", val_dataset=ds, mesh=mesh)
+    tr.init_params(seed=spec["seed"])
+    _sharpen_seg_decoder(tr, spec["sharpen"])
+    return tr.compute_pq(num_inference_steps=spec["steps"])
