@@ -343,11 +343,26 @@ Phases, one line each:
      forward are the same on both ranks, each rank's own amax planted
      makes them differ, and the other rank's partials dropped put the
      forward outside the bound above;
-  64. the script's total seconds, then a JSON line ``{"kernels": [...]}``
+  64. the rest of the model axis (``phase_axis_kernels``, then on phase
+     62's ranks): K14-K17 on a rank's heads and K8, K9, K11 and K6 in
+     their model-axis modes at the int8 UNet's shapes, each rank against
+     its plain version and the ranks together against the one-rank kernel
+     (K11 and K6's column s8 conv bit for bit, the others within a bf16
+     ulp or 2^-16 of max|out|), with each rank's launch time beside the
+     one-rank kernel's, the plain version's and the bound; every partial
+     mode's module on the mesh bit-equal to a one-process emulation, the
+     planted rank-local amax (K12) and rank-local max(wos) (K11) caught;
+     the packed and absorbed UNets' step and bf16 and int8 samples, and
+     the int8 options at full width (a 4-step calibrated sample with
+     ``use_fused_projs`` and ``int8_fuse_gn``: K8 and K9 64, K6 176; the
+     K11 UNet's 4-step ``ddim_sample``: K11 and K12 64), each forward and
+     x0 within phase 63's bound of one rank's, no fallback;
+  65. the script's total seconds, then a JSON line ``{"kernels": [...]}``
      (K1-K18, K10 in both variants, K1's wide class; K5, K6 and K7 with
      their device time and host time a call; K3, K4, K12 and K13 with
-     their partial modes);
-  65. the last line, ``{"ok": true, "device": {...}}``.
+     their partial modes; K6, K8, K9, K11 and K14-K17 with their model-axis
+     modes);
+  66. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits 1 at once. Weights are random, made from a seed; fp32 comparisons
@@ -6885,8 +6900,9 @@ def phase_model_axis(smi_line: str) -> tuple:
     references here first): the bench's int8 serving pipeline with tensor
     and spatial parallelism (:func:`serve_report`); then the emulated
     modules against :func:`module_emulation` (:func:`emulation_report`);
-    then phase 64 (:func:`_axis_rank`, its one-rank references here
-    first, :func:`axis_report`). Returns the three phases' results."""
+    then phase 64 (:func:`_axis_rank` and :func:`_option_runs`, their
+    one-rank references here first, :func:`axis_report` and
+    :func:`option_report`). Returns the three phases' results."""
     import os
     import tempfile
     import torch
@@ -6905,6 +6921,7 @@ def phase_model_axis(smi_line: str) -> tuple:
         emulated = module_emulation()
         axis_path = os.path.join(tmp, "axis_")
         axis_one = _axis_reference(axis_path)
+        options_one = _option_runs(None, nudge=True)
         axis_one_s = time.perf_counter() - t1
         print(f"phase 64 one rank: {axis_one_s:.1f} s", flush=True)
         torch.cuda.empty_cache()
@@ -6912,7 +6929,8 @@ def phase_model_axis(smi_line: str) -> tuple:
                          args=({"ref": path, "axis_ref": axis_path,
                                 "axis_scales": {
                                     flag: res["int8"]["scales"]
-                                    for flag, res in axis_one.items()}},),
+                                    for flag, res in axis_one.items()},
+                                "option_scales": options_one["scales"]},),
                          device="cuda", backend="gloo", local_rank=0,
                          timeout_s=MA_TIMEOUT_S)
     ranks_s = (time.perf_counter() - t0 - ref_s - serve_one_s
@@ -6994,6 +7012,8 @@ def phase_model_axis(smi_line: str) -> tuple:
                 serve_one_s) | {"emulation": emulation_report(
                     emulated, [r["modules"] for r in both])}, {
                 **axis_report(smi_line, axis_one, [r["axis"] for r in both]),
+                "int8_options": option_report(
+                    smi_line, options_one, [r["options"] for r in both]),
                 "one_rank_seconds": axis_one_s,
                 "rank_seconds": [r["axis_seconds"] for r in both]}
 
@@ -7014,15 +7034,18 @@ SERVE_SCALE_RTOL = 1e-5
 
 
 def _rank_pack(pack, r: int, n: int = 2):
-    """Rank ``r``'s slice of a whole K3, K4 or K17 pack on a model axis of
-    ``n``: K3 its heads (``w_qkv``'s and ``m_qkv``'s rows of each of q, k,
-    v; ``wo``'s columns; the per-head scales), K4 its GEGLU columns (``w1``'s
-    paired h and gate rows, ``w2``'s columns), K17 its heads (``w_qkv``'s
-    rows of each of q, k, v; ``wo_q``'s and ``wo_p``'s columns; the per-head
-    scales); the rest whole. These are the codes ``apply_tp`` +
-    ``prepare_int8_unet`` give a rank (held bit for bit in
-    ``tests/test_torch_port_model_axis_serving.py`` and
-    ``tests/test_torch_port_model_axis_attention_int8.py``)."""
+    """Rank ``r``'s slice of a whole K3, K4, K8, K9, K11 or K17 pack on a
+    model axis of ``n``: K3 and K8 its heads (``w_qkv``'s and ``m_qkv``'s
+    rows of each of q, k, v; ``wo``'s columns; the per-head scales), K4 and
+    K9 its GEGLU columns (``w1``'s paired h and gate rows, ``w2``'s
+    columns), K11 its heads (as K3's, with ``wo_q``'s columns and
+    ``ratio``; ``out_scale`` the group's), K17 its heads (``w_qkv``'s rows
+    of each of q, k, v; ``wo_q``'s and ``wo_p``'s columns; the per-head
+    scales); the rest whole (K8's ``proj_in`` and K9's ``proj_out`` too).
+    These are the codes ``apply_tp`` + ``prepare_int8_unet`` give a rank
+    (held bit for bit in ``tests/test_torch_port_model_axis_serving.py``,
+    ``tests/test_torch_port_model_axis_attention_int8.py`` and
+    ``tests/test_torch_port_model_axis_int8_options.py``)."""
     import dataclasses
     from ldmseg_torch.parallel import tp
     from ldmseg_torch.parallel.sp import Axis
@@ -7030,6 +7053,11 @@ def _rank_pack(pack, r: int, n: int = 2):
 
     def cut(t, dim, pairs=1):
         return tp.local_tensor(t, dim, ax, pairs)
+    if hasattr(pack, "ratio"):
+        return dataclasses.replace(
+            pack, heads=pack.heads // n, w_qkv=cut(pack.w_qkv, 0, 3),
+            m_qkv=cut(pack.m_qkv, 0, 3), wo_q=cut(pack.wo_q, 1),
+            ratio=cut(pack.ratio, 0), w_scale=cut(pack.w_scale, 1))
     if hasattr(pack, "wo_p"):
         return dataclasses.replace(
             pack, heads=pack.heads // n, w_qkv=cut(pack.w_qkv, 0, 3),
@@ -7341,14 +7369,19 @@ def _serve_nudge(init):
 
 
 def _serve_forward(trainer, context, nudged: bool = False):
-    """One UNet forward of the trainer's sampling UNet (int8 or bf16) on a
-    fixed input (bf16, [2, C, 32, 64], t = 999 and 499, the context when
-    guided; ``nudged``: the input moved by ``SERVE_NUDGE``): the output on
-    the CPU in fp32."""
-    import torch
-    gen = torch.Generator().manual_seed(633)
+    """One UNet forward of the trainer's sampling UNet (int8 or bf16):
+    :func:`_unet_forward`."""
     unet = (trainer.int8_unet() if trainer.int8_inference
             else trainer.inference_unet())
+    return _unet_forward(unet, context, nudged)
+
+
+def _unet_forward(unet, context=None, nudged: bool = False):
+    """One forward of ``unet`` on a fixed input (bf16, [2, C, 32, 64], t =
+    999 and 499, the context when guided; ``nudged``: the input moved by
+    ``SERVE_NUDGE``): the output on the CPU in fp32."""
+    import torch
+    gen = torch.Generator().manual_seed(633)
     x = torch.randn((2, unet.config.in_channels)
                     + tuple(n // 8 for n in SERVE_HW), generator=gen)
     if nudged:
@@ -7399,8 +7432,8 @@ def _serve_controls(trainer) -> dict:
 def _ma_and_serve_rank(rank: int, spec: dict) -> dict:
     """Phase 62 (:func:`_ma_rank`), then phase 63's serving calls
     (:func:`_serve`), the emulated modules (:func:`_module_outputs`) and
-    phase 64's calls (:func:`_axis_rank`) on the same rank and ``(1, 2)``
-    mesh."""
+    phase 64's calls (:func:`_axis_rank`, :func:`_option_runs` on one
+    rank's scales) on the same rank and ``(1, 2)`` mesh."""
     from ldmseg_torch.parallel.mesh import make_mesh
     ma = _ma_rank(rank, spec)
     mesh = make_mesh(1, 2)
@@ -7412,10 +7445,14 @@ def _ma_and_serve_rank(rank: int, spec: dict) -> dict:
     t0 = time.perf_counter()
     modules = _module_outputs(mesh)
     axis = _axis_rank(mesh, spec)
+    t1 = time.perf_counter()
+    options = _option_runs(mesh, scales=spec["option_scales"])
+    options["seconds"] = time.perf_counter() - t1
     axis_s = time.perf_counter() - t0
-    print(f"phase 64 rank {rank}: {axis_s:.1f} s", flush=True)
+    print(f"phase 64 rank {rank}: {axis_s:.1f} s (the int8 options "
+          f"{options['seconds']:.1f})", flush=True)
     return {"ma": ma, "serve": serve, "modules": modules, "axis": axis,
-            "axis_seconds": axis_s}
+            "options": options, "axis_seconds": axis_s}
 
 
 def serve_report(smi_line: str, one: dict, ranks: list,
@@ -7576,8 +7613,12 @@ def axis_entry(rows: dict, axis: dict, kid: str) -> dict:
 
     def total(key):
         return sum(r[key] * r["per_unet_forward"] for r in main)
-    flag = next(f for f, ids in AXIS_FLAGS.items() if kid in ids)
-    counts = axis[flag]["ranks"][0]["counts"]
+    flag = next((f for f, ids in AXIS_FLAGS.items() if kid in ids), None)
+    if flag is None:   # the int8 options (option_report)
+        rank0 = axis["int8_options"]["ranks"][0]
+        counts = {k: rank0[k]["counts"] for k in ("int8", "k11")}
+    else:
+        counts = axis[flag]["ranks"][0]["counts"]
     return {"model_axis": {
         "mode": {"K14": "a rank's [B, T, C/2] column shard, 4 of 8 heads",
                  "K15": "a rank's heads, the group's amax between its two "
@@ -7585,14 +7626,29 @@ def axis_entry(rows: dict, axis: dict, kid: str) -> dict:
                  "K16": "fp32 to_out partial of a rank's heads "
                         "(ldmseg_attention_absorbed, partial 1)",
                  "K17": "fp32 to_out partial of a rank's heads "
-                        "(ldmseg_attention_absorbed_s8, partial 1)"}[kid],
+                        "(ldmseg_attention_absorbed_s8, partial 1)",
+                 "K6": "whole on the replicated activation, its codes into "
+                       "a rank's column s8 conv (ColumnQuantConv2d)",
+                 "K8": "the proj_in prologue over all C, then the fp32 "
+                       "to_out partial of a rank's heads "
+                       "(ldmseg_attention_ln_s8_pin, partial 1)",
+                 "K9": "K4's two launches on a rank's GEGLU columns, the "
+                       "group's sum rounded into r, then proj_out alone "
+                       "(ldmseg_geglu_ln_s8_pout, proj_out_only 1); ulps "
+                       "are r's against the one-rank K4's, out_ulps the "
+                       "output's",
+                 "K11": "int32 to_out partial of a rank's heads on the "
+                        "group's max(wos), summed exactly "
+                        "(ldmseg_attention_padded_s8, partial 1)"}[kid],
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ulps_vs_one_rank": max(r["ulps"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "one_rank_ms": total("one_rank_ms"), "bound_ms": total("bound_ms"),
         "launches": {k: v[kid] for k, v in counts.items()},
-        "unit": "one rank's launches in one UNet forward (16, batch 2, "
-                "32x64 latent)", "shapes": main}}
+        "unit": ("one launch at each of the resnet norms' four shape "
+                 "classes (batch 2, 32x64 latent)" if kid == "K6" else
+                 "one rank's launches in one UNet forward (16, batch 2, "
+                 "32x64 latent)"), "shapes": main}}
 
 
 def _bf16_ulps(a, b) -> int:
@@ -7606,17 +7662,19 @@ def _bf16_ulps(a, b) -> int:
     return int((order(a) - order(b)).abs().max())
 
 
-def _flagged_unet(cfg, flag: str):
+def _flagged_unet(cfg, flag=None, **flags):
     """The UNet the trainer builds from ``cfg`` (its input channels, K1)
-    with ``flag``'s attention: ``use_packed_attention`` or
-    ``use_absorbed_attention``."""
+    with ``flag``'s attention (``use_packed_attention`` or
+    ``use_absorbed_attention``) and the ``UNetConfig`` fields ``flags``."""
     from ldmseg_torch.models.unet import UNetConfig
     mk, tk = cfg["model_kwargs"], cfg["train_kwargs"]
     cond = mk.get("cond_channels", 0) or (4 if tk.get("self_condition")
                                           else 0)
+    if flag is not None:
+        flags[AXIS_FLAGS[flag][0]] = True
     return UNetConfig(in_channels=mk.get("in_channels", 8) + cond,
                       use_fused_attention=tk.get("fused_attention", True),
-                      **{AXIS_FLAGS[flag][0]: True})
+                      **flags)
 
 
 def _within_ulp(summed, one_rank, summed_parts: bool = False) -> bool:
@@ -7637,7 +7695,7 @@ def _within_ulp(summed, one_rank, summed_parts: bool = False) -> bool:
 
 
 def _ulp_row(name, shape, parts, plains, summed, one_rank, tol,
-             summed_parts: bool = False):
+             summed_parts: bool = False, mode: str = "4 of 8 heads"):
     """Phase 64's row: each rank's output against its plain version's,
     within ``tol`` x max|plain| (``"int8"``: phase 7's max and mean
     bounds), and the ranks' outputs put together (gathered, or with
@@ -7645,10 +7703,10 @@ def _ulp_row(name, shape, parts, plains, summed, one_rank, tol,
     bf16 ulp of the one-rank kernel's (:func:`_within_ulp`); the largest
     distance in bf16 ulps is recorded."""
     if tol == "int8":
-        row = _two_rank_check(name, shape, "4 of 8 heads", parts, plains,
-                              summed, one_rank, phase=64)
+        row = _two_rank_check(name, shape, mode, parts, plains, summed,
+                              one_rank, phase=64)
     else:
-        row = {"shape": list(shape), "mode": "4 of 8 heads", "ranks": []}
+        row = {"shape": list(shape), "mode": mode, "ranks": []}
         for r, (out, ref) in enumerate(zip(parts, plains)):
             err = (out.float() - ref.float()).abs().max().item()
             rmax = ref.float().abs().max().item()
@@ -7675,9 +7733,9 @@ def phase_axis_kernels(seed: int = 64) -> dict:
     stages, K16's and K17's fp32 partials on a rank's weights and pack,
     each against its plain version (K15's and K17's at phase 7's bounds,
     their scales the same); then the two ranks' outputs put together
-    against the one-rank kernel, within one bf16 ulp. Each row has the
-    rank's call's time, the one-rank kernel's, its plain version's and its
-    bound."""
+    against the one-rank kernel, within one bf16 ulp; and K8, K9, K11 and
+    K6 (:func:`_option_kernel_rows`). Each row has the rank's call's time,
+    the one-rank kernel's, its plain version's and its bound."""
     import torch
     from ldmseg_torch.ops import attention as A
     from ldmseg_torch.ops import attention_s8 as S8
@@ -7811,8 +7869,9 @@ def phase_axis_kernels(seed: int = 64) -> dict:
                 r["per_unet_forward"] = per
             del q, k, v, x, ws, wl, parts, plains, one, attn, whole, packs
             torch.cuda.empty_cache()
+        rows.update(_option_kernel_rows(gen, seed, timed))
     for kid, rs in rows.items():
-        print(f"phase 64 {kid} on a rank's heads (4 of 8): "
+        print(f"phase 64 {kid} on a rank's share ({rs[0]['mode']}): "
               + "; ".join(f"{r['shape']}: err {r['max_abs_err']:.3e}, the "
                           f"ranks together {r['ulps']} bf16 ulps (max "
                           f"|diff| {r['max_abs_diff_vs_one_rank']:.3e}) from "
@@ -7821,6 +7880,284 @@ def phase_axis_kernels(seed: int = 64) -> dict:
                           f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
                           f"{r['bound_by']})" for r in rs), flush=True)
     return rows
+
+
+# the resnet norms' shapes ([B, C, H, W], one of each class of a UNet
+# forward on a 32x64 latent at batch 2) at which phase 64 feeds K6's codes
+# to a rank's column s8 conv
+K6_AXIS_SHAPES = [(2, 320, 32, 64), (2, 640, 16, 32), (2, 1280, 8, 16),
+                  (2, 1280, 4, 8)]
+
+
+def _conv1x1(c: int, gen):
+    """A 1x1 conv (Transformer2D's ``proj_in`` or ``proj_out``) on the card
+    with seeded fp32 weights and bias."""
+    import torch
+    conv = torch.nn.Conv2d(c, c, 1).to("cuda")
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                      device="cuda") * c ** -0.5)
+        conv.bias.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+    return conv
+
+
+def _option_kernel_rows(gen, seed: int, timed) -> dict:
+    """Phase 64's rows of the last int8 options' model-axis modes at the
+    int8 UNet's forward shapes (a rank of 2): K8's partial mode (the whole
+    prologue, then K3's partial on 4 of 8 heads: ``ldmseg_attention_ln_
+    s8_pin`` with ``partial`` 1), K9's (K4's two launches on half the
+    GEGLU columns, the two ranks' amax slots' maximum between them, the
+    partials summed and rounded into r, then the ``proj_out`` stage alone,
+    ``ldmseg_geglu_ln_s8_pout`` with ``proj_out_only`` 1) and K11's (the
+    int32 ``to_out`` of 4 of 8 heads, ``partial`` 1 of
+    ``ldmseg_attention_padded_s8``, on the pack with the group's
+    ``max(wos)``): each rank's partial against its plain version at phase
+    7's bounds, the ranks together against the one-rank kernel (K11 bit
+    for bit, K8 and K9's r, against the one-rank K4's, within a bf16 ulp
+    or 2^-16 of max|out|; K9's output within that plus r's flipped ulps
+    carried through Wpo); and K6 at
+    the resnet norms' shape classes, its codes fed to each rank's column s8
+    conv, the two ranks' channels together bit-equal to the one-rank
+    conv's. ``timed`` adds the times (``phase_axis_kernels``)."""
+    import torch
+    from ldmseg_torch.ops import attention_s8 as S8
+    from ldmseg_torch.ops import geglu as G
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    from ldmseg_torch.ops.quant import QuantConv2d
+    rows = {kid: [] for kid in ("K8", "K9", "K11", "K6")}
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    with torch.inference_mode():
+        for shape, per in INT8_SHAPES:
+            b, t, c = shape
+            half = c // 2
+            norm1, attn, norm3, ff = _block_modules(c, seed=t + c + 27)
+            xg = rand((b, c, t)).transpose(1, 2)  # the GN's tokens view
+            xs = rand(shape)
+            # K8: the prologue over all C, K3's partial on a rank's heads
+            whole = S8.with_proj_in(S8.pack_ln_attention(norm1, attn, 8,
+                                                         0.1),
+                                    _conv1x1(c, gen))
+            packs = [_rank_pack(whole, r) for r in range(2)]
+            outs = [S8._launch(xg, p, "K8", partial=True) for p in packs]
+            check(torch.equal(outs[0][0], outs[1][0]),
+                  f"phase 64 K8 {shape}: the ranks' prologues differ")
+            parts = [o[1] for o in outs]
+            plains = [S8.ln_attention_s8_pin_reference(xg, p, partial=True)
+                      for p in packs]
+            summed = S8.ln_attention_s8_finish(
+                outs[0][0].view(b, t, c), parts[0] + parts[1], whole,
+                fallback=False)
+            one = _launched(S8.ln_attention_s8_pin, xg, whole)
+            row = _ulp_row("K8", shape, parts, plains, summed, one, "int8",
+                           summed_parts=True)
+            rows["K8"].append(timed(
+                row, lambda: S8._launch(xg, packs[0], "K8", partial=True),
+                lambda: S8.ln_attention_s8_pin_reference(xg, packs[0],
+                                                         partial=True),
+                pin_partial_bound_ms(b, t, c, half),
+                lambda: S8.ln_attention_s8_pin(xg, whole)))
+            # K9: K4's partial on half the columns (dynamic interior: the
+            # two ranks' amaxes' maximum between its launches), the sum
+            # rounded into r, then proj_out alone with the whole weight
+            whole = G.with_proj_out(G.pack_geglu(
+                norm3, ff.net[0].proj, ff.net[2], 0.05, None),
+                _conv1x1(c, gen))
+            fq = [_rank_pack(whole, r) for r in range(2)]
+            runs = {"kernel": lambda q, grp: G._launch(xs, q, True,
+                                                       group=grp),
+                    "plain": lambda q, grp: G.geglu_ln_s8_reference(
+                        xs, q, partial=True, group=grp)}
+            out, both = {}, {}
+            for key, run in runs.items():
+                seen = _AmaxGroup()
+                for q in fq:
+                    run(q, seen)
+                both[key] = seen.of_both()
+                out[key] = [run(q, both[key]) for q in fq]
+            parts, plains = out["kernel"], out["plain"]
+            # the block output r: the partials summed and rounded against
+            # the one-rank K4's (the r K9's own kernels write)
+            r = G.geglu_finish(xs, parts[0] + parts[1], whole, True,
+                               fallback=False)
+            r_one = _launched(G.geglu_ln_s8, xs, whole)
+            row = _ulp_row("K9", shape, parts, plains, r, r_one, "int8",
+                           summed_parts=True,
+                           mode="half the GEGLU columns")
+            summed = G._proj_out_launch(r, whole)
+            stage = G.proj_out_reference(r, whole).float()
+            err = (summed.float() - stage).abs().max().item()
+            check(err <= INT8_MAX_TOL * stage.abs().max().item(),
+                  f"phase 64 K9 {shape}: the proj_out stage alone against "
+                  f"its plain version, err {err}")
+            one = _launched(G.geglu_ln_s8_pout, xs, whole)
+            check(torch.equal(G._proj_out_launch(r_one, whole), one),
+                  f"phase 64 K9 {shape}: the one-rank kernel is not K4's r "
+                  f"through the proj_out stage")
+            # the output: within a bf16 ulp of the one-rank kernel's
+            # (2^-16 of max|out| near zero) plus r's flipped ulps carried
+            # through Wpo: proj_out reads every channel of r, which rounds
+            # the reordered partials to bf16 first
+            moved = ((r.float() - r_one.float()).abs().reshape(b * t, c)
+                     @ whole.wpo.float().abs().t()).view(b, t, c)
+            ref = one.float()
+            _, e = torch.frexp(ref)
+            bound = torch.ldexp(torch.ones_like(ref), e - 8).clamp_min(
+                2.0 ** -16 * float(ref.abs().max())) + moved
+            row.update(out_ulps=_bf16_ulps(summed, one),
+                       out_max_abs_diff=float((summed.float() - ref).abs()
+                                              .max()),
+                       proj_out_stage_max_abs_err=err)
+            check(bool(((summed.float() - ref).abs() <= bound).all()),
+                  f"phase 64 K9 {shape}: the output is {row['out_ulps']} "
+                  f"bf16 ulps (max |diff| {row['out_max_abs_diff']}) from "
+                  f"the one-rank kernel's, beyond an ulp plus r's flips "
+                  f"carried through Wpo")
+            rows["K9"].append(timed(
+                row, lambda: (G._launch(xs, fq[0], True,
+                                        group=both["kernel"]),
+                              G._proj_out_launch(r, whole)),
+                lambda: G.geglu_ln_s8_reference(xs, fq[0], partial=True,
+                                                group=both["plain"]),
+                pout_partial_bound_ms(b, t, c, 2 * c),
+                lambda: G.geglu_ln_s8_pout(xs, whole)))
+            # K11: the int32 to_out partials of a rank's heads, summed
+            # exactly, on the group's max(wos)
+            whole = S8.pack_padded_attention(attn, 8, 0.1)
+            p11 = [_rank_pack(whole, r) for r in range(2)]
+            parts = [S8._padded_launch(xs, p, partial=True) for p in p11]
+            plains = [S8.padded_attention_s8_reference(xs, p, partial=True)
+                      for p in p11]
+            summed = S8.padded_attention_s8_finish(parts[0] + parts[1],
+                                                   whole)
+            one = _launched(S8.padded_attention_s8, xs, whole)
+            row = _ulp_row("K11", shape, [z.float() for z in parts],
+                           [z.float() for z in plains], summed, one, "int8")
+            row["bit_equal"] = bool(torch.equal(summed, one))
+            check(row["bit_equal"], f"phase 64 K11 {shape}: the ranks' "
+                  f"int32 partials summed are {row['ulps']} bf16 ulps from "
+                  f"the one-rank kernel, not bit-equal")
+            rows["K11"].append(timed(
+                row, lambda: S8._padded_launch(xs, p11[0], partial=True),
+                lambda: S8.padded_attention_s8_reference(xs, p11[0],
+                                                         partial=True),
+                padded_partial_bound_ms(b, t, c, half),
+                lambda: S8.padded_attention_s8(xs, whole)))
+            for kid in ("K8", "K9", "K11"):
+                rows[kid][-1]["per_unet_forward"] = per
+            del norm1, attn, norm3, ff, xg, xs, whole, packs, fq, p11
+            del outs, parts, plains, summed, one, r, r_one, out, both
+            torch.cuda.empty_cache()
+        for shape in K6_AXIS_SHAPES:
+            b, c, h, w = shape
+            x = rand(shape)
+            sc = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+            bi = 0.1 * torch.randn(c, generator=gen, device="cuda")
+            q, s = _launched(GN.group_norm_silu_quant, x, sc, bi, 32, 1e-5)
+            rq, rs = GN.group_norm_silu_quant_reference(x, sc, bi, 32, 1e-5)
+            srel = ((s - rs).abs() / rs).max().item()
+            diff = (q.int() - rq.int()).abs()
+            flips = int((diff > 0).sum().item())
+            check(srel <= 1e-5 and int(diff.max().item()) <= 1
+                  and flips <= GN_CODE_FLIPS * q.numel(),
+                  f"phase 64 K6 {shape}: scale rel err {srel}, codes off "
+                  f"by up to {int(diff.max().item())} at {flips}")
+            err, rmax = _max_err(q.float() * s[:, None, None, None],
+                                 rq.float() * rs[:, None, None, None])
+            # the s8 conv on K6's codes: whole, and each rank's output
+            # channels (ColumnQuantConv2d's codes), put together
+            conv = QuantConv2d(c, c).to("cuda")
+            init_gen = torch.Generator(device="cuda").manual_seed(c + h)
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(conv.weight.shape,
+                                              generator=init_gen,
+                                              device="cuda") * 0.03)
+                conv.bias.copy_(0.1 * torch.randn(c, generator=init_gen,
+                                                  device="cuda"))
+            conv.prepare(conv)
+            one = conv((q, s))
+            half = c // 2
+            ranks = []
+            for rk in range(2):
+                cut = slice(rk * half, (rk + 1) * half)
+                rc = QuantConv2d(c, half).to("cuda")
+                rc.w_q, rc.w_scale = conv.w_q[cut], conv.w_scale[cut]
+                with torch.no_grad():
+                    rc.bias.copy_(conv.bias[cut])
+                ranks.append(rc((q, s)))
+            together = torch.cat(ranks, 1)
+            row = {"shape": list(shape),
+                   "mode": "whole on the replicated input, into a rank's "
+                           "column s8 conv", "max_abs_err": err,
+                   "max_abs_ref": rmax, "scale_max_rel_err": srel,
+                   "code_flips": flips, "per_unet_forward": 1,
+                   "ulps": _bf16_ulps(together, one),
+                   "max_abs_diff_vs_one_rank": float(
+                       (together.float() - one.float()).abs().max()),
+                   "bit_equal": bool(torch.equal(together, one))}
+            check(row["bit_equal"], f"phase 64 K6 {shape}: the ranks' "
+                  f"column s8 convs on K6's codes are {row['ulps']} bf16 "
+                  f"ulps from the one-rank conv, not bit-equal")
+            rows["K6"].append(timed(
+                row, lambda: GN.group_norm_silu_quant(x, sc, bi, 32, 1e-5),
+                lambda: GN.group_norm_silu_quant_reference(x, sc, bi, 32,
+                                                           1e-5),
+                _gn_bound(shape, 2, 1, GN_QUANT_OPS),
+                lambda: GN.group_norm_silu_quant(x, sc, bi, 32, 1e-5)))
+            del x, q, s, rq, rs, conv, one, ranks, together
+    return rows
+
+
+def pin_partial_bound_ms(b, t, c, ci, heads: int = 4):
+    """K8's partial mode's bound for one call: the prologue's 2·B·T·C²
+    bf16 operations over all C, K3's projections (3 · 2·B·T·C·ci int8) and
+    to_out (2·B·T·ci·C bf16) over the rank's inner width and its attention
+    over the rank's heads, against bf16 x in, the whole bf16 Wpi and its
+    bias, the rank's int8 q/k/v rows and bf16 to_out columns, the LN rows,
+    the fp32 xf and partial out."""
+    d = ci // heads
+    ops8 = 3 * 2.0 * b * t * c * ci + 2.0 * b * heads * t * t * d
+    ops16 = (2.0 * b * t * c * c + 2.0 * b * heads * t * t * d
+             + 2.0 * b * t * ci * c)
+    nbytes = (2.0 * b * t * c + 2 * c * c + 4 * c + 3 * ci * c + 2 * c * ci
+              + 4 * (3 * ci + 2 * c) + 2 * 4.0 * b * t * c)
+    t_ops = (ops8 / PEAK_FLOPS["int8"] + ops16 / PEAK_FLOPS["bfloat16"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def pout_partial_bound_ms(b, t, c, m):
+    """K9's on a rank's ``m`` of the 4C GEGLU columns: K4's int8
+    operations over them and the ``proj_out`` stage's 2·B·T·C² bf16,
+    against x in, the rank's W1 rows and W2 columns with their float rows,
+    the whole bf16 Wpo and its bias, the fp32 partial out, r in and the
+    bf16 output."""
+    ops8 = 2.0 * b * t * c * 2 * m + 2.0 * b * t * m * c
+    ops16 = 2.0 * b * t * c * c
+    nbytes = (2.0 * b * t * c + 3 * m * c + 4 * (4 * m + 3 * c)
+              + 2 * c * c + 4 * c + 4.0 * b * t * c + 2 * 2.0 * b * t * c)
+    t_ops = (ops8 / PEAK_FLOPS["int8"] + ops16 / PEAK_FLOPS["bfloat16"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def padded_partial_bound_ms(b, t, c, ci, heads: int = 4):
+    """K11's partial mode's bound: four int8 products over the rank's
+    inner width (q, k, v, to_out: 2·B·T·C·ci each) and its attention
+    (2 · 2·B·h·T²·d), against bf16 x in, the rank's int8 weights and
+    scales and the int32 partial out."""
+    d = ci // heads
+    ops8 = 4 * 2.0 * b * t * c * ci + 2 * 2.0 * b * heads * t * t * d
+    nbytes = (2.0 * b * t * c + 4 * c * ci + 4 * (3 * ci + heads)
+              + 4.0 * b * t * c)
+    t_ops = ops8 / PEAK_FLOPS["int8"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
 
 
 def absorbed_partial_bound_ms(b, t, c, ci, dtype_name):
@@ -7865,27 +8202,39 @@ def _module_inputs():
             "x": rand((b, t, c)),
             "qkv": tuple(rand((b, t, 8, c // 8)) for _ in range(3)),
             "ws": _absorbed_weights(gen, c, torch.bfloat16),
-            "scale": (c // 8) ** -0.5}
+            "scale": (c // 8) ** -0.5,
+            # K8's input, the GN's tokens view, and the two 1x1 convs
+            "xg": rand((b, c, t)).transpose(1, 2),
+            "proj_in": _conv1x1(c, gen), "proj_out": _conv1x1(c, gen)}
 
 
 def _module_packs(inp):
     """The whole packs of the emulated modules: K3's, K4's (and K12's) with
-    a dynamic and a static interior scale, K17's."""
+    a dynamic and a static interior scale, K17's, K8's (K3's with
+    ``proj_in``), K9's (K4's dynamic one with ``proj_out``) and K11's."""
     from ldmseg_torch.ops import attention_s8 as S8
     from ldmseg_torch.ops import geglu as G
-    return {"K3": S8.pack_ln_attention(inp["norm1"], inp["attn"], 8, 0.1),
-            "dynamic": G.pack_geglu(inp["norm3"], inp["ff"].net[0].proj,
-                                    inp["ff"].net[2], 0.05, None),
-            "static": G.pack_geglu(inp["norm3"], inp["ff"].net[0].proj,
-                                   inp["ff"].net[2], 0.05, 0.02),
-            "K17": S8.pack_absorbed_attention(inp["attn"], 8, 0.1)}
+    packs = {"K3": S8.pack_ln_attention(inp["norm1"], inp["attn"], 8, 0.1),
+             "dynamic": G.pack_geglu(inp["norm3"], inp["ff"].net[0].proj,
+                                     inp["ff"].net[2], 0.05, None),
+             "static": G.pack_geglu(inp["norm3"], inp["ff"].net[0].proj,
+                                    inp["ff"].net[2], 0.05, 0.02),
+             "K17": S8.pack_absorbed_attention(inp["attn"], 8, 0.1),
+             "K11": S8.pack_padded_attention(inp["attn"], 8, 0.1)}
+    packs["K8"] = S8.with_proj_in(packs["K3"], inp["proj_in"])
+    packs["K9"] = G.with_proj_out(packs["dynamic"], inp["proj_out"])
+    return packs
 
 
 # the emulated modules, K4 and K12 in both interior scale modes (the mesh
 # also runs PR 25's planted control, "K12 rank-local amax": each rank
 # quantizing K12's interior on its own amax)
 EMULATED = ("K3", "K4 dynamic", "K4 static", "K12 dynamic", "K12 static",
-            "K13", "K15", "K16", "K17")
+            "K13", "K15", "K16", "K17", "K8", "K9", "K11")
+# the mesh's planted controls (:func:`_module_outputs`), each with the
+# emulated module whose output it must not reproduce
+PLANTED = {"K12 rank-local amax": "K12 dynamic",
+           "K11 rank-local max(wos)": "K11"}
 
 
 def _module_run(name, inp, packs, r, group, heads=4):
@@ -7899,6 +8248,13 @@ def _module_run(name, inp, packs, r, group, heads=4):
     half = x.shape[-1] // 2
     if name == "K3":
         return S8.ln_attention_s8(x, _rank_pack(packs["K3"], r), group)
+    if name == "K8":
+        return S8.ln_attention_s8_pin(inp["xg"], _rank_pack(packs["K8"], r),
+                                      group)
+    if name == "K9":
+        return G.geglu_ln_s8_pout(x, _rank_pack(packs["K9"], r), group)
+    if name == "K11":
+        return S8.padded_attention_s8(x, _rank_pack(packs["K11"], r), group)
     if name.startswith(("K4", "K12")):
         kid, mode = name.split(" ", 1)
         p = _rank_pack(packs["static" if mode == "static" else "dynamic"], r)
@@ -7940,6 +8296,13 @@ class _SumGroup(_AmaxGroup):
         self.parts.append(x.float().clone())
         return x.float()
 
+    def sum_exact(self, x):
+        """:meth:`sum` of integer partials (K11's), in their dtype."""
+        if self.total is not None:
+            return self.total
+        self.parts.append(x.clone())
+        return x
+
 
 def module_emulation() -> dict:
     """Each emulated module's output on each rank of a model axis of 2,
@@ -7970,12 +8333,28 @@ def module_emulation() -> dict:
     return out
 
 
+def _rank_attention(attn, r: int, n: int = 2):
+    """Rank ``r``'s heads of an attention's four projections, as ``apply_tp``
+    cuts them (``to_q/k/v``'s rows, ``to_out``'s columns)."""
+    from types import SimpleNamespace
+    ci = attn.to_q.weight.shape[0] // n
+    rows = slice(r * ci, (r + 1) * ci)
+    return SimpleNamespace(
+        to_q=SimpleNamespace(weight=attn.to_q.weight[rows]),
+        to_k=SimpleNamespace(weight=attn.to_k.weight[rows]),
+        to_v=SimpleNamespace(weight=attn.to_v.weight[rows]),
+        to_out=[SimpleNamespace(weight=attn.to_out[0].weight[:, rows])])
+
+
 def _module_outputs(mesh) -> dict:
     """The emulated modules on this rank of the mesh, with the model group
-    (gloo's collectives), and PR 25's planted control: K12 on its dynamic
-    interior scale with the group's ``max`` returning this rank's own
-    amax."""
+    (gloo's collectives), and the planted controls (:data:`PLANTED`): PR
+    25's K12 on its dynamic interior scale with the group's ``max``
+    returning this rank's own amax; K11 on a pack of this rank's heads made
+    with the rank's own ``max(wos)`` (``pack_padded_attention`` without the
+    group)."""
     import torch
+    from ldmseg_torch.ops import attention_s8 as S8
     from ldmseg_torch.parallel import sp, tp
     ax = sp.model_axis(mesh)
     group = tp.ModelGroup(ax)
@@ -7989,18 +8368,23 @@ def _module_outputs(mesh) -> dict:
         planted.max = lambda a: a
         out["K12 rank-local amax"] = _module_run(
             "K12 dynamic", inp, packs, ax.rank, planted).cpu()
+        local = S8.pack_padded_attention(_rank_attention(inp["attn"],
+                                                         ax.rank), 8, 0.1)
+        out["K11 rank-local max(wos)"] = S8.padded_attention_s8(
+            inp["x"], local, group).cpu()
+        out["K11 out_scales"] = (local.out_scale, packs["K11"].out_scale)
     return out
 
 
 def emulation_report(emulated: dict, ranks: list) -> dict:
     """Each rank's module outputs from the mesh against the one-process
-    emulation: bit-equal for every module, the planted rank-local amax
-    not (its distance in bf16 ulps printed)."""
+    emulation: bit-equal for every module, the planted controls not (their
+    distance in bf16 ulps printed; K11's rank-local and group ``out_scale``
+    beside it)."""
     import torch
     result = {}
-    for name in EMULATED + ("K12 rank-local amax",):
-        want = emulated["K12 dynamic" if name == "K12 rank-local amax"
-                        else name]
+    for name in EMULATED + tuple(PLANTED):
+        want = emulated[PLANTED.get(name, name)]
         row = []
         for r, got in enumerate(ranks):
             g, w = got[name], want[r]
@@ -8009,16 +8393,22 @@ def emulation_report(emulated: dict, ranks: list) -> dict:
                         "max_abs_diff": float((g.float() - w.float()).abs()
                                               .max())})
         result[name] = row
+        if name == "K11 rank-local max(wos)":
+            result["K11 out_scales"] = [got["K11 out_scales"]
+                                        for got in ranks]
+            print(f"phase 64 emulation K11: out_scale (rank-local, the "
+                  f"group's) by rank {result['K11 out_scales']}",
+                  flush=True)
         print(f"phase 64 emulation {name}: "
               + ", ".join(f"rank {r} "
                           f"{'bit-equal' if x['bit_equal'] else 'differs'}"
                           f" ({x['ulps']} bf16 ulps, max |diff| "
                           f"{x['max_abs_diff']:.3e})"
                           for r, x in enumerate(row)), flush=True)
-        if name == "K12 rank-local amax":
+        if name in PLANTED:
             check(not all(x["bit_equal"] for x in row),
-                  "phase 64 emulation: the planted rank-local amax for K12 "
-                  "left the mesh's output bit-equal to the emulation")
+                  f"phase 64 emulation: the planted {name} left the mesh's "
+                  f"output bit-equal to the emulation")
         else:
             check(all(x["bit_equal"] for x in row),
                   f"phase 64 emulation {name}: the mesh's output differs "
@@ -8305,6 +8695,131 @@ def axis_report(smi_line: str, one: dict, ranks: list) -> dict:
                 check(got[mode]["counts"] == want[mode],
                       f"phase 64 {flag} {who} {mode} sample: launched "
                       f"{got[mode]['counts']}, expected {want[mode]}")
+    return result
+
+
+# phase 64's int8 options at full width: the serving trainer's UNet with
+# both, and the K11 UNet (use_padded_attention without fused norms; no K6)
+OPTION_FLAGS = {"use_fused_projs": True, "int8_fuse_gn": True}
+K11_UNET_FLAGS = {"use_fused_projs": False, "int8_fuse_gn": False}
+
+
+def _option_runs(mesh=None, nudge: bool = False, scales=None) -> dict:
+    """Phase 64's calls with the last int8 options on one rank (``mesh``
+    None) or this rank of the mesh: phase 63's serving trainer (the bench's
+    int8 pipeline, fused norms) with ``use_fused_projs`` (K8, K9) and
+    ``int8_fuse_gn`` (K6) calibrates (its scales kept), then on ``scales``
+    (one rank's) where given takes a ``MA_STEPS``-step int8 sample and one
+    UNet forward (:func:`_axis_sample`); then the K11 UNet
+    (``use_padded_attention`` without fused norms: K11 and K12, filled by
+    ``int8_unet_from`` from the same cut masters on the same scales, cut
+    first on the mesh) takes a ``MA_STEPS``-step eager ``ddim_sample`` on
+    seeded RGB latents from phase 63's initial noise and the same forward.
+    Each with its launches and seconds; ``nudge``: also from the inputs
+    moved by ``SERVE_NUDGE``."""
+    import torch
+    from ldmseg_torch.tools.profile_sampling import (PADDED_FLAGS,
+                                                     int8_unet_from,
+                                                     padded_sample)
+    from ldmseg_torch.train.trainer_ldm import TrainerDiffusion
+    image, calib, init, _ = _serve_inputs()
+    cfg = _serve_config(mesh is not None)
+    trainer = TrainerDiffusion(cfg, unet_config=_flagged_unet(
+        cfg, **OPTION_FLAGS), mesh=mesh)
+    trainer.init_params(seed=0)
+    out = {"scales": trainer.calibrate_int8({"image": image}, noise=calib)}
+    if scales is not None:
+        trainer._int8_act_scales = dict(scales)
+    out["int8"] = _axis_sample(trainer, image, init, nudge)
+    unet = int8_unet_from(trainer._eval_unet,
+                          dict(PADDED_FLAGS, **K11_UNET_FLAGS),
+                          scales=trainer._int8_act_scales, mesh=mesh)
+    del trainer
+    gen = torch.Generator().manual_seed(634)
+    rgb = torch.randn((2, 4) + tuple(n // 8 for n in SERVE_HW),
+                      generator=gen).cuda().to(torch.bfloat16)
+
+    self_condition = bool(cfg["train_kwargs"].get("self_condition"))
+
+    def sample(noise):
+        return padded_sample(unet, rgb, noise.permute(0, 3, 1, 2).cuda().to(
+            torch.bfloat16), steps=MA_STEPS, graph=False,
+            self_condition=self_condition).float().cpu()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x0 = sample(init)
+    torch.cuda.synchronize()
+    out["k11"] = {"x0": x0, "counts": _counts(),
+                  "seconds": time.perf_counter() - t0,
+                  "forward": _unet_forward(unet)}
+    if nudge:
+        out["k11"]["nudged_x0"] = sample(_serve_nudge(init))
+        out["k11"]["nudged_forward"] = _unet_forward(unet, nudged=True)
+    del unet
+    torch.cuda.empty_cache()
+    return out
+
+
+def option_report(smi_line: str, one: dict, ranks: list) -> dict:
+    """Phase 64's checks and lines of the last int8 options: each rank's
+    calibrated scales within ``SERVE_SCALE_RTOL`` of one rank's; the
+    forward and x0 of the sample with ``use_fused_projs`` and
+    ``int8_fuse_gn`` and of the K11 UNet within phase 63's bound
+    (:func:`_serve_within`) of one rank's; the launches: K8 and K9 16 and
+    K6 44 a UNet pass, K11 and K12 16 (and K1's wide class once an image
+    encode), no fallback."""
+    steps = MA_STEPS
+    want = {"int8": _expect(K8=16 * steps, K9=16 * steps, K6=44 * steps,
+                            K1w=1),
+            "k11": _expect(K11=16 * steps, K12=16 * steps)}
+    result = {"one_rank": {k: {"counts": one[k]["counts"],
+                               "seconds": one[k]["seconds"]} for k in want},
+              "ranks": []}
+    for who, got in [("one rank", one)] + [(f"rank {i}", r)
+                                           for i, r in enumerate(ranks)]:
+        for key, expect in want.items():
+            check(got[key]["counts"] == expect,
+                  f"phase 64 int8 options {who} {key}: launched "
+                  f"{got[key]['counts']}, expected {expect}")
+    for i, r in enumerate(ranks):
+        err = max(abs(v - one["scales"][k]) / abs(one["scales"][k])
+                  for k, v in r["scales"].items())
+        check(r["scales"].keys() == one["scales"].keys()
+              and err <= SERVE_SCALE_RTOL,
+              f"phase 64 int8 options rank {i}: calibrate_int8 {err} from "
+              f"one rank's (rtol {SERVE_SCALE_RTOL})")
+        row = {"scales_err": err, "seconds": r["seconds"]}
+        for key in want:
+            fe = _errs(r[key], one[key], "forward", "nudged_forward")
+            xe = _errs(r[key], one[key], "x0", "nudged_x0")
+            row[key] = {"forward_err": fe, "x0_err": xe,
+                        "counts": r[key]["counts"],
+                        "seconds": r[key]["seconds"]}
+            for name, e in (("forward", fe), ("x0", xe)):
+                check(_serve_within(e),
+                      f"phase 64 int8 options rank {i} {key}: {name} err max "
+                      f"{e[0]} mean {e[1]} of max|ref| {e[4]}; one rank's "
+                      f"own move for a {SERVE_NUDGE} nudge max {e[2]} mean "
+                      f"{e[3]}")
+        result["ranks"].append(row)
+        print(f"phase 64 int8 options rank {i} (data=1, model=2): "
+              + "; ".join(
+                  f"{label}: {steps}-step x0 err max "
+                  f"{row[key]['x0_err'][0]:.3e}"
+                  f" of {row[key]['x0_err'][4]:.3e} (nudge "
+                  f"{row[key]['x0_err'][2]:.3e}), forward "
+                  f"{row[key]['forward_err'][0]:.3e} of "
+                  f"{row[key]['forward_err'][4]:.3e} (nudge "
+                  f"{row[key]['forward_err'][2]:.3e}), launches "
+                  f"{ {k: v for k, v in row[key]['counts'].items() if v} }, "
+                  f"{row[key]['seconds']:.3f} s (one rank "
+                  f"{one[key]['seconds']:.3f})"
+                  for key, label in (("int8", "use_fused_projs + "
+                                              "int8_fuse_gn"),
+                                     ("k11", "K11 UNet")))
+              + f"; calibrate_int8 within {err:.2e} of one rank's; two gloo "
+              f"ranks on ONE card: not a speed [{smi_line}]", flush=True)
     return result
 
 
@@ -8712,6 +9227,14 @@ def main() -> int:
                 paths[f"model axis (data=1, model=2), rank {rank}: the "
                       f"bench's serving pipeline, {key}, a {SERVE_STEPS}-step"
                       f" sample_panoptic"] = run["counts"]
+        for rank, row in enumerate(attention_axis["int8_options"]["ranks"]):
+            for what, label in (("int8", "use_fused_projs + int8_fuse_gn, a "
+                                         f"{MA_STEPS}-step int8 "
+                                         "sample_panoptic"),
+                                ("k11", f"the K11 UNet, a {MA_STEPS}-step "
+                                        "ddim_sample")):
+                paths[f"model axis (data=1, model=2), rank {rank}, "
+                      f"{label}"] = row[what]["counts"]
         for flag, res in attention_axis.items():
             if flag not in AXIS_FLAGS:
                 continue
@@ -8762,7 +9285,8 @@ def main() -> int:
                        "_attn_kernel_abs_padded_ln_s8_vt_pin",
                        padded_rows["K8"],
                        projs["default scales"]["counts"]["K8"],
-                       by_path("K8")),
+                       by_path("K8"))
+            | axis_entry(axis_rows, attention_axis, "K8"),
             int8_entry("geglu_ln_s8_pout", "K9",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:186",
@@ -8774,7 +9298,8 @@ def main() -> int:
                              "operands swapped: Wpo r^T, stored "
                              "channel-major)",
                "proj_out_linear_device_ms": _per_forward(
-                   padded_rows["K9"], "proj_out_linear_device_ms")},
+                   padded_rows["K9"], "proj_out_linear_device_ms")}
+            | axis_entry(axis_rows, attention_axis, "K9"),
             int8_entry("attention_padded_s8", "K11",
                        "ldmseg_torch/csrc/attention_s8.cu",
                        "ldmseg_tpu/ops/pallas/attention.py:646",
@@ -8782,7 +9307,7 @@ def main() -> int:
                        "_attn_kernel_abs_padded_s8",
                        padded_rows["K11"], k11_counts["K11"],
                        by_path("K11"))
-            | S8PV_REDESIGN,
+            | S8PV_REDESIGN | axis_entry(axis_rows, attention_axis, "K11"),
             int8_entry("geglu_s8", "K12",
                        "ldmseg_torch/csrc/geglu_ln_s8.cu",
                        "ldmseg_tpu/ops/pallas/geglu.py:123",
@@ -8815,7 +9340,8 @@ def main() -> int:
                      gn_int8["default scales"]["counts"]["K6"],
                      by_path("K6"),
                      "one int8 UNet forward (44 launches, bf16 in, batch 2, "
-                     "32x64 latent)"),
+                     "32x64 latent)")
+            | axis_entry(axis_rows, attention_axis, "K6"),
             gn_entry("gn_silu_conv", "K7",
                      "ldmseg_torch/csrc/gn_silu_conv.cu",
                      "ldmseg_tpu/ops/pallas/gn_silu_conv.py:30",

@@ -92,8 +92,12 @@
 // over the whole replicated c; b. writes 3 * ci columns, c. attends over the
 // local heads, and d. is [rows, ci] x [c, ci]^T with PartialF32Epi: the fp32
 // product alone, without the residual and b_out
-// (ldmseg_attention_ln_s8_partial). The caller sums the ranks' partials in
-// fp32, adds x and b_out and rounds once, where step 6 rounds.
+// (ldmseg_attention_ln_s8 with partial 1). The caller sums the ranks'
+// partials in fp32, adds x and b_out and rounds once, where step 6 rounds.
+// K8's partial mode (ldmseg_attention_ln_s8_pin with partial 1) runs the
+// prologue on all c output channels of the whole Wpi (the LayerNorm reads
+// the whole width), leaves the fp32 xf in the caller's scratch, then K3's
+// partial mode on it; the caller finishes bf16(xf + sum + b_out).
 
 #include "attention_sm90.cuh"
 #include "gemm_sm90.cuh"
@@ -338,97 +342,74 @@ bool shape_ok(int batch, int t, int c, int ci, int heads) {
 
 }  // namespace
 
-// dtype of x: 0 = float32, 1 = bfloat16; out is bf16. x, out [batch*t, c]
-// contiguous; w_qkv int8 [3c, c] (rows: q, k, v output columns), m_qkv fp32
-// [3c] (q/k requant factors, v dequant factors), wo bf16 [c, c] (out, in).
+// dtype of x: 0 = float32, 1 = bfloat16. x [batch*t, c] contiguous; ci =
+// heads * d the inner width, c but on a model axis (this rank's heads);
+// w_qkv int8 [3ci, c] (rows: q, k, v output columns), m_qkv fp32 [3ci]
+// (q/k requant factors, v dequant factors), wo bf16 [c, ci] (out, in).
+// partial 0: out bf16 [batch*t, c] = x + o Wo^T + b_out; partial 1 (K3 on
+// a rank's heads): out fp32 [batch*t, c] = o Wo^T alone (out_b unused).
 // x8 int8 [batch*t, c], q8 and k8 int8 [batch*t, heads, dp] (dp = d rounded
-// up to 32), v and o bf16 [batch*t, c] are scratch. score_scale > 0. plans:
-// the three plans of launch() above. Returns a cudaError_t (0 on
-// success).
+// up to 32), v and o bf16 [batch*t, ci] are scratch. score_scale > 0.
+// plans: the three plans of launch() above, for ci. Returns a cudaError_t
+// (0 on success).
 extern "C" int ldmseg_attention_ln_s8(
     int dtype, const void* x, void* out, const float* ln_w,
     const float* ln_b, const float* out_b, const int8_t* w_qkv,
     const float* m_qkv, const void* wo, int8_t* x8, int8_t* q8, int8_t* k8,
-    void* v, void* o, int batch, int t, int c, int heads, float xs,
-    float score_scale, float eps, const int* plans, void* stream) {
-  if (!shape_ok(batch, t, c, c, heads)) {
+    void* v, void* o, int batch, int t, int c, int ci, int heads, float xs,
+    float score_scale, float eps, int partial, const int* plans,
+    void* stream) {
+  if (!shape_ok(batch, t, c, ci, heads) || partial < 0 || partial > 1 ||
+      (!partial && ci != c)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* wob = static_cast<const __nv_bfloat16*>(wo);
   auto* vb = static_cast<__nv_bfloat16*>(v);
   auto* obf = static_cast<__nv_bfloat16*>(o);
+  void* ob = partial ? nullptr : out;
+  float* part = partial ? static_cast<float*>(out) : nullptr;
   if (dtype == 0) {
-    return launch<float>(x, out, nullptr, ln_w, ln_b, out_b, w_qkv, m_qkv,
-                         wob, x8, q8, k8, vb, obf, batch, t, c, c, heads, xs,
+    return launch<float>(x, ob, part, ln_w, ln_b, out_b, w_qkv, m_qkv, wob,
+                         x8, q8, k8, vb, obf, batch, t, c, ci, heads, xs,
                          score_scale, eps, plans, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, out, nullptr, ln_w, ln_b, out_b, w_qkv,
+    return launch<__nv_bfloat16>(x, ob, part, ln_w, ln_b, out_b, w_qkv,
                                  m_qkv, wob, x8, q8, k8, vb, obf, batch, t, c,
-                                 c, heads, xs, score_scale, eps, plans, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K3 on this rank's heads of a model axis: the arguments of
-// ldmseg_attention_ln_s8 without out and out_b, with the inner width ci =
-// heads * d of the rank's heads: w_qkv int8 [3ci, c] (its q, k, v rows),
-// m_qkv fp32 [3ci], wo bf16 [c, ci] (the columns of to_out that read
-// them); q8 and k8 [batch*t, heads, dp], v and o bf16 [batch*t, ci]
-// scratch; partial fp32 [batch*t, c] receives o Wo^T alone. plans as
-// launch() takes them for ci. Returns a cudaError_t (0 on success).
-extern "C" int ldmseg_attention_ln_s8_partial(
-    int dtype, const void* x, float* partial, const float* ln_w,
-    const float* ln_b, const int8_t* w_qkv, const float* m_qkv,
-    const void* wo, int8_t* x8, int8_t* q8, int8_t* k8, void* v, void* o,
-    int batch, int t, int c, int ci, int heads, float xs, float score_scale,
-    float eps, const int* plans, void* stream) {
-  if (!shape_ok(batch, t, c, ci, heads) || partial == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* wob = static_cast<const __nv_bfloat16*>(wo);
-  auto* vb = static_cast<__nv_bfloat16*>(v);
-  auto* obf = static_cast<__nv_bfloat16*>(o);
-  if (dtype == 0) {
-    return launch<float>(x, nullptr, partial, ln_w, ln_b, nullptr, w_qkv,
-                         m_qkv, wob, x8, q8, k8, vb, obf, batch, t, c, ci,
-                         heads, xs, score_scale, eps, plans, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, nullptr, partial, ln_w, ln_b, nullptr,
-                                 w_qkv, m_qkv, wob, x8, q8, k8, vb, obf,
-                                 batch, t, c, ci, heads, xs, score_scale, eps,
-                                 plans, s);
+                                 ci, heads, xs, score_scale, eps, plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K8: x bf16, channel-major [batch, c, t] when channels_major, else
-// [batch*t, c]; wpi bf16 [c, c] (out, in), bpi fp32 [c]; xf fp32 [batch*t,
-// c] is scratch (the residual stream); plans: the prologue's (9 ints, as
-// launch_proj_in takes it), then K3's three as ldmseg_attention_ln_s8
-// takes them; the other arguments as there. Returns a cudaError_t (0 on
-// success).
+// [batch*t, c]; wpi bf16 [c, c] (out, in, the whole proj_in on a model axis
+// too), bpi fp32 [c]; xf fp32 [batch*t, c] receives the residual stream;
+// plans: the prologue's (9 ints, as launch_proj_in takes it), then K3's
+// three for ci; the other arguments as ldmseg_attention_ln_s8 takes them
+// (partial 1: out fp32, K3's partial mode on xf over a rank's heads; the
+// caller reads xf to finish). Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_ln_s8_pin(
     int channels_major, const void* x, const void* wpi, const float* bpi,
     float* xf, void* out, const float* ln_w, const float* ln_b,
     const float* out_b, const int8_t* w_qkv, const float* m_qkv,
     const void* wo, int8_t* x8, int8_t* q8, int8_t* k8, void* v, void* o,
-    int batch, int t, int c, int heads, float xs, float score_scale,
-    float eps, const int* plans, void* stream) {
-  if (!shape_ok(batch, t, c, c, heads) || (channels_major && t % 8 != 0)) {
+    int batch, int t, int c, int ci, int heads, float xs, float score_scale,
+    float eps, int partial, const int* plans, void* stream) {
+  if (!shape_ok(batch, t, c, ci, heads) || (channels_major && t % 8 != 0) ||
+      partial < 0 || partial > 1 || (!partial && ci != c)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_proj_in(channels_major, x, wpi, bpi, xf, batch, t,
                                  c, plans, s);
   if (err != 0) return err;
-  return launch<float>(xf, out, nullptr, ln_w, ln_b, out_b, w_qkv, m_qkv,
+  return launch<float>(xf, partial ? nullptr : out,
+                       partial ? static_cast<float*>(out) : nullptr, ln_w,
+                       ln_b, out_b, w_qkv, m_qkv,
                        static_cast<const __nv_bfloat16*>(wo), x8, q8, k8,
                        static_cast<__nv_bfloat16*>(v),
-                       static_cast<__nv_bfloat16*>(o), batch, t, c, c, heads,
+                       static_cast<__nv_bfloat16*>(o), batch, t, c, ci, heads,
                        xs, score_scale, eps, plans + gemm90::kPlanInts, s);
 }
 
@@ -456,7 +437,8 @@ extern "C" int ldmseg_proj_in_f32(int channels_major, const void* x,
 // sum of the bf16 e, o = bf16((e V) / denom), out = bf16(x + o Wo + b_out).
 // The TPU's K-major value path of K3 and the row-major one here are two
 // layouts of one function, so K10 runs K3's four kernels on the same
-// operands (pack_ln_attention); its arguments are ldmseg_attention_ln_s8's.
+// operands (pack_ln_attention); its arguments are ldmseg_attention_ln_s8's
+// without ci and partial (one rank's whole block).
 // Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_ln_s8_rowmajor(
     int dtype, const void* x, void* out, const float* ln_w,
@@ -465,8 +447,9 @@ extern "C" int ldmseg_attention_ln_s8_rowmajor(
     void* v, void* o, int batch, int t, int c, int heads, float xs,
     float score_scale, float eps, const int* plans, void* stream) {
   return ldmseg_attention_ln_s8(dtype, x, out, ln_w, ln_b, out_b, w_qkv,
-                                m_qkv, wo, x8, q8, k8, v, o, batch, t, c,
-                                heads, xs, score_scale, eps, plans, stream);
+                                m_qkv, wo, x8, q8, k8, v, o, batch, t, c, c,
+                                heads, xs, score_scale, eps, 0, plans,
+                                stream);
 }
 
 // The LN + quantize stage alone (s8_common.cuh:ln_quant_kernel with its LN,

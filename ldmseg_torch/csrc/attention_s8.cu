@@ -105,6 +105,16 @@
 // dequantize of step 5 (DequantEpi) or K10's residual and bias
 // (ResidualS8Epi).
 //
+// K11 on a model axis (parallel/tp.py): a rank's pack holds the rows of
+// Wq, Wk, Wv of its heads and the columns of Wo that read them, so (b)-(d)
+// run over ci = heads_local * d columns on the replicated x8 and (e) is
+// [rows, ci] x [c, ci]^T with Int32Epi: the int32 of8 Wo8^T of the rank's
+// heads, unscaled (ldmseg_attention_padded_s8 with partial 1). The caller
+// sums the ranks' int32 partials, which is exact, and rounds
+// bf16(float(sum) * out_scale) as DequantEpi does; out_scale = as *
+// max(wos) and ratio[h] = wos[h] / max(wos) take the maximum over every
+// rank's heads, so the mesh equals one rank bit for bit.
+//
 // K17 replaces ldmseg_tpu/ops/pallas/attention.py:_attn_kernel_absorbed_s8
 // (pallas_call in _absorbed_s8_impl, public absorbed_self_attention_s8),
 // whose wrapper quantizes x once, x8 = clip(rint(float(x) / xs), +-127).
@@ -634,6 +644,28 @@ struct DequantEpi {
   }
 };
 
+// (e) K11's to_out on a model axis: the int32 sum of this rank's heads,
+// unscaled, [rows, n] (the caller sums the ranks' partials, exact, then
+// scales and rounds once as DequantEpi does)
+struct Int32Epi {
+  static constexpr int kOps = 1;
+  static constexpr int kCols = 0;
+  static constexpr int kIntCols = 0;
+  using RowPre = gemm90::NoPre;
+  using Pre = gemm90::NoPre;
+  int* out;
+  int n;
+  __device__ float col_value(int, int) const { return 0.f; }
+  __device__ RowPre row_pre(int) const { return {}; }
+  __device__ Pre pre(int, int) const { return {}; }
+  __device__ void operator()(int row, int col, const float2*, const int2*,
+                             const RowPre&, const Pre&, int s0,
+                             int s1) const {
+    *reinterpret_cast<int2*>(out + static_cast<long long>(row) * n + col) =
+        make_int2(s0, s1);
+  }
+};
+
 // (e) K10's to_out: out = bf16((float(x) + float(sum) * scale) + bias[col]),
 // x the block's input [rows, n] in its type. __fmul_rn: the product rounds
 // before the residual add, as in the TPU kernel (no fused multiply-add).
@@ -666,54 +698,61 @@ struct ResidualS8Epi {
   }
 };
 
-// K11's and K10's (b)-(d): the two projections of x8 and the e8 attention
-// with the of8 epilogue. plans: sm90_gemm_plan's of [rows, 2c, c] and [c,
-// rows, c] (int8), sm90_s8pv_attention_plan's, in that order.
+// K11's and K10's (b)-(d): the two projections of x8 [rows, c] and the e8
+// attention with the of8 epilogue, over ci = heads * d inner columns (c
+// but on a model axis: this rank's heads, w_qkv [3ci, c], of8 [rows, ci]).
+// plans: sm90_gemm_plan's of [rows, 2ci, c] and [ci, rows, c] (int8),
+// sm90_s8pv_attention_plan's, in that order.
 int launch_qkv_attention(const int8_t* x8, const int8_t* w_qkv,
                          const float* m_qkv, const float* ratio, int8_t* q8,
                          int8_t* k8, int8_t* v8t, int8_t* of8, int batch,
-                         int t, int c, int heads, float score_scale,
+                         int t, int c, int ci, int heads, float score_scale,
                          const int* plans, cudaStream_t stream) {
   const int rows = batch * t;
-  const int d = c / heads;
+  const int d = ci / heads;
   const int* attn_plan = plans + 2 * gemm90::kPlanInts;
   const int dp = attn_plan[5];
   const int tp = attn_plan[6];
   int err = gemm90::launch_gemm<true>(
-      plans, x8, w_qkv, rows, 2 * c, c, 0,
-      QkPadEpi{m_qkv, q8, k8, c, d, dp, heads}, stream);
+      plans, x8, w_qkv, rows, 2 * ci, c, 0,
+      QkPadEpi{m_qkv, q8, k8, ci, d, dp, heads}, stream);
   if (err != 0) return err;
   err = gemm90::launch_gemm<true>(
-      plans + gemm90::kPlanInts, w_qkv + 2ll * c * c, x8, c, rows, c, 0,
-      VtEpi{m_qkv + 2 * c, v8t, t, c, tp}, stream);
+      plans + gemm90::kPlanInts, w_qkv + 2ll * ci * c, x8, ci, rows, c, 0,
+      VtEpi{m_qkv + 2 * ci, v8t, t, ci, tp}, stream);
   if (err != 0) return err;
   // sc0 = (1 * 1) * score_scale: the score scale exactly
   const Scales sc{nullptr, 0, nullptr, 1.f, 1.f, 1.f, score_scale, ratio,
                   nullptr};
-  const attn90::Strides so{static_cast<long long>(t) * c, c, d};
+  const attn90::Strides so{static_cast<long long>(t) * ci, ci, d};
   return launch_attn<attn90::kOutS8>(attn_plan, q8, k8, v8t, of8, so, batch,
                                      t, heads, d, sc, stream);
 }
 
 // plans: launch_qkv_attention's three, then sm90_gemm_plan's of to_out
-// ([rows, c, c], int8)
+// ([rows, c, ci], int8). `partial` (int32 [rows, c], a model axis) takes
+// the unscaled of8 Wo8^T of the rank's ci columns in place of out.
 template <typename T>
-int launch_padded(const void* x, __nv_bfloat16* out, const int8_t* w_qkv,
-                  const float* m_qkv, const int8_t* wo, const float* ratio,
-                  int8_t* x8, int8_t* q8, int8_t* k8, int8_t* v8t,
-                  int8_t* of8, int batch, int t, int c, int heads, float xs,
-                  float score_scale, float out_scale, const int* plans,
-                  cudaStream_t stream) {
+int launch_padded(const void* x, __nv_bfloat16* out, int* partial,
+                  const int8_t* w_qkv, const float* m_qkv, const int8_t* wo,
+                  const float* ratio, int8_t* x8, int8_t* q8, int8_t* k8,
+                  int8_t* v8t, int8_t* of8, int batch, int t, int c, int ci,
+                  int heads, float xs, float score_scale, float out_scale,
+                  const int* plans, cudaStream_t stream) {
   const int rows = batch * t;
   int err = launch_ln_quant<T, false>(x, x8, nullptr, nullptr, rows, c, xs,
                                       0.f, nullptr, 0, stream);
   if (err != 0) return err;
   err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8t, of8, batch,
-                             t, c, heads, score_scale, plans, stream);
+                             t, c, ci, heads, score_scale, plans, stream);
   if (err != 0) return err;
-  return gemm90::launch_gemm<true>(
-      plans + 2 * gemm90::kPlanInts + kAttnPlanInts, of8, wo, rows, c, c, 0,
-      DequantEpi{out_scale, out, c}, stream);
+  const int* out_plan = plans + 2 * gemm90::kPlanInts + kAttnPlanInts;
+  if (partial != nullptr) {
+    return gemm90::launch_gemm<true>(out_plan, of8, wo, rows, c, ci, 0,
+                                     Int32Epi{partial, c}, stream);
+  }
+  return gemm90::launch_gemm<true>(out_plan, of8, wo, rows, c, ci, 0,
+                                   DequantEpi{out_scale, out, c}, stream);
 }
 
 template <typename T>
@@ -730,7 +769,7 @@ int launch_ln_padded(const void* x, __nv_bfloat16* out, const float* ln_w,
                                0, stream);
   if (err != 0) return err;
   err = launch_qkv_attention(x8, w_qkv, m_qkv, ratio, q8, k8, v8t, of8, batch,
-                             t, c, heads, score_scale, plans, stream);
+                             t, c, c, heads, score_scale, plans, stream);
   if (err != 0) return err;
   return gemm90::launch_gemm<true>(
       plans + 2 * gemm90::kPlanInts + kAttnPlanInts, of8, wo, rows, c, c, 0,
@@ -1025,34 +1064,40 @@ extern "C" int ldmseg_attention_s8(
 }
 
 // K11: dtype of x 0 = float32, 1 = bfloat16, x [batch*t, c] contiguous;
-// out bf16 [batch*t, c]; w_qkv int8 [3c, c] (rows: q, k, v output columns),
-// m_qkv fp32 [3c] (requant factors), wo int8 [c, c] (out, in), ratio fp32
-// [heads] (wos[h] / max(wos)). x8 and of8 (int8 [batch*t, c]), q8 and k8
-// (int8 [batch*t, heads, dp]) and v8t (int8 [batch, c, tp], its pad
-// positions zero) are scratch. plans: launch_padded's four. Returns a
-// cudaError_t (0 on success).
+// ci = heads * d the inner width (c, or this rank's heads on a model axis);
+// w_qkv int8 [3ci, c] (rows: q, k, v output columns), m_qkv fp32 [3ci]
+// (requant factors), wo int8 [c, ci] (out, in), ratio fp32 [heads]
+// (wos[h] / max(wos), the maximum over all the heads of every rank).
+// partial 0: out bf16 [batch*t, c] = bf16(of8 Wo8^T * out_scale); partial
+// 1: out int32 [batch*t, c] = of8 Wo8^T of these heads, unscaled. x8 (int8
+// [batch*t, c]), of8 (int8 [batch*t, ci]), q8 and k8 (int8 [batch*t, heads,
+// dp]) and v8t (int8 [batch, ci, tp], its pad positions zero) are scratch.
+// plans: launch_padded's four. Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_attention_padded_s8(
     int dtype, const void* x, void* out, const int8_t* w_qkv,
     const float* m_qkv, const int8_t* wo, const float* ratio, int8_t* x8,
     int8_t* q8, int8_t* k8, int8_t* v8t, int8_t* of8, int batch, int t, int c,
-    int heads, float xs, float score_scale, float out_scale, const int* plans,
-    void* stream) {
-  if (!takes(batch, t, c, heads) ||
+    int ci, int heads, float xs, float score_scale, float out_scale,
+    int partial, const int* plans, void* stream) {
+  if (ci < 1 || ci > c || c % 16 != 0 || !takes(batch, t, ci, heads) ||
+      partial < 0 || partial > 1 || (!partial && ci != c) ||
       static_cast<long long>(batch) * ((t + 15) / 16 * 16) * c >=
           (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* ob = partial ? nullptr : static_cast<__nv_bfloat16*>(out);
+  int* part = partial ? static_cast<int*>(out) : nullptr;
   if (dtype == 0) {
-    return launch_padded<float>(x, ob, w_qkv, m_qkv, wo, ratio, x8, q8, k8,
-                                v8t, of8, batch, t, c, heads, xs, score_scale,
-                                out_scale, plans, s);
+    return launch_padded<float>(x, ob, part, w_qkv, m_qkv, wo, ratio, x8, q8,
+                                k8, v8t, of8, batch, t, c, ci, heads, xs,
+                                score_scale, out_scale, plans, s);
   }
   if (dtype == 1) {
-    return launch_padded<__nv_bfloat16>(x, ob, w_qkv, m_qkv, wo, ratio, x8,
-                                        q8, k8, v8t, of8, batch, t, c, heads,
-                                        xs, score_scale, out_scale, plans, s);
+    return launch_padded<__nv_bfloat16>(x, ob, part, w_qkv, m_qkv, wo, ratio,
+                                        x8, q8, k8, v8t, of8, batch, t, c, ci,
+                                        heads, xs, score_scale, out_scale,
+                                        plans, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

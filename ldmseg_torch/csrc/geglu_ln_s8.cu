@@ -82,7 +82,10 @@
 // floats' bits, which order as the floats). d. then writes the fp32 partial
 // y * gs * s2 alone (DownEpi kDownPartial: no residual, no b2); the caller
 // sums the ranks' partials in fp32 and adds x and b2 (K4), or rounds the
-// sum (K12), where step 5 rounds.
+// sum (K12), where step 5 rounds. K9 on a model axis is K4's two launches,
+// the caller's sum and round into r (step 5's r crosses every rank's
+// columns), then step 6 alone on r with the whole Wpo
+// (ldmseg_geglu_ln_s8_pout with proj_out_only 1).
 
 #include <type_traits>
 
@@ -391,21 +394,33 @@ extern "C" int ldmseg_geglu_s8(
 // [batch, c, t], wpo bf16 [c, c] (out, in), bpo fp32 [c] and r bf16
 // [batch*t, c] scratch (the block's output, the proj_out product's W
 // operand); plans holds a third plan, sm90_gemm_plan's of the swapped
-// proj_out product ([c, c] x [batch*t, c]^T, bf16).
+// proj_out product ([c, c] x [batch*t, c]^T, bf16). proj_out_only = 1 (a
+// model axis, where r is the sum of the ranks' K4 partials, finished by
+// the caller): the proj_out stage alone on the caller's r, plans holding
+// its plan alone; x, the LayerNorm, the FF operands and the scratch are
+// not read. Returns a cudaError_t (0 on success).
 extern "C" int ldmseg_geglu_ln_s8_pout(
     int dtype, const void* x, void* out, const float* ln_w,
     const float* ln_b, const int8_t* w1, const float* s1, const float* b1,
     const int8_t* w2, const float* s2, const float* b2, const void* wpo,
     const float* bpo, void* r, int8_t* x8, float* g, int8_t* g8,
     unsigned* amax, int batch, int t, int c, int m, int block_t, float xs,
-    float gs, int dynamic, float eps, const int* plans, void* stream) {
-  const int err = ldmseg_geglu_ln_s8(dtype, x, r, ln_w, ln_b, w1, s1, b1, w2,
-                                     s2, b2, x8, g, g8, amax, batch, t, c, m,
-                                     block_t, xs, gs, dynamic, eps, plans,
-                                     stream);
-  if (err != 0) return err;
+    float gs, int dynamic, float eps, int proj_out_only, const int* plans,
+    void* stream) {
+  if (proj_out_only < 0 || proj_out_only > 1 || batch < 1 || t < 8 ||
+      t % 2 != 0 || c % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!proj_out_only) {
+    const int err = ldmseg_geglu_ln_s8(dtype, x, r, ln_w, ln_b, w1, s1, b1,
+                                       w2, s2, b2, x8, g, g8, amax, batch, t,
+                                       c, m, block_t, xs, gs, dynamic, eps,
+                                       plans, stream);
+    if (err != 0) return err;
+  }
   return gemm90::launch_gemm<false>(
-      plans + 2 * gemm90::kPlanInts, wpo, r, c, batch * t, c, 0,
+      plans + (proj_out_only ? 0 : 2 * gemm90::kPlanInts), wpo, r, c,
+      batch * t, c, 0,
       ProjOutEpi{bpo, static_cast<__nv_bfloat16*>(out), c, t},
       static_cast<cudaStream_t>(stream));
 }

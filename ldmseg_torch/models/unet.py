@@ -350,7 +350,16 @@ class PaddedAttentionS8(CrossAttention):
     graph, with the same values. The input's scale is the calibrated
     ``to_q`` site (``x_scale``), else ``act_scale``. Inference only: JAX
     has no gradient for K11, so a forward that autograd would record
-    raises."""
+    raises.
+
+    Under tensor parallelism (``parallel/tp.py:apply_tp``, where the axis
+    divides the heads) the four projections are plain ``Linear`` layers
+    holding this rank's heads and ``tp_group`` is the model group: the pack
+    takes the group's ``max(wos)``, K11 writes the int32 ``to_out`` partial
+    of the rank's heads, summed over the group exactly and rounded once, as
+    one rank's kernel rounds, then the bias. Where the axis does not divide
+    the heads the attention stays whole on every rank, its pack made from
+    the masters gathered whole (``tp.whole_attention``)."""
 
     act_scale_sites = {"to_q": "x_scale"}
 
@@ -364,7 +373,11 @@ class PaddedAttentionS8(CrossAttention):
         return self.act_scale if self.x_scale is None else self.x_scale
 
     def prepare(self, src: CrossAttention) -> None:
-        self.pack = pack_padded_attention(src, self.heads, self._xs())
+        from ..parallel.tp import whole_attention
+        if self.tp_group is None:
+            src = whole_attention(src)
+        self.pack = pack_padded_attention(src, self.heads, self._xs(),
+                                          group=self.tp_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() and (
@@ -374,8 +387,9 @@ class PaddedAttentionS8(CrossAttention):
                 "use_padded_attention (K11) is inference only: run it under "
                 "torch.no_grad() on weights that require no gradient")
         pack = (self.pack if self.pack is not None
-                else pack_padded_attention(self, self.heads, self._xs()))
-        out = padded_attention_s8(x, pack)
+                else pack_padded_attention(self, self.heads, self._xs(),
+                                           group=self.tp_group))
+        out = padded_attention_s8(x, pack, self.tp_group)
         return out + self.to_out[0].bias.to(out.dtype)
 
 
@@ -522,8 +536,10 @@ class LNAttentionS8(nn.Module):
     ``proj_in`` as K8 on the GroupNorm output. Its site ``to_q`` takes the
     calibrated scale of the LN1 output (``x_scale``); else ``act_scale``.
     Under tensor parallelism the pack holds a rank's heads and
-    ``tp_group`` (set by ``apply_tp``) sums K3's partial ``to_out``
-    products over the model group."""
+    ``tp_group`` (set by ``apply_tp``) sums K3's or K8's partial ``to_out``
+    products over the model group (K8's ``proj_in`` whole on every rank);
+    where the axis does not divide the heads, no group: every rank runs the
+    one-rank block on the whole pack."""
 
     act_scale_sites = {"to_q": "x_scale"}
     tp_group = None
@@ -539,7 +555,7 @@ class LNAttentionS8(nn.Module):
             raise RuntimeError("int8 transformer block not prepared (run "
                                "prepare_int8_unet)")
         if self.proj_in:
-            return ln_attention_s8_pin(x, self.pack)
+            return ln_attention_s8_pin(x, self.pack, self.tp_group)
         return ln_attention_s8(x, self.pack, self.tp_group)
 
 
@@ -550,7 +566,9 @@ class LNFeedForwardS8(nn.Module):
     ``act_scale``) and ``net.2`` (the gated interior, ``g_scale``, else
     dynamic). Under tensor parallelism the pack holds a rank's GEGLU
     columns and ``tp_group`` (set by ``apply_tp``) sums K4's partial
-    outputs, and takes a dynamic interior amax, over the model group."""
+    outputs, and takes a dynamic interior amax, over the model group; K9
+    then runs its ``proj_out`` stage (the whole weight) on the summed
+    block output."""
 
     act_scale_sites = {"net.0.proj": "x_scale", "net.2": "g_scale"}
     tp_group = None
@@ -567,7 +585,7 @@ class LNFeedForwardS8(nn.Module):
             raise RuntimeError("int8 transformer block not prepared (run "
                                "prepare_int8_unet)")
         if self.proj_out:
-            return geglu_ln_s8_pout(x, self.pack)
+            return geglu_ln_s8_pout(x, self.pack, self.tp_group)
         return geglu_ln_s8(x, self.pack, self.tp_group)
 
 
@@ -638,10 +656,15 @@ class BasicTransformerBlock(nn.Module):
                        if int8_ff else FeedForward(dim))
 
     def prepare(self, src: "BasicTransformerBlock") -> None:
+        from ..parallel.tp import whole_attention
         a, f = self.attn1, self.ff
         if self.fuse_attn:
             xs = a.act_scale if a.x_scale is None else a.x_scale
-            a.pack = pack_ln_attention(src.norm1, src.attn1, self.heads, xs)
+            # a rank's heads where apply_tp gave K3 the group, else the
+            # whole attention (the masters' cut gathered)
+            attn = src.attn1 if a.tp_group is not None else \
+                whole_attention(src.attn1)
+            a.pack = pack_ln_attention(src.norm1, attn, self.heads, xs)
         if self.fuse_ff:
             xs = f.act_scale if f.x_scale is None else f.x_scale
             f.pack = pack_geglu(src.norm3, src.ff.net[0].proj, src.ff.net[2],
@@ -685,11 +708,16 @@ class Transformer2D(nn.Module):
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def prepare(self, src: "Transformer2D") -> None:
-        # after the block's own prepare: prepare_int8_unet goes inner first
+        # after the block's own prepare: prepare_int8_unet goes inner first;
+        # K8's and K9's 1x1 convs are whole on every rank of a model axis
+        # (the masters' cut gathered)
+        from ..parallel.tp import whole_layer
         if self.fused_projs:
             blk = self.transformer_blocks[0]
-            blk.attn1.pack = with_proj_in(blk.attn1.pack, src.proj_in)
-            blk.ff.pack = with_proj_out(blk.ff.pack, src.proj_out)
+            blk.attn1.pack = with_proj_in(blk.attn1.pack,
+                                          whole_layer(src.proj_in))
+            blk.ff.pack = with_proj_out(blk.ff.pack,
+                                        whole_layer(src.proj_out))
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -38,10 +38,18 @@ heads: ``w_qkv [3ci, C]`` and ``wo [C, ci]`` with ``ci = heads_local·d``;
 the LayerNorm and x8 stay over the whole replicated C. Given ``group``
 (the model group's reductions, ``parallel/tp.py:ModelGroup``: ``sum`` in
 fp32, ``max``), :func:`ln_attention_s8` computes the rank's fp32 ``to_out``
-product alone (the kernel's ``ldmseg_attention_ln_s8_partial``, the plain
-version's and the fallback's ``partial``), sums it over the group and
-then adds the residual and the bias and rounds once, where the one-rank
-block rounds. K13 takes a rank's ``[B, T, H/n, d]`` q, k and v as they
+product alone (the kernel's ``ldmseg_attention_ln_s8`` with ``partial`` 1,
+the plain version's and the fallback's ``partial``), sums it over the
+group and then adds the residual and the bias and rounds once, where the
+one-rank block rounds. K8 (:func:`ln_attention_s8_pin`) does the same on
+the fp32 residual stream ``xf`` that its prologue builds from the whole
+``proj_in`` (gathered at prepare time: the LayerNorm reads all C), the
+finish ``bf16(xf + sum + b_out)``. K11 (:func:`padded_attention_s8`) takes
+a pack of a rank's heads whose ``out_scale`` and ``ratio`` use the group's
+``max(wos)``, writes the int32 ``of8·Wo8`` of those heads unscaled, sums
+it over the group exactly (``group.sum_exact``) and rounds
+``bf16(float(sum)·out_scale)`` as the one-rank kernel does: bit for bit
+one rank's. K13 takes a rank's ``[B, T, H/n, d]`` q, k and v as they
 are; its dynamic scales take the group's maximum of each tensor's amax.
 So do K15's, on a rank's ``[B, T, C/n]``: with ``group`` its launch splits
 in two (``ldmseg_attention_packed_s8`` stage 1, the amax bits, and 2,
@@ -461,18 +469,19 @@ def proj_in_plan(b: int, t: int, c: int, channels_major: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def pin_plans(b: int, t: int, c: int, heads: int,
-              channels_major: bool) -> tuple:
+def pin_plans(b: int, t: int, c: int, heads: int, channels_major: bool,
+              ci: Optional[int] = None) -> tuple:
     """K8's four launch plans, in the order its C entry point reads them:
-    the prologue's (:func:`proj_in_plan`), then K3's three
-    (:func:`ln_attention_plans`)."""
+    the prologue's (:func:`proj_in_plan`, over all C), then K3's three
+    (:func:`ln_attention_plans`, ``ci`` a rank's inner width)."""
     return (proj_in_plan(b, t, c, channels_major),
-            *ln_attention_plans(b, t, c, heads))
+            *ln_attention_plans(b, t, c, heads, ci))
 
 
 @functools.lru_cache(maxsize=None)
-def _pin_plans_c(b: int, t: int, c: int, heads: int, channels_major: bool):
-    return plans_c(*pin_plans(b, t, c, heads, channels_major))
+def _pin_plans_c(b: int, t: int, c: int, heads: int, channels_major: bool,
+                 ci: Optional[int] = None):
+    return plans_c(*pin_plans(b, t, c, heads, channels_major, ci))
 
 
 # K13's attention stage on Hopper (csrc/attention_s8.cu,
@@ -567,32 +576,33 @@ def sm90_s8pv_attention_plan(bh: int, t: int, d: int) -> S8PVAttentionPlan:
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_build.load("attention_ln_s8"), entry)
-    # K3 and K10: dtype, x; K8: channels_major, x, wpi, bpi, xf; K3's
-    # partial mode: no b_out, and ci
+    # K3 and K10: dtype, x; K8: channels_major, x, wpi, bpi, xf; K3 and K8
+    # take ci and partial, K10 neither
     head = [ctypes.c_int] + [ctypes.c_void_p] * (
-        4 if entry == "ldmseg_attention_ln_s8_pin" else 1)
-    partial = entry == _LN_ENTRIES["K3 partial"]
-    fn.argtypes = (head + [ctypes.c_void_p] * (11 if partial else 12)
-                   + [ctypes.c_int] * (5 if partial else 4)
-                   + [ctypes.c_float] * 3
+        4 if entry == _LN_ENTRIES["K8"] else 1)
+    k10 = entry == _LN_ENTRIES["K10"]
+    fn.argtypes = (head + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * (4 if k10 else 5)
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * (0 if k10 else 1)
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 _LN_ENTRIES = {"K3": "ldmseg_attention_ln_s8",
-               "K3 partial": "ldmseg_attention_ln_s8_partial",
                "K8": "ldmseg_attention_ln_s8_pin",
                "K10": "ldmseg_attention_ln_s8_rowmajor"}
 
 
 def _launch(x: torch.Tensor, p: LNAttentionPack, name: str = "K3",
-            partial: bool = False) -> torch.Tensor:
+            partial: bool = False):
     """K3, K8 (x the GroupNorm output, bf16, read channel-major when it is
     the tokens view of a contiguous ``[B, C, T]``) or K10 with ``v_bf16``
-    (K3's kernels behind K10's entry point). ``partial``: K3 on a rank's
-    heads, the fp32 ``to_out`` product ``[B, T, C]`` of the pack's heads
-    alone (``ldmseg_attention_ln_s8_partial``: no residual, no bias)."""
+    (K3's kernels behind K10's entry point). ``partial`` (K3 or K8 on a
+    rank's heads, ``partial`` 1 of their entry points): the fp32 ``to_out``
+    product ``[B, T, C]`` of the pack's heads alone, no residual, no bias;
+    K8 then returns ``(xf [B·T, C] fp32, partial)``, its prologue's
+    residual stream beside it."""
     pin = name == "K8"
     b, t, c = x.shape
     h = p.heads
@@ -615,7 +625,7 @@ def _launch(x: torch.Tensor, p: LNAttentionPack, name: str = "K3",
     if not channels_major:
         x = x.contiguous()
     try:
-        plans = (_pin_plans_c(b, t, c, h, channels_major) if pin
+        plans = (_pin_plans_c(b, t, c, h, channels_major, ci) if pin
                  else _ln_plans_c(b, t, c, h, ci))
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
@@ -635,13 +645,16 @@ def _launch(x: torch.Tensor, p: LNAttentionPack, name: str = "K3",
                           dtype=torch.int8, device=dev) for _ in range(2))
     v, o = (torch.empty((b * t, ci), dtype=torch.bfloat16, device=dev)
             for _ in range(2))
-    weights = (p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo.data_ptr(),
-               x8.data_ptr(), q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
-               o.data_ptr(), b, t, c) + ((ci,) if partial else ()) + (
-                   h, p.xs, p.score_scale, p.eps, plans)
-    block = (out.data_ptr(), p.ln_w.data_ptr(), p.ln_b.data_ptr()) + (
-        () if partial else (p.out_b.data_ptr(),)) + weights
-    kernel = _kernel(_LN_ENTRIES["K3 partial" if partial else name])
+    k10 = name == "K10"
+    if k10 and (partial or ci != c):
+        raise ValueError("K10: one rank's whole block only")
+    block = (out.data_ptr(), p.ln_w.data_ptr(), p.ln_b.data_ptr(),
+             p.out_b.data_ptr(), p.w_qkv.data_ptr(), p.m_qkv.data_ptr(),
+             p.wo.data_ptr(), x8.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+             v.data_ptr(), o.data_ptr(), b, t, c) + (() if k10 else (ci,)) + (
+                 h, p.xs, p.score_scale, p.eps) + (
+                     () if k10 else (int(partial),)) + (plans,)
+    kernel = _kernel(_LN_ENTRIES[name])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pin:
@@ -652,7 +665,7 @@ def _launch(x: torch.Tensor, p: LNAttentionPack, name: str = "K3",
             err = kernel(_DTYPE_CODE[x.dtype], x.data_ptr(), *block, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return out
+    return (xf, out) if pin and partial else out
 
 
 def ln_attention_s8(x: torch.Tensor, p: LNAttentionPack,
@@ -877,50 +890,77 @@ def with_proj_in(p: LNAttentionPack, conv) -> LNAttentionPack:
     (``pack_inference_tiles(fuse_projs=True)`` with the wrapper's
     ``proj_in[0].astype(bf16)``): the float32 weight ``[C_out, C_in]``
     cast to bf16 for the kernel and kept in float32 for the fallback, the
-    bias in float32 (``g`` row 3)."""
-    w = conv.weight.detach().float().reshape(conv.out_channels, -1)
+    bias in float32 (``g`` row 3). On a model axis ``conv`` is the whole
+    layer (``parallel/tp.py:whole_layer``) and ``p`` a rank's heads."""
+    w = conv.weight.detach().float().reshape(conv.weight.shape[0], -1)
     return dataclasses.replace(
         p, wpi=w.to(torch.bfloat16).contiguous(), wpi_f=w.contiguous(),
         bpi=conv.bias.detach().float().contiguous())
 
 
+def proj_in_reference(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+    """K8's prologue in plain PyTorch: the residual stream ``xf =
+    float(x)·float(Wpi)ᵀ + b_pi`` in fp32, never rounded, ``[B, T, C]``."""
+    return x.float() @ p.wpi.float().t() + p.bpi
+
+
 def ln_attention_s8_pin_reference(x: torch.Tensor, p: LNAttentionPack,
-                                  static_offset: Optional[float] = None
-                                  ) -> torch.Tensor:
+                                  static_offset: Optional[float] = None,
+                                  partial: bool = False) -> torch.Tensor:
     """K8's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): the
-    residual stream ``xf = float(x)·float(Wpi)ᵀ + b_pi`` in fp32, never
-    rounded, then K3's arithmetic on it
-    (:func:`ln_attention_s8_reference`)."""
-    xf = x.float() @ p.wpi.float().t() + p.bpi
-    return ln_attention_s8_reference(xf, p, static_offset)
+    residual stream :func:`proj_in_reference`, then K3's arithmetic on it
+    (:func:`ln_attention_s8_reference`; ``partial`` its fp32 ``to_out``
+    product of a rank's heads alone)."""
+    return ln_attention_s8_reference(proj_in_reference(x, p), p,
+                                     static_offset, partial)
 
 
-def ln_attention_s8_pin_fallback(x: torch.Tensor,
-                                 p: LNAttentionPack) -> torch.Tensor:
+def ln_attention_s8_pin_fallback(x: torch.Tensor, p: LNAttentionPack,
+                                 group=None) -> torch.Tensor:
     """The JAX wrapper's branch with ``proj_in`` for the shapes K8 does
     not take (:1106-1117): the proj in fp32 on the float32 weight, rounded
-    to x's dtype, then :func:`ln_attention_s8_fallback`."""
+    to x's dtype, then :func:`ln_attention_s8_fallback` (with ``group``
+    its partial over a rank's heads, summed, then finished)."""
     h = (x.float() @ p.wpi_f.t() + p.bpi).to(x.dtype)
-    return ln_attention_s8_fallback(h, p)
+    if group is None:
+        return ln_attention_s8_fallback(h, p)
+    return ln_attention_s8_finish(
+        h, group.sum(ln_attention_s8_fallback(h, p, partial=True)), p,
+        fallback=True)
 
 
-def ln_attention_s8_pin(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
+def ln_attention_s8_pin(x: torch.Tensor, p: LNAttentionPack,
+                        group=None) -> torch.Tensor:
     """K8: the block of :func:`ln_attention_s8` on the residual stream ``x
     Wpiᵀ + b_pi`` that it builds from the GroupNorm output ``x [B, T, C]``;
     returns the new residual stream in ``x``'s dtype. On the card ``x`` is
     bf16, as tokens or as the tokens view of an NCHW tensor, which the
-    kernel reads where it lies."""
+    kernel reads where it lies. With ``group`` (a model axis: ``p`` holds
+    this rank's heads and the whole ``proj_in``) the prologue runs on all
+    C, K3's partial mode on the rank's heads, the partials are summed over
+    the group and ``bf16(xf + sum + b_out)`` rounds once, with the fp32
+    ``xf``, where the one-rank kernel rounds."""
     b, t, c = x.shape
-    if not absorbed_takes_kernel(t, c, p.heads):
+    ci = p.w_qkv.shape[0] // 3
+    if not absorbed_takes_kernel(t, ci, p.heads):
         ln_attention_s8_pin.fallbacks += 1
-        return ln_attention_s8_pin_fallback(x, p)
+        return ln_attention_s8_pin_fallback(x, p, group)
     if x.device.type == "cpu":
-        return ln_attention_s8_pin_reference(x, p).to(x.dtype)
-    if x.device.type != "cuda":
+        if group is None:
+            return ln_attention_s8_pin_reference(x, p).to(x.dtype)
+        xf = proj_in_reference(x, p)
+        part = ln_attention_s8_reference(xf, p, partial=True)
+    elif x.device.type != "cuda":
         raise ValueError(f"K8: unsupported device {x.device}")
-    out = _launch(x, p, "K8")
-    ln_attention_s8_pin.launches += 1
-    return out.to(x.dtype)
+    else:
+        out = _launch(x, p, "K8", partial=group is not None)
+        ln_attention_s8_pin.launches += 1
+        if group is None:
+            return out.to(x.dtype)
+        xf, part = out
+        xf = xf.view(b, t, c)
+    return ln_attention_s8_finish(xf, group.sum(part), p,
+                                  fallback=False).to(x.dtype)
 
 
 ln_attention_s8_pin.launches = 0
@@ -948,7 +988,7 @@ def proj_in_f32(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
     if x.dtype != torch.bfloat16 or p.wpi is None:
         raise ValueError("proj_in_f32: bf16 x and a pack with proj_in")
     if x.device.type == "cpu":
-        return (x.float() @ p.wpi.float().t() + p.bpi).reshape(b * t, c)
+        return proj_in_reference(x, p).reshape(b * t, c)
     channels_major = x.transpose(1, 2).is_contiguous()
     if not channels_major:
         x = x.contiguous()
@@ -969,7 +1009,11 @@ def proj_in_f32(x: torch.Tensor, p: LNAttentionPack) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class PaddedAttentionPack:
-    """K11's operands for one self-attention (float32 unless noted)."""
+    """K11's operands for one self-attention (float32 unless noted). On a
+    model axis they hold this rank's ``heads``: 3ci rows of ``w_qkv`` and
+    ``m_qkv``, ci columns of ``wo_q``, ``ratio`` and ``w_scale`` of those
+    heads (ci = heads·d); ``out_scale`` and ``ratio`` use the maximum of
+    ``wos`` over every rank's heads."""
 
     heads: int
     xs: float              # the input's static int8 scale
@@ -984,24 +1028,31 @@ class PaddedAttentionPack:
 
 @torch.no_grad()
 def pack_padded_attention(attn, heads: int, xs: float,
-                          attn_scale: float = ATTN_SCALE
+                          attn_scale: float = ATTN_SCALE, group=None
                           ) -> PaddedAttentionPack:
     """Quantize an attention's ``to_q/k/v/to_out`` weights per head
     (``quantize_head_weights``, the storage of
     ``prequantize_conv_tree(absorbed_attention=True)``) and pack K11's
     operands in the JAX package's float32 order (``_abs_padded_prep``
-    :1161)."""
+    :1161). ``heads`` is the attention's; where ``attn`` holds a rank's
+    heads (tensor parallelism: ``to_q`` ``[ci, C]``) the pack holds them,
+    and ``group`` (the model group's reductions) gives ``max(wos)`` over
+    every rank's heads: ``out_scale`` and ``ratio`` are one rank's, the
+    codes and ``m_qkv`` the slice of one rank's."""
     wq, wk, wv = (m.weight for m in (attn.to_q, attn.to_k, attn.to_v))
-    c = wq.shape[0]
-    d = c // heads
+    d = wq.shape[1] // heads
+    heads = wq.shape[0] // d
     q8, k8, v8, o8, scales = quantize_head_weights(
         wq, wk, wv, attn.to_out[0].weight, heads)
     xs32, as32 = np.float32(xs), np.float32(attn_scale)
     ratio = float(xs32 / as32)
-    per_col = scales.repeat_interleave(d, dim=1)          # [4, C]
+    per_col = scales.repeat_interleave(d, dim=1)          # [4, ci]
     m_qkv = torch.cat([per_col[i] * ratio for i in range(3)])
     wos = scales[3]
-    wos_max = np.maximum(np.float32(wos.max().item()), np.float32(1e-8))
+    top = wos.max()
+    if group is not None:
+        top = group.max(top)
+    wos_max = np.maximum(np.float32(top.item()), np.float32(1e-8))
     score = np.float32(as32 * as32) * np.float32(d ** -0.5)
     return PaddedAttentionPack(
         heads=heads, xs=float(xs32), score_scale=float(score),
@@ -1012,27 +1063,38 @@ def pack_padded_attention(attn, heads: int, xs: float,
         w_scale=scales.contiguous())
 
 
-def padded_attention_s8_reference(x: torch.Tensor,
-                                  p: PaddedAttentionPack) -> torch.Tensor:
+def padded_attention_s8_reference(x: torch.Tensor, p: PaddedAttentionPack,
+                                  partial: bool = False) -> torch.Tensor:
     """K11's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16):
     ``x8 = clip(rint(float(x) / xs))``, the three int8 projections
     requantized per column, per head ``e = exp((s - rowmax) + ln 127)``
     with ``denom = Σe`` over the fp32 e, ``e8 = rint(e)``, ``of8 =
     clip(rint(float(int32 e8·v8)·(ratio[h] / denom)))``, and
-    ``bf16(float(int32 of8·Wo8)·out_scale)``."""
+    ``bf16(float(int32 of8·Wo8)·out_scale)``; ``partial``: the int32
+    ``of8·Wo8`` of the pack's heads alone (a rank's)."""
     x8 = quantize_s8(x, torch.tensor(p.xs, device=x.device))
-    out = _padded_core(x8, p).float()
-    return (out * p.out_scale).to(torch.bfloat16)
+    out = _padded_core(x8, p)
+    if partial:
+        return out
+    return padded_attention_s8_finish(out, p)
+
+
+def padded_attention_s8_finish(o32: torch.Tensor,
+                               p: PaddedAttentionPack) -> torch.Tensor:
+    """K11's last rounding point on the int32 ``of8·Wo8`` (on a model axis
+    the exact sum of the ranks' partials): ``bf16(float(o32)·out_scale)``."""
+    return (o32.float() * p.out_scale).to(torch.bfloat16)
 
 
 def _padded_core(x8: torch.Tensor, p: "PaddedAttentionPack") -> torch.Tensor:
     """K11's steps 2-4 and the int32 ``of8·Wo8`` on the codes ``x8 [B, T,
-    C]``."""
+    C]`` (over the pack's ci inner columns)."""
     b, t, c = x8.shape
     h = p.heads
-    d = c // h
-    y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3C]
-    q8, k8, v8 = (torch.round(y[..., i * c:(i + 1) * c]).clamp_(-127, 127)
+    ci = p.w_qkv.shape[0] // 3
+    d = ci // h
+    y = exact_int8_matmul(x8, p.w_qkv).float() * p.m_qkv      # [B, T, 3ci]
+    q8, k8, v8 = (torch.round(y[..., i * ci:(i + 1) * ci]).clamp_(-127, 127)
                   .to(torch.int8).reshape(b, t, h, d).transpose(1, 2)
                   for i in range(3))                          # [B, H, T, d]
     s = exact_int8_matmul(q8, k8).float() * p.score_scale
@@ -1042,70 +1104,90 @@ def _padded_core(x8: torch.Tensor, p: "PaddedAttentionPack") -> torch.Tensor:
     o32 = exact_int8_matmul(e8, v8.transpose(-1, -2))
     of8 = torch.round(o32.float() * (p.ratio[:, None, None] / denom))
     of8 = of8.clamp_(-127, 127).to(torch.int8).transpose(1, 2)
-    return exact_int8_matmul(of8.reshape(b, t, c), p.wo_q)
+    return exact_int8_matmul(of8.reshape(b, t, ci), p.wo_q)
 
 
-def padded_attention_s8_fallback(x: torch.Tensor,
-                                 p: PaddedAttentionPack) -> torch.Tensor:
+def padded_attention_s8_fallback(x: torch.Tensor, p: PaddedAttentionPack,
+                                 partial: bool = False) -> torch.Tensor:
     """``absorbed_padded_self_attention_s8``'s float branch (:1244-1256)
     for the shapes K11 does not take: float attention on the dequantized
-    weights, x unquantized, in x's dtype."""
-    return _dequantized_attention(x.float(), p.w_qkv, p.wo_q, p.w_scale,
-                                  p.heads).to(x.dtype)
+    weights, x unquantized, in x's dtype; ``partial``: fp32, the pack's
+    heads alone (a rank's)."""
+    out = _dequantized_attention(x.float(), p.w_qkv, p.wo_q, p.w_scale,
+                                 p.heads)
+    return out if partial else out.to(x.dtype)
 
 
 @functools.cache
 def _padded_kernel():
     fn = _build.load("attention_s8").ldmseg_attention_padded_s8
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                   + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def padded_attention_plans(b: int, t: int, c: int, heads: int) -> tuple:
+def padded_attention_plans(b: int, t: int, c: int, heads: int,
+                           ci: Optional[int] = None) -> tuple:
     """K11's (and K10's without ``v_bf16``) four launch plans: the int8 Q/K
-    projection ``[B·T, 2C, C]``, the V projection with its operands swapped
-    ``[C, B·T, C]`` (its columns are tokens, so its epilogue writes
-    ``v8t``), the attention stage and the int8 ``to_out`` ``[B·T, C, C]``.
-    Raises ``ValueError`` on a shape the products do not take (C a
-    multiple of 16: a row of x8 is a tensor map's stride)."""
+    projection ``[B·T, 2ci, C]``, the V projection with its operands
+    swapped ``[ci, B·T, C]`` (its columns are tokens, so its epilogue
+    writes ``v8t``), the attention stage and the int8 ``to_out`` ``[B·T, C,
+    ci]``; ``ci`` the inner width of ``heads`` (a rank's on a model axis;
+    default C). Raises ``ValueError`` on a shape the products do not take
+    (C and ci multiples of 16: a row of x8 and of of8 is a tensor map's
+    stride)."""
     rows = b * t
-    if not gemm_takes(c, c, "int8") or rows % 8:
-        raise ValueError(f"C={c} must be a multiple of 16 and B*T={rows} "
-                         f"of 8 (the int8 products' operands)")
-    return (sm90_gemm_plan(rows, 2 * c, c, "int8"),
-            sm90_gemm_plan(c, rows, c, "int8"),
-            sm90_s8pv_attention_plan(b * heads, t, c // heads),
-            sm90_gemm_plan(rows, c, c, "int8"))
+    ci = c if ci is None else ci
+    if not (gemm_takes(ci, c, "int8") and gemm_takes(c, ci, "int8")) \
+            or rows % 8:
+        raise ValueError(f"C={c} and ci={ci} must be multiples of 16 and "
+                         f"B*T={rows} of 8 (the int8 products' operands)")
+    return (sm90_gemm_plan(rows, 2 * ci, c, "int8"),
+            sm90_gemm_plan(ci, rows, c, "int8"),
+            sm90_s8pv_attention_plan(b * heads, t, ci // heads),
+            sm90_gemm_plan(rows, c, ci, "int8"))
 
 
 @functools.lru_cache(maxsize=None)
-def _padded_plans_c(b: int, t: int, c: int, heads: int):
-    return plans_c(*padded_attention_plans(b, t, c, heads))
+def _padded_plans_c(b: int, t: int, c: int, heads: int,
+                    ci: Optional[int] = None):
+    return plans_c(*padded_attention_plans(b, t, c, heads, ci))
 
 
-def _padded_scratch(b: int, t: int, c: int, h: int, dev):
-    """x8 and of8 ``[B·T, C]`` and the attention stage's inputs (v8t zeroed
-    where T % 16 leaves positions that the V projection does not write)."""
-    x8, of8 = (torch.empty((b * t, c), dtype=torch.int8, device=dev)
-               for _ in range(2))
-    return (x8, *_s8_scratch(b, t, h, c // h, dev, zero_pad=True), of8)
+def _padded_scratch(b: int, t: int, c: int, h: int, dev,
+                    ci: Optional[int] = None):
+    """x8 ``[B·T, C]``, of8 ``[B·T, ci]`` and the attention stage's inputs
+    (v8t zeroed where T % 16 leaves positions that the V projection does
+    not write)."""
+    ci = c if ci is None else ci
+    x8 = torch.empty((b * t, c), dtype=torch.int8, device=dev)
+    of8 = torch.empty((b * t, ci), dtype=torch.int8, device=dev)
+    return (x8, *_s8_scratch(b, t, h, ci // h, dev, zero_pad=True), of8)
 
 
-def _padded_launch(x: torch.Tensor, p: PaddedAttentionPack) -> torch.Tensor:
+def _padded_launch(x: torch.Tensor, p: PaddedAttentionPack,
+                   partial: bool = False) -> torch.Tensor:
+    """K11 on the card; ``partial`` (a rank's heads): the int32 ``of8·Wo8``
+    ``[B, T, C]`` of the pack's heads, unscaled (``partial`` 1 of
+    ``ldmseg_attention_padded_s8``)."""
     b, t, c = x.shape
     h = p.heads
+    ci = p.w_qkv.shape[0] // 3
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"K11: x must be float32 or bfloat16, got "
                          f"{x.dtype}")
-    if c // h > MAX_HEAD_DIM or b * h > 65535 or x.numel() >= 2 ** 31:
-        raise ValueError(f"K11: head dim {c // h} (<= {MAX_HEAD_DIM}), "
+    if ci != c and not partial:
+        raise ValueError(f"K11: a pack of {ci} of {c} inner columns needs "
+                         f"the partial mode")
+    if ci // h > MAX_HEAD_DIM or b * h > 65535 or x.numel() >= 2 ** 31:
+        raise ValueError(f"K11: head dim {ci // h} (<= {MAX_HEAD_DIM}), "
                          f"B*heads {b * h} or {x.numel()} elements not "
                          f"taken")
     try:
-        plans = _padded_plans_c(b, t, c, h)
+        plans = _padded_plans_c(b, t, c, h, ci)
     except ValueError as e:
         raise ValueError(f"K11: {e}") from None
     x = x.contiguous()
@@ -1113,36 +1195,52 @@ def _padded_launch(x: torch.Tensor, p: PaddedAttentionPack) -> torch.Tensor:
     if any(o.device != x.device or not o.is_contiguous() for o in ops):
         raise ValueError("K11: the pack must be contiguous on x's device")
     dev = x.device
-    out = torch.empty((b, t, c), dtype=torch.bfloat16, device=dev)
-    scratch = _padded_scratch(b, t, c, h, dev)
+    out = torch.empty((b, t, c), dtype=torch.int32 if partial
+                      else torch.bfloat16, device=dev)
+    scratch = _padded_scratch(b, t, c, h, dev, ci)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _padded_kernel()(
             _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(),
             p.w_qkv.data_ptr(), p.m_qkv.data_ptr(), p.wo_q.data_ptr(),
             p.ratio.data_ptr(), *(z.data_ptr() for z in scratch), b, t, c,
-            h, p.xs, p.score_scale, p.out_scale, plans, stream)
+            ci, h, p.xs, p.score_scale, p.out_scale, int(partial), plans,
+            stream)
     if err != 0:
         raise RuntimeError(f"K11 launch failed: CUDA error {err}")
     return out
 
 
-def padded_attention_s8(x: torch.Tensor,
-                        p: PaddedAttentionPack) -> torch.Tensor:
+def padded_attention_s8(x: torch.Tensor, p: PaddedAttentionPack,
+                        group=None) -> torch.Tensor:
     """K11: ``to_out(attention(x))`` without the ``to_out`` bias for ``x
     [B, T, C]`` (no gradient), returned in x's dtype: the kernel's bf16
-    result cast as the JAX wrapper casts it."""
+    result cast as the JAX wrapper casts it. With ``group`` (a model axis:
+    ``p`` holds this rank's heads, its scales the group's ``max(wos)``)
+    the int32 partials are summed over the group, exactly
+    (``group.sum_exact``), then scaled and rounded once: one rank's result
+    bit for bit (the fallback's fp32 partials summed in fp32)."""
     b, t, c = x.shape
-    if not absorbed_takes_kernel(t, c, p.heads):
+    ci = p.w_qkv.shape[0] // 3
+    if not absorbed_takes_kernel(t, ci, p.heads):
         padded_attention_s8.fallbacks += 1
-        return padded_attention_s8_fallback(x, p)
+        if group is None:
+            return padded_attention_s8_fallback(x, p)
+        return group.sum(padded_attention_s8_fallback(x, p, True)).to(
+            x.dtype)
     if x.device.type == "cpu":
-        return padded_attention_s8_reference(x, p).to(x.dtype)
-    if x.device.type != "cuda":
+        if group is None:
+            return padded_attention_s8_reference(x, p).to(x.dtype)
+        part = padded_attention_s8_reference(x, p, partial=True)
+    elif x.device.type != "cuda":
         raise ValueError(f"K11: unsupported device {x.device}")
-    out = _padded_launch(x, p)
-    padded_attention_s8.launches += 1
-    return out.to(x.dtype)
+    else:
+        out = _padded_launch(x, p, partial=group is not None)
+        padded_attention_s8.launches += 1
+        if group is None:
+            return out.to(x.dtype)
+        part = out
+    return padded_attention_s8_finish(group.sum_exact(part), p).to(x.dtype)
 
 
 padded_attention_s8.launches = 0

@@ -56,6 +56,12 @@ that its columns are tokens and its output is channel-major
 (:func:`geglu_ln_s8_pout_fallback`, counted) is K4's, rounded to x's dtype,
 then the proj in fp32 on the float32 weight (:352-361). The result is the
 Transformer2D's output before its outer residual, which the caller adds.
+On a model axis K9 is K4's partial mode on a rank's columns (its two
+launches, the group's amax between them), the group's sum finished into
+the bf16 block output ``r`` (:func:`geglu_finish`), then the ``proj_out``
+stage alone on ``r`` with the whole ``proj_out`` weight, gathered at
+prepare time (``ldmseg_geglu_ln_s8_pout`` with ``proj_out_only`` 1; one
+launch counted).
 """
 
 from __future__ import annotations
@@ -319,10 +325,11 @@ def _kernel(entry: str):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                        + [ctypes.c_int, ctypes.c_float] + tail)
-    elif entry == "ldmseg_geglu_ln_s8_pout":   # K9
+    elif entry == "ldmseg_geglu_ln_s8_pout":   # K9, or its proj_out alone
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_float] + tail)
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                       + tail)
     elif entry == "ldmseg_geglu_s8":    # K12
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
@@ -435,7 +442,7 @@ def _launch(x: torch.Tensor, p: GegluPack, block: bool,
                 p.ln_w.data_ptr(), p.ln_b.data_ptr(), p.w1.data_ptr(),
                 p.s1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
                 p.s2.data_ptr(), p.b2.data_ptr(), p.wpo.data_ptr(),
-                p.bpo.data_ptr(), r.data_ptr(), *scratch, p.eps, plans,
+                p.bpo.data_ptr(), r.data_ptr(), *scratch, p.eps, 0, plans,
                 stream)
         elif block:
             err = _kernel("ldmseg_geglu_ln_s8")(
@@ -487,44 +494,101 @@ def with_proj_out(p: GegluPack, conv) -> GegluPack:
     (``pack_inference_tiles(fuse_projs=True)`` with the wrapper's
     ``proj_out[0].astype(bf16)``): the float32 weight ``[C_out, C_in]``
     cast to bf16 for the kernel and kept in float32 for the fallback, the
-    bias in float32 (``g`` row 3)."""
-    w = conv.weight.detach().float().reshape(conv.out_channels, -1)
+    bias in float32 (``g`` row 3). On a model axis ``conv`` is the whole
+    layer (``parallel/tp.py:whole_layer``) and ``p`` a rank's columns."""
+    w = conv.weight.detach().float().reshape(conv.weight.shape[0], -1)
     return dataclasses.replace(
         p, wpo=w.to(torch.bfloat16).contiguous(), wpo_f=w.contiguous(),
         bpo=_vec(conv.bias))
+
+
+def proj_out_reference(r: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """K9's ``proj_out`` stage in plain PyTorch: ``bf16(float(r)·
+    float(Wpo)ᵀ + b_po)`` with fp32 sums, ``r`` the block's output."""
+    return (r.float() @ p.wpo.float().t() + p.bpo).to(torch.bfloat16)
 
 
 def geglu_ln_s8_pout_reference(x: torch.Tensor, p: GegluPack,
                                block_t: int = BLOCK_T) -> torch.Tensor:
     """K9's arithmetic in plain PyTorch (``[B, T, C]`` -> bf16): K4's
     output rounded to bf16 (:func:`geglu_ln_s8_reference`), then
-    ``bf16(float(r)·float(Wpo)ᵀ + b_po)`` with fp32 sums."""
-    r = geglu_ln_s8_reference(x, p, block_t)
-    return (r.float() @ p.wpo.float().t() + p.bpo).to(torch.bfloat16)
+    :func:`proj_out_reference`."""
+    return proj_out_reference(geglu_ln_s8_reference(x, p, block_t), p)
 
 
-def geglu_ln_s8_pout_fallback(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+def geglu_ln_s8_pout_fallback(x: torch.Tensor, p: GegluPack,
+                              group=None) -> torch.Tensor:
     """The JAX wrapper's branch with ``proj_out`` for the shapes K9 does
-    not take (:352-361): :func:`geglu_ln_s8_fallback` (in x's dtype), then
-    the proj in fp32 on the float32 weight plus the bias, rounded to x's
-    dtype."""
-    r = geglu_ln_s8_fallback(x, p)
+    not take (:352-361): :func:`geglu_ln_s8_fallback` (in x's dtype; with
+    ``group`` its partial over a rank's columns, summed, then finished),
+    then the proj in fp32 on the float32 weight plus the bias, rounded to
+    x's dtype."""
+    if group is None:
+        r = geglu_ln_s8_fallback(x, p)
+    else:
+        r = geglu_finish(x, group.sum(geglu_ln_s8_fallback(x, p, True,
+                                                           group)),
+                         p, True, fallback=True)
     return (r.float() @ p.wpo_f.t() + p.bpo).to(x.dtype)
 
 
-def geglu_ln_s8_pout(x: torch.Tensor, p: GegluPack) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _pout_plan_c(b: int, t: int, c: int):
+    return plans_c(pout_plan(b, t, c))
+
+
+def _proj_out_launch(r: torch.Tensor, p: GegluPack) -> torch.Tensor:
+    """K9's ``proj_out`` stage alone on the card (``proj_out_only`` 1):
+    the bf16 block output ``r [B, T, C]`` -> ``bf16(r·Wpoᵀ + b_po)`` as the
+    tokens view of a channel-major ``[B, C, T]``."""
+    b, t, c = r.shape
+    r = r.to(torch.bfloat16).contiguous()
+    if any(o is None or o.device != r.device or not o.is_contiguous()
+           for o in (p.wpo, p.bpo)):
+        raise ValueError("K9: the pack must carry proj_out, contiguous on "
+                         "x's device")
+    try:
+        plan = _pout_plan_c(b, t, c)
+    except ValueError as e:
+        raise ValueError(f"K9: {e}") from None
+    out = torch.empty((b, c, t), dtype=torch.bfloat16, device=r.device)
+    with torch.cuda.device(r.device):
+        err = _kernel("ldmseg_geglu_ln_s8_pout")(
+            1, None, out.data_ptr(), None, None, None, None, None, None, None,
+            None, p.wpo.data_ptr(), p.bpo.data_ptr(), r.data_ptr(), None,
+            None, None, None, b, t, c, 0, 0, 0.0, 0.0, 0, 0.0, 1, plan,
+            torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K9 proj_out launch failed: CUDA error {err}")
+    return out.transpose(1, 2)
+
+
+def geglu_ln_s8_pout(x: torch.Tensor, p: GegluPack,
+                     group=None) -> torch.Tensor:
     """K9: ``proj_out(x + FF(LN(x))) + b_po`` for ``x [B, T, C]`` (the
     Transformer2D's output before its outer residual), in ``x``'s dtype.
     On the card the result is the tokens view of a channel-major ``[B, C,
-    T]`` tensor: the NCHW layout of the residual add."""
+    T]`` tensor: the NCHW layout of the residual add. With ``group`` (a
+    model axis: ``p`` holds this rank's GEGLU columns and the whole
+    ``proj_out``) the ranks' FF partials are summed and rounded into the
+    block output ``r`` first (``proj_out`` reads every channel of it)."""
     if not takes_kernel(x.shape[1]):
         geglu_ln_s8_pout.fallbacks += 1
-        return geglu_ln_s8_pout_fallback(x, p)
+        return geglu_ln_s8_pout_fallback(x, p, group)
     if x.device.type == "cpu":
-        return geglu_ln_s8_pout_reference(x, p).to(x.dtype)
+        if group is None:
+            return geglu_ln_s8_pout_reference(x, p).to(x.dtype)
+        part = geglu_ln_s8_reference(x, p, partial=True, group=group)
+        r = geglu_finish(x, group.sum(part), p, True, fallback=False)
+        return proj_out_reference(r, p).to(x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K9: unsupported device {x.device}")
-    out = _launch(x, p, block=True, pout=True)
+    if group is None:
+        out = _launch(x, p, block=True, pout=True)
+    else:
+        part = _launch(x, p, block=True, group=group)
+        r = geglu_finish(x, group.sum(part), p, True, fallback=False)
+        out = _proj_out_launch(r, p)
     geglu_ln_s8_pout.launches += 1
     return out.to(x.dtype)
 

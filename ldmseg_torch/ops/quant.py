@@ -374,12 +374,20 @@ def prepare_int8_unet(int8_unet: nn.Module, masters: nn.Module,
     branch does (:201-208), whatever the site says; the JAX trainer
     prequantizes with ``absorbed_attention=fused_norms``, so its unfused
     int8 UNet never reads the site."""
+    from ..parallel.tp import whole_layer
     for m in int8_unet.modules():
         if hasattr(m, "absorbed_storage"):
             m.absorbed_storage = absorbed_attention
     src = dict(masters.named_parameters())
     for name, p in int8_unet.named_parameters():
-        p.copy_(src[name])
+        value = src[name]
+        if value.shape != p.shape:
+            # whole here, cut in the masters (K11 on heads that a model
+            # axis does not divide): the shards gathered
+            module, _, field = name.rpartition(".")
+            value = getattr(whole_layer(masters.get_submodule(module)),
+                            field)
+        p.copy_(value)
     for name, m in reversed(list(int8_unet.named_modules())):
         if callable(getattr(m, "prepare", None)):
             m.prepare(masters.get_submodule(name))

@@ -63,12 +63,27 @@ of the one-rank ones:
   * an s8 conv (``QuantConv2d``: the resnets', Down- and Upsample's) is
     column-parallel (:class:`ColumnQuantConv2d`), its per-output-channel
     codes a slice; its input is replicated, so a dynamic per-tensor scale
-    is the same on every rank;
+    is the same on every rank; with ``int8_fuse_gn`` K6 runs whole on the
+    replicated activation and hands the conv its ``(codes, scales)``,
+    which pass without a collective (no gradient on that path);
   * K3 (``LNAttentionS8``) packs a rank's heads (``w_qkv [3ci, C]``,
     ``wo [C, ci]``, per-head scales) and K4 (``LNFeedForwardS8``) a rank's
     GEGLU columns (``w1``'s paired rows, ``w2 [C, M/n]``); each writes its
     fp32 partial, summed over the group (:class:`ModelGroup`, their
     ``tp_group``) before the residual and bias are added and rounded once;
+  * with ``use_fused_projs`` K8 and K9 take Transformer2D's 1x1
+    ``proj_in`` and ``proj_out`` whole on every rank, gathered from the
+    cut masters at prepare time (:func:`whole_layer`): K8's prologue
+    builds the fp32 residual stream over all C (the LayerNorm reads every
+    channel), K3's partial mode follows on a rank's heads and the finish
+    rounds ``xf`` plus the summed partials once; K9 is K4's partial mode,
+    the sum rounded into the block output, then its ``proj_out`` stage;
+  * K11 (``PaddedAttentionS8``, ``use_padded_attention`` without fused
+    norms) keeps its four projections' plain ``Linear`` class holding a
+    rank's heads, as an absorbed attention does; its pack takes the
+    group's maximum of the ``to_out`` head scales (``out_scale`` and each
+    head's ratio read it), and its int32 ``to_out`` partials are summed
+    exactly (:meth:`ModelGroup.sum_exact`): one rank's output bit for bit;
   * without fused norms, ``ff.net.0.proj`` is a column-parallel
     ``QuantLinear`` (:class:`ColumnQuantLinear`) and ``ff.net.2`` a
     row-parallel one (:class:`RowQuantLinear`: its int32 partials
@@ -87,8 +102,10 @@ of the one-rank ones:
     site;
   * where the axis does not divide a block's heads, its attentions take
     no group (their q, k and v are gathered, as in the float UNet, or an
-    absorbed one stays whole); where it does not divide the 4C GEGLU
-    columns, the feed-forward stays whole and takes none.
+    absorbed one and K11 stay whole); K3 and K8 then run the one-rank
+    kernel on every rank, on a pack of the masters' attention gathered
+    whole (:func:`whole_attention`); where the axis does not divide the 4C
+    GEGLU columns, the feed-forward stays whole and takes none.
 
 Conditioning takes the same rules: ``attn2``'s ``to_q``/``to_k``/``to_v``
 are column-parallel (``to_k``/``to_v`` on the replicated context),
@@ -98,6 +115,7 @@ gather; ``object_queries`` stay replicated.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -107,7 +125,8 @@ from torch import nn
 
 from ..ops.quant import (QuantConv2d, QuantLinear, int8_matmul,
                          quantize_activation)
-from .sp import Axis, all_gather, all_reduce_max, group_scale, model_axis
+from .sp import (Axis, all_gather, all_reduce_max, all_reduce_sum,
+                 group_scale, model_axis)
 
 ROW_PARALLEL_MARKERS = ("to_out", "proj_out")
 REPLICATED_MARKERS = ("norm", "ln", "time_embedding", "codebook")
@@ -219,12 +238,14 @@ def scatter_to(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
 # parameters keep their names)
 # ---------------------------------------------------------------------------
 class ColumnConv2d(nn.Conv2d):
-    """This rank's output channels; gathered."""
+    """This rank's output channels; gathered. K6's ``(codes, scales)``
+    input (an s8 conv's, inference only) passes as it is."""
     tp: Axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(copy_to(x, self.tp))
-        return gather_from(y, self.tp, 1)
+        if not isinstance(x, tuple):
+            x = copy_to(x, self.tp)
+        return gather_from(super().forward(x), self.tp, 1)
 
 
 class RowConv2d(nn.Conv2d):
@@ -275,8 +296,9 @@ class RowLinear(nn.Linear):
 class ModelGroup:
     """The model group's reductions that the int8 ops take as ``group``
     (``apply_tp`` sets them as ``tp_group`` on a module whose projections
-    it cut): ``sum`` adds the ranks' fp32 partials (in fp32), ``max`` takes
-    the maximum of the ranks' amaxes (exact, any dtype); and the
+    it cut): ``sum`` adds the ranks' fp32 partials (in fp32),
+    ``sum_exact`` their integer partials, ``max`` takes the maximum of the
+    ranks' amaxes (exact, any dtype); and the
     collectives with their backward that K16's partial mode runs between
     (``copy_to``, ``reduce_from``)."""
 
@@ -285,6 +307,11 @@ class ModelGroup:
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         return _reduce(x.float(), self.ax)
+
+    def sum_exact(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' integer partials (K11's int32 ``to_out``),
+        exact, in their dtype."""
+        return all_reduce_sum(x, self.ax)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce_max(x, self.ax)
@@ -351,6 +378,37 @@ def whole_tensor(shards: Sequence[torch.Tensor], dim: int,
     return torch.cat([h[k] for k in range(pairs) for h in halves], dim)
 
 
+def whole_layer(m: nn.Module):
+    """The whole weight and bias of a layer that :func:`apply_tp` cut,
+    its ranks' shards gathered in rank order (a collective over the model
+    group): a column-parallel layer's output rows and bias, a row-parallel
+    one's input columns (its bias is replicated). Returned as an object
+    with ``weight`` and ``bias``; a layer it did not cut (no model axis,
+    or a dimension the axis does not divide) is returned as it is. Not for
+    GEGLU's paired ``proj``."""
+    ax = getattr(m, "tp", None)
+    if ax is None:
+        return m
+    column = isinstance(m, (ColumnConv2d, ColumnLinear))
+    bias = m.bias
+    if bias is not None and column:
+        bias = all_gather(bias.detach(), ax, 0)
+    return SimpleNamespace(weight=all_gather(m.weight.detach(), ax,
+                                             0 if column else 1), bias=bias)
+
+
+def whole_attention(attn: nn.Module):
+    """An attention's four projections whole (:func:`whole_layer` each),
+    for packing a kernel that runs the whole attention on every rank (K3,
+    K8 and K11 where the axis does not divide the heads); ``attn`` itself
+    where none of them was cut."""
+    layers = (attn.to_q, attn.to_k, attn.to_v, attn.to_out[0])
+    if all(getattr(m, "tp", None) is None for m in layers):
+        return attn
+    q, k, v, o = (whole_layer(m) for m in layers)
+    return SimpleNamespace(to_q=q, to_k=k, to_v=v, to_out=[o])
+
+
 # the attribute on a TP UNet: {parameter name: (torch dim, pairs)}
 LAYOUT = "_tp_layout"
 
@@ -361,7 +419,7 @@ def layout(module: nn.Module) -> Dict[str, Tuple[int, int]]:
 
 
 _REFUSED = ("separate_conv", "separate_encoder", "add_adaptor",
-            "upscaler_classes", "use_fused_projs", "int8_fuse_gn")
+            "upscaler_classes")
 # the layers apply_tp cuts: (column-parallel class, row-parallel class)
 _CUT = {nn.Conv2d: (ColumnConv2d, RowConv2d),
         nn.Linear: (ColumnLinear, RowLinear),
@@ -376,7 +434,8 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
     Without a model axis nothing changes. A UNet option that the model axis
     does not take raises ``NotImplementedError`` naming it. Returns
     ``unet``."""
-    from ..models.unet import BasicTransformerBlock, CrossAttention
+    from ..models.unet import (BasicTransformerBlock, CrossAttention,
+                               PaddedAttentionS8)
     ax = model_axis(mesh)
     if ax is None:
         return unet
@@ -384,12 +443,6 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
         raise RuntimeError("apply_tp: the UNet is cut already")
     cfg = unet.config
     refused = [key for key in _REFUSED if getattr(cfg, key)]
-    if cfg.use_padded_attention and not cfg.use_fused_norms:
-        refused.append("use_padded_attention (K11, without "
-                       "use_fused_norms)")
-    if cfg.use_fused_norms and cfg.attention_head_dim % ax.size:
-        refused.append(f"use_fused_norms with {cfg.attention_head_dim} "
-                       "heads (K3 on a rank's heads)")
     if refused:
         raise NotImplementedError(
             f"UNetConfig.{refused[0]} with tensor parallelism over a model "
@@ -401,11 +454,11 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
     # attention whose heads the axis cuts keeps q, k and v local (else it
     # gathers them and scatters to_out's input); a feed-forward whose 4C
     # columns it cuts runs on a rank's columns (else it stays whole). The
-    # int8 blocks (K3, K4, K12, K13, K15, K17) get the group where their
-    # pack or projections hold a rank's share, and only there. An absorbed
-    # attention (K16, K17) reads its four weights itself: they are cut
-    # where the axis divides its heads and keep their plain class
-    # (``weights_only``), else the attention stays whole.
+    # int8 blocks (K3, K4, K8, K9, K11, K12, K13, K15, K17) get the group
+    # where their pack or projections hold a rank's share, and only there.
+    # An absorbed attention (K16, K17) and K11 read their four weights
+    # themselves: they are cut where the axis divides the heads and keep
+    # their plain class (``weights_only``), else the attention stays whole.
     local_out, paired, local_in, whole = set(), set(), set(), set()
     weights_only = set()
     for bn, blk in unet.named_modules():
@@ -418,12 +471,14 @@ def apply_tp(mesh, unet: nn.Module) -> nn.Module:
                 continue
             projs = [f"{bn}.{an}.{p}" for p in ("to_q", "to_k", "to_v",
                                                 "to_out.0")]
-            if getattr(attn, "absorbed", False):
+            reads_weights = (getattr(attn, "absorbed", False)
+                             or isinstance(attn, PaddedAttentionS8))
+            if reads_weights:
                 (weights_only if heads_cut else whole).update(projs)
             if not heads_cut:
                 continue
             attn.tp_group = group
-            if isinstance(attn, CrossAttention) and not attn.absorbed:
+            if isinstance(attn, CrossAttention) and not reads_weights:
                 local_out.update(projs[:3])
                 local_in.add(projs[3])
         names = (f"{bn}.ff.net.0.proj", f"{bn}.ff.net.2")

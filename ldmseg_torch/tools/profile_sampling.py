@@ -98,17 +98,22 @@ PADDED_FLAGS = dict(use_int8_conv=True, int8_act_scale=0.05,
 
 
 def int8_unet_from(masters, flags: dict, dtype=torch.bfloat16,
-                   scales=None, absorbed_attention: bool = False):
+                   scales=None, absorbed_attention: bool = False,
+                   mesh=None):
     """A UNet with the int8 ``flags`` on the float UNet ``masters``'
     config, filled from it by ``prepare_int8_unet`` (with the activation
     ``scales`` of ``calibrate_int8`` when given, and its
     ``absorbed_attention`` switch), in ``dtype`` on its device, without
-    gradients (K11 and K17 are inference only)."""
+    gradients (K11 and K17 are inference only). With ``mesh`` (a model
+    axis: ``masters`` cut by ``parallel/tp.py:apply_tp``) it is cut the
+    same way first, its codes this rank's."""
     from ldmseg_torch.models.unet import UNet2DCondition
     from ldmseg_torch.ops.quant import apply_act_scales, prepare_int8_unet
+    from ldmseg_torch.parallel.tp import apply_tp
     device = next(masters.parameters()).device
     with torch.device(device):
         unet = UNet2DCondition(dataclasses.replace(masters.config, **flags))
+    apply_tp(mesh, unet)
     unet.to(dtype).eval().requires_grad_(False)
     apply_act_scales(unet, scales)
     prepare_int8_unet(unet, masters, absorbed_attention=absorbed_attention)
@@ -116,10 +121,12 @@ def int8_unet_from(masters, flags: dict, dtype=torch.bfloat16,
 
 
 def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
-                  steps: int = 50, graph=None) -> torch.Tensor:
-    """The port's ``ddim_sample`` with self-conditioning on ``unet``, the
-    RGB latents ``rgb`` beside the noisy ones as the trainer feeds them
-    (a CUDA graph on the card unless ``graph`` is False)."""
+                  steps: int = 50, graph=None,
+                  self_condition: bool = True) -> torch.Tensor:
+    """The port's ``ddim_sample`` on ``unet``, the RGB latents ``rgb``
+    beside the noisy ones (and the self-condition, unless
+    ``self_condition`` is False) as the trainer feeds them (a CUDA graph on
+    the card unless ``graph`` is False)."""
     from ldmseg_torch.diffusion.ddim import make_ddim_schedule
     from ldmseg_torch.diffusion.sampler import ddim_sample
     from ldmseg_torch.utils.config import DEFAULT_CONFIG
@@ -127,11 +134,11 @@ def padded_sample(unet, rgb: torch.Tensor, noise: torch.Tensor,
                                device=rgb.device)
 
     def model_fn(z, cond, t):
-        x = torch.cat([z, rgb, cond], dim=1).to(rgb.dtype)
-        return unet(x, t)
+        parts = [z, rgb] + ([cond] if self_condition else [])
+        return unet(torch.cat(parts, dim=1).to(rgb.dtype), t)
     with torch.no_grad():
         return ddim_sample(sched, model_fn, noise, steps,
-                           self_condition=True, graph=graph)
+                           self_condition=self_condition, graph=graph)
 
 
 def unet_config_for(gn: bool = False, projs: bool = False,

@@ -121,7 +121,10 @@ logits gathered before post-processing). Serving takes the model axis
 whole: the int8 UNet (fused norms or not) is cut as the float one (K3 and
 K4, or K13 and K12, on a rank's heads and GEGLU columns, their partials
 summed over the model group; with the packed or absorbed flag K15 on a
-rank's heads with the group's amaxes, or K17's partial mode), its codes
+rank's heads with the group's amaxes, or K17's partial mode; with
+``use_fused_projs`` K8 and K9 in their partial modes, Transformer2D's 1x1
+convs whole; with ``int8_fuse_gn`` K6 whole into the cut s8 convs; on
+heads the axis does not divide, K3 and K8 whole on every rank), its codes
 quantized from the cut masters and its calibration taken on them, the
 same scales on every rank; the
 int8 image VAE and seg decoder run under ``spatial_parallel`` on a rank's
@@ -187,23 +190,17 @@ _EXTERNAL_CONTEXT = ("none", "clip_text", "clip_vision")
 _FRAME_KEYS = ("image", "image_semseg", "semseg", "mask", "inpainting_mask")
 
 
-def refuse_model_axis(p: Mapping, mesh, unet_config: UNetConfig) -> None:
+def refuse_model_axis(p: Mapping, mesh) -> None:
     """The options that a model axis of more than one rank does not take in
     the port yet raise ``NotImplementedError`` naming each of them (JAX
-    computes every one of them on a model axis), an int8 UNet with one of
-    them too. Without a model axis nothing is refused. The packed and
-    absorbed attentions are taken, float and int8 alike; K11 without fused
-    norms, ``int8_fuse_gn`` and fused norms on heads the axis does not
-    divide are refused by ``parallel/tp.py:apply_tp``."""
+    computes every one of them on a model axis). Without a model axis
+    nothing is refused. Every UNet option of the float and the int8 UNet
+    is taken but the surgery flags, which ``parallel/tp.py:apply_tp``
+    refuses (``add_adaptor``, ``upscaler_classes``) or this names."""
     if mesh.model <= 1:
         return
-    tk, mk, sk = (p["train_kwargs"], p["model_kwargs"],
-                  p["sampling_kwargs"])
+    tk, mk = p["train_kwargs"], p["model_kwargs"]
     refused = []
-    int8 = (" with sampling_kwargs.int8_inference"
-            if sk.get("int8_inference", False) else "")
-    if unet_config.use_fused_projs:
-        refused.append(f"unet_config.use_fused_projs{int8}")
     for key in ("separate_conv", "separate_encoder"):
         if mk.get(key, False):
             refused.append(f"model_kwargs.{key}")
@@ -320,7 +317,7 @@ class TrainerDiffusion(PanopticRestore):
                                               False),
                 remat_policy=tk.get("remat_policy"))
         self.unet_config = unet_config
-        refuse_model_axis(p, self.mesh, unet_config)
+        refuse_model_axis(p, self.mesh)
         # built without storage; init_params / load_jax_params fill them
         # int8 sampling (trainer_ldm.py:157-193): the UNet the JAX trainer
         # builds with the int8 flags (:163-176), beside the float one

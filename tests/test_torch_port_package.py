@@ -279,6 +279,26 @@ def _cut_int8_unet(t):
             and isinstance(blk.ff.tp_group, tp.ModelGroup))
 
 
+def _float_projs_cut(t):
+    # the float UNet with use_fused_projs is cut as without it
+    from ldmseg_torch.parallel import tp
+    blk = t.unet.down_blocks[0].attentions[0]
+    return bool(tp.layout(t.unet) and isinstance(blk.proj_in, tp.ColumnConv2d)
+                and isinstance(blk.proj_out, tp.RowConv2d)
+                and not blk.fused_projs)
+
+
+def _fused_projs_grouped(t):
+    from ldmseg_torch.models.unet import LNAttentionS8, LNFeedForwardS8
+    from ldmseg_torch.parallel import tp
+    blk = t._unet_int8.down_blocks[0].attentions[0]
+    a, f = blk.transformer_blocks[0].attn1, blk.transformer_blocks[0].ff
+    return (blk.fused_projs and type(a) is LNAttentionS8 and a.proj_in
+            and type(f) is LNFeedForwardS8 and f.proj_out
+            and isinstance(a.tp_group, tp.ModelGroup)
+            and isinstance(f.tp_group, tp.ModelGroup))
+
+
 # ported since (test_torch_port_model_axis_serving,
 # test_torch_port_model_axis_context): with a model axis of 2 each takes
 # effect on a small trainer (a mesh without a group: the cuts and the class
@@ -299,6 +319,12 @@ MODEL_AXIS_NOW_PORTED = {
         _attn1_cut(t, "packed") and _cut_int8_unet(t)),
     "use_absorbed_attention with sampling_kwargs.int8_inference": lambda t: (
         _attn1_cut(t, "absorbed") and _cut_int8_unet(t)),
+    # test_torch_port_model_axis_int8_options*: a float UNet takes the flag
+    # as it is (it needs fused norms); the int8 one's K8 and K9 hold the
+    # group, its 1x1 convs cut as the masters'
+    "use_fused_projs": _float_projs_cut,
+    "use_fused_projs with sampling_kwargs.int8_inference": lambda t: (
+        _cut_int8_unet(t) and _fused_projs_grouped(t)),
 }
 
 
@@ -1251,6 +1277,15 @@ def test_absorbed_sources_are_built_by_the_port():
     assert fwd.count('extern "C" int ldmseg_attention_absorbed') == 1
     assert s8.count('extern "C" int ldmseg_attention_absorbed') == 2
     assert s8.count('extern "C" int ldmseg_attention_packed_s8') == 1
+    # and so are K3's, K8's, K9's and K11's (their inner width, partial
+    # flag, K9's proj_out stage alone)
+    ln = (ROOT / "ldmseg_torch/csrc/attention_ln_s8.cu").read_text()
+    geglu = (ROOT / "ldmseg_torch/csrc/geglu_ln_s8.cu").read_text()
+    # K3, K8 and K10's entries, no K3 partial one
+    assert ln.count('extern "C" int ldmseg_attention_ln_s8') == 3
+    assert "_partial(" not in ln
+    assert s8.count('extern "C" int ldmseg_attention_padded_s8') == 1
+    assert geglu.count('extern "C" int ldmseg_geglu_ln_s8_pout') == 1
 
 
 def test_trainer_carries_the_absorbed_flag_into_both_unets():

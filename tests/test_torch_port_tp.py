@@ -348,17 +348,65 @@ def test_apply_tp_refuses_what_it_does_not_take(key):
         tp.apply_tp(Mesh(model=2), unet)
 
 
+def _padded_cut(unet):
+    # K11 reads its four weights itself: plain Linear layers holding a
+    # rank's heads, the model group as tp_group
+    from ldmseg_torch.models.unet import PaddedAttentionS8
+    blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    a, lay = blk.attn1, tp.layout(unet)
+    name = "down_blocks.0.attentions.0.transformer_blocks.0.attn1"
+    return (type(a) is PaddedAttentionS8
+            and type(a.to_q) is torch.nn.Linear
+            and type(a.to_out[0]) is torch.nn.Linear
+            and isinstance(a.tp_group, tp.ModelGroup)
+            and lay[f"{name}.to_q.weight"] == (0, 1)
+            and lay[f"{name}.to_out.0.weight"] == (1, 1)
+            and tuple(a.to_q.weight.shape) == (8, 16)
+            and tuple(a.to_out[0].weight.shape) == (16, 8))
+
+
+def _fuse_gn_cut(unet):
+    # K6 whole on the replicated activation (its norms replicated), into
+    # the column-parallel s8 convs
+    from ldmseg_torch.models.layers import ResnetBlock
+    res = [m for m in unet.modules() if isinstance(m, ResnetBlock)]
+    return (_s8_convs_cut(unet) and res
+            and all(m.norm1.quantize and m.norm2.quantize for m in res)
+            and not any(".norm" in n for n in tp.layout(unet)))
+
+
+def _undivided_k3(unet):
+    # 3 heads over 2 ranks: K3 takes no group (the one-rank kernel on a
+    # whole pack on every rank), K4 a rank's 4C columns
+    from ldmseg_torch.models.unet import LNAttentionS8
+    blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    return (type(blk.attn1) is LNAttentionS8 and blk.attn1.tp_group is None
+            and isinstance(blk.ff.tp_group, tp.ModelGroup))
+
+
+# the int8 options apply_tp takes since, with what their cut
+# makes (held against one rank and JAX in
+# test_torch_port_model_axis_int8_options*)
+INT8_NOW_TAKEN = {"use_padded_attention": _padded_cut,
+                  "int8_fuse_gn": _fuse_gn_cut,
+                  "use_fused_norms": _undivided_k3}
+
+
 @pytest.mark.parametrize("key", ["use_padded_attention", "int8_fuse_gn",
                                  "use_fused_norms"])
 def test_apply_tp_refuses_the_int8_options_it_does_not_take(key):
     # K11 (padded attention without fused norms), K6, and K3 where the
-    # axis does not divide the heads
+    # axis does not divide the heads: all taken now
     kw = dict(TOY, use_int8_conv=True, **{key: True})
     if key == "use_fused_norms":
         kw.update(SPLIT, use_padded_attention=True, use_int8_conv=True,
-                  use_fused_norms=True)
+                  use_fused_norms=True, use_int8_ff=True, use_fused_ff=True)
     with torch.device("meta"):
         unet = UNet2DCondition(UNetConfig(**kw))
+    if key in INT8_NOW_TAKEN:
+        tp.apply_tp(Mesh(model=2), unet)
+        assert INT8_NOW_TAKEN[key](unet)
+        return
     with pytest.raises(NotImplementedError, match=key):
         tp.apply_tp(Mesh(model=2), unet)
 

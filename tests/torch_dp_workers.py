@@ -869,3 +869,166 @@ def compute_pq_axis(rank: int, spec: dict) -> dict:
     tr.init_params(seed=spec["seed"])
     _sharpen_seg_decoder(tr, spec["sharpen"])
     return tr.compute_pq(num_inference_steps=spec["steps"])
+
+
+# ---------------------------------------------------------------------------
+# the last int8 options on the model axis: use_fused_projs (K8, K9), K11 on
+# a rank's heads, int8_fuse_gn (K6), fused norms on undivided heads
+# ---------------------------------------------------------------------------
+def int8_packs(unet) -> dict:
+    """Every tensor and number of every kernel pack a prepared int8 UNet
+    holds (K3/K8's, K4/K9's, K11's, K12's), by module name and field."""
+    import dataclasses
+    out = {}
+    for name, m in unet.named_modules():
+        pack = getattr(m, "pack", None)
+        if pack is None:
+            continue
+        for f in dataclasses.fields(pack):
+            v = getattr(pack, f.name)
+            if v is not None:
+                out[f"{name}.pack.{f.name}"] = (
+                    v.clone() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def int8_option_partials(mesh, cases: list) -> list:
+    """K8's, K9's and K11's plain versions (and fallbacks) in their
+    model-axis modes on this rank's shard of each case, through the ops as
+    the int8 blocks call them: the attention's and the feed-forward's
+    layers cut by ``apply_tp``'s rules, the 1x1 convs whole, the packs
+    made with the model group (K11's ``max(wos)``), the op with it. With
+    ``mesh`` None the one-rank op on the whole pack."""
+    from ldmseg_torch.ops import attention_s8 as A
+    from ldmseg_torch.ops import geglu as G
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.sp import model_axis
+    ax = model_axis(mesh)
+    group = None if ax is None else tp.ModelGroup(ax)
+    out = []
+    for case in cases:
+        x, kind = case["x"], case["kind"]
+        if kind in ("K8", "K11"):
+            attn = case["attn"]
+            if ax is not None:
+                _cut(ax, [(attn.to_q, 0, 1), (attn.to_k, 0, 1),
+                          (attn.to_v, 0, 1), (attn.to_out[0], 1, 1)])
+        if kind == "K8":
+            p = A.with_proj_in(A.pack_ln_attention(
+                case["norm"], attn, case["heads"], case["xs"]),
+                case["conv"])
+            y = A.ln_attention_s8_pin(x, p, group)
+        elif kind == "K9":
+            ff = case["ff"]
+            if ax is not None:
+                _cut(ax, [(ff.net[0].proj, 0, 2), (ff.net[2], 1, 1)])
+            p = G.with_proj_out(G.pack_geglu(
+                case["norm"], ff.net[0].proj, ff.net[2], case["xs"],
+                case["gs"]), case["conv"])
+            y = G.geglu_ln_s8_pout(x, p, group)
+        else:
+            p = A.pack_padded_attention(attn, case["heads"], case["xs"],
+                                        group=group)
+            y = A.padded_attention_s8(x, p, group)
+        out.append(y)
+    return out
+
+
+def int8_option_runs(mesh, spec: dict) -> dict:
+    """For each ``{key: run}`` of ``spec["runs"]`` a trainer of
+    ``run["cfg"]`` (on ``mesh``; None: one rank) on the UNet of
+    ``run["unet_kw"]`` with the weights of ``init_params(spec["seed"])``:
+    ``calibrate_int8`` on the whole ``spec["image"]`` and
+    ``spec["calib_noise"]`` (the scales), then on ``run["scales"]`` where
+    given (one rank's) a ``sample_panoptic`` of this data rank's rows of
+    ``spec["image"]`` from its rows of ``spec["init"]`` (x0); or with
+    ``run["k11"]`` (the K11 UNet's flags) the UNet-level path:
+    ``int8_unet_from`` the cut masters (``apply_tp``, then
+    ``prepare_int8_unet``) on ``run["scales"]`` and ``spec["steps"]``
+    steps of ``ddim_sample`` on its rows of ``spec["rgb"]``. Each with one
+    int8 UNet forward of ``spec["forward"]`` (NCHW input, timesteps), the
+    int8 UNet's packs, the modules holding the model group, the cut
+    parameters and the fallbacks of K3, K4, K6, K8, K9, K11 and K12 it
+    took; K11 also with each grouped pack's ``out_scale`` from a
+    rank-local ``max(wos)`` (the planted control). ``run["float"]``: the
+    float x0 and forward too (the quantization's effect)."""
+    import ldmseg_torch.train.trainer_ldm as tl
+    from ldmseg_torch.models.unet import PaddedAttentionS8, UNetConfig
+    from ldmseg_torch.ops import attention_s8 as A
+    from ldmseg_torch.ops import geglu as G
+    from ldmseg_torch.ops import groupnorm_silu as GN
+    from ldmseg_torch.parallel import tp
+    from ldmseg_torch.parallel.mesh import make_mesh as one_rank
+    from ldmseg_torch.tools.profile_sampling import (int8_unet_from,
+                                                     padded_sample)
+    counters = (A.ln_attention_s8, G.geglu_ln_s8, GN.group_norm_silu_quant,
+                A.ln_attention_s8_pin, G.geglu_ln_s8_pout,
+                A.padded_attention_s8, G.fused_geglu_s8)
+    rows = (lambda x: x) if mesh is None else (lambda x: _rows(x, mesh))
+    out = {}
+    for key, run in spec["runs"].items():
+        before = [f.fallbacks for f in counters]
+        tr = tl.TrainerDiffusion(run["cfg"], unet_config=UNetConfig(
+            **run["unet_kw"]), device="cpu",
+            mesh=one_rank() if mesh is None else mesh)
+        tr.init_params(seed=spec["seed"])
+        res = out[key] = {}
+        if run.get("k11"):
+            unet = int8_unet_from(tr._eval_unet, run["k11"],
+                                  dtype=torch.float32, scales=run["scales"],
+                                  mesh=mesh)
+            # NCHW latents: the RGB ones beside the noise
+            rgb, noise = (torch.from_numpy(rows(spec[k])).permute(0, 3, 1, 2)
+                          for k in ("rgb", "init"))
+            res["x0"] = padded_sample(unet, rgb, noise, steps=spec["steps"],
+                                      graph=False)
+            if run.get("float"):
+                res["float_x0"] = padded_sample(
+                    tr._eval_unet, rgb, noise, steps=spec["steps"],
+                    graph=False)
+            res["local_out_scale"] = {
+                n: A.pack_padded_attention(tr._eval_unet.get_submodule(n),
+                                           m.heads, m._xs()).out_scale
+                for n, m in unet.named_modules()
+                if isinstance(m, PaddedAttentionS8)
+                and m.tp_group is not None}
+        else:
+            res["scales"] = tr.calibrate_int8({"image": spec["image"]},
+                                              noise=spec["calib_noise"])
+            if "scales" in run:
+                tr._int8_act_scales = dict(run["scales"])
+            _, res["x0"] = tr.sample_panoptic(
+                {"image": rows(spec["image"])}, init_noise=rows(spec["init"]),
+                num_inference_steps=spec["steps"])
+            if run.get("float"):
+                tr.int8_inference = False
+                _, res["float_x0"] = tr.sample_panoptic(
+                    {"image": rows(spec["image"])},
+                    init_noise=rows(spec["init"]),
+                    num_inference_steps=spec["steps"])
+                tr.int8_inference = True
+            unet = tr.int8_unet()
+        x, t = (torch.from_numpy(v) for v in spec["forward"])
+        with torch.no_grad():
+            res["forward"] = unet(x.to(tr.compute_dtype), t).float()
+            if run.get("float"):
+                res["float_forward"] = tr.inference_unet()(
+                    x.to(tr.compute_dtype), t).float()
+        res["packs"] = int8_packs(unet)
+        res["grouped"] = {n for n, m in unet.named_modules()
+                          if getattr(m, "tp_group", None) is not None}
+        res["cut"] = set(tp.layout(unet))
+        res["fallbacks"] = [f.fallbacks - b for f, b in zip(counters,
+                                                             before)]
+        del tr, unet
+    return out
+
+
+def int8_options(rank: int, spec: dict) -> dict:
+    """On a ``(spec["data"], spec["model"])`` mesh: the partial modes of
+    ``spec["partial"]`` (:func:`int8_option_partials`) and the runs of
+    :func:`int8_option_runs`."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(spec.get("data", 1), spec.get("model", 2))
+    return {"partial": int8_option_partials(mesh, spec.get("partial", [])),
+            **int8_option_runs(mesh, spec)}
